@@ -7,12 +7,14 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
 
 1. Device: torch's device name and count, and nvidia-smi's name and
    power limit.
-2. Build: every kernel of the serving path is compiled from
-   paddle_tpu_torch/kernels/csrc with nvcc for sm_90a; prints the build
-   seconds and ptxas's registers, shared memory and spills per kernel.
+2. Build: every kernel of the serving and training paths is compiled from
+   paddle_tpu_torch/kernels/csrc with nvcc for sm_90a (one nvcc per
+   source, all started together); prints the build seconds and ptxas's
+   registers, shared memory and spills per kernel.
 3. Kernel vs plain: each kernel's wrapper on CUDA tensors against its plain
-   torch version on the same inputs, at the serving path's shapes and at
-   ragged ones, with the tolerance printed beside the error.
+   torch version on the same inputs, at the paths' shapes and at ragged
+   ones, with the tolerance printed beside the error.  The flash and
+   LM-head backward kernels must also give the same bits twice.
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -23,21 +25,38 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    kernels.  Request 1 is answered again by a CPU predictor
    (use_gpu=False: the plain versions) on the same dir, and the logits at
    each prompt's last position must agree.
-5. Timings: each kernel's device time at the path shape (CUDA events
+5. Train: the same LM's training program (build_lm_net(fused_head=True) +
+   optimizer.Adam(1e-4).minimize) at full width takes 5 Adam steps at
+   batch 32 on one fixed batch through Executor(CUDAPlace(0)).run; every
+   loss must be finite and the last below the first.  The counters are
+   zeroed just before and read just after: each step must launch 13
+   layer-norm, 6 flash forward, 6 flash backward and 1 LM-head forward
+   kernels, and one LM-head backward per 4096-token chunk.  Then one step
+   of the same program at L 2, batch 2 runs on the card and on a CPUPlace
+   executor (the plain versions) from the same weights: the losses must
+   agree; the relu units whose pre-activation took the other branch on
+   the card are listed beside the gradient entries that differ; then the
+   CPU step runs again taking the card's relu branches, and every @GRAD
+   entry must agree.
+6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
    PyTorch library call as a yardstick (the port never calls it); request
-   latency p50 and tokens/s per batch size; peak
-   device memory; then a torch.profiler trace of one batch-8 request
-   split by kernel class, with the device's busy share.
-6. A JSON line with every kernel's numbers, nvidia-smi's line, and as the
-   last line {"ok": true, "device": {...}}.
+   latency p50 and tokens/s per batch size; training step p50 and
+   tokens/s at batch 32; peak device memory; then torch.profiler traces
+   of one batch-8 request and one training step split by kernel class,
+   with the device's busy share.
+7. A JSON line with every kernel's numbers at the training step's shapes
+   (layer norm and flash forward also at the serving shape, under
+   "serve"), nvidia-smi's line, and as the last line {"ok": true,
+   "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product here is full
 f32, so the card and the CPU compute the same math.  The script exits
 non-zero and prints no result when no CUDA device is visible, or when the
 paddle_tpu_torch package is not beside it.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -52,6 +71,11 @@ FLAGSHIP = dict(src_vocab_size=32000, max_length=512, n_layer=6, n_head=8,
                 d_model=512, d_inner=2048, dropout=0.0)
 SERVE_T = 512
 BATCHES = (1, 4, 8)
+TRAIN_T = 512
+TRAIN_BATCH = 32               # bench.py's flagship training batch
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+HEAD_CHUNK = 4096              # layers.fused_lm_head_loss's chunk_size
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 without tensor cores
 SLEEP_CYCLES = 40_000_000      # about 20 ms at the H100's 1.98 GHz boost
@@ -60,6 +84,38 @@ LN_TOL = 1e-4        # abs, f32: the same math summed in another order
 LN_BF16_TOL = 2e-2   # abs on bf16 y of magnitude < 4: one bf16 rounding
 FA_TOL = 2e-4        # abs on o and lse, f32
 LOGIT_RTOL = 1e-3    # of max |logit|: GPU vs CPU, same f32 math
+BWD_RTOL = 1e-4      # of max |plain| (flash: over dq, dk, dv) on the
+                     # backward's outputs: f32 sums over thousands of
+                     # products in another order
+HEAD_TOL = 2e-4      # abs on the LM head's loss and lse (|lse| ~ 10), f32
+STEP_LOSS_RTOL = 1e-5  # training loss, card vs CPU
+# per @GRAD entry, of the @GRAD's max |CPU| entry, card vs a CPU step that
+# takes the card's relu branches: f32 sums in another order
+STEP_GRAD_RTOL = 1e-3
+
+# name -> (module of paddle_tpu_torch.kernels whose wrapper of that name
+# launches the kernel and counts it, CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "layer_norm": ("layer_norm", "layer_norm.cu",
+                   "paddle_tpu/kernels/layer_norm.py:47"),
+    "flash_attention_hdt": ("flash_attention", "flash_attention_hdt.cu",
+                            "paddle_tpu/kernels/flash_attention.py:685"),
+    "flash_attention_hdt_bwd": ("flash_attention",
+                                "flash_attention_hdt_bwd.cu",
+                                "paddle_tpu/kernels/flash_attention.py:794"),
+    "lm_head_fwd": ("lm_head", "lm_head.cu",
+                    "paddle_tpu/kernels/lm_head.py:144"),
+    "lm_head_bwd": ("lm_head", "lm_head.cu",
+                    "paddle_tpu/kernels/lm_head.py:215"),
+}
+
+
+def wrapper(name):
+    """The wrapper whose .launches counts kernel `name`'s launches."""
+    import importlib
+    mod = importlib.import_module("paddle_tpu_torch.kernels."
+                                  + KERNELS[name][0])
+    return getattr(mod, name)
 
 
 def log(msg=""):
@@ -109,6 +165,11 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def rel_err(a, b):
+    """max |a - b| over max |b|."""
+    return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
 def phase_build(torch):
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -126,18 +187,27 @@ def phase_build(torch):
 def phase_compare(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import lm_head as lmh
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {"layer_norm": 0.0, "flash_attention_hdt": 0.0}
+    # name -> {path: max abs err at that path's shape}; "train" and
+    # "serve" are the shapes the training step and a batch-8 request give
+    # the kernel, "ragged" the maximum over the other cases
+    errs = {n: {} for n in KERNELS}
+
+    def note(name, path, e):
+        errs[name][path] = max(errs[name].get(path, 0.0), e)
 
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    for n, d, dtype in [(4096, 512, torch.float32),
-                        (4095, 512, torch.float32),
-                        (333, 2048, torch.float32),
-                        (7, 8192, torch.float32),
-                        (4096, 512, torch.bfloat16)]:
+    for n, d, dtype, path in [
+            (TRAIN_BATCH * TRAIN_T, 512, torch.float32, "train"),
+            (8 * SERVE_T, 512, torch.float32, "serve"),
+            (4095, 512, torch.float32, "ragged"),
+            (333, 2048, torch.float32, "ragged"),
+            (7, 8192, torch.float32, "ragged"),
+            (4096, 512, torch.bfloat16, None)]:
         x = rnd(n, d, dtype=dtype) * 2 + 0.5
         gam, bet = rnd(d), rnd(d)
         got = ln.layer_norm(x, gam, bet, 1e-5)
@@ -149,16 +219,18 @@ def phase_compare(torch):
             f"max abs err {e:.3g} (tol {tol:g})")
         if not e <= tol:
             raise RuntimeError(f"layer_norm kernel disagrees: {e} > {tol}")
-        if dtype == torch.float32:
-            errs["layer_norm"] = max(errs["layer_norm"], e)
+        if path:
+            note("layer_norm", path, e)
 
-    # (H, d, B, Tq, Tk, causal, kv_len, strided q)
-    for H, d, B, Tq, Tk, causal, kv_len, strided in [
-            (8, 64, 8, 512, 512, True, None, False),     # the path shape
-            (8, 64, 2, 300, 300, False, 250, False),
-            (8, 64, 2, 200, 333, False, None, False),    # cross, Tq != Tk
-            (4, 128, 2, 300, 300, True, None, False),
-            (4, 64, 3, 130, 130, True, None, True)]:
+    # (H, d, B, Tq, Tk, causal, kv_len, strided q, path)
+    for H, d, B, Tq, Tk, causal, kv_len, strided, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, False,
+             "train"),
+            (8, 64, 8, SERVE_T, SERVE_T, True, None, False, "serve"),
+            (8, 64, 2, 300, 300, False, 250, False, "ragged"),
+            (8, 64, 2, 200, 333, False, None, False, "ragged"),  # Tq != Tk
+            (4, 128, 2, 300, 300, True, None, False, "ragged"),
+            (4, 64, 3, 130, 130, True, None, True, "ragged")]:
         if strided:   # q as a transposed view: token stride d, not 1
             q = rnd(H, B * Tq, d).transpose(1, 2)
         else:
@@ -175,7 +247,80 @@ def phase_compare(torch):
             f"max abs err {e:.3g} (tol {FA_TOL:g})")
         if not e <= FA_TOL:
             raise RuntimeError(f"flash kernel disagrees: {e} > {FA_TOL}")
-        errs["flash_attention_hdt"] = max(errs["flash_attention_hdt"], e)
+        note("flash_attention_hdt", path, e)
+
+    # flash backward from the forward's residuals: (H, d, B, Tq, Tk,
+    # causal, kv_len, strided q and do, path)
+    for H, d, B, Tq, Tk, causal, kv_len, strided, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, False,
+             "train"),
+            (8, 64, 2, 300, 300, False, 250, False, "ragged"),
+            (8, 64, 2, 200, 333, False, None, False, "ragged"),
+            (4, 128, 2, 300, 300, True, None, False, "ragged"),
+            (4, 64, 3, 130, 130, True, None, True, "ragged")]:
+        if strided:   # token stride d, as a transposed view (do: as
+            q = rnd(H, B * Tq, d).transpose(1, 2)   # autograd hands it)
+            do = rnd(H, B * Tq, d).transpose(1, 2)
+        else:
+            q, do = rnd(H, d, B * Tq), rnd(H, d, B * Tq)
+        k, v = rnd(H, d, B * Tk), rnd(H, d, B * Tk)
+        o, lse = fa.flash_attention_hdt_plain(q, k, v, B, causal=causal,
+                                              kv_len=kv_len)
+        delta = (do * o).sum(1, keepdim=True)
+        args = (q, k, v, lse, delta, do, B)
+        kw = dict(causal=causal, kv_len=kv_len)
+        got = fa.flash_attention_hdt_bwd(*args, **kw)
+        again = fa.flash_attention_hdt_bwd(*args, **kw)
+        want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        # of the largest plain gradient: dq and dk nearly vanish where a
+        # query sees one key (ds = p * (do.v - do.o))
+        r = e / max(float(b.abs().max()) for b in want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[compare] flash_attention_hdt_bwd H={H} d={d} B={B} Tq={Tq} "
+            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided}: "
+            f"max abs err {e:.3g}, {r:.3g} of max |plain| (tol "
+            f"{BWD_RTOL:g}); two runs bit-identical: {same}")
+        if not r <= BWD_RTOL:
+            raise RuntimeError(f"flash backward disagrees: {r} > {BWD_RTOL}")
+        if not same:
+            raise RuntimeError("flash backward is not deterministic")
+        note("flash_attention_hdt_bwd", path, e)
+
+    # LM head: (N, D, V, chunk, ignored labels, path)
+    for N, D, V, chunk, n_ign, path in [
+            (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, "train"),
+            (1000, 512, 1001, 256, 37, "ragged")]:
+        x, w = rnd(N, D), rnd(D, V) * 0.05
+        y = torch.randint(0, V, (N,), generator=g, device=dev)
+        y[torch.randperm(N, generator=g, device=dev)[:n_ign]] = -1
+        gl = torch.rand(N, generator=g, device=dev) * (2.0 / N)
+        loss, lse = lmh.lm_head_fwd(x, w, y)
+        ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
+        got = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+        again = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+        want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
+        torch.cuda.synchronize()
+        ef = max(max_err(loss, ploss), max_err(lse, plse))
+        eb = max(max_err(a, b) for a, b in zip(got, want))
+        rb = max(rel_err(a, b) for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[compare] lm_head_fwd N={N} D={D} V={V} ignored={n_ign}: "
+            f"max abs err on loss and lse {ef:.3g} (tol {HEAD_TOL:g})")
+        log(f"[compare] lm_head_bwd N={N} D={D} V={V} chunk={chunk}: max "
+            f"abs err {eb:.3g}, {rb:.3g} of max |plain| (tol "
+            f"{BWD_RTOL:g}); two runs bit-identical: {same}")
+        if not ef <= HEAD_TOL:
+            raise RuntimeError(f"LM head forward disagrees: {ef}")
+        if not bool((loss[y < 0] == 0).all()):
+            raise RuntimeError("LM head forward: ignored labels give loss")
+        if not rb <= BWD_RTOL:
+            raise RuntimeError(f"LM head backward disagrees: {rb}")
+        if not same:
+            raise RuntimeError("LM head backward is not deterministic")
+        note("lm_head_fwd", path, ef)
+        note("lm_head_bwd", path, eb)
     return errs
 
 
@@ -183,14 +328,13 @@ def phase_serve(torch):
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.models import transformer as tr
 
     cfg = tr.TransformerConfig(**FLAGSHIP)
     T, V = SERVE_T, cfg.src_vocab_size
-    ln.layer_norm.launches = 0
-    fa.flash_attention_hdt.launches = 0
+    counters = {n: wrapper(n) for n in ("layer_norm", "flash_attention_hdt")}
+    for fn in counters.values():
+        fn.launches = 0
 
     ptt.reset_default_programs()
     main, startup = ptt.Program(), ptt.Program()
@@ -248,8 +392,7 @@ def phase_serve(torch):
             torch.cuda.synchronize()
             dev_ms[len(lens)].append((time.perf_counter() - t0) * 1e3)
             runs += 1
-        counts = {"layer_norm": ln.layer_norm.launches,
-                  "flash_attention_hdt": fa.flash_attention_hdt.launches}
+        counts = {n: fn.launches for n, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         # per request: 2 layer norms per layer + the final one; one
         # attention per layer (13 and 6 for the flagship)
@@ -285,28 +428,236 @@ def phase_serve(torch):
     return counts, pred, requests[-1][0]
 
 
+def build_train(cfg):
+    """The flagship training program: (main, startup, avg_cost, param
+    grads)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        _, avg_cost, _ = tr.build_lm_net(cfg, TRAIN_T, fused_attention=True,
+                                         fused_head=True)
+        _, pg = ptt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(
+            avg_cost)
+    return main, startup, avg_cost, pg
+
+
+def phase_train(torch):
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(**FLAGSHIP)
+    main, startup, avg_cost, pg = build_train(cfg)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    batch = tr.make_fake_lm_batch(cfg, TRAIN_BATCH, TRAIN_T, seed=SEED)
+    ops = [op.type for op in main.global_block().ops]
+    log(f"[train] flagship LM d{cfg.d_model}/L{cfg.n_layer}/H{cfg.n_head}/"
+        f"d_inner{cfg.d_inner}/V{cfg.src_vocab_size} T={TRAIN_T} batch "
+        f"{TRAIN_BATCH}: {len(pg)} trainable params, {len(ops)} ops "
+        f"({ops.count('adam')} adam, {ops.count('autodiff')} autodiff)")
+    counters = {n: wrapper(n) for n in KERNELS}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=batch, fetch_list=[avg_cost])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss[0]))
+        log(f"[train] step {step}: loss {losses[-1]:.6f} "
+            f"({step_ms[-1]:.1f} ms)")
+    counts = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = TRAIN_BATCH * TRAIN_T
+    chunk, = [op.attrs["chunk_size"] for op in main.global_block().ops
+              if op.type == "fused_lm_head_loss"]
+    per_step = {"layer_norm": 2 * cfg.n_layer + 1,
+                "flash_attention_hdt": cfg.n_layer,
+                "flash_attention_hdt_bwd": cfg.n_layer,
+                "lm_head_fwd": 1,
+                "lm_head_bwd": -(-n_tok // chunk)}
+    want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
+    log(f"[train] {TRAIN_STEPS} steps; kernel launches {counts} (expected "
+        f"{want}, per step {per_step})")
+    if counts != want:
+        raise RuntimeError(f"launch counts {counts} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"training loss did not fall: {losses}")
+    # steady-state step time: more steps on the same batch
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[avg_cost])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(step_ms[1:]))
+    log(f"[train] step time p50 {p50:.2f} ms over steps 1-"
+        f"{len(step_ms) - 1} ({n_tok / p50 * 1e3:.0f} tokens/s at batch "
+        f"{TRAIN_BATCH}x{TRAIN_T}); first step {step_ms[0]:.2f} ms; peak "
+        f"device memory {peak / 2**20:.1f} MiB")
+    train_match(torch)
+    return counts, dict(exe=exe, main=main, batch=batch,
+                        avg_cost=avg_cost, p50_ms=p50, peak=peak)
+
+
+@contextlib.contextmanager
+def replayed_relu_masks(masks):
+    """Within the block every relu op computes x * mask, taking the masks
+    in the order the ops run; yields the list of masks not yet taken."""
+    import dataclasses
+    from paddle_tpu_torch.framework import registry
+    orig = registry.get_op_def("relu")
+    left = list(masks)
+
+    def lower(ctx, ins, attrs):
+        x = registry.single_input(ins)
+        return {"Out": [x * left.pop(0).to(x.device, x.dtype)]}
+
+    registry._REGISTRY["relu"] = dataclasses.replace(orig, lower=lower)
+    try:
+        yield left
+    finally:
+        registry._REGISTRY["relu"] = orig
+
+
+def train_match(torch):
+    """One step of the training program at full width, L 2, batch 2, from
+    the same weights on the card and on the CPU (the plain versions).
+
+    The losses must agree.  Where a pre-activation lies within rounding of
+    0, the two devices may take different relu branches, and the gradient
+    then differs by that (token, unit)'s share.  So the step lists the
+    relu flips and where the gradients differ, then runs the CPU step
+    again taking the card's relu branches: every @GRAD entry must then
+    agree within STEP_GRAD_RTOL of its @GRAD's max entry."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(**dict(FLAGSHIP, n_layer=2))
+    main, startup, avg_cost, pg = build_train(cfg)
+    init = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    init.run(startup)
+    state = {v.name: init.scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    block = main.global_block()
+    producer = {n: op for op in block.ops for n in op.output_names()}
+    # each FFN relu's input, and the fc weight and bias behind it
+    # (mul -> elementwise_add -> relu)
+    relus, ffn_params = [], []
+    for op in block.ops:
+        if op.type == "relu":
+            pre = op.inputs["X"][0]
+            add = producer[pre]
+            mul = producer[add.inputs["X"][0]]
+            relus.append(pre)
+            ffn_params.append((mul.inputs["Y"][0], add.inputs["Y"][0]))
+    batch = tr.make_fake_lm_batch(cfg, 2, TRAIN_T, seed=SEED + 2)
+    fetch = [avg_cost] + [gv for _, gv in pg] + relus
+    n_g = len(pg)
+
+    def step(place):
+        scope = ptt.Scope()
+        ptt.io.params_from_numpy(scope, state, place)
+        out = ptt.Executor(place, scope=scope).run(main, feed=batch,
+                                                   fetch_list=fetch)
+        return out[0][0], out[1:1 + n_g], out[1 + n_g:]
+
+    loss, grads, pres = step(ptt.CUDAPlace(0))
+    cpu_loss, cpu_grads, cpu_pres = step(ptt.CPUPlace())
+    le = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    log(f"[train] L2 batch 2 step, card vs CPU: loss {loss:.6f} vs "
+        f"{cpu_loss:.6f} (rel err {le:.3g}, tol {STEP_LOSS_RTOL:g})")
+    if not le <= STEP_LOSS_RTOL:
+        raise RuntimeError("training loss differs between card and CPU")
+
+    flipped_units, masks = {}, []
+    for pre, (w, b), a, c in zip(relus, ffn_params, pres, cpu_pres):
+        flip = (a > 0) != (c > 0)
+        tok, unit = np.nonzero(flip.reshape(-1, flip.shape[-1]))
+        flipped_units[w] = flipped_units[b] = set(unit.tolist())
+        near = np.abs(c[flip]).max() if flip.any() else 0.0
+        log(f"[train]   relu of {w}: {int(flip.sum())} of {flip.size} "
+            f"pre-activations on the other branch on the card, at (token, "
+            f"unit) {list(zip(tok.tolist(), unit.tolist()))[:8]}; there "
+            f"max |CPU pre-activation| {near:.3g}, against max |card - "
+            f"CPU| {np.abs(a - c).max():.3g} over all of them and max "
+            f"|pre-activation| {np.abs(c).max():.3g}")
+        masks.append(torch.from_numpy((a > 0).astype(np.float32)))
+    for (p, _), a, c in zip(pg, grads, cpu_grads):
+        if a.shape != c.shape or not np.isfinite(a).all():
+            raise RuntimeError(f"{p.name}@GRAD: bad card gradient")
+        far = np.abs(a - c) > STEP_GRAD_RTOL * max(np.abs(c).max(), 1e-30)
+        if far.any():
+            where = "not an FFN weight behind a relu"
+            if p.name in flipped_units:
+                # the unit is the last axis of the fc weight [in, units]
+                # and of its bias [units]
+                units = set(np.nonzero(far)[-1].tolist())
+                where = (f"in units {sorted(units)[:8]}, all of them "
+                         f"flipped: {units <= flipped_units[p.name]}")
+            log(f"[train]   {p.name}@GRAD: {int(far.sum())} entries off by "
+                f"more than {STEP_GRAD_RTOL:g} of its max entry (up to "
+                f"{np.abs(a - c).max() / np.abs(c).max():.3g}), {where}")
+
+    with replayed_relu_masks(masks) as left:
+        r_loss, r_grads, _ = step(ptt.CPUPlace())
+    if left:
+        raise RuntimeError(f"{len(left)} relu masks were not replayed")
+    worst, worst_name = 0.0, ""
+    for (p, _), a, c in zip(pg, grads, r_grads):
+        r = float(np.abs(a - c).max()) / max(float(np.abs(c).max()), 1e-30)
+        if r > worst:
+            worst, worst_name = r, p.name
+    le = abs(float(loss) - float(r_loss)) / abs(float(r_loss))
+    log(f"[train] L2 step, card vs CPU taking the card's relu branches: "
+        f"loss rel err {le:.3g} (tol {STEP_LOSS_RTOL:g}); worst of "
+        f"{n_g} @GRADs max |card - CPU| {worst:.3g} of max |CPU| "
+        f"({worst_name}; tol {STEP_GRAD_RTOL:g})")
+    if not le <= STEP_LOSS_RTOL:
+        raise RuntimeError("training loss differs between card and CPU")
+    if not worst <= STEP_GRAD_RTOL:
+        raise RuntimeError(f"{worst_name}@GRAD differs between card and "
+                           f"CPU: {worst}")
+
+
 def _kernel_class(name):
+    if "flash_bwd" in name:
+        return "flash_attention_hdt_bwd (this repo)"
     if "flash_fwd_hdt" in name:
         return "flash_attention_hdt (this repo)"
     if "ln_fwd_kernel" in name:
         return "layer_norm (this repo)"
+    if "lm_head_fwd_kernel" in name:
+        return "lm_head_fwd (this repo)"
+    if "lm_head_dlogits" in name or "lm_head_gemm" in name:
+        return "lm_head_bwd (this repo)"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul (cuBLAS)"
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "copies"
-    return "other (elementwise, embedding, reductions)"
+    return "other (elementwise, embedding, reductions, adam)"
 
 
-def trace_request(torch, pred, toks):
-    """Device-time breakdown of one request (no logits readback) from a
-    torch.profiler trace: kernel time by class and the device's busy
-    share of the request's wall time."""
+def trace_run(torch, label, fn):
+    """Device-time breakdown of one call of fn from a torch.profiler
+    trace: kernel time by class and the device's busy share of the call's
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.run({"tokens": toks}, return_numpy=False)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_class, launches = {}, {}
@@ -320,9 +671,8 @@ def trace_request(torch, pred, toks):
     busy = sum(by_class.values())
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    log(f"[trace] batch {toks.shape[0]} request: wall {wall_us / 1e3:.3f} "
-        f"ms, device busy {busy / 1e3:.3f} ms "
-        f"({100 * busy / wall_us:.1f} %), idle "
+    log(f"[trace] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f} %), idle "
         f"{100 * (1 - busy / wall_us):.1f} %")
     for c, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         log(f"[trace]   {c}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} % of "
@@ -333,66 +683,150 @@ def phase_timings(torch):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import lm_head as lmh
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     res = {}
 
-    # layer norm at the path shape: B*T = 8*512 rows of d_model 512.  The
-    # inputs rotate over 8 buffers (64 MiB > the 50 MB L2), so each launch
-    # reads x from device memory as the bound assumes.
-    N, D = 8 * 512, 512
-    xs = [torch.randn(N, D, generator=g, device=dev) for _ in range(8)]
-    gam = torch.randn(D, generator=g, device=dev)
-    bet = torch.randn(D, generator=g, device=dev)
-    it = iter(range(1 << 30))
+    # layer norm and flash forward at both paths' shapes: the training
+    # step's batch 32 and a served batch 8, T 512.  The layer-norm inputs
+    # rotate over 8 buffers (64 MiB or more, > the 50 MB L2), so each
+    # launch reads x from device memory as the bound assumes.
+    gam = torch.randn(512, generator=g, device=dev)
+    bet = torch.randn(512, generator=g, device=dev)
+    for path, B in (("train", TRAIN_BATCH), ("serve", 8)):
+        N, D = B * TRAIN_T, 512
+        xs = [torch.randn(N, D, generator=g, device=dev) for _ in range(8)]
+        it = iter(range(1 << 30))
 
-    def rot():
-        return xs[next(it) % len(xs)]
+        def rot():
+            return xs[next(it) % len(xs)]
 
-    ms, host = time_ms(lambda: ln.layer_norm(rot(), gam, bet, 1e-5))
-    plain, plain_host = time_ms(
-        lambda: ln.layer_norm_plain(rot(), gam, bet, 1e-5))
-    lib, lib_host = time_ms(lambda: F.layer_norm(rot(), (D,), gam, bet,
-                                                 1e-5))
-    nbytes = 2 * N * D * 4 + 2 * D * 4 + 2 * N * 4
-    ops = 8 * N * D
+        ms, host = time_ms(lambda: ln.layer_norm(rot(), gam, bet, 1e-5))
+        plain, plain_host = time_ms(
+            lambda: ln.layer_norm_plain(rot(), gam, bet, 1e-5))
+        lib, lib_host = time_ms(lambda: F.layer_norm(rot(), (D,), gam, bet,
+                                                     1e-5))
+        del xs
+        nbytes = 2 * N * D * 4 + 2 * D * 4 + 2 * N * 4
+        ops = 8 * N * D
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        res.setdefault("layer_norm", {})[path] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+            bound_by="bytes")
+        log(f"[time] layer_norm ({path}) N={N} D={D} f32: kernel {ms:.4f} "
+            f"ms, plain {plain:.4f} ms, F.layer_norm {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s); host enqueue per call: "
+            f"wrapper {host:.4f} ms, plain {plain_host:.4f} ms, "
+            f"F.layer_norm {lib_host:.4f} ms")
+
+    H, d, T = 8, 64, TRAIN_T
+
+    def bhtd_b(x, batch):
+        return x.reshape(H, d, batch, T).permute(2, 0, 3, 1).contiguous()
+
+    for path, B in (("train", TRAIN_BATCH), ("serve", 8)):
+        q, k, v = (torch.randn(H, d, B * T, generator=g, device=dev)
+                   for _ in range(3))
+        q4, k4, v4 = (bhtd_b(x, B) for x in (q, k, v))
+        ms, host = time_ms(lambda: fa.flash_attention_hdt(q, k, v, B,
+                                                          causal=True))
+        plain, _ = time_ms(lambda: fa.flash_attention_hdt_plain(
+            q, k, v, B, causal=True), iters=10)
+        lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        pairs = B * H * T * (T + 1) // 2      # (query, key) pairs kept
+        ops = 4 * d * pairs                   # q.k and p.v, 2 FLOP/MAC
+        nbytes = 4 * (4 * H * d * B * T + H * B * T)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        res.setdefault("flash_attention_hdt", {})[path] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+            bound_by="operations")
+        log(f"[time] flash_attention_hdt ({path}) H={H} d={d} B={B} T={T} "
+            f"causal f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} "
+            f"TFLOP/s), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({ops / 1e9:.3f} GFLOP at "
+            f"{F32_FLOPS_PER_S / 1e12:g} TFLOP/s); host enqueue per call "
+            f"{host:.4f} ms")
+
+    # flash backward at the training path's shape: B 32
+    B = TRAIN_BATCH
+    q, k, v, do = (torch.randn(H, d, B * T, generator=g, device=dev)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_hdt(q, k, v, B, causal=True)
+    delta = (do * o).sum(1, keepdim=True)
+    ms, host = time_ms(lambda: fa.flash_attention_hdt_bwd(
+        q, k, v, lse, delta, do, B, causal=True), iters=20, warmup=2)
+    plain, _ = time_ms(lambda: fa.flash_attention_hdt_bwd_plain(
+        q, k, v, lse, delta, do, B, causal=True), iters=5, warmup=1)
+    q4, k4, v4 = (bhtd_b(x, B).requires_grad_() for x in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = bhtd_b(do, B)
+    lib, _ = time_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True), iters=20, warmup=2)
+    del o4
+    pairs = B * H * T * (T + 1) // 2
+    ops = 10 * d * pairs                      # 5 d-long products per pair
+    nbytes = 4 * (7 * H * d * B * T + 2 * H * B * T)
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
-    res["layer_norm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by="bytes")
-    log(f"[time] layer_norm N={N} D={D} f32: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, F.layer_norm {lib:.4f} ms, bound {bound:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:g} TB/s); host "
-        f"enqueue per call: wrapper {host:.4f} ms, plain {plain_host:.4f} "
-        f"ms, F.layer_norm {lib_host:.4f} ms")
-
-    # flash attention at the path shape: H 8, d 64, B 8, T 512, causal
-    H, d, B, T = 8, 64, 8, 512
-    q = torch.randn(H, d, B * T, generator=g, device=dev)
-    k = torch.randn(H, d, B * T, generator=g, device=dev)
-    v = torch.randn(H, d, B * T, generator=g, device=dev)
-
-    def bhtd(x):
-        return x.reshape(H, d, B, T).permute(2, 0, 3, 1).contiguous()
-
-    q4, k4, v4 = bhtd(q), bhtd(k), bhtd(v)
-    ms, host = time_ms(lambda: fa.flash_attention_hdt(q, k, v, B,
-                                                      causal=True))
-    plain, _ = time_ms(lambda: fa.flash_attention_hdt_plain(q, k, v, B,
-                                                            causal=True),
-                       iters=10)
-    lib, _ = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                            is_causal=True))
-    pairs = B * H * T * (T + 1) // 2          # (query, key) pairs kept
-    ops = 4 * d * pairs                       # q.k and p.v, 2 FLOP/MAC
-    nbytes = 4 * (4 * H * d * B * T + H * B * T)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
-    res["flash_attention_hdt"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                      bound_ms=bound, bound_by="operations")
-    log(f"[time] flash_attention_hdt H={H} d={d} B={B} T={T} causal f32: "
-        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
-        f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms "
+    res["flash_attention_hdt_bwd"] = {"train": dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+        bound_by="operations")}
+    log(f"[time] flash_attention_hdt_bwd H={H} d={d} B={B} T={T} causal "
+        f"f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the "
+        f"least work; the kernels do 7/5 of it), plain {plain:.4f} ms, "
+        f"sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
         f"({ops / 1e9:.3f} GFLOP at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s); "
         f"host enqueue per call {host:.4f} ms")
+
+    # LM head at the training path's shape: N = 32 x 512 tokens, D 512,
+    # V 32000; the loss cotangent is 1/N, as the op's mean gives it
+    N, D, V = TRAIN_BATCH * TRAIN_T, 512, 32000
+    x = torch.randn(N, D, generator=g, device=dev)
+    w = torch.randn(D, V, generator=g, device=dev) * 0.05
+    y = torch.randint(0, V, (N,), generator=g, device=dev)
+    gl = torch.full((N,), 1.0 / N, device=dev)
+    _, lse = lmh.lm_head_fwd(x, w, y)
+    fms, fhost = time_ms(lambda: lmh.lm_head_fwd(x, w, y), iters=5,
+                         warmup=1)
+    fplain, _ = time_ms(lambda: lmh.lm_head_fwd_plain(x, w, y), iters=5,
+                        warmup=1)
+    flib, _ = time_ms(lambda: F.cross_entropy(
+        torch.matmul(x, w), y, reduction="none"), iters=5, warmup=1)
+    bms, bhost = time_ms(lambda: lmh.lm_head_bwd(x, w, y, lse, gl,
+                                                 HEAD_CHUNK),
+                         iters=3, warmup=1)
+    bplain, _ = time_ms(lambda: lmh.lm_head_bwd_plain(x, w, y, lse, gl,
+                                                      HEAD_CHUNK),
+                        iters=3, warmup=1)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ce = F.cross_entropy(torch.matmul(xg, wg), y, reduction="none")
+    blib, _ = time_ms(lambda: torch.autograd.grad(ce, (xg, wg), gl,
+                                                  retain_graph=True),
+                      iters=3, warmup=1)
+    del ce
+    fops = 2 * N * D * V
+    fbytes = 4 * (N * D + D * V) + 8 * N + 2 * 4 * N
+    bbytes = 4 * (2 * N * D + 2 * D * V) + 8 * N + 2 * 4 * N
+    fbound = max(fbytes / HBM_BYTES_PER_S, fops / F32_FLOPS_PER_S) * 1e3
+    bbound = max(bbytes / HBM_BYTES_PER_S,
+                 3 * fops / F32_FLOPS_PER_S) * 1e3
+    res["lm_head_fwd"] = {"train": dict(
+        ms=fms, plain_ms=fplain, library_ms=flib, bound_ms=fbound,
+        bound_by="operations")}
+    res["lm_head_bwd"] = {"train": dict(
+        ms=bms, plain_ms=bplain, library_ms=blib, bound_ms=bbound,
+        bound_by="operations")}
+    log(f"[time] lm_head_fwd N={N} D={D} V={V} f32: kernel {fms:.3f} ms "
+        f"({fops / fms / 1e9:.2f} TFLOP/s), plain {fplain:.3f} ms, matmul "
+        f"+ F.cross_entropy {flib:.3f} ms, bound {fbound:.3f} ms "
+        f"({fops / 1e9:.1f} GFLOP); host enqueue per call {fhost:.4f} ms")
+    log(f"[time] lm_head_bwd N={N} D={D} V={V} chunk {HEAD_CHUNK} f32: "
+        f"kernel {bms:.3f} ms ({3 * fops / bms / 1e9:.2f} TFLOP/s), plain "
+        f"{bplain:.3f} ms, autograd of matmul + F.cross_entropy "
+        f"{blib:.3f} ms, bound {bbound:.3f} ms ({3 * fops / 1e9:.1f} "
+        f"GFLOP); host enqueue per call {bhost:.4f} ms")
     return res
 
 
@@ -418,22 +852,31 @@ def main():
 
     phase_build(torch)
     errs = phase_compare(torch)
-    counts, pred, toks = phase_serve(torch)
+    serve_counts, pred, toks = phase_serve(torch)
+    counts, train = phase_train(torch)
     times = phase_timings(torch)
     # last: the profiler stays attached to the process once started, and
     # its per-launch cost would skew the timings above
-    trace_request(torch, pred, toks)
+    trace_run(torch, f"batch {toks.shape[0]} request",
+              lambda: pred.run({"tokens": toks}, return_numpy=False))
+    trace_run(torch, f"training step at batch {TRAIN_BATCH}",
+              lambda: train["exe"].run(train["main"], feed=train["batch"],
+                                       fetch_list=[train["avg_cost"]],
+                                       return_numpy=False))
 
-    sources = {"layer_norm": "paddle_tpu_torch/kernels/csrc/layer_norm.cu",
-               "flash_attention_hdt":
-                   "paddle_tpu_torch/kernels/csrc/flash_attention_hdt.cu"}
-    replaces = {"layer_norm": "paddle_tpu/kernels/layer_norm.py:47",
-                "flash_attention_hdt":
-                    "paddle_tpu/kernels/flash_attention.py:685"}
-    kernels = [dict(name=n, route="cuda", source=sources[n],
-                    replaces=replaces[n], launches=counts[n],
-                    max_abs_err=errs[n], **times[n])
-               for n in ("layer_norm", "flash_attention_hdt")]
+    # the training step's launches, errors and times; the two kernels
+    # that serving runs too carry the serving shape's under "serve"
+    kernels = []
+    for n, (_, source, replaces) in KERNELS.items():
+        k = dict(name=n, route="cuda",
+                 source="paddle_tpu_torch/kernels/csrc/" + source,
+                 replaces=replaces, launches=counts[n],
+                 max_abs_err=errs[n]["train"], **times[n]["train"])
+        if n in serve_counts:
+            k["serve"] = dict(launches=serve_counts[n],
+                              max_abs_err=errs[n]["serve"],
+                              **times[n]["serve"])
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The same Fluid-style system — a Program/Block/Operator IR built by
-``layers.*``, one ``lower`` function per registered op, ``Executor.run``,
+``layers.*``, one ``lower`` function per registered op, a single
+``autodiff`` op for gradients and ``optimizer.Adam``, ``Executor.run``,
 ``io`` and the ``Predictor`` — with each op lowered to torch and each
 Pallas TPU kernel on the ported path replaced by a CUDA kernel written by
 hand for Hopper (``kernels/``).  The JAX package ``paddle_tpu`` stays the
@@ -23,6 +24,7 @@ from .framework.executor import Executor, Scope, global_scope
 from .framework.layer_helper import ParamAttr
 from .framework import initializer
 from . import layers
+from . import optimizer
 from . import io
 from . import inference
 from . import models
@@ -31,5 +33,5 @@ __all__ = ["core", "flags", "CPUPlace", "CUDAPlace", "default_place",
            "Program", "Block", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program",
            "reset_default_programs", "unique_name", "Executor", "Scope",
-           "global_scope", "ParamAttr", "initializer", "layers", "io",
-           "inference", "models"]
+           "global_scope", "ParamAttr", "initializer", "layers",
+           "optimizer", "io", "inference", "models"]

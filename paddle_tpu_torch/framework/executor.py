@@ -3,9 +3,22 @@
 Counterpart of paddle_tpu/framework/executor.py (``Scope``,
 ``global_scope``, ``run_ops_in_env`` and ``Executor.run``).  The JAX
 package traces the whole program into one jitted XLA function; here
-``run`` interprets the ops eagerly, in program order, under
-``torch.inference_mode()``.  Each op's lowering launches its hand-written
-kernel for CUDA tensors and its plain torch version for CPU tensors.
+``run`` interprets the ops eagerly, in program order.  Each op's lowering
+launches its hand-written kernel for CUDA tensors and its plain torch
+version for CPU tensors.
+
+A program without an ``autodiff`` op runs under ``torch.inference_mode()``.
+A training program (one ``autodiff`` op, as framework/backward.py appends
+it) is expanded as the JAX package does with ``jax.vjp``
+(paddle_tpu/framework/executor.py:1162-1182): the trainable params become
+leaf tensors that require grad, the ops before ``autodiff`` run under
+``torch.enable_grad()``, ``torch.autograd.grad`` gives every
+``param@GRAD`` (zeros for a param the loss does not reach, as JAX's vjp
+gives), and the ops after it (the optimizer updates) run under
+``torch.no_grad()``.  Inference tensors cannot be saved for backward, so a
+training run first copies any persistable that an inference-mode run
+(the startup program, say) left in the scope.
+
 There is no compiled-program cache, mesh, ``run_steps`` or pipeline yet.
 """
 from __future__ import annotations
@@ -17,7 +30,7 @@ import torch
 
 from ..core import flags
 from ..core.dtypes import to_torch_dtype
-from ..core.enforce import EnforceNotMet
+from ..core.enforce import EnforceNotMet, check_arg
 from ..core.place import Place, default_place
 from .program import Program, Variable, default_main_program
 from .registry import LowerContext, _fold, get_op_def
@@ -135,25 +148,71 @@ class Executor:
         persist = sorted({v.name for v in program.list_vars()
                           if v.persistable})
         ctx = LowerContext(self._seed(program), device)
-        with torch.inference_mode():
-            env: Dict[str, Any] = {}
-            for n in persist:
-                val = scope.find_var(n)
-                if val is not None:
-                    env[n] = val.to(device)
-            for name, val in (feed or {}).items():
-                var = block.var(name) if block.has_var(name) else None
-                env[name] = as_tensor(val, var, device)
-            env = run_ops_in_env(ctx, env, ops)
-            written = {n for op in ops for n in op.output_names()}
-            for n in persist:
-                if n in written:
-                    scope.set_var(n, env[n])
-            missing = [n for n in fetch_names if n not in env]
-            if missing:
-                raise KeyError(f"fetch targets {missing} are neither fed, "
-                               f"persistable nor produced by the program")
-            fetches = [env[n] for n in fetch_names]
+        ad_idx = [i for i, op in enumerate(ops) if op.type == "autodiff"]
+        check_arg(len(ad_idx) <= 1,
+                  "at most one autodiff op per program is supported")
+        if ad_idx:
+            env = self._run_training(ctx, scope, block, ops, ad_idx[0],
+                                     persist, feed, device)
+        else:
+            with torch.inference_mode():
+                env = self._load_env(scope, block, persist, feed, device)
+                env = run_ops_in_env(ctx, env, ops)
+        written = {n for op in ops for n in op.output_names()}
+        for n in persist:
+            if n in written:
+                scope.set_var(n, env[n])
+        missing = [n for n in fetch_names if n not in env]
+        if missing:
+            raise KeyError(f"fetch targets {missing} are neither fed, "
+                           f"persistable nor produced by the program")
+        fetches = [env[n].detach() for n in fetch_names]
         if return_numpy:
             return [to_numpy(t) for t in fetches]
         return fetches
+
+    @staticmethod
+    def _load_env(scope, block, persist, feed, device) -> Dict[str, Any]:
+        env: Dict[str, Any] = {}
+        for n in persist:
+            val = scope.find_var(n)
+            if val is not None:
+                env[n] = val.to(device)
+        for name, val in (feed or {}).items():
+            var = block.var(name) if block.has_var(name) else None
+            env[name] = as_tensor(val, var, device)
+        return env
+
+    def _run_training(self, ctx, scope, block, ops, ad_idx, persist, feed,
+                      device) -> Dict[str, Any]:
+        """Forward under autograd, ``torch.autograd.grad`` at the
+        ``autodiff`` op, then the update ops without autograd."""
+        attrs = ops[ad_idx].attrs
+        loss_name = attrs["loss"]
+        env = self._load_env(scope, block, persist, feed, device)
+        for n, t in env.items():
+            if t.is_inference():
+                env[n] = t.clone()
+        params = []
+        for n in attrs["params"]:
+            if n not in env:
+                raise EnforceNotMet(f"autodiff: parameter {n!r} is not in "
+                                    f"the scope; run the startup program")
+            env[n] = env[n].detach().requires_grad_(True)
+            params.append(env[n])
+        with torch.enable_grad():
+            env = run_ops_in_env(ctx, env, ops[:ad_idx])
+            loss = env[loss_name]
+            check_arg(loss.numel() == 1,
+                      f"autodiff loss {loss_name!r} must be scalar, got "
+                      f"shape {tuple(loss.shape)}")
+            grads = torch.autograd.grad(loss, params,
+                                        torch.ones_like(loss),
+                                        allow_unused=True)
+        for n, p in zip(attrs["params"], params):
+            env[n] = p.detach()
+        for gname, p, g in zip(attrs["grads"], params, grads):
+            env[gname] = torch.zeros_like(p) if g is None else g
+        with torch.no_grad():
+            env = run_ops_in_env(ctx, env, ops[ad_idx + 1:])
+        return env

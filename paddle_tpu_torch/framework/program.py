@@ -26,6 +26,12 @@ from . import unique_name
 # clone/save/load untouched
 _OWN_KEYS = ("version", "random_seed", "blocks")
 
+GRAD_SUFFIX = "@GRAD"  # ref framework: core.grad_var_suffix()
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
 
 class Variable:
     """A named tensor slot in a Block.

@@ -11,6 +11,13 @@ device memory once.
 ``layer_norm`` decides by the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU or meta tensor takes ``layer_norm_plain``.
 ``layer_norm.launches`` counts kernel launches.
+
+``layer_norm_train`` is the differentiable entry (a
+``torch.autograd.Function`` over ``layer_norm``).  Its backward,
+``layer_norm_bwd_plain``, is the JAX package's analytic VJP
+(``_make_ln.bwd``, paddle_tpu/kernels/layer_norm.py:84-103), cotangents
+through the mean and rstd outputs included.  That VJP is XLA math there,
+not a Pallas kernel, so it is plain torch on both devices here.
 """
 from __future__ import annotations
 
@@ -26,15 +33,43 @@ _fn = None
 
 def layer_norm_plain(x2d: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, eps: float = 1e-5):
-    """(y, mean, rstd) of x2d [N, D]: f32 statistics, centred variance,
-    y in x's dtype — the arithmetic of the JAX package's _ln_kernel."""
-    x = x2d.float()
+    """(y, mean, rstd) of x2d [N, D]: f32 statistics (f64 for f64 input),
+    centred variance, y in x's dtype — the arithmetic of the JAX package's
+    _ln_kernel."""
+    acc = torch.promote_types(x2d.dtype, torch.float32)
+    x = x2d.to(acc)
     mu = torch.mean(x, dim=1, keepdim=True)
     xc = x - mu
     var = torch.mean(xc * xc, dim=1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    y = xc * rstd * gamma.float() + beta.float()
+    y = xc * rstd * gamma.to(acc) + beta.to(acc)
     return y.to(x2d.dtype), mu[:, 0], rstd[:, 0]
+
+
+def layer_norm_bwd_plain(x2d, gamma, mean, rstd, gy, gmean=None,
+                         grstd=None):
+    """(dx, dgamma, dbeta) from the saved (x, gamma, mean, rstd) and the
+    cotangents of (y, mean, rstd); a None cotangent counts as zero."""
+    acc = mean.dtype
+    xf = x2d.to(acc)
+    gyf = gy.to(acc)
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    gf = gamma.to(acc)
+    dgamma = torch.sum(gyf * xhat, dim=0).to(gamma.dtype)
+    dbeta = torch.sum(gyf, dim=0).to(gamma.dtype)
+    wg = gyf * gf
+    D = x2d.shape[1]
+    dx = (wg - torch.mean(wg, dim=1, keepdim=True)
+          - xhat * torch.mean(wg * xhat, dim=1, keepdim=True))
+    dx = dx * rstd[:, None]
+    # cotangents through the stats outputs:
+    #   dmean/dx_j = 1/D;  drstd/dx_j = -rstd^3 * (x_j - mu) / D
+    if gmean is not None:
+        dx = dx + gmean.to(acc)[:, None] / D
+    if grstd is not None:
+        dx = dx - (grstd.to(acc) * rstd ** 3)[:, None] \
+            * (xf - mean[:, None]) / D
+    return dx.to(x2d.dtype), dgamma, dbeta
 
 
 def _kernel():
@@ -92,3 +127,27 @@ def layer_norm(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 layer_norm.launches = 0
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, eps):
+        y, mean, rstd = layer_norm(x2d, gamma, beta, eps)
+        ctx.save_for_backward(x2d, gamma, mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, gy, gmean, grstd):
+        x2d, gamma, mean, rstd = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(x2d)
+        dx, dgamma, dbeta = layer_norm_bwd_plain(x2d, gamma, mean, rstd, gy,
+                                                 gmean, grstd)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm_train(x2d: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float = 1e-5):
+    """``layer_norm`` with a backward: (y, mean, rstd), each
+    differentiable."""
+    return _LayerNorm.apply(x2d, gamma, beta, eps)

@@ -1,0 +1,196 @@
+"""Streamed LM head with softmax cross-entropy, forward and backward: the
+hand-written CUDA kernels and their plain torch versions.
+
+Replaces the Pallas TPU kernels ``paddle_tpu/kernels/lm_head.py:_fwd``
+(body ``_fwd_kernel``) and ``_bwd`` (body ``_bwd_kernel``), entry
+``lm_head_xent``, called by the ``fused_lm_head_loss`` op.  The kernel
+source is ``csrc/lm_head.cu``; its header says what bounds it on the H100
+(operations: one product of x [N, D] and W [D, V] forward, three backward,
+on the f32 CUDA cores) and how the design streams the vocabulary: the
+forward keeps a running (max, sum of exp, gold logit) per token across
+vocab tiles, so no [N, V] logits reach device memory, and the backward
+goes chunk by chunk through a [chunk, V] dlogits scratch and the file's
+own tiled GEMM.
+
+``lm_head_xent(x, w, labels)`` is the differentiable entry (a
+``torch.autograd.Function`` over ``lm_head_fwd`` and ``lm_head_bwd``); it
+returns the per-token loss [N] f32, 0 where the label is negative.  Both
+directions decide by the tensors' device: CUDA tensors launch the kernel
+(or raise), CPU or meta tensors take ``lm_head_fwd_plain`` /
+``lm_head_bwd_plain``.  ``lm_head_fwd.launches`` counts forward launches,
+``lm_head_bwd.launches`` one per token chunk of the backward.  Any N and
+any V: the JAX gates on N % 256 and d <= 2048 exist for Mosaic's tiles.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+DEFAULT_CHUNK = 4096
+_fwd_fn = None
+_bwd_fn = None
+
+
+def _check(x, w, labels):
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"lm_head: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} do not chain as [N, D] x [D, V]")
+    if tuple(labels.shape) != (x.shape[0],):
+        raise ValueError(f"lm_head: labels {tuple(labels.shape)} != "
+                         f"[{x.shape[0]}]")
+
+
+def lm_head_fwd_plain(x, w, labels):
+    """(loss [N], lse [N]) in f32 (f64 for f64 inputs): the full-logits
+    composition of what the kernel streams."""
+    _check(x, w, labels)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    logits = torch.matmul(x.to(acc), w.to(acc))
+    lse = torch.logsumexp(logits, dim=1)
+    y = labels.long()
+    gold = torch.gather(logits, 1, y.clamp(min=0)[:, None])[:, 0]
+    return (lse - gold) * (y >= 0).to(acc), lse
+
+
+def lm_head_bwd_plain(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
+    """(dx, dw) from the saved (x, w, labels, lse) and the loss cotangent g
+    [N]: dlogits = (softmax - onehot) * g, with g zeroed at ignored labels,
+    recomputed chunk by chunk as the kernel does."""
+    _check(x, w, labels)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    N = x.shape[0]
+    wf = w.to(acc)
+    y = labels.long()
+    gm = g.to(acc) * (y >= 0).to(acc)
+    dx = torch.empty(x.shape, dtype=acc, device=x.device)
+    dw = torch.zeros(w.shape, dtype=acc, device=x.device)
+    for r0 in range(0, N, chunk):
+        sl = slice(r0, min(r0 + chunk, N))
+        xs = x[sl].to(acc)
+        dl = torch.exp(torch.matmul(xs, wf) - lse[sl].to(acc)[:, None])
+        rows = torch.arange(dl.shape[0], device=x.device)
+        dl[rows, y[sl].clamp(min=0)] -= (y[sl] >= 0).to(acc)
+        dl = dl * gm[sl, None]
+        dx[sl] = torch.matmul(dl, wf.t())
+        dw += torch.matmul(xs.t(), dl)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _require(name, ts, labels, contiguous):
+    if not (all(t.is_cuda for t in ts) and labels.is_cuda):
+        raise RuntimeError(f"{name} kernel: every tensor must lie on a CUDA "
+                           f"device")
+    if len({t.device for t in ts} | {labels.device}) != 1:
+        raise ValueError(f"{name} kernel: inputs on different devices")
+    if not all(t.dtype == torch.float32 for t in ts):
+        raise ValueError(f"{name} kernel: f32 inputs only, got "
+                         f"{[str(t.dtype) for t in ts]}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name} kernel: integer labels only, got "
+                         f"{labels.dtype}")
+    if not all(t.is_contiguous() for t in contiguous):
+        raise ValueError(f"{name} kernel: inputs must be contiguous")
+
+
+def _launch_fwd(x, w, labels):
+    _check(x, w, labels)
+    _require("lm_head_fwd", (x, w), labels, (x, w))
+    global _fwd_fn
+    if _fwd_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _fwd_fn = _build.bind("ptt_lm_head_fwd", [p] * 5 + [i] * 3 + [p])
+    N, D = x.shape
+    V = w.shape[1]
+    y = labels.to(torch.int64).contiguous()
+    loss = torch.empty(N, dtype=torch.float32, device=x.device)
+    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    if N == 0:
+        return loss, lse
+    err = _fwd_fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), loss.data_ptr(),
+                  lse.data_ptr(), N, D, V,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"lm_head_fwd kernel launch failed: CUDA error "
+                           f"{err}")
+    lm_head_fwd.launches += 1
+    return loss, lse
+
+
+def _launch_bwd(x, w, labels, lse, g, chunk):
+    _check(x, w, labels)
+    # g may be any layout (autograd hands an expanded 1/N): the wrapper
+    # makes its masked copy below
+    _require("lm_head_bwd", (x, w, lse, g), labels, (x, w, lse))
+    global _bwd_fn
+    if _bwd_fn is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _bwd_fn = _build.bind("ptt_lm_head_bwd_chunk",
+                              [p] * 8 + [i] * 4 + [p])
+    N, D = x.shape
+    V = w.shape[1]
+    if tuple(lse.shape) != (N,) or tuple(g.shape) != (N,):
+        raise ValueError(f"lm_head_bwd kernel: lse {tuple(lse.shape)} and g "
+                         f"{tuple(g.shape)} must be [{N}]")
+    y = labels.to(torch.int64).contiguous()
+    gm = (g * (y >= 0)).contiguous()
+    dx = torch.empty(N, D, dtype=torch.float32, device=x.device)
+    dw = torch.zeros(D, V, dtype=torch.float32, device=x.device)
+    chunk = max(1, min(int(chunk), N))
+    scratch = torch.empty(chunk, V, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for ci, r0 in enumerate(range(0, N, chunk)):
+        rows = min(chunk, N - r0)
+        err = _bwd_fn(x[r0:].data_ptr(), w.data_ptr(), y[r0:].data_ptr(),
+                      lse[r0:].data_ptr(), gm[r0:].data_ptr(),
+                      scratch.data_ptr(), dx[r0:].data_ptr(), dw.data_ptr(),
+                      rows, D, V, int(ci > 0), stream)
+        if err:
+            raise RuntimeError(f"lm_head_bwd kernel launch failed: CUDA "
+                               f"error {err}")
+        lm_head_bwd.launches += 1
+    return dx, dw
+
+
+def lm_head_fwd(x, w, labels):
+    """(loss [N], lse [N]) f32 of the LM head x [N, D] . w [D, V] with
+    softmax cross-entropy against labels [N] (negative = ignored)."""
+    if x.device.type == "cuda":
+        return _launch_fwd(x, w, labels)
+    return lm_head_fwd_plain(x, w, labels)
+
+
+def lm_head_bwd(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
+    """(dx, dw) of the LM head for the loss cotangent g [N]; the tokens go
+    through in chunks of `chunk` rows."""
+    if x.device.type == "cuda":
+        return _launch_bwd(x, w, labels, lse, g, chunk)
+    return lm_head_bwd_plain(x, w, labels, lse, g, chunk)
+
+
+class _LmHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, labels, chunk):
+        loss, lse = lm_head_fwd(x, w, labels)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.chunk = chunk
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, lse = ctx.saved_tensors
+        dx, dw = lm_head_bwd(x, w, labels, lse, g, ctx.chunk)
+        return dx, dw, None, None
+
+
+def lm_head_xent(x, w, labels, chunk: int = DEFAULT_CHUNK):
+    """Per-token softmax cross-entropy through the streamed LM head:
+    x [N, D], w [D, V], labels [N] int (negative = ignored) -> loss [N] f32
+    (0 at ignored positions).  Differentiable in x and w."""
+    return _LmHead.apply(x, w, labels, int(chunk))
+
+
+lm_head_fwd.launches = 0
+lm_head_bwd.launches = 0

@@ -3,7 +3,7 @@
 Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
 calls: data :21, fc :34, embedding :63, layer_norm :223,
 softmax_with_cross_entropy :310, mean :331, reshape :359, unsqueeze :413,
-scale :548, elementwise_add and fused_mha :877.  Each function creates
+scale :548, elementwise_add, fused_mha :877 and fused_lm_head_loss :968.  Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
 as the JAX package, so both builds serialize alike.
@@ -21,7 +21,7 @@ from ..framework.program import Variable
 
 __all__ = ["data", "fc", "embedding", "layer_norm",
            "softmax_with_cross_entropy", "mean", "reshape", "unsqueeze",
-           "scale", "elementwise_add", "fused_mha"]
+           "scale", "elementwise_add", "fused_mha", "fused_lm_head_loss"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -198,3 +198,20 @@ def fused_mha(x, n_head, causal=False, kv=None, size=None, out_size=None,
     helper.append_op("fused_mha", inputs, {"Out": [out]},
                      {"n_head": n_head, "causal": causal})
     return out
+
+
+def fused_lm_head_loss(x, vocab_size, label, param_attr=None,
+                       chunk_size=4096, unroll=False, name=None):
+    """LM head + mean softmax-CE in ONE op that owns the [D, V] head
+    weight: replaces fc -> softmax_with_cross_entropy -> mean without
+    materializing [N, V] logits (ops/attention_ops.py)."""
+    helper = LayerHelper("fused_lm_head_loss", name=name)
+    d = int(x.shape[-1])
+    w = helper.create_parameter(param_attr, shape=[d, vocab_size],
+                                dtype=x.dtype)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fused_lm_head_loss",
+                     {"X": [x], "W": [w], "Label": [label]},
+                     {"Loss": [loss]}, {"chunk_size": chunk_size,
+                                        "unroll": unroll})
+    return loss

@@ -2,11 +2,12 @@
 
 Counterpart of paddle_tpu/models/transformer.py for the flagship LM:
 TransformerConfig, position_encoding_table, prepare_embedding,
-encoder_layer, build_lm_net and make_fake_lm_batch.  Only the fused build
-(``fused_attention=True, fused_head=False``, attention through the
-projection-fused ``fused_mha`` op) is ported; the unfused attention, the
-fused LM-head loss, dropout and pipeline stages raise NotImplementedError
-naming their ROADMAP entry.
+encoder_layer, build_lm_net and make_fake_lm_batch.  Only the fused
+attention build (``fused_attention=True``, attention through the
+projection-fused ``fused_mha`` op) is ported, with either head: the
+``fc`` logits head (serving) or the streamed ``fused_lm_head_loss``
+(``fused_head=True``, training).  The unfused attention, dropout and
+pipeline stages raise NotImplementedError naming their ROADMAP entry.
 
 The position table is a parameter named per sequence length
 (``src_pos_enc_<T>``), so a saved model serves one T: requests are
@@ -37,8 +38,9 @@ def position_encoding_table(max_len: int, d_model: int) -> np.ndarray:
 def _no_dropout(rate):
     if rate:
         raise NotImplementedError(
-            "dropout is not ported yet (ROADMAP queue A.2, the training "
-            "slice); build with dropout 0 or is_test=True")
+            "dropout is not ported yet (ROADMAP queue A.5; the fused "
+            "attention path refuses it in the JAX package too); build "
+            "with dropout 0 or is_test=True")
 
 
 def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
@@ -147,15 +149,12 @@ def build_lm_net(cfg: TransformerConfig, seq_len: int, is_test: bool = False,
                  pp_stages: int = 1):
     """Decoder-only causal LM.  Feeds: tokens [B,T] int64, labels [B,T]
     int64 — dense batches, causal masking inside the attention op.
-    Returns (feeds, avg_cost, logits)."""
+    Returns (feeds, avg_cost, logits); with fused_head=True the logits
+    are never materialized, so the third element is None."""
     if not fused_attention:
         raise NotImplementedError(
             "build_lm_net(fused_attention=False) needs the unfused "
             "attention ops (ROADMAP queue A.5)")
-    if fused_head:
-        raise NotImplementedError(
-            "build_lm_net(fused_head=True) needs fused_lm_head_loss and "
-            "the LM-head kernels (ROADMAP queue B, LM head rows)")
     if pp_stages != 1:
         raise NotImplementedError(
             "pipeline stages are not ported yet (ROADMAP queue A.7)")
@@ -169,6 +168,13 @@ def build_lm_net(cfg: TransformerConfig, seq_len: int, is_test: bool = False,
                           cfg.d_model, cfg.d_inner, dropout, causal=True,
                           fused=True)
     x = pre_post_process(None, x, "n")
+    if fused_head:
+        # streamed head: no [N, V] logits in device memory (fwd or bwd)
+        x2d = layers.reshape(x, [-1, cfg.d_model])
+        label1d = layers.reshape(labels, [-1])
+        avg_cost = layers.fused_lm_head_loss(x2d, cfg.src_vocab_size,
+                                             label1d)
+        return [tokens, labels], avg_cost, None
     logits = layers.fc(x, size=cfg.src_vocab_size, num_flatten_dims=2,
                        bias_attr=False)
     logits2d = layers.reshape(logits, [-1, cfg.src_vocab_size])

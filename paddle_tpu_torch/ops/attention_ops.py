@@ -1,5 +1,6 @@
-"""Projection-fused multi-head attention (counterpart of
-paddle_tpu/ops/attention_ops.py fused_mha :71).
+"""Projection-fused multi-head attention and the fused LM-head loss
+(counterpart of paddle_tpu/ops/attention_ops.py: fused_mha :71 and
+fused_lm_head_loss :173).
 
 One op owns the q/k/v and output projection weights.  The projections run
 with the WEIGHTS as the left operand, so q/k/v come out contiguous in the
@@ -10,15 +11,18 @@ outside any kernel (torch.matmul), as they are ``dot_general``s left to
 XLA in the JAX package.
 
 The JAX lowering pads tokens to a 128 granule for Mosaic's tiles; the
-port's kernel masks ragged tiles itself, so nothing is padded here.
+port's kernel masks ragged tiles itself, so nothing is padded here.  Both
+ops are differentiable end to end: the projections through torch
+autograd, the kernels through their ``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.enforce import EnforceNotMet
-from ..framework.registry import register_op
+from ..framework.registry import register_op, single_input
 from ..kernels.flash_attention import flash_attention_hdt
+from ..kernels.lm_head import lm_head_xent
 
 
 @register_op("fused_mha")
@@ -48,3 +52,20 @@ def _fused_mha(ctx, ins, attrs):
     o, _ = flash_attention_hdt(q, k, v, batch=B, causal=causal)
     out = torch.matmul(o.reshape(E, B * T).t(), wo)
     return {"Out": [out.reshape(B, T, -1).to(x.dtype)]}
+
+
+@register_op("fused_lm_head_loss")
+def _fused_lm_head_loss(ctx, ins, attrs):
+    """X [N, D] activations, W [D, V] head weights, Label [N] int ->
+    Loss [1] = sum_n loss_n / N over ALL N tokens, ignored ones included
+    (their loss_n is 0), as the JAX lowering divides.  The streamed head
+    kernel (kernels/lm_head.py) never holds the [N, V] logits; the
+    backward goes through it in chunks of the ``chunk_size`` attr.  Any N
+    and V: the JAX gates on N % 256 and d <= 2048 are Mosaic's."""
+    x = single_input(ins, "X")
+    w = single_input(ins, "W")
+    label = single_input(ins, "Label").reshape(-1)
+    n = x.shape[0]
+    chunk = int(attrs.get("chunk_size", 2048))
+    losses = lm_head_xent(x, w, label, chunk=chunk)
+    return {"Loss": [(torch.sum(losses) / n).reshape(1)]}

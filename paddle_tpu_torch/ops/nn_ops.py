@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.registry import register_op, single_input
-from ..kernels.layer_norm import layer_norm as _layer_norm_rows
+from ..kernels.layer_norm import layer_norm_train as _layer_norm_rows
 
 
 @register_op("layer_norm")
@@ -14,8 +14,8 @@ def _layer_norm(ctx, ins, attrs):
     """ref layer_norm_op.cc: normalise over dims >= begin_norm_axis.
     A single trailing axis with affine params goes through the row kernel
     (kernels/layer_norm.py: the CUDA kernel on the card, its plain version
-    on the CPU); like the JAX fused path it reports
-    Variance = 1/rstd^2 - eps."""
+    on the CPU; differentiable, with the JAX fused path's analytic VJP);
+    like the JAX fused path it reports Variance = 1/rstd^2 - eps."""
     x = single_input(ins)
     eps = float(attrs.get("epsilon", 1e-5))
     axis = int(attrs.get("begin_norm_axis", 1))

@@ -5,7 +5,8 @@ Run on a machine with a CUDA card (no JAX needed there):
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
 Without a card every test skips; the card is looked for inside a fixture,
-never at import.  This file imports only torch, numpy, pytest and the port.
+never at import.  This file imports only torch, numpy, pytest, the port
+and the repo's chip_smoke.py (stdlib only at import).
 """
 import numpy as np
 import pytest
@@ -15,11 +16,13 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import layer_norm as ln
+from paddle_tpu_torch.kernels import lm_head as lmh
 from paddle_tpu_torch.models import transformer as tr
 
 pytestmark = pytest.mark.gpu
 
 F32_TOL = 2e-4   # abs: the same f32 math, summed in another order
+REL_TOL = 1e-4   # of max |plain|: sums over thousands of f32 products
 
 
 @pytest.fixture
@@ -37,6 +40,7 @@ def _randn(dev, *shape, seed=0):
 
 
 @pytest.mark.parametrize("n,d,dtype,tol", [
+    (16384, 512, torch.float32, F32_TOL),   # the training step's rows
     (4096, 512, torch.float32, F32_TOL),    # the serving path's rows
     (4095, 512, torch.float32, F32_TOL),
     (1, 1, torch.float32, F32_TOL),
@@ -57,6 +61,7 @@ def test_layer_norm_kernel_matches_plain(cuda, n, d, dtype, tol):
 
 
 @pytest.mark.parametrize("H,d,B,Tq,Tk,causal,kv_len", [
+    (8, 64, 32, 512, 512, True, None),      # the training step's shape
     (8, 64, 8, 512, 512, True, None),       # the serving path's shape
     (8, 64, 2, 300, 300, False, 250),
     (8, 64, 2, 200, 333, False, None),
@@ -133,3 +138,124 @@ def test_predictor_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert np.isfinite(gpu).all()
     np.testing.assert_allclose(gpu, cpu, rtol=1e-4,
                                atol=1e-4 * np.abs(cpu).max())
+
+
+def _rel_err(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("H,d,B,Tq,Tk,causal,kv_len", [
+    (8, 64, 4, 512, 512, True, None),       # the training path's shape
+    (8, 64, 2, 300, 300, False, 250),
+    (8, 64, 2, 200, 333, False, None),
+    (4, 128, 2, 300, 300, True, None),
+    (2, 64, 1, 1, 1, True, None),
+])
+def test_flash_bwd_kernel_matches_plain(cuda, H, d, B, Tq, Tk, causal,
+                                        kv_len):
+    q = _randn(cuda, H, d, B * Tq, seed=9)
+    k = _randn(cuda, H, d, B * Tk, seed=10)
+    v = _randn(cuda, H, d, B * Tk, seed=11)
+    do = _randn(cuda, H, d, B * Tq, seed=12)
+    o, lse = fa.flash_attention_hdt_plain(q, k, v, B, causal=causal,
+                                          kv_len=kv_len)
+    delta = (do * o).sum(1, keepdim=True)
+    before = fa.flash_attention_hdt_bwd.launches
+    got = fa.flash_attention_hdt_bwd(q, k, v, lse, delta, do, B,
+                                     causal=causal, kv_len=kv_len)
+    again = fa.flash_attention_hdt_bwd(q, k, v, lse, delta, do, B,
+                                       causal=causal, kv_len=kv_len)
+    want = fa.flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, B,
+                                            causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_hdt_bwd.launches == before + 2
+    # relative to the largest gradient: dq and dk vanish where one key is
+    # all a query sees (ds = p * (do.v - do.o) = 0 up to rounding)
+    scale = max(w.abs().max().item() for w in want)
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape
+        assert torch.equal(a, b)               # deterministic: same bits
+        assert (a - w).abs().max().item() <= REL_TOL * scale
+
+
+def test_flash_autograd_on_the_card_takes_strided_inputs(cuda):
+    """Through the autograd Function: a token-strided q (as a transposed
+    view) and the token-strided do that autograd hands the backward."""
+    H, d, B, T = 4, 64, 3, 130
+    q = _randn(cuda, H, B * T, d, seed=13).transpose(1, 2).requires_grad_()
+    k = _randn(cuda, H, d, B * T, seed=14).requires_grad_()
+    v = _randn(cuda, H, d, B * T, seed=15).requires_grad_()
+    wo = _randn(cuda, H * d, 32, seed=16)
+    o, _ = fa.flash_attention_hdt(q, k, v, B, causal=True)
+    out = o.reshape(H * d, B * T).t() @ wo
+    got = torch.autograd.grad(out.square().sum(), (q, k, v))
+    qc, kc, vc = (t.detach().cpu().contiguous().requires_grad_()
+                  for t in (q, k, v))
+    oc, _ = fa.flash_attention_hdt_plain(qc, kc, vc, B, causal=True)
+    outc = oc.reshape(H * d, B * T).t() @ wo.cpu()
+    want = torch.autograd.grad(outc.square().sum(), (qc, kc, vc))
+    for a, w in zip(got, want):
+        assert _rel_err(a.cpu(), w) <= REL_TOL
+
+
+@pytest.mark.parametrize("N,D,V,chunk,n_ignored", [
+    (4096, 512, 32000, 4096, 0),            # one chunk of the path shape
+    (1000, 512, 1001, 256, 37),             # ragged N and V, 4 chunks
+    (1, 8, 1, 4096, 0),
+])
+def test_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored):
+    x = _randn(cuda, N, D, seed=17)
+    w = _randn(cuda, D, V, seed=18) * 0.05
+    g = torch.Generator(device=cuda).manual_seed(19)
+    y = torch.randint(0, V, (N,), generator=g, device=cuda)
+    y[torch.randperm(N, generator=g, device=cuda)[:n_ignored]] = -1
+    gl = torch.rand(N, generator=g, device=cuda) / N
+    nf, nb = lmh.lm_head_fwd.launches, lmh.lm_head_bwd.launches
+    loss, lse = lmh.lm_head_fwd(x, w, y)
+    dx, dw = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+    dx2, dw2 = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+    ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
+    pdx, pdw = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
+    torch.cuda.synchronize()
+    assert lmh.lm_head_fwd.launches == nf + 1
+    assert lmh.lm_head_bwd.launches == nb + 2 * -(-N // chunk)
+    assert (loss - ploss).abs().max().item() <= F32_TOL
+    assert (lse - plse).abs().max().item() <= F32_TOL
+    assert (loss[y < 0] == 0).all()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert _rel_err(dx, pdx) <= REL_TOL
+    assert _rel_err(dw, pdw) <= REL_TOL
+
+
+def test_backward_wrappers_refuse_what_they_cannot_take(cuda):
+    q = torch.zeros(2, 32, 64, device=cuda)
+    lse = torch.zeros(2, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_hdt_bwd(q, q, q, lse, lse, q, 1)
+    q = torch.zeros(2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention_hdt_bwd(q.double(), q, q, lse, lse, q, 1)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_hdt_bwd(q, q, q, lse[:, :, :10], lse, q, 1)
+    x = torch.zeros(4, 8, device=cuda)
+    w = torch.zeros(8, 16, device=cuda)
+    y = torch.zeros(4, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        lmh.lm_head_fwd(x.double(), w.double(), y)
+    with pytest.raises(ValueError, match="contiguous"):
+        lmh.lm_head_fwd(x, torch.zeros(16, 8, device=cuda).t(), y)
+    with pytest.raises(ValueError, match="integer"):
+        lmh.lm_head_fwd(x, w, y.float())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lmh.lm_head_fwd(x, w, y.cpu())
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step of the flagship training program at full width, L 2,
+    batch 2, on CUDAPlace(0) and on the CPU (the plain versions) from the
+    same weights: chip_smoke's check, which raises where the losses
+    differ or where an @GRAD entry differs once the CPU takes the card's
+    relu branches."""
+    import chip_smoke
+    chip_smoke.train_match(torch)

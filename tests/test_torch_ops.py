@@ -148,6 +148,29 @@ CASES = {
                      {"shape": [2, 3], "dtype": "float32",
                       "values": np.arange(6, dtype="float32") / 7},
                      ["Out"], EXACT),
+    "adam": (
+        "adam", lambda r: {"Param": [_rand(r, 3, 4)],
+                           "Grad": [_rand(r, 3, 4)],
+                           "Moment1": [_rand(r, 3, 4) * 0.1],
+                           "Moment2": [np.abs(_rand(r, 3, 4)) * 0.01],
+                           "Beta1Pow": [np.array([0.9 ** 3], "float32")],
+                           "Beta2Pow": [np.array([0.999 ** 3], "float32")],
+                           "LearningRate": [np.array([1e-3], "float32")]},
+        {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+        ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+         "Beta2PowOut"], EXACT),
+    # N % 256 == 0: the JAX lowering takes its Pallas head
+    "fused_lm_head_loss_pallas": (
+        "fused_lm_head_loss",
+        lambda r: {"X": [_rand(r, 256, 16)], "W": [_rand(r, 16, 300) * 0.2],
+                   "Label": [r.randint(-1, 300, 256)]},
+        {"chunk_size": 128}, ["Loss"], MATMUL),
+    # any other N: the JAX lowering's chunked scan
+    "fused_lm_head_loss_scan": (
+        "fused_lm_head_loss",
+        lambda r: {"X": [_rand(r, 200, 16)], "W": [_rand(r, 16, 77) * 0.2],
+                   "Label": [r.randint(-1, 77, 200)]},
+        {"chunk_size": 64}, ["Loss"], MATMUL),
 }
 
 
