@@ -14,7 +14,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
 3. Kernel vs plain: each kernel's wrapper on CUDA tensors against its plain
    torch version on the same inputs, at the paths' shapes and at ragged
    ones, with the tolerance printed beside the error.  The flash and
-   LM-head backward kernels must also give the same bits twice.
+   LM-head backward kernels must also give the same bits twice, and the
+   [B, H, T, d] flash calls the head-major call's bits on the same data.
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -22,7 +23,7 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    batch 1, 4 and 8 with ragged, right-padded prompts; prints each prompt's
    greedy next token.  The kernels' launch counters are zeroed just before
    and read just after: each request must launch 13 layer-norm and 6 flash
-   kernels.  Request 1 is answered again by a CPU predictor
+   kernels, and no other.  Request 1 is answered again by a CPU predictor
    (use_gpu=False: the plain versions) on the same dir, and the logits at
    each prompt's last position must agree.
 5. Train: the same LM's training program (build_lm_net(fused_head=True) +
@@ -38,18 +39,30 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    the card are listed beside the gradient entries that differ; then the
    CPU step runs again taking the card's relu branches, and every @GRAD
    entry must agree.
+5b. Train with fuse_block: the same, for the program that
+   transpiler.maybe_fuse rewrites (FLAGS_fuse_block on, before minimize;
+   6 fused_transformer_block ops, no fused_mha, mul or relu).  Each step
+   must launch 6 block forwards, 6 [B, H, T, d] flash forwards and 6
+   flash backwards (the blocks' recompute backward), 1 layer norm, 1
+   LM-head forward and one LM-head backward per chunk, and no head-major
+   flash (the block's C entry runs its flash and layer norms itself).
+   The L 2 match replays the card's relu masks inside the block's
+   composition (the relu is not an op there).
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
    PyTorch library call as a yardstick (the port never calls it); request
    latency p50 and tokens/s per batch size; training step p50 and
-   tokens/s at batch 32; peak device memory; then torch.profiler traces
-   of one batch-8 request and one training step split by kernel class,
-   with the device's busy share.
+   tokens/s at batch 32, both programs; peak device memory; the
+   [B, H, T, d] flash on the block's [B, T, H, d] views beside the
+   contiguous and head-major calls; then torch.profiler traces of one
+   batch-8 request and one step of each training program split by kernel
+   class, with the device's busy share.
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
-   "serve"), nvidia-smi's line, and as the last line {"ok": true,
-   "device": {...}}.
+   "serve"; launches on its training path, and on every path under
+   "launches_by_path"), nvidia-smi's line, and as the last line
+   {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product here is full
 f32, so the card and the CPU compute the same math.  The script exits
@@ -92,6 +105,8 @@ STEP_LOSS_RTOL = 1e-5  # training loss, card vs CPU
 # per @GRAD entry, of the @GRAD's max |CPU| entry, card vs a CPU step that
 # takes the card's relu branches: f32 sums in another order
 STEP_GRAD_RTOL = 1e-3
+BLOCK_RTOL = 1e-4    # of max |plain| on the block's output: f32 sums of
+                     # 512-2048 products per projection in another order
 
 # name -> (module of paddle_tpu_torch.kernels whose wrapper of that name
 # launches the kernel and counts it, CUDA source, TPU kernel it replaces)
@@ -107,7 +122,19 @@ KERNELS = {
                     "paddle_tpu/kernels/lm_head.py:144"),
     "lm_head_bwd": ("lm_head", "lm_head.cu",
                     "paddle_tpu/kernels/lm_head.py:215"),
+    # the fuse-block path: the same two flash sources called through
+    # [B, H, T, d] strides, and the block forward
+    "flash_attention": ("flash_attention", "flash_attention_hdt.cu",
+                        "paddle_tpu/kernels/flash_attention.py:157"),
+    "flash_attention_bwd": ("flash_attention",
+                            "flash_attention_hdt_bwd.cu",
+                            "paddle_tpu/kernels/flash_attention.py:346"),
+    "transformer_block": ("fused_block", "fused_block.cu",
+                          "paddle_tpu/kernels/fused_block.py:235"),
 }
+# the kernels that only the fuse_block training program launches
+FUSE_BLOCK_KERNELS = ("flash_attention", "flash_attention_bwd",
+                      "transformer_block")
 
 
 def wrapper(name):
@@ -170,6 +197,58 @@ def rel_err(a, b):
     return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
+def block_inputs(rnd, B, T, D, F):
+    """x [B, T, D] and the 12 fused-block params (kernels/fused_block.py's
+    PARAM_NAMES order, E = D) at about the startup program's scale: Xavier
+    weights, LN scales near 1, small biases."""
+    def w(r, c):
+        return rnd(r, c) * math.sqrt(2.0 / (r + c))
+
+    def vec(n, mean=0.0):
+        return mean + 0.1 * rnd(n)
+
+    return rnd(B, T, D), (vec(D, 1.0), vec(D), w(D, D), w(D, D), w(D, D),
+                          w(D, D), vec(D, 1.0), vec(D), w(D, F), vec(F),
+                          w(F, D), vec(D))
+
+
+def bthd_view(x, H):
+    """A [B, T, E] tensor as the [B, H, T, d] view (token stride E) that
+    the fused block's recompute hands flash_attention."""
+    B, T, E = x.shape
+    return x.reshape(B, T, H, E // H).transpose(1, 2)
+
+
+def head_major(t):
+    """A [B, H, T, d] tensor copied into the head-major [H, d, B*T]."""
+    B, H, T, d = t.shape
+    return t.permute(1, 3, 0, 2).reshape(H, d, B * T)
+
+
+def flash_work(B, H, T, d):
+    """(FLOP, bytes) of the causal flash forward and backward at these
+    shapes: 4 d and 10 d FLOP per kept (query, key) pair; q, k, v, o, lse
+    (and do, dq, dk, dv, delta) moved once, f32."""
+    pairs = B * H * T * (T + 1) // 2
+    n = H * d * B * T
+    return ((4 * d * pairs, 4 * (4 * n + H * B * T)),
+            (10 * d * pairs, 4 * (7 * n + 2 * H * B * T)))
+
+
+def block_work(B, T, H, D, F):
+    """(FLOP, bytes) of one block forward, E = D: the q/k/v, Wo, W1 and W2
+    products, the causal attention, x in and out and the weights once."""
+    N = B * T
+    flops = 2 * N * D * 3 * D + 2 * N * D * D + 4 * N * D * F \
+        + flash_work(B, H, T, D // H)[0][0]
+    nbytes = 4 * (2 * N * D + 4 * D * D + 2 * D * F + 5 * D + F)
+    return flops, nbytes
+
+
+def bound_ms(flops, nbytes):
+    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+
+
 def phase_build(torch):
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -186,6 +265,7 @@ def phase_build(torch):
 
 def phase_compare(torch):
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_block as fb
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import lm_head as lmh
     dev = torch.device(DEVICE)
@@ -321,6 +401,78 @@ def phase_compare(torch):
             raise RuntimeError("LM head backward is not deterministic")
         note("lm_head_fwd", path, ef)
         note("lm_head_bwd", path, eb)
+
+    # flash in [B, H, T, d] through strides, forward and backward, against
+    # the plain versions and against the head-major call on the same data
+    # (the same kernels and sums: the same bits).  "bthd" is the block
+    # recompute's [B, T, H, d] view of a [B, T, E] projection, "bhtd" the
+    # contiguous layout.  (H, d, B, Tq, Tk, causal, layout, path)
+    for H, d, B, Tq, Tk, causal, layout, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", "train"),
+            (8, 64, 2, 300, 300, False, "bhtd", "ragged"),
+            (8, 64, 2, 200, 333, False, "bthd", "ragged"),
+            (4, 128, 2, 300, 300, True, "bthd", "ragged"),
+            (4, 64, 3, 130, 130, True, "bhtd", "ragged")]:
+        def make(T):
+            if layout == "bthd":
+                return bthd_view(rnd(B, T, H * d), H)
+            return rnd(B, H, T, d)
+
+        q, k, v, do = make(Tq), make(Tk), make(Tk), make(Tq)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa._launch_bhtd(q, k, v, causal, scale)
+        po, plse = fa.flash_attention_plain(q, k, v, causal)
+        delta = (do * o).sum(-1)
+        got = fa.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+        again = fa.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
+        qh, kh, vh, doh = map(head_major, (q, k, v, do))
+        oh, lseh = fa.flash_attention_hdt(qh, kh, vh, B, causal=causal)
+        lse_hm = lse.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
+        gh = fa.flash_attention_hdt_bwd(
+            qh, kh, vh, lse_hm,
+            delta.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous(), doh,
+            B, causal=causal)
+        torch.cuda.synchronize()
+        ef = max(max_err(o, po), max_err(lse, plse))
+        eb = max(max_err(a, b) for a, b in zip(got, want))
+        rb = eb / max(float(b.abs().max()) for b in want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        bits_f = torch.equal(head_major(o), oh) and torch.equal(lse_hm, lseh)
+        bits_b = all(torch.equal(head_major(a), b) for a, b in zip(got, gh))
+        log(f"[compare] flash_attention [B,H,T,d] ({layout}) H={H} d={d} "
+            f"B={B} Tq={Tq} Tk={Tk} causal={causal}: forward max abs err "
+            f"{ef:.3g} (tol {FA_TOL:g}); backward max abs err {eb:.3g}, "
+            f"{rb:.3g} of max |plain| (tol {BWD_RTOL:g}); two backward runs "
+            f"bit-identical: {same}; same bits as the head-major call: "
+            f"forward {bits_f}, backward {bits_b}")
+        if not ef <= FA_TOL:
+            raise RuntimeError(f"[B,H,T,d] flash disagrees: {ef} > {FA_TOL}")
+        if not rb <= BWD_RTOL:
+            raise RuntimeError(f"[B,H,T,d] flash backward disagrees: {rb}")
+        if not (same and bits_f and bits_b):
+            raise RuntimeError("[B,H,T,d] flash: not deterministic, or not "
+                               "the head-major call's bits")
+        note("flash_attention", path, ef)
+        note("flash_attention_bwd", path, eb)
+
+    # the fused block against its plain version: (B, T, H, D, F, causal,
+    # path); H 4 at D 512 is head dim 128
+    for B, T, H, D, F, causal, path in [
+            (TRAIN_BATCH, TRAIN_T, 8, 512, 2048, True, "train"),
+            (2, 300, 8, 512, 2048, False, "ragged"),
+            (2, 300, 4, 512, 2048, True, "ragged")]:
+        x, params = block_inputs(rnd, B, T, D, F)
+        got = fb.transformer_block(x, params, H, causal)
+        want = fb.transformer_block_plain(x, params, H, causal)
+        torch.cuda.synchronize()
+        e, r = max_err(got, want), rel_err(got, want)
+        log(f"[compare] transformer_block B={B} T={T} H={H} D={D} F={F} "
+            f"causal={causal}: max abs err {e:.3g}, {r:.3g} of max |plain| "
+            f"{float(want.abs().max()):.3g} (tol {BLOCK_RTOL:g})")
+        if not r <= BLOCK_RTOL:
+            raise RuntimeError(f"block kernel disagrees: {r} > {BLOCK_RTOL}")
+        note("transformer_block", path, e)
     return errs
 
 
@@ -332,7 +484,7 @@ def phase_serve(torch):
 
     cfg = tr.TransformerConfig(**FLAGSHIP)
     T, V = SERVE_T, cfg.src_vocab_size
-    counters = {n: wrapper(n) for n in ("layer_norm", "flash_attention_hdt")}
+    counters = {n: wrapper(n) for n in KERNELS}
     for fn in counters.values():
         fn.launches = 0
 
@@ -396,8 +548,9 @@ def phase_serve(torch):
         peak = torch.cuda.max_memory_allocated()
         # per request: 2 layer norms per layer + the final one; one
         # attention per layer (13 and 6 for the flagship)
-        want = {"layer_norm": (2 * cfg.n_layer + 1) * runs,
-                "flash_attention_hdt": cfg.n_layer * runs}
+        want = {n: 0 for n in KERNELS}
+        want.update({"layer_norm": (2 * cfg.n_layer + 1) * runs,
+                     "flash_attention_hdt": cfg.n_layer * runs})
         log(f"[serve] {runs} predictor runs; kernel launches {counts} "
             f"(expected {want})")
         if counts != want:
@@ -428,37 +581,59 @@ def phase_serve(torch):
     return counts, pred, requests[-1][0]
 
 
-def build_train(cfg):
+def build_train(cfg, fuse_block=False):
     """The flagship training program: (main, startup, avg_cost, param
-    grads)."""
+    grads).  With fuse_block, FLAGS_fuse_block is on while it is built and
+    transpiler.maybe_fuse runs before minimize, as bench.py's _bench_lm_cfg
+    does; every layer must fuse."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import transformer as tr
     ptt.reset_default_programs()
     main, startup = ptt.Program(), ptt.Program()
     main.random_seed = startup.random_seed = SEED
-    with ptt.program_guard(main, startup):
-        _, avg_cost, _ = tr.build_lm_net(cfg, TRAIN_T, fused_attention=True,
-                                         fused_head=True)
-        _, pg = ptt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(
-            avg_cost)
+    old = ptt.flags.get_flag("fuse_block")
+    ptt.flags.set_flag("fuse_block", fuse_block)
+    try:
+        with ptt.program_guard(main, startup):
+            _, avg_cost, _ = tr.build_lm_net(cfg, TRAIN_T,
+                                             fused_attention=True,
+                                             fused_head=True)
+            fused = ptt.transpiler.maybe_fuse(main)
+            _, pg = ptt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(
+                avg_cost)
+    finally:
+        ptt.flags.set_flag("fuse_block", old)
+    want = cfg.n_layer if fuse_block else 0
+    if fused != want:
+        raise RuntimeError(f"maybe_fuse fused {fused} blocks, expected "
+                           f"{want}")
     return main, startup, avg_cost, pg
 
 
-def phase_train(torch):
+def phase_train(torch, fuse_block=False):
+    """Train the flagship at full width: 5 Adam steps at batch 32 on one
+    batch, launch counts per step, loss falling, then the step time over 5
+    more steps and the card-vs-CPU match at L 2.  With fuse_block, the
+    program is the FuseBlockTranspiler's (slice 3), else slice 2's."""
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import transformer as tr
 
+    tag = "[train fuse_block]" if fuse_block else "[train]"
     cfg = tr.TransformerConfig(**FLAGSHIP)
-    main, startup, avg_cost, pg = build_train(cfg)
+    main, startup, avg_cost, pg = build_train(cfg, fuse_block)
     exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
     exe.run(startup)
     batch = tr.make_fake_lm_batch(cfg, TRAIN_BATCH, TRAIN_T, seed=SEED)
     ops = [op.type for op in main.global_block().ops]
-    log(f"[train] flagship LM d{cfg.d_model}/L{cfg.n_layer}/H{cfg.n_head}/"
+    log(f"{tag} flagship LM d{cfg.d_model}/L{cfg.n_layer}/H{cfg.n_head}/"
         f"d_inner{cfg.d_inner}/V{cfg.src_vocab_size} T={TRAIN_T} batch "
         f"{TRAIN_BATCH}: {len(pg)} trainable params, {len(ops)} ops "
-        f"({ops.count('adam')} adam, {ops.count('autodiff')} autodiff)")
+        f"({ops.count('adam')} adam, {ops.count('autodiff')} autodiff, "
+        f"{ops.count('fused_transformer_block')} fused_transformer_block, "
+        f"{ops.count('fused_mha')} fused_mha)")
+    if fuse_block and {"fused_mha", "mul", "relu"} & set(ops):
+        raise RuntimeError(f"the fused program keeps unfused ops: {ops}")
     counters = {n: wrapper(n) for n in KERNELS}
     for fn in counters.values():
         fn.launches = 0
@@ -471,20 +646,30 @@ def phase_train(torch):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss[0]))
-        log(f"[train] step {step}: loss {losses[-1]:.6f} "
+        log(f"{tag} step {step}: loss {losses[-1]:.6f} "
             f"({step_ms[-1]:.1f} ms)")
     counts = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     n_tok = TRAIN_BATCH * TRAIN_T
     chunk, = [op.attrs["chunk_size"] for op in main.global_block().ops
               if op.type == "fused_lm_head_loss"]
-    per_step = {"layer_norm": 2 * cfg.n_layer + 1,
-                "flash_attention_hdt": cfg.n_layer,
-                "flash_attention_hdt_bwd": cfg.n_layer,
-                "lm_head_fwd": 1,
-                "lm_head_bwd": -(-n_tok // chunk)}
+    per_step = {n: 0 for n in KERNELS}
+    per_step.update({"lm_head_fwd": 1, "lm_head_bwd": -(-n_tok // chunk)})
+    if fuse_block:
+        # one block kernel per layer (its flash and layer norms run inside
+        # its C entry, not through the Python wrappers); the backward
+        # recompute of each block runs the [B, H, T, d] flash forward and
+        # backward; the final layer norm is the one layer_norm op
+        per_step.update({"transformer_block": cfg.n_layer,
+                         "flash_attention": cfg.n_layer,
+                         "flash_attention_bwd": cfg.n_layer,
+                         "layer_norm": 1})
+    else:
+        per_step.update({"layer_norm": 2 * cfg.n_layer + 1,
+                         "flash_attention_hdt": cfg.n_layer,
+                         "flash_attention_hdt_bwd": cfg.n_layer})
     want = {n: c * TRAIN_STEPS for n, c in per_step.items()}
-    log(f"[train] {TRAIN_STEPS} steps; kernel launches {counts} (expected "
+    log(f"{tag} {TRAIN_STEPS} steps; kernel launches {counts} (expected "
         f"{want}, per step {per_step})")
     if counts != want:
         raise RuntimeError(f"launch counts {counts} != {want}")
@@ -500,11 +685,14 @@ def phase_train(torch):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     p50 = float(np.median(step_ms[1:]))
-    log(f"[train] step time p50 {p50:.2f} ms over steps 1-"
+    log(f"{tag} step time p50 {p50:.2f} ms over steps 1-"
         f"{len(step_ms) - 1} ({n_tok / p50 * 1e3:.0f} tokens/s at batch "
         f"{TRAIN_BATCH}x{TRAIN_T}); first step {step_ms[0]:.2f} ms; peak "
         f"device memory {peak / 2**20:.1f} MiB")
-    train_match(torch)
+    if fuse_block:
+        train_match_fused(torch)
+    else:
+        train_match(torch)
     return counts, dict(exe=exe, main=main, batch=batch,
                         avg_cost=avg_cost, p50_ms=p50, peak=peak)
 
@@ -613,15 +801,23 @@ def train_match(torch):
         r_loss, r_grads, _ = step(ptt.CPUPlace())
     if left:
         raise RuntimeError(f"{len(left)} relu masks were not replayed")
+    check_replayed("[train]", pg, loss, grads, r_loss, r_grads)
+
+
+def check_replayed(tag, pg, loss, grads, r_loss, r_grads):
+    """The card's L 2 step against the CPU step that took the card's relu
+    branches: the loss within STEP_LOSS_RTOL, every @GRAD entry within
+    STEP_GRAD_RTOL of its @GRAD's max |CPU| entry."""
+    import numpy as np
     worst, worst_name = 0.0, ""
     for (p, _), a, c in zip(pg, grads, r_grads):
         r = float(np.abs(a - c).max()) / max(float(np.abs(c).max()), 1e-30)
         if r > worst:
             worst, worst_name = r, p.name
     le = abs(float(loss) - float(r_loss)) / abs(float(r_loss))
-    log(f"[train] L2 step, card vs CPU taking the card's relu branches: "
+    log(f"{tag} L2 step, card vs CPU taking the card's relu branches: "
         f"loss rel err {le:.3g} (tol {STEP_LOSS_RTOL:g}); worst of "
-        f"{n_g} @GRADs max |card - CPU| {worst:.3g} of max |CPU| "
+        f"{len(pg)} @GRADs max |card - CPU| {worst:.3g} of max |CPU| "
         f"({worst_name}; tol {STEP_GRAD_RTOL:g})")
     if not le <= STEP_LOSS_RTOL:
         raise RuntimeError("training loss differs between card and CPU")
@@ -630,11 +826,116 @@ def train_match(torch):
                            f"CPU: {worst}")
 
 
+@contextlib.contextmanager
+def block_relu(record=None, masks=None):
+    """Within kernels/fused_block.block_reference (the block's plain
+    forward and its backward recompute), the MLP's relu appends its
+    pre-activation to `record` (as numpy), or, given `masks`, computes
+    pre * mask, taking the masks in call order; yields the masks not yet
+    taken."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_block as fb
+    orig = fb._mlp_hidden
+    left = list(masks or [])
+
+    def hidden(f, w1, b1):
+        pre = torch.matmul(f, w1) + b1
+        if record is not None:
+            record.append(pre.detach().cpu().numpy())
+        if masks is None:
+            return torch.relu(pre)
+        return pre * left.pop(0).to(pre.device, pre.dtype)
+
+    fb._mlp_hidden = hidden
+    try:
+        yield left
+    finally:
+        fb._mlp_hidden = orig
+
+
+def train_match_fused(torch):
+    """train_match for the fuse-block program: one step at full width,
+    L 2, batch 2, from the same weights on the card and on the CPU.
+
+    The block's relu is inside fused_transformer_block, not an op, so the
+    registry-level replay of train_match cannot reach it.  The gradients
+    come from the backward's recompute of block_reference, which calls
+    fused_block._mlp_hidden once per layer (the last layer first) on the
+    card, and twice per layer on the CPU (the plain forward in layer
+    order, then the recompute).  So the card step records the recompute's
+    pre-activations, the flips against the CPU recompute's are listed, and
+    the CPU step runs again taking the card's relu masks in both calls:
+    every @GRAD entry must then agree within STEP_GRAD_RTOL of its
+    @GRAD's max entry."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+
+    cfg = tr.TransformerConfig(**dict(FLAGSHIP, n_layer=2))
+    L = cfg.n_layer
+    main, startup, avg_cost, pg = build_train(cfg, fuse_block=True)
+    init = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    init.run(startup)
+    state = {v.name: init.scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    batch = tr.make_fake_lm_batch(cfg, 2, TRAIN_T, seed=SEED + 2)
+    fetch = [avg_cost] + [gv for _, gv in pg]
+
+    def step(place, **relu):
+        scope = ptt.Scope()
+        ptt.io.params_from_numpy(scope, state, place)
+        with block_relu(**relu) as left:
+            out = ptt.Executor(place, scope=scope).run(main, feed=batch,
+                                                       fetch_list=fetch)
+        if left:
+            raise RuntimeError(f"{len(left)} relu masks were not taken")
+        return out[0][0], out[1:]
+
+    card_pre, cpu_pre = [], []
+    loss, grads = step(ptt.CUDAPlace(0), record=card_pre)
+    cpu_loss, cpu_grads = step(ptt.CPUPlace(), record=cpu_pre)
+    if len(card_pre) != L or len(cpu_pre) != 2 * L:
+        raise RuntimeError(f"the block's relu ran {len(card_pre)} times on "
+                           f"the card and {len(cpu_pre)} on the CPU, "
+                           f"expected {L} and {2 * L}")
+    card_pre, cpu_rec = card_pre[::-1], cpu_pre[L:][::-1]
+    le = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    log(f"[train fuse_block] L2 batch 2 step, card vs CPU: loss "
+        f"{loss:.6f} vs {cpu_loss:.6f} (rel err {le:.3g}, tol "
+        f"{STEP_LOSS_RTOL:g})")
+    if not le <= STEP_LOSS_RTOL:
+        raise RuntimeError("fused training loss differs between card and "
+                           "CPU")
+    for layer, (a, c) in enumerate(zip(card_pre, cpu_rec)):
+        flip = (a > 0) != (c > 0)
+        near = np.abs(c[flip]).max() if flip.any() else 0.0
+        log(f"[train fuse_block]   block {layer} relu (backward "
+            f"recompute): {int(flip.sum())} of {flip.size} pre-activations "
+            f"on the other branch on the card, there max |CPU "
+            f"pre-activation| {near:.3g}, against max |card - CPU| "
+            f"{np.abs(a - c).max():.3g} over all of them")
+    for (p, _), a, c in zip(pg, grads, cpu_grads):
+        if a.shape != c.shape or not np.isfinite(a).all():
+            raise RuntimeError(f"{p.name}@GRAD: bad card gradient")
+        far = np.abs(a - c) > STEP_GRAD_RTOL * max(np.abs(c).max(), 1e-30)
+        if far.any():
+            log(f"[train fuse_block]   {p.name}@GRAD: {int(far.sum())} "
+                f"entries off by more than {STEP_GRAD_RTOL:g} of its max "
+                f"entry (up to {np.abs(a - c).max() / np.abs(c).max():.3g})"
+                f" before the card's relu masks are replayed")
+    masks = [torch.from_numpy((a > 0).astype(np.float32)) for a in card_pre]
+    r_loss, r_grads = step(ptt.CPUPlace(), masks=masks + masks[::-1])
+    check_replayed("[train fuse_block]", pg, loss, grads, r_loss, r_grads)
+
+
 def _kernel_class(name):
     if "flash_bwd" in name:
-        return "flash_attention_hdt_bwd (this repo)"
+        return "flash backward (this repo; head-major and [B,H,T,d] calls)"
     if "flash_fwd_hdt" in name:
-        return "flash_attention_hdt (this repo)"
+        return ("flash forward (this repo; head-major, [B,H,T,d] and "
+                "in-block calls)")
+    if "block_gemm" in name:
+        return "transformer_block GEMMs (this repo)"
     if "ln_fwd_kernel" in name:
         return "layer_norm (this repo)"
     if "lm_head_fwd_kernel" in name:
@@ -830,6 +1131,132 @@ def phase_timings(torch):
     return res
 
 
+def phase_timings_fused(torch):
+    """The fuse-block path's kernels at its shapes (B 32, T 512, H 8,
+    d 64, D 512, F 2048): the [B, H, T, d] flash forward and backward as
+    the block's recompute calls them (q, k, v and do as [B, T, H, d] views
+    of [B, T, E] tensors, token stride E), beside the contiguous
+    [B, H, T, d] call (token stride d) and the head-major call on the same
+    data, which is the cost of the strided staging; and the block
+    forward, beside torch.nn.TransformerEncoderLayer as its library
+    yardstick, whose output is first held against the plain version."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_block as fb
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    B, T, H, d, D, FF = TRAIN_BATCH, TRAIN_T, 8, 64, 512, 2048
+    scale = 1.0 / math.sqrt(d)
+    (fops, fbytes), (bops, bbytes) = flash_work(B, H, T, d)
+    q, k, v, do = (bthd_view(rnd(B, T, H * d), H) for _ in range(4))
+    layouts = {"bthd": (q, k, v, do),
+               "bhtd": tuple(t.contiguous() for t in (q, k, v, do))}
+    fwd, bwd, host = {}, {}, {}
+    for name, (q_, k_, v_, do_) in layouts.items():
+        fwd[name], host[name] = time_ms(
+            lambda: fa.flash_attention(q_, k_, v_, causal=True))
+        o_, lse_ = fa._launch_bhtd(q_, k_, v_, True, scale)
+        delta_ = (do_ * o_).sum(-1)
+        bwd[name], host[name + " bwd"] = time_ms(
+            lambda: fa.flash_attention_bwd(q_, k_, v_, lse_, delta_, do_,
+                                           True), iters=20, warmup=2)
+    qh, kh, vh, doh = map(head_major, layouts["bhtd"])
+    fwd["head-major"], _ = time_ms(
+        lambda: fa.flash_attention_hdt(qh, kh, vh, B, causal=True))
+    oh, lseh = fa.flash_attention_hdt(qh, kh, vh, B, causal=True)
+    deltah = (doh * oh).sum(1, keepdim=True)
+    bwd["head-major"], _ = time_ms(lambda: fa.flash_attention_hdt_bwd(
+        qh, kh, vh, lseh, deltah, doh, B, causal=True), iters=20, warmup=2)
+    o, lse = fa._launch_bhtd(q, k, v, True, scale)
+    delta = (do * o).sum(-1)
+    fplain, _ = time_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                        iters=10)
+    bplain, _ = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, lse, delta, do, True), iters=5, warmup=1)
+    qc, kc, vc, doc = layouts["bhtd"]
+    flib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=True))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qc, kc, vc))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    blib, _ = time_ms(lambda: torch.autograd.grad(
+        og, (qg, kg, vg), doc, retain_graph=True), iters=20, warmup=2)
+    del og
+    res = {
+        "flash_attention": {"train": dict(
+            ms=fwd["bthd"], plain_ms=fplain, library_ms=flib,
+            bound_ms=bound_ms(fops, fbytes), bound_by="operations",
+            contiguous_bhtd_ms=fwd["bhtd"], head_major_ms=fwd["head-major"])},
+        "flash_attention_bwd": {"train": dict(
+            ms=bwd["bthd"], plain_ms=bplain, library_ms=blib,
+            bound_ms=bound_ms(bops, bbytes), bound_by="operations",
+            contiguous_bhtd_ms=bwd["bhtd"], head_major_ms=bwd["head-major"])}}
+    for n, ops, times, plain, lib, what in (
+            ("flash_attention", fops, fwd, fplain, flib, "sdpa"),
+            ("flash_attention_bwd", bops, bwd, bplain, blib,
+             "sdpa backward")):
+        log(f"[time] {n} [B,H,T,d] H={H} d={d} B={B} T={T} causal f32: "
+            f"kernel on the block recompute's [B,T,H,d] views (token "
+            f"stride {H * d}) {times['bthd']:.4f} ms ({ops / times['bthd'] / 1e9:.2f} "
+            f"TFLOP/s), on contiguous [B,H,T,d] (token stride {d}) "
+            f"{times['bhtd']:.4f} ms, the head-major call (token stride 1) "
+            f"{times['head-major']:.4f} ms; plain {plain:.4f} ms, {what} "
+            f"{lib:.4f} ms, bound {res[n]['train']['bound_ms']:.4f} ms "
+            f"({ops / 1e9:.3f} GFLOP); host enqueue per call "
+            f"{host['bthd' if n == 'flash_attention' else 'bthd bwd']:.4f} ms")
+
+    # the block forward
+    x, params = block_inputs(rnd, B, T, D, FF)
+    ms, bhost = time_ms(lambda: fb.transformer_block(x, params, H, True),
+                        iters=10, warmup=2)
+    plain, _ = time_ms(lambda: fb.transformer_block_plain(x, params, H,
+                                                          True),
+                       iters=5, warmup=1)
+    layer = torch.nn.TransformerEncoderLayer(
+        D, H, FF, dropout=0.0, activation="relu", batch_first=True,
+        norm_first=True, device=dev).eval()
+    ln1g, ln1b, wq, wk, wv, wo, ln2g, ln2b, w1, b1, w2, b2 = params
+    with torch.no_grad():
+        sa = layer.self_attn
+        sa.in_proj_weight.copy_(torch.cat([wq, wk, wv], 1).t())
+        sa.in_proj_bias.zero_()
+        sa.out_proj.weight.copy_(wo.t())
+        sa.out_proj.bias.zero_()
+        for mod, w_, b_ in ((layer.linear1, w1.t(), b1),
+                            (layer.linear2, w2.t(), b2),
+                            (layer.norm1, ln1g, ln1b),
+                            (layer.norm2, ln2g, ln2b)):
+            mod.weight.copy_(w_)
+            mod.bias.copy_(b_)
+        mask = torch.nn.Transformer.generate_square_subsequent_mask(
+            T, device=dev)
+
+        def lib_call():
+            return layer(x, src_mask=mask, is_causal=True)
+
+        lib_err = rel_err(lib_call(), fb.transformer_block_plain(
+            x, params, H, True))
+        lib, _ = time_ms(lib_call, iters=10, warmup=2)
+    if not lib_err <= BLOCK_RTOL:
+        raise RuntimeError(f"TransformerEncoderLayer is not the block's "
+                           f"function: {lib_err} of max |plain|")
+    ops, nbytes = block_work(B, T, H, D, FF)
+    res["transformer_block"] = {"train": dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms(ops, nbytes),
+        bound_by="operations")}
+    log(f"[time] transformer_block B={B} T={T} H={H} D={D} F={FF} causal "
+        f"f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s, 7 "
+        f"launches), plain {plain:.4f} ms, TransformerEncoderLayer "
+        f"(norm_first, causal mask, attention biases 0; output {lib_err:.3g}"
+        f" of max |plain| from the plain version) {lib:.4f} ms, bound "
+        f"{res['transformer_block']['train']['bound_ms']:.4f} ms "
+        f"({ops / 1e9:.2f} GFLOP); host enqueue per call {bhost:.4f} ms")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -854,7 +1281,9 @@ def main():
     errs = phase_compare(torch)
     serve_counts, pred, toks = phase_serve(torch)
     counts, train = phase_train(torch)
+    fcounts, ftrain = phase_train(torch, fuse_block=True)
     times = phase_timings(torch)
+    times.update(phase_timings_fused(torch))
     # last: the profiler stays attached to the process once started, and
     # its per-launch cost would skew the timings above
     trace_run(torch, f"batch {toks.shape[0]} request",
@@ -863,16 +1292,28 @@ def main():
               lambda: train["exe"].run(train["main"], feed=train["batch"],
                                        fetch_list=[train["avg_cost"]],
                                        return_numpy=False))
+    trace_run(torch, f"fuse_block training step at batch {TRAIN_BATCH}",
+              lambda: ftrain["exe"].run(ftrain["main"],
+                                        feed=ftrain["batch"],
+                                        fetch_list=[ftrain["avg_cost"]],
+                                        return_numpy=False))
 
-    # the training step's launches, errors and times; the two kernels
-    # that serving runs too carry the serving shape's under "serve"
+    # each kernel's launches on its training path (slice 2's program for
+    # the five it runs, the fuse_block program for the three it adds),
+    # with the counts of every path under "launches_by_path", its errors
+    # and times at the training step's shapes; the two kernels that
+    # serving runs too carry the serving shape's under "serve"
+    by_path = {"serve": serve_counts, "train": counts,
+               "train_fuse_block": fcounts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
+        path = "train_fuse_block" if n in FUSE_BLOCK_KERNELS else "train"
         k = dict(name=n, route="cuda",
                  source="paddle_tpu_torch/kernels/csrc/" + source,
-                 replaces=replaces, launches=counts[n],
-                 max_abs_err=errs[n]["train"], **times[n]["train"])
-        if n in serve_counts:
+                 replaces=replaces, launches=by_path[path][n],
+                 max_abs_err=errs[n]["train"], **times[n]["train"],
+                 launches_by_path={p: c[n] for p, c in by_path.items()})
+        if serve_counts[n]:
             k["serve"] = dict(launches=serve_counts[n],
                               max_abs_err=errs[n]["serve"],
                               **times[n]["serve"])

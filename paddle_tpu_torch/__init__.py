@@ -28,10 +28,11 @@ from . import optimizer
 from . import io
 from . import inference
 from . import models
+from . import transpiler
 
 __all__ = ["core", "flags", "CPUPlace", "CUDAPlace", "default_place",
            "Program", "Block", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program",
            "reset_default_programs", "unique_name", "Executor", "Scope",
            "global_scope", "ParamAttr", "initializer", "layers",
-           "optimizer", "io", "inference", "models"]
+           "optimizer", "io", "inference", "models", "transpiler"]

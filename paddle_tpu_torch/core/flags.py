@@ -44,3 +44,10 @@ def set_flag(name: str, value: Any):
 
 
 define_flag("rng_seed", 0, "Global RNG seed used when a program has no seed.")
+define_flag("fuse_block", False,
+            "Fuse whole transformer blocks (LN -> attention -> residual "
+            "-> LN -> MLP -> residual) into single fused_transformer_"
+            "block ops via transpiler/fused_block.py pattern matching; "
+            "the op runs the hand-written block kernel "
+            "(kernels/fused_block.py) on the card and its plain torch "
+            "version on the CPU.")

@@ -1,30 +1,35 @@
-// Head-major flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), for any layout.
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 // paddle_tpu/kernels/flash_attention.py:_flash_fwd_hdt (body
-// _fwd_kernel_hdt).  For each head h and batch row b:
-//   o = softmax(scale * q^T k + mask) v,   lse = logsumexp(scale * q^T k + mask)
-// with q, k [H, d, B*T] and v [H, d, B*Tk] in the head-major layout that
-// fused_mha's projections produce (each given with its own strides, so no
-// transpose copy is needed), o [H, d, B*Tq] and lse [H, 1, B*Tq], f32.
+// _fwd_kernel_hdt) and _flash_fwd (body _fwd_kernel).  For each head h and
+// batch row b:
+//   o = softmax(scale * q k^T + mask) v,   lse = logsumexp(scale * q k^T + mask)
+// f32.  Every operand comes with element strides for (batch, head,
+// feature, token), so the one kernel reads and writes the head-major
+// [H, d, B*T] layout that fused_mha's projections produce, the [B, H, T, d]
+// layout of flash_attention, and the [B, T, H, d] views of [B*T, E]
+// projections, without a transpose copy.  lse [.., T] has token stride 1.
 // Masked: keys after the query (causal) and keys >= kv_len.
 //
 // Bound on the H100: operations.  The causal work is about
-// 2 * B * H * T^2 * d multiply-adds' worth of FLOPs for q^T k and p v
+// 2 * B * H * T^2 * d multiply-adds' worth of FLOPs for q k^T and p v
 // together, against q, k, v, o read or written once.  This kernel uses the
 // f32 CUDA cores (67 TFLOP/s peak), not the tensor cores.
 //
 // Design (simple first; no wgmma and no TMA yet): one CTA of 64 threads per
 // (64-query tile, batch row, head); thread t owns query row t.  The query
 // tile, pre-multiplied by scale, and each 64-key tile of k and v are staged
-// in shared memory as [d][64] (the head-major layout makes every staging
-// load a coalesced copy).  A thread takes its scores 16 keys at a time into
-// registers: the k values are read as float4 broadcasts shared by the whole
-// warp.  The online softmax keeps the running max m and sum l and the
-// output accumulator (d floats) in registers and rescales the accumulator
-// once per 16 keys.  The loop over key tiles stops at the diagonal tile
-// (causal) and at kv_len; ragged tiles are zero-filled and masked here, so
-// the caller pads nothing.  lse = m + log(l) is written at the end.
+// in shared memory as [d][64]: neighbouring threads load neighbouring
+// tokens, a coalesced copy when the token stride is 1 (the head-major
+// layout) and a strided one otherwise.  A thread takes its scores 16 keys
+// at a time into registers: the k values are read as float4 broadcasts
+// shared by the whole warp.  The online softmax keeps the running max m
+// and sum l and the output accumulator (d floats) in registers and
+// rescales the accumulator once per 16 keys.  The loop over key tiles stops
+// at the diagonal tile (causal) and at kv_len; ragged tiles are zero-filled
+// and masked here, so the caller pads nothing.  lse = m + log(l) is written
+// at the end.
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,16 +39,20 @@ constexpr int kBK = 64;   // keys per shared-memory tile
 constexpr int kCH = 16;   // keys per online-softmax step
 constexpr float kNegInf = -1e30f;
 
+// element strides of one operand: batch row, head, feature, token
+struct Strides {
+  long long b, h, d, t;
+};
+
 template <int D>
 __global__ void __launch_bounds__(kBQ)
     flash_fwd_hdt_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int B, int Tq, int Tk,
-                         int kv_len, int causal, float scale, long long qs_h,
-                         long long qs_d, long long qs_t, long long ks_h,
-                         long long ks_d, long long ks_t, long long vs_h,
-                         long long vs_d, long long vs_t) {
+                         float* __restrict__ lse, int Tq, int Tk, int kv_len,
+                         int causal, float scale, Strides qs, Strides ks,
+                         Strides vs, Strides os, long long ls_b,
+                         long long ls_h) {
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [D][kBQ], times scale
   float* Ks = Qs + D * kBQ;                     // [D][kBK]
@@ -55,15 +64,15 @@ __global__ void __launch_bounds__(kBQ)
   const int h = blockIdx.z;
   const int qpos = q0 + t;
 
-  const float* qh = q + h * qs_h + (long long)b * Tq * qs_t;
-  const float* kh = k + h * ks_h + (long long)b * Tk * ks_t;
-  const float* vh = v + h * vs_h + (long long)b * Tk * vs_t;
+  const float* qh = q + b * qs.b + h * qs.h;
+  const float* kh = k + b * ks.b + h * ks.h;
+  const float* vh = v + b * vs.b + h * vs.h;
 
   // Thread t stages query column t and is the only reader of it.
 #pragma unroll 8
   for (int j = 0; j < D; ++j)
     Qs[j * kBQ + t] =
-        qpos < Tq ? qh[j * qs_d + (long long)qpos * qs_t] * scale : 0.f;
+        qpos < Tq ? qh[j * qs.d + (long long)qpos * qs.t] * scale : 0.f;
 
   float acc[D];
 #pragma unroll
@@ -78,8 +87,8 @@ __global__ void __launch_bounds__(kBQ)
       const int j = idx / kBK, c = idx % kBK;
       const int kp = k0 + c;
       const bool in = kp < kend;
-      Ks[idx] = in ? kh[j * ks_d + (long long)kp * ks_t] : 0.f;
-      Vs[idx] = in ? vh[j * vs_d + (long long)kp * vs_t] : 0.f;
+      Ks[idx] = in ? kh[j * ks.d + (long long)kp * ks.t] : 0.f;
+      Vs[idx] = in ? vh[j * vs.d + (long long)kp * vs.t] : 0.f;
     }
     __syncthreads();
 
@@ -136,21 +145,19 @@ __global__ void __launch_bounds__(kBQ)
   }
 
   if (qpos < Tq) {
-    const long long n = (long long)B * Tq;
-    const long long col = (long long)b * Tq + qpos;
     const float lsafe = fmaxf(l, 1e-30f);
-    float* oc = o + (long long)h * D * n + col;
+    float* oc = o + b * os.b + h * os.h + (long long)qpos * os.t;
 #pragma unroll
-    for (int j = 0; j < D; ++j) oc[j * n] = acc[j] / lsafe;
-    lse[h * n + col] = m + logf(lsafe);
+    for (int j = 0; j < D; ++j) oc[j * os.d] = acc[j] / lsafe;
+    lse[b * ls_b + h * ls_h + qpos] = m + logf(lsafe);
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int H, int B, int Tq, int Tk, int kv_len, int causal,
-           float scale, const long long* qs, const long long* ks,
-           const long long* vs, cudaStream_t stream) {
+           float scale, const Strides* st, long long ls_b, long long ls_h,
+           cudaStream_t stream) {
   const int smem = (D * kBQ + 2 * D * kBK) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_hdt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -158,29 +165,28 @@ int launch(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + kBQ - 1) / kBQ, B, H);
   flash_fwd_hdt_kernel<D><<<grid, kBQ, smem, stream>>>(
-      q, k, v, o, lse, B, Tq, Tk, kv_len, causal, scale, qs[0], qs[1], qs[2],
-      ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]);
+      q, k, v, o, lse, Tq, Tk, kv_len, causal, scale, st[0], st[1], st[2],
+      st[3], ls_b, ls_h);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [H, D, B*Tq], k [H, D, B*Tk], v [H, D, B*Tk], each with element strides
-// (head, feature, token); o [H, D, B*Tq] and lse [H, 1, B*Tq] contiguous.
-// D is 64 or 128; 1 <= kv_len <= Tk.  Returns a cudaError_t as int.
-extern "C" int ptt_flash_fwd_hdt(const void* q, const void* k, const void* v,
-                                 void* o, void* lse, int H, int D, int B,
-                                 int Tq, int Tk, int kv_len, int causal,
-                                 float scale, long long qs_h, long long qs_d,
-                                 long long qs_t, long long ks_h,
-                                 long long ks_d, long long ks_t,
-                                 long long vs_h, long long vs_d,
-                                 long long vs_t, void* stream) {
+// q [B, H, Tq, D], k and v [B, H, Tk, D] and o [B, H, Tq, D] in any layout:
+// strides[16] holds (batch, head, feature, token) element strides for q,
+// k, v and o in that order, strides[16:18] lse's batch and head strides
+// (lse [B, H, Tq] has token stride 1).  f32; D is 64 or 128;
+// 1 <= kv_len <= Tk.  Returns a cudaError_t as int.
+extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int H, int D, int B, int Tq,
+                             int Tk, int kv_len, int causal, float scale,
+                             const long long* strides, void* stream) {
   if (H <= 0 || B <= 0 || Tq <= 0 || Tk <= 0 || kv_len < 1 || kv_len > Tk)
     return (int)cudaErrorInvalidValue;
-  const long long qs[3] = {qs_h, qs_d, qs_t};
-  const long long ks[3] = {ks_h, ks_d, ks_t};
-  const long long vs[3] = {vs_h, vs_d, vs_t};
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2],
+                    strides[4 * i + 3]};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -190,10 +196,10 @@ extern "C" int ptt_flash_fwd_hdt(const void* q, const void* k, const void* v,
   switch (D) {
     case 64:
       return launch<64>(qf, kf, vf, of, lf, H, B, Tq, Tk, kv_len, causal,
-                        scale, qs, ks, vs, s);
+                        scale, st, strides[16], strides[17], s);
     case 128:
       return launch<128>(qf, kf, vf, of, lf, H, B, Tq, Tk, kv_len, causal,
-                         scale, qs, ks, vs, s);
+                         scale, st, strides[16], strides[17], s);
     default:
       return (int)cudaErrorInvalidValue;
   }

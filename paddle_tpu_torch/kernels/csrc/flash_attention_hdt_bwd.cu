@@ -1,16 +1,20 @@
-// Head-major flash-attention backward for Hopper (sm_90a).
+// Flash-attention backward for Hopper (sm_90a), for any layout.
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 // paddle_tpu/kernels/flash_attention.py:_flash_bwd_hdt (bodies
 // _bwd_fused1_kernel_hdt, _bwd_fused_kernel_hdt, _bwd_dkv_kernel_hdt and
-// _bwd_dq_kernel_hdt).  From the forward's q, k, v [H, d, B*T] (each with
-// its own strides), its lse [H, 1, B*Tq], do [H, d, B*Tq] and
-// delta = rowsum(do * o) [H, 1, B*Tq] (taken in f32 by the caller):
+// _bwd_dq_kernel_hdt) and _flash_bwd (bodies _bwd_fused1_kernel,
+// _bwd_dkv_kernel and _bwd_dq_kernel).  From the forward's q, k, v, its
+// lse, do and delta = rowsum(do * o) (taken in f32 by the caller), with
+// every operand and output given by its (batch, head, feature, token)
+// element strides, so the head-major [H, d, B*T] and the [B, H, T, d]
+// layouts take the same kernels:
 //   p  = exp(scale * q^T k - lse)        (0 where masked)
 //   ds = p * (do^T v - delta)
 //   dv = p^T do,   dk = ds^T (scale * q),   dq = scale * ds k
 // with the forward's masks: keys after the query (causal), keys >= kv_len,
-// and the ragged tails of every tile.  dq, dk, dv are written contiguous.
+// and the ragged tails of every tile.  dq, dk, dv are written through
+// their own strides.
 //
 // Bound on the H100: operations.  The least work is 5 d-long dot products
 // per kept (query, key) pair (s, dp, and the three gradient updates), 10*d
@@ -37,8 +41,8 @@
 //     the diagonal and kv_len; dq stays in registers.
 // Staging reads each tile with neighbouring threads on neighbouring tokens,
 // coalesced when the token stride is 1 (q, k, v from fused_mha's
-// projections); do arrives token-strided from autograd and is then read
-// through L1.
+// projections); a token-strided operand (do from autograd, the
+// [B, H, T, d] layout) is then read through L1.
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,8 +51,9 @@ constexpr int kT = 64;         // tokens per tile, queries and keys
 constexpr int kNT = 256;       // threads per CTA, 16 x 16
 constexpr int kLP = kT + 4;    // row of the p / ds tiles
 
+// element strides of one operand: batch row, head, feature, token
 struct Strides {
-  long long h, d, t;
+  long long b, h, d, t;
 };
 
 template <int D>
@@ -139,23 +144,23 @@ __device__ __forceinline__ void rank_update(const float* w, const float* X,
   }
 }
 
-// out[h, 64 g + 4 tx + m, b*T + t0 + 4 ty + l] = mul * acc[l][4 g + m] for
-// tokens < T; out is contiguous [H, D, B*T].
+// out[b, h, token t0 + 4 ty + l, feature 64 g + 4 tx + m] =
+// mul * acc[l][4 g + m] for tokens < T, through out's strides s.
 template <int D>
-__device__ __forceinline__ void write_rows(float* out, int h, int b, int T,
-                                           long long n, int t0, int tx,
+__device__ __forceinline__ void write_rows(float* out, Strides s, int h,
+                                           int b, int T, int t0, int tx,
                                            int ty, float mul,
                                            const float (&acc)[4][4 * Tile<D>::NG]) {
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
     const int t = t0 + 4 * ty + l;
     if (t >= T) continue;
-    float* col = out + (long long)h * D * n + (long long)b * T + t;
+    float* row = out + b * s.b + h * s.h + (long long)t * s.t;
 #pragma unroll
     for (int g = 0; g < Tile<D>::NG; ++g)
 #pragma unroll
       for (int m = 0; m < 4; ++m)
-        col[(long long)(64 * g + 4 * tx + m) * n] = mul * acc[l][4 * g + m];
+        row[(long long)(64 * g + 4 * tx + m) * s.d] = mul * acc[l][4 * g + m];
   }
 }
 
@@ -168,9 +173,10 @@ __global__ void __launch_bounds__(kNT)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int B, int Tq, int Tk, int kv_len, int causal,
-                         float scale, Strides qs, Strides ks, Strides vs,
-                         Strides os) {
+                         int Tq, int Tk, int kv_len, int causal, float scale,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         long long ls_b, long long ls_h, Strides dks,
+                         Strides dvs) {
   constexpr int NG = Tile<D>::NG, TF = Tile<D>::kFloats;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][LD] key rows
@@ -185,15 +191,14 @@ __global__ void __launch_bounds__(kNT)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int k0 = blockIdx.x * kT, b = blockIdx.y, h = blockIdx.z;
   const int kend = min(Tk, kv_len);
-  const long long nq = (long long)B * Tq;
 
-  const float* qh = q + h * qs.h + (long long)b * Tq * qs.t;
-  const float* oh = dout + h * os.h + (long long)b * Tq * os.t;
-  const float* lh = lse + h * nq + (long long)b * Tq;
-  const float* eh = delta + h * nq + (long long)b * Tq;
+  const float* qh = q + b * qs.b + h * qs.h;
+  const float* oh = dout + b * os.b + h * os.h;
+  const float* lh = lse + b * ls_b + h * ls_h;
+  const float* eh = delta + b * ls_b + h * ls_h;
 
-  stage<D>(Ks, k + h * ks.h + (long long)b * Tk * ks.t, ks, k0, kend, 1.f);
-  stage<D>(Vs, v + h * vs.h + (long long)b * Tk * vs.t, vs, k0, kend, 1.f);
+  stage<D>(Ks, k + b * ks.b + h * ks.h, ks, k0, kend, 1.f);
+  stage<D>(Vs, v + b * vs.b + h * vs.h, vs, k0, kend, 1.f);
 
   float dka[4][4 * NG], dva[4][4 * NG];
 #pragma unroll
@@ -237,9 +242,8 @@ __global__ void __launch_bounds__(kNT)
     rank_update<D>(Ss, Qs, rows, tx, ty, dka);   // dk += ds^T (scale q)
   }
 
-  const long long nk = (long long)B * Tk;
-  write_rows<D>(dk, h, b, Tk, nk, k0, tx, ty, 1.f, dka);
-  write_rows<D>(dv, h, b, Tk, nk, k0, tx, ty, 1.f, dva);
+  write_rows<D>(dk, dks, h, b, Tk, k0, tx, ty, 1.f, dka);
+  write_rows<D>(dv, dvs, h, b, Tk, k0, tx, ty, 1.f, dva);
 }
 
 template <int D>
@@ -250,9 +254,10 @@ __global__ void __launch_bounds__(kNT)
                         const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq, int B, int Tq, int Tk,
-                        int kv_len, int causal, float scale, Strides qs,
-                        Strides ks, Strides vs, Strides os) {
+                        float* __restrict__ dq, int Tq, int Tk, int kv_len,
+                        int causal, float scale, Strides qs, Strides ks,
+                        Strides vs, Strides os, long long ls_b,
+                        long long ls_h, Strides dqs) {
   constexpr int NG = Tile<D>::NG, TF = Tile<D>::kFloats;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);  // [64][LD] query rows x scale
@@ -263,19 +268,20 @@ __global__ void __launch_bounds__(kNT)
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = blockIdx.x * kT, b = blockIdx.y, h = blockIdx.z;
-  const long long nq = (long long)B * Tq;
 
-  stage<D>(Qs, q + h * qs.h + (long long)b * Tq * qs.t, qs, q0, Tq, scale);
-  stage<D>(Os, dout + h * os.h + (long long)b * Tq * os.t, os, q0, Tq, 1.f);
+  stage<D>(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, scale);
+  stage<D>(Os, dout + b * os.b + h * os.h, os, q0, Tq, 1.f);
+  const float* lh = lse + b * ls_b + h * ls_h;
+  const float* eh = delta + b * ls_b + h * ls_h;
   float lrow[4], erow[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + tx + 16 * i;
-    lrow[i] = qp < Tq ? lse[h * nq + (long long)b * Tq + qp] : 0.f;
-    erow[i] = qp < Tq ? delta[h * nq + (long long)b * Tq + qp] : 0.f;
+    lrow[i] = qp < Tq ? lh[qp] : 0.f;
+    erow[i] = qp < Tq ? eh[qp] : 0.f;
   }
-  const float* kh = k + h * ks.h + (long long)b * Tk * ks.t;
-  const float* vh = v + h * vs.h + (long long)b * Tk * vs.t;
+  const float* kh = k + b * ks.b + h * ks.h;
+  const float* vh = v + b * vs.b + h * vs.h;
 
   float dqa[4][4 * NG];
 #pragma unroll
@@ -309,14 +315,14 @@ __global__ void __launch_bounds__(kNT)
     rank_update<D>(St, Ks, min(kT, kend - k0), tx, ty, dqa);  // ds k
   }
 
-  write_rows<D>(dq, h, b, Tq, nq, q0, tx, ty, scale, dqa);
+  write_rows<D>(dq, dqs, h, b, Tq, q0, tx, ty, scale, dqa);
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, const float* delta, float* dq, float* dk,
            float* dv, int H, int B, int Tq, int Tk, int kv_len, int causal,
-           float scale, Strides qs, Strides ks, Strides vs, Strides os,
+           float scale, const Strides* st, long long ls_b, long long ls_h,
            cudaStream_t stream) {
   constexpr int TF = Tile<D>::kFloats;
   const int smem_dkv = (4 * TF + 2 * kT * kLP + 2 * kT) * (int)sizeof(float);
@@ -331,35 +337,37 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_k((Tk + kT - 1) / kT, B, H);
   flash_bwd_dkv_kernel<D><<<grid_k, kNT, smem_dkv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, kv_len, causal, scale, qs,
-      ks, vs, os);
+      q, k, v, dout, lse, delta, dk, dv, Tq, Tk, kv_len, causal, scale, st[0],
+      st[1], st[2], st[3], ls_b, ls_h, st[5], st[6]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((Tq + kT - 1) / kT, B, H);
   flash_bwd_dq_kernel<D><<<grid_q, kNT, smem_dq, stream>>>(
-      q, k, v, dout, lse, delta, dq, B, Tq, Tk, kv_len, causal, scale, qs, ks,
-      vs, os);
+      q, k, v, dout, lse, delta, dq, Tq, Tk, kv_len, causal, scale, st[0],
+      st[1], st[2], st[3], ls_b, ls_h, st[4]);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, do as in the forward (element strides head, feature, token);
-// lse and delta [H, 1, B*Tq] contiguous; dq [H, D, B*Tq], dk and dv
-// [H, D, B*Tk] contiguous outputs.  D is 64 or 128; 1 <= kv_len <= Tk.
-// Returns a cudaError_t as int.
-extern "C" int ptt_flash_bwd_hdt(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv, int H,
-    int D, int B, int Tq, int Tk, int kv_len, int causal, float scale,
-    long long qs_h, long long qs_d, long long qs_t, long long ks_h,
-    long long ks_d, long long ks_t, long long vs_h, long long vs_d,
-    long long vs_t, long long os_h, long long os_d, long long os_t,
-    void* stream) {
+// q [B, H, Tq, D], k and v [B, H, Tk, D], do [B, H, Tq, D] and the outputs
+// dq [B, H, Tq, D], dk and dv [B, H, Tk, D] in any layout: strides[28]
+// holds (batch, head, feature, token) element strides for q, k, v, do, dq,
+// dk and dv in that order, strides[28:30] the batch and head strides that
+// lse and delta [B, H, Tq] share (token stride 1).  f32; D is 64 or 128;
+// 1 <= kv_len <= Tk.  Returns a cudaError_t as int.
+extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, void* dk, void* dv,
+                             int H, int D, int B, int Tq, int Tk, int kv_len,
+                             int causal, float scale,
+                             const long long* strides, void* stream) {
   if (H <= 0 || B <= 0 || Tq <= 0 || Tk <= 0 || kv_len < 1 || kv_len > Tk)
     return (int)cudaErrorInvalidValue;
-  const Strides qs{qs_h, qs_d, qs_t}, ks{ks_h, ks_d, ks_t};
-  const Strides vs{vs_h, vs_d, vs_t}, os{os_h, os_d, os_t};
+  Strides st[7];
+  for (int i = 0; i < 7; ++i)
+    st[i] = Strides{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2],
+                    strides[4 * i + 3]};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -373,10 +381,12 @@ extern "C" int ptt_flash_bwd_hdt(
   switch (D) {
     case 64:
       return launch<64>(qf, kf, vf, of, lf, ef, dqf, dkf, dvf, H, B, Tq, Tk,
-                        kv_len, causal, scale, qs, ks, vs, os, s);
+                        kv_len, causal, scale, st, strides[28], strides[29],
+                        s);
     case 128:
       return launch<128>(qf, kf, vf, of, lf, ef, dqf, dkf, dvf, H, B, Tq, Tk,
-                         kv_len, causal, scale, qs, ks, vs, os, s);
+                         kv_len, causal, scale, st, strides[28], strides[29],
+                         s);
     default:
       return (int)cudaErrorInvalidValue;
   }

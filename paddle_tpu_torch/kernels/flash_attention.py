@@ -1,27 +1,38 @@
-"""Flash attention in the head-major layout, forward and backward: the
-hand-written CUDA kernels and their plain torch versions.
+"""Flash attention, forward and backward: the hand-written CUDA kernels
+and their plain torch versions, in two layouts.
 
-Replaces the Pallas TPU kernels
-``paddle_tpu/kernels/flash_attention.py:_flash_fwd_hdt`` (body
-``_fwd_kernel_hdt``, entry ``flash_attention_hdt``) and ``_flash_bwd_hdt``
-(bodies ``_bwd_fused1_kernel_hdt``, ``_bwd_fused_kernel_hdt``,
-``_bwd_dkv_kernel_hdt`` and ``_bwd_dq_kernel_hdt``), called by the
-``fused_mha`` op.  The kernel sources are ``csrc/flash_attention_hdt.cu``
-and ``csrc/flash_attention_hdt_bwd.cu``; their headers say what bounds
-them on the H100 (operations, on the f32 CUDA cores) and how each design
-stages tiles in shared memory, stops at the causal diagonal and at
-``kv_len``, and masks ragged tiles itself, so the caller pads nothing
-(the JAX entry needs 128-token granules).
+- ``flash_attention_hdt`` takes the head-major ``[H, d, B*T]`` layout that
+  the ``fused_mha`` op's projections produce.  It replaces the Pallas TPU
+  kernels ``paddle_tpu/kernels/flash_attention.py:_flash_fwd_hdt`` (body
+  ``_fwd_kernel_hdt``) and ``_flash_bwd_hdt`` (bodies
+  ``_bwd_fused1_kernel_hdt``, ``_bwd_fused_kernel_hdt``,
+  ``_bwd_dkv_kernel_hdt`` and ``_bwd_dq_kernel_hdt``).
+- ``flash_attention`` takes ``[B, H, T, d]`` (or ``[BH, T, d]``) in any
+  strides, as the ``fused_attention`` op and the fused block's backward
+  recompute hand it.  It replaces ``_flash_fwd`` (body ``_fwd_kernel``) and
+  ``_flash_bwd`` (bodies ``_bwd_fused1_kernel``, ``_bwd_dkv_kernel`` and
+  ``_bwd_dq_kernel``), entry ``flash_attention``.
 
-``flash_attention_hdt`` is differentiable (a ``torch.autograd.Function``):
-its forward saves (q, k, v, o, lse); its backward takes
-``delta = rowsum(do * o)`` in f32 in torch, as the JAX package does
-(flash_attention.py:763), and calls ``flash_attention_hdt_bwd``.  Both
-entries decide by the tensors' device: CUDA tensors launch the kernel (or
-raise), CPU or meta tensors take the ``_plain`` version.
-``flash_attention_hdt.launches`` and ``flash_attention_hdt_bwd.launches``
-count kernel launches.  The card kernels take f32 inputs with d in
-{64, 128} and dv == d; bf16 comes with the mixed-precision work.
+Both layouts run the same two kernel sources, ``csrc/flash_attention_hdt.cu``
+and ``csrc/flash_attention_hdt_bwd.cu``, which read and write every operand
+through (batch, head, feature, token) element strides: no second kernel and
+no transpose copy.  Their headers say what bounds them on the H100
+(operations, on the f32 CUDA cores) and how each design stages tiles in
+shared memory, stops at the causal diagonal and at ``kv_len``, and masks
+ragged tiles itself, so the caller pads nothing (the JAX entries pad to
+128-token granules).  A token-strided operand (``[B, H, T, d]``) makes the
+staging loads strided; PERF.md gives that cost.
+
+Both entries are differentiable (``torch.autograd.Function``s): the forward
+saves (q, k, v, o, lse); the backward takes ``delta = rowsum(do * o)`` in
+f32 in torch, as the JAX package does (flash_attention.py:329, :763), and
+calls the backward kernel.  Every entry decides by the tensors' device:
+CUDA tensors launch the kernel (or raise), CPU or meta tensors take the
+``_plain`` version.  ``flash_attention_hdt.launches``,
+``flash_attention_hdt_bwd.launches``, ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count each entry's kernel launches.  The
+card kernels take f32 inputs with d in {64, 128} and dv == d; bf16 comes
+with the mixed-precision work.
 """
 from __future__ import annotations
 
@@ -93,39 +104,66 @@ def _kernel():
     global _fn
     if _fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        ll = ctypes.c_longlong
-        _fn = _build.bind("ptt_flash_fwd_hdt",
-                          [p, p, p, p, p, i, i, i, i, i, i, i, f,
-                           ll, ll, ll, ll, ll, ll, ll, ll, ll, p])
+        _fn = _build.bind("ptt_flash_fwd",
+                          [p] * 5 + [i] * 7 + [f,
+                           ctypes.POINTER(ctypes.c_longlong), p])
     return _fn
 
 
+def _check_card(name, ts, d, dv):
+    """The card kernels' contract: CUDA, one device, f32, d == dv in
+    KERNEL_HEAD_DIMS."""
+    if not all(t.is_cuda for t in ts):
+        raise RuntimeError(f"{name} kernel: every tensor must lie on a CUDA "
+                           f"device")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name} kernel: inputs on different devices")
+    if not all(t.dtype == torch.float32 for t in ts):
+        raise ValueError(f"{name} kernel: f32 inputs only, got "
+                         f"{[str(t.dtype) for t in ts]}")
+    if d not in KERNEL_HEAD_DIMS or dv != d:
+        raise ValueError(f"{name} kernel: head dims d={d}, dv={dv}; the "
+                         f"kernel takes d == dv in {KERNEL_HEAD_DIMS}")
+
+
+def _hdt_strides(t, T):
+    """(batch, head, feature, token) element strides of a head-major
+    [H, d, B*T] tensor."""
+    sh, sd, st = t.stride()
+    return (T * st, sh, sd, st)
+
+
+def _bhtd_strides(t):
+    """(batch, head, feature, token) element strides of [B, H, T, d]."""
+    sb, sh, st, sd = t.stride()
+    return (sb, sh, sd, st)
+
+
+def _stride_array(vals):
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _fwd_call(name, q, k, v, o, lse, H, d, B, Tq, Tk, kv_len, causal,
+              scale, strides):
+    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), H, d, B, Tq, Tk,
+                    Tk if kv_len is None else int(kv_len), int(causal),
+                    float(scale), _stride_array(strides),
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def _launch(q, k, v, batch, causal, scale, kv_len):
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise RuntimeError("flash_attention_hdt kernel: every tensor must "
-                           "lie on a CUDA device")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_hdt kernel: q, k, v on different "
-                         "devices")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise ValueError(f"flash_attention_hdt kernel: f32 inputs only, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    _check_card("flash_attention_hdt", (q, k, v), q.shape[1], v.shape[1])
     H, d, Nq = q.shape
-    if d not in KERNEL_HEAD_DIMS or v.shape[1] != d:
-        raise ValueError(f"flash_attention_hdt kernel: head dims d={d}, "
-                         f"dv={v.shape[1]}; the kernel takes d == dv in "
-                         f"{KERNEL_HEAD_DIMS}")
     Tq, Tk = _check(q, k, v, batch, causal, kv_len)
     o = torch.empty(H, d, Nq, dtype=torch.float32, device=q.device)
     lse = torch.empty(H, 1, Nq, dtype=torch.float32, device=q.device)
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    lse.data_ptr(), H, d, batch, Tq, Tk,
-                    Tk if kv_len is None else int(kv_len), int(causal),
-                    float(scale), *q.stride(), *k.stride(), *v.stride(),
-                    torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_hdt kernel launch failed: CUDA "
-                           f"error {err}")
+    _fwd_call("flash_attention_hdt", q, k, v, o, lse, H, d, batch, Tq, Tk,
+              kv_len, causal, scale,
+              (*_hdt_strides(q, Tq), *_hdt_strides(k, Tk),
+               *_hdt_strides(v, Tk), *_hdt_strides(o, Tq), Tq, Nq))
     flash_attention_hdt.launches += 1
     return o, lse
 
@@ -169,28 +207,29 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        ll = ctypes.c_longlong
-        _bwd_fn = _build.bind("ptt_flash_bwd_hdt",
-                              [p] * 9 + [i] * 7 + [f] + [ll] * 12 + [p])
+        _bwd_fn = _build.bind("ptt_flash_bwd",
+                              [p] * 9 + [i] * 7 + [f,
+                               ctypes.POINTER(ctypes.c_longlong), p])
     return _bwd_fn
 
 
+def _bwd_call(name, q, k, v, lse, delta, do, dq, dk, dv, H, d, B, Tq, Tk,
+              kv_len, causal, scale, strides):
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), H, d, B, Tq, Tk,
+        Tk if kv_len is None else int(kv_len), int(causal), float(scale),
+        _stride_array(strides),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len):
-    ts = (q, k, v, lse, delta, do)
-    if not all(t.is_cuda for t in ts):
-        raise RuntimeError("flash_attention_hdt_bwd kernel: every tensor "
-                           "must lie on a CUDA device")
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("flash_attention_hdt_bwd kernel: inputs on "
-                         "different devices")
-    if not all(t.dtype == torch.float32 for t in ts):
-        raise ValueError(f"flash_attention_hdt_bwd kernel: f32 inputs "
-                         f"only, got {[str(t.dtype) for t in ts]}")
+    _check_card("flash_attention_hdt_bwd", (q, k, v, lse, delta, do),
+                q.shape[1], v.shape[1])
     H, d, Nq = q.shape
-    if d not in KERNEL_HEAD_DIMS or v.shape[1] != d:
-        raise ValueError(f"flash_attention_hdt_bwd kernel: head dims d={d}, "
-                         f"dv={v.shape[1]}; the kernel takes d == dv in "
-                         f"{KERNEL_HEAD_DIMS}")
     if tuple(do.shape) != (H, d, Nq):
         raise ValueError(f"flash_attention_hdt_bwd kernel: do "
                          f"{tuple(do.shape)} != {(H, d, Nq)}")
@@ -203,16 +242,12 @@ def _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len):
     dq = torch.empty(H, d, Nq, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dvv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    err = _bwd_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dvv.data_ptr(), H, d, batch, Tq, Tk,
-        Tk if kv_len is None else int(kv_len), int(causal), float(scale),
-        *q.stride(), *k.stride(), *v.stride(), *do.stride(),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_hdt_bwd kernel launch failed: "
-                           f"CUDA error {err}")
+    _bwd_call("flash_attention_hdt_bwd", q, k, v, lse, delta, do, dq, dk,
+              dvv, H, d, batch, Tq, Tk, kv_len, causal, scale,
+              (*_hdt_strides(q, Tq), *_hdt_strides(k, Tk),
+               *_hdt_strides(v, Tk), *_hdt_strides(do, Tq),
+               *_hdt_strides(dq, Tq), *_hdt_strides(dk, Tk),
+               *_hdt_strides(dvv, Tk), Tq, Nq))
     flash_attention_hdt_bwd.launches += 1
     return dq, dk, dvv
 
@@ -266,3 +301,152 @@ def flash_attention_hdt(q, k, v, batch, causal: bool = False,
 
 flash_attention_hdt.launches = 0
 flash_attention_hdt_bwd.launches = 0
+
+
+# --- [B, H, T, d] in any strides (JAX flash_attention.py:441) ---------------
+
+def _check_bhtd(q, k, v, causal):
+    """The [B, H, T, d] contract; returns (B, H, Tq, Tk, d)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash_attention: q, k, v must be [B, H, T, d], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Tq, d = q.shape
+    if (tuple(k.shape[:2]) != (B, H) or k.shape[3] != d
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    Tk = k.shape[2]
+    if causal and Tq != Tk:
+        raise ValueError("causal attention requires Tq == Tk")
+    return B, H, Tq, Tk, d
+
+
+def _scores_bhtd(q, k, causal, scale):
+    """(q*scale, k) in the working precision and the masked scores
+    [B, H, Tq, Tk]."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qs, kf = q.to(acc) * scale, k.to(acc)
+    s = torch.matmul(qs, kf.transpose(-1, -2))
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return qs, kf, s
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=None):
+    """(o [B, H, Tq, dv], lse [B, H, Tq] f32): a full-softmax composition
+    in f32 (f64 for f64 inputs) of what the kernel computes."""
+    _check_bhtd(q, k, v, causal)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _, _, s = _scores_bhtd(q, k, causal, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.matmul(torch.exp(s - lse[..., None]), v.to(s.dtype))
+    return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal=False,
+                              scale=None):
+    """(dq, dk, dv) from the forward's inputs, its lse [B, H, Tq], delta =
+    rowsum(do * o) [B, H, Tq] and do [B, H, Tq, dv]: the full-matrix
+    composition of the FlashAttention-2 backward that the kernels tile."""
+    _check_bhtd(q, k, v, causal)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qs, kf, s = _scores_bhtd(q, k, causal, scale)
+    acc = s.dtype
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dof = do.to(acc)
+    ds = p * (torch.matmul(dof, v.to(acc).transpose(-1, -2))
+              - delta.to(acc)[..., None])
+    dq = scale * torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qs)
+    dvv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+def _launch_bhtd(q, k, v, causal, scale):
+    _check_card("flash_attention", (q, k, v), q.shape[-1], v.shape[-1])
+    B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
+    # o takes q's layout where q is dense (a [B, T, H, d] view stays one)
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    _fwd_call("flash_attention", q, k, v, o, lse, H, d, B, Tq, Tk, None,
+              causal, scale,
+              (*_bhtd_strides(q), *_bhtd_strides(k), *_bhtd_strides(v),
+               *_bhtd_strides(o), *lse.stride()[:2]))
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, lse, delta, do, causal: bool = False,
+                        scale: float = None):
+    """The backward of ``flash_attention`` in the [B, H, T, d] layout:
+    (dq, dk, dv), each in its input's layout where that is dense;
+    deterministic (no atomics)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal,
+                                         scale)
+    name = "flash_attention_bwd"
+    _check_card(name, (q, k, v, lse, delta, do), q.shape[-1], v.shape[-1])
+    B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"{name} kernel: do {tuple(do.shape)} != "
+                         f"{tuple(q.shape)}")
+    for what, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, H, Tq) or not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {what} must be contiguous "
+                             f"{(B, H, Tq)}, got {tuple(t.shape)}")
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    _bwd_call(name, q, k, v, lse, delta, do, dq, dk, dvv, H, d, B, Tq, Tk,
+              None, causal, scale,
+              (*_bhtd_strides(q), *_bhtd_strides(k), *_bhtd_strides(v),
+               *_bhtd_strides(do), *_bhtd_strides(dq), *_bhtd_strides(dk),
+               *_bhtd_strides(dvv), *lse.stride()[:2]))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dvv
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cuda":
+            o, lse = _launch_bhtd(q, k, v, causal, scale)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        acc = torch.promote_types(o.dtype, torch.float32)
+        delta = torch.sum(do.to(acc) * o.to(acc), dim=-1)
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, delta,
+                                         do.to(q.dtype), *ctx.args)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False, scale: float = None):
+    """Flash attention on q, k, v [B, H, T, d] (or [BH, T, d]) in any
+    strides; returns o of q's shape (in q's layout where q is dense, so a
+    [B, T, H, d] view in gives one out).  Any T: ragged tiles are masked
+    in the kernel, nothing is padded.  Causal requires Tq == Tk.
+    Differentiable in q, k and v."""
+    squeeze = q.ndim == 3
+    if squeeze:
+        q, k, v = q[:, None], k[:, None], v[:, None]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    o = _Flash.apply(q, k, v, bool(causal), float(scale))
+    return o[:, 0] if squeeze else o
+
+
+flash_attention.launches = 0
+flash_attention_bwd.launches = 0

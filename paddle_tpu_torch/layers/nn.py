@@ -3,7 +3,8 @@
 Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
 calls: data :21, fc :34, embedding :63, layer_norm :223,
 softmax_with_cross_entropy :310, mean :331, reshape :359, unsqueeze :413,
-scale :548, elementwise_add, fused_mha :877 and fused_lm_head_loss :968.  Each function creates
+scale :548, elementwise_add, fused_mha :877, fused_attention_qkv :948 and
+fused_lm_head_loss :968.  Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
 as the JAX package, so both builds serialize alike.
@@ -21,7 +22,8 @@ from ..framework.program import Variable
 
 __all__ = ["data", "fc", "embedding", "layer_norm",
            "softmax_with_cross_entropy", "mean", "reshape", "unsqueeze",
-           "scale", "elementwise_add", "fused_mha", "fused_lm_head_loss"]
+           "scale", "elementwise_add", "fused_mha", "fused_attention_qkv",
+           "fused_lm_head_loss"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -197,6 +199,18 @@ def fused_mha(x, n_head, causal=False, kv=None, size=None, out_size=None,
         inputs["XKV"] = [kv]
     helper.append_op("fused_mha", inputs, {"Out": [out]},
                      {"n_head": n_head, "causal": causal})
+    return out
+
+
+def fused_attention_qkv(q, k, v, n_head, causal=False, name=None):
+    """Flash attention on pre-projected q/k/v [B, T, n_head*d] (the
+    projections live in the caller): one ``fused_attention`` op, lowered
+    through the flash kernel (ops/attention_ops.py).  No attention-prob
+    dropout on this path."""
+    helper = LayerHelper("fused_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op("fused_attention", {"Q": [q], "K": [k], "V": [v]},
+                     {"Out": [out]}, {"n_head": n_head, "causal": causal})
     return out
 
 

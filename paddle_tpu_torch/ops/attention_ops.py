@@ -1,6 +1,12 @@
-"""Projection-fused multi-head attention and the fused LM-head loss
-(counterpart of paddle_tpu/ops/attention_ops.py: fused_mha :71 and
+"""Fused attention ops and the fused LM-head loss (counterpart of
+paddle_tpu/ops/attention_ops.py: fused_attention :19, fused_mha :71 and
 fused_lm_head_loss :173).
+
+``fused_attention`` runs flash attention on pre-projected ``[B, T, H*d]``
+q/k/v: the kernel reads them as ``[B, H, T, d]`` views through strides and
+writes o straight into ``[B, T, H*d]``, with no transpose copy on either
+side.  Its context-parallel branch (ring attention) is not ported yet
+(ROADMAP queue A.7).
 
 One op owns the q/k/v and output projection weights.  The projections run
 with the WEIGHTS as the left operand, so q/k/v come out contiguous in the
@@ -21,8 +27,27 @@ import torch
 
 from ..core.enforce import EnforceNotMet
 from ..framework.registry import register_op, single_input
-from ..kernels.flash_attention import flash_attention_hdt
+from ..kernels.flash_attention import flash_attention, flash_attention_hdt
 from ..kernels.lm_head import lm_head_xent
+
+
+@register_op("fused_attention")
+def _fused_attention(ctx, ins, attrs):
+    """Q [B, Tq, n_head*d], K and V [B, Tk, n_head*d] -> Out [B, Tq,
+    n_head*d].  attrs: n_head, causal, scale (0 => 1/sqrt(d))."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    n_head = int(attrs["n_head"])
+    causal = bool(attrs.get("causal", False))
+    B, T, E = q.shape
+    d = E // n_head
+
+    def split(x):                  # [B, T, E] -> a [B, H, T, d] view
+        return x.reshape(B, x.shape[1], n_head, d).transpose(1, 2)
+
+    scale = float(attrs.get("scale", 0.0)) or None
+    o = flash_attention(split(q), split(k), split(v), causal=causal,
+                        scale=scale)
+    return {"Out": [o.transpose(1, 2).reshape(B, T, E).to(q.dtype)]}
 
 
 @register_op("fused_mha")

@@ -15,6 +15,7 @@ import torch
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_block as fb
 from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import lm_head as lmh
 from paddle_tpu_torch.models import transformer as tr
@@ -259,3 +260,162 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
     relu branches."""
     import chip_smoke
     chip_smoke.train_match(torch)
+
+
+# --- the fuse-block slice ----------------------------------------------------
+
+def _bthd(dev, B, H, T, d, seed):
+    """A [B, H, T, d] view of a [B, T, H*d] tensor (token stride H*d), as
+    the fused block's recompute hands flash_attention."""
+    return _randn(dev, B, T, H * d, seed=seed).reshape(B, T, H, d) \
+        .transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,H,T,Tk,d,causal,layout", [
+    (4, 8, 512, 512, 64, True, "bthd"),      # the path's layout, B 4
+    (2, 8, 300, 300, 64, False, "bhtd"),
+    (2, 8, 200, 333, 64, False, "bthd"),
+    (2, 4, 300, 300, 128, True, "bthd"),
+    (1, 2, 1, 1, 64, True, "bhtd"),
+])
+def test_flash_bhtd_matches_plain_and_the_head_major_bits(
+        cuda, B, H, T, Tk, d, causal, layout):
+    """The [B, H, T, d] entry runs the head-major kernels through strides:
+    against the plain versions, and the same bits as the head-major call
+    on the same data (same kernels, same order of sums)."""
+    def make(t, seed):
+        if layout == "bthd":
+            return _bthd(cuda, B, H, t, d, seed)
+        return _randn(cuda, B, H, t, d, seed=seed)
+
+    q, k, v, do = make(T, 20), make(Tk, 21), make(Tk, 22), make(T, 23)
+    nf, nb = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    o, lse = fa._launch_bhtd(q, k, v, causal, d ** -0.5)
+    delta = (do * o).sum(-1)
+    got = fa.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+    po, plse = fa.flash_attention_plain(q, k, v, causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
+
+    def hm(t):
+        return t.permute(1, 3, 0, 2).reshape(H, d, -1)
+
+    def rows(t):
+        return t.permute(1, 0, 2).reshape(H, 1, -1).contiguous()
+
+    oh, lseh = fa.flash_attention_hdt(hm(q), hm(k), hm(v), B, causal=causal)
+    gh = fa.flash_attention_hdt_bwd(hm(q), hm(k), hm(v), rows(lse),
+                                    rows(delta), hm(do), B, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (nf + 1, nb + 2)
+    assert o.stride() == q.stride()             # o takes q's layout
+    assert (o - po).abs().max().item() <= F32_TOL
+    assert (lse - plse).abs().max().item() <= F32_TOL
+    scale = max(w.abs().max().item() for w in want)
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape
+        assert torch.equal(a, b)                # deterministic
+        assert (a - w).abs().max().item() <= REL_TOL * scale
+    assert torch.equal(hm(o), oh) and torch.equal(rows(lse), lseh)
+    for a, b in zip(got, gh):
+        assert torch.equal(hm(a), b)
+
+
+def test_fused_attention_op_on_a_btE_input(cuda):
+    """The op hands the kernel [B, H, T, d] views of [B, T, E] and gets o
+    back in [B, T, E] with no copy; its gradients match the CPU's."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    B, T, E, H = 2, 130, 256, 4
+    ins = {s: [_randn(cuda, B, T, E, seed=30 + i).requires_grad_()]
+           for i, s in enumerate("QKV")}
+    n = fa.flash_attention.launches
+    out, = get_op_def("fused_attention").lower(
+        LowerContext(0, cuda), ins, {"n_head": H, "causal": True})["Out"]
+    assert fa.flash_attention.launches == n + 1
+    assert out.shape == (B, T, E) and out.is_contiguous()
+    cpu = {s: [t[0].detach().cpu().requires_grad_()] for s, t in ins.items()}
+    ref, = get_op_def("fused_attention").lower(
+        LowerContext(0, torch.device("cpu")), cpu,
+        {"n_head": H, "causal": True})["Out"]
+    assert _rel_err(out.detach().cpu(), ref.detach()) <= REL_TOL
+    cot = _randn(cuda, B, T, E, seed=40)
+    got = torch.autograd.grad(out, [t[0] for t in ins.values()], cot)
+    want = torch.autograd.grad(ref, [t[0] for t in cpu.values()], cot.cpu())
+    for a, w in zip(got, want):
+        assert _rel_err(a.cpu(), w) <= REL_TOL
+
+
+def _block_inputs(dev, B, T, D, F, seed):
+    import chip_smoke
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return chip_smoke.block_inputs(
+        lambda *s: torch.randn(*s, generator=g, device=dev), B, T, D, F)
+
+
+@pytest.mark.parametrize("B,T,H,D,F,causal", [
+    (4, 512, 8, 512, 2048, True),      # the path's widths at batch 4
+    (2, 300, 8, 512, 2048, False),
+    (2, 300, 4, 512, 2048, True),      # head dim 128
+    (1, 1, 2, 128, 64, True),
+])
+def test_block_kernel_matches_plain(cuda, B, T, H, D, F, causal):
+    x, params = _block_inputs(cuda, B, T, D, F, seed=50)
+    n = fb.transformer_block.launches
+    got = fb.transformer_block(x, params, H, causal)
+    want = fb.transformer_block_plain(x, params, H, causal)
+    torch.cuda.synchronize()
+    assert fb.transformer_block.launches == n + 1
+    assert _rel_err(got, want) <= REL_TOL
+
+
+def test_block_backward_on_the_card_matches_the_cpu(cuda):
+    """The recompute backward runs the [B, H, T, d] flash kernels on the
+    card and the plain attention on the CPU."""
+    x, params = _block_inputs(cuda, 2, 130, 128, 256, seed=60)
+    ins = [t.clone().requires_grad_() for t in (x, *params)]
+    nf, nb = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = fb.transformer_block(ins[0], tuple(ins[1:]), 2, True)
+    cot = _randn(cuda, *out.shape, seed=61)
+    got = torch.autograd.grad(out, ins, cot)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (nf + 1, nb + 1)
+    cins = [t.detach().cpu().requires_grad_() for t in ins]
+    cout = fb.transformer_block(cins[0], tuple(cins[1:]), 2, True)
+    want = torch.autograd.grad(cout, cins, cot.cpu())
+    for name, a, w in zip(("x",) + fb.PARAM_NAMES, got, want):
+        assert _rel_err(a.cpu(), w) <= 1e-3, name
+
+
+def test_fuse_block_wrappers_refuse_what_they_cannot_take(cuda):
+    q = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fa.flash_attention_bwd(q, q.cpu(), q, q[..., 0], q[..., 0], q)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, q[..., 0].transpose(1, 2), q[..., 0],
+                               q)
+    x, params = _block_inputs(cuda, 1, 8, 128, 64, seed=70)
+    with pytest.raises(ValueError, match="head dim"):
+        fb.transformer_block(x, params, 4)                 # dh 32
+    with pytest.raises(ValueError, match="f32"):
+        fb.transformer_block(x.double(), tuple(p.double() for p in params),
+                             2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fb.transformer_block(x, tuple(p.cpu() for p in params), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.transformer_block(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             params, 2)
+
+
+def test_fused_training_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step of the fuse_block training program at full width,
+    L 2, batch 2, on CUDAPlace(0) and on the CPU: chip_smoke's check,
+    which raises where the losses differ or where an @GRAD entry differs
+    once the CPU takes the card's relu branches inside the blocks."""
+    import chip_smoke
+    chip_smoke.train_match_fused(torch)

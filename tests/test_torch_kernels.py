@@ -319,3 +319,76 @@ def test_backward_launches_without_a_card_raise():
         tlm._launch_bwd(x, w, y, torch.zeros(4), torch.zeros(4), 2)
     with pytest.raises(ValueError, match="chain"):
         tlm.lm_head_fwd(x, torch.zeros(9, 16), y)
+
+
+# --- flash attention in [B, H, T, d] (the fuse-block slice) -----------------
+
+# (B, H, T, d, JAX block_k): T 64 and 256 as test_pallas_kernels.py:25; the
+# ragged T 7, 100 and 129 of :145 (JAX pads them to 128, the port masks);
+# T 256 with block_k 128, so JAX takes its dk/dv + dq kernels (:379, :397)
+# rather than the one-pass nk == 1 kernel (:346)
+BHTD_SHAPES = [(2, 3, 64, 32, None), (2, 3, 256, 32, None),
+               (1, 2, 7, 16, None), (1, 2, 100, 16, None),
+               (1, 2, 129, 16, None), (1, 2, 256, 16, 128)]
+BHTD_CASES = [(c, s) for s in BHTD_SHAPES for c in (False, True)]
+
+
+@pytest.mark.parametrize("causal,shape", BHTD_CASES, ids=lambda c: (
+    ("causal" if c else "full") if isinstance(c, bool)
+    else "-".join(str(v) for v in c)))
+def test_flash_bhtd_plain_matches_pallas(causal, shape):
+    B, H, T, d, block_k = shape
+    rng = np.random.RandomState(B * 1000 + T + d + int(causal))
+    q, k, v, do = (rng.randn(B, H, T, d).astype("float32")
+                   for _ in range(4))
+    jo, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
+        a, b, c, causal=causal, interpret=True, block_k=block_k),
+        *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    to, tlse = tflash.flash_attention_plain(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    if T % 128 == 0 or T == 64:
+        # the unpadded kernel's lse residual (no padding at these T)
+        _, jlse = jflash._flash_fwd(
+            *(jnp.asarray(a.reshape(B * H, T, d)) for a in (q, k, v)),
+            1.0 / np.sqrt(d), causal, True, None, block_k)
+        np.testing.assert_allclose(tlse.numpy().reshape(B * H, T),
+                                   np.asarray(jlse), **TOL)
+    delta = torch.sum(tdo * to, dim=-1)
+    tgrads = tflash.flash_attention_bwd_plain(tq, tk, tv, tlse, delta, tdo,
+                                              causal=causal)
+    # and through the autograd entry, which takes the plain versions here
+    ins = [a.clone().requires_grad_() for a in (tq, tk, tv)]
+    agrads = torch.autograd.grad(
+        tflash.flash_attention(*ins, causal=causal), ins, tdo)
+    for name, t, a, j in zip("dq dk dv".split(), tgrads, agrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=name,
+                                   **TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(j), err_msg=name,
+                                   **TOL)
+
+
+def test_flash_bhtd_takes_bh_t_d_and_any_strides_on_cpu():
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(2, 40, 3 * 4 * 16).astype("float32"))
+    # q, k, v as [B, H, T, d] views of one [B, T, 3E] projection
+    q, k, v = (x[..., i * 64:(i + 1) * 64].reshape(2, 40, 4, 16)
+               .transpose(1, 2) for i in range(3))
+    n = (tflash.flash_attention.launches, tflash.flash_attention_bwd.launches)
+    o = tflash.flash_attention(q, k, v, causal=True)
+    want, _ = tflash.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), causal=True)
+    assert torch.equal(o, want)
+    o3 = tflash.flash_attention(*(t.reshape(8, 40, 16) for t in (q, k, v)),
+                                causal=True)
+    assert o3.shape == (8, 40, 16)
+    assert torch.equal(o3, want.reshape(8, 40, 16))
+    assert (tflash.flash_attention.launches,
+            tflash.flash_attention_bwd.launches) == n
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tflash._launch_bhtd(q, k, v, True, 0.25)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tflash._check_card("flash_attention_bwd", (q, k, v), 64, 64)
+    with pytest.raises(ValueError, match="causal"):
+        tflash.flash_attention(q[:, :, :7], k, v, causal=True)

@@ -211,6 +211,21 @@ def test_fused_mha_cross_attention_matches_jax():
     _compare(jouts, touts, ["Out"], MATMUL)
 
 
+@pytest.mark.parametrize("T,causal,scale", [(72, True, 0.0),
+                                             (128, False, 0.2)])
+def test_fused_attention_matches_jax(T, causal, scale):
+    """Q/K/V [B, T, H*d]: JAX splits heads with a transpose copy and runs
+    its Pallas flash kernel (T 72 padded to 128); the port hands the kernel
+    [B, H, T, d] views and writes o straight into [B, T, H*d]."""
+    rng = np.random.RandomState(T)
+    ins = {s: [_rand(rng, 2, T, 32)] for s in ("Q", "K", "V")}
+    attrs = {"n_head": 4, "causal": causal}
+    if scale:
+        attrs["scale"] = scale
+    jouts, touts = _run_both("fused_attention", ins, attrs)
+    _compare(jouts, touts, ["Out"], MATMUL)
+
+
 def test_kernel_ops_on_cpu_launch_nothing():
     n_ln, n_fa = layer_norm.launches, flash_attention_hdt.launches
     rng = np.random.RandomState(1)
