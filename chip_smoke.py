@@ -13,7 +13,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    registers, shared memory and spills per kernel.
 3. Kernel vs plain: each kernel's wrapper on CUDA tensors against its plain
    torch version on the same inputs, at the paths' shapes and at ragged
-   ones, with the tolerance printed beside the error.  The flash and
+   ones, with the tolerance printed beside the error.  The flash cases
+   include a peaked softmax (q and k x 4), Tq = Tk = 65 and a [B, T, H, d]
+   view 1 float off 16-byte alignment (4-byte staging).  The flash and
    LM-head backward kernels must also give the same bits twice, and the
    [B, H, T, d] flash calls the head-major call's bits on the same data.
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
@@ -55,17 +57,21 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    latency p50 and tokens/s per batch size; training step p50 and
    tokens/s at batch 32, both programs; peak device memory; the
    [B, H, T, d] flash on the block's [B, T, H, d] views beside the
-   contiguous and head-major calls; then torch.profiler traces of one
-   batch-8 request and one step of each training program split by kernel
-   class, with the device's busy share.
+   contiguous and head-major calls; the flash rows add the 3xTF32
+   tensor-core bound (tc_bound_ms) and the achieved TFLOP/s; then
+   torch.profiler traces of one batch-8 request and one step of each
+   training program split by kernel class, with the device's busy share,
+   and the names of the kernels SDPA launches (its library yardstick).
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
    "launches_by_path"), nvidia-smi's line, and as the last line
    {"ok": true, "device": {...}}.
 
-TF32 is switched off for matmuls and cuDNN: every f32 product here is full
-f32, so the card and the CPU compute the same math.  The script exits
+TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
+is full f32, so the card and the CPU compute the same math.  (The flash
+kernels take their products on the TF32 tensor cores in three passes,
+f32-grade by construction.)  The script exits
 non-zero and prints no result when no CUDA device is visible, or when the
 paddle_tpu_torch package is not beside it.
 """
@@ -91,6 +97,7 @@ TRAIN_LR = 1e-4
 HEAD_CHUNK = 4096              # layers.fused_lm_head_loss's chunk_size
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 without tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 SLEEP_CYCLES = 40_000_000      # about 20 ms at the H100's 1.98 GHz boost
 
 LN_TOL = 1e-4        # abs, f32: the same math summed in another order
@@ -249,6 +256,15 @@ def bound_ms(flops, nbytes):
     return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
 
 
+def flash_extra(flops, nbytes, ms):
+    """The flash rows' tensor-core numbers: tc_bound_ms, the least time of
+    the 3xTF32 work (three TF32 products for each f32 one) at the TF32
+    tensor-core peak, or of the bytes; and the achieved TFLOP/s of the f32
+    work."""
+    tc = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S) * 1e3
+    return dict(tc_bound_ms=tc, tflops=flops / ms / 1e9)
+
+
 def phase_build(torch):
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -302,20 +318,26 @@ def phase_compare(torch):
         if path:
             note("layer_norm", path, e)
 
-    # (H, d, B, Tq, Tk, causal, kv_len, strided q, path)
-    for H, d, B, Tq, Tk, causal, kv_len, strided, path in [
-            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, False,
+    # (H, d, B, Tq, Tk, causal, kv_len, strided q, scale of q and k,
+    # path); q and k x 4 make the softmax peaked (|s| up to ~80), where
+    # the lo terms of the 3xTF32 split matter most; v keeps its scale, and
+    # so does o, on which FA_TOL is absolute
+    for H, d, B, Tq, Tk, causal, kv_len, strided, amp, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, False, 1,
              "train"),
-            (8, 64, 8, SERVE_T, SERVE_T, True, None, False, "serve"),
-            (8, 64, 2, 300, 300, False, 250, False, "ragged"),
-            (8, 64, 2, 200, 333, False, None, False, "ragged"),  # Tq != Tk
-            (4, 128, 2, 300, 300, True, None, False, "ragged"),
-            (4, 64, 3, 130, 130, True, None, True, "ragged")]:
+            (8, 64, 8, SERVE_T, SERVE_T, True, None, False, 1, "serve"),
+            (8, 64, 2, 300, 300, False, 250, False, 1, "ragged"),
+            (8, 64, 2, 200, 333, False, None, False, 1, "ragged"),  # Tq!=Tk
+            (4, 128, 2, 300, 300, True, None, False, 1, "ragged"),
+            (4, 64, 3, 130, 130, True, None, True, 1, "ragged"),
+            (8, 64, 2, 65, 65, True, None, False, 1, "ragged"),
+            (8, 64, 4, 512, 512, True, None, False, 4, "ragged"),
+            (4, 128, 2, 300, 300, False, 250, False, 4, "ragged")]:
         if strided:   # q as a transposed view: token stride d, not 1
-            q = rnd(H, B * Tq, d).transpose(1, 2)
+            q = (rnd(H, B * Tq, d) * amp).transpose(1, 2)
         else:
-            q = rnd(H, d, B * Tq)
-        k, v = rnd(H, d, B * Tk), rnd(H, d, B * Tk)
+            q = rnd(H, d, B * Tq) * amp
+        k, v = rnd(H, d, B * Tk) * amp, rnd(H, d, B * Tk)
         got = fa.flash_attention_hdt(q, k, v, B, causal=causal,
                                      kv_len=kv_len)
         want = fa.flash_attention_hdt_plain(q, k, v, B, causal=causal,
@@ -323,27 +345,30 @@ def phase_compare(torch):
         torch.cuda.synchronize()
         e = max(max_err(a, b) for a, b in zip(got, want))
         log(f"[compare] flash_attention_hdt H={H} d={d} B={B} Tq={Tq} "
-            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided}: "
-            f"max abs err {e:.3g} (tol {FA_TOL:g})")
+            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided} "
+            f"q, k x{amp}: max abs err {e:.3g} (tol {FA_TOL:g})")
         if not e <= FA_TOL:
             raise RuntimeError(f"flash kernel disagrees: {e} > {FA_TOL}")
         note("flash_attention_hdt", path, e)
 
     # flash backward from the forward's residuals: (H, d, B, Tq, Tk,
-    # causal, kv_len, strided q and do, path)
-    for H, d, B, Tq, Tk, causal, kv_len, strided, path in [
-            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, False,
+    # causal, kv_len, strided q and do, scale of q and k, path)
+    for H, d, B, Tq, Tk, causal, kv_len, strided, amp, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, False, 1,
              "train"),
-            (8, 64, 2, 300, 300, False, 250, False, "ragged"),
-            (8, 64, 2, 200, 333, False, None, False, "ragged"),
-            (4, 128, 2, 300, 300, True, None, False, "ragged"),
-            (4, 64, 3, 130, 130, True, None, True, "ragged")]:
+            (8, 64, 2, 300, 300, False, 250, False, 1, "ragged"),
+            (8, 64, 2, 200, 333, False, None, False, 1, "ragged"),
+            (4, 128, 2, 300, 300, True, None, False, 1, "ragged"),
+            (4, 64, 3, 130, 130, True, None, True, 1, "ragged"),
+            (8, 64, 2, 65, 65, True, None, False, 1, "ragged"),
+            (8, 64, 4, 512, 512, True, None, False, 4, "ragged"),
+            (4, 128, 2, 300, 300, False, 250, True, 4, "ragged")]:
         if strided:   # token stride d, as a transposed view (do: as
-            q = rnd(H, B * Tq, d).transpose(1, 2)   # autograd hands it)
-            do = rnd(H, B * Tq, d).transpose(1, 2)
+            q = (rnd(H, B * Tq, d) * amp).transpose(1, 2)  # autograd
+            do = rnd(H, B * Tq, d).transpose(1, 2)         # hands it)
         else:
-            q, do = rnd(H, d, B * Tq), rnd(H, d, B * Tq)
-        k, v = rnd(H, d, B * Tk), rnd(H, d, B * Tk)
+            q, do = rnd(H, d, B * Tq) * amp, rnd(H, d, B * Tq)
+        k, v = rnd(H, d, B * Tk) * amp, rnd(H, d, B * Tk)
         o, lse = fa.flash_attention_hdt_plain(q, k, v, B, causal=causal,
                                               kv_len=kv_len)
         delta = (do * o).sum(1, keepdim=True)
@@ -359,7 +384,8 @@ def phase_compare(torch):
         r = e / max(float(b.abs().max()) for b in want)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         log(f"[compare] flash_attention_hdt_bwd H={H} d={d} B={B} Tq={Tq} "
-            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided}: "
+            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided} "
+            f"q, k x{amp}: "
             f"max abs err {e:.3g}, {r:.3g} of max |plain| (tol "
             f"{BWD_RTOL:g}); two runs bit-identical: {same}")
         if not r <= BWD_RTOL:
@@ -405,20 +431,33 @@ def phase_compare(torch):
     # flash in [B, H, T, d] through strides, forward and backward, against
     # the plain versions and against the head-major call on the same data
     # (the same kernels and sums: the same bits).  "bthd" is the block
-    # recompute's [B, T, H, d] view of a [B, T, E] projection, "bhtd" the
-    # contiguous layout.  (H, d, B, Tq, Tk, causal, layout, path)
-    for H, d, B, Tq, Tk, causal, layout, path in [
-            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", "train"),
-            (8, 64, 2, 300, 300, False, "bhtd", "ragged"),
-            (8, 64, 2, 200, 333, False, "bthd", "ragged"),
-            (4, 128, 2, 300, 300, True, "bthd", "ragged"),
-            (4, 64, 3, 130, 130, True, "bhtd", "ragged")]:
-        def make(T):
+    # recompute's [B, T, H, d] view of a [B, T, E] projection, "bthd+1"
+    # the same view starting 1 float into its storage (not 16-byte
+    # aligned, so the kernels stage it by 4-byte copies), "bhtd" the
+    # contiguous layout.  (H, d, B, Tq, Tk, causal, layout, scale of q
+    # and k, path)
+    for H, d, B, Tq, Tk, causal, layout, amp, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", 1,
+             "train"),
+            (8, 64, 2, 300, 300, False, "bhtd", 1, "ragged"),
+            (8, 64, 2, 200, 333, False, "bthd", 1, "ragged"),
+            (4, 128, 2, 300, 300, True, "bthd", 1, "ragged"),
+            (4, 64, 3, 130, 130, True, "bhtd", 1, "ragged"),
+            (8, 64, 2, 65, 65, True, "bthd", 1, "ragged"),
+            (8, 64, 2, 300, 300, True, "bthd+1", 1, "ragged"),
+            (4, 128, 2, 200, 333, False, "bthd+1", 4, "ragged"),
+            (8, 64, 4, 512, 512, True, "bthd", 4, "ragged")]:
+        def make(T, mul=amp):
             if layout == "bthd":
-                return bthd_view(rnd(B, T, H * d), H)
-            return rnd(B, H, T, d)
+                return bthd_view(rnd(B, T, H * d) * mul, H)
+            if layout == "bthd+1":
+                x = rnd(B * T * H * d + 1) * mul
+                return bthd_view(x[1:].view(B, T, H * d), H)
+            return rnd(B, H, T, d) * mul
 
-        q, k, v, do = make(Tq), make(Tk), make(Tk), make(Tq)
+        q, k, v, do = make(Tq), make(Tk), make(Tk, 1), make(Tq, 1)
+        if layout == "bthd+1" and q.data_ptr() % 16 == 0:
+            raise RuntimeError("the misaligned case is 16-byte aligned")
         scale = 1.0 / math.sqrt(d)
         o, lse = fa._launch_bhtd(q, k, v, causal, scale)
         po, plse = fa.flash_attention_plain(q, k, v, causal)
@@ -441,7 +480,8 @@ def phase_compare(torch):
         bits_f = torch.equal(head_major(o), oh) and torch.equal(lse_hm, lseh)
         bits_b = all(torch.equal(head_major(a), b) for a, b in zip(got, gh))
         log(f"[compare] flash_attention [B,H,T,d] ({layout}) H={H} d={d} "
-            f"B={B} Tq={Tq} Tk={Tk} causal={causal}: forward max abs err "
+            f"B={B} Tq={Tq} Tk={Tk} causal={causal} q, k x{amp}: forward "
+            f"max abs err "
             f"{ef:.3g} (tol {FA_TOL:g}); backward max abs err {eb:.3g}, "
             f"{rb:.3g} of max |plain| (tol {BWD_RTOL:g}); two backward runs "
             f"bit-identical: {same}; same bits as the head-major call: "
@@ -980,6 +1020,40 @@ def trace_run(torch, label, fn):
             f"device time, {launches[c]} launches)")
 
 
+def sdpa_kernels(torch):
+    """The kernels PyTorch's f32 SDPA launches at the training shape (B 32,
+    H 8, T 512, d 64, causal, TF32 off), forward and backward apart, from
+    torch.profiler: {"fwd": {name: device ms}, "bwd": {...}}.  It shows on
+    the card which kernel the yardstick is (expected: CUTLASS's
+    memory-efficient fmha, f32 on the TF32 tensor cores in 3 passes)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    q, k, v, do = (torch.randn(TRAIN_BATCH, 8, TRAIN_T, 64, generator=g,
+                               device=DEVICE) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    calls = {
+        "fwd": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True),
+        "bwd": lambda: torch.autograd.grad(o, (q, k, v), do,
+                                           retain_graph=True)}
+    res = {}
+    for what, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        res[what] = {e.key: e.self_device_time_total / 1e3
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0}
+        for name, ms in res[what].items():
+            log(f"[sdpa] {what}: {name} {ms:.4f} ms")
+    return res
+
+
 def phase_timings(torch):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1041,14 +1115,16 @@ def phase_timings(torch):
         ops = 4 * d * pairs                   # q.k and p.v, 2 FLOP/MAC
         nbytes = 4 * (4 * H * d * B * T + H * B * T)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+        extra = flash_extra(ops, nbytes, ms)
         res.setdefault("flash_attention_hdt", {})[path] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-            bound_by="operations")
+            bound_by="operations", **extra)
         log(f"[time] flash_attention_hdt ({path}) H={H} d={d} B={B} T={T} "
             f"causal f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} "
             f"TFLOP/s), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
             f"{bound:.4f} ms ({ops / 1e9:.3f} GFLOP at "
-            f"{F32_FLOPS_PER_S / 1e12:g} TFLOP/s); host enqueue per call "
+            f"{F32_FLOPS_PER_S / 1e12:g} TFLOP/s), 3xTF32 tensor-core "
+            f"bound {extra['tc_bound_ms']:.4f} ms; host enqueue per call "
             f"{host:.4f} ms")
 
     # flash backward at the training path's shape: B 32
@@ -1071,15 +1147,17 @@ def phase_timings(torch):
     ops = 10 * d * pairs                      # 5 d-long products per pair
     nbytes = 4 * (7 * H * d * B * T + 2 * H * B * T)
     bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
+    extra = flash_extra(ops, nbytes, ms)
     res["flash_attention_hdt_bwd"] = {"train": dict(
         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-        bound_by="operations")}
+        bound_by="operations", **extra)}
     log(f"[time] flash_attention_hdt_bwd H={H} d={d} B={B} T={T} causal "
         f"f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the "
         f"least work; the kernels do 7/5 of it), plain {plain:.4f} ms, "
         f"sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
-        f"({ops / 1e9:.3f} GFLOP at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s); "
-        f"host enqueue per call {host:.4f} ms")
+        f"({ops / 1e9:.3f} GFLOP at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s), "
+        f"3xTF32 tensor-core bound {extra['tc_bound_ms']:.4f} ms; host "
+        f"enqueue per call {host:.4f} ms")
 
     # LM head at the training path's shape: N = 32 x 512 tokens, D 512,
     # V 32000; the loss cotangent is 1/N, as the op's mean gives it
@@ -1189,11 +1267,13 @@ def phase_timings_fused(torch):
         "flash_attention": {"train": dict(
             ms=fwd["bthd"], plain_ms=fplain, library_ms=flib,
             bound_ms=bound_ms(fops, fbytes), bound_by="operations",
-            contiguous_bhtd_ms=fwd["bhtd"], head_major_ms=fwd["head-major"])},
+            contiguous_bhtd_ms=fwd["bhtd"], head_major_ms=fwd["head-major"],
+            **flash_extra(fops, fbytes, fwd["bthd"]))},
         "flash_attention_bwd": {"train": dict(
             ms=bwd["bthd"], plain_ms=bplain, library_ms=blib,
             bound_ms=bound_ms(bops, bbytes), bound_by="operations",
-            contiguous_bhtd_ms=bwd["bhtd"], head_major_ms=bwd["head-major"])}}
+            contiguous_bhtd_ms=bwd["bhtd"], head_major_ms=bwd["head-major"],
+            **flash_extra(bops, bbytes, bwd["bthd"]))}}
     for n, ops, times, plain, lib, what in (
             ("flash_attention", fops, fwd, fplain, flib, "sdpa"),
             ("flash_attention_bwd", bops, bwd, bplain, blib,
@@ -1205,7 +1285,8 @@ def phase_timings_fused(torch):
             f"{times['bhtd']:.4f} ms, the head-major call (token stride 1) "
             f"{times['head-major']:.4f} ms; plain {plain:.4f} ms, {what} "
             f"{lib:.4f} ms, bound {res[n]['train']['bound_ms']:.4f} ms "
-            f"({ops / 1e9:.3f} GFLOP); host enqueue per call "
+            f"({ops / 1e9:.3f} GFLOP), 3xTF32 tensor-core bound "
+            f"{res[n]['train']['tc_bound_ms']:.4f} ms; host enqueue per call "
             f"{host['bthd' if n == 'flash_attention' else 'bthd bwd']:.4f} ms")
 
     # the block forward
@@ -1297,6 +1378,11 @@ def main():
                                         feed=ftrain["batch"],
                                         fetch_list=[ftrain["avg_cost"]],
                                         return_numpy=False))
+    sdpa = sdpa_kernels(torch)
+    for n in ("flash_attention_hdt", "flash_attention"):
+        times[n]["train"]["library_kernels"] = sorted(sdpa["fwd"])
+    for n in ("flash_attention_hdt_bwd", "flash_attention_bwd"):
+        times[n]["train"]["library_kernels"] = sorted(sdpa["bwd"])
 
     # each kernel's launches on its training path (slice 2's program for
     # the five it runs, the fuse_block program for the three it adds),

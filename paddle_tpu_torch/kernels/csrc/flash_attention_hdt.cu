@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), for any layout.
+// Flash-attention forward for Hopper (sm_90a), for any layout, on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernels
 // paddle_tpu/kernels/flash_attention.py:_flash_fwd_hdt (body
@@ -12,144 +13,218 @@
 // projections, without a transpose copy.  lse [.., T] has token stride 1.
 // Masked: keys after the query (causal) and keys >= kv_len.
 //
-// Bound on the H100: operations.  The causal work is about
-// 2 * B * H * T^2 * d multiply-adds' worth of FLOPs for q k^T and p v
-// together, against q, k, v, o read or written once.  This kernel uses the
-// f32 CUDA cores (67 TFLOP/s peak), not the tensor cores.
+// Bound on the H100: operations.  The causal work is 4 d FLOP per kept
+// (query, key) pair for q k^T and p v (8.607 GFLOP at B 32, H 8, T 512,
+// d 64); in 3xTF32 the tensor cores do three times that, 25.8 GFLOP at
+// 495 TFLOP/s = 0.052 ms.  q, k, v, o and lse move once: 134 MB at
+// 3.35 TB/s = 0.040 ms.
 //
-// Design (simple first; no wgmma and no TMA yet): one CTA of 64 threads per
-// (64-query tile, batch row, head); thread t owns query row t.  The query
-// tile, pre-multiplied by scale, and each 64-key tile of k and v are staged
-// in shared memory as [d][64]: neighbouring threads load neighbouring
-// tokens, a coalesced copy when the token stride is 1 (the head-major
-// layout) and a strided one otherwise.  A thread takes its scores 16 keys
-// at a time into registers: the k values are read as float4 broadcasts
-// shared by the whole warp.  The online softmax keeps the running max m
-// and sum l and the output accumulator (d floats) in registers and
-// rescales the accumulator once per 16 keys.  The loop over key tiles stops
-// at the diagonal tile (causal) and at kv_len; ragged tiles are zero-filled
-// and masked here, so the caller pads nothing.  lse = m + log(l) is written
-// at the end.
+// Design: FlashAttention-2 on mma.sync m16n8k8 TF32 with the 3xTF32 split
+// (flash_mma.cuh has the numerics, the fragment maps and the staging).
+// Triton is not used: the kernel needs exact control of the three-pass
+// split and of the fragment layout that lets p feed the p v product from
+// registers.
+// - A CTA of 4 warps takes 64 queries of one (batch row, head), 16 a warp.
+//   The grid is (B*H, query tiles) with the last query tile first, so the
+//   longest causal rows start first.
+// - The query tile is staged once; each warp keeps its 16 rows, times
+//   scale, in registers as f32 A fragments (split per use).
+// - Key and value tiles of 64 tokens are double-buffered in shared memory
+//   by cp.async: tile i + 1's copy is in flight while tile i's products run.
+//   The staging path (16-byte along features, 4-byte along tokens, or
+//   4-byte generic) is chosen per operand from its strides and alignment;
+//   all three fill the same [64][d + 4] tile.
+// - A key tile is taken in two blocks of 32 keys (fewer live registers);
+//   s = q k^T for the warp's 16 x 32 block stays in accumulator registers.
+//   The row max and row sum of the online softmax are reduced over the 4
+//   lanes of a quad with __shfl_xor_sync, and the o accumulator is rescaled
+//   once per block.  On the causal diagonal a warp skips the block whose
+//   keys all lie after its rows.  p is the A operand of p v as it stands in the s
+//   accumulators (k relabelled within each 8-block, v's B rows read as 2t
+//   and 2t + 1): no round trip through shared memory.
+// - The loop over key tiles stops at the diagonal tile (causal) and at
+//   kv_len; masks are applied only in tiles that need them; ragged tiles
+//   are zero-filled and masked here, so the caller pads nothing.
+//   lse = m + log(l) is written at the end.
+// Shared memory: 4 tiles of [64][d + 4] floats (k and v, two stages; the
+// query tile is staged into the second stage first), 69,632 bytes at d 64
+// and 135,168 at d 128.  Occupancy (ptxas, printed by chip_smoke.py's
+// build phase): at d 64 168 registers and no spills, so 3 CTAs (12 warps)
+// share an SM, as many as shared memory allows; at d 128 shared memory
+// allows 1 CTA (4 warps), and the 64 + 64 registers of q and o fragments
+// take all 255 with a few dozen bytes of spills.
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;   // queries per CTA, one per thread
-constexpr int kBK = 64;   // keys per shared-memory tile
-constexpr int kCH = 16;   // keys per online-softmax step
-constexpr float kNegInf = -1e30f;
-
-// element strides of one operand: batch row, head, feature, token
-struct Strides {
-  long long b, h, d, t;
-};
+using namespace ptt_flash;
 
 template <int D>
-__global__ void __launch_bounds__(kBQ)
+__global__ void __launch_bounds__(kThreads)
     flash_fwd_hdt_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int Tq, int Tk, int kv_len,
-                         int causal, float scale, Strides qs, Strides ks,
-                         Strides vs, Strides os, long long ls_b,
-                         long long ls_h) {
+                         float* __restrict__ lse, int H, int Tq, int Tk,
+                         int kv_len, int causal, float scale, Strides qs,
+                         Strides ks, Strides vs, Strides os, long long ls_b,
+                         long long ls_h, int mq, int mk, int mv) {
+  constexpr int TF = Tile<D>::kFloats, NF = D / 8;
+  constexpr int KN = 32, NJ = KN / 8;   // keys per online-softmax step
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [D][kBQ], times scale
-  float* Ks = Qs + D * kBQ;                     // [D][kBK]
-  float* Vs = Ks + D * kBK;                     // [D][kBK]
+  float* sm = reinterpret_cast<float*>(smem4);  // stage s: k at 2s TF, v after
 
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y;
-  const int h = blockIdx.z;
-  const int qpos = q0 + t;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int wr = 16 * warp;                     // the warp's first row
+  const int qr0 = q0 + wr + g, qr1 = qr0 + 8;   // this lane's two queries
 
-  const float* qh = q + b * qs.b + h * qs.h;
   const float* kh = k + b * ks.b + h * ks.h;
   const float* vh = v + b * vs.b + h * vs.h;
+  int kend = min(Tk, kv_len);
+  if (causal) kend = min(kend, q0 + kTile);
+  const int ntiles = (kend + kTile - 1) / kTile;
 
-  // Thread t stages query column t and is the only reader of it.
-#pragma unroll 8
-  for (int j = 0; j < D; ++j)
-    Qs[j * kBQ + t] =
-        qpos < Tq ? qh[j * qs.d + (long long)qpos * qs.t] * scale : 0.f;
-
-  float acc[D];
+  stage<D>(sm + 2 * TF, q + b * qs.b + h * qs.h, qs, q0, Tq, mq);
+  stage<D>(sm, kh, ks, 0, kend, mk);
+  stage<D>(sm + TF, vh, vs, 0, kend, mv);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  float qf[NF][4];   // the warp's rows times scale, as A fragments
 #pragma unroll
-  for (int j = 0; j < D; ++j) acc[j] = 0.f;
-  float m = kNegInf, l = 0.f;
+  for (int kk = 0; kk < NF; ++kk)
+    load_a<D>(qf[kk], sm + 2 * TF, wr + g, 8 * kk, t, scale);
+  __syncthreads();   // the query tile's stage is reused for keys
 
-  int kend = causal ? min(Tk, q0 + kBQ) : Tk;
-  kend = min(kend, kv_len);
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = t; idx < D * kBK; idx += kBQ) {
-      const int j = idx / kBK, c = idx % kBK;
-      const int kp = k0 + c;
-      const bool in = kp < kend;
-      Ks[idx] = in ? kh[j * ks.d + (long long)kp * ks.t] : 0.f;
-      Vs[idx] = in ? vh[j * vs.d + (long long)kp * vs.t] : 0.f;
+  float acc[NF][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kTile;
+    if (it + 1 < ntiles) {
+      float* nb = sm + ((it + 1) & 1) * 2 * TF;
+      stage<D>(nb, kh, ks, k0 + kTile, kend, mk);
+      stage<D>(nb + TF, vh, vs, k0 + kTile, kend, mv);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
+    const float* Ks = sm + (it & 1) * 2 * TF;
+    const float* Vs = Ks + TF;
 
-    for (int c0 = 0; c0 < kBK && k0 + c0 < kend; c0 += kCH) {
-      float s[kCH];
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += KN) {
+      const int kb = k0 + c0;   // the block's first key
+      // nothing to do where every key is masked for the warp's rows
+      if (kb >= kend || (causal && kb > q0 + wr + 15)) continue;
+      float s[NJ][4];
 #pragma unroll
-      for (int c = 0; c < kCH; ++c) s[c] = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < D; ++j) {
-        const float qj = Qs[j * kBQ + t];
-        const float4* kr = reinterpret_cast<const float4*>(Ks + j * kBK + c0);
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int c4 = 0; c4 < kCH / 4; ++c4) {
-          const float4 kk = kr[c4];
-          s[4 * c4 + 0] = fmaf(qj, kk.x, s[4 * c4 + 0]);
-          s[4 * c4 + 1] = fmaf(qj, kk.y, s[4 * c4 + 1]);
-          s[4 * c4 + 2] = fmaf(qj, kk.z, s[4 * c4 + 2]);
-          s[4 * c4 + 3] = fmaf(qj, kk.w, s[4 * c4 + 3]);
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {
+        FragA a;
+        a.set(qf[kk]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bk;
+          load_b_rows<D>(bk, Ks, c0 + 8 * j, 8 * kk, g, t);
+          mma3(s[j], a, bk);
         }
       }
-      float cmax = kNegInf;
+
+      if (kb + KN > kend || (causal && kb + KN - 1 > q0 + wr)) {
 #pragma unroll
-      for (int c = 0; c < kCH; ++c) {
-        const int kp = k0 + c0 + c;
-        const bool valid = kp < kend && (!causal || kp <= qpos);
-        s[c] = valid ? s[c] : kNegInf;
-        cmax = fmaxf(cmax, s[c]);
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kb + 8 * j + 2 * t + (e & 1);
+            const int row = e < 2 ? qr0 : qr1;
+            if (key >= kend || (causal && key > row)) s[j][e] = kNegInf;
+          }
       }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      float psum = 0.f;
+
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int c = 0; c < kCH; ++c) {
-        s[c] = expf(s[c] - m_new);
-        psum += s[c];
+      for (int j = 0; j < NJ; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
       }
-      l = l * corr + psum;
-      m = m_new;
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float c0r = exp2f((m0 - mx0) * kLog2e);
+      const float c1r = exp2f((m1 - mx1) * kLog2e);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        const float4* vr = reinterpret_cast<const float4*>(Vs + j * kBK + c0);
-        float a = acc[j] * corr;
+      for (int j = 0; j < NJ; ++j) {
+        s[j][0] = exp2f((s[j][0] - mx0) * kLog2e);
+        s[j][1] = exp2f((s[j][1] - mx0) * kLog2e);
+        s[j][2] = exp2f((s[j][2] - mx1) * kLog2e);
+        s[j][3] = exp2f((s[j][3] - mx1) * kLog2e);
+        ps0 += s[j][0] + s[j][1];
+        ps1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * c0r + ps0;   // this lane's share; the quad's sum at the end
+      l1 = l1 * c1r + ps1;
 #pragma unroll
-        for (int c4 = 0; c4 < kCH / 4; ++c4) {
-          const float4 vv = vr[c4];
-          a = fmaf(s[4 * c4 + 0], vv.x, a);
-          a = fmaf(s[4 * c4 + 1], vv.y, a);
-          a = fmaf(s[4 * c4 + 2], vv.z, a);
-          a = fmaf(s[4 * c4 + 3], vv.w, a);
+      for (int f = 0; f < NF; ++f) {
+        acc[f][0] *= c0r;
+        acc[f][1] *= c0r;
+        acc[f][2] *= c1r;
+        acc[f][3] *= c1r;
+      }
+
+      // o += p v: k runs over the block's keys, p's A operand is s as it
+      // stands
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA a;
+        a_from_c(a, s[j]);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          FragB bv;
+          load_b_cols<D>(bv, Vs, c0 + 8 * j, 8 * f, g, t);
+          mma3(acc[f], a, bv);
         }
-        acc[j] = a;
       }
     }
+    __syncthreads();   // every warp is done with this stage
   }
 
-  if (qpos < Tq) {
-    const float lsafe = fmaxf(l, 1e-30f);
-    float* oc = o + b * os.b + h * os.h + (long long)qpos * os.t;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+  float* oh = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int j = 0; j < D; ++j) oc[j * os.d] = acc[j] / lsafe;
-    lse[b * ls_b + h * ls_h + qpos] = m + logf(lsafe);
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? qr1 : qr0;
+    if (row >= Tq) continue;
+    const float l = half ? l1 : l0;
+    float* orow = oh + (long long)row * os.t;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      orow[(long long)(8 * f + 2 * t) * os.d] = acc[f][2 * half] / l;
+      orow[(long long)(8 * f + 2 * t + 1) * os.d] = acc[f][2 * half + 1] / l;
+    }
+    if (t == 0) lse[b * ls_b + h * ls_h + row] = (half ? m1 : m0) + logf(l);
   }
 }
 
@@ -158,15 +233,16 @@ int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int H, int B, int Tq, int Tk, int kv_len, int causal,
            float scale, const Strides* st, long long ls_b, long long ls_h,
            cudaStream_t stream) {
-  const int smem = (D * kBQ + 2 * D * kBK) * (int)sizeof(float);
+  const int smem = 4 * Tile<D>::kFloats * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_hdt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, B, H);
-  flash_fwd_hdt_kernel<D><<<grid, kBQ, smem, stream>>>(
-      q, k, v, o, lse, Tq, Tk, kv_len, causal, scale, st[0], st[1], st[2],
-      st[3], ls_b, ls_h);
+  const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
+  flash_fwd_hdt_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, H, Tq, Tk, kv_len, causal, scale, st[0], st[1], st[2],
+      st[3], ls_b, ls_h, stage_mode(q, st[0]), stage_mode(k, st[1]),
+      stage_mode(v, st[2]));
   return (int)cudaGetLastError();
 }
 

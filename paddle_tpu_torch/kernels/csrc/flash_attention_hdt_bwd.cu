@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), for any layout.
+// Flash-attention backward for Hopper (sm_90a), for any layout, on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernels
 // paddle_tpu/kernels/flash_attention.py:_flash_bwd_hdt (bodies
@@ -18,154 +19,85 @@
 //
 // Bound on the H100: operations.  The least work is 5 d-long dot products
 // per kept (query, key) pair (s, dp, and the three gradient updates), 10*d
-// FLOP, on the f32 CUDA cores (67 TFLOP/s); q, k, v, do, dq, dk, dv move
-// once.  This design recomputes s and dp in both of its kernels: 7 products
-// per kept pair, 1.4x the least work (the one-pass JAX plan makes 5), and
-// it computes whole 64 x 64 tiles on the causal diagonal.
+// FLOP: 21.517 GFLOP at B 32, H 8, T 512, d 64; in 3xTF32 the tensor cores
+// do three times that, 64.6 GFLOP at 495 TFLOP/s = 0.130 ms.  q, k, v, do,
+// dq, dk, dv move once (235 MB, 0.070 ms at 3.35 TB/s).  This design
+// recomputes s and dp in both of its kernels: 7 products per kept pair,
+// 1.4x the least work, and it computes whole 64 x 64 tiles on the causal
+// diagonal.
 //
-// Design (simple first; no wgmma, no TMA): two kernels, no atomics, so the
-// result is the same bits on every run.  Every CTA has 256 threads (16 x 16)
-// and works on 64 x 64 (query, key) tiles held in shared memory as token
-// rows ([64][d + 4] floats; the pad keeps the float4 reads of 8 rows in 8
-// different bank groups).  Per tile pair, step A gives each thread a 4 x 4
-// block of s and dp (queries tx + 16 i, keys 4 ty + l) from float4 reads,
-// turns them into p and ds and puts them in shared memory; step B is a
-// rank-64 update of the thread's block of the gradient (4 tokens by 4 or 8
-// features).
-//   dk/dv: one CTA per (64-key tile, batch row, head).  The key and value
-//     tiles stay in shared memory while the CTA walks the query tiles from
-//     the causal diagonal to Tq, staging q (times scale), do, lse and delta
-//     for each; dk and dv stay in registers.
-//   dq: one CTA per (64-query tile, batch row, head).  The query and do
-//     tiles stay in shared memory while the CTA walks the key tiles up to
-//     the diagonal and kv_len; dq stays in registers.
-// Staging reads each tile with neighbouring threads on neighbouring tokens,
-// coalesced when the token stride is 1 (q, k, v from fused_mha's
-// projections); a token-strided operand (do from autograd, the
-// [B, H, T, d] layout) is then read through L1.
+// Design: two kernels on mma.sync m16n8k8 TF32 with the 3xTF32 split
+// (flash_mma.cuh: numerics, fragment maps, staging), no atomics, so the
+// result is the same bits on every run.  Triton is not used: the kernels
+// need exact control of the three-pass split and of the fragment layout
+// that lets p and ds feed the gradient products from registers.  A CTA is
+// 4 warps, 16 tile rows a warp; every tile is a [64][d + 4] token-row tile
+// staged by cp.async along the path chosen from its operand's strides
+// (16-byte along features, 4-byte along tokens, or 4-byte generic), so the
+// token-strided do that autograd hands over and the [B, T, H, d] views
+// take 16-byte copies.
+//   dk/dv: one CTA per (64-key tile, batch row, head); the warp's 16 key
+//     rows are the M dimension.  The key and value tiles stay in shared
+//     memory while the CTA walks the query tiles from the causal diagonal
+//     to Tq, with (q, do, lse, delta) double-buffered so the next query
+//     tile's copy overlaps this one's products.  Per block of 16 queries,
+//     s^T = k q^T and dp^T = v do^T land in accumulators (scale goes into
+//     the exponent), p^T and ds^T are formed there and used directly as A
+//     operands (k relabelled within each 8-block, the B rows read as 2t
+//     and 2t + 1) of dv += p^T do and dk += ds^T q.  dk (times scale when
+//     written) and dv stay in registers.
+//   dq: one CTA per (64-query tile, batch row, head).  The q and do tiles
+//     stay in shared memory while the CTA walks the key tiles up to the
+//     diagonal and kv_len, k and v double-buffered; s and dp are
+//     recomputed per block of 64 keys (32 at d 128), ds is formed in
+//     registers and dq += ds k takes it as the A operand.  dq (times scale
+//     at the end) stays in registers.
+//   Both kernels skip a block in which every pair is masked for a warp
+//   (the causal diagonal).  The block sizes keep every accumulator in
+//   registers.
+// Shared memory: 6 tiles, 104,448 bytes (+ 1 KB of lse/delta for dk/dv) at
+// d 64, 202,752 at d 128.  Occupancy (ptxas, printed by chip_smoke.py's
+// build phase): at d 64 both kernels take about 160 registers and no
+// spills, and shared memory allows 2 CTAs (8 warps) an SM; at d 128 one CTA
+// (dk/dv about 225 registers, dq about 165), no spills.
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kT = 64;         // tokens per tile, queries and keys
-constexpr int kNT = 256;       // threads per CTA, 16 x 16
-constexpr int kLP = kT + 4;    // row of the p / ds tiles
+using namespace ptt_flash;
 
-// element strides of one operand: batch row, head, feature, token
-struct Strides {
-  long long b, h, d, t;
-};
-
-template <int D>
-struct Tile {
-  static constexpr int LD = D + 4;          // token row in shared memory
-  static constexpr int kFloats = kT * LD;   // one [64][LD] tile
-  static constexpr int NG = D / 64;         // feature groups of 64
-};
-
-// S[t][j] = base[j, t0 + t] * mul for t0 + t < tend, else 0.
-template <int D>
-__device__ __forceinline__ void stage(float* S, const float* base, Strides s,
-                                      int t0, int tend, float mul) {
-  for (int idx = threadIdx.x; idx < D * kT; idx += kNT) {
-    const int j = idx / kT, t = idx % kT, tp = t0 + t;
-    S[t * Tile<D>::LD + j] =
-        tp < tend ? base[(long long)j * s.d + (long long)tp * s.t] * mul
-                  : 0.f;
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// Step A: s[i][l] = Qr[tx + 16 i] . Kr[4 ty + l] and
-// dp[i][l] = Or[tx + 16 i] . Vr[4 ty + l], over the D features of the rows.
-template <int D>
-__device__ __forceinline__ void scores(const float* Qr, const float* Or,
-                                       const float* Kr, const float* Vr,
-                                       int tx, int ty, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-  constexpr int LD = Tile<D>::LD;
+// acc[f] (rows r, r + 8 of the warp; features 8 f + 2t, + 1) times mul,
+// through out's strides, for rows < T
+template <int NF>
+__device__ __forceinline__ void write_rows(float* out, const Strides& s,
+                                           int b, int h, int T, int r0,
+                                           int t, float mul,
+                                           const float (&acc)[NF][4]) {
+  float* base = out + b * s.b + h * s.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= T) continue;
+    float* p = base + (long long)row * s.t;
 #pragma unroll
-    for (int l = 0; l < 4; ++l) s[i][l] = dp[i][l] = 0.f;
-#pragma unroll 2
-  for (int j = 0; j < D; j += 4) {
-    float4 qv[4], ov[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = ld4(Qr + (tx + 16 * i) * LD + j);
-      ov[i] = ld4(Or + (tx + 16 * i) * LD + j);
-    }
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const float4 kv = ld4(Kr + (4 * ty + l) * LD + j);
-      const float4 vv = ld4(Vr + (4 * ty + l) * LD + j);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][l] = dot4(qv[i], kv, s[i][l]);
-        dp[i][l] = dot4(ov[i], vv, dp[i][l]);
-      }
+    for (int f = 0; f < NF; ++f) {
+      p[(long long)(8 * f + 2 * t) * s.d] = mul * acc[f][2 * half];
+      p[(long long)(8 * f + 2 * t + 1) * s.d] = mul * acc[f][2 * half + 1];
     }
   }
 }
 
-// acc[l][4 g + m] += sum_r w[r][4 ty + l] * X[r][64 g + 4 tx + m] over the
-// first `rows` rows: w is a [64][kLP] tile, X a [64][LD] tile.
-template <int D>
-__device__ __forceinline__ void rank_update(const float* w, const float* X,
-                                            int rows, int tx, int ty,
-                                            float (&acc)[4][4 * Tile<D>::NG]) {
-  constexpr int LD = Tile<D>::LD, NG = Tile<D>::NG;
-#pragma unroll 4
-  for (int r = 0; r < rows; ++r) {
-    const float4 wv = ld4(w + r * kLP + 4 * ty);
-    const float wl[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float4 xv = ld4(X + r * LD + 64 * g + 4 * tx);
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        acc[l][4 * g + 0] = fmaf(wl[l], xv.x, acc[l][4 * g + 0]);
-        acc[l][4 * g + 1] = fmaf(wl[l], xv.y, acc[l][4 * g + 1]);
-        acc[l][4 * g + 2] = fmaf(wl[l], xv.z, acc[l][4 * g + 2]);
-        acc[l][4 * g + 3] = fmaf(wl[l], xv.w, acc[l][4 * g + 3]);
-      }
-    }
-  }
-}
-
-// out[b, h, token t0 + 4 ty + l, feature 64 g + 4 tx + m] =
-// mul * acc[l][4 g + m] for tokens < T, through out's strides s.
-template <int D>
-__device__ __forceinline__ void write_rows(float* out, Strides s, int h,
-                                           int b, int T, int t0, int tx,
-                                           int ty, float mul,
-                                           const float (&acc)[4][4 * Tile<D>::NG]) {
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    const int t = t0 + 4 * ty + l;
-    if (t >= T) continue;
-    float* row = out + b * s.b + h * s.h + (long long)t * s.t;
-#pragma unroll
-    for (int g = 0; g < Tile<D>::NG; ++g)
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        row[(long long)(64 * g + 4 * tx + m) * s.d] = mul * acc[l][4 * g + m];
-  }
+// S[i] <- base[t0 + i] for t0 + i < tend, else 0, i < 64 (lse, delta rows)
+__device__ __forceinline__ void stage_row(float* S, const float* base,
+                                          int t0, int tend, int i) {
+  const bool in = t0 + i < tend;
+  cp_async4(S + i, in ? base + t0 + i : base, in);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kNT)
+__global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -173,149 +105,291 @@ __global__ void __launch_bounds__(kNT)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int Tq, int Tk, int kv_len, int causal, float scale,
-                         Strides qs, Strides ks, Strides vs, Strides os,
-                         long long ls_b, long long ls_h, Strides dks,
-                         Strides dvs) {
-  constexpr int NG = Tile<D>::NG, TF = Tile<D>::kFloats;
+                         int H, int Tq, int Tk, int kv_len, int causal,
+                         float scale, Strides qs, Strides ks, Strides vs,
+                         Strides os, long long ls_b, long long ls_h,
+                         Strides dks, Strides dvs, int mq, int mk, int mv,
+                         int mo) {
+  constexpr int TF = Tile<D>::kFloats, NF = D / 8;
+  constexpr int QN = 16, NJ = QN / 8;   // queries per block
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);  // [64][LD] key rows
-  float* Vs = Ks + TF;                          // [64][LD]
-  float* Qs = Vs + TF;                          // [64][LD] query rows x scale
-  float* Os = Qs + TF;                          // [64][LD] do rows
-  float* Ps = Os + TF;                          // [64 q][kLP] p
-  float* Ss = Ps + kT * kLP;                    // [64 q][kLP] ds
-  float* Ls = Ss + kT * kLP;                    // [64] lse
-  float* Es = Ls + kT;                          // [64] delta
+  float* Vs = Ks + TF;                          // [64][LD] value rows
+  float* QO = Vs + TF;      // stage s: q rows at 2s TF, do rows after
+  float* LE = QO + 4 * TF;  // stage s: lse at 128 s, delta at 128 s + 64
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * kT, b = blockIdx.y, h = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * kTile;            // first key tiles first
+  const int wr = 16 * warp;
+  const int kr0 = k0 + wr + g, kr1 = kr0 + 8;   // this lane's two keys
   const int kend = min(Tk, kv_len);
 
   const float* qh = q + b * qs.b + h * qs.h;
   const float* oh = dout + b * os.b + h * os.h;
   const float* lh = lse + b * ls_b + h * ls_h;
   const float* eh = delta + b * ls_b + h * ls_h;
+  const int qstart = causal ? k0 : 0;
+  const int nqt = k0 < kend && qstart < Tq ? (Tq - qstart + kTile - 1) / kTile
+                                            : 0;
 
-  stage<D>(Ks, k + b * ks.b + h * ks.h, ks, k0, kend, 1.f);
-  stage<D>(Vs, v + b * vs.b + h * vs.h, vs, k0, kend, 1.f);
-
-  float dka[4][4 * NG], dva[4][4 * NG];
+  float dka[NF][4], dva[NF][4];
 #pragma unroll
-  for (int l = 0; l < 4; ++l)
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) dka[l][c] = dva[l][c] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[f][e] = dva[f][e] = 0.f;
 
-  for (int q0 = (causal ? k0 : 0); k0 < kend && q0 < Tq; q0 += kT) {
-    __syncthreads();  // every thread is done with the previous query tile
-    stage<D>(Qs, qh, qs, q0, Tq, scale);
-    stage<D>(Os, oh, os, q0, Tq, 1.f);
-    if (threadIdx.x < kT) {
-      const int qp = q0 + threadIdx.x;
-      Ls[threadIdx.x] = qp < Tq ? lh[qp] : 0.f;
-      Es[threadIdx.x] = qp < Tq ? eh[qp] : 0.f;
+  // query tile from qt0 (q, do, lse, delta) into stage sb
+  auto stage_q = [&](int sb, int qt0) {
+    stage<D>(QO + 2 * sb * TF, qh, qs, qt0, Tq, mq);
+    stage<D>(QO + (2 * sb + 1) * TF, oh, os, qt0, Tq, mo);
+    if (threadIdx.x < kTile)
+      stage_row(LE + 2 * kTile * sb, lh, qt0, Tq, threadIdx.x);
+    else
+      stage_row(LE + 2 * kTile * sb + kTile, eh, qt0, Tq,
+                threadIdx.x - kTile);
+  };
+  if (nqt > 0) {
+    stage<D>(Ks, k + b * ks.b + h * ks.h, ks, k0, kend, mk);
+    stage<D>(Vs, v + b * vs.b + h * vs.h, vs, k0, kend, mv);
+    stage_q(0, qstart);
+    cp_commit();
+  }
+  const float sl2 = scale * kLog2e;   // s^T is taken unscaled
+
+  for (int it = 0; it < nqt; ++it) {
+    const int q0 = qstart + it * kTile, sb = it & 1;
+    if (it + 1 < nqt) {   // the next tile's copy overlaps this tile
+      stage_q(sb ^ 1, q0 + kTile);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
+    const float* Qs = QO + 2 * sb * TF;
+    const float* Os = Qs + TF;
+    const float* Ls = LE + 2 * kTile * sb;
+    const float* Es = Ls + kTile;
 
-    float s[4][4], dp[4][4];
-    scores<D>(Qs, Os, Ks, Vs, tx, ty, s, dp);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += QN) {
+      const int qb = q0 + c0;   // the block's first query
+      // nothing to do where every pair is masked for the warp's keys
+      if (qb >= Tq || (causal && qb + QN - 1 < k0 + wr)) continue;
+      float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = tx + 16 * i, qp = q0 + qi;
-      float pv[4], dsv[4];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const int kp = k0 + 4 * ty + l;
-        const bool valid = kp < kend && qp < Tq && (!causal || kp <= qp);
-        pv[l] = valid ? expf(s[i][l] - Ls[qi]) : 0.f;
-        dsv[l] = pv[l] * (dp[i][l] - Es[qi]);
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {   // s^T = k q^T
+        float ka[4];
+        load_a<D>(ka, Ks, wr + g, 8 * kk, t, 1.f);
+        FragA ak;
+        ak.set(ka);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bq;
+          load_b_rows<D>(bq, Qs, c0 + 8 * j, 8 * kk, g, t);
+          mma3(s[j], ak, bq);
+        }
       }
-      *reinterpret_cast<float4*>(Ps + qi * kLP + 4 * ty) =
-          make_float4(pv[0], pv[1], pv[2], pv[3]);
-      *reinterpret_cast<float4*>(Ss + qi * kLP + 4 * ty) =
-          make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {   // dp^T = v do^T
+        float va[4];
+        load_a<D>(va, Vs, wr + g, 8 * kk, t, 1.f);
+        FragA av;
+        av.set(va);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bo;
+          load_b_rows<D>(bo, Os, c0 + 8 * j, 8 * kk, g, t);
+          mma3(dp[j], av, bo);
+        }
+      }
+      // p^T into s, ds^T into dp; columns are queries
+      const bool need = k0 + kTile > kend || qb + QN > Tq ||
+                        (causal && k0 + wr + 15 > qb);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = c0 + 8 * j + 2 * t + (e & 1), qp = q0 + ql;
+          const int key = e < 2 ? kr0 : kr1;
+          const bool valid =
+              !need || (key < kend && qp < Tq && (!causal || key <= qp));
+          const float p =
+              valid ? exp2f(fmaf(s[j][e], sl2, -Ls[ql] * kLog2e)) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - Es[ql]);
+        }
+      // dv += p^T do, dk += ds^T q (times scale when written); k runs over
+      // the block's queries
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA ap;
+        a_from_c(ap, s[j]);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          FragB bo;
+          load_b_cols<D>(bo, Os, c0 + 8 * j, 8 * f, g, t);
+          mma3(dva[f], ap, bo);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA ads;
+        a_from_c(ads, dp[j]);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          FragB bq;
+          load_b_cols<D>(bq, Qs, c0 + 8 * j, 8 * f, g, t);
+          mma3(dka[f], ads, bq);
+        }
+      }
     }
-    __syncthreads();
-
-    const int rows = min(kT, Tq - q0);
-    rank_update<D>(Ps, Os, rows, tx, ty, dva);   // dv += p^T do
-    rank_update<D>(Ss, Qs, rows, tx, ty, dka);   // dk += ds^T (scale q)
+    __syncthreads();   // every warp is done with this stage
   }
 
-  write_rows<D>(dk, dks, h, b, Tk, k0, tx, ty, 1.f, dka);
-  write_rows<D>(dv, dvs, h, b, Tk, k0, tx, ty, 1.f, dva);
+  write_rows<NF>(dk, dks, b, h, Tk, kr0, t, scale, dka);
+  write_rows<NF>(dv, dvs, b, h, Tk, kr0, t, 1.f, dva);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kNT)
+__global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq, int Tq, int Tk, int kv_len,
-                        int causal, float scale, Strides qs, Strides ks,
-                        Strides vs, Strides os, long long ls_b,
-                        long long ls_h, Strides dqs) {
-  constexpr int NG = Tile<D>::NG, TF = Tile<D>::kFloats;
+                        float* __restrict__ dq, int H, int Tq, int Tk,
+                        int kv_len, int causal, float scale, Strides qs,
+                        Strides ks, Strides vs, Strides os, long long ls_b,
+                        long long ls_h, Strides dqs, int mq, int mk, int mv,
+                        int mo) {
+  constexpr int TF = Tile<D>::kFloats, NF = D / 8;
+  constexpr int KN = D == 64 ? 64 : 32, NJ = KN / 8;   // keys per block
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [64][LD] query rows x scale
+  float* Qs = reinterpret_cast<float*>(smem4);  // [64][LD] query rows
   float* Os = Qs + TF;                          // [64][LD] do rows
-  float* Ks = Os + TF;                          // [64][LD] key rows
-  float* Vs = Ks + TF;                          // [64][LD] value rows
-  float* St = Vs + TF;                          // [64 k][kLP] ds, key-major
+  float* KV = Os + TF;      // stage s: key rows at 2s TF, value rows after
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kT, b = blockIdx.y, h = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // last tiles first
+  const int wr = 16 * warp;
+  const int qr0 = q0 + wr + g, qr1 = qr0 + 8;
 
-  stage<D>(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, scale);
-  stage<D>(Os, dout + b * os.b + h * os.h, os, q0, Tq, 1.f);
-  const float* lh = lse + b * ls_b + h * ls_h;
-  const float* eh = delta + b * ls_b + h * ls_h;
-  float lrow[4], erow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + tx + 16 * i;
-    lrow[i] = qp < Tq ? lh[qp] : 0.f;
-    erow[i] = qp < Tq ? eh[qp] : 0.f;
-  }
   const float* kh = k + b * ks.b + h * ks.h;
   const float* vh = v + b * vs.b + h * vs.h;
+  const float* lh = lse + b * ls_b + h * ls_h;
+  const float* eh = delta + b * ls_b + h * ls_h;
+  // lse in log2 units; s is taken unscaled
+  const float lr0 = qr0 < Tq ? lh[qr0] * kLog2e : 0.f;
+  const float lr1 = qr1 < Tq ? lh[qr1] * kLog2e : 0.f;
+  const float sl2 = scale * kLog2e;
+  const float er0 = qr0 < Tq ? eh[qr0] : 0.f, er1 = qr1 < Tq ? eh[qr1] : 0.f;
+  int kend = min(Tk, kv_len);
+  if (causal) kend = min(kend, q0 + kTile);
+  const int ntiles = (kend + kTile - 1) / kTile;
 
-  float dqa[4][4 * NG];
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) dqa[l][c] = 0.f;
+  stage<D>(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, mq);
+  stage<D>(Os, dout + b * os.b + h * os.h, os, q0, Tq, mo);
+  stage<D>(KV, kh, ks, 0, kend, mk);
+  stage<D>(KV + TF, vh, vs, 0, kend, mv);
+  cp_commit();
 
-  int kend = causal ? min(Tk, q0 + kT) : Tk;
-  kend = min(kend, kv_len);
-  for (int k0 = 0; k0 < kend; k0 += kT) {
-    __syncthreads();  // every thread is done with the previous key tile
-    stage<D>(Ks, kh, ks, k0, kend, 1.f);
-    stage<D>(Vs, vh, vs, k0, kend, 1.f);
-    __syncthreads();
+  float dqa[NF][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[f][e] = 0.f;
 
-    float s[4][4], dp[4][4];
-    scores<D>(Qs, Os, Ks, Vs, tx, ty, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = tx + 16 * i, qp = q0 + qi;
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const int kl = 4 * ty + l, kp = k0 + kl;
-        const bool valid = kp < kend && qp < Tq && (!causal || kp <= qp);
-        const float p = valid ? expf(s[i][l] - lrow[i]) : 0.f;
-        St[kl * kLP + qi] = p * (dp[i][l] - erow[i]);
-      }
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kTile, sb = it & 1;
+    if (it + 1 < ntiles) {   // the next tile's copy overlaps this tile
+      float* nb = KV + 2 * (sb ^ 1) * TF;
+      stage<D>(nb, kh, ks, k0 + kTile, kend, mk);
+      stage<D>(nb + TF, vh, vs, k0 + kTile, kend, mv);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
+    const float* Ks = KV + 2 * sb * TF;
+    const float* Vs = Ks + TF;
 
-    rank_update<D>(St, Ks, min(kT, kend - k0), tx, ty, dqa);  // ds k
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += KN) {
+      const int kb = k0 + c0;   // the block's first key
+      if (kb >= kend || (causal && kb > q0 + wr + 15)) continue;
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {   // s = q k^T
+        float qa[4];
+        load_a<D>(qa, Qs, wr + g, 8 * kk, t, 1.f);
+        FragA aq;
+        aq.set(qa);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bk;
+          load_b_rows<D>(bk, Ks, c0 + 8 * j, 8 * kk, g, t);
+          mma3(s[j], aq, bk);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {   // dp = do v^T
+        float oa[4];
+        load_a<D>(oa, Os, wr + g, 8 * kk, t, 1.f);
+        FragA ao;
+        ao.set(oa);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          FragB bv;
+          load_b_rows<D>(bv, Vs, c0 + 8 * j, 8 * kk, g, t);
+          mma3(dp[j], ao, bv);
+        }
+      }
+      const bool need = kb + KN > kend || q0 + kTile > Tq ||
+                        (causal && kb + KN - 1 > q0 + wr);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb + 8 * j + 2 * t + (e & 1);
+          const int row = e < 2 ? qr0 : qr1;
+          const bool valid =
+              !need || (key < kend && row < Tq && (!causal || key <= row));
+          const float p =
+              valid ? exp2f(fmaf(s[j][e], sl2, -(e < 2 ? lr0 : lr1))) : 0.f;
+          s[j][e] = p * (dp[j][e] - (e < 2 ? er0 : er1));   // ds
+        }
+      // dq += ds k; k runs over the block's keys
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA a;
+        a_from_c(a, s[j]);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          FragB bk;
+          load_b_cols<D>(bk, Ks, c0 + 8 * j, 8 * f, g, t);
+          mma3(dqa[f], a, bk);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
   }
 
-  write_rows<D>(dq, dqs, h, b, Tq, q0, tx, ty, scale, dqa);
+  write_rows<NF>(dq, dqs, b, h, Tq, qr0, t, scale, dqa);
 }
 
 template <int D>
@@ -325,8 +399,8 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
            float scale, const Strides* st, long long ls_b, long long ls_h,
            cudaStream_t stream) {
   constexpr int TF = Tile<D>::kFloats;
-  const int smem_dkv = (4 * TF + 2 * kT * kLP + 2 * kT) * (int)sizeof(float);
-  const int smem_dq = (4 * TF + kT * kLP) * (int)sizeof(float);
+  const int smem_dkv = (6 * TF + 4 * kTile) * (int)sizeof(float);
+  const int smem_dq = 6 * TF * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_dkv);
@@ -335,16 +409,18 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dq);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_k((Tk + kT - 1) / kT, B, H);
-  flash_bwd_dkv_kernel<D><<<grid_k, kNT, smem_dkv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Tq, Tk, kv_len, causal, scale, st[0],
-      st[1], st[2], st[3], ls_b, ls_h, st[5], st[6]);
+  const int mq = stage_mode(q, st[0]), mk = stage_mode(k, st[1]);
+  const int mv = stage_mode(v, st[2]), mo = stage_mode(dout, st[3]);
+  const dim3 grid_k(B * H, (Tk + kTile - 1) / kTile);
+  flash_bwd_dkv_kernel<D><<<grid_k, kThreads, smem_dkv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, kv_len, causal, scale,
+      st[0], st[1], st[2], st[3], ls_b, ls_h, st[5], st[6], mq, mk, mv, mo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((Tq + kT - 1) / kT, B, H);
-  flash_bwd_dq_kernel<D><<<grid_q, kNT, smem_dq, stream>>>(
-      q, k, v, dout, lse, delta, dq, Tq, Tk, kv_len, causal, scale, st[0],
-      st[1], st[2], st[3], ls_b, ls_h, st[4]);
+  const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
+  flash_bwd_dq_kernel<D><<<grid_q, kThreads, smem_dq, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, Tq, Tk, kv_len, causal, scale, st[0],
+      st[1], st[2], st[3], ls_b, ls_h, st[4], mq, mk, mv, mo);
   return (int)cudaGetLastError();
 }
 

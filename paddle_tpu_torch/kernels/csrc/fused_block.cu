@@ -12,8 +12,10 @@
 //
 // Bound on the H100: operations.  2 N D (3E) + 2 N E D + 4 N D F FLOP of
 // projections (103 GFLOP at N 16384, D = E 512, F 2048) plus the causal
-// attention (8.6 GFLOP at B 32, T 512, H 8), on the f32 CUDA cores
-// (67 TFLOP/s); x, the 12.6 MB of weights and out move once.
+// attention (8.6 GFLOP at B 32, T 512, H 8), counted at the f32 CUDA cores'
+// 67 TFLOP/s, on which the GEMMs run (the attention takes its products on
+// the TF32 tensor cores in three passes); x, the 12.6 MB of weights and out
+// move once.
 //
 // Design (simple first).  The Pallas kernel keeps one query block's whole
 // block in VMEM and recomputes LN1 and the K/V projections for every

@@ -16,12 +16,14 @@ and their plain torch versions, in two layouts.
 Both layouts run the same two kernel sources, ``csrc/flash_attention_hdt.cu``
 and ``csrc/flash_attention_hdt_bwd.cu``, which read and write every operand
 through (batch, head, feature, token) element strides: no second kernel and
-no transpose copy.  Their headers say what bounds them on the H100
-(operations, on the f32 CUDA cores) and how each design stages tiles in
-shared memory, stops at the causal diagonal and at ``kv_len``, and masks
-ragged tiles itself, so the caller pads nothing (the JAX entries pad to
-128-token granules).  A token-strided operand (``[B, H, T, d]``) makes the
-staging loads strided; PERF.md gives that cost.
+no transpose copy.  Both take every product on the TF32 tensor cores in
+three passes (3xTF32, f32-grade: ``csrc/flash_mma.cuh``).  Their headers
+say what bounds them on the H100 (tensor-core operations) and how each
+design stages tiles in shared memory by ``cp.async`` along the path its
+operand's strides allow (16-byte copies along a unit feature stride, 4-byte
+ones otherwise, the same tile either way), stops at the causal diagonal and
+at ``kv_len``, and masks ragged tiles itself, so the caller pads nothing
+(the JAX entries pad to 128-token granules).
 
 Both entries are differentiable (``torch.autograd.Function``s): the forward
 saves (q, k, v, o, lse); the backward takes ``delta = rowsum(do * o)`` in

@@ -68,6 +68,7 @@ def test_layer_norm_kernel_matches_plain(cuda, n, d, dtype, tol):
     (8, 64, 2, 200, 333, False, None),
     (4, 128, 2, 300, 300, True, None),
     (2, 64, 1, 1, 1, True, None),
+    (8, 64, 2, 65, 65, True, None),         # one query past a tile
 ])
 def test_flash_kernel_matches_plain(cuda, H, d, B, Tq, Tk, causal, kv_len):
     q = _randn(cuda, H, d, B * Tq, seed=4)
@@ -152,6 +153,7 @@ def _rel_err(a, b):
     (8, 64, 2, 200, 333, False, None),
     (4, 128, 2, 300, 300, True, None),
     (2, 64, 1, 1, 1, True, None),
+    (8, 64, 2, 65, 65, True, None),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, H, d, B, Tq, Tk, causal,
                                         kv_len):
@@ -264,11 +266,12 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
 
 # --- the fuse-block slice ----------------------------------------------------
 
-def _bthd(dev, B, H, T, d, seed):
+def _bthd(dev, B, H, T, d, seed, offset=0):
     """A [B, H, T, d] view of a [B, T, H*d] tensor (token stride H*d), as
-    the fused block's recompute hands flash_attention."""
-    return _randn(dev, B, T, H * d, seed=seed).reshape(B, T, H, d) \
-        .transpose(1, 2)
+    the fused block's recompute hands flash_attention; with offset 1 the
+    view starts 1 float into its storage, not 16-byte aligned."""
+    x = _randn(dev, B * T * H * d + offset, seed=seed)[offset:]
+    return x.view(B, T, H, d).transpose(1, 2)
 
 
 @pytest.mark.parametrize("B,H,T,Tk,d,causal,layout", [
@@ -277,6 +280,9 @@ def _bthd(dev, B, H, T, d, seed):
     (2, 8, 200, 333, 64, False, "bthd"),
     (2, 4, 300, 300, 128, True, "bthd"),
     (1, 2, 1, 1, 64, True, "bhtd"),
+    (2, 8, 65, 65, 64, True, "bthd"),
+    (2, 8, 300, 300, 64, True, "bthd+1"),    # 4-byte staging
+    (2, 4, 200, 333, 128, False, "bthd+1"),
 ])
 def test_flash_bhtd_matches_plain_and_the_head_major_bits(
         cuda, B, H, T, Tk, d, causal, layout):
@@ -284,8 +290,9 @@ def test_flash_bhtd_matches_plain_and_the_head_major_bits(
     against the plain versions, and the same bits as the head-major call
     on the same data (same kernels, same order of sums)."""
     def make(t, seed):
-        if layout == "bthd":
-            return _bthd(cuda, B, H, t, d, seed)
+        if layout.startswith("bthd"):
+            return _bthd(cuda, B, H, t, d, seed,
+                         offset=1 if layout == "bthd+1" else 0)
         return _randn(cuda, B, H, t, d, seed=seed)
 
     q, k, v, do = make(T, 20), make(Tk, 21), make(Tk, 22), make(T, 23)
@@ -320,6 +327,35 @@ def test_flash_bhtd_matches_plain_and_the_head_major_bits(
     assert torch.equal(hm(o), oh) and torch.equal(rows(lse), lseh)
     for a, b in zip(got, gh):
         assert torch.equal(hm(a), b)
+
+
+@pytest.mark.parametrize("H,d,B,T,causal,kv_len", [
+    (8, 64, 4, 512, True, None),
+    (4, 128, 2, 300, False, 250),
+])
+def test_flash_kernels_on_a_peaked_softmax(cuda, H, d, B, T, causal,
+                                           kv_len):
+    """q and k times 4 (|s| up to ~80): the lo terms of the 3xTF32 split
+    matter most here; forward and backward against the plain versions."""
+    q = _randn(cuda, H, d, B * T, seed=24) * 4
+    k = _randn(cuda, H, d, B * T, seed=25) * 4
+    v = _randn(cuda, H, d, B * T, seed=26)
+    do = _randn(cuda, H, d, B * T, seed=27)
+    got = fa.flash_attention_hdt(q, k, v, B, causal=causal, kv_len=kv_len)
+    want = fa.flash_attention_hdt_plain(q, k, v, B, causal=causal,
+                                        kv_len=kv_len)
+    o, lse = want
+    delta = (do * o).sum(1, keepdim=True)
+    gb = fa.flash_attention_hdt_bwd(q, k, v, lse, delta, do, B,
+                                    causal=causal, kv_len=kv_len)
+    wb = fa.flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, B,
+                                          causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert (a - w).abs().max().item() <= F32_TOL
+    scale = max(w.abs().max().item() for w in wb)
+    for a, w in zip(gb, wb):
+        assert (a - w).abs().max().item() <= REL_TOL * scale
 
 
 def test_fused_attention_op_on_a_btE_input(cuda):
