@@ -15,9 +15,12 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    torch version on the same inputs, at the paths' shapes and at ragged
    ones, with the tolerance printed beside the error.  The flash cases
    include a peaked softmax (q and k x 4), Tq = Tk = 65 and a [B, T, H, d]
-   view 1 float off 16-byte alignment (4-byte staging).  The flash and
-   LM-head backward kernels must also give the same bits twice, and the
-   [B, H, T, d] flash calls the head-major call's bits on the same data.
+   view 1 float off 16-byte alignment (4-byte staging); the LM-head
+   cases a ragged N and V, an odd D (8-byte staging), int32 labels, N, D
+   and V below one tile, and a peaked softmax (x x 12, |logit| up to
+   about 80).  The flash backward and both LM-head kernels must also give
+   the same bits twice, and the [B, H, T, d] flash calls the head-major
+   call's bits on the same data.
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -57,8 +60,10 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    latency p50 and tokens/s per batch size; training step p50 and
    tokens/s at batch 32, both programs; peak device memory; the
    [B, H, T, d] flash on the block's [B, T, H, d] views beside the
-   contiguous and head-major calls; the flash rows add the 3xTF32
-   tensor-core bound (tc_bound_ms) and the achieved TFLOP/s; then
+   contiguous and head-major calls; the flash and LM-head kernels run on
+   the tensor cores, so their bound is the 3xTF32 one (also under
+   tc_bound_ms), with the f32 bound without tensor cores beside it
+   (simt_bound_ms) and the achieved TFLOP/s; then
    torch.profiler traces of one batch-8 request and one step of each
    training program split by kernel class, with the device's busy share,
    and the names of the kernels SDPA launches (its library yardstick).
@@ -70,8 +75,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
 is full f32, so the card and the CPU compute the same math.  (The flash
-kernels take their products on the TF32 tensor cores in three passes,
-f32-grade by construction.)  The script exits
+and LM-head kernels take their products on the TF32 tensor cores in three
+passes, f32-grade by construction.)  The script exits
 non-zero and prints no result when no CUDA device is visible, or when the
 paddle_tpu_torch package is not beside it.
 """
@@ -252,17 +257,20 @@ def block_work(B, T, H, D, F):
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+def bound_ms(flops, nbytes, peak=F32_FLOPS_PER_S):
+    return max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
 
 
-def flash_extra(flops, nbytes, ms):
-    """The flash rows' tensor-core numbers: tc_bound_ms, the least time of
-    the 3xTF32 work (three TF32 products for each f32 one) at the TF32
-    tensor-core peak, or of the bytes; and the achieved TFLOP/s of the f32
-    work."""
-    tc = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S) * 1e3
-    return dict(tc_bound_ms=tc, tflops=flops / ms / 1e9)
+def tc_bounds(flops, nbytes, ms):
+    """A tensor-core kernel's bounds and rate.  Its f32 products run as
+    3xTF32, three TF32 products for each f32 one, so bound_ms (and
+    tc_bound_ms, the same number) is the larger of 3 x flops at the TF32
+    peak and the bytes at the HBM rate; simt_bound_ms is the f32 bound
+    without tensor cores, which rows before the tensor-core kernels
+    reported; tflops is the f32 work over the time."""
+    tc = bound_ms(3 * flops, nbytes, TF32_FLOPS_PER_S)
+    return dict(bound_ms=tc, tc_bound_ms=tc,
+                simt_bound_ms=bound_ms(flops, nbytes), tflops=flops / ms / 1e9)
 
 
 def phase_build(torch):
@@ -394,26 +402,40 @@ def phase_compare(torch):
             raise RuntimeError("flash backward is not deterministic")
         note("flash_attention_hdt_bwd", path, e)
 
-    # LM head: (N, D, V, chunk, ignored labels, path)
-    for N, D, V, chunk, n_ign, path in [
-            (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, "train"),
-            (1000, 512, 1001, 256, 37, "ragged")]:
-        x, w = rnd(N, D), rnd(D, V) * 0.05
+    # LM head: (N, D, V, chunk, ignored labels, scale of x, label dtype,
+    # path).  Besides the path shape: a ragged N and V (V odd: W's rows
+    # take 8-byte copies), D odd (x's rows take 8-byte copies) with int32
+    # labels, N, D and V below one tile, and a peaked softmax (x x 12,
+    # |logit| up to about 80)
+    for N, D, V, chunk, n_ign, amp, ydt, path in [
+            (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, 1,
+             torch.int64, "train"),
+            (1000, 512, 1001, 256, 37, 1, torch.int64, "ragged"),
+            (777, 201, 3000, 300, 11, 1, torch.int32, "ragged"),
+            (5, 12, 100, HEAD_CHUNK, 1, 1, torch.int64, "ragged"),
+            (2048, 512, 32000, 1024, 5, 12, torch.int64, "ragged")]:
+        x, w = rnd(N, D) * amp, rnd(D, V) * 0.05
         y = torch.randint(0, V, (N,), generator=g, device=dev)
         y[torch.randperm(N, generator=g, device=dev)[:n_ign]] = -1
+        y = y.to(ydt)
         gl = torch.rand(N, generator=g, device=dev) * (2.0 / N)
         loss, lse = lmh.lm_head_fwd(x, w, y)
+        loss2, lse2 = lmh.lm_head_fwd(x, w, y)
         ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
         got = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
         again = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
         want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
         torch.cuda.synchronize()
+        top = float(plse.abs().max())
         ef = max(max_err(loss, ploss), max_err(lse, plse))
         eb = max(max_err(a, b) for a, b in zip(got, want))
         rb = max(rel_err(a, b) for a, b in zip(got, want))
+        same_f = torch.equal(loss, loss2) and torch.equal(lse, lse2)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[compare] lm_head_fwd N={N} D={D} V={V} ignored={n_ign}: "
-            f"max abs err on loss and lse {ef:.3g} (tol {HEAD_TOL:g})")
+        log(f"[compare] lm_head_fwd N={N} D={D} V={V} ignored={n_ign} "
+            f"x*{amp} labels {str(ydt)[6:]} (max |lse| {top:.3g}): max abs "
+            f"err on loss and lse {ef:.3g} (tol {HEAD_TOL:g}); two runs "
+            f"bit-identical: {same_f}")
         log(f"[compare] lm_head_bwd N={N} D={D} V={V} chunk={chunk}: max "
             f"abs err {eb:.3g}, {rb:.3g} of max |plain| (tol "
             f"{BWD_RTOL:g}); two runs bit-identical: {same}")
@@ -421,6 +443,8 @@ def phase_compare(torch):
             raise RuntimeError(f"LM head forward disagrees: {ef}")
         if not bool((loss[y < 0] == 0).all()):
             raise RuntimeError("LM head forward: ignored labels give loss")
+        if not same_f:
+            raise RuntimeError("LM head forward is not deterministic")
         if not rb <= BWD_RTOL:
             raise RuntimeError(f"LM head backward disagrees: {rb}")
         if not same:
@@ -978,9 +1002,9 @@ def _kernel_class(name):
         return "transformer_block GEMMs (this repo)"
     if "ln_fwd_kernel" in name:
         return "layer_norm (this repo)"
-    if "lm_head_fwd_kernel" in name:
+    if "lm_head_fwd" in name:
         return "lm_head_fwd (this repo)"
-    if "lm_head_dlogits" in name or "lm_head_gemm" in name:
+    if "lm_head_bwd" in name:
         return "lm_head_bwd (this repo)"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul (cuBLAS)"
@@ -1114,17 +1138,16 @@ def phase_timings(torch):
         pairs = B * H * T * (T + 1) // 2      # (query, key) pairs kept
         ops = 4 * d * pairs                   # q.k and p.v, 2 FLOP/MAC
         nbytes = 4 * (4 * H * d * B * T + H * B * T)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
-        extra = flash_extra(ops, nbytes, ms)
+        extra = tc_bounds(ops, nbytes, ms)
         res.setdefault("flash_attention_hdt", {})[path] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-            bound_by="operations", **extra)
+            ms=ms, plain_ms=plain, library_ms=lib, bound_by="operations",
+            **extra)
         log(f"[time] flash_attention_hdt ({path}) H={H} d={d} B={B} T={T} "
             f"causal f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} "
             f"TFLOP/s), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({ops / 1e9:.3f} GFLOP at "
-            f"{F32_FLOPS_PER_S / 1e12:g} TFLOP/s), 3xTF32 tensor-core "
-            f"bound {extra['tc_bound_ms']:.4f} ms; host enqueue per call "
+            f"{extra['bound_ms']:.4f} ms ({ops / 1e9:.3f} GFLOP in 3xTF32 "
+            f"at {TF32_FLOPS_PER_S / 1e12:g} TFLOP/s), f32 SIMT bound "
+            f"{extra['simt_bound_ms']:.4f} ms; host enqueue per call "
             f"{host:.4f} ms")
 
     # flash backward at the training path's shape: B 32
@@ -1146,18 +1169,18 @@ def phase_timings(torch):
     pairs = B * H * T * (T + 1) // 2
     ops = 10 * d * pairs                      # 5 d-long products per pair
     nbytes = 4 * (7 * H * d * B * T + 2 * H * B * T)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
-    extra = flash_extra(ops, nbytes, ms)
+    extra = tc_bounds(ops, nbytes, ms)
     res["flash_attention_hdt_bwd"] = {"train": dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-        bound_by="operations", **extra)}
+        ms=ms, plain_ms=plain, library_ms=lib, bound_by="operations",
+        **extra)}
     log(f"[time] flash_attention_hdt_bwd H={H} d={d} B={B} T={T} causal "
         f"f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the "
         f"least work; the kernels do 7/5 of it), plain {plain:.4f} ms, "
-        f"sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
-        f"({ops / 1e9:.3f} GFLOP at {F32_FLOPS_PER_S / 1e12:g} TFLOP/s), "
-        f"3xTF32 tensor-core bound {extra['tc_bound_ms']:.4f} ms; host "
-        f"enqueue per call {host:.4f} ms")
+        f"sdpa backward {lib:.4f} ms, bound {extra['bound_ms']:.4f} ms "
+        f"({ops / 1e9:.3f} GFLOP in 3xTF32 at "
+        f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s), f32 SIMT bound "
+        f"{extra['simt_bound_ms']:.4f} ms; host enqueue per call "
+        f"{host:.4f} ms")
 
     # LM head at the training path's shape: N = 32 x 512 tokens, D 512,
     # V 32000; the loss cotangent is 1/N, as the op's mean gives it
@@ -1167,6 +1190,18 @@ def phase_timings(torch):
     y = torch.randint(0, V, (N,), generator=g, device=dev)
     gl = torch.full((N,), 1.0 / N, device=dev)
     _, lse = lmh.lm_head_fwd(x, w, y)
+    # each kernel's peak device memory over one call, above what was
+    # allocated before it (its outputs and workspace)
+    peak = {}
+    for n, call in (("lm_head_fwd", lambda: lmh.lm_head_fwd(x, w, y)),
+                    ("lm_head_bwd", lambda: lmh.lm_head_bwd(x, w, y, lse, gl,
+                                                            HEAD_CHUNK))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak[n] = (torch.cuda.max_memory_allocated() - base) / 2**20
     fms, fhost = time_ms(lambda: lmh.lm_head_fwd(x, w, y), iters=5,
                          warmup=1)
     fplain, _ = time_ms(lambda: lmh.lm_head_fwd_plain(x, w, y), iters=5,
@@ -1188,24 +1223,29 @@ def phase_timings(torch):
     fops = 2 * N * D * V
     fbytes = 4 * (N * D + D * V) + 8 * N + 2 * 4 * N
     bbytes = 4 * (2 * N * D + 2 * D * V) + 8 * N + 2 * 4 * N
-    fbound = max(fbytes / HBM_BYTES_PER_S, fops / F32_FLOPS_PER_S) * 1e3
-    bbound = max(bbytes / HBM_BYTES_PER_S,
-                 3 * fops / F32_FLOPS_PER_S) * 1e3
+    fb = tc_bounds(fops, fbytes, fms)
+    bb = tc_bounds(3 * fops, bbytes, bms)
     res["lm_head_fwd"] = {"train": dict(
-        ms=fms, plain_ms=fplain, library_ms=flib, bound_ms=fbound,
-        bound_by="operations")}
+        ms=fms, plain_ms=fplain, library_ms=flib, bound_by="operations",
+        **fb, peak_mib=peak["lm_head_fwd"])}
     res["lm_head_bwd"] = {"train": dict(
-        ms=bms, plain_ms=bplain, library_ms=blib, bound_ms=bbound,
-        bound_by="operations")}
+        ms=bms, plain_ms=bplain, library_ms=blib, bound_by="operations",
+        **bb, peak_mib=peak["lm_head_bwd"])}
     log(f"[time] lm_head_fwd N={N} D={D} V={V} f32: kernel {fms:.3f} ms "
         f"({fops / fms / 1e9:.2f} TFLOP/s), plain {fplain:.3f} ms, matmul "
-        f"+ F.cross_entropy {flib:.3f} ms, bound {fbound:.3f} ms "
-        f"({fops / 1e9:.1f} GFLOP); host enqueue per call {fhost:.4f} ms")
+        f"+ F.cross_entropy {flib:.3f} ms, bound {fb['bound_ms']:.3f} ms "
+        f"({fops / 1e9:.1f} GFLOP in 3xTF32), f32 SIMT bound "
+        f"{fb['simt_bound_ms']:.3f} ms; host enqueue per call "
+        f"{fhost:.4f} ms; peak device memory over a call "
+        f"{peak['lm_head_fwd']:.1f} MiB above its inputs")
     log(f"[time] lm_head_bwd N={N} D={D} V={V} chunk {HEAD_CHUNK} f32: "
         f"kernel {bms:.3f} ms ({3 * fops / bms / 1e9:.2f} TFLOP/s), plain "
         f"{bplain:.3f} ms, autograd of matmul + F.cross_entropy "
-        f"{blib:.3f} ms, bound {bbound:.3f} ms ({3 * fops / 1e9:.1f} "
-        f"GFLOP); host enqueue per call {bhost:.4f} ms")
+        f"{blib:.3f} ms, bound {bb['bound_ms']:.3f} ms "
+        f"({3 * fops / 1e9:.1f} GFLOP in 3xTF32), f32 SIMT bound "
+        f"{bb['simt_bound_ms']:.3f} ms; host enqueue per call "
+        f"{bhost:.4f} ms; peak device memory over a call "
+        f"{peak['lm_head_bwd']:.1f} MiB above its inputs")
     return res
 
 
@@ -1266,14 +1306,14 @@ def phase_timings_fused(torch):
     res = {
         "flash_attention": {"train": dict(
             ms=fwd["bthd"], plain_ms=fplain, library_ms=flib,
-            bound_ms=bound_ms(fops, fbytes), bound_by="operations",
-            contiguous_bhtd_ms=fwd["bhtd"], head_major_ms=fwd["head-major"],
-            **flash_extra(fops, fbytes, fwd["bthd"]))},
+            bound_by="operations", contiguous_bhtd_ms=fwd["bhtd"],
+            head_major_ms=fwd["head-major"],
+            **tc_bounds(fops, fbytes, fwd["bthd"]))},
         "flash_attention_bwd": {"train": dict(
             ms=bwd["bthd"], plain_ms=bplain, library_ms=blib,
-            bound_ms=bound_ms(bops, bbytes), bound_by="operations",
-            contiguous_bhtd_ms=bwd["bhtd"], head_major_ms=bwd["head-major"],
-            **flash_extra(bops, bbytes, bwd["bthd"]))}}
+            bound_by="operations", contiguous_bhtd_ms=bwd["bhtd"],
+            head_major_ms=bwd["head-major"],
+            **tc_bounds(bops, bbytes, bwd["bthd"]))}}
     for n, ops, times, plain, lib, what in (
             ("flash_attention", fops, fwd, fplain, flib, "sdpa"),
             ("flash_attention_bwd", bops, bwd, bplain, blib,
@@ -1285,8 +1325,8 @@ def phase_timings_fused(torch):
             f"{times['bhtd']:.4f} ms, the head-major call (token stride 1) "
             f"{times['head-major']:.4f} ms; plain {plain:.4f} ms, {what} "
             f"{lib:.4f} ms, bound {res[n]['train']['bound_ms']:.4f} ms "
-            f"({ops / 1e9:.3f} GFLOP), 3xTF32 tensor-core bound "
-            f"{res[n]['train']['tc_bound_ms']:.4f} ms; host enqueue per call "
+            f"({ops / 1e9:.3f} GFLOP in 3xTF32), f32 SIMT bound "
+            f"{res[n]['train']['simt_bound_ms']:.4f} ms; host enqueue per call "
             f"{host['bthd' if n == 'flash_attention' else 'bthd bwd']:.4f} ms")
 
     # the block forward

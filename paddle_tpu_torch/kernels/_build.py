@@ -120,10 +120,11 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def bind(name: str, argtypes) -> ctypes._CFuncPtr:
-    """A C entry of the library with its argument types declared.  Every
-    entry returns the cudaError_t of its launch as an int."""
+def bind(name: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """A C entry of the library with its argument and result types
+    declared.  A launching entry returns the cudaError_t of its launches as
+    an int; a sizing entry (``*_workspace``) returns bytes as a long long."""
     fn = getattr(load(), name)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

@@ -1,20 +1,10 @@
 // Shared pieces of the flash-attention kernels (flash_attention_hdt.cu and
-// flash_attention_hdt_bwd.cu): the 3xTF32 tensor-core product, the
-// m16n8k8 fragment index maps, and the stride-chosen cp.async staging of a
-// 64-token tile into shared memory.
+// flash_attention_hdt_bwd.cu): the m16n8k8 fragment reads of a token-row
+// tile and the stride-chosen cp.async staging of a 64-token tile into
+// shared memory.  The 3xTF32 split, mma.sync and the cp.async copies are
+// in tf32_mma.cuh (shared with the LM head's GEMM), which also gives the
+// fragment maps.
 //
-// 3xTF32.  x = hi + lo with hi = tf32(x) (the rounding of cvt.rna.tf32.f32:
-// to nearest, ties away, 10 mantissa bits) and lo = tf32(x - hi); a product
-// a.b is taken as lo(a).hi(b) + hi(a).lo(b) + hi(a).hi(b), the small terms
-// first, into one f32 accumulator.  The dropped lo.lo term is about 2^-22 of the product,
-// so the result is f32-grade (single-pass TF32 keeps about 2^-11).  This is
-// the plan of PyTorch's f32 SDPA kernel (CUTLASS OpMultiplyAddFastF32).
-//
-// Fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, for lane
-// = 4 g + t (g = lane >> 2, t = lane & 3):
-//   A (16 x 8, row):  a0 (g, t)   a1 (g + 8, t)   a2 (g, t + 4)   a3 (g + 8, t + 4)
-//   B (8 x 8, col):   b0 (t, g)   b1 (t + 4, g)           (row = k, col = n)
-//   C (16 x 8):       c0 (g, 2t)  c1 (g, 2t + 1)  c2 (g + 8, 2t)  c3 (g + 8, 2t + 1)
 // A C tile is used as the A operand of the next product without a shuffle
 // by relabelling k within each 8-block on both sides: k slot t is column 2t
 // and k slot t + 4 is column 2t + 1, so A = (c0, c2, c1, c3), and the B
@@ -41,7 +31,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace ptt_flash {
+
+using namespace ptt_mma;
 
 constexpr int kTile = 64;   // tokens per tile, queries and keys
 constexpr int kThreads = 128;  // 4 warps, 16 tile rows each
@@ -68,59 +62,6 @@ struct Tile {
   static constexpr int LD = D + 4;          // token row in shared memory
   static constexpr int kFloats = kTile * LD;
 };
-
-// cvt.rna.tf32.f32 x: adding half a unit of the 13 dropped bits to the
-// magnitude bits and clearing them rounds to nearest with ties away from
-// zero, the same bits as the conversion instruction (checked on the card:
-// identical outputs), in two integer operations; the conversion instruction
-// issues at a fraction of their rate and bound both kernels.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// A operand (4 values in fragment order) and B operand (2 values), split
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2,
-                                      float a3) {
-    split(a0, hi[0], lo[0]);
-    split(a1, hi[1], lo[1]);
-    split(a2, hi[2], lo[2]);
-    split(a3, hi[3], lo[3]);
-  }
-  __device__ __forceinline__ void set(const float (&a)[4]) {
-    set(a[0], a[1], a[2], a[3]);
-  }
-};
-
-struct FragB {
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    split(b0, hi[0], lo[0]);
-    split(b1, hi[1], lo[1]);
-  }
-};
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a.b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma(d, a.lo, b.hi);
-  mma(d, a.hi, b.lo);
-  mma(d, a.hi, b.hi);
-}
 
 // the values of an A fragment: rows (r, r + 8), columns (c + t, c + t + 4)
 // of a token-row tile, times mul
@@ -157,29 +98,6 @@ __device__ __forceinline__ void load_b_cols(FragB& b, const float* S, int k0,
 // A operand from a C tile (relabelled k)
 __device__ __forceinline__ void a_from_c(FragA& a, const float (&c)[4]) {
   a.set(c[0], c[2], c[1], c[3]);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // S[r][j] <- base[feature j, token t0 + r] for t0 + r < tend, else 0:

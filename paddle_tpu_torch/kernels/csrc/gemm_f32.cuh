@@ -1,4 +1,5 @@
-// The tiled f32 GEMM loop shared by lm_head.cu and fused_block.cu.
+// The tiled f32 GEMM loop of fused_block.cu (on the CUDA cores; the LM
+// head runs on the tensor cores, gemm_tc.cuh).
 //
 // A CTA of NT = 256 threads computes a BM x BN = 128 x 128 f32 tile of
 // A . B, 8 x 8 a thread, over k-slices of BK = 8 staged in shared memory;

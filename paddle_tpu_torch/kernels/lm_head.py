@@ -4,13 +4,16 @@ hand-written CUDA kernels and their plain torch versions.
 Replaces the Pallas TPU kernels ``paddle_tpu/kernels/lm_head.py:_fwd``
 (body ``_fwd_kernel``) and ``_bwd`` (body ``_bwd_kernel``), entry
 ``lm_head_xent``, called by the ``fused_lm_head_loss`` op.  The kernel
-source is ``csrc/lm_head.cu``; its header says what bounds it on the H100
-(operations: one product of x [N, D] and W [D, V] forward, three backward,
-on the f32 CUDA cores) and how the design streams the vocabulary: the
+source is ``csrc/lm_head.cu`` on the tile loop of ``csrc/gemm_tc.cuh``;
+its header says what bounds it on the H100 (operations: one product of
+x [N, D] and W [D, V] forward, three backward, each on the TF32 tensor
+cores in three passes) and how the design streams the vocabulary: the
 forward keeps a running (max, sum of exp, gold logit) per token across
 vocab tiles, so no [N, V] logits reach device memory, and the backward
-goes chunk by chunk through a [chunk, V] dlogits scratch and the file's
-own tiled GEMM.
+goes chunk by chunk through a [chunk, V] dlogits scratch.  The wrappers
+allocate the kernels' workspace (x and W split into TF32 (hi, lo) pairs,
+the scratch, partial sums), sized by the library's ``*_workspace``
+entries.
 
 ``lm_head_xent(x, w, labels)`` is the differentiable entry (a
 ``torch.autograd.Function`` over ``lm_head_fwd`` and ``lm_head_bwd``); it
@@ -30,8 +33,15 @@ import torch
 from . import _build
 
 DEFAULT_CHUNK = 4096
-_fwd_fn = None
-_bwd_fn = None
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# library entry -> (argument types, result type)
+_SIGNATURES = {
+    "ptt_lm_head_fwd_workspace": ([_I] * 3, _LL),
+    "ptt_lm_head_bwd_workspace": ([_I] * 3, _LL),
+    "ptt_lm_head_fwd": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "ptt_lm_head_bwd_chunk": ([_P] * 8 + [_I] * 5 + [_P], _I),
+}
+_fns = {}
 
 
 def _check(x, w, labels):
@@ -95,13 +105,21 @@ def _require(name, ts, labels, contiguous):
         raise ValueError(f"{name} kernel: inputs must be contiguous")
 
 
+def _fn(name):
+    """The library entry `name`, bound on first use."""
+    if name not in _fns:
+        _fns[name] = _build.bind(name, *_SIGNATURES[name])
+    return _fns[name]
+
+
+def _workspace(name, dims, device):
+    nbytes = int(_fn(name)(*dims))
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 def _launch_fwd(x, w, labels):
     _check(x, w, labels)
     _require("lm_head_fwd", (x, w), labels, (x, w))
-    global _fwd_fn
-    if _fwd_fn is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _fwd_fn = _build.bind("ptt_lm_head_fwd", [p] * 5 + [i] * 3 + [p])
     N, D = x.shape
     V = w.shape[1]
     y = labels.to(torch.int64).contiguous()
@@ -109,9 +127,11 @@ def _launch_fwd(x, w, labels):
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     if N == 0:
         return loss, lse
-    err = _fwd_fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), loss.data_ptr(),
-                  lse.data_ptr(), N, D, V,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    work = _workspace("ptt_lm_head_fwd_workspace", (N, D, V), x.device)
+    err = _fn("ptt_lm_head_fwd")(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), work.data_ptr(), N, D, V,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"lm_head_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -124,11 +144,6 @@ def _launch_bwd(x, w, labels, lse, g, chunk):
     # g may be any layout (autograd hands an expanded 1/N): the wrapper
     # makes its masked copy below
     _require("lm_head_bwd", (x, w, lse, g), labels, (x, w, lse))
-    global _bwd_fn
-    if _bwd_fn is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _bwd_fn = _build.bind("ptt_lm_head_bwd_chunk",
-                              [p] * 8 + [i] * 4 + [p])
     N, D = x.shape
     V = w.shape[1]
     if tuple(lse.shape) != (N,) or tuple(g.shape) != (N,):
@@ -139,14 +154,15 @@ def _launch_bwd(x, w, labels, lse, g, chunk):
     dx = torch.empty(N, D, dtype=torch.float32, device=x.device)
     dw = torch.zeros(D, V, dtype=torch.float32, device=x.device)
     chunk = max(1, min(int(chunk), N))
-    scratch = torch.empty(chunk, V, dtype=torch.float32, device=x.device)
+    work = _workspace("ptt_lm_head_bwd_workspace", (chunk, D, V), x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _fn("ptt_lm_head_bwd_chunk")
     for ci, r0 in enumerate(range(0, N, chunk)):
         rows = min(chunk, N - r0)
-        err = _bwd_fn(x[r0:].data_ptr(), w.data_ptr(), y[r0:].data_ptr(),
-                      lse[r0:].data_ptr(), gm[r0:].data_ptr(),
-                      scratch.data_ptr(), dx[r0:].data_ptr(), dw.data_ptr(),
-                      rows, D, V, int(ci > 0), stream)
+        err = fn(x[r0:].data_ptr(), w.data_ptr(), y[r0:].data_ptr(),
+                 lse[r0:].data_ptr(), gm[r0:].data_ptr(), work.data_ptr(),
+                 dx[r0:].data_ptr(), dw.data_ptr(), rows, chunk, D, V,
+                 int(ci > 0), stream)
         if err:
             raise RuntimeError(f"lm_head_bwd kernel launch failed: CUDA "
                                f"error {err}")

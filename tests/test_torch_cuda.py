@@ -202,30 +202,37 @@ def test_flash_autograd_on_the_card_takes_strided_inputs(cuda):
         assert _rel_err(a.cpu(), w) <= REL_TOL
 
 
-@pytest.mark.parametrize("N,D,V,chunk,n_ignored", [
-    (4096, 512, 32000, 4096, 0),            # one chunk of the path shape
-    (1000, 512, 1001, 256, 37),             # ragged N and V, 4 chunks
-    (1, 8, 1, 4096, 0),
+@pytest.mark.parametrize("N,D,V,chunk,n_ignored,amp,ydtype", [
+    (4096, 512, 32000, 4096, 0, 1, torch.int64),   # one chunk of the path
+    (1000, 512, 1001, 256, 37, 1, torch.int64),    # ragged N and V, 4 chunks
+    (1, 8, 1, 4096, 0, 1, torch.int64),
+    (777, 201, 3000, 300, 11, 1, torch.int32),     # odd D: 8-byte copies
+    (5, 12, 100, 4096, 1, 1, torch.int64),         # below one tile
+    (2048, 512, 32000, 1024, 5, 12, torch.int64),  # peaked, |logit| ~ 80
 ])
-def test_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored):
-    x = _randn(cuda, N, D, seed=17)
+def test_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored, amp,
+                                     ydtype):
+    x = _randn(cuda, N, D, seed=17) * amp
     w = _randn(cuda, D, V, seed=18) * 0.05
     g = torch.Generator(device=cuda).manual_seed(19)
     y = torch.randint(0, V, (N,), generator=g, device=cuda)
     y[torch.randperm(N, generator=g, device=cuda)[:n_ignored]] = -1
+    y = y.to(ydtype)
     gl = torch.rand(N, generator=g, device=cuda) / N
     nf, nb = lmh.lm_head_fwd.launches, lmh.lm_head_bwd.launches
     loss, lse = lmh.lm_head_fwd(x, w, y)
+    loss2, lse2 = lmh.lm_head_fwd(x, w, y)
     dx, dw = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
     dx2, dw2 = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
     ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
     pdx, pdw = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
     torch.cuda.synchronize()
-    assert lmh.lm_head_fwd.launches == nf + 1
+    assert lmh.lm_head_fwd.launches == nf + 2
     assert lmh.lm_head_bwd.launches == nb + 2 * -(-N // chunk)
     assert (loss - ploss).abs().max().item() <= F32_TOL
     assert (lse - plse).abs().max().item() <= F32_TOL
     assert (loss[y < 0] == 0).all()
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
     assert _rel_err(dx, pdx) <= REL_TOL
     assert _rel_err(dw, pdw) <= REL_TOL
