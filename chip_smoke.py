@@ -18,9 +18,11 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    view 1 float off 16-byte alignment (4-byte staging); the LM-head
    cases a ragged N and V, an odd D (8-byte staging), int32 labels, N, D
    and V below one tile, and a peaked softmax (x x 12, |logit| up to
-   about 80).  The flash backward and both LM-head kernels must also give
-   the same bits twice, and the [B, H, T, d] flash calls the head-major
-   call's bits on the same data.
+   about 80); the block cases a ragged T, head dim 128, an odd D and F
+   (D 201, E 128, F 333: 8-byte staging) and W1 x 8 (large W2 sums over
+   K 2048).  The flash backward, both LM-head kernels and the block must
+   also give the same bits twice, and the [B, H, T, d] flash calls the
+   head-major call's bits on the same data.
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -60,13 +62,16 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    latency p50 and tokens/s per batch size; training step p50 and
    tokens/s at batch 32, both programs; peak device memory; the
    [B, H, T, d] flash on the block's [B, T, H, d] views beside the
-   contiguous and head-major calls; the flash and LM-head kernels run on
-   the tensor cores, so their bound is the 3xTF32 one (also under
+   contiguous and head-major calls; every kernel runs on the tensor cores
+   but layer norm, so their bound is the 3xTF32 one (also under
    tc_bound_ms), with the f32 bound without tensor cores beside it
-   (simt_bound_ms) and the achieved TFLOP/s; then
-   torch.profiler traces of one batch-8 request and one step of each
-   training program split by kernel class, with the device's busy share,
-   and the names of the kernels SDPA launches (its library yardstick).
+   (simt_bound_ms) and the achieved TFLOP/s.  Timed calls are cold: each
+   takes its activations from a rotation of input sets larger than the
+   L2 (the block also warm, warm_ms); then torch.profiler traces of one
+   batch-8 request and one step of each training program split by kernel
+   class, with the device's busy share (the fuse_block step must show 4
+   block GEMM launches a layer), one block forward kernel by kernel, and
+   the names of the kernels SDPA launches (its library yardstick).
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
@@ -74,13 +79,14 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
-is full f32, so the card and the CPU compute the same math.  (The flash
-and LM-head kernels take their products on the TF32 tensor cores in three
-passes, f32-grade by construction.)  The script exits
+is full f32, so the card and the CPU compute the same math.  (The flash,
+LM-head and block kernels take their products on the TF32 tensor cores in
+three passes, f32-grade by construction.)  The script exits
 non-zero and prints no result when no CUDA device is visible, or when the
 paddle_tpu_torch package is not beside it.
 """
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -104,6 +110,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 without tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 SLEEP_CYCLES = 40_000_000      # about 20 ms at the H100's 1.98 GHz boost
+ROTATE = 4                     # input sets a timed call rotates over (cold)
 
 LN_TOL = 1e-4        # abs, f32: the same math summed in another order
 LN_BF16_TOL = 2e-2   # abs on bf16 y of magnitude < 4: one bf16 rounding
@@ -209,19 +216,22 @@ def rel_err(a, b):
     return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
-def block_inputs(rnd, B, T, D, F):
+def block_inputs(rnd, B, T, D, F, E=None, w1_scale=1.0):
     """x [B, T, D] and the 12 fused-block params (kernels/fused_block.py's
-    PARAM_NAMES order, E = D) at about the startup program's scale: Xavier
-    weights, LN scales near 1, small biases."""
+    PARAM_NAMES order; E defaults to D) at about the startup program's
+    scale: Xavier weights, LN scales near 1, small biases.  w1_scale
+    scales W1, and so the MLP's hidden units and the W2 product's sums."""
+    E = D if E is None else E
+
     def w(r, c):
         return rnd(r, c) * math.sqrt(2.0 / (r + c))
 
     def vec(n, mean=0.0):
         return mean + 0.1 * rnd(n)
 
-    return rnd(B, T, D), (vec(D, 1.0), vec(D), w(D, D), w(D, D), w(D, D),
-                          w(D, D), vec(D, 1.0), vec(D), w(D, F), vec(F),
-                          w(F, D), vec(D))
+    return rnd(B, T, D), (vec(D, 1.0), vec(D), w(D, E), w(D, E), w(D, E),
+                          w(E, D), vec(D, 1.0), vec(D), w(D, F) * w1_scale,
+                          vec(F), w(F, D), vec(D))
 
 
 def bthd_view(x, H):
@@ -257,6 +267,16 @@ def block_work(B, T, H, D, F):
     return flops, nbytes
 
 
+def rotation(make, n=ROTATE):
+    """A function that returns, call by call, the next of n input sets made
+    by make(): a timed call that takes its inputs from it finds them in
+    device memory, not in the 50 MB L2, once n sets exceed it, as a kernel
+    of the training step finds its inputs."""
+    sets = [make() for _ in range(n)]
+    it = itertools.cycle(sets)
+    return lambda: next(it)
+
+
 def bound_ms(flops, nbytes, peak=F32_FLOPS_PER_S):
     return max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
 
@@ -273,6 +293,19 @@ def tc_bounds(flops, nbytes, ms):
                 simt_bound_ms=bound_ms(flops, nbytes), tflops=flops / ms / 1e9)
 
 
+def _short_kernel_name(name):
+    """A demangled kernel name without its return type, argument list and
+    "(anonymous namespace)::"."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):   # the argument list's "("
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth <= 0:
+            name = name[:i] if name[i] == "(" else name
+            break
+    name = name.replace("(anonymous namespace)::", "")
+    return name[5:] if name.startswith("void ") else name
+
+
 def phase_build(torch):
     from paddle_tpu_torch.kernels import _build
     t0 = time.perf_counter()
@@ -281,6 +314,9 @@ def phase_build(torch):
     secs = time.perf_counter() - t0
     log(f"[build] {path.name} from {[s.name for s in _build.sources()]} "
         f"in {secs:.2f} s")
+    # every kernel's registers, static shared memory and spills (the
+    # tile-loop kernels also take gemm_tc.cuh's ring as dynamic shared
+    # memory, which ptxas does not see)
     for line in _build.build_log().splitlines():
         if ("ptxas info" in line and ("Used" in line or "entry" in line)) \
                 or "spill" in line or line.startswith("=="):
@@ -520,22 +556,32 @@ def phase_compare(torch):
         note("flash_attention", path, ef)
         note("flash_attention_bwd", path, eb)
 
-    # the fused block against its plain version: (B, T, H, D, F, causal,
-    # path); H 4 at D 512 is head dim 128
-    for B, T, H, D, F, causal, path in [
-            (TRAIN_BATCH, TRAIN_T, 8, 512, 2048, True, "train"),
-            (2, 300, 8, 512, 2048, False, "ragged"),
-            (2, 300, 4, 512, 2048, True, "ragged")]:
-        x, params = block_inputs(rnd, B, T, D, F)
+    # the fused block against its plain version, twice for the same bits:
+    # (B, T, H, D, E, F, causal, scale of W1, path).  H 4 at E 512 is head
+    # dim 128; D 201, F 333 give each operand whose rows hold D or F pairs
+    # (a, Wo, W1, u, W2) 8-byte copies; W1 x 8 makes the hidden units and
+    # W2's 2048-long sums large (the peaked long-K case)
+    for B, T, H, D, E, F, causal, w1s, path in [
+            (TRAIN_BATCH, TRAIN_T, 8, 512, 512, 2048, True, 1, "train"),
+            (2, 300, 8, 512, 512, 2048, False, 1, "ragged"),
+            (2, 300, 4, 512, 512, 2048, True, 1, "ragged"),
+            (2, 67, 2, 201, 128, 333, True, 1, "ragged"),
+            (4, 512, 8, 512, 512, 2048, True, 8, "ragged")]:
+        x, params = block_inputs(rnd, B, T, D, F, E, w1s)
         got = fb.transformer_block(x, params, H, causal)
+        again = fb.transformer_block(x, params, H, causal)
         want = fb.transformer_block_plain(x, params, H, causal)
         torch.cuda.synchronize()
         e, r = max_err(got, want), rel_err(got, want)
-        log(f"[compare] transformer_block B={B} T={T} H={H} D={D} F={F} "
-            f"causal={causal}: max abs err {e:.3g}, {r:.3g} of max |plain| "
-            f"{float(want.abs().max()):.3g} (tol {BLOCK_RTOL:g})")
+        same = torch.equal(got, again)
+        log(f"[compare] transformer_block B={B} T={T} H={H} D={D} E={E} "
+            f"F={F} causal={causal} W1 x{w1s}: max abs err {e:.3g}, {r:.3g} "
+            f"of max |plain| {float(want.abs().max()):.3g} (tol "
+            f"{BLOCK_RTOL:g}); two runs bit-identical: {same}")
         if not r <= BLOCK_RTOL:
             raise RuntimeError(f"block kernel disagrees: {r} > {BLOCK_RTOL}")
+        if not same:
+            raise RuntimeError("block kernel is not deterministic")
         note("transformer_block", path, e)
     return errs
 
@@ -992,6 +1038,12 @@ def train_match_fused(torch):
     check_replayed("[train fuse_block]", pg, loss, grads, r_loss, r_grads)
 
 
+BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
+# the launches of one block forward (fused_block.cu's chain): the weights'
+# split, LN1, q/k/v, flash, o's split, Wo, LN2, W1, W2
+BLOCK_CHAIN_LAUNCHES = 9
+
+
 def _kernel_class(name):
     if "flash_bwd" in name:
         return "flash backward (this repo; head-major and [B,H,T,d] calls)"
@@ -999,7 +1051,9 @@ def _kernel_class(name):
         return ("flash forward (this repo; head-major, [B,H,T,d] and "
                 "in-block calls)")
     if "block_gemm" in name:
-        return "transformer_block GEMMs (this repo)"
+        return BLOCK_GEMMS
+    if "block_split" in name:
+        return "transformer_block operand splits (this repo)"
     if "ln_fwd_kernel" in name:
         return "layer_norm (this repo)"
     if "lm_head_fwd" in name:
@@ -1013,26 +1067,45 @@ def _kernel_class(name):
     return "other (elementwise, embedding, reductions, adam)"
 
 
-def trace_run(torch, label, fn):
-    """Device-time breakdown of one call of fn from a torch.profiler
-    trace: kernel time by class and the device's busy share of the call's
-    wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled(torch, fn, cpu=False):
+    """fn's events from torch.profiler, and the wall time of its call in
+    microseconds.  fn runs twice: the first call is the schedule's warm-up
+    cycle, whose events are dropped, so that the kernels launched while
+    the tracer starts up are not lost from the recorded call.  The
+    schedule's step annotation, which spans the call on the device's
+    timeline too, is left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_class, launches = {}, {}
-    for e in prof.key_averages():
+        prof.step()
+    return [e for e in prof.key_averages()
+            if not e.key.startswith("ProfilerStep")], wall_us
+
+
+def trace_run(torch, label, fn, expect=None):
+    """Device-time breakdown of one call of fn from a torch.profiler
+    trace: kernel time by class and the device's busy share of the call's
+    wall time.  expect maps a class to the launches it must show."""
+    events, wall_us = profiled(torch, fn, cpu=True)
+    by_class, launches, names = {}, {}, {}
+    for e in events:
         # kernels only: a CPU op's self device time repeats its kernels'
         us = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             c = _kernel_class(e.key)
             by_class[c] = by_class.get(c, 0.0) + us
             launches[c] = launches.get(c, 0) + e.count
+            names.setdefault(c, {})[_short_kernel_name(e.key)] = e.count
     busy = sum(by_class.values())
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -1042,6 +1115,48 @@ def trace_run(torch, label, fn):
     for c, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         log(f"[trace]   {c}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} % of "
             f"device time, {launches[c]} launches)")
+    for c, n in (expect or {}).items():
+        if launches.get(c, 0) != n:
+            raise RuntimeError(f"{label}: {launches.get(c, 0)} launches of "
+                               f"{c}, expected {n}: {names.get(c, {})}")
+
+
+def block_breakdown(torch):
+    """The block forward's launches at the training shape (B 32, T 512,
+    H 8, D = E 512, F 2048): each kernel's device time over one call from
+    torch.profiler, and the tile-loop kernels' TFLOP/s of f32 work:
+    {kernel name: {"ms", "launches"(, "tflops")}}."""
+    from paddle_tpu_torch.kernels import fused_block as fb
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    B, T, H, D, FF = TRAIN_BATCH, TRAIN_T, 8, 512, 2048
+    N = B * T
+    x, params = block_inputs(
+        lambda *s: torch.randn(*s, generator=g, device=DEVICE), B, T, D, FF)
+    events, _ = profiled(
+        torch, lambda: fb.transformer_block(x, params, H, True))
+    # f32 FLOP of block_gemm_kernel<EPI>: q/k/v, Wo, W1, W2
+    gemm_flops = {0: 2 * N * D * 3 * D, 1: 2 * N * D * D, 2: 2 * N * D * FF,
+                  3: 2 * N * FF * D}
+    res = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        row = dict(ms=ms, launches=e.count)
+        if "block_gemm_kernel<" in e.key:
+            epi = int(e.key.split("block_gemm_kernel<")[1][0])
+            row["tflops"] = gemm_flops[epi] / ms / 1e9
+        res[_short_kernel_name(e.key)] = row
+    total = sum(r["ms"] for r in res.values())
+    log(f"[block] one block forward B={B} T={T} H={H} D={D} F={FF}: "
+        f"{sum(r['launches'] for r in res.values())} launches, "
+        f"{total:.4f} ms of device time")
+    for name, r in res.items():
+        rate = f", {r['tflops']:.2f} TFLOP/s" if "tflops" in r else ""
+        log(f"[block]   {name}: {r['ms']:.4f} ms ({r['launches']} "
+            f"launches{rate})")
+    return res
 
 
 def sdpa_kernels(torch):
@@ -1051,7 +1166,6 @@ def sdpa_kernels(torch):
     the card which kernel the yardstick is (expected: CUTLASS's
     memory-efficient fmha, f32 on the TF32 tensor cores in 3 passes)."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     q, k, v, do = (torch.randn(TRAIN_BATCH, 8, TRAIN_T, 64, generator=g,
                                device=DEVICE) for _ in range(4))
@@ -1064,13 +1178,9 @@ def sdpa_kernels(torch):
                                            retain_graph=True)}
     res = {}
     for what, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        events, _ = profiled(torch, fn)
         res[what] = {e.key: e.self_device_time_total / 1e3
-                     for e in prof.key_averages()
+                     for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and e.self_device_time_total > 0}
         for name, ms in res[what].items():
@@ -1079,6 +1189,10 @@ def sdpa_kernels(torch):
 
 
 def phase_timings(torch):
+    """The serving and training paths' kernels at their shapes, cold:
+    every timed call (kernel, plain and library alike) takes its
+    activations from a rotation() of input sets larger than the L2
+    together; weights stay."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
@@ -1089,24 +1203,18 @@ def phase_timings(torch):
 
     # layer norm and flash forward at both paths' shapes: the training
     # step's batch 32 and a served batch 8, T 512.  The layer-norm inputs
-    # rotate over 8 buffers (64 MiB or more, > the 50 MB L2), so each
-    # launch reads x from device memory as the bound assumes.
+    # rotate over 8 buffers (64 MiB or more).
     gam = torch.randn(512, generator=g, device=dev)
     bet = torch.randn(512, generator=g, device=dev)
     for path, B in (("train", TRAIN_BATCH), ("serve", 8)):
         N, D = B * TRAIN_T, 512
-        xs = [torch.randn(N, D, generator=g, device=dev) for _ in range(8)]
-        it = iter(range(1 << 30))
-
-        def rot():
-            return xs[next(it) % len(xs)]
-
+        rot = rotation(lambda: torch.randn(N, D, generator=g, device=dev), 8)
         ms, host = time_ms(lambda: ln.layer_norm(rot(), gam, bet, 1e-5))
         plain, plain_host = time_ms(
             lambda: ln.layer_norm_plain(rot(), gam, bet, 1e-5))
         lib, lib_host = time_ms(lambda: F.layer_norm(rot(), (D,), gam, bet,
                                                      1e-5))
-        del xs
+        del rot
         nbytes = 2 * N * D * 4 + 2 * D * 4 + 2 * N * 4
         ops = 8 * N * D
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
@@ -1125,16 +1233,22 @@ def phase_timings(torch):
     def bhtd_b(x, batch):
         return x.reshape(H, d, batch, T).permute(2, 0, 3, 1).contiguous()
 
+    # flash forward: q, k, v rotate over ROTATE sets (96 MiB a set at B 32,
+    # 24 MiB at B 8), the head-major ones and SDPA's [B, H, T, d] copies
     for path, B in (("train", TRAIN_BATCH), ("serve", 8)):
-        q, k, v = (torch.randn(H, d, B * T, generator=g, device=dev)
-                   for _ in range(3))
-        q4, k4, v4 = (bhtd_b(x, B) for x in (q, k, v))
-        ms, host = time_ms(lambda: fa.flash_attention_hdt(q, k, v, B,
+        def make():
+            qkv = [torch.randn(H, d, B * T, generator=g, device=dev)
+                   for _ in range(3)]
+            return qkv, [bhtd_b(x, B) for x in qkv]
+
+        rot = rotation(make)
+        ms, host = time_ms(lambda: fa.flash_attention_hdt(*rot()[0], B,
                                                           causal=True))
         plain, _ = time_ms(lambda: fa.flash_attention_hdt_plain(
-            q, k, v, B, causal=True), iters=10)
+            *rot()[0], B, causal=True), iters=10)
         lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
+            *rot()[1], is_causal=True))
+        del rot
         pairs = B * H * T * (T + 1) // 2      # (query, key) pairs kept
         ops = 4 * d * pairs                   # q.k and p.v, 2 FLOP/MAC
         nbytes = 4 * (4 * H * d * B * T + H * B * T)
@@ -1143,29 +1257,38 @@ def phase_timings(torch):
             ms=ms, plain_ms=plain, library_ms=lib, bound_by="operations",
             **extra)
         log(f"[time] flash_attention_hdt ({path}) H={H} d={d} B={B} T={T} "
-            f"causal f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} "
+            f"causal f32, cold: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} "
             f"TFLOP/s), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
             f"{extra['bound_ms']:.4f} ms ({ops / 1e9:.3f} GFLOP in 3xTF32 "
             f"at {TF32_FLOPS_PER_S / 1e12:g} TFLOP/s), f32 SIMT bound "
             f"{extra['simt_bound_ms']:.4f} ms; host enqueue per call "
             f"{host:.4f} ms")
 
-    # flash backward at the training path's shape: B 32
+    # flash backward at the training path's shape: B 32; each set carries
+    # its forward's o-derived delta and lse, and SDPA's graph of its own
     B = TRAIN_BATCH
-    q, k, v, do = (torch.randn(H, d, B * T, generator=g, device=dev)
-                   for _ in range(4))
-    o, lse = fa.flash_attention_hdt(q, k, v, B, causal=True)
-    delta = (do * o).sum(1, keepdim=True)
+
+    def make_bwd():
+        q, k, v, do = (torch.randn(H, d, B * T, generator=g, device=dev)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_hdt(q, k, v, B, causal=True)
+        delta = (do * o).sum(1, keepdim=True)
+        q4, k4, v4 = (bhtd_b(x, B).requires_grad_() for x in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return (q, k, v, lse, delta, do), (o4, (q4, k4, v4), bhtd_b(do, B))
+
+    rot = rotation(make_bwd)
     ms, host = time_ms(lambda: fa.flash_attention_hdt_bwd(
-        q, k, v, lse, delta, do, B, causal=True), iters=20, warmup=2)
+        *rot()[0], B, causal=True), iters=20, warmup=2)
     plain, _ = time_ms(lambda: fa.flash_attention_hdt_bwd_plain(
-        q, k, v, lse, delta, do, B, causal=True), iters=5, warmup=1)
-    q4, k4, v4 = (bhtd_b(x, B).requires_grad_() for x in (q, k, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    do4 = bhtd_b(do, B)
-    lib, _ = time_ms(lambda: torch.autograd.grad(
-        o4, (q4, k4, v4), do4, retain_graph=True), iters=20, warmup=2)
-    del o4
+        *rot()[0], B, causal=True), iters=5, warmup=1)
+
+    def lib_bwd():
+        o4, ins, do4 = rot()[1]
+        return torch.autograd.grad(o4, ins, do4, retain_graph=True)
+
+    lib, _ = time_ms(lib_bwd, iters=20, warmup=2)
+    del rot
     pairs = B * H * T * (T + 1) // 2
     ops = 10 * d * pairs                      # 5 d-long products per pair
     nbytes = 4 * (7 * H * d * B * T + 2 * H * B * T)
@@ -1174,7 +1297,7 @@ def phase_timings(torch):
         ms=ms, plain_ms=plain, library_ms=lib, bound_by="operations",
         **extra)}
     log(f"[time] flash_attention_hdt_bwd H={H} d={d} B={B} T={T} causal "
-        f"f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the "
+        f"f32, cold: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the "
         f"least work; the kernels do 7/5 of it), plain {plain:.4f} ms, "
         f"sdpa backward {lib:.4f} ms, bound {extra['bound_ms']:.4f} ms "
         f"({ops / 1e9:.3f} GFLOP in 3xTF32 at "
@@ -1183,13 +1306,19 @@ def phase_timings(torch):
         f"{host:.4f} ms")
 
     # LM head at the training path's shape: N = 32 x 512 tokens, D 512,
-    # V 32000; the loss cotangent is 1/N, as the op's mean gives it
+    # V 32000; the loss cotangent is 1/N, as the op's mean gives it.  x
+    # (32 MiB) rotates with its lse; W (62.5 MiB) exceeds the L2 itself
     N, D, V = TRAIN_BATCH * TRAIN_T, 512, 32000
-    x = torch.randn(N, D, generator=g, device=dev)
     w = torch.randn(D, V, generator=g, device=dev) * 0.05
     y = torch.randint(0, V, (N,), generator=g, device=dev)
     gl = torch.full((N,), 1.0 / N, device=dev)
-    _, lse = lmh.lm_head_fwd(x, w, y)
+
+    def make_head():
+        x = torch.randn(N, D, generator=g, device=dev)
+        return x, lmh.lm_head_fwd(x, w, y)[1]
+
+    rot = rotation(make_head)
+    x, lse = rot()
     # each kernel's peak device memory over one call, above what was
     # allocated before it (its outputs and workspace)
     peak = {}
@@ -1202,24 +1331,35 @@ def phase_timings(torch):
         call()
         torch.cuda.synchronize()
         peak[n] = (torch.cuda.max_memory_allocated() - base) / 2**20
-    fms, fhost = time_ms(lambda: lmh.lm_head_fwd(x, w, y), iters=5,
+    fms, fhost = time_ms(lambda: lmh.lm_head_fwd(rot()[0], w, y), iters=5,
                          warmup=1)
-    fplain, _ = time_ms(lambda: lmh.lm_head_fwd_plain(x, w, y), iters=5,
-                        warmup=1)
+    fplain, _ = time_ms(lambda: lmh.lm_head_fwd_plain(rot()[0], w, y),
+                        iters=5, warmup=1)
     flib, _ = time_ms(lambda: F.cross_entropy(
-        torch.matmul(x, w), y, reduction="none"), iters=5, warmup=1)
-    bms, bhost = time_ms(lambda: lmh.lm_head_bwd(x, w, y, lse, gl,
-                                                 HEAD_CHUNK),
-                         iters=3, warmup=1)
-    bplain, _ = time_ms(lambda: lmh.lm_head_bwd_plain(x, w, y, lse, gl,
-                                                      HEAD_CHUNK),
-                        iters=3, warmup=1)
-    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-    ce = F.cross_entropy(torch.matmul(xg, wg), y, reduction="none")
-    blib, _ = time_ms(lambda: torch.autograd.grad(ce, (xg, wg), gl,
-                                                  retain_graph=True),
-                      iters=3, warmup=1)
-    del ce
+        torch.matmul(rot()[0], w), y, reduction="none"), iters=5, warmup=1)
+
+    def head_bwd(bwd):
+        x_, lse_ = rot()
+        return bwd(x_, w, y, lse_, gl, HEAD_CHUNK)
+
+    bms, bhost = time_ms(lambda: head_bwd(lmh.lm_head_bwd), iters=3,
+                         warmup=1)
+    bplain, _ = time_ms(lambda: head_bwd(lmh.lm_head_bwd_plain), iters=3,
+                        warmup=1)
+
+    def make_lib():
+        xg, wg = rot()[0].clone().requires_grad_(), w.clone().requires_grad_()
+        return F.cross_entropy(torch.matmul(xg, wg), y, reduction="none"), \
+            (xg, wg)
+
+    lib_rot = rotation(make_lib)
+
+    def lib_bwd():
+        ce, ins = lib_rot()
+        return torch.autograd.grad(ce, ins, gl, retain_graph=True)
+
+    blib, _ = time_ms(lib_bwd, iters=3, warmup=1)
+    del rot, lib_rot
     fops = 2 * N * D * V
     fbytes = 4 * (N * D + D * V) + 8 * N + 2 * 4 * N
     bbytes = 4 * (2 * N * D + 2 * D * V) + 8 * N + 2 * 4 * N
@@ -1231,16 +1371,16 @@ def phase_timings(torch):
     res["lm_head_bwd"] = {"train": dict(
         ms=bms, plain_ms=bplain, library_ms=blib, bound_by="operations",
         **bb, peak_mib=peak["lm_head_bwd"])}
-    log(f"[time] lm_head_fwd N={N} D={D} V={V} f32: kernel {fms:.3f} ms "
-        f"({fops / fms / 1e9:.2f} TFLOP/s), plain {fplain:.3f} ms, matmul "
+    log(f"[time] lm_head_fwd N={N} D={D} V={V} f32, cold: kernel {fms:.3f} "
+        f"ms ({fops / fms / 1e9:.2f} TFLOP/s), plain {fplain:.3f} ms, matmul "
         f"+ F.cross_entropy {flib:.3f} ms, bound {fb['bound_ms']:.3f} ms "
         f"({fops / 1e9:.1f} GFLOP in 3xTF32), f32 SIMT bound "
         f"{fb['simt_bound_ms']:.3f} ms; host enqueue per call "
         f"{fhost:.4f} ms; peak device memory over a call "
         f"{peak['lm_head_fwd']:.1f} MiB above its inputs")
-    log(f"[time] lm_head_bwd N={N} D={D} V={V} chunk {HEAD_CHUNK} f32: "
-        f"kernel {bms:.3f} ms ({3 * fops / bms / 1e9:.2f} TFLOP/s), plain "
-        f"{bplain:.3f} ms, autograd of matmul + F.cross_entropy "
+    log(f"[time] lm_head_bwd N={N} D={D} V={V} chunk {HEAD_CHUNK} f32, "
+        f"cold: kernel {bms:.3f} ms ({3 * fops / bms / 1e9:.2f} TFLOP/s), "
+        f"plain {bplain:.3f} ms, autograd of matmul + F.cross_entropy "
         f"{blib:.3f} ms, bound {bb['bound_ms']:.3f} ms "
         f"({3 * fops / 1e9:.1f} GFLOP in 3xTF32), f32 SIMT bound "
         f"{bb['simt_bound_ms']:.3f} ms; host enqueue per call "
@@ -1251,13 +1391,14 @@ def phase_timings(torch):
 
 def phase_timings_fused(torch):
     """The fuse-block path's kernels at its shapes (B 32, T 512, H 8,
-    d 64, D 512, F 2048): the [B, H, T, d] flash forward and backward as
-    the block's recompute calls them (q, k, v and do as [B, T, H, d] views
-    of [B, T, E] tensors, token stride E), beside the contiguous
-    [B, H, T, d] call (token stride d) and the head-major call on the same
-    data, which is the cost of the strided staging; and the block
-    forward, beside torch.nn.TransformerEncoderLayer as its library
-    yardstick, whose output is first held against the plain version."""
+    d 64, D 512, F 2048), cold as in phase_timings: the [B, H, T, d] flash
+    forward and backward as the block's recompute calls them (q, k, v and
+    do as [B, T, H, d] views of [B, T, E] tensors, token stride E), beside
+    the contiguous [B, H, T, d] call (token stride d) and the head-major
+    call on the same data, which is the cost of the strided staging; and
+    the block forward, cold and warm (one x), beside
+    torch.nn.TransformerEncoderLayer as its library yardstick, whose output
+    is first held against the plain version."""
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_block as fb
@@ -1270,39 +1411,66 @@ def phase_timings_fused(torch):
     B, T, H, d, D, FF = TRAIN_BATCH, TRAIN_T, 8, 64, 512, 2048
     scale = 1.0 / math.sqrt(d)
     (fops, fbytes), (bops, bbytes) = flash_work(B, H, T, d)
-    q, k, v, do = (bthd_view(rnd(B, T, H * d), H) for _ in range(4))
-    layouts = {"bthd": (q, k, v, do),
-               "bhtd": tuple(t.contiguous() for t in (q, k, v, do))}
+
+    def make():
+        """One input set in the three layouts: name -> (q, k, v, do, o,
+        lse, delta), the last three for the backward."""
+        q, k, v, do = (bthd_view(rnd(B, T, H * d), H) for _ in range(4))
+        sets = {"bthd": (q, k, v, do),
+                "bhtd": tuple(t.contiguous() for t in (q, k, v, do))}
+        out = {}
+        for name, (q_, k_, v_, do_) in sets.items():
+            o_, lse_ = fa._launch_bhtd(q_, k_, v_, True, scale)
+            out[name] = (q_, k_, v_, do_, o_, lse_, (do_ * o_).sum(-1))
+        qh, kh, vh, doh = map(head_major, sets["bhtd"])
+        oh, lseh = fa.flash_attention_hdt(qh, kh, vh, B, causal=True)
+        out["head-major"] = (qh, kh, vh, doh, oh, lseh,
+                             (doh * oh).sum(1, keepdim=True))
+        return out
+
+    rot = rotation(make)
+
+    def fwd_call(name):
+        q_, k_, v_ = rot()[name][:3]
+        if name == "head-major":
+            return fa.flash_attention_hdt(q_, k_, v_, B, causal=True)
+        return fa.flash_attention(q_, k_, v_, causal=True)
+
+    def bwd_call(name, fn=None):
+        q_, k_, v_, do_, _, lse_, delta_ = rot()[name]
+        if name == "head-major":
+            return fa.flash_attention_hdt_bwd(q_, k_, v_, lse_, delta_, do_,
+                                              B, causal=True)
+        return (fn or fa.flash_attention_bwd)(q_, k_, v_, lse_, delta_, do_,
+                                              True)
+
     fwd, bwd, host = {}, {}, {}
-    for name, (q_, k_, v_, do_) in layouts.items():
-        fwd[name], host[name] = time_ms(
-            lambda: fa.flash_attention(q_, k_, v_, causal=True))
-        o_, lse_ = fa._launch_bhtd(q_, k_, v_, True, scale)
-        delta_ = (do_ * o_).sum(-1)
-        bwd[name], host[name + " bwd"] = time_ms(
-            lambda: fa.flash_attention_bwd(q_, k_, v_, lse_, delta_, do_,
-                                           True), iters=20, warmup=2)
-    qh, kh, vh, doh = map(head_major, layouts["bhtd"])
-    fwd["head-major"], _ = time_ms(
-        lambda: fa.flash_attention_hdt(qh, kh, vh, B, causal=True))
-    oh, lseh = fa.flash_attention_hdt(qh, kh, vh, B, causal=True)
-    deltah = (doh * oh).sum(1, keepdim=True)
-    bwd["head-major"], _ = time_ms(lambda: fa.flash_attention_hdt_bwd(
-        qh, kh, vh, lseh, deltah, doh, B, causal=True), iters=20, warmup=2)
-    o, lse = fa._launch_bhtd(q, k, v, True, scale)
-    delta = (do * o).sum(-1)
-    fplain, _ = time_ms(lambda: fa.flash_attention_plain(q, k, v, True),
-                        iters=10)
-    bplain, _ = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, lse, delta, do, True), iters=5, warmup=1)
-    qc, kc, vc, doc = layouts["bhtd"]
+    for name in ("bthd", "bhtd", "head-major"):
+        fwd[name], host[name] = time_ms(lambda: fwd_call(name))
+        bwd[name], host[name + " bwd"] = time_ms(lambda: bwd_call(name),
+                                                 iters=20, warmup=2)
+    fplain, _ = time_ms(lambda: fa.flash_attention_plain(
+        *rot()["bthd"][:3], True), iters=10)
+    bplain, _ = time_ms(lambda: bwd_call("bthd", fa.flash_attention_bwd_plain),
+                        iters=5, warmup=1)
     flib, _ = time_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=True))
-    qg, kg, vg = (t.clone().requires_grad_() for t in (qc, kc, vc))
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    blib, _ = time_ms(lambda: torch.autograd.grad(
-        og, (qg, kg, vg), doc, retain_graph=True), iters=20, warmup=2)
-    del og
+        *rot()["bhtd"][:3], is_causal=True))
+    del rot
+
+    def make_lib():
+        qg, kg, vg, doc = (rnd(B, H, T, d) for _ in range(4))
+        qg, kg, vg = (t.requires_grad_() for t in (qg, kg, vg))
+        return (F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+                (qg, kg, vg), doc)
+
+    lib_rot = rotation(make_lib)
+
+    def lib_bwd():
+        og, ins, doc = lib_rot()
+        return torch.autograd.grad(og, ins, doc, retain_graph=True)
+
+    blib, _ = time_ms(lib_bwd, iters=20, warmup=2)
+    del lib_rot
     res = {
         "flash_attention": {"train": dict(
             ms=fwd["bthd"], plain_ms=fplain, library_ms=flib,
@@ -1318,8 +1486,8 @@ def phase_timings_fused(torch):
             ("flash_attention", fops, fwd, fplain, flib, "sdpa"),
             ("flash_attention_bwd", bops, bwd, bplain, blib,
              "sdpa backward")):
-        log(f"[time] {n} [B,H,T,d] H={H} d={d} B={B} T={T} causal f32: "
-            f"kernel on the block recompute's [B,T,H,d] views (token "
+        log(f"[time] {n} [B,H,T,d] H={H} d={d} B={B} T={T} causal f32, "
+            f"cold: kernel on the block recompute's [B,T,H,d] views (token "
             f"stride {H * d}) {times['bthd']:.4f} ms ({ops / times['bthd'] / 1e9:.2f} "
             f"TFLOP/s), on contiguous [B,H,T,d] (token stride {d}) "
             f"{times['bhtd']:.4f} ms, the head-major call (token stride 1) "
@@ -1329,11 +1497,16 @@ def phase_timings_fused(torch):
             f"{res[n]['train']['simt_bound_ms']:.4f} ms; host enqueue per call "
             f"{host['bthd' if n == 'flash_attention' else 'bthd bwd']:.4f} ms")
 
-    # the block forward
+    # the block forward: x (32 MiB) rotates over ROTATE buffers for the
+    # kernel, the plain version and the library layer alike; the weights
+    # stay (12.6 MB)
     x, params = block_inputs(rnd, B, T, D, FF)
-    ms, bhost = time_ms(lambda: fb.transformer_block(x, params, H, True),
+    rot = rotation(lambda: rnd(B, T, D))
+    ms, bhost = time_ms(lambda: fb.transformer_block(rot(), params, H, True),
                         iters=10, warmup=2)
-    plain, _ = time_ms(lambda: fb.transformer_block_plain(x, params, H,
+    warm, _ = time_ms(lambda: fb.transformer_block(x, params, H, True),
+                      iters=10, warmup=2)
+    plain, _ = time_ms(lambda: fb.transformer_block_plain(rot(), params, H,
                                                           True),
                        iters=5, warmup=1)
     layer = torch.nn.TransformerEncoderLayer(
@@ -1355,26 +1528,31 @@ def phase_timings_fused(torch):
         mask = torch.nn.Transformer.generate_square_subsequent_mask(
             T, device=dev)
 
-        def lib_call():
-            return layer(x, src_mask=mask, is_causal=True)
+        def lib_call(x_):
+            return layer(x_, src_mask=mask, is_causal=True)
 
-        lib_err = rel_err(lib_call(), fb.transformer_block_plain(
+        lib_err = rel_err(lib_call(x), fb.transformer_block_plain(
             x, params, H, True))
-        lib, _ = time_ms(lib_call, iters=10, warmup=2)
+        lib, _ = time_ms(lambda: lib_call(rot()), iters=10, warmup=2)
+    del rot
     if not lib_err <= BLOCK_RTOL:
         raise RuntimeError(f"TransformerEncoderLayer is not the block's "
                            f"function: {lib_err} of max |plain|")
     ops, nbytes = block_work(B, T, H, D, FF)
+    extra = tc_bounds(ops, nbytes, ms)
     res["transformer_block"] = {"train": dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms(ops, nbytes),
-        bound_by="operations")}
+        ms=ms, warm_ms=warm, plain_ms=plain, library_ms=lib,
+        bound_by="operations", **extra)}
     log(f"[time] transformer_block B={B} T={T} H={H} D={D} F={FF} causal "
-        f"f32: kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s, 7 "
-        f"launches), plain {plain:.4f} ms, TransformerEncoderLayer "
-        f"(norm_first, causal mask, attention biases 0; output {lib_err:.3g}"
-        f" of max |plain| from the plain version) {lib:.4f} ms, bound "
-        f"{res['transformer_block']['train']['bound_ms']:.4f} ms "
-        f"({ops / 1e9:.2f} GFLOP); host enqueue per call {bhost:.4f} ms")
+        f"f32: kernel cold {ms:.4f} ms ({extra['tflops']:.2f} TFLOP/s), "
+        f"warm {warm:.4f} ms, plain "
+        f"{plain:.4f} ms, TransformerEncoderLayer (norm_first, causal mask, "
+        f"attention biases 0; output {lib_err:.3g} of max |plain| from the "
+        f"plain version) {lib:.4f} ms, bound {extra['bound_ms']:.4f} ms "
+        f"({ops / 1e9:.2f} GFLOP in 3xTF32 at "
+        f"{TF32_FLOPS_PER_S / 1e12:g} TFLOP/s), f32 SIMT bound "
+        f"{extra['simt_bound_ms']:.4f} ms; host enqueue per call "
+        f"{bhost:.4f} ms")
     return res
 
 
@@ -1413,11 +1591,20 @@ def main():
               lambda: train["exe"].run(train["main"], feed=train["batch"],
                                        fetch_list=[train["avg_cost"]],
                                        return_numpy=False))
+    # four GEMM kernels a block forward, six blocks
     trace_run(torch, f"fuse_block training step at batch {TRAIN_BATCH}",
               lambda: ftrain["exe"].run(ftrain["main"],
                                         feed=ftrain["batch"],
                                         fetch_list=[ftrain["avg_cost"]],
-                                        return_numpy=False))
+                                        return_numpy=False),
+              expect={BLOCK_GEMMS: 4 * FLAGSHIP["n_layer"]})
+    by_kernel = block_breakdown(torch)
+    n_chain = sum(r["launches"] for r in by_kernel.values())
+    if n_chain != BLOCK_CHAIN_LAUNCHES:
+        raise RuntimeError(f"one block forward made {n_chain} launches, "
+                           f"expected {BLOCK_CHAIN_LAUNCHES}")
+    times["transformer_block"]["train"].update(by_kernel=by_kernel,
+                                               launches_per_call=n_chain)
     sdpa = sdpa_kernels(torch)
     for n in ("flash_attention_hdt", "flash_attention"):
         times[n]["train"]["library_kernels"] = sorted(sdpa["fwd"])

@@ -293,4 +293,42 @@ cudaError_t allow_smem(K kernel) {
                               Layout<AK, BN>::kSmemBytes);
 }
 
+// dst[i] = (tf32(src[i]), tf32(src[i] - tf32(src[i]))) for i < n, grid
+// strided: the pre-pass that writes an f32 operand as pairs
+__device__ __forceinline__ void split_range(const float* __restrict__ src,
+                                            float2* __restrict__ dst,
+                                            long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    uint32_t hi, lo;
+    split(src[i], hi, lo);
+    dst[i] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
+  }
+}
+
+// the card's SM count (132 if it cannot be read)
+inline int sm_count() {
+  static int n = 0;
+  if (n <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// bytes rounded up to 256, so each workspace region starts aligned
+inline long long align256(long long b) { return (b + 255) / 256 * 256; }
+
+// blocks of 256 threads for a grid-strided elementwise pass over n values
+inline int pass_blocks(long long n) {
+  const long long most = 16LL * sm_count();
+  return (int)(n / 256 + 1 < most ? n / 256 + 1 : most);
+}
+
 }  // namespace ptt_gemm

@@ -16,8 +16,16 @@
 // CTA).  Neighbouring lanes touch neighbouring elements, so every load and
 // store is coalesced.  Any N, any 1 <= D <= 8192, f32 or bf16 input;
 // gamma and beta are f32.
+//
+// A second entry, ptt_layer_norm_fwd_pairs, writes y of f32 x as 3xTF32
+// operand pairs (hi, lo) = (tf32(y), tf32(y - tf32(y))) instead of f32: the
+// fused block (fused_block.cu) feeds its norms' outputs straight to
+// gemm_tc.cuh's tile loop, which reads pre-split operands.  The same
+// statistics and the same y, split as it is stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -32,6 +40,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(float2* p, float v) {
+  uint32_t hi, lo;
+  ptt_mma::split(v, hi, lo);
+  *p = make_float2(__uint_as_float(hi), __uint_as_float(lo));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -53,11 +66,12 @@ __device__ __forceinline__ float group_sum(float v, float* red) {
   return warp_sum(lane < GROUP / 32 ? red[lane] : 0.f);
 }
 
-template <typename T, int GROUP>
+// x in T, y in Y (T, or float2 pairs of f32 x)
+template <typename T, typename Y, int GROUP>
 __global__ void ln_fwd_kernel(const T* __restrict__ x,
                               const float* __restrict__ gamma,
                               const float* __restrict__ beta,
-                              T* __restrict__ y, float* __restrict__ mean_out,
+                              Y* __restrict__ y, float* __restrict__ mean_out,
                               float* __restrict__ rstd_out, int N, int D,
                               float eps) {
   __shared__ float red[32];
@@ -67,7 +81,7 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
                   : (long long)blockIdx.x;
   if (row >= N) return;  // whole warps only: the warp path has no barrier
   const T* xr = x + row * D;
-  T* yr = y + row * D;
+  Y* yr = y + row * D;
 
   float v[kMaxPerThread];
   float s = 0.f;
@@ -98,20 +112,20 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
+template <typename T, typename Y = T>
 void launch(const void* x, const void* gamma, const void* beta, void* y,
             void* mean, void* rstd, int N, int D, float eps,
             cudaStream_t stream) {
   if (D <= 32 * kMaxPerThread) {
     const int grid = (N + kWarpRowsPerCta - 1) / kWarpRowsPerCta;
-    ln_fwd_kernel<T, 32><<<grid, 32 * kWarpRowsPerCta, 0, stream>>>(
+    ln_fwd_kernel<T, Y, 32><<<grid, 32 * kWarpRowsPerCta, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<T*>(y),
+        static_cast<const float*>(beta), static_cast<Y*>(y),
         static_cast<float*>(mean), static_cast<float*>(rstd), N, D, eps);
   } else {
-    ln_fwd_kernel<T, kCtaThreads><<<N, kCtaThreads, 0, stream>>>(
+    ln_fwd_kernel<T, Y, kCtaThreads><<<N, kCtaThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<T*>(y),
+        static_cast<const float*>(beta), static_cast<Y*>(y),
         static_cast<float*>(mean), static_cast<float*>(rstd), N, D, eps);
   }
 }
@@ -131,5 +145,18 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* gamma,
     launch<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, N, D, eps, s);
   else
     launch<float>(x, gamma, beta, y, mean, rstd, N, D, eps, s);
+  return (int)cudaGetLastError();
+}
+
+// x [N, D] f32, gamma/beta [D] f32 -> y [N, D] as (hi, lo) pairs (float2),
+// mean/rstd [N] f32.  All contiguous.  Returns cudaGetLastError().
+extern "C" int ptt_layer_norm_fwd_pairs(const void* x, const void* gamma,
+                                        const void* beta, void* y2,
+                                        void* mean, void* rstd, int N, int D,
+                                        float eps, void* stream) {
+  if (N <= 0 || D <= 0 || D > kCtaThreads * kMaxPerThread)
+    return (int)cudaErrorInvalidValue;
+  launch<float, float2>(x, gamma, beta, y2, mean, rstd, N, D, eps,
+                        static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -62,36 +62,6 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWaves = 4;   // CTAs aimed at per SM (one fits), forward and dx
 
-int sm_count() {
-  static int n = 0;
-  if (n <= 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || n <= 0)
-      n = 132;
-  }
-  return n;
-}
-
-int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// bytes rounded up to 256, so each workspace region starts aligned
-long long align256(long long b) { return (b + 255) / 256 * 256; }
-
-// dst[i] = (tf32(src[i]), tf32(src[i] - tf32(src[i])))
-__device__ __forceinline__ void split_range(const float* __restrict__ src,
-                                            float2* __restrict__ dst,
-                                            long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    uint32_t hi, lo;
-    split(src[i], hi, lo);
-    dst[i] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
-  }
-}
-
 // two names for one pre-pass, so a profile tells forward from backward
 __global__ void lm_head_fwd_split_kernel(const float* __restrict__ src,
                                          float2* __restrict__ dst,
@@ -103,12 +73,6 @@ __global__ void lm_head_bwd_split_kernel(const float* __restrict__ src,
                                          float2* __restrict__ dst,
                                          long long n) {
   split_range(src, dst, n);
-}
-
-// blocks of 256 threads for an elementwise pass over n values
-int pass_blocks(long long n) {
-  const long long most = 16LL * sm_count();
-  return (int)(n / 256 + 1 < most ? n / 256 + 1 : most);
 }
 
 template <class K>

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel ``paddle_tpu/kernels/fused_block.py:
 _block_fwd_pallas`` (body ``_block_kernel``), entry ``transformer_block``,
 called by the ``fused_transformer_block`` op.  The kernel source is
 ``csrc/fused_block.cu``; its header says what bounds it on the H100
-(operations, on the f32 CUDA cores) and why its design is a chain of seven
-launches (LN1, one q/k/v GEMM, the flash forward through strides, Wo plus
+(operations: every product runs on the TF32 tensor cores in three passes,
+the projections on ``csrc/gemm_tc.cuh``'s tile loop) and why its design is
+a chain of nine launches (the weights split into 3xTF32 operand pairs,
+LN1, one q/k/v GEMM, the flash forward through strides, o split, Wo plus
 residual, LN2, W1 plus relu, W2 plus residual) instead of the Pallas
 kernel's VMEM-resident block: no SM holds the weights, and the Pallas
 kernel's per-(query, key)-block recompute of LN1 and the K/V projections
@@ -26,8 +28,11 @@ recomputes ``block_reference(use_flash=x.is_cuda)`` from them and returns
 ``torch.autograd.grad`` for x and all 12 params, as the JAX custom VJP does
 (fused_block.py:272-282): gradients are exact for the reference math, and
 on the card its attention runs on the flash kernels.
-``transformer_block.launches`` counts kernel forwards (one per call, seven
-launches inside).  The card kernel takes f32 with head dim 64 or 128.
+``transformer_block.launches`` counts kernel forwards (one per call,
+nine device launches inside).  The card kernel takes f32 with
+head dim 64 or 128; its workspace (the weights' pairs and the chain's
+intermediates, 505 MiB at B 32, T 512, D = E 512, F 2048) lives for one
+call.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from .layer_norm import MAX_D
 
 PARAM_NAMES = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "ln2_scale",
                "ln2_bias", "w1", "b1", "w2", "b2")
-_fn = None
+_fns = {}
 
 
 def _ln_affine(x, g, b, eps):
@@ -100,13 +105,15 @@ def transformer_block_plain(x, params, n_head, causal=False, eps1=1e-5,
     return block_reference(x, tuple(params), n_head, causal, eps1, eps2)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name="ptt_transformer_block_fwd"):
+    """The C entry of the block forward, or its workspace size."""
+    if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fn = _build.bind("ptt_transformer_block_fwd",
-                          [p] * 22 + [i] * 7 + [f, f, p])
-    return _fn
+        if name == "ptt_transformer_block_fwd":
+            _fns[name] = _build.bind(name, [p] * 15 + [i] * 7 + [f, f, p])
+        else:
+            _fns[name] = _build.bind(name, [i] * 6, ctypes.c_longlong)
+    return _fns[name]
 
 
 def _launch(x, params, n_head, causal, eps1, eps2):
@@ -139,18 +146,13 @@ def _launch(x, params, n_head, causal, eps1, eps2):
                          f"the kernel takes {KERNEL_HEAD_DIMS}")
     if D > MAX_D:
         raise ValueError(f"transformer_block kernel: D={D} > {MAX_D}")
-    N = B * T
     out = torch.empty_like(x)
-
-    def scratch(*shape):
-        return torch.empty(*shape, dtype=torch.float32, device=x.device)
-
-    # a, qkv, o, h, u, mean, rstd, lse, in the C entry's order
-    bufs = (scratch(N, D), scratch(N, 3 * E), scratch(N, E), scratch(N, D),
-            scratch(N, F), scratch(N), scratch(N), scratch(B, n_head, T))
+    nbytes = _kernel("ptt_transformer_block_fwd_workspace")(B, T, D, E, F,
+                                                             n_head)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     err = _kernel()(*(t.data_ptr() for t in ts), out.data_ptr(),
-                    *(t.data_ptr() for t in bufs), B, T, D, E, F, n_head,
-                    int(causal), float(eps1), float(eps2),
+                    work.data_ptr(), B, T, D, E, F, n_head, int(causal),
+                    float(eps1), float(eps2),
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"transformer_block kernel launch failed: CUDA "

@@ -389,27 +389,34 @@ def test_fused_attention_op_on_a_btE_input(cuda):
         assert _rel_err(a.cpu(), w) <= REL_TOL
 
 
-def _block_inputs(dev, B, T, D, F, seed):
+def _block_inputs(dev, B, T, D, F, seed, E=None, w1_scale=1.0):
     import chip_smoke
     g = torch.Generator(device=dev).manual_seed(seed)
     return chip_smoke.block_inputs(
-        lambda *s: torch.randn(*s, generator=g, device=dev), B, T, D, F)
+        lambda *s: torch.randn(*s, generator=g, device=dev), B, T, D, F, E,
+        w1_scale)
 
 
-@pytest.mark.parametrize("B,T,H,D,F,causal", [
-    (4, 512, 8, 512, 2048, True),      # the path's widths at batch 4
-    (2, 300, 8, 512, 2048, False),
-    (2, 300, 4, 512, 2048, True),      # head dim 128
-    (1, 1, 2, 128, 64, True),
+@pytest.mark.parametrize("B,T,H,D,E,F,causal,w1_scale", [
+    (4, 512, 8, 512, 512, 2048, True, 1.0),   # the path's widths at batch 4
+    (2, 300, 8, 512, 512, 2048, False, 1.0),
+    (2, 300, 4, 512, 512, 2048, True, 1.0),   # head dim 128
+    (1, 1, 2, 128, 128, 64, True, 1.0),
+    (2, 67, 2, 201, 128, 333, True, 1.0),     # odd D, F: 8-byte staging
+    (2, 512, 8, 512, 512, 2048, True, 8.0),   # large W2 sums over K 2048
 ])
-def test_block_kernel_matches_plain(cuda, B, T, H, D, F, causal):
-    x, params = _block_inputs(cuda, B, T, D, F, seed=50)
+def test_block_kernel_matches_plain(cuda, B, T, H, D, E, F, causal,
+                                    w1_scale):
+    x, params = _block_inputs(cuda, B, T, D, F, seed=50, E=E,
+                              w1_scale=w1_scale)
     n = fb.transformer_block.launches
     got = fb.transformer_block(x, params, H, causal)
+    again = fb.transformer_block(x, params, H, causal)
     want = fb.transformer_block_plain(x, params, H, causal)
     torch.cuda.synchronize()
-    assert fb.transformer_block.launches == n + 1
+    assert fb.transformer_block.launches == n + 2
     assert _rel_err(got, want) <= REL_TOL
+    assert torch.equal(got, again)
 
 
 def test_block_backward_on_the_card_matches_the_cpu(cuda):

@@ -18,7 +18,10 @@
 // Build and run on a CUDA card, from the repository root:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
 //     -o build/gemm_tc_variants tools/gemm_tc_variants.cu
-//   build/gemm_tc_variants
+//   build/gemm_tc_variants [M N K]
+// Given M, N and K, it times only the shipped loop, at that product (the
+// fused block's q/k/v, Wo, W1 and W2 products, say), with the same
+// operand values and the same error check.
 // It is a measurement tool, not part of the package (nothing imports or
 // builds it).
 #include <cuda_runtime.h>
@@ -366,8 +369,8 @@ __global__ void split_kernel(const float* s, float2* d, long long n) {
   }
 }
 
-constexpr int M = 16384, N = 32000, K = 512;
-static std::vector<float> ha((size_t)M * K), hb((size_t)K * N);
+static int M = 16384, N = 32000, K = 512;
+static std::vector<float> ha, hb;
 
 // times kernel k (on operands A and B, pairs or f32) with smem bytes of
 // dynamic shared memory
@@ -416,7 +419,19 @@ int run(const char* name, void (*k)(const T*, const T*, float*, int, int,
   return 0;
 }
 
-int main() {
+int main(int argc, char** argv) {
+  const bool one_shape = argc == 4;
+  if (one_shape) {
+    M = atoi(argv[1]);
+    N = atoi(argv[2]);
+    K = atoi(argv[3]);
+  } else if (argc != 1) {
+    printf("usage: %s [M N K]\n", argv[0]);
+    return 2;
+  }
+  printf("[shape] M %d N %d K %d\n", M, N, K);
+  ha.resize((size_t)M * K);
+  hb.resize((size_t)K * N);
   srand(1);
   for (auto& v : ha) v = rand() / (float)RAND_MAX * 6.0f;
   for (auto& v : hb) v = rand() / (float)RAND_MAX * 0.1f;
@@ -443,6 +458,9 @@ int main() {
   static_assert(V5::NT == ptt_gemm::kThreads && V5::BN == ptt_gemm::kBN,
                 "the grid of gemm_tc");
   using V6 = Cfg<64, 32, 2, 4, 32, 2, kTwoLevel, 1>;   // its f32 ring
+  if (one_shape)
+    return run<V5>("gemm_tc.cuh run_tiles (w64x32 bk32 2lvl)", gemm_tc,
+                   ptt_gemm::Layout<true, true>::kSmemBytes, a2, b2, c);
   bad |= run<V1>("128x256 w64x64 bk16 direct", gemm<V1>, V1::SMEM, a2, b2, c);
   bad |= run<V2>("128x128 w64x64 bk16 direct", gemm<V2>, V2::SMEM, a2, b2, c);
   bad |= run<V3>("128x256 w64x64 bk16 k8", gemm<V3>, V3::SMEM, a2, b2, c);
