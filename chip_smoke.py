@@ -22,7 +22,15 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    (D 201, E 128, F 333: 8-byte staging) and W1 x 8 (large W2 sums over
    K 2048).  The flash backward, both LM-head kernels and the block must
    also give the same bits twice, and the [B, H, T, d] flash calls the
-   head-major call's bits on the same data.
+   head-major call's bits on the same data.  The bf16 kernels of the AMP
+   path (head-major flash forward and backward, LM head forward and
+   backward) are held to their plain versions in bf16 on the f32 cases
+   (the path shape, ragged T, head dim 128, a token-strided q, a peaked
+   softmax; the LM head's ragged, odd and peaked cases), at BF16_RTOL of
+   max |plain| on bf16 outputs (for flash, of each head's 64-token tile's
+   max |plain|) and the f32 tolerances on lse and loss; two calls of each
+   must give the same bits.  The flash compare must refuse a planted
+   fault (the last row tile skipping the first key tile).
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -55,6 +63,14 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    flash (the block's C entry runs its flash and layer norms itself).
    The L 2 match replays the card's relu masks inside the block's
    composition (the relu is not an op there).
+5c. Train with AMP: the program of phase 5 built and run under
+   FLAGS_amp_bf16 (bf16 activations, f32 master params), 10 Adam steps at
+   batch 32.  Each step must launch the bf16 flash forward 6 times and
+   its backward 6 times, the bf16 LM-head forward once and its backward
+   once per chunk, 13 layer norms (the first on the f32 embedding sum,
+   12 on bf16 residual sums) and no f32 flash or LM-head kernel.  The
+   L 2 match runs under the flag too, at AMP_STEP_LOSS_RTOL and
+   AMP_STEP_GRAD_RTOL.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -71,17 +87,23 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    batch-8 request and one step of each training program split by kernel
    class, with the device's busy share (the fuse_block step must show 4
    block GEMM launches a layer), one block forward kernel by kernel, and
-   the names of the kernels SDPA launches (its library yardstick).
+   the names of the kernels SDPA launches (its library yardstick).  The
+   four bf16 kernels and layer norm on bf16 rows are timed the same way at
+   the training shapes, beside the plain versions and the library calls
+   in bf16 (SDPA; matmul + F.cross_entropy and its autograd), with their
+   bound at the bf16 tensor-core peak (989 TFLOP/s) or the bytes; the AMP
+   step is traced by kernel class.
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
-   "launches_by_path"), nvidia-smi's line, and as the last line
-   {"ok": true, "device": {...}}.
+   "launches_by_path"; the bf16 kernels' launches are the AMP step's),
+   nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
 is full f32, so the card and the CPU compute the same math.  (The flash,
 LM-head and block kernels take their products on the TF32 tensor cores in
-three passes, f32-grade by construction.)  The script exits
+three passes, f32-grade by construction; their bf16 twins take one bf16
+product per product with f32 accumulation.)  The script exits
 non-zero and prints no result when no CUDA device is visible, or when the
 paddle_tpu_torch package is not beside it.
 """
@@ -109,6 +131,7 @@ HEAD_CHUNK = 4096              # layers.fused_lm_head_loss's chunk_size
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 without tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 SLEEP_CYCLES = 40_000_000      # about 20 ms at the H100's 1.98 GHz boost
 ROTATE = 4                     # input sets a timed call rotates over (cold)
 
@@ -126,6 +149,19 @@ STEP_LOSS_RTOL = 1e-5  # training loss, card vs CPU
 STEP_GRAD_RTOL = 1e-3
 BLOCK_RTOL = 1e-4    # of max |plain| on the block's output: f32 sums of
                      # 512-2048 products per projection in another order
+# bf16 kernels against their plain versions in bf16, of max |plain| on
+# every bf16 output (flash: of each head's 64-token tile's max |plain|,
+# tile_rel_err): 4 units of bf16 roundoff (2^-8).  Both round at the
+# same places, but an f32 value near a rounding boundary may round one
+# step (2 units) the other way, and the flash kernels round p against the
+# running max of their key tile, not the row's max (another unit); never
+# looser than the reference's bf16 tolerance 2e-2
+BF16_RTOL = 4 * 2.0 ** -8
+# the L 2 AMP step, card vs CPU: the loss, a mean over 1024 tokens of bf16
+# activations whose last bits may round apart; each @GRAD after the relu
+# replay, of its max |CPU| entry: the reference's bf16 tolerance
+AMP_STEP_LOSS_RTOL = 1e-3
+AMP_STEP_GRAD_RTOL = 2e-2
 
 # name -> (module of paddle_tpu_torch.kernels whose wrapper of that name
 # launches the kernel and counts it, CUDA source, TPU kernel it replaces)
@@ -150,10 +186,36 @@ KERNELS = {
                             "paddle_tpu/kernels/flash_attention.py:346"),
     "transformer_block": ("fused_block", "fused_block.cu",
                           "paddle_tpu/kernels/fused_block.py:235"),
+    # the AMP path (FLAGS_amp_bf16): the bf16 kernels of the head-major
+    # flash and the LM head
+    "flash_attention_hdt_bf16": ("flash_attention", "flash_attention_bf16.cu",
+                                 "paddle_tpu/kernels/flash_attention.py:685"),
+    "flash_attention_hdt_bwd_bf16": (
+        "flash_attention", "flash_attention_bf16.cu",
+        "paddle_tpu/kernels/flash_attention.py:794"),
+    "lm_head_fwd_bf16": ("lm_head", "lm_head_bf16.cu",
+                         "paddle_tpu/kernels/lm_head.py:144"),
+    "lm_head_bwd_bf16": ("lm_head", "lm_head_bf16.cu",
+                         "paddle_tpu/kernels/lm_head.py:215"),
 }
 # the kernels that only the fuse_block training program launches
 FUSE_BLOCK_KERNELS = ("flash_attention", "flash_attention_bwd",
                       "transformer_block")
+# the kernels that only the AMP training program launches
+AMP_KERNELS = ("flash_attention_hdt_bf16", "flash_attention_hdt_bwd_bf16",
+               "lm_head_fwd_bf16", "lm_head_bwd_bf16")
+
+
+@contextlib.contextmanager
+def amp_bf16(on=True):
+    """FLAGS_amp_bf16 set to `on` in the port for the block."""
+    import paddle_tpu_torch as ptt
+    old = ptt.flags.get_flag("amp_bf16")
+    ptt.flags.set_flag("amp_bf16", on)
+    try:
+        yield
+    finally:
+        ptt.flags.set_flag("amp_bf16", old)
 
 
 def wrapper(name):
@@ -214,6 +276,74 @@ def max_err(a, b):
 def rel_err(a, b):
     """max |a - b| over max |b|."""
     return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def tile_rel_err(got, want, tile=64, floor=1 / 16):
+    """The bf16 flash compares' error: the largest, over the outputs and
+    each head's tiles of `tile` tokens, of max |got - want| over that
+    tile's max |want| (head-major [H, d, N] tensors), or over `floor` of
+    the output's max |want| where the tile's max is below that.
+
+    One max over a whole output would be set by the first rows of a
+    causal sequence, far above the late rows, which average hundreds of
+    keys: a kernel that dropped a key tile there could pass.  The floor
+    covers tiles whose entries are sums that cancel (dq and dk where one
+    key takes nearly all of a row's weight: ds = p (dp - delta) -> 0):
+    their rounding error follows the size of their terms, not of their
+    sum.  Two correct versions, the Pallas kernel and the plain one, put
+    such a dq tile, at 1 % of the output's max, 2.1e-2 of its own max
+    apart (T 65, q and k x 4, on the CPU)."""
+    def tiles(t):                         # [H, N] -> [H, tiles of N]
+        n = t.shape[-1]
+        full = t.new_zeros(t.shape[0], -(-n // tile) * tile)
+        full[:, :n] = t
+        return full.view(t.shape[0], -1, tile).amax(-1)
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        e = tiles((a.float() - b.float()).abs().amax(1))
+        m = tiles(b.float().abs().amax(1))
+        m = m.clamp_min(max(floor * float(m.max()), 1e-30))
+        worst = max(worst, float((e / m).max()))
+    return worst
+
+
+def skipped_key_tile(fa, q, k, v, lse, delta, do, B, T, tile=64):
+    """(o, dq) of a causal bf16 flash kernel with a planted fault: the last
+    row tile of each sequence skips the first key tile, 64 of its 448-512
+    keys at T 512.  Built from the plain bf16 versions: the row tile over
+    the diagonal key tile (causal) and over the other kept keys, merged by
+    their lse in f32; dq sums the two parts' dq at the true lse and
+    delta."""
+    H, d, _ = q.shape
+    o = fa.flash_attention_hdt_plain(q, k, v, B, causal=True)[0].clone()
+    dq = fa.flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, B,
+                                          causal=True)[0].clone()
+
+    def part(t, cols):                    # [H, c, B*T] -> [H, c, B*len]
+        return t.reshape(H, t.shape[1], B, T)[..., cols].reshape(
+            H, t.shape[1], -1)
+
+    last = (T - 1) // tile * tile
+    rows, diag, kept = (slice(last, T), slice(last, T),
+                        slice(tile, last))
+    qi, doi, li, di = (part(t, rows) for t in (q, do, lse, delta))
+    od, ld = fa.flash_attention_hdt_plain(qi, part(k, diag), part(v, diag),
+                                          B, causal=True)
+    gd = fa.flash_attention_hdt_bwd_plain(
+        qi, part(k, diag), part(v, diag), li, di, doi, B, causal=True)[0]
+    oi, gi = od.float(), gd.float()
+    if last > tile:
+        ok, lk = fa.flash_attention_hdt_plain(qi, part(k, kept),
+                                              part(v, kept), B)
+        lt = ld.logaddexp(lk)
+        oi = od.float() * (ld - lt).exp() + ok.float() * (lk - lt).exp()
+        gi = gi + fa.flash_attention_hdt_bwd_plain(
+            qi, part(k, kept), part(v, kept), li, di, doi, B)[0].float()
+    n = T - last
+    o.view(H, d, B, T)[..., rows] = oi.to(o.dtype).view(H, d, B, n)
+    dq.view(H, d, B, T)[..., rows] = gi.to(dq.dtype).view(H, d, B, n)
+    return o, dq
 
 
 def block_inputs(rnd, B, T, D, F, E=None, w1_scale=1.0):
@@ -279,6 +409,16 @@ def rotation(make, n=ROTATE):
 
 def bound_ms(flops, nbytes, peak=F32_FLOPS_PER_S):
     return max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+
+
+def bf16_bounds(flops, nbytes, ms):
+    """A bf16 tensor-core kernel's bound (the larger of its FLOP at the
+    bf16 dense peak and its bytes at the HBM rate), what bounds it, and its
+    rate in TFLOP/s."""
+    tc = bound_ms(flops, nbytes, BF16_FLOPS_PER_S)
+    by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_FLOPS_PER_S \
+        else "operations"
+    return dict(bound_ms=tc, bound_by=by, tflops=flops / ms / 1e9)
 
 
 def tc_bounds(flops, nbytes, ms):
@@ -583,6 +723,127 @@ def phase_compare(torch):
         if not same:
             raise RuntimeError("block kernel is not deterministic")
         note("transformer_block", path, e)
+
+    # the bf16 kernels of the AMP path against their plain versions in
+    # bf16, on the f32 cases: (H, d, B, Tq, Tk, causal, kv_len, layout of
+    # q and do, scale of q and k, path).  "strided" has token stride d,
+    # "+1" starts 1 element (2 bytes) into its storage: both take element
+    # copies, not 16-byte ones; so do ragged T (rows not 16-byte aligned)
+    bf = torch.bfloat16
+    for H, d, B, Tq, Tk, causal, kv_len, strided, amp, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, "", 1,
+             "train"),
+            (8, 64, 2, 300, 300, False, 250, "", 1, "ragged"),
+            (8, 64, 2, 200, 333, False, None, "", 1, "ragged"),
+            (4, 128, 2, 300, 300, True, None, "", 1, "ragged"),
+            (4, 64, 3, 130, 130, True, None, "strided", 1, "ragged"),
+            (8, 64, 2, 65, 65, True, None, "", 1, "ragged"),
+            (8, 64, 2, 256, 256, True, None, "+1", 1, "ragged"),
+            (8, 64, 4, 512, 512, True, None, "", 4, "ragged"),
+            (4, 128, 2, 300, 300, False, 250, "strided", 4, "ragged")]:
+        if strided == "strided":
+            q = (rnd(H, B * Tq, d) * amp).to(bf).transpose(1, 2)
+            do = rnd(H, B * Tq, d).to(bf).transpose(1, 2)
+        elif strided == "+1":
+            n = H * d * B * Tq
+            q = (rnd(n + 1) * amp).to(bf)[1:].view(H, d, B * Tq)
+            do = rnd(n + 1).to(bf)[1:].view(H, d, B * Tq)
+            if q.data_ptr() % 16 == 0:
+                raise RuntimeError("the misaligned case is 16-byte aligned")
+        else:
+            q = (rnd(H, d, B * Tq) * amp).to(bf)
+            do = rnd(H, d, B * Tq).to(bf)
+        k, v = (rnd(H, d, B * Tk) * amp).to(bf), rnd(H, d, B * Tk).to(bf)
+        kw = dict(causal=causal, kv_len=kv_len)
+        o, lse = fa.flash_attention_hdt_bf16(q, k, v, B, **kw)
+        o2, lse2 = fa.flash_attention_hdt_bf16(q, k, v, B, **kw)
+        po, plse = fa.flash_attention_hdt_plain(q, k, v, B, **kw)
+        # delta in f32 from the bf16 o, as _FlashHdt.backward takes it
+        delta = (do.float() * po.float()).sum(1, keepdim=True)
+        args = (q, k, v, plse, delta, do, B)
+        got = fa.flash_attention_hdt_bwd_bf16(*args, **kw)
+        again = fa.flash_attention_hdt_bwd_bf16(*args, **kw)
+        want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        ro, el = tile_rel_err([o], [po]), max_err(lse, plse)
+        rb = tile_rel_err(got, want)
+        same_f = torch.equal(o, o2) and torch.equal(lse, lse2)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[compare] flash_attention_hdt_bf16 H={H} d={d} B={B} Tq={Tq} "
+            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided} "
+            f"q, k x{amp}: o {ro:.3g} of its tile's max |plain| (tol "
+            f"{BF16_RTOL:g}), lse max abs err {el:.3g} (tol {FA_TOL:g}); "
+            f"dq, dk, dv {rb:.3g} of their tile's max |plain| (tol "
+            f"{BF16_RTOL:g}); two runs bit-identical: forward {same_f}, "
+            f"backward {same}")
+        if path == "train":
+            # the compare must refuse a kernel that drops a key tile late
+            fo, fdq = skipped_key_tile(fa, q, k, v, plse, delta, do, B, Tq)
+            fault = (tile_rel_err([fo], [po]), tile_rel_err([fdq], [want[0]]))
+            whole = (rel_err(fo, po), max_err(fdq, want[0]) / max(
+                float(w.float().abs().max()) for w in want))
+            log(f"[fault] flash bf16, the last row tile skipping the first "
+                f"key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} of their "
+                f"tile's max |plain| (tol {BF16_RTOL:g}); of max |plain| "
+                f"over the whole output: o {whole[0]:.3g}, dq {whole[1]:.3g}")
+            if not min(fault) > BF16_RTOL:
+                raise RuntimeError(f"the bf16 flash compare passes a "
+                                   f"skipped key tile: {fault}")
+        if not (ro <= BF16_RTOL and el <= FA_TOL):
+            raise RuntimeError(f"bf16 flash kernel disagrees: {ro}, {el}")
+        if not rb <= BF16_RTOL:
+            raise RuntimeError(f"bf16 flash backward disagrees: {rb}")
+        if not (o.dtype == bf and all(t.dtype == bf for t in got)):
+            raise RuntimeError("bf16 flash kernels: outputs not bf16")
+        if not (same_f and same):
+            raise RuntimeError("bf16 flash kernels are not deterministic")
+        note("flash_attention_hdt_bf16", path, max_err(o, po))
+        note("flash_attention_hdt_bwd_bf16", path,
+             max(max_err(a, b) for a, b in zip(got, want)))
+
+    # the bf16 LM head on the f32 cases (N, D, V, chunk, ignored labels,
+    # scale of x, label dtype, path): V 1001 and D 201 take element copies
+    for N, D, V, chunk, n_ign, amp, ydt, path in [
+            (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, 1,
+             torch.int64, "train"),
+            (1000, 512, 1001, 256, 37, 1, torch.int64, "ragged"),
+            (777, 201, 3000, 300, 11, 1, torch.int32, "ragged"),
+            (5, 12, 100, HEAD_CHUNK, 1, 1, torch.int64, "ragged"),
+            (2048, 512, 32000, 1024, 5, 12, torch.int64, "ragged")]:
+        x, w = (rnd(N, D) * amp).to(bf), (rnd(D, V) * 0.05).to(bf)
+        y = torch.randint(0, V, (N,), generator=g, device=dev)
+        y[torch.randperm(N, generator=g, device=dev)[:n_ign]] = -1
+        y = y.to(ydt)
+        gl = torch.rand(N, generator=g, device=dev) * (2.0 / N)
+        loss, lse = lmh.lm_head_fwd_bf16(x, w, y)
+        loss2, lse2 = lmh.lm_head_fwd_bf16(x, w, y)
+        ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
+        got = lmh.lm_head_bwd_bf16(x, w, y, lse, gl, chunk)
+        again = lmh.lm_head_bwd_bf16(x, w, y, lse, gl, chunk)
+        want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
+        torch.cuda.synchronize()
+        ef = max(max_err(loss, ploss), max_err(lse, plse))
+        rb = max(rel_err(a, b) for a, b in zip(got, want))
+        same_f = torch.equal(loss, loss2) and torch.equal(lse, lse2)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"[compare] lm_head_bf16 N={N} D={D} V={V} chunk={chunk} "
+            f"ignored={n_ign} x*{amp} labels {str(ydt)[6:]}: loss and lse "
+            f"max abs err {ef:.3g} (tol {HEAD_TOL:g}); dx, dW {rb:.3g} of "
+            f"max |plain| (tol {BF16_RTOL:g}); two runs bit-identical: "
+            f"forward {same_f}, backward {same}")
+        if not ef <= HEAD_TOL:
+            raise RuntimeError(f"bf16 LM head forward disagrees: {ef}")
+        if not bool((loss[y < 0] == 0).all()):
+            raise RuntimeError("bf16 LM head: ignored labels give loss")
+        if not rb <= BF16_RTOL:
+            raise RuntimeError(f"bf16 LM head backward disagrees: {rb}")
+        if not all(t.dtype == bf for t in got):
+            raise RuntimeError("bf16 LM head backward: outputs not bf16")
+        if not (same_f and same):
+            raise RuntimeError("bf16 LM head kernels are not deterministic")
+        note("lm_head_fwd_bf16", path, ef)
+        note("lm_head_bwd_bf16", path,
+             max(max_err(a, b) for a, b in zip(got, want)))
     return errs
 
 
@@ -691,11 +952,13 @@ def phase_serve(torch):
     return counts, pred, requests[-1][0]
 
 
-def build_train(cfg, fuse_block=False):
+def build_train(cfg, fuse_block=False, amp=False):
     """The flagship training program: (main, startup, avg_cost, param
     grads).  With fuse_block, FLAGS_fuse_block is on while it is built and
     transpiler.maybe_fuse runs before minimize, as bench.py's _bench_lm_cfg
-    does; every layer must fuse."""
+    does; every layer must fuse.  With amp, FLAGS_amp_bf16 is on while it
+    is built, as bench.py sets it before every row (the port's program is
+    the same: AMP applies when it runs)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import transformer as tr
     ptt.reset_default_programs()
@@ -704,7 +967,7 @@ def build_train(cfg, fuse_block=False):
     old = ptt.flags.get_flag("fuse_block")
     ptt.flags.set_flag("fuse_block", fuse_block)
     try:
-        with ptt.program_guard(main, startup):
+        with amp_bf16(amp), ptt.program_guard(main, startup):
             _, avg_cost, _ = tr.build_lm_net(cfg, TRAIN_T,
                                              fused_attention=True,
                                              fused_head=True)
@@ -720,18 +983,26 @@ def build_train(cfg, fuse_block=False):
     return main, startup, avg_cost, pg
 
 
-def phase_train(torch, fuse_block=False):
+def phase_train(torch, fuse_block=False, amp=False):
     """Train the flagship at full width: 5 Adam steps at batch 32 on one
     batch, launch counts per step, loss falling, then the step time over 5
     more steps and the card-vs-CPU match at L 2.  With fuse_block, the
-    program is the FuseBlockTranspiler's (slice 3), else slice 2's."""
+    program is the FuseBlockTranspiler's (slice 3), else slice 2's; with
+    amp, slice 2's built and run under FLAGS_amp_bf16 (slice 7)."""
+    with amp_bf16(amp):
+        return _phase_train(torch, fuse_block, amp)
+
+
+def _phase_train(torch, fuse_block, amp):
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.ops import nn_ops
 
-    tag = "[train fuse_block]" if fuse_block else "[train]"
+    tag = "[train fuse_block]" if fuse_block else (
+        "[train amp]" if amp else "[train]")
     cfg = tr.TransformerConfig(**FLAGSHIP)
-    main, startup, avg_cost, pg = build_train(cfg, fuse_block)
+    main, startup, avg_cost, pg = build_train(cfg, fuse_block, amp)
     exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
     exe.run(startup)
     batch = tr.make_fake_lm_batch(cfg, TRAIN_BATCH, TRAIN_T, seed=SEED)
@@ -744,6 +1015,15 @@ def phase_train(torch, fuse_block=False):
         f"{ops.count('fused_mha')} fused_mha)")
     if fuse_block and {"fused_mha", "mul", "relu"} & set(ops):
         raise RuntimeError(f"the fused program keeps unfused ops: {ops}")
+    if amp and any(p.dtype != "float32" for p in main.all_parameters()):
+        raise RuntimeError("the AMP program declares non-f32 params")
+    # the input dtype of each layer norm of the first step
+    ln_rows, ln_dtypes = nn_ops._layer_norm_rows, []
+
+    def ln_record(x2d, *args):
+        ln_dtypes.append(str(x2d.dtype)[6:])
+        return ln_rows(x2d, *args)
+
     counters = {n: wrapper(n) for n in KERNELS}
     for fn in counters.values():
         fn.launches = 0
@@ -752,13 +1032,28 @@ def phase_train(torch, fuse_block=False):
     for step in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, = exe.run(main, feed=batch, fetch_list=[avg_cost])
+        nn_ops._layer_norm_rows = ln_record if step == 0 else ln_rows
+        try:
+            loss, = exe.run(main, feed=batch, fetch_list=[avg_cost])
+        finally:
+            nn_ops._layer_norm_rows = ln_rows
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss[0]))
         log(f"{tag} step {step}: loss {losses[-1]:.6f} "
             f"({step_ms[-1]:.1f} ms)")
     counts = {n: fn.launches for n, fn in counters.items()}
+    # AMP: the first layer norm takes the f32 embedding sum, every later
+    # one a residual sum that stays bf16
+    want_ln = (["float32"] + ["bfloat16"] * (2 * cfg.n_layer) if amp
+               else ["float32"] * (2 * cfg.n_layer + 1))
+    if fuse_block:
+        want_ln = ["float32"]
+    log(f"{tag} layer-norm inputs of step 0 by dtype: "
+        f"{ {d: ln_dtypes.count(d) for d in sorted(set(ln_dtypes))} }")
+    if ln_dtypes != want_ln:
+        raise RuntimeError(f"layer-norm input dtypes {ln_dtypes} != "
+                           f"{want_ln}")
     peak = torch.cuda.max_memory_allocated()
     n_tok = TRAIN_BATCH * TRAIN_T
     chunk, = [op.attrs["chunk_size"] for op in main.global_block().ops
@@ -774,6 +1069,14 @@ def phase_train(torch, fuse_block=False):
                          "flash_attention": cfg.n_layer,
                          "flash_attention_bwd": cfg.n_layer,
                          "layer_norm": 1})
+    elif amp:
+        # the bf16 kernels, and no f32 flash or LM-head kernel
+        per_step.update({"layer_norm": 2 * cfg.n_layer + 1,
+                         "flash_attention_hdt_bf16": cfg.n_layer,
+                         "flash_attention_hdt_bwd_bf16": cfg.n_layer,
+                         "lm_head_fwd": 0, "lm_head_bwd": 0,
+                         "lm_head_fwd_bf16": 1,
+                         "lm_head_bwd_bf16": -(-n_tok // chunk)})
     else:
         per_step.update({"layer_norm": 2 * cfg.n_layer + 1,
                          "flash_attention_hdt": cfg.n_layer,
@@ -802,7 +1105,7 @@ def phase_train(torch, fuse_block=False):
     if fuse_block:
         train_match_fused(torch)
     else:
-        train_match(torch)
+        train_match(torch, amp)
     return counts, dict(exe=exe, main=main, batch=batch,
                         avg_cost=avg_cost, p50_ms=p50, peak=peak)
 
@@ -827,9 +1130,10 @@ def replayed_relu_masks(masks):
         registry._REGISTRY["relu"] = orig
 
 
-def train_match(torch):
+def train_match(torch, amp=False):
     """One step of the training program at full width, L 2, batch 2, from
-    the same weights on the card and on the CPU (the plain versions).
+    the same weights on the card and on the CPU (the plain versions); with
+    amp, under FLAGS_amp_bf16 (the caller's) at the AMP tolerances.
 
     The losses must agree.  Where a pre-activation lies within rounding of
     0, the two devices may take different relu branches, and the gradient
@@ -842,7 +1146,10 @@ def train_match(torch):
     from paddle_tpu_torch.models import transformer as tr
 
     cfg = tr.TransformerConfig(**dict(FLAGSHIP, n_layer=2))
-    main, startup, avg_cost, pg = build_train(cfg)
+    main, startup, avg_cost, pg = build_train(cfg, amp=amp)
+    tag = "[train amp]" if amp else "[train]"
+    loss_tol = AMP_STEP_LOSS_RTOL if amp else STEP_LOSS_RTOL
+    grad_tol = AMP_STEP_GRAD_RTOL if amp else STEP_GRAD_RTOL
     init = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
     init.run(startup)
     state = {v.name: init.scope.find_var(v.name).numpy()
@@ -873,9 +1180,9 @@ def train_match(torch):
     loss, grads, pres = step(ptt.CUDAPlace(0))
     cpu_loss, cpu_grads, cpu_pres = step(ptt.CPUPlace())
     le = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
-    log(f"[train] L2 batch 2 step, card vs CPU: loss {loss:.6f} vs "
-        f"{cpu_loss:.6f} (rel err {le:.3g}, tol {STEP_LOSS_RTOL:g})")
-    if not le <= STEP_LOSS_RTOL:
+    log(f"{tag} L2 batch 2 step, card vs CPU: loss {loss:.6f} vs "
+        f"{cpu_loss:.6f} (rel err {le:.3g}, tol {loss_tol:g})")
+    if not le <= loss_tol:
         raise RuntimeError("training loss differs between card and CPU")
 
     flipped_units, masks = {}, []
@@ -884,7 +1191,7 @@ def train_match(torch):
         tok, unit = np.nonzero(flip.reshape(-1, flip.shape[-1]))
         flipped_units[w] = flipped_units[b] = set(unit.tolist())
         near = np.abs(c[flip]).max() if flip.any() else 0.0
-        log(f"[train]   relu of {w}: {int(flip.sum())} of {flip.size} "
+        log(f"{tag}   relu of {w}: {int(flip.sum())} of {flip.size} "
             f"pre-activations on the other branch on the card, at (token, "
             f"unit) {list(zip(tok.tolist(), unit.tolist()))[:8]}; there "
             f"max |CPU pre-activation| {near:.3g}, against max |card - "
@@ -894,7 +1201,7 @@ def train_match(torch):
     for (p, _), a, c in zip(pg, grads, cpu_grads):
         if a.shape != c.shape or not np.isfinite(a).all():
             raise RuntimeError(f"{p.name}@GRAD: bad card gradient")
-        far = np.abs(a - c) > STEP_GRAD_RTOL * max(np.abs(c).max(), 1e-30)
+        far = np.abs(a - c) > grad_tol * max(np.abs(c).max(), 1e-30)
         if far.any():
             where = "not an FFN weight behind a relu"
             if p.name in flipped_units:
@@ -903,21 +1210,23 @@ def train_match(torch):
                 units = set(np.nonzero(far)[-1].tolist())
                 where = (f"in units {sorted(units)[:8]}, all of them "
                          f"flipped: {units <= flipped_units[p.name]}")
-            log(f"[train]   {p.name}@GRAD: {int(far.sum())} entries off by "
-                f"more than {STEP_GRAD_RTOL:g} of its max entry (up to "
+            log(f"{tag}   {p.name}@GRAD: {int(far.sum())} entries off by "
+                f"more than {grad_tol:g} of its max entry (up to "
                 f"{np.abs(a - c).max() / np.abs(c).max():.3g}), {where}")
 
     with replayed_relu_masks(masks) as left:
         r_loss, r_grads, _ = step(ptt.CPUPlace())
     if left:
         raise RuntimeError(f"{len(left)} relu masks were not replayed")
-    check_replayed("[train]", pg, loss, grads, r_loss, r_grads)
+    check_replayed(tag, pg, loss, grads, r_loss, r_grads, loss_tol,
+                   grad_tol)
 
 
-def check_replayed(tag, pg, loss, grads, r_loss, r_grads):
+def check_replayed(tag, pg, loss, grads, r_loss, r_grads,
+                   loss_tol=STEP_LOSS_RTOL, grad_tol=STEP_GRAD_RTOL):
     """The card's L 2 step against the CPU step that took the card's relu
-    branches: the loss within STEP_LOSS_RTOL, every @GRAD entry within
-    STEP_GRAD_RTOL of its @GRAD's max |CPU| entry."""
+    branches: the loss within loss_tol, every @GRAD entry within grad_tol
+    of its @GRAD's max |CPU| entry."""
     import numpy as np
     worst, worst_name = 0.0, ""
     for (p, _), a, c in zip(pg, grads, r_grads):
@@ -926,12 +1235,12 @@ def check_replayed(tag, pg, loss, grads, r_loss, r_grads):
             worst, worst_name = r, p.name
     le = abs(float(loss) - float(r_loss)) / abs(float(r_loss))
     log(f"{tag} L2 step, card vs CPU taking the card's relu branches: "
-        f"loss rel err {le:.3g} (tol {STEP_LOSS_RTOL:g}); worst of "
+        f"loss rel err {le:.3g} (tol {loss_tol:g}); worst of "
         f"{len(pg)} @GRADs max |card - CPU| {worst:.3g} of max |CPU| "
-        f"({worst_name}; tol {STEP_GRAD_RTOL:g})")
-    if not le <= STEP_LOSS_RTOL:
+        f"({worst_name}; tol {grad_tol:g})")
+    if not le <= loss_tol:
         raise RuntimeError("training loss differs between card and CPU")
-    if not worst <= STEP_GRAD_RTOL:
+    if not worst <= grad_tol:
         raise RuntimeError(f"{worst_name}@GRAD differs between card and "
                            f"CPU: {worst}")
 
@@ -1045,6 +1354,13 @@ BLOCK_CHAIN_LAUNCHES = 9
 
 
 def _kernel_class(name):
+    if "_bf16" in name:   # the AMP path's kernels
+        for key, cls in (("flash_bwd", "flash backward bf16 (this repo)"),
+                         ("flash_fwd", "flash forward bf16 (this repo)"),
+                         ("lm_head_fwd", "lm_head_fwd bf16 (this repo)"),
+                         ("lm_head_bwd", "lm_head_bwd bf16 (this repo)")):
+            if key in name:
+                return cls
     if "flash_bwd" in name:
         return "flash backward (this repo; head-major and [B,H,T,d] calls)"
     if "flash_fwd_hdt" in name:
@@ -1060,7 +1376,7 @@ def _kernel_class(name):
         return "lm_head_fwd (this repo)"
     if "lm_head_bwd" in name:
         return "lm_head_bwd (this repo)"
-    if "gemm" in name.lower() or "cutlass" in name.lower():
+    if any(k in name.lower() for k in ("gemm", "cutlass", "nvjet")):
         return "matmul (cuBLAS)"
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "copies"
@@ -1095,9 +1411,10 @@ def profiled(torch, fn, cpu=False):
 def trace_run(torch, label, fn, expect=None):
     """Device-time breakdown of one call of fn from a torch.profiler
     trace: kernel time by class and the device's busy share of the call's
-    wall time.  expect maps a class to the launches it must show."""
+    wall time.  expect maps a class to the launches it must show.  Returns
+    {class: {kernel name: launches}}."""
     events, wall_us = profiled(torch, fn, cpu=True)
-    by_class, launches, names = {}, {}, {}
+    by_class, launches, names, other = {}, {}, {}, {}
     for e in events:
         # kernels only: a CPU op's self device time repeats its kernels'
         us = e.self_device_time_total
@@ -1106,6 +1423,8 @@ def trace_run(torch, label, fn, expect=None):
             by_class[c] = by_class.get(c, 0.0) + us
             launches[c] = launches.get(c, 0) + e.count
             names.setdefault(c, {})[_short_kernel_name(e.key)] = e.count
+            if c.startswith("other"):
+                other[_short_kernel_name(e.key)[:100]] = (us, e.count)
     busy = sum(by_class.values())
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -1115,10 +1434,13 @@ def trace_run(torch, label, fn, expect=None):
     for c, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         log(f"[trace]   {c}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} % of "
             f"device time, {launches[c]} launches)")
+    for name, (us, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"[trace]     other: {name} {us / 1e3:.3f} ms ({n} launches)")
     for c, n in (expect or {}).items():
         if launches.get(c, 0) != n:
             raise RuntimeError(f"{label}: {launches.get(c, 0)} launches of "
                                f"{c}, expected {n}: {names.get(c, {})}")
+    return names
 
 
 def block_breakdown(torch):
@@ -1159,16 +1481,18 @@ def block_breakdown(torch):
     return res
 
 
-def sdpa_kernels(torch):
-    """The kernels PyTorch's f32 SDPA launches at the training shape (B 32,
-    H 8, T 512, d 64, causal, TF32 off), forward and backward apart, from
-    torch.profiler: {"fwd": {name: device ms}, "bwd": {...}}.  It shows on
-    the card which kernel the yardstick is (expected: CUTLASS's
-    memory-efficient fmha, f32 on the TF32 tensor cores in 3 passes)."""
+def sdpa_kernels(torch, dtype=None):
+    """The kernels PyTorch's SDPA launches at the training shape (B 32, H 8,
+    T 512, d 64, causal, TF32 off), f32 or in dtype, forward and backward
+    apart, from torch.profiler: {"fwd": {name: device ms}, "bwd": {...}}.
+    It shows on the card which kernel the yardstick is (expected in f32:
+    CUTLASS's memory-efficient fmha on the TF32 tensor cores in 3 passes;
+    in bf16: a flash-attention kernel)."""
     import torch.nn.functional as F
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     q, k, v, do = (torch.randn(TRAIN_BATCH, 8, TRAIN_T, 64, generator=g,
-                               device=DEVICE) for _ in range(4))
+                               device=DEVICE).to(dtype or torch.float32)
+                   for _ in range(4))
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
     calls = {
@@ -1184,7 +1508,8 @@ def sdpa_kernels(torch):
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and e.self_device_time_total > 0}
         for name, ms in res[what].items():
-            log(f"[sdpa] {what}: {name} {ms:.4f} ms")
+            log(f"[sdpa] {str(dtype or torch.float32)[6:]} {what}: {name} "
+                f"{ms:.4f} ms")
     return res
 
 
@@ -1389,6 +1714,180 @@ def phase_timings(torch):
     return res
 
 
+def phase_timings_amp(torch):
+    """The AMP path's kernels at the training step's shapes, in bf16, cold
+    as in phase_timings (activations rotate over sets larger than the L2):
+    the four bf16 kernels and layer norm on bf16 rows, each beside its
+    plain version and the library call on the same bf16 inputs (SDPA
+    forward and backward; matmul + F.cross_entropy and its autograd;
+    F.layer_norm), with its bound at the bf16 tensor-core peak or the
+    bytes."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import lm_head as lmh
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    res = {}
+    # layer norm on bf16 rows: y bf16, mean and rstd f32
+    N, D = TRAIN_BATCH * TRAIN_T, 512
+    gam = torch.randn(D, generator=g, device=dev)
+    bet = torch.randn(D, generator=g, device=dev)
+    rot = rotation(lambda: rnd(N, D), 8)
+    ms, _ = time_ms(lambda: ln.layer_norm(rot(), gam, bet, 1e-5))
+    plain, _ = time_ms(lambda: ln.layer_norm_plain(rot(), gam, bet, 1e-5))
+    lib, _ = time_ms(lambda: F.layer_norm(rot(), (D,), gam.to(bf),
+                                          bet.to(bf), 1e-5))
+    del rot
+    nbytes = 2 * 2 * N * D + 2 * 4 * D + 2 * 4 * N
+    res["layer_norm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             bound_by="bytes")
+    log(f"[time amp] layer_norm N={N} D={D} bf16: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, F.layer_norm (bf16 gamma, beta) {lib:.4f} "
+        f"ms, bound {res['layer_norm']['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB)")
+
+    # flash forward and backward, head-major, B 32, T 512, H 8, d 64
+    H, d, B, T = 8, 64, TRAIN_BATCH, TRAIN_T
+
+    def bhtd(x):
+        return x.reshape(H, d, B, T).permute(2, 0, 3, 1).contiguous()
+
+    def make():
+        q, k, v, do = (rnd(H, d, B * T) for _ in range(4))
+        o, lse = fa.flash_attention_hdt_bf16(q, k, v, B, causal=True)
+        delta = (do.float() * o.float()).sum(1, keepdim=True)
+        q4, k4, v4 = (bhtd(x).requires_grad_() for x in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return (q, k, v, lse, delta, do), (o4, (q4, k4, v4), bhtd(do))
+
+    rot = rotation(make)
+    fms, fhost = time_ms(lambda: fa.flash_attention_hdt_bf16(
+        *rot()[0][:3], B, causal=True))
+    fplain, _ = time_ms(lambda: fa.flash_attention_hdt_plain(
+        *rot()[0][:3], B, causal=True), iters=10)
+    flib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        *(t.detach() for t in rot()[1][1]), is_causal=True))
+    bms, bhost = time_ms(lambda: fa.flash_attention_hdt_bwd_bf16(
+        *rot()[0], B, causal=True), iters=20, warmup=2)
+    bplain, _ = time_ms(lambda: fa.flash_attention_hdt_bwd_plain(
+        *rot()[0], B, causal=True), iters=5, warmup=1)
+
+    def lib_bwd():
+        o4, ins, do4 = rot()[1]
+        return torch.autograd.grad(o4, ins, do4, retain_graph=True)
+
+    blib, _ = time_ms(lib_bwd, iters=20, warmup=2)
+    del rot
+    pairs = B * H * T * (T + 1) // 2
+    n = H * d * B * T
+    fops, fbytes = 4 * d * pairs, 2 * 4 * n + 4 * H * B * T
+    bops, bbytes = 10 * d * pairs, 2 * 7 * n + 2 * 4 * H * B * T
+    res["flash_attention_hdt_bf16"] = dict(
+        ms=fms, plain_ms=fplain, library_ms=flib,
+        **bf16_bounds(fops, fbytes, fms))
+    res["flash_attention_hdt_bwd_bf16"] = dict(
+        ms=bms, plain_ms=bplain, library_ms=blib,
+        **bf16_bounds(bops, bbytes, bms))
+    for name, ms_, plain_, lib_, host_, ops, nb, what in (
+            ("flash_attention_hdt_bf16", fms, fplain, flib, fhost, fops,
+             fbytes, "sdpa"),
+            ("flash_attention_hdt_bwd_bf16", bms, bplain, blib, bhost, bops,
+             bbytes, "sdpa backward")):
+        r = res[name]
+        log(f"[time amp] {name} H={H} d={d} B={B} T={T} causal bf16, "
+            f"cold: kernel {ms_:.4f} ms ({r['tflops']:.2f} TFLOP/s), plain "
+            f"{plain_:.4f} ms, {what} (bf16) {lib_:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({ops / 1e9:.3f} "
+            f"GFLOP at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nb / 1e6:.1f} "
+            f"MB at {HBM_BYTES_PER_S / 1e12:g} TB/s); host enqueue per "
+            f"call {host_:.4f} ms")
+
+    # the LM head, N 16384, D 512, V 32000, chunk 4096: x (16 MiB) and W
+    # (31 MiB in bf16, which would stay in the 50 MiB L2) rotate with their
+    # lse, as training casts a fresh bf16 W each step
+    N, D, V = TRAIN_BATCH * TRAIN_T, 512, 32000
+    y = torch.randint(0, V, (N,), generator=g, device=dev)
+    gl = torch.full((N,), 1.0 / N, device=dev)
+
+    def make_head():
+        x, w_ = rnd(N, D), rnd(D, V, scale=0.05)
+        return x, w_, lmh.lm_head_fwd_bf16(x, w_, y)[1]
+
+    rot = rotation(make_head)
+    x, w, lse = rot()
+    peak = {}
+    for name, call in (("lm_head_fwd_bf16",
+                        lambda: lmh.lm_head_fwd_bf16(x, w, y)),
+                       ("lm_head_bwd_bf16",
+                        lambda: lmh.lm_head_bwd_bf16(x, w, y, lse, gl,
+                                                     HEAD_CHUNK))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    fms, fhost = time_ms(lambda: lmh.lm_head_fwd_bf16(*rot()[:2], y),
+                         iters=10, warmup=2)
+    fplain, _ = time_ms(lambda: lmh.lm_head_fwd_plain(*rot()[:2], y),
+                        iters=5, warmup=1)
+    flib, _ = time_ms(lambda: F.cross_entropy(
+        torch.matmul(*rot()[:2]), y, reduction="none"), iters=5, warmup=1)
+
+    def head_bwd(bwd):
+        x_, w_, lse_ = rot()
+        return bwd(x_, w_, y, lse_, gl, HEAD_CHUNK)
+
+    bms, bhost = time_ms(lambda: head_bwd(lmh.lm_head_bwd_bf16), iters=5,
+                         warmup=1)
+    bplain, _ = time_ms(lambda: head_bwd(lmh.lm_head_bwd_plain), iters=3,
+                        warmup=1)
+
+    def make_lib():
+        xg, wg = (t.clone().requires_grad_() for t in rot()[:2])
+        return F.cross_entropy(torch.matmul(xg, wg), y, reduction="none"), \
+            (xg, wg)
+
+    lib_rot = rotation(make_lib)
+
+    def lib_bwd_head():
+        ce, ins = lib_rot()
+        return torch.autograd.grad(ce, ins, gl, retain_graph=True)
+
+    blib, _ = time_ms(lib_bwd_head, iters=3, warmup=1)
+    del rot, lib_rot
+    fops = 2 * N * D * V
+    fbytes = 2 * (N * D + D * V) + 8 * N + 2 * 4 * N
+    bbytes = 2 * (2 * N * D + 2 * D * V) + 8 * N + 2 * 4 * N
+    res["lm_head_fwd_bf16"] = dict(ms=fms, plain_ms=fplain, library_ms=flib,
+                                   peak_mib=peak["lm_head_fwd_bf16"],
+                                   **bf16_bounds(fops, fbytes, fms))
+    res["lm_head_bwd_bf16"] = dict(ms=bms, plain_ms=bplain, library_ms=blib,
+                                   peak_mib=peak["lm_head_bwd_bf16"],
+                                   **bf16_bounds(3 * fops, bbytes, bms))
+    for name, ms_, plain_, lib_, host_, ops, what in (
+            ("lm_head_fwd_bf16", fms, fplain, flib, fhost, fops,
+             "matmul + F.cross_entropy"),
+            ("lm_head_bwd_bf16", bms, bplain, blib, bhost, 3 * fops,
+             "autograd of matmul + F.cross_entropy")):
+        r = res[name]
+        log(f"[time amp] {name} N={N} D={D} V={V} chunk {HEAD_CHUNK} bf16, "
+            f"cold: kernel {ms_:.3f} ms ({r['tflops']:.2f} TFLOP/s), plain "
+            f"{plain_:.3f} ms, {what} (bf16) {lib_:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({ops / 1e9:.1f} "
+            f"GFLOP at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s); host enqueue "
+            f"per call {host_:.4f} ms; peak device memory over a call "
+            f"{peak[name]:.1f} MiB above its inputs")
+    return res
+
+
 def phase_timings_fused(torch):
     """The fuse-block path's kernels at its shapes (B 32, T 512, H 8,
     d 64, D 512, F 2048), cold as in phase_timings: the [B, H, T, d] flash
@@ -1569,8 +2068,10 @@ def main():
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the AMP path's cuBLAS bf16 products: f32 split-K sums
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log("[setup] TF32 off for matmul and cuDNN: every f32 product is "
-        "full f32")
+        "full f32; bf16 products add their split-K sums in f32")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
     log(f"[device] {kind} x{count}; nvidia-smi: {smi}; torch "
@@ -1581,8 +2082,10 @@ def main():
     serve_counts, pred, toks = phase_serve(torch)
     counts, train = phase_train(torch)
     fcounts, ftrain = phase_train(torch, fuse_block=True)
+    acounts, atrain = phase_train(torch, amp=True)
     times = phase_timings(torch)
     times.update(phase_timings_fused(torch))
+    amp_times = phase_timings_amp(torch)
     # last: the profiler stays attached to the process once started, and
     # its per-launch cost would skew the timings above
     trace_run(torch, f"batch {toks.shape[0]} request",
@@ -1598,6 +2101,31 @@ def main():
                                         fetch_list=[ftrain["avg_cost"]],
                                         return_numpy=False),
               expect={BLOCK_GEMMS: 4 * FLAGSHIP["n_layer"]})
+    # the AMP step: the bf16 kernels (the forward and the merge of its
+    # shares; 4 kernels per backward chunk), no f32 flash or LM head; the
+    # layer norms by their input type (the first takes the f32 embedding)
+    n_chunks = -(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
+    with amp_bf16():
+        names = trace_run(
+            torch, f"AMP training step at batch {TRAIN_BATCH}",
+            lambda: atrain["exe"].run(atrain["main"], feed=atrain["batch"],
+                                      fetch_list=[atrain["avg_cost"]],
+                                      return_numpy=False),
+            expect={"flash forward bf16 (this repo)": FLAGSHIP["n_layer"],
+                    "flash backward bf16 (this repo)":
+                        2 * FLAGSHIP["n_layer"],
+                    "lm_head_fwd bf16 (this repo)": 2,
+                    "lm_head_bwd bf16 (this repo)": 4 * n_chunks,
+                    "lm_head_fwd (this repo)": 0,
+                    "lm_head_bwd (this repo)": 0,
+                    _kernel_class("flash_fwd_hdt_kernel"): 0,
+                    _kernel_class("flash_bwd_dq_kernel"): 0})
+    ln = names.get(_kernel_class("ln_fwd_kernel"), {})
+    ln_types = {t: sum(c for k, c in ln.items() if f"ln_fwd_kernel<{t}" in k)
+                for t in ("float", "__nv_bfloat16")}
+    log(f"[trace]   AMP step layer norms by input type: {ln_types}")
+    if ln_types != {"float": 1, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"]}:
+        raise RuntimeError(f"AMP step layer norms {ln}")
     by_kernel = block_breakdown(torch)
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_CHAIN_LAUNCHES:
@@ -1610,17 +2138,31 @@ def main():
         times[n]["train"]["library_kernels"] = sorted(sdpa["fwd"])
     for n in ("flash_attention_hdt_bwd", "flash_attention_bwd"):
         times[n]["train"]["library_kernels"] = sorted(sdpa["bwd"])
+    sdpa = sdpa_kernels(torch, torch.bfloat16)
+    amp_times["flash_attention_hdt_bf16"]["library_kernels"] = sorted(
+        sdpa["fwd"])
+    amp_times["flash_attention_hdt_bwd_bf16"]["library_kernels"] = sorted(
+        sdpa["bwd"])
+    times["layer_norm"]["train"]["bf16"] = amp_times.pop("layer_norm")
+    for n, r in amp_times.items():
+        times[n] = {"train": r}
+    log(f"[train amp] step p50 {atrain['p50_ms']:.2f} ms against the f32 "
+        f"step's {train['p50_ms']:.2f} ms; peak device memory "
+        f"{atrain['peak'] / 2**20:.1f} MiB against "
+        f"{train['peak'] / 2**20:.1f} MiB")
 
     # each kernel's launches on its training path (slice 2's program for
-    # the five it runs, the fuse_block program for the three it adds),
+    # the five it runs, the fuse_block program for the three it adds, the
+    # AMP program for its four bf16 kernels),
     # with the counts of every path under "launches_by_path", its errors
     # and times at the training step's shapes; the two kernels that
     # serving runs too carry the serving shape's under "serve"
     by_path = {"serve": serve_counts, "train": counts,
-               "train_fuse_block": fcounts}
+               "train_fuse_block": fcounts, "train_amp": acounts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
-        path = "train_fuse_block" if n in FUSE_BLOCK_KERNELS else "train"
+        path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else
+                "train_amp" if n in AMP_KERNELS else "train")
         k = dict(name=n, route="cuda",
                  source="paddle_tpu_torch/kernels/csrc/" + source,
                  replaces=replaces, launches=by_path[path][n],

@@ -44,6 +44,13 @@ def set_flag(name: str, value: Any):
 
 
 define_flag("rng_seed", 0, "Global RNG seed used when a program has no seed.")
+define_flag("amp_bf16", False,
+            "Mixed precision: f32 matmul and attention inputs enter the "
+            "tensor cores as bfloat16 (f32 master params), applied at "
+            "lowering time (ops/math_ops.py amp_inputs, amp_result, "
+            "amp_matmul).  The kernels accumulate in f32; the cuBLAS "
+            "products do when torch.backends.cuda.matmul."
+            "allow_bf16_reduced_precision_reduction is off.")
 define_flag("fuse_block", False,
             "Fuse whole transformer blocks (LN -> attention -> residual "
             "-> LN -> MLP -> residual) into single fused_transformer_"

@@ -11,6 +11,14 @@ take every op's plain branch (no kernel launches).  Dynamic (batch) dims
 are -1 in the IR; they are replaced by the prime sentinel 97 for the
 evaluation and restored after it, also where a reshape folded the sentinel
 into a product.
+
+The evaluation runs with FLAGS_amp_bf16 off, so the AMP policy stays a
+lowering-time policy: a program built under the flag declares the f32
+dtypes it declares without it, and every parameter created from an
+inferred dtype, with its optimizer state, stays an f32 master copy.  (The
+JAX package's eval_shape runs its AMP lowerings, so a program built there
+under the flag declares bf16 parameters after the first bf16 activation:
+ROADMAP queue C.)
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from ..core import flags
 from ..core.dtypes import convert_dtype, to_torch_dtype
 from .program import (Block, Parameter, Variable, default_main_program,
                       default_startup_program)
@@ -113,11 +122,15 @@ class LayerHelper:
                                device=_META)
 
         ins = {k: [meta(v) for v in vs] for k, vs in inputs.items()}
+        amp = flags.get_flag("amp_bf16")
+        flags.set_flag("amp_bf16", False)
         try:
             ctx = LowerContext(0, _META)
             outs = opdef.lower(ctx, ins, attrs)
         except Exception:  # noqa: BLE001 — best-effort build-time metadata
             return
+        finally:
+            flags.set_flag("amp_bf16", amp)
 
         had_dyn = any(-1 in (v.shape or ())
                       for vs in inputs.values() for v in vs)

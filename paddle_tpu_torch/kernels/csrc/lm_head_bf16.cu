@@ -1,0 +1,479 @@
+// Streamed LM head with softmax cross-entropy, forward and backward, in
+// bf16 for Hopper (sm_90a), on the tensor cores: the kernels of the
+// training path under FLAGS_amp_bf16.
+//
+// Replaces the Pallas TPU kernels paddle_tpu/kernels/lm_head.py:_fwd (body
+// _fwd_kernel) and _bwd (body _bwd_kernel) as they run on the bf16 x and W
+// that fused_lm_head_loss hands them under AMP.  x [N, D], W [D, V] bf16,
+// labels [N] int64 (negative = ignored), all contiguous:
+//   forward:  loss_n = lse_n - (x_n W)[y_n] (0 where y_n < 0),
+//             lse_n = logsumexp_v (x_n W)_v; logits, loss and lse f32
+//   backward: dlogits = bf16((softmax(x W) - onehot(y)) * g)   (g = 0 where
+//             y < 0), dx = bf16(dlogits W^T) per chunk,
+//             dW = bf16(sum over the chunks of x^T dlogits, in f32)
+// These are the Pallas kernel's roundings (lm_head.py:128, :243, :244).
+// The products are computed here, on gemm_bf16.cuh's tile loop, not by a
+// library.
+//
+// Bound on the H100 at N 16384, D 512, V 32000: operations.  The forward
+// is one product, 2 N D V FLOP = 537 GFLOP, 0.543 ms at 989 TFLOP/s; the
+// backward three (recompute, dx, dW), 1.61 TFLOP, 1.628 ms.  The bytes (x,
+// W, dx, dW once) are two orders of magnitude below that.
+//
+// Design.  Every product runs on the bf16 tile loop of gemm_bf16.cuh (128 x
+// 128 CTA tiles, 8 warps, a 4-stage cp.async ring, ldmatrix fragments);
+// operands go from device memory to shared memory as they are.
+//   lm_head_fwd: as lm_head.cu's: a CTA takes 128 tokens and one of S
+//     contiguous shares of the vocabulary tiles, folds each vocab tile's
+//     logits into a running (max, sum of exp, gold logit) per row in
+//     registers, merges its lanes and warps in a fixed order, and a second
+//     launch merges the shares of each token in share order.  No logit
+//     leaves the chip.
+//   lm_head_bwd, per token chunk of C rows (the op's chunk_size):
+//     (1) recomputes the logits tile and writes dlogits [C, V], rounded to
+//     bf16, to the workspace; (2) dx = dlogits W^T with the vocabulary (K)
+//     cut into S ranges so that enough CTAs fill the SMs, each range's
+//     partial written apart in f32 and summed in range order by a small
+//     launch that rounds dx to bf16; (3) dW (+)= x^T dlogits into an f32
+//     sum in the workspace, in chunk order; the last chunk writes dW,
+//     rounded to bf16, instead.  Every output element is summed by one
+//     thread in a fixed order: no atomics, the same bits on every run.
+// Memory: the backward's workspace holds dlogits (2 C V bytes: 250 MiB at
+// C 4096, V 32000, a quarter of the f32 kernel's (hi, lo) pairs), the dx
+// partials (4 S C D bytes) and the f32 dW sum (4 D V bytes); the forward's
+// holds the shares' partial states.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gemm_bf16.cuh"
+
+namespace {
+
+using ptt_bf16::bf16;
+using ptt_gemm::Acc;
+using ptt_gemm::align256;
+using ptt_gemm::cdiv;
+using ptt_gemm::kBM;
+using ptt_gemm::kBN;
+using ptt_gemm::kMI;
+using ptt_gemm::kNJ;
+using ptt_gemm::kThreads;
+using ptt_gemm::kWarpsN;
+using ptt_gemm::kWM;
+using ptt_gemm::kWN;
+using ptt_gemm::pass_blocks;
+using ptt_gemm::sm_count;
+using ptt_gemm_bf16::kBK;
+using ptt_gemm_bf16::Layout;
+using ptt_gemm_bf16::Operand;
+using ptt_gemm_bf16::allow_smem;
+using ptt_gemm_bf16::operand;
+using ptt_gemm_bf16::run_tiles;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWaves = 4;   // CTAs aimed at per SM (one fits), forward and dx
+
+// the running softmax state of one row: max, sum of exp(. - max), gold
+struct RowState {
+  float m, l, gold;
+};
+
+__device__ __forceinline__ RowState merge(RowState a, RowState b) {
+  const float m = fmaxf(a.m, b.m);
+  return RowState{m,
+                  a.l * exp2f((a.m - m) * kLog2e) +
+                      b.l * exp2f((b.m - m) * kLog2e),
+                  a.gold + b.gold};
+}
+
+__device__ __forceinline__ RowState shfl_merge(RowState s, int o) {
+  RowState r;
+  r.m = __shfl_xor_sync(0xffffffffu, s.m, o);
+  r.l = __shfl_xor_sync(0xffffffffu, s.l, o);
+  r.gold = __shfl_xor_sync(0xffffffffu, s.gold, o);
+  return merge(s, r);
+}
+
+// Forward: CTA (token tile, share) -> part[share] [3][N] (max, sum, gold)
+// of its rows over its vocab tiles.
+__global__ void __launch_bounds__(kThreads, 1)
+    lm_head_fwd_bf16_kernel(const Operand X, const Operand W,
+                            const long long* __restrict__ labels,
+                            float* __restrict__ part, int N, int D, int V,
+                            int tiles_per_share) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / kWarpsN * kWM, wn = warp % kWarpsN * kWN;
+  const int m0 = blockIdx.x * kBM;
+  const int nt = (V + kBN - 1) / kBN;
+  const int first = blockIdx.y * tiles_per_share;
+  const int count = min(tiles_per_share, nt - first);
+
+  int y[kMI][2];
+  RowState st[kMI][2];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm + 16 * i + g + 8 * h;
+      y[i][h] = r < N ? (int)labels[r] : -1;
+      st[i][h] = RowState{kNegInf, 0.f, 0.f};
+    }
+
+  run_tiles<true, true>(
+      X, W, N, V, 0, D, m0, first * kBN, count, smem,
+      [&](const Acc& acc, int n) {
+        const bool ragged = n + kBN > V;
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float mx = kNegInf, gold = 0.f;
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = n + wn + 8 * j + 2 * t + e;
+                const float v = acc.v[i][j][2 * h + e];
+                if (!ragged || c < V) mx = fmaxf(mx, v);
+                if (c == y[i][h]) gold += v;
+              }
+            RowState& s = st[i][h];
+            const float m = fmaxf(s.m, mx);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = n + wn + 8 * j + 2 * t + e;
+                if (!ragged || c < V)
+                  sum += exp2f((acc.v[i][j][2 * h + e] - m) * kLog2e);
+              }
+            s.l = s.l * exp2f((s.m - m) * kLog2e) + sum;
+            s.m = m;
+            s.gold += gold;
+          }
+      });
+
+  // the quad's 4 lanes, then the warps along the vocabulary, in order
+  RowState* red = reinterpret_cast<RowState*>(smem);   // [kWarpsN][kBM]
+#pragma unroll
+  for (int i = 0; i < kMI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      RowState s = shfl_merge(st[i][h], 1);
+      s = shfl_merge(s, 2);
+      if (t == 0) red[warp % kWarpsN * kBM + wm + 16 * i + g + 8 * h] = s;
+    }
+  __syncthreads();
+  if (threadIdx.x < kBM && m0 + (int)threadIdx.x < N) {
+    RowState s = red[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kWarpsN; ++w) s = merge(s, red[w * kBM + threadIdx.x]);
+    float* p = part + (long long)blockIdx.y * 3 * N + m0 + threadIdx.x;
+    p[0] = s.m;
+    p[N] = s.l;
+    p[2 * N] = s.gold;
+  }
+}
+
+// loss and lse of each token from its S shares, merged in share order
+__global__ void lm_head_fwd_bf16_merge_kernel(
+    const float* __restrict__ part, const long long* __restrict__ labels,
+    float* __restrict__ loss, float* __restrict__ lse, int N, int S) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  RowState s{kNegInf, 0.f, 0.f};
+  for (int k = 0; k < S; ++k) {
+    const float* p = part + (long long)k * 3 * N + r;
+    s = merge(s, RowState{p[0], p[N], p[2 * N]});
+  }
+  const float ls = s.m + logf(fmaxf(s.l, 1e-30f));
+  lse[r] = ls;
+  loss[r] = labels[r] >= 0 ? ls - s.gold : 0.f;
+}
+
+// dl[r, c] = bf16((exp(x_r . w_c - lse_r) - [c == y_r]) * g_r) for one
+// chunk
+__global__ void __launch_bounds__(kThreads, 1)
+    lm_head_bwd_bf16_dlogits_kernel(const Operand X, const Operand W,
+                                    const long long* __restrict__ labels,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ gm,
+                                    bf16* __restrict__ dl, int C, int D,
+                                    int V) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / kWarpsN * kWM, wn = warp % kWarpsN * kWN;
+  const int m0 = blockIdx.y * kBM;
+  run_tiles<true, true>(
+      X, W, C, V, 0, D, m0, blockIdx.x * kBN, 1, smem,
+      [&](const Acc& acc, int n) {
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + wm + 16 * i + g + 8 * h;
+            if (r >= C) continue;
+            const long long y = labels[r];
+            const float ls = lse[r], gr = gm[r];
+            bf16* row = dl + (long long)r * V;
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = n + wn + 8 * j + 2 * t + e;
+                if (c >= V) continue;
+                row[c] = __float2bfloat16_rn(
+                    (exp2f((acc.v[i][j][2 * h + e] - ls) * kLog2e) -
+                     (c == y ? 1.f : 0.f)) * gr);
+              }
+          }
+      });
+}
+
+// out [M, N] (row stride ldo, f32) = A . B over k in this CTA's range
+// [z kchunk, min(K, (z + 1) kchunk)), at out + z zstride: dx's partials
+__global__ void __launch_bounds__(kThreads, 1)
+    lm_head_bwd_bf16_dx_kernel(const Operand A, const Operand B,
+                               float* __restrict__ out, long long ldo,
+                               long long zstride, int M, int N, int K,
+                               int kchunk) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / kWarpsN * kWM, wn = warp % kWarpsN * kWN;
+  const int m0 = blockIdx.y * kBM;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+  float* o = out + blockIdx.z * zstride;
+  run_tiles<true, false>(
+      A, B, M, N, kb, ke, m0, blockIdx.x * kBN, 1, smem,
+      [&](const Acc& acc, int n) {
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + wm + 16 * i + g + 8 * h;
+            if (r >= M) continue;
+            float* row = o + r * ldo;
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = n + wn + 8 * j + 2 * t + e;
+                if (c < N) row[c] = acc.v[i][j][2 * h + e];
+              }
+          }
+      });
+}
+
+// dW [D, V] from x^T [D, rows] . dlogits [rows, V]: sum[] = (sum[] +) the
+// product in f32, or, on the last chunk (final), out[] = bf16 of it
+__global__ void __launch_bounds__(kThreads, 1)
+    lm_head_bwd_bf16_dw_kernel(const Operand A, const Operand B,
+                               float* __restrict__ sum, bf16* __restrict__ out,
+                               int M, int N, int K, int accumulate,
+                               int final) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / kWarpsN * kWM, wn = warp % kWarpsN * kWN;
+  const int m0 = blockIdx.y * kBM;
+  run_tiles<false, true>(
+      A, B, M, N, 0, K, m0, blockIdx.x * kBN, 1, smem,
+      [&](const Acc& acc, int n) {
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + wm + 16 * i + g + 8 * h;
+            if (r >= M) continue;
+            const long long row = (long long)r * N;
+#pragma unroll
+            for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = n + wn + 8 * j + 2 * t + e;
+                if (c >= N) continue;
+                float v = acc.v[i][j][2 * h + e];
+                if (accumulate) v += sum[row + c];
+                if (final)
+                  out[row + c] = __float2bfloat16_rn(v);
+                else
+                  sum[row + c] = v;
+              }
+          }
+      });
+}
+
+// out[i] = bf16(sum over z < S of part[z n + i]), in z order: dx
+__global__ void lm_head_bwd_bf16_reduce_kernel(const float* __restrict__ part,
+                                               bf16* __restrict__ out,
+                                               long long n, int S) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float s = part[i];
+    for (int z = 1; z < S; ++z) s += part[z * n + i];
+    out[i] = __float2bfloat16_rn(s);
+  }
+}
+
+// the forward's vocabulary shares: tiles per share and the share count
+void fwd_plan(int N, int V, int& per, int& shares) {
+  const int mt = cdiv(N, kBM), nt = cdiv(V, kBN);
+  int s = cdiv((long long)kWaves * sm_count(), mt);
+  s = s < 1 ? 1 : (s > nt ? nt : s);
+  per = cdiv(nt, s);
+  shares = cdiv(nt, per);
+}
+
+// the dx product's K (vocabulary) ranges for a chunk capacity of C rows:
+// range length (a multiple of kBK) and count
+void dx_plan(int C, int D, int V, int& kchunk, int& ranges) {
+  const int tiles = cdiv(C, kBM) * cdiv(D, kBN);
+  const int kt = cdiv(V, kBK);
+  int s = cdiv((long long)kWaves * sm_count(), tiles);
+  s = s < 1 ? 1 : (s > kt ? kt : s);
+  kchunk = cdiv(kt, s) * kBK;
+  ranges = cdiv(V, kchunk);
+}
+
+// byte offsets of the backward's workspace regions for chunks of at most
+// C rows: dlogits, the dx partials ([ranges][C][D] f32), the f32 dW sum,
+// and the total
+struct BwdWork {
+  long long dl, dxp, dws, bytes;
+};
+
+BwdWork bwd_work(int C, int D, int V) {
+  int kchunk, ranges;
+  dx_plan(C, D, V, kchunk, ranges);
+  BwdWork w;
+  w.dl = 0;
+  w.dxp = w.dl + align256(2LL * C * V);
+  w.dws = w.dxp + align256(4LL * ranges * C * D);
+  w.bytes = w.dws + align256(4LL * D * V);
+  return w;
+}
+
+}  // namespace
+
+// Workspace bytes of ptt_lm_head_fwd_bf16 at these sizes: the shares'
+// partial states.
+extern "C" long long ptt_lm_head_fwd_bf16_workspace(int N, int D, int V) {
+  int per, shares;
+  fwd_plan(N, V, per, shares);
+  return align256(12LL * shares * N);
+}
+
+// x [N, D], w [D, V] bf16, labels [N] int64 -> loss [N], lse [N] f32; all
+// contiguous; work holds ptt_lm_head_fwd_bf16_workspace(N, D, V) bytes,
+// 256-byte aligned.  Two launches: the product with its running softmax,
+// the merge of the vocabulary shares.  Returns a cudaError_t as int.
+extern "C" int ptt_lm_head_fwd_bf16(const void* x, const void* w,
+                                    const void* labels, void* loss,
+                                    void* lse, void* work, int N, int D,
+                                    int V, void* stream) {
+  if (N <= 0 || D <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int per, shares;
+  fwd_plan(N, V, per, shares);
+  float* part = static_cast<float*>(work);
+  const long long* y = static_cast<const long long*>(labels);
+  cudaError_t err = allow_smem<true, true>(lm_head_fwd_bf16_kernel);
+  if (err != cudaSuccess) return (int)err;
+  lm_head_fwd_bf16_kernel<<<dim3(cdiv(N, kBM), shares), kThreads,
+                            Layout<true, true>::kSmemBytes, s>>>(
+      operand(static_cast<const bf16*>(x), D),
+      operand(static_cast<const bf16*>(w), V), y, part, N, D, V, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lm_head_fwd_bf16_merge_kernel<<<cdiv(N, 256), 256, 0, s>>>(
+      part, y, static_cast<float*>(loss), static_cast<float*>(lse), N,
+      shares);
+  return (int)cudaGetLastError();
+}
+
+// Workspace bytes of ptt_lm_head_bwd_chunk_bf16 for chunks of at most C
+// rows.
+extern "C" long long ptt_lm_head_bwd_bf16_workspace(int C, int D, int V) {
+  return bwd_work(C, D, V).bytes;
+}
+
+// One token chunk of the backward: x, labels, lse and g point at the
+// chunk's first row (rows rows, at most cap, the chunk size the workspace
+// was sized for); dx points at the chunk's rows of [N, D] bf16; dw [D, V]
+// bf16 is written by the last chunk (final), the chunks before it summing
+// dW in f32 in the workspace (accumulate 0 on the first chunk).  x and w
+// bf16, lse and g f32, labels int64, all contiguous; work holds
+// ptt_lm_head_bwd_bf16_workspace(cap, D, V) bytes, 256-byte aligned, and
+// is kept between the chunks of one backward.  Returns a cudaError_t as
+// int.
+extern "C" int ptt_lm_head_bwd_chunk_bf16(const void* x, const void* w,
+                                          const void* labels,
+                                          const void* lse, const void* g,
+                                          void* work, void* dx, void* dw,
+                                          int rows, int cap, int D, int V,
+                                          int accumulate, int final,
+                                          void* stream) {
+  if (rows <= 0 || rows > cap || D <= 0 || V <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int kchunk, ranges;
+  dx_plan(cap, D, V, kchunk, ranges);
+  const BwdWork off = bwd_work(cap, D, V);
+  char* base = static_cast<char*>(work);
+  bf16* dl = reinterpret_cast<bf16*>(base + off.dl);
+  float* dxp = reinterpret_cast<float*>(base + off.dxp);
+  float* dws = reinterpret_cast<float*>(base + off.dws);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+
+  // (1) dlogits [rows, V], bf16
+  cudaError_t err = allow_smem<true, true>(lm_head_bwd_bf16_dlogits_kernel);
+  if (err != cudaSuccess) return (int)err;
+  lm_head_bwd_bf16_dlogits_kernel<<<dim3(cdiv(V, kBN), cdiv(rows, kBM)),
+                                    kThreads, Layout<true, true>::kSmemBytes,
+                                    s>>>(
+      operand(xb, D), operand(wb, V), static_cast<const long long*>(labels),
+      static_cast<const float*>(lse), static_cast<const float*>(g), dl, rows,
+      D, V);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // (2) dx [rows, D] = dlogits [rows, V] . W^T, where W^T (v, d) is
+  // w[d V + v]: k-contiguous rows of V; the ranges' f32 partials, then
+  // their sum rounded to bf16
+  err = allow_smem<true, false>(lm_head_bwd_bf16_dx_kernel);
+  if (err != cudaSuccess) return (int)err;
+  lm_head_bwd_bf16_dx_kernel<<<dim3(cdiv(D, kBN), cdiv(rows, kBM), ranges),
+                               kThreads, Layout<true, false>::kSmemBytes,
+                               s>>>(operand(dl, V), operand(wb, V), dxp, D,
+                                    (long long)rows * D, rows, D, V, kchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)rows * D;
+  lm_head_bwd_bf16_reduce_kernel<<<pass_blocks(n), 256, 0, s>>>(
+      dxp, static_cast<bf16*>(dx), n, ranges);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // (3) dW [D, V] (+)= x^T [D, rows] . dlogits [rows, V], where x^T (d, c)
+  // is x[c D + d]: m-contiguous rows of D
+  err = allow_smem<false, true>(lm_head_bwd_bf16_dw_kernel);
+  if (err != cudaSuccess) return (int)err;
+  lm_head_bwd_bf16_dw_kernel<<<dim3(cdiv(V, kBN), cdiv(D, kBM), 1), kThreads,
+                               Layout<false, true>::kSmemBytes, s>>>(
+      operand(xb, D), operand(dl, V), dws, static_cast<bf16*>(dw), D, V,
+      rows, accumulate, final);
+  return (int)cudaGetLastError();
+}

@@ -33,8 +33,20 @@ CUDA tensors launch the kernel (or raise), CPU or meta tensors take the
 ``_plain`` version.  ``flash_attention_hdt.launches``,
 ``flash_attention_hdt_bwd.launches``, ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count each entry's kernel launches.  The
-card kernels take f32 inputs with d in {64, 128} and dv == d; bf16 comes
-with the mixed-precision work.
+card kernels take f32 inputs with d in {64, 128} and dv == d.
+
+Under ``FLAGS_amp_bf16`` the ``fused_mha`` op hands ``flash_attention_hdt``
+bf16 q, k and v.  Those go to two more kernels,
+``csrc/flash_attention_bf16.cu`` (wrappers ``flash_attention_hdt_bf16`` and
+``flash_attention_hdt_bwd_bf16``, each with its own ``.launches``): one bf16
+``mma.sync`` per product with f32 accumulation, rounding where the Pallas
+kernel rounds in bf16.  q' = bf16(q * bf16(scale)) (flash_attention.py:529,
+:597); p, and in the backward ds, are rounded to bf16 before the products
+that take them (:542, :586, :588, :615); the running max, sum, lse, delta
+and every accumulator stay f32; o, dq, dk and dv are rounded once, at the
+end.  The plain versions carry the same roundings for bf16 inputs (and
+keep the full-softmax f32 arithmetic for f32 ones).  The ``[B, H, T, d]``
+entry takes f32 only (bf16 there is ROADMAP B.8b).
 """
 from __future__ import annotations
 
@@ -47,8 +59,7 @@ from . import _build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
-_fn = None
-_bwd_fn = None
+_fns = {}
 
 
 def _check(q, k, v, batch, causal, kv_len):
@@ -85,15 +96,46 @@ def _scores(q, k, v, batch, causal, scale, kv_len, Tq, Tk):
     return q4, k4, v4, s.masked_fill(~keep, NEG_INF)
 
 
+def bf16_scaled(q, scale):
+    """q' = bf16(q * bf16(scale)) of bf16 q: the Pallas kernel's pre-scaled
+    queries (flash_attention.py:529, :597).  The product of two bf16 values
+    is exact in f32, so this is one rounding."""
+    sb = float(torch.tensor(float(scale), dtype=torch.bfloat16))
+    return (q.float() * sb).to(torch.bfloat16)
+
+
+def _hdt_plain_bf16(q, k, v, batch, causal, scale, kv_len, Tq, Tk):
+    """The bf16 forward's arithmetic, as the Pallas kernel runs it with one
+    key block: s = q'k^T in f32, p = exp(s - rowmax) in f32, o = bf16(
+    (bf16(p) . v) / rowsum(p)) with an f32 product, lse = rowmax +
+    log rowsum(p)."""
+    H, d, _ = q.shape
+    dv = v.shape[1]
+    q4, k4, v4, s = _scores(bf16_scaled(q, scale), k, v, batch, causal, 1.0,
+                            kv_len, Tq, Tk)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
+    pb = p.to(torch.bfloat16).float()
+    o = torch.einsum("bhqk,hdbk->hdbq", pb, v4) \
+        / l[..., 0].permute(1, 0, 2)[:, None]
+    lse = (m + torch.log(l))[..., 0].permute(1, 0, 2).reshape(
+        H, 1, batch * Tq)
+    return o.reshape(H, dv, batch * Tq).to(torch.bfloat16), lse
+
+
 def flash_attention_hdt_plain(q, k, v, batch, causal=False, scale=None,
                               kv_len=None):
     """(o [H, dv, B*Tq], lse [H, 1, B*Tq] f32): a full-softmax composition
-    in f32 (f64 for f64 inputs) of what the kernel computes."""
+    in f32 (f64 for f64 inputs) of what the kernel computes; for bf16
+    inputs, the bf16 kernel's roundings (``_hdt_plain_bf16``)."""
     H, d, _ = q.shape
     dv = v.shape[1]
     Tq, Tk = _check(q, k, v, batch, causal, kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if q.dtype == torch.bfloat16:
+        return _hdt_plain_bf16(q, k, v, batch, causal, scale, kv_len, Tq, Tk)
     q4, k4, v4, s = _scores(q, k, v, batch, causal, scale, kv_len, Tq, Tk)
     lse = torch.logsumexp(s, dim=-1)                      # [B, H, Tq]
     p = torch.exp(s - lse[..., None])
@@ -102,27 +144,34 @@ def flash_attention_hdt_plain(q, k, v, batch, causal=False, scale=None,
     return o.to(q.dtype), lse
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name="ptt_flash_fwd"):
+    """The forward C entry: ptt_flash_fwd (f32) or ptt_flash_fwd_bf16."""
+    if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fn = _build.bind("ptt_flash_fwd",
-                          [p] * 5 + [i] * 7 + [f,
-                           ctypes.POINTER(ctypes.c_longlong), p])
-    return _fn
+        _fns[name] = _build.bind(name, [p] * 5 + [i] * 7 + [f,
+                                 ctypes.POINTER(ctypes.c_longlong), p])
+    return _fns[name]
 
 
-def _check_card(name, ts, d, dv):
-    """The card kernels' contract: CUDA, one device, f32, d == dv in
-    KERNEL_HEAD_DIMS."""
-    if not all(t.is_cuda for t in ts):
+def _check_card(name, ts, d, dv, stats=(), dtypes=(torch.float32,
+                                                    torch.bfloat16)):
+    """The card kernels' contract: CUDA, one device, the operands ts of one
+    dtype in dtypes (f32, or bf16 where a bf16 kernel exists), the stats
+    (lse, delta) f32, d == dv in KERNEL_HEAD_DIMS."""
+    every = tuple(ts) + tuple(stats)
+    if not all(t.is_cuda for t in every):
         raise RuntimeError(f"{name} kernel: every tensor must lie on a CUDA "
                            f"device")
-    if len({t.device for t in ts}) != 1:
+    if len({t.device for t in every}) != 1:
         raise ValueError(f"{name} kernel: inputs on different devices")
-    if not all(t.dtype == torch.float32 for t in ts):
-        raise ValueError(f"{name} kernel: f32 inputs only, got "
-                         f"{[str(t.dtype) for t in ts]}")
+    kinds = {t.dtype for t in ts}
+    if len(kinds) != 1 or not kinds <= set(dtypes) or not all(
+            t.dtype == torch.float32 for t in stats):
+        want = " or ".join(str(t)[6:].replace("float32", "f32")
+                           .replace("bfloat16", "bf16") for t in dtypes)
+        raise ValueError(f"{name} kernel: {want} inputs of one dtype (f32 "
+                         f"lse and delta) only, got "
+                         f"{[str(t.dtype) for t in every]}")
     if d not in KERNEL_HEAD_DIMS or dv != d:
         raise ValueError(f"{name} kernel: head dims d={d}, dv={dv}; the "
                          f"kernel takes d == dv in {KERNEL_HEAD_DIMS}")
@@ -147,27 +196,47 @@ def _stride_array(vals):
 
 def _fwd_call(name, q, k, v, o, lse, H, d, B, Tq, Tk, kv_len, causal,
               scale, strides):
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    lse.data_ptr(), H, d, B, Tq, Tk,
-                    Tk if kv_len is None else int(kv_len), int(causal),
-                    float(scale), _stride_array(strides),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    entry = "ptt_flash_fwd_bf16" if q.dtype == torch.bfloat16 \
+        else "ptt_flash_fwd"
+    err = _kernel(entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), H, d, B, Tq, Tk, Tk if kv_len is None
+        else int(kv_len), int(causal), float(scale), _stride_array(strides),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _launch(q, k, v, batch, causal, scale, kv_len):
-    _check_card("flash_attention_hdt", (q, k, v), q.shape[1], v.shape[1])
+    """The head-major forward kernel of q's dtype: o in q's dtype, lse
+    f32."""
+    name = "flash_attention_hdt" + ("_bf16" if q.dtype == torch.bfloat16
+                                    else "")
+    _check_card(name, (q, k, v), q.shape[1], v.shape[1])
     H, d, Nq = q.shape
     Tq, Tk = _check(q, k, v, batch, causal, kv_len)
-    o = torch.empty(H, d, Nq, dtype=torch.float32, device=q.device)
+    o = torch.empty(H, d, Nq, dtype=q.dtype, device=q.device)
     lse = torch.empty(H, 1, Nq, dtype=torch.float32, device=q.device)
-    _fwd_call("flash_attention_hdt", q, k, v, o, lse, H, d, batch, Tq, Tk,
+    _fwd_call(name, q, k, v, o, lse, H, d, batch, Tq, Tk,
               kv_len, causal, scale,
               (*_hdt_strides(q, Tq), *_hdt_strides(k, Tk),
                *_hdt_strides(v, Tk), *_hdt_strides(o, Tq), Tq, Nq))
-    flash_attention_hdt.launches += 1
+    (flash_attention_hdt_bf16 if q.dtype == torch.bfloat16
+     else flash_attention_hdt).launches += 1
     return o, lse
+
+
+def flash_attention_hdt_bf16(q, k, v, batch, causal=False, scale=None,
+                             kv_len=None):
+    """The bf16 head-major forward kernel (csrc/flash_attention_bf16.cu) on
+    bf16 CUDA tensors: (o bf16, lse f32).  Its launches are counted in
+    ``flash_attention_hdt_bf16.launches``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_hdt_bf16 kernel: bf16 inputs "
+                         f"only, got {q.dtype}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[1])
+    return _launch(q, k, v, batch, causal, scale, kv_len)
 
 
 def _forward(q, k, v, batch, causal, scale, kv_len):
@@ -181,13 +250,21 @@ def flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, batch,
     """(dq, dk, dv) from the forward's inputs, its lse [H, 1, B*Tq], delta
     = rowsum(do * o) [H, 1, B*Tq] and do [H, dv, B*Tq]: the full-matrix
     composition of the FlashAttention-2 backward that the kernel tiles
-    (p = exp(s - lse), ds = p * (do.v - delta))."""
+    (p = exp(s - lse), ds = p * (do.v - delta)); for bf16 inputs with the
+    bf16 kernel's roundings (s from q', p and ds rounded to bf16 before
+    the gradient products, f32 sums, one rounding of each gradient)."""
     H, d, _ = q.shape
     dv = v.shape[1]
     Tq, Tk = _check(q, k, v, batch, causal, kv_len)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    q4, k4, v4, s = _scores(q, k, v, batch, causal, scale, kv_len, Tq, Tk)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:   # s from q' = bf16(q * bf16(scale)); dq takes scale in f32
+        q4, k4, v4, s = _scores(bf16_scaled(q, scale), k, v, batch, causal,
+                                1.0, kv_len, Tq, Tk)
+    else:
+        q4, k4, v4, s = _scores(q, k, v, batch, causal, scale, kv_len, Tq,
+                                Tk)
     acc = s.dtype
 
     def rows(t):                             # [H, 1, B*Tq] -> [B, H, Tq, 1]
@@ -197,6 +274,9 @@ def flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, batch,
     do4 = do.to(acc).reshape(H, dv, batch, Tq)
     dp = torch.einsum("hdbq,hdbk->bhqk", do4, v4)
     ds = p * (dp - rows(delta))
+    if bf16:   # p and ds enter their products as bf16
+        p = p.to(torch.bfloat16).float()
+        ds = ds.to(torch.bfloat16).float()
     dq = scale * torch.einsum("bhqk,hdbk->hdbq", ds, k4)
     dk = torch.einsum("bhqk,hdbq->hdbk", ds, q4)
     dvv = torch.einsum("bhqk,hdbq->hdbk", p, do4)
@@ -205,19 +285,20 @@ def flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, batch,
             dvv.reshape(H, dv, batch * Tk).to(v.dtype))
 
 
-def _bwd_kernel():
-    global _bwd_fn
-    if _bwd_fn is None:
+def _bwd_kernel(name="ptt_flash_bwd"):
+    """The backward C entry: ptt_flash_bwd (f32) or ptt_flash_bwd_bf16."""
+    if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _bwd_fn = _build.bind("ptt_flash_bwd",
-                              [p] * 9 + [i] * 7 + [f,
-                               ctypes.POINTER(ctypes.c_longlong), p])
-    return _bwd_fn
+        _fns[name] = _build.bind(name, [p] * 9 + [i] * 7 + [f,
+                                 ctypes.POINTER(ctypes.c_longlong), p])
+    return _fns[name]
 
 
 def _bwd_call(name, q, k, v, lse, delta, do, dq, dk, dv, H, d, B, Tq, Tk,
               kv_len, causal, scale, strides):
-    err = _bwd_kernel()(
+    entry = "ptt_flash_bwd_bf16" if q.dtype == torch.bfloat16 \
+        else "ptt_flash_bwd"
+    err = _bwd_kernel(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), H, d, B, Tq, Tk,
@@ -229,29 +310,47 @@ def _bwd_call(name, q, k, v, lse, delta, do, dq, dk, dv, H, d, B, Tq, Tk,
 
 
 def _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len):
-    _check_card("flash_attention_hdt_bwd", (q, k, v, lse, delta, do),
-                q.shape[1], v.shape[1])
+    """The head-major backward kernels of q's dtype: dq, dk, dv in q's
+    dtype."""
+    name = "flash_attention_hdt_bwd" + ("_bf16" if q.dtype == torch.bfloat16
+                                        else "")
+    _check_card(name, (q, k, v, do), q.shape[1], v.shape[1],
+                stats=(lse, delta))
     H, d, Nq = q.shape
     if tuple(do.shape) != (H, d, Nq):
-        raise ValueError(f"flash_attention_hdt_bwd kernel: do "
-                         f"{tuple(do.shape)} != {(H, d, Nq)}")
-    for name, t in (("lse", lse), ("delta", delta)):
+        raise ValueError(f"{name} kernel: do {tuple(do.shape)} != "
+                         f"{(H, d, Nq)}")
+    for what, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != (H, 1, Nq) or not t.is_contiguous():
-            raise ValueError(f"flash_attention_hdt_bwd kernel: {name} must "
-                             f"be contiguous {(H, 1, Nq)}, got "
-                             f"{tuple(t.shape)}")
+            raise ValueError(f"{name} kernel: {what} must be contiguous "
+                             f"{(H, 1, Nq)}, got {tuple(t.shape)}")
     Tq, Tk = _check(q, k, v, batch, causal, kv_len)
-    dq = torch.empty(H, d, Nq, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dvv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    _bwd_call("flash_attention_hdt_bwd", q, k, v, lse, delta, do, dq, dk,
+    dq = torch.empty(H, d, Nq, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dvv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    _bwd_call(name, q, k, v, lse, delta, do, dq, dk,
               dvv, H, d, batch, Tq, Tk, kv_len, causal, scale,
               (*_hdt_strides(q, Tq), *_hdt_strides(k, Tk),
                *_hdt_strides(v, Tk), *_hdt_strides(do, Tq),
                *_hdt_strides(dq, Tq), *_hdt_strides(dk, Tk),
                *_hdt_strides(dvv, Tk), Tq, Nq))
-    flash_attention_hdt_bwd.launches += 1
+    (flash_attention_hdt_bwd_bf16 if q.dtype == torch.bfloat16
+     else flash_attention_hdt_bwd).launches += 1
     return dq, dk, dvv
+
+
+def flash_attention_hdt_bwd_bf16(q, k, v, lse, delta, do, batch,
+                                 causal=False, scale=None, kv_len=None):
+    """The bf16 head-major backward kernels (csrc/flash_attention_bf16.cu,
+    dk/dv then dq) on bf16 CUDA tensors, f32 lse and delta: (dq, dk, dv)
+    bf16.  Its launches (one per call, two kernels) are counted in
+    ``flash_attention_hdt_bwd_bf16.launches``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_hdt_bwd_bf16 kernel: bf16 inputs "
+                         f"only, got {q.dtype}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[1])
+    return _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len)
 
 
 def flash_attention_hdt_bwd(q, k, v, lse, delta, do, batch,
@@ -303,6 +402,8 @@ def flash_attention_hdt(q, k, v, batch, causal: bool = False,
 
 flash_attention_hdt.launches = 0
 flash_attention_hdt_bwd.launches = 0
+flash_attention_hdt_bf16.launches = 0
+flash_attention_hdt_bwd_bf16.launches = 0
 
 
 # --- [B, H, T, d] in any strides (JAX flash_attention.py:441) ---------------
@@ -370,7 +471,10 @@ def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal=False,
 
 
 def _launch_bhtd(q, k, v, causal, scale):
-    _check_card("flash_attention", (q, k, v), q.shape[-1], v.shape[-1])
+    # bf16 in this layout (fused_attention, the block's recompute) is
+    # ROADMAP B.8b
+    _check_card("flash_attention", (q, k, v), q.shape[-1], v.shape[-1],
+                dtypes=(torch.float32,))
     B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
     # o takes q's layout where q is dense (a [B, T, H, d] view stays one)
     o = torch.empty_like(q)
@@ -394,7 +498,8 @@ def flash_attention_bwd(q, k, v, lse, delta, do, causal: bool = False,
         return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal,
                                          scale)
     name = "flash_attention_bwd"
-    _check_card(name, (q, k, v, lse, delta, do), q.shape[-1], v.shape[-1])
+    _check_card(name, (q, k, v, do), q.shape[-1], v.shape[-1],
+                stats=(lse, delta), dtypes=(torch.float32,))
     B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"{name} kernel: do {tuple(do.shape)} != "

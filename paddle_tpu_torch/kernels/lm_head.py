@@ -23,6 +23,17 @@ directions decide by the tensors' device: CUDA tensors launch the kernel
 ``lm_head_bwd_plain``.  ``lm_head_fwd.launches`` counts forward launches,
 ``lm_head_bwd.launches`` one per token chunk of the backward.  Any N and
 any V: the JAX gates on N % 256 and d <= 2048 exist for Mosaic's tiles.
+
+Under ``FLAGS_amp_bf16`` the ``fused_lm_head_loss`` op hands the head bf16
+x and W.  Those go to two more kernels, ``csrc/lm_head_bf16.cu`` on the
+bf16 tile loop of ``csrc/gemm_bf16.cuh`` (wrappers ``lm_head_fwd_bf16`` and
+``lm_head_bwd_bf16``, each with its own ``.launches``): one bf16
+``mma.sync`` per product with f32 accumulation, no split.  Loss and lse
+stay f32.  The backward rounds where the Pallas kernel rounds in bf16:
+dlogits to x's dtype before the dx and dW products (lm_head.py:128), dx
+once per chunk (:243), and dW summed in f32 over the chunks and rounded
+once at the end (:244).  The plain versions carry the same roundings for
+bf16 inputs.
 """
 from __future__ import annotations
 
@@ -40,6 +51,10 @@ _SIGNATURES = {
     "ptt_lm_head_bwd_workspace": ([_I] * 3, _LL),
     "ptt_lm_head_fwd": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "ptt_lm_head_bwd_chunk": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    "ptt_lm_head_fwd_bf16_workspace": ([_I] * 3, _LL),
+    "ptt_lm_head_bwd_bf16_workspace": ([_I] * 3, _LL),
+    "ptt_lm_head_fwd_bf16": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "ptt_lm_head_bwd_chunk_bf16": ([_P] * 8 + [_I] * 6 + [_P], _I),
 }
 _fns = {}
 
@@ -68,7 +83,9 @@ def lm_head_fwd_plain(x, w, labels):
 def lm_head_bwd_plain(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
     """(dx, dw) from the saved (x, w, labels, lse) and the loss cotangent g
     [N]: dlogits = (softmax - onehot) * g, with g zeroed at ignored labels,
-    recomputed chunk by chunk as the kernel does."""
+    recomputed chunk by chunk as the kernel does.  For bf16 x the dlogits
+    are rounded to bf16 before the products, dw is summed in f32 and dx and
+    dw are rounded once."""
     _check(x, w, labels)
     acc = torch.promote_types(x.dtype, torch.float32)
     N = x.shape[0]
@@ -84,20 +101,28 @@ def lm_head_bwd_plain(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
         rows = torch.arange(dl.shape[0], device=x.device)
         dl[rows, y[sl].clamp(min=0)] -= (y[sl] >= 0).to(acc)
         dl = dl * gm[sl, None]
+        if x.dtype == torch.bfloat16:   # dlogits enter the products as bf16
+            dl = dl.to(torch.bfloat16).to(acc)
         dx[sl] = torch.matmul(dl, wf.t())
         dw += torch.matmul(xs.t(), dl)
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def _require(name, ts, labels, contiguous):
-    if not (all(t.is_cuda for t in ts) and labels.is_cuda):
+def _require(name, ts, labels, contiguous, stats=()):
+    """The card kernels' contract: CUDA, one device, x and W (ts) of one
+    dtype, f32 or bf16, the stats (lse, g) f32, integer labels."""
+    every = tuple(ts) + tuple(stats)
+    if not (all(t.is_cuda for t in every) and labels.is_cuda):
         raise RuntimeError(f"{name} kernel: every tensor must lie on a CUDA "
                            f"device")
-    if len({t.device for t in ts} | {labels.device}) != 1:
+    if len({t.device for t in every} | {labels.device}) != 1:
         raise ValueError(f"{name} kernel: inputs on different devices")
-    if not all(t.dtype == torch.float32 for t in ts):
-        raise ValueError(f"{name} kernel: f32 inputs only, got "
-                         f"{[str(t.dtype) for t in ts]}")
+    kinds = {t.dtype for t in ts}
+    if len(kinds) != 1 or not kinds <= {torch.float32, torch.bfloat16} \
+            or not all(t.dtype == torch.float32 for t in stats):
+        raise ValueError(f"{name} kernel: f32 or bf16 x and w of one dtype "
+                         f"(f32 lse and g) only, got "
+                         f"{[str(t.dtype) for t in every]}")
     if labels.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{name} kernel: integer labels only, got "
                          f"{labels.dtype}")
@@ -119,7 +144,9 @@ def _workspace(name, dims, device):
 
 def _launch_fwd(x, w, labels):
     _check(x, w, labels)
-    _require("lm_head_fwd", (x, w), labels, (x, w))
+    bf16 = x.dtype == torch.bfloat16
+    name = "lm_head_fwd" + ("_bf16" if bf16 else "")
+    _require(name, (x, w), labels, (x, w))
     N, D = x.shape
     V = w.shape[1]
     y = labels.to(torch.int64).contiguous()
@@ -127,46 +154,59 @@ def _launch_fwd(x, w, labels):
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     if N == 0:
         return loss, lse
-    work = _workspace("ptt_lm_head_fwd_workspace", (N, D, V), x.device)
-    err = _fn("ptt_lm_head_fwd")(
+    entry = "ptt_" + name
+    work = _workspace(entry + "_workspace", (N, D, V), x.device)
+    err = _fn(entry)(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), loss.data_ptr(),
         lse.data_ptr(), work.data_ptr(), N, D, V,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"lm_head_fwd kernel launch failed: CUDA error "
-                           f"{err}")
-    lm_head_fwd.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    (lm_head_fwd_bf16 if bf16 else lm_head_fwd).launches += 1
     return loss, lse
 
 
 def _launch_bwd(x, w, labels, lse, g, chunk):
     _check(x, w, labels)
+    bf16 = x.dtype == torch.bfloat16
+    name = "lm_head_bwd" + ("_bf16" if bf16 else "")
     # g may be any layout (autograd hands an expanded 1/N): the wrapper
     # makes its masked copy below
-    _require("lm_head_bwd", (x, w, lse, g), labels, (x, w, lse))
+    _require(name, (x, w), labels, (x, w, lse), stats=(lse, g))
     N, D = x.shape
     V = w.shape[1]
     if tuple(lse.shape) != (N,) or tuple(g.shape) != (N,):
-        raise ValueError(f"lm_head_bwd kernel: lse {tuple(lse.shape)} and g "
+        raise ValueError(f"{name} kernel: lse {tuple(lse.shape)} and g "
                          f"{tuple(g.shape)} must be [{N}]")
     y = labels.to(torch.int64).contiguous()
     gm = (g * (y >= 0)).contiguous()
-    dx = torch.empty(N, D, dtype=torch.float32, device=x.device)
-    dw = torch.zeros(D, V, dtype=torch.float32, device=x.device)
+    dx = torch.empty(N, D, dtype=x.dtype, device=x.device)
+    dw = torch.zeros(D, V, dtype=x.dtype, device=x.device)
     chunk = max(1, min(int(chunk), N))
-    work = _workspace("ptt_lm_head_bwd_workspace", (chunk, D, V), x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = _fn("ptt_lm_head_bwd_chunk")
+    if bf16:
+        # dW is summed in f32 in the workspace and written, rounded to
+        # bf16, by the last chunk
+        work = _workspace("ptt_lm_head_bwd_bf16_workspace", (chunk, D, V),
+                          x.device)
+        fn = _fn("ptt_lm_head_bwd_chunk_bf16")
+    else:
+        work = _workspace("ptt_lm_head_bwd_workspace", (chunk, D, V),
+                          x.device)
+        fn = _fn("ptt_lm_head_bwd_chunk")
     for ci, r0 in enumerate(range(0, N, chunk)):
         rows = min(chunk, N - r0)
-        err = fn(x[r0:].data_ptr(), w.data_ptr(), y[r0:].data_ptr(),
-                 lse[r0:].data_ptr(), gm[r0:].data_ptr(), work.data_ptr(),
-                 dx[r0:].data_ptr(), dw.data_ptr(), rows, chunk, D, V,
-                 int(ci > 0), stream)
+        args = [x[r0:].data_ptr(), w.data_ptr(), y[r0:].data_ptr(),
+                lse[r0:].data_ptr(), gm[r0:].data_ptr(), work.data_ptr(),
+                dx[r0:].data_ptr(), dw.data_ptr(), rows, chunk, D, V,
+                int(ci > 0)]
+        if bf16:
+            args.append(int(r0 + rows == N))   # the last chunk writes dW
+        err = fn(*args, stream)
         if err:
-            raise RuntimeError(f"lm_head_bwd kernel launch failed: CUDA "
-                               f"error {err}")
-        lm_head_bwd.launches += 1
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        (lm_head_bwd_bf16 if bf16 else lm_head_bwd).launches += 1
     return dx, dw
 
 
@@ -184,6 +224,26 @@ def lm_head_bwd(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
     if x.device.type == "cuda":
         return _launch_bwd(x, w, labels, lse, g, chunk)
     return lm_head_bwd_plain(x, w, labels, lse, g, chunk)
+
+
+def lm_head_fwd_bf16(x, w, labels):
+    """The bf16 forward kernel (csrc/lm_head_bf16.cu) on bf16 CUDA x and w:
+    (loss, lse) f32.  Its launches are counted in
+    ``lm_head_fwd_bf16.launches``."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"lm_head_fwd_bf16 kernel: bf16 inputs only, got "
+                         f"{x.dtype}")
+    return _launch_fwd(x, w, labels)
+
+
+def lm_head_bwd_bf16(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
+    """The bf16 backward kernels (csrc/lm_head_bf16.cu) on bf16 CUDA x and
+    w: (dx, dw) bf16.  ``lm_head_bwd_bf16.launches`` counts one per token
+    chunk."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"lm_head_bwd_bf16 kernel: bf16 inputs only, got "
+                         f"{x.dtype}")
+    return _launch_bwd(x, w, labels, lse, g, chunk)
 
 
 class _LmHead(torch.autograd.Function):
@@ -210,3 +270,5 @@ def lm_head_xent(x, w, labels, chunk: int = DEFAULT_CHUNK):
 
 lm_head_fwd.launches = 0
 lm_head_bwd.launches = 0
+lm_head_fwd_bf16.launches = 0
+lm_head_bwd_bf16.launches = 0

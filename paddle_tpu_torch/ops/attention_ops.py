@@ -20,21 +20,36 @@ The JAX lowering pads tokens to a 128 granule for Mosaic's tiles; the
 port's kernel masks ragged tiles itself, so nothing is padded here.  Both
 ops are differentiable end to end: the projections through torch
 autograd, the kernels through their ``torch.autograd.Function``s.
+
+Under FLAGS_amp_bf16, ``fused_mha`` and ``fused_lm_head_loss`` take the
+JAX lowerings' AMP policy (``amp_inputs``: x and the weights enter as bf16;
+the projections, the flash kernel and the head run on bf16 operands with
+f32 accumulation; ``fused_mha``'s output stays bf16, the loss f32).
+``fused_attention`` has no AMP policy in the port yet and refuses to run
+under the flag (ROADMAP B.8b).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import flags
 from ..core.enforce import EnforceNotMet
 from ..framework.registry import register_op, single_input
 from ..kernels.flash_attention import flash_attention, flash_attention_hdt
 from ..kernels.lm_head import lm_head_xent
+from .math_ops import amp_inputs, amp_result
 
 
 @register_op("fused_attention")
 def _fused_attention(ctx, ins, attrs):
     """Q [B, Tq, n_head*d], K and V [B, Tk, n_head*d] -> Out [B, Tq,
     n_head*d].  attrs: n_head, causal, scale (0 => 1/sqrt(d))."""
+    if flags.get_flag("amp_bf16"):
+        # the JAX lowering casts q, k, v with amp_inputs (attention_ops.py
+        # :30); the port's [B, H, T, d] flash kernel is f32 only
+        raise EnforceNotMet(
+            "fused_attention: no AMP policy under FLAGS_amp_bf16 yet; the "
+            "bf16 [B, H, T, d] flash kernel is ROADMAP B.8b")
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     n_head = int(attrs["n_head"])
     causal = bool(attrs.get("causal", False))
@@ -68,6 +83,10 @@ def _fused_mha(ctx, ins, attrs):
             "self-attention (positions of XKV and X differ)")
     xkv = ins["XKV"][0] if ins.get("XKV") else x
     Tk = xkv.shape[1]
+    orig_dtype = x.dtype
+    # AMP: bf16 operands, bf16 projections and o (f32 accumulation inside
+    # the products), the output in bf16 (JAX attention_ops.py:102, :162-170)
+    x, xkv, wq, wk, wv, wo = amp_inputs(x, xkv, wq, wk, wv, wo)
     xq2 = x.reshape(B * T, D)
     xk2 = xkv.reshape(B * Tk, -1)
     # weights as lhs: [E, B*T] comes out head-major, no transpose copy
@@ -76,7 +95,7 @@ def _fused_mha(ctx, ins, attrs):
     v = torch.matmul(wv.t(), xk2.t()).reshape(n_head, dh, B * Tk)
     o, _ = flash_attention_hdt(q, k, v, batch=B, causal=causal)
     out = torch.matmul(o.reshape(E, B * T).t(), wo)
-    return {"Out": [out.reshape(B, T, -1).to(x.dtype)]}
+    return {"Out": [amp_result(out.reshape(B, T, -1), orig_dtype)]}
 
 
 @register_op("fused_lm_head_loss")
@@ -92,5 +111,6 @@ def _fused_lm_head_loss(ctx, ins, attrs):
     label = single_input(ins, "Label").reshape(-1)
     n = x.shape[0]
     chunk = int(attrs.get("chunk_size", 2048))
+    x, w = amp_inputs(x, w)     # AMP: bf16 x and W; the loss stays f32
     losses = lm_head_xent(x, w, label, chunk=chunk)
     return {"Loss": [(torch.sum(losses) / n).reshape(1)]}

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flags
 from ..framework.registry import register_op
 
 
@@ -30,4 +31,11 @@ def _align(x, y, axis):
 @register_op("elementwise_add")
 def _elementwise_add(ctx, ins, attrs):
     x, y = _align(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+    # AMP (paddle_tpu/ops/elementwise.py:38-48): a bf16 activation meeting
+    # an f32 operand (a bias or a residual's master copy) computes in bf16;
+    # type promotion would lift the activation plane back to f32 and hand
+    # the bf16 kernels downstream f32
+    if flags.get_flag("amp_bf16") and {x.dtype, y.dtype} == {
+            torch.bfloat16, torch.float32}:
+        x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
     return {"Out": [torch.add(x, y)]}

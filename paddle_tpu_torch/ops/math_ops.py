@@ -1,9 +1,17 @@
 """Matmul-family and misc math ops.
 
-Counterpart of paddle_tpu/ops/math_ops.py: mul :91 (fc's flattening
+Counterpart of paddle_tpu/ops/math_ops.py: the AMP helpers :28-77
+(amp_inputs, amp_result, amp_matmul), mul :91 (fc's flattening
 matmul), scale :142 and mean :158.  A plain matrix product outside any
 kernel goes to torch.matmul, as the JAX package leaves it to XLA; f32
 products run in full f32 (TF32 stays off unless the caller enables it).
+Under FLAGS_amp_bf16 the operands are cast to bf16 and a 2-byte product
+returns its 2-byte result directly.  It accumulates in f32 only when the
+caller turns off torch.backends.cuda.matmul.
+allow_bf16_reduced_precision_reduction (on by PyTorch's default, it lets
+cuBLAS add split-K partial sums in bf16), as chip_smoke.py does.
+The JAX package's FLAGS_quantize_dtype branch of amp_matmul is not ported
+(ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -11,7 +19,41 @@ import math
 
 import torch
 
+from ..core import flags
 from ..framework.registry import register_op, single_input
+
+
+def amp_inputs(*xs):
+    """Under FLAGS_amp_bf16, the f32 operands of a matmul-style op cast to
+    bf16 (the params stay f32 master copies; autograd's cast carries the
+    gradient back to f32); others pass unchanged."""
+    if flags.get_flag("amp_bf16"):
+        xs = tuple(x.to(torch.bfloat16) if x.dtype == torch.float32 else x
+                   for x in xs)
+    return xs
+
+
+def amp_result(out, orig_dtype):
+    """A matmul-style op's output dtype: under AMP an f32-origin result
+    stays bf16, so the activation plane (and every residual autograd
+    saves) is bf16; otherwise the origin dtype."""
+    if flags.get_flag("amp_bf16") and orig_dtype == torch.float32:
+        return out.to(torch.bfloat16)
+    return out.to(orig_dtype)
+
+
+def amp_matmul(x, y, orig_dtype=None):
+    """torch.matmul with the AMP dtype policy: when the (amp-cast) operands
+    are 2-byte, the product's 2-byte result directly (bf16 for an f32
+    origin); f32 operands keep f32 accumulation and amp_result decides the
+    output plane."""
+    orig = x.dtype if orig_dtype is None else orig_dtype
+    x, y = amp_inputs(x, y)
+    if x.dtype.itemsize == 2:
+        out = torch.matmul(x, y)            # 2-byte in -> 2-byte out
+        want = torch.bfloat16 if orig == torch.float32 else orig
+        return out if out.dtype == want else out.to(want)
+    return amp_result(torch.matmul(x, y), orig)
 
 
 def _flatten2(x, num_col_dims):
@@ -26,7 +68,7 @@ def _mul(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
     xn = int(attrs.get("x_num_col_dims", 1))
     yn = int(attrs.get("y_num_col_dims", 1))
-    out = torch.matmul(_flatten2(x, xn), _flatten2(y, yn))
+    out = amp_matmul(_flatten2(x, xn), _flatten2(y, yn), x.dtype)
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     return {"Out": [out.reshape(out_shape)]}
 

@@ -32,6 +32,7 @@ def cuda():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", 0)
 
 
@@ -469,3 +470,118 @@ def test_fused_training_step_on_the_card_matches_the_cpu(cuda):
     once the CPU takes the card's relu branches inside the blocks."""
     import chip_smoke
     chip_smoke.train_match_fused(torch)
+
+
+# --- the AMP slice: the bf16 kernels -----------------------------------------
+
+def _bf16_tol():
+    import chip_smoke
+    return chip_smoke.BF16_RTOL
+
+
+def _rel_max(got, want):
+    """max |got - want| over max |want|, over several tensors."""
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    return err / max(float(b.float().abs().max()) for b in want)
+
+
+@pytest.mark.parametrize("H,d,B,Tq,Tk,causal,kv_len,amp", [
+    (8, 64, 4, 512, 512, True, None, 1),     # the path's layout, B 4
+    (8, 64, 2, 300, 300, False, 250, 1),
+    (8, 64, 2, 200, 333, False, None, 1),
+    (4, 128, 2, 300, 300, True, None, 1),
+    (8, 64, 2, 65, 65, True, None, 4),
+])
+def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
+                                        kv_len, amp):
+    """The bf16 head-major forward and backward against their plain
+    versions in bf16, each output at chip_smoke's BF16_RTOL of the max
+    |plain| of each head's 64-token tile (lse at the f32 tolerance), the
+    same bits on two calls."""
+    import chip_smoke
+    bf = torch.bfloat16
+    q = (_randn(cuda, H, d, B * Tq, seed=80) * amp).to(bf)
+    k = (_randn(cuda, H, d, B * Tk, seed=81) * amp).to(bf)
+    v = _randn(cuda, H, d, B * Tk, seed=82).to(bf)
+    do = _randn(cuda, H, d, B * Tq, seed=83).to(bf)
+    kw = dict(causal=causal, kv_len=kv_len)
+    o, lse = fa.flash_attention_hdt(q, k, v, B, **kw)
+    po, plse = fa.flash_attention_hdt_plain(q, k, v, B, **kw)
+    assert o.dtype == bf and lse.dtype == torch.float32
+    assert chip_smoke.tile_rel_err([o], [po]) <= _bf16_tol()
+    assert (lse - plse).abs().max().item() <= F32_TOL
+    delta = (do.float() * po.float()).sum(1, keepdim=True)
+    args = (q, k, v, plse, delta, do, B)
+    got = fa.flash_attention_hdt_bwd(*args, **kw)
+    again = fa.flash_attention_hdt_bwd(*args, **kw)
+    want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
+    assert all(t.dtype == bf for t in got)
+    assert chip_smoke.tile_rel_err(got, want) <= _bf16_tol()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("N,D,V,chunk,n_ignored,amp", [
+    (4096, 512, 32000, 1024, 3, 1),
+    (1000, 512, 1001, 256, 37, 1),           # element copies of W
+    (777, 201, 3000, 300, 11, 1),            # element copies of x
+    (2048, 512, 32000, 1024, 5, 12),         # a peaked softmax
+])
+def test_bf16_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored,
+                                          amp):
+    """The bf16 LM head forward (loss and lse f32, at the f32 tolerance)
+    and backward (dx and dW bf16, at BF16_RTOL of max |plain|), the same
+    bits on two calls."""
+    bf = torch.bfloat16
+    x = (_randn(cuda, N, D, seed=90) * amp).to(bf)
+    w = (_randn(cuda, D, V, seed=91) * 0.05).to(bf)
+    g = torch.Generator(device=cuda).manual_seed(92)
+    y = torch.randint(0, V, (N,), generator=g, device=cuda)
+    y[torch.randperm(N, generator=g, device=cuda)[:n_ignored]] = -1
+    gl = torch.rand(N, generator=g, device=cuda) * (2.0 / N)
+    loss, lse = lmh.lm_head_fwd(x, w, y)
+    ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
+    assert (loss - ploss).abs().max().item() <= F32_TOL
+    assert (lse - plse).abs().max().item() <= F32_TOL
+    got = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+    again = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+    want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
+    assert all(t.dtype == bf for t in got)
+    assert max(_rel_max([a], [b]) for a, b in zip(got, want)) <= _bf16_tol()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bf16_wrappers_refuse_what_they_cannot_take(cuda):
+    """fp16, mixed dtypes and bf16 in the [B, H, T, d] layout (ROADMAP
+    B.8b) raise on the card; nothing falls back to the plain version."""
+    q = torch.zeros(2, 64, 64, device=cuda)
+    lse = torch.zeros(2, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention_hdt(q.half(), q.half(), q.half(), 1)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention_hdt(q.bfloat16(), q, q, 1)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention_hdt_bwd(q.half(), q.half(), q.half(), lse, lse,
+                                   q.half(), 1)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention_hdt_bwd(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                                   lse.bfloat16(), lse, q.bfloat16(), 1)
+    b4 = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention(b4, b4, b4)
+    x = torch.zeros(4, 8, device=cuda)
+    w = torch.zeros(8, 16, device=cuda)
+    y = torch.zeros(4, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="f32"):
+        lmh.lm_head_fwd(x.half(), w.half(), y)
+    with pytest.raises(ValueError, match="f32"):
+        lmh.lm_head_fwd(x.bfloat16(), w, y)
+
+
+def test_amp_training_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step of the flagship training program under FLAGS_amp_bf16
+    at full width, L 2, batch 2, on CUDAPlace(0) and on the CPU (the bf16
+    plain versions): chip_smoke's check at its AMP tolerances."""
+    import chip_smoke
+    with chip_smoke.amp_bf16():
+        chip_smoke.train_match(torch, amp=True)
