@@ -4,11 +4,12 @@
     python ab_timings.py OTHER_TREE
 
 Runs chip_smoke.py's build and timing phases (phase_build, phase_timings,
-phase_timings_fused) of OTHER_TREE (say, a `git archive` of the parent
+phase_timings_fused, and phase_timings_amp and phase_timings_fused_amp
+where the tree has them) of OTHER_TREE (say, a `git archive` of the parent
 commit unpacked into a gitignored directory) and of the tree this script
 lies in, each run in a process of its own (the two trees' packages share a
 name), in the order other, this, this, other.  Prints nvidia-smi's name and
-power limit and every run's "[time]" lines tagged with the run, and exits
+power limit and every run's "[time..." lines tagged with the run, and exits
 non-zero if a run fails.  Versions are compared only inside one such call:
 two calls may land on two cards.
 """
@@ -23,6 +24,10 @@ torch.backends.cudnn.allow_tf32 = False
 c.phase_build(torch)
 c.phase_timings(torch)
 c.phase_timings_fused(torch)
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+for name in ("phase_timings_amp", "phase_timings_fused_amp"):
+    if hasattr(c, name):
+        getattr(c, name)(torch)
 """
 
 
@@ -49,7 +54,7 @@ def main(argv):
             print(f"[ab] run {i} ({tag}, {tree}) failed", file=sys.stderr)
             return 1
         for line in res.stdout.splitlines():
-            if line.startswith("[time]"):
+            if line.startswith("[time"):
                 print(f"[ab {i} {tag}] {line}", flush=True)
     return 0
 

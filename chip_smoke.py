@@ -30,7 +30,15 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    max |plain| on bf16 outputs (for flash, of each head's 64-token tile's
    max |plain|) and the f32 tolerances on lse and loss; two calls of each
    must give the same bits.  The flash compare must refuse a planted
-   fault (the last row tile skipping the first key tile).
+   fault (the last row tile skipping the first key tile).  The bf16
+   kernels of the AMP fuse_block path: the [B, H, T, d] flash forward and
+   backward on the block's [B, T, H, d] views (contiguous and 2 bytes off
+   16-byte alignment, a ragged T, head dim 128, Tq != Tk, a peaked
+   softmax) at BF16_RTOL by tile, with the head-major call's bits on the
+   same data; the bf16 block on the path shape, a ragged T, head dim 128,
+   an odd D and F (bf16 vectors there) and W1 x 8, at BLOCK_BF16_RTOL of
+   max |plain|.  Both give the same bits twice and refuse a planted fault
+   (the flash skipping a key tile, the block without b1).
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -71,6 +79,14 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    12 on bf16 residual sums) and no f32 flash or LM-head kernel.  The
    L 2 match runs under the flag too, at AMP_STEP_LOSS_RTOL and
    AMP_STEP_GRAD_RTOL.
+5d. Train fuse_block under AMP: the program of phase 5b built and run
+   under FLAGS_amp_bf16, 10 Adam steps at batch 32.  Each step must launch
+   the bf16 block kernel 6 times, the bf16 [B, H, T, d] flash forward and
+   backward 6 times each (the blocks' recompute), 1 layer norm (on the
+   last block's bf16 output), the bf16 LM-head forward once and its
+   backward once per chunk, and no f32 block, flash or LM-head kernel and
+   no head-major flash.  The L 2 match replays the card's relu masks
+   inside the blocks, at the AMP tolerances.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -92,7 +108,12 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    the training shapes, beside the plain versions and the library calls
    in bf16 (SDPA; matmul + F.cross_entropy and its autograd), with their
    bound at the bf16 tensor-core peak (989 TFLOP/s) or the bytes; the AMP
-   step is traced by kernel class.
+   step is traced by kernel class.  The AMP fuse_block path's three bf16
+   kernels likewise: the flash on the block's views beside the contiguous
+   and head-major calls, the bf16 block beside
+   torch.nn.TransformerEncoderLayer in bf16; the bf16 block's launches one
+   by one (BLOCK_BF16_CHAIN_LAUNCHES); the AMP fuse_block step traced by
+   kernel class.
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
@@ -157,6 +178,11 @@ BLOCK_RTOL = 1e-4    # of max |plain| on the block's output: f32 sums of
 # running max of their key tile, not the row's max (another unit); never
 # looser than the reference's bf16 tolerance 2e-2
 BF16_RTOL = 4 * 2.0 ** -8
+# the bf16 block kernel against its plain version, of max |plain| on the
+# output: BF16_RTOL.  The two round at the same places but the attention:
+# the kernel rounds p against its key tile's running max and divides after
+# the product (flash), the plain version rounds the normalized weights
+BLOCK_BF16_RTOL = BF16_RTOL
 # the L 2 AMP step, card vs CPU: the loss, a mean over 1024 tokens of bf16
 # activations whose last bits may round apart; each @GRAD after the relu
 # replay, of its max |CPU| entry: the reference's bf16 tolerance
@@ -197,6 +223,15 @@ KERNELS = {
                          "paddle_tpu/kernels/lm_head.py:144"),
     "lm_head_bwd_bf16": ("lm_head", "lm_head_bf16.cu",
                          "paddle_tpu/kernels/lm_head.py:215"),
+    # the AMP fuse-block path: the bf16 flash through [B, H, T, d] strides
+    # and the bf16 block forward
+    "flash_attention_bf16": ("flash_attention", "flash_attention_bf16.cu",
+                             "paddle_tpu/kernels/flash_attention.py:157"),
+    "flash_attention_bwd_bf16": (
+        "flash_attention", "flash_attention_bf16.cu",
+        "paddle_tpu/kernels/flash_attention.py:346"),
+    "transformer_block_bf16": ("fused_block", "fused_block_bf16.cu",
+                               "paddle_tpu/kernels/fused_block.py:235"),
 }
 # the kernels that only the fuse_block training program launches
 FUSE_BLOCK_KERNELS = ("flash_attention", "flash_attention_bwd",
@@ -204,6 +239,9 @@ FUSE_BLOCK_KERNELS = ("flash_attention", "flash_attention_bwd",
 # the kernels that only the AMP training program launches
 AMP_KERNELS = ("flash_attention_hdt_bf16", "flash_attention_hdt_bwd_bf16",
                "lm_head_fwd_bf16", "lm_head_bwd_bf16")
+# the kernels that only the fuse_block program under AMP launches
+FUSE_BLOCK_AMP_KERNELS = ("flash_attention_bf16", "flash_attention_bwd_bf16",
+                          "transformer_block_bf16")
 
 
 @contextlib.contextmanager
@@ -387,14 +425,23 @@ def flash_work(B, H, T, d):
             (10 * d * pairs, 4 * (7 * n + 2 * H * B * T)))
 
 
-def block_work(B, T, H, D, F):
+def block_work(B, T, H, D, F, width=4):
     """(FLOP, bytes) of one block forward, E = D: the q/k/v, Wo, W1 and W2
-    products, the causal attention, x in and out and the weights once."""
+    products, the causal attention, x in and out and the weights once in
+    `width` bytes an element (2: bf16), the vectors in f32."""
     N = B * T
     flops = 2 * N * D * 3 * D + 2 * N * D * D + 4 * N * D * F \
         + flash_work(B, H, T, D // H)[0][0]
-    nbytes = 4 * (2 * N * D + 4 * D * D + 2 * D * F + 5 * D + F)
+    nbytes = width * (2 * N * D + 4 * D * D + 2 * D * F) + 4 * (5 * D + F)
     return flops, nbytes
+
+
+def bf16_block_params(params, vectors="f32"):
+    """The fused-block params as the op hands them under AMP: bf16
+    matrices, f32 vectors (or bf16 ones, given vectors="bf16")."""
+    import torch
+    return tuple(t.to(torch.bfloat16) if t.ndim == 2 or vectors == "bf16"
+                 else t for t in params)
 
 
 def rotation(make, n=ROTATE):
@@ -844,7 +891,143 @@ def phase_compare(torch):
         note("lm_head_fwd_bf16", path, ef)
         note("lm_head_bwd_bf16", path,
              max(max_err(a, b) for a, b in zip(got, want)))
+
+    compare_fuse_block_amp(torch, rnd, note)
     return errs
+
+
+def compare_fuse_block_amp(torch, rnd, note):
+    """Phase 3's compares of the AMP fuse_block path's kernels: the bf16
+    [B, H, T, d] flash and the bf16 block (rnd makes f32 inputs on the
+    card, note records each kernel's error by path)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_block as fb
+    bf = torch.bfloat16
+
+    # the bf16 [B, H, T, d] flash against its plain versions in bf16 (by
+    # each head's tile, on head-major copies) and against the head-major
+    # bf16 call on the same data (the same products in the same order, so
+    # the same bits, whichever tile layout the strides pick): (H, d, B,
+    # Tq, Tk, causal, layout, scale of q and k, path).  "bthd" is the
+    # block's [B, T, H, d] view (feature stride 1: token-row tiles by
+    # 16-byte copies), "bthd+1" the same 2 bytes into its storage (element
+    # copies), "bhtd" contiguous
+    for H, d, B, Tq, Tk, causal, layout, amp, path in [
+            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", 1,
+             "train"),
+            (8, 64, 2, 300, 300, False, "bhtd", 1, "ragged"),
+            (8, 64, 2, 200, 333, False, "bthd", 1, "ragged"),
+            (4, 128, 2, 300, 300, True, "bthd", 1, "ragged"),
+            (8, 64, 2, 65, 65, True, "bthd", 4, "ragged"),
+            (8, 64, 2, 300, 300, True, "bthd+1", 1, "ragged"),
+            (4, 128, 2, 200, 333, False, "bthd+1", 4, "ragged"),
+            (8, 64, 4, 512, 512, True, "bthd", 4, "ragged")]:
+        def make(T, mul=amp):
+            if layout == "bthd":
+                return bthd_view((rnd(B, T, H * d) * mul).to(bf), H)
+            if layout == "bthd+1":
+                x = (rnd(B * T * H * d + 1) * mul).to(bf)
+                return bthd_view(x[1:].view(B, T, H * d), H)
+            return (rnd(B, H, T, d) * mul).to(bf)
+
+        q, k, v, do = make(Tq), make(Tk), make(Tk, 1), make(Tq, 1)
+        if layout == "bthd+1" and q.data_ptr() % 16 == 0:
+            raise RuntimeError("the misaligned case is 16-byte aligned")
+        o, lse = fa.flash_attention_bf16(q, k, v, causal)
+        o2, lse2 = fa.flash_attention_bf16(q, k, v, causal)
+        po, plse = fa.flash_attention_plain(q, k, v, causal)
+        delta = (do.float() * po.float()).sum(-1)
+        args = (q, k, v, plse, delta, do, causal)
+        got = fa.flash_attention_bwd_bf16(*args)
+        again = fa.flash_attention_bwd_bf16(*args)
+        want = fa.flash_attention_bwd_plain(*args)
+        qh, kh, vh, doh = map(head_major, (q, k, v, do))
+        lse_h = plse.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
+        delta_h = delta.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
+        oh, lseh = fa.flash_attention_hdt_bf16(qh, kh, vh, B, causal=causal)
+        gh = fa.flash_attention_hdt_bwd_bf16(qh, kh, vh, lse_h, delta_h, doh,
+                                             B, causal=causal)
+        torch.cuda.synchronize()
+        ro = tile_rel_err([head_major(o)], [head_major(po)])
+        el = max_err(lse, plse)
+        rb = tile_rel_err([head_major(t) for t in got],
+                          [head_major(t) for t in want])
+        same = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+            torch.equal(a, b) for a, b in zip(got, again))
+        bits = (torch.equal(head_major(o), oh) and torch.equal(
+            lse.permute(1, 0, 2).reshape(H, 1, B * Tq), lseh) and all(
+            torch.equal(head_major(a), b) for a, b in zip(got, gh)))
+        log(f"[compare] flash_attention_bf16 [B,H,T,d] ({layout}) H={H} "
+            f"d={d} B={B} Tq={Tq} Tk={Tk} causal={causal} q, k x{amp}: o "
+            f"{ro:.3g} of its tile's max |plain| (tol {BF16_RTOL:g}), lse "
+            f"max abs err {el:.3g} (tol {FA_TOL:g}); dq, dk, dv {rb:.3g} of "
+            f"their tile's max |plain| (tol {BF16_RTOL:g}); two runs "
+            f"bit-identical: {same}; the head-major bf16 call's bits: "
+            f"{bits}")
+        if path == "train":
+            fo, fdq = skipped_key_tile(fa, qh, kh, vh, lse_h, delta_h, doh,
+                                       B, Tq)
+            fault = (tile_rel_err([fo], [head_major(po)]),
+                     tile_rel_err([fdq], [head_major(want[0])]))
+            log(f"[fault] flash bf16 [B,H,T,d], the last row tile skipping "
+                f"the first key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} "
+                f"of their tile's max |plain| (tol {BF16_RTOL:g})")
+            if not min(fault) > BF16_RTOL:
+                raise RuntimeError(f"the bf16 [B,H,T,d] flash compare passes "
+                                   f"a skipped key tile: {fault}")
+        if not (ro <= BF16_RTOL and el <= FA_TOL and rb <= BF16_RTOL):
+            raise RuntimeError(f"bf16 [B,H,T,d] flash disagrees: {ro}, {el}, "
+                               f"{rb}")
+        if not (o.dtype == bf and all(t.dtype == bf for t in got)):
+            raise RuntimeError("bf16 [B,H,T,d] flash: outputs not bf16")
+        if not (same and bits):
+            raise RuntimeError("bf16 [B,H,T,d] flash: not deterministic, or "
+                               "not the head-major call's bits")
+        note("flash_attention_bf16", path, max_err(o, po))
+        note("flash_attention_bwd_bf16", path,
+             max(max_err(a, b) for a, b in zip(got, want)))
+
+    # the bf16 block against its plain version in bf16, twice for the same
+    # bits: (B, T, H, D, E, F, causal, scale of W1, vectors, path).  The
+    # op's inputs: bf16 x and matrices, f32 vectors (bf16 ones, which the
+    # wrapper widens, in the odd case); D 201, F 333 take element copies
+    for B, T, H, D, E, F, causal, w1s, vectors, path in [
+            (TRAIN_BATCH, TRAIN_T, 8, 512, 512, 2048, True, 1, "f32",
+             "train"),
+            (2, 300, 8, 512, 512, 2048, False, 1, "f32", "ragged"),
+            (2, 300, 4, 512, 512, 2048, True, 1, "f32", "ragged"),
+            (2, 67, 2, 201, 128, 333, True, 1, "bf16", "ragged"),
+            (4, 512, 8, 512, 512, 2048, True, 8, "f32", "ragged")]:
+        x, params = block_inputs(rnd, B, T, D, F, E, w1s)
+        x, params = x.to(bf), bf16_block_params(params, vectors)
+        got = fb.transformer_block_bf16(x, params, H, causal)
+        again = fb.transformer_block_bf16(x, params, H, causal)
+        want = fb.transformer_block_plain(x, params, H, causal)
+        torch.cuda.synchronize()
+        e, r = max_err(got, want), rel_err(got, want)
+        same = torch.equal(got, again)
+        log(f"[compare] transformer_block_bf16 B={B} T={T} H={H} D={D} "
+            f"E={E} F={F} causal={causal} W1 x{w1s} {vectors} vectors: max "
+            f"abs err {e:.3g}, {r:.3g} of max |plain| "
+            f"{float(want.float().abs().max()):.3g} (tol "
+            f"{BLOCK_BF16_RTOL:g}); two runs bit-identical: {same}")
+        if path == "train":
+            cut = list(params)
+            cut[9] = torch.zeros_like(cut[9])          # b1
+            fault = rel_err(fb.transformer_block_plain(x, cut, H, causal),
+                            want)
+            log(f"[fault] block bf16 without b1: {fault:.3g} of max |plain| "
+                f"(tol {BLOCK_BF16_RTOL:g})")
+            if not fault > BLOCK_BF16_RTOL:
+                raise RuntimeError(f"the bf16 block compare passes a block "
+                                   f"without b1: {fault}")
+        if not r <= BLOCK_BF16_RTOL:
+            raise RuntimeError(f"bf16 block kernel disagrees: {r} > "
+                               f"{BLOCK_BF16_RTOL}")
+        if got.dtype != bf or not same:
+            raise RuntimeError("bf16 block kernel: output not bf16, or not "
+                               "deterministic")
+        note("transformer_block_bf16", path, e)
 
 
 def phase_serve(torch):
@@ -988,7 +1171,8 @@ def phase_train(torch, fuse_block=False, amp=False):
     batch, launch counts per step, loss falling, then the step time over 5
     more steps and the card-vs-CPU match at L 2.  With fuse_block, the
     program is the FuseBlockTranspiler's (slice 3), else slice 2's; with
-    amp, slice 2's built and run under FLAGS_amp_bf16 (slice 7)."""
+    amp, built and run under FLAGS_amp_bf16 (slice 7; with fuse_block,
+    slice 8)."""
     with amp_bf16(amp):
         return _phase_train(torch, fuse_block, amp)
 
@@ -999,8 +1183,8 @@ def _phase_train(torch, fuse_block, amp):
     from paddle_tpu_torch.models import transformer as tr
     from paddle_tpu_torch.ops import nn_ops
 
-    tag = "[train fuse_block]" if fuse_block else (
-        "[train amp]" if amp else "[train]")
+    tag = "[train" + (" fuse_block" if fuse_block else "") + (
+        " amp" if amp else "") + "]"
     cfg = tr.TransformerConfig(**FLAGSHIP)
     main, startup, avg_cost, pg = build_train(cfg, fuse_block, amp)
     exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
@@ -1047,8 +1231,8 @@ def _phase_train(torch, fuse_block, amp):
     # one a residual sum that stays bf16
     want_ln = (["float32"] + ["bfloat16"] * (2 * cfg.n_layer) if amp
                else ["float32"] * (2 * cfg.n_layer + 1))
-    if fuse_block:
-        want_ln = ["float32"]
+    if fuse_block:   # the final layer norm: the embedding's dtype or bf16
+        want_ln = ["bfloat16" if amp else "float32"]
     log(f"{tag} layer-norm inputs of step 0 by dtype: "
         f"{ {d: ln_dtypes.count(d) for d in sorted(set(ln_dtypes))} }")
     if ln_dtypes != want_ln:
@@ -1060,7 +1244,16 @@ def _phase_train(torch, fuse_block, amp):
               if op.type == "fused_lm_head_loss"]
     per_step = {n: 0 for n in KERNELS}
     per_step.update({"lm_head_fwd": 1, "lm_head_bwd": -(-n_tok // chunk)})
-    if fuse_block:
+    if fuse_block and amp:
+        # the bf16 kernels of slice 3's launches; no f32 block, flash or
+        # LM-head kernel and no head-major flash
+        per_step.update({"transformer_block_bf16": cfg.n_layer,
+                         "flash_attention_bf16": cfg.n_layer,
+                         "flash_attention_bwd_bf16": cfg.n_layer,
+                         "layer_norm": 1, "lm_head_fwd": 0, "lm_head_bwd": 0,
+                         "lm_head_fwd_bf16": 1,
+                         "lm_head_bwd_bf16": -(-n_tok // chunk)})
+    elif fuse_block:
         # one block kernel per layer (its flash and layer norms run inside
         # its C entry, not through the Python wrappers); the backward
         # recompute of each block runs the [B, H, T, d] flash forward and
@@ -1103,7 +1296,7 @@ def _phase_train(torch, fuse_block, amp):
         f"{TRAIN_BATCH}x{TRAIN_T}); first step {step_ms[0]:.2f} ms; peak "
         f"device memory {peak / 2**20:.1f} MiB")
     if fuse_block:
-        train_match_fused(torch)
+        train_match_fused(torch, amp)
     else:
         train_match(torch, amp)
     return counts, dict(exe=exe, main=main, batch=batch,
@@ -1248,17 +1441,17 @@ def check_replayed(tag, pg, loss, grads, r_loss, r_grads,
 @contextlib.contextmanager
 def block_relu(record=None, masks=None):
     """Within kernels/fused_block.block_reference (the block's plain
-    forward and its backward recompute), the MLP's relu appends its
-    pre-activation to `record` (as numpy), or, given `masks`, computes
-    pre * mask, taking the masks in call order; yields the masks not yet
-    taken."""
+    forward and its backward recompute), the MLP's relu appends its f32
+    pre-activation (fused_block._mlp_pre, the block's own u plan) to
+    `record` (as numpy), or, given `masks`, computes pre * mask, taking
+    the masks in call order; yields the masks not yet taken."""
     import torch
     from paddle_tpu_torch.kernels import fused_block as fb
     orig = fb._mlp_hidden
     left = list(masks or [])
 
     def hidden(f, w1, b1):
-        pre = torch.matmul(f, w1) + b1
+        pre = fb._mlp_pre(f, w1, b1)
         if record is not None:
             record.append(pre.detach().cpu().numpy())
         if masks is None:
@@ -1272,9 +1465,10 @@ def block_relu(record=None, masks=None):
         fb._mlp_hidden = orig
 
 
-def train_match_fused(torch):
+def train_match_fused(torch, amp=False):
     """train_match for the fuse-block program: one step at full width,
-    L 2, batch 2, from the same weights on the card and on the CPU.
+    L 2, batch 2, from the same weights on the card and on the CPU; with
+    amp, under FLAGS_amp_bf16 (the caller's) at the AMP tolerances.
 
     The block's relu is inside fused_transformer_block, not an op, so the
     registry-level replay of train_match cannot reach it.  The gradients
@@ -1292,7 +1486,10 @@ def train_match_fused(torch):
 
     cfg = tr.TransformerConfig(**dict(FLAGSHIP, n_layer=2))
     L = cfg.n_layer
-    main, startup, avg_cost, pg = build_train(cfg, fuse_block=True)
+    tag = "[train fuse_block amp]" if amp else "[train fuse_block]"
+    loss_tol = AMP_STEP_LOSS_RTOL if amp else STEP_LOSS_RTOL
+    grad_tol = AMP_STEP_GRAD_RTOL if amp else STEP_GRAD_RTOL
+    main, startup, avg_cost, pg = build_train(cfg, fuse_block=True, amp=amp)
     init = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
     init.run(startup)
     state = {v.name: init.scope.find_var(v.name).numpy()
@@ -1319,16 +1516,15 @@ def train_match_fused(torch):
                            f"expected {L} and {2 * L}")
     card_pre, cpu_rec = card_pre[::-1], cpu_pre[L:][::-1]
     le = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
-    log(f"[train fuse_block] L2 batch 2 step, card vs CPU: loss "
-        f"{loss:.6f} vs {cpu_loss:.6f} (rel err {le:.3g}, tol "
-        f"{STEP_LOSS_RTOL:g})")
-    if not le <= STEP_LOSS_RTOL:
+    log(f"{tag} L2 batch 2 step, card vs CPU: loss {loss:.6f} vs "
+        f"{cpu_loss:.6f} (rel err {le:.3g}, tol {loss_tol:g})")
+    if not le <= loss_tol:
         raise RuntimeError("fused training loss differs between card and "
                            "CPU")
     for layer, (a, c) in enumerate(zip(card_pre, cpu_rec)):
         flip = (a > 0) != (c > 0)
         near = np.abs(c[flip]).max() if flip.any() else 0.0
-        log(f"[train fuse_block]   block {layer} relu (backward "
+        log(f"{tag}   block {layer} relu (backward "
             f"recompute): {int(flip.sum())} of {flip.size} pre-activations "
             f"on the other branch on the card, there max |CPU "
             f"pre-activation| {near:.3g}, against max |card - CPU| "
@@ -1336,26 +1532,31 @@ def train_match_fused(torch):
     for (p, _), a, c in zip(pg, grads, cpu_grads):
         if a.shape != c.shape or not np.isfinite(a).all():
             raise RuntimeError(f"{p.name}@GRAD: bad card gradient")
-        far = np.abs(a - c) > STEP_GRAD_RTOL * max(np.abs(c).max(), 1e-30)
+        far = np.abs(a - c) > grad_tol * max(np.abs(c).max(), 1e-30)
         if far.any():
-            log(f"[train fuse_block]   {p.name}@GRAD: {int(far.sum())} "
-                f"entries off by more than {STEP_GRAD_RTOL:g} of its max "
+            log(f"{tag}   {p.name}@GRAD: {int(far.sum())} "
+                f"entries off by more than {grad_tol:g} of its max "
                 f"entry (up to {np.abs(a - c).max() / np.abs(c).max():.3g})"
                 f" before the card's relu masks are replayed")
     masks = [torch.from_numpy((a > 0).astype(np.float32)) for a in card_pre]
     r_loss, r_grads = step(ptt.CPUPlace(), masks=masks + masks[::-1])
-    check_replayed("[train fuse_block]", pg, loss, grads, r_loss, r_grads)
+    check_replayed(tag, pg, loss, grads, r_loss, r_grads, loss_tol, grad_tol)
 
 
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
+BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
 # split, LN1, q/k/v, flash, o's split, Wo, LN2, W1, W2
 BLOCK_CHAIN_LAUNCHES = 9
+# ... and of one bf16 block forward (fused_block_bf16.cu's): LN1, q/k/v,
+# flash, Wo, LN2, W1, W2
+BLOCK_BF16_CHAIN_LAUNCHES = 7
 
 
 def _kernel_class(name):
     if "_bf16" in name:   # the AMP path's kernels
-        for key, cls in (("flash_bwd", "flash backward bf16 (this repo)"),
+        for key, cls in (("block_gemm", BLOCK_GEMMS_BF16),
+                         ("flash_bwd", "flash backward bf16 (this repo)"),
                          ("flash_fwd", "flash forward bf16 (this repo)"),
                          ("lm_head_fwd", "lm_head_fwd bf16 (this repo)"),
                          ("lm_head_bwd", "lm_head_bwd bf16 (this repo)")):
@@ -1443,10 +1644,11 @@ def trace_run(torch, label, fn, expect=None):
     return names
 
 
-def block_breakdown(torch):
+def block_breakdown(torch, bf16=False):
     """The block forward's launches at the training shape (B 32, T 512,
-    H 8, D = E 512, F 2048): each kernel's device time over one call from
-    torch.profiler, and the tile-loop kernels' TFLOP/s of f32 work:
+    H 8, D = E 512, F 2048), f32 or (bf16) the AMP inputs: each kernel's
+    device time over one call from torch.profiler, and the tile-loop
+    kernels' TFLOP/s of their work:
     {kernel name: {"ms", "launches"(, "tflops")}}."""
     from paddle_tpu_torch.kernels import fused_block as fb
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
@@ -1454,6 +1656,8 @@ def block_breakdown(torch):
     N = B * T
     x, params = block_inputs(
         lambda *s: torch.randn(*s, generator=g, device=DEVICE), B, T, D, FF)
+    if bf16:
+        x, params = x.to(torch.bfloat16), bf16_block_params(params)
     events, _ = profiled(
         torch, lambda: fb.transformer_block(x, params, H, True))
     # f32 FLOP of block_gemm_kernel<EPI>: q/k/v, Wo, W1, W2
@@ -1466,14 +1670,14 @@ def block_breakdown(torch):
             continue
         ms = e.self_device_time_total / 1e3
         row = dict(ms=ms, launches=e.count)
-        if "block_gemm_kernel<" in e.key:
-            epi = int(e.key.split("block_gemm_kernel<")[1][0])
+        if "_kernel<" in e.key and "block_gemm" in e.key:
+            epi = int(e.key.split("_kernel<")[1][0])
             row["tflops"] = gemm_flops[epi] / ms / 1e9
         res[_short_kernel_name(e.key)] = row
     total = sum(r["ms"] for r in res.values())
-    log(f"[block] one block forward B={B} T={T} H={H} D={D} F={FF}: "
-        f"{sum(r['launches'] for r in res.values())} launches, "
-        f"{total:.4f} ms of device time")
+    log(f"[block] one {'bf16 ' if bf16 else ''}block forward B={B} T={T} "
+        f"H={H} D={D} F={FF}: {sum(r['launches'] for r in res.values())} "
+        f"launches, {total:.4f} ms of device time")
     for name, r in res.items():
         rate = f", {r['tflops']:.2f} TFLOP/s" if "tflops" in r else ""
         log(f"[block]   {name}: {r['ms']:.4f} ms ({r['launches']} "
@@ -2055,6 +2259,180 @@ def phase_timings_fused(torch):
     return res
 
 
+def phase_timings_fused_amp(torch):
+    """The AMP fuse-block path's bf16 kernels at its shapes (B 32, T 512,
+    H 8, d 64, D 512, F 2048), cold as in phase_timings: the bf16
+    [B, H, T, d] flash forward and backward on the block recompute's
+    [B, T, H, d] views, beside the contiguous [B, H, T, d] call and the
+    head-major bf16 call on the same data, its plain version and SDPA in
+    bf16; the bf16 block forward, cold and warm, beside its plain version
+    and torch.nn.TransformerEncoderLayer in bf16, whose output is first
+    held against the plain version at the reference's bf16 tolerance."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_block as fb
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    B, T, H, d, D, FF = TRAIN_BATCH, TRAIN_T, 8, 64, 512, 2048
+    pairs = B * H * T * (T + 1) // 2
+    n = H * d * B * T
+    fops, fbytes = 4 * d * pairs, 2 * 4 * n + 4 * H * B * T
+    bops, bbytes = 10 * d * pairs, 2 * 7 * n + 2 * 4 * H * B * T
+
+    def make():
+        """One input set in the three layouts: name -> (q, k, v, do, lse,
+        delta)."""
+        q, k, v, do = (bthd_view(rnd(B, T, H * d), H) for _ in range(4))
+        sets = {"bthd": (q, k, v, do),
+                "bhtd": tuple(t.contiguous() for t in (q, k, v, do))}
+        out = {}
+        for name, (q_, k_, v_, do_) in sets.items():
+            o_, lse_ = fa.flash_attention_bf16(q_, k_, v_, True)
+            out[name] = (q_, k_, v_, do_, lse_,
+                         (do_.float() * o_.float()).sum(-1))
+        qh, kh, vh, doh = map(head_major, sets["bhtd"])
+        oh, lseh = fa.flash_attention_hdt_bf16(qh, kh, vh, B, causal=True)
+        out["head-major"] = (qh, kh, vh, doh, lseh,
+                             (doh.float() * oh.float()).sum(1, keepdim=True))
+        return out
+
+    rot = rotation(make)
+
+    def fwd_call(name, fn=None):
+        q_, k_, v_ = rot()[name][:3]
+        if name == "head-major":
+            return fa.flash_attention_hdt_bf16(q_, k_, v_, B, causal=True)
+        return (fn or fa.flash_attention_bf16)(q_, k_, v_, True)
+
+    def bwd_call(name, fn=None):
+        q_, k_, v_, do_, lse_, delta_ = rot()[name]
+        if name == "head-major":
+            return fa.flash_attention_hdt_bwd_bf16(q_, k_, v_, lse_, delta_,
+                                                   do_, B, causal=True)
+        return (fn or fa.flash_attention_bwd_bf16)(q_, k_, v_, lse_, delta_,
+                                                   do_, True)
+
+    fwd, bwd, host = {}, {}, {}
+    for name in ("bthd", "bhtd", "head-major"):
+        fwd[name], host[name] = time_ms(lambda: fwd_call(name))
+        bwd[name], host[name + " bwd"] = time_ms(lambda: bwd_call(name),
+                                                 iters=20, warmup=2)
+    fplain, _ = time_ms(lambda: fwd_call("bthd", fa.flash_attention_plain),
+                        iters=10)
+    bplain, _ = time_ms(lambda: bwd_call("bthd", fa.flash_attention_bwd_plain),
+                        iters=5, warmup=1)
+    flib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        *rot()["bhtd"][:3], is_causal=True))
+    del rot
+
+    def make_lib():
+        qg, kg, vg, doc = (rnd(B, H, T, d) for _ in range(4))
+        qg, kg, vg = (t.requires_grad_() for t in (qg, kg, vg))
+        return (F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+                (qg, kg, vg), doc)
+
+    lib_rot = rotation(make_lib)
+
+    def lib_bwd():
+        og, ins, doc = lib_rot()
+        return torch.autograd.grad(og, ins, doc, retain_graph=True)
+
+    blib, _ = time_ms(lib_bwd, iters=20, warmup=2)
+    del lib_rot
+    res = {
+        "flash_attention_bf16": dict(
+            ms=fwd["bthd"], plain_ms=fplain, library_ms=flib,
+            contiguous_bhtd_ms=fwd["bhtd"], head_major_ms=fwd["head-major"],
+            **bf16_bounds(fops, fbytes, fwd["bthd"])),
+        "flash_attention_bwd_bf16": dict(
+            ms=bwd["bthd"], plain_ms=bplain, library_ms=blib,
+            contiguous_bhtd_ms=bwd["bhtd"], head_major_ms=bwd["head-major"],
+            **bf16_bounds(bops, bbytes, bwd["bthd"]))}
+    for name, ops, nb, times, plain, lib, what, h in (
+            ("flash_attention_bf16", fops, fbytes, fwd, fplain, flib,
+             "sdpa", host["bthd"]),
+            ("flash_attention_bwd_bf16", bops, bbytes, bwd, bplain, blib,
+             "sdpa backward", host["bthd bwd"])):
+        r = res[name]
+        log(f"[time fuse_block amp] {name} [B,H,T,d] H={H} d={d} B={B} "
+            f"T={T} causal bf16, cold: kernel on the block recompute's "
+            f"[B,T,H,d] views (token stride {H * d}) {times['bthd']:.4f} ms "
+            f"({r['tflops']:.2f} TFLOP/s), on contiguous [B,H,T,d] (token "
+            f"stride {d}) {times['bhtd']:.4f} ms, the head-major call (token "
+            f"stride 1) {times['head-major']:.4f} ms; plain {plain:.4f} ms, "
+            f"{what} (bf16) {lib:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({ops / 1e9:.3f} GFLOP at "
+            f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nb / 1e6:.1f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s); host enqueue per call "
+            f"{h:.4f} ms")
+
+    # the block forward: x (16 MiB in bf16) rotates over ROTATE buffers for
+    # the kernel, the plain version and the library layer alike; the
+    # weights stay (6.3 MB)
+    xf, params = block_inputs(lambda *sh: torch.randn(
+        *sh, generator=g, device=dev), B, T, D, FF)
+    x, params = xf.to(bf), bf16_block_params(params)
+    brot = rotation(lambda: rnd(B, T, D))
+    ms, bhost = time_ms(lambda: fb.transformer_block_bf16(brot(), params, H,
+                                                          True),
+                        iters=10, warmup=2)
+    warm, _ = time_ms(lambda: fb.transformer_block_bf16(x, params, H, True),
+                      iters=10, warmup=2)
+    plain, _ = time_ms(lambda: fb.transformer_block_plain(brot(), params, H,
+                                                          True),
+                       iters=5, warmup=1)
+    layer = torch.nn.TransformerEncoderLayer(
+        D, H, FF, dropout=0.0, activation="relu", batch_first=True,
+        norm_first=True, device=dev).eval()
+    ln1g, ln1b, wq, wk, wv, wo, ln2g, ln2b, w1, b1, w2, b2 = params
+    with torch.no_grad():
+        sa = layer.self_attn
+        sa.in_proj_weight.copy_(torch.cat([wq, wk, wv], 1).t())
+        sa.in_proj_bias.zero_()
+        sa.out_proj.weight.copy_(wo.t())
+        sa.out_proj.bias.zero_()
+        for mod, w_, b_ in ((layer.linear1, w1.t(), b1),
+                            (layer.linear2, w2.t(), b2),
+                            (layer.norm1, ln1g, ln1b),
+                            (layer.norm2, ln2g, ln2b)):
+            mod.weight.copy_(w_)
+            mod.bias.copy_(b_)
+        layer = layer.to(bf)
+        mask = torch.nn.Transformer.generate_square_subsequent_mask(
+            T, device=dev, dtype=bf)
+
+        def lib_call(x_):
+            return layer(x_, src_mask=mask, is_causal=True)
+
+        lib_err = rel_err(lib_call(x), fb.transformer_block_plain(
+            x, params, H, True))
+        lib, _ = time_ms(lambda: lib_call(brot()), iters=10, warmup=2)
+    del brot
+    if not lib_err <= 2e-2:
+        raise RuntimeError(f"TransformerEncoderLayer in bf16 is not the "
+                           f"block's function: {lib_err} of max |plain|")
+    ops, nbytes = block_work(B, T, H, D, FF, width=2)
+    res["transformer_block_bf16"] = dict(
+        ms=ms, warm_ms=warm, plain_ms=plain, library_ms=lib,
+        **bf16_bounds(ops, nbytes, ms))
+    r = res["transformer_block_bf16"]
+    log(f"[time fuse_block amp] transformer_block_bf16 B={B} T={T} H={H} "
+        f"D={D} F={FF} causal bf16: kernel cold {ms:.4f} ms "
+        f"({r['tflops']:.2f} TFLOP/s), warm {warm:.4f} ms, plain "
+        f"{plain:.4f} ms, TransformerEncoderLayer in bf16 (norm_first, "
+        f"causal mask, attention biases 0; output {lib_err:.3g} of max "
+        f"|plain| from the plain version, tol 2e-2) {lib:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({ops / 1e9:.2f} GFLOP "
+        f"at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB); "
+        f"host enqueue per call {bhost:.4f} ms")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2083,9 +2461,11 @@ def main():
     counts, train = phase_train(torch)
     fcounts, ftrain = phase_train(torch, fuse_block=True)
     acounts, atrain = phase_train(torch, amp=True)
+    facounts, fatrain = phase_train(torch, fuse_block=True, amp=True)
     times = phase_timings(torch)
     times.update(phase_timings_fused(torch))
     amp_times = phase_timings_amp(torch)
+    amp_times.update(phase_timings_fused_amp(torch))
     # last: the profiler stays attached to the process once started, and
     # its per-launch cost would skew the timings above
     trace_run(torch, f"batch {toks.shape[0]} request",
@@ -2126,12 +2506,48 @@ def main():
     log(f"[trace]   AMP step layer norms by input type: {ln_types}")
     if ln_types != {"float": 1, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"]}:
         raise RuntimeError(f"AMP step layer norms {ln}")
+    # the AMP fuse_block step: four bf16 block GEMMs a layer; the bf16 flash
+    # forward inside each block and in its recompute, the backward's two
+    # kernels; every layer norm on bf16 rows (12 inside the blocks, the
+    # final one); no f32 block, flash or LM head
+    with amp_bf16():
+        names = trace_run(
+            torch, f"AMP fuse_block training step at batch {TRAIN_BATCH}",
+            lambda: fatrain["exe"].run(fatrain["main"],
+                                       feed=fatrain["batch"],
+                                       fetch_list=[fatrain["avg_cost"]],
+                                       return_numpy=False),
+            expect={BLOCK_GEMMS_BF16: 4 * FLAGSHIP["n_layer"],
+                    "flash forward bf16 (this repo)": 2 * FLAGSHIP["n_layer"],
+                    "flash backward bf16 (this repo)":
+                        2 * FLAGSHIP["n_layer"],
+                    "lm_head_fwd bf16 (this repo)": 2,
+                    "lm_head_bwd bf16 (this repo)": 4 * n_chunks,
+                    BLOCK_GEMMS: 0,
+                    "lm_head_fwd (this repo)": 0,
+                    "lm_head_bwd (this repo)": 0,
+                    _kernel_class("flash_fwd_hdt_kernel"): 0,
+                    _kernel_class("flash_bwd_dq_kernel"): 0})
+    ln = names.get(_kernel_class("ln_fwd_kernel"), {})
+    ln_types = {t: sum(c for k, c in ln.items() if f"ln_fwd_kernel<{t}" in k)
+                for t in ("float", "__nv_bfloat16")}
+    log(f"[trace]   AMP fuse_block step layer norms by input type: "
+        f"{ln_types}")
+    if ln_types != {"float": 0, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"] + 1}:
+        raise RuntimeError(f"AMP fuse_block step layer norms {ln}")
     by_kernel = block_breakdown(torch)
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_CHAIN_LAUNCHES:
         raise RuntimeError(f"one block forward made {n_chain} launches, "
                            f"expected {BLOCK_CHAIN_LAUNCHES}")
     times["transformer_block"]["train"].update(by_kernel=by_kernel,
+                                               launches_per_call=n_chain)
+    by_kernel = block_breakdown(torch, bf16=True)
+    n_chain = sum(r["launches"] for r in by_kernel.values())
+    if n_chain != BLOCK_BF16_CHAIN_LAUNCHES:
+        raise RuntimeError(f"one bf16 block forward made {n_chain} "
+                           f"launches, expected {BLOCK_BF16_CHAIN_LAUNCHES}")
+    amp_times["transformer_block_bf16"].update(by_kernel=by_kernel,
                                                launches_per_call=n_chain)
     sdpa = sdpa_kernels(torch)
     for n in ("flash_attention_hdt", "flash_attention"):
@@ -2143,6 +2559,10 @@ def main():
         sdpa["fwd"])
     amp_times["flash_attention_hdt_bwd_bf16"]["library_kernels"] = sorted(
         sdpa["bwd"])
+    amp_times["flash_attention_bf16"]["library_kernels"] = sorted(
+        sdpa["fwd"])
+    amp_times["flash_attention_bwd_bf16"]["library_kernels"] = sorted(
+        sdpa["bwd"])
     times["layer_norm"]["train"]["bf16"] = amp_times.pop("layer_norm")
     for n, r in amp_times.items():
         times[n] = {"train": r}
@@ -2150,19 +2570,27 @@ def main():
         f"step's {train['p50_ms']:.2f} ms; peak device memory "
         f"{atrain['peak'] / 2**20:.1f} MiB against "
         f"{train['peak'] / 2**20:.1f} MiB")
+    log(f"[train fuse_block amp] step p50 {fatrain['p50_ms']:.2f} ms against "
+        f"the f32 fuse_block step's {ftrain['p50_ms']:.2f} ms; peak device "
+        f"memory {fatrain['peak'] / 2**20:.1f} MiB against "
+        f"{ftrain['peak'] / 2**20:.1f} MiB")
 
     # each kernel's launches on its training path (slice 2's program for
     # the five it runs, the fuse_block program for the three it adds, the
-    # AMP program for its four bf16 kernels),
+    # AMP program for its four bf16 kernels, the AMP fuse_block program for
+    # its three),
     # with the counts of every path under "launches_by_path", its errors
     # and times at the training step's shapes; the two kernels that
     # serving runs too carry the serving shape's under "serve"
     by_path = {"serve": serve_counts, "train": counts,
-               "train_fuse_block": fcounts, "train_amp": acounts}
+               "train_fuse_block": fcounts, "train_amp": acounts,
+               "train_fuse_block_amp": facounts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else
-                "train_amp" if n in AMP_KERNELS else "train")
+                "train_amp" if n in AMP_KERNELS else
+                "train_fuse_block_amp" if n in FUSE_BLOCK_AMP_KERNELS else
+                "train")
         k = dict(name=n, route="cuda",
                  source="paddle_tpu_torch/kernels/csrc/" + source,
                  replaces=replaces, launches=by_path[path][n],

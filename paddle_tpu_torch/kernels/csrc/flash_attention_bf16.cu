@@ -1,21 +1,26 @@
 // Flash attention, forward and backward, in bf16 for Hopper (sm_90a), on
-// the tensor cores: the kernels of the head-major path under
+// the tensor cores: the kernels of the attention paths under
 // FLAGS_amp_bf16.
 //
 // Replaces the Pallas TPU kernels
 // paddle_tpu/kernels/flash_attention.py:_flash_fwd_hdt (body
 // _fwd_kernel_hdt) and _flash_bwd_hdt (bodies _bwd_fused1_kernel_hdt,
 // _bwd_fused_kernel_hdt, _bwd_dkv_kernel_hdt and _bwd_dq_kernel_hdt) as
-// they run on bf16 q, k and v, which fused_mha hands them under AMP.  For
-// each head h and batch row b, with q' = bf16(q * bf16(scale)):
+// they run on bf16 q, k and v, which fused_mha hands them under AMP, and
+// _flash_fwd (body _fwd_kernel) and _flash_bwd (bodies _bwd_fused1_kernel,
+// _bwd_dkv_kernel and _bwd_dq_kernel) on the bf16 [B, H, T, d] views that
+// fused_attention, the fused block's backward recompute and the bf16 block
+// kernel (fused_block_bf16.cu) hand them.  For each head h and batch row
+// b, with q' = bf16(q * bf16(scale)):
 //   forward:  s = q' k^T (f32),  p = exp(s - m) (f32, m the running max),
 //             o = bf16((sum bf16(p) v) / sum p),  lse = m + log sum p (f32)
 //   backward: p = exp(s - lse),  ds = p * (do v^T - delta)   (f32)
 //             dv = bf16(sum bf16(p)^T do),  dk = bf16(sum bf16(ds)^T q'),
 //             dq = bf16(scale * sum bf16(ds) k)
 // These are the Pallas kernel's roundings (flash_attention.py:529, :542,
-// :586, :588, :615); delta = rowsum(do * o) comes in f32 from the caller,
-// taken before do is rounded to bf16 (:763-765).  Masked: keys after the
+// :586, :588, :615; in the [B, H, T, d] kernels :85, :108, :229, :237,
+// :240, :267, :273); delta = rowsum(do * o) comes in f32 from the caller,
+// taken before do is rounded to bf16 (:763-765, :329-331).  Masked: keys after the
 // query (causal), keys >= kv_len, and the ragged tails of every tile.
 // Every operand comes with (batch, head, feature, token) element strides.
 //
@@ -31,13 +36,25 @@
 // no split.  Triton is not used: the kernels need exact control of where
 // p and ds are rounded and of the fragment layout that lets them feed the
 // next product from registers.  A CTA is 4 warps, 16 tile rows a warp.
-// Every operand tile is staged as [d][64 + 8] bf16, features as rows and
-// tokens along them, which is the head-major layout's own order: where the
-// token stride is 1 and rows are 16-byte aligned (T a multiple of 8) a
-// tile is copied by 16-byte cp.async, 8 tokens a copy, else element by
-// element through registers (a ragged T, any other layout).  ldmatrix
-// gives every fragment from that one tile layout, .trans where the product
-// wants features along k (q k^T, v do^T).
+// Operand tiles are staged in one of two layouts, chosen per call on the
+// host from the inputs' strides (Tiles<D, TR> below):
+//   feature rows, [d][64 + 8] bf16, tokens along a row: the head-major
+//     layout's own order (token stride 1).  Where rows are 16-byte aligned
+//     (T a multiple of 8) a tile is copied by 16-byte cp.async, 8 tokens a
+//     copy;
+//   token rows, [64][d + 8] bf16, features along a row: taken when every
+//     input has feature stride 1 ([B, H, T, d], the [B, T, H, d] views of
+//     a [B, T, E] projection, the block's [N, 3E] q/k/v).  Where rows are
+//     16-byte aligned (token, head and batch strides multiples of 8) a
+//     tile is copied by 16-byte cp.async, 8 features a copy.
+// Anything else (a ragged head-major T, a view 2 bytes off alignment, a
+// layout with neither stride 1) is copied element by element through
+// registers.  Both layouts hold the same values, and ldmatrix (.trans where
+// the tile's rows are not the fragment's pairs) gives the same fragments
+// from either, so the products and the bits of every result do not depend
+// on the layout.  Outputs are written through their strides from
+// registers, two neighbouring features by one 4-byte store where the
+// feature stride is 1.
 //   forward: one CTA per (64-query tile, batch row, head), the last tile
 //     first.  The query tile is staged once, scaled to q' in shared
 //     memory and kept as A fragments in registers; key and value tiles are
@@ -55,9 +72,10 @@
 //       A fragments in registers while the CTA walks the key tiles, k and
 //       v double-buffered; s and dp per block of 64 keys (32 at d 128),
 //       ds packed as the A operand of dq += ds k.
-// Shared memory (bf16 tiles of d x 72): forward 5 tiles, 46,080 bytes at
-// d 64 and 92,160 at d 128; backward 6 tiles (+ 1 KB of lse and delta),
-// 56,320 and 111,616 bytes.
+// Shared memory (bf16 tiles of d x 72, or 64 x (d + 8)): forward 5 tiles,
+// 46,080 bytes at d 64 and 92,160 (87,040 in token rows) at d 128;
+// backward 6 tiles (+ 1 KB of lse and delta), 56,320 and 111,616 (105,472)
+// bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +93,6 @@ using ptt_mma::cp_wait;
 
 constexpr int kTile = 64;      // tokens per tile, queries and keys
 constexpr int kThreads = 128;  // 4 warps, 16 tile rows each
-constexpr int kLD = kTile + 8; // a feature row of a staged tile, in bf16
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -84,50 +101,113 @@ struct Strides {
   long long b, h, d, t;
 };
 
-// 16-byte copies: token stride 1 and every feature row of every (batch
-// row, head) starting on 16 bytes
-inline int vec16(const void* base, const Strides& s) {
+// 16-byte copies in feature rows: token stride 1 and every feature row of
+// every (batch row, head) starting on 16 bytes
+inline int vec16_fr(const void* base, const Strides& s) {
   return s.t == 1 && reinterpret_cast<uintptr_t>(base) % 16 == 0 &&
          s.b % 8 == 0 && s.h % 8 == 0 && s.d % 8 == 0;
 }
 
-// S[f][r] <- base[feature f, token t0 + r] for t0 + r < tend, else 0,
-// r < 64: issues the tile's cp.async copies (the caller commits and
-// waits), or copies through registers where it cannot
-template <int D>
-__device__ __forceinline__ void stage(bf16* S, const bf16* base,
-                                      const Strides& s, int t0, int tend,
-                                      int vec) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  if (vec) {
-    constexpr int CH = kTile / 8;   // 16-byte chunks a feature row
-    for (int i = threadIdx.x; i < D * CH; i += kThreads) {
-      const int f = i / CH, c = i % CH, tok = t0 + 8 * c;
-      bf16* dst = S + f * kLD + 8 * c;
-      const bf16* src = base + f * s.d + tok;
-      if (tok + 8 <= tend) {
-        cp_async16(dst, src, true);
-      } else if (tok >= tend) {
-        cp_async16(dst, base, false);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = tok + e < tend ? src[e] : zero;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < D * kTile; i += kThreads) {
-      const int f = i / kTile, r = i % kTile, tok = t0 + r;
-      S[f * kLD + r] = tok < tend ? base[f * s.d + tok * s.t] : zero;
-    }
-  }
+// 16-byte copies in token rows: feature stride 1 and every token row of
+// every (batch row, head) starting on 16 bytes
+inline int vec16_tr(const void* base, const Strides& s) {
+  return s.d == 1 && reinterpret_cast<uintptr_t>(base) % 16 == 0 &&
+         s.b % 8 == 0 && s.h % 8 == 0 && s.t % 8 == 0;
 }
 
-// S <- bf16(S * sb) over a staged tile's 64 tokens: q' from q
-template <int D>
-__device__ __forceinline__ void scale_tile(bf16* S, float sb) {
-  for (int i = threadIdx.x; i < D * kTile; i += kThreads) {
-    bf16& e = S[i / kTile * kLD + i % kTile];
-    e = __float2bfloat16_rn(__bfloat162float(e) * sb);
+// A staged 64-token tile of d features: feature rows [D][64 + 8] (TR
+// false) or token rows [64][D + 8] (TR true), and the fragment loads the
+// kernels take from it, named by what the fragment's indices are:
+//   a_tf: an A fragment, m = tokens tok0.., k = features f0..
+//   b_ft: a B fragment pair, k = features f0.., n = tokens tok0..
+//   b_tf: a B fragment pair, k = tokens tok0.., n = features f0..
+template <int D, bool TR>
+struct Tiles {
+  static constexpr int kLD = TR ? D + 8 : kTile + 8;
+  static constexpr int kElems = TR ? kTile * kLD : D * kLD;
+  __device__ __forceinline__ static void a_tf(uint32_t (&a)[4], const bf16* S,
+                                              int tok0, int f0, int lane) {
+    if (TR)
+      ptt_bf16::load_a_mk(a, S, kLD, tok0, f0, lane);
+    else
+      ptt_bf16::load_a_km(a, S, kLD, tok0, f0, lane);
+  }
+  __device__ __forceinline__ static void b_ft(uint32_t (&b)[4], const bf16* S,
+                                              int f0, int tok0, int lane) {
+    if (TR)
+      ptt_bf16::load_b_nk(b, S, kLD, f0, tok0, lane);
+    else
+      ptt_bf16::load_b_kn(b, S, kLD, f0, tok0, lane);
+  }
+  __device__ __forceinline__ static void b_tf(uint32_t (&b)[4], const bf16* S,
+                                              int tok0, int f0, int lane) {
+    if (TR)
+      ptt_bf16::load_b_kn(b, S, kLD, tok0, f0, lane);
+    else
+      ptt_bf16::load_b_nk(b, S, kLD, tok0, f0, lane);
+  }
+
+  // S <- base[feature f, token t0 + r] for t0 + r < tend, else 0, r < 64:
+  // issues the tile's cp.async copies (the caller commits and waits), or
+  // copies through registers where it cannot (vec 0)
+  __device__ __forceinline__ static void stage(bf16* S, const bf16* base,
+                                               const Strides& s, int t0,
+                                               int tend, int vec) {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    if (vec && TR) {
+      constexpr int CH = D / 8;   // 16-byte chunks a token row
+      for (int i = threadIdx.x; i < kTile * CH; i += kThreads) {
+        const int r = i / CH, c = i % CH, tok = t0 + r;
+        const bool in = tok < tend;
+        ptt_mma::cp_async16(S + r * kLD + 8 * c,
+                            in ? base + tok * s.t + 8 * c : base, in);
+      }
+    } else if (vec) {
+      constexpr int CH = kTile / 8;   // 16-byte chunks a feature row
+      for (int i = threadIdx.x; i < D * CH; i += kThreads) {
+        const int f = i / CH, c = i % CH, tok = t0 + 8 * c;
+        bf16* dst = S + f * kLD + 8 * c;
+        const bf16* src = base + f * s.d + tok;
+        if (tok + 8 <= tend) {
+          ptt_mma::cp_async16(dst, src, true);
+        } else if (tok >= tend) {
+          ptt_mma::cp_async16(dst, base, false);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dst[e] = tok + e < tend ? src[e] : zero;
+        }
+      }
+    } else if (TR) {   // neighbouring threads on neighbouring features
+      for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+        const int r = i / D, f = i % D, tok = t0 + r;
+        S[r * kLD + f] = tok < tend ? base[f * s.d + tok * s.t] : zero;
+      }
+    } else {           // ... on neighbouring tokens
+      for (int i = threadIdx.x; i < D * kTile; i += kThreads) {
+        const int f = i / kTile, r = i % kTile, tok = t0 + r;
+        S[f * kLD + r] = tok < tend ? base[f * s.d + tok * s.t] : zero;
+      }
+    }
+  }
+
+  // S <- bf16(S * sb) over a staged tile's 64 tokens: q' from q
+  __device__ __forceinline__ static void scale(bf16* S, float sb) {
+    for (int i = threadIdx.x; i < D * kTile; i += kThreads) {
+      bf16& e = TR ? S[i / D * kLD + i % D] : S[i / kTile * kLD + i % kTile];
+      e = __float2bfloat16_rn(__bfloat162float(e) * sb);
+    }
+  }
+};
+
+// p[0] <- bf16(v0), p[fs] <- bf16(v1): two neighbouring features of a
+// row, by one 4-byte store where they are adjacent and aligned
+__device__ __forceinline__ void store_pair(bf16* p, long long fs, float v0,
+                                           float v1) {
+  if (fs == 1 && reinterpret_cast<uintptr_t>(p) % 4 == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    p[0] = __float2bfloat16_rn(v0);
+    p[fs] = __float2bfloat16_rn(v1);
   }
 }
 
@@ -153,15 +233,13 @@ __device__ __forceinline__ void write_rows(bf16* out, const Strides& s,
     const float mul = half ? mul1 : mul0;
     bf16* p = base + row * s.t;
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      p[(8 * f + 2 * t) * s.d] = __float2bfloat16_rn(mul * acc[f][2 * half]);
-      p[(8 * f + 2 * t + 1) * s.d] =
-          __float2bfloat16_rn(mul * acc[f][2 * half + 1]);
-    }
+    for (int f = 0; f < NF; ++f)
+      store_pair(p + (8 * f + 2 * t) * s.d, s.d, mul * acc[f][2 * half],
+                 mul * acc[f][2 * half + 1]);
   }
 }
 
-template <int D>
+template <int D, bool TR>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -170,7 +248,8 @@ __global__ void __launch_bounds__(kThreads)
                           int kv_len, int causal, float scale, Strides qs,
                           Strides ks, Strides vs, Strides os, long long ls_b,
                           long long ls_h, int vq, int vk, int vv) {
-  constexpr int TE = D * kLD, NF = D / 8, KF = D / 16;
+  using Tl = Tiles<D, TR>;
+  constexpr int TE = Tl::kElems, NF = D / 8, KF = D / 16;
   constexpr int KN = D == 64 ? 64 : 32, NJ = KN / 8;   // keys per block
   extern __shared__ float4 smem4[];
   bf16* sm = reinterpret_cast<bf16*>(smem4);  // stage s: k at 2s TE, v after
@@ -189,18 +268,17 @@ __global__ void __launch_bounds__(kThreads)
   if (causal) kend = min(kend, q0 + kTile);
   const int ntiles = (kend + kTile - 1) / kTile;
 
-  stage<D>(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, vq);
-  stage<D>(sm, kh, ks, 0, kend, vk);
-  stage<D>(sm + TE, vh, vs, 0, kend, vv);
+  Tl::stage(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, vq);
+  Tl::stage(sm, kh, ks, 0, kend, vk);
+  Tl::stage(sm + TE, vh, vs, 0, kend, vv);
   cp_commit();
   cp_wait<0>();
   __syncthreads();
-  scale_tile<D>(Qs, __bfloat162float(__float2bfloat16_rn(scale)));
+  Tl::scale(Qs, __bfloat162float(__float2bfloat16_rn(scale)));
   __syncthreads();
   uint32_t qf[KF][4];   // q' rows of the warp as A fragments, k = features
 #pragma unroll
-  for (int kk = 0; kk < KF; ++kk)
-    ptt_bf16::load_a_km(qf[kk], Qs, kLD, wr, 16 * kk, lane);
+  for (int kk = 0; kk < KF; ++kk) Tl::a_tf(qf[kk], Qs, wr, 16 * kk, lane);
 
   float acc[NF][4];
 #pragma unroll
@@ -213,8 +291,8 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = it * kTile;
     if (it + 1 < ntiles) {
       bf16* nb = sm + ((it + 1) & 1) * 2 * TE;
-      stage<D>(nb, kh, ks, k0 + kTile, kend, vk);
-      stage<D>(nb + TE, vh, vs, k0 + kTile, kend, vv);
+      Tl::stage(nb, kh, ks, k0 + kTile, kend, vk);
+      Tl::stage(nb + TE, vh, vs, k0 + kTile, kend, vv);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -238,7 +316,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int jp = 0; jp < NJ / 2; ++jp) {   // s = q' k^T
           uint32_t bk[4];
-          ptt_bf16::load_b_kn(bk, Ks, kLD, 16 * kk, c0 + 16 * jp, lane);
+          Tl::b_ft(bk, Ks, 16 * kk, c0 + 16 * jp, lane);
           ptt_bf16::mma(s[2 * jp], qf[kk], bk[0], bk[1]);
           ptt_bf16::mma(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
         }
@@ -296,7 +374,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int fp = 0; fp < NF / 2; ++fp) {
           uint32_t bv[4];
-          ptt_bf16::load_b_nk(bv, Vs, kLD, c0 + 16 * J, 16 * fp, lane);
+          Tl::b_tf(bv, Vs, c0 + 16 * J, 16 * fp, lane);
           ptt_bf16::mma(acc[2 * fp], pa, bv[0], bv[1]);
           ptt_bf16::mma(acc[2 * fp + 1], pa, bv[2], bv[3]);
         }
@@ -320,16 +398,14 @@ __global__ void __launch_bounds__(kThreads)
     const float l = half ? l1 : l0;
     bf16* orow = oh + row * os.t;
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      orow[(8 * f + 2 * t) * os.d] = __float2bfloat16_rn(acc[f][2 * half] / l);
-      orow[(8 * f + 2 * t + 1) * os.d] =
-          __float2bfloat16_rn(acc[f][2 * half + 1] / l);
-    }
+    for (int f = 0; f < NF; ++f)
+      store_pair(orow + (8 * f + 2 * t) * os.d, os.d, acc[f][2 * half] / l,
+                 acc[f][2 * half + 1] / l);
     if (t == 0) lse[b * ls_b + h * ls_h + row] = (half ? m1 : m0) + logf(l);
   }
 }
 
-template <int D>
+template <int D, bool TR>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -343,11 +419,12 @@ __global__ void __launch_bounds__(kThreads)
                               Strides os, long long ls_b, long long ls_h,
                               Strides dks, Strides dvs, int vq, int vk,
                               int vv, int vo) {
-  constexpr int TE = D * kLD, NF = D / 8, KF = D / 16;
+  using Tl = Tiles<D, TR>;
+  constexpr int TE = Tl::kElems, NF = D / 8, KF = D / 16;
   constexpr int QN = 16;   // queries per block: one k16 step of dv, dk
   extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);   // [d][72] key tile
-  bf16* Vs = Ks + TE;                          // [d][72] value tile
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);   // key tile
+  bf16* Vs = Ks + TE;                          // value tile
   bf16* QO = Vs + TE;   // stage s: q' at 2s TE, do after
   float* LE = reinterpret_cast<float*>(QO + 4 * TE);  // lse, delta rows
 
@@ -375,8 +452,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) dka[f][e] = dva[f][e] = 0.f;
 
   auto stage_q = [&](int sb_, int qt0) {
-    stage<D>(QO + 2 * sb_ * TE, qh, qs, qt0, Tq, vq);
-    stage<D>(QO + (2 * sb_ + 1) * TE, oh, os, qt0, Tq, vo);
+    Tl::stage(QO + 2 * sb_ * TE, qh, qs, qt0, Tq, vq);
+    Tl::stage(QO + (2 * sb_ + 1) * TE, oh, os, qt0, Tq, vo);
     if (threadIdx.x < kTile)
       stage_row(LE + 2 * kTile * sb_, lh, qt0, Tq, threadIdx.x);
     else
@@ -384,8 +461,8 @@ __global__ void __launch_bounds__(kThreads)
                 threadIdx.x - kTile);
   };
   if (nqt > 0) {
-    stage<D>(Ks, k + b * ks.b + h * ks.h, ks, k0, kend, vk);
-    stage<D>(Vs, v + b * vs.b + h * vs.h, vs, k0, kend, vv);
+    Tl::stage(Ks, k + b * ks.b + h * ks.h, ks, k0, kend, vk);
+    Tl::stage(Vs, v + b * vs.b + h * vs.h, vs, k0, kend, vv);
     stage_q(0, qstart);
     cp_commit();
   }
@@ -404,7 +481,7 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* Os = Qs + TE;
     const float* Ls = LE + 2 * kTile * st;
     const float* Es = Ls + kTile;
-    scale_tile<D>(Qs, sb);
+    Tl::scale(Qs, sb);
     __syncthreads();
 
 #pragma unroll 1
@@ -419,12 +496,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int kk = 0; kk < KF; ++kk) {   // s^T = k q'^T, dp^T = v do^T
         uint32_t a[4], bq[4];
-        ptt_bf16::load_a_km(a, Ks, kLD, wr, 16 * kk, lane);
-        ptt_bf16::load_b_kn(bq, Qs, kLD, 16 * kk, c0, lane);
+        Tl::a_tf(a, Ks, wr, 16 * kk, lane);
+        Tl::b_ft(bq, Qs, 16 * kk, c0, lane);
         ptt_bf16::mma(s[0], a, bq[0], bq[1]);
         ptt_bf16::mma(s[1], a, bq[2], bq[3]);
-        ptt_bf16::load_a_km(a, Vs, kLD, wr, 16 * kk, lane);
-        ptt_bf16::load_b_kn(bq, Os, kLD, 16 * kk, c0, lane);
+        Tl::a_tf(a, Vs, wr, 16 * kk, lane);
+        Tl::b_ft(bq, Os, 16 * kk, c0, lane);
         ptt_bf16::mma(dp[0], a, bq[0], bq[1]);
         ptt_bf16::mma(dp[1], a, bq[2], bq[3]);
       }
@@ -452,10 +529,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int fp = 0; fp < NF / 2; ++fp) {
         uint32_t bb[4];
-        ptt_bf16::load_b_nk(bb, Os, kLD, c0, 16 * fp, lane);
+        Tl::b_tf(bb, Os, c0, 16 * fp, lane);
         ptt_bf16::mma(dva[2 * fp], pa, bb[0], bb[1]);
         ptt_bf16::mma(dva[2 * fp + 1], pa, bb[2], bb[3]);
-        ptt_bf16::load_b_nk(bb, Qs, kLD, c0, 16 * fp, lane);
+        Tl::b_tf(bb, Qs, c0, 16 * fp, lane);
         ptt_bf16::mma(dka[2 * fp], da, bb[0], bb[1]);
         ptt_bf16::mma(dka[2 * fp + 1], da, bb[2], bb[3]);
       }
@@ -467,7 +544,7 @@ __global__ void __launch_bounds__(kThreads)
   write_rows<NF>(dv, dvs, b, h, Tk, kr0, t, 1.f, 1.f, dva);
 }
 
-template <int D>
+template <int D, bool TR>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
@@ -480,11 +557,12 @@ __global__ void __launch_bounds__(kThreads)
                              Strides ks, Strides vs, Strides os,
                              long long ls_b, long long ls_h, Strides dqs,
                              int vq, int vk, int vv, int vo) {
-  constexpr int TE = D * kLD, NF = D / 8, KF = D / 16;
+  using Tl = Tiles<D, TR>;
+  constexpr int TE = Tl::kElems, NF = D / 8, KF = D / 16;
   constexpr int KN = D == 64 ? 64 : 32, NJ = KN / 8;   // keys per block
   extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [d][72] q' tile
-  bf16* Os = Qs + TE;                         // [d][72] do tile
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // q' tile
+  bf16* Os = Qs + TE;                         // do tile
   bf16* KV = Os + TE;   // stage s: k at 2s TE, v after
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -505,21 +583,21 @@ __global__ void __launch_bounds__(kThreads)
   if (causal) kend = min(kend, q0 + kTile);
   const int ntiles = (kend + kTile - 1) / kTile;
 
-  stage<D>(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, vq);
-  stage<D>(Os, dout + b * os.b + h * os.h, os, q0, Tq, vo);
+  Tl::stage(Qs, q + b * qs.b + h * qs.h, qs, q0, Tq, vq);
+  Tl::stage(Os, dout + b * os.b + h * os.h, os, q0, Tq, vo);
   cp_commit();
-  stage<D>(KV, kh, ks, 0, kend, vk);
-  stage<D>(KV + TE, vh, vs, 0, kend, vv);
+  Tl::stage(KV, kh, ks, 0, kend, vk);
+  Tl::stage(KV + TE, vh, vs, 0, kend, vv);
   cp_commit();
   cp_wait<1>();   // q and do have landed
   __syncthreads();
-  scale_tile<D>(Qs, __bfloat162float(__float2bfloat16_rn(scale)));
+  Tl::scale(Qs, __bfloat162float(__float2bfloat16_rn(scale)));
   __syncthreads();
   uint32_t qf[KF][4], of[KF][4];   // q' and do rows as A fragments
 #pragma unroll
   for (int kk = 0; kk < KF; ++kk) {
-    ptt_bf16::load_a_km(qf[kk], Qs, kLD, wr, 16 * kk, lane);
-    ptt_bf16::load_a_km(of[kk], Os, kLD, wr, 16 * kk, lane);
+    Tl::a_tf(qf[kk], Qs, wr, 16 * kk, lane);
+    Tl::a_tf(of[kk], Os, wr, 16 * kk, lane);
   }
 
   float dqa[NF][4];
@@ -532,8 +610,8 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = it * kTile, st = it & 1;
     if (it + 1 < ntiles) {
       bf16* nb = KV + 2 * (st ^ 1) * TE;
-      stage<D>(nb, kh, ks, k0 + kTile, kend, vk);
-      stage<D>(nb + TE, vh, vs, k0 + kTile, kend, vv);
+      Tl::stage(nb, kh, ks, k0 + kTile, kend, vk);
+      Tl::stage(nb + TE, vh, vs, k0 + kTile, kend, vv);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -557,10 +635,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int jp = 0; jp < NJ / 2; ++jp) {   // s = q' k^T, dp = do v^T
           uint32_t bb[4];
-          ptt_bf16::load_b_kn(bb, Ks, kLD, 16 * kk, c0 + 16 * jp, lane);
+          Tl::b_ft(bb, Ks, 16 * kk, c0 + 16 * jp, lane);
           ptt_bf16::mma(s[2 * jp], qf[kk], bb[0], bb[1]);
           ptt_bf16::mma(s[2 * jp + 1], qf[kk], bb[2], bb[3]);
-          ptt_bf16::load_b_kn(bb, Vs, kLD, 16 * kk, c0 + 16 * jp, lane);
+          Tl::b_ft(bb, Vs, 16 * kk, c0 + 16 * jp, lane);
           ptt_bf16::mma(dp[2 * jp], of[kk], bb[0], bb[1]);
           ptt_bf16::mma(dp[2 * jp + 1], of[kk], bb[2], bb[3]);
         }
@@ -586,7 +664,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int fp = 0; fp < NF / 2; ++fp) {
           uint32_t bb[4];
-          ptt_bf16::load_b_nk(bb, Ks, kLD, c0 + 16 * J, 16 * fp, lane);
+          Tl::b_tf(bb, Ks, c0 + 16 * J, 16 * fp, lane);
           ptt_bf16::mma(dqa[2 * fp], da, bb[0], bb[1]);
           ptt_bf16::mma(dqa[2 * fp + 1], da, bb[2], bb[3]);
         }
@@ -598,49 +676,58 @@ __global__ void __launch_bounds__(kThreads)
   write_rows<NF>(dq, dqs, b, h, Tq, qr0, t, scale, scale, dqa);
 }
 
-template <int D>
+// token rows where every input has feature stride 1, else feature rows
+inline bool token_rows(const Strides* st, int n) {
+  for (int i = 0; i < n; ++i)
+    if (st[i].d != 1) return false;
+  return true;
+}
+
+template <int D, bool TR>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                float* lse, int H, int B, int Tq, int Tk, int kv_len,
                int causal, float scale, const Strides* st, long long ls_b,
                long long ls_h, cudaStream_t stream) {
-  const int smem = 5 * D * kLD * (int)sizeof(bf16);
+  auto vec = TR ? vec16_tr : vec16_fr;
+  const int smem = 5 * Tiles<D, TR>::kElems * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_bf16_kernel<D, TR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_bf16_kernel<D, TR><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, lse, H, Tq, Tk, kv_len, causal, scale, st[0], st[1], st[2],
-      st[3], ls_b, ls_h, vec16(q, st[0]), vec16(k, st[1]), vec16(v, st[2]));
+      st[3], ls_b, ls_h, vec(q, st[0]), vec(k, st[1]), vec(v, st[2]));
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool TR>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v,
                const bf16* dout, const float* lse, const float* delta,
                bf16* dq, bf16* dk, bf16* dv, int H, int B, int Tq, int Tk,
                int kv_len, int causal, float scale, const Strides* st,
                long long ls_b, long long ls_h, cudaStream_t stream) {
-  const int tiles = 6 * D * kLD * (int)sizeof(bf16);
+  auto vec = TR ? vec16_tr : vec16_fr;
+  const int tiles = 6 * Tiles<D, TR>::kElems * (int)sizeof(bf16);
   const int smem_dkv = tiles + 4 * kTile * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16_kernel<D>,
+      flash_bwd_dkv_bf16_kernel<D, TR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D, TR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              tiles);
   if (err != cudaSuccess) return (int)err;
-  const int vq = vec16(q, st[0]), vk = vec16(k, st[1]);
-  const int vv = vec16(v, st[2]), vo = vec16(dout, st[3]);
+  const int vq = vec(q, st[0]), vk = vec(k, st[1]);
+  const int vv = vec(v, st[2]), vo = vec(dout, st[3]);
   const dim3 grid_k(B * H, (Tk + kTile - 1) / kTile);
-  flash_bwd_dkv_bf16_kernel<D><<<grid_k, kThreads, smem_dkv, stream>>>(
+  flash_bwd_dkv_bf16_kernel<D, TR><<<grid_k, kThreads, smem_dkv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, kv_len, causal, scale,
       st[0], st[1], st[2], st[3], ls_b, ls_h, st[5], st[6], vq, vk, vv, vo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q(B * H, (Tq + kTile - 1) / kTile);
-  flash_bwd_dq_bf16_kernel<D><<<grid_q, kThreads, tiles, stream>>>(
+  flash_bwd_dq_bf16_kernel<D, TR><<<grid_q, kThreads, tiles, stream>>>(
       q, k, v, dout, lse, delta, dq, H, Tq, Tk, kv_len, causal, scale, st[0],
       st[1], st[2], st[3], ls_b, ls_h, st[4], vq, vk, vv, vo);
   return (int)cudaGetLastError();
@@ -674,16 +761,12 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
   bf16* ob = static_cast<bf16*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_fwd<64>(qb, kb, vb, ob, lf, H, B, Tq, Tk, kv_len, causal,
-                            scale, st, strides[16], strides[17], s);
-    case 128:
-      return launch_fwd<128>(qb, kb, vb, ob, lf, H, B, Tq, Tk, kv_len,
-                             causal, scale, st, strides[16], strides[17], s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const bool tr = token_rows(st, 3);
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  auto go = D == 64 ? (tr ? launch_fwd<64, true> : launch_fwd<64, false>)
+                    : (tr ? launch_fwd<128, true> : launch_fwd<128, false>);
+  return go(qb, kb, vb, ob, lf, H, B, Tq, Tk, kv_len, causal, scale, st,
+            strides[16], strides[17], s);
 }
 
 // The backward of ptt_flash_fwd_bf16: q, k, v, do and the outputs dq, dk, dv
@@ -712,16 +795,10 @@ extern "C" int ptt_flash_bwd_bf16(const void* q, const void* k,
   bf16* dkb = static_cast<bf16*>(dk);
   bf16* dvb = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_bwd<64>(qb, kb, vb, ob, lf, ef, dqb, dkb, dvb, H, B, Tq,
-                            Tk, kv_len, causal, scale, st, strides[28],
-                            strides[29], s);
-    case 128:
-      return launch_bwd<128>(qb, kb, vb, ob, lf, ef, dqb, dkb, dvb, H, B, Tq,
-                             Tk, kv_len, causal, scale, st, strides[28],
-                             strides[29], s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const bool tr = token_rows(st, 4);   // q, k, v, do
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  auto go = D == 64 ? (tr ? launch_bwd<64, true> : launch_bwd<64, false>)
+                    : (tr ? launch_bwd<128, true> : launch_bwd<128, false>);
+  return go(qb, kb, vb, ob, lf, ef, dqb, dkb, dvb, H, B, Tq, Tk, kv_len,
+            causal, scale, st, strides[28], strides[29], s);
 }

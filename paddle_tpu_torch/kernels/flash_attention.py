@@ -36,17 +36,21 @@ CUDA tensors launch the kernel (or raise), CPU or meta tensors take the
 card kernels take f32 inputs with d in {64, 128} and dv == d.
 
 Under ``FLAGS_amp_bf16`` the ``fused_mha`` op hands ``flash_attention_hdt``
-bf16 q, k and v.  Those go to two more kernels,
-``csrc/flash_attention_bf16.cu`` (wrappers ``flash_attention_hdt_bf16`` and
-``flash_attention_hdt_bwd_bf16``, each with its own ``.launches``): one bf16
-``mma.sync`` per product with f32 accumulation, rounding where the Pallas
-kernel rounds in bf16.  q' = bf16(q * bf16(scale)) (flash_attention.py:529,
-:597); p, and in the backward ds, are rounded to bf16 before the products
-that take them (:542, :586, :588, :615); the running max, sum, lse, delta
-and every accumulator stay f32; o, dq, dk and dv are rounded once, at the
-end.  The plain versions carry the same roundings for bf16 inputs (and
-keep the full-softmax f32 arithmetic for f32 ones).  The ``[B, H, T, d]``
-entry takes f32 only (bf16 there is ROADMAP B.8b).
+bf16 q, k and v, and ``fused_attention`` and the fused block's recompute
+hand ``flash_attention`` bf16 ``[B, H, T, d]`` views.  Those go to two more
+kernels, ``csrc/flash_attention_bf16.cu``, through the same strides
+(wrappers ``flash_attention_hdt_bf16``, ``flash_attention_hdt_bwd_bf16``,
+``flash_attention_bf16`` and ``flash_attention_bwd_bf16``, each with its
+own ``.launches``): one bf16 ``mma.sync`` per product with f32
+accumulation, rounding where the Pallas kernels round in bf16.  q' =
+bf16(q * bf16(scale)) (flash_attention.py:529, :597; :85, :229, :262); p,
+and in the backward ds, are rounded to bf16 before the products that take
+them (:542, :586, :588, :615; :108, :237, :240, :267); the running max,
+sum, lse, delta and every accumulator stay f32; dq takes its scale in f32
+at the end (:273); o, dq, dk and dv are rounded once.  The plain versions
+carry the same roundings for bf16 inputs (the ``[B, H, T, d]`` ones through
+the head-major composition, ``_bhtd_plain_bf16``) and keep the
+full-softmax f32 arithmetic for f32 ones.
 """
 from __future__ import annotations
 
@@ -438,12 +442,44 @@ def _scores_bhtd(q, k, causal, scale):
     return qs, kf, s
 
 
+def _to_hdt(t):
+    """[B, H, T, c] -> the head-major [H, c, B*T] (a copy)."""
+    B, H, T, c = t.shape
+    return t.permute(1, 3, 0, 2).reshape(H, c, B * T)
+
+
+def _from_hdt(t, B):
+    """The head-major [H, c, B*T] -> [B, H, T, c]."""
+    H, c, N = t.shape
+    return t.reshape(H, c, B, N // B).permute(2, 0, 3, 1)
+
+
+def _rows_to_hdt(t):
+    """[B, H, T] f32 rows (lse, delta) -> [H, 1, B*T]."""
+    B, H, T = t.shape
+    return t.permute(1, 0, 2).reshape(H, 1, B * T)
+
+
+def _bhtd_plain_bf16(q, k, v, causal, scale):
+    """The bf16 forward of [B, H, T, d] inputs: the head-major bf16
+    composition (``_hdt_plain_bf16``) on head-major copies, the Pallas
+    kernel's roundings with one key block."""
+    B, H, Tq, _ = q.shape
+    o, lse = flash_attention_hdt_plain(_to_hdt(q), _to_hdt(k), _to_hdt(v),
+                                       B, causal, scale)
+    return _from_hdt(o, B), lse.reshape(H, B, Tq).permute(1, 0, 2) \
+        .contiguous()
+
+
 def flash_attention_plain(q, k, v, causal=False, scale=None):
     """(o [B, H, Tq, dv], lse [B, H, Tq] f32): a full-softmax composition
-    in f32 (f64 for f64 inputs) of what the kernel computes."""
+    in f32 (f64 for f64 inputs) of what the kernel computes; for bf16
+    inputs, the bf16 kernel's roundings (``_bhtd_plain_bf16``)."""
     _check_bhtd(q, k, v, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.dtype == torch.bfloat16:
+        return _bhtd_plain_bf16(q, k, v, causal, scale)
     _, _, s = _scores_bhtd(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.exp(s - lse[..., None]), v.to(s.dtype))
@@ -454,10 +490,18 @@ def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal=False,
                               scale=None):
     """(dq, dk, dv) from the forward's inputs, its lse [B, H, Tq], delta =
     rowsum(do * o) [B, H, Tq] and do [B, H, Tq, dv]: the full-matrix
-    composition of the FlashAttention-2 backward that the kernels tile."""
+    composition of the FlashAttention-2 backward that the kernels tile;
+    for bf16 inputs the head-major composition with the bf16 kernel's
+    roundings (``flash_attention_hdt_bwd_plain``)."""
     _check_bhtd(q, k, v, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.dtype == torch.bfloat16:
+        B = q.shape[0]
+        grads = flash_attention_hdt_bwd_plain(
+            _to_hdt(q), _to_hdt(k), _to_hdt(v), _rows_to_hdt(lse),
+            _rows_to_hdt(delta), _to_hdt(do), B, causal, scale)
+        return tuple(_from_hdt(t, B) for t in grads)
     qs, kf, s = _scores_bhtd(q, k, causal, scale)
     acc = s.dtype
     p = torch.exp(s - lse.to(acc)[..., None])
@@ -471,35 +515,42 @@ def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal=False,
 
 
 def _launch_bhtd(q, k, v, causal, scale):
-    # bf16 in this layout (fused_attention, the block's recompute) is
-    # ROADMAP B.8b
-    _check_card("flash_attention", (q, k, v), q.shape[-1], v.shape[-1],
-                dtypes=(torch.float32,))
+    """The [B, H, T, d] forward kernel of q's dtype: o in q's dtype and,
+    where q is dense, q's layout (a [B, T, H, d] view stays one); lse
+    f32."""
+    name = "flash_attention" + ("_bf16" if q.dtype == torch.bfloat16
+                                else "")
+    _check_card(name, (q, k, v), q.shape[-1], v.shape[-1])
     B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
-    # o takes q's layout where q is dense (a [B, T, H, d] view stays one)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
-    _fwd_call("flash_attention", q, k, v, o, lse, H, d, B, Tq, Tk, None,
-              causal, scale,
+    _fwd_call(name, q, k, v, o, lse, H, d, B, Tq, Tk, None, causal, scale,
               (*_bhtd_strides(q), *_bhtd_strides(k), *_bhtd_strides(v),
                *_bhtd_strides(o), *lse.stride()[:2]))
-    flash_attention.launches += 1
+    (flash_attention_bf16 if q.dtype == torch.bfloat16
+     else flash_attention).launches += 1
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, lse, delta, do, causal: bool = False,
-                        scale: float = None):
-    """The backward of ``flash_attention`` in the [B, H, T, d] layout:
-    (dq, dk, dv), each in its input's layout where that is dense;
-    deterministic (no atomics)."""
+def flash_attention_bf16(q, k, v, causal=False, scale=None):
+    """The bf16 [B, H, T, d] forward kernel (csrc/flash_attention_bf16.cu)
+    on bf16 CUDA tensors in any strides: (o bf16, lse f32).  Its launches
+    are counted in ``flash_attention_bf16.launches``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bf16 kernel: bf16 inputs only, "
+                         f"got {q.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type != "cuda":
-        return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal,
-                                         scale)
-    name = "flash_attention_bwd"
+    return _launch_bhtd(q, k, v, causal, scale)
+
+
+def _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale):
+    """The [B, H, T, d] backward kernels of q's dtype: dq, dk, dv in q's
+    dtype, each in its input's layout where that is dense."""
+    name = "flash_attention_bwd" + ("_bf16" if q.dtype == torch.bfloat16
+                                    else "")
     _check_card(name, (q, k, v, do), q.shape[-1], v.shape[-1],
-                stats=(lse, delta), dtypes=(torch.float32,))
+                stats=(lse, delta))
     B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"{name} kernel: do {tuple(do.shape)} != "
@@ -515,8 +566,36 @@ def flash_attention_bwd(q, k, v, lse, delta, do, causal: bool = False,
               (*_bhtd_strides(q), *_bhtd_strides(k), *_bhtd_strides(v),
                *_bhtd_strides(do), *_bhtd_strides(dq), *_bhtd_strides(dk),
                *_bhtd_strides(dvv), *lse.stride()[:2]))
-    flash_attention_bwd.launches += 1
+    (flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+     else flash_attention_bwd).launches += 1
     return dq, dk, dvv
+
+
+def flash_attention_bwd_bf16(q, k, v, lse, delta, do, causal=False,
+                             scale=None):
+    """The bf16 [B, H, T, d] backward kernels (csrc/flash_attention_bf16.cu,
+    dk/dv then dq) on bf16 CUDA tensors, f32 lse and delta: (dq, dk, dv)
+    bf16.  Its launches (one per call, two kernels) are counted in
+    ``flash_attention_bwd_bf16.launches``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd_bf16 kernel: bf16 inputs "
+                         f"only, got {q.dtype}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale)
+
+
+def flash_attention_bwd(q, k, v, lse, delta, do, causal: bool = False,
+                        scale: float = None):
+    """The backward of ``flash_attention`` in the [B, H, T, d] layout:
+    (dq, dk, dv), each in its input's layout where that is dense;
+    deterministic (no atomics)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal,
+                                         scale)
+    return _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale)
 
 
 class _Flash(torch.autograd.Function):
@@ -557,3 +636,5 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None):
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bf16.launches = 0
+flash_attention_bwd_bf16.launches = 0

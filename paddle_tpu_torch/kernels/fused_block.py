@@ -14,25 +14,43 @@ kernel's VMEM-resident block: no SM holds the weights, and the Pallas
 kernel's per-(query, key)-block recompute of LN1 and the K/V projections
 buys nothing here.
 
+Under FLAGS_amp_bf16 the op hands the block bf16 x and matrices (f32
+layer-norm params and biases).  Those go to the bf16 block kernel,
+``csrc/fused_block_bf16.cu`` (wrapper ``transformer_block_bf16``, its own
+``.launches``): seven launches (LN1, one q/k/v GEMM whose epilogue scales
+q, the bf16 flash forward through ``[B, T, H, d]`` strides at scale 1,
+Wo plus x, LN2, W1 plus b1 and relu, W2 plus b2 and h) on
+``csrc/gemm_bf16.cuh``'s tile loop, rounding where ``_block_kernel``
+rounds.
+
 ``block_reference`` is the composition the kernel must match and the
-source of its gradients, as in the JAX package: LN in f32, the projections
-as ``torch.matmul`` (they are ``dot_general``s outside any Pallas kernel
-there), and attention through ``flash_attention`` (the ``[B, H, T, d]``
-kernels) with ``use_flash``.  ``transformer_block_plain`` is that
-composition with plain attention: the plain version of the kernel.
+source of its gradients, as in the JAX package, with its casts
+(fused_block.py:78-114): LN in f32 with the result in x's dtype, every
+projection an f32 product of the operands (``_mm_f32``, JAX's
+``preferred_element_type=f32``) rounded once, at q, k and v, at h = x +
+o Wo, at u = relu(f W1 + b1) and at out = h + (u W2 + b2); softmax in f32
+with its weights in x's dtype.  In f32 the casts are no-ops.  The
+projections are not the kernel's work (they are ``dot_general``s outside
+any Pallas kernel in JAX): on the card a bf16 projection runs on the bf16
+tensor cores with an f32 result (``torch.mm(..., out_dtype=float32)``,
+``_MmF32``), elsewhere as the f32 product of the upcast operands, which
+is exact per product.  Attention goes through ``flash_attention`` (the
+``[B, H, T, d]`` kernels) with ``use_flash``.  ``transformer_block_plain``
+is that composition with plain attention: the plain version of both
+kernels, and the op's CPU path.
 
 ``transformer_block`` is a ``torch.autograd.Function``.  Its forward
-launches the kernel for CUDA tensors (or raises) and runs the plain version
-for CPU and meta tensors; it saves only (x, params).  Its backward
-recomputes ``block_reference(use_flash=x.is_cuda)`` from them and returns
-``torch.autograd.grad`` for x and all 12 params, as the JAX custom VJP does
-(fused_block.py:272-282): gradients are exact for the reference math, and
-on the card its attention runs on the flash kernels.
-``transformer_block.launches`` counts kernel forwards (one per call,
-nine device launches inside).  The card kernel takes f32 with
-head dim 64 or 128; its workspace (the weights' pairs and the chain's
-intermediates, 505 MiB at B 32, T 512, D = E 512, F 2048) lives for one
-call.
+launches the kernel of x's dtype for CUDA tensors (or raises) and runs the
+plain version for CPU and meta tensors; it saves only (x, params).  Its
+backward recomputes ``block_reference(use_flash=x.is_cuda)`` from them and
+returns ``torch.autograd.grad`` for x and all 12 params, as the JAX custom
+VJP does (fused_block.py:272-282): gradients are exact for the reference
+math, and on the card its attention runs on the flash kernels.
+``transformer_block.launches`` counts f32 kernel forwards (one per call,
+nine device launches inside), ``transformer_block_bf16.launches`` bf16 ones
+(seven inside).  The card kernels take head dim 64 or 128; their workspace
+(505 MiB in f32, 161 MiB in bf16 at B 32, T 512, D = E 512, F 2048) lives
+for one call.
 """
 from __future__ import annotations
 
@@ -60,19 +78,62 @@ def _ln_affine(x, g, b, eps):
     return xc * torch.rsqrt(var + eps) * g.to(acc) + b.to(acc)
 
 
+class _MmF32(torch.autograd.Function):
+    """a [..., K] . b [K, N] of bf16 CUDA operands on the bf16 tensor cores
+    with f32 accumulation and an f32 result.  The backward rounds the
+    cotangent to bf16, which is exact where it flows from a bf16 cast
+    (every site of block_reference), and returns bf16(g b^T) and
+    bf16(a^T g), the products of JAX's transpose rule rounded once."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        a2 = a.reshape(-1, a.shape[-1])
+        return torch.mm(a2, b, out_dtype=torch.float32).reshape(
+            *a.shape[:-1], b.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
+        da = torch.mm(g2, b.t()).reshape(a.shape)
+        db = torch.mm(a.reshape(-1, a.shape[-1]).t(), g2)
+        return da, db
+
+
+def _mm_f32(a, b):
+    """a [..., K] . b [K, N] with f32 accumulation and an f32 result (f64
+    for f64): dot_general with preferred_element_type=f32.  bf16 on the
+    card: the bf16 tensor cores (_MmF32); elsewhere the f32 product of
+    the upcast operands, exact per product."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return _MmF32.apply(a, b)
+    acc = torch.promote_types(a.dtype, torch.float32)
+    return torch.matmul(a.to(acc), b.to(acc))
+
+
+def _mlp_pre(f, w1, b1):
+    """The block's MLP pre-activation f W1 + b1, in f32 (f64 for f64)."""
+    return _mm_f32(f, w1) + b1.to(torch.promote_types(f.dtype,
+                                                      torch.float32))
+
+
 def _mlp_hidden(f, w1, b1):
-    """The block's MLP hidden layer, relu(f W1 + b1)."""
-    return torch.relu(torch.matmul(f, w1) + b1)
+    """The block's MLP hidden layer relu(f W1 + b1), in f32 (f64 for
+    f64); the caller rounds it to f's dtype."""
+    return torch.relu(_mlp_pre(f, w1, b1))
 
 
 def block_reference(x, p, n_head, causal, eps1=1e-5, eps2=1e-5,
                     use_flash=False):
     """x [B, T, D] through one pre-norm block with params p (PARAM_NAMES
     order): LN1 -> q/k/v -> attention -> Wo + x -> LN2 -> relu MLP ->
-    + residual.  ``use_flash`` routes the attention through
-    ``flash_attention`` (on the card, its kernels)."""
+    + residual, with JAX's casts to x's dtype (fused_block.py:78-114).
+    ``use_flash`` routes the attention through ``flash_attention`` (on the
+    card, its kernels)."""
     ln1g, ln1b, wq, wk, wv, wo, ln2g, ln2b, w1, b1, w2, b2 = p
     cd = x.dtype
+    acc = torch.promote_types(cd, torch.float32)
     B, T, _ = x.shape
     E = wq.shape[1]
     dh = E // n_head
@@ -81,55 +142,74 @@ def block_reference(x, p, n_head, causal, eps1=1e-5, eps2=1e-5,
         return t.reshape(B, T, n_head, dh).transpose(1, 2)
 
     a = _ln_affine(x, ln1g, ln1b, eps1).to(cd)
-    q, k, v = (split(torch.matmul(a, w)) for w in (wq, wk, wv))
+    q, k, v = (split(_mm_f32(a, w).to(cd)) for w in (wq, wk, wv))
     if use_flash:
         o = flash_attention(q, k, v, causal=causal)
     else:
-        s = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5
+        s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) \
+            * dh ** -0.5
         if causal:
             keep = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
             s = s.masked_fill(~keep, NEG_INF)
-        acc = torch.promote_types(cd, torch.float32)
-        o = torch.matmul(torch.softmax(s.to(acc), dim=-1).to(cd), v)
+        w_att = torch.softmax(s, dim=-1).to(cd)
+        o = torch.matmul(w_att.to(acc), v.to(acc)).to(cd)
     o = o.transpose(1, 2).reshape(B, T, E)
-    h = x + torch.matmul(o, wo)
+    h = (x.to(acc) + _mm_f32(o, wo)).to(cd)
     f = _ln_affine(h, ln2g, ln2b, eps2).to(cd)
-    y = torch.matmul(_mlp_hidden(f, w1, b1), w2) + b2
-    return h + y
+    u = _mlp_hidden(f, w1, b1).to(cd)
+    y = _mm_f32(u, w2) + b2.to(acc)
+    return (h.to(acc) + y).to(cd)
 
 
 def transformer_block_plain(x, params, n_head, causal=False, eps1=1e-5,
                             eps2=1e-5):
-    """The plain version of the block kernel: ``block_reference`` with
-    plain attention."""
+    """The plain version of the block kernels, f32 and bf16:
+    ``block_reference`` with plain attention."""
     return block_reference(x, tuple(params), n_head, causal, eps1, eps2)
 
 
+# the params the bf16 kernel takes in f32: the layer norms' and the biases
+VECTORS = (0, 1, 6, 7, 9, 11)
+
+
 def _kernel(name="ptt_transformer_block_fwd"):
-    """The C entry of the block forward, or its workspace size."""
+    """A C entry of a block forward (f32 or bf16), or its workspace
+    size."""
     if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "ptt_transformer_block_fwd":
-            _fns[name] = _build.bind(name, [p] * 15 + [i] * 7 + [f, f, p])
-        else:
+        if name.endswith("_workspace"):
             _fns[name] = _build.bind(name, [i] * 6, ctypes.c_longlong)
+        else:
+            _fns[name] = _build.bind(name, [p] * 15 + [i] * 7 + [f, f, p])
     return _fns[name]
 
 
 def _launch(x, params, n_head, causal, eps1, eps2):
+    """The block kernel of x's dtype: f32 throughout, or bf16 x and
+    matrices with f32 vectors (bf16 vectors are widened, which is exact)."""
+    bf16 = x.dtype == torch.bfloat16
+    name = "transformer_block" + ("_bf16" if bf16 else "")
     ts = (x,) + tuple(params)
     if not all(t.is_cuda for t in ts):
-        raise RuntimeError("transformer_block kernel: every tensor must lie "
-                           "on a CUDA device")
+        raise RuntimeError(f"{name} kernel: every tensor must lie on a CUDA "
+                           f"device")
     if len({t.device for t in ts}) != 1:
-        raise ValueError("transformer_block kernel: inputs on different "
-                         "devices")
-    if not all(t.dtype == torch.float32 for t in ts):
-        raise ValueError(f"transformer_block kernel: f32 inputs only, got "
-                         f"{[str(t.dtype) for t in ts]}")
+        raise ValueError(f"{name} kernel: inputs on different devices")
+    if bf16:
+        params = tuple(t.float() if i in VECTORS else t
+                       for i, t in enumerate(params))
+        want = [torch.float32 if i in VECTORS else torch.bfloat16
+                for i in range(len(params))]
+        if [t.dtype for t in params] != want:
+            raise ValueError(f"{name} kernel: bf16 x and matrices, f32 or "
+                             f"bf16 vectors only, got "
+                             f"{[str(t.dtype) for t in ts]}")
+        ts = (x,) + params
+    elif not all(t.dtype == torch.float32 for t in ts):
+        raise ValueError(f"{name} kernel: f32 inputs, or bf16 x and "
+                         f"matrices, only, got {[str(t.dtype) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("transformer_block kernel: inputs must be "
-                         "contiguous")
+        raise ValueError(f"{name} kernel: inputs must be contiguous")
     if x.ndim != 3:
         raise ValueError(f"transformer_block kernel: x must be [B, T, D], "
                          f"got {tuple(x.shape)}")
@@ -139,26 +219,38 @@ def _launch(x, params, n_head, causal, eps1, eps2):
             (F,), (F, D), (D,))
     got = tuple(tuple(t.shape) for t in params)
     if got != want:
-        raise ValueError(f"transformer_block kernel: param shapes {got} != "
-                         f"{want} ({', '.join(PARAM_NAMES)})")
+        raise ValueError(f"{name} kernel: param shapes {got} != {want} "
+                         f"({', '.join(PARAM_NAMES)})")
     if E % n_head or E // n_head not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"transformer_block kernel: head dim {E}/{n_head}; "
-                         f"the kernel takes {KERNEL_HEAD_DIMS}")
+        raise ValueError(f"{name} kernel: head dim {E}/{n_head}; the kernel "
+                         f"takes {KERNEL_HEAD_DIMS}")
     if D > MAX_D:
-        raise ValueError(f"transformer_block kernel: D={D} > {MAX_D}")
+        raise ValueError(f"{name} kernel: D={D} > {MAX_D}")
+    entry = "ptt_transformer_block_bf16_fwd" if bf16 \
+        else "ptt_transformer_block_fwd"
     out = torch.empty_like(x)
-    nbytes = _kernel("ptt_transformer_block_fwd_workspace")(B, T, D, E, F,
-                                                             n_head)
+    nbytes = _kernel(entry + "_workspace")(B, T, D, E, F, n_head)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    err = _kernel()(*(t.data_ptr() for t in ts), out.data_ptr(),
-                    work.data_ptr(), B, T, D, E, F, n_head, int(causal),
-                    float(eps1), float(eps2),
-                    torch.cuda.current_stream(x.device).cuda_stream)
+    err = _kernel(entry)(*(t.data_ptr() for t in ts), out.data_ptr(),
+                         work.data_ptr(), B, T, D, E, F, n_head, int(causal),
+                         float(eps1), float(eps2),
+                         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"transformer_block kernel launch failed: CUDA "
-                           f"error {err}")
-    transformer_block.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    (transformer_block_bf16 if bf16 else transformer_block).launches += 1
     return out
+
+
+def transformer_block_bf16(x, params, n_head, causal=False, eps1=1e-5,
+                           eps2=1e-5):
+    """The bf16 block kernel (csrc/fused_block_bf16.cu) on bf16 CUDA x and
+    matrices, f32 (or bf16) vectors: out bf16.  Its launches (one per call,
+    seven kernels) are counted in ``transformer_block_bf16.launches``."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"transformer_block_bf16 kernel: bf16 x only, got "
+                         f"{x.dtype}")
+    return _launch(x, tuple(params), int(n_head), bool(causal), float(eps1),
+                   float(eps2))
 
 
 class _Block(torch.autograd.Function):
@@ -198,3 +290,4 @@ def transformer_block(x, params, n_head, causal: bool = False,
 
 
 transformer_block.launches = 0
+transformer_block_bf16.launches = 0

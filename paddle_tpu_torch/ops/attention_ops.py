@@ -21,18 +21,17 @@ port's kernel masks ragged tiles itself, so nothing is padded here.  Both
 ops are differentiable end to end: the projections through torch
 autograd, the kernels through their ``torch.autograd.Function``s.
 
-Under FLAGS_amp_bf16, ``fused_mha`` and ``fused_lm_head_loss`` take the
-JAX lowerings' AMP policy (``amp_inputs``: x and the weights enter as bf16;
-the projections, the flash kernel and the head run on bf16 operands with
-f32 accumulation; ``fused_mha``'s output stays bf16, the loss f32).
-``fused_attention`` has no AMP policy in the port yet and refuses to run
-under the flag (ROADMAP B.8b).
+Under FLAGS_amp_bf16 the three ops take the JAX lowerings' AMP policy
+(``amp_inputs``: the activations and the weights enter as bf16; the
+projections, the flash kernels and the head run on bf16 operands with f32
+accumulation).  ``fused_mha``'s output stays bf16 (``amp_result``),
+``fused_attention``'s is cast back to its input's dtype (JAX
+attention_ops.py:29-30, :63), the loss is f32.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core import flags
 from ..core.enforce import EnforceNotMet
 from ..framework.registry import register_op, single_input
 from ..kernels.flash_attention import flash_attention, flash_attention_hdt
@@ -43,14 +42,11 @@ from .math_ops import amp_inputs, amp_result
 @register_op("fused_attention")
 def _fused_attention(ctx, ins, attrs):
     """Q [B, Tq, n_head*d], K and V [B, Tk, n_head*d] -> Out [B, Tq,
-    n_head*d].  attrs: n_head, causal, scale (0 => 1/sqrt(d))."""
-    if flags.get_flag("amp_bf16"):
-        # the JAX lowering casts q, k, v with amp_inputs (attention_ops.py
-        # :30); the port's [B, H, T, d] flash kernel is f32 only
-        raise EnforceNotMet(
-            "fused_attention: no AMP policy under FLAGS_amp_bf16 yet; the "
-            "bf16 [B, H, T, d] flash kernel is ROADMAP B.8b")
+    n_head*d].  attrs: n_head, causal, scale (0 => 1/sqrt(d)).  Under
+    AMP, q, k and v enter as bf16 and the output leaves in Q's dtype."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    orig_dtype = q.dtype
+    q, k, v = amp_inputs(q, k, v)
     n_head = int(attrs["n_head"])
     causal = bool(attrs.get("causal", False))
     B, T, E = q.shape
@@ -62,7 +58,7 @@ def _fused_attention(ctx, ins, attrs):
     scale = float(attrs.get("scale", 0.0)) or None
     o = flash_attention(split(q), split(k), split(v), causal=causal,
                         scale=scale)
-    return {"Out": [o.transpose(1, 2).reshape(B, T, E).to(q.dtype)]}
+    return {"Out": [o.transpose(1, 2).reshape(B, T, E).to(orig_dtype)]}
 
 
 @register_op("fused_mha")

@@ -2,14 +2,15 @@
 paddle_tpu/ops/fused_ops.py: fused_transformer_block :464)."""
 from __future__ import annotations
 
-from ..core import flags
-from ..core.enforce import EnforceNotMet
 from ..framework.registry import register_op, single_input
 from ..kernels.fused_block import transformer_block
+from .math_ops import amp_inputs, amp_result
 
 # the op's parameter slots, in transformer_block's params order
 BLOCK_SLOTS = ("Ln1Scale", "Ln1Bias", "Wq", "Wk", "Wv", "Wo", "Ln2Scale",
                "Ln2Bias", "W1", "B1", "W2", "B2")
+# the slots AMP casts with X: the matrices (JAX fused_ops.py:491-496)
+MATRIX_SLOTS = ("Wq", "Wk", "Wv", "Wo", "W1", "W2")
 
 
 @register_op("fused_transformer_block")
@@ -21,19 +22,22 @@ def _fused_transformer_block(ctx, ins, attrs):
     X [B, T, D]; Wq/Wk/Wv [D, E], Wo [E, D], W1 [D, F], W2 [F, D], LN
     scales/biases [D], B1 [F], B2 [D].  attrs: n_head, causal, eps1, eps2.
     Lowers to ``kernels/fused_block.transformer_block``: the block kernel
-    on the card, its plain version on the CPU and on meta tensors (shape
-    inference).  f32 only: the JAX lowering's AMP casts (JAX
-    ops/fused_ops.py:479-501) and the bf16 block kernel are ROADMAP B.8d,
-    so under FLAGS_amp_bf16 the op refuses to run."""
-    if flags.get_flag("amp_bf16"):
-        raise EnforceNotMet(
-            "fused_transformer_block: no AMP policy under FLAGS_amp_bf16 "
-            "yet; the block op's bf16 casts and the bf16 block kernel are "
-            "ROADMAP B.8d (its recompute's bf16 flash is B.8b)")
+    of X's dtype on the card, its plain version on the CPU and on meta
+    tensors (shape inference).  Under FLAGS_amp_bf16, the JAX lowering's
+    policy (JAX ops/fused_ops.py:479-501): ``amp_inputs`` casts X and the
+    six matrices to bf16 (the LN params and biases stay f32), and the
+    output goes through ``amp_result``, so a block's bf16 output stays
+    bf16 and the next block takes bf16 X; the weight gradients flow back
+    to the f32 masters through the casts."""
+    x = single_input(ins)
+    orig = x.dtype
+    params = {s: single_input(ins, s) for s in BLOCK_SLOTS}
+    x, *mats = amp_inputs(x, *(params[s] for s in MATRIX_SLOTS))
+    params.update(zip(MATRIX_SLOTS, mats))
     out = transformer_block(
-        single_input(ins), tuple(single_input(ins, s) for s in BLOCK_SLOTS),
+        x, tuple(params[s] for s in BLOCK_SLOTS),
         n_head=int(attrs["n_head"]),
         causal=bool(attrs.get("causal", False)),
         eps1=float(attrs.get("eps1", 1e-5)),
         eps2=float(attrs.get("eps2", 1e-5)))
-    return {"Out": [out]}
+    return {"Out": [amp_result(out, orig)]}

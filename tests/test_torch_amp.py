@@ -23,8 +23,7 @@ kernels in interpret mode, as its own tests run them.
 - The AMP training program (L 2, N 256) built by both packages from one
   saved parameter set, 3 Adam steps; its tolerances are stated beside
   the test.
-- The program built under the flag serializes as the JAX one does, and
-  the ops without an AMP policy in the port refuse to run under it.
+- The program built under the flag serializes as the JAX one does.
 """
 import importlib
 
@@ -39,7 +38,6 @@ import paddle_tpu_torch as ptt
 from paddle_tpu.framework.registry import LowerContext as JaxCtx
 from paddle_tpu.framework.registry import get_op_def as jax_op
 from paddle_tpu.models import transformer as jtr
-from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.framework.registry import LowerContext as TorchCtx
 from paddle_tpu_torch.framework.registry import get_op_def as torch_op
 from paddle_tpu_torch.kernels import flash_attention as tflash
@@ -358,24 +356,6 @@ def test_without_amp_the_ops_keep_f32():
     _, touts = _run_both("fused_mha", _mha(rng), {"n_head": 2,
                                                   "causal": True})
     assert touts["Out"][0].dtype == torch.float32
-
-
-def test_ops_without_an_amp_policy_refuse_it(amp):
-    rng = np.random.RandomState(1)
-    q = torch.from_numpy(_rand(rng, 1, 8, 128))
-    with pytest.raises(EnforceNotMet, match="B.8b"):
-        torch_op("fused_attention").lower(
-            TorchCtx(0, torch.device("cpu")), {"Q": [q], "K": [q], "V": [q]},
-            {"n_head": 2, "causal": True})
-    x = torch.zeros(1, 8, 64)
-    params = [torch.zeros(64)] * 2 + [torch.zeros(64, 64)] * 4 + \
-        [torch.zeros(64)] * 2 + [torch.zeros(64, 128), torch.zeros(128),
-                                 torch.zeros(128, 64), torch.zeros(64)]
-    from paddle_tpu_torch.ops.fused_ops import BLOCK_SLOTS
-    ins = dict(X=[x], **{s: [p] for s, p in zip(BLOCK_SLOTS, params)})
-    with pytest.raises(EnforceNotMet, match="B.8d"):
-        torch_op("fused_transformer_block").lower(
-            TorchCtx(0, torch.device("cpu")), ins, {"n_head": 1})
 
 
 def test_bf16_kernel_wrappers_refuse_other_inputs():

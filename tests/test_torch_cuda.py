@@ -552,8 +552,8 @@ def test_bf16_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored,
 
 
 def test_bf16_wrappers_refuse_what_they_cannot_take(cuda):
-    """fp16, mixed dtypes and bf16 in the [B, H, T, d] layout (ROADMAP
-    B.8b) raise on the card; nothing falls back to the plain version."""
+    """fp16 and mixed dtypes raise on the card; nothing falls back to the
+    plain version."""
     q = torch.zeros(2, 64, 64, device=cuda)
     lse = torch.zeros(2, 1, 64, device=cuda)
     with pytest.raises(ValueError, match="f32"):
@@ -568,7 +568,14 @@ def test_bf16_wrappers_refuse_what_they_cannot_take(cuda):
                                    lse.bfloat16(), lse, q.bfloat16(), 1)
     b4 = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="f32"):
-        fa.flash_attention(b4, b4, b4)
+        fa.flash_attention(b4.half(), b4.half(), b4.half())
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_attention(b4, b4.float(), b4)
+    x, params = _block_inputs(cuda, 1, 8, 128, 64, seed=71)
+    with pytest.raises(ValueError, match="bf16"):
+        fb.transformer_block(x.half(), tuple(p.half() for p in params), 2)
+    with pytest.raises(ValueError, match="bf16"):
+        fb.transformer_block(x.bfloat16(), params, 2)      # f32 matrices
     x = torch.zeros(4, 8, device=cuda)
     w = torch.zeros(8, 16, device=cuda)
     y = torch.zeros(4, dtype=torch.long, device=cuda)
@@ -585,3 +592,96 @@ def test_amp_training_step_on_the_card_matches_the_cpu(cuda):
     import chip_smoke
     with chip_smoke.amp_bf16():
         chip_smoke.train_match(torch, amp=True)
+
+
+# --- the AMP fuse_block slice: the bf16 [B, H, T, d] flash and block ---------
+
+def _bhtd_bf16(dev, B, H, T, d, seed, layout, mul=1.0):
+    """bf16 [B, H, T, d]: contiguous, the block's [B, T, H, d] view, or
+    that view 2 bytes off 16-byte alignment."""
+    bf = torch.bfloat16
+    if layout == "bhtd":
+        return (_randn(dev, B, H, T, d, seed=seed) * mul).to(bf)
+    x = (_randn(dev, B * T * H * d + 1, seed=seed) * mul).to(bf)
+    x = x[1:] if layout == "bthd+1" else x[:-1]
+    return x.view(B, T, H, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,H,T,Tk,d,causal,layout,amp", [
+    (4, 8, 512, 512, 64, True, "bthd", 1),     # the path's layout, B 4
+    (2, 8, 300, 300, 64, False, "bhtd", 1),
+    (2, 8, 200, 333, 64, False, "bthd", 1),
+    (2, 4, 300, 300, 128, True, "bthd", 1),
+    (2, 8, 300, 300, 64, True, "bthd+1", 1),   # element copies
+    (2, 8, 65, 65, 64, True, "bthd", 4),       # a peaked softmax
+])
+def test_bf16_bhtd_flash_kernels_match_plain(cuda, B, H, T, Tk, d, causal,
+                                             layout, amp):
+    """The bf16 [B, H, T, d] forward and backward against their plain
+    versions in bf16 at chip_smoke's BF16_RTOL by tile (lse at the f32
+    tolerance), the same bits on two calls and as the head-major bf16
+    call on the same data."""
+    import chip_smoke
+    q = _bhtd_bf16(cuda, B, H, T, d, 100, layout, amp)
+    k = _bhtd_bf16(cuda, B, H, Tk, d, 101, layout, amp)
+    v = _bhtd_bf16(cuda, B, H, Tk, d, 102, layout)
+    do = _bhtd_bf16(cuda, B, H, T, d, 103, layout)
+    before = (fa.flash_attention_bf16.launches,
+              fa.flash_attention_bwd_bf16.launches)
+    o, lse = fa.flash_attention_bf16(q, k, v, causal)
+    po, plse = fa.flash_attention_plain(q, k, v, causal)
+    hm = chip_smoke.head_major
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert chip_smoke.tile_rel_err([hm(o)], [hm(po)]) <= _bf16_tol()
+    assert (lse - plse).abs().max().item() <= F32_TOL
+    delta = (do.float() * po.float()).sum(-1)
+    args = (q, k, v, plse, delta, do, causal)
+    got = fa.flash_attention_bwd_bf16(*args)
+    again = fa.flash_attention_bwd_bf16(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    assert chip_smoke.tile_rel_err([hm(t) for t in got],
+                                   [hm(t) for t in want]) <= _bf16_tol()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (fa.flash_attention_bf16.launches,
+            fa.flash_attention_bwd_bf16.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+    oh, _ = fa.flash_attention_hdt_bf16(hm(q), hm(k), hm(v), B,
+                                        causal=causal)
+    assert torch.equal(hm(o), oh)
+
+
+@pytest.mark.parametrize("B,T,H,D,E,F,causal,w1_scale,vectors", [
+    (4, 512, 8, 512, 512, 2048, True, 1.0, "f32"),   # the path's widths
+    (2, 300, 8, 512, 512, 2048, False, 1.0, "f32"),
+    (2, 300, 4, 512, 512, 2048, True, 1.0, "f32"),   # head dim 128
+    (2, 67, 2, 201, 128, 333, True, 1.0, "bf16"),    # element copies
+    (2, 512, 8, 512, 512, 2048, True, 8.0, "f32"),   # large W2 sums
+])
+def test_bf16_block_kernel_matches_plain(cuda, B, T, H, D, E, F, causal,
+                                         w1_scale, vectors):
+    """The bf16 block kernel against its plain version in bf16 at
+    chip_smoke's BLOCK_BF16_RTOL of max |plain|, the same bits twice, one
+    count a call."""
+    import chip_smoke
+    x, params = _block_inputs(cuda, B, T, D, F, seed=110, E=E,
+                              w1_scale=w1_scale)
+    x = x.to(torch.bfloat16)
+    params = chip_smoke.bf16_block_params(params, vectors)
+    before = fb.transformer_block_bf16.launches
+    got = fb.transformer_block(x, params, H, causal)
+    again = fb.transformer_block_bf16(x, params, H, causal)
+    want = fb.transformer_block_plain(x, params, H, causal)
+    assert fb.transformer_block_bf16.launches == before + 2
+    assert got.dtype == torch.bfloat16
+    assert _rel_max([got], [want]) <= chip_smoke.BLOCK_BF16_RTOL
+    assert torch.equal(got, again)
+
+
+def test_amp_fused_training_step_on_the_card_matches_the_cpu(cuda):
+    """One Adam step of the fuse_block training program under
+    FLAGS_amp_bf16 at full width, L 2, batch 2, on CUDAPlace(0) and on the
+    CPU: chip_smoke's check at its AMP tolerances, the card's relu masks
+    replayed inside the blocks."""
+    import chip_smoke
+    with chip_smoke.amp_bf16():
+        chip_smoke.train_match_fused(torch, amp=True)
