@@ -31,6 +31,13 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    max |plain|) and the f32 tolerances on lse and loss; two calls of each
    must give the same bits.  The flash compare must refuse a planted
    fault (the last row tile skipping the first key tile).  The bf16
+   LM-head backward runs each case on the path its operands choose
+   (lm_head.bwd_bf16_path: wgmma where TMA can describe x and W, sync for
+   V 1001, D 201 and D 12), checked by its path counters, and each wgmma
+   case again forced onto the sync path; one more case is aligned and a
+   multiple of no tile (N 3001, D 264, V 4104, chunk 1000).  The compare
+   must refuse a planted fault (dlogits without the onehot term in one
+   vocab tile) by more than 4x BF16_RTOL.  The bf16
    kernels of the AMP fuse_block path: the [B, H, T, d] flash forward and
    backward on the block's [B, T, H, d] views (contiguous and 2 bytes off
    16-byte alignment, a ragged T, head dim 128, Tq != Tk, a peaked
@@ -113,11 +120,16 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    and head-major calls, the bf16 block beside
    torch.nn.TransformerEncoderLayer in bf16; the bf16 block's launches one
    by one (BLOCK_BF16_CHAIN_LAUNCHES); the AMP fuse_block step traced by
-   kernel class.
+   kernel class.  The bf16 LM-head backward's timing names its path and
+   times the sync path on the same inputs beside it; head_breakdown lists
+   its launches one by one on both paths with their TFLOP/s, and the
+   smoke fails unless the wgmma path makes head_bwd_kernels() launches a
+   chunk.
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
-   "launches_by_path"; the bf16 kernels' launches are the AMP step's),
+   "launches_by_path"; the bf16 kernels' launches are the AMP step's;
+   lm_head_bwd_bf16 also carries its path and both paths' breakdowns),
    nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
@@ -129,6 +141,7 @@ non-zero and prints no result when no CUDA device is visible, or when the
 paddle_tpu_torch package is not beside it.
 """
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -155,6 +168,7 @@ TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 SLEEP_CYCLES = 40_000_000      # about 20 ms at the H100's 1.98 GHz boost
 ROTATE = 4                     # input sets a timed call rotates over (cold)
+FAULT_TILE = 12800             # the LM head's planted fault: its vocab tile
 
 LN_TOL = 1e-4        # abs, f32: the same math summed in another order
 LN_BF16_TOL = 2e-2   # abs on bf16 y of magnitude < 4: one bf16 rounding
@@ -382,6 +396,30 @@ def skipped_key_tile(fa, q, k, v, lse, delta, do, B, T, tile=64):
     o.view(H, d, B, T)[..., rows] = oi.to(o.dtype).view(H, d, B, n)
     dq.view(H, d, B, T)[..., rows] = gi.to(dq.dtype).view(H, d, B, n)
     return o, dq
+
+
+def dropped_onehot_tile(lmh, x, w, labels, lse, g, chunk, width=128):
+    """(dx, dW) of a bf16 LM-head backward with a planted fault: the
+    dlogits of the tokens whose label lies in vocab columns [FAULT_TILE,
+    FAULT_TILE + width) miss the onehot term (the softmax term stays).
+    lm_head_bwd_plain's arithmetic and roundings otherwise."""
+    import torch
+    y = labels.long()
+    kept = (y >= 0) & ~((y >= FAULT_TILE) & (y < FAULT_TILE + width))
+    wf = w.float()
+    gm = g.float() * (y >= 0).float()
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+    for r0 in range(0, x.shape[0], chunk):
+        sl = slice(r0, min(r0 + chunk, x.shape[0]))
+        xs = x[sl].float()
+        dl = torch.exp(xs @ wf - lse[sl].float()[:, None])
+        rows = torch.arange(dl.shape[0], device=x.device)
+        dl[rows, y[sl].clamp(min=0)] -= kept[sl].float()
+        dl = (dl * gm[sl, None]).to(torch.bfloat16).float()
+        dx[sl] = dl @ wf.t()
+        dw += xs.t() @ dl
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def block_inputs(rnd, B, T, D, F, E=None, w1_scale=1.0):
@@ -848,15 +886,20 @@ def phase_compare(torch):
         note("flash_attention_hdt_bwd_bf16", path,
              max(max_err(a, b) for a, b in zip(got, want)))
 
-    # the bf16 LM head on the f32 cases (N, D, V, chunk, ignored labels,
-    # scale of x, label dtype, path): V 1001 and D 201 take element copies
+    # the bf16 LM head on the f32 cases and one aligned case that is a
+    # multiple of no tile (N, D, V, chunk, ignored labels, scale of x,
+    # label dtype, path): V 1001, D 201 and D 12 take the sync backward
+    # (element copies), the rest the wgmma one, which each case also runs
+    # forced onto the sync path
+    bwd = lmh.lm_head_bwd_bf16
     for N, D, V, chunk, n_ign, amp, ydt, path in [
             (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, 1,
              torch.int64, "train"),
             (1000, 512, 1001, 256, 37, 1, torch.int64, "ragged"),
             (777, 201, 3000, 300, 11, 1, torch.int32, "ragged"),
             (5, 12, 100, HEAD_CHUNK, 1, 1, torch.int64, "ragged"),
-            (2048, 512, 32000, 1024, 5, 12, torch.int64, "ragged")]:
+            (2048, 512, 32000, 1024, 5, 12, torch.int64, "ragged"),
+            (3001, 264, 4104, 1000, 23, 1, torch.int64, "ragged")]:
         x, w = (rnd(N, D) * amp).to(bf), (rnd(D, V) * 0.05).to(bf)
         y = torch.randint(0, V, (N,), generator=g, device=dev)
         y[torch.randperm(N, generator=g, device=dev)[:n_ign]] = -1
@@ -865,32 +908,60 @@ def phase_compare(torch):
         loss, lse = lmh.lm_head_fwd_bf16(x, w, y)
         loss2, lse2 = lmh.lm_head_fwd_bf16(x, w, y)
         ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
-        got = lmh.lm_head_bwd_bf16(x, w, y, lse, gl, chunk)
-        again = lmh.lm_head_bwd_bf16(x, w, y, lse, gl, chunk)
         want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
         torch.cuda.synchronize()
         ef = max(max_err(loss, ploss), max_err(lse, plse))
-        rb = max(rel_err(a, b) for a, b in zip(got, want))
         same_f = torch.equal(loss, loss2) and torch.equal(lse, lse2)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[compare] lm_head_bf16 N={N} D={D} V={V} chunk={chunk} "
-            f"ignored={n_ign} x*{amp} labels {str(ydt)[6:]}: loss and lse "
-            f"max abs err {ef:.3g} (tol {HEAD_TOL:g}); dx, dW {rb:.3g} of "
-            f"max |plain| (tol {BF16_RTOL:g}); two runs bit-identical: "
-            f"forward {same_f}, backward {same}")
+        shape_path = lmh.bwd_bf16_path(x.data_ptr(), w.data_ptr(), D, V)
+        for forced in (None, "sync") if shape_path == "wgmma" else (None,):
+            took = forced or shape_path
+            before = (bwd.launches_wgmma, bwd.launches_sync)
+            got = bwd(x, w, y, lse, gl, chunk, path=forced)
+            again = bwd(x, w, y, lse, gl, chunk, path=forced)
+            torch.cuda.synchronize()
+            n_ch = 2 * -(-N // min(chunk, N))
+            moved = (bwd.launches_wgmma - before[0],
+                     bwd.launches_sync - before[1])
+            if moved != ((n_ch, 0) if took == "wgmma" else (0, n_ch)):
+                raise RuntimeError(f"bf16 LM head backward: expected the "
+                                   f"{took} path, counters moved {moved}")
+            rb = max(rel_err(a, b) for a, b in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[compare] lm_head_bf16 N={N} D={D} V={V} chunk={chunk} "
+                f"ignored={n_ign} x*{amp} labels {str(ydt)[6:]}: loss and "
+                f"lse max abs err {ef:.3g} (tol {HEAD_TOL:g}); backward on "
+                f"the {took} path{' (forced)' if forced else ''}: dx, dW "
+                f"{rb:.3g} of max |plain| (tol {BF16_RTOL:g}); two runs "
+                f"bit-identical: forward {same_f}, backward {same}")
+            if not rb <= BF16_RTOL:
+                raise RuntimeError(f"bf16 LM head backward ({took}) "
+                                   f"disagrees: {rb}")
+            if not all(t.dtype == bf for t in got):
+                raise RuntimeError("bf16 LM head backward: outputs not bf16")
+            if not same:
+                raise RuntimeError(f"bf16 LM head backward ({took}) is not "
+                                   f"deterministic")
+            if forced is None:
+                note("lm_head_bwd_bf16", path,
+                     max(max_err(a, b) for a, b in zip(got, want)))
+        if path == "train":
+            # the compare must refuse a backward whose dlogits miss the
+            # onehot term in one vocab tile
+            fdx, fdw = dropped_onehot_tile(lmh, x, w, y, plse, gl, chunk)
+            fault = max(rel_err(fdx, want[0]), rel_err(fdw, want[1]))
+            log(f"[fault] lm_head_bf16, dlogits without the onehot term "
+                f"in vocab tile [{FAULT_TILE}, {FAULT_TILE + 128}): dx, dW "
+                f"{fault:.3g} of max |plain| (tol {BF16_RTOL:g})")
+            if not fault > 4 * BF16_RTOL:
+                raise RuntimeError(f"the bf16 LM head compare passes a "
+                                   f"dropped onehot tile: {fault}")
         if not ef <= HEAD_TOL:
             raise RuntimeError(f"bf16 LM head forward disagrees: {ef}")
         if not bool((loss[y < 0] == 0).all()):
             raise RuntimeError("bf16 LM head: ignored labels give loss")
-        if not rb <= BF16_RTOL:
-            raise RuntimeError(f"bf16 LM head backward disagrees: {rb}")
-        if not all(t.dtype == bf for t in got):
-            raise RuntimeError("bf16 LM head backward: outputs not bf16")
-        if not (same_f and same):
-            raise RuntimeError("bf16 LM head kernels are not deterministic")
+        if not same_f:
+            raise RuntimeError("bf16 LM head forward is not deterministic")
         note("lm_head_fwd_bf16", path, ef)
-        note("lm_head_bwd_bf16", path,
-             max(max_err(a, b) for a, b in zip(got, want)))
 
     compare_fuse_block_amp(torch, rnd, note)
     return errs
@@ -1211,6 +1282,8 @@ def _phase_train(torch, fuse_block, amp):
     counters = {n: wrapper(n) for n in KERNELS}
     for fn in counters.values():
         fn.launches = 0
+    head_bwd = counters["lm_head_bwd_bf16"]
+    head_bwd.launches_wgmma = head_bwd.launches_sync = 0
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
@@ -1227,6 +1300,13 @@ def _phase_train(torch, fuse_block, amp):
         log(f"{tag} step {step}: loss {losses[-1]:.6f} "
             f"({step_ms[-1]:.1f} ms)")
     counts = {n: fn.launches for n, fn in counters.items()}
+    # the bf16 LM-head backward's chunks by path: every one on the wgmma
+    # path at this shape
+    paths = dict(wgmma=head_bwd.launches_wgmma, sync=head_bwd.launches_sync)
+    if amp:
+        log(f"{tag} bf16 LM-head backward chunks by path: {paths}")
+    if paths != dict(wgmma=counts["lm_head_bwd_bf16"], sync=0):
+        raise RuntimeError(f"bf16 LM-head backward paths {paths}")
     # AMP: the first layer norm takes the f32 embedding sum, every later
     # one a residual sum that stays bf16
     want_ln = (["float32"] + ["bfloat16"] * (2 * cfg.n_layer) if amp
@@ -1553,6 +1633,18 @@ BLOCK_CHAIN_LAUNCHES = 9
 BLOCK_BF16_CHAIN_LAUNCHES = 7
 
 
+def head_bwd_kernels():
+    """Launches of one chunk of the bf16 LM-head backward at the training
+    shape on the wgmma path: its three products, and the sum of dx's K
+    ranges where the plan cuts K."""
+    import torch
+    from paddle_tpu_torch.kernels import lm_head as lmh
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = lmh.bwd_bf16_plan(HEAD_CHUNK, FLAGSHIP["d_model"],
+                             FLAGSHIP["src_vocab_size"], sms)
+    return 3 + (plan["ranges"] > 1)
+
+
 def _kernel_class(name):
     if "_bf16" in name:   # the AMP path's kernels
         for key, cls in (("block_gemm", BLOCK_GEMMS_BF16),
@@ -1682,6 +1774,50 @@ def block_breakdown(torch, bf16=False):
         rate = f", {r['tflops']:.2f} TFLOP/s" if "tflops" in r else ""
         log(f"[block]   {name}: {r['ms']:.4f} ms ({r['launches']} "
             f"launches{rate})")
+    return res
+
+
+def head_breakdown(torch):
+    """The bf16 LM-head backward's launches at the training shape (N 16384,
+    D 512, V 32000, chunk 4096), on the wgmma path and on the sync path
+    (the parent's design): each kernel's device time over one call from
+    torch.profiler, and the product kernels' TFLOP/s of their work (2 C D V
+    FLOP a launch): {path: {kernel name: {"ms", "launches"(, "tflops")}}}."""
+    from paddle_tpu_torch.kernels import lm_head as lmh
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    N, D, V, C = TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK
+    x = torch.randn(N, D, generator=g, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn(D, V, generator=g, device=DEVICE) * 0.05).to(
+        torch.bfloat16)
+    y = torch.randint(0, V, (N,), generator=g, device=DEVICE)
+    gl = torch.full((N,), 1.0 / N, device=DEVICE)
+    lse = lmh.lm_head_fwd_bf16(x, w, y)[1]
+    flops = 2 * C * D * V
+    res = {}
+    for path in ("wgmma", "sync"):
+        events, _ = profiled(torch, lambda: lmh.lm_head_bwd_bf16(
+            x, w, y, lse, gl, C, path=path))
+        rows = {}
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or e.self_device_time_total <= 0 \
+                    or "lm_head_bwd" not in e.key:
+                continue
+            ms = e.self_device_time_total / 1e3
+            row = dict(ms=ms, launches=e.count)
+            if "reduce" not in e.key:   # the products
+                row["tflops"] = flops * e.count / ms / 1e9
+            rows[_short_kernel_name(e.key)] = row
+        total = sum(r["ms"] for r in rows.values())
+        log(f"[head] one bf16 LM-head backward N={N} D={D} V={V} chunk {C}, "
+            f"{path} path: {sum(r['launches'] for r in rows.values())} "
+            f"launches, {total:.4f} ms of device time "
+            f"({3 * flops * (N // C) / total / 1e9:.1f} TFLOP/s)")
+        for name, r in rows.items():
+            rate = f", {r['tflops']:.1f} TFLOP/s" if "tflops" in r else ""
+            log(f"[head]   {name}: {r['ms']:.4f} ms ({r['launches']} "
+                f"launches{rate})")
+        res[path] = rows
     return res
 
 
@@ -2049,8 +2185,26 @@ def phase_timings_amp(torch):
         x_, w_, lse_ = rot()
         return bwd(x_, w_, y, lse_, gl, HEAD_CHUNK)
 
-    bms, bhost = time_ms(lambda: head_bwd(lmh.lm_head_bwd_bf16), iters=5,
-                         warmup=1)
+    def timed_path(path):
+        """(device ms, host ms, path) of the bf16 backward on the rotated
+        inputs, `path` None (the operands' choice) or forced: the path its
+        timed chunks took, read from the path counters, which must name
+        one path for every chunk."""
+        bwd = lmh.lm_head_bwd_bf16
+        before = (bwd.launches_wgmma, bwd.launches_sync)
+        ms, host = time_ms(lambda: head_bwd(functools.partial(
+            bwd, path=path)), iters=5, warmup=1)
+        moved = dict(wgmma=bwd.launches_wgmma - before[0],
+                     sync=bwd.launches_sync - before[1])
+        took = [p for p, n in moved.items() if n]
+        if len(took) != 1 or took[0] != (path or took[0]):
+            raise RuntimeError(f"bf16 LM head backward timing (path "
+                               f"{path}): chunks moved the counters {moved}")
+        return ms, host, took[0]
+
+    bms, bhost, bpath = timed_path(None)
+    # the same kernels forced onto the sync path (the parent's design)
+    bsync, _, _ = timed_path("sync")
     bplain, _ = time_ms(lambda: head_bwd(lmh.lm_head_bwd_plain), iters=3,
                         warmup=1)
 
@@ -2075,6 +2229,7 @@ def phase_timings_amp(torch):
                                    **bf16_bounds(fops, fbytes, fms))
     res["lm_head_bwd_bf16"] = dict(ms=bms, plain_ms=bplain, library_ms=blib,
                                    peak_mib=peak["lm_head_bwd_bf16"],
+                                   path=bpath, sync_ms=bsync,
                                    **bf16_bounds(3 * fops, bbytes, bms))
     for name, ms_, plain_, lib_, host_, ops, what in (
             ("lm_head_fwd_bf16", fms, fplain, flib, fhost, fops,
@@ -2089,6 +2244,9 @@ def phase_timings_amp(torch):
             f"GFLOP at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s); host enqueue "
             f"per call {host_:.4f} ms; peak device memory over a call "
             f"{peak[name]:.1f} MiB above its inputs")
+    log(f"[time amp] lm_head_bwd_bf16 took the {bpath} path; the sync path "
+        f"(gemm_bf16.cuh's loop) on the same inputs {bsync:.3f} ms "
+        f"({3 * fops / bsync / 1e9:.1f} TFLOP/s)")
     return res
 
 
@@ -2482,9 +2640,10 @@ def main():
                                         return_numpy=False),
               expect={BLOCK_GEMMS: 4 * FLAGSHIP["n_layer"]})
     # the AMP step: the bf16 kernels (the forward and the merge of its
-    # shares; 4 kernels per backward chunk), no f32 flash or LM head; the
-    # layer norms by their input type (the first takes the f32 embedding)
-    n_chunks = -(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
+    # shares; the backward's kernels per chunk on the wgmma path), no f32
+    # flash or LM head; the layer norms by their input type (the first
+    # takes the f32 embedding)
+    n_head_bwd = -(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK) * head_bwd_kernels()
     with amp_bf16():
         names = trace_run(
             torch, f"AMP training step at batch {TRAIN_BATCH}",
@@ -2495,7 +2654,7 @@ def main():
                     "flash backward bf16 (this repo)":
                         2 * FLAGSHIP["n_layer"],
                     "lm_head_fwd bf16 (this repo)": 2,
-                    "lm_head_bwd bf16 (this repo)": 4 * n_chunks,
+                    "lm_head_bwd bf16 (this repo)": n_head_bwd,
                     "lm_head_fwd (this repo)": 0,
                     "lm_head_bwd (this repo)": 0,
                     _kernel_class("flash_fwd_hdt_kernel"): 0,
@@ -2522,7 +2681,7 @@ def main():
                     "flash backward bf16 (this repo)":
                         2 * FLAGSHIP["n_layer"],
                     "lm_head_fwd bf16 (this repo)": 2,
-                    "lm_head_bwd bf16 (this repo)": 4 * n_chunks,
+                    "lm_head_bwd bf16 (this repo)": n_head_bwd,
                     BLOCK_GEMMS: 0,
                     "lm_head_fwd (this repo)": 0,
                     "lm_head_bwd (this repo)": 0,
@@ -2535,6 +2694,14 @@ def main():
         f"{ln_types}")
     if ln_types != {"float": 0, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"] + 1}:
         raise RuntimeError(f"AMP fuse_block step layer norms {ln}")
+    by_path = head_breakdown(torch)
+    n_head = sum(r["launches"] for r in by_path["wgmma"].values())
+    if n_head != n_head_bwd:
+        raise RuntimeError(f"one bf16 LM-head backward on the wgmma path "
+                           f"made {n_head} launches, expected {n_head_bwd}")
+    amp_times["lm_head_bwd_bf16"].update(by_kernel=by_path["wgmma"],
+                                         sync_by_kernel=by_path["sync"],
+                                         launches_per_call=n_head)
     by_kernel = block_breakdown(torch)
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_CHAIN_LAUNCHES:

@@ -12,17 +12,20 @@
 //             y < 0), dx = bf16(dlogits W^T) per chunk,
 //             dW = bf16(sum over the chunks of x^T dlogits, in f32)
 // These are the Pallas kernel's roundings (lm_head.py:128, :243, :244).
-// The products are computed here, on gemm_bf16.cuh's tile loop, not by a
-// library.
+// The products are computed here, on gemm_bf16.cuh's and wgmma_bf16.cuh's
+// tile loops, not by a library.
 //
 // Bound on the H100 at N 16384, D 512, V 32000: operations.  The forward
 // is one product, 2 N D V FLOP = 537 GFLOP, 0.543 ms at 989 TFLOP/s; the
 // backward three (recompute, dx, dW), 1.61 TFLOP, 1.628 ms.  The bytes (x,
 // W, dx, dW once) are two orders of magnitude below that.
 //
-// Design.  Every product runs on the bf16 tile loop of gemm_bf16.cuh (128 x
-// 128 CTA tiles, 8 warps, a 4-stage cp.async ring, ldmatrix fragments);
-// operands go from device memory to shared memory as they are.
+// Design.  The forward and the backward's sync path run on the bf16
+// tile loop of gemm_bf16.cuh (128 x 128 CTA tiles, 8 warps of mma.sync, a
+// 4-stage cp.async ring, ldmatrix fragments); the backward's main path on
+// wgmma_bf16.cuh (TMA into an mbarrier ring, wgmma, a producer warp and two
+// consumer warpgroups, a persistent grid).  Operands go from device memory
+// to shared memory as they are.
 //   lm_head_fwd: as lm_head.cu's: a CTA takes 128 tokens and one of S
 //     contiguous shares of the vocabulary tiles, folds each vocab tile's
 //     logits into a running (max, sum of exp, gold logit) per row in
@@ -32,21 +35,37 @@
 //   lm_head_bwd, per token chunk of C rows (the op's chunk_size):
 //     (1) recomputes the logits tile and writes dlogits [C, V], rounded to
 //     bf16, to the workspace; (2) dx = dlogits W^T with the vocabulary (K)
-//     cut into S ranges so that enough CTAs fill the SMs, each range's
-//     partial written apart in f32 and summed in range order by a small
-//     launch that rounds dx to bf16; (3) dW (+)= x^T dlogits into an f32
-//     sum in the workspace, in chunk order; the last chunk writes dW,
-//     rounded to bf16, instead.  Every output element is summed by one
-//     thread in a fixed order: no atomics, the same bits on every run.
+//     cut into S ranges where the output tiles alone would not fill the
+//     SMs, each range's partial written apart in f32 and summed in range
+//     order by a small launch that rounds dx to bf16 (S = 1: the product's
+//     epilogue writes bf16 dx); (3) dW (+)= x^T dlogits into an f32 sum in
+//     the workspace, in chunk order; the last chunk writes dW, rounded to
+//     bf16, instead.  Every output element is summed by one thread in a
+//     fixed order: no atomics, the same bits on every run.
+//   Two paths run the backward's products, chosen by the caller from the
+//   operands before the launch (kernels/lm_head.py bwd_bf16_path):
+//     wgmma (ptt_lm_head_bwd_chunk_bf16_wgmma) where TMA can describe x and
+//     W: 16-byte-aligned bases, D and V multiples of 8 (16-byte rows).
+//     Every operand is read in its own layout: recompute A = x (K-major),
+//     B = W (N-major); dx A = dlogits (K-major), B = W^T, which is W read
+//     K-major; dW A = x^T (M-major), B = dlogits (N-major).  Each product
+//     is one persistent launch whose epilogue stages its tile in shared
+//     memory and writes it with 16-byte stores: dlogits as bf16, dx as
+//     bf16 (S = 1) or f32 partials, dW adding the f32 sum or writing bf16.
+//     3 launches a chunk at the training shape (S = 1).
+//     sync (ptt_lm_head_bwd_chunk_bf16) otherwise, e.g. an odd D or V:
+//     gemm_bf16.cuh's loop, whose staging takes element copies there;
+//     4 launches a chunk.
 // Memory: the backward's workspace holds dlogits (2 C V bytes: 250 MiB at
 // C 4096, V 32000, a quarter of the f32 kernel's (hi, lo) pairs), the dx
-// partials (4 S C D bytes) and the f32 dW sum (4 D V bytes); the forward's
-// holds the shares' partial states.
+// partials (4 S C D bytes, none where S = 1) and the f32 dW sum (4 D V
+// bytes); the forward's holds the shares' partial states.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -327,6 +346,245 @@ __global__ void lm_head_bwd_bf16_reduce_kernel(const float* __restrict__ part,
   }
 }
 
+// ---- the backward on wgmma_bf16.cuh (the wgmma path) ----
+
+// what a product's epilogue does with its 128 x 128 tile
+enum WgEpi {
+  kWgDlogits = 0,   // dl = bf16((exp(l - lse) - onehot) g), bf16 out
+  kWgDx = 1,        // dx = bf16(acc), bf16 out
+  kWgDxPart = 2,    // dx's range partial, f32 out + range zstride
+  kWgDw = 3,        // dW: f32 sum (+)= acc, or bf16 out on the last chunk
+};
+
+// 2^x by one MUFU.EX2 (ex2.approx.ftz, about 2 ulp): results below 2^-126
+// flush to 0, which moves a dlogit by less than 2^-126 |g| where the row's
+// largest is about |g|
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+struct WgArgs {
+  ptt_wg::Sched s;
+  int M, N;                   // the output's extent (N a multiple of 8)
+  long long ldo, zstride;     // output row stride; kWgDxPart: per range
+  void* out;
+  float* sum;                 // kWgDw: the f32 dW sum
+  const long long* labels;    // kWgDlogits: the chunk's rows
+  const float* lse;
+  const float* g;
+  int accumulate, final;      // kWgDw
+};
+
+// One product of a chunk: the producer warp loads, the two consumer
+// warpgroups run the k-tiles of each of the CTA's tiles and its epilogue.
+template <int EPI, bool AMN, bool BMN>
+__global__ void __launch_bounds__(ptt_wg::kThreads, 1)
+    lm_head_bwd_bf16_wg_kernel(const __grid_constant__ CUtensorMap ta,
+                               const __grid_constant__ CUtensorMap tb,
+                               const WgArgs p) {
+  using ptt_wg::kEpiLD;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const ptt_wg::Smem sm = ptt_wg::setup(smem_raw);
+  // the warp's index, known to ptxas to be the same across the warp
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  if (warp == ptt_wg::kProducerWarp) {
+    if ((threadIdx.x & 31) == 0) ptt_wg::produce<AMN, BMN>(&ta, &tb, sm, p.s);
+    return;
+  }
+  const int h = warp >> 2, tid = threadIdx.x & 127;
+  const int fr = 16 * (warp & 3) + ((threadIdx.x & 31) >> 2);  // row, i = 0
+  const int fc = 2 * (threadIdx.x & 3);                         // column, j 0
+  float* sf = reinterpret_cast<float*>(sm.epi + h * ptt_wg::kEpiBytes);
+  bf16* sb = reinterpret_cast<bf16*>(sf);
+  ptt_wg::Pipe pipe;
+  float acc[64];
+  for (int t = blockIdx.x; t < p.s.tiles(); t += gridDim.x) {
+    int m0, n0, r, kb, ke;
+    p.s.tile(t, m0, n0, r, kb, ke);
+    const int r0 = m0 + 64 * h;   // the warpgroup's first output row
+    // kWgDlogits: this thread's two rows' lse (times log2 e), g and label,
+    // loaded before the products so that their latency hides under them;
+    // the label as its offset from this thread's first column of the tile,
+    // -1 where it is ignored or outside the tile, so that each element
+    // compares it with a constant
+    float lb[2] = {0.f, 0.f}, gv[2] = {0.f, 0.f};
+    int yo[2] = {-1, -1};
+    if constexpr (EPI == kWgDlogits) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + fr + 8 * i;
+        if (row < p.M) {
+          const long long y = p.labels[row] - n0 - fc;
+          yo[i] = y >= 0 && y < ptt_wg::kBN ? (int)y : -1;
+          lb[i] = p.lse[row] * kLog2e;
+          gv[i] = p.g[row];
+        }
+      }
+    }
+    ptt_wg::mainloop<AMN, BMN>(acc, sm, pipe, h, kb, ke);
+    ptt_wg::wg_sync(h);   // the staging tile is free again
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int a = 4 * j + 2 * i, so = (fr + 8 * i) * kEpiLD + 8 * j + fc;
+        if constexpr (EPI == kWgDlogits) {
+          // (exp(l - lse) - onehot) g, exp(l - lse) = 2^(l log2 e - lse
+          // log2 e), one ex2.approx each
+          const float v0 = (ex2(fmaf(acc[a], kLog2e, -lb[i])) -
+                            (yo[i] == 8 * j ? 1.f : 0.f)) * gv[i];
+          const float v1 = (ex2(fmaf(acc[a + 1], kLog2e, -lb[i])) -
+                            (yo[i] == 8 * j + 1 ? 1.f : 0.f)) * gv[i];
+          *reinterpret_cast<__nv_bfloat162*>(sb + so) =
+              __floats2bfloat162_rn(v0, v1);
+        } else if constexpr (EPI == kWgDx) {
+          *reinterpret_cast<__nv_bfloat162*>(sb + so) =
+              __floats2bfloat162_rn(acc[a], acc[a + 1]);
+        } else {
+          *reinterpret_cast<float2*>(sf + so) = make_float2(acc[a], acc[a + 1]);
+        }
+      }
+    ptt_wg::wg_sync(h);
+    // 64 rows of 16 chunks of 8 elements, 16 threads along a row
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int id = tid + 128 * it, row = id >> 4, c = (id & 15) * 8;
+      const int gr = r0 + row, gc = n0 + c;
+      if (gr >= p.M || gc >= p.N) continue;
+      const long long o = gr * p.ldo + gc;
+      if constexpr (EPI == kWgDlogits || EPI == kWgDx) {
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + o) =
+            *reinterpret_cast<const uint4*>(sb + row * kEpiLD + c);
+      } else {
+        const float* src = sf + row * kEpiLD + c;
+        float4 v0 = *reinterpret_cast<const float4*>(src);
+        float4 v1 = *reinterpret_cast<const float4*>(src + 4);
+        if constexpr (EPI == kWgDxPart) {
+          float* dst = static_cast<float*>(p.out) + r * p.zstride + o;
+          *reinterpret_cast<float4*>(dst) = v0;
+          *reinterpret_cast<float4*>(dst + 4) = v1;
+        } else {
+          float* s = p.sum + o;
+          if (p.accumulate) {
+            const float4 a0 = *reinterpret_cast<const float4*>(s);
+            const float4 a1 = *reinterpret_cast<const float4*>(s + 4);
+            v0 = make_float4(v0.x + a0.x, v0.y + a0.y, v0.z + a0.z,
+                             v0.w + a0.w);
+            v1 = make_float4(v1.x + a1.x, v1.y + a1.y, v1.z + a1.z,
+                             v1.w + a1.w);
+          }
+          if (p.final) {
+            uint4 pk;
+            pk.x = ptt_bf16::pack(v0.x, v0.y);
+            pk.y = ptt_bf16::pack(v0.z, v0.w);
+            pk.z = ptt_bf16::pack(v1.x, v1.y);
+            pk.w = ptt_bf16::pack(v1.z, v1.w);
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + o) = pk;
+          } else {
+            *reinterpret_cast<float4*>(s) = v0;
+            *reinterpret_cast<float4*>(s + 4) = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query (so the library links no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? (EncodeTiled)f : nullptr;
+  }();
+  return fn;
+}
+
+// the map of a bf16 [outer, inner] tensor (rows of ld elements) in boxes of
+// box_inner x box_outer, 128-byte swizzle, zeros outside
+cudaError_t tensor_map(CUtensorMap* m, const bf16* p, long long inner,
+                       long long outer, long long ld, int box_inner,
+                       int box_outer) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<bf16*>(p), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the map of an operand read K-major (boxes of 64 k x 128 rows) or
+// MN-major (64 mn x 64 k), k or mn the contiguous index
+cudaError_t kmajor_map(CUtensorMap* m, const bf16* p, long long inner,
+                       long long outer, long long ld) {
+  return tensor_map(m, p, inner, outer, ld, ptt_wg::kBK, ptt_wg::kBM);
+}
+
+cudaError_t mnmajor_map(CUtensorMap* m, const bf16* p, long long inner,
+                        long long outer, long long ld) {
+  return tensor_map(m, p, inner, outer, ld, 64, ptt_wg::kBK);
+}
+
+// W's two maps (K-major for dx, N-major for the recompute), the same for
+// every chunk of a call: encoded once for each pointer and shape
+struct WMaps {
+  CUtensorMap k, mn;
+  const void* w = nullptr;
+  int D = 0, V = 0;
+};
+
+cudaError_t w_maps(const bf16* w, int D, int V, const WMaps*& out) {
+  static thread_local WMaps c;
+  if (c.w != w || c.D != D || c.V != V) {
+    c.w = nullptr;
+    cudaError_t err = kmajor_map(&c.k, w, V, D, V);
+    if (err == cudaSuccess) err = mnmajor_map(&c.mn, w, V, D, V);
+    if (err != cudaSuccess) return err;
+    c.w = w;
+    c.D = D;
+    c.V = V;
+  }
+  out = &c;
+  return cudaSuccess;
+}
+
+template <int EPI, bool AMN, bool BMN>
+cudaError_t launch_wg(const CUtensorMap& ta, const CUtensorMap& tb,
+                      const WgArgs& a, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lm_head_bwd_bf16_wg_kernel<EPI, AMN, BMN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, ptt_wg::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int grid = a.s.tiles() < sm_count() ? a.s.tiles() : sm_count();
+  lm_head_bwd_bf16_wg_kernel<EPI, AMN, BMN>
+      <<<grid, ptt_wg::kThreads, ptt_wg::kSmemBytes, s>>>(ta, tb, a);
+  return cudaGetLastError();
+}
+
 // the forward's vocabulary shares: tiles per share and the share count
 void fwd_plan(int N, int V, int& per, int& shares) {
   const int mt = cdiv(N, kBM), nt = cdiv(V, kBN);
@@ -361,6 +619,18 @@ BwdWork bwd_work(int C, int D, int V) {
   w.dl = 0;
   w.dxp = w.dl + align256(2LL * C * V);
   w.dws = w.dxp + align256(4LL * ranges * C * D);
+  w.bytes = w.dws + align256(4LL * D * V);
+  return w;
+}
+
+// byte offsets of the wgmma path's workspace for chunks of at most C rows
+// and dx in `ranges` K ranges: dlogits [C][V] bf16, the dx partials
+// ([ranges][C][D] f32, none for one range), the f32 dW sum, the total
+BwdWork wg_work(int C, int D, int V, int ranges) {
+  BwdWork w;
+  w.dl = 0;
+  w.dxp = w.dl + align256(2LL * C * V);
+  w.dws = w.dxp + (ranges > 1 ? align256(4LL * ranges * C * D) : 0);
   w.bytes = w.dws + align256(4LL * D * V);
   return w;
 }
@@ -476,4 +746,94 @@ extern "C" int ptt_lm_head_bwd_chunk_bf16(const void* x, const void* w,
       operand(xb, D), operand(dl, V), dws, static_cast<bf16*>(dw), D, V,
       rows, accumulate, final);
   return (int)cudaGetLastError();
+}
+
+// Workspace bytes of ptt_lm_head_bwd_chunk_bf16_wgmma for chunks of at most
+// C rows with dx in `ranges` K ranges.
+extern "C" long long ptt_lm_head_bwd_bf16_wgmma_workspace(int C, int D, int V,
+                                                          int ranges) {
+  return wg_work(C, D, V, ranges).bytes;
+}
+
+// One token chunk of the backward on the wgmma path: the arguments of
+// ptt_lm_head_bwd_chunk_bf16, the dx product's K ranges (`ranges`, one
+// that cuts the vocabulary's cdiv(V, 64) k-tiles into ranges of equal
+// k-tile counts, the last shorter; the caller's plan, lm_head.py
+// bwd_bf16_plan).  x, w, dx, dw and the
+// workspace 16-byte aligned and D, V multiples of 8, as TMA needs; work
+// holds ptt_lm_head_bwd_bf16_wgmma_workspace(cap, D, V, ranges) bytes.
+// Three launches (four where ranges > 1).  Returns a cudaError_t as int.
+extern "C" int ptt_lm_head_bwd_chunk_bf16_wgmma(
+    const void* x, const void* w, const void* labels, const void* lse,
+    const void* g, void* work, void* dx, void* dw, int rows, int cap, int D,
+    int V, int accumulate, int final, int ranges, void* stream) {
+  if (rows <= 0 || rows > cap || D <= 0 || V <= 0 || D % 8 || V % 8)
+    return (int)cudaErrorInvalidValue;
+  const void* const ptrs[] = {x, w, work, dx, dw};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16)
+      return (int)cudaErrorInvalidValue;
+  const ptt_wg::Sched dxs = ptt_wg::sched(rows, D, V, ranges);
+  if (ranges < 1 || dxs.ranges != ranges) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdWork off = wg_work(cap, D, V, ranges);
+  char* base = static_cast<char*>(work);
+  bf16* dl = reinterpret_cast<bf16*>(base + off.dl);
+  float* dxp = reinterpret_cast<float*>(base + off.dxp);
+  float* dws = reinterpret_cast<float*>(base + off.dws);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const WMaps* wm;
+  CUtensorMap x_k, x_mn, dl_k, dl_mn;
+  cudaError_t err;
+  if ((err = w_maps(wb, D, V, wm)) != cudaSuccess ||
+      (err = kmajor_map(&x_k, xb, D, rows, D)) != cudaSuccess ||
+      (err = mnmajor_map(&x_mn, xb, D, rows, D)) != cudaSuccess ||
+      (err = kmajor_map(&dl_k, dl, V, rows, V)) != cudaSuccess ||
+      (err = mnmajor_map(&dl_mn, dl, V, rows, V)) != cudaSuccess)
+    return (int)err;
+  WgArgs a{};
+
+  // (1) dlogits [rows, V] bf16 = f(x [rows, D] . W [D, V])
+  a.s = ptt_wg::sched(rows, V, D, 1);
+  a.M = rows;
+  a.N = V;
+  a.ldo = V;
+  a.out = dl;
+  a.labels = static_cast<const long long*>(labels);
+  a.lse = static_cast<const float*>(lse);
+  a.g = static_cast<const float*>(g);
+  err = launch_wg<kWgDlogits, false, true>(x_k, wm->mn, a, s);
+  if (err != cudaSuccess) return (int)err;
+
+  // (2) dx [rows, D] = dlogits [rows, V] . W^T [V, D]: W read K-major
+  a.s = dxs;
+  a.N = D;
+  a.ldo = D;
+  if (ranges == 1) {
+    a.out = dx;
+    err = launch_wg<kWgDx, false, false>(dl_k, wm->k, a, s);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    a.out = dxp;
+    a.zstride = (long long)rows * D;
+    err = launch_wg<kWgDxPart, false, false>(dl_k, wm->k, a, s);
+    if (err != cudaSuccess) return (int)err;
+    const long long n = (long long)rows * D;
+    lm_head_bwd_bf16_reduce_kernel<<<pass_blocks(n), 256, 0, s>>>(
+        dxp, static_cast<bf16*>(dx), n, ranges);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // (3) dW [D, V] (+)= x^T [D, rows] . dlogits [rows, V]: x read M-major
+  a.s = ptt_wg::sched(D, V, rows, 1);
+  a.M = D;
+  a.N = V;
+  a.ldo = V;
+  a.out = dw;
+  a.sum = dws;
+  a.accumulate = accumulate;
+  a.final = final;
+  return (int)launch_wg<kWgDw, true, true>(x_mn, dl_mn, a, s);
 }

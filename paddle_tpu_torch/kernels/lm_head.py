@@ -25,15 +25,22 @@ directions decide by the tensors' device: CUDA tensors launch the kernel
 any V: the JAX gates on N % 256 and d <= 2048 exist for Mosaic's tiles.
 
 Under ``FLAGS_amp_bf16`` the ``fused_lm_head_loss`` op hands the head bf16
-x and W.  Those go to two more kernels, ``csrc/lm_head_bf16.cu`` on the
-bf16 tile loop of ``csrc/gemm_bf16.cuh`` (wrappers ``lm_head_fwd_bf16`` and
-``lm_head_bwd_bf16``, each with its own ``.launches``): one bf16
-``mma.sync`` per product with f32 accumulation, no split.  Loss and lse
-stay f32.  The backward rounds where the Pallas kernel rounds in bf16:
-dlogits to x's dtype before the dx and dW products (lm_head.py:128), dx
-once per chunk (:243), and dW summed in f32 over the chunks and rounded
-once at the end (:244).  The plain versions carry the same roundings for
-bf16 inputs.
+x and W.  Those go to the kernels of ``csrc/lm_head_bf16.cu`` (wrappers
+``lm_head_fwd_bf16`` and ``lm_head_bwd_bf16``, each with its own
+``.launches``), bf16 products with f32 accumulation, no split.  The
+forward runs on the ``mma.sync`` tile loop of ``csrc/gemm_bf16.cuh``.  The
+backward has two paths, chosen on the host from the operands before the
+launch (``bwd_bf16_path``): "wgmma", the tile loop of
+``csrc/wgmma_bf16.cuh`` (TMA loads into an mbarrier ring, ``wgmma``, a
+producer warp and two consumer warpgroups on a persistent grid), where TMA
+can describe x and W (16-byte-aligned bases, D and V multiples of 8); and
+"sync", the ``gemm_bf16.cuh`` loop, for the rest (an odd D or V).  Each
+path counts its chunks apart (``lm_head_bwd_bf16.launches_wgmma``,
+``.launches_sync``).  Loss and lse stay f32.  The backward rounds where
+the Pallas kernel rounds in bf16: dlogits to x's dtype before the dx and
+dW products (lm_head.py:128), dx once per chunk (:243), and dW summed in
+f32 over the chunks and rounded once at the end (:244).  The plain
+versions carry the same roundings for bf16 inputs.
 """
 from __future__ import annotations
 
@@ -55,7 +62,12 @@ _SIGNATURES = {
     "ptt_lm_head_bwd_bf16_workspace": ([_I] * 3, _LL),
     "ptt_lm_head_fwd_bf16": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "ptt_lm_head_bwd_chunk_bf16": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    "ptt_lm_head_bwd_bf16_wgmma_workspace": ([_I] * 4, _LL),
+    "ptt_lm_head_bwd_chunk_bf16_wgmma": ([_P] * 8 + [_I] * 7 + [_P], _I),
 }
+# the wgmma path's CTA tile (rows x columns) and k-tile
+# (csrc/wgmma_bf16.cuh kBM = kBN, kBK)
+WG_TILE, WG_KTILE = 128, 64
 _fns = {}
 
 
@@ -66,6 +78,40 @@ def _check(x, w, labels):
     if tuple(labels.shape) != (x.shape[0],):
         raise ValueError(f"lm_head: labels {tuple(labels.shape)} != "
                          f"[{x.shape[0]}]")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def bwd_bf16_path(x_ptr: int, w_ptr: int, D: int, V: int) -> str:
+    """The bf16 backward's path for x [N, D] at address x_ptr and W [D, V]
+    at w_ptr, both contiguous: "wgmma" where TMA can describe both (bases
+    16-byte aligned, rows of D and V bf16 a multiple of 16 bytes, so every
+    chunk's rows are too), else "sync"."""
+    aligned = x_ptr % 16 == 0 and w_ptr % 16 == 0 and D % 8 == 0 \
+        and V % 8 == 0
+    return "wgmma" if aligned else "sync"
+
+
+def bwd_bf16_plan(cap: int, D: int, V: int, sms: int) -> dict:
+    """The wgmma path's tiles for chunks of at most `cap` rows on `sms`
+    SMs: each product's output tiles (the grid is min(tiles, sms)
+    persistent CTAs) and the dx product's K ranges.  dx has only
+    cdiv(cap, 128) x cdiv(D, 128) output tiles, so its vocabulary (K,
+    cdiv(V, 64) k-tiles) is cut into ranges of `range_ktiles` k-tiles (the
+    last shorter) where those tiles alone fill less than the SMs: floor(sms
+    / tiles) ranges, at least one and at most one a k-tile, then as many as
+    ranges of cdiv(k-tiles, ranges) need (the kernel's ptt_wg::sched).
+    Each range's partial is summed in range order."""
+    dx_tiles = _cdiv(cap, WG_TILE) * _cdiv(D, WG_TILE)
+    kt = _cdiv(V, WG_KTILE)
+    want = max(1, min(kt, sms // dx_tiles))
+    ranges = _cdiv(kt, _cdiv(kt, want))
+    return dict(dlogits_tiles=_cdiv(cap, WG_TILE) * _cdiv(V, WG_TILE),
+                dx_tiles=dx_tiles,
+                dw_tiles=_cdiv(D, WG_TILE) * _cdiv(V, WG_TILE),
+                ranges=ranges, range_ktiles=_cdiv(kt, ranges))
 
 
 def lm_head_fwd_plain(x, w, labels):
@@ -166,7 +212,7 @@ def _launch_fwd(x, w, labels):
     return loss, lse
 
 
-def _launch_bwd(x, w, labels, lse, g, chunk):
+def _launch_bwd(x, w, labels, lse, g, chunk, path=None):
     _check(x, w, labels)
     bf16 = x.dtype == torch.bfloat16
     name = "lm_head_bwd" + ("_bf16" if bf16 else "")
@@ -178,13 +224,30 @@ def _launch_bwd(x, w, labels, lse, g, chunk):
     if tuple(lse.shape) != (N,) or tuple(g.shape) != (N,):
         raise ValueError(f"{name} kernel: lse {tuple(lse.shape)} and g "
                          f"{tuple(g.shape)} must be [{N}]")
+    if bf16:
+        shape_path = bwd_bf16_path(x.data_ptr(), w.data_ptr(), D, V)
+        if path not in (None, "sync", "wgmma"):
+            raise ValueError(f"{name} kernel: no path {path!r}")
+        if path == "wgmma" != shape_path:
+            raise ValueError(f"{name} kernel: the wgmma path needs "
+                             f"16-byte-aligned x and w and D, V multiples "
+                             f"of 8 (D {D}, V {V})")
+        path = path or shape_path
     y = labels.to(torch.int64).contiguous()
     gm = (g * (y >= 0)).contiguous()
     dx = torch.empty(N, D, dtype=x.dtype, device=x.device)
     dw = torch.zeros(D, V, dtype=x.dtype, device=x.device)
     chunk = max(1, min(int(chunk), N))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bf16:
+    extra = []
+    if path == "wgmma":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        ranges = bwd_bf16_plan(chunk, D, V, sms)["ranges"]
+        work = _workspace("ptt_lm_head_bwd_bf16_wgmma_workspace",
+                          (chunk, D, V, ranges), x.device)
+        fn = _fn("ptt_lm_head_bwd_chunk_bf16_wgmma")
+        extra = [ranges]
+    elif bf16:
         # dW is summed in f32 in the workspace and written, rounded to
         # bf16, by the last chunk
         work = _workspace("ptt_lm_head_bwd_bf16_workspace", (chunk, D, V),
@@ -202,11 +265,18 @@ def _launch_bwd(x, w, labels, lse, g, chunk):
                 int(ci > 0)]
         if bf16:
             args.append(int(r0 + rows == N))   # the last chunk writes dW
-        err = fn(*args, stream)
+        err = fn(*args, *extra, stream)
         if err:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                               f"{err}")
-        (lm_head_bwd_bf16 if bf16 else lm_head_bwd).launches += 1
+            raise RuntimeError(f"{name} kernel launch failed "
+                               f"({path or 'f32'} path): CUDA error {err}")
+        if bf16:
+            lm_head_bwd_bf16.launches += 1
+            if path == "wgmma":
+                lm_head_bwd_bf16.launches_wgmma += 1
+            else:
+                lm_head_bwd_bf16.launches_sync += 1
+        else:
+            lm_head_bwd.launches += 1
     return dx, dw
 
 
@@ -236,14 +306,17 @@ def lm_head_fwd_bf16(x, w, labels):
     return _launch_fwd(x, w, labels)
 
 
-def lm_head_bwd_bf16(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
+def lm_head_bwd_bf16(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK,
+                     path=None):
     """The bf16 backward kernels (csrc/lm_head_bf16.cu) on bf16 CUDA x and
-    w: (dx, dw) bf16.  ``lm_head_bwd_bf16.launches`` counts one per token
-    chunk."""
+    w: (dx, dw) bf16.  The path is ``bwd_bf16_path`` of the operands, or
+    `path` ("sync" runs on any operands, "wgmma" raises where TMA cannot
+    describe them).  ``lm_head_bwd_bf16.launches`` counts one per token
+    chunk, ``.launches_wgmma`` and ``.launches_sync`` those of each path."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"lm_head_bwd_bf16 kernel: bf16 inputs only, got "
                          f"{x.dtype}")
-    return _launch_bwd(x, w, labels, lse, g, chunk)
+    return _launch_bwd(x, w, labels, lse, g, chunk, path)
 
 
 class _LmHead(torch.autograd.Function):
@@ -272,3 +345,5 @@ lm_head_fwd.launches = 0
 lm_head_bwd.launches = 0
 lm_head_fwd_bf16.launches = 0
 lm_head_bwd_bf16.launches = 0
+lm_head_bwd_bf16.launches_wgmma = 0
+lm_head_bwd_bf16.launches_sync = 0

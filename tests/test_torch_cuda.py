@@ -521,17 +521,20 @@ def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("N,D,V,chunk,n_ignored,amp", [
-    (4096, 512, 32000, 1024, 3, 1),
-    (1000, 512, 1001, 256, 37, 1),           # element copies of W
-    (777, 201, 3000, 300, 11, 1),            # element copies of x
-    (2048, 512, 32000, 1024, 5, 12),         # a peaked softmax
+@pytest.mark.parametrize("force", [None, "sync"])
+@pytest.mark.parametrize("N,D,V,chunk,n_ignored,amp,path", [
+    (4096, 512, 32000, 1024, 3, 1, "wgmma"),
+    (1000, 512, 1001, 256, 37, 1, "sync"),     # element copies of W
+    (777, 201, 3000, 300, 11, 1, "sync"),      # element copies of x
+    (2048, 512, 32000, 1024, 5, 12, "wgmma"),  # a peaked softmax
+    (3001, 264, 4104, 1000, 23, 1, "wgmma"),   # aligned, no tile multiple
 ])
 def test_bf16_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored,
-                                          amp):
+                                          amp, path, force):
     """The bf16 LM head forward (loss and lse f32, at the f32 tolerance)
     and backward (dx and dW bf16, at BF16_RTOL of max |plain|), the same
-    bits on two calls."""
+    bits on two calls; the backward on the path its operands choose
+    (path), and again forced onto the sync path, each counted apart."""
     bf = torch.bfloat16
     x = (_randn(cuda, N, D, seed=90) * amp).to(bf)
     w = (_randn(cuda, D, V, seed=91) * 0.05).to(bf)
@@ -543,12 +546,39 @@ def test_bf16_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored,
     ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
     assert (loss - ploss).abs().max().item() <= F32_TOL
     assert (lse - plse).abs().max().item() <= F32_TOL
-    got = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
-    again = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+    assert lmh.bwd_bf16_path(x.data_ptr(), w.data_ptr(), D, V) == path
+    took = force or path
+    bwd = lmh.lm_head_bwd_bf16
+    before = (bwd.launches_wgmma, bwd.launches_sync)
+    if force is None:   # the public entry chooses by dtype, then by shape
+        got = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+        again = lmh.lm_head_bwd(x, w, y, lse, gl, chunk)
+    else:
+        got = bwd(x, w, y, lse, gl, chunk, path=force)
+        again = bwd(x, w, y, lse, gl, chunk, path=force)
     want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
+    chunks = 2 * -(-N // chunk)
+    assert (bwd.launches_wgmma - before[0], bwd.launches_sync - before[1]) \
+        == ((chunks, 0) if took == "wgmma" else (0, chunks))
     assert all(t.dtype == bf for t in got)
     assert max(_rel_max([a], [b]) for a, b in zip(got, want)) <= _bf16_tol()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bf16_lm_head_wgmma_path_refuses_misaligned_operands(cuda):
+    """Asking for the wgmma path where TMA cannot describe the operands
+    raises before any launch; nothing falls back to the sync path."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 64, 201, seed=93).to(bf)
+    w = _randn(cuda, 201, 300, seed=94).to(bf)
+    y = torch.zeros(64, dtype=torch.int64, device=cuda)
+    lse = torch.zeros(64, device=cuda)
+    before = (lmh.lm_head_bwd_bf16.launches_wgmma,
+              lmh.lm_head_bwd_bf16.launches_sync)
+    with pytest.raises(ValueError, match="wgmma path"):
+        lmh.lm_head_bwd_bf16(x, w, y, lse, lse, 64, path="wgmma")
+    assert (lmh.lm_head_bwd_bf16.launches_wgmma,
+            lmh.lm_head_bwd_bf16.launches_sync) == before
 
 
 def test_bf16_wrappers_refuse_what_they_cannot_take(cuda):

@@ -1,0 +1,101 @@
+"""The flush finding of the bf16 LM-head backward's wgmma path.
+
+``csrc/wgmma_bf16.cuh`` carries each output tile's whole k loop in one
+accumulator.  A build with ``-DPTT_WG_FLUSH=n`` (n > 0) instead adds each
+tile's products into a second accumulator every n k-tiles, as
+``gemm_bf16.cuh`` does every k-tile, in case the tensor cores truncate as
+they accumulate.  This script builds the kernels both ways, each build in
+its own process (the flags are in the library's hash), and prints, for
+each, dx's and dW's largest error over the largest |plain| against
+``lm_head_bwd_plain`` at the training shape (N 16384, D 512, V 32000,
+chunk 4096: dx's K is the whole vocabulary in one range) and at a peaked
+case (N 2048, chunk 1024, x * 12, five ignored labels: dx in K ranges),
+beside BF16_RTOL.
+
+Run from the repository root on a machine with an H100:
+
+    python tools/wgmma_flush.py            # flush 0 (shipped) and 1
+    python tools/wgmma_flush.py 0 1 4      # the flush counts given
+
+It is a measurement tool, not part of the package: nothing imports it.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16_RTOL = 4 * 2.0 ** -8
+CASES = [  # N, D, V, chunk, ignored labels, scale of x
+    (16384, 512, 32000, 4096, 0, 1),
+    (2048, 512, 32000, 1024, 5, 12),
+]
+
+
+def measure(flush: int) -> list:
+    """The errors of the build with PTT_WG_FLUSH=flush, one dict a case."""
+    import torch
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import lm_head as lmh
+    if flush:
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + [f"-DPTT_WG_FLUSH={flush}"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    g = torch.Generator(device="cuda").manual_seed(20261017)
+    out = []
+    for N, D, V, chunk, n_ign, amp in CASES:
+        x = (torch.randn(N, D, generator=g, device="cuda") * amp).to(
+            torch.bfloat16)
+        w = (torch.randn(D, V, generator=g, device="cuda") * 0.05).to(
+            torch.bfloat16)
+        y = torch.randint(0, V, (N,), generator=g, device="cuda")
+        y[torch.randperm(N, generator=g, device="cuda")[:n_ign]] = -1
+        gl = torch.rand(N, generator=g, device="cuda") * (2.0 / N)
+        _, lse = lmh.lm_head_fwd_plain(x, w, y)
+        want = lmh.lm_head_bwd_plain(x, w, y, lse, gl, chunk)
+        before = lmh.lm_head_bwd_bf16.launches_wgmma
+        got = lmh.lm_head_bwd_bf16(x, w, y, lse, gl, chunk, path="wgmma")
+        torch.cuda.synchronize()
+        if lmh.lm_head_bwd_bf16.launches_wgmma == before:
+            raise RuntimeError("the wgmma path did not run")
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in zip(got, want)]
+        out.append(dict(N=N, D=D, V=V, chunk=chunk, x_scale=amp,
+                        ranges=lmh.bwd_bf16_plan(
+                            chunk, D, V, torch.cuda.get_device_properties(
+                                0).multi_processor_count)["ranges"],
+                        dx=errs[0], dW=errs[1]))
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(measure(int(argv[2]))))
+        return 0
+    flushes = [int(a) for a in argv[1:]] or [0, 1]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip().splitlines()[0] if card.stdout else "no card")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for n in flushes:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", str(n)], cwd=ROOT, env=env,
+                             capture_output=True, text=True)
+        if res.returncode:
+            sys.stderr.write(res.stdout + res.stderr)
+            return 1
+        for r in json.loads(res.stdout.strip().splitlines()[-1]):
+            print(f"flush {n}{' (shipped)' if n == 0 else ''}: N={r['N']} "
+                  f"D={r['D']} V={r['V']} chunk={r['chunk']} "
+                  f"x*{r['x_scale']} dx K ranges {r['ranges']}: dx "
+                  f"{r['dx']:.3g}, dW {r['dW']:.3g} of max |plain| (tol "
+                  f"{BF16_RTOL:g})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
