@@ -29,8 +29,15 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    softmax; the LM head's ragged, odd and peaked cases), at BF16_RTOL of
    max |plain| on bf16 outputs (for flash, of each head's 64-token tile's
    max |plain|) and the f32 tolerances on lse and loss; two calls of each
-   must give the same bits.  The flash compare must refuse a planted
-   fault (the last row tile skipping the first key tile).  The bf16
+   must give the same bits.  The bf16 flash forward runs each case
+   (FLASH_HDT_BF16_CASES, FLASH_BHTD_BF16_CASES) once on the path its
+   operands choose (flash_attention.fwd_bf16_path: wgmma where TMA can
+   describe q, k, v and o, else sync), checked by its path counters, then
+   on every path the operands admit, forced; the cases include T a
+   multiple of 8 that is not one of 128 (T 520) on the wgmma path.  The
+   flash compare must refuse a planted fault (the last row tile skipping
+   the first key tile), against the plain version and the wgmma kernel's
+   output.  The bf16
    LM-head backward runs each case on the path its operands choose
    (lm_head.bwd_bf16_path: wgmma where TMA can describe x and W, sync for
    V 1001, D 201 and D 12), checked by its path counters, and each wgmma
@@ -41,11 +48,14 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    kernels of the AMP fuse_block path: the [B, H, T, d] flash forward and
    backward on the block's [B, T, H, d] views (contiguous and 2 bytes off
    16-byte alignment, a ragged T, head dim 128, Tq != Tk, a peaked
-   softmax) at BF16_RTOL by tile, with the head-major call's bits on the
-   same data; the bf16 block on the path shape, a ragged T, head dim 128,
-   an odd D and F (bf16 vectors there) and W1 x 8, at BLOCK_BF16_RTOL of
-   max |plain|.  Both give the same bits twice and refuse a planted fault
-   (the flash skipping a key tile, the block without b1).
+   softmax, T 520) at BF16_RTOL by tile; on every path both the view and
+   its head-major copy take, the head-major call's bits on the same data,
+   and where their own choices cross paths (the copy's T not a multiple
+   of 8), the two held to each other at BF16_RTOL and FA_TOL; the bf16
+   block on the path shape, a ragged T, head dim 128, an odd D and F
+   (bf16 vectors there) and W1 x 8, at BLOCK_BF16_RTOL of max |plain|.
+   Both give the same bits twice and refuse a planted fault (the flash
+   skipping a key tile, the block without b1).
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -83,8 +93,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    batch 32.  Each step must launch the bf16 flash forward 6 times and
    its backward 6 times, the bf16 LM-head forward once and its backward
    once per chunk, 13 layer norms (the first on the f32 embedding sum,
-   12 on bf16 residual sums) and no f32 flash or LM-head kernel.  The
-   L 2 match runs under the flag too, at AMP_STEP_LOSS_RTOL and
+   12 on bf16 residual sums) and no f32 flash or LM-head kernel; every
+   bf16 flash forward on the wgmma path (its path counters).  The L 2
+   match runs under the flag too, at AMP_STEP_LOSS_RTOL and
    AMP_STEP_GRAD_RTOL.
 5d. Train fuse_block under AMP: the program of phase 5b built and run
    under FLAGS_amp_bf16, 10 Adam steps at batch 32.  Each step must launch
@@ -92,8 +103,10 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    backward 6 times each (the blocks' recompute), 1 layer norm (on the
    last block's bf16 output), the bf16 LM-head forward once and its
    backward once per chunk, and no f32 block, flash or LM-head kernel and
-   no head-major flash.  The L 2 match replays the card's relu masks
-   inside the blocks, at the AMP tolerances.
+   no head-major flash; the recompute's flash forward and the block
+   kernel's own flash launch on the wgmma path (their path counters).  The
+   L 2 match replays the card's relu masks inside the blocks, at the AMP
+   tolerances.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -120,8 +133,11 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    and head-major calls, the bf16 block beside
    torch.nn.TransformerEncoderLayer in bf16; the bf16 block's launches one
    by one (BLOCK_BF16_CHAIN_LAUNCHES); the AMP fuse_block step traced by
-   kernel class.  The bf16 LM-head backward's timing names its path and
-   times the sync path on the same inputs beside it; head_breakdown lists
+   kernel class.  The bf16 flash forward (head-major, and on the block's
+   views) and the bf16 LM-head backward name the path they took (from the
+   counters of the timed calls) and time the sync path on the same inputs
+   beside it, each with its host enqueue time; the bf16 block's flash
+   launch must be the wgmma kernel; head_breakdown lists
    its launches one by one on both paths with their TFLOP/s, and the
    smoke fails unless the wgmma path makes head_bwd_kernels() launches a
    chunk.
@@ -321,6 +337,22 @@ def time_ms(fn, iters=50, warmup=5):
                        "the device")
 
 
+def timed_on_path(fn, call, path, iters=50, warmup=5):
+    """(device ms, host ms, path) of call(path) by time_ms, for a wrapper
+    fn with path counters (.launches_wgmma, .launches_sync) and `path`
+    None (the operands' choice) or forced: the path its timed calls took,
+    read from the counters, which must name one path for every call."""
+    before = (fn.launches_wgmma, fn.launches_sync)
+    ms, host = time_ms(lambda: call(path), iters=iters, warmup=warmup)
+    moved = dict(wgmma=fn.launches_wgmma - before[0],
+                 sync=fn.launches_sync - before[1])
+    took = [p for p, n in moved.items() if n]
+    if len(took) != 1 or took[0] != (path or took[0]):
+        raise RuntimeError(f"{fn.__name__} timing (path {path}): the calls "
+                           f"moved the path counters {moved}")
+    return ms, host, took[0]
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -448,9 +480,110 @@ def bthd_view(x, H):
 
 
 def head_major(t):
-    """A [B, H, T, d] tensor copied into the head-major [H, d, B*T]."""
+    """A [B, H, T, d] tensor copied into the head-major [H, d, B*T] (token
+    stride 1: a copy even where reshape could return a view, as it can of
+    a [B, T, H, d] view)."""
     B, H, T, d = t.shape
-    return t.permute(1, 3, 0, 2).reshape(H, d, B * T)
+    return t.permute(1, 3, 0, 2).reshape(H, d, B * T).contiguous()
+
+
+# the bf16 head-major flash compares (phase 3): (H, d, B, Tq, Tk, causal,
+# kv_len, layout of q and do, scale of q and k, path).  "strided" has token
+# stride d, "+1" starts 1 element (2 bytes) into its storage: both take the
+# sync forward and element copies; so does a T that is not a multiple of 8
+# (rows not 16-byte aligned).  The cases after the first nine have T a
+# multiple of 8, so that the wgmma forward takes kv_len, Tq != Tk, d 128, a
+# peaked softmax, a ragged tile (T 520) and kv_len under a causal mask too.
+FLASH_HDT_BF16_CASES = [
+    (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, "", 1, "train"),
+    (8, 64, 2, 300, 300, False, 250, "", 1, "ragged"),
+    (8, 64, 2, 200, 333, False, None, "", 1, "ragged"),
+    (4, 128, 2, 300, 300, True, None, "", 1, "ragged"),
+    (4, 64, 3, 130, 130, True, None, "strided", 1, "ragged"),
+    (8, 64, 2, 65, 65, True, None, "", 1, "ragged"),
+    (8, 64, 2, 256, 256, True, None, "+1", 1, "ragged"),
+    (8, 64, 4, 512, 512, True, None, "", 4, "ragged"),
+    (4, 128, 2, 300, 300, False, 250, "strided", 4, "ragged"),
+    (8, 64, 2, 304, 304, False, 250, "", 1, "ragged"),
+    (8, 64, 2, 200, 336, False, None, "", 1, "ragged"),
+    (4, 128, 2, 296, 296, True, None, "", 1, "ragged"),
+    (4, 128, 2, 304, 304, False, 250, "", 4, "ragged"),
+    (8, 64, 2, 520, 520, True, None, "", 1, "ragged"),
+    (8, 64, 2, 384, 384, True, 300, "", 1, "ragged")]
+
+# the bf16 [B, H, T, d] flash compares (phase 3): (H, d, B, Tq, Tk, causal,
+# layout, scale of q and k, path).  "bthd" is the block's [B, T, H, d] view
+# (feature stride 1), "bthd+1" the same 2 bytes into its storage (the sync
+# forward), "bhtd" contiguous.  The head-major copy of a case whose T is
+# not a multiple of 8 takes the sync forward where the view takes wgmma:
+# there the two calls cross paths.  T 520 is ragged with both on wgmma.
+FLASH_BHTD_BF16_CASES = [
+    (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", 1, "train"),
+    (8, 64, 2, 300, 300, False, "bhtd", 1, "ragged"),
+    (8, 64, 2, 200, 333, False, "bthd", 1, "ragged"),
+    (4, 128, 2, 300, 300, True, "bthd", 1, "ragged"),
+    (8, 64, 2, 65, 65, True, "bthd", 4, "ragged"),
+    (8, 64, 2, 300, 300, True, "bthd+1", 1, "ragged"),
+    (4, 128, 2, 200, 333, False, "bthd+1", 4, "ragged"),
+    (8, 64, 4, 512, 512, True, "bthd", 4, "ragged"),
+    (8, 64, 2, 520, 520, True, "bthd", 1, "ragged")]
+
+
+def hdt_bf16_operands(rnd, case):
+    """q, k, v and do in bf16 of a FLASH_HDT_BF16_CASES case, from rnd
+    (f32 tensors of a shape)."""
+    import torch
+    H, d, B, Tq, Tk, _, _, layout, amp, _ = case
+    bf = torch.bfloat16
+    if layout == "strided":
+        q = (rnd(H, B * Tq, d) * amp).to(bf).transpose(1, 2)
+        do = rnd(H, B * Tq, d).to(bf).transpose(1, 2)
+    elif layout == "+1":
+        n = H * d * B * Tq
+        q = (rnd(n + 1) * amp).to(bf)[1:].view(H, d, B * Tq)
+        do = rnd(n + 1).to(bf)[1:].view(H, d, B * Tq)
+    else:
+        q = (rnd(H, d, B * Tq) * amp).to(bf)
+        do = rnd(H, d, B * Tq).to(bf)
+    return q, (rnd(H, d, B * Tk) * amp).to(bf), rnd(H, d, B * Tk).to(bf), do
+
+
+def bhtd_bf16_operands(rnd, case):
+    """q, k, v and do in bf16 of a FLASH_BHTD_BF16_CASES case, from rnd."""
+    import torch
+    H, d, B, Tq, Tk, _, layout, amp, _ = case
+    bf = torch.bfloat16
+
+    def make(T, mul):
+        if layout == "bthd":
+            return bthd_view((rnd(B, T, H * d) * mul).to(bf), H)
+        if layout == "bthd+1":
+            x = (rnd(B * T * H * d + 1) * mul).to(bf)
+            return bthd_view(x[1:].view(B, T, H * d), H)
+        return (rnd(B, H, T, d) * mul).to(bf)
+
+    return make(Tq, amp), make(Tk, amp), make(Tk, 1), make(Tq, 1)
+
+
+def fwd_on_paths(torch, fn, call):
+    """A bf16 flash forward wrapper fn (with .launches_wgmma and
+    .launches_sync) on one input: call(path) runs it.  Runs it once with
+    path None and reads the path it took from the counters, then twice on
+    each path the operands admit (both where they took wgmma), forced.
+    Returns (the path taken, {path: ((o, lse), two runs bit-identical)})."""
+    before = (fn.launches_wgmma, fn.launches_sync)
+    call(None)
+    moved = (fn.launches_wgmma - before[0], fn.launches_sync - before[1])
+    took = {(1, 0): "wgmma", (0, 1): "sync"}.get(moved)
+    if took is None:
+        raise RuntimeError(f"{fn.__name__}: one call moved the path counters "
+                           f"{moved}")
+    res = {}
+    for p in ("wgmma", "sync") if took == "wgmma" else ("sync",):
+        a, b = call(p), call(p)
+        torch.cuda.synchronize()
+        res[p] = (a, all(torch.equal(x, y) for x, y in zip(a, b)))
+    return took, res
 
 
 def flash_work(B, H, T, d):
@@ -544,7 +677,8 @@ def phase_build(torch):
     # memory, which ptxas does not see)
     for line in _build.build_log().splitlines():
         if ("ptxas info" in line and ("Used" in line or "entry" in line)) \
-                or "spill" in line or line.startswith("=="):
+                or "spill" in line or "warning" in line.lower() \
+                or line.startswith("=="):
             log(f"[build]   {line.strip()}")
 
 
@@ -810,38 +944,20 @@ def phase_compare(torch):
         note("transformer_block", path, e)
 
     # the bf16 kernels of the AMP path against their plain versions in
-    # bf16, on the f32 cases: (H, d, B, Tq, Tk, causal, kv_len, layout of
-    # q and do, scale of q and k, path).  "strided" has token stride d,
-    # "+1" starts 1 element (2 bytes) into its storage: both take element
-    # copies, not 16-byte ones; so do ragged T (rows not 16-byte aligned)
+    # bf16 (FLASH_HDT_BF16_CASES).  The forward runs each case on every
+    # path its operands admit, forced, after one call that must take
+    # fwd_bf16_path's choice (read from the path counters)
     bf = torch.bfloat16
-    for H, d, B, Tq, Tk, causal, kv_len, strided, amp, path in [
-            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, "", 1,
-             "train"),
-            (8, 64, 2, 300, 300, False, 250, "", 1, "ragged"),
-            (8, 64, 2, 200, 333, False, None, "", 1, "ragged"),
-            (4, 128, 2, 300, 300, True, None, "", 1, "ragged"),
-            (4, 64, 3, 130, 130, True, None, "strided", 1, "ragged"),
-            (8, 64, 2, 65, 65, True, None, "", 1, "ragged"),
-            (8, 64, 2, 256, 256, True, None, "+1", 1, "ragged"),
-            (8, 64, 4, 512, 512, True, None, "", 4, "ragged"),
-            (4, 128, 2, 300, 300, False, 250, "strided", 4, "ragged")]:
-        if strided == "strided":
-            q = (rnd(H, B * Tq, d) * amp).to(bf).transpose(1, 2)
-            do = rnd(H, B * Tq, d).to(bf).transpose(1, 2)
-        elif strided == "+1":
-            n = H * d * B * Tq
-            q = (rnd(n + 1) * amp).to(bf)[1:].view(H, d, B * Tq)
-            do = rnd(n + 1).to(bf)[1:].view(H, d, B * Tq)
-            if q.data_ptr() % 16 == 0:
-                raise RuntimeError("the misaligned case is 16-byte aligned")
-        else:
-            q = (rnd(H, d, B * Tq) * amp).to(bf)
-            do = rnd(H, d, B * Tq).to(bf)
-        k, v = (rnd(H, d, B * Tk) * amp).to(bf), rnd(H, d, B * Tk).to(bf)
+    fwd = fa.flash_attention_hdt_bf16
+    for case in FLASH_HDT_BF16_CASES:
+        H, d, B, Tq, Tk, causal, kv_len, strided, amp, path = case
+        q, k, v, do = hdt_bf16_operands(rnd, case)
+        if strided == "+1" and q.data_ptr() % 16 == 0:
+            raise RuntimeError("the misaligned case is 16-byte aligned")
         kw = dict(causal=causal, kv_len=kv_len)
-        o, lse = fa.flash_attention_hdt_bf16(q, k, v, B, **kw)
-        o2, lse2 = fa.flash_attention_hdt_bf16(q, k, v, B, **kw)
+        took, res = fwd_on_paths(torch, fwd, lambda p: fwd(
+            q, k, v, B, path=p, **kw))
+        want_path = fa.fwd_bf16_path(q, k, v, res[took][0][0], batch=B)
         po, plse = fa.flash_attention_hdt_plain(q, k, v, B, **kw)
         # delta in f32 from the bf16 o, as _FlashHdt.backward takes it
         delta = (do.float() * po.float()).sum(1, keepdim=True)
@@ -850,39 +966,52 @@ def phase_compare(torch):
         again = fa.flash_attention_hdt_bwd_bf16(*args, **kw)
         want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
-        ro, el = tile_rel_err([o], [po]), max_err(lse, plse)
         rb = tile_rel_err(got, want)
-        same_f = torch.equal(o, o2) and torch.equal(lse, lse2)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        log(f"[compare] flash_attention_hdt_bf16 H={H} d={d} B={B} Tq={Tq} "
-            f"Tk={Tk} causal={causal} kv_len={kv_len} strided={strided} "
-            f"q, k x{amp}: o {ro:.3g} of its tile's max |plain| (tol "
-            f"{BF16_RTOL:g}), lse max abs err {el:.3g} (tol {FA_TOL:g}); "
-            f"dq, dk, dv {rb:.3g} of their tile's max |plain| (tol "
-            f"{BF16_RTOL:g}); two runs bit-identical: forward {same_f}, "
-            f"backward {same}")
+        tag = (f"H={H} d={d} B={B} Tq={Tq} Tk={Tk} causal={causal} "
+               f"kv_len={kv_len} strided={strided} q, k x{amp}")
+        log(f"[compare] flash_attention_hdt_bf16 {tag}: the forward took the "
+            f"{took} path (fwd_bf16_path: {want_path}); dq, dk, dv {rb:.3g} "
+            f"of their tile's max |plain| (tol {BF16_RTOL:g}); two backward "
+            f"runs bit-identical: {same}")
+        if took != want_path:
+            raise RuntimeError(f"bf16 flash forward took {took}, expected "
+                               f"{want_path}")
+        for p, ((o, lse), same_f) in res.items():
+            ro, el = tile_rel_err([o], [po]), max_err(lse, plse)
+            log(f"[compare] flash_attention_hdt_bf16 {tag}: forward on the "
+                f"{p} path (forced): o {ro:.3g} of its tile's max |plain| "
+                f"(tol {BF16_RTOL:g}), lse max abs err {el:.3g} (tol "
+                f"{FA_TOL:g}); two runs bit-identical: {same_f}")
+            if not (ro <= BF16_RTOL and el <= FA_TOL):
+                raise RuntimeError(f"bf16 flash kernel ({p}) disagrees: "
+                                   f"{ro}, {el}")
+            if o.dtype != bf or not same_f:
+                raise RuntimeError(f"bf16 flash forward ({p}): o not bf16, "
+                                   f"or not deterministic")
+            note("flash_attention_hdt_bf16", path, max_err(o, po))
         if path == "train":
-            # the compare must refuse a kernel that drops a key tile late
+            # the compare must refuse a kernel that drops a key tile late,
+            # against the plain version and against the wgmma kernel's o
             fo, fdq = skipped_key_tile(fa, q, k, v, plse, delta, do, B, Tq)
-            fault = (tile_rel_err([fo], [po]), tile_rel_err([fdq], [want[0]]))
+            fault = (tile_rel_err([fo], [po]), tile_rel_err([fdq], [want[0]]),
+                     tile_rel_err([fo], [res["wgmma"][0][0]]))
             whole = (rel_err(fo, po), max_err(fdq, want[0]) / max(
                 float(w.float().abs().max()) for w in want))
             log(f"[fault] flash bf16, the last row tile skipping the first "
                 f"key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} of their "
-                f"tile's max |plain| (tol {BF16_RTOL:g}); of max |plain| "
-                f"over the whole output: o {whole[0]:.3g}, dq {whole[1]:.3g}")
+                f"tile's max |plain|, o {fault[2]:.3g} of the wgmma kernel's "
+                f"(tol {BF16_RTOL:g}); of max |plain| over the whole output: "
+                f"o {whole[0]:.3g}, dq {whole[1]:.3g}")
             if not min(fault) > BF16_RTOL:
                 raise RuntimeError(f"the bf16 flash compare passes a "
                                    f"skipped key tile: {fault}")
-        if not (ro <= BF16_RTOL and el <= FA_TOL):
-            raise RuntimeError(f"bf16 flash kernel disagrees: {ro}, {el}")
         if not rb <= BF16_RTOL:
             raise RuntimeError(f"bf16 flash backward disagrees: {rb}")
-        if not (o.dtype == bf and all(t.dtype == bf for t in got)):
-            raise RuntimeError("bf16 flash kernels: outputs not bf16")
-        if not (same_f and same):
-            raise RuntimeError("bf16 flash kernels are not deterministic")
-        note("flash_attention_hdt_bf16", path, max_err(o, po))
+        if not all(t.dtype == bf for t in got):
+            raise RuntimeError("bf16 flash backward: outputs not bf16")
+        if not same:
+            raise RuntimeError("bf16 flash backward is not deterministic")
         note("flash_attention_hdt_bwd_bf16", path,
              max(max_err(a, b) for a, b in zip(got, want)))
 
@@ -975,37 +1104,25 @@ def compare_fuse_block_amp(torch, rnd, note):
     from paddle_tpu_torch.kernels import fused_block as fb
     bf = torch.bfloat16
 
-    # the bf16 [B, H, T, d] flash against its plain versions in bf16 (by
-    # each head's tile, on head-major copies) and against the head-major
-    # bf16 call on the same data (the same products in the same order, so
-    # the same bits, whichever tile layout the strides pick): (H, d, B,
-    # Tq, Tk, causal, layout, scale of q and k, path).  "bthd" is the
-    # block's [B, T, H, d] view (feature stride 1: token-row tiles by
-    # 16-byte copies), "bthd+1" the same 2 bytes into its storage (element
-    # copies), "bhtd" contiguous
-    for H, d, B, Tq, Tk, causal, layout, amp, path in [
-            (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", 1,
-             "train"),
-            (8, 64, 2, 300, 300, False, "bhtd", 1, "ragged"),
-            (8, 64, 2, 200, 333, False, "bthd", 1, "ragged"),
-            (4, 128, 2, 300, 300, True, "bthd", 1, "ragged"),
-            (8, 64, 2, 65, 65, True, "bthd", 4, "ragged"),
-            (8, 64, 2, 300, 300, True, "bthd+1", 1, "ragged"),
-            (4, 128, 2, 200, 333, False, "bthd+1", 4, "ragged"),
-            (8, 64, 4, 512, 512, True, "bthd", 4, "ragged")]:
-        def make(T, mul=amp):
-            if layout == "bthd":
-                return bthd_view((rnd(B, T, H * d) * mul).to(bf), H)
-            if layout == "bthd+1":
-                x = (rnd(B * T * H * d + 1) * mul).to(bf)
-                return bthd_view(x[1:].view(B, T, H * d), H)
-            return (rnd(B, H, T, d) * mul).to(bf)
-
-        q, k, v, do = make(Tq), make(Tk), make(Tk, 1), make(Tq, 1)
+    # the bf16 [B, H, T, d] flash (FLASH_BHTD_BF16_CASES) against its plain
+    # versions in bf16 (by each head's tile, on head-major copies) and
+    # against the head-major bf16 call on the same data.  The forward runs
+    # on every path the operands admit, forced.  On a path both calls take
+    # it must give the head-major call's bits (the same products in the
+    # same order, whichever tile layout the strides pick); where the two
+    # calls' own choices cross paths (a head-major copy whose T is not a
+    # multiple of 8 takes sync), their outputs are held to each other at
+    # BF16_RTOL by tile and FA_TOL on lse.  The backward (one kernel pair)
+    # must give the head-major call's bits
+    for case in FLASH_BHTD_BF16_CASES:
+        H, d, B, Tq, Tk, causal, layout, amp, path = case
+        q, k, v, do = bhtd_bf16_operands(rnd, case)
         if layout == "bthd+1" and q.data_ptr() % 16 == 0:
             raise RuntimeError("the misaligned case is 16-byte aligned")
-        o, lse = fa.flash_attention_bf16(q, k, v, causal)
-        o2, lse2 = fa.flash_attention_bf16(q, k, v, causal)
+        fwd, fwd_h = fa.flash_attention_bf16, fa.flash_attention_hdt_bf16
+        took, res = fwd_on_paths(torch, fwd, lambda p: fwd(
+            q, k, v, causal, path=p))
+        want_path = fa.fwd_bf16_path(q, k, v, res[took][0][0])
         po, plse = fa.flash_attention_plain(q, k, v, causal)
         delta = (do.float() * po.float()).sum(-1)
         args = (q, k, v, plse, delta, do, causal)
@@ -1015,46 +1132,79 @@ def compare_fuse_block_amp(torch, rnd, note):
         qh, kh, vh, doh = map(head_major, (q, k, v, do))
         lse_h = plse.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
         delta_h = delta.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
-        oh, lseh = fa.flash_attention_hdt_bf16(qh, kh, vh, B, causal=causal)
+        took_h, res_h = fwd_on_paths(torch, fwd_h, lambda p: fwd_h(
+            qh, kh, vh, B, causal=causal, path=p))
         gh = fa.flash_attention_hdt_bwd_bf16(qh, kh, vh, lse_h, delta_h, doh,
                                              B, causal=causal)
         torch.cuda.synchronize()
-        ro = tile_rel_err([head_major(o)], [head_major(po)])
-        el = max_err(lse, plse)
+
+        def hm_lse(t):
+            return t.permute(1, 0, 2).reshape(H, 1, B * Tq)
+
         rb = tile_rel_err([head_major(t) for t in got],
                           [head_major(t) for t in want])
-        same = torch.equal(o, o2) and torch.equal(lse, lse2) and all(
-            torch.equal(a, b) for a, b in zip(got, again))
-        bits = (torch.equal(head_major(o), oh) and torch.equal(
-            lse.permute(1, 0, 2).reshape(H, 1, B * Tq), lseh) and all(
-            torch.equal(head_major(a), b) for a, b in zip(got, gh)))
-        log(f"[compare] flash_attention_bf16 [B,H,T,d] ({layout}) H={H} "
-            f"d={d} B={B} Tq={Tq} Tk={Tk} causal={causal} q, k x{amp}: o "
-            f"{ro:.3g} of its tile's max |plain| (tol {BF16_RTOL:g}), lse "
-            f"max abs err {el:.3g} (tol {FA_TOL:g}); dq, dk, dv {rb:.3g} of "
-            f"their tile's max |plain| (tol {BF16_RTOL:g}); two runs "
-            f"bit-identical: {same}; the head-major bf16 call's bits: "
-            f"{bits}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        bits_b = all(torch.equal(head_major(a), b) for a, b in zip(got, gh))
+        tag = (f"({layout}) H={H} d={d} B={B} Tq={Tq} Tk={Tk} "
+               f"causal={causal} q, k x{amp}")
+        log(f"[compare] flash_attention_bf16 [B,H,T,d] {tag}: the forward "
+            f"took the {took} path (fwd_bf16_path: {want_path}), its "
+            f"head-major copy the {took_h} path; dq, dk, dv {rb:.3g} of "
+            f"their tile's max |plain| (tol {BF16_RTOL:g}); two backward "
+            f"runs bit-identical: {same}; the head-major bf16 backward's "
+            f"bits: {bits_b}")
+        if took != want_path:
+            raise RuntimeError(f"bf16 [B,H,T,d] flash took {took}, expected "
+                               f"{want_path}")
+        for p, ((o, lse), same_f) in res.items():
+            ro, el = tile_rel_err([head_major(o)], [head_major(po)]), \
+                max_err(lse, plse)
+            if p in res_h:
+                oh, lseh = res_h[p][0]
+                held = "the same path: bits " + str(
+                    torch.equal(head_major(o), oh)
+                    and torch.equal(hm_lse(lse), lseh))
+                ok_h = held.endswith("True")
+            else:   # the head-major copy cannot take this path
+                oh, lseh = res_h[took_h][0]
+                rh = tile_rel_err([head_major(o)], [oh])
+                eh = max_err(hm_lse(lse), lseh)
+                held = (f"its {took_h} path: o {rh:.3g} by tile (tol "
+                        f"{BF16_RTOL:g}), lse {eh:.3g} (tol {FA_TOL:g})")
+                ok_h = rh <= BF16_RTOL and eh <= FA_TOL
+            log(f"[compare] flash_attention_bf16 [B,H,T,d] {tag}: forward on "
+                f"the {p} path (forced): o {ro:.3g} of its tile's max "
+                f"|plain| (tol {BF16_RTOL:g}), lse max abs err {el:.3g} (tol "
+                f"{FA_TOL:g}); two runs bit-identical: {same_f}; against "
+                f"the head-major call on {held}")
+            if not (ro <= BF16_RTOL and el <= FA_TOL):
+                raise RuntimeError(f"bf16 [B,H,T,d] flash ({p}) disagrees: "
+                                   f"{ro}, {el}")
+            if o.dtype != bf or not same_f or not ok_h:
+                raise RuntimeError(f"bf16 [B,H,T,d] flash ({p}): o not bf16, "
+                                   f"not deterministic, or not the "
+                                   f"head-major call's: {held}")
+            note("flash_attention_bf16", path, max_err(o, po))
         if path == "train":
             fo, fdq = skipped_key_tile(fa, qh, kh, vh, lse_h, delta_h, doh,
                                        B, Tq)
             fault = (tile_rel_err([fo], [head_major(po)]),
-                     tile_rel_err([fdq], [head_major(want[0])]))
+                     tile_rel_err([fdq], [head_major(want[0])]),
+                     tile_rel_err([fo], [head_major(res["wgmma"][0][0])]))
             log(f"[fault] flash bf16 [B,H,T,d], the last row tile skipping "
                 f"the first key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} "
-                f"of their tile's max |plain| (tol {BF16_RTOL:g})")
+                f"of their tile's max |plain|, o {fault[2]:.3g} of the wgmma "
+                f"kernel's (tol {BF16_RTOL:g})")
             if not min(fault) > BF16_RTOL:
                 raise RuntimeError(f"the bf16 [B,H,T,d] flash compare passes "
                                    f"a skipped key tile: {fault}")
-        if not (ro <= BF16_RTOL and el <= FA_TOL and rb <= BF16_RTOL):
-            raise RuntimeError(f"bf16 [B,H,T,d] flash disagrees: {ro}, {el}, "
+        if not rb <= BF16_RTOL:
+            raise RuntimeError(f"bf16 [B,H,T,d] flash backward disagrees: "
                                f"{rb}")
-        if not (o.dtype == bf and all(t.dtype == bf for t in got)):
-            raise RuntimeError("bf16 [B,H,T,d] flash: outputs not bf16")
-        if not (same and bits):
-            raise RuntimeError("bf16 [B,H,T,d] flash: not deterministic, or "
-                               "not the head-major call's bits")
-        note("flash_attention_bf16", path, max_err(o, po))
+        if not (all(t.dtype == bf for t in got) and same and bits_b):
+            raise RuntimeError("bf16 [B,H,T,d] flash backward: outputs not "
+                               "bf16, not deterministic, or not the "
+                               "head-major call's bits")
         note("flash_attention_bwd_bf16", path,
              max(max_err(a, b) for a, b in zip(got, want)))
 
@@ -1284,6 +1434,14 @@ def _phase_train(torch, fuse_block, amp):
         fn.launches = 0
     head_bwd = counters["lm_head_bwd_bf16"]
     head_bwd.launches_wgmma = head_bwd.launches_sync = 0
+    # the bf16 flash forward by path: fused_mha's head-major call, the
+    # recompute's [B, T, H, d] views and the bf16 block kernel's own launch
+    flash_paths = {n: counters[n] for n in ("flash_attention_hdt_bf16",
+                                            "flash_attention_bf16")}
+    for fn in flash_paths.values():
+        fn.launches_wgmma = fn.launches_sync = 0
+    block = counters["transformer_block_bf16"]
+    block.launches_flash_wgmma = block.launches_flash_sync = 0
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
@@ -1307,6 +1465,16 @@ def _phase_train(torch, fuse_block, amp):
         log(f"{tag} bf16 LM-head backward chunks by path: {paths}")
     if paths != dict(wgmma=counts["lm_head_bwd_bf16"], sync=0):
         raise RuntimeError(f"bf16 LM-head backward paths {paths}")
+    # ... and every bf16 flash forward on the wgmma path
+    fpaths = {n: dict(wgmma=fn.launches_wgmma, sync=fn.launches_sync)
+              for n, fn in flash_paths.items()}
+    fpaths["transformer_block_bf16 (its flash launch)"] = dict(
+        wgmma=block.launches_flash_wgmma, sync=block.launches_flash_sync)
+    if amp:
+        log(f"{tag} bf16 flash forward launches by path: {fpaths}")
+    for n, c in fpaths.items():
+        if c != dict(wgmma=counts[n.split()[0]], sync=0):
+            raise RuntimeError(f"bf16 flash forward paths of {n}: {c}")
     # AMP: the first layer norm takes the f32 embedding sum, every later
     # one a residual sum that stays bf16
     want_ln = (["float32"] + ["bfloat16"] * (2 * cfg.n_layer) if amp
@@ -1633,6 +1801,11 @@ BLOCK_CHAIN_LAUNCHES = 9
 BLOCK_BF16_CHAIN_LAUNCHES = 7
 
 
+# the launches of one chunk of the bf16 LM-head backward on the sync path:
+# dlogits, dx's K ranges, their sum, dW
+HEAD_BWD_SYNC_KERNELS = 4
+
+
 def head_bwd_kernels():
     """Launches of one chunk of the bf16 LM-head backward at the training
     shape on the wgmma path: its three products, and the sum of dx's K
@@ -1676,29 +1849,54 @@ def _kernel_class(name):
     return "other (elementwise, embedding, reductions, adam)"
 
 
-def profiled(torch, fn, cpu=False):
+PROFILE_TRIES = 3
+
+
+def _device_launches(torch, events, part=""):
+    """Launches of the kernels in a torch.profiler record whose name holds
+    part, counted over the events with device time."""
+    return sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and part in e.key)
+
+
+def profiled(torch, fn, cpu=False, lost=None):
     """fn's events from torch.profiler, and the wall time of its call in
     microseconds.  fn runs twice: the first call is the schedule's warm-up
     cycle, whose events are dropped, so that the kernels launched while
     the tracer starts up are not lost from the recorded call.  The
     schedule's step annotation, which spans the call on the device's
-    timeline too, is left out."""
+    timeline too, is left out.  The tracer now and then loses a call's
+    kernel records (a whole call's, or one kernel's): lost(events) says
+    what a record lacks (None when it is whole; by default, a record
+    without device time is not), and such a record is traced again, up to
+    PROFILE_TRIES in all, before the call fails."""
     from torch.profiler import ProfilerActivity, profile, schedule
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    torch.cuda.synchronize()
-    with profile(activities=acts,
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
+    lost = lost or (lambda ev: None if _device_launches(torch, ev) else
+                    "no kernel with device time")
+    for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        prof.step()
-    return [e for e in prof.key_averages()
-            if not e.key.startswith("ProfilerStep")], wall_us
+        with profile(activities=acts,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if not e.key.startswith("ProfilerStep")]
+        why = lost(events)
+        if why is None:
+            return events, wall_us
+        log(f"[profile] trace {attempt} of {PROFILE_TRIES} lost kernel "
+            f"records: {why}")
+    raise RuntimeError(f"torch.profiler lost kernel records in "
+                       f"{PROFILE_TRIES} traces: {why}")
 
 
 def trace_run(torch, label, fn, expect=None):
@@ -1706,7 +1904,19 @@ def trace_run(torch, label, fn, expect=None):
     trace: kernel time by class and the device's busy share of the call's
     wall time.  expect maps a class to the launches it must show.  Returns
     {class: {kernel name: launches}}."""
-    events, wall_us = profiled(torch, fn, cpu=True)
+    def lost(events):
+        by_class = {}
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and e.self_device_time_total > 0:
+                c = _kernel_class(e.key)
+                by_class[c] = by_class.get(c, 0) + e.count
+        if not by_class:
+            return "no kernel with device time"
+        short = {c: (by_class.get(c, 0), n) for c, n in (expect or {}).items()
+                 if by_class.get(c, 0) < n}
+        return f"(launches, expected) {short}" if short else None
+    events, wall_us = profiled(torch, fn, cpu=True, lost=lost)
     by_class, launches, names, other = {}, {}, {}, {}
     for e in events:
         # kernels only: a CPU op's self device time repeats its kernels'
@@ -1736,12 +1946,13 @@ def trace_run(torch, label, fn, expect=None):
     return names
 
 
-def block_breakdown(torch, bf16=False):
+def block_breakdown(torch, bf16=False, chain=None):
     """The block forward's launches at the training shape (B 32, T 512,
     H 8, D = E 512, F 2048), f32 or (bf16) the AMP inputs: each kernel's
     device time over one call from torch.profiler, and the tile-loop
     kernels' TFLOP/s of their work:
-    {kernel name: {"ms", "launches"(, "tflops")}}."""
+    {kernel name: {"ms", "launches"(, "tflops")}}.  chain is the launches
+    one call makes; a record with fewer is traced again."""
     from paddle_tpu_torch.kernels import fused_block as fb
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     B, T, H, D, FF = TRAIN_BATCH, TRAIN_T, 8, 512, 2048
@@ -1751,7 +1962,9 @@ def block_breakdown(torch, bf16=False):
     if bf16:
         x, params = x.to(torch.bfloat16), bf16_block_params(params)
     events, _ = profiled(
-        torch, lambda: fb.transformer_block(x, params, H, True))
+        torch, lambda: fb.transformer_block(x, params, H, True),
+        lost=lambda ev: None if _device_launches(torch, ev) >= (chain or 1)
+        else f"{_device_launches(torch, ev)} launches, expected {chain}")
     # f32 FLOP of block_gemm_kernel<EPI>: q/k/v, Wo, W1, W2
     gemm_flops = {0: 2 * N * D * 3 * D, 1: 2 * N * D * D, 2: 2 * N * D * FF,
                   3: 2 * N * FF * D}
@@ -1777,12 +1990,14 @@ def block_breakdown(torch, bf16=False):
     return res
 
 
-def head_breakdown(torch):
+def head_breakdown(torch, launches):
     """The bf16 LM-head backward's launches at the training shape (N 16384,
     D 512, V 32000, chunk 4096), on the wgmma path and on the sync path
     (the parent's design): each kernel's device time over one call from
     torch.profiler, and the product kernels' TFLOP/s of their work (2 C D V
-    FLOP a launch): {path: {kernel name: {"ms", "launches"(, "tflops")}}}."""
+    FLOP a launch): {path: {kernel name: {"ms", "launches"(, "tflops")}}}.
+    launches maps each path to the launches one call makes there; a record
+    with fewer is traced again."""
     from paddle_tpu_torch.kernels import lm_head as lmh
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     N, D, V, C = TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK
@@ -1795,8 +2010,13 @@ def head_breakdown(torch):
     flops = 2 * C * D * V
     res = {}
     for path in ("wgmma", "sync"):
+        need = launches[path]
         events, _ = profiled(torch, lambda: lmh.lm_head_bwd_bf16(
-            x, w, y, lse, gl, C, path=path))
+            x, w, y, lse, gl, C, path=path),
+            lost=lambda ev: None
+            if _device_launches(torch, ev, "lm_head_bwd") >= need else
+            f"{_device_launches(torch, ev, 'lm_head_bwd')} lm_head_bwd "
+            f"launches, expected {need}")
         rows = {}
         for e in events:
             if e.device_type != torch.autograd.DeviceType.CUDA \
@@ -2108,8 +2328,14 @@ def phase_timings_amp(torch):
         return (q, k, v, lse, delta, do), (o4, (q4, k4, v4), bhtd(do))
 
     rot = rotation(make)
-    fms, fhost = time_ms(lambda: fa.flash_attention_hdt_bf16(
-        *rot()[0][:3], B, causal=True))
+    hdt = fa.flash_attention_hdt_bf16
+
+    def hdt_call(path):
+        return hdt(*rot()[0][:3], B, causal=True, path=path)
+
+    fms, fhost, fpath = timed_on_path(hdt, hdt_call, None)
+    # the same kernels forced onto the sync path (the parent's design)
+    fsync, fsync_host, _ = timed_on_path(hdt, hdt_call, "sync")
     fplain, _ = time_ms(lambda: fa.flash_attention_hdt_plain(
         *rot()[0][:3], B, causal=True), iters=10)
     flib, _ = time_ms(lambda: F.scaled_dot_product_attention(
@@ -2130,7 +2356,8 @@ def phase_timings_amp(torch):
     fops, fbytes = 4 * d * pairs, 2 * 4 * n + 4 * H * B * T
     bops, bbytes = 10 * d * pairs, 2 * 7 * n + 2 * 4 * H * B * T
     res["flash_attention_hdt_bf16"] = dict(
-        ms=fms, plain_ms=fplain, library_ms=flib,
+        ms=fms, plain_ms=fplain, library_ms=flib, path=fpath, sync_ms=fsync,
+        host_ms=fhost, sync_host_ms=fsync_host,
         **bf16_bounds(fops, fbytes, fms))
     res["flash_attention_hdt_bwd_bf16"] = dict(
         ms=bms, plain_ms=bplain, library_ms=blib,
@@ -2148,6 +2375,10 @@ def phase_timings_amp(torch):
             f"GFLOP at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nb / 1e6:.1f} "
             f"MB at {HBM_BYTES_PER_S / 1e12:g} TB/s); host enqueue per "
             f"call {host_:.4f} ms")
+    log(f"[time amp] flash_attention_hdt_bf16 took the {fpath} path; the "
+        f"sync path on the same inputs {fsync:.4f} ms "
+        f"({fops / fsync / 1e9:.2f} TFLOP/s), host enqueue per call "
+        f"{fsync_host:.4f} ms")
 
     # the LM head, N 16384, D 512, V 32000, chunk 4096: x (16 MiB) and W
     # (31 MiB in bf16, which would stay in the 50 MiB L2) rotate with their
@@ -2186,21 +2417,10 @@ def phase_timings_amp(torch):
         return bwd(x_, w_, y, lse_, gl, HEAD_CHUNK)
 
     def timed_path(path):
-        """(device ms, host ms, path) of the bf16 backward on the rotated
-        inputs, `path` None (the operands' choice) or forced: the path its
-        timed chunks took, read from the path counters, which must name
-        one path for every chunk."""
+        """the bf16 backward on the rotated inputs on `path`"""
         bwd = lmh.lm_head_bwd_bf16
-        before = (bwd.launches_wgmma, bwd.launches_sync)
-        ms, host = time_ms(lambda: head_bwd(functools.partial(
-            bwd, path=path)), iters=5, warmup=1)
-        moved = dict(wgmma=bwd.launches_wgmma - before[0],
-                     sync=bwd.launches_sync - before[1])
-        took = [p for p, n in moved.items() if n]
-        if len(took) != 1 or took[0] != (path or took[0]):
-            raise RuntimeError(f"bf16 LM head backward timing (path "
-                               f"{path}): chunks moved the counters {moved}")
-        return ms, host, took[0]
+        return timed_on_path(bwd, lambda p: head_bwd(functools.partial(
+            bwd, path=p)), path, iters=5, warmup=1)
 
     bms, bhost, bpath = timed_path(None)
     # the same kernels forced onto the sync path (the parent's design)
@@ -2480,6 +2700,10 @@ def phase_timings_fused_amp(torch):
         fwd[name], host[name] = time_ms(lambda: fwd_call(name))
         bwd[name], host[name + " bwd"] = time_ms(lambda: bwd_call(name),
                                                  iters=20, warmup=2)
+    # the views' forward on the path it takes and forced onto the sync path
+    fa16 = fa.flash_attention_bf16
+    paths = {p: timed_on_path(fa16, lambda p_: fwd_call(
+        "bthd", functools.partial(fa16, path=p_)), p) for p in (None, "sync")}
     fplain, _ = time_ms(lambda: fwd_call("bthd", fa.flash_attention_plain),
                         iters=10)
     bplain, _ = time_ms(lambda: bwd_call("bthd", fa.flash_attention_bwd_plain),
@@ -2506,6 +2730,9 @@ def phase_timings_fused_amp(torch):
         "flash_attention_bf16": dict(
             ms=fwd["bthd"], plain_ms=fplain, library_ms=flib,
             contiguous_bhtd_ms=fwd["bhtd"], head_major_ms=fwd["head-major"],
+            path=paths[None][2], path_ms=paths[None][0],
+            host_ms=paths[None][1], sync_ms=paths["sync"][0],
+            sync_host_ms=paths["sync"][1],
             **bf16_bounds(fops, fbytes, fwd["bthd"])),
         "flash_attention_bwd_bf16": dict(
             ms=bwd["bthd"], plain_ms=bplain, library_ms=blib,
@@ -2528,6 +2755,12 @@ def phase_timings_fused_amp(torch):
             f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nb / 1e6:.1f} MB at "
             f"{HBM_BYTES_PER_S / 1e12:g} TB/s); host enqueue per call "
             f"{h:.4f} ms")
+    (pms, phost, ppath), (sms, shost, _) = paths[None], paths["sync"]
+    log(f"[time fuse_block amp] flash_attention_bf16 on the [B,T,H,d] views "
+        f"took the {ppath} path: {pms:.4f} ms, host enqueue per call "
+        f"{phost:.4f} ms; the sync path on the same inputs {sms:.4f} ms "
+        f"({fops / sms / 1e9:.2f} TFLOP/s), host enqueue per call "
+        f"{shost:.4f} ms")
 
     # the block forward: x (16 MiB in bf16) rotates over ROTATE buffers for
     # the kernel, the plain version and the library layer alike; the
@@ -2694,26 +2927,37 @@ def main():
         f"{ln_types}")
     if ln_types != {"float": 0, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"] + 1}:
         raise RuntimeError(f"AMP fuse_block step layer norms {ln}")
-    by_path = head_breakdown(torch)
-    n_head = sum(r["launches"] for r in by_path["wgmma"].values())
-    if n_head != n_head_bwd:
-        raise RuntimeError(f"one bf16 LM-head backward on the wgmma path "
-                           f"made {n_head} launches, expected {n_head_bwd}")
+    n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
+                   * HEAD_BWD_SYNC_KERNELS)
+    by_path = head_breakdown(torch, {"wgmma": n_head_bwd,
+                                     "sync": n_head_sync})
+    for path, n in (("wgmma", n_head_bwd), ("sync", n_head_sync)):
+        n_head = sum(r["launches"] for r in by_path[path].values())
+        if n_head != n:
+            raise RuntimeError(f"one bf16 LM-head backward on the {path} "
+                               f"path made {n_head} launches, expected {n}")
     amp_times["lm_head_bwd_bf16"].update(by_kernel=by_path["wgmma"],
                                          sync_by_kernel=by_path["sync"],
-                                         launches_per_call=n_head)
-    by_kernel = block_breakdown(torch)
+                                         launches_per_call=n_head_bwd)
+    by_kernel = block_breakdown(torch, chain=BLOCK_CHAIN_LAUNCHES)
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_CHAIN_LAUNCHES:
         raise RuntimeError(f"one block forward made {n_chain} launches, "
                            f"expected {BLOCK_CHAIN_LAUNCHES}")
     times["transformer_block"]["train"].update(by_kernel=by_kernel,
                                                launches_per_call=n_chain)
-    by_kernel = block_breakdown(torch, bf16=True)
+    by_kernel = block_breakdown(torch, bf16=True,
+                                chain=BLOCK_BF16_CHAIN_LAUNCHES)
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_BF16_CHAIN_LAUNCHES:
         raise RuntimeError(f"one bf16 block forward made {n_chain} "
                            f"launches, expected {BLOCK_BF16_CHAIN_LAUNCHES}")
+    # its flash launch on the path that fwd_bf16_path gives the block's
+    # views: the wgmma kernel at this shape
+    flash = [n for n in by_kernel if "flash_fwd" in n]
+    if len(flash) != 1 or "flash_fwd_bf16_wg_kernel" not in flash[0]:
+        raise RuntimeError(f"the bf16 block's flash launch is {flash}, not "
+                           f"the wgmma kernel")
     amp_times["transformer_block_bf16"].update(by_kernel=by_kernel,
                                                launches_per_call=n_chain)
     sdpa = sdpa_kernels(torch)

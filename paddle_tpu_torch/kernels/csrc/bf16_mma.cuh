@@ -99,6 +99,14 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 2^x by one MUFU.EX2 (ex2.approx.ftz, about 2 ulp); results below 2^-126
+// flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // the A fragment of the k16 block made of C tiles c (columns 0-7) and d
 // (columns 8-15), rounded to bf16
 __device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c)[4],

@@ -31,11 +31,51 @@
 // bf16 and lse, delta in f32 (134 MB, 0.040 ms); its least work is 10 d
 // FLOP per kept pair, 21.517 GFLOP, 0.022 ms.
 //
-// Design: FlashAttention-2 on mma.sync m16n8k16 bf16 with f32 accumulators
-// (bf16_mma.cuh: fragments, ldmatrix, packing), one product per product:
-// no split.  Triton is not used: the kernels need exact control of where
-// p and ds are rounded and of the fragment layout that lets them feed the
-// next product from registers.  A CTA is 4 warps, 16 tile rows a warp.
+// Two forward kernels, chosen by the caller from the operands before the
+// launch (kernels/flash_attention.py fwd_bf16_path; the C entry's path):
+//   wgmma (flash_fwd_bf16_wg_kernel) where TMA can describe q, k, v and o
+//     (wg_ok: 16-byte-aligned bases, all in token rows or all in feature
+//     rows, the other strides multiples of 16 bytes, T % 8 == 0 in feature
+//     rows), d 64 or 128;
+//   sync (flash_fwd_bf16_kernel, below) on any operands.
+// The backward is one kernel pair, on mma.sync.
+//
+// The wgmma forward, for Hopper's warpgroup tensor cores.  A persistent
+// grid, one CTA per SM (min(work tiles, SMs)); a work tile is 128 queries
+// of one (batch row, head), the tiles of a (batch row, head) side by side
+// in the schedule (wg_work) so that CTAs running at one time read its k and
+// v from the L2.  288 threads: two consumer warpgroups of 64 queries each
+// and a producer warp whose lane 0 issues TMA loads (128-byte swizzle;
+// 4-D tensor maps of (D, T, H, B) or (T, D, H, B), T its own dimension so
+// that rows past a batch row's T arrive as zeros): q into two buffers
+// (the next tile's q lands while this one runs), k and v blocks of 128
+// keys (64 at d 128) into a ring of 4 stages (3 at d 128) guarded by
+// full/empty mbarriers.  Each block is s = q' k^T (wgmma m64nNk16, both
+// operands in shared memory) and o += bf16(p) v (wgmma with A = p from
+// registers: the f32 accumulator of s packs pairwise into the bf16 A
+// fragment, no shuffle); operands are read in their own layouts, the
+// transpose bits set where one is MN-major (WgTiles).  A warpgroup issues
+// this block's s and the previous block's p v back to back and runs this
+// block's softmax while p v runs; the two warpgroups issue their products
+// in turns (named barriers), so that one's softmax overlaps the other's
+// products.  The online softmax is in f32 over each row's quad, its
+// exponent one FMA and one ex2.approx; the first block of a tile and those
+// that reach past the diagonal or kend are masked.  q' = bf16(q bf16(scale))
+// is formed in shared memory (a fence.proxy.async before the wgmma reads
+// it), or, where bf16(scale) is a power of two, folded into the exponent
+// with the same bits (WgArgs).  o = acc / l is rounded once, staged by
+// each warp and written by 16-byte stores along o's contiguous dimension.
+// Cold at B 32, H 8, T 512, d 64, causal: see PERF.md §6 (about 0.04 ms
+// against the sync kernel's 0.088, 2x its byte bound): the softmax
+// (ex2 and its FMA, max and sum per score, 64 a thread a block) runs at
+// about the rate of the products, and each of a CTA's eight tiles pays
+// its first block's s and softmax and its epilogue unoverlapped.
+//
+// The sync forward and the backward: FlashAttention-2 on mma.sync m16n8k16
+// bf16 with f32 accumulators (bf16_mma.cuh: fragments, ldmatrix, packing),
+// one product per product: no split.  Triton is not used: the kernels need
+// exact control of where p and ds are rounded and of the fragment layout
+// that lets them feed the next product from registers.  A CTA is 4 warps, 16 tile rows a warp.
 // Operand tiles are staged in one of two layouts, chosen per call on the
 // host from the inputs' strides (Tiles<D, TR> below):
 //   feature rows, [d][64 + 8] bf16, tokens along a row: the head-major
@@ -81,7 +121,10 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "gemm_tc.cuh"
 #include "tf32_mma.cuh"
+#include "tma_maps.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -405,6 +448,496 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the forward on wgmma (sm_90a): TMA, an mbarrier ring, warpgroups ----
+
+constexpr int kWgM = 128;   // queries a work tile, 64 a consumer warpgroup
+
+template <int D>
+struct WgCfg {
+  static constexpr int kN = D == 64 ? 128 : 64;   // keys a block
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kQBytes = kWgM * D * 2;
+  static constexpr int kBlockBytes = kN * D * 2;   // a k or a v block
+  static constexpr int kStageBytes = 2 * kBlockBytes;
+  // a warpgroup's o tile: [64][D + 8] (token rows) or [D][64 + 8]
+  static constexpr int kEpiElems =
+      64 * (D + 8) > D * (64 + 8) ? 64 * (D + 8) : D * (64 + 8);
+  static constexpr int kEpiBytes = 2 * kEpiElems;
+  static constexpr int kSmemBytes = 1024 + 2 * kQBytes +
+                                    kStages * kStageBytes + 2 * kEpiBytes +
+                                    8 * (2 * kStages + 4);
+};
+
+// A tile in shared memory is boxes of 128-byte rows (64 bf16), 128-byte
+// swizzled as TMA writes them: in token rows (TR, feature stride 1) one box
+// per 64 features, a row per token; in feature rows (token stride 1) one
+// box per 64 tokens, a row per feature.  The wgmma descriptors of the two
+// products read each operand in its own layout, the transpose bits set
+// where it is MN-major: s = q' k^T takes q (A) and k (B) K-major in token
+// rows, MN-major in feature rows; o += p v takes v (B) MN-major in token
+// rows, K-major in feature rows.
+template <int D, bool TR>
+struct WgTiles {
+  static constexpr int kN = WgCfg<D>::kN;
+  // A of s for warpgroup wg (queries 64 wg ..), k16 step j (features 16 j ..)
+  __device__ __forceinline__ static uint64_t q_desc(uint32_t q, int wg,
+                                                    int j) {
+    if (TR)
+      return ptt_wg::make_desc(
+          q + (j >> 2) * (kWgM * 128) + wg * 64 * 128 + (j & 3) * 32, 16,
+          1024);
+    return ptt_wg::make_desc(q + wg * (D * 128) + j * 2048, D * 128, 1024);
+  }
+  // B of s, k16 step j (features 16 j ..), the block's kN keys
+  __device__ __forceinline__ static uint64_t k_desc(uint32_t k, int j) {
+    if (TR)
+      return ptt_wg::make_desc(k + (j >> 2) * (kN * 128) + (j & 3) * 32, 16,
+                               1024);
+    return ptt_wg::make_desc(k + j * 2048, D * 128, 1024);
+  }
+  // B of o += p v, k16 step J (keys 16 J ..), D features
+  __device__ __forceinline__ static uint64_t v_desc(uint32_t v, int J) {
+    if (TR) return ptt_wg::make_desc(v + J * 2048, kN * 128, 1024);
+    return ptt_wg::make_desc(v + (J >> 2) * (D * 128) + (J & 3) * 32, 16,
+                             1024);
+  }
+  // TMA loads of the q tile (queries q0 ..) and of a k or v block (keys
+  // k0 ..) of (batch row b, head h): maps of dims (D, T, H, B) in token
+  // rows, (T, D, H, B) in feature rows (wg_map)
+  __device__ __forceinline__ static void load_q(uint32_t dst,
+                                                const CUtensorMap* m,
+                                                uint32_t bar, int q0, int h,
+                                                int b) {
+    if (TR) {
+#pragma unroll
+      for (int i = 0; i < D / 64; ++i)
+        ptt_wg::tma_load4(dst + i * (kWgM * 128), m, bar, 64 * i, q0, h, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWgM / 64; ++i)
+        ptt_wg::tma_load4(dst + i * (D * 128), m, bar, q0 + 64 * i, 0, h, b);
+    }
+  }
+  __device__ __forceinline__ static void load_kv(uint32_t dst,
+                                                 const CUtensorMap* m,
+                                                 uint32_t bar, int k0, int h,
+                                                 int b) {
+    if (TR) {
+#pragma unroll
+      for (int i = 0; i < D / 64; ++i)
+        ptt_wg::tma_load4(dst + i * (kN * 128), m, bar, 64 * i, k0, h, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kN / 64; ++i)
+        ptt_wg::tma_load4(dst + i * (D * 128), m, bar, k0 + 64 * i, 0, h, b);
+    }
+  }
+};
+
+struct WgArgs {
+  bf16* o;
+  float* lse;
+  Strides os;                 // o's (batch, head, feature, token) strides
+  long long ls_b, ls_h;
+  int B, H, Tq, kend, causal;
+  int nqt, tiles;             // query tiles of a (batch row, head); all
+  float sb;                   // bf16(scale)
+  // where sb is a power of two, q' = q sb exactly and s = q' k^T = sb (q
+  // k^T) bit for bit, so the kernel skips scaling q and takes s in units
+  // of q k^T: the softmax's exponent multiplies by sl = sb log2 e instead
+  // of log2 e, and lse by lse_mul = sb; else sl = log2 e, lse_mul = 1
+  int scale_q;
+  float sl, lse_mul;
+};
+
+// Work tile t of the persistent schedule (kernels/flash_attention.py
+// fwd_bf16_schedule): CTA c takes t = c, c + grid, ...; the nqt query tiles
+// of one (batch row, head) are consecutive, so CTAs that run at one time
+// read its k and v blocks from the L2, and tile j of them is query tile nqt
+// - 1 - (j + bh) % nqt, so that under a causal mask a CTA's heavy and light
+// tiles alternate from one pass of the grid to the next.  nfree of the
+// tile's nblk key blocks need no mask: every key of theirs is kept for
+// every query of the tile.
+struct WgWork {
+  int b, h, q0, kend, nblk, nfree;
+};
+
+__device__ __forceinline__ WgWork wg_work(const WgArgs& a, int t, int kN) {
+  WgWork w;
+  const int bh = t / a.nqt, j = t % a.nqt;
+  w.b = bh / a.H;
+  w.h = bh % a.H;
+  w.q0 = (a.nqt - 1 - (j + bh) % a.nqt) * kWgM;
+  w.kend = a.causal ? min(a.kend, w.q0 + kWgM) : a.kend;
+  w.nblk = (w.kend + kN - 1) / kN;
+  w.nfree = w.kend / kN;
+  if (a.causal) w.nfree = min(w.nfree, w.q0 / kN);
+  return w;
+}
+
+// q <- bf16(q * sb) over warpgroup wg's 64 queries of the staged q tile,
+// 16 bytes a thread at a time: the rows its A descriptors read
+template <int D, bool TR>
+__device__ __forceinline__ void scale_q(uint8_t* q, int wg, int tid,
+                                        float sb) {
+  constexpr int kChunks = 64 * D * 2 / 16;
+#pragma unroll
+  for (int c = tid; c < kChunks; c += 128) {
+    uint8_t* at = TR ? q + (c >> 9) * (kWgM * 128) + wg * 64 * 128 +
+                           (c & 511) * 16
+                     : q + wg * (D * 128) + c * 16;
+    uint4 v = *reinterpret_cast<uint4*>(at);
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(e[i]);
+      e[i] = __floats2bfloat162_rn(f.x * sb, f.y * sb);
+    }
+    *reinterpret_cast<uint4*>(at) = v;
+  }
+}
+
+// The products of a warpgroup's 64 queries, issued as commit groups: s =
+// q' k^T (both operands in shared memory) and o += bf16(p) v (A = p from
+// registers).
+template <int D, bool TR>
+__device__ __forceinline__ void issue_s(float (&s)[WgCfg<D>::kN / 2],
+                                        uint32_t sq, uint32_t ks, int wg) {
+  using Tl = WgTiles<D, TR>;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    ptt_wg::wgmma_ss<!TR, !TR>(s, Tl::q_desc(sq, wg, j), Tl::k_desc(ks, j),
+                               j > 0);
+  ptt_wg::wgmma_commit();
+}
+
+template <int D, bool TR>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&pa)[WgCfg<D>::kN / 16][4],
+    uint32_t vs) {
+  using Tl = WgTiles<D, TR>;
+#pragma unroll
+  for (int J = 0; J < WgCfg<D>::kN / 16; ++J)
+    ptt_wg::wgmma_rs<TR>(o, pa[J], Tl::v_desc(vs, J), 1);
+  ptt_wg::wgmma_commit();
+}
+
+// The online softmax of one key block in f32, s[4 j + 2 i + e] the score of
+// row row0 + 8 i and key k0 + 8 j + c0 + e: MASK sets keys >= kend and,
+// causal, after the query to -inf; the row max m over each row's quad;
+// s <- p = 2^(s sl - m sl) (one FMA and one ex2.approx each; sl =
+// log2 e, or sb log2 e where s is in units of q k^T, WgArgs); l (this
+// lane's share of the row sums) and the factor c that rescales o.
+template <int N, bool MASK>
+__device__ __forceinline__ void softmax(float (&s)[N], float (&m)[2],
+                                        float (&l)[2], float (&c)[2], int k0,
+                                        int kend, int causal, int row0,
+                                        int c0, float sl) {
+  if (MASK) {
+    // the row's keys past lim[i] (counted from this lane's first key) go
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lim[i] = (causal ? min(kend, row0 + 8 * i + 1) : kend) - k0 - c0;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = 8 * j + (e & 1) >= lim[e >> 1] ? kNegInf : s[4 * j + e];
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float ml[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    c[i] = ptt_bf16::ex2((m[i] - mx[i]) * sl);
+    ml[i] = mx[i] * sl;
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ptt_bf16::ex2(fmaf(s[4 * j + e], sl, -ml[e >> 1]));
+      ps[e >> 1] += s[4 * j + e];
+    }
+  l[0] = l[0] * c[0] + ps[0];
+  l[1] = l[1] * c[1] + ps[1];
+}
+
+// p as the A fragments of o += p v, k16 step J over keys 16 J ..: the
+// accumulator's two 8-key column groups, packed pairwise to bf16 (no
+// shuffle: the m16n8k16 A layout is two C tiles side by side)
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4],
+                                       const float (&s)[N]) {
+#pragma unroll
+  for (int J = 0; J < N / 8; ++J)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[J][r] = ptt_bf16::pack(s[8 * J + 2 * r], s[8 * J + 2 * r + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&c)[2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= c[0];
+    o[4 * j + 1] *= c[0];
+    o[4 * j + 2] *= c[1];
+    o[4 * j + 3] *= c[1];
+  }
+}
+
+// The two warpgroups issue their products in turns (named barriers 3 and
+// 4, 256 threads: one warpgroup waits, the other arrives), so that one's
+// products run on the tensor cores while the other runs its softmax.
+__device__ __forceinline__ void pp_sync(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+}
+__device__ __forceinline__ void pp_arrive(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+}
+
+// The state a warpgroup carries through a work tile's key blocks: the
+// scores of the block in flight, p of the block before it as A fragments,
+// o, the row max and sums, the pending rescale of o, and the ring slot
+// whose v the next p v reads.
+template <int D>
+struct WgRow {
+  static constexpr int kN = WgCfg<D>::kN;
+  float s[kN / 2];
+  uint32_t pa[kN / 16][4];
+  float o[D / 2];
+  float m[2], l[2], c[2];
+  int prev;
+};
+
+// Key block blk after the first, pipelined: s of this block and p v of the
+// previous one are issued back to back, so the tensor cores run p v while
+// this block's softmax runs; then o is rescaled and this block's p packed.
+// No read of an accumulator sits under a branch (ptxas serializes every
+// wgmma of a kernel that has one, C7518).
+template <int D, bool TR, bool MASK>
+__device__ __forceinline__ void wg_step(WgRow<D>& r, uint32_t sq,
+                                        uint32_t qempty, uint32_t ring,
+                                        uint32_t bars,
+                                        int& stage, uint32_t& phase, int wg,
+                                        int blk, const WgWork& w, int row0,
+                                        int c0, int causal, float sl) {
+  using C = WgCfg<D>;
+  constexpr int kS = C::kStages;
+  const uint32_t ks = ring + stage * C::kStageBytes;
+  ptt_wg::mbar_wait(bars + 8 * stage, phase);
+  pp_sync(wg);
+  ptt_wg::wgmma_fence();
+  issue_s<D, TR>(r.s, sq, ks, wg);
+  issue_pv<D, TR>(r.o, r.pa, ring + r.prev * C::kStageBytes + C::kBlockBytes);
+  pp_arrive(wg);
+  ptt_wg::wgmma_wait<1>();   // s has landed; p v may still run
+  ptt_wg::fence_acc(r.s);
+  if (blk + 1 == w.nblk) ptt_wg::release(qempty);   // the tile's q
+  softmax<C::kN / 2, MASK>(r.s, r.m, r.l, r.c, blk * C::kN, w.kend, causal,
+                           row0, c0, sl);
+  ptt_wg::wgmma_wait<0>();
+  ptt_wg::fence_acc(r.o);
+  ptt_wg::release(bars + 8 * (kS + r.prev));
+  rescale(r.o, r.c);
+  pack_p(r.pa, r.s);
+  r.prev = stage;
+  if (++stage == kS) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+template <int D, bool TR>
+__global__ void __launch_bounds__(ptt_wg::kThreads, 1)
+    flash_fwd_bf16_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv,
+                             const WgArgs a) {
+  using C = WgCfg<D>;
+  using Tl = WgTiles<D, TR>;
+  constexpr int kN = C::kN, kS = C::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = ptt_wg::smem_addr(smem_raw);
+  const uint32_t pad = (1024 - raw % 1024) % 1024;
+  // two q tiles (work tile n in buffer n % 2, so that the next tile's q
+  // lands while this one runs), then the ring of k, v blocks
+  uint8_t* qp = smem_raw + pad;
+  const uint32_t sq = raw + pad, ring = sq + 2 * C::kQBytes;
+  uint8_t* epi = qp + 2 * C::kQBytes + kS * C::kStageBytes;
+  // mbarriers: full[s] at bars + 8 s, empty[s] at bars + 8 (kS + s), then
+  // the q buffers' full pair and empty pair
+  const uint32_t bars = ring + kS * C::kStageBytes + 2 * C::kEpiBytes;
+  const uint32_t qfull = bars + 16 * kS, qempty = qfull + 16;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      ptt_wg::mbar_init(bars + 8 * i, 1);
+      ptt_wg::mbar_init(bars + 8 * (kS + i), 4 * ptt_wg::kConsumers);
+    }
+    for (int i = 0; i < 2; ++i) {
+      ptt_wg::mbar_init(qfull + 8 * i, 1);
+      ptt_wg::mbar_init(qempty + 8 * i, 4 * ptt_wg::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the warp's index, known to ptxas to be the same across the warp
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  if (warp == ptt_wg::kProducerWarp) {
+    if ((threadIdx.x & 31) == 0) {
+      int stage = 0, n = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
+        const WgWork w = wg_work(a, t, kN);
+        const int qb = n & 1;
+        ptt_wg::mbar_wait(qempty + 8 * qb, ((n >> 1) & 1) ^ 1);
+        ptt_wg::mbar_expect_tx(qfull + 8 * qb, C::kQBytes);
+        Tl::load_q(sq + qb * C::kQBytes, &mq, qfull + 8 * qb, w.q0, w.h,
+                   w.b);
+        for (int blk = 0; blk < w.nblk; ++blk) {
+          const uint32_t full = bars + 8 * stage;
+          const uint32_t slot = ring + stage * C::kStageBytes;
+          ptt_wg::mbar_wait(bars + 8 * (kS + stage), phase ^ 1);
+          ptt_wg::mbar_expect_tx(full, C::kStageBytes);
+          Tl::load_kv(slot, &mk, full, blk * kN, w.h, w.b);
+          Tl::load_kv(slot + C::kBlockBytes, &mv, full, blk * kN, w.h, w.b);
+          if (++stage == kS) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2, lane = threadIdx.x & 31, tid = threadIdx.x & 127;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);   // rows r0, r0 + 8 of 64
+  const int c0 = 2 * (lane & 3);                  // columns c0, c0 + 1 of 8
+  bf16* st = reinterpret_cast<bf16*>(epi + wg * C::kEpiBytes);
+  int stage = 0, n = 0;
+  uint32_t phase = 0;
+  if (wg == 1) pp_arrive(1);   // warpgroup 0 first
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
+    const WgWork w = wg_work(a, t, kN);
+    const int qw = w.q0 + 64 * wg, row0 = qw + r0, qb = n & 1;
+    const uint32_t sqt = sq + qb * C::kQBytes, qe = qempty + 8 * qb;
+    ptt_wg::mbar_wait(qfull + 8 * qb, (n >> 1) & 1);
+    if (a.scale_q) {
+      scale_q<D, TR>(qp + qb * C::kQBytes, wg, tid, a.sb);
+      ptt_wg::fence_proxy_async();   // q' before the wgmma that read it
+      ptt_wg::wg_sync(wg);
+    }
+    WgRow<D> r;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) r.o[i] = 0.f;
+    r.m[0] = r.m[1] = kNegInf;
+    r.l[0] = r.l[1] = 0.f;
+    // block 0 (masked: whether it needs it is no matter for one block)
+    ptt_wg::mbar_wait(bars + 8 * stage, phase);
+    pp_sync(wg);
+    ptt_wg::wgmma_fence();
+    issue_s<D, TR>(r.s, sqt, ring + stage * C::kStageBytes, wg);
+    pp_arrive(wg);
+    ptt_wg::wgmma_wait<0>();
+    ptt_wg::fence_acc(r.s);
+    if (w.nblk == 1) ptt_wg::release(qe);
+    softmax<kN / 2, true>(r.s, r.m, r.l, r.c, 0, w.kend, a.causal, row0, c0,
+                          a.sl);
+    pack_p(r.pa, r.s);
+    r.prev = stage;
+    if (++stage == kS) {
+      stage = 0;
+      phase ^= 1;
+    }
+    int blk = 1;
+    for (; blk < w.nfree; ++blk)
+      wg_step<D, TR, false>(r, sqt, qe, ring, bars, stage, phase, wg, blk,
+                            w, row0, c0, a.causal, a.sl);
+    for (; blk < w.nblk; ++blk)
+      wg_step<D, TR, true>(r, sqt, qe, ring, bars, stage, phase, wg, blk,
+                           w, row0, c0, a.causal, a.sl);
+    // p v of the last block
+    pp_sync(wg);
+    ptt_wg::wgmma_fence();
+    issue_pv<D, TR>(r.o, r.pa, ring + r.prev * C::kStageBytes +
+                                   C::kBlockBytes);
+    pp_arrive(wg);
+    ptt_wg::wgmma_wait<0>();
+    ptt_wg::fence_acc(r.o);
+    ptt_wg::release(bars + 8 * (kS + r.prev));
+
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r.l[i] += __shfl_xor_sync(0xffffffffu, r.l[i], 1);
+      r.l[i] += __shfl_xor_sync(0xffffffffu, r.l[i], 2);
+      r.l[i] = fmaxf(r.l[i], 1e-30f);
+      inv[i] = 1.f / r.l[i];
+    }
+    // o = acc / l (times the reciprocal), rounded once, staged in shared
+    // memory along o's contiguous dimension and written by 16-byte stores.
+    // Each warp stages and stores its own 16 queries (rows 16 w .. of the
+    // warpgroup's 64): a warp-wide sync suffices.  o[4 j + 2 i + e] is row
+    // r0 + 8 i, feature 8 j + c0 + e.
+    const int w16 = r0 & ~15;
+    __syncwarp();   // this warp's stores of the last tile have read st
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v0 = r.o[4 * j + 2 * i] * inv[i];
+        const float v1 = r.o[4 * j + 2 * i + 1] * inv[i];
+        if (TR) {
+          *reinterpret_cast<__nv_bfloat162*>(st + (r0 + 8 * i) * (D + 8) +
+                                             8 * j + c0) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          st[(8 * j + c0) * 72 + r0 + 8 * i] = __float2bfloat16_rn(v0);
+          st[(8 * j + c0 + 1) * 72 + r0 + 8 * i] = __float2bfloat16_rn(v1);
+        }
+      }
+    __syncwarp();
+    // 16-byte chunks of 8 features (token rows) or 8 tokens (feature rows;
+    // T % 8 == 0, so a chunk lies wholly inside or past Tq)
+    bf16* oh = a.o + w.b * a.os.b + w.h * a.os.h;
+    if (TR) {
+      constexpr int CH = D / 8;
+#pragma unroll
+      for (int it = 0; it < 16 * CH / 32; ++it) {
+        const int id = lane + 32 * it, row = w16 + id / CH, cc = id % CH;
+        if (qw + row < a.Tq)
+          *reinterpret_cast<uint4*>(oh + (qw + row) * a.os.t + 8 * cc) =
+              *reinterpret_cast<const uint4*>(st + row * (D + 8) + 8 * cc);
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < 2 * D / 32; ++it) {
+        const int id = lane + 32 * it, f = id >> 1, tok = w16 + 8 * (id & 1);
+        if (qw + tok < a.Tq)
+          *reinterpret_cast<uint4*>(oh + f * a.os.d + qw + tok) =
+              *reinterpret_cast<const uint4*>(st + f * 72 + tok);
+      }
+    }
+    if (c0 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < a.Tq)
+          a.lse[w.b * a.ls_b + w.h * a.ls_h + row0 + 8 * i] =
+              a.lse_mul * r.m[i] + logf(r.l[i]);
+    }
+  }
+  if (wg == 0) pp_sync(0);   // warpgroup 1's last turn
+}
+
 template <int D, bool TR>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
@@ -701,6 +1234,81 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return (int)cudaGetLastError();
 }
 
+// TMA can describe operand p (T tokens) for the wgmma forward: a 16-byte
+// aligned base, the orientation's unit stride (feature stride 1 in token
+// rows, token stride 1 in feature rows), and every other stride of a
+// dimension longer than 1 a positive multiple of 8 elements (16 bytes).
+// Feature rows also need T % 8 == 0: o is written 8 tokens a store.
+// kernels/flash_attention.py fwd_bf16_path makes the same choice.
+bool wg_ok(const void* p, const Strides& s, bool tr, int D, int T, int H,
+           int B) {
+  auto ok = [](long long x, long long n) {
+    return n <= 1 || (x > 0 && x % 8 == 0 && x < (1LL << 39));
+  };
+  if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  if (tr) return s.d == 1 && ok(s.t, T) && ok(s.h, H) && ok(s.b, B);
+  return s.t == 1 && T % 8 == 0 && ok(s.d, D) && ok(s.h, H) && ok(s.b, B);
+}
+
+// The map of an operand of T tokens for the wgmma forward: dims (D, T, H,
+// B) in boxes of 64 features x rows tokens (token rows), or (T, D, H, B) in
+// boxes of 64 tokens x D features (feature rows).  T is a dimension of its
+// own, so TMA fills a box's rows past a batch row's T with zeros.  A
+// dimension of extent 1 takes stride 8 (TMA reads no second index of it).
+cudaError_t wg_map(CUtensorMap* m, const bf16* p, const Strides& s, bool tr,
+                   int D, int T, int H, int B, int rows) {
+  auto st = [](long long x, long long n) { return n > 1 ? x : 8LL; };
+  const long long dims_tr[4] = {D, T, H, B}, dims_fr[4] = {T, D, H, B};
+  const long long str_tr[3] = {st(s.t, T), st(s.h, H), st(s.b, B)};
+  const long long str_fr[3] = {st(s.d, D), st(s.h, H), st(s.b, B)};
+  const int box_tr[4] = {64, rows, 1, 1}, box_fr[4] = {64, D, 1, 1};
+  return tr ? ptt_tma::tensor_map(m, p, 4, dims_tr, str_tr, box_tr)
+            : ptt_tma::tensor_map(m, p, 4, dims_fr, str_fr, box_fr);
+}
+
+// the wgmma forward: one persistent launch of min(work tiles, SMs) CTAs
+template <int D, bool TR>
+int launch_fwd_wg(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                  float* lse, int H, int B, int Tq, int Tk, int kv_len,
+                  int causal, float scale, const Strides* st, long long ls_b,
+                  long long ls_h, cudaStream_t stream) {
+  using C = WgCfg<D>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = wg_map(&mq, q, st[0], TR, D, Tq, H, B, kWgM)) != cudaSuccess ||
+      (err = wg_map(&mk, k, st[1], TR, D, Tk, H, B, C::kN)) != cudaSuccess ||
+      (err = wg_map(&mv, v, st[2], TR, D, Tk, H, B, C::kN)) != cudaSuccess)
+    return (int)err;
+  WgArgs a;
+  a.o = o;
+  a.lse = lse;
+  a.os = st[3];
+  a.ls_b = ls_b;
+  a.ls_h = ls_h;
+  a.B = B;
+  a.H = H;
+  a.Tq = Tq;
+  a.kend = Tk < kv_len ? Tk : kv_len;
+  a.causal = causal;
+  a.nqt = (Tq + kWgM - 1) / kWgM;
+  a.tiles = B * H * a.nqt;
+  a.sb = __bfloat162float(__float2bfloat16_rn(scale));
+  int e2;
+  const bool pow2 = a.sb > 0.f && frexpf(a.sb, &e2) == 0.5f;
+  a.scale_q = !pow2;
+  a.sl = pow2 ? a.sb * kLog2e : kLog2e;
+  a.lse_mul = pow2 ? a.sb : 1.f;
+  err = cudaFuncSetAttribute(flash_fwd_bf16_wg_kernel<D, TR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = a.tiles < ptt_gemm::sm_count() ? a.tiles
+                                                 : ptt_gemm::sm_count();
+  flash_fwd_bf16_wg_kernel<D, TR>
+      <<<grid, ptt_wg::kThreads, C::kSmemBytes, stream>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool TR>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v,
                const bf16* dout, const float* lse, const float* delta,
@@ -745,13 +1353,19 @@ void read_strides(Strides* st, const long long* strides, int n) {
 // layout: strides[16] holds (batch, head, feature, token) element strides
 // for q, k, v and o in that order, strides[16:18] the batch and head
 // strides of lse [B, H, Tq] (f32, token stride 1).  D is 64 or 128;
-// 1 <= kv_len <= Tk.  Returns a cudaError_t as int.
+// 1 <= kv_len <= Tk.  path 1: the wgmma kernel, which needs operands that
+// TMA can describe (wg_ok; q, k, v and o all in token rows or all in feature
+// rows) and returns cudaErrorInvalidValue on others; path 0: the mma.sync
+// kernel, any layout.  The caller chooses (kernels/flash_attention.py
+// fwd_bf16_path).  Returns a cudaError_t as int.
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, void* o, void* lse, int H,
                                   int D, int B, int Tq, int Tk, int kv_len,
                                   int causal, float scale,
-                                  const long long* strides, void* stream) {
-  if (H <= 0 || B <= 0 || Tq <= 0 || Tk <= 0 || kv_len < 1 || kv_len > Tk)
+                                  const long long* strides, int path,
+                                  void* stream) {
+  if (H <= 0 || B <= 0 || Tq <= 0 || Tk <= 0 || kv_len < 1 || kv_len > Tk ||
+      (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   Strides st[4];
   read_strides(st, strides, 4);
@@ -761,8 +1375,22 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
   bf16* ob = static_cast<bf16*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tr = token_rows(st, 3);
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (path == 1) {
+    const bool tr = token_rows(st, 4);
+    if (!(wg_ok(q, st[0], tr, D, Tq, H, B) &&
+          wg_ok(k, st[1], tr, D, Tk, H, B) &&
+          wg_ok(v, st[2], tr, D, Tk, H, B) &&
+          wg_ok(o, st[3], tr, D, Tq, H, B)))
+      return (int)cudaErrorInvalidValue;
+    auto go = D == 64
+                  ? (tr ? launch_fwd_wg<64, true> : launch_fwd_wg<64, false>)
+                  : (tr ? launch_fwd_wg<128, true>
+                        : launch_fwd_wg<128, false>);
+    return go(qb, kb, vb, ob, lf, H, B, Tq, Tk, kv_len, causal, scale, st,
+              strides[16], strides[17], s);
+  }
+  const bool tr = token_rows(st, 3);
   auto go = D == 64 ? (tr ? launch_fwd<64, true> : launch_fwd<64, false>)
                     : (tr ? launch_fwd<128, true> : launch_fwd<128, false>);
   return go(qb, kb, vb, ob, lf, H, B, Tq, Tk, kv_len, causal, scale, st,

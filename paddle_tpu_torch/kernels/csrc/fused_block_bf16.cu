@@ -71,7 +71,8 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, void* o, void* lse, int H,
                                   int D, int B, int Tq, int Tk, int kv_len,
                                   int causal, float scale,
-                                  const long long* strides, void* stream);
+                                  const long long* strides, int path,
+                                  void* stream);
 
 namespace {
 
@@ -239,14 +240,17 @@ extern "C" long long ptt_transformer_block_bf16_fwd_workspace(int B, int T,
 // wv [D, E], wo [E, D], w1 [D, F] and w2 [F, D] bf16; ln1g, ln1b, ln2g,
 // ln2b and b2 [D] and b1 [F] f32; ws holds
 // ptt_transformer_block_bf16_fwd_workspace(B, T, D, E, F, H) bytes,
-// 256-byte aligned.  E / H is 64 or 128 and D <= 8192.  Seven launches on
-// `stream`.  Returns a cudaError_t as int.
+// 256-byte aligned.  E / H is 64 or 128 and D <= 8192.  flash_path is step
+// 3's path argument of ptt_flash_fwd_bf16 (1 wgmma, 0 mma.sync), chosen by
+// the caller from the q, k, v and o views of the workspace
+// (kernels/fused_block.py flash_path_in_block).  Seven launches on `stream`.
+// Returns a cudaError_t as int.
 extern "C" int ptt_transformer_block_bf16_fwd(
     const void* x, const void* ln1g, const void* ln1b, const void* wq,
     const void* wk, const void* wv, const void* wo, const void* ln2g,
     const void* ln2b, const void* w1, const void* b1, const void* w2,
     const void* b2, void* out, void* ws, int B, int T, int D, int E, int F,
-    int H, int causal, float eps1, float eps2, void* stream) {
+    int H, int causal, float eps1, float eps2, int flash_path, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0 || F <= 0 || H <= 0 || E <= 0 || E % H)
     return (int)cudaErrorInvalidValue;
   const int N = B * T, dh = E / H;
@@ -285,7 +289,7 @@ extern "C" int ptt_transformer_block_bf16_fwd(
       T * tq, dh, 1, tq,  T * tq, dh, 1, tq,  T * tq, dh, 1, tq,
       T * to, dh, 1, to,  (long long)H * T, T};
   err = ptt_flash_fwd_bf16(qkv, qkv + E, qkv + 2 * E, o, lse, H, dh, B, T,
-                           T, T, causal, 1.f, strides, stream);
+                           T, T, causal, 1.f, strides, flash_path, stream);
   if (err) return err;
   // 4. h = x + o Wo
   const bf16* const wob[3] = {static_cast<cb>(wo), nullptr, nullptr};

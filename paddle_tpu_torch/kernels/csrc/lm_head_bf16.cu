@@ -65,11 +65,14 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "tma_maps.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 using ptt_bf16::bf16;
+using ptt_bf16::ex2;   // flushes below 2^-126: moves a dlogit by less
+                      // than 2^-126 |g| where the row's largest is ~|g|
 using ptt_gemm::Acc;
 using ptt_gemm::align256;
 using ptt_gemm::cdiv;
@@ -89,6 +92,8 @@ using ptt_gemm_bf16::Operand;
 using ptt_gemm_bf16::allow_smem;
 using ptt_gemm_bf16::operand;
 using ptt_gemm_bf16::run_tiles;
+using ptt_tma::kmajor_map;
+using ptt_tma::mnmajor_map;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -356,15 +361,6 @@ enum WgEpi {
   kWgDw = 3,        // dW: f32 sum (+)= acc, or bf16 out on the last chunk
 };
 
-// 2^x by one MUFU.EX2 (ex2.approx.ftz, about 2 ulp): results below 2^-126
-// flush to 0, which moves a dlogit by less than 2^-126 |g| where the row's
-// largest is about |g|
-__device__ __forceinline__ float ex2(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
 struct WgArgs {
   ptt_wg::Sched s;
   int M, N;                   // the output's extent (N a multiple of 8)
@@ -490,63 +486,6 @@ __global__ void __launch_bounds__(ptt_wg::kThreads, 1)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
-// entry-point query (so the library links no libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? (EncodeTiled)f : nullptr;
-  }();
-  return fn;
-}
-
-// the map of a bf16 [outer, inner] tensor (rows of ld elements) in boxes of
-// box_inner x box_outer, 128-byte swizzle, zeros outside
-cudaError_t tensor_map(CUtensorMap* m, const bf16* p, long long inner,
-                       long long outer, long long ld, int box_inner,
-                       int box_outer) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<bf16*>(p), dims, strides, box, one,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// the map of an operand read K-major (boxes of 64 k x 128 rows) or
-// MN-major (64 mn x 64 k), k or mn the contiguous index
-cudaError_t kmajor_map(CUtensorMap* m, const bf16* p, long long inner,
-                       long long outer, long long ld) {
-  return tensor_map(m, p, inner, outer, ld, ptt_wg::kBK, ptt_wg::kBM);
-}
-
-cudaError_t mnmajor_map(CUtensorMap* m, const bf16* p, long long inner,
-                        long long outer, long long ld) {
-  return tensor_map(m, p, inner, outer, ld, 64, ptt_wg::kBK);
 }
 
 // W's two maps (K-major for dx, N-major for the recompute), the same for

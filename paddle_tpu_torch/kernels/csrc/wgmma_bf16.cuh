@@ -3,7 +3,10 @@
 // products with f32 accumulation, one producer warp and two consumer
 // warpgroups, on a persistent grid.  Hand-written in inline PTX, as
 // bf16_mma.cuh is; the kernels and epilogues that use it are in
-// lm_head_bf16.cu (the LM head's backward under AMP).
+// lm_head_bf16.cu (the LM head's backward under AMP).  The flash forward
+// (flash_attention_bf16.cu) takes its pieces (barriers, TMA, descriptors,
+// wgmma with A from shared memory or from registers) for a pipeline of its
+// own.
 //
 // A CTA computes kBM x kBN = 128 x 128 output tiles of A [M, K] . B [K, N]
 // over k-tiles of kBK = 64, one tile after another: tile t, t + gridDim.x,
@@ -23,9 +26,9 @@
 // Operands.  Each operand is a 2-D bf16 tensor in device memory with rows
 // of 16-byte multiples (TMA needs 16-byte strides and a 16-byte-aligned
 // base), described by a CUtensorMap with 128-byte swizzle that the host
-// builds (lm_head_bf16.cu: x's and dlogits' for each chunk, W's once for
-// each pointer and shape).  Which index is contiguous is a template
-// parameter per operand; no operand is copied into another layout:
+// builds (tma_maps.cuh; lm_head_bf16.cu: x's and dlogits' for each chunk,
+// W's once for each pointer and shape).  Which index is contiguous is a
+// template parameter per operand; no operand is copied into another layout:
 //   K-major (Op<false>): rows along M (or N), k contiguous.  One TMA box of
 //     64 k x 128 rows, stored as 128 rows of 128 bytes; the wgmma
 //     descriptor's 8-row groups are 1024 bytes apart (SBO) and a k16 step
@@ -136,6 +139,25 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box at coordinates (c0 along the contiguous index, c1, c2, c3) of a
+// rank-4 map -> dst, completing its bytes on bar
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (wgmma, TMA) that follow a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // a wgmma shared-memory descriptor: start, leading and stride byte
 // offsets, 128-byte swizzle
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -192,9 +214,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving reads of d above a wgmma wait
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A . B over one k16 step, A 64 x 16 and B 16 x 128 from shared
@@ -225,6 +248,79 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+#define PTT_WG_ACC8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PTT_WG_ACC32 \
+  PTT_WG_ACC8(0), PTT_WG_ACC8(8), PTT_WG_ACC8(16), PTT_WG_ACC8(24)
+#define PTT_WG_REGS32                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (+)= A . B over one k16 step, A 64 x 16 and B 16 x 64 from shared
+// memory: wgmma<TA, TB>'s m64n64k16, 32 accumulators a thread
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_WG_REGS32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : PTT_WG_ACC32
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (+)= A . B over one k16 step, A 64 x 16 from registers (a: the
+// m16n8k16 A fragment of the warp's 16 rows, which is the accumulator of
+// a wgmma packed pairwise to bf16) and B 16 x N from shared memory; N 64
+// or 128 (N / 2 accumulators a thread); TB: B is N-major
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PTT_WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : PTT_WG_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : PTT_WG_ACC32, PTT_WG_ACC8(32), PTT_WG_ACC8(40), PTT_WG_ACC8(48),
+        PTT_WG_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// the m64nNk16 product with both operands in shared memory, N the
+// accumulator count times 2
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma<TA, TB>(d, da, db, scale_d);
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  wgmma64<TA, TB>(d, da, db, scale_d);
 }
 
 // The static tile order: tile t is (m, n, range) with m fastest, so the

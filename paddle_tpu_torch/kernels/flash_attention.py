@@ -41,16 +41,36 @@ hand ``flash_attention`` bf16 ``[B, H, T, d]`` views.  Those go to two more
 kernels, ``csrc/flash_attention_bf16.cu``, through the same strides
 (wrappers ``flash_attention_hdt_bf16``, ``flash_attention_hdt_bwd_bf16``,
 ``flash_attention_bf16`` and ``flash_attention_bwd_bf16``, each with its
-own ``.launches``): one bf16 ``mma.sync`` per product with f32
-accumulation, rounding where the Pallas kernels round in bf16.  q' =
-bf16(q * bf16(scale)) (flash_attention.py:529, :597; :85, :229, :262); p,
-and in the backward ds, are rounded to bf16 before the products that take
-them (:542, :586, :588, :615; :108, :237, :240, :267); the running max,
-sum, lse, delta and every accumulator stay f32; dq takes its scale in f32
-at the end (:273); o, dq, dk and dv are rounded once.  The plain versions
-carry the same roundings for bf16 inputs (the ``[B, H, T, d]`` ones through
-the head-major composition, ``_bhtd_plain_bf16``) and keep the
-full-softmax f32 arithmetic for f32 ones.
+own ``.launches``), rounding where the Pallas kernels round in bf16 with
+f32 accumulation.  The bf16 forward has two kernels, chosen on the host
+from the operands before the launch (``fwd_bf16_path``):
+
+- "wgmma" where TMA can describe q, k, v and o (16-byte-aligned bases, all
+  in token rows, feature stride 1, or all in feature rows, token stride 1
+  with T % 8 == 0, every other stride a multiple of 16 bytes, d 64 or
+  128): ``flash_fwd_bf16_wg_kernel``, a persistent grid of 128-query work
+  tiles whose producer warp loads q and a ring of k, v blocks by TMA and
+  whose two consumer warpgroups take s = q'k^T and o += p.v on ``wgmma``
+  (p from registers).  Every (batch row, head, query tile) is one work
+  tile, the query tiles of one (batch row, head) side by side
+  (``fwd_bf16_schedule``);
+- "sync" otherwise (a ragged head-major T, a view 2 bytes off alignment,
+  mixed layouts): one ``mma.sync`` m16n8k16 per product.
+
+Both wrappers take ``path=None`` (the operands' choice) or a forced path,
+for the compares and timings; a forced "wgmma" on operands TMA cannot
+describe raises.  ``.launches_wgmma`` and ``.launches_sync`` count each
+path's launches beside ``.launches``.  The backward is one ``mma.sync``
+kernel pair.
+
+q' = bf16(q * bf16(scale)) (flash_attention.py:529, :597; :85, :229,
+:262); p, and in the backward ds, are rounded to bf16 before the products
+that take them (:542, :586, :588, :615; :108, :237, :240, :267); the
+running max, sum, lse, delta and every accumulator stay f32; dq takes its
+scale in f32 at the end (:273); o, dq, dk and dv are rounded once.  The
+plain versions carry the same roundings for bf16 inputs (the ``[B, H, T,
+d]`` ones through the head-major composition, ``_bhtd_plain_bf16``) and
+keep the full-softmax f32 arithmetic for f32 ones.
 """
 from __future__ import annotations
 
@@ -149,12 +169,96 @@ def flash_attention_hdt_plain(q, k, v, batch, causal=False, scale=None,
 
 
 def _kernel(name="ptt_flash_fwd"):
-    """The forward C entry: ptt_flash_fwd (f32) or ptt_flash_fwd_bf16."""
+    """The forward C entry: ptt_flash_fwd (f32) or ptt_flash_fwd_bf16 (its
+    path argument before the stream)."""
     if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fns[name] = _build.bind(name, [p] * 5 + [i] * 7 + [f,
-                                 ctypes.POINTER(ctypes.c_longlong), p])
+        path = [i] if name.endswith("_bf16") else []
+        _fns[name] = _build.bind(name, [p] * 5 + [i] * 7 + [
+            f, ctypes.POINTER(ctypes.c_longlong)] + path + [p])
     return _fns[name]
+
+
+# the wgmma forward's work tile (queries) and key block by head dim
+# (csrc/flash_attention_bf16.cu kWgM, WgCfg<D>::kN)
+WG_QTILE = 128
+WG_KBLOCK = {64: 128, 128: 64}
+FWD_BF16_PATHS = ("wgmma", "sync")
+
+
+def _tma_ok(ptr, strides, extents, token_rows):
+    """Whether TMA can describe one operand for the wgmma forward (csrc/
+    flash_attention_bf16.cu wg_ok): a 16-byte-aligned base, the unit
+    stride of the orientation (feature stride 1 in token rows, token
+    stride 1 in feature rows), and every other stride of a dimension
+    longer than 1 a positive multiple of 8 elements; feature rows also
+    need T % 8 == 0 (o is written 8 tokens a store).  strides and
+    extents are (batch, head, feature, token)."""
+    sb, sh, sd, st = strides
+    B, H, d, T = extents
+
+    def ok(x, n):
+        return n <= 1 or (0 < x < 2 ** 39 and x % 8 == 0)
+
+    if ptr % 16:
+        return False
+    if token_rows:
+        return sd == 1 and ok(st, T) and ok(sh, H) and ok(sb, B)
+    return st == 1 and T % 8 == 0 and ok(sd, d) and ok(sh, H) \
+        and ok(sb, B)
+
+
+def fwd_path(operands, d):
+    """The bf16 forward's path for operands q, k, v, o given as (address,
+    (batch, head, feature, token) element strides, (B, H, d, T) extents):
+    "wgmma" where d is 64 or 128 and TMA can describe all four in one
+    orientation (token rows where every feature stride is 1), else
+    "sync"."""
+    if d not in KERNEL_HEAD_DIMS:
+        return "sync"
+    token_rows = all(st[2] == 1 for _, st, _ in operands)
+    return "wgmma" if all(_tma_ok(p, st, ex, token_rows)
+                          for p, st, ex in operands) else "sync"
+
+
+def fwd_bf16_path(q, k, v, o, batch=None):
+    """``fwd_path`` of tensors: head-major [H, d, B*T] ones (batch given,
+    as ``flash_attention_hdt`` takes them) or [B, H, T, d] ones in any
+    strides."""
+    if batch is not None:
+        Tq, Tk = q.shape[2] // batch, k.shape[2] // batch
+        ops = [(t.data_ptr(), _hdt_strides(t, T),
+                (batch, t.shape[0], t.shape[1], T))
+               for t, T in ((q, Tq), (k, Tk), (v, Tk), (o, Tq))]
+        return fwd_path(ops, q.shape[1])
+    ops = [(t.data_ptr(), _bhtd_strides(t),
+            (t.shape[0], t.shape[1], t.shape[3], t.shape[2]))
+           for t in (q, k, v, o)]
+    return fwd_path(ops, q.shape[-1])
+
+
+def fwd_bf16_schedule(B, H, Tq, sms):
+    """The wgmma forward's persistent schedule on `sms` SMs: one list per
+    CTA (the grid is min(work tiles, sms)) of the (batch row, head, first
+    query) of its work tiles in the order it takes them; CTA c takes tiles
+    c, c + grid, ... (csrc/flash_attention_bf16.cu wg_work).  The nqt query
+    tiles of (batch row, head) bh are tiles bh nqt .. bh nqt + nqt - 1, so
+    the CTAs that run at one time share its k and v through the L2; tile
+    bh nqt + j is query tile nqt - 1 - (j + bh) % nqt, so that where the
+    grid is a multiple of nqt a CTA's query tile, and with it its causal
+    work, rotates from one pass of the grid to the next."""
+    nqt = -(-Tq // WG_QTILE)
+    tiles = B * H * nqt
+    grid = min(tiles, sms)
+    out = []
+    for c in range(grid):
+        mine = []
+        for t in range(c, tiles, grid):
+            bh, j = divmod(t, nqt)
+            mine.append((bh // H, bh % H,
+                         (nqt - 1 - (j + bh) % nqt) * WG_QTILE))
+        out.append(mine)
+    return out
 
 
 def _check_card(name, ts, d, dv, stats=(), dtypes=(torch.float32,
@@ -199,48 +303,70 @@ def _stride_array(vals):
 
 
 def _fwd_call(name, q, k, v, o, lse, H, d, B, Tq, Tk, kv_len, causal,
-              scale, strides):
+              scale, strides, path=None):
+    """One forward launch; path "wgmma" or "sync" for the bf16 entry."""
     entry = "ptt_flash_fwd_bf16" if q.dtype == torch.bfloat16 \
         else "ptt_flash_fwd"
+    extra = (int(path == "wgmma"),) if path else ()
     err = _kernel(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), H, d, B, Tq, Tk, Tk if kv_len is None
         else int(kv_len), int(causal), float(scale), _stride_array(strides),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *extra, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed"
+                           f"{f' ({path} path)' if path else ''}: CUDA "
+                           f"error {err}")
 
 
-def _launch(q, k, v, batch, causal, scale, kv_len):
+def _bf16_path(name, path, shape_path):
+    """The bf16 forward's path: the operands' (shape_path) unless forced
+    to "wgmma" or "sync"."""
+    if path not in (None,) + FWD_BF16_PATHS:
+        raise ValueError(f"{name} kernel: no path {path!r}")
+    return path or shape_path
+
+
+def _count(fn, path):
+    fn.launches += 1
+    if path:
+        setattr(fn, "launches_" + path, getattr(fn, "launches_" + path) + 1)
+
+
+def _launch(q, k, v, batch, causal, scale, kv_len, path=None):
     """The head-major forward kernel of q's dtype: o in q's dtype, lse
-    f32."""
-    name = "flash_attention_hdt" + ("_bf16" if q.dtype == torch.bfloat16
-                                    else "")
+    f32; bf16 on `path` (None: fwd_bf16_path's)."""
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_hdt" + ("_bf16" if bf16 else "")
     _check_card(name, (q, k, v), q.shape[1], v.shape[1])
     H, d, Nq = q.shape
     Tq, Tk = _check(q, k, v, batch, causal, kv_len)
     o = torch.empty(H, d, Nq, dtype=q.dtype, device=q.device)
     lse = torch.empty(H, 1, Nq, dtype=torch.float32, device=q.device)
+    if bf16:
+        path = _bf16_path(name, path, fwd_bf16_path(q, k, v, o, batch))
     _fwd_call(name, q, k, v, o, lse, H, d, batch, Tq, Tk,
               kv_len, causal, scale,
               (*_hdt_strides(q, Tq), *_hdt_strides(k, Tk),
-               *_hdt_strides(v, Tk), *_hdt_strides(o, Tq), Tq, Nq))
-    (flash_attention_hdt_bf16 if q.dtype == torch.bfloat16
-     else flash_attention_hdt).launches += 1
+               *_hdt_strides(v, Tk), *_hdt_strides(o, Tq), Tq, Nq), path)
+    _count(flash_attention_hdt_bf16 if bf16 else flash_attention_hdt, path)
     return o, lse
 
 
 def flash_attention_hdt_bf16(q, k, v, batch, causal=False, scale=None,
-                             kv_len=None):
-    """The bf16 head-major forward kernel (csrc/flash_attention_bf16.cu) on
-    bf16 CUDA tensors: (o bf16, lse f32).  Its launches are counted in
-    ``flash_attention_hdt_bf16.launches``."""
+                             kv_len=None, path=None):
+    """The bf16 head-major forward kernels (csrc/flash_attention_bf16.cu)
+    on bf16 CUDA tensors: (o bf16, lse f32).  The path is
+    ``fwd_bf16_path`` of the operands, or `path` ("sync" runs on any
+    operands; "wgmma" raises where TMA cannot describe them).  Launches are
+    counted in ``flash_attention_hdt_bf16.launches``, and by path in
+    ``.launches_wgmma`` and ``.launches_sync``."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_hdt_bf16 kernel: bf16 inputs "
                          f"only, got {q.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[1])
-    return _launch(q, k, v, batch, causal, scale, kv_len)
+    return _launch(q, k, v, batch, causal, scale, kv_len, path)
 
 
 def _forward(q, k, v, batch, causal, scale, kv_len):
@@ -407,6 +533,8 @@ def flash_attention_hdt(q, k, v, batch, causal: bool = False,
 flash_attention_hdt.launches = 0
 flash_attention_hdt_bwd.launches = 0
 flash_attention_hdt_bf16.launches = 0
+flash_attention_hdt_bf16.launches_wgmma = 0
+flash_attention_hdt_bf16.launches_sync = 0
 flash_attention_hdt_bwd_bf16.launches = 0
 
 
@@ -514,34 +642,38 @@ def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal=False,
     return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
 
 
-def _launch_bhtd(q, k, v, causal, scale):
+def _launch_bhtd(q, k, v, causal, scale, path=None):
     """The [B, H, T, d] forward kernel of q's dtype: o in q's dtype and,
     where q is dense, q's layout (a [B, T, H, d] view stays one); lse
-    f32."""
-    name = "flash_attention" + ("_bf16" if q.dtype == torch.bfloat16
-                                else "")
+    f32; bf16 on `path` (None: fwd_bf16_path's)."""
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention" + ("_bf16" if bf16 else "")
     _check_card(name, (q, k, v), q.shape[-1], v.shape[-1])
     B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    if bf16:
+        path = _bf16_path(name, path, fwd_bf16_path(q, k, v, o))
     _fwd_call(name, q, k, v, o, lse, H, d, B, Tq, Tk, None, causal, scale,
               (*_bhtd_strides(q), *_bhtd_strides(k), *_bhtd_strides(v),
-               *_bhtd_strides(o), *lse.stride()[:2]))
-    (flash_attention_bf16 if q.dtype == torch.bfloat16
-     else flash_attention).launches += 1
+               *_bhtd_strides(o), *lse.stride()[:2]), path)
+    _count(flash_attention_bf16 if bf16 else flash_attention, path)
     return o, lse
 
 
-def flash_attention_bf16(q, k, v, causal=False, scale=None):
-    """The bf16 [B, H, T, d] forward kernel (csrc/flash_attention_bf16.cu)
-    on bf16 CUDA tensors in any strides: (o bf16, lse f32).  Its launches
-    are counted in ``flash_attention_bf16.launches``."""
+def flash_attention_bf16(q, k, v, causal=False, scale=None, path=None):
+    """The bf16 [B, H, T, d] forward kernels (csrc/flash_attention_bf16.cu)
+    on bf16 CUDA tensors in any strides: (o bf16, lse f32).  The path is
+    ``fwd_bf16_path`` of the operands or `path`, as in
+    ``flash_attention_hdt_bf16``.  Launches are counted in
+    ``flash_attention_bf16.launches``, and by path in ``.launches_wgmma``
+    and ``.launches_sync``."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bf16 kernel: bf16 inputs only, "
                          f"got {q.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _launch_bhtd(q, k, v, causal, scale)
+    return _launch_bhtd(q, k, v, causal, scale, path)
 
 
 def _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale):
@@ -637,4 +769,6 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None):
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_bf16.launches = 0
+flash_attention_bf16.launches_wgmma = 0
+flash_attention_bf16.launches_sync = 0
 flash_attention_bwd_bf16.launches = 0

@@ -59,7 +59,8 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import KERNEL_HEAD_DIMS, NEG_INF, flash_attention
+from .flash_attention import (KERNEL_HEAD_DIMS, NEG_INF, flash_attention,
+                              fwd_path)
 from .layer_norm import MAX_D
 
 PARAM_NAMES = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "ln2_scale",
@@ -179,9 +180,32 @@ def _kernel(name="ptt_transformer_block_fwd"):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name.endswith("_workspace"):
             _fns[name] = _build.bind(name, [i] * 6, ctypes.c_longlong)
-        else:
-            _fns[name] = _build.bind(name, [p] * 15 + [i] * 7 + [f, f, p])
+        else:   # the bf16 entry takes its flash launch's path
+            path = [i] if "_bf16" in name else []
+            _fns[name] = _build.bind(name, [p] * 15 + [i] * 7 + [f, f]
+                                     + path + [p])
     return _fns[name]
+
+
+def _align256(n):
+    return -(-n // 256) * 256
+
+
+def flash_path_in_block(work_ptr, B, T, D, E, H):
+    """The path of the bf16 block kernel's flash launch (step 3 of
+    csrc/fused_block_bf16.cu): flash_attention.fwd_path of q, k and v, the
+    [B, T, H, E/H] views of qkv [N, 3E], and o, the same view of [N, E],
+    where that source's work() puts them in the workspace at work_ptr (a
+    [N, D] bf16, then qkv, then o, each region 256-byte aligned)."""
+    N, dh = B * T, E // H
+    qkv = work_ptr + _align256(2 * N * D)
+    o = qkv + _align256(2 * N * 3 * E)
+
+    def view(ptr, ld):
+        return ptr, (T * ld, dh, 1, ld), (B, H, dh, T)
+
+    return fwd_path([view(qkv, 3 * E), view(qkv + 2 * E, 3 * E),
+                     view(qkv + 4 * E, 3 * E), view(o, E)], dh)
 
 
 def _launch(x, params, n_head, causal, eps1, eps2):
@@ -231,13 +255,22 @@ def _launch(x, params, n_head, causal, eps1, eps2):
     out = torch.empty_like(x)
     nbytes = _kernel(entry + "_workspace")(B, T, D, E, F, n_head)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    path = flash_path_in_block(work.data_ptr(), B, T, D, E, n_head) \
+        if bf16 else None
+    extra = (int(path == "wgmma"),) if bf16 else ()
     err = _kernel(entry)(*(t.data_ptr() for t in ts), out.data_ptr(),
                          work.data_ptr(), B, T, D, E, F, n_head, int(causal),
-                         float(eps1), float(eps2),
+                         float(eps1), float(eps2), *extra,
                          torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    (transformer_block_bf16 if bf16 else transformer_block).launches += 1
+    if bf16:
+        transformer_block_bf16.launches += 1
+        attr = "launches_flash_" + path
+        setattr(transformer_block_bf16, attr,
+                getattr(transformer_block_bf16, attr) + 1)
+    else:
+        transformer_block.launches += 1
     return out
 
 
@@ -245,7 +278,9 @@ def transformer_block_bf16(x, params, n_head, causal=False, eps1=1e-5,
                            eps2=1e-5):
     """The bf16 block kernel (csrc/fused_block_bf16.cu) on bf16 CUDA x and
     matrices, f32 (or bf16) vectors: out bf16.  Its launches (one per call,
-    seven kernels) are counted in ``transformer_block_bf16.launches``."""
+    seven kernels) are counted in ``transformer_block_bf16.launches``, and
+    by the path of its flash launch (``flash_path_in_block``) in
+    ``.launches_flash_wgmma`` and ``.launches_flash_sync``."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"transformer_block_bf16 kernel: bf16 x only, got "
                          f"{x.dtype}")
@@ -291,3 +326,5 @@ def transformer_block(x, params, n_head, causal: bool = False,
 
 transformer_block.launches = 0
 transformer_block_bf16.launches = 0
+transformer_block_bf16.launches_flash_wgmma = 0
+transformer_block_bf16.launches_flash_sync = 0

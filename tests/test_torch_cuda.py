@@ -486,19 +486,24 @@ def _rel_max(got, want):
     return err / max(float(b.float().abs().max()) for b in want)
 
 
-@pytest.mark.parametrize("H,d,B,Tq,Tk,causal,kv_len,amp", [
-    (8, 64, 4, 512, 512, True, None, 1),     # the path's layout, B 4
-    (8, 64, 2, 300, 300, False, 250, 1),
-    (8, 64, 2, 200, 333, False, None, 1),
-    (4, 128, 2, 300, 300, True, None, 1),
-    (8, 64, 2, 65, 65, True, None, 4),
+@pytest.mark.parametrize("force", [None, "sync"])
+@pytest.mark.parametrize("H,d,B,Tq,Tk,causal,kv_len,amp,path", [
+    (8, 64, 4, 512, 512, True, None, 1, "wgmma"),   # the path's layout, B 4
+    (8, 64, 2, 300, 300, False, 250, 1, "sync"),    # T no multiple of 8
+    (8, 64, 2, 200, 333, False, None, 1, "sync"),
+    (4, 128, 2, 300, 300, True, None, 1, "sync"),
+    (8, 64, 2, 65, 65, True, None, 4, "sync"),
+    (8, 64, 2, 304, 304, False, 250, 1, "wgmma"),
+    (4, 128, 2, 296, 296, True, None, 4, "wgmma"),
+    (8, 64, 2, 520, 520, True, None, 1, "wgmma"),   # a ragged tile
 ])
 def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
-                                        kv_len, amp):
-    """The bf16 head-major forward and backward against their plain
-    versions in bf16, each output at chip_smoke's BF16_RTOL of the max
-    |plain| of each head's 64-token tile (lse at the f32 tolerance), the
-    same bits on two calls."""
+                                        kv_len, amp, path, force):
+    """The bf16 head-major forward (on the path its operands choose, or
+    forced onto the sync path) and backward against their plain versions
+    in bf16, each output at chip_smoke's BF16_RTOL of the max |plain| of
+    each head's 64-token tile (lse at the f32 tolerance), the same bits
+    on two calls; the path counters name the path taken."""
     import chip_smoke
     bf = torch.bfloat16
     q = (_randn(cuda, H, d, B * Tq, seed=80) * amp).to(bf)
@@ -506,7 +511,15 @@ def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
     v = _randn(cuda, H, d, B * Tk, seed=82).to(bf)
     do = _randn(cuda, H, d, B * Tq, seed=83).to(bf)
     kw = dict(causal=causal, kv_len=kv_len)
-    o, lse = fa.flash_attention_hdt(q, k, v, B, **kw)
+    fwd = fa.flash_attention_hdt_bf16
+    before = (fwd.launches_wgmma, fwd.launches_sync)
+    o, lse = fwd(q, k, v, B, path=force, **kw)
+    o2, _ = fwd(q, k, v, B, path=force, **kw)
+    took = force or path
+    assert (fwd.launches_wgmma - before[0], fwd.launches_sync - before[1]) \
+        == ((2, 0) if took == "wgmma" else (0, 2))
+    assert fa.fwd_bf16_path(q, k, v, o, batch=B) == path
+    assert torch.equal(o, o2)
     po, plse = fa.flash_attention_hdt_plain(q, k, v, B, **kw)
     assert o.dtype == bf and lse.dtype == torch.float32
     assert chip_smoke.tile_rel_err([o], [po]) <= _bf16_tol()
@@ -579,6 +592,28 @@ def test_bf16_lm_head_wgmma_path_refuses_misaligned_operands(cuda):
         lmh.lm_head_bwd_bf16(x, w, y, lse, lse, 64, path="wgmma")
     assert (lmh.lm_head_bwd_bf16.launches_wgmma,
             lmh.lm_head_bwd_bf16.launches_sync) == before
+
+
+def test_bf16_flash_wgmma_path_refuses_what_tma_cannot_describe(cuda):
+    """Forced onto the wgmma path, operands 2 bytes off alignment (or a
+    head-major T no multiple of 8) make the C entry refuse the launch: the
+    wrapper raises and no counter moves; path None takes sync."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 8 * 64 * 2 * 256 + 1, seed=84).to(bf)
+    q = x[1:].view(8, 64, 2 * 256)
+    k = _randn(cuda, 8, 64, 2 * 256, seed=85).to(bf)
+    r = _randn(cuda, 8, 64, 2 * 300, seed=86).to(bf)
+    fwd = fa.flash_attention_hdt_bf16
+    for args in ((q, k, k), (r, r, r)):
+        before = (fwd.launches, fwd.launches_wgmma, fwd.launches_sync)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            fwd(*args, 2, causal=True, path="wgmma")
+        assert (fwd.launches, fwd.launches_wgmma,
+                fwd.launches_sync) == before
+        fwd(*args, 2, causal=True)
+        assert fwd.launches_sync == before[2] + 1
+    with pytest.raises(ValueError, match="path"):
+        fwd(k, k, k, 2, path="tma")
 
 
 def test_bf16_wrappers_refuse_what_they_cannot_take(cuda):
@@ -675,9 +710,21 @@ def test_bf16_bhtd_flash_kernels_match_plain(cuda, B, H, T, Tk, d, causal,
     assert (fa.flash_attention_bf16.launches,
             fa.flash_attention_bwd_bf16.launches) == (before[0] + 1,
                                                       before[1] + 2)
+    # the head-major call on a copy: the same bits on the same path; where
+    # the copy takes the other path (its T no multiple of 8), within
+    # BF16_RTOL by tile; forced onto the sync path, both the same bits
     oh, _ = fa.flash_attention_hdt_bf16(hm(q), hm(k), hm(v), B,
                                         causal=causal)
-    assert torch.equal(hm(o), oh)
+    same = fa.fwd_bf16_path(q, k, v, o) == fa.fwd_bf16_path(
+        hm(q), hm(k), hm(v), oh, batch=B)
+    if same:
+        assert torch.equal(hm(o), oh)
+    else:
+        assert chip_smoke.tile_rel_err([hm(o)], [oh]) <= _bf16_tol()
+    os_, _ = fa.flash_attention_bf16(q, k, v, causal, path="sync")
+    ohs, _ = fa.flash_attention_hdt_bf16(hm(q), hm(k), hm(v), B,
+                                         causal=causal, path="sync")
+    assert torch.equal(hm(os_), ohs)
 
 
 @pytest.mark.parametrize("B,T,H,D,E,F,causal,w1_scale,vectors", [
@@ -697,11 +744,14 @@ def test_bf16_block_kernel_matches_plain(cuda, B, T, H, D, E, F, causal,
                               w1_scale=w1_scale)
     x = x.to(torch.bfloat16)
     params = chip_smoke.bf16_block_params(params, vectors)
-    before = fb.transformer_block_bf16.launches
+    blk = fb.transformer_block_bf16
+    before = (blk.launches, blk.launches_flash_wgmma)
     got = fb.transformer_block(x, params, H, causal)
     again = fb.transformer_block_bf16(x, params, H, causal)
     want = fb.transformer_block_plain(x, params, H, causal)
-    assert fb.transformer_block_bf16.launches == before + 2
+    # its flash launch on the wgmma path (the q, k, v views of its qkv)
+    assert (blk.launches, blk.launches_flash_wgmma) == (before[0] + 2,
+                                                        before[1] + 2)
     assert got.dtype == torch.bfloat16
     assert _rel_max([got], [want]) <= chip_smoke.BLOCK_BF16_RTOL
     assert torch.equal(got, again)
