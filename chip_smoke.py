@@ -29,15 +29,17 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    softmax; the LM head's ragged, odd and peaked cases), at BF16_RTOL of
    max |plain| on bf16 outputs (for flash, of each head's 64-token tile's
    max |plain|) and the f32 tolerances on lse and loss; two calls of each
-   must give the same bits.  The bf16 flash forward runs each case
-   (FLASH_HDT_BF16_CASES, FLASH_BHTD_BF16_CASES) once on the path its
-   operands choose (flash_attention.fwd_bf16_path: wgmma where TMA can
-   describe q, k, v and o, else sync), checked by its path counters, then
-   on every path the operands admit, forced; the cases include T a
-   multiple of 8 that is not one of 128 (T 520) on the wgmma path.  The
-   flash compare must refuse a planted fault (the last row tile skipping
-   the first key tile), against the plain version and the wgmma kernel's
-   output.  The bf16
+   must give the same bits.  The bf16 flash forward and backward run
+   each case (FLASH_HDT_BF16_CASES, FLASH_BHTD_BF16_CASES) once on the
+   path its operands choose (flash_attention.fwd_bf16_path and
+   bwd_bf16_path: wgmma where TMA can describe the operands, else sync),
+   checked by their path counters, then on every path the operands admit,
+   forced; the cases include T a multiple of 8 that is not one of 128
+   (T 520) on the wgmma path, and a do in the other orientation than q, k
+   and v (feature stride 1 beside head-major q, k, v; token stride 1
+   beside [B, T, H, d] views).  The flash compare must refuse a planted
+   fault (the last row tile skipping the first key tile), against the
+   plain version and the wgmma kernels' o and dq.  The bf16
    LM-head backward runs each case on the path its operands choose
    (lm_head.bwd_bf16_path: wgmma where TMA can describe x and W, sync for
    V 1001, D 201 and D 12), checked by its path counters, and each wgmma
@@ -48,10 +50,11 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    kernels of the AMP fuse_block path: the [B, H, T, d] flash forward and
    backward on the block's [B, T, H, d] views (contiguous and 2 bytes off
    16-byte alignment, a ragged T, head dim 128, Tq != Tk, a peaked
-   softmax, T 520) at BF16_RTOL by tile; on every path both the view and
-   its head-major copy take, the head-major call's bits on the same data,
-   and where their own choices cross paths (the copy's T not a multiple
-   of 8), the two held to each other at BF16_RTOL and FA_TOL; the bf16
+   softmax, T 520) at BF16_RTOL by tile; forward and backward, on every
+   path both the view and its head-major copy take, the head-major call's
+   bits on the same data, and where their own choices cross paths (the
+   copy's T not a multiple of 8), the two held to each other at BF16_RTOL
+   (and FA_TOL on lse); the bf16
    block on the path shape, a ragged T, head dim 128, an odd D and F
    (bf16 vectors there) and W1 x 8, at BLOCK_BF16_RTOL of max |plain|.
    Both give the same bits twice and refuse a planted fault (the flash
@@ -94,7 +97,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    its backward 6 times, the bf16 LM-head forward once and its backward
    once per chunk, 13 layer norms (the first on the f32 embedding sum,
    12 on bf16 residual sums) and no f32 flash or LM-head kernel; every
-   bf16 flash forward on the wgmma path (its path counters).  The L 2
+   bf16 flash forward and backward on the wgmma path (their path
+   counters), with the strides of q, k, v and do that autograd hands the
+   backward logged.  The L 2
    match runs under the flag too, at AMP_STEP_LOSS_RTOL and
    AMP_STEP_GRAD_RTOL.
 5d. Train fuse_block under AMP: the program of phase 5b built and run
@@ -103,8 +108,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    backward 6 times each (the blocks' recompute), 1 layer norm (on the
    last block's bf16 output), the bf16 LM-head forward once and its
    backward once per chunk, and no f32 block, flash or LM-head kernel and
-   no head-major flash; the recompute's flash forward and the block
-   kernel's own flash launch on the wgmma path (their path counters).  The
+   no head-major flash; the recompute's flash forward and backward and the
+   block kernel's own flash launch on the wgmma path (their path counters;
+   the backward's operand strides logged).  The
    L 2 match replays the card's relu masks inside the blocks, at the AMP
    tolerances.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
@@ -133,11 +139,13 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    and head-major calls, the bf16 block beside
    torch.nn.TransformerEncoderLayer in bf16; the bf16 block's launches one
    by one (BLOCK_BF16_CHAIN_LAUNCHES); the AMP fuse_block step traced by
-   kernel class.  The bf16 flash forward (head-major, and on the block's
-   views) and the bf16 LM-head backward name the path they took (from the
-   counters of the timed calls) and time the sync path on the same inputs
-   beside it, each with its host enqueue time; the bf16 block's flash
-   launch must be the wgmma kernel; head_breakdown lists
+   kernel class.  The bf16 flash forward and backward (head-major, and on
+   the block's views) and the bf16 LM-head backward name the path they
+   took (from the counters of the timed calls) and time the sync path on
+   the same inputs beside it, each with its host enqueue time; the bf16
+   block's flash launch must be the wgmma kernel; flash_bwd_breakdown
+   lists the bf16 flash backward's two launches (dk/dv, dq) on both paths
+   with their TFLOP/s; head_breakdown lists
    its launches one by one on both paths with their TFLOP/s, and the
    smoke fails unless the wgmma path makes head_bwd_kernels() launches a
    chunk.
@@ -490,10 +498,12 @@ def head_major(t):
 # the bf16 head-major flash compares (phase 3): (H, d, B, Tq, Tk, causal,
 # kv_len, layout of q and do, scale of q and k, path).  "strided" has token
 # stride d, "+1" starts 1 element (2 bytes) into its storage: both take the
-# sync forward and element copies; so does a T that is not a multiple of 8
+# sync kernels and element copies; so does a T that is not a multiple of 8
 # (rows not 16-byte aligned).  The cases after the first nine have T a
-# multiple of 8, so that the wgmma forward takes kv_len, Tq != Tk, d 128, a
+# multiple of 8, so that the wgmma kernels take kv_len, Tq != Tk, d 128, a
 # peaked softmax, a ragged tile (T 520) and kv_len under a causal mask too.
+# "do-f1" keeps q head-major and gives do feature stride 1 (the other
+# orientation): the wgmma backward reads each in its own.
 FLASH_HDT_BF16_CASES = [
     (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, None, "", 1, "train"),
     (8, 64, 2, 300, 300, False, 250, "", 1, "ragged"),
@@ -509,13 +519,16 @@ FLASH_HDT_BF16_CASES = [
     (4, 128, 2, 296, 296, True, None, "", 1, "ragged"),
     (4, 128, 2, 304, 304, False, 250, "", 4, "ragged"),
     (8, 64, 2, 520, 520, True, None, "", 1, "ragged"),
-    (8, 64, 2, 384, 384, True, 300, "", 1, "ragged")]
+    (8, 64, 2, 384, 384, True, 300, "", 1, "ragged"),
+    (8, 64, 2, 256, 256, True, None, "do-f1", 1, "ragged")]
 
 # the bf16 [B, H, T, d] flash compares (phase 3): (H, d, B, Tq, Tk, causal,
 # layout, scale of q and k, path).  "bthd" is the block's [B, T, H, d] view
 # (feature stride 1), "bthd+1" the same 2 bytes into its storage (the sync
-# forward), "bhtd" contiguous.  The head-major copy of a case whose T is
-# not a multiple of 8 takes the sync forward where the view takes wgmma:
+# kernels), "bhtd" contiguous; ":do-t1" gives do token stride 1 instead, as
+# the rows of a [H d, B T] gradient (the strides autograd handed the
+# block's recompute on the CPU).  The head-major copy of a case whose T is
+# not a multiple of 8 takes the sync kernels where the view takes wgmma:
 # there the two calls cross paths.  T 520 is ragged with both on wgmma.
 FLASH_BHTD_BF16_CASES = [
     (8, 64, TRAIN_BATCH, TRAIN_T, TRAIN_T, True, "bthd", 1, "train"),
@@ -526,7 +539,8 @@ FLASH_BHTD_BF16_CASES = [
     (8, 64, 2, 300, 300, True, "bthd+1", 1, "ragged"),
     (4, 128, 2, 200, 333, False, "bthd+1", 4, "ragged"),
     (8, 64, 4, 512, 512, True, "bthd", 4, "ragged"),
-    (8, 64, 2, 520, 520, True, "bthd", 1, "ragged")]
+    (8, 64, 2, 520, 520, True, "bthd", 1, "ragged"),
+    (8, 64, 2, 256, 256, True, "bthd:do-t1", 1, "ragged")]
 
 
 def hdt_bf16_operands(rnd, case):
@@ -542,6 +556,9 @@ def hdt_bf16_operands(rnd, case):
         n = H * d * B * Tq
         q = (rnd(n + 1) * amp).to(bf)[1:].view(H, d, B * Tq)
         do = rnd(n + 1).to(bf)[1:].view(H, d, B * Tq)
+    elif layout == "do-f1":
+        q = (rnd(H, d, B * Tq) * amp).to(bf)
+        do = rnd(H, B * Tq, d).to(bf).transpose(1, 2)
     else:
         q = (rnd(H, d, B * Tq) * amp).to(bf)
         do = rnd(H, d, B * Tq).to(bf)
@@ -553,6 +570,7 @@ def bhtd_bf16_operands(rnd, case):
     import torch
     H, d, B, Tq, Tk, _, layout, amp, _ = case
     bf = torch.bfloat16
+    layout, _, do_layout = layout.partition(":")
 
     def make(T, mul):
         if layout == "bthd":
@@ -562,15 +580,19 @@ def bhtd_bf16_operands(rnd, case):
             return bthd_view(x[1:].view(B, T, H * d), H)
         return (rnd(B, H, T, d) * mul).to(bf)
 
-    return make(Tq, amp), make(Tk, amp), make(Tk, 1), make(Tq, 1)
+    q, k, v = make(Tq, amp), make(Tk, amp), make(Tk, 1)
+    if do_layout == "do-t1":
+        return q, k, v, rnd(H * d, B * Tq).to(bf).view(H, d, B, Tq).permute(
+            2, 0, 3, 1)
+    return q, k, v, make(Tq, 1)
 
 
-def fwd_on_paths(torch, fn, call):
-    """A bf16 flash forward wrapper fn (with .launches_wgmma and
-    .launches_sync) on one input: call(path) runs it.  Runs it once with
-    path None and reads the path it took from the counters, then twice on
-    each path the operands admit (both where they took wgmma), forced.
-    Returns (the path taken, {path: ((o, lse), two runs bit-identical)})."""
+def on_paths(torch, fn, call):
+    """A bf16 flash wrapper fn (with .launches_wgmma and .launches_sync) on
+    one input: call(path) runs it.  Runs it once with path None and reads
+    the path it took from the counters, then twice on each path the
+    operands admit (both where they took wgmma), forced.  Returns (the
+    path taken, {path: (its outputs, two runs bit-identical)})."""
     before = (fn.launches_wgmma, fn.launches_sync)
     call(None)
     moved = (fn.launches_wgmma - before[0], fn.launches_sync - before[1])
@@ -584,6 +606,28 @@ def fwd_on_paths(torch, fn, call):
         torch.cuda.synchronize()
         res[p] = (a, all(torch.equal(x, y) for x, y in zip(a, b)))
     return took, res
+
+
+def check_bwd_paths(tag, res, want, hm=lambda t: t):
+    """A bf16 flash backward's runs on each path (on_paths' dict) against
+    its plain version: dq, dk and dv bf16, within BF16_RTOL of their
+    tile's max |plain| (tile_rel_err of hm of each, hm taking [B, H, T, d]
+    to head-major), bit-identical on repeat.  Returns the largest max abs
+    error over the paths."""
+    import torch
+    worst = 0.0
+    for p, (got, same) in res.items():
+        rb = tile_rel_err([hm(t) for t in got], [hm(t) for t in want])
+        log(f"[compare] {tag}: backward on the {p} path (forced): dq, dk, "
+            f"dv {rb:.3g} of their tile's max |plain| (tol {BF16_RTOL:g}); "
+            f"two runs bit-identical: {same}")
+        if not rb <= BF16_RTOL:
+            raise RuntimeError(f"bf16 flash backward ({p}) disagrees: {rb}")
+        if not all(t.dtype == torch.bfloat16 for t in got) or not same:
+            raise RuntimeError(f"bf16 flash backward ({p}): outputs not bf16, "
+                               f"or not deterministic")
+        worst = max(worst, max(max_err(a, b) for a, b in zip(got, want)))
+    return worst
 
 
 def flash_work(B, H, T, d):
@@ -943,78 +987,9 @@ def phase_compare(torch):
             raise RuntimeError("block kernel is not deterministic")
         note("transformer_block", path, e)
 
-    # the bf16 kernels of the AMP path against their plain versions in
-    # bf16 (FLASH_HDT_BF16_CASES).  The forward runs each case on every
-    # path its operands admit, forced, after one call that must take
-    # fwd_bf16_path's choice (read from the path counters)
-    bf = torch.bfloat16
-    fwd = fa.flash_attention_hdt_bf16
-    for case in FLASH_HDT_BF16_CASES:
-        H, d, B, Tq, Tk, causal, kv_len, strided, amp, path = case
-        q, k, v, do = hdt_bf16_operands(rnd, case)
-        if strided == "+1" and q.data_ptr() % 16 == 0:
-            raise RuntimeError("the misaligned case is 16-byte aligned")
-        kw = dict(causal=causal, kv_len=kv_len)
-        took, res = fwd_on_paths(torch, fwd, lambda p: fwd(
-            q, k, v, B, path=p, **kw))
-        want_path = fa.fwd_bf16_path(q, k, v, res[took][0][0], batch=B)
-        po, plse = fa.flash_attention_hdt_plain(q, k, v, B, **kw)
-        # delta in f32 from the bf16 o, as _FlashHdt.backward takes it
-        delta = (do.float() * po.float()).sum(1, keepdim=True)
-        args = (q, k, v, plse, delta, do, B)
-        got = fa.flash_attention_hdt_bwd_bf16(*args, **kw)
-        again = fa.flash_attention_hdt_bwd_bf16(*args, **kw)
-        want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
-        torch.cuda.synchronize()
-        rb = tile_rel_err(got, want)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        tag = (f"H={H} d={d} B={B} Tq={Tq} Tk={Tk} causal={causal} "
-               f"kv_len={kv_len} strided={strided} q, k x{amp}")
-        log(f"[compare] flash_attention_hdt_bf16 {tag}: the forward took the "
-            f"{took} path (fwd_bf16_path: {want_path}); dq, dk, dv {rb:.3g} "
-            f"of their tile's max |plain| (tol {BF16_RTOL:g}); two backward "
-            f"runs bit-identical: {same}")
-        if took != want_path:
-            raise RuntimeError(f"bf16 flash forward took {took}, expected "
-                               f"{want_path}")
-        for p, ((o, lse), same_f) in res.items():
-            ro, el = tile_rel_err([o], [po]), max_err(lse, plse)
-            log(f"[compare] flash_attention_hdt_bf16 {tag}: forward on the "
-                f"{p} path (forced): o {ro:.3g} of its tile's max |plain| "
-                f"(tol {BF16_RTOL:g}), lse max abs err {el:.3g} (tol "
-                f"{FA_TOL:g}); two runs bit-identical: {same_f}")
-            if not (ro <= BF16_RTOL and el <= FA_TOL):
-                raise RuntimeError(f"bf16 flash kernel ({p}) disagrees: "
-                                   f"{ro}, {el}")
-            if o.dtype != bf or not same_f:
-                raise RuntimeError(f"bf16 flash forward ({p}): o not bf16, "
-                                   f"or not deterministic")
-            note("flash_attention_hdt_bf16", path, max_err(o, po))
-        if path == "train":
-            # the compare must refuse a kernel that drops a key tile late,
-            # against the plain version and against the wgmma kernel's o
-            fo, fdq = skipped_key_tile(fa, q, k, v, plse, delta, do, B, Tq)
-            fault = (tile_rel_err([fo], [po]), tile_rel_err([fdq], [want[0]]),
-                     tile_rel_err([fo], [res["wgmma"][0][0]]))
-            whole = (rel_err(fo, po), max_err(fdq, want[0]) / max(
-                float(w.float().abs().max()) for w in want))
-            log(f"[fault] flash bf16, the last row tile skipping the first "
-                f"key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} of their "
-                f"tile's max |plain|, o {fault[2]:.3g} of the wgmma kernel's "
-                f"(tol {BF16_RTOL:g}); of max |plain| over the whole output: "
-                f"o {whole[0]:.3g}, dq {whole[1]:.3g}")
-            if not min(fault) > BF16_RTOL:
-                raise RuntimeError(f"the bf16 flash compare passes a "
-                                   f"skipped key tile: {fault}")
-        if not rb <= BF16_RTOL:
-            raise RuntimeError(f"bf16 flash backward disagrees: {rb}")
-        if not all(t.dtype == bf for t in got):
-            raise RuntimeError("bf16 flash backward: outputs not bf16")
-        if not same:
-            raise RuntimeError("bf16 flash backward is not deterministic")
-        note("flash_attention_hdt_bwd_bf16", path,
-             max(max_err(a, b) for a, b in zip(got, want)))
+    compare_flash_hdt_bf16(torch, rnd, note)
 
+    bf = torch.bfloat16
     # the bf16 LM head on the f32 cases and one aligned case that is a
     # multiple of no tile (N, D, V, chunk, ignored labels, scale of x,
     # label dtype, path): V 1001, D 201 and D 12 take the sync backward
@@ -1096,117 +1071,209 @@ def phase_compare(torch):
     return errs
 
 
-def compare_fuse_block_amp(torch, rnd, note):
-    """Phase 3's compares of the AMP fuse_block path's kernels: the bf16
-    [B, H, T, d] flash and the bf16 block (rnd makes f32 inputs on the
-    card, note records each kernel's error by path)."""
+def compare_flash_hdt_bf16(torch, rnd, note):
+    """Phase 3's compares of the bf16 head-major flash (the AMP path's
+    fused_mha): FLASH_HDT_BF16_CASES on every path, and the planted fault
+    (rnd makes f32 inputs on the card, note records each kernel's error by
+    path)."""
+    # the bf16 kernels of the AMP path against their plain versions in
+    # bf16 (FLASH_HDT_BF16_CASES).  The forward and the backward run each
+    # case on every path its operands admit, forced, after one call that
+    # must take fwd_bf16_path's (bwd_bf16_path's) choice, read from the
+    # path counters
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import fused_block as fb
     bf = torch.bfloat16
+    fwd = fa.flash_attention_hdt_bf16
+    bwd = fa.flash_attention_hdt_bwd_bf16
+    for case in FLASH_HDT_BF16_CASES:
+        H, d, B, Tq, Tk, causal, kv_len, strided, amp, path = case
+        q, k, v, do = hdt_bf16_operands(rnd, case)
+        if strided == "+1" and q.data_ptr() % 16 == 0:
+            raise RuntimeError("the misaligned case is 16-byte aligned")
+        kw = dict(causal=causal, kv_len=kv_len)
+        took, res = on_paths(torch, fwd, lambda p: fwd(
+            q, k, v, B, path=p, **kw))
+        want_path = fa.fwd_bf16_path(q, k, v, res[took][0][0], batch=B)
+        po, plse = fa.flash_attention_hdt_plain(q, k, v, B, **kw)
+        # delta in f32 from the bf16 o, as _FlashHdt.backward takes it
+        delta = (do.float() * po.float()).sum(1, keepdim=True)
+        args = (q, k, v, plse, delta, do, B)
+        took_b, res_b = on_paths(torch, bwd, lambda p: bwd(
+            *args, path=p, **kw))
+        want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
+        want_b = fa.bwd_bf16_path(*args[:3], do, *res_b[took_b][0], plse,
+                                  delta, batch=B)
+        torch.cuda.synchronize()
+        tag = (f"H={H} d={d} B={B} Tq={Tq} Tk={Tk} causal={causal} "
+               f"kv_len={kv_len} strided={strided} q, k x{amp}")
+        log(f"[compare] flash_attention_hdt_bf16 {tag}: the forward took the "
+            f"{took} path (fwd_bf16_path: {want_path}), the backward the "
+            f"{took_b} path (bwd_bf16_path: {want_b})")
+        if (took, took_b) != (want_path, want_b):
+            raise RuntimeError(f"bf16 flash took {took}, {took_b}, expected "
+                               f"{want_path}, {want_b}")
+        for p, ((o, lse), same_f) in res.items():
+            ro, el = tile_rel_err([o], [po]), max_err(lse, plse)
+            log(f"[compare] flash_attention_hdt_bf16 {tag}: forward on the "
+                f"{p} path (forced): o {ro:.3g} of its tile's max |plain| "
+                f"(tol {BF16_RTOL:g}), lse max abs err {el:.3g} (tol "
+                f"{FA_TOL:g}); two runs bit-identical: {same_f}")
+            if not (ro <= BF16_RTOL and el <= FA_TOL):
+                raise RuntimeError(f"bf16 flash kernel ({p}) disagrees: "
+                                   f"{ro}, {el}")
+            if o.dtype != bf or not same_f:
+                raise RuntimeError(f"bf16 flash forward ({p}): o not bf16, "
+                                   f"or not deterministic")
+            note("flash_attention_hdt_bf16", path, max_err(o, po))
+        note("flash_attention_hdt_bwd_bf16", path,
+             check_bwd_paths(f"flash_attention_hdt_bwd_bf16 {tag}", res_b,
+                             want))
+        if path == "train":
+            # the compare must refuse a kernel that drops a key tile late,
+            # against the plain version and against the wgmma kernels'
+            # o and dq
+            fo, fdq = skipped_key_tile(fa, q, k, v, plse, delta, do, B, Tq)
+            fault = (tile_rel_err([fo], [po]), tile_rel_err([fdq], [want[0]]),
+                     tile_rel_err([fo], [res["wgmma"][0][0]]),
+                     tile_rel_err([fdq], [res_b["wgmma"][0][0]]))
+            whole = (rel_err(fo, po), max_err(fdq, want[0]) / max(
+                float(w.float().abs().max()) for w in want))
+            log(f"[fault] flash bf16, the last row tile skipping the first "
+                f"key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} of their "
+                f"tile's max |plain|, o {fault[2]:.3g}, dq {fault[3]:.3g} of "
+                f"the wgmma kernels' (tol {BF16_RTOL:g}); of max |plain| over "
+                f"the whole output: o {whole[0]:.3g}, dq {whole[1]:.3g}")
+            if not min(fault) > BF16_RTOL:
+                raise RuntimeError(f"the bf16 flash compare passes a "
+                                   f"skipped key tile: {fault}")
 
+
+def compare_flash_bhtd_bf16(torch, rnd, note):
+    """Phase 3's compares of the bf16 [B, H, T, d] flash (the AMP
+    fuse_block path's recompute): FLASH_BHTD_BF16_CASES on every path,
+    against the head-major call on the same data, and the planted fault."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
     # the bf16 [B, H, T, d] flash (FLASH_BHTD_BF16_CASES) against its plain
     # versions in bf16 (by each head's tile, on head-major copies) and
-    # against the head-major bf16 call on the same data.  The forward runs
-    # on every path the operands admit, forced.  On a path both calls take
-    # it must give the head-major call's bits (the same products in the
-    # same order, whichever tile layout the strides pick); where the two
-    # calls' own choices cross paths (a head-major copy whose T is not a
-    # multiple of 8 takes sync), their outputs are held to each other at
-    # BF16_RTOL by tile and FA_TOL on lse.  The backward (one kernel pair)
-    # must give the head-major call's bits
+    # against the head-major bf16 call on the same data.  The forward and
+    # the backward run on every path the operands admit, forced.  On a path
+    # both calls take they must give the head-major call's bits (the same
+    # products in the same order, whichever layout the strides pick);
+    # where the two calls' own choices cross paths (a head-major copy whose
+    # T is not a multiple of 8 takes sync), their outputs are held to each
+    # other at BF16_RTOL by tile (and FA_TOL on lse)
     for case in FLASH_BHTD_BF16_CASES:
         H, d, B, Tq, Tk, causal, layout, amp, path = case
         q, k, v, do = bhtd_bf16_operands(rnd, case)
         if layout == "bthd+1" and q.data_ptr() % 16 == 0:
             raise RuntimeError("the misaligned case is 16-byte aligned")
         fwd, fwd_h = fa.flash_attention_bf16, fa.flash_attention_hdt_bf16
-        took, res = fwd_on_paths(torch, fwd, lambda p: fwd(
+        bwd, bwd_h = fa.flash_attention_bwd_bf16, \
+            fa.flash_attention_hdt_bwd_bf16
+        took, res = on_paths(torch, fwd, lambda p: fwd(
             q, k, v, causal, path=p))
         want_path = fa.fwd_bf16_path(q, k, v, res[took][0][0])
         po, plse = fa.flash_attention_plain(q, k, v, causal)
         delta = (do.float() * po.float()).sum(-1)
         args = (q, k, v, plse, delta, do, causal)
-        got = fa.flash_attention_bwd_bf16(*args)
-        again = fa.flash_attention_bwd_bf16(*args)
+        took_b, res_b = on_paths(torch, bwd, lambda p: bwd(*args, path=p))
+        want_b = fa.bwd_bf16_path(q, k, v, do, *res_b[took_b][0], plse,
+                                  delta)
         want = fa.flash_attention_bwd_plain(*args)
         qh, kh, vh, doh = map(head_major, (q, k, v, do))
         lse_h = plse.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
         delta_h = delta.permute(1, 0, 2).reshape(H, 1, B * Tq).contiguous()
-        took_h, res_h = fwd_on_paths(torch, fwd_h, lambda p: fwd_h(
+        took_h, res_h = on_paths(torch, fwd_h, lambda p: fwd_h(
             qh, kh, vh, B, causal=causal, path=p))
-        gh = fa.flash_attention_hdt_bwd_bf16(qh, kh, vh, lse_h, delta_h, doh,
-                                             B, causal=causal)
+        took_hb, res_hb = on_paths(torch, bwd_h, lambda p: bwd_h(
+            qh, kh, vh, lse_h, delta_h, doh, B, causal=causal, path=p))
         torch.cuda.synchronize()
 
         def hm_lse(t):
             return t.permute(1, 0, 2).reshape(H, 1, B * Tq)
 
-        rb = tile_rel_err([head_major(t) for t in got],
-                          [head_major(t) for t in want])
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        bits_b = all(torch.equal(head_major(a), b) for a, b in zip(got, gh))
+        def held(p, outs, res_hm, took_hm):
+            """(ok, what) of head-major outputs outs on path p against the
+            head-major call: its bits where it took p too, else within
+            BF16_RTOL by tile of its own path's outputs (the forward's
+            (o, lse): o by tile, lse within FA_TOL)"""
+            if p in res_hm:
+                same = all(torch.equal(a, b)
+                           for a, b in zip(outs, res_hm[p][0]))
+                return same, f"the same path: bits {same}"
+            mine = res_hm[took_hm][0]
+            if len(outs) == 2:
+                rh, eh = tile_rel_err(outs[:1], mine[:1]), \
+                    max_err(outs[1], mine[1])
+                return (rh <= BF16_RTOL and eh <= FA_TOL,
+                        f"its {took_hm} path: o {rh:.3g} by tile (tol "
+                        f"{BF16_RTOL:g}), lse {eh:.3g} (tol {FA_TOL:g})")
+            rh = tile_rel_err(outs, mine)
+            return rh <= BF16_RTOL, (f"its {took_hm} path: {rh:.3g} by tile "
+                                     f"(tol {BF16_RTOL:g})")
+
         tag = (f"({layout}) H={H} d={d} B={B} Tq={Tq} Tk={Tk} "
                f"causal={causal} q, k x{amp}")
         log(f"[compare] flash_attention_bf16 [B,H,T,d] {tag}: the forward "
             f"took the {took} path (fwd_bf16_path: {want_path}), its "
-            f"head-major copy the {took_h} path; dq, dk, dv {rb:.3g} of "
-            f"their tile's max |plain| (tol {BF16_RTOL:g}); two backward "
-            f"runs bit-identical: {same}; the head-major bf16 backward's "
-            f"bits: {bits_b}")
-        if took != want_path:
-            raise RuntimeError(f"bf16 [B,H,T,d] flash took {took}, expected "
-                               f"{want_path}")
+            f"head-major copy the {took_h} path; the backward the {took_b} "
+            f"path (bwd_bf16_path: {want_b}), the copy's the {took_hb} path")
+        if (took, took_b) != (want_path, want_b):
+            raise RuntimeError(f"bf16 [B,H,T,d] flash took {took}, {took_b}, "
+                               f"expected {want_path}, {want_b}")
         for p, ((o, lse), same_f) in res.items():
             ro, el = tile_rel_err([head_major(o)], [head_major(po)]), \
                 max_err(lse, plse)
-            if p in res_h:
-                oh, lseh = res_h[p][0]
-                held = "the same path: bits " + str(
-                    torch.equal(head_major(o), oh)
-                    and torch.equal(hm_lse(lse), lseh))
-                ok_h = held.endswith("True")
-            else:   # the head-major copy cannot take this path
-                oh, lseh = res_h[took_h][0]
-                rh = tile_rel_err([head_major(o)], [oh])
-                eh = max_err(hm_lse(lse), lseh)
-                held = (f"its {took_h} path: o {rh:.3g} by tile (tol "
-                        f"{BF16_RTOL:g}), lse {eh:.3g} (tol {FA_TOL:g})")
-                ok_h = rh <= BF16_RTOL and eh <= FA_TOL
+            ok_h, what = held(p, (head_major(o), hm_lse(lse)), res_h, took_h)
             log(f"[compare] flash_attention_bf16 [B,H,T,d] {tag}: forward on "
                 f"the {p} path (forced): o {ro:.3g} of its tile's max "
                 f"|plain| (tol {BF16_RTOL:g}), lse max abs err {el:.3g} (tol "
                 f"{FA_TOL:g}); two runs bit-identical: {same_f}; against "
-                f"the head-major call on {held}")
+                f"the head-major call on {what}")
             if not (ro <= BF16_RTOL and el <= FA_TOL):
                 raise RuntimeError(f"bf16 [B,H,T,d] flash ({p}) disagrees: "
                                    f"{ro}, {el}")
             if o.dtype != bf or not same_f or not ok_h:
                 raise RuntimeError(f"bf16 [B,H,T,d] flash ({p}): o not bf16, "
                                    f"not deterministic, or not the "
-                                   f"head-major call's: {held}")
+                                   f"head-major call's: {what}")
             note("flash_attention_bf16", path, max_err(o, po))
+        note("flash_attention_bwd_bf16", path,
+             check_bwd_paths(f"flash_attention_bwd_bf16 [B,H,T,d] {tag}",
+                             res_b, want, head_major))
+        for p, (got, _) in res_b.items():
+            ok_h, what = held(p, tuple(map(head_major, got)), res_hb,
+                              took_hb)
+            log(f"[compare] flash_attention_bwd_bf16 [B,H,T,d] {tag}: "
+                f"backward on the {p} path against the head-major call on "
+                f"{what}")
+            if not ok_h:
+                raise RuntimeError(f"bf16 [B,H,T,d] flash backward ({p}): "
+                                   f"not the head-major call's: {what}")
         if path == "train":
             fo, fdq = skipped_key_tile(fa, qh, kh, vh, lse_h, delta_h, doh,
                                        B, Tq)
             fault = (tile_rel_err([fo], [head_major(po)]),
                      tile_rel_err([fdq], [head_major(want[0])]),
-                     tile_rel_err([fo], [head_major(res["wgmma"][0][0])]))
+                     tile_rel_err([fo], [head_major(res["wgmma"][0][0])]),
+                     tile_rel_err([fdq], [head_major(res_b["wgmma"][0][0])]))
             log(f"[fault] flash bf16 [B,H,T,d], the last row tile skipping "
                 f"the first key tile: o {fault[0]:.3g}, dq {fault[1]:.3g} "
-                f"of their tile's max |plain|, o {fault[2]:.3g} of the wgmma "
-                f"kernel's (tol {BF16_RTOL:g})")
+                f"of their tile's max |plain|, o {fault[2]:.3g}, dq "
+                f"{fault[3]:.3g} of the wgmma kernels' (tol {BF16_RTOL:g})")
             if not min(fault) > BF16_RTOL:
                 raise RuntimeError(f"the bf16 [B,H,T,d] flash compare passes "
                                    f"a skipped key tile: {fault}")
-        if not rb <= BF16_RTOL:
-            raise RuntimeError(f"bf16 [B,H,T,d] flash backward disagrees: "
-                               f"{rb}")
-        if not (all(t.dtype == bf for t in got) and same and bits_b):
-            raise RuntimeError("bf16 [B,H,T,d] flash backward: outputs not "
-                               "bf16, not deterministic, or not the "
-                               "head-major call's bits")
-        note("flash_attention_bwd_bf16", path,
-             max(max_err(a, b) for a, b in zip(got, want)))
+
+
+def compare_fuse_block_amp(torch, rnd, note):
+    """Phase 3's compares of the AMP fuse_block path's kernels: the bf16
+    [B, H, T, d] flash and the bf16 block (rnd makes f32 inputs on the
+    card, note records each kernel's error by path)."""
+    from paddle_tpu_torch.kernels import fused_block as fb
+    bf = torch.bfloat16
+    compare_flash_bhtd_bf16(torch, rnd, note)
 
     # the bf16 block against its plain version in bf16, twice for the same
     # bits: (B, T, H, D, E, F, causal, scale of W1, vectors, path).  The
@@ -1404,6 +1471,7 @@ def _phase_train(torch, fuse_block, amp):
     from paddle_tpu_torch.models import transformer as tr
     from paddle_tpu_torch.ops import nn_ops
 
+    from paddle_tpu_torch.kernels import flash_attention as fa
     tag = "[train" + (" fuse_block" if fuse_block else "") + (
         " amp" if amp else "") + "]"
     cfg = tr.TransformerConfig(**FLAGSHIP)
@@ -1434,24 +1502,43 @@ def _phase_train(torch, fuse_block, amp):
         fn.launches = 0
     head_bwd = counters["lm_head_bwd_bf16"]
     head_bwd.launches_wgmma = head_bwd.launches_sync = 0
-    # the bf16 flash forward by path: fused_mha's head-major call, the
-    # recompute's [B, T, H, d] views and the bf16 block kernel's own launch
-    flash_paths = {n: counters[n] for n in ("flash_attention_hdt_bf16",
-                                            "flash_attention_bf16")}
+    # the bf16 flash by path: fused_mha's head-major call, the recompute's
+    # [B, T, H, d] views, their backwards and the bf16 block kernel's own
+    # forward launch
+    flash_paths = {n: counters[n] for n in (
+        "flash_attention_hdt_bf16", "flash_attention_bf16",
+        "flash_attention_hdt_bwd_bf16", "flash_attention_bwd_bf16")}
     for fn in flash_paths.values():
         fn.launches_wgmma = fn.launches_sync = 0
     block = counters["transformer_block_bf16"]
     block.launches_flash_wgmma = block.launches_flash_sync = 0
+    # the (q, k, v, do) strides that autograd hands each bf16 flash
+    # backward in step 0, by site
+    bwd_strides = {}
+    launches = {n: getattr(fa, n) for n in ("_launch_bwd", "_launch_bwd_bhtd")}
+
+    def spy(name):
+        def call(q, k, v, lse, delta, do, *args, **kw):
+            if q.dtype == torch.bfloat16:
+                bwd_strides.setdefault(name, set()).add(
+                    tuple(tuple(t.stride()) for t in (q, k, v, do)))
+            return launches[name](q, k, v, lse, delta, do, *args, **kw)
+        return call
+
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     for step in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         nn_ops._layer_norm_rows = ln_record if step == 0 else ln_rows
+        for name in launches if step == 0 else ():
+            setattr(fa, name, spy(name))
         try:
             loss, = exe.run(main, feed=batch, fetch_list=[avg_cost])
         finally:
             nn_ops._layer_norm_rows = ln_rows
+            for name, fn in launches.items():
+                setattr(fa, name, fn)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss[0]))
@@ -1465,16 +1552,18 @@ def _phase_train(torch, fuse_block, amp):
         log(f"{tag} bf16 LM-head backward chunks by path: {paths}")
     if paths != dict(wgmma=counts["lm_head_bwd_bf16"], sync=0):
         raise RuntimeError(f"bf16 LM-head backward paths {paths}")
-    # ... and every bf16 flash forward on the wgmma path
+    # ... and every bf16 flash forward and backward on the wgmma path
     fpaths = {n: dict(wgmma=fn.launches_wgmma, sync=fn.launches_sync)
               for n, fn in flash_paths.items()}
     fpaths["transformer_block_bf16 (its flash launch)"] = dict(
         wgmma=block.launches_flash_wgmma, sync=block.launches_flash_sync)
     if amp:
-        log(f"{tag} bf16 flash forward launches by path: {fpaths}")
+        log(f"{tag} bf16 flash launches by path: {fpaths}")
+        log(f"{tag} bf16 flash backward operand strides (q, k, v, do) of "
+            f"step 0 by site: { {n: sorted(v) for n, v in bwd_strides.items()} }")
     for n, c in fpaths.items():
         if c != dict(wgmma=counts[n.split()[0]], sync=0):
-            raise RuntimeError(f"bf16 flash forward paths of {n}: {c}")
+            raise RuntimeError(f"bf16 flash paths of {n}: {c}")
     # AMP: the first layer norm takes the f32 embedding sum, every later
     # one a residual sum that stays bf16
     want_ln = (["float32"] + ["bfloat16"] * (2 * cfg.n_layer) if amp
@@ -2041,6 +2130,60 @@ def head_breakdown(torch, launches):
     return res
 
 
+def flash_bwd_breakdown(torch):
+    """The bf16 head-major flash backward's two launches at the training
+    shape (B 32, H 8, T 512, d 64, causal) on each path: each kernel's
+    device time over one call from torch.profiler and its TFLOP/s on the
+    work it issues (dk/dv: s, dp, dv and dk, 8 d FLOP a kept pair; dq: s,
+    dp and dq, 6 d): {path: {kernel name: {"ms", "launches", "tflops"}}}.
+    A record with fewer than two flash_bwd launches is traced again; where
+    the tracer loses them PROFILE_TRIES times (it did, in one process, on
+    the card), the path's split is logged as not measured and left out:
+    it is a measurement, and the path counters and the step traces check
+    the launches."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    H, d, B, T = 8, 64, TRAIN_BATCH, TRAIN_T
+    q, k, v, do = (torch.randn(H, d, B * T, generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_hdt_bf16(q, k, v, B, causal=True)
+    delta = (do.float() * o.float()).sum(1, keepdim=True)
+    pairs = B * H * T * (T + 1) // 2
+    res = {}
+    for path in ("wgmma", "sync"):
+        try:
+            events, _ = profiled(
+                torch, lambda: fa.flash_attention_hdt_bwd_bf16(
+                    q, k, v, lse, delta, do, B, causal=True, path=path),
+                lost=lambda ev: None
+                if _device_launches(torch, ev, "flash_bwd") >= 2 else
+                f"{_device_launches(torch, ev, 'flash_bwd')} flash_bwd "
+                f"launches, expected 2")
+        except RuntimeError as e:
+            log(f"[flash bwd] {path} path: not measured ({e})")
+            continue
+        rows = {}
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or e.self_device_time_total <= 0 \
+                    or "flash_bwd" not in e.key:
+                continue
+            ms = e.self_device_time_total / 1e3
+            per_pair = 8 * d if "dkv" in e.key else 6 * d
+            rows[_short_kernel_name(e.key)] = dict(
+                ms=ms, launches=e.count,
+                tflops=per_pair * pairs * e.count / ms / 1e9)
+        total = sum(r["ms"] for r in rows.values())
+        log(f"[flash bwd] one bf16 flash backward H={H} d={d} B={B} T={T} "
+            f"causal, {path} path: {total:.4f} ms of device time "
+            f"({10 * d * pairs / total / 1e9:.1f} TFLOP/s of the 10 d work)")
+        for name, r in rows.items():
+            log(f"[flash bwd]   {name}: {r['ms']:.4f} ms ({r['launches']} "
+                f"launches, {r['tflops']:.1f} TFLOP/s of its issued work)")
+        res[path] = rows
+    return res
+
+
 def sdpa_kernels(torch, dtype=None):
     """The kernels PyTorch's SDPA launches at the training shape (B 32, H 8,
     T 512, d 64, causal, TF32 off), f32 or in dtype, forward and backward
@@ -2340,8 +2483,16 @@ def phase_timings_amp(torch):
         *rot()[0][:3], B, causal=True), iters=10)
     flib, _ = time_ms(lambda: F.scaled_dot_product_attention(
         *(t.detach() for t in rot()[1][1]), is_causal=True))
-    bms, bhost = time_ms(lambda: fa.flash_attention_hdt_bwd_bf16(
-        *rot()[0], B, causal=True), iters=20, warmup=2)
+    bwd16 = fa.flash_attention_hdt_bwd_bf16
+
+    def bwd_call(path):
+        return bwd16(*rot()[0], B, causal=True, path=path)
+
+    bms, bhost, bpath = timed_on_path(bwd16, bwd_call, None, iters=20,
+                                      warmup=2)
+    # the same kernels forced onto the sync path (the parent's design)
+    bsync, bsync_host, _ = timed_on_path(bwd16, bwd_call, "sync", iters=20,
+                                         warmup=2)
     bplain, _ = time_ms(lambda: fa.flash_attention_hdt_bwd_plain(
         *rot()[0], B, causal=True), iters=5, warmup=1)
 
@@ -2360,7 +2511,8 @@ def phase_timings_amp(torch):
         host_ms=fhost, sync_host_ms=fsync_host,
         **bf16_bounds(fops, fbytes, fms))
     res["flash_attention_hdt_bwd_bf16"] = dict(
-        ms=bms, plain_ms=bplain, library_ms=blib,
+        ms=bms, plain_ms=bplain, library_ms=blib, path=bpath, sync_ms=bsync,
+        host_ms=bhost, sync_host_ms=bsync_host,
         **bf16_bounds(bops, bbytes, bms))
     for name, ms_, plain_, lib_, host_, ops, nb, what in (
             ("flash_attention_hdt_bf16", fms, fplain, flib, fhost, fops,
@@ -2379,6 +2531,10 @@ def phase_timings_amp(torch):
         f"sync path on the same inputs {fsync:.4f} ms "
         f"({fops / fsync / 1e9:.2f} TFLOP/s), host enqueue per call "
         f"{fsync_host:.4f} ms")
+    log(f"[time amp] flash_attention_hdt_bwd_bf16 took the {bpath} path; "
+        f"the sync path on the same inputs {bsync:.4f} ms "
+        f"({bops / bsync / 1e9:.2f} TFLOP/s), host enqueue per call "
+        f"{bsync_host:.4f} ms")
 
     # the LM head, N 16384, D 512, V 32000, chunk 4096: x (16 MiB) and W
     # (31 MiB in bf16, which would stay in the 50 MiB L2) rotate with their
@@ -2700,10 +2856,14 @@ def phase_timings_fused_amp(torch):
         fwd[name], host[name] = time_ms(lambda: fwd_call(name))
         bwd[name], host[name + " bwd"] = time_ms(lambda: bwd_call(name),
                                                  iters=20, warmup=2)
-    # the views' forward on the path it takes and forced onto the sync path
-    fa16 = fa.flash_attention_bf16
+    # the views' forward and backward on the path each takes and forced
+    # onto the sync path
+    fa16, fb16 = fa.flash_attention_bf16, fa.flash_attention_bwd_bf16
     paths = {p: timed_on_path(fa16, lambda p_: fwd_call(
         "bthd", functools.partial(fa16, path=p_)), p) for p in (None, "sync")}
+    bpaths = {p: timed_on_path(fb16, lambda p_: bwd_call(
+        "bthd", functools.partial(fb16, path=p_)), p, iters=20, warmup=2)
+        for p in (None, "sync")}
     fplain, _ = time_ms(lambda: fwd_call("bthd", fa.flash_attention_plain),
                         iters=10)
     bplain, _ = time_ms(lambda: bwd_call("bthd", fa.flash_attention_bwd_plain),
@@ -2737,6 +2897,9 @@ def phase_timings_fused_amp(torch):
         "flash_attention_bwd_bf16": dict(
             ms=bwd["bthd"], plain_ms=bplain, library_ms=blib,
             contiguous_bhtd_ms=bwd["bhtd"], head_major_ms=bwd["head-major"],
+            path=bpaths[None][2], path_ms=bpaths[None][0],
+            host_ms=bpaths[None][1], sync_ms=bpaths["sync"][0],
+            sync_host_ms=bpaths["sync"][1],
             **bf16_bounds(bops, bbytes, bwd["bthd"]))}
     for name, ops, nb, times, plain, lib, what, h in (
             ("flash_attention_bf16", fops, fbytes, fwd, fplain, flib,
@@ -2755,12 +2918,15 @@ def phase_timings_fused_amp(torch):
             f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nb / 1e6:.1f} MB at "
             f"{HBM_BYTES_PER_S / 1e12:g} TB/s); host enqueue per call "
             f"{h:.4f} ms")
-    (pms, phost, ppath), (sms, shost, _) = paths[None], paths["sync"]
-    log(f"[time fuse_block amp] flash_attention_bf16 on the [B,T,H,d] views "
-        f"took the {ppath} path: {pms:.4f} ms, host enqueue per call "
-        f"{phost:.4f} ms; the sync path on the same inputs {sms:.4f} ms "
-        f"({fops / sms / 1e9:.2f} TFLOP/s), host enqueue per call "
-        f"{shost:.4f} ms")
+    for name, ops, (pms, phost, ppath), (sms, shost, _) in (
+            ("flash_attention_bf16", fops, paths[None], paths["sync"]),
+            ("flash_attention_bwd_bf16", bops, bpaths[None],
+             bpaths["sync"])):
+        log(f"[time fuse_block amp] {name} on the [B,T,H,d] views took the "
+            f"{ppath} path: {pms:.4f} ms, host enqueue per call {phost:.4f} "
+            f"ms; the sync path on the same inputs {sms:.4f} ms "
+            f"({ops / sms / 1e9:.2f} TFLOP/s), host enqueue per call "
+            f"{shost:.4f} ms")
 
     # the block forward: x (16 MiB in bf16) rotates over ROTATE buffers for
     # the kernel, the plain version and the library layer alike; the
@@ -2939,6 +3105,18 @@ def main():
     amp_times["lm_head_bwd_bf16"].update(by_kernel=by_path["wgmma"],
                                          sync_by_kernel=by_path["sync"],
                                          launches_per_call=n_head_bwd)
+    by_path = flash_bwd_breakdown(torch)
+    for path, rows in by_path.items():
+        if sum(r["launches"] for r in rows.values()) != 2:
+            raise RuntimeError(f"one bf16 flash backward on the {path} path "
+                               f"made {rows}, not 2 launches")
+        if (path == "wgmma") != all("_wg_kernel" in n for n in rows):
+            raise RuntimeError(f"the bf16 flash backward's {path} path "
+                               f"launched {sorted(rows)}")
+    amp_times["flash_attention_hdt_bwd_bf16"].update(
+        {key: by_path[path] for key, path in (("by_kernel", "wgmma"),
+                                              ("sync_by_kernel", "sync"))
+         if path in by_path})
     by_kernel = block_breakdown(torch, chain=BLOCK_CHAIN_LAUNCHES)
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_CHAIN_LAUNCHES:

@@ -38,7 +38,12 @@
 //     rows, the other strides multiples of 16 bytes, T % 8 == 0 in feature
 //     rows), d 64 or 128;
 //   sync (flash_fwd_bf16_kernel, below) on any operands.
-// The backward is one kernel pair, on mma.sync.
+// Two backward kernel pairs (dk/dv, then dq), chosen the same way
+// (bwd_bf16_path): wgmma (flash_bwd_dkv_bf16_wg_kernel and
+// flash_bwd_dq_bf16_wg_kernel, the section "the backward on wgmma") where
+// TMA can describe q, k and v in one orientation and do, dq, dk and dv each
+// in its own (bwd_wg_ok), d 64 or 128; sync (flash_bwd_dkv_bf16_kernel and
+// flash_bwd_dq_bf16_kernel) on any operands.
 //
 // The wgmma forward, for Hopper's warpgroup tensor cores.  A persistent
 // grid, one CTA per SM (min(work tiles, SMs)); a work tile is 128 queries
@@ -54,7 +59,7 @@
 // operands in shared memory) and o += bf16(p) v (wgmma with A = p from
 // registers: the f32 accumulator of s packs pairwise into the bf16 A
 // fragment, no shuffle); operands are read in their own layouts, the
-// transpose bits set where one is MN-major (WgTiles).  A warpgroup issues
+// transpose bits set where one is MN-major (Tok).  A warpgroup issues
 // this block's s and the previous block's p v back to back and runs this
 // block's softmax while p v runs; the two warpgroups issue their products
 // in turns (named barriers), so that one's softmax overlaps the other's
@@ -468,69 +473,50 @@ struct WgCfg {
                                     8 * (2 * kStages + 4);
 };
 
-// A tile in shared memory is boxes of 128-byte rows (64 bf16), 128-byte
-// swizzled as TMA writes them: in token rows (TR, feature stride 1) one box
-// per 64 features, a row per token; in feature rows (token stride 1) one
-// box per 64 tokens, a row per feature.  The wgmma descriptors of the two
-// products read each operand in its own layout, the transpose bits set
-// where it is MN-major: s = q' k^T takes q (A) and k (B) K-major in token
-// rows, MN-major in feature rows; o += p v takes v (B) MN-major in token
-// rows, K-major in feature rows.
-template <int D, bool TR>
-struct WgTiles {
-  static constexpr int kN = WgCfg<D>::kN;
-  // A of s for warpgroup wg (queries 64 wg ..), k16 step j (features 16 j ..)
-  __device__ __forceinline__ static uint64_t q_desc(uint32_t q, int wg,
-                                                    int j) {
+// A tile of R tokens x D features of one (batch row, head) in shared memory
+// as TMA writes it with 128-byte swizzle: in token rows (TR, feature stride
+// 1) D / 64 boxes of [R][64], a row per token; in feature rows (token stride
+// 1) R / 64 boxes of [D][64], a row per feature.  Its wgmma descriptors by
+// role, with the transpose bit each needs (1: the operand is MN-major):
+//   a_tf: A, M = the 64 tokens from r0, K = features 16 j ..;
+//   b_ft: B, K = features 16 j .., N = the R tokens;
+//   b_tf: B, K = tokens 16 J .., N = the D features.
+template <int D, int R, bool TR>
+struct Tok {
+  enum : int { kTA = !TR, kTFT = !TR, kTTF = TR };
+  // tokens t0 .. t0 + R of (batch row b, head h): maps of dims (D, T, H, B)
+  // in token rows, (T, D, H, B) in feature rows (wg_map)
+  __device__ __forceinline__ static void load(uint32_t dst,
+                                              const CUtensorMap* m,
+                                              uint32_t bar, int t0, int h,
+                                              int b) {
+    if (TR) {
+#pragma unroll
+      for (int i = 0; i < D / 64; ++i)
+        ptt_wg::tma_load4(dst + i * (R * 128), m, bar, 64 * i, t0, h, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < R / 64; ++i)
+        ptt_wg::tma_load4(dst + i * (D * 128), m, bar, t0 + 64 * i, 0, h, b);
+    }
+  }
+  __device__ __forceinline__ static uint64_t a_tf(uint32_t t, int r0, int j) {
     if (TR)
       return ptt_wg::make_desc(
-          q + (j >> 2) * (kWgM * 128) + wg * 64 * 128 + (j & 3) * 32, 16,
-          1024);
-    return ptt_wg::make_desc(q + wg * (D * 128) + j * 2048, D * 128, 1024);
-  }
-  // B of s, k16 step j (features 16 j ..), the block's kN keys
-  __device__ __forceinline__ static uint64_t k_desc(uint32_t k, int j) {
-    if (TR)
-      return ptt_wg::make_desc(k + (j >> 2) * (kN * 128) + (j & 3) * 32, 16,
-                               1024);
-    return ptt_wg::make_desc(k + j * 2048, D * 128, 1024);
-  }
-  // B of o += p v, k16 step J (keys 16 J ..), D features
-  __device__ __forceinline__ static uint64_t v_desc(uint32_t v, int J) {
-    if (TR) return ptt_wg::make_desc(v + J * 2048, kN * 128, 1024);
-    return ptt_wg::make_desc(v + (J >> 2) * (D * 128) + (J & 3) * 32, 16,
+          t + (j >> 2) * (R * 128) + r0 * 128 + (j & 3) * 32, 16, 1024);
+    return ptt_wg::make_desc(t + (r0 >> 6) * (D * 128) + j * 2048, D * 128,
                              1024);
   }
-  // TMA loads of the q tile (queries q0 ..) and of a k or v block (keys
-  // k0 ..) of (batch row b, head h): maps of dims (D, T, H, B) in token
-  // rows, (T, D, H, B) in feature rows (wg_map)
-  __device__ __forceinline__ static void load_q(uint32_t dst,
-                                                const CUtensorMap* m,
-                                                uint32_t bar, int q0, int h,
-                                                int b) {
-    if (TR) {
-#pragma unroll
-      for (int i = 0; i < D / 64; ++i)
-        ptt_wg::tma_load4(dst + i * (kWgM * 128), m, bar, 64 * i, q0, h, b);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kWgM / 64; ++i)
-        ptt_wg::tma_load4(dst + i * (D * 128), m, bar, q0 + 64 * i, 0, h, b);
-    }
+  __device__ __forceinline__ static uint64_t b_ft(uint32_t t, int j) {
+    if (TR)
+      return ptt_wg::make_desc(t + (j >> 2) * (R * 128) + (j & 3) * 32, 16,
+                               1024);
+    return ptt_wg::make_desc(t + j * 2048, D * 128, 1024);
   }
-  __device__ __forceinline__ static void load_kv(uint32_t dst,
-                                                 const CUtensorMap* m,
-                                                 uint32_t bar, int k0, int h,
-                                                 int b) {
-    if (TR) {
-#pragma unroll
-      for (int i = 0; i < D / 64; ++i)
-        ptt_wg::tma_load4(dst + i * (kN * 128), m, bar, 64 * i, k0, h, b);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kN / 64; ++i)
-        ptt_wg::tma_load4(dst + i * (D * 128), m, bar, k0 + 64 * i, 0, h, b);
-    }
+  __device__ __forceinline__ static uint64_t b_tf(uint32_t t, int J) {
+    if (TR) return ptt_wg::make_desc(t + J * 2048, R * 128, 1024);
+    return ptt_wg::make_desc(t + (J >> 2) * (D * 128) + (J & 3) * 32, 16,
+                             1024);
   }
 };
 
@@ -556,22 +542,24 @@ struct WgArgs {
 // read its k and v blocks from the L2, and tile j of them is query tile nqt
 // - 1 - (j + bh) % nqt, so that under a causal mask a CTA's heavy and light
 // tiles alternate from one pass of the grid to the next.  nfree of the
-// tile's nblk key blocks need no mask: every key of theirs is kept for
-// every query of the tile.
+// tile's nblk key blocks (of kN keys; kend keys of H heads) need no mask:
+// every key of theirs is kept for every query of the tile.  The dq
+// backward kernel takes the same order.
 struct WgWork {
   int b, h, q0, kend, nblk, nfree;
 };
 
-__device__ __forceinline__ WgWork wg_work(const WgArgs& a, int t, int kN) {
+__device__ __forceinline__ WgWork wg_work(int t, int nqt, int H, int kend,
+                                          int causal, int kN) {
   WgWork w;
-  const int bh = t / a.nqt, j = t % a.nqt;
-  w.b = bh / a.H;
-  w.h = bh % a.H;
-  w.q0 = (a.nqt - 1 - (j + bh) % a.nqt) * kWgM;
-  w.kend = a.causal ? min(a.kend, w.q0 + kWgM) : a.kend;
+  const int bh = t / nqt, j = t % nqt;
+  w.b = bh / H;
+  w.h = bh % H;
+  w.q0 = (nqt - 1 - (j + bh) % nqt) * kWgM;
+  w.kend = causal ? min(kend, w.q0 + kWgM) : kend;
   w.nblk = (w.kend + kN - 1) / kN;
   w.nfree = w.kend / kN;
-  if (a.causal) w.nfree = min(w.nfree, w.q0 / kN);
+  if (causal) w.nfree = min(w.nfree, w.q0 / kN);
   return w;
 }
 
@@ -603,11 +591,12 @@ __device__ __forceinline__ void scale_q(uint8_t* q, int wg, int tid,
 template <int D, bool TR>
 __device__ __forceinline__ void issue_s(float (&s)[WgCfg<D>::kN / 2],
                                         uint32_t sq, uint32_t ks, int wg) {
-  using Tl = WgTiles<D, TR>;
+  using Q = Tok<D, kWgM, TR>;
+  using K = Tok<D, WgCfg<D>::kN, TR>;
 #pragma unroll
   for (int j = 0; j < D / 16; ++j)
-    ptt_wg::wgmma_ss<!TR, !TR>(s, Tl::q_desc(sq, wg, j), Tl::k_desc(ks, j),
-                               j > 0);
+    ptt_wg::wgmma_ss<Q::kTA, K::kTFT>(s, Q::a_tf(sq, 64 * wg, j),
+                                      K::b_ft(ks, j), j > 0);
   ptt_wg::wgmma_commit();
 }
 
@@ -615,10 +604,10 @@ template <int D, bool TR>
 __device__ __forceinline__ void issue_pv(
     float (&o)[D / 2], const uint32_t (&pa)[WgCfg<D>::kN / 16][4],
     uint32_t vs) {
-  using Tl = WgTiles<D, TR>;
+  using V = Tok<D, WgCfg<D>::kN, TR>;
 #pragma unroll
   for (int J = 0; J < WgCfg<D>::kN / 16; ++J)
-    ptt_wg::wgmma_rs<TR>(o, pa[J], Tl::v_desc(vs, J), 1);
+    ptt_wg::wgmma_rs<V::kTTF>(o, pa[J], V::b_tf(vs, J), 1);
   ptt_wg::wgmma_commit();
 }
 
@@ -764,8 +753,9 @@ __global__ void __launch_bounds__(ptt_wg::kThreads, 1)
                              const __grid_constant__ CUtensorMap mv,
                              const WgArgs a) {
   using C = WgCfg<D>;
-  using Tl = WgTiles<D, TR>;
   constexpr int kN = C::kN, kS = C::kStages;
+  using Q = Tok<D, kWgM, TR>;
+  using KV = Tok<D, kN, TR>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = ptt_wg::smem_addr(smem_raw);
   const uint32_t pad = (1024 - raw % 1024) % 1024;
@@ -797,19 +787,18 @@ __global__ void __launch_bounds__(ptt_wg::kThreads, 1)
       int stage = 0, n = 0;
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
-        const WgWork w = wg_work(a, t, kN);
+        const WgWork w = wg_work(t, a.nqt, a.H, a.kend, a.causal, kN);
         const int qb = n & 1;
         ptt_wg::mbar_wait(qempty + 8 * qb, ((n >> 1) & 1) ^ 1);
         ptt_wg::mbar_expect_tx(qfull + 8 * qb, C::kQBytes);
-        Tl::load_q(sq + qb * C::kQBytes, &mq, qfull + 8 * qb, w.q0, w.h,
-                   w.b);
+        Q::load(sq + qb * C::kQBytes, &mq, qfull + 8 * qb, w.q0, w.h, w.b);
         for (int blk = 0; blk < w.nblk; ++blk) {
           const uint32_t full = bars + 8 * stage;
           const uint32_t slot = ring + stage * C::kStageBytes;
           ptt_wg::mbar_wait(bars + 8 * (kS + stage), phase ^ 1);
           ptt_wg::mbar_expect_tx(full, C::kStageBytes);
-          Tl::load_kv(slot, &mk, full, blk * kN, w.h, w.b);
-          Tl::load_kv(slot + C::kBlockBytes, &mv, full, blk * kN, w.h, w.b);
+          KV::load(slot, &mk, full, blk * kN, w.h, w.b);
+          KV::load(slot + C::kBlockBytes, &mv, full, blk * kN, w.h, w.b);
           if (++stage == kS) {
             stage = 0;
             phase ^= 1;
@@ -827,7 +816,7 @@ __global__ void __launch_bounds__(ptt_wg::kThreads, 1)
   uint32_t phase = 0;
   if (wg == 1) pp_arrive(1);   // warpgroup 0 first
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
-    const WgWork w = wg_work(a, t, kN);
+    const WgWork w = wg_work(t, a.nqt, a.H, a.kend, a.causal, kN);
     const int qw = w.q0 + 64 * wg, row0 = qw + r0, qb = n & 1;
     const uint32_t sqt = sq + qb * C::kQBytes, qe = qempty + 8 * qb;
     ptt_wg::mbar_wait(qfull + 8 * qb, (n >> 1) & 1);
@@ -1209,6 +1198,623 @@ __global__ void __launch_bounds__(kThreads)
   write_rows<NF>(dq, dqs, b, h, Tq, qr0, t, scale, scale, dqa);
 }
 
+// ---- the backward on wgmma (sm_90a): TMA, an mbarrier ring, warpgroups ----
+//
+// Two persistent launches of min(work tiles, SMs) CTAs, dk/dv then dq, each
+// a producer warp and two consumer warpgroups of 64 rows, built from the
+// forward's pieces (wgmma_bf16.cuh, Tok below).  Every output element is
+// summed inside one CTA in a fixed order: no atomics, the same bits on
+// every call.  Both kernels recompute s and dp, so a kept (query, key) pair
+// costs 7 products of 2 d FLOP (the least is 5).
+//   dk/dv (flash_bwd_dkv_bf16_wg_kernel): a work tile is 128 keys of one
+//     (batch row, head); k and v arrive once by TMA and stay in shared
+//     memory while the producer streams blocks of kDkvN queries (128 at d
+//     64, 64 at d 128; q, do by TMA,
+//     lse and delta by the producer warp's own loads) from the causal
+//     diagonal into a ring.  Per block a warpgroup takes s^T = k q'^T and
+//     dp^T = v do^T (both operands in shared memory), forms p^T and ds^T in
+//     the accumulators (lse and delta by column, the masks as a query range
+//     per key row), and adds dv += bf16(p^T) do and dk += bf16(ds^T) q' with
+//     A from registers.  dk and dv stay in registers for the whole tile.
+//   dq (flash_bwd_dq_bf16_wg_kernel): the forward's schedule and pipeline;
+//     a work tile is 128 queries whose q' and do stay in shared memory, lse
+//     and delta in registers; k and v stream in blocks of 64 keys.  A
+//     warpgroup issues this block's s = q'k^T and dp = do v^T and the last
+//     block's dq += bf16(ds) k back to back, and forms ds while the latter
+//     runs; the warpgroups take turns to issue (pp_sync).
+// q' = bf16(q bf16(scale)) is scaled in shared memory, or, where bf16(scale)
+// is a power of two, folded with the same bits into the exponent and into
+// dk's epilogue (BwdArgs).  q, k and v are in one orientation (token rows
+// or feature rows), do in its own; the transpose bits read each in its own
+// layout.  Outputs are staged by each warp and written by 16-byte stores
+// along their unit stride.  The producer warpgroup gives up registers to
+// the consumers (setmaxnreg), which hold dk and dv (d 128: 128 f32 a
+// thread) beside the scores.
+
+constexpr int kBwdM = 128;   // rows a work tile (keys, or queries)
+// queries a dk/dv block: 128 at d 64, so that s^T and dp^T take wgmma
+// m64n128k16, whose two shared-memory operands need 96 bytes a cycle where
+// m64n64k16's need 128, all the SM has; 64 at d 128, where dk and dv hold
+// 128 f32 a thread.  keys a dq block: 64, since the dq kernel keeps s, dp,
+// the last block's ds and dq live together (at 128 keys it spilled 1.1 KB
+// and ran at half the rate)
+template <int D>
+constexpr int kDkvN = D == 64 ? 128 : 64;
+constexpr int kDqN = 64;
+// 384 threads: consumer warpgroups 0 and 1, producer warpgroup 2 (its warp
+// 8 loads, the rest exit), which gives the consumers its registers
+// (setmaxnreg: 40 a thread there, 232 here, against 168 for all)
+constexpr int kBwdThreads = 384;
+
+// the dk/dv kernel's shared memory: k and v tiles (two buffers at d 64, so
+// that the next tile's land during this one), the ring of q and do blocks,
+// the stages' lse and delta, the consumers' staging tiles, the barriers
+template <int D>
+struct DkvCfg {
+  static constexpr int kBufs = D == 64 ? 2 : 1;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kTileBytes = kBwdM * D * 2;    // a k or v tile
+  static constexpr int kBlockBytes = kDkvN<D> * D * 2;   // a q or do block
+  static constexpr int kStageBytes = 2 * kBlockBytes;
+  static constexpr int kEpiBytes = 64 * (D + 8) * 2;
+  static constexpr int kRowBytes = 2 * kDkvN<D> * 4;     // lse, delta
+  static constexpr int kSmemBytes = 1024 + kBufs * 2 * kTileBytes +
+                                    kStages * kStageBytes + 2 * kEpiBytes +
+                                    kStages * kRowBytes +
+                                    8 * (2 * kStages + 2 * kBufs);
+};
+
+// the dq kernel's: q and do tiles, the ring of k and v blocks, staging,
+// barriers
+template <int D>
+struct DqCfg {
+  static constexpr int kBufs = D == 64 ? 2 : 1;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kTileBytes = kBwdM * D * 2;    // a q or do tile
+  static constexpr int kBlockBytes = kDqN * D * 2;   // a k or v block
+  static constexpr int kStageBytes = 2 * kBlockBytes;
+  static constexpr int kEpiBytes = 64 * (D + 8) * 2;
+  static constexpr int kSmemBytes = 1024 + kBufs * 2 * kTileBytes +
+                                    kStages * kStageBytes + 2 * kEpiBytes +
+                                    8 * (2 * kStages + 2 * kBufs);
+};
+
+struct BwdArgs {
+  const float* lse;
+  const float* delta;
+  long long ls_b, ls_h;       // their batch and head strides (token 1)
+  bf16* o0;                   // dq, or dk
+  bf16* o1;                   // dv
+  Strides s0, s1;             // their strides
+  int H, Tq, Tk, kend, causal;
+  int nt, tiles;              // row tiles of a (batch row, head); all
+  // as WgArgs: where bf16(scale) sb is a power of two, q is not scaled and
+  // s comes in units of q k^T: sl = sb log2 e, and dk = sb sum bf16(ds) q;
+  // else sl = log2 e
+  int scale_q;
+  float sb, sl;
+  float mul0, mul1;           // o0's and o1's factor before rounding
+};
+
+// Work tile t of the dk/dv kernel (kernels/flash_attention.py
+// bwd_bf16_schedule): the nt key tiles of one (batch row, head) side by
+// side, tile j being key tile (j + bh) % nt, so that under a causal mask a
+// CTA's heavy and light tiles alternate; its query blocks start at the
+// diagonal.  Blocks [0, nlo) and [nhi, nblk) need the mask: the diagonal's
+// two, a ragged query tail, all where the tile reaches past kend.
+struct KvWork {
+  int b, h, k0, q0, nblk, nlo, nhi;
+};
+
+__device__ __forceinline__ KvWork kv_work(const BwdArgs& a, int t, int n) {
+  KvWork w;
+  const int bh = t / a.nt, j = t % a.nt;
+  w.b = bh / a.H;
+  w.h = bh % a.H;
+  w.k0 = (j + bh) % a.nt * kBwdM;
+  w.q0 = a.causal ? w.k0 : 0;
+  w.nblk = w.k0 < a.kend ? (a.Tq - w.q0 + n - 1) / n : 0;
+  w.nlo = a.causal ? min(kBwdM / n, w.nblk) : 0;
+  if (w.k0 + kBwdM > a.kend) w.nlo = w.nblk;
+  w.nhi = max(w.nlo, a.Tq % n ? w.nblk - 1 : w.nblk);
+  return w;
+}
+
+// bf16(x sb) in place over the n16 16-byte chunks from p, a thread of 128
+// taking every 128th: q' of a staged q block
+__device__ __forceinline__ void scale_chunks(uint8_t* p, int n16, int tid,
+                                             float sb) {
+  for (int c = tid; c < n16; c += 128) {
+    uint4 v = *reinterpret_cast<uint4*>(p + 16 * c);
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(e[i]);
+      e[i] = __floats2bfloat162_rn(f.x * sb, f.y * sb);
+    }
+    *reinterpret_cast<uint4*>(p + 16 * c) = v;
+  }
+}
+
+// A warpgroup's 64 rows of an output (acc[4 j + 2 i + e]: row r0 + 8 i,
+// feature 8 j + c0 + e) times mul, rounded to bf16 once, into rows row0 ..
+// (< T) of out (this (batch row, head)'s base) through its strides: each
+// warp stages its 16 rows in st ([64][D + 8]: a warp's fragment writes fall
+// in distinct banks) and writes them by 16-byte stores along out's unit
+// stride, features where s.d == 1, else tokens (T % 8 == 0 there, so a
+// chunk of 8 tokens lies wholly inside or past T)
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           float mul, bf16* st, bf16* out,
+                                           const Strides& s, int row0, int T,
+                                           int r0, int c0, int lane) {
+  const int w16 = r0 & ~15;
+  __syncwarp();   // this warp's stores of the last tile have read st
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(st + (r0 + 8 * i) * (D + 8) +
+                                         8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * mul,
+                                acc[4 * j + 2 * i + 1] * mul);
+  __syncwarp();
+  if (s.d == 1) {
+    constexpr int CH = D / 8;
+#pragma unroll
+    for (int it = 0; it < 16 * CH / 32; ++it) {
+      const int id = lane + 32 * it, row = w16 + id / CH, cc = id % CH;
+      if (row0 + row < T)
+        *reinterpret_cast<uint4*>(out + (row0 + row) * s.t + 8 * cc) =
+            *reinterpret_cast<const uint4*>(st + row * (D + 8) + 8 * cc);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < 2 * D / 32; ++it) {
+      const int id = lane + 32 * it, f = id >> 1, tok = w16 + 8 * (id & 1);
+      if (row0 + tok < T) {
+        uint4 v;
+        bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) e[x] = st[(tok + x) * (D + 8) + f];
+        *reinterpret_cast<uint4*>(out + f * s.d + row0 + tok) = v;
+      }
+    }
+  }
+}
+
+// One block of kDkvN queries for a dk/dv warpgroup (keys kr0, kr0 + 8 are
+// its thread's rows): s^T = k q'^T and dp^T = v do^T; p^T = 2^(s sl - lse
+// log2 e) and ds^T = p^T (dp^T - delta) in f32 (lse log2 e and delta per
+// column, from the stage); MASK keeps query columns >= the key (causal),
+// < Tq, and rows < kend, by one range a row; dv += bf16(p^T) do, dk +=
+// bf16(ds^T) q'.  Waits for each group before the next: nothing reads an
+// accumulator under a branch.
+template <int D, bool TR, bool DTR, bool MASK>
+__device__ __forceinline__ void kv_step(float (&dk)[D / 2], float (&dv)[D / 2],
+                                        uint32_t kt, uint32_t vt,
+                                        uint32_t ring, uint8_t* ringp,
+                                        const float* rows, uint32_t bars,
+                                        ptt_wg::Pipe& rg, int wg, int tid,
+                                        int q0, int kr0, int c0,
+                                        const BwdArgs& a) {
+  using C = DkvCfg<D>;
+  constexpr int kN = kDkvN<D>, kS = C::kStages;
+  using K = Tok<D, kBwdM, TR>;
+  using Q = Tok<D, kN, TR>;
+  using O = Tok<D, kN, DTR>;
+  const uint32_t qs = ring + rg.stage * C::kStageBytes;
+  const uint32_t os = qs + C::kBlockBytes;
+  ptt_wg::mbar_wait(bars + 8 * rg.stage, rg.phase);
+  if (a.scale_q) {   // q' in place: each warpgroup half the block
+    scale_chunks(ringp + rg.stage * C::kStageBytes + wg * C::kBlockBytes / 2,
+                 C::kBlockBytes / 32, tid, a.sb);
+    ptt_wg::fence_proxy_async();
+    asm volatile("bar.sync 5, 256;\n" ::: "memory");
+  }
+  float s[kN / 2], dp[kN / 2];
+  ptt_wg::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    ptt_wg::wgmma_ss<K::kTA, Q::kTFT>(s, K::a_tf(kt, 64 * wg, j),
+                                      Q::b_ft(qs, j), j > 0);
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    ptt_wg::wgmma_ss<K::kTA, O::kTFT>(dp, K::a_tf(vt, 64 * wg, j),
+                                      O::b_ft(os, j), j > 0);
+  ptt_wg::wgmma_commit();
+  ptt_wg::wgmma_wait<0>();
+  ptt_wg::fence_acc(s);
+  ptt_wg::fence_acc(dp);
+  const float* le = rows + rg.stage * 2 * kN;   // lse log2 e, then delta
+  int lo[2], hi[2];
+  if (MASK) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kr0 + 8 * i;
+      lo[i] = a.causal ? key - q0 - c0 : -(1 << 30);
+      hi[i] = key < a.kend ? a.Tq - q0 - c0 : -(1 << 30);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(le + 8 * j + c0);
+    const float2 d = *reinterpret_cast<const float2*>(le + kN + 8 * j + c0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ptt_bf16::ex2(fmaf(s[4 * j + e], a.sl, -(e & 1 ? l.y : l.x)));
+      if (MASK) {
+        const int col = 8 * j + (e & 1);
+        p = col >= lo[e >> 1] && col < hi[e >> 1] ? p : 0.f;
+      }
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - (e & 1 ? d.y : d.x));
+    }
+  }
+  uint32_t pa[kN / 16][4], da[kN / 16][4];
+  pack_p(pa, s);
+  pack_p(da, dp);
+  ptt_wg::wgmma_fence();
+#pragma unroll
+  for (int J = 0; J < kN / 16; ++J)
+    ptt_wg::wgmma_rs<O::kTTF>(dv, pa[J], O::b_tf(os, J), 1);
+#pragma unroll
+  for (int J = 0; J < kN / 16; ++J)
+    ptt_wg::wgmma_rs<Q::kTTF>(dk, da[J], Q::b_tf(qs, J), 1);
+  ptt_wg::wgmma_commit();
+  ptt_wg::wgmma_wait<0>();
+  ptt_wg::fence_acc(dv);
+  ptt_wg::fence_acc(dk);
+  ptt_wg::release(bars + 8 * (kS + rg.stage));
+  rg.next(kS);
+}
+
+template <int D, bool TR, bool DTR>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkv_bf16_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                                 const __grid_constant__ CUtensorMap mk,
+                                 const __grid_constant__ CUtensorMap mv,
+                                 const __grid_constant__ CUtensorMap mdo,
+                                 const BwdArgs a) {
+  using C = DkvCfg<D>;
+  constexpr int kN = kDkvN<D>, kS = C::kStages, kB = C::kBufs;
+  using K = Tok<D, kBwdM, TR>;
+  using Q = Tok<D, kN, TR>;
+  using O = Tok<D, kN, DTR>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = ptt_wg::smem_addr(smem_raw);
+  const uint32_t pad = (1024 - raw % 1024) % 1024;
+  // k, v tiles (buffer n % kB: k, then v), the ring (stage s: q, then do),
+  // the staging tiles, the stages' lse log2 e and delta rows, the barriers
+  const uint32_t skv = raw + pad, ring = skv + kB * 2 * C::kTileBytes;
+  uint8_t* ringp = smem_raw + pad + kB * 2 * C::kTileBytes;
+  uint8_t* epi = ringp + kS * C::kStageBytes;
+  float* rows = reinterpret_cast<float*>(epi + 2 * C::kEpiBytes);
+  // full[s] at bars + 8 s (32 arrivals: the producer warp's lanes, each
+  // after its lse and delta stores), empty[s] at bars + 8 (kS + s), then
+  // the k/v buffers' full and empty barriers
+  const uint32_t bars = ptt_wg::smem_addr(rows + kS * 2 * kN);
+  const uint32_t kvfull = bars + 16 * kS, kvempty = kvfull + 8 * kB;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      ptt_wg::mbar_init(bars + 8 * i, 32);
+      ptt_wg::mbar_init(bars + 8 * (kS + i), 4 * ptt_wg::kConsumers);
+    }
+    for (int i = 0; i < kB; ++i) {
+      ptt_wg::mbar_init(kvfull + 8 * i, 1);
+      ptt_wg::mbar_init(kvempty + 8 * i, 4 * ptt_wg::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int wg = warp >> 2, lane = threadIdx.x & 31;
+  if (wg == ptt_wg::kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != ptt_wg::kProducerWarp) return;
+    ptt_wg::Pipe rg;
+    int n = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
+      const KvWork w = kv_work(a, t, kN);
+      const int kb = n % kB;
+      if (lane == 0) {
+        const uint32_t kt = skv + kb * 2 * C::kTileBytes;
+        ptt_wg::mbar_wait(kvempty + 8 * kb, ((n / kB) & 1) ^ 1);
+        ptt_wg::mbar_expect_tx(kvfull + 8 * kb, 2 * C::kTileBytes);
+        K::load(kt, &mk, kvfull + 8 * kb, w.k0, w.h, w.b);
+        K::load(kt + C::kTileBytes, &mv, kvfull + 8 * kb, w.k0, w.h, w.b);
+      }
+      const long long lb = w.b * a.ls_b + w.h * a.ls_h;
+      for (int blk = 0; blk < w.nblk; ++blk) {
+        const int q0 = w.q0 + blk * kN;
+        const uint32_t full = bars + 8 * rg.stage;
+        ptt_wg::mbar_wait(bars + 8 * (kS + rg.stage), rg.phase ^ 1);
+        float* le = rows + rg.stage * 2 * kN;
+#pragma unroll
+        for (int c = lane; c < kN; c += 32) {
+          const bool in = q0 + c < a.Tq;
+          le[c] = in ? a.lse[lb + q0 + c] * kLog2e : 0.f;
+          le[kN + c] = in ? a.delta[lb + q0 + c] : 0.f;
+        }
+        if (lane == 0) {
+          const uint32_t qs = ring + rg.stage * C::kStageBytes;
+          ptt_wg::mbar_expect_tx(full, C::kStageBytes);
+          Q::load(qs, &mq, full, q0, w.h, w.b);
+          O::load(qs + C::kBlockBytes, &mdo, full, q0, w.h, w.b);
+        } else {
+          ptt_wg::mbar_arrive(full);
+        }
+        rg.next(kS);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x & 127;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);   // rows r0, r0 + 8 of 64
+  const int c0 = 2 * (lane & 3);                  // columns c0, c0 + 1 of 8
+  bf16* st = reinterpret_cast<bf16*>(epi + wg * C::kEpiBytes);
+  ptt_wg::Pipe rg;
+  int n = 0;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
+    const KvWork w = kv_work(a, t, kN);
+    const int kb = n % kB;
+    const uint32_t kt = skv + kb * 2 * C::kTileBytes;
+    const uint32_t vt = kt + C::kTileBytes;
+    ptt_wg::mbar_wait(kvfull + 8 * kb, (n / kB) & 1);
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const int kr0 = w.k0 + 64 * wg + r0;
+    int blk = 0;
+    for (; blk < w.nlo; ++blk)
+      kv_step<D, TR, DTR, true>(dk, dv, kt, vt, ring, ringp, rows, bars, rg,
+                                wg, tid, w.q0 + blk * kN, kr0, c0, a);
+    for (; blk < w.nhi; ++blk)
+      kv_step<D, TR, DTR, false>(dk, dv, kt, vt, ring, ringp, rows, bars,
+                                 rg, wg, tid, w.q0 + blk * kN, kr0, c0,
+                                 a);
+    for (; blk < w.nblk; ++blk)
+      kv_step<D, TR, DTR, true>(dk, dv, kt, vt, ring, ringp, rows, bars, rg,
+                                wg, tid, w.q0 + blk * kN, kr0, c0, a);
+    ptt_wg::release(kvempty + 8 * kb);
+    const int row0 = w.k0 + 64 * wg;
+    store_rows<D>(dk, a.mul0, st, a.o0 + w.b * a.s0.b + w.h * a.s0.h, a.s0,
+                  row0, a.Tk, r0, c0, lane);
+    store_rows<D>(dv, a.mul1, st, a.o1 + w.b * a.s1.b + w.h * a.s1.h, a.s1,
+                  row0, a.Tk, r0, c0, lane);
+  }
+}
+
+// The state a dq warpgroup carries through a work tile's key blocks: the
+// scores and dp of the block in flight, ds of the block before it as A
+// fragments, dq, the rows' lse log2 e and delta, and the ring slot whose k
+// the next dq product reads.
+template <int D>
+struct DqRow {
+  float s[kDqN / 2], dp[kDqN / 2];
+  uint32_t da[kDqN / 16][4];
+  float dq[D / 2];
+  float lsl[2], dl[2];
+  int prev;
+};
+
+// ds = p (dp - delta), p = 2^(s sl - lse log2 e), in place of s; MASK sets
+// p to 0 for keys >= kend and, causal, after the query (a key limit a row,
+// as the forward's softmax)
+template <bool MASK, int N>
+__device__ __forceinline__ void form_ds(float (&s)[N], const float (&dp)[N],
+                                        const float (&lsl)[2],
+                                        const float (&dl)[2], int k0,
+                                        int kend, int causal, int row0,
+                                        int c0, float sl) {
+  int lim[2];
+  if (MASK) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lim[i] = (causal ? min(kend, row0 + 8 * i + 1) : kend) - k0 - c0;
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ptt_bf16::ex2(fmaf(s[4 * j + e], sl, -lsl[e >> 1]));
+      if (MASK) p = 8 * j + (e & 1) < lim[e >> 1] ? p : 0.f;
+      s[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
+    }
+}
+
+// s = q' k^T and dp = do v^T of a warpgroup's 64 queries over one key
+// block, one commit group
+template <int D, bool TR, bool DTR>
+__device__ __forceinline__ void issue_sdp(DqRow<D>& r, uint32_t sq,
+                                          uint32_t sdo, uint32_t ks,
+                                          int wg) {
+  using Q = Tok<D, kBwdM, TR>;
+  using O = Tok<D, kBwdM, DTR>;
+  using K = Tok<D, kDqN, TR>;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    ptt_wg::wgmma_ss<Q::kTA, K::kTFT>(r.s, Q::a_tf(sq, 64 * wg, j),
+                                      K::b_ft(ks, j), j > 0);
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    ptt_wg::wgmma_ss<O::kTA, K::kTFT>(r.dp, O::a_tf(sdo, 64 * wg, j),
+                                      K::b_ft(ks + DqCfg<D>::kBlockBytes, j),
+                                      j > 0);
+  ptt_wg::wgmma_commit();
+}
+
+// dq += bf16(ds) k of the block in slot r.prev, one commit group
+template <int D, bool TR>
+__device__ __forceinline__ void issue_dq(DqRow<D>& r, uint32_t ring) {
+  using K = Tok<D, kDqN, TR>;
+  const uint32_t ks = ring + r.prev * DqCfg<D>::kStageBytes;
+#pragma unroll
+  for (int J = 0; J < kDqN / 16; ++J)
+    ptt_wg::wgmma_rs<K::kTTF>(r.dq, r.da[J], K::b_tf(ks, J), 1);
+  ptt_wg::wgmma_commit();
+}
+
+// Key block blk after the first: this block's s and dp and the previous
+// block's dq product issued back to back, ds formed while the latter runs
+// (the forward's wg_step)
+template <int D, bool TR, bool DTR, bool MASK>
+__device__ __forceinline__ void dq_step(DqRow<D>& r, uint32_t sq,
+                                        uint32_t sdo, uint32_t qempty,
+                                        uint32_t ring, uint32_t bars,
+                                        ptt_wg::Pipe& rg, int wg, int blk,
+                                        const WgWork& w, int row0, int c0,
+                                        const BwdArgs& a) {
+  constexpr int kS = DqCfg<D>::kStages;
+  ptt_wg::mbar_wait(bars + 8 * rg.stage, rg.phase);
+  pp_sync(wg);
+  ptt_wg::wgmma_fence();
+  issue_sdp<D, TR, DTR>(r, sq, sdo, ring + rg.stage * DqCfg<D>::kStageBytes,
+                        wg);
+  issue_dq<D, TR>(r, ring);
+  pp_arrive(wg);
+  ptt_wg::wgmma_wait<1>();   // s and dp have landed; dq may still run
+  ptt_wg::fence_acc(r.s);
+  ptt_wg::fence_acc(r.dp);
+  if (blk + 1 == w.nblk) ptt_wg::release(qempty);   // the tile's q, do
+  form_ds<MASK>(r.s, r.dp, r.lsl, r.dl, blk * kDqN, w.kend, a.causal, row0,
+                c0, a.sl);
+  ptt_wg::wgmma_wait<0>();
+  ptt_wg::fence_acc(r.dq);
+  ptt_wg::release(bars + 8 * (kS + r.prev));
+  pack_p(r.da, r.s);
+  r.prev = rg.stage;
+  rg.next(kS);
+}
+
+template <int D, bool TR, bool DTR>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_bf16_wg_kernel(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                const __grid_constant__ CUtensorMap mdo,
+                                const BwdArgs a) {
+  using C = DqCfg<D>;
+  constexpr int kN = kDqN, kS = C::kStages, kB = C::kBufs;
+  using Q = Tok<D, kBwdM, TR>;
+  using O = Tok<D, kBwdM, DTR>;
+  using K = Tok<D, kN, TR>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = ptt_wg::smem_addr(smem_raw);
+  const uint32_t pad = (1024 - raw % 1024) % 1024;
+  // q and do tiles (buffer n % kB: q, then do), the ring (stage s: k, then
+  // v), the staging tiles, the barriers: full[s], empty[s], then the q/do
+  // buffers' full and empty
+  uint8_t* qp = smem_raw + pad;
+  const uint32_t sq = raw + pad, ring = sq + kB * 2 * C::kTileBytes;
+  uint8_t* epi = qp + kB * 2 * C::kTileBytes + kS * C::kStageBytes;
+  const uint32_t bars = ring + kS * C::kStageBytes + 2 * C::kEpiBytes;
+  const uint32_t qfull = bars + 16 * kS, qempty = qfull + 8 * kB;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      ptt_wg::mbar_init(bars + 8 * i, 1);
+      ptt_wg::mbar_init(bars + 8 * (kS + i), 4 * ptt_wg::kConsumers);
+    }
+    for (int i = 0; i < kB; ++i) {
+      ptt_wg::mbar_init(qfull + 8 * i, 1);
+      ptt_wg::mbar_init(qempty + 8 * i, 4 * ptt_wg::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int wg = warp >> 2, lane = threadIdx.x & 31;
+  if (wg == ptt_wg::kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != ptt_wg::kProducerWarp || lane != 0) return;
+    ptt_wg::Pipe rg;
+    int n = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
+      const WgWork w = wg_work(t, a.nt, a.H, a.kend, a.causal, kN);
+      const int qb = n % kB;
+      const uint32_t qt = sq + qb * 2 * C::kTileBytes;
+      ptt_wg::mbar_wait(qempty + 8 * qb, ((n / kB) & 1) ^ 1);
+      ptt_wg::mbar_expect_tx(qfull + 8 * qb, 2 * C::kTileBytes);
+      Q::load(qt, &mq, qfull + 8 * qb, w.q0, w.h, w.b);
+      O::load(qt + C::kTileBytes, &mdo, qfull + 8 * qb, w.q0, w.h, w.b);
+      for (int blk = 0; blk < w.nblk; ++blk) {
+        const uint32_t full = bars + 8 * rg.stage;
+        const uint32_t slot = ring + rg.stage * C::kStageBytes;
+        ptt_wg::mbar_wait(bars + 8 * (kS + rg.stage), rg.phase ^ 1);
+        ptt_wg::mbar_expect_tx(full, C::kStageBytes);
+        K::load(slot, &mk, full, blk * kN, w.h, w.b);
+        K::load(slot + C::kBlockBytes, &mv, full, blk * kN, w.h, w.b);
+        rg.next(kS);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x & 127;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  bf16* st = reinterpret_cast<bf16*>(epi + wg * C::kEpiBytes);
+  ptt_wg::Pipe rg;
+  int n = 0;
+  if (wg == 1) pp_arrive(1);   // warpgroup 0 first
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++n) {
+    const WgWork w = wg_work(t, a.nt, a.H, a.kend, a.causal, kN);
+    const int qw = w.q0 + 64 * wg, row0 = qw + r0, qb = n % kB;
+    const uint32_t sqt = sq + qb * 2 * C::kTileBytes;
+    const uint32_t sdo = sqt + C::kTileBytes, qe = qempty + 8 * qb;
+    DqRow<D> r;
+    const long long lb = w.b * a.ls_b + w.h * a.ls_h;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      r.lsl[i] = row < a.Tq ? a.lse[lb + row] * kLog2e : 0.f;
+      r.dl[i] = row < a.Tq ? a.delta[lb + row] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) r.dq[i] = 0.f;
+    ptt_wg::mbar_wait(qfull + 8 * qb, (n / kB) & 1);
+    if (a.scale_q) {
+      scale_q<D, TR>(qp + qb * 2 * C::kTileBytes, wg, tid, a.sb);
+      ptt_wg::fence_proxy_async();   // q' before the wgmma that read it
+      ptt_wg::wg_sync(wg);
+    }
+    // block 0 (masked: whether it needs it is no matter for one block)
+    ptt_wg::mbar_wait(bars + 8 * rg.stage, rg.phase);
+    pp_sync(wg);
+    ptt_wg::wgmma_fence();
+    issue_sdp<D, TR, DTR>(r, sqt, sdo, ring + rg.stage * C::kStageBytes, wg);
+    pp_arrive(wg);
+    ptt_wg::wgmma_wait<0>();
+    ptt_wg::fence_acc(r.s);
+    ptt_wg::fence_acc(r.dp);
+    if (w.nblk == 1) ptt_wg::release(qe);
+    form_ds<true>(r.s, r.dp, r.lsl, r.dl, 0, w.kend, a.causal, row0, c0,
+                  a.sl);
+    pack_p(r.da, r.s);
+    r.prev = rg.stage;
+    rg.next(kS);
+    int blk = 1;
+    for (; blk < w.nfree; ++blk)
+      dq_step<D, TR, DTR, false>(r, sqt, sdo, qe, ring, bars, rg, wg, blk, w,
+                                 row0, c0, a);
+    for (; blk < w.nblk; ++blk)
+      dq_step<D, TR, DTR, true>(r, sqt, sdo, qe, ring, bars, rg, wg, blk, w,
+                                row0, c0, a);
+    // dq of the last block
+    pp_sync(wg);
+    ptt_wg::wgmma_fence();
+    issue_dq<D, TR>(r, ring);
+    pp_arrive(wg);
+    ptt_wg::wgmma_wait<0>();
+    ptt_wg::fence_acc(r.dq);
+    ptt_wg::release(bars + 8 * (kS + r.prev));
+    store_rows<D>(r.dq, a.mul0, st, a.o0 + w.b * a.s0.b + w.h * a.s0.h,
+                  a.s0, qw, a.Tq, r0, c0, lane);
+  }
+  if (wg == 0) pp_sync(0);   // warpgroup 1's last turn
+}
+
 // token rows where every input has feature stride 1, else feature rows
 inline bool token_rows(const Strides* st, int n) {
   for (int i = 0; i < n; ++i)
@@ -1309,6 +1915,100 @@ int launch_fwd_wg(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return (int)cudaGetLastError();
 }
 
+// The operands' orientations on the wgmma backward: q, k and v in token
+// rows where all three have feature stride 1, else feature rows; do in its
+// own (token rows where its feature stride is 1).  TMA must describe each
+// in its orientation, and the 16-byte stores each output in its own (wg_ok;
+// kernels/flash_attention.py bwd_path makes the same choice).
+bool bwd_wg_ok(const void* const* p, const Strides* st, int D, int Tq, int Tk,
+               int H, int B) {
+  const bool tr = token_rows(st, 3);
+  const int T[7] = {Tq, Tk, Tk, Tq, Tq, Tk, Tk};
+  for (int i = 0; i < 7; ++i) {
+    const bool own = i < 3 ? tr : st[i].d == 1;
+    if (!wg_ok(p[i], st[i], own, D, T[i], H, B)) return false;
+  }
+  return true;
+}
+
+// the wgmma backward: dk/dv, then dq, each one persistent launch of
+// min(work tiles, SMs) CTAs
+template <int D, bool TR, bool DTR>
+int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v,
+                  const bf16* dout, const float* lse, const float* delta,
+                  bf16* dq, bf16* dk, bf16* dv, int H, int B, int Tq, int Tk,
+                  int kv_len, int causal, float scale, const Strides* st,
+                  long long ls_b, long long ls_h, cudaStream_t stream) {
+  BwdArgs a;
+  a.lse = lse;
+  a.delta = delta;
+  a.ls_b = ls_b;
+  a.ls_h = ls_h;
+  a.H = H;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.kend = Tk < kv_len ? Tk : kv_len;
+  a.causal = causal;
+  a.sb = __bfloat162float(__float2bfloat16_rn(scale));
+  int e2;
+  const bool pow2 = a.sb > 0.f && frexpf(a.sb, &e2) == 0.5f;
+  a.scale_q = !pow2;
+  a.sl = pow2 ? a.sb * kLog2e : kLog2e;
+  const int sms = ptt_gemm::sm_count();
+  CUtensorMap mq, mk, mv, mdo;
+  int grid;
+  cudaError_t err;
+  // dk/dv: k and v in 128-key tiles, q and do in blocks of kDkvN queries
+  if ((err = wg_map(&mq, q, st[0], TR, D, Tq, H, B, kDkvN<D>)) !=
+          cudaSuccess ||
+      (err = wg_map(&mk, k, st[1], TR, D, Tk, H, B, kBwdM)) != cudaSuccess ||
+      (err = wg_map(&mv, v, st[2], TR, D, Tk, H, B, kBwdM)) != cudaSuccess ||
+      (err = wg_map(&mdo, dout, st[3], DTR, D, Tq, H, B, kDkvN<D>)) !=
+          cudaSuccess)
+    return (int)err;
+  a.o0 = dk;
+  a.o1 = dv;
+  a.s0 = st[5];
+  a.s1 = st[6];
+  a.mul0 = pow2 ? a.sb : 1.f;
+  a.mul1 = 1.f;
+  a.nt = (Tk + kBwdM - 1) / kBwdM;
+  a.tiles = B * H * a.nt;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_wg_kernel<D, TR, DTR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DkvCfg<D>::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  grid = a.tiles < sms ? a.tiles : sms;
+  flash_bwd_dkv_bf16_wg_kernel<D, TR, DTR>
+      <<<grid, kBwdThreads, DkvCfg<D>::kSmemBytes, stream>>>(mq, mk, mv, mdo,
+                                                            a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // dq: q and do in 128-query tiles, k and v in 64-key blocks
+  if ((err = wg_map(&mq, q, st[0], TR, D, Tq, H, B, kBwdM)) != cudaSuccess ||
+      (err = wg_map(&mk, k, st[1], TR, D, Tk, H, B, kDqN)) !=
+          cudaSuccess ||
+      (err = wg_map(&mv, v, st[2], TR, D, Tk, H, B, kDqN)) !=
+          cudaSuccess ||
+      (err = wg_map(&mdo, dout, st[3], DTR, D, Tq, H, B, kBwdM)) !=
+          cudaSuccess)
+    return (int)err;
+  a.o0 = dq;
+  a.o1 = nullptr;
+  a.s0 = st[4];
+  a.mul0 = scale;
+  a.nt = (Tq + kBwdM - 1) / kBwdM;
+  a.tiles = B * H * a.nt;
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_wg_kernel<D, TR, DTR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DqCfg<D>::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  grid = a.tiles < sms ? a.tiles : sms;
+  flash_bwd_dq_bf16_wg_kernel<D, TR, DTR>
+      <<<grid, kBwdThreads, DqCfg<D>::kSmemBytes, stream>>>(mq, mk, mv, mdo,
+                                                            a);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool TR>
 int launch_bwd(const bf16* q, const bf16* k, const bf16* v,
                const bf16* dout, const float* lse, const float* delta,
@@ -1401,15 +2101,22 @@ extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
 // bf16 in any layout, strides[28] their (batch, head, feature, token)
 // element strides in that order, strides[28:30] the batch and head strides
 // that lse and delta [B, H, Tq] (f32, token stride 1) share.  Two launches,
-// dk/dv then dq.  Returns a cudaError_t as int.
+// dk/dv then dq.  path 1: the wgmma kernels, which need operands that TMA
+// can describe (bwd_wg_ok: q, k and v in one orientation, do and each
+// output in its own) and return cudaErrorInvalidValue on others; path 0:
+// the mma.sync kernels, any layout.  The caller chooses
+// (kernels/flash_attention.py bwd_bf16_path).  Returns a cudaError_t as
+// int.
 extern "C" int ptt_flash_bwd_bf16(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dq, void* dk, void* dv, int H, int D,
                                   int B, int Tq, int Tk, int kv_len,
                                   int causal, float scale,
-                                  const long long* strides, void* stream) {
-  if (H <= 0 || B <= 0 || Tq <= 0 || Tk <= 0 || kv_len < 1 || kv_len > Tk)
+                                  const long long* strides, int path,
+                                  void* stream) {
+  if (H <= 0 || B <= 0 || Tq <= 0 || Tk <= 0 || kv_len < 1 || kv_len > Tk ||
+      (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   Strides st[7];
   read_strides(st, strides, 7);
@@ -1423,8 +2130,26 @@ extern "C" int ptt_flash_bwd_bf16(const void* q, const void* k,
   bf16* dkb = static_cast<bf16*>(dk);
   bf16* dvb = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tr = token_rows(st, 4);   // q, k, v, do
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (path == 1) {
+    const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+    if (!bwd_wg_ok(ptrs, st, D, Tq, Tk, H, B))
+      return (int)cudaErrorInvalidValue;
+    const bool tr = token_rows(st, 3), dtr = st[3].d == 1;
+    typedef int (*Go)(const bf16*, const bf16*, const bf16*, const bf16*,
+                      const float*, const float*, bf16*, bf16*, bf16*, int,
+                      int, int, int, int, int, float, const Strides*,
+                      long long, long long, cudaStream_t);
+    static const Go go[2][2][2] = {
+        {{launch_bwd_wg<64, false, false>, launch_bwd_wg<64, false, true>},
+         {launch_bwd_wg<64, true, false>, launch_bwd_wg<64, true, true>}},
+        {{launch_bwd_wg<128, false, false>, launch_bwd_wg<128, false, true>},
+         {launch_bwd_wg<128, true, false>, launch_bwd_wg<128, true, true>}}};
+    return go[D == 128][tr][dtr](qb, kb, vb, ob, lf, ef, dqb, dkb, dvb, H, B,
+                                 Tq, Tk, kv_len, causal, scale, st,
+                                 strides[28], strides[29], s);
+  }
+  const bool tr = token_rows(st, 4);   // q, k, v, do
   auto go = D == 64 ? (tr ? launch_bwd<64, true> : launch_bwd<64, false>)
                     : (tr ? launch_bwd<128, true> : launch_bwd<128, false>);
   return go(qb, kb, vb, ob, lf, ef, dqb, dkb, dvb, H, B, Tq, Tk, kv_len,

@@ -393,12 +393,13 @@ __device__ __forceinline__ Smem setup(uint8_t* raw) {
   return s;
 }
 
-// A ring position: slot and the parity of its current pass.
+// A ring position: slot and the parity of its current pass (of a ring of
+// n stages).
 struct Pipe {
   int stage = 0;
   uint32_t phase = 0;
-  __device__ __forceinline__ void next() {
-    if (++stage == kStages) {
+  __device__ __forceinline__ void next(int n = kStages) {
+    if (++stage == n) {
       stage = 0;
       phase ^= 1;
     }

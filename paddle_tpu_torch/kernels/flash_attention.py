@@ -57,11 +57,23 @@ from the operands before the launch (``fwd_bf16_path``):
 - "sync" otherwise (a ragged head-major T, a view 2 bytes off alignment,
   mixed layouts): one ``mma.sync`` m16n8k16 per product.
 
-Both wrappers take ``path=None`` (the operands' choice) or a forced path,
-for the compares and timings; a forced "wgmma" on operands TMA cannot
-describe raises.  ``.launches_wgmma`` and ``.launches_sync`` count each
-path's launches beside ``.launches``.  The backward is one ``mma.sync``
-kernel pair.
+The bf16 backward likewise has two kernel pairs (dk/dv, then dq), chosen
+by ``bwd_bf16_path``:
+
+- "wgmma" where TMA can describe q, k and v in one orientation, do in its
+  own, and each of dq, dk, dv in its own (d 64 or 128):
+  ``flash_bwd_dkv_bf16_wg_kernel`` (128-key work tiles whose k and v stay
+  in shared memory while blocks of q, do, lse and delta stream past, 128
+  queries a block at d 64 and 64 at d 128, ``bwd_bf16_schedule``) and
+  ``flash_bwd_dq_bf16_wg_kernel`` (the forward's 128-query tiles and
+  schedule, 64-key blocks), each a persistent grid of a producer warp and
+  two consumer warpgroups on ``wgmma``;
+- "sync" otherwise: one ``mma.sync`` m16n8k16 per product.
+
+All four bf16 wrappers take ``path=None`` (the operands' choice) or a
+forced path, for the compares and timings; a forced "wgmma" on operands
+TMA cannot describe raises.  ``.launches_wgmma`` and ``.launches_sync``
+count each path's launches beside ``.launches``.
 
 q' = bf16(q * bf16(scale)) (flash_attention.py:529, :597; :85, :229,
 :262); p, and in the backward ds, are rounded to bf16 before the products
@@ -180,10 +192,14 @@ def _kernel(name="ptt_flash_fwd"):
 
 
 # the wgmma forward's work tile (queries) and key block by head dim
-# (csrc/flash_attention_bf16.cu kWgM, WgCfg<D>::kN)
+# (csrc/flash_attention_bf16.cu kWgM, WgCfg<D>::kN); the wgmma backward's
+# work tiles (128 keys, or 128 queries: kBwdM), its dk/dv kernel's query
+# blocks by head dim (kDkvN) and its dq kernel's key blocks (kDqN)
 WG_QTILE = 128
 WG_KBLOCK = {64: 128, 128: 64}
-FWD_BF16_PATHS = ("wgmma", "sync")
+WG_DKV_BLOCK = {64: 128, 128: 64}
+WG_DQ_BLOCK = 64
+BF16_PATHS = ("wgmma", "sync")
 
 
 def _tma_ok(ptr, strides, extents, token_rows):
@@ -237,28 +253,75 @@ def fwd_bf16_path(q, k, v, o, batch=None):
     return fwd_path(ops, q.shape[-1])
 
 
-def fwd_bf16_schedule(B, H, Tq, sms):
-    """The wgmma forward's persistent schedule on `sms` SMs: one list per
-    CTA (the grid is min(work tiles, sms)) of the (batch row, head, first
-    query) of its work tiles in the order it takes them; CTA c takes tiles
-    c, c + grid, ... (csrc/flash_attention_bf16.cu wg_work).  The nqt query
-    tiles of (batch row, head) bh are tiles bh nqt .. bh nqt + nqt - 1, so
-    the CTAs that run at one time share its k and v through the L2; tile
-    bh nqt + j is query tile nqt - 1 - (j + bh) % nqt, so that where the
-    grid is a multiple of nqt a CTA's query tile, and with it its causal
-    work, rotates from one pass of the grid to the next."""
-    nqt = -(-Tq // WG_QTILE)
-    tiles = B * H * nqt
+def bwd_path(operands, d):
+    """The bf16 backward's path for operands q, k, v, do, dq, dk, dv given
+    as ``fwd_path``'s: "wgmma" where d is 64 or 128 and TMA can describe
+    q, k and v in one orientation (token rows where all three have feature
+    stride 1) and do, dq, dk and dv each in its own (token rows where its
+    feature stride is 1), else "sync"."""
+    if d not in KERNEL_HEAD_DIMS:
+        return "sync"
+    token_rows = all(st[2] == 1 for _, st, _ in operands[:3])
+    return "wgmma" if all(
+        _tma_ok(p, st, ex, token_rows if i < 3 else st[2] == 1)
+        for i, (p, st, ex) in enumerate(operands)) else "sync"
+
+
+def bwd_bf16_path(q, k, v, do, dq, dk, dv, lse, delta, batch=None):
+    """``bwd_path`` of tensors: head-major [H, d, B*T] ones (batch given,
+    as ``flash_attention_hdt_bwd_bf16`` takes them) or [B, H, T, d] ones in
+    any strides.  lse and delta (f32, token stride 1) do not narrow the
+    choice: the kernels' producer warp reads them with ordinary loads."""
+    del lse, delta
+    ts = (q, k, v, do, dq, dk, dv)
+    if batch is not None:
+        Tq, Tk = q.shape[2] // batch, k.shape[2] // batch
+        ops = [(t.data_ptr(), _hdt_strides(t, T),
+                (batch, t.shape[0], t.shape[1], T))
+               for t, T in zip(ts, (Tq, Tk, Tk, Tq, Tq, Tk, Tk))]
+        return bwd_path(ops, q.shape[1])
+    ops = [(t.data_ptr(), _bhtd_strides(t),
+            (t.shape[0], t.shape[1], t.shape[3], t.shape[2])) for t in ts]
+    return bwd_path(ops, q.shape[-1])
+
+
+def _schedule(B, H, T, sms, tile):
+    """A persistent grid's schedule on `sms` SMs: one list per CTA (the grid
+    is min(work tiles, sms)) of the (batch row, head, first token) of its
+    128-token work tiles in the order it takes them; CTA c takes tiles c,
+    c + grid, ...  The nt tiles of (batch row, head) bh are tiles bh nt ..
+    bh nt + nt - 1, so the CTAs that run at one time share its operands
+    through the L2; tile bh nt + j is token tile tile(j, bh, nt)."""
+    nt = -(-T // WG_QTILE)
+    tiles = B * H * nt
     grid = min(tiles, sms)
     out = []
     for c in range(grid):
         mine = []
         for t in range(c, tiles, grid):
-            bh, j = divmod(t, nqt)
-            mine.append((bh // H, bh % H,
-                         (nqt - 1 - (j + bh) % nqt) * WG_QTILE))
+            bh, j = divmod(t, nt)
+            mine.append((bh // H, bh % H, tile(j, bh, nt) * WG_QTILE))
         out.append(mine)
     return out
+
+
+def bwd_bf16_schedule(B, H, Tk, sms):
+    """The wgmma backward's dk/dv schedule (csrc/flash_attention_bf16.cu
+    kv_work): 128-key work tiles, tile j of (batch row, head) bh being key
+    tile (j + bh) % nkt, so that where the grid is a multiple of nkt a
+    CTA's causal work (the queries from its keys on) rotates from one pass
+    of the grid to the next.  The dq kernel takes the forward's schedule
+    (``fwd_bf16_schedule``) over Tq."""
+    return _schedule(B, H, Tk, sms, lambda j, bh, nt: (j + bh) % nt)
+
+
+def fwd_bf16_schedule(B, H, Tq, sms):
+    """The wgmma forward's persistent schedule (csrc/flash_attention_bf16.cu
+    wg_work): 128-query work tiles, tile j of (batch row, head) bh being
+    query tile nqt - 1 - (j + bh) % nqt, so that where the grid is a
+    multiple of nqt a CTA's query tile, and with it its causal work,
+    rotates from one pass of the grid to the next."""
+    return _schedule(B, H, Tq, sms, lambda j, bh, nt: nt - 1 - (j + bh) % nt)
 
 
 def _check_card(name, ts, d, dv, stats=(), dtypes=(torch.float32,
@@ -320,9 +383,9 @@ def _fwd_call(name, q, k, v, o, lse, H, d, B, Tq, Tk, kv_len, causal,
 
 
 def _bf16_path(name, path, shape_path):
-    """The bf16 forward's path: the operands' (shape_path) unless forced
-    to "wgmma" or "sync"."""
-    if path not in (None,) + FWD_BF16_PATHS:
+    """A bf16 kernel's path: the operands' (shape_path) unless forced to
+    "wgmma" or "sync"."""
+    if path not in (None,) + BF16_PATHS:
         raise ValueError(f"{name} kernel: no path {path!r}")
     return path or shape_path
 
@@ -416,34 +479,42 @@ def flash_attention_hdt_bwd_plain(q, k, v, lse, delta, do, batch,
 
 
 def _bwd_kernel(name="ptt_flash_bwd"):
-    """The backward C entry: ptt_flash_bwd (f32) or ptt_flash_bwd_bf16."""
+    """The backward C entry: ptt_flash_bwd (f32) or ptt_flash_bwd_bf16 (its
+    path argument before the stream)."""
     if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _fns[name] = _build.bind(name, [p] * 9 + [i] * 7 + [f,
-                                 ctypes.POINTER(ctypes.c_longlong), p])
+        path = [i] if name.endswith("_bf16") else []
+        _fns[name] = _build.bind(name, [p] * 9 + [i] * 7 + [
+            f, ctypes.POINTER(ctypes.c_longlong)] + path + [p])
     return _fns[name]
 
 
 def _bwd_call(name, q, k, v, lse, delta, do, dq, dk, dv, H, d, B, Tq, Tk,
-              kv_len, causal, scale, strides):
+              kv_len, causal, scale, strides, path=None):
+    """One backward launch (two kernels); path "wgmma" or "sync" for the
+    bf16 entry."""
     entry = "ptt_flash_bwd_bf16" if q.dtype == torch.bfloat16 \
         else "ptt_flash_bwd"
+    extra = (int(path == "wgmma"),) if path else ()
     err = _bwd_kernel(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), H, d, B, Tq, Tk,
         Tk if kv_len is None else int(kv_len), int(causal), float(scale),
-        _stride_array(strides),
+        _stride_array(strides), *extra,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed"
+                           f"{f' ({path} path)' if path else ''}: CUDA "
+                           f"error {err}")
 
 
-def _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len):
+def _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len,
+                path=None):
     """The head-major backward kernels of q's dtype: dq, dk, dv in q's
-    dtype."""
-    name = "flash_attention_hdt_bwd" + ("_bf16" if q.dtype == torch.bfloat16
-                                        else "")
+    dtype; bf16 on `path` (None: bwd_bf16_path's)."""
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_hdt_bwd" + ("_bf16" if bf16 else "")
     _check_card(name, (q, k, v, do), q.shape[1], v.shape[1],
                 stats=(lse, delta))
     H, d, Nq = q.shape
@@ -458,29 +529,37 @@ def _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len):
     dq = torch.empty(H, d, Nq, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dvv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    if bf16:
+        path = _bf16_path(name, path, bwd_bf16_path(
+            q, k, v, do, dq, dk, dvv, lse, delta, batch))
     _bwd_call(name, q, k, v, lse, delta, do, dq, dk,
               dvv, H, d, batch, Tq, Tk, kv_len, causal, scale,
               (*_hdt_strides(q, Tq), *_hdt_strides(k, Tk),
                *_hdt_strides(v, Tk), *_hdt_strides(do, Tq),
                *_hdt_strides(dq, Tq), *_hdt_strides(dk, Tk),
-               *_hdt_strides(dvv, Tk), Tq, Nq))
-    (flash_attention_hdt_bwd_bf16 if q.dtype == torch.bfloat16
-     else flash_attention_hdt_bwd).launches += 1
+               *_hdt_strides(dvv, Tk), Tq, Nq), path)
+    _count(flash_attention_hdt_bwd_bf16 if bf16 else flash_attention_hdt_bwd,
+           path)
     return dq, dk, dvv
 
 
 def flash_attention_hdt_bwd_bf16(q, k, v, lse, delta, do, batch,
-                                 causal=False, scale=None, kv_len=None):
+                                 causal=False, scale=None, kv_len=None,
+                                 path=None):
     """The bf16 head-major backward kernels (csrc/flash_attention_bf16.cu,
     dk/dv then dq) on bf16 CUDA tensors, f32 lse and delta: (dq, dk, dv)
-    bf16.  Its launches (one per call, two kernels) are counted in
-    ``flash_attention_hdt_bwd_bf16.launches``."""
+    bf16.  The path is ``bwd_bf16_path`` of the operands, or `path`
+    ("sync" runs on any operands; "wgmma" raises where TMA cannot describe
+    them).  Its launches (one per call, two kernels) are counted in
+    ``flash_attention_hdt_bwd_bf16.launches``, and by path in
+    ``.launches_wgmma`` and ``.launches_sync``."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_hdt_bwd_bf16 kernel: bf16 inputs "
                          f"only, got {q.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[1])
-    return _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len)
+    return _launch_bwd(q, k, v, lse, delta, do, batch, causal, scale, kv_len,
+                       path)
 
 
 def flash_attention_hdt_bwd(q, k, v, lse, delta, do, batch,
@@ -536,6 +615,8 @@ flash_attention_hdt_bf16.launches = 0
 flash_attention_hdt_bf16.launches_wgmma = 0
 flash_attention_hdt_bf16.launches_sync = 0
 flash_attention_hdt_bwd_bf16.launches = 0
+flash_attention_hdt_bwd_bf16.launches_wgmma = 0
+flash_attention_hdt_bwd_bf16.launches_sync = 0
 
 
 # --- [B, H, T, d] in any strides (JAX flash_attention.py:441) ---------------
@@ -676,11 +757,12 @@ def flash_attention_bf16(q, k, v, causal=False, scale=None, path=None):
     return _launch_bhtd(q, k, v, causal, scale, path)
 
 
-def _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale):
+def _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale, path=None):
     """The [B, H, T, d] backward kernels of q's dtype: dq, dk, dv in q's
-    dtype, each in its input's layout where that is dense."""
-    name = "flash_attention_bwd" + ("_bf16" if q.dtype == torch.bfloat16
-                                    else "")
+    dtype, each in its input's layout where that is dense; bf16 on `path`
+    (None: bwd_bf16_path's)."""
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bwd" + ("_bf16" if bf16 else "")
     _check_card(name, (q, k, v, do), q.shape[-1], v.shape[-1],
                 stats=(lse, delta))
     B, H, Tq, Tk, d = _check_bhtd(q, k, v, causal)
@@ -693,28 +775,32 @@ def _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale):
                              f"{(B, H, Tq)}, got {tuple(t.shape)}")
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
+    if bf16:
+        path = _bf16_path(name, path, bwd_bf16_path(
+            q, k, v, do, dq, dk, dvv, lse, delta))
     _bwd_call(name, q, k, v, lse, delta, do, dq, dk, dvv, H, d, B, Tq, Tk,
               None, causal, scale,
               (*_bhtd_strides(q), *_bhtd_strides(k), *_bhtd_strides(v),
                *_bhtd_strides(do), *_bhtd_strides(dq), *_bhtd_strides(dk),
-               *_bhtd_strides(dvv), *lse.stride()[:2]))
-    (flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
-     else flash_attention_bwd).launches += 1
+               *_bhtd_strides(dvv), *lse.stride()[:2]), path)
+    _count(flash_attention_bwd_bf16 if bf16 else flash_attention_bwd, path)
     return dq, dk, dvv
 
 
 def flash_attention_bwd_bf16(q, k, v, lse, delta, do, causal=False,
-                             scale=None):
+                             scale=None, path=None):
     """The bf16 [B, H, T, d] backward kernels (csrc/flash_attention_bf16.cu,
     dk/dv then dq) on bf16 CUDA tensors, f32 lse and delta: (dq, dk, dv)
-    bf16.  Its launches (one per call, two kernels) are counted in
-    ``flash_attention_bwd_bf16.launches``."""
+    bf16.  The path is ``bwd_bf16_path`` of the operands or `path`, as in
+    ``flash_attention_hdt_bwd_bf16``.  Its launches (one per call, two
+    kernels) are counted in ``flash_attention_bwd_bf16.launches``, and by
+    path in ``.launches_wgmma`` and ``.launches_sync``."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention_bwd_bf16 kernel: bf16 inputs "
                          f"only, got {q.dtype}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale)
+    return _launch_bwd_bhtd(q, k, v, lse, delta, do, causal, scale, path)
 
 
 def flash_attention_bwd(q, k, v, lse, delta, do, causal: bool = False,
@@ -772,3 +858,5 @@ flash_attention_bf16.launches = 0
 flash_attention_bf16.launches_wgmma = 0
 flash_attention_bf16.launches_sync = 0
 flash_attention_bwd_bf16.launches = 0
+flash_attention_bwd_bf16.launches_wgmma = 0
+flash_attention_bwd_bf16.launches_sync = 0

@@ -499,11 +499,11 @@ def _rel_max(got, want):
 ])
 def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
                                         kv_len, amp, path, force):
-    """The bf16 head-major forward (on the path its operands choose, or
-    forced onto the sync path) and backward against their plain versions
-    in bf16, each output at chip_smoke's BF16_RTOL of the max |plain| of
-    each head's 64-token tile (lse at the f32 tolerance), the same bits
-    on two calls; the path counters name the path taken."""
+    """The bf16 head-major forward and backward (each on the path its
+    operands choose, or forced onto the sync path) against their plain
+    versions in bf16, each output at chip_smoke's BF16_RTOL of the max
+    |plain| of each head's 64-token tile (lse at the f32 tolerance), the
+    same bits on two calls; the path counters name the path taken."""
     import chip_smoke
     bf = torch.bfloat16
     q = (_randn(cuda, H, d, B * Tq, seed=80) * amp).to(bf)
@@ -526,9 +526,18 @@ def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
     assert (lse - plse).abs().max().item() <= F32_TOL
     delta = (do.float() * po.float()).sum(1, keepdim=True)
     args = (q, k, v, plse, delta, do, B)
-    got = fa.flash_attention_hdt_bwd(*args, **kw)
-    again = fa.flash_attention_hdt_bwd(*args, **kw)
+    bwd = fa.flash_attention_hdt_bwd_bf16
+    before = (bwd.launches_wgmma, bwd.launches_sync)
+    if force is None:   # the public entry chooses by dtype, then by shape
+        got = fa.flash_attention_hdt_bwd(*args, **kw)
+        again = fa.flash_attention_hdt_bwd(*args, **kw)
+    else:
+        got = bwd(*args, path=force, **kw)
+        again = bwd(*args, path=force, **kw)
     want = fa.flash_attention_hdt_bwd_plain(*args, **kw)
+    assert (bwd.launches_wgmma - before[0], bwd.launches_sync - before[1]) \
+        == ((2, 0) if took == "wgmma" else (0, 2))
+    assert fa.bwd_bf16_path(q, k, v, do, *got, plse, delta, batch=B) == path
     assert all(t.dtype == bf for t in got)
     assert chip_smoke.tile_rel_err(got, want) <= _bf16_tol()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -616,6 +625,33 @@ def test_bf16_flash_wgmma_path_refuses_what_tma_cannot_describe(cuda):
         fwd(k, k, k, 2, path="tma")
 
 
+def test_bf16_flash_bwd_wgmma_path_refuses_what_tma_cannot_describe(cuda):
+    """Forced onto the wgmma path, a backward whose q is 2 bytes off
+    alignment, whose head-major T is no multiple of 8, or whose q, k and v
+    lie in two orientations makes the C entry refuse the launch: the
+    wrapper raises and no counter moves; path None takes sync."""
+    bf = torch.bfloat16
+    x = _randn(cuda, 8 * 64 * 2 * 256 + 1, seed=87).to(bf)
+    q = x[1:].view(8, 64, 2 * 256)
+    k = _randn(cuda, 8, 64, 2 * 256, seed=88).to(bf)
+    qt = _randn(cuda, 8, 2 * 256, 64, seed=89).to(bf).transpose(1, 2)
+    r = _randn(cuda, 8, 64, 2 * 300, seed=90).to(bf)
+    bwd = fa.flash_attention_hdt_bwd_bf16
+    for args in ((q, k, k, k), (r, r, r, r), (qt, k, k, k)):
+        N = args[0].shape[2]
+        lse = torch.zeros(8, 1, N, device=cuda)
+        full = (*args[:3], lse, lse, args[3], 2)
+        before = (bwd.launches, bwd.launches_wgmma, bwd.launches_sync)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            bwd(*full, causal=True, path="wgmma")
+        assert (bwd.launches, bwd.launches_wgmma,
+                bwd.launches_sync) == before
+        bwd(*full, causal=True)
+        assert bwd.launches_sync == before[2] + 1
+    with pytest.raises(ValueError, match="path"):
+        bwd(k, k, k, lse, lse, k, 2, path="tma")
+
+
 def test_bf16_wrappers_refuse_what_they_cannot_take(cuda):
     """fp16 and mixed dtypes raise on the card; nothing falls back to the
     plain version."""
@@ -672,28 +708,38 @@ def _bhtd_bf16(dev, B, H, T, d, seed, layout, mul=1.0):
     return x.view(B, T, H, d).transpose(1, 2)
 
 
-@pytest.mark.parametrize("B,H,T,Tk,d,causal,layout,amp", [
-    (4, 8, 512, 512, 64, True, "bthd", 1),     # the path's layout, B 4
-    (2, 8, 300, 300, 64, False, "bhtd", 1),
-    (2, 8, 200, 333, 64, False, "bthd", 1),
-    (2, 4, 300, 300, 128, True, "bthd", 1),
-    (2, 8, 300, 300, 64, True, "bthd+1", 1),   # element copies
-    (2, 8, 65, 65, 64, True, "bthd", 4),       # a peaked softmax
+@pytest.mark.parametrize("force", [None, "sync"])
+@pytest.mark.parametrize("B,H,T,Tk,d,causal,layout,amp,path", [
+    (4, 8, 512, 512, 64, True, "bthd", 1, "wgmma"),   # the path's layout
+    (2, 8, 300, 300, 64, False, "bhtd", 1, "wgmma"),
+    (2, 8, 200, 333, 64, False, "bthd", 1, "wgmma"),
+    (2, 4, 300, 300, 128, True, "bthd", 1, "wgmma"),
+    (2, 8, 300, 300, 64, True, "bthd+1", 1, "sync"),   # element copies
+    (2, 8, 65, 65, 64, True, "bthd", 4, "wgmma"),      # a peaked softmax
+    (2, 8, 256, 256, 64, True, "bthd:do-t1", 1, "wgmma"),   # do token 1
 ])
 def test_bf16_bhtd_flash_kernels_match_plain(cuda, B, H, T, Tk, d, causal,
-                                             layout, amp):
-    """The bf16 [B, H, T, d] forward and backward against their plain
+                                             layout, amp, path, force):
+    """The bf16 [B, H, T, d] forward and backward (each on the path its
+    operands choose, or forced onto the sync path) against their plain
     versions in bf16 at chip_smoke's BF16_RTOL by tile (lse at the f32
-    tolerance), the same bits on two calls and as the head-major bf16
-    call on the same data."""
+    tolerance), the same bits on two calls, and against the head-major
+    bf16 call on the same data: its bits wherever both calls take one
+    path, within BF16_RTOL by tile where their choices cross."""
     import chip_smoke
-    q = _bhtd_bf16(cuda, B, H, T, d, 100, layout, amp)
-    k = _bhtd_bf16(cuda, B, H, Tk, d, 101, layout, amp)
-    v = _bhtd_bf16(cuda, B, H, Tk, d, 102, layout)
-    do = _bhtd_bf16(cuda, B, H, T, d, 103, layout)
-    before = (fa.flash_attention_bf16.launches,
-              fa.flash_attention_bwd_bf16.launches)
-    o, lse = fa.flash_attention_bf16(q, k, v, causal)
+    base, _, do_layout = layout.partition(":")
+    q = _bhtd_bf16(cuda, B, H, T, d, 100, base, amp)
+    k = _bhtd_bf16(cuda, B, H, Tk, d, 101, base, amp)
+    v = _bhtd_bf16(cuda, B, H, Tk, d, 102, base)
+    if do_layout == "do-t1":   # the rows of a [H d, B T] gradient
+        do = _randn(cuda, H * d, B * T, seed=103).to(torch.bfloat16).view(
+            H, d, B, T).permute(2, 0, 3, 1)
+    else:
+        do = _bhtd_bf16(cuda, B, H, T, d, 103, base)
+    fwd, bwd = fa.flash_attention_bf16, fa.flash_attention_bwd_bf16
+    before = (fwd.launches, bwd.launches, bwd.launches_wgmma,
+              bwd.launches_sync)
+    o, lse = fwd(q, k, v, causal, path=force)
     po, plse = fa.flash_attention_plain(q, k, v, causal)
     hm = chip_smoke.head_major
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
@@ -701,30 +747,39 @@ def test_bf16_bhtd_flash_kernels_match_plain(cuda, B, H, T, Tk, d, causal,
     assert (lse - plse).abs().max().item() <= F32_TOL
     delta = (do.float() * po.float()).sum(-1)
     args = (q, k, v, plse, delta, do, causal)
-    got = fa.flash_attention_bwd_bf16(*args)
-    again = fa.flash_attention_bwd_bf16(*args)
+    got = bwd(*args, path=force)
+    again = bwd(*args, path=force)
     want = fa.flash_attention_bwd_plain(*args)
+    took = force or path
+    assert fa.bwd_bf16_path(q, k, v, do, *got, plse, delta) == path
     assert chip_smoke.tile_rel_err([hm(t) for t in got],
                                    [hm(t) for t in want]) <= _bf16_tol()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert (fa.flash_attention_bf16.launches,
-            fa.flash_attention_bwd_bf16.launches) == (before[0] + 1,
-                                                      before[1] + 2)
+    assert (fwd.launches, bwd.launches, bwd.launches_wgmma - before[2],
+            bwd.launches_sync - before[3]) == (
+        before[0] + 1, before[1] + 2, 2 * (took == "wgmma"),
+        2 * (took == "sync"))
     # the head-major call on a copy: the same bits on the same path; where
     # the copy takes the other path (its T no multiple of 8), within
-    # BF16_RTOL by tile; forced onto the sync path, both the same bits
+    # BF16_RTOL by tile
     oh, _ = fa.flash_attention_hdt_bf16(hm(q), hm(k), hm(v), B,
-                                        causal=causal)
-    same = fa.fwd_bf16_path(q, k, v, o) == fa.fwd_bf16_path(
-        hm(q), hm(k), hm(v), oh, batch=B)
-    if same:
+                                        causal=causal, path=force)
+    lh = plse.permute(1, 0, 2).reshape(H, 1, B * T).contiguous()
+    dh = delta.permute(1, 0, 2).reshape(H, 1, B * T).contiguous()
+    gh = fa.flash_attention_hdt_bwd_bf16(hm(q), hm(k), hm(v), lh, dh, hm(do),
+                                         B, causal=causal, path=force)
+    took_fh = force or fa.fwd_bf16_path(hm(q), hm(k), hm(v), oh, batch=B)
+    took_bh = force or fa.bwd_bf16_path(hm(q), hm(k), hm(v), hm(do), *gh,
+                                        lh, dh, batch=B)
+    if (force or fa.fwd_bf16_path(q, k, v, o)) == took_fh:
         assert torch.equal(hm(o), oh)
     else:
         assert chip_smoke.tile_rel_err([hm(o)], [oh]) <= _bf16_tol()
-    os_, _ = fa.flash_attention_bf16(q, k, v, causal, path="sync")
-    ohs, _ = fa.flash_attention_hdt_bf16(hm(q), hm(k), hm(v), B,
-                                         causal=causal, path="sync")
-    assert torch.equal(hm(os_), ohs)
+    if took == took_bh:
+        assert all(torch.equal(hm(a), b) for a, b in zip(got, gh))
+    else:
+        assert chip_smoke.tile_rel_err([hm(t) for t in got],
+                                       gh) <= _bf16_tol()
 
 
 @pytest.mark.parametrize("B,T,H,D,E,F,causal,w1_scale,vectors", [
