@@ -10,7 +10,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
 2. Build: every kernel of the serving and training paths is compiled from
    paddle_tpu_torch/kernels/csrc with nvcc for sm_90a (one nvcc per
    source, all started together); prints the build seconds and ptxas's
-   registers, shared memory and spills per kernel.
+   registers, shared memory and spills per kernel, and fails where ptxas
+   serializes a kernel's wgmma (C7518).
 3. Kernel vs plain: each kernel's wrapper on CUDA tensors against its plain
    torch version on the same inputs, at the paths' shapes and at ragged
    ones, with the tolerance printed beside the error.  The flash cases
@@ -40,13 +41,19 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    beside [B, T, H, d] views).  The flash compare must refuse a planted
    fault (the last row tile skipping the first key tile), against the
    plain version and the wgmma kernels' o and dq.  The bf16
-   LM-head backward runs each case on the path its operands choose
-   (lm_head.bwd_bf16_path: wgmma where TMA can describe x and W, sync for
-   V 1001, D 201 and D 12), checked by its path counters, and each wgmma
-   case again forced onto the sync path; one more case is aligned and a
-   multiple of no tile (N 3001, D 264, V 4104, chunk 1000).  The compare
-   must refuse a planted fault (dlogits without the onehot term in one
-   vocab tile) by more than 4x BF16_RTOL.  The bf16
+   LM-head forward and backward run each case (HEAD_BF16_CASES) on the
+   path their operands choose (lm_head.bf16_path, one condition for
+   both: wgmma where TMA can describe x and W, sync for V 1001,
+   D 201 and D 12), checked by their path counters, and each wgmma case
+   again forced onto the sync path, each path twice for the same bits;
+   the forward's wgmma schedule as lm_head.fwd_bf16_plan and
+   fwd_bf16_segments give it (what the CPU tests hold) must be the
+   library's own on every case (fwd_plan_drift); one more case is aligned and a multiple of no tile (N 3001, D 264, V
+   4104, chunk 1000), and one has D 1024, where the wgmma forward streams
+   x.  The compare must refuse two planted faults by more than 4x their
+   tolerance: a forward merge without one segment's state of the wgmma
+   split (segmented_fwd), and a backward whose dlogits miss the onehot
+   term in one vocab tile.  The bf16
    kernels of the AMP fuse_block path: the [B, H, T, d] flash forward and
    backward on the block's [B, T, H, d] views (contiguous and 2 bytes off
    16-byte alignment, a ragged T, head dim 128, Tq != Tk, a peaked
@@ -97,9 +104,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    its backward 6 times, the bf16 LM-head forward once and its backward
    once per chunk, 13 layer norms (the first on the f32 embedding sum,
    12 on bf16 residual sums) and no f32 flash or LM-head kernel; every
-   bf16 flash forward and backward on the wgmma path (their path
-   counters), with the strides of q, k, v and do that autograd hands the
-   backward logged.  The L 2
+   bf16 flash forward and backward and LM-head forward and backward on
+   the wgmma path (their path counters), with the strides of q, k, v and
+   do that autograd hands the flash backward logged.  The L 2
    match runs under the flag too, at AMP_STEP_LOSS_RTOL and
    AMP_STEP_GRAD_RTOL.
 5d. Train fuse_block under AMP: the program of phase 5b built and run
@@ -108,9 +115,10 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    backward 6 times each (the blocks' recompute), 1 layer norm (on the
    last block's bf16 output), the bf16 LM-head forward once and its
    backward once per chunk, and no f32 block, flash or LM-head kernel and
-   no head-major flash; the recompute's flash forward and backward and the
-   block kernel's own flash launch on the wgmma path (their path counters;
-   the backward's operand strides logged).  The
+   no head-major flash; the recompute's flash forward and backward, the
+   block kernel's own flash launch and the LM head's forward and backward
+   on the wgmma path (their path counters; the flash backward's operand
+   strides logged).  The
    L 2 match replays the card's relu masks inside the blocks, at the AMP
    tolerances.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
@@ -140,20 +148,22 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    torch.nn.TransformerEncoderLayer in bf16; the bf16 block's launches one
    by one (BLOCK_BF16_CHAIN_LAUNCHES); the AMP fuse_block step traced by
    kernel class.  The bf16 flash forward and backward (head-major, and on
-   the block's views) and the bf16 LM-head backward name the path they
-   took (from the counters of the timed calls) and time the sync path on
-   the same inputs beside it, each with its host enqueue time; the bf16
-   block's flash launch must be the wgmma kernel; flash_bwd_breakdown
-   lists the bf16 flash backward's two launches (dk/dv, dq) on both paths
-   with their TFLOP/s; head_breakdown lists
-   its launches one by one on both paths with their TFLOP/s, and the
-   smoke fails unless the wgmma path makes head_bwd_kernels() launches a
-   chunk.
+   the block's views) and the bf16 LM-head forward and backward name the
+   path they took (from the counters of the timed calls) and time the
+   sync path on the same inputs beside it, with their host enqueue time;
+   the bf16 block's flash launch must be the wgmma kernel;
+   flash_bwd_breakdown lists the bf16 flash backward's two launches
+   (dk/dv, dq) on both paths with their TFLOP/s; head_breakdown lists the
+   bf16 LM-head forward's two launches and the backward's, one by one, on
+   both paths with their TFLOP/s, and the smoke fails unless the forward
+   makes HEAD_FWD_KERNELS on each path (the wgmma kernels on the wgmma
+   path) and the backward's wgmma path head_bwd_kernels() a chunk.
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
    "launches_by_path"; the bf16 kernels' launches are the AMP step's;
-   lm_head_bwd_bf16 also carries its path and both paths' breakdowns),
+   lm_head_fwd_bf16 and lm_head_bwd_bf16 also carry their path and both
+   paths' breakdowns),
    nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
@@ -226,6 +236,21 @@ BLOCK_BF16_RTOL = BF16_RTOL
 # replay, of its max |CPU| entry: the reference's bf16 tolerance
 AMP_STEP_LOSS_RTOL = 1e-3
 AMP_STEP_GRAD_RTOL = 2e-2
+
+# the bf16 LM head's compare cases (N, D, V, chunk, ignored labels, scale
+# of x, label dtype, path): the f32 LM head's, one aligned case that is a
+# multiple of no tile and one with D above the wgmma forward's x-resident
+# limit; V 1001, D 201 and D 12 take the sync paths (element copies), the
+# rest the wgmma ones, which each case also runs forced onto the sync path
+HEAD_BF16_CASES = [
+    (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, 1, "int64", "train"),
+    (1000, 512, 1001, 256, 37, 1, "int64", "ragged"),
+    (777, 201, 3000, 300, 11, 1, "int32", "ragged"),
+    (5, 12, 100, HEAD_CHUNK, 1, 1, "int64", "ragged"),
+    (2048, 512, 32000, 1024, 5, 12, "int64", "ragged"),
+    (3001, 264, 4104, 1000, 23, 1, "int64", "ragged"),
+    (1000, 1024, 4104, 256, 9, 1, "int64", "ragged"),
+]
 
 # name -> (module of paddle_tpu_torch.kernels whose wrapper of that name
 # launches the kernel and counts it, CUDA source, TPU kernel it replaces)
@@ -462,6 +487,51 @@ def dropped_onehot_tile(lmh, x, w, labels, lse, g, chunk, width=128):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+def segmented_fwd(lmh, x, w, labels, ctas, drop=None):
+    """(loss, lse) f32 of the bf16 LM-head forward in its wgmma path's
+    order: each segment of lmh.fwd_bf16_segments (a CTA's vocab tiles of
+    one token tile) takes each row's (max, sum of exp(l - max), gold
+    logit) over its columns of the f32 logits of the bf16 operands, and
+    each token tile's segment states are merged in slot (vocabulary)
+    order.  drop: (token tile, slot) of a segment whose state the merge
+    leaves out (the compare's planted fault)."""
+    import torch
+    N, V = x.shape[0], w.shape[1]
+    logits = x.float() @ w.float()
+    y = labels.long()
+    m_all = torch.full((N,), -1e30, device=x.device)
+    l_all = torch.zeros(N, device=x.device)
+    g_all = torch.zeros(N, device=x.device)
+    for _, m, v0, v1, slot in lmh.fwd_bf16_segments(N, V, ctas):
+        if drop == (m, slot):
+            continue
+        rows = slice(m * 128, min(N, (m + 1) * 128))
+        c0, c1 = v0 * 128, min(V, v1 * 128)
+        seg = logits[rows, c0:c1]
+        mx = seg.max(1).values
+        sm = torch.exp(seg - mx[:, None]).sum(1)
+        yr = y[rows]
+        inside = (yr >= c0) & (yr < c1)
+        gold = torch.where(inside, seg.gather(1, (yr - c0).clamp(
+            0, c1 - c0 - 1)[:, None])[:, 0], torch.zeros_like(mx))
+        mo, lo = m_all[rows], l_all[rows]
+        mn = torch.maximum(mo, mx)
+        l_all[rows] = lo * torch.exp(mo - mn) + sm * torch.exp(mx - mn)
+        m_all[rows] = mn
+        g_all[rows] += gold
+    lse = m_all + torch.log(l_all.clamp_min(1e-30))
+    return torch.where(y >= 0, lse - g_all, torch.zeros_like(lse)), lse
+
+
+def fault_segment(lmh, N, V, ctas):
+    """The segment segmented_fwd drops for the planted fault: slot 1 of
+    the first token tile that has two (None if none has)."""
+    for _, m, _, _, slot in lmh.fwd_bf16_segments(N, V, ctas):
+        if slot == 1:
+            return m, 1
+    return None
+
+
 def block_inputs(rnd, B, T, D, F, E=None, w1_scale=1.0):
     """x [B, T, D] and the 12 fused-block params (kernels/fused_block.py's
     PARAM_NAMES order; E defaults to D) at about the startup program's
@@ -588,8 +658,9 @@ def bhtd_bf16_operands(rnd, case):
 
 
 def on_paths(torch, fn, call):
-    """A bf16 flash wrapper fn (with .launches_wgmma and .launches_sync) on
-    one input: call(path) runs it.  Runs it once with path None and reads
+    """A bf16 wrapper fn with path counters (.launches_wgmma and
+    .launches_sync: the flash kernels, the LM-head forward) on one input:
+    call(path) runs it.  Runs it once with path None and reads
     the path it took from the counters, then twice on each path the
     operands admit (both where they took wgmma), forced.  Returns (the
     path taken, {path: (its outputs, two runs bit-identical)})."""
@@ -718,12 +789,21 @@ def phase_build(torch):
         f"in {secs:.2f} s")
     # every kernel's registers, static shared memory and spills (the
     # tile-loop kernels also take gemm_tc.cuh's ring as dynamic shared
-    # memory, which ptxas does not see)
+    # memory, which ptxas does not see), and any wgmma serialization
+    # (C7518), which fails the phase: ptxas then runs every wgmma of that
+    # kernel one after another
+    serialized = []
     for line in _build.build_log().splitlines():
+        if "C7518" in line:
+            serialized.append(line.strip())
         if ("ptxas info" in line and ("Used" in line or "entry" in line)) \
                 or "spill" in line or "warning" in line.lower() \
-                or line.startswith("=="):
+                or "C7518" in line or line.startswith("=="):
             log(f"[build]   {line.strip()}")
+    log(f"[build] wgmma serialized (C7518) in {len(serialized)} kernels")
+    if serialized:
+        raise RuntimeError(f"ptxas serializes the wgmma of "
+                           f"{len(serialized)} kernels (C7518)")
 
 
 def phase_compare(torch):
@@ -989,34 +1069,112 @@ def phase_compare(torch):
 
     compare_flash_hdt_bf16(torch, rnd, note)
 
+    compare_lm_head_bf16(torch, lmh, rnd, g, note)
+    compare_fuse_block_amp(torch, rnd, note)
+    return errs
+
+
+def fwd_plan_drift(lmh, N, D, V, sms):
+    """Where the Python mirror of the wgmma forward's schedule
+    (lm_head.fwd_bf16_plan and fwd_bf16_segments, which the CPU tests and
+    segmented_fwd hold) differs from the library's own plan on this card,
+    as text, or "" where they agree: the CTAs, slots, x resident, stages,
+    each CTA's range of flat tiles, each segment's slot, and the workspace
+    (12 slots N bytes, 256-aligned)."""
+    lib = lmh.fwd_bf16_plan_of_library(N, D, V)
+    mine = lmh.fwd_bf16_plan(N, D, V, sms)
+    out = [f"{k} {mine[k]} (library {lib[k]})"
+           for k in ("ctas", "slots", "x_resident", "stages")
+           if mine[k] != lib[k]]
+    nt, begins = mine["vocab_tiles"], lib["begins"]
+    segs = lmh.fwd_bf16_segments(N, V, mine["ctas"])
+    starts = {}
+    for c, m, v0, _, slot in segs:
+        starts.setdefault(c, m * nt + v0)
+        first = max(k for k in range(len(begins) - 1)
+                    if begins[k] <= m * nt)
+        if slot != c - first:
+            out.append(f"CTA {c}'s segment of token tile {m}: slot {slot} "
+                       f"(library {c - first})")
+    mine_begins = [starts.get(c) for c in range(mine["ctas"])] \
+        + [mine["tiles"]]
+    if mine_begins != begins:
+        out.append("the CTAs' ranges")
+    work = lmh._fn("ptt_lm_head_fwd_bf16_wgmma_workspace")(N, D, V)
+    if work != -(-12 * mine["slots"] * N // 256) * 256:
+        out.append(f"workspace {work} bytes for {mine['slots']} slots")
+    return "; ".join(out)
+
+
+def compare_lm_head_bf16(torch, lmh, rnd, g, note, cases=None):
+    """Phase 3's compares of the bf16 LM head (the AMP path's), on
+    HEAD_BF16_CASES (or `cases`): the forward on the path its operands
+    choose (lm_head.bf16_path, checked by its path counters) and again
+    on each path they admit, forced, twice, its loss and lse within
+    HEAD_TOL of lm_head_fwd_plain and bit-identical on repeat; the
+    backward likewise at BF16_RTOL of max |plain|; on the training case
+    the planted faults (a forward merge without one segment's state, a
+    backward without the onehot term in one vocab tile) refused by more
+    than 4x their tolerance.  note(kernel, path, err) records each
+    kernel's error on the path its operands choose."""
     bf = torch.bfloat16
-    # the bf16 LM head on the f32 cases and one aligned case that is a
-    # multiple of no tile (N, D, V, chunk, ignored labels, scale of x,
-    # label dtype, path): V 1001, D 201 and D 12 take the sync backward
-    # (element copies), the rest the wgmma one, which each case also runs
-    # forced onto the sync path
-    bwd = lmh.lm_head_bwd_bf16
-    for N, D, V, chunk, n_ign, amp, ydt, path in [
-            (TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK, 0, 1,
-             torch.int64, "train"),
-            (1000, 512, 1001, 256, 37, 1, torch.int64, "ragged"),
-            (777, 201, 3000, 300, 11, 1, torch.int32, "ragged"),
-            (5, 12, 100, HEAD_CHUNK, 1, 1, torch.int64, "ragged"),
-            (2048, 512, 32000, 1024, 5, 12, torch.int64, "ragged"),
-            (3001, 264, 4104, 1000, 23, 1, torch.int64, "ragged")]:
+    dev = g.device
+    bwd, fwd = lmh.lm_head_bwd_bf16, lmh.lm_head_fwd_bf16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for N, D, V, chunk, n_ign, amp, ydt, path in cases or HEAD_BF16_CASES:
         x, w = (rnd(N, D) * amp).to(bf), (rnd(D, V) * 0.05).to(bf)
         y = torch.randint(0, V, (N,), generator=g, device=dev)
         y[torch.randperm(N, generator=g, device=dev)[:n_ign]] = -1
-        y = y.to(ydt)
+        y = y.to(getattr(torch, ydt))
         gl = torch.rand(N, generator=g, device=dev) * (2.0 / N)
-        loss, lse = lmh.lm_head_fwd_bf16(x, w, y)
-        loss2, lse2 = lmh.lm_head_fwd_bf16(x, w, y)
         ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
         want = lmh.lm_head_bwd_plain(x, w, y, plse, gl, chunk)
-        torch.cuda.synchronize()
+        # the forward on the path its operands choose, then on each path
+        # they admit, forced, twice
+        fpath, fres = on_paths(torch, fwd,
+                               lambda p: fwd(x, w, y, path=p))
+        if fpath != lmh.bf16_path(x.data_ptr(), w.data_ptr(), D, V):
+            raise RuntimeError(f"bf16 LM head forward took the {fpath} "
+                               f"path")
+        plan = lmh.fwd_bf16_plan(N, D, V, sms)
+        drift = fwd_plan_drift(lmh, N, D, V, sms)
+        if drift:
+            raise RuntimeError(f"bf16 LM head forward N={N} D={D} V={V}: "
+                               f"fwd_bf16_plan is not the library's plan: "
+                               f"{drift}")
+        for p, ((floss, flse), same_f) in fres.items():
+            ef = max(max_err(floss, ploss), max_err(flse, plse))
+            log(f"[compare] lm_head_fwd_bf16 N={N} D={D} V={V} "
+                f"ignored={n_ign} x*{amp} labels {ydt} on the {p} "
+                f"path{'' if p == fpath else ' (forced)'}"
+                + (f" (x {'resident' if plan['x_resident'] else 'streamed'}"
+                   f", {plan['ctas']} CTAs, {plan['slots']} slots)"
+                   if p == "wgmma" else "")
+                + f": loss and lse max abs err {ef:.3g} (tol {HEAD_TOL:g});"
+                f" two runs bit-identical: {same_f}")
+            if not ef <= HEAD_TOL:
+                raise RuntimeError(f"bf16 LM head forward ({p}) disagrees: "
+                                   f"{ef}")
+            if not bool((floss[y < 0] == 0).all()):
+                raise RuntimeError("bf16 LM head: ignored labels give loss")
+            if not same_f:
+                raise RuntimeError(f"bf16 LM head forward ({p}) is not "
+                                   f"deterministic")
+        (loss, lse), _ = fres[fpath]
         ef = max(max_err(loss, ploss), max_err(lse, plse))
-        same_f = torch.equal(loss, loss2) and torch.equal(lse, lse2)
-        shape_path = lmh.bwd_bf16_path(x.data_ptr(), w.data_ptr(), D, V)
+        if path == "train":
+            # the compare must refuse a forward whose merge drops one
+            # segment's state
+            drop = fault_segment(lmh, N, V, plan["ctas"])
+            floss, flse = segmented_fwd(lmh, x, w, y, plan["ctas"], drop)
+            fault = max(max_err(floss, ploss), max_err(flse, plse))
+            log(f"[fault] lm_head_fwd_bf16, the merge without segment "
+                f"{drop} (token tile, slot) of the wgmma split: loss and "
+                f"lse {fault:.3g} (tol {HEAD_TOL:g})")
+            if not fault > 4 * HEAD_TOL:
+                raise RuntimeError(f"the bf16 LM head compare passes a "
+                                   f"dropped segment: {fault}")
+        shape_path = lmh.bf16_path(x.data_ptr(), w.data_ptr(), D, V)
         for forced in (None, "sync") if shape_path == "wgmma" else (None,):
             took = forced or shape_path
             before = (bwd.launches_wgmma, bwd.launches_sync)
@@ -1031,12 +1189,12 @@ def phase_compare(torch):
                                    f"{took} path, counters moved {moved}")
             rb = max(rel_err(a, b) for a, b in zip(got, want))
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            log(f"[compare] lm_head_bf16 N={N} D={D} V={V} chunk={chunk} "
-                f"ignored={n_ign} x*{amp} labels {str(ydt)[6:]}: loss and "
-                f"lse max abs err {ef:.3g} (tol {HEAD_TOL:g}); backward on "
-                f"the {took} path{' (forced)' if forced else ''}: dx, dW "
-                f"{rb:.3g} of max |plain| (tol {BF16_RTOL:g}); two runs "
-                f"bit-identical: forward {same_f}, backward {same}")
+            log(f"[compare] lm_head_bwd_bf16 N={N} D={D} V={V} "
+                f"chunk={chunk} ignored={n_ign} x*{amp} labels "
+                f"{ydt} on the {took} path"
+                f"{' (forced)' if forced else ''}: dx, dW {rb:.3g} of max "
+                f"|plain| (tol {BF16_RTOL:g}); two runs bit-identical: "
+                f"{same}")
             if not rb <= BF16_RTOL:
                 raise RuntimeError(f"bf16 LM head backward ({took}) "
                                    f"disagrees: {rb}")
@@ -1059,16 +1217,8 @@ def phase_compare(torch):
             if not fault > 4 * BF16_RTOL:
                 raise RuntimeError(f"the bf16 LM head compare passes a "
                                    f"dropped onehot tile: {fault}")
-        if not ef <= HEAD_TOL:
-            raise RuntimeError(f"bf16 LM head forward disagrees: {ef}")
-        if not bool((loss[y < 0] == 0).all()):
-            raise RuntimeError("bf16 LM head: ignored labels give loss")
-        if not same_f:
-            raise RuntimeError("bf16 LM head forward is not deterministic")
         note("lm_head_fwd_bf16", path, ef)
 
-    compare_fuse_block_amp(torch, rnd, note)
-    return errs
 
 
 def compare_flash_hdt_bf16(torch, rnd, note):
@@ -1500,8 +1650,10 @@ def _phase_train(torch, fuse_block, amp):
     counters = {n: wrapper(n) for n in KERNELS}
     for fn in counters.values():
         fn.launches = 0
-    head_bwd = counters["lm_head_bwd_bf16"]
-    head_bwd.launches_wgmma = head_bwd.launches_sync = 0
+    head_bwd, head_fwd = (counters["lm_head_bwd_bf16"],
+                          counters["lm_head_fwd_bf16"])
+    for fn in (head_bwd, head_fwd):
+        fn.launches_wgmma = fn.launches_sync = 0
     # the bf16 flash by path: fused_mha's head-major call, the recompute's
     # [B, T, H, d] views, their backwards and the bf16 block kernel's own
     # forward launch
@@ -1545,13 +1697,14 @@ def _phase_train(torch, fuse_block, amp):
         log(f"{tag} step {step}: loss {losses[-1]:.6f} "
             f"({step_ms[-1]:.1f} ms)")
     counts = {n: fn.launches for n, fn in counters.items()}
-    # the bf16 LM-head backward's chunks by path: every one on the wgmma
-    # path at this shape
-    paths = dict(wgmma=head_bwd.launches_wgmma, sync=head_bwd.launches_sync)
-    if amp:
-        log(f"{tag} bf16 LM-head backward chunks by path: {paths}")
-    if paths != dict(wgmma=counts["lm_head_bwd_bf16"], sync=0):
-        raise RuntimeError(f"bf16 LM-head backward paths {paths}")
+    # the bf16 LM-head forward's calls and backward's chunks by path:
+    # every one on the wgmma path at this shape
+    for n, fn in (("forward calls", head_fwd), ("backward chunks", head_bwd)):
+        paths = dict(wgmma=fn.launches_wgmma, sync=fn.launches_sync)
+        if amp:
+            log(f"{tag} bf16 LM-head {n} by path: {paths}")
+        if paths != dict(wgmma=counts[fn.__name__], sync=0):
+            raise RuntimeError(f"bf16 LM-head {n} paths {paths}")
     # ... and every bf16 flash forward and backward on the wgmma path
     fpaths = {n: dict(wgmma=fn.launches_wgmma, sync=fn.launches_sync)
               for n, fn in flash_paths.items()}
@@ -1893,6 +2046,10 @@ BLOCK_BF16_CHAIN_LAUNCHES = 7
 # the launches of one chunk of the bf16 LM-head backward on the sync path:
 # dlogits, dx's K ranges, their sum, dW
 HEAD_BWD_SYNC_KERNELS = 4
+# ... and of one bf16 LM-head forward on either path: the products with
+# the running softmax, the merge of the vocabulary shares (sync) or of each
+# token tile's segments (wgmma)
+HEAD_FWD_KERNELS = 2
 
 
 def head_bwd_kernels():
@@ -2080,13 +2237,15 @@ def block_breakdown(torch, bf16=False, chain=None):
 
 
 def head_breakdown(torch, launches):
-    """The bf16 LM-head backward's launches at the training shape (N 16384,
-    D 512, V 32000, chunk 4096), on the wgmma path and on the sync path
-    (the parent's design): each kernel's device time over one call from
-    torch.profiler, and the product kernels' TFLOP/s of their work (2 C D V
-    FLOP a launch): {path: {kernel name: {"ms", "launches"(, "tflops")}}}.
-    launches maps each path to the launches one call makes there; a record
-    with fewer is traced again."""
+    """The bf16 LM head's launches at the training shape (N 16384, D 512,
+    V 32000, chunk 4096): one forward and one backward, each on the wgmma
+    path and on the sync path (the first design): each kernel's device time
+    over one call from torch.profiler, and the product kernels' TFLOP/s of
+    their work (2 N D V FLOP the forward's, 2 C D V a backward launch):
+    {direction ("fwd", "bwd"): {path: {kernel name: {"ms", "launches"(,
+    "tflops")}}}}.  launches maps each path to the launches one backward
+    makes there (a forward makes HEAD_FWD_KERNELS on either); a record with
+    fewer is traced again."""
     from paddle_tpu_torch.kernels import lm_head as lmh
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     N, D, V, C = TRAIN_BATCH * TRAIN_T, 512, 32000, HEAD_CHUNK
@@ -2096,37 +2255,47 @@ def head_breakdown(torch, launches):
     y = torch.randint(0, V, (N,), generator=g, device=DEVICE)
     gl = torch.full((N,), 1.0 / N, device=DEVICE)
     lse = lmh.lm_head_fwd_bf16(x, w, y)[1]
-    flops = 2 * C * D * V
-    res = {}
-    for path in ("wgmma", "sync"):
-        need = launches[path]
-        events, _ = profiled(torch, lambda: lmh.lm_head_bwd_bf16(
-            x, w, y, lse, gl, C, path=path),
-            lost=lambda ev: None
-            if _device_launches(torch, ev, "lm_head_bwd") >= need else
-            f"{_device_launches(torch, ev, 'lm_head_bwd')} lm_head_bwd "
-            f"launches, expected {need}")
-        rows = {}
-        for e in events:
-            if e.device_type != torch.autograd.DeviceType.CUDA \
-                    or e.self_device_time_total <= 0 \
-                    or "lm_head_bwd" not in e.key:
-                continue
-            ms = e.self_device_time_total / 1e3
-            row = dict(ms=ms, launches=e.count)
-            if "reduce" not in e.key:   # the products
-                row["tflops"] = flops * e.count / ms / 1e9
-            rows[_short_kernel_name(e.key)] = row
-        total = sum(r["ms"] for r in rows.values())
-        log(f"[head] one bf16 LM-head backward N={N} D={D} V={V} chunk {C}, "
-            f"{path} path: {sum(r['launches'] for r in rows.values())} "
-            f"launches, {total:.4f} ms of device time "
-            f"({3 * flops * (N // C) / total / 1e9:.1f} TFLOP/s)")
-        for name, r in rows.items():
-            rate = f", {r['tflops']:.1f} TFLOP/s" if "tflops" in r else ""
-            log(f"[head]   {name}: {r['ms']:.4f} ms ({r['launches']} "
-                f"launches{rate})")
-        res[path] = rows
+    res = {"fwd": {}, "bwd": {}}
+    for d, key, flops, merges in (("fwd", "lm_head_fwd", 2 * N * D * V,
+                                   ("merge",)),
+                                  ("bwd", "lm_head_bwd", 2 * C * D * V,
+                                   ("reduce",))):
+        for path in ("wgmma", "sync"):
+            need = HEAD_FWD_KERNELS if d == "fwd" else launches[path]
+            call = (functools.partial(lmh.lm_head_fwd_bf16, x, w, y,
+                                      path=path) if d == "fwd" else
+                    functools.partial(lmh.lm_head_bwd_bf16, x, w, y, lse,
+                                      gl, C, path=path))
+            events, _ = profiled(
+                torch, call,
+                lost=lambda ev: None
+                if _device_launches(torch, ev, key) >= need else
+                f"{_device_launches(torch, ev, key)} {key} launches, "
+                f"expected {need}")
+            rows = {}
+            for e in events:
+                if e.device_type != torch.autograd.DeviceType.CUDA \
+                        or e.self_device_time_total <= 0 \
+                        or key not in e.key:
+                    continue
+                ms = e.self_device_time_total / 1e3
+                row = dict(ms=ms, launches=e.count)
+                if not any(k in e.key for k in merges):   # the products
+                    row["tflops"] = flops * e.count / ms / 1e9
+                rows[_short_kernel_name(e.key)] = row
+            total = sum(r["ms"] for r in rows.values())
+            work = flops if d == "fwd" else 3 * flops * (N // C)
+            what = "forward" if d == "fwd" else "backward"
+            log(f"[head] one bf16 LM-head {what} N={N} D={D} V={V}"
+                f"{'' if d == 'fwd' else f' chunk {C}'}, {path} path: "
+                f"{sum(r['launches'] for r in rows.values())} launches, "
+                f"{total:.4f} ms of device time "
+                f"({work / total / 1e9:.1f} TFLOP/s)")
+            for name, r in rows.items():
+                rate = f", {r['tflops']:.1f} TFLOP/s" if "tflops" in r else ""
+                log(f"[head]   {name}: {r['ms']:.4f} ms ({r['launches']} "
+                    f"launches{rate})")
+            res[d][path] = rows
     return res
 
 
@@ -2561,8 +2730,16 @@ def phase_timings_amp(torch):
         call()
         torch.cuda.synchronize()
         peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
-    fms, fhost = time_ms(lambda: lmh.lm_head_fwd_bf16(*rot()[:2], y),
-                         iters=10, warmup=2)
+    fwd16 = lmh.lm_head_fwd_bf16
+
+    def fwd_call(path):
+        return fwd16(*rot()[:2], y, path=path)
+
+    fms, fhost, fpath = timed_on_path(fwd16, fwd_call, None, iters=10,
+                                      warmup=2)
+    # the same inputs forced onto the sync path (the first design)
+    fsync, fsync_host, _ = timed_on_path(fwd16, fwd_call, "sync", iters=10,
+                                         warmup=2)
     fplain, _ = time_ms(lambda: lmh.lm_head_fwd_plain(*rot()[:2], y),
                         iters=5, warmup=1)
     flib, _ = time_ms(lambda: F.cross_entropy(
@@ -2602,6 +2779,8 @@ def phase_timings_amp(torch):
     bbytes = 2 * (2 * N * D + 2 * D * V) + 8 * N + 2 * 4 * N
     res["lm_head_fwd_bf16"] = dict(ms=fms, plain_ms=fplain, library_ms=flib,
                                    peak_mib=peak["lm_head_fwd_bf16"],
+                                   path=fpath, sync_ms=fsync, host_ms=fhost,
+                                   sync_host_ms=fsync_host,
                                    **bf16_bounds(fops, fbytes, fms))
     res["lm_head_bwd_bf16"] = dict(ms=bms, plain_ms=bplain, library_ms=blib,
                                    peak_mib=peak["lm_head_bwd_bf16"],
@@ -2620,6 +2799,10 @@ def phase_timings_amp(torch):
             f"GFLOP at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s); host enqueue "
             f"per call {host_:.4f} ms; peak device memory over a call "
             f"{peak[name]:.1f} MiB above its inputs")
+    log(f"[time amp] lm_head_fwd_bf16 took the {fpath} path; the sync path "
+        f"(gemm_bf16.cuh's loop) on the same inputs {fsync:.3f} ms "
+        f"({fops / fsync / 1e9:.1f} TFLOP/s), host enqueue per call "
+        f"{fsync_host:.4f} ms")
     log(f"[time amp] lm_head_bwd_bf16 took the {bpath} path; the sync path "
         f"(gemm_bf16.cuh's loop) on the same inputs {bsync:.3f} ms "
         f"({3 * fops / bsync / 1e9:.1f} TFLOP/s)")
@@ -3038,10 +3221,10 @@ def main():
                                         fetch_list=[ftrain["avg_cost"]],
                                         return_numpy=False),
               expect={BLOCK_GEMMS: 4 * FLAGSHIP["n_layer"]})
-    # the AMP step: the bf16 kernels (the forward and the merge of its
-    # shares; the backward's kernels per chunk on the wgmma path), no f32
-    # flash or LM head; the layer norms by their input type (the first
-    # takes the f32 embedding)
+    # the AMP step: the bf16 kernels (the LM-head forward and the merge of
+    # its segments, the backward's kernels per chunk, both on the wgmma
+    # path), no f32 flash or LM head; the layer norms by their input type
+    # (the first takes the f32 embedding)
     n_head_bwd = -(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK) * head_bwd_kernels()
     with amp_bf16():
         names = trace_run(
@@ -3095,16 +3278,25 @@ def main():
         raise RuntimeError(f"AMP fuse_block step layer norms {ln}")
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
-    by_path = head_breakdown(torch, {"wgmma": n_head_bwd,
-                                     "sync": n_head_sync})
-    for path, n in (("wgmma", n_head_bwd), ("sync", n_head_sync)):
-        n_head = sum(r["launches"] for r in by_path[path].values())
+    heads = head_breakdown(torch, {"wgmma": n_head_bwd,
+                                   "sync": n_head_sync})
+    for d, path, n in (("bwd", "wgmma", n_head_bwd),
+                       ("bwd", "sync", n_head_sync),
+                       ("fwd", "wgmma", HEAD_FWD_KERNELS),
+                       ("fwd", "sync", HEAD_FWD_KERNELS)):
+        n_head = sum(r["launches"] for r in heads[d][path].values())
         if n_head != n:
-            raise RuntimeError(f"one bf16 LM-head backward on the {path} "
-                               f"path made {n_head} launches, expected {n}")
-    amp_times["lm_head_bwd_bf16"].update(by_kernel=by_path["wgmma"],
-                                         sync_by_kernel=by_path["sync"],
-                                         launches_per_call=n_head_bwd)
+            raise RuntimeError(f"one bf16 LM-head {d} on the {path} path "
+                               f"made {n_head} launches, expected {n}")
+    for path, rows in heads["fwd"].items():
+        if (path == "wgmma") != all("_wg_" in n for n in rows):
+            raise RuntimeError(f"the bf16 LM-head forward's {path} path "
+                               f"launched {sorted(rows)}")
+    for d, name, n in (("bwd", "lm_head_bwd_bf16", n_head_bwd),
+                       ("fwd", "lm_head_fwd_bf16", HEAD_FWD_KERNELS)):
+        amp_times[name].update(by_kernel=heads[d]["wgmma"],
+                               sync_by_kernel=heads[d]["sync"],
+                               launches_per_call=n)
     by_path = flash_bwd_breakdown(torch)
     for path, rows in by_path.items():
         if sum(r["launches"] for r in rows.values()) != 2:

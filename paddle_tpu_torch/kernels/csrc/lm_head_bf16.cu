@@ -20,18 +20,26 @@
 // backward three (recompute, dx, dW), 1.61 TFLOP, 1.628 ms.  The bytes (x,
 // W, dx, dW once) are two orders of magnitude below that.
 //
-// Design.  The forward and the backward's sync path run on the bf16
-// tile loop of gemm_bf16.cuh (128 x 128 CTA tiles, 8 warps of mma.sync, a
-// 4-stage cp.async ring, ldmatrix fragments); the backward's main path on
-// wgmma_bf16.cuh (TMA into an mbarrier ring, wgmma, a producer warp and two
-// consumer warpgroups, a persistent grid).  Operands go from device memory
-// to shared memory as they are.
-//   lm_head_fwd: as lm_head.cu's: a CTA takes 128 tokens and one of S
-//     contiguous shares of the vocabulary tiles, folds each vocab tile's
-//     logits into a running (max, sum of exp, gold logit) per row in
-//     registers, merges its lanes and warps in a fixed order, and a second
-//     launch merges the shares of each token in share order.  No logit
-//     leaves the chip.
+// Design.  The main paths of both directions run on wgmma_bf16.cuh's
+// pieces (TMA into an mbarrier ring, wgmma, a producer warp and two
+// consumer warpgroups, a persistent grid); their sync paths, for operands
+// TMA cannot describe, on the bf16 tile loop of gemm_bf16.cuh (128 x 128
+// CTA tiles, 8 warps of mma.sync, a 4-stage cp.async ring, ldmatrix
+// fragments).  Operands go from device memory to shared memory as they
+// are.  Both directions choose the path the same way (below).
+//   lm_head_fwd, wgmma path (ptt_lm_head_fwd_bf16_wgmma): a balanced
+//     persistent split of the flat (token tile, vocab tile) grid, x held
+//     in shared memory across a CTA's vocab tiles where D <= 640, the
+//     running (max, sum of exp, gold logit) in the epilogue, overlapped
+//     with the other warpgroup's products; a second launch merges each token
+//     tile's segments in vocabulary order ("the forward on wgmma_bf16.cuh's
+//     pieces" below).  2 launches.
+//   lm_head_fwd, sync path (ptt_lm_head_fwd_bf16): as lm_head.cu's: a CTA
+//     takes 128 tokens and one of S contiguous shares of the vocabulary
+//     tiles, folds each vocab tile's logits into a running (max, sum of
+//     exp, gold logit) per row in registers, merges its lanes and warps in
+//     a fixed order, and a second launch merges the shares of each token
+//     in share order.  No logit leaves the chip on either path.
 //   lm_head_bwd, per token chunk of C rows (the op's chunk_size):
 //     (1) recomputes the logits tile and writes dlogits [C, V], rounded to
 //     bf16, to the workspace; (2) dx = dlogits W^T with the vocabulary (K)
@@ -43,7 +51,8 @@
 //     bf16, instead.  Every output element is summed by one thread in a
 //     fixed order: no atomics, the same bits on every run.
 //   Two paths run the backward's products, chosen by the caller from the
-//   operands before the launch (kernels/lm_head.py bwd_bf16_path):
+//   operands before the launch (kernels/lm_head.py bwd_bf16_path; the
+//   forward's fwd_bf16_path is the same condition):
 //     wgmma (ptt_lm_head_bwd_chunk_bf16_wgmma) where TMA can describe x and
 //     W: 16-byte-aligned bases, D and V multiples of 8 (16-byte rows).
 //     Every operand is read in its own layout: recompute A = x (K-major),
@@ -59,7 +68,8 @@
 // Memory: the backward's workspace holds dlogits (2 C V bytes: 250 MiB at
 // C 4096, V 32000, a quarter of the f32 kernel's (hi, lo) pairs), the dx
 // partials (4 S C D bytes, none where S = 1) and the f32 dW sum (4 D V
-// bytes); the forward's holds the shares' partial states.
+// bytes); the forward's holds the shares' (sync) or the segments'
+// (wgmma) partial states.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -524,6 +534,446 @@ cudaError_t launch_wg(const CUtensorMap& ta, const CUtensorMap& tb,
   return cudaGetLastError();
 }
 
+// ---- the forward on wgmma_bf16.cuh's pieces (the wgmma path) ----
+//
+// lm_head_fwd_bf16_wg_kernel<XRES> computes what lm_head_fwd_bf16_kernel
+// does, x [N, D] . W [D, V] folded into a running (max, sum of exp, gold
+// logit) per row, on Hopper's warpgroup tensor cores:
+//   - The split.  The grid of 128 x 128 (token tile, vocab tile) tiles is
+//     flattened with the vocabulary fastest and cut into gridDim.x
+//     contiguous ranges of equal length (+-1), one per persistent CTA
+//     (min(132, tiles) CTAs; 32000 tiles at the training shape, 242-243 a
+//     CTA).  A range's tiles of one token tile form a segment.  Each
+//     segment writes its rows' (max, sum, gold) to its slot of the
+//     workspace, slot = CTA - (the first CTA of that token tile), and the
+//     merge launch folds a row's slots in vocabulary order.  No atomics:
+//     the same bits on every call on one card.
+//   - The loop.  384 threads: consumer warpgroups 0 and 1 and a producer
+//     warpgroup whose warp 8 lane 0 issues the TMA loads and which gives
+//     its registers to the consumers (setmaxnreg 40 / 232).  The consumers
+//     ping-pong: warpgroup h takes the CTA's vocab tiles of parity h, all
+//     128 rows of each (two wgmma m64n128k16 a k16 step, A = x read
+//     K-major, B = W read N-major, 128 f32 accumulators a thread), and
+//     they issue a tile's products in turns (named barriers), so that one
+//     warpgroup's softmax runs while the other's products do, as in the
+//     flash forward.  At a segment's end warpgroup 0 merges its rows'
+//     states with warpgroup 1's.  XRES (D <= 640): x's 128 x D tile stays in
+//     shared memory for a whole segment (cdiv(D, 64) K-major boxes of 64 k
+//     x 128 rows, loaded at the segment's start: a CTA whose range crosses
+//     one token-tile boundary loads x twice), and only W's k-tiles stream
+//     through the mbarrier ring (6 stages of 16 KiB at D 512: 128 + 96
+//     KiB).  That halves the bytes a product reads from L2, to 128 FLOP a
+//     byte.  Else x's k-tile streams beside W's in each stage, as in
+//     ptt_wg::mainloop.
+//   - The epilogue.  Each consumer thread keeps a (max, sum, gold) of its
+//     own columns for each of its rows, with no shuffle a tile: per logit
+//     one select (the ragged vocabulary tail, which TMA fills with zeros,
+//     becomes -1e30), one max, one FMA and one ex2.approx; the gold logit
+//     is a compare of the column with the label's offset in the tile.  The
+//     quad's lanes are merged once, at the segment's end, in a fixed
+//     order, then the two warpgroups'.
+//   - Slower forms, measured and not kept (PERF.md): x streamed where it
+//     fits, and each warpgroup its own 64 rows of every vocab tile with the
+//     next tile's first k-tiles issued into a second accumulator set before
+//     this tile's softmax (its conditional issue meets C7518).
+//   - One accumulator set carries a tile's whole k loop; a build with
+//     -DPTT_WG_FLUSH=n adds every n k-tiles into a second one
+//     (tools/wgmma_flush.py).  No read of an accumulator sits under a
+//     branch that ptxas cannot prove uniform (C7518): every bound derives
+//     from blockIdx and the arguments in 32-bit arithmetic (a 64-bit
+//     division is a call), the warp index goes through __shfl_sync, and a
+//     tile's products complete (wait_group 0) before its softmax reads
+//     them.
+namespace fwd_wg {
+
+constexpr int kThreads = 384;
+constexpr int kSmemMax = 232448;   // a block's opt-in dynamic shared memory
+constexpr int kMisc = 2048;        // barriers, then the warpgroups' exchange
+constexpr int kXchg = 256;         // the exchange's offset in kMisc
+constexpr int kBox = ptt_wg::kTileBytes;   // 64 k x 128 rows of bf16
+constexpr int kMaxStages = 8, kMinStages = 4;
+
+constexpr int kFlush = ptt_wg::kFlush;
+
+// The balanced split of `tiles` = q ctas + r flat tiles (t = m nt + v)
+// over `ctas` CTAs: CTA c takes [begin(c), begin(c + 1)), begin(c) =
+// floor(c tiles / ctas).
+struct Split {
+  int tiles, nt, ctas, q, r;
+  __host__ __device__ int begin(int c) const { return c * q + c * r / ctas; }
+  // the CTA whose range holds tile t (host and the merge launch)
+  __host__ __device__ int owner(int t) const {
+    return (int)(((t + 1LL) * ctas - 1) / tiles);
+  }
+};
+
+struct Args {
+  Split sp;
+  int N, V, nk, nst;           // k-tiles of D, ring stages
+  const long long* labels;
+  float* part;                 // [slots][3][N]: max, sum, gold
+};
+
+// A consumer warpgroup's view of the ring: the slot its next k-tile lands
+// in (iss) and the oldest slot it has not released (rel), `held` apart.
+template <bool XRES>
+struct Ring {
+  static constexpr int kStage = XRES ? kBox : 2 * kBox;   // (x's,) W's
+  uint32_t ring, xs, bars;
+  int nst;
+  ptt_wg::Pipe iss, rel;
+  int held = 0;
+
+  __device__ __forceinline__ uint32_t full(int s) const {
+    return bars + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8 * (kMaxStages + s);
+  }
+  // k-tile k's products for the tile's two 64-row halves into d0 and d1
+  // (fresh: overwriting them), one commit group; waits for the k-tile
+  __device__ __forceinline__ void issue(float (&d0)[64], float (&d1)[64],
+                                        int k, bool fresh) {
+    ptt_wg::mbar_wait(full(iss.stage), iss.phase);
+    ptt_wg::wgmma_fence();
+    const uint32_t st = ring + iss.stage * kStage;
+    const uint32_t ta = XRES ? xs + k * kBox : st;
+    const uint32_t tb = XRES ? st : st + kBox;
+#pragma unroll
+    for (int j = 0; j < ptt_wg::kBK / 16; ++j) {
+      const uint64_t db = ptt_wg::Op<true>::desc(tb, 0, j);
+      ptt_wg::wgmma<0, 1>(d0, ptt_wg::Op<false>::desc(ta, 0, j), db,
+                          fresh && j == 0 ? 0 : 1);
+      ptt_wg::wgmma<0, 1>(d1, ptt_wg::Op<false>::desc(ta, 64, j), db,
+                          fresh && j == 0 ? 0 : 1);
+    }
+    ptt_wg::wgmma_commit();
+    iss.next(nst);
+    ++held;
+  }
+  // releases slots until `keep` are held (their groups have completed)
+  __device__ __forceinline__ void release_to(int keep) {
+    for (; held > keep; --held) {
+      ptt_wg::release(empty(rel.stage));
+      rel.next(nst);
+    }
+  }
+  // moves past n k-tiles (the other warpgroup's), none held
+  __device__ __forceinline__ void skip(int n) {
+    for (int i = 0; i < n; ++i) {
+      iss.next(nst);
+      rel.next(nst);
+    }
+  }
+};
+
+// the consumer warpgroups' turns (ping-pong: named barriers 3 and 4, 256
+// threads; one waits, the other arrives) and their exchange (barrier 5)
+__device__ __forceinline__ void turn_wait(int h) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + h) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int h) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - h) : "memory");
+}
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 5, 256;\n" ::: "memory");
+}
+
+// A vocab tile's products, issued in this warpgroup's turn; waits for them
+// and releases their slots.  kFlush > 0 (a measurement build, whose flush
+// branch reads an accumulator): every k-tile goes into p0 and p1, added to
+// d0 and d1 every kFlush k-tiles and at the end.
+template <bool XRES>
+__device__ __forceinline__ void tile(Ring<XRES>& rg, float (&d0)[64],
+                                     float (&d1)[64], int nk, int h) {
+  turn_wait(h);
+  if constexpr (kFlush > 0) {
+    float p0[64], p1[64];
+    for (int k = 0; k < nk; ++k) {
+      rg.issue(p0, p1, k, k % kFlush == 0);
+      if ((k + 1) % kFlush == 0 || k + 1 == nk) {
+        ptt_wg::wgmma_wait<0>();
+        ptt_wg::fence_acc(p0);
+        ptt_wg::fence_acc(p1);
+        rg.release_to(0);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          d0[i] = k < kFlush ? p0[i] : d0[i] + p0[i];
+          d1[i] = k < kFlush ? p1[i] : d1[i] + p1[i];
+        }
+      }
+    }
+    turn_pass(h);
+  } else {
+    for (int k = 0; k < nk; ++k) {
+      rg.issue(d0, d1, k, k == 0);
+      ptt_wg::wgmma_wait<1>();
+      rg.release_to(1);
+    }
+    turn_pass(h);
+    ptt_wg::wgmma_wait<0>();
+    ptt_wg::fence_acc(d0);
+    ptt_wg::fence_acc(d1);
+    rg.release_to(0);
+  }
+}
+
+// Folds vocab tile n0.. of one 64-row half (acc as wgmma leaves it:
+// acc[4 j + 2 i + e] is row fr + 8 i, column n0 + 8 j + fc + e) into the
+// thread's running states of its two rows, whose labels are y.
+__device__ __forceinline__ void fold(float (&acc)[64], RowState (&st)[2],
+                                     const int (&y)[2], int n0, int V,
+                                     int fc) {
+  const int lim = V - n0 - fc;   // this thread's columns 8 j + e < lim
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int yo = y[i] - n0 - fc;
+    float mx = kNegInf, gold = st[i].gold;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = acc[4 * j + 2 * i + e];
+        v = 8 * j + e < lim ? v : kNegInf;
+        mx = fmaxf(mx, v);
+        gold = 8 * j + e == yo ? v : gold;
+      }
+    const float m = fmaxf(st[i].m, mx), ml = m * kLog2e;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      s0 += ex2(fmaf(acc[4 * j + 2 * i], kLog2e, -ml));
+      s1 += ex2(fmaf(acc[4 * j + 2 * i + 1], kLog2e, -ml));
+    }
+    st[i].l = fmaf(st[i].l, ex2(fmaf(st[i].m, kLog2e, -ml)), s0 + s1);
+    st[i].m = m;
+    st[i].gold = gold;
+  }
+}
+
+}  // namespace fwd_wg
+
+template <bool XRES>
+__global__ void __launch_bounds__(fwd_wg::kThreads, 1)
+    lm_head_fwd_bf16_wg_kernel(const __grid_constant__ CUtensorMap tx,
+                               const __grid_constant__ CUtensorMap tw,
+                               const fwd_wg::Args a) {
+  using namespace fwd_wg;
+  constexpr int kStage = Ring<XRES>::kStage;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = ptt_wg::smem_addr(smem_raw);
+  const uint32_t pad = (1024 - raw % 1024) % 1024;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (kMaxStages + s), x's
+  // full and empty after them; the exchange; x's boxes (XRES); the ring
+  const uint32_t bars = raw + pad;
+  const uint32_t xfull = bars + 16 * kMaxStages, xempty = xfull + 8;
+  float* xchg = reinterpret_cast<float*>(smem_raw + pad + kXchg);
+  const uint32_t xs = bars + kMisc;
+  const uint32_t ring = xs + (XRES ? a.nk * kBox : 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.nst; ++i) {
+      ptt_wg::mbar_init(bars + 8 * i, 1);
+      // one arrival per consumer warp that reads the slot
+      ptt_wg::mbar_init(bars + 8 * (kMaxStages + i), 4);
+    }
+    ptt_wg::mbar_init(xfull, 1);
+    ptt_wg::mbar_init(xempty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tb = a.sp.begin(blockIdx.x), te = a.sp.begin(blockIdx.x + 1);
+  const int nt = a.sp.nt;
+  // the warp's index, known to ptxas to be the same across the warp
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != 8 || (threadIdx.x & 31) != 0) return;
+    // every k-tile of every vocab tile of the range, in order; x's tile at
+    // each segment's start (XRES)
+    ptt_wg::Pipe p;
+    int seg = 0;
+    for (int t = tb; t < te; ++seg) {
+      const int m = t / nt, se = min(te, (m + 1) * nt);
+      if (XRES) {
+        ptt_wg::mbar_wait(xempty, (seg & 1) ^ 1);
+        ptt_wg::mbar_expect_tx(xfull, a.nk * kBox);
+        for (int k = 0; k < a.nk; ++k)
+          ptt_wg::tma_load(xs + k * kBox, &tx, xfull, k * ptt_wg::kBK,
+                           m * ptt_wg::kBM);
+      }
+      for (; t < se; ++t) {
+        const int n0 = (t - m * nt) * ptt_wg::kBN;
+        for (int k = 0; k < a.nk; ++k) {
+          const uint32_t full = bars + 8 * p.stage;
+          const uint32_t st = ring + p.stage * kStage;
+          ptt_wg::mbar_wait(bars + 8 * (kMaxStages + p.stage), p.phase ^ 1);
+          ptt_wg::mbar_expect_tx(full, kStage);
+          if (!XRES)
+            ptt_wg::Op<false>::load(st, &tx, full, m * ptt_wg::kBM,
+                                    k * ptt_wg::kBK);
+          ptt_wg::Op<true>::load(st + (XRES ? 0 : kBox), &tw, full, n0,
+                                 k * ptt_wg::kBK);
+          p.next(a.nst);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int h = warp >> 2, lane = threadIdx.x & 31;
+  const int fr = 16 * (warp & 3) + (lane >> 2);   // rows fr, fr + 8 of 64
+  const int fc = 2 * (lane & 3);                  // columns fc, fc + 1 of 8
+  // this thread's rows: fr + 8 i of the tile's half b
+  Ring<XRES> rg;
+  rg.ring = ring;
+  rg.xs = xs;
+  rg.bars = bars;
+  rg.nst = a.nst;
+  float acc0[64], acc1[64];
+  if (h == 1) turn_pass(1);   // warpgroup 0 first
+  int at = 0;   // the ring stands at tile tb + at's first k-tile
+  int seg = 0;
+  for (int t = tb; t < te; ++seg) {
+    const int m = t / nt, se = min(te, (m + 1) * nt);
+    const int v0 = t - m * nt, n = se - t;
+    int y[2][2];
+    RowState st[2][2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = m * ptt_wg::kBM + 64 * b + fr + 8 * i;
+        y[b][i] = r < a.N ? (int)a.labels[r] : -1;
+        st[b][i] = RowState{kNegInf, 0.f, 0.f};
+      }
+    if (XRES) ptt_wg::mbar_wait(xfull, seg & 1);
+    // this warpgroup's tiles of the segment: local index q of parity h
+    const int q0 = t - tb;
+    for (int q = q0 + ((q0 & 1) != h); q < q0 + n; q += 2) {
+      rg.skip((q - at) * a.nk);
+      tile(rg, acc0, acc1, a.nk, h);
+      at = q + 1;
+      const int n0 = (v0 + q - q0) * ptt_wg::kBN;
+      fold(acc0, st[0], y[0], n0, a.V, fc);
+      fold(acc1, st[1], y[1], n0, a.V, fc);
+    }
+    if (XRES) ptt_wg::release(xempty);   // every product of x has completed
+    // the segment's slot: this CTA's place among its token tile's CTAs
+    int first = blockIdx.x;
+    while (first > 0 && a.sp.begin(first) > m * nt) --first;
+    float* out = a.part + (long long)(blockIdx.x - first) * 3 * a.N;
+    // the quad's lanes, in a fixed order; then warpgroup 0's state with
+    // warpgroup 1's, through shared memory
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        RowState s = shfl_merge(st[b][i], 1);
+        s = shfl_merge(s, 2);
+        const int lr = 64 * b + fr + 8 * i;   // tile row
+        if (h == 1 && fc == 0) {
+          xchg[3 * lr] = s.m;
+          xchg[3 * lr + 1] = s.l;
+          xchg[3 * lr + 2] = s.gold;
+        }
+        st[b][i] = s;
+      }
+    pair_sync();
+    if (h == 0 && fc == 0) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int lr = 64 * b + fr + 8 * i;
+          const int r = m * ptt_wg::kBM + lr;
+          const RowState s =
+              merge(st[b][i], RowState{xchg[3 * lr], xchg[3 * lr + 1],
+                                       xchg[3 * lr + 2]});
+          if (r < a.N) {
+            out[r] = s.m;
+            out[a.N + r] = s.l;
+            out[2 * a.N + r] = s.gold;
+          }
+        }
+    }
+    pair_sync();   // the exchange is free again
+    t = se;
+  }
+}
+
+// loss and lse of each token from its token tile's segment states, merged
+// in vocabulary order (slot 0 first)
+__global__ void lm_head_fwd_bf16_wg_merge_kernel(
+    const float* __restrict__ part, const long long* __restrict__ labels,
+    float* __restrict__ loss, float* __restrict__ lse, int N,
+    fwd_wg::Split sp) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  const int t0 = r / ptt_wg::kBM * sp.nt;
+  const int slots = sp.owner(t0 + sp.nt - 1) - sp.owner(t0) + 1;
+  RowState s{kNegInf, 0.f, 0.f};
+  for (int k = 0; k < slots; ++k) {
+    const float* p = part + (long long)k * 3 * N + r;
+    s = merge(s, RowState{p[0], p[N], p[2 * N]});
+  }
+  const float ls = s.m + logf(fmaxf(s.l, 1e-30f));
+  lse[r] = ls;
+  loss[r] = labels[r] >= 0 ? ls - s.gold : 0.f;
+}
+
+// The wgmma forward's plan on this card: the split over min(SMs, tiles)
+// CTAs, the slots a token tile's segments take (the most over the token
+// tiles), the k-tiles, whether x stays resident, the ring's stages and the
+// dynamic shared memory.  ok is false where the sizes cannot be planned
+// (tiles past 32 bits).  kernels/lm_head.py fwd_bf16_plan mirrors it, and
+// ptt_lm_head_fwd_bf16_wgmma_plan exports it for the card's tests.
+struct FwdWgPlan {
+  fwd_wg::Split sp;
+  int slots, nk, xres, nst, smem;
+  bool ok;
+};
+
+FwdWgPlan fwd_wg_plan(int N, int D, int V) {
+  using namespace fwd_wg;
+  FwdWgPlan p{};
+  const long long mt = cdiv(N, ptt_wg::kBM), nt = cdiv(V, ptt_wg::kBN);
+  p.ok = N > 0 && D > 0 && V > 0 && mt * nt < (1LL << 30);
+  if (!p.ok) return p;
+  const int ctas = mt * nt < sm_count() ? (int)(mt * nt) : sm_count();
+  p.sp.nt = (int)nt;
+  p.sp.tiles = (int)(mt * nt);
+  p.sp.ctas = ctas;
+  p.sp.q = p.sp.tiles / ctas;
+  p.sp.r = p.sp.tiles % ctas;
+  p.nk = cdiv(D, ptt_wg::kBK);
+  const long long room = kSmemMax - 1024 - kMisc;
+  const long long res = (room - (long long)p.nk * kBox) / kBox;
+  p.xres = res >= kMinStages;
+  p.nst = (int)(p.xres ? res : room / (2 * kBox));
+  p.nst = p.nst < kMaxStages ? p.nst : kMaxStages;
+  p.smem = 1024 + kMisc + (p.xres ? p.nk * kBox : 0) +
+           p.nst * (p.xres ? 1 : 2) * kBox;
+  for (int m = 0; m < mt; ++m) {
+    const int t0 = m * p.sp.nt;
+    const int s = p.sp.owner(t0 + p.sp.nt - 1) - p.sp.owner(t0) + 1;
+    p.slots = s > p.slots ? s : p.slots;
+  }
+  return p;
+}
+
+template <bool XRES>
+cudaError_t launch_fwd_wg(const CUtensorMap& tx, const CUtensorMap& tw,
+                          const FwdWgPlan& p, const fwd_wg::Args& a,
+                          cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      lm_head_fwd_bf16_wg_kernel<XRES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  lm_head_fwd_bf16_wg_kernel<XRES>
+      <<<p.sp.ctas, fwd_wg::kThreads, p.smem, s>>>(tx, tw, a);
+  return cudaGetLastError();
+}
+
 // the forward's vocabulary shares: tiles per share and the share count
 void fwd_plan(int N, int V, int& per, int& shares) {
   const int mt = cdiv(N, kBM), nt = cdiv(V, kBN);
@@ -609,6 +1059,64 @@ extern "C" int ptt_lm_head_fwd_bf16(const void* x, const void* w,
   lm_head_fwd_bf16_merge_kernel<<<cdiv(N, 256), 256, 0, s>>>(
       part, y, static_cast<float*>(loss), static_cast<float*>(lse), N,
       shares);
+  return (int)cudaGetLastError();
+}
+
+// Workspace bytes of ptt_lm_head_fwd_bf16_wgmma: the segments' states,
+// [slots][3][N] f32 (0 where the sizes cannot be planned).
+extern "C" long long ptt_lm_head_fwd_bf16_wgmma_workspace(int N, int D,
+                                                          int V) {
+  const FwdWgPlan p = fwd_wg_plan(N, D, V);
+  return p.ok ? align256(12LL * p.slots * N) : 0;
+}
+
+// The wgmma forward's plan on this card, for a check of its Python mirror:
+// out[0..5] = CTAs, slots, k-tiles, x resident (0 or 1), ring stages,
+// dynamic shared memory; begins[c] = the first flat tile of CTA c for c <=
+// CTAs, as far as `nbegins` entries go.  Returns cudaErrorInvalidValue
+// where the sizes cannot be planned.
+extern "C" int ptt_lm_head_fwd_bf16_wgmma_plan(int N, int D, int V,
+                                               int* out, int* begins,
+                                               int nbegins) {
+  const FwdWgPlan p = fwd_wg_plan(N, D, V);
+  if (!p.ok) return (int)cudaErrorInvalidValue;
+  const int v[6] = {p.sp.ctas, p.slots, p.nk, p.xres, p.nst, p.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  for (int c = 0; c <= p.sp.ctas && c < nbegins; ++c)
+    begins[c] = p.sp.begin(c);
+  return 0;
+}
+
+// The forward on the wgmma path: the arguments of ptt_lm_head_fwd_bf16;
+// min(SMs, tiles) CTAs; x and w 16-byte aligned, D and V multiples of 8,
+// as TMA needs, else cudaErrorInvalidValue before any launch; work holds
+// ptt_lm_head_fwd_bf16_wgmma_workspace(N, D, V) bytes, 256-byte aligned.
+// Two launches: the products with the running softmax, the merge of each
+// token tile's segments.  Returns a cudaError_t as int.
+extern "C" int ptt_lm_head_fwd_bf16_wgmma(const void* x, const void* w,
+                                          const void* labels, void* loss,
+                                          void* lse, void* work, int N,
+                                          int D, int V, void* stream) {
+  const FwdWgPlan p = fwd_wg_plan(N, D, V);
+  if (!p.ok || D % 8 || V % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const WMaps* wm;
+  CUtensorMap x_k;
+  cudaError_t err;
+  if ((err = w_maps(static_cast<const bf16*>(w), D, V, wm)) != cudaSuccess ||
+      (err = kmajor_map(&x_k, xb, D, N, D)) != cudaSuccess)
+    return (int)err;
+  const long long* y = static_cast<const long long*>(labels);
+  float* part = static_cast<float*>(work);
+  const fwd_wg::Args a{p.sp, N, V, p.nk, p.nst, y, part};
+  err = p.xres ? launch_fwd_wg<true>(x_k, wm->mn, p, a, s)
+               : launch_fwd_wg<false>(x_k, wm->mn, p, a, s);
+  if (err != cudaSuccess) return (int)err;
+  lm_head_fwd_bf16_wg_merge_kernel<<<cdiv(N, 256), 256, 0, s>>>(
+      part, y, static_cast<float*>(loss), static_cast<float*>(lse), N, p.sp);
   return (int)cudaGetLastError();
 }
 

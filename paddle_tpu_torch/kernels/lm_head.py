@@ -27,20 +27,23 @@ any V: the JAX gates on N % 256 and d <= 2048 exist for Mosaic's tiles.
 Under ``FLAGS_amp_bf16`` the ``fused_lm_head_loss`` op hands the head bf16
 x and W.  Those go to the kernels of ``csrc/lm_head_bf16.cu`` (wrappers
 ``lm_head_fwd_bf16`` and ``lm_head_bwd_bf16``, each with its own
-``.launches``), bf16 products with f32 accumulation, no split.  The
-forward runs on the ``mma.sync`` tile loop of ``csrc/gemm_bf16.cuh``.  The
-backward has two paths, chosen on the host from the operands before the
-launch (``bwd_bf16_path``): "wgmma", the tile loop of
-``csrc/wgmma_bf16.cuh`` (TMA loads into an mbarrier ring, ``wgmma``, a
-producer warp and two consumer warpgroups on a persistent grid), where TMA
-can describe x and W (16-byte-aligned bases, D and V multiples of 8); and
-"sync", the ``gemm_bf16.cuh`` loop, for the rest (an odd D or V).  Each
-path counts its chunks apart (``lm_head_bwd_bf16.launches_wgmma``,
-``.launches_sync``).  Loss and lse stay f32.  The backward rounds where
-the Pallas kernel rounds in bf16: dlogits to x's dtype before the dx and
-dW products (lm_head.py:128), dx once per chunk (:243), and dW summed in
-f32 over the chunks and rounded once at the end (:244).  The plain
-versions carry the same roundings for bf16 inputs.
+``.launches``), bf16 products with f32 accumulation, no split.  Each
+direction has two paths, chosen on the host from the operands before the
+launch (``bf16_path``, one condition for both): "wgmma",
+built from the pieces of ``csrc/wgmma_bf16.cuh`` (TMA loads into an
+mbarrier ring, ``wgmma``, a producer warp and two consumer warpgroups on a
+persistent grid), where TMA can describe x and W (16-byte-aligned bases, D
+and V multiples of 8); and "sync", the ``mma.sync`` loop of
+``csrc/gemm_bf16.cuh``, for the rest (an odd D or V).  The wgmma forward
+splits the flat (token tile, vocab tile) grid evenly over min(SMs, tiles)
+CTAs (``fwd_bf16_plan``), keeps x's tile in shared memory where D <= 640
+and folds each vocab tile into the running softmax in the epilogue.  Each
+path counts its launches apart (``.launches_wgmma``, ``.launches_sync`` of
+both wrappers; the backward's are chunks).  Loss and lse stay f32.  The
+backward rounds where the Pallas kernel rounds in bf16: dlogits to x's
+dtype before the dx and dW products (lm_head.py:128), dx once per chunk
+(:243), and dW summed in f32 over the chunks and rounded once at the end
+(:244).  The plain versions carry the same roundings for bf16 inputs.
 """
 from __future__ import annotations
 
@@ -64,11 +67,21 @@ _SIGNATURES = {
     "ptt_lm_head_bwd_chunk_bf16": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "ptt_lm_head_bwd_bf16_wgmma_workspace": ([_I] * 4, _LL),
     "ptt_lm_head_bwd_chunk_bf16_wgmma": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "ptt_lm_head_fwd_bf16_wgmma_workspace": ([_I] * 3, _LL),
+    "ptt_lm_head_fwd_bf16_wgmma": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "ptt_lm_head_fwd_bf16_wgmma_plan": ([_I] * 3 + [_P] * 2 + [_I], _I),
 }
 # the wgmma path's CTA tile (rows x columns) and k-tile
 # (csrc/wgmma_bf16.cuh kBM = kBN, kBK)
 WG_TILE, WG_KTILE = 128, 64
+# the wgmma forward's shared memory (csrc/lm_head_bf16.cu fwd_wg): a
+# block's opt-in bytes, the alignment pad and the barriers' 2 KiB, one
+# 16-KiB box of 64 k x 128 rows, the ring's stages at least (where x stays
+# resident) and at most
+FWD_SMEM, FWD_FIXED, FWD_BOX = 232448, 1024 + 2048, 16384
+FWD_MIN_STAGES, FWD_MAX_STAGES = 4, 8
 _fns = {}
+_sms = {}
 
 
 def _check(x, w, labels):
@@ -84,14 +97,61 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def bwd_bf16_path(x_ptr: int, w_ptr: int, D: int, V: int) -> str:
-    """The bf16 backward's path for x [N, D] at address x_ptr and W [D, V]
-    at w_ptr, both contiguous: "wgmma" where TMA can describe both (bases
-    16-byte aligned, rows of D and V bf16 a multiple of 16 bytes, so every
-    chunk's rows are too), else "sync"."""
+def bf16_path(x_ptr: int, w_ptr: int, D: int, V: int) -> str:
+    """The path of the bf16 forward and backward for x [N, D] at address
+    x_ptr and W [D, V] at w_ptr, both contiguous: "wgmma" where TMA can
+    describe both (bases 16-byte aligned, rows of D and V bf16 a multiple
+    of 16 bytes, so every chunk's rows are too), else "sync"."""
     aligned = x_ptr % 16 == 0 and w_ptr % 16 == 0 and D % 8 == 0 \
         and V % 8 == 0
     return "wgmma" if aligned else "sync"
+
+
+def fwd_bf16_plan(N: int, D: int, V: int, sms: int) -> dict:
+    """The wgmma forward's schedule on `sms` SMs, as the kernel's
+    fwd_wg_plan makes it.  The (token tile, vocab tile) grid of 128 x 128
+    tiles, flattened with the vocabulary fastest (tile t = m nt + v), is
+    cut into `ctas` = min(sms, tiles) contiguous ranges of floor(c tiles /
+    ctas) boundaries, one per persistent CTA.  A range's tiles of one token
+    tile are a segment, which writes its rows' state to slot (CTA - the
+    token tile's first CTA) of the workspace: `slots` is the most any token
+    tile takes.  x stays in shared memory where its cdiv(D, 64) boxes leave
+    room for at least 4 ring stages of W (D <= 640); `stages` is the ring's
+    depth (W's 16-KiB k-tiles beside resident x, else x's and W's)."""
+    mt, nt = _cdiv(N, WG_TILE), _cdiv(V, WG_TILE)
+    tiles = mt * nt
+    ctas = min(sms, tiles)
+
+    def owner(t):
+        return ((t + 1) * ctas - 1) // tiles
+
+    slots = max(owner(m * nt + nt - 1) - owner(m * nt) + 1
+                for m in range(mt))
+    room = FWD_SMEM - FWD_FIXED
+    res = (room - _cdiv(D, WG_KTILE) * FWD_BOX) // FWD_BOX
+    resident = res >= FWD_MIN_STAGES
+    stages = min(FWD_MAX_STAGES, res if resident else room // (2 * FWD_BOX))
+    return dict(token_tiles=mt, vocab_tiles=nt, tiles=tiles, ctas=ctas,
+                slots=slots, x_resident=resident, stages=stages)
+
+
+def fwd_bf16_segments(N: int, V: int, ctas: int) -> list:
+    """The wgmma forward's segments in the order the kernel runs them: (CTA,
+    token tile, first vocab tile, end vocab tile, slot) for each CTA's
+    range [floor(c tiles / ctas), floor((c + 1) tiles / ctas)) cut at the
+    token tiles' boundaries."""
+    nt = _cdiv(V, WG_TILE)
+    tiles = _cdiv(N, WG_TILE) * nt
+    out = []
+    for c in range(ctas):
+        t, end = c * tiles // ctas, (c + 1) * tiles // ctas
+        while t < end:
+            m = t // nt
+            se = min(end, (m + 1) * nt)
+            first = ((m * nt + 1) * ctas - 1) // tiles
+            out.append((c, m, t - m * nt, se - m * nt, c - first))
+            t = se
+    return out
 
 
 def bwd_bf16_plan(cap: int, D: int, V: int, sms: int) -> dict:
@@ -188,27 +248,77 @@ def _workspace(name, dims, device):
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
-def _launch_fwd(x, w, labels):
+def _sm_count(device):
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
+
+
+def fwd_bf16_plan_of_library(N: int, D: int, V: int) -> dict:
+    """The wgmma forward's plan as the library makes it on the current
+    card (ptt_lm_head_fwd_bf16_wgmma_plan): fwd_bf16_plan's ctas, slots,
+    x_resident and stages, and `begins`, each CTA's first flat tile and the
+    tile count last.  For checking fwd_bf16_plan and fwd_bf16_segments,
+    which the CPU tests hold the schedule to, against the kernel's own."""
+    out = (ctypes.c_int * 6)()
+    begins = (ctypes.c_int * (_sm_count(torch.device("cuda")) + 1))()
+    err = _fn("ptt_lm_head_fwd_bf16_wgmma_plan")(
+        N, D, V, ctypes.addressof(out), ctypes.addressof(begins),
+        len(begins))
+    if err:
+        raise ValueError(f"lm_head_fwd_bf16: no wgmma plan for N {N}, D {D}, "
+                         f"V {V} (CUDA error {err})")
+    ctas = out[0]
+    return dict(ctas=ctas, slots=out[1], x_resident=bool(out[3]),
+                stages=out[4], begins=list(begins[:ctas + 1]))
+
+
+def _bf16_path(name, x, w, path):
+    """The path of a bf16 call: the operands' (``bf16_path``), or
+    `path`, which may not be "wgmma" where TMA cannot describe them."""
+    D, V = w.shape
+    shape_path = bf16_path(x.data_ptr(), w.data_ptr(), D, V)
+    if path not in (None, "sync", "wgmma"):
+        raise ValueError(f"{name} kernel: no path {path!r}")
+    if path == "wgmma" != shape_path:
+        raise ValueError(f"{name} kernel: the wgmma path needs "
+                         f"16-byte-aligned x and w and D, V multiples of 8 "
+                         f"(D {D}, V {V})")
+    return path or shape_path
+
+
+def _launch_fwd(x, w, labels, path=None):
     _check(x, w, labels)
     bf16 = x.dtype == torch.bfloat16
     name = "lm_head_fwd" + ("_bf16" if bf16 else "")
     _require(name, (x, w), labels, (x, w))
     N, D = x.shape
     V = w.shape[1]
+    if bf16:
+        path = _bf16_path(name, x, w, path)
     y = labels.to(torch.int64).contiguous()
     loss = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     if N == 0:
         return loss, lse
-    entry = "ptt_" + name
+    entry = "ptt_" + name + ("_wgmma" if path == "wgmma" else "")
     work = _workspace(entry + "_workspace", (N, D, V), x.device)
     err = _fn(entry)(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), loss.data_ptr(),
         lse.data_ptr(), work.data_ptr(), N, D, V,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    (lm_head_fwd_bf16 if bf16 else lm_head_fwd).launches += 1
+        raise RuntimeError(f"{name} kernel launch failed "
+                           f"({path or 'f32'} path): CUDA error {err}")
+    if bf16:
+        lm_head_fwd_bf16.launches += 1
+        if path == "wgmma":
+            lm_head_fwd_bf16.launches_wgmma += 1
+        else:
+            lm_head_fwd_bf16.launches_sync += 1
+    else:
+        lm_head_fwd.launches += 1
     return loss, lse
 
 
@@ -225,14 +335,7 @@ def _launch_bwd(x, w, labels, lse, g, chunk, path=None):
         raise ValueError(f"{name} kernel: lse {tuple(lse.shape)} and g "
                          f"{tuple(g.shape)} must be [{N}]")
     if bf16:
-        shape_path = bwd_bf16_path(x.data_ptr(), w.data_ptr(), D, V)
-        if path not in (None, "sync", "wgmma"):
-            raise ValueError(f"{name} kernel: no path {path!r}")
-        if path == "wgmma" != shape_path:
-            raise ValueError(f"{name} kernel: the wgmma path needs "
-                             f"16-byte-aligned x and w and D, V multiples "
-                             f"of 8 (D {D}, V {V})")
-        path = path or shape_path
+        path = _bf16_path(name, x, w, path)
     y = labels.to(torch.int64).contiguous()
     gm = (g * (y >= 0)).contiguous()
     dx = torch.empty(N, D, dtype=x.dtype, device=x.device)
@@ -241,8 +344,7 @@ def _launch_bwd(x, w, labels, lse, g, chunk, path=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     extra = []
     if path == "wgmma":
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        ranges = bwd_bf16_plan(chunk, D, V, sms)["ranges"]
+        ranges = bwd_bf16_plan(chunk, D, V, _sm_count(x.device))["ranges"]
         work = _workspace("ptt_lm_head_bwd_bf16_wgmma_workspace",
                           (chunk, D, V, ranges), x.device)
         fn = _fn("ptt_lm_head_bwd_chunk_bf16_wgmma")
@@ -296,20 +398,22 @@ def lm_head_bwd(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK):
     return lm_head_bwd_plain(x, w, labels, lse, g, chunk)
 
 
-def lm_head_fwd_bf16(x, w, labels):
-    """The bf16 forward kernel (csrc/lm_head_bf16.cu) on bf16 CUDA x and w:
-    (loss, lse) f32.  Its launches are counted in
-    ``lm_head_fwd_bf16.launches``."""
+def lm_head_fwd_bf16(x, w, labels, path=None):
+    """The bf16 forward kernels (csrc/lm_head_bf16.cu) on bf16 CUDA x and
+    w: (loss, lse) f32.  The path is ``bf16_path`` of the operands, or
+    `path` ("sync" runs on any operands, "wgmma" raises where TMA cannot
+    describe them).  ``lm_head_fwd_bf16.launches`` counts its calls,
+    ``.launches_wgmma`` and ``.launches_sync`` those of each path."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"lm_head_fwd_bf16 kernel: bf16 inputs only, got "
                          f"{x.dtype}")
-    return _launch_fwd(x, w, labels)
+    return _launch_fwd(x, w, labels, path)
 
 
 def lm_head_bwd_bf16(x, w, labels, lse, g, chunk: int = DEFAULT_CHUNK,
                      path=None):
     """The bf16 backward kernels (csrc/lm_head_bf16.cu) on bf16 CUDA x and
-    w: (dx, dw) bf16.  The path is ``bwd_bf16_path`` of the operands, or
+    w: (dx, dw) bf16.  The path is ``bf16_path`` of the operands, or
     `path` ("sync" runs on any operands, "wgmma" raises where TMA cannot
     describe them).  ``lm_head_bwd_bf16.launches`` counts one per token
     chunk, ``.launches_wgmma`` and ``.launches_sync`` those of each path."""
@@ -344,6 +448,8 @@ def lm_head_xent(x, w, labels, chunk: int = DEFAULT_CHUNK):
 lm_head_fwd.launches = 0
 lm_head_bwd.launches = 0
 lm_head_fwd_bf16.launches = 0
+lm_head_fwd_bf16.launches_wgmma = 0
+lm_head_fwd_bf16.launches_sync = 0
 lm_head_bwd_bf16.launches = 0
 lm_head_bwd_bf16.launches_wgmma = 0
 lm_head_bwd_bf16.launches_sync = 0

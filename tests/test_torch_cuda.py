@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
 from paddle_tpu_torch.kernels import flash_attention as fa
@@ -550,13 +551,14 @@ def test_bf16_flash_kernels_match_plain(cuda, H, d, B, Tq, Tk, causal,
     (777, 201, 3000, 300, 11, 1, "sync"),      # element copies of x
     (2048, 512, 32000, 1024, 5, 12, "wgmma"),  # a peaked softmax
     (3001, 264, 4104, 1000, 23, 1, "wgmma"),   # aligned, no tile multiple
+    (1000, 1024, 4104, 256, 9, 1, "wgmma"),    # the forward streams x
 ])
 def test_bf16_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored,
                                           amp, path, force):
     """The bf16 LM head forward (loss and lse f32, at the f32 tolerance)
     and backward (dx and dW bf16, at BF16_RTOL of max |plain|), the same
-    bits on two calls; the backward on the path its operands choose
-    (path), and again forced onto the sync path, each counted apart."""
+    bits on two calls; both on the path their operands choose (path), and
+    again forced onto the sync path, each counted apart."""
     bf = torch.bfloat16
     x = (_randn(cuda, N, D, seed=90) * amp).to(bf)
     w = (_randn(cuda, D, V, seed=91) * 0.05).to(bf)
@@ -564,12 +566,23 @@ def test_bf16_lm_head_kernels_match_plain(cuda, N, D, V, chunk, n_ignored,
     y = torch.randint(0, V, (N,), generator=g, device=cuda)
     y[torch.randperm(N, generator=g, device=cuda)[:n_ignored]] = -1
     gl = torch.rand(N, generator=g, device=cuda) * (2.0 / N)
-    loss, lse = lmh.lm_head_fwd(x, w, y)
+    assert lmh.bf16_path(x.data_ptr(), w.data_ptr(), D, V) == path
+    took = force or path
+    fwd = lmh.lm_head_fwd_bf16
+    before = (fwd.launches_wgmma, fwd.launches_sync)
+    if force is None:   # the public entry chooses by dtype, then by shape
+        loss, lse = lmh.lm_head_fwd(x, w, y)
+        loss2, lse2 = lmh.lm_head_fwd(x, w, y)
+    else:
+        loss, lse = fwd(x, w, y, path=force)
+        loss2, lse2 = fwd(x, w, y, path=force)
+    assert (fwd.launches_wgmma - before[0], fwd.launches_sync - before[1]) \
+        == ((2, 0) if took == "wgmma" else (0, 2))
     ploss, plse = lmh.lm_head_fwd_plain(x, w, y)
     assert (loss - ploss).abs().max().item() <= F32_TOL
     assert (lse - plse).abs().max().item() <= F32_TOL
-    assert lmh.bwd_bf16_path(x.data_ptr(), w.data_ptr(), D, V) == path
-    took = force or path
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+    assert (loss[y < 0] == 0).all()
     bwd = lmh.lm_head_bwd_bf16
     before = (bwd.launches_wgmma, bwd.launches_sync)
     if force is None:   # the public entry chooses by dtype, then by shape
@@ -601,6 +614,50 @@ def test_bf16_lm_head_wgmma_path_refuses_misaligned_operands(cuda):
         lmh.lm_head_bwd_bf16(x, w, y, lse, lse, 64, path="wgmma")
     assert (lmh.lm_head_bwd_bf16.launches_wgmma,
             lmh.lm_head_bwd_bf16.launches_sync) == before
+
+
+@pytest.mark.parametrize("N,D,V", sorted({c[:3] for c in
+                                          chip_smoke.HEAD_BF16_CASES}))
+def test_bf16_lm_head_fwd_plan_is_the_librarys(cuda, N, D, V):
+    """The wgmma forward's schedule in Python (fwd_bf16_plan,
+    fwd_bf16_segments), which the CPU tests and chip_smoke's segmented
+    emulation and planted fault hold, is the one the library runs on this
+    card: CTAs, slots, x resident, stages, each CTA's range, each
+    segment's slot and the workspace size."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert chip_smoke.fwd_plan_drift(lmh, N, D, V, sms) == ""
+
+
+def test_bf16_lm_head_fwd_wgmma_path_refuses_what_tma_cannot_describe(
+        cuda):
+    """Forcing the forward onto the wgmma path where TMA cannot describe
+    the operands (x 2 bytes off alignment, an odd D) raises before any
+    launch and moves no counter; path None takes sync.  The C entry
+    refuses such operands too (cudaErrorInvalidValue)."""
+    bf = torch.bfloat16
+    raw = _randn(cuda, 64 * 512 + 1, seed=95).to(bf)
+    w = _randn(cuda, 512, 304, seed=96).to(bf)
+    odd_x = _randn(cuda, 64, 201, seed=97).to(bf)
+    odd_w = _randn(cuda, 201, 304, seed=98).to(bf)
+    y = torch.zeros(64, dtype=torch.int64, device=cuda)
+    fwd = lmh.lm_head_fwd_bf16
+    for x, ww in ((raw[1:].view(64, 512), w), (odd_x, odd_w)):
+        before = (fwd.launches, fwd.launches_wgmma, fwd.launches_sync)
+        with pytest.raises(ValueError, match="wgmma path"):
+            fwd(x, ww, y, path="wgmma")
+        assert (fwd.launches, fwd.launches_wgmma,
+                fwd.launches_sync) == before
+        fwd(x, ww, y)
+        assert fwd.launches_sync == before[2] + 1
+        out = torch.empty(2, 64, device=cuda)
+        work = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+        err = lmh._fn("ptt_lm_head_fwd_bf16_wgmma")(
+            x.data_ptr(), ww.data_ptr(), y.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), work.data_ptr(), 64, x.shape[1], ww.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 1   # cudaErrorInvalidValue
+    with pytest.raises(ValueError, match="path"):
+        fwd(odd_x, odd_w, y, path="tma")
 
 
 def test_bf16_flash_wgmma_path_refuses_what_tma_cannot_describe(cuda):

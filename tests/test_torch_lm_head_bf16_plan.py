@@ -4,7 +4,7 @@ The wgmma kernels (csrc/wgmma_bf16.cuh, csrc/lm_head_bf16.cu) run only on
 the card (tests/test_torch_cuda.py).  Here:
 
 - the path choice, a pure function of the operands' addresses and row
-  lengths (``bwd_bf16_path``): TMA needs 16-byte-aligned bases and rows of
+  lengths (``bf16_path``): TMA needs 16-byte-aligned bases and rows of
   a multiple of 16 bytes, else the sync path;
 - the plan the kernels run on 132 SMs (``bwd_bf16_plan``): each product's
   tile count and the dx product's K ranges, which must cover the
@@ -52,7 +52,7 @@ def _cdiv(a, b):
     (0x7f0000000000, 0x7f0000100000, 512, 32004, "sync"),   # V 8 bytes off
 ])
 def test_bwd_bf16_path_choice(x_ptr, w_ptr, D, V, want):
-    assert tlm.bwd_bf16_path(x_ptr, w_ptr, D, V) == want
+    assert tlm.bf16_path(x_ptr, w_ptr, D, V) == want
 
 
 def test_bwd_bf16_path_of_real_tensors():
@@ -60,9 +60,9 @@ def test_bwd_bf16_path_of_real_tensors():
     alignment, and takes the sync path."""
     x = torch.zeros(4 * 512 + 1, dtype=torch.bfloat16)
     w = torch.zeros(512, 32000, dtype=torch.bfloat16)
-    assert tlm.bwd_bf16_path(x.data_ptr(), w.data_ptr(), 512, 32000) \
+    assert tlm.bf16_path(x.data_ptr(), w.data_ptr(), 512, 32000) \
         == "wgmma"
-    assert tlm.bwd_bf16_path(x[1:].data_ptr(), w.data_ptr(), 512, 32000) \
+    assert tlm.bf16_path(x[1:].data_ptr(), w.data_ptr(), 512, 32000) \
         == "sync"
 
 

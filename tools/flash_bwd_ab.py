@@ -5,11 +5,10 @@ turns.
     python tools/flash_bwd_ab.py TREE [TREE ...]
 
 Each TREE is a copy of this repository (say, one under the gitignored
-build/ with its csrc/flash_attention_bf16.cu edited); list a tree twice to
-run it twice (as base, variant, variant, base).  Each run is a process of
-its own in that tree (the trees' packages share a name, and each builds
-its own library under TREE/build): it prints ptxas's registers and spills
-of the d 64 and d 128 wgmma backward kernels; checks four cases (causal,
+build/ with its csrc/flash_attention_bf16.cu edited), run in turns by
+tools/ab_trees.py (list a tree twice to run it twice).  A run prints
+ptxas's registers and spills of the d 64 and d 128 wgmma backward
+kernels; checks four cases (causal,
 d 128 at a ragged T, kv_len, T 200) on the wgmma path against the plain
 version at chip_smoke's BF16_RTOL by tile and against the sync path's
 bits; times the backward cold (chip_smoke.time_ms over rotated inputs) at
@@ -19,9 +18,9 @@ one call into its two launches (chip_smoke.flash_bwd_breakdown).  Lines
 are tagged with the run.  Compare versions only inside one call: two calls
 may land on two cards.
 """
-import os
-import subprocess
 import sys
+
+import ab_trees
 
 CODE = r'''
 import torch
@@ -91,27 +90,6 @@ cs.flash_bwd_breakdown(torch)
 '''
 
 
-def main(trees):
-    if not trees:
-        print(__doc__, file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(f"[ab] {smi.stdout.strip()}", flush=True)
-    for i, tree in enumerate(map(os.path.abspath, trees)):
-        res = subprocess.run([sys.executable, "-c", CODE], cwd=tree,
-                             capture_output=True, text=True,
-                             env=dict(os.environ, PYTHONPATH=tree))
-        for line in res.stdout.splitlines():
-            if line.startswith(("[ptxas", "[check", "[time", "[flash bwd")):
-                print(f"[ab {i} {os.path.relpath(tree)}] {line}", flush=True)
-        if res.returncode:
-            print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
-            print(f"[ab] run {i} ({tree}) failed", file=sys.stderr)
-            return 1
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(ab_trees.run(sys.argv[1:], CODE, ("[ptxas", "[check", "[time",
+                                               "[flash bwd"), __doc__))

@@ -1,16 +1,18 @@
-"""The flush finding of the bf16 LM-head backward's wgmma path.
+"""The flush finding of the bf16 LM head's wgmma paths.
 
-``csrc/wgmma_bf16.cuh`` carries each output tile's whole k loop in one
+``csrc/wgmma_bf16.cuh`` (the backward) and the wgmma forward of
+``csrc/lm_head_bf16.cu`` carry each output tile's whole k loop in one
 accumulator.  A build with ``-DPTT_WG_FLUSH=n`` (n > 0) instead adds each
 tile's products into a second accumulator every n k-tiles, as
 ``gemm_bf16.cuh`` does every k-tile, in case the tensor cores truncate as
 they accumulate.  This script builds the kernels both ways, each build in
 its own process (the flags are in the library's hash), and prints, for
-each, dx's and dW's largest error over the largest |plain| against
-``lm_head_bwd_plain`` at the training shape (N 16384, D 512, V 32000,
-chunk 4096: dx's K is the whole vocabulary in one range) and at a peaked
-case (N 2048, chunk 1024, x * 12, five ignored labels: dx in K ranges),
-beside BF16_RTOL.
+each, the forward's largest absolute error on loss and lse against
+``lm_head_fwd_plain`` beside HEAD_TOL, and dx's and dW's largest error over
+the largest |plain| against ``lm_head_bwd_plain`` beside BF16_RTOL, at the
+training shape (N 16384, D 512, V 32000, chunk 4096: dx's K is the whole
+vocabulary in one range) and at a peaked case (N 2048, chunk 1024, x * 12,
+|logit| up to about 80, five ignored labels: dx in K ranges).
 
 Run from the repository root on a machine with an H100:
 
@@ -27,7 +29,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BF16_RTOL = 4 * 2.0 ** -8
+BF16_RTOL = 4 * 2.0 ** -8   # chip_smoke.py's
+HEAD_TOL = 2e-4             # chip_smoke.py's
 CASES = [  # N, D, V, chunk, ignored labels, scale of x
     (16384, 512, 32000, 4096, 0, 1),
     (2048, 512, 32000, 1024, 5, 12),
@@ -54,7 +57,14 @@ def measure(flush: int) -> list:
         y = torch.randint(0, V, (N,), generator=g, device="cuda")
         y[torch.randperm(N, generator=g, device="cuda")[:n_ign]] = -1
         gl = torch.rand(N, generator=g, device="cuda") * (2.0 / N)
-        _, lse = lmh.lm_head_fwd_plain(x, w, y)
+        ploss, lse = lmh.lm_head_fwd_plain(x, w, y)
+        before = lmh.lm_head_fwd_bf16.launches_wgmma
+        floss, flse = lmh.lm_head_fwd_bf16(x, w, y, path="wgmma")
+        torch.cuda.synchronize()
+        if lmh.lm_head_fwd_bf16.launches_wgmma == before:
+            raise RuntimeError("the wgmma forward did not run")
+        ferr = [float((a - b).abs().max())
+                for a, b in ((floss, ploss), (flse, lse))]
         want = lmh.lm_head_bwd_plain(x, w, y, lse, gl, chunk)
         before = lmh.lm_head_bwd_bf16.launches_wgmma
         got = lmh.lm_head_bwd_bf16(x, w, y, lse, gl, chunk, path="wgmma")
@@ -67,7 +77,7 @@ def measure(flush: int) -> list:
                         ranges=lmh.bwd_bf16_plan(
                             chunk, D, V, torch.cuda.get_device_properties(
                                 0).multi_processor_count)["ranges"],
-                        dx=errs[0], dW=errs[1]))
+                        loss=ferr[0], lse=ferr[1], dx=errs[0], dW=errs[1]))
     return out
 
 
@@ -91,9 +101,10 @@ def main(argv) -> int:
         for r in json.loads(res.stdout.strip().splitlines()[-1]):
             print(f"flush {n}{' (shipped)' if n == 0 else ''}: N={r['N']} "
                   f"D={r['D']} V={r['V']} chunk={r['chunk']} "
-                  f"x*{r['x_scale']} dx K ranges {r['ranges']}: dx "
-                  f"{r['dx']:.3g}, dW {r['dW']:.3g} of max |plain| (tol "
-                  f"{BF16_RTOL:g})")
+                  f"x*{r['x_scale']}: forward loss {r['loss']:.3g}, lse "
+                  f"{r['lse']:.3g} max abs err (tol {HEAD_TOL:g}); dx K "
+                  f"ranges {r['ranges']}: dx {r['dx']:.3g}, dW "
+                  f"{r['dW']:.3g} of max |plain| (tol {BF16_RTOL:g})")
     return 0
 
 
