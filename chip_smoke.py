@@ -62,8 +62,16 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    bits on the same data, and where their own choices cross paths (the
    copy's T not a multiple of 8), the two held to each other at BF16_RTOL
    (and FA_TOL on lse); the bf16
-   block on the path shape, a ragged T, head dim 128, an odd D and F
-   (bf16 vectors there) and W1 x 8, at BLOCK_BF16_RTOL of max |plain|.
+   block on the path shape, a ragged T, head dim 128, D 264 / E 192 /
+   F 520 (multiples of 8, not of 128), an odd D and F (bf16 vectors
+   there) and W1 x 8, at BLOCK_BF16_RTOL of max |plain|, each case with
+   its four GEMMs on the path its operands choose (fused_block.
+   block_gemm_path: wgmma for all but D 201 / F 333), checked by the path
+   counters, and every wgmma case again forced onto the sync path; the
+   GEMMs forced onto wgmma at D 201 must raise before any launch with no
+   counter moved, and the wgmma schedule as fused_block.block_gemm_plan
+   gives it (what the CPU tests hold) must be the library's own on every
+   case (block_plan_drift).
    Both give the same bits twice and refuse a planted fault (the flash
    skipping a key tile, the block without b1).
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
@@ -116,9 +124,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    last block's bf16 output), the bf16 LM-head forward once and its
    backward once per chunk, and no f32 block, flash or LM-head kernel and
    no head-major flash; the recompute's flash forward and backward, the
-   block kernel's own flash launch and the LM head's forward and backward
-   on the wgmma path (their path counters; the flash backward's operand
-   strides logged).  The
+   block kernel's own flash launch and four GEMMs and the LM head's forward
+   and backward on the wgmma path (their path counters; the flash
+   backward's operand strides logged).  The
    L 2 match replays the card's relu masks inside the blocks, at the AMP
    tolerances.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
@@ -145,10 +153,16 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    step is traced by kernel class.  The AMP fuse_block path's three bf16
    kernels likewise: the flash on the block's views beside the contiguous
    and head-major calls, the bf16 block beside
-   torch.nn.TransformerEncoderLayer in bf16; the bf16 block's launches one
-   by one (BLOCK_BF16_CHAIN_LAUNCHES); the AMP fuse_block step traced by
-   kernel class.  The bf16 flash forward and backward (head-major, and on
-   the block's views) and the bf16 LM-head forward and backward name the
+   torch.nn.TransformerEncoderLayer in bf16, its GEMMs on the path they
+   choose and forced onto sync in turns (chosen, sync, sync, chosen) with
+   each path's host enqueue; the bf16 block's launches one by one
+   (BLOCK_BF16_CHAIN_LAUNCHES) on each GEMM path, with each GEMM's TFLOP/s
+   and, on the wgmma path, its tiles and CTAs as the library plans them,
+   in the log (the smoke fails unless the four GEMMs are the wgmma kernel
+   on the wgmma path and the mma.sync one on the sync path); the AMP
+   fuse_block step traced by kernel class.  The bf16 flash forward and
+   backward (head-major, and on the block's views) and the bf16 LM-head
+   forward and backward name the
    path they took (from the counters of the timed calls) and time the
    sync path on the same inputs beside it, with their host enqueue time;
    the bf16 block's flash launch must be the wgmma kernel;
@@ -162,8 +176,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
    "launches_by_path"; the bf16 kernels' launches are the AMP step's;
-   lm_head_fwd_bf16 and lm_head_bwd_bf16 also carry their path and both
-   paths' breakdowns),
+   lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
+   carry their path and both paths' breakdowns),
    nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
@@ -370,15 +384,19 @@ def time_ms(fn, iters=50, warmup=5):
                        "the device")
 
 
-def timed_on_path(fn, call, path, iters=50, warmup=5):
+def timed_on_path(fn, call, path, iters=50, warmup=5, counter="launches_"):
     """(device ms, host ms, path) of call(path) by time_ms, for a wrapper
-    fn with path counters (.launches_wgmma, .launches_sync) and `path`
-    None (the operands' choice) or forced: the path its timed calls took,
-    read from the counters, which must name one path for every call."""
-    before = (fn.launches_wgmma, fn.launches_sync)
+    fn with path counters (.launches_wgmma, .launches_sync, or under
+    another prefix `counter`) and `path` None (the operands' choice) or
+    forced: the path its timed calls took, read from the counters, which
+    must name one path for every call."""
+    def count(p):
+        return getattr(fn, counter + p)
+
+    before = (count("wgmma"), count("sync"))
     ms, host = time_ms(lambda: call(path), iters=iters, warmup=warmup)
-    moved = dict(wgmma=fn.launches_wgmma - before[0],
-                 sync=fn.launches_sync - before[1])
+    moved = dict(wgmma=count("wgmma") - before[0],
+                 sync=count("sync") - before[1])
     took = [p for p, n in moved.items() if n]
     if len(took) != 1 or took[0] != (path or took[0]):
         raise RuntimeError(f"{fn.__name__} timing (path {path}): the calls "
@@ -1106,6 +1124,20 @@ def fwd_plan_drift(lmh, N, D, V, sms):
     return "; ".join(out)
 
 
+def block_plan_drift(fb, B, T, D, E, F, sms):
+    """Where the Python mirror of the bf16 block's wgmma schedule
+    (fused_block.block_gemm_plan, which the CPU tests hold) differs from
+    the library's plan of each of the four launches on this card, as
+    text, or "" where they agree."""
+    out = []
+    for name, dims in fb.block_gemm_launches(B, T, D, E, F).items():
+        lib = fb.block_gemm_plan_of_library(*dims)
+        mine = fb.block_gemm_plan(*dims, sms)
+        out += [f"{name} {k} {v} (library {lib[k]})"
+                for k, v in mine.items() if lib[k] != v]
+    return "; ".join(out)
+
+
 def compare_lm_head_bf16(torch, lmh, rnd, g, note, cases=None):
     """Phase 3's compares of the bf16 LM head (the AMP path's), on
     HEAD_BF16_CASES (or `cases`): the forward on the path its operands
@@ -1428,27 +1460,59 @@ def compare_fuse_block_amp(torch, rnd, note):
     # the bf16 block against its plain version in bf16, twice for the same
     # bits: (B, T, H, D, E, F, causal, scale of W1, vectors, path).  The
     # op's inputs: bf16 x and matrices, f32 vectors (bf16 ones, which the
-    # wrapper widens, in the odd case); D 201, F 333 take element copies
+    # wrapper widens, in the odd case).  Each case runs on the GEMM path
+    # its operands choose (block_gemm_path: wgmma where D, E and F are
+    # multiples of 8, D 264 / E 192 / F 520 among them; D 201, F 333 take
+    # sync and element copies), checked by the path counters, and a
+    # wgmma case again forced onto sync, which holds the same bar
+    blk = fb.transformer_block_bf16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, T, H, D, E, F, causal, w1s, vectors, path in [
             (TRAIN_BATCH, TRAIN_T, 8, 512, 512, 2048, True, 1, "f32",
              "train"),
             (2, 300, 8, 512, 512, 2048, False, 1, "f32", "ragged"),
             (2, 300, 4, 512, 512, 2048, True, 1, "f32", "ragged"),
+            (2, 300, 3, 264, 192, 520, True, 1, "f32", "ragged"),
             (2, 67, 2, 201, 128, 333, True, 1, "bf16", "ragged"),
             (4, 512, 8, 512, 512, 2048, True, 8, "f32", "ragged")]:
+        drift = block_plan_drift(fb, B, T, D, E, F, sms)
+        if drift:
+            raise RuntimeError(f"the bf16 block's wgmma plan at B={B} T={T} "
+                               f"D={D} E={E} F={F} is not the library's: "
+                               f"{drift}")
         x, params = block_inputs(rnd, B, T, D, F, E, w1s)
         x, params = x.to(bf), bf16_block_params(params, vectors)
-        got = fb.transformer_block_bf16(x, params, H, causal)
-        again = fb.transformer_block_bf16(x, params, H, causal)
         want = fb.transformer_block_plain(x, params, H, causal)
-        torch.cuda.synchronize()
-        e, r = max_err(got, want), rel_err(got, want)
-        same = torch.equal(got, again)
-        log(f"[compare] transformer_block_bf16 B={B} T={T} H={H} D={D} "
-            f"E={E} F={F} causal={causal} W1 x{w1s} {vectors} vectors: max "
-            f"abs err {e:.3g}, {r:.3g} of max |plain| "
-            f"{float(want.float().abs().max()):.3g} (tol "
-            f"{BLOCK_BF16_RTOL:g}); two runs bit-identical: {same}")
+        own = "wgmma" if all(n % 8 == 0 for n in (D, E, F)) else "sync"
+        if own == "sync":
+            odd = (x, params, H)
+        for force in (None, "sync") if own == "wgmma" else (None,):
+            before = (blk.launches_gemm_wgmma, blk.launches_gemm_sync)
+            got = blk(x, params, H, causal, gemm_path=force)
+            again = blk(x, params, H, causal, gemm_path=force)
+            torch.cuda.synchronize()
+            took = dict(wgmma=blk.launches_gemm_wgmma - before[0],
+                        sync=blk.launches_gemm_sync - before[1])
+            e, r = max_err(got, want), rel_err(got, want)
+            same = torch.equal(got, again)
+            log(f"[compare] transformer_block_bf16 B={B} T={T} H={H} D={D} "
+                f"E={E} F={F} causal={causal} W1 x{w1s} {vectors} vectors, "
+                f"GEMMs {force or 'chosen'} (calls by path {took}): max abs "
+                f"err {e:.3g}, {r:.3g} of max |plain| "
+                f"{float(want.float().abs().max()):.3g} (tol "
+                f"{BLOCK_BF16_RTOL:g}); two runs bit-identical: {same}")
+            if took != {p_: 2 * (p_ == (force or own))
+                        for p_ in ("wgmma", "sync")}:
+                raise RuntimeError(f"bf16 block GEMM paths {took}, expected "
+                                   f"two calls on {force or own}")
+            if not r <= BLOCK_BF16_RTOL:
+                raise RuntimeError(f"bf16 block kernel disagrees: {r} > "
+                                   f"{BLOCK_BF16_RTOL}")
+            if got.dtype != bf or not same:
+                raise RuntimeError("bf16 block kernel: output not bf16, or "
+                                   "not deterministic")
+            if force is None:
+                note("transformer_block_bf16", path, e)
         if path == "train":
             cut = list(params)
             cut[9] = torch.zeros_like(cut[9])          # b1
@@ -1459,13 +1523,19 @@ def compare_fuse_block_amp(torch, rnd, note):
             if not fault > BLOCK_BF16_RTOL:
                 raise RuntimeError(f"the bf16 block compare passes a block "
                                    f"without b1: {fault}")
-        if not r <= BLOCK_BF16_RTOL:
-            raise RuntimeError(f"bf16 block kernel disagrees: {r} > "
-                               f"{BLOCK_BF16_RTOL}")
-        if got.dtype != bf or not same:
-            raise RuntimeError("bf16 block kernel: output not bf16, or not "
-                               "deterministic")
-        note("transformer_block_bf16", path, e)
+    # the forced wgmma path where TMA cannot describe the operands (D 201)
+    # raises before any launch, and no counter moves
+    before = (blk.launches, blk.launches_gemm_wgmma, blk.launches_gemm_sync)
+    try:
+        blk(*odd, True, gemm_path="wgmma")
+    except ValueError as err:
+        log(f"[compare] transformer_block_bf16 forced onto wgmma at D=201: "
+            f"refused ({err})")
+    else:
+        raise RuntimeError("the bf16 block ran its wgmma GEMMs at D 201")
+    if (blk.launches, blk.launches_gemm_wgmma,
+            blk.launches_gemm_sync) != before:
+        raise RuntimeError("a refused bf16 block call moved its counters")
 
 
 def phase_serve(torch):
@@ -1664,6 +1734,7 @@ def _phase_train(torch, fuse_block, amp):
         fn.launches_wgmma = fn.launches_sync = 0
     block = counters["transformer_block_bf16"]
     block.launches_flash_wgmma = block.launches_flash_sync = 0
+    block.launches_gemm_wgmma = block.launches_gemm_sync = 0
     # the (q, k, v, do) strides that autograd hands each bf16 flash
     # backward in step 0, by site
     bwd_strides = {}
@@ -1717,6 +1788,13 @@ def _phase_train(torch, fuse_block, amp):
     for n, c in fpaths.items():
         if c != dict(wgmma=counts[n.split()[0]], sync=0):
             raise RuntimeError(f"bf16 flash paths of {n}: {c}")
+    # ... and every bf16 block's four GEMMs on the wgmma path
+    gpaths = dict(wgmma=block.launches_gemm_wgmma,
+                  sync=block.launches_gemm_sync)
+    if amp and fuse_block:
+        log(f"{tag} bf16 block calls by GEMM path: {gpaths}")
+    if gpaths != dict(wgmma=counts["transformer_block_bf16"], sync=0):
+        raise RuntimeError(f"bf16 block GEMM paths {gpaths}")
     # AMP: the first layer norm takes the f32 embedding sum, every later
     # one a residual sum that stays bf16
     want_ln = (["float32"] + ["bfloat16"] * (2 * cfg.n_layer) if amp
@@ -2192,13 +2270,16 @@ def trace_run(torch, label, fn, expect=None):
     return names
 
 
-def block_breakdown(torch, bf16=False, chain=None):
+def block_breakdown(torch, bf16=False, chain=None, gemm_path=None):
     """The block forward's launches at the training shape (B 32, T 512,
-    H 8, D = E 512, F 2048), f32 or (bf16) the AMP inputs: each kernel's
-    device time over one call from torch.profiler, and the tile-loop
-    kernels' TFLOP/s of their work:
-    {kernel name: {"ms", "launches"(, "tflops")}}.  chain is the launches
-    one call makes; a record with fewer is traced again."""
+    H 8, D = E 512, F 2048), f32 or (bf16) the AMP inputs, the bf16
+    block's GEMMs on `gemm_path` (None: its own choice): each kernel's
+    device time over one call from torch.profiler, and the GEMM kernels'
+    TFLOP/s of their work: {kernel name: {"ms", "launches"(, "tflops")}}.
+    On the wgmma path the log also gives each GEMM's tiles and CTAs as the
+    library plans them (fused_block.block_gemm_plan_of_library), not as
+    the trace records them.  chain is the launches one call makes; a record
+    with fewer is traced again."""
     from paddle_tpu_torch.kernels import fused_block as fb
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     B, T, H, D, FF = TRAIN_BATCH, TRAIN_T, 8, 512, 2048
@@ -2207,14 +2288,20 @@ def block_breakdown(torch, bf16=False, chain=None):
         lambda *s: torch.randn(*s, generator=g, device=DEVICE), B, T, D, FF)
     if bf16:
         x, params = x.to(torch.bfloat16), bf16_block_params(params)
+        call = functools.partial(fb.transformer_block_bf16, x, params, H,
+                                 True, gemm_path=gemm_path)
+    else:
+        call = functools.partial(fb.transformer_block, x, params, H, True)
     events, _ = profiled(
-        torch, lambda: fb.transformer_block(x, params, H, True),
+        torch, call,
         lost=lambda ev: None if _device_launches(torch, ev) >= (chain or 1)
         else f"{_device_launches(torch, ev)} launches, expected {chain}")
-    # f32 FLOP of block_gemm_kernel<EPI>: q/k/v, Wo, W1, W2
+    # FLOP of block_gemm(_bf16)(_wg)_kernel<EPI>: q/k/v, Wo, W1, W2
     gemm_flops = {0: 2 * N * D * 3 * D, 1: 2 * N * D * D, 2: 2 * N * D * FF,
                   3: 2 * N * FF * D}
-    res = {}
+    plans = [fb.block_gemm_plan_of_library(*dims) for dims in
+             fb.block_gemm_launches(B, T, D, D, FF).values()]
+    res, epis = {}, {}
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA \
                 or e.self_device_time_total <= 0:
@@ -2224,13 +2311,21 @@ def block_breakdown(torch, bf16=False, chain=None):
         if "_kernel<" in e.key and "block_gemm" in e.key:
             epi = int(e.key.split("_kernel<")[1][0])
             row["tflops"] = gemm_flops[epi] / ms / 1e9
+            if "_wg_kernel" in e.key:
+                epis[_short_kernel_name(e.key)] = epi
         res[_short_kernel_name(e.key)] = row
     total = sum(r["ms"] for r in res.values())
+    gemms = f", GEMMs on {gemm_path or 'the chosen path'}" if bf16 else ""
     log(f"[block] one {'bf16 ' if bf16 else ''}block forward B={B} T={T} "
-        f"H={H} D={D} F={FF}: {sum(r['launches'] for r in res.values())} "
-        f"launches, {total:.4f} ms of device time")
+        f"H={H} D={D} F={FF}{gemms}: "
+        f"{sum(r['launches'] for r in res.values())} launches, {total:.4f} "
+        f"ms of device time")
     for name, r in res.items():
         rate = f", {r['tflops']:.2f} TFLOP/s" if "tflops" in r else ""
+        if name in epis:
+            plan = plans[epis[name]]
+            rate += (f", {plan['tiles']} tiles on {plan['ctas']} CTAs as "
+                     f"the library plans them")
         log(f"[block]   {name}: {r['ms']:.4f} ms ({r['launches']} "
             f"launches{rate})")
     return res
@@ -3118,11 +3213,21 @@ def phase_timings_fused_amp(torch):
         *sh, generator=g, device=dev), B, T, D, FF)
     x, params = xf.to(bf), bf16_block_params(params)
     brot = rotation(lambda: rnd(B, T, D))
-    ms, bhost = time_ms(lambda: fb.transformer_block_bf16(brot(), params, H,
-                                                          True),
-                        iters=10, warmup=2)
-    warm, _ = time_ms(lambda: fb.transformer_block_bf16(x, params, H, True),
-                      iters=10, warmup=2)
+    blk = fb.transformer_block_bf16
+    # the GEMMs on the path the operands choose and forced onto sync, in
+    # turns (chosen, sync, sync, chosen), each with its host enqueue
+    runs = [timed_on_path(blk, lambda p_: blk(brot(), params, H, True,
+                                              gemm_path=p_),
+                          p, iters=10, warmup=2, counter="launches_gemm_")
+            for p in (None, "sync", "sync", None)]
+    gpath = runs[0][2]
+    if gpath != "wgmma":
+        raise RuntimeError(f"the bf16 block's GEMMs took the {gpath} path at "
+                           f"the training shape")
+    # one window each, as every other row: the second windows are kept
+    # beside them
+    (ms, bhost, _), (sync_ms, sync_host, _) = runs[0], runs[1]
+    warm, _ = time_ms(lambda: blk(x, params, H, True), iters=10, warmup=2)
     plain, _ = time_ms(lambda: fb.transformer_block_plain(brot(), params, H,
                                                           True),
                        iters=5, warmup=1)
@@ -3158,18 +3263,27 @@ def phase_timings_fused_amp(torch):
                            f"block's function: {lib_err} of max |plain|")
     ops, nbytes = block_work(B, T, H, D, FF, width=2)
     res["transformer_block_bf16"] = dict(
-        ms=ms, warm_ms=warm, plain_ms=plain, library_ms=lib,
+        ms=ms, warm_ms=warm, plain_ms=plain, library_ms=lib, path=gpath,
+        host_ms=bhost, sync_ms=sync_ms, sync_host_ms=sync_host,
+        path_ms=[runs[0][0], runs[3][0]], sync_path_ms=[runs[1][0],
+                                                          runs[2][0]],
         **bf16_bounds(ops, nbytes, ms))
     r = res["transformer_block_bf16"]
     log(f"[time fuse_block amp] transformer_block_bf16 B={B} T={T} H={H} "
         f"D={D} F={FF} causal bf16: kernel cold {ms:.4f} ms "
-        f"({r['tflops']:.2f} TFLOP/s), warm {warm:.4f} ms, plain "
+        f"({r['tflops']:.2f} TFLOP/s, {100 * r['bound_ms'] / ms:.1f} % of "
+        f"the bound), warm {warm:.4f} ms, plain "
         f"{plain:.4f} ms, TransformerEncoderLayer in bf16 (norm_first, "
         f"causal mask, attention biases 0; output {lib_err:.3g} of max "
         f"|plain| from the plain version, tol 2e-2) {lib:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({ops / 1e9:.2f} GFLOP "
         f"at {BF16_FLOPS_PER_S / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB); "
         f"host enqueue per call {bhost:.4f} ms")
+    log(f"[time fuse_block amp] transformer_block_bf16 GEMMs on the {gpath} "
+        f"path: {runs[0][0]:.4f}/{runs[3][0]:.4f} ms cold, host enqueue per "
+        f"call {runs[0][1]:.4f}/{runs[3][1]:.4f} ms; forced onto the sync "
+        f"path in the same turns {runs[1][0]:.4f}/{runs[2][0]:.4f} ms, host "
+        f"enqueue per call {runs[1][1]:.4f}/{runs[2][1]:.4f} ms")
     return res
 
 
@@ -3316,20 +3430,34 @@ def main():
                            f"expected {BLOCK_CHAIN_LAUNCHES}")
     times["transformer_block"]["train"].update(by_kernel=by_kernel,
                                                launches_per_call=n_chain)
-    by_kernel = block_breakdown(torch, bf16=True,
-                                chain=BLOCK_BF16_CHAIN_LAUNCHES)
-    n_chain = sum(r["launches"] for r in by_kernel.values())
-    if n_chain != BLOCK_BF16_CHAIN_LAUNCHES:
-        raise RuntimeError(f"one bf16 block forward made {n_chain} "
-                           f"launches, expected {BLOCK_BF16_CHAIN_LAUNCHES}")
-    # its flash launch on the path that fwd_bf16_path gives the block's
-    # views: the wgmma kernel at this shape
-    flash = [n for n in by_kernel if "flash_fwd" in n]
-    if len(flash) != 1 or "flash_fwd_bf16_wg_kernel" not in flash[0]:
-        raise RuntimeError(f"the bf16 block's flash launch is {flash}, not "
-                           f"the wgmma kernel")
-    amp_times["transformer_block_bf16"].update(by_kernel=by_kernel,
-                                               launches_per_call=n_chain)
+    # the bf16 block on each GEMM path: its four GEMMs the wgmma kernel
+    # on the wgmma path and the mma.sync kernel on the sync path; its
+    # flash launch on the path that fwd_bf16_path gives the block's views,
+    # the wgmma kernel at this shape
+    blocks, chains = {}, {}
+    for gpath in ("wgmma", "sync"):
+        by_kernel = block_breakdown(torch, bf16=True,
+                                    chain=BLOCK_BF16_CHAIN_LAUNCHES,
+                                    gemm_path=gpath)
+        n_chain = sum(r["launches"] for r in by_kernel.values())
+        if n_chain != BLOCK_BF16_CHAIN_LAUNCHES:
+            raise RuntimeError(f"one bf16 block forward made {n_chain} "
+                               f"launches, expected "
+                               f"{BLOCK_BF16_CHAIN_LAUNCHES}")
+        flash = [n for n in by_kernel if "flash_fwd" in n]
+        if len(flash) != 1 or "flash_fwd_bf16_wg_kernel" not in flash[0]:
+            raise RuntimeError(f"the bf16 block's flash launch is {flash}, "
+                               f"not the wgmma kernel")
+        gemms = [n for n, r in by_kernel.items() if "block_gemm" in n]
+        if sum(by_kernel[n]["launches"] for n in gemms) != 4 or any(
+                ("_wg_kernel" in n) != (gpath == "wgmma") for n in gemms):
+            raise RuntimeError(f"the bf16 block's GEMMs on the {gpath} path "
+                               f"launched {gemms}")
+        blocks[gpath], chains[gpath] = by_kernel, n_chain
+    amp_times["transformer_block_bf16"].update(
+        by_kernel=blocks["wgmma"], sync_by_kernel=blocks["sync"],
+        launches_per_call=chains["wgmma"],
+        sync_launches_per_call=chains["sync"])
     sdpa = sdpa_kernels(torch)
     for n in ("flash_attention_hdt", "flash_attention"):
         times[n]["train"]["library_kernels"] = sorted(sdpa["fwd"])

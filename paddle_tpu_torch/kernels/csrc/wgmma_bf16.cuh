@@ -6,7 +6,9 @@
 // lm_head_bf16.cu (the LM head's backward under AMP).  The flash forward
 // (flash_attention_bf16.cu) takes its pieces (barriers, TMA, descriptors,
 // wgmma with A from shared memory or from registers) for a pipeline of its
-// own.
+// own; the bf16 block's four GEMMs (fused_block_bf16.cu) take the ring,
+// its barriers and the operand descriptors, with warpgroups that take
+// alternate tiles.
 //
 // A CTA computes kBM x kBN = 128 x 128 output tiles of A [M, K] . B [K, N]
 // over k-tiles of kBK = 64, one tile after another: tile t, t + gridDim.x,
@@ -374,8 +376,11 @@ struct Smem {
 };
 
 // lays out the dynamic shared memory (kSmemBytes) and initialises the
-// barriers; every thread of the CTA calls it once, first
-__device__ __forceinline__ Smem setup(uint8_t* raw) {
+// barriers; every thread of the CTA calls it once, first.  readers: the
+// warps that read each slot and arrive on its empty barrier (all consumer
+// warps, or one warpgroup's where the warpgroups take alternate tiles)
+__device__ __forceinline__ Smem setup(uint8_t* raw,
+                                      int readers = 4 * kConsumers) {
   const uint32_t base = smem_addr(raw);
   const uint32_t pad = (1024 - base % 1024) % 1024;
   Smem s;
@@ -385,7 +390,7 @@ __device__ __forceinline__ Smem setup(uint8_t* raw) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(s.full(i), 1);
-      mbar_init(s.empty(i), 4 * kConsumers);   // one arrival per warp
+      mbar_init(s.empty(i), readers);   // one arrival per warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }

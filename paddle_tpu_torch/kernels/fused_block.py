@@ -19,9 +19,16 @@ layer-norm params and biases).  Those go to the bf16 block kernel,
 ``csrc/fused_block_bf16.cu`` (wrapper ``transformer_block_bf16``, its own
 ``.launches``): seven launches (LN1, one q/k/v GEMM whose epilogue scales
 q, the bf16 flash forward through ``[B, T, H, d]`` strides at scale 1,
-Wo plus x, LN2, W1 plus b1 and relu, W2 plus b2 and h) on
-``csrc/gemm_bf16.cuh``'s tile loop, rounding where ``_block_kernel``
-rounds.
+Wo plus x, LN2, W1 plus b1 and relu, W2 plus b2 and h), rounding where
+``_block_kernel`` rounds.  Its four GEMMs take one of two paths, chosen
+here before the launch (``block_gemm_path``): "wgmma", a persistent
+TMA-fed ``wgmma`` kernel on ``csrc/wgmma_bf16.cuh``'s pieces with two
+consumer warpgroups taking alternate 128 x 128 tiles, where TMA and
+16-byte accesses can describe every operand (16-byte-aligned x, out,
+matrices and workspace; D, E and F multiples of 8); "sync",
+``csrc/gemm_bf16.cuh``'s ``mma.sync`` loop, for the rest.  The wgmma
+schedule is mirrored here (``block_gemm_plan``, ``block_gemm_tiles``) and
+exported by the library (``block_gemm_plan_of_library``).
 
 ``block_reference`` is the composition the kernel must match and the
 source of its gradients, as in the JAX package, with its casts
@@ -59,6 +66,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._wgmma import WG_KTILE, WG_TILE
 from .flash_attention import (KERNEL_HEAD_DIMS, NEG_INF, flash_attention,
                               fwd_path)
 from .layer_norm import MAX_D
@@ -174,16 +182,18 @@ VECTORS = (0, 1, 6, 7, 9, 11)
 
 
 def _kernel(name="ptt_transformer_block_fwd"):
-    """A C entry of a block forward (f32 or bf16), or its workspace
-    size."""
+    """A C entry of a block forward (f32 or bf16), its workspace size, or
+    the bf16 wgmma path's plan of one product."""
     if name not in _fns:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name.endswith("_workspace"):
             _fns[name] = _build.bind(name, [i] * 6, ctypes.c_longlong)
-        else:   # the bf16 entry takes its flash launch's path
-            path = [i] if "_bf16" in name else []
+        elif name.endswith("_plan"):
+            _fns[name] = _build.bind(name, [i] * 4 + [p])
+        else:   # the bf16 entry takes its flash launch's and GEMMs' paths
+            paths = [i, i] if "_bf16" in name else []
             _fns[name] = _build.bind(name, [p] * 15 + [i] * 7 + [f, f]
-                                     + path + [p])
+                                     + paths + [p])
     return _fns[name]
 
 
@@ -208,7 +218,66 @@ def flash_path_in_block(work_ptr, B, T, D, E, H):
                      view(qkv + 4 * E, 3 * E), view(o, E)], dh)
 
 
-def _launch(x, params, n_head, causal, eps1, eps2):
+def block_gemm_path(ptrs, D, E, F):
+    """The path of the bf16 block's four GEMMs, given the addresses of x,
+    the six matrices (wq, wk, wv, wo, w1, w2), out and the workspace:
+    "wgmma" where TMA and the 16-byte epilogue can describe every operand
+    (each address 16-byte aligned, D, E and F multiples of 8, so that every
+    row of every operand and workspace region is too), else "sync" (the
+    mma.sync loop, any shape).  csrc/fused_block_bf16.cu refuses wgmma
+    where this is "sync"."""
+    aligned = all(p % 16 == 0 for p in ptrs) and D % 8 == 0 \
+        and E % 8 == 0 and F % 8 == 0
+    return "wgmma" if aligned else "sync"
+
+
+def block_gemm_launches(B, T, D, E, F):
+    """The bf16 block's four products as (rows M, columns N of each
+    weight, depth K, weights): q/k/v, Wo, W1, W2."""
+    N = B * T
+    return {"qkv": (N, E, D, 3), "wo": (N, D, E, 1), "w1": (N, F, D, 1),
+            "w2": (N, D, F, 1)}
+
+
+def block_gemm_plan(M, N, K, weights, sms):
+    """The wgmma path's schedule of one product, A [M, K] . `weights`
+    weights [K, N], on `sms` SMs, as csrc/fused_block_bf16.cu's
+    blk_wg::plan makes it: 128 x 128 tiles, row tiles x weights x column
+    tiles of a weight, over min(sms, tiles) persistent CTAs; k-tiles of
+    64."""
+    mt, nt = -(-M // WG_TILE), -(-N // WG_TILE)
+    tiles = mt * weights * nt
+    return dict(m_tiles=mt, n_tiles=nt, weights=weights, tiles=tiles,
+                ctas=min(sms, tiles), k_tiles=-(-K // WG_KTILE))
+
+
+def block_gemm_tiles(plan, cta):
+    """The tiles CTA `cta` takes, in order, as (row tile, weight, column
+    tile of that weight): flat tiles cta, cta + ctas, ..., the columns
+    fastest, then the weight, then the rows (the kernel's tile_of)."""
+    nt = plan["n_tiles"]
+    per_m = plan["weights"] * nt
+    return [(t // per_m, t % per_m // nt, t % nt)
+            for t in range(cta, plan["tiles"], plan["ctas"])]
+
+
+def block_gemm_plan_of_library(M, N, K, weights):
+    """The wgmma path's plan of one product as the library makes it on the
+    current card (ptt_block_gemm_bf16_wgmma_plan), with block_gemm_plan's
+    keys: for holding block_gemm_plan, which the CPU tests check, to the
+    kernel's own."""
+    out = (ctypes.c_int * 6)()
+    err = _kernel("ptt_block_gemm_bf16_wgmma_plan")(
+        M, N, K, weights, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"transformer_block_bf16: no wgmma plan for M {M}, "
+                         f"N {N}, K {K}, {weights} weights (CUDA error "
+                         f"{err})")
+    keys = ("m_tiles", "n_tiles", "weights", "tiles", "ctas", "k_tiles")
+    return dict(zip(keys, out))
+
+
+def _launch(x, params, n_head, causal, eps1, eps2, gemm_path=None):
     """The block kernel of x's dtype: f32 throughout, or bf16 x and
     matrices with f32 vectors (bf16 vectors are widened, which is exact)."""
     bf16 = x.dtype == torch.bfloat16
@@ -255,9 +324,20 @@ def _launch(x, params, n_head, causal, eps1, eps2):
     out = torch.empty_like(x)
     nbytes = _kernel(entry + "_workspace")(B, T, D, E, F, n_head)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    path = flash_path_in_block(work.data_ptr(), B, T, D, E, n_head) \
-        if bf16 else None
-    extra = (int(path == "wgmma"),) if bf16 else ()
+    extra = ()
+    if bf16:
+        path = flash_path_in_block(work.data_ptr(), B, T, D, E, n_head)
+        ptrs = [t.data_ptr() for t in (x,) + params[2:6] + params[8:11:2]]
+        own = block_gemm_path(ptrs + [out.data_ptr(), work.data_ptr()], D,
+                              E, F)
+        if gemm_path not in (None, "sync", "wgmma"):
+            raise ValueError(f"{name} kernel: no GEMM path {gemm_path!r}")
+        if gemm_path == "wgmma" != own:
+            raise ValueError(f"{name} kernel: the wgmma GEMM path needs "
+                             f"16-byte-aligned x and matrices and D, E, F "
+                             f"multiples of 8 (D {D}, E {E}, F {F})")
+        gemm_path = gemm_path or own
+        extra = (int(path == "wgmma"), int(gemm_path == "wgmma"))
     err = _kernel(entry)(*(t.data_ptr() for t in ts), out.data_ptr(),
                          work.data_ptr(), B, T, D, E, F, n_head, int(causal),
                          float(eps1), float(eps2), *extra,
@@ -266,26 +346,30 @@ def _launch(x, params, n_head, causal, eps1, eps2):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if bf16:
         transformer_block_bf16.launches += 1
-        attr = "launches_flash_" + path
-        setattr(transformer_block_bf16, attr,
-                getattr(transformer_block_bf16, attr) + 1)
+        for attr in ("launches_flash_" + path, "launches_gemm_" + gemm_path):
+            setattr(transformer_block_bf16, attr,
+                    getattr(transformer_block_bf16, attr) + 1)
     else:
         transformer_block.launches += 1
     return out
 
 
 def transformer_block_bf16(x, params, n_head, causal=False, eps1=1e-5,
-                           eps2=1e-5):
+                           eps2=1e-5, gemm_path=None):
     """The bf16 block kernel (csrc/fused_block_bf16.cu) on bf16 CUDA x and
     matrices, f32 (or bf16) vectors: out bf16.  Its launches (one per call,
-    seven kernels) are counted in ``transformer_block_bf16.launches``, and
-    by the path of its flash launch (``flash_path_in_block``) in
-    ``.launches_flash_wgmma`` and ``.launches_flash_sync``."""
+    seven kernels) are counted in ``transformer_block_bf16.launches``; by
+    the path of its flash launch (``flash_path_in_block``) in
+    ``.launches_flash_wgmma`` and ``.launches_flash_sync``; by the path of
+    its four GEMMs (``block_gemm_path``, or `gemm_path`: "sync" runs on
+    any operands, "wgmma" raises before any launch where TMA cannot
+    describe them) in ``.launches_gemm_wgmma`` and ``.launches_gemm_sync``.
+    """
     if x.dtype != torch.bfloat16:
         raise ValueError(f"transformer_block_bf16 kernel: bf16 x only, got "
                          f"{x.dtype}")
     return _launch(x, tuple(params), int(n_head), bool(causal), float(eps1),
-                   float(eps2))
+                   float(eps2), gemm_path)
 
 
 class _Block(torch.autograd.Function):
@@ -328,3 +412,5 @@ transformer_block.launches = 0
 transformer_block_bf16.launches = 0
 transformer_block_bf16.launches_flash_wgmma = 0
 transformer_block_bf16.launches_flash_sync = 0
+transformer_block_bf16.launches_gemm_wgmma = 0
+transformer_block_bf16.launches_gemm_sync = 0

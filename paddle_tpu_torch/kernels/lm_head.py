@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._wgmma import WG_KTILE, WG_TILE
 
 DEFAULT_CHUNK = 4096
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -71,9 +72,6 @@ _SIGNATURES = {
     "ptt_lm_head_fwd_bf16_wgmma": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "ptt_lm_head_fwd_bf16_wgmma_plan": ([_I] * 3 + [_P] * 2 + [_I], _I),
 }
-# the wgmma path's CTA tile (rows x columns) and k-tile
-# (csrc/wgmma_bf16.cuh kBM = kBN, kBK)
-WG_TILE, WG_KTILE = 128, 64
 # the wgmma forward's shared memory (csrc/lm_head_bf16.cu fwd_wg): a
 # block's opt-in bytes, the alignment pad and the barriers' 2 KiB, one
 # 16-KiB box of 64 k x 128 rows, the ring's stages at least (where x stays

@@ -839,34 +839,94 @@ def test_bf16_bhtd_flash_kernels_match_plain(cuda, B, H, T, Tk, d, causal,
                                        gh) <= _bf16_tol()
 
 
+@pytest.mark.parametrize("force", [None, "sync"])
 @pytest.mark.parametrize("B,T,H,D,E,F,causal,w1_scale,vectors", [
     (4, 512, 8, 512, 512, 2048, True, 1.0, "f32"),   # the path's widths
     (2, 300, 8, 512, 512, 2048, False, 1.0, "f32"),
     (2, 300, 4, 512, 512, 2048, True, 1.0, "f32"),   # head dim 128
+    (2, 300, 3, 264, 192, 520, True, 1.0, "f32"),    # wgmma, ragged tiles
     (2, 67, 2, 201, 128, 333, True, 1.0, "bf16"),    # element copies
     (2, 512, 8, 512, 512, 2048, True, 8.0, "f32"),   # large W2 sums
 ])
 def test_bf16_block_kernel_matches_plain(cuda, B, T, H, D, E, F, causal,
-                                         w1_scale, vectors):
-    """The bf16 block kernel against its plain version in bf16 at
-    chip_smoke's BLOCK_BF16_RTOL of max |plain|, the same bits twice, one
-    count a call."""
+                                         w1_scale, vectors, force):
+    """The bf16 block kernel, its GEMMs on the path its operands choose
+    (wgmma where D, E and F are multiples of 8) or forced onto sync,
+    against its plain version in bf16 at chip_smoke's BLOCK_BF16_RTOL of
+    max |plain|, the same bits twice, one count a call by path."""
     import chip_smoke
     x, params = _block_inputs(cuda, B, T, D, F, seed=110, E=E,
                               w1_scale=w1_scale)
     x = x.to(torch.bfloat16)
     params = chip_smoke.bf16_block_params(params, vectors)
     blk = fb.transformer_block_bf16
-    before = (blk.launches, blk.launches_flash_wgmma)
-    got = fb.transformer_block(x, params, H, causal)
-    again = fb.transformer_block_bf16(x, params, H, causal)
+    took = force or ("wgmma" if all(n % 8 == 0 for n in (D, E, F))
+                     else "sync")
+    before = (blk.launches, blk.launches_flash_wgmma,
+              blk.launches_gemm_wgmma, blk.launches_gemm_sync)
+    if force is None:
+        got = fb.transformer_block(x, params, H, causal)
+    else:
+        got = blk(x, params, H, causal, gemm_path=force)
+    again = blk(x, params, H, causal, gemm_path=force)
     want = fb.transformer_block_plain(x, params, H, causal)
     # its flash launch on the wgmma path (the q, k, v views of its qkv)
-    assert (blk.launches, blk.launches_flash_wgmma) == (before[0] + 2,
-                                                        before[1] + 2)
+    assert (blk.launches, blk.launches_flash_wgmma,
+            blk.launches_gemm_wgmma, blk.launches_gemm_sync) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * (took == "wgmma"),
+        before[3] + 2 * (took == "sync"))
     assert got.dtype == torch.bfloat16
     assert _rel_max([got], [want]) <= chip_smoke.BLOCK_BF16_RTOL
     assert torch.equal(got, again)
+
+
+def test_bf16_block_gemm_wgmma_path_refuses_what_tma_cannot_describe(cuda):
+    """Forcing the wgmma GEMMs on operands TMA cannot describe raises
+    before any launch and moves no counter: D and F not multiples of 8, x
+    2 bytes off 16-byte alignment; the C entry itself refuses odd D with
+    cudaErrorInvalidValue (1)."""
+    import chip_smoke
+    blk = fb.transformer_block_bf16
+    x, params = _block_inputs(cuda, 2, 67, 201, 333, seed=111, E=128)
+    odd = (x.to(torch.bfloat16), chip_smoke.bf16_block_params(params), 2)
+    x, params = _block_inputs(cuda, 2, 64, 512, 2048, seed=112)
+    flat = torch.zeros(2 * 64 * 512 + 1, dtype=torch.bfloat16, device=cuda)
+    flat[1:] = x.to(torch.bfloat16).reshape(-1)
+    shifted = (flat[1:].view(2, 64, 512),
+               chip_smoke.bf16_block_params(params), 8)
+    for xb, pb, H in (odd, shifted):
+        before = (blk.launches, blk.launches_gemm_wgmma,
+                  blk.launches_gemm_sync)
+        with pytest.raises(ValueError, match="wgmma GEMM path"):
+            blk(xb, pb, H, True, gemm_path="wgmma")
+        with pytest.raises(ValueError, match="no GEMM path"):
+            blk(xb, pb, H, True, gemm_path="tma")
+        assert (blk.launches, blk.launches_gemm_wgmma,
+                blk.launches_gemm_sync) == before
+    # the C entry, given a valid flash path and gemm_path 1 on D 201
+    xb, pb, _ = odd
+    B, T, D = xb.shape
+    E, F = pb[2].shape[1], pb[8].shape[1]
+    out = torch.empty_like(xb)
+    work = torch.empty(fb._kernel("ptt_transformer_block_bf16_fwd_workspace")(
+        B, T, D, E, F, 2), dtype=torch.uint8, device=cuda)
+    torch.cuda.synchronize()
+    err = fb._kernel("ptt_transformer_block_bf16_fwd")(
+        *(t.data_ptr() for t in (xb,) + pb), out.data_ptr(),
+        work.data_ptr(), B, T, D, E, F, 2, 1, 1e-5, 1e-5, 0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1
+
+
+@pytest.mark.parametrize("B,T,D,E,F", [
+    (32, 512, 512, 512, 2048), (2, 300, 264, 192, 520),
+    (2, 300, 512, 512, 2048), (1, 8, 64, 64, 128)])
+def test_bf16_block_gemm_plan_is_the_librarys(cuda, B, T, D, E, F):
+    """fused_block.block_gemm_plan, which the CPU tests hold, is the
+    library's plan of each of the four launches on this card."""
+    import chip_smoke
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert chip_smoke.block_plan_drift(fb, B, T, D, E, F, sms) == ""
 
 
 def test_amp_fused_training_step_on_the_card_matches_the_cpu(cuda):
