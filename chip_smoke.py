@@ -73,7 +73,17 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    gives it (what the CPU tests hold) must be the library's own on every
    case (block_plan_drift).
    Both give the same bits twice and refuse a planted fault (the flash
-   skipping a key tile, the block without b1).
+   skipping a key tile, the block without b1).  The layer norm on bf16
+   rows (LN_BF16_CASES: the training shape, N 4095 and N 1, D 264, 520,
+   2048 and 8192, rows of mean 64) on the path its operands choose
+   (layer_norm.bf16_path: v16 for all of these), checked by the path
+   counters, and again forced onto the scalar path on the same inputs: y
+   within LN_BF16_TOL, mean and rstd within LN_TOL, two calls of each
+   path the same bits, the share of y entries bit-equal between the
+   paths logged; the v16 grid as layer_norm.bf16_plan gives it must be
+   the library's (ln_plan_drift); D 201 and an x 2 bytes off 16-byte
+   alignment take the scalar path with no v16 launch, and v16 forced on
+   them raises before any launch with no counter moved.
 4. Serve: the flagship causal LM at full width (d512/L6/H8/d_inner 2048/
    V32000, T 512, random weights from a fixed seed) is initialised by
    Executor(CUDAPlace(0)).run(startup), saved with save_inference_model,
@@ -111,7 +121,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    batch 32.  Each step must launch the bf16 flash forward 6 times and
    its backward 6 times, the bf16 LM-head forward once and its backward
    once per chunk, 13 layer norms (the first on the f32 embedding sum,
-   12 on bf16 residual sums) and no f32 flash or LM-head kernel; every
+   12 on bf16 residual sums, all 12 on the v16 path by the counters) and
+   no f32 flash or LM-head kernel; every
    bf16 flash forward and backward and LM-head forward and backward on
    the wgmma path (their path counters), with the strides of q, k, v and
    do that autograd hands the flash backward logged.  The L 2
@@ -121,7 +132,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    under FLAGS_amp_bf16, 10 Adam steps at batch 32.  Each step must launch
    the bf16 block kernel 6 times, the bf16 [B, H, T, d] flash forward and
    backward 6 times each (the blocks' recompute), 1 layer norm (on the
-   last block's bf16 output), the bf16 LM-head forward once and its
+   last block's bf16 output, on the v16 path), the bf16 LM-head forward
+   once and its
    backward once per chunk, and no f32 block, flash or LM-head kernel and
    no head-major flash; the recompute's flash forward and backward, the
    block kernel's own flash launch and four GEMMs and the LM head's forward
@@ -149,10 +161,13 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    four bf16 kernels and layer norm on bf16 rows are timed the same way at
    the training shapes, beside the plain versions and the library calls
    in bf16 (SDPA; matmul + F.cross_entropy and its autograd), with their
-   bound at the bf16 tensor-core peak (989 TFLOP/s) or the bytes; the AMP
-   step is traced by kernel class.  The AMP fuse_block path's three bf16
-   kernels likewise: the flash on the block's views beside the contiguous
-   and head-major calls, the bf16 block beside
+   bound at the bf16 tensor-core peak (989 TFLOP/s) or the bytes; the
+   layer norm on bf16 rows on its chosen (v16) path and forced onto the
+   scalar path in turns, each with its host enqueue; the AMP step is
+   traced by kernel class, its 12 layer norms on bf16 rows all v16
+   kernels and its one on f32 rows the scalar kernel.  The AMP
+   fuse_block path's three bf16 kernels likewise: the flash on the block's
+   views beside the contiguous and head-major calls, the bf16 block beside
    torch.nn.TransformerEncoderLayer in bf16, its GEMMs on the path they
    choose and forced onto sync in turns (chosen, sync, sync, chosen) with
    each path's host enqueue; the bf16 block's launches one by one
@@ -160,7 +175,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    and, on the wgmma path, its tiles and CTAs as the library plans them,
    in the log (the smoke fails unless the four GEMMs are the wgmma kernel
    on the wgmma path and the mma.sync one on the sync path); the AMP
-   fuse_block step traced by kernel class.  The bf16 flash forward and
+   fuse_block step traced by kernel class (its 13 layer norms all the v16
+   kernel; the bf16 block's two, LN1 and LN2, listed by name in
+   block_breakdown, must be v16 launches).  The bf16 flash forward and
    backward (head-major, and on the block's views) and the bf16 LM-head
    forward and backward name the
    path they took (from the counters of the timed calls) and time the
@@ -177,7 +194,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "serve"; launches on its training path, and on every path under
    "launches_by_path"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
-   carry their path and both paths' breakdowns),
+   carry their path and both paths' breakdowns; layer_norm's "bf16" entry
+   is the v16 path's, with the scalar path's times and the AMP programs'
+   launches by path beside them),
    nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 
 TF32 is switched off for matmuls and cuDNN: every f32 product of torch here
@@ -384,19 +403,19 @@ def time_ms(fn, iters=50, warmup=5):
                        "the device")
 
 
-def timed_on_path(fn, call, path, iters=50, warmup=5, counter="launches_"):
+def timed_on_path(fn, call, path, iters=50, warmup=5, counter="launches_",
+                  paths=("wgmma", "sync")):
     """(device ms, host ms, path) of call(path) by time_ms, for a wrapper
-    fn with path counters (.launches_wgmma, .launches_sync, or under
-    another prefix `counter`) and `path` None (the operands' choice) or
-    forced: the path its timed calls took, read from the counters, which
-    must name one path for every call."""
+    fn with a counter per path of `paths` (.launches_wgmma, .launches_sync,
+    or under another prefix `counter`) and `path` None (the operands'
+    choice) or forced: the path its timed calls took, read from the
+    counters, which must name one path for every call."""
     def count(p):
         return getattr(fn, counter + p)
 
-    before = (count("wgmma"), count("sync"))
+    before = {p: count(p) for p in paths}
     ms, host = time_ms(lambda: call(path), iters=iters, warmup=warmup)
-    moved = dict(wgmma=count("wgmma") - before[0],
-                 sync=count("sync") - before[1])
+    moved = {p: count(p) - before[p] for p in paths}
     took = [p for p, n in moved.items() if n]
     if len(took) != 1 or took[0] != (path or took[0]):
         raise RuntimeError(f"{fn.__name__} timing (path {path}): the calls "
@@ -833,8 +852,10 @@ def phase_compare(torch):
     g = torch.Generator(device=dev).manual_seed(SEED)
     # name -> {path: max abs err at that path's shape}; "train" and
     # "serve" are the shapes the training step and a batch-8 request give
-    # the kernel, "ragged" the maximum over the other cases
+    # the kernel, "ragged" the maximum over the other cases; the layer norm
+    # on bf16 rows (the AMP programs') under "layer_norm_bf16"
     errs = {n: {} for n in KERNELS}
+    errs["layer_norm_bf16"] = {}
 
     def note(name, path, e):
         errs[name][path] = max(errs[name].get(path, 0.0), e)
@@ -847,21 +868,19 @@ def phase_compare(torch):
             (8 * SERVE_T, 512, torch.float32, "serve"),
             (4095, 512, torch.float32, "ragged"),
             (333, 2048, torch.float32, "ragged"),
-            (7, 8192, torch.float32, "ragged"),
-            (4096, 512, torch.bfloat16, None)]:
+            (7, 8192, torch.float32, "ragged")]:
         x = rnd(n, d, dtype=dtype) * 2 + 0.5
         gam, bet = rnd(d), rnd(d)
         got = ln.layer_norm(x, gam, bet, 1e-5)
         want = ln.layer_norm_plain(x, gam, bet, 1e-5)
         torch.cuda.synchronize()
         e = max(max_err(a, b) for a, b in zip(got, want))
-        tol = LN_BF16_TOL if dtype == torch.bfloat16 else LN_TOL
         log(f"[compare] layer_norm N={n} D={d} {str(dtype)[6:]}: "
-            f"max abs err {e:.3g} (tol {tol:g})")
-        if not e <= tol:
-            raise RuntimeError(f"layer_norm kernel disagrees: {e} > {tol}")
-        if path:
-            note("layer_norm", path, e)
+            f"max abs err {e:.3g} (tol {LN_TOL:g})")
+        if not e <= LN_TOL:
+            raise RuntimeError(f"layer_norm kernel disagrees: {e} > {LN_TOL}")
+        note("layer_norm", path, e)
+    compare_layer_norm_bf16(torch, ln, rnd, note)
 
     # (H, d, B, Tq, Tk, causal, kv_len, strided q, scale of q and k,
     # path); q and k x 4 make the softmax peaked (|s| up to ~80), where
@@ -1090,6 +1109,161 @@ def phase_compare(torch):
     compare_lm_head_bf16(torch, lmh, rnd, g, note)
     compare_fuse_block_amp(torch, rnd, note)
     return errs
+
+
+# the layer norm on bf16 rows: (N, D, mean of x, path); x = randn * 2 +
+# mean, gamma and beta randn.  Each case runs on the path its operands
+# choose (layer_norm.bf16_path: v16 for all of these) and again forced onto
+# the scalar path, with the same inputs.  Mean 64 makes E[x^2] - mean^2
+# lose 12 of f32's 24 bits, which the centred variance does not
+LN_BF16_CASES = [
+    (TRAIN_BATCH * TRAIN_T, 512, 0.5, "train"),
+    (4096, 512, 0.5, "ragged"),
+    (4095, 512, 0.5, "ragged"),
+    (1, 512, 0.5, "ragged"),
+    (1000, 264, 0.5, "ragged"),
+    (777, 520, 0.5, "ragged"),
+    (333, 2048, 0.5, "ragged"),
+    (7, 8192, 0.5, "ragged"),
+    (4096, 512, 64.0, "ragged"),
+]
+
+
+def ln_bf16_inputs(rnd, n, d, mu=0.5):
+    """Inputs of a layer-norm compare on bf16 rows: x = randn * 2 + mu in
+    bf16, and f32 gamma and beta, randn clamped to +-2 and scaled by 0.3
+    and 0.15, so that |y| <= 0.6 |xhat| + 0.3 stays under 4 (|xhat| of
+    randn rows is about 5.6 at most over 8M entries), where LN_BF16_TOL is
+    one bf16 rounding.  (Under gamma and beta ~ N(0, 1), |y| reaches 16,
+    and an entry whose f32 value lies within the last bits of a rounding
+    boundary rounds one step apart on the two sides: 0.03125 at |y| in
+    [4, 8), on the v16 and the scalar path alike, about 300 of the
+    training shape's 8.4M entries.)"""
+    import torch
+    x = (rnd(n, d) * 2 + mu).to(torch.bfloat16)
+    return x, rnd(d).clamp(-2, 2) * 0.3, rnd(d).clamp(-2, 2) * 0.15
+
+
+def bf16_steps(got, want):
+    """The largest |got - want| over bf16 tensors, in units of the bf16
+    spacing at |want| (2^(e - 7) for |want| in [2^e, 2^(e+1))), the unit
+    at least 2^-13: below that the f32 rounding of terms that cancel to a
+    small y outweighs a step."""
+    import torch
+    w = want.float().abs().clamp_min(2.0 ** -6)
+    unit = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return float(((got.float() - want.float()).abs() / unit).max())
+
+
+def ln_plan_drift(ln, N, D):
+    """Where the Python mirror of the v16 layer norm's grid
+    (layer_norm.bf16_plan, which the CPU tests hold) differs from the
+    library's plan on this card, as text, or "" where they agree."""
+    lib = ln.bf16_plan_of_library(N, D)
+    mine = ln.bf16_plan(N, D, lib["sms"], lib["ctas_per_sm"])
+    return "; ".join(f"{k} {v} (library {lib[k]})"
+                     for k, v in mine.items() if lib[k] != v)
+
+
+def compare_layer_norm_bf16(torch, ln, rnd, note):
+    """The layer norm on bf16 rows against layer_norm_plain: every
+    LN_BF16_CASES case on its chosen path (v16), checked by the path
+    counters, then forced onto the scalar path on the same inputs; y bf16
+    within LN_BF16_TOL, mean and rstd within LN_TOL; two calls of each
+    path the same bits; the share of y entries bit-equal between the
+    paths; the v16 plan the library's (ln_plan_drift).  D 201 and an x
+    view 2 bytes off 16-byte alignment choose the scalar path with no v16
+    launch, and v16 forced on them raises before any launch."""
+    bf = torch.bfloat16
+    fn = ln.layer_norm
+
+    def run(x, gam, bet, path, want_path):
+        before = (fn.launches_v16, fn.launches_scalar)
+        got = fn(x, gam, bet, 1e-5, path=path)
+        again = fn(x, gam, bet, 1e-5, path=path)
+        torch.cuda.synchronize()
+        took = dict(v16=fn.launches_v16 - before[0],
+                    scalar=fn.launches_scalar - before[1])
+        if took != {p: 2 * (p == want_path) for p in ln.BF16_PATHS}:
+            raise RuntimeError(f"layer_norm bf16 paths {took}, expected two "
+                               f"calls on {want_path}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if got[0].dtype != bf or not same:
+            raise RuntimeError(f"layer_norm bf16 ({want_path}): y not bf16, "
+                               f"or not deterministic")
+        return got, same
+
+    def check(tag, got, want):
+        if not float(want[0].float().abs().max()) < 4:
+            raise RuntimeError(f"layer_norm bf16 compare ({tag}): |y| >= 4, "
+                               f"outside LN_BF16_TOL's premise")
+        ey = max_err(got[0], want[0])
+        es = max(max_err(got[1], want[1]), max_err(got[2], want[2]))
+        log(f"[compare] layer_norm {tag}: y max abs err {ey:.3g} (tol "
+            f"{LN_BF16_TOL:g}), mean and rstd {es:.3g} (tol {LN_TOL:g})")
+        if not (ey <= LN_BF16_TOL and es <= LN_TOL):
+            raise RuntimeError(f"layer_norm bf16 kernel disagrees ({tag}): "
+                               f"y {ey}, stats {es}")
+        return max(ey, es)
+
+    def share(a, b):   # % of bf16 entries with the same bits
+        return 100 * float((a.view(torch.int16)
+                            == b.view(torch.int16)).float().mean())
+
+    for n, d, mu, path in LN_BF16_CASES:
+        drift = ln_plan_drift(ln, n, d)
+        if drift:
+            raise RuntimeError(f"the v16 layer norm's plan at N={n} D={d} is "
+                               f"not the library's: {drift}")
+        x, gam, bet = ln_bf16_inputs(rnd, n, d, mu)
+        want = ln.layer_norm_plain(x, gam, bet, 1e-5)
+        got, same = run(x, gam, bet, None, "v16")
+        tag = f"N={n} D={d} bf16 mean {mu:g}"
+        note("layer_norm_bf16", path, check(f"{tag} v16 (chosen)", got,
+                                            want))
+        scalar, _ = run(x, gam, bet, "scalar", "scalar")
+        check(f"{tag} scalar (forced)", scalar, want)
+        log(f"[compare] layer_norm {tag}: y bit-equal between the paths "
+            f"{share(got[0], scalar[0]):.4f} % (to the plain version: v16 "
+            f"{share(got[0], want[0]):.4f} %, scalar "
+            f"{share(scalar[0], want[0]):.4f} %); two calls of each "
+            f"bit-identical: {same}")
+    # gamma and beta ~ N(0, 1), |y| up to 16: each path within one bf16
+    # step of the plain version, entry by entry
+    x = (rnd(TRAIN_BATCH * TRAIN_T, 512) * 2 + 0.5).to(bf)
+    gam, bet = rnd(512), rnd(512)
+    want = ln.layer_norm_plain(x, gam, bet, 1e-5)
+    for path in ln.BF16_PATHS:
+        got = fn(x, gam, bet, 1e-5, path=path)
+        steps = bf16_steps(got[0], want[0])
+        log(f"[compare] layer_norm N={TRAIN_BATCH * TRAIN_T} D=512 bf16, "
+            f"gamma and beta randn (max |y| "
+            f"{float(want[0].float().abs().max()):.3g}), {path}: y within "
+            f"{steps:g} bf16 step of the plain version's, "
+            f"{int((got[0] != want[0]).sum())} entries apart")
+        if not steps <= 1:
+            raise RuntimeError(f"layer_norm bf16 ({path}): y {steps} bf16 "
+                               f"steps from the plain version's")
+    # operands v16 cannot take: the scalar path, no v16 launch
+    for tag, n, d, off in (
+            ("N=300 D=201", 300, 201, 0),
+            ("N=4096 D=512, x 2 bytes off 16-byte alignment", 4096, 512, 1)):
+        x, gam, bet = ln_bf16_inputs(rnd, n + off, d)
+        x = x.view(-1)[off:off + n * d].view(n, d)
+        got, _ = run(x, gam, bet, None, "scalar")
+        note("layer_norm_bf16", "ragged", check(
+            f"{tag} bf16: scalar (chosen)", got,
+            ln.layer_norm_plain(x, gam, bet, 1e-5)))
+        before = (fn.launches, fn.launches_v16, fn.launches_scalar)
+        try:
+            fn(x, gam, bet, 1e-5, path="v16")
+        except ValueError as err:
+            log(f"[compare] layer_norm {tag} bf16 forced onto v16: refused "
+                f"({err})")
+        else:
+            raise RuntimeError(f"the v16 layer norm ran on {tag}")
+        if (fn.launches, fn.launches_v16, fn.launches_scalar) != before:
+            raise RuntimeError("a refused layer_norm call moved its counters")
 
 
 def fwd_plan_drift(lmh, N, D, V, sms):
@@ -1549,6 +1723,8 @@ def phase_serve(torch):
     counters = {n: wrapper(n) for n in KERNELS}
     for fn in counters.values():
         fn.launches = 0
+    lnw = counters["layer_norm"]
+    lnw.launches_v16 = lnw.launches_scalar = 0
 
     ptt.reset_default_programs()
     main, startup = ptt.Program(), ptt.Program()
@@ -1617,6 +1793,9 @@ def phase_serve(torch):
             f"(expected {want})")
         if counts != want:
             raise RuntimeError(f"launch counts {counts} != {want}")
+        if (lnw.launches_v16, lnw.launches_scalar) != (0, 0):
+            raise RuntimeError("the f32 serving path launched layer norms "
+                               "on bf16 rows")
 
         cpu = create_predictor(AnalysisConfig(model_dir, use_gpu=False))
         toks, lens = requests[0]
@@ -1735,6 +1914,8 @@ def _phase_train(torch, fuse_block, amp):
     block = counters["transformer_block_bf16"]
     block.launches_flash_wgmma = block.launches_flash_sync = 0
     block.launches_gemm_wgmma = block.launches_gemm_sync = 0
+    lnw = counters["layer_norm"]
+    lnw.launches_v16 = lnw.launches_scalar = 0
     # the (q, k, v, do) strides that autograd hands each bf16 flash
     # backward in step 0, by site
     bwd_strides = {}
@@ -1806,6 +1987,13 @@ def _phase_train(torch, fuse_block, amp):
     if ln_dtypes != want_ln:
         raise RuntimeError(f"layer-norm input dtypes {ln_dtypes} != "
                            f"{want_ln}")
+    # ... and every layer norm on bf16 rows on the v16 path
+    ln_paths = dict(v16=lnw.launches_v16, scalar=lnw.launches_scalar)
+    if amp:
+        log(f"{tag} layer norms on bf16 rows by path: {ln_paths}")
+    if ln_paths != dict(v16=want_ln.count("bfloat16") * TRAIN_STEPS,
+                        scalar=0):
+        raise RuntimeError(f"layer norm bf16 paths {ln_paths}")
     peak = torch.cuda.max_memory_allocated()
     n_tok = TRAIN_BATCH * TRAIN_T
     chunk, = [op.attrs["chunk_size"] for op in main.global_block().ops
@@ -1868,7 +2056,8 @@ def _phase_train(torch, fuse_block, amp):
     else:
         train_match(torch, amp)
     return counts, dict(exe=exe, main=main, batch=batch,
-                        avg_cost=avg_cost, p50_ms=p50, peak=peak)
+                        avg_cost=avg_cost, p50_ms=p50, peak=peak,
+                        ln_paths=ln_paths)
 
 
 @contextlib.contextmanager
@@ -2160,7 +2349,7 @@ def _kernel_class(name):
         return BLOCK_GEMMS
     if "block_split" in name:
         return "transformer_block operand splits (this repo)"
-    if "ln_fwd_kernel" in name:
+    if "ln_fwd" in name:   # ln_fwd_kernel (f32, scalar), ln_fwd_v16_*
         return "layer_norm (this repo)"
     if "lm_head_fwd" in name:
         return "lm_head_fwd (this repo)"
@@ -2171,6 +2360,18 @@ def _kernel_class(name):
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "copies"
     return "other (elementwise, embedding, reductions, adam)"
+
+
+def ln_launch_kinds(names):
+    """The layer-norm launches of a trace_run record by kernel: the f32
+    rows' ln_fwd_kernel<float, ...>, and on bf16 rows the scalar path's
+    ln_fwd_kernel<__nv_bfloat16, ...> and the v16 path's
+    ln_fwd_v16_tma_kernel and ln_fwd_v16_row_kernel."""
+    ln = names.get(_kernel_class("ln_fwd_kernel"), {})
+    kinds = {"f32": "ln_fwd_kernel<float", "bf16 scalar":
+             "ln_fwd_kernel<__nv_bfloat16", "bf16 v16": "ln_fwd_v16_"}
+    return {kind: sum(c for k, c in ln.items() if key in k)
+            for kind, key in kinds.items()}
 
 
 PROFILE_TRIES = 3
@@ -2701,24 +2902,41 @@ def phase_timings_amp(torch):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
 
     res = {}
-    # layer norm on bf16 rows: y bf16, mean and rstd f32
+    # layer norm on bf16 rows: y bf16, mean and rstd f32; the path the rows
+    # choose (v16) and the scalar path forced, in turns (chosen, scalar,
+    # scalar, chosen), each with its host enqueue
     N, D = TRAIN_BATCH * TRAIN_T, 512
     gam = torch.randn(D, generator=g, device=dev)
     bet = torch.randn(D, generator=g, device=dev)
     rot = rotation(lambda: rnd(N, D), 8)
-    ms, _ = time_ms(lambda: ln.layer_norm(rot(), gam, bet, 1e-5))
+    runs = {}
+    for path in (None, "scalar", "scalar", None):
+        ms, host, took = timed_on_path(
+            ln.layer_norm, lambda p: ln.layer_norm(rot(), gam, bet, 1e-5,
+                                                   path=p),
+            path, paths=ln.BF16_PATHS)
+        runs.setdefault(path, []).append((ms, host, took))
     plain, _ = time_ms(lambda: ln.layer_norm_plain(rot(), gam, bet, 1e-5))
     lib, _ = time_ms(lambda: F.layer_norm(rot(), (D,), gam.to(bf),
                                           bet.to(bf), 1e-5))
     del rot
+    (ms, host, took), (ms2, host2, _) = runs[None]
+    (sms_, shost, _), (sms2, shost2, _) = runs["scalar"]
+    if took != "v16":
+        raise RuntimeError(f"the training rows took the {took} path")
     nbytes = 2 * 2 * N * D + 2 * 4 * D + 2 * 4 * N
-    res["layer_norm"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                             bound_by="bytes")
-    log(f"[time amp] layer_norm N={N} D={D} bf16: kernel {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, F.layer_norm (bf16 gamma, beta) {lib:.4f} "
-        f"ms, bound {res['layer_norm']['bound_ms']:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB)")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    res["layer_norm"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+        bound_by="bytes", path=took, path_ms=[ms, ms2],
+        host_ms=[host, host2], scalar_ms=sms_, scalar_path_ms=[sms_, sms2],
+        scalar_host_ms=[shost, shost2])
+    log(f"[time amp] layer_norm N={N} D={D} bf16: kernel ({took} path) "
+        f"{ms:.4f} / {ms2:.4f} ms ({100 * bound / ms:.1f} % of the bound), "
+        f"scalar path {sms_:.4f} / {sms2:.4f} ms, plain {plain:.4f} ms, "
+        f"F.layer_norm (bf16 gamma, beta) {lib:.4f} ms, bound {bound:.4f} "
+        f"ms ({nbytes / 1e6:.1f} MB); host enqueue per call: {took} "
+        f"{host:.4f} / {host2:.4f} ms, scalar {shost:.4f} / {shost2:.4f} ms")
 
     # flash forward and backward, head-major, B 32, T 512, H 8, d 64
     H, d, B, T = 8, 64, TRAIN_BATCH, TRAIN_T
@@ -3355,12 +3573,11 @@ def main():
                     "lm_head_bwd (this repo)": 0,
                     _kernel_class("flash_fwd_hdt_kernel"): 0,
                     _kernel_class("flash_bwd_dq_kernel"): 0})
-    ln = names.get(_kernel_class("ln_fwd_kernel"), {})
-    ln_types = {t: sum(c for k, c in ln.items() if f"ln_fwd_kernel<{t}" in k)
-                for t in ("float", "__nv_bfloat16")}
-    log(f"[trace]   AMP step layer norms by input type: {ln_types}")
-    if ln_types != {"float": 1, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"]}:
-        raise RuntimeError(f"AMP step layer norms {ln}")
+    ln_kinds = ln_launch_kinds(names)
+    log(f"[trace]   AMP step layer norms by kernel: {ln_kinds}")
+    if ln_kinds != {"f32": 1, "bf16 scalar": 0,
+                    "bf16 v16": 2 * FLAGSHIP["n_layer"]}:
+        raise RuntimeError(f"AMP step layer norms {ln_kinds}")
     # the AMP fuse_block step: four bf16 block GEMMs a layer; the bf16 flash
     # forward inside each block and in its recompute, the backward's two
     # kernels; every layer norm on bf16 rows (12 inside the blocks, the
@@ -3383,13 +3600,11 @@ def main():
                     "lm_head_bwd (this repo)": 0,
                     _kernel_class("flash_fwd_hdt_kernel"): 0,
                     _kernel_class("flash_bwd_dq_kernel"): 0})
-    ln = names.get(_kernel_class("ln_fwd_kernel"), {})
-    ln_types = {t: sum(c for k, c in ln.items() if f"ln_fwd_kernel<{t}" in k)
-                for t in ("float", "__nv_bfloat16")}
-    log(f"[trace]   AMP fuse_block step layer norms by input type: "
-        f"{ln_types}")
-    if ln_types != {"float": 0, "__nv_bfloat16": 2 * FLAGSHIP["n_layer"] + 1}:
-        raise RuntimeError(f"AMP fuse_block step layer norms {ln}")
+    ln_kinds = ln_launch_kinds(names)
+    log(f"[trace]   AMP fuse_block step layer norms by kernel: {ln_kinds}")
+    if ln_kinds != {"f32": 0, "bf16 scalar": 0,
+                    "bf16 v16": 2 * FLAGSHIP["n_layer"] + 1}:
+        raise RuntimeError(f"AMP fuse_block step layer norms {ln_kinds}")
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -3448,6 +3663,13 @@ def main():
         if len(flash) != 1 or "flash_fwd_bf16_wg_kernel" not in flash[0]:
             raise RuntimeError(f"the bf16 block's flash launch is {flash}, "
                                f"not the wgmma kernel")
+        # LN1 and LN2 on the v16 path (layer_norm.cu's rule in the C entry)
+        norms = {n: r["launches"] for n, r in by_kernel.items()
+                 if "ln_fwd" in n}
+        if sum(norms.values()) != 2 or any("ln_fwd_v16_" not in n
+                                           for n in norms):
+            raise RuntimeError(f"the bf16 block's layer norms are {norms}, "
+                               f"not two v16 launches")
         gemms = [n for n, r in by_kernel.items() if "block_gemm" in n]
         if sum(by_kernel[n]["launches"] for n in gemms) != 4 or any(
                 ("_wg_kernel" in n) != (gpath == "wgmma") for n in gemms):
@@ -3472,7 +3694,13 @@ def main():
         sdpa["fwd"])
     amp_times["flash_attention_bwd_bf16"]["library_kernels"] = sorted(
         sdpa["bwd"])
-    times["layer_norm"]["train"]["bf16"] = amp_times.pop("layer_norm")
+    # the layer norm on bf16 rows: the AMP programs' launches (on the v16
+    # path, as phase_train checked) and the v16 path's numbers
+    times["layer_norm"]["train"]["bf16"] = dict(
+        amp_times.pop("layer_norm"), launches=atrain["ln_paths"]["v16"],
+        max_abs_err=errs["layer_norm_bf16"]["train"],
+        launches_by_path={"train_amp": atrain["ln_paths"],
+                          "train_fuse_block_amp": fatrain["ln_paths"]})
     for n, r in amp_times.items():
         times[n] = {"train": r}
     log(f"[train amp] step p50 {atrain['p50_ms']:.2f} ms against the f32 "

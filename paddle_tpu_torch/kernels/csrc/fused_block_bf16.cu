@@ -26,7 +26,8 @@
 //
 // Design.  fused_block.cu's chain: no SM holds the weights, so a fixed
 // chain of launches, each reading its token rows from device memory once:
-//   1. LN1(x) -> a [N, D] bf16               (layer_norm.cu's row kernel)
+//   1. LN1(x) -> a [N, D] bf16               (layer_norm.cu's row kernels:
+//      v16 where D % 8 == 0 and x, a 16-byte aligned, else scalar)
 //   2. a [Wq|Wk|Wv] -> qkv [N, 3E] bf16, q times scale in the epilogue
 //   3. flash attention reading q, k and v out of qkv as [B, T, H, dh]
 //      views through strides, writing o [N, E] bf16 the same way
@@ -88,10 +89,11 @@
 #include "tma_maps.cuh"
 #include "wgmma_bf16.cuh"
 
-extern "C" int ptt_layer_norm_fwd(const void* x, const void* gamma,
-                                  const void* beta, void* y, void* mean,
-                                  void* rstd, int N, int D, float eps,
-                                  int is_bf16, void* stream);
+extern "C" int ptt_layer_norm_bf16_path(const void* x, const void* y, int D);
+extern "C" int ptt_layer_norm_fwd_bf16(const void* x, const void* gamma,
+                                       const void* beta, void* y, void* mean,
+                                       void* rstd, int N, int D, float eps,
+                                       int path, void* stream);
 extern "C" int ptt_flash_fwd_bf16(const void* q, const void* k,
                                   const void* v, void* o, void* lse, int H,
                                   int D, int B, int Tq, int Tk, int kv_len,
@@ -669,9 +671,9 @@ extern "C" int ptt_transformer_block_bf16_fwd(
   using cb = const bf16*;
   const bf16* xb = static_cast<cb>(x);
 
-  // 1. LN1
-  int err = ptt_layer_norm_fwd(x, ln1g, ln1b, a, mean, rstd, N, D, eps1, 1,
-                               stream);
+  // 1. LN1, on the path layer_norm.cu's rule gives x and a
+  int err = ptt_layer_norm_fwd_bf16(x, ln1g, ln1b, a, mean, rstd, N, D, eps1,
+                                    ptt_layer_norm_bf16_path(x, a, D), stream);
   if (err) return err;
   // 2. q, k, v
   const bf16* const wqkv[3] = {static_cast<cb>(wq), static_cast<cb>(wk),
@@ -697,8 +699,8 @@ extern "C" int ptt_transformer_block_bf16_fwd(
                              Out{h, xb, nullptr, 0, 1.f, 0}, N, D, E, s);
   if (err) return err;
   // 5. LN2, into a's room
-  err = ptt_layer_norm_fwd(h, ln2g, ln2b, a, mean, rstd, N, D, eps2, 1,
-                           stream);
+  err = ptt_layer_norm_fwd_bf16(h, ln2g, ln2b, a, mean, rstd, N, D, eps2,
+                                ptt_layer_norm_bf16_path(h, a, D), stream);
   if (err) return err;
   // 6. u = relu(f W1 + b1)
   const bf16* const w1b[3] = {static_cast<cb>(w1), nullptr, nullptr};

@@ -63,6 +63,85 @@ def test_layer_norm_kernel_matches_plain(cuda, n, d, dtype, tol):
         assert (a.float() - w.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("n,d,mu", [(n, d, mu) for n, d, mu, _ in
+                                    chip_smoke.LN_BF16_CASES])
+def test_layer_norm_bf16_v16_and_scalar_match_plain(cuda, n, d, mu):
+    """bf16 rows on the path they choose (v16 for every case here: D a
+    multiple of 8, fresh tensors) and forced onto the scalar path: y
+    within LN_BF16_TOL, mean and rstd within LN_TOL of the plain version;
+    two calls of each path give the same bits; the counters name the
+    path of every call."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, g, b = chip_smoke.ln_bf16_inputs(
+        lambda *s: torch.randn(*s, generator=gen, device=cuda), n, d, mu)
+    want = ln.layer_norm_plain(x, g, b, 1e-5)
+    assert ln.bf16_path(x, torch.empty_like(x)) == "v16"
+    for path in (None, "scalar"):
+        before = (ln.layer_norm.launches_v16, ln.layer_norm.launches_scalar)
+        got = ln.layer_norm(x, g, b, 1e-5, path=path)
+        again = ln.layer_norm(x, g, b, 1e-5, path=path)
+        torch.cuda.synchronize()
+        moved = (ln.layer_norm.launches_v16 - before[0],
+                 ln.layer_norm.launches_scalar - before[1])
+        assert moved == ((2, 0) if path is None else (0, 2))
+        assert got[0].dtype == torch.bfloat16
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+        assert (got[0].float() - want[0].float()).abs().max().item() \
+            <= chip_smoke.LN_BF16_TOL
+        for a, w in zip(got[1:], want[1:]):
+            assert (a - w).abs().max().item() <= chip_smoke.LN_TOL
+
+
+def test_layer_norm_bf16_scalar_for_what_v16_cannot_take(cuda):
+    """D 201 and an x 2 bytes off 16-byte alignment take the scalar path
+    with no v16 launch; v16 forced on them raises before any launch and
+    moves no counter, and the C entry refuses them
+    (cudaErrorInvalidValue); an unknown path, or a path for f32 rows,
+    raises."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(14)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device=cuda)
+
+    fn = ln.layer_norm
+    for d, off in ((201, 0), (512, 1)):
+        x, g, b = chip_smoke.ln_bf16_inputs(rnd, 64 + off, d)
+        x = x.view(-1)[off:off + 64 * d].view(64, d)
+        before = (fn.launches, fn.launches_v16, fn.launches_scalar)
+        with pytest.raises(ValueError, match="v16 path"):
+            fn(x, g, b, 1e-5, path="v16")
+        assert (fn.launches, fn.launches_v16, fn.launches_scalar) == before
+        got = fn(x, g, b, 1e-5)
+        want = ln.layer_norm_plain(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        assert (fn.launches_v16, fn.launches_scalar) == (before[1],
+                                                          before[2] + 1)
+        assert (got[0].float() - want[0].float()).abs().max().item() \
+            <= chip_smoke.LN_BF16_TOL
+        y, m, r = torch.empty_like(x), torch.empty(64, device=cuda), \
+            torch.empty(64, device=cuda)
+        err = ln._kernel("ptt_layer_norm_fwd_bf16")(
+            x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
+            m.data_ptr(), r.data_ptr(), 64, d, 1e-5, 1,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 1   # cudaErrorInvalidValue
+    x = _randn(cuda, 8, 512, seed=18)
+    g, b = _randn(cuda, 512, seed=19), _randn(cuda, 512, seed=20)
+    with pytest.raises(ValueError, match="path"):
+        fn(x.to(bf), g, b, 1e-5, path="tma")
+    with pytest.raises(ValueError, match="path"):
+        fn(x, g, b, 1e-5, path="scalar")
+
+
+@pytest.mark.parametrize("n,d", sorted({(n, d) for n, d, _, _ in
+                                        chip_smoke.LN_BF16_CASES}))
+def test_layer_norm_bf16_plan_is_the_librarys(cuda, n, d):
+    """The v16 grid in Python (bf16_plan), which the CPU tests hold, is
+    the one the library launches on this card."""
+    assert chip_smoke.ln_plan_drift(ln, n, d) == ""
+
+
 @pytest.mark.parametrize("H,d,B,Tq,Tk,causal,kv_len", [
     (8, 64, 32, 512, 512, True, None),      # the training step's shape
     (8, 64, 8, 512, 512, True, None),       # the serving path's shape

@@ -47,6 +47,41 @@ def test_layer_norm_plain_matches_pallas(n, d):
     np.testing.assert_allclose(tvar.numpy(), np.asarray(jvar), **TOL)
 
 
+def _bf16_step(a):
+    """The spacing of bf16 values at |a| (8 significant bits)."""
+    mag = np.maximum(np.abs(a.astype("float64")), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("n", [7, 128, 300])
+@pytest.mark.parametrize("d", [32, 264, 512])
+def test_layer_norm_plain_matches_pallas_bf16(n, d):
+    """bf16 rows (the AMP programs' layer norms): y bf16 within one bf16
+    step of the Pallas kernel's (the same f32 value may round the other
+    way), or within TOL's atol where y is near 0 (there xhat * gamma and
+    beta cancel, and their f32 rounding outweighs a bf16 step); mean and
+    variance f32 at TOL."""
+    rng = np.random.RandomState(n * 1000 + d + 7)
+    x = (rng.randn(n, d) * 2 + 0.5).astype("float32")
+    g = rng.randn(d).astype("float32")
+    b = rng.randn(d).astype("float32")
+    eps = 1e-5
+    jy, jmean, jvar = fused_layer_norm(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(g), jnp.asarray(b),
+        eps=eps, interpret=True, return_stats=True)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ty, tmean, trstd = tln.layer_norm_plain(
+        xt, torch.from_numpy(g), torch.from_numpy(b), eps)
+    assert ty.dtype == torch.bfloat16 and jy.dtype == jnp.bfloat16
+    jy32 = np.asarray(jy.astype(jnp.float32))
+    ty32 = ty.float().numpy()
+    assert (np.abs(ty32 - jy32)
+            <= np.maximum(_bf16_step(jy32), TOL["atol"])).all()
+    tvar = 1.0 / torch.square(trstd) - eps
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), **TOL)
+    np.testing.assert_allclose(tvar.numpy(), np.asarray(jvar), **TOL)
+
+
 # (H, d, B, Tq, Tk, causal, kv_len)
 FLASH_CASES = [
     (2, 16, 2, 128, 128, True, None),
