@@ -93,7 +93,43 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    and read just after: each request must launch 13 layer-norm and 6 flash
    kernels, and no other.  Request 1 is answered again by a CPU predictor
    (use_gpu=False: the plain versions) on the same dir, and the logits at
-   each prompt's last position must agree.
+   each prompt's last position must agree.  Each batch's latency is
+   printed with the logits readback (into pinned host memory) beside the
+   pageable copy's p50 measured before (PAGEABLE_READBACK_MS).
+4b. Decode: the unfused flagship (build_lm_net(fused_attention=False),
+   program T 256, the same widths, random weights from SEED) served token
+   by token as bench.py's serving row runs it: DecodeEngine(max_batch 8,
+   max_len 512, prompt buckets 64/128/256) whose prepare() must capture a
+   CUDA graph per bucket and one for the decode step (the capture seconds
+   logged).  Four prompts of 5, 64, 100 and 200 tokens, one per slot,
+   decode greedily; slot 1 is retired after 3 steps and backfilled with a
+   37-token prompt while the others go on.  Every sequence's first 8
+   tokens (4 for the retired one) are held to the full-recompute forward
+   of the same program through Executor(CUDAPlace(0)): the engine's token
+   must be the oracle's argmax, or the oracle's top-2 margin must be under
+   DECODE_RTOL x max |logit| (then that sequence's compare stops, at most
+   one may), and the engine's logits row must be within DECODE_RTOL x max
+   |logit| of the oracle's; the positions compared, the largest gap
+   between the engine's logit of its token and the oracle's top logit and
+   the largest row error are logged.  A control engine with TF32 matmuls
+   must fail that row check at every position it is held to (its prompts'
+   prefills and first steps), so the check would catch an engine that
+   computes below f32.  The kernels' counters are zeroed just before the
+   engine's own work (the checked decode, the timings, the load) and read
+   just after it: the engine launches no kernel of this repo.  They are
+   zeroed again for the oracle, which must show its 13 layer norms a
+   forward ("decode_oracle").  The engine's timings: the decode-step
+   replay p50 (host clock, synchronized), the whole decode_step() p50 and
+   the prefill p50 per bucket, beside the step's byte bound (the weights,
+   the K/V positions the timed steps' lengths need and the logits; the
+   whole padded slab's bound is logged beside it); then the
+   ContinuousBatcher under loadgen.run_loadgen(inproc_submit(batcher),
+   8 streams x 4 requests, 32 new tokens, prompts of 4-128 tokens): every
+   request accounted for and ok, none given up and serving_compiles_total
+   unmoved; generated tokens/s, TTFT and per-token p50/p99, peak device
+   memory and the slabs' bytes, beside nvidia-smi's line.  One replay is
+   traced at the end (trace_decode: device busy time and launches; the
+   trace must show cuBLAS products and no kernel of this repo).
 5. Train: the same LM's training program (build_lm_net(fused_head=True) +
    optimizer.Adam(1e-4).minimize) at full width takes 5 Adam steps at
    batch 32 on one fixed batch through Executor(CUDAPlace(0)).run; every
@@ -192,7 +228,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
-   "launches_by_path"; the bf16 kernels' launches are the AMP step's;
+   "launches_by_path", the decode engine's under "decode" and its oracle's
+   under "decode_oracle"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -237,10 +274,32 @@ SLEEP_CYCLES = 40_000_000      # about 20 ms at the H100's 1.98 GHz boost
 ROTATE = 4                     # input sets a timed call rotates over (cold)
 FAULT_TILE = 12800             # the LM head's planted fault: its vocab tile
 
+# the decode phase: bench.py's serving row (bench_lm_serving) at its card
+# shapes — the flagship widths, max_len 512, a program T of 256, prompt
+# buckets (64, 128, 256), 8 slots, 32 new tokens, 8 closed-loop streams of
+# 4 requests with prompts of 4-128 tokens
+DECODE_T = 256
+DECODE_MAX_LEN = 512
+DECODE_BUCKETS = (64, 128, 256)
+DECODE_SLOTS = 8
+DECODE_PROMPTS = (5, 64, 100, 200)   # one per slot, held to the oracle
+DECODE_BACKFILL = 37                 # the prompt backfilled into slot 1
+DECODE_NEW = 8                       # greedy tokens a sequence compared
+DECODE_LOAD = dict(streams=8, requests_per_stream=4, max_new_tokens=32,
+                   prompt_len_range=(4, 128))
+DECODE_TIMED = 50                    # timed replays / steps / prefills
+# the logits readback's p50 with a pageable copy (the Predictor's before
+# it copied into pinned memory), NVIDIA H100 80GB HBM3 at 700.00 W
+PAGEABLE_READBACK_MS = {1: 35.99, 4: 122.02, 8: 259.16}
+
 LN_TOL = 1e-4        # abs, f32: the same math summed in another order
 LN_BF16_TOL = 2e-2   # abs on bf16 y of magnitude < 4: one bf16 rounding
 FA_TOL = 2e-4        # abs on o and lse, f32
 LOGIT_RTOL = 1e-3    # of max |logit|: GPU vs CPU, same f32 math
+# of max |logit|: the decode engine's logits rows against the Executor's
+# full forward, both f32 on the card.  Between the f32 engine's largest
+# reading and a TF32 control engine's smallest (PERF.md, PR 15)
+DECODE_RTOL = 3e-5
 BWD_RTOL = 1e-4      # of max |plain| (flash: over dq, dk, dv) on the
                      # backward's outputs: f32 sums over thousands of
                      # products in another order
@@ -1815,11 +1874,350 @@ def phase_serve(torch):
         p50 = float(np.median(lat[b]))
         d50 = float(np.median(dev_ms[b]))
         log(f"[serve] batch {b}: latency p50 {p50:.2f} ms "
-            f"({b * T / p50 * 1e3:.0f} tokens/s over {b}x{T} positions); "
-            f"without the logits readback p50 {d50:.2f} ms "
-            f"({b * T / d50 * 1e3:.0f} tokens/s)")
+            f"({b * T / p50 * 1e3:.0f} tokens/s over {b}x{T} positions) "
+            f"with the logits readback into pinned memory (a pageable "
+            f"copy measured {PAGEABLE_READBACK_MS[b]:.2f} ms on an NVIDIA "
+            f"H100 80GB HBM3 at 700.00 W); without the readback p50 "
+            f"{d50:.2f} ms ({b * T / d50 * 1e3:.0f} tokens/s)")
     log(f"[serve] peak device memory {peak / 2**20:.1f} MiB")
     return counts, pred, requests[-1][0]
+
+
+def decode_oracle(torch, exe, main, logits, toks):
+    """The full-recompute forward of the unfused program on the card (the
+    Executor, right-padded to DECODE_T): the logits [V] at the last
+    position of `toks`."""
+    import numpy as np
+    pad = np.zeros((1, DECODE_T), np.int64)
+    pad[0, :len(toks)] = toks
+    out, = exe.run(main, feed={"tokens": pad,
+                               "labels": np.zeros((1, DECODE_T), np.int64)},
+                   fetch_list=[logits], return_numpy=False)
+    return out[0, len(toks) - 1].double().cpu().numpy()
+
+
+def row_error(row, want):
+    """|row - want| at its largest, over max |want|."""
+    import numpy as np
+    return float(np.abs(row - want).max()) / float(np.abs(want).max())
+
+
+def hold_to_oracle(oracle, seqs):
+    """Each (label, prompt, tokens, engine logits rows) sequence against
+    the oracle, token by token: the engine's greedy token must be the
+    oracle's argmax; where they differ, the oracle's top-2 margin must be
+    under DECODE_RTOL x max |logit| (a near tie), and that sequence's
+    compare stops there — at most one may stop early.  The engine's whole
+    logits row must also be within DECODE_RTOL x max |logit| of the
+    oracle's.  Returns (positions compared, largest gap between the
+    engine's logit of its token and the oracle's top logit, largest row
+    error over max |logit|)."""
+    import numpy as np
+    compared, stopped, gap, row_err = 0, [], 0.0, 0.0
+    for label, prompt, toks, rows in seqs:
+        ctx = list(prompt)
+        for j, (tok, row) in enumerate(zip(toks, rows)):
+            want = oracle(ctx)
+            scale = float(np.abs(want).max())
+            top2 = np.sort(want)[-2:]
+            compared += 1
+            gap = max(gap, float(abs(want.max() - row[tok])))
+            err = row_error(row, want)
+            row_err = max(row_err, err)
+            if err > DECODE_RTOL:
+                raise RuntimeError(f"[decode] {label} token {j}: logits "
+                                   f"{err:.3g} x max |logit| off the "
+                                   f"oracle's (tol {DECODE_RTOL:g})")
+            if tok != int(np.argmax(want)):
+                margin = float(top2[1] - top2[0])
+                log(f"[decode] {label} token {j}: engine {tok}, oracle "
+                    f"{int(np.argmax(want))}, oracle top-2 margin "
+                    f"{margin:.3g} (near-tie bar "
+                    f"{DECODE_RTOL * scale:.3g})")
+                if margin >= DECODE_RTOL * scale:
+                    raise RuntimeError(f"[decode] {label} token {j} "
+                                       f"differs from the oracle's")
+                stopped.append(label)
+                break
+            ctx.append(tok)
+    if len(stopped) > 1:
+        raise RuntimeError(f"[decode] {len(stopped)} sequences stopped at "
+                           f"a near tie: {stopped}")
+    return compared, gap, row_err
+
+
+def decode_engine(cfg, params):
+    """bench.py's serving engine on the card over role-keyed params."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import serving
+    return serving.DecodeEngine(cfg, params, max_batch=DECODE_SLOTS,
+                                max_len=DECODE_MAX_LEN,
+                                prompt_buckets=DECODE_BUCKETS, seed=SEED,
+                                place=ptt.CUDAPlace(0))
+
+
+def tf32_control_rows(torch, cfg, params, prompts):
+    """The control for the decode check's row tolerance: the same engine
+    with TF32 matmuls (products of 10-bit mantissas, every cuBLAS call of
+    its captured graphs).  Each prompt's prefill and first decode step:
+    [(context, logits row)].  TF32 is off again when it returns."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        e = decode_engine(cfg, params)
+        e.prepare()
+        out, first = [], []
+        for s, p in enumerate(prompts):
+            first.append(e.start_sequence(s, p))
+            out.append((list(p), e.last_logits[0].double().cpu().numpy()))
+        e.decode_step()
+        host = e.last_logits.double().cpu().numpy()
+        out += [(list(p) + [first[s]], host[s])
+                for s, p in enumerate(prompts)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    return out
+
+
+def kv_bytes_needed(cfg, lengths):
+    """The K/V bytes a decode step must move at these slot lengths: the
+    new entry written and positions [0, length] read, K and V, f32."""
+    per_pos = cfg.n_layer * cfg.n_head * cfg.d_key * 4 * 2
+    return per_pos * sum(int(n) + 2 for n in lengths)
+
+
+def phase_decode(torch):
+    """Serving token by token: the KV-cache DecodeEngine (CUDA graphs
+    captured by prepare()) and the ContinuousBatcher at bench.py's serving
+    shapes, held to the full-forward oracle through the Executor, then
+    bench.py's closed-loop load.  Returns (kernel launches of the
+    engine's work, kernel launches of the oracle's forwards, a function
+    that builds and prepares the same engine again).  Nothing of the
+    phase stays on the card after it, so the later phases' peak memory is
+    their own."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.serving import loadgen
+
+    counters = {n: wrapper(n) for n in KERNELS}
+    cfg = tr.TransformerConfig(**dict(FLAGSHIP,
+                                      max_length=DECODE_MAX_LEN))
+    V = cfg.src_vocab_size
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        _, _, logits = tr.build_lm_net(cfg, DECODE_T, is_test=True,
+                                       fused_attention=False,
+                                       fused_head=False)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    params = serving.extract_lm_params(main, exe.scope, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def compiles():
+        m = obs_metrics.REGISTRY.get("serving_compiles_total")
+        return 0.0 if m is None else m.total()
+
+    # -- the engine's own work, counted from here to the load's end ---------
+    for fn in counters.values():
+        fn.launches = 0
+    engine = decode_engine(cfg, params)
+    c0 = compiles()
+    report = engine.prepare()
+    if engine.device.type != DEVICE or engine._step is None \
+            or getattr(engine._step, "graph", None) is None:
+        raise RuntimeError("the decode engine is not on graph replays")
+    log(f"[decode] unfused flagship d{cfg.d_model}/L{cfg.n_layer}/"
+        f"H{cfg.n_head}/d_inner{cfg.d_inner}/V{V}, program T {DECODE_T}, "
+        f"max_len {DECODE_MAX_LEN}, {DECODE_SLOTS} slots, buckets "
+        f"{list(DECODE_BUCKETS)}: prepare() captured "
+        f"{compiles() - c0:.0f} graphs in {report['total_seconds']} s "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                    for k, v in engine.capture_seconds.items()))
+    if compiles() - c0 != len(DECODE_BUCKETS) + 1:
+        raise RuntimeError("prepare() did not capture every bucket and "
+                           "the step")
+
+    # four prompts, one per slot, and a backfill: held to the oracle below
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, V, n).tolist() for n in DECODE_PROMPTS]
+    toks = {s: [] for s in range(len(prompts))}
+    rows = {s: [] for s in range(len(prompts))}
+
+    def note(slot, tok, row):
+        toks[slot].append(tok)
+        rows[slot].append(row)
+
+    for s, p in enumerate(prompts):
+        note(s, engine.start_sequence(s, p),
+             engine.last_logits[0].double().cpu().numpy())
+    seqs_done = {}
+    backfill = rng.randint(1, V, DECODE_BACKFILL).tolist()
+    for step in range(2 * DECODE_NEW - 1):
+        if step == 3:
+            # retire slot 1 mid-decode and backfill it
+            seqs_done["slot 1"] = (prompts[1], toks[1], rows[1])
+            engine.retire_slot(1)
+            toks[1], rows[1] = [], []
+            note(1, engine.start_sequence(1, backfill),
+                 engine.last_logits[0].double().cpu().numpy())
+        out = engine.decode_step()
+        host = engine.last_logits.double().cpu().numpy()
+        for s, t in out.items():
+            note(s, t, host[s])
+    seqs = [(f"slot {s} ({len(prompts[s])} tokens)", prompts[s],
+             toks[s][:DECODE_NEW], rows[s][:DECODE_NEW])
+            for s in (0, 2, 3)]
+    seqs.append(("slot 1 retired mid-decode",) + seqs_done["slot 1"])
+    seqs.append((f"slot 1 backfilled ({DECODE_BACKFILL} tokens)", backfill,
+                 toks[1][:DECODE_NEW], rows[1][:DECODE_NEW]))
+    engine.reset()
+
+    # timings: replays, steps and prefills, all slots active
+    for s in range(DECODE_SLOTS):
+        engine.start_sequence(s, rng.randint(1, V, 60).tolist())
+    replay, step, kv_bytes = [], [], []
+    for _ in range(DECODE_TIMED):
+        kv_bytes.append(kv_bytes_needed(cfg, engine._lengths_host))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with engine._on_device():
+            engine._step()
+        torch.cuda.synchronize()
+        replay.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        engine.decode_step()
+        step.append((time.perf_counter() - t0) * 1e3)
+    lens = (int(engine._lengths_host.min()) - DECODE_TIMED,
+            int(engine._lengths_host.max()) - 1)
+    engine.reset()
+    prefill = {}
+    for b in DECODE_BUCKETS:
+        p = rng.randint(1, V, b - 3).tolist()
+        ms = []
+        for _ in range(DECODE_TIMED // 5):
+            t0 = time.perf_counter()
+            engine.start_sequence(0, p)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            engine.retire_slot(0)
+        prefill[b] = float(np.median(ms))
+    engine.reset()
+    # the step's bytes: the weights it reads (every layer's four matrices
+    # and two biases, the norms, the head, B embedding rows, B positions),
+    # the K/V positions its slots' lengths need, and the logits written
+    w_bytes = sum(t.nbytes for k, t in engine._params.items() if k != "emb")
+    w_bytes += 2 * DECODE_SLOTS * cfg.d_model * 4
+    out_bytes = DECODE_SLOTS * V * 4
+    kv_need = float(np.median(kv_bytes))
+    slab = engine._kv_k.nbytes
+    step_bytes = w_bytes + kv_need + out_bytes
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    padded_bound = (w_bytes + 2 * slab + out_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"[decode] decode-step replay p50 {np.median(replay):.3f} ms "
+        f"(host clock, synchronized; {DECODE_SLOTS} slots active at "
+        f"lengths {lens[0]}-{lens[1]}); whole decode_step() p50 "
+        f"{np.median(step):.3f} ms (replay, sampling, the tokens' "
+        f"readback); byte bound of the step {step_bound:.4f} ms "
+        f"({step_bytes / 1e6:.1f} MB: {w_bytes / 1e6:.1f} MB of weights "
+        f"read, {kv_need / 1e6:.1f} MB of K/V at the median step's "
+        f"lengths, {out_bytes / 1e6:.1f} MB of logits) at "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s; the graph reads both padded "
+        f"slabs whole ({2 * slab / 1e6:.1f} MB), which would bound it at "
+        f"{padded_bound:.4f} ms")
+    log("[decode] prefill p50 by bucket (one replay, the first token's "
+        "sampling and readback): " + ", ".join(
+            f"{b}: {ms:.3f} ms" for b, ms in prefill.items()))
+
+    # bench.py's serving load
+    batcher = serving.ContinuousBatcher(engine)
+    batcher.start()
+    serving.attach(batcher)
+    c0 = compiles()
+    try:
+        rep = loadgen.run_loadgen(loadgen.inproc_submit(batcher),
+                                  vocab_size=V, p99_budget_ms=0.0,
+                                  **DECODE_LOAD)
+    finally:
+        serving.reset()
+    counts = {n: fn.launches for n, fn in counters.items()}
+    n_req = DECODE_LOAD["streams"] * DECODE_LOAD["requests_per_stream"]
+    keys = ("counts", "duration_s", "tokens_per_sec", "ttft_ms",
+            "per_token_ms", "accounted")
+    log(f"[decode] load {json.dumps({k: rep[k] for k in keys})}")
+    if not rep["accounted"] or rep["counts"]["gave_up"] \
+            or rep["counts"]["ok"] != n_req:
+        raise RuntimeError(f"the serving load lost requests: "
+                           f"{rep['counts']}")
+    if compiles() != c0:
+        raise RuntimeError(f"{compiles() - c0:.0f} graph captures on the "
+                           f"request path")
+    log(f"[decode] kernel launches of the engine's work (prepare, the "
+        f"checked decode, the timings, the load) {counts}: none expected")
+    if any(counts.values()):
+        raise RuntimeError("the decode engine launched kernels of this "
+                           "repo")
+    peak = torch.cuda.max_memory_allocated()
+    smi = nvidia_smi_line()
+    log(f"[decode] {smi}: {rep['tokens_per_sec']:.1f} generated tokens/s "
+        f"({rep['counts']['tokens']} tokens, {n_req} requests, "
+        f"{DECODE_LOAD['streams']} streams, {rep['duration_s']} s); TTFT "
+        f"p50 {rep['ttft_ms']['p50']:.2f} ms p99 "
+        f"{rep['ttft_ms']['p99']:.2f} ms; per token p50 "
+        f"{rep['per_token_ms']['p50']:.2f} ms p99 "
+        f"{rep['per_token_ms']['p99']:.2f} ms; no capture during the load")
+    log(f"[decode] {smi}: peak device memory {peak / 2**20:.1f} MiB; K/V "
+        f"slabs {slab / 2**20:.1f} MiB each ({slab} bytes)")
+    del batcher, engine
+    control = tf32_control_rows(torch, cfg, params, prompts + [backfill])
+
+    # -- the oracle: the Executor's full forward, counted on its own --------
+    memo = {}
+
+    def oracle(ctx):
+        key = tuple(ctx)
+        if key not in memo:
+            memo[key] = decode_oracle(torch, exe, main, logits, ctx)
+        return memo[key]
+
+    for fn in counters.values():
+        fn.launches = 0
+    compared, gap, row_err = hold_to_oracle(oracle, seqs)
+    log(f"[decode] greedy tokens held to the Executor's full forward: "
+        f"{compared} positions compared over {len(seqs)} sequences; "
+        f"largest gap between the engine's logit of its token and the "
+        f"oracle's top logit {gap:.3g}; largest logits-row error "
+        f"{row_err:.3g} x max |logit| (tol {DECODE_RTOL:g})")
+    ctl = [row_error(row, oracle(ctx)) for ctx, row in control]
+    log(f"[decode] TF32 control engine: logits-row errors "
+        f"{min(ctl):.3g}-{max(ctl):.3g} x max |logit| over {len(ctl)} "
+        f"positions (prefills and first steps); the check's tolerance "
+        f"{DECODE_RTOL:g} must refuse every one")
+    if not min(ctl) > DECODE_RTOL:
+        raise RuntimeError("the decode row check passes a TF32 engine")
+    oracle_counts = {n: fn.launches for n, fn in counters.items()}
+    want = {n: 0 for n in KERNELS}
+    want["layer_norm"] = (2 * cfg.n_layer + 1) * len(memo)
+    log(f"[decode] kernel launches of the oracle's {len(memo)} forwards "
+        f"{oracle_counts} (expected {want})")
+    if oracle_counts != want:
+        raise RuntimeError(f"decode oracle launch counts {oracle_counts} "
+                           f"!= {want}")
+
+    # each engine's stream got a cuBLAS workspace of its own: free them,
+    # so the later phases' peak memory is their own
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+
+    def remake():
+        e = decode_engine(cfg, params)
+        e.prepare()
+        return e
+    return counts, oracle_counts, remake
 
 
 def build_train(cfg, fuse_block=False, amp=False):
@@ -2469,6 +2867,31 @@ def trace_run(torch, label, fn, expect=None):
             raise RuntimeError(f"{label}: {launches.get(c, 0)} launches of "
                                f"{c}, expected {n}: {names.get(c, {})}")
     return names
+
+
+def trace_decode(torch, remake):
+    """torch.profiler over one decode-step replay with every slot active,
+    on the engine that remake() builds and prepares: device busy time and
+    kernel launches.  The trace must show cuBLAS products and no kernel
+    of this repo."""
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    engine = remake()
+    for s in range(engine.max_batch):
+        engine.start_sequence(
+            s, rng.randint(1, FLAGSHIP["src_vocab_size"], 60).tolist())
+
+    def replay():
+        with engine._on_device():
+            engine._step()
+    names = trace_run(torch, "decode-step replay", replay)
+    n = sum(c for by in names.values() for c in by.values())
+    log(f"[trace]   decode-step replay: {n} kernel launches")
+    ours = [c for c in names if "(this repo)" in c]
+    if ours or not names.get("matmul (cuBLAS)"):
+        raise RuntimeError(f"decode-step replay: kernel classes "
+                           f"{sorted(names)}; expected cuBLAS products "
+                           f"and none of this repo's")
 
 
 def block_breakdown(torch, bf16=False, chain=None, gemm_path=None):
@@ -3530,6 +3953,7 @@ def main():
     phase_build(torch)
     errs = phase_compare(torch)
     serve_counts, pred, toks = phase_serve(torch)
+    decode_counts, oracle_counts, decode_remake = phase_decode(torch)
     counts, train = phase_train(torch)
     fcounts, ftrain = phase_train(torch, fuse_block=True)
     acounts, atrain = phase_train(torch, amp=True)
@@ -3542,6 +3966,7 @@ def main():
     # its per-launch cost would skew the timings above
     trace_run(torch, f"batch {toks.shape[0]} request",
               lambda: pred.run({"tokens": toks}, return_numpy=False))
+    trace_decode(torch, decode_remake)
     trace_run(torch, f"training step at batch {TRAIN_BATCH}",
               lambda: train["exe"].run(train["main"], feed=train["batch"],
                                        fetch_list=[train["avg_cost"]],
@@ -3719,7 +4144,8 @@ def main():
     # with the counts of every path under "launches_by_path", its errors
     # and times at the training step's shapes; the two kernels that
     # serving runs too carry the serving shape's under "serve"
-    by_path = {"serve": serve_counts, "train": counts,
+    by_path = {"serve": serve_counts, "decode": decode_counts,
+               "decode_oracle": oracle_counts, "train": counts,
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts}
     kernels = []

@@ -78,11 +78,23 @@ def as_tensor(value, var: Optional[Variable], device: torch.device
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A fetched tensor as a host numpy array (bf16, which numpy lacks,
-    widens to f32)."""
+    widens to f32).
+
+    A CUDA tensor is copied into a fresh pinned host tensor on its
+    stream (a DMA at the link's rate, where a pageable copy stages
+    through a bounce buffer), and the array is a view of that tensor,
+    which the array keeps alive: the next run never writes into a buffer
+    a caller still holds, and the caching host allocator reuses the
+    block once the array is gone."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
 
 
 def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops

@@ -1,9 +1,10 @@
 """NN layer functions — the user-facing model-building API.
 
 Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
-calls: data :21, fc :34, embedding :63, layer_norm :223,
-softmax_with_cross_entropy :310, mean :331, reshape :359, unsqueeze :413,
-scale :548, elementwise_add, fused_mha :877, fused_attention_qkv :948 and
+calls: data :21, fc :34, embedding :63, layer_norm :223, softmax :284,
+softmax_with_cross_entropy :310, mean :331, reshape :359, transpose :367,
+split :375, unsqueeze :413, matmul :462, scale :548, elementwise_add,
+greater_than :794, fused_mha :877, fused_attention_qkv :948 and
 fused_lm_head_loss :968.  Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
@@ -20,9 +21,10 @@ from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
-__all__ = ["data", "fc", "embedding", "layer_norm",
-           "softmax_with_cross_entropy", "mean", "reshape", "unsqueeze",
-           "scale", "elementwise_add", "fused_mha", "fused_attention_qkv",
+__all__ = ["data", "fc", "embedding", "layer_norm", "softmax",
+           "softmax_with_cross_entropy", "mean", "reshape", "transpose",
+           "split", "unsqueeze", "matmul", "scale", "elementwise_add",
+           "greater_than", "fused_mha", "fused_attention_qkv",
            "fused_lm_head_loss"]
 
 
@@ -105,6 +107,14 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out, act)
 
 
+def softmax(input, axis=-1, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("softmax", {"X": [input]}, {"Out": [out]},
+                     {"axis": axis})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100):
     helper = LayerHelper("softmax_with_cross_entropy")
@@ -133,11 +143,42 @@ def reshape(x, shape, name=None):
     return out
 
 
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("transpose", {"X": [x]}, {"Out": [out]},
+                     {"axis": list(perm)})
+    return out
+
+
+def split(input, num_or_sections, dim=0, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op("split", {"X": [input]}, {"Out": outs}, attrs)
+    return outs
+
+
 def unsqueeze(input, axes, name=None):
     helper = LayerHelper("unsqueeze", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("unsqueeze", {"X": [input]}, {"Out": [out]},
                      {"axes": list(axes)})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("matmul", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                      "alpha": alpha})
     return out
 
 
@@ -155,6 +196,14 @@ def elementwise_add(x, y, axis=-1, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("elementwise_add", {"X": [x], "Y": [y]},
                      {"Out": [out]}, {"axis": axis})
+    return out
+
+
+def greater_than(x, y, cond=None, name=None):
+    helper = LayerHelper("greater_than", name=name)
+    out = cond or helper.create_variable_for_type_inference("bool")
+    helper.append_op("greater_than", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {})
     return out
 
 

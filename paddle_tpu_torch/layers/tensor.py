@@ -1,0 +1,38 @@
+"""Tensor layer functions (counterpart of paddle_tpu/layers/tensor.py:
+cast :40 and assign :63), with the JAX package's op types, slots and
+attrs, so both builds serialize alike."""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..framework.layer_helper import LayerHelper
+from ..framework.program import Variable
+
+__all__ = ["cast", "assign"]
+
+
+def cast(x: Variable, dtype) -> Variable:
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", {"X": [x]}, {"Out": [out]},
+                     {"out_dtype": str(dtype)})
+    return out
+
+
+def assign(input, output: Optional[Variable] = None) -> Variable:
+    """A host array becomes an ``assign_value`` op holding its values.
+    Copying a Variable needs the ``assign`` op, which is not ported."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        raise NotImplementedError(
+            "assign of a Variable needs the 'assign' op, which is not "
+            "ported yet (ROADMAP queue A.5); pass a numpy array")
+    arr = np.asarray(input)
+    output = output or helper.create_variable_for_type_inference(
+        str(arr.dtype))
+    helper.append_op("assign_value", {}, {"Out": [output]},
+                     {"shape": list(arr.shape), "dtype": str(arr.dtype),
+                      "values": arr})
+    return output

@@ -1,7 +1,8 @@
 """Tensor creation / fill ops (the initializers' startup-program ops).
 
 Counterpart of paddle_tpu/ops/creation.py: fill_constant :47,
-uniform_random :108, gaussian_random :118, assign_value :153.
+uniform_random :108, gaussian_random :118, assign_value :153 and
+cast :160.
 
 Random ops draw from the context's torch.Generator (ctx.rng()); a nonzero
 per-op ``seed`` attr seeds a generator of its own, as the reference does.
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import to_torch_dtype
-from ..framework.registry import register_op
+from ..framework.registry import register_op, single_input
 
 
 def _op_generator(ctx, attrs):
@@ -62,3 +63,9 @@ def _assign_value(ctx, ins, attrs):
     vals = np.asarray(attrs["values"]).reshape(shape)
     return {"Out": [torch.as_tensor(vals).to(device=ctx.device,
                                              dtype=dtype)]}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    x = single_input(ins)
+    return {"Out": [x.to(to_torch_dtype(attrs["out_dtype"]))]}

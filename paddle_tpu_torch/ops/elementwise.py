@@ -1,6 +1,8 @@
 """Elementwise binary ops with the reference's axis-broadcast semantics.
 
-Counterpart of paddle_tpu/ops/elementwise.py.  Reference broadcast rule:
+Counterpart of paddle_tpu/ops/elementwise.py: elementwise_add and the
+comparison greater_than (:77, ``_compare``; bool out).  Reference
+broadcast rule:
 Y's dims align with X starting at `axis` (axis == -1 -> trailing
 alignment), then NumPy-style broadcast.  ``fc``'s bias add relies on it
 with ``axis=num_flatten_dims``.
@@ -39,3 +41,14 @@ def _elementwise_add(ctx, ins, attrs):
             torch.bfloat16, torch.float32}:
         x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
     return {"Out": [torch.add(x, y)]}
+
+
+def _compare(name, fn):
+    @register_op(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x, y = _align(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": [_fn(x, y)]}
+    return _lower
+
+
+_compare("greater_than", torch.gt)

@@ -2,7 +2,8 @@
 
 Counterpart of paddle_tpu/ops/math_ops.py: the AMP helpers :28-77
 (amp_inputs, amp_result, amp_matmul), mul :91 (fc's flattening
-matmul), scale :142 and mean :158.  A plain matrix product outside any
+matmul), matmul :105 (the unfused attention's batched products), scale
+:142 and mean :158.  A plain matrix product outside any
 kernel goes to torch.matmul, as the JAX package leaves it to XLA; f32
 products run in full f32 (TF32 stays off unless the caller enables it).
 Under FLAGS_amp_bf16 the operands are cast to bf16 and a 2-byte product
@@ -71,6 +72,32 @@ def _mul(ctx, ins, attrs):
     out = amp_matmul(_flatten2(x, xn), _flatten2(y, yn), x.dtype)
     out_shape = tuple(x.shape[:xn]) + tuple(y.shape[yn:])
     return {"Out": [out.reshape(out_shape)]}
+
+
+@register_op("matmul")
+def _matmul(ctx, ins, attrs):
+    """Batched matmul with transpose flags + alpha (ref matmul_op.cc).  A
+    1-D X is a row and a 1-D Y a column, squeezed out of the result."""
+    x, y = ins["X"][0], ins["Y"][0]
+    tx = bool(attrs.get("transpose_X", False))
+    ty = bool(attrs.get("transpose_Y", False))
+    alpha = float(attrs.get("alpha", 1.0))
+    squeeze_out = []
+    if x.ndim == 1:
+        x, squeeze_out = x[None, :], [-2]
+    if y.ndim == 1:
+        y = y[:, None]
+        squeeze_out = squeeze_out + [-1]
+    if tx:
+        x = torch.transpose(x, -1, -2)
+    if ty:
+        y = torch.transpose(y, -1, -2)
+    out = amp_matmul(x, y)
+    for ax in squeeze_out:
+        out = torch.squeeze(out, ax)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
 
 
 @register_op("scale")

@@ -1,5 +1,5 @@
 """NN ops of the serving slice (counterpart of paddle_tpu/ops/nn_ops.py:
-layer_norm :261 and lookup_table :384)."""
+layer_norm :261, softmax :349 and lookup_table :384)."""
 from __future__ import annotations
 
 import torch
@@ -41,6 +41,12 @@ def _layer_norm(ctx, ins, attrs):
     return {"Y": [y.to(x.dtype)],
             "Mean": [mean.reshape(x.shape[:axis])],
             "Variance": [var.reshape(x.shape[:axis])]}
+
+
+@register_op("softmax")
+def _softmax(ctx, ins, attrs):
+    x = single_input(ins)
+    return {"Out": [torch.softmax(x, dim=int(attrs.get("axis", -1)))]}
 
 
 @register_op("lookup_table")

@@ -1016,3 +1016,101 @@ def test_amp_fused_training_step_on_the_card_matches_the_cpu(cuda):
     import chip_smoke
     with chip_smoke.amp_bf16():
         chip_smoke.train_match_fused(torch, amp=True)
+
+
+def _decode_lm():
+    """A tiny unfused LM (the CPU serving tests' widths, head dim 8)
+    initialised on the CPU: (cfg, role-keyed params)."""
+    from paddle_tpu_torch import serving
+    cfg = tr.TransformerConfig(src_vocab_size=97, max_length=32, n_layer=2,
+                               n_head=2, d_model=16, d_inner=32,
+                               dropout=0.0)
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = 3
+    with ptt.program_guard(main, startup):
+        tr.build_lm_net(cfg, 24, is_test=True, fused_attention=False)
+    exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    exe.run(startup)
+    return cfg, serving.extract_lm_params(main, exe.scope, cfg)
+
+
+def _decode(engine, prompts, n_new, temps=None):
+    gen = {s: [engine.start_sequence(s, p, (temps or {}).get(s, 0.0))]
+           for s, p in enumerate(prompts)}
+    for _ in range(n_new - 1):
+        for s, t in engine.decode_step().items():
+            gen[s].append(t)
+    return [gen[s] for s in range(len(prompts))]
+
+
+def test_decode_engine_captures_replays_and_resets(cuda):
+    """prepare() captures a graph per bucket and one for the step; the
+    replays give the CPU engine's greedy tokens on the same weights;
+    reset() zeros the slabs in place (same storage, so the graphs stay
+    valid) and a second run gives the same tokens."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    cfg, params = _decode_lm()
+    kw = dict(max_batch=4, max_len=32, prompt_buckets=(8, 16))
+    gpu = serving.DecodeEngine(cfg, params, place=ptt.CUDAPlace(0), **kw)
+    cpu = serving.DecodeEngine(cfg, params, place=ptt.CPUPlace(), **kw)
+    m = obs_metrics.REGISTRY.get("serving_compiles_total")
+    before = m.total() if m is not None else 0.0
+    gpu.prepare()
+    cpu.prepare()
+    assert obs_metrics.REGISTRY.get("serving_compiles_total").total() \
+        == before + 6
+    assert gpu.device.type == "cuda"
+    assert isinstance(gpu._step.graph, torch.cuda.CUDAGraph)
+    assert all(isinstance(run.graph, torch.cuda.CUDAGraph)
+               for _, run in gpu._prefill.values())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 97, n).tolist() for n in (5, 8, 13, 16)]
+    want = _decode(cpu, prompts, 6)
+    slab = gpu._kv_k.data_ptr()
+    assert _decode(gpu, prompts, 6) == want
+    gpu.reset()
+    assert gpu._kv_k.data_ptr() == slab
+    assert float(gpu._kv_k.abs().max()) == 0.0
+    assert _decode(gpu, prompts, 6) == want
+    # sampling slots beside greedy ones, on the engine's generator
+    gpu.reset()
+    mixed = _decode(gpu, prompts, 6, temps={1: 1.0, 3: 0.7})
+    assert mixed[0] == want[0] and mixed[2] == want[2]
+    assert all(0 <= t < 97 for seq in mixed for t in seq)
+
+
+def test_decode_step_before_prepare_raises_on_the_card(cuda):
+    from paddle_tpu_torch import serving
+    cfg, params = _decode_lm()
+    e = serving.DecodeEngine(cfg, params, max_batch=2, max_len=32,
+                             prompt_buckets=(8,), place=ptt.CUDAPlace(0))
+    with pytest.raises(RuntimeError, match="prepare"):
+        e.decode_step()
+    with pytest.raises(ValueError, match="not prepared"):
+        e.start_sequence(0, [1, 2, 3])
+
+
+def test_predictor_readback_survives_the_next_run(cuda, tmp_path):
+    """The card's logits come back through pinned host memory; the array
+    a run returns is not overwritten by a later run."""
+    cfg = tr.TransformerConfig(src_vocab_size=256, max_length=72,
+                               n_layer=1, n_head=2, d_model=128,
+                               d_inner=256, dropout=0.0)
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = 5
+    with ptt.program_guard(main, startup):
+        _, _, logits = tr.build_lm_net(cfg, 72, is_test=True)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    ptt.io.save_inference_model(str(tmp_path), ["tokens"], [logits], exe,
+                                main_program=main)
+    p = create_predictor(AnalysisConfig(str(tmp_path)))
+    a, = p.run({"tokens": tr.make_fake_lm_batch(cfg, 2, 72, 1)["tokens"]})
+    kept = a.copy()
+    b, = p.run({"tokens": tr.make_fake_lm_batch(cfg, 2, 72, 2)["tokens"]})
+    assert not np.array_equal(a, b)
+    np.testing.assert_array_equal(a, kept)
+    assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()

@@ -75,6 +75,28 @@ def test_port_runs_a_jax_saved_model_in_a_process_without_jax(tmp_path):
     assert report == {"shape": [2, 72, 256], "finite": True, "leaked": []}
 
 
+_SERVING_CHILD = """
+import json, sys
+import paddle_tpu_torch.serving as serving
+from paddle_tpu_torch.serving import loadgen
+from paddle_tpu_torch.observability import goodput, memscope, perfscope
+print(json.dumps({
+    "engine": serving.DecodeEngine.__name__,
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")),
+}))
+"""
+
+
+def test_serving_plane_imports_no_jax():
+    res = subprocess.run([sys.executable, "-c", _SERVING_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report == {"engine": "DecodeEngine", "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")

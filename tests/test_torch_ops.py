@@ -159,6 +159,53 @@ CASES = {
         {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
         ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
          "Beta2PowOut"], EXACT),
+    # the unfused LM's ops (the serving engine's oracle build)
+    "cast_bool_to_f32": (
+        "cast", lambda r: {"X": [_rand(r, 4, 5) > 0]},
+        {"out_dtype": "float32"}, ["Out"], EXACT),
+    "cast_f32_to_int": (
+        "cast", lambda r: {"X": [_rand(r, 4, 5) * 10]},
+        {"out_dtype": "int64"}, ["Out"], EXACT),
+    "greater_than_broadcast": (
+        "greater_than", lambda r: {"X": [_rand(r, 1, 7)],
+                                   "Y": [_rand(r, 7, 1)]},
+        {}, ["Out"], EXACT),
+    "greater_than_axis1": (
+        "greater_than", lambda r: {"X": [_rand(r, 2, 3, 4)],
+                                   "Y": [_rand(r, 3)]},
+        {"axis": 1}, ["Out"], EXACT),
+    "matmul_batched": (
+        "matmul", lambda r: {"X": [_rand(r, 2, 3, 5, 4)],
+                             "Y": [_rand(r, 2, 3, 4, 6)]},
+        {}, ["Out"], MATMUL),
+    "matmul_transpose_y_alpha": (
+        "matmul", lambda r: {"X": [_rand(r, 2, 3, 5, 4)],
+                             "Y": [_rand(r, 2, 3, 6, 4)]},
+        {"transpose_Y": True, "alpha": 0.5}, ["Out"], MATMUL),
+    "matmul_transpose_both": (
+        "matmul", lambda r: {"X": [_rand(r, 3, 4, 5)],
+                             "Y": [_rand(r, 3, 6, 4)]},
+        {"transpose_X": True, "transpose_Y": True, "alpha": -2.0},
+        ["Out"], MATMUL),
+    "matmul_1d_x": (
+        "matmul", lambda r: {"X": [_rand(r, 4)], "Y": [_rand(r, 4, 6)]},
+        {}, ["Out"], MATMUL),
+    "matmul_1d_both": (
+        "matmul", lambda r: {"X": [_rand(r, 5)], "Y": [_rand(r, 5)]},
+        {"alpha": 3.0}, ["Out"], MATMUL),
+    "softmax_last": ("softmax", lambda r: {"X": [_rand(r, 2, 3, 9) * 4]},
+                     {"axis": -1}, ["Out"], EXACT),
+    "softmax_axis1": ("softmax", lambda r: {"X": [_rand(r, 2, 5, 3)]},
+                      {"axis": 1}, ["Out"], EXACT),
+    "split_num": ("split", lambda r: {"X": [_rand(r, 2, 3, 12)]},
+                  {"num": 3, "sections": [], "axis": -1}, ["Out"], EXACT),
+    "split_sections": ("split", lambda r: {"X": [_rand(r, 7, 4)]},
+                       {"num": 0, "sections": [2, 4, 1], "axis": 0},
+                       ["Out"], EXACT),
+    "transpose_0213": ("transpose", lambda r: {"X": [_rand(r, 2, 3, 4, 5)]},
+                       {"axis": [0, 2, 1, 3]}, ["Out"], EXACT),
+    "transpose_2d": ("transpose", lambda r: {"X": [_rand(r, 3, 4)]},
+                     {"axis": [1, 0]}, ["Out"], EXACT),
     # N % 256 == 0: the JAX lowering takes its Pallas head
     "fused_lm_head_loss_pallas": (
         "fused_lm_head_loss",
