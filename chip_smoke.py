@@ -177,6 +177,28 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    backward's operand strides logged).  The
    L 2 match replays the card's relu masks inside the blocks, at the AMP
    tolerances.
+5e. Training loops: (a) run_steps on bench.py's AMP row (the program of
+   phase 5c, dropout 0): two scopes from one saved state, one taking
+   LOOP_STEPS (8) Executor.run calls on 8 batches, the other one
+   Executor.run_steps(8, per_step_feeds=("tokens", "labels")) over the
+   same batches; the stacked losses and every persistable at the end
+   must be bit-equal (or, only where one step run twice from the saved
+   state shows the card's step is not deterministic, within
+   tests/test_torch_train.py's tolerances; the log says which held), and
+   every launch counter over the run_steps call must read 8 times one
+   run's.  Then run_steps is timed as bench.py's _time_steps times it (a
+   warm-up call of 20 steps, the best of 3 calls, per step), beside the
+   run loop's p50.  (b) the Trainer on the unfused flagship
+   (fused_attention=False, fused_head=True, f32) with dropout 0.1,
+   accumulate_steps 2, prefetch_depth 2, Adam 1e-4: one epoch of 8
+   micro-batches of 16 x 512.  Every EndStepEvent loss finite; the params
+   bit-equal to the previous micro-step's after micro-steps 1, 3, 5, 7 and
+   all moved after 2, 4, 6, 8; the accumulation counter 1, 0, 1, 0, ...;
+   the embedding dropout's Mask (train_func's one metric, [16, 512, 512])
+   keeping between 0.899 and 0.901 of its entries at micro-step 0; 13 f32
+   layer norms, 1 LM-head forward and 2 LM-head backwards (two 4096-token
+   chunks) a micro-step and no other kernel.  The micro-step p50, the
+   data wait p50 and the peak memory are logged beside nvidia-smi's line.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -229,7 +251,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
    "launches_by_path", the decode engine's under "decode" and its oracle's
-   under "decode_oracle"; the bf16 kernels' launches are the AMP step's;
+   under "decode_oracle", phase 5e's run_steps call's under
+   "train_run_steps" and its Trainer's under "trainer"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -328,6 +351,23 @@ BLOCK_BF16_RTOL = BF16_RTOL
 # replay, of its max |CPU| entry: the reference's bf16 tolerance
 AMP_STEP_LOSS_RTOL = 1e-3
 AMP_STEP_GRAD_RTOL = 2e-2
+
+# the training loops (phase_train_loops): run_steps on bench.py's AMP row
+# against as many sequential runs, then timed as bench.py's _time_steps
+# times it (bench.py:139-172: a warm-up call, the best of the calls after
+# it over their steps); the Trainer on the unfused flagship with dropout,
+# gradient accumulation and device prefetch
+LOOP_STEPS = 8
+LOOP_TIMED_STEPS = 20
+LOOP_TIMED_CALLS = 3
+TRAINER_MICRO_BATCH = 16
+TRAINER_MICRO_STEPS = 8
+TRAINER_ACCUMULATE = 2
+TRAINER_PREFETCH = 2
+TRAINER_DROPOUT = 0.1
+# the embedding dropout's keep share at micro-step 0: 0.9 within about 6.8
+# binomial standard deviations of 16 x 512 x 512 entries (1.46e-4)
+KEEP_SHARE = (0.899, 0.901)
 
 # the bf16 LM head's compare cases (N, D, V, chunk, ignored labels, scale
 # of x, label dtype, path): the f32 LM head's, one aligned case that is a
@@ -2220,7 +2260,7 @@ def phase_decode(torch):
     return counts, oracle_counts, remake
 
 
-def build_train(cfg, fuse_block=False, amp=False):
+def build_train(cfg, fuse_block=False, amp=False, T=TRAIN_T):
     """The flagship training program: (main, startup, avg_cost, param
     grads).  With fuse_block, FLAGS_fuse_block is on while it is built and
     transpiler.maybe_fuse runs before minimize, as bench.py's _bench_lm_cfg
@@ -2236,8 +2276,7 @@ def build_train(cfg, fuse_block=False, amp=False):
     ptt.flags.set_flag("fuse_block", fuse_block)
     try:
         with amp_bf16(amp), ptt.program_guard(main, startup):
-            _, avg_cost, _ = tr.build_lm_net(cfg, TRAIN_T,
-                                             fused_attention=True,
+            _, avg_cost, _ = tr.build_lm_net(cfg, T, fused_attention=True,
                                              fused_head=True)
             fused = ptt.transpiler.maybe_fuse(main)
             _, pg = ptt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(
@@ -2456,6 +2495,357 @@ def _phase_train(torch, fuse_block, amp):
     return counts, dict(exe=exe, main=main, batch=batch,
                         avg_cost=avg_cost, p50_ms=p50, peak=peak,
                         ln_paths=ln_paths)
+
+
+def launch_counters():
+    """Every launch counter of every kernel wrapper: (wrapper name,
+    attribute) -> wrapper, the .launches of each and its per-path
+    .launches_* counters."""
+    out = {}
+    for n in KERNELS:
+        fn = wrapper(n)
+        for attr in vars(fn):
+            if attr.startswith("launches"):
+                out[(n, attr)] = fn
+    return out
+
+
+def zero_counters(counters):
+    for (_, attr), fn in counters.items():
+        setattr(fn, attr, 0)
+
+
+def read_counters(counters):
+    return {key: getattr(fn, key[1]) for key, fn in counters.items()}
+
+
+def snapshot(scope, names):
+    """Copies of the named scope tensors (on their device)."""
+    return {n: scope.find_var(n).detach().clone() for n in names}
+
+
+def bits_differ(a, b):
+    """The names whose tensors are not bit-equal between two snapshots."""
+    import torch
+    return sorted(n for n in a if not torch.equal(a[n], b[n]))
+
+
+def state_within_train_tols(a, b, params):
+    """tests/test_torch_train.py's tolerances on two states: params atol
+    2e-6, moment1 rtol 1e-4 atol 1e-7, moment2 rtol 2e-4 atol 1e-10, pows
+    and lr rtol 1e-6.  Returns the names outside them."""
+    import torch
+    bad = []
+    for n in a:
+        if n in params:
+            tol = dict(rtol=0, atol=2e-6)
+        elif n.endswith(".moment1"):
+            tol = dict(rtol=1e-4, atol=1e-7)
+        elif n.endswith(".moment2"):
+            tol = dict(rtol=2e-4, atol=1e-10)
+        else:
+            tol = dict(rtol=1e-6, atol=0)
+        if not torch.allclose(a[n].float(), b[n].float(), **tol):
+            bad.append(n)
+    return bad
+
+
+def run_steps_match(torch, cfg, batch, steps, amp, T=TRAIN_T,
+                    tag="[loops run_steps]"):
+    """The flagship training program (build_train, with amp under
+    FLAGS_amp_bf16) from one saved state in two scopes: `steps`
+    sequential Executor.run calls in one, Executor.run_steps(steps,
+    per_step_feeds=("tokens", "labels")) over the same batches in the
+    other.  The stacked losses and the final params, moments and pows
+    must be bit-equal; where they are not, one step run twice from the
+    saved state tells whether the card's step is deterministic: if it is
+    not, the two are held at tests/test_torch_train.py's tolerances
+    (the loss at rtol 1e-5), and if it is, the smoke fails.  Every
+    launch counter over the run_steps call must read `steps` times one
+    run's.  Returns the numbers and the run_steps executor."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+
+    main, startup, avg_cost, _ = build_train(cfg, amp=amp, T=T)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    params = {p.name for p in main.all_parameters()}
+    init = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    init.run(startup)
+    state = snapshot(init.scope, names)
+    del init
+    bs = [tr.make_fake_lm_batch(cfg, batch, T, seed=SEED + 10 + i)
+          for i in range(steps)]
+    slabs = {k: np.stack([b[k] for b in bs]) for k in ("tokens", "labels")}
+
+    def fresh():
+        scope = ptt.Scope()
+        for n, t in state.items():
+            scope.set_var(n, t.clone())
+        return ptt.Executor(ptt.CUDAPlace(0), scope=scope)
+
+    counters = launch_counters()
+    with amp_bf16(amp):
+        seq = fresh()
+        zero_counters(counters)
+        losses, run_ms, one_run = [], [], None
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, = seq.run(main, feed={k: v[i] for k, v in slabs.items()},
+                            fetch_list=[avg_cost])
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            if i == 0:
+                one_run = read_counters(counters)
+        seq_counts = read_counters(counters)
+        multi = fresh()
+        zero_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked, = multi.run_steps(main, feed=slabs, fetch_list=[avg_cost],
+                                   steps=steps,
+                                   per_step_feeds=("tokens", "labels"))
+        call_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counters(counters)
+    want = {k: steps * c for k, c in one_run.items()}
+    moved = {f"{n}.{a}": c for (n, a), c in counts.items() if c}
+    log(f"{tag} run_steps({steps}) launches {moved}; one run's x {steps}: "
+        f"{counts == want}; the {steps} runs': {seq_counts == want}")
+    if counts != want or seq_counts != want:
+        raise RuntimeError(f"run_steps launches {counts} != {steps} x one "
+                           f"run's {one_run} (the runs': {seq_counts})")
+    losses = np.stack(losses)
+    if stacked.shape != losses.shape or not np.isfinite(stacked).all():
+        raise RuntimeError(f"run_steps losses {stacked} against {losses}")
+    end_seq, end_multi = snapshot(seq.scope, names), snapshot(
+        multi.scope, names)
+    differ = bits_differ(end_seq, end_multi)
+    same_loss = np.array_equal(stacked, losses)
+    log(f"{tag} stacked losses {stacked.ravel().tolist()}; bit-equal to "
+        f"the runs': {same_loss}; {len(names) - len(differ)} of "
+        f"{len(names)} persistables bit-equal")
+    held = "bits"
+    if differ or not same_loss:
+        # is one step from the saved state deterministic on the card?
+        probe = []
+        for _ in range(2):
+            exe = fresh()
+            with amp_bf16(amp):
+                exe.run(main, feed={k: v[0] for k, v in slabs.items()},
+                        fetch_list=[avg_cost])
+            probe.append(snapshot(exe.scope, names))
+        nondet = bits_differ(*probe)
+        log(f"{tag} one step run twice from the saved state: "
+            f"{len(nondet)} persistables differ in their bits "
+            f"({nondet[:6]})")
+        if not nondet:
+            raise RuntimeError(f"the card's step is deterministic, but "
+                               f"run_steps differs from the runs in "
+                               f"{differ[:6]} (losses equal: {same_loss})")
+        bad = state_within_train_tols(end_multi, end_seq, params)
+        le = float(np.abs(stacked - losses).max() / np.abs(losses).max())
+        log(f"{tag} the card's step is not deterministic: held at "
+            f"tests/test_torch_train.py's tolerances instead: loss rel err "
+            f"{le:.3g} (tol 1e-5), persistables outside {bad[:6]}")
+        if bad or not le <= 1e-5:
+            raise RuntimeError(f"run_steps against the runs: {bad}, loss "
+                               f"rel err {le}")
+        held = "tolerances"
+    return dict(exe=multi, main=main, avg_cost=avg_cost, held=held,
+                counts=counts, one_run=one_run, run_ms=run_ms,
+                call_ms=call_ms, feed={k: v[0] for k, v in slabs.items()},
+                losses=stacked.ravel().tolist())
+
+
+def time_run_steps(torch, exe, main, feed, fetch, steps=LOOP_TIMED_STEPS,
+                   calls=LOOP_TIMED_CALLS):
+    """bench.py's _time_steps (bench.py:139-172) on the port: one
+    run_steps call of `steps` steps to warm up, then the best of `calls`
+    calls, each synchronized, divided by `steps` (ms a step)."""
+    best = float("inf")
+    for i in range(calls + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run_steps(main, feed=feed, fetch_list=[fetch], steps=steps,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, (time.perf_counter() - t0) * 1e3 / steps)
+    return best
+
+
+def trainer_boundary(torch, cfg, micro_batch, micro_steps, k, prefetch,
+                     T=TRAIN_T, keep_share=None, tag="[loops trainer]"):
+    """Trainer(accumulate_steps=k) on the unfused LM build of `cfg` (its
+    dropout on), f32, Adam TRAIN_LR, on CUDAPlace(0): one epoch of
+    `micro_steps` micro-batches of micro_batch x T tokens, through
+    device_prefetch at depth `prefetch`.  train_func returns the loss and
+    the embedding dropout's Mask as its one metric.  Every EndStepEvent
+    loss must be finite; the params must be bit-equal to their previous
+    values after each micro-step that is not a boundary and differ after
+    each that is; the accumulation counter must read 1, 0, 1, 0, ... (k
+    2); with keep_share, the Mask of micro-step 0 must keep a share
+    inside it.  Each micro-step must launch 2 L + 1 f32 layer norms, one
+    LM-head forward and one LM-head backward per chunk, and no other
+    kernel of this repo.  Returns the numbers."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+
+    def train_func():
+        ptt.default_startup_program().random_seed = SEED
+        _, loss, _ = tr.build_lm_net(cfg, T, fused_attention=False,
+                                     fused_head=True)
+        block = ptt.default_main_program().global_block()
+        drop = next(op for op in block.ops if op.type == "dropout")
+        return [loss, block.var(drop.outputs["Mask"][0])]
+
+    trainer = ptt.Trainer(train_func,
+                          lambda: ptt.optimizer.Adam(learning_rate=TRAIN_LR),
+                          place=ptt.CUDAPlace(0), accumulate_steps=k)
+    prog = trainer.train_program
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+    counter, = [v.name for v in prog.list_vars()
+                if v.name.endswith(".acc_counter")]
+    ops = [op.type for op in prog.global_block().ops]
+    log(f"{tag} unfused LM d{cfg.d_model}/L{cfg.n_layer}/H{cfg.n_head}/"
+        f"d_inner{cfg.d_inner}/V{cfg.src_vocab_size} T={T}, dropout "
+        f"{cfg.dropout}: {len(params)} trainable params, {len(ops)} ops "
+        f"({ops.count('dropout')} dropout, {ops.count('adam')} adam, "
+        f"{ops.count('assign')} assign); accumulate_steps {k}, "
+        f"prefetch_depth {prefetch}, {micro_steps} micro-batches of "
+        f"{micro_batch} x {T}")
+    batches = [tr.make_fake_lm_batch(cfg, micro_batch, T, seed=SEED + 100 + i)
+               for i in range(micro_steps)]
+
+    def reader():
+        for b in batches:
+            yield [(b["tokens"][j], b["labels"][j])
+                   for j in range(micro_batch)]
+
+    rec = dict(prev=snapshot(trainer.scope, params), losses=[], step_ms=[],
+               wait_ms=[], counter=[], frozen=[], keep=None, begin=None,
+               end=None)
+
+    def handler(e):
+        if isinstance(e, ptt.BeginStepEvent):
+            now = time.perf_counter()
+            if rec["end"] is not None:
+                rec["wait_ms"].append((now - rec["end"]) * 1e3)
+            rec["begin"] = now
+        elif isinstance(e, ptt.EndStepEvent):
+            rec["step_ms"].append((time.perf_counter() - rec["begin"]) * 1e3)
+            loss, mask = e.metrics
+            rec["losses"].append(float(loss[0]))
+            if e.step == 0:
+                rec["keep"] = float(mask.mean())
+                rec["mask_shape"] = mask.shape
+            cur = snapshot(trainer.scope, params)
+            moved = bits_differ(cur, rec["prev"])
+            rec["frozen"].append(not moved)
+            if moved and len(moved) != len(params):
+                raise RuntimeError(f"micro-step {e.step} moved only "
+                                   f"{len(moved)} of {len(params)} params")
+            rec["prev"] = cur
+            rec["counter"].append(
+                float(trainer.scope.find_var(counter)[0]))
+            rec["end"] = time.perf_counter()
+
+    counters = launch_counters()
+    zero_counters(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(1, handler, reader, ["tokens", "labels"],
+                  prefetch_depth=prefetch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counters(counters)
+    trainer.stop()
+    n_tok = micro_batch * T
+    per_step = {("layer_norm", "launches"): 2 * cfg.n_layer + 1,
+                ("lm_head_fwd", "launches"): 1,
+                ("lm_head_bwd", "launches"): -(-n_tok // HEAD_CHUNK)}
+    want = {key: per_step.get(key, 0) * micro_steps for key in counts}
+    got = {f"{n}.{a}": c for (n, a), c in counts.items() if c}
+    log(f"{tag} launches {got} over {micro_steps} micro-steps (per "
+        f"micro-step { {f'{n}.{a}': c for (n, a), c in per_step.items()} })")
+    if counts != want:
+        raise RuntimeError(f"Trainer launches {counts} != {want}")
+    losses = rec["losses"]
+    log(f"{tag} EndStepEvent losses {losses}; params bit-equal to the "
+        f"previous micro-step's: {rec['frozen']}; {counter}: "
+        f"{rec['counter']}")
+    if len(losses) != micro_steps or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"Trainer losses {losses}")
+    want_frozen = [(i + 1) % k != 0 for i in range(micro_steps)]
+    if rec["frozen"] != want_frozen:
+        raise RuntimeError(f"params frozen {rec['frozen']}, expected "
+                           f"{want_frozen}")
+    want_counter = [float((i + 1) % k) for i in range(micro_steps)]
+    if rec["counter"] != want_counter:
+        raise RuntimeError(f"accumulation counter {rec['counter']}, "
+                           f"expected {want_counter}")
+    if keep_share is not None:
+        lo, hi = keep_share
+        log(f"{tag} micro-step 0's embedding dropout Mask "
+            f"{list(rec['mask_shape'])} keeps {rec['keep']:.6f} of its "
+            f"entries (bounds {lo}, {hi})")
+        if not lo <= rec["keep"] <= hi:
+            raise RuntimeError(f"dropout keep share {rec['keep']}")
+    return dict(counts=counts, losses=losses, peak=peak,
+                step_p50=float(np.median(rec["step_ms"][1:])),
+                wait_p50=float(np.median(rec["wait_ms"])),
+                step_ms=rec["step_ms"], wait_ms=rec["wait_ms"],
+                keep=rec["keep"])
+
+
+def phase_train_loops(torch):
+    """The reference's training loops on the card.  (a)
+    run_steps on bench.py's AMP row (the fused flagship under
+    FLAGS_amp_bf16, dropout 0, batch 32) against LOOP_STEPS sequential
+    runs (run_steps_match), then timed as bench.py's _time_steps times
+    it, beside the runs' p50.  (b) the Trainer on the unfused flagship
+    with dropout TRAINER_DROPOUT, accumulate_steps TRAINER_ACCUMULATE and
+    prefetch_depth TRAINER_PREFETCH (trainer_boundary).  Returns the
+    launch counts of each, by kernel."""
+    import numpy as np
+    from paddle_tpu_torch.models import transformer as tr
+
+    smi = nvidia_smi_line()
+    cfg = tr.TransformerConfig(**FLAGSHIP)
+    rs = run_steps_match(torch, cfg, TRAIN_BATCH, LOOP_STEPS, amp=True)
+    with amp_bf16():
+        per_step = time_run_steps(torch, rs["exe"], rs["main"], rs["feed"],
+                                  rs["avg_cost"])
+    run_p50 = float(np.median(rs["run_ms"][1:]))
+    log(f"[loops run_steps] AMP row, batch {TRAIN_BATCH} x {TRAIN_T}: "
+        f"run_steps({LOOP_STEPS}) matched {LOOP_STEPS} runs by "
+        f"{rs['held']}; the call took {rs['call_ms']:.2f} ms; timed as "
+        f"bench.py's _time_steps (warm-up call, best of "
+        f"{LOOP_TIMED_CALLS} calls of {LOOP_TIMED_STEPS} steps): "
+        f"{per_step:.3f} ms a step ({TRAIN_BATCH * TRAIN_T / per_step * 1e3:.0f} "
+        f"tokens/s), against the run loop's p50 {run_p50:.3f} ms (runs "
+        f"2-{LOOP_STEPS}, each synchronized by its loss readback); {smi}")
+    del rs["exe"]
+    tcfg = tr.TransformerConfig(**dict(FLAGSHIP, dropout=TRAINER_DROPOUT))
+    tb = trainer_boundary(torch, tcfg, TRAINER_MICRO_BATCH,
+                          TRAINER_MICRO_STEPS, TRAINER_ACCUMULATE,
+                          TRAINER_PREFETCH, keep_share=KEEP_SHARE)
+    log(f"[loops trainer] micro-step p50 {tb['step_p50']:.2f} ms "
+        f"(micro-steps 2-{TRAINER_MICRO_STEPS}, host clock from "
+        f"BeginStepEvent to EndStepEvent: the step, its synchronized "
+        f"readback and the guard; all {[round(x, 2) for x in tb['step_ms']]}), "
+        f"data wait p50 {tb['wait_p50']:.3f} ms "
+        f"(EndStepEvent to the next BeginStepEvent, prefetch depth "
+        f"{TRAINER_PREFETCH}), peak device memory "
+        f"{tb['peak'] / 2**20:.1f} MiB; {smi}")
+
+    def by_kernel(counts):
+        return {n: counts[(n, "launches")] for n in KERNELS}
+
+    return {"train_run_steps": by_kernel(rs["counts"]),
+            "trainer": by_kernel(tb["counts"])}
 
 
 @contextlib.contextmanager
@@ -3958,6 +4348,7 @@ def main():
     fcounts, ftrain = phase_train(torch, fuse_block=True)
     acounts, atrain = phase_train(torch, amp=True)
     facounts, fatrain = phase_train(torch, fuse_block=True, amp=True)
+    loop_counts = phase_train_loops(torch)
     times = phase_timings(torch)
     times.update(phase_timings_fused(torch))
     amp_times = phase_timings_amp(torch)
@@ -4147,7 +4538,7 @@ def main():
     by_path = {"serve": serve_counts, "decode": decode_counts,
                "decode_oracle": oracle_counts, "train": counts,
                "train_fuse_block": fcounts, "train_amp": acounts,
-               "train_fuse_block_amp": facounts}
+               "train_fuse_block_amp": facounts, **loop_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

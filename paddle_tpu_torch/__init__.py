@@ -29,10 +29,16 @@ from . import io
 from . import inference
 from . import models
 from . import transpiler
+from . import reader
+from .data_feeder import DataFeeder
+from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
+                      EndEpochEvent, EndStepEvent, Trainer)
 
 __all__ = ["core", "flags", "CPUPlace", "CUDAPlace", "default_place",
            "Program", "Block", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program",
            "reset_default_programs", "unique_name", "Executor", "Scope",
            "global_scope", "ParamAttr", "initializer", "layers",
-           "optimizer", "io", "inference", "models", "transpiler"]
+           "optimizer", "io", "inference", "models", "transpiler", "reader",
+           "DataFeeder", "BeginEpochEvent", "BeginStepEvent",
+           "CheckpointConfig", "EndEpochEvent", "EndStepEvent", "Trainer"]

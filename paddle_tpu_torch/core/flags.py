@@ -1,9 +1,10 @@
 """Process-wide config plane (counterpart of paddle_tpu/core/flags.py).
 
 Only the flags the ported slices read are declared, with the reference's
-defaults: the serving plane's, and those of the observability and
-resilience modules that serving imports (metrics, tracectx, journal,
-flight, memscope, perfscope, goodput, chaos).  Each help string says what
+defaults: the executor's NaN/Inf scans, the trainer's and its guard's,
+the serving plane's, and those of the observability and resilience
+modules that serving imports (metrics, tracectx, journal, flight,
+memscope, perfscope, goodput, chaos).  Each help string says what
 the flag does in the port.  Like the reference, each flag is overridable
 via a ``PTPU_<NAME>`` environment variable at import and mutable at
 runtime via set_flag/get_flag.
@@ -51,6 +52,13 @@ def set_flag(name: str, value: Any):
     _FLAGS[name] = value
 
 
+define_flag("check_nan_inf", False,
+            "Scan every fetched value for NaN/Inf (ref FLAGS_check_nan_inf).")
+define_flag("check_nan_inf_per_op", False,
+            "Debug mode: run the program eagerly (un-jitted) and scan "
+            "every op's outputs, naming the first op that produces "
+            "NaN/Inf (the reference's per-op scan, operator.cc:829). "
+            "Slow; for localization only.")
 define_flag("rng_seed", 0, "Global RNG seed used when a program has no seed.")
 define_flag("amp_bf16", False,
             "Mixed precision: f32 matmul and attention inputs enter the "
@@ -66,6 +74,27 @@ define_flag("fuse_block", False,
             "the op runs the hand-written block kernel "
             "(kernels/fused_block.py) on the card and its plain torch "
             "version on the CPU.")
+
+# --- the trainer (trainer.py) -----------------------------------------------
+define_flag("prefetch_depth", 0,
+            "Trainer input pipeline: number of feed batches the "
+            "device-prefetch wrapper (reader.device_prefetch) stages on "
+            "device AHEAD of the training step (double buffering = 2). "
+            "0 disables; feed build + host->device copy then happen "
+            "synchronously inside the step's data wait.")
+define_flag("input_bound_warn_fraction", 0.5,
+            "Trainer input-bound warning: warn once per train() when "
+            "the cumulative data-wait time (reader next + feed build) "
+            "exceeds this fraction of total step time.  0 disables.")
+define_flag("nan_policy", "raise",
+            "Numeric-guard policy for a NaN/Inf or loss-spike step in "
+            "Trainer.train: raise | skip_step | rollback.  The port's "
+            "Trainer refuses rollback, which restores a checkpoint "
+            "(ROADMAP queue A.8).")
+define_flag("bad_step_limit", 5,
+            "Circuit breaker: consecutive bad (NaN/Inf/spike) steps "
+            "tolerated before Trainer.train raises regardless of "
+            "nan_policy. 0 disables the breaker.")
 
 # --- observability (metrics, tracectx, journal, flight) ----------------------
 define_flag("metrics", True,

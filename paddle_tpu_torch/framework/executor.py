@@ -19,7 +19,14 @@ gives), and the ops after it (the optimizer updates) run under
 training run first copies any persistable that an inference-mode run
 (the startup program, say) left in the scope.
 
-There is no compiled-program cache, mesh, ``run_steps`` or pipeline yet.
+``run_steps`` (JAX :1405-1486) runs N training steps: the JAX package
+scans its compiled step on the device; here it is a host loop of eager
+steps over feeds uploaded once, with one readback at the end.  Under
+``FLAGS_check_nan_inf`` every fetch is scanned for NaN/Inf, and under
+``FLAGS_check_nan_inf_per_op`` every op's outputs (the ``autodiff`` op's
+are the grads), naming the first op that made one.
+
+There is no compiled-program cache, mesh or pipeline yet.
 """
 from __future__ import annotations
 
@@ -97,9 +104,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
+def _check_op_outputs_finite(op, outs):
+    """Per-op NaN/Inf localization (ref operator.cc:829), under
+    FLAGS_check_nan_inf_per_op; meta tensors (shape inference) are
+    skipped."""
+    for slot, vals in outs.items():
+        for name, v in zip(op.outputs.get(slot, []), vals):
+            if (isinstance(v, torch.Tensor) and v.is_floating_point()
+                    and v.device.type != "meta"
+                    and not bool(torch.isfinite(v).all())):
+                raise EnforceNotMet(
+                    f"NaN/Inf produced by op {op.type!r} in output "
+                    f"{slot}:{name!r} (FLAGS_check_nan_inf_per_op)")
+
+
 def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops
                    ) -> Dict[str, Any]:
     """Shared lowering loop: run `ops` against env, writing outputs back."""
+    per_op = flags.get_flag("check_nan_inf_per_op")
     for op in ops:
         if op.type in _STRUCTURAL_OPS:
             continue
@@ -119,7 +141,23 @@ def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops
             for n, v in zip(names, outs.get(slot, [])):
                 if n:
                     env[n] = v
+        if per_op:
+            _check_op_outputs_finite(op, outs)
     return env
+
+
+def check_slabs(feed: Dict[str, Any], seq, steps: int):
+    """run_steps' feed contract: every per-step feed is fed, with a
+    leading dim of `steps`, read from its ``.shape`` (a device tensor is
+    not copied to the host to find it)."""
+    missing = set(seq) - set(feed)
+    check_arg(not missing, f"per_step_feeds {sorted(missing)} not in feed")
+    for name in seq:
+        v = feed[name]
+        shape = v.shape if hasattr(v, "shape") else np.shape(v)
+        n0 = shape[0] if len(shape) else None
+        check_arg(n0 == steps, f"per-step feed {name!r} leading dim {n0} "
+                               f"!= steps {steps}")
 
 
 class Executor:
@@ -149,7 +187,12 @@ class Executor:
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy: bool = True,
+            donate_feeds: bool = False):
+        """Run `program` once.  ``donate_feeds`` is the reference's
+        signature: the JAX package donates the feed buffers to the step;
+        here it means only what is true of every run, that the executor
+        keeps no reference to the feeds after the call."""
         program = program or default_main_program()
         scope = scope or self.scope
         device = self.place.torch_device()
@@ -179,9 +222,59 @@ class Executor:
             raise KeyError(f"fetch targets {missing} are neither fed, "
                            f"persistable nor produced by the program")
         fetches = [env[n].detach() for n in fetch_names]
+        if flags.get_flag("check_nan_inf"):
+            for n, t in zip(fetch_names, fetches):
+                if t.is_floating_point() and not bool(
+                        torch.isfinite(t).all()):
+                    raise EnforceNotMet(f"NaN/Inf detected in fetch {n!r}")
         if return_numpy:
             return [to_numpy(t) for t in fetches]
         return fetches
+
+    def run_steps(self, program: Optional[Program] = None,
+                  feed: Optional[Dict[str, Any]] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  steps: int = 1,
+                  per_step_feeds: Sequence[str] = (),
+                  scope: Optional[Scope] = None,
+                  return_numpy: bool = True):
+        """Run `steps` training iterations in one call.
+
+        Feeds named in `per_step_feeds` must carry a leading [steps]
+        dimension and are sliced one slab per iteration; all other feeds
+        are repeated every iteration.  Fetches come back stacked with a
+        leading [steps] axis.  State advances exactly as `steps`
+        sequential run() calls would, each step's RNG seed included (each
+        step is one run(), which folds the run counter), and is written
+        back to the scope.
+
+        Each feed is uploaded once and a step's slab is a slice of it on
+        the device; nothing is read back between steps, and the fetches
+        are stacked into new tensors, read back once at the end.  Under
+        the NaN/Inf flags each step's run() scans as it does alone.
+        """
+        program = program or default_main_program()
+        check_arg(steps >= 1, f"steps must be >= 1, got {steps}")
+        seq = frozenset(per_step_feeds)
+        feed = feed or {}
+        check_slabs(feed, seq, steps)
+        device = self.place.torch_device()
+        block = program.global_block()
+        dev = {k: as_tensor(v, block.var(k) if block.has_var(k) else None,
+                            device) for k, v in feed.items()}
+        outs = [self.run(program, {k: (v[i] if k in seq else v)
+                                   for k, v in dev.items()},
+                         fetch_list, scope, return_numpy=False)
+                for i in range(steps)]
+        stacked = [torch.stack([o[j] for o in outs])
+                   for j in range(len(outs[0]))]
+        if return_numpy:
+            return [to_numpy(t) for t in stacked]
+        return stacked
+
+    def close(self):
+        """The reference's API: its executor drops its compiled programs
+        here.  This one keeps none, so there is nothing to release."""
 
     @staticmethod
     def _load_env(scope, block, persist, feed, device) -> Dict[str, Any]:
@@ -225,6 +318,9 @@ class Executor:
             env[n] = p.detach()
         for gname, p, g in zip(attrs["grads"], params, grads):
             env[gname] = torch.zeros_like(p) if g is None else g
+        if flags.get_flag("check_nan_inf_per_op"):
+            _check_op_outputs_finite(
+                ops[ad_idx], {"Grads": [env[g] for g in attrs["grads"]]})
         with torch.no_grad():
             env = run_ops_in_env(ctx, env, ops[ad_idx + 1:])
         return env

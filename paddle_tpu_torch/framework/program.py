@@ -181,9 +181,13 @@ class Block:
             return False
 
     def append_op(self, type: str, inputs=None, outputs=None,
-                  attrs=None) -> Operator:
+                  attrs=None, index: Optional[int] = None) -> Operator:
+        """Append the op, or insert it before position `index`."""
         op = Operator(self, type, inputs, outputs, attrs)
-        self.ops.append(op)
+        if index is None:
+            self.ops.append(op)
+        else:
+            self.ops.insert(index, op)
         return op
 
     def to_dict(self):

@@ -5,6 +5,7 @@ as the JAX package's do: a model dir saved there binds by name here.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
 
 _counters = defaultdict(int)
@@ -17,3 +18,16 @@ def generate(key: str) -> str:
 
 def reset():
     _counters.clear()
+
+
+@contextlib.contextmanager
+def guard():
+    """A fresh namespace for the block: the Trainer builds in one, so a
+    Trainer built again names its parameters alike."""
+    global _counters
+    saved = _counters
+    _counters = defaultdict(int)
+    try:
+        yield
+    finally:
+        _counters = saved

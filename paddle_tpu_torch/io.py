@@ -91,6 +91,17 @@ def load_vars(executor: Executor, dirname: str,
             scope.set_var(name, t.to(device))
 
 
+def load_persistables(executor: Executor, dirname: str,
+                      main_program: Optional[Program] = None,
+                      filename: str = PARAMS_FILENAME):
+    """Every persistable var of the program from `dirname` (what
+    save_persistables wrote, in either package) into the executor's
+    scope on its place."""
+    program = main_program or default_main_program()
+    names = [v.name for v in program.list_vars() if v.persistable]
+    load_vars(executor, dirname, names, filename=filename)
+
+
 def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
                          target_vars: Sequence[Variable],
                          executor: Executor,

@@ -1,7 +1,8 @@
 """NN layer functions — the user-facing model-building API.
 
 Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
-calls: data :21, fc :34, embedding :63, layer_norm :223, softmax :284,
+calls: data :21, fc :34, embedding :63, layer_norm :223, dropout :271,
+softmax :284,
 softmax_with_cross_entropy :310, mean :331, reshape :359, transpose :367,
 split :375, unsqueeze :413, matmul :462, scale :548, elementwise_add,
 greater_than :794, fused_mha :877, fused_attention_qkv :948 and
@@ -21,7 +22,7 @@ from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
-__all__ = ["data", "fc", "embedding", "layer_norm", "softmax",
+__all__ = ["data", "fc", "embedding", "layer_norm", "dropout", "softmax",
            "softmax_with_cross_entropy", "mean", "reshape", "transpose",
            "split", "unsqueeze", "matmul", "scale", "elementwise_add",
            "greater_than", "fused_mha", "fused_attention_qkv",
@@ -105,6 +106,19 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      {"begin_norm_axis": begin_norm_axis,
                       "epsilon": epsilon})
     return helper.append_activation(out, act)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None,
+            dropout_implementation="downgrade_in_infer", name=None):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    helper.append_op("dropout", {"X": [x]},
+                     {"Out": [out], "Mask": [mask]},
+                     {"dropout_prob": dropout_prob, "is_test": is_test,
+                      "seed": seed or 0,
+                      "dropout_implementation": dropout_implementation})
+    return out
 
 
 def softmax(input, axis=-1, name=None):

@@ -22,13 +22,14 @@ def cast(x: Variable, dtype) -> Variable:
 
 
 def assign(input, output: Optional[Variable] = None) -> Variable:
-    """A host array becomes an ``assign_value`` op holding its values.
-    Copying a Variable needs the ``assign`` op, which is not ported."""
+    """A Variable becomes an ``assign`` op; a host array an
+    ``assign_value`` op holding its values."""
     helper = LayerHelper("assign")
     if isinstance(input, Variable):
-        raise NotImplementedError(
-            "assign of a Variable needs the 'assign' op, which is not "
-            "ported yet (ROADMAP queue A.5); pass a numpy array")
+        output = output or helper.create_variable_for_type_inference(
+            input.dtype)
+        helper.append_op("assign", {"X": [input]}, {"Out": [output]}, {})
+        return output
     arr = np.asarray(input)
     output = output or helper.create_variable_for_type_inference(
         str(arr.dtype))

@@ -10,8 +10,13 @@ matmul, with the causal bias built in-graph), whose parameters
 ``lm_program_spec`` maps to their roles for the serving engine
 (serving/kv_cache.py).  Either takes the ``fc`` logits head (serving) or
 the streamed ``fused_lm_head_loss`` (``fused_head=True``, training).
-Dropout and pipeline stages raise NotImplementedError naming their
-ROADMAP entry.
+Dropout (``TransformerConfig.dropout``, 0.1 by default; none at
+``is_test``) goes where the JAX build puts it: after the embedding, on
+the attention probabilities, on the FFN hidden layer and on each
+sublayer's output before its residual add, all ``upscale_in_train``.
+The fused attention path has no attention-prob dropout and raises the
+JAX build's ValueError at a nonzero rate.  Pipeline stages raise
+NotImplementedError naming their ROADMAP entry.
 
 The position table is a parameter named per sequence length
 (``src_pos_enc_<T>``), so a saved model serves one T: requests are
@@ -39,14 +44,6 @@ def position_encoding_table(max_len: int, d_model: int) -> np.ndarray:
     return table
 
 
-def _no_dropout(rate):
-    if rate:
-        raise NotImplementedError(
-            "dropout is not ported yet (ROADMAP queue A.5; the fused "
-            "attention path refuses it in the JAX package too); build "
-            "with dropout 0 or is_test=True")
-
-
 def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                          d_model, n_head=1, dropout_rate=0.0,
                          causal=False, fused=False):
@@ -58,7 +55,6 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
         values is None or values is keys or values is queries)
     keys = queries if keys is None else keys
     values = keys if values is None else values
-    _no_dropout(dropout_rate)
 
     if fused:
         if values is not keys:
@@ -67,6 +63,10 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
         if attn_bias is not None:
             raise ValueError("fused attention path cannot apply an "
                              "additive attn_bias; pass dense batches")
+        if dropout_rate:
+            raise ValueError("fused attention path has no attention-prob "
+                             "dropout (FlashAttention contract); use "
+                             "fused=False or dropout_rate=0")
         if d_key != d_value:
             raise ValueError("fused attention path requires "
                              "d_key == d_value")
@@ -99,6 +99,9 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     if attn_bias is not None:
         scores = layers.elementwise_add(scores, attn_bias)
     weights = layers.softmax(scores)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_rate,
+                                 dropout_implementation="upscale_in_train")
     ctx = layers.matmul(weights, v)                     # [B,nh,T,dv]
     ctx = layers.transpose(ctx, [0, 2, 1, 3])
     ctx = layers.reshape(ctx, [0, 0, n_head * d_value])
@@ -107,7 +110,9 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
 
 def positionwise_ffn(x, d_inner, d_model, dropout_rate=0.0):
     hidden = layers.fc(x, size=d_inner, num_flatten_dims=2, act="relu")
-    _no_dropout(dropout_rate)
+    if dropout_rate:
+        hidden = layers.dropout(hidden, dropout_rate,
+                                dropout_implementation="upscale_in_train")
     return layers.fc(hidden, size=d_model, num_flatten_dims=2)
 
 
@@ -119,8 +124,9 @@ def pre_post_process(prev_out, out, cmd, dropout_rate=0.0):
                 out = layers.elementwise_add(out, prev_out)
         elif c == "n":
             out = layers.layer_norm(out, begin_norm_axis=len(out.shape) - 1)
-        elif c == "d":
-            _no_dropout(dropout_rate)
+        elif c == "d" and dropout_rate:
+            out = layers.dropout(out, dropout_rate,
+                                 dropout_implementation="upscale_in_train")
     return out
 
 
@@ -156,7 +162,9 @@ def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate=0.0,
                                   dtype="float32")
     pos_var = layers.unsqueeze(pos, [0])                 # [1,T,D]
     out = layers.elementwise_add(emb, pos_var)
-    _no_dropout(dropout_rate)
+    if dropout_rate:
+        out = layers.dropout(out, dropout_rate,
+                             dropout_implementation="upscale_in_train")
     return out
 
 

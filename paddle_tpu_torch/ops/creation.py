@@ -1,8 +1,8 @@
 """Tensor creation / fill ops (the initializers' startup-program ops).
 
 Counterpart of paddle_tpu/ops/creation.py: fill_constant :47,
-uniform_random :108, gaussian_random :118, assign_value :153 and
-cast :160.
+uniform_random :108, gaussian_random :118, assign :138, assign_value
+:153 and cast :160.
 
 Random ops draw from the context's torch.Generator (ctx.rng()); a nonzero
 per-op ``seed`` attr seeds a generator of its own, as the reference does.
@@ -17,7 +17,10 @@ from ..core.dtypes import to_torch_dtype
 from ..framework.registry import register_op, single_input
 
 
-def _op_generator(ctx, attrs):
+def op_generator(ctx, attrs):
+    """The generator a random op draws from: one seeded from its nonzero
+    ``seed`` attr, else the context's, on the op's device (None on
+    meta, where nothing is drawn)."""
     seed = int(attrs.get("seed", 0) or 0)
     if not seed:
         return ctx.rng()
@@ -40,7 +43,7 @@ def _uniform_random(ctx, ins, attrs):
     shape = tuple(attrs["shape"])
     lo, hi = float(attrs.get("min", -1.0)), float(attrs.get("max", 1.0))
     u = torch.empty(shape, dtype=torch.float32, device=ctx.device)
-    u.uniform_(lo, hi, generator=_op_generator(ctx, attrs))
+    u.uniform_(lo, hi, generator=op_generator(ctx, attrs))
     return {"Out": [u.to(dtype)]}
 
 
@@ -50,8 +53,17 @@ def _gaussian_random(ctx, ins, attrs):
     shape = tuple(attrs["shape"])
     mean, std = float(attrs.get("mean", 0.0)), float(attrs.get("std", 1.0))
     g = torch.randn(shape, dtype=torch.float32, device=ctx.device,
-                    generator=_op_generator(ctx, attrs))
+                    generator=op_generator(ctx, attrs))
     return {"Out": [(g * std + mean).to(dtype)]}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    """Out is X itself, as in the JAX package: no copy.  Gradient
+    accumulation snapshots each updated var with it (``.preupdate``);
+    that holds because every update op returns new tensors and nothing
+    writes a var in place.  An in-place update must make this a copy."""
+    return {"Out": [single_input(ins)]}
 
 
 @register_op("assign_value")

@@ -1,8 +1,11 @@
 """Elementwise binary ops with the reference's axis-broadcast semantics.
 
-Counterpart of paddle_tpu/ops/elementwise.py: elementwise_add and the
-comparison greater_than (:77, ``_compare``; bool out).  Reference
-broadcast rule:
+Counterpart of paddle_tpu/ops/elementwise.py: the ``_binary`` family
+(:33-60) for elementwise_add, _sub, _mul and _mod, and the comparisons
+equal and greater_than (``_compare``, :63-77; bool out, no gradient).
+``elementwise_mod`` is ``torch.remainder``, which like ``jnp.mod`` takes
+the divisor's sign (``torch.fmod`` takes the dividend's); gradient
+accumulation wraps its f32 counter with it.  Reference broadcast rule:
 Y's dims align with X starting at `axis` (axis == -1 -> trailing
 alignment), then NumPy-style broadcast.  ``fc``'s bias add relies on it
 with ``axis=num_flatten_dims``.
@@ -30,17 +33,25 @@ def _align(x, y, axis):
     return x, y.reshape(new_shape)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = _align(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-    # AMP (paddle_tpu/ops/elementwise.py:38-48): a bf16 activation meeting
-    # an f32 operand (a bias or a residual's master copy) computes in bf16;
-    # type promotion would lift the activation plane back to f32 and hand
-    # the bf16 kernels downstream f32
-    if flags.get_flag("amp_bf16") and {x.dtype, y.dtype} == {
-            torch.bfloat16, torch.float32}:
-        x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
-    return {"Out": [torch.add(x, y)]}
+def _binary(name, fn):
+    @register_op(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x, y = _align(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        # AMP (paddle_tpu/ops/elementwise.py:38-48): a bf16 activation
+        # meeting an f32 operand (a bias or a residual's master copy)
+        # computes in bf16; type promotion would lift the activation plane
+        # back to f32 and hand the bf16 kernels downstream f32
+        if flags.get_flag("amp_bf16") and {x.dtype, y.dtype} == {
+                torch.bfloat16, torch.float32}:
+            x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
+        return {"Out": [_fn(x, y)]}
+    return _lower
+
+
+_binary("elementwise_add", torch.add)
+_binary("elementwise_sub", torch.sub)
+_binary("elementwise_mul", torch.mul)
+_binary("elementwise_mod", torch.remainder)
 
 
 def _compare(name, fn):
@@ -51,4 +62,5 @@ def _compare(name, fn):
     return _lower
 
 
+_compare("equal", torch.eq)
 _compare("greater_than", torch.gt)

@@ -3,7 +3,7 @@
 Counterpart of paddle_tpu/ops/math_ops.py: the AMP helpers :28-77
 (amp_inputs, amp_result, amp_matmul), mul :91 (fc's flattening
 matmul), matmul :105 (the unfused attention's batched products), scale
-:142 and mean :158.  A plain matrix product outside any
+:142, mean :158 and increment :197 (gradient accumulation's counter).  A plain matrix product outside any
 kernel goes to torch.matmul, as the JAX package leaves it to XLA; f32
 products run in full f32 (TF32 stays off unless the caller enables it).
 Under FLAGS_amp_bf16 the operands are cast to bf16 and a 2-byte product
@@ -113,3 +113,8 @@ def _scale(ctx, ins, attrs):
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(single_input(ins))]}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    return {"Out": [single_input(ins) + attrs.get("step", 1.0)]}

@@ -1,5 +1,5 @@
-"""NN ops of the serving slice (counterpart of paddle_tpu/ops/nn_ops.py:
-layer_norm :261, softmax :349 and lookup_table :384)."""
+"""NN ops (counterpart of paddle_tpu/ops/nn_ops.py: layer_norm :261,
+softmax :349, dropout :362 and lookup_table :384)."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +7,7 @@ import torch.nn.functional as F
 
 from ..framework.registry import register_op, single_input
 from ..kernels.layer_norm import layer_norm_train as _layer_norm_rows
+from .creation import op_generator
 
 
 @register_op("layer_norm")
@@ -47,6 +48,30 @@ def _layer_norm(ctx, ins, attrs):
 def _softmax(ctx, ins, attrs):
     x = single_input(ins)
     return {"Out": [torch.softmax(x, dim=int(attrs.get("axis", -1)))]}
+
+
+@register_op("dropout")
+def _dropout(ctx, ins, attrs):
+    """ref dropout_op.cc: implementations downgrade_in_infer (the
+    default: scale by 1 - p at test time) and upscale_in_train (scale
+    the kept entries by 1 / (1 - p) in training).  The keep draw is
+    uniform < 1 - p from the op's generator on the op's device (a
+    nonzero ``seed`` attr seeds its own); Philox draws other bits than
+    JAX's threefry, so only the distribution is JAX's.  Mask is uint8."""
+    x = single_input(ins)
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False):
+        out = x * (1.0 - p) if impl == "downgrade_in_infer" else x
+        return {"Out": [out], "Mask": [torch.ones_like(x, dtype=torch.uint8)]}
+    u = torch.rand(x.shape, generator=op_generator(ctx, attrs),
+                   device=ctx.device)
+    keep = u < 1.0 - p
+    if impl == "upscale_in_train":
+        out = torch.where(keep, x / max(1.0 - p, 1e-8), 0.0)
+    else:
+        out = torch.where(keep, x, 0.0)
+    return {"Out": [out.to(x.dtype)], "Mask": [keep.to(torch.uint8)]}
 
 
 @register_op("lookup_table")

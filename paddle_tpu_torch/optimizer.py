@@ -9,9 +9,17 @@ letter for letter as the JAX package's (``Adam_0.lr``,
 ``Adam_0.<param>.moment1`` ...), so optimizer state binds by name across
 the two packages.
 
-Not ported yet, and refused rather than ignored: gradient accumulation
-(``accumulate_steps > 1``, ROADMAP queue A.3), a gradient clip set on the
-program and regularization (ROADMAP queue A.5).
+``minimize(accumulate_steps=k)`` rewrites the program as the JAX package
+does (:83-166, :208-217): the grads add into persistable ``grad_acc``
+accumulators, an f32 ``.acc_counter`` counts the micro-steps modulo k,
+and every update op is gated, so its outputs keep their ``.preupdate``
+values except on every k-th run, which applies the mean of the last k
+micro-batch grads and clears the accumulators.  The ops, slots, attrs
+and var names are the JAX package's, so an accumulating program and its
+persistables bind by name across the two packages.
+
+Not ported yet, and refused rather than ignored: a gradient clip set on
+the program and regularization (ROADMAP queue A.5).
 """
 from __future__ import annotations
 
@@ -81,16 +89,94 @@ class Optimizer:
     def _create_accumulators(self, block, params: List[Parameter]):
         pass
 
+    # -- gradient accumulation (ref ir/multi_batch_merge_pass.cc) ----------
+    def _append_grad_accumulation(self, block, param_grads, k):
+        """Rewrite the grads into running accumulators; returns the new
+        (param, mean grad) pairs, the boundary gate var name (1.0 on
+        every k-th run, else 0.0) and the accumulator names."""
+        cname = self._name + ".acc_counter"
+        block.create_var(name=cname, shape=[1], dtype="float32",
+                         persistable=True, stop_gradient=True)
+        sb = default_startup_program().global_block()
+        if not sb.has_var(cname):
+            sb.create_var(name=cname, shape=[1], dtype="float32",
+                          persistable=True)
+            sb.append_op("fill_constant", outputs={"Out": [cname]},
+                         attrs={"shape": [1], "dtype": "float32",
+                                "value": 0.0})
+        block.append_op("increment", {"X": [cname]}, {"Out": [cname]},
+                        {"step": 1.0})
+
+        def tmp(suffix, dtype="float32"):
+            name = unique_name.generate(f"{self._name}.{suffix}")
+            block.create_var(name=name, dtype=dtype, stop_gradient=True)
+            return name
+
+        kc, zc = tmp("k_const"), tmp("zero_const")
+        block.append_op("fill_constant", outputs={"Out": [kc]},
+                        attrs={"shape": [1], "dtype": "float32",
+                               "value": float(k)})
+        block.append_op("fill_constant", outputs={"Out": [zc]},
+                        attrs={"shape": [1], "dtype": "float32",
+                               "value": 0.0})
+        # the counter wraps in place (counter <- counter mod k), so an f32
+        # counter never reaches 2^24, where it would stop counting
+        block.append_op("elementwise_mod", {"X": [cname], "Y": [kc]},
+                        {"Out": [cname]})
+        eq = tmp("is_boundary_b", "bool")
+        block.append_op("equal", {"X": [cname], "Y": [zc]}, {"Out": [eq]})
+        gate = tmp("is_boundary")
+        block.append_op("cast", {"X": [eq]}, {"Out": [gate]},
+                        {"out_dtype": "float32"})
+
+        new_pairs, acc_names = [], []
+        for param, grad in param_grads:
+            acc = self._add_accumulator("grad_acc", param, block)
+            block.append_op("elementwise_add", {"X": [acc],
+                                                "Y": [grad.name]},
+                            {"Out": [acc]})
+            eff = tmp(f"{param.name}.grad_avg")
+            block.append_op("scale", {"X": [acc]}, {"Out": [eff]},
+                            {"scale": 1.0 / k})
+            new_pairs.append((param, block.var(eff)))
+            acc_names.append(acc)
+        return new_pairs, gate, acc_names
+
+    def _append_gated_optimize_op(self, block, param, grad_name, lr_name,
+                                  gate):
+        """The subclass update, then every var it writes gated back to its
+        pre-update value unless this run is a boundary:
+        w = old + (w - old) * gate."""
+        start = len(block.ops)
+        self._append_optimize_op(block, param, grad_name, lr_name)
+        written = sorted({n for op in block.ops[start:]
+                          for names in op.outputs.values() for n in names})
+        saves = []
+        for i, w in enumerate(written):
+            old = unique_name.generate(f"{w}.preupdate")
+            block.create_var(name=old, dtype="float32",
+                             stop_gradient=True)
+            # the snapshot goes BEFORE the update ops
+            block.append_op("assign", {"X": [w]}, {"Out": [old]},
+                            index=start + i)
+            saves.append((w, old))
+        for w, old in saves:
+            diff = unique_name.generate(f"{w}.upd_delta")
+            block.create_var(name=diff, dtype="float32",
+                             stop_gradient=True)
+            block.append_op("elementwise_sub", {"X": [w], "Y": [old]},
+                            {"Out": [diff]})
+            block.append_op("elementwise_mul", {"X": [diff], "Y": [gate]},
+                            {"Out": [diff]})
+            block.append_op("elementwise_add", {"X": [old], "Y": [diff]},
+                            {"Out": [w]})
+
     # -- minimize (ref optimizer.py:294) -----------------------------------
     def minimize(self, loss: Variable, startup_program=None,
                  parameter_list=None, no_grad_set=None,
                  accumulate_steps: int = 1
                  ) -> Tuple[None, List[Tuple[Parameter, Variable]]]:
         program = loss.block.program
-        if accumulate_steps and int(accumulate_steps) > 1:
-            raise NotImplementedError(
-                "gradient accumulation (accumulate_steps > 1) is not "
-                "ported yet (ROADMAP queue A.3)")
         if getattr(program, _CLIP_ATTR, None) is not None:
             raise NotImplementedError(
                 "gradient clipping is not ported yet (ROADMAP queue A.5)")
@@ -104,10 +190,28 @@ class Optimizer:
                     f"parameter {param.name!r} has a regularizer; "
                     f"regularization is not ported yet (ROADMAP queue A.5)")
         block = program.global_block()
+        gate = None
+        acc_names: List[str] = []
+        if accumulate_steps and int(accumulate_steps) > 1:
+            param_grads, gate, acc_names = self._append_grad_accumulation(
+                block, param_grads, int(accumulate_steps))
         lr = self._create_lr_var(program)
         self._create_accumulators(block, [p for p, _ in param_grads])
         for param, grad in param_grads:
-            self._append_optimize_op(block, param, grad.name, lr.name)
+            if gate is None:
+                self._append_optimize_op(block, param, grad.name, lr.name)
+            else:
+                self._append_gated_optimize_op(block, param, grad.name,
+                                               lr.name, gate)
+        if gate is not None:
+            # clear the accumulators on boundary runs: acc *= (1 - gate)
+            inv = unique_name.generate(f"{self._name}.not_boundary")
+            block.create_var(name=inv, dtype="float32", stop_gradient=True)
+            block.append_op("scale", {"X": [gate]}, {"Out": [inv]},
+                            {"scale": -1.0, "bias": 1.0})
+            for acc in acc_names:
+                block.append_op("elementwise_mul", {"X": [acc], "Y": [inv]},
+                                {"Out": [acc]})
         return None, param_grads
 
 

@@ -1114,3 +1114,35 @@ def test_predictor_readback_survives_the_next_run(cuda, tmp_path):
     assert not np.array_equal(a, b)
     np.testing.assert_array_equal(a, kept)
     assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()
+
+
+# --- the training loops: run_steps, accumulation, the Trainer ---------------
+
+def _loops_cfg(dropout):
+    return tr.TransformerConfig(src_vocab_size=1000, max_length=128,
+                                n_layer=2, n_head=2, d_model=128,
+                                d_inner=256, dropout=dropout)
+
+
+@pytest.mark.parametrize("amp", [False, True])
+def test_run_steps_on_the_card_matches_sequential_runs(cuda, amp):
+    """chip_smoke's run_steps check at L 2, head dim 64, batch 2, T 128,
+    3 steps (f32, and under AMP as bench.py's row runs): the stacked
+    losses and the final state against 3 runs from the same state, and
+    every launch counter 3 times one run's."""
+    res = chip_smoke.run_steps_match(torch, _loops_cfg(0.0), 2, 3, amp=amp,
+                                     T=128)
+    flash = "flash_attention_hdt_bf16" if amp else "flash_attention_hdt"
+    assert res["counts"][(flash, "launches")] == 3 * 2
+    assert res["counts"][("layer_norm", "launches")] == 3 * 5
+
+
+def test_trainer_accumulates_to_the_boundary_on_the_card(cuda):
+    """chip_smoke's Trainer check on the unfused build with dropout 0.1,
+    accumulate_steps 2, prefetch depth 2, 4 micro-batches of 2 x 128:
+    params frozen until each boundary, the counter 1, 0, 1, 0, the
+    kernels' launches per micro-step."""
+    res = chip_smoke.trainer_boundary(torch, _loops_cfg(0.1), 2, 4, 2, 2,
+                                      T=128)
+    assert res["counts"][("layer_norm", "launches")] == 4 * 5
+    assert 0.8 < res["keep"] < 1.0

@@ -42,6 +42,11 @@ def _compare(jouts, touts, slots, tol):
             j = np.asarray(j)
             t = t.numpy()
             assert j.shape == t.shape, (slot, j.shape, t.shape)
+            if j.dtype.kind in "bu" or t.dtype.kind in "bu":
+                # bool (a comparison) and uint8 (a dropout Mask): exact
+                assert t.dtype == j.dtype, (slot, t.dtype, j.dtype)
+                np.testing.assert_array_equal(t, j, err_msg=slot)
+                continue
             np.testing.assert_allclose(t, j, err_msg=slot, **tol)
 
 
@@ -75,6 +80,56 @@ CASES = {
         "elementwise_add", lambda r: {"X": [_rand(r, 2, 5, 7)],
                                       "Y": [_rand(r, 7)]},
         {"axis": 2}, ["Out"], EXACT),
+    # the rest of the _binary family, the ops gradient accumulation emits
+    "sub_broadcast": (
+        "elementwise_sub", lambda r: {"X": [_rand(r, 2, 3, 4)],
+                                      "Y": [_rand(r, 3, 1)]},
+        {"axis": 1}, ["Out"], EXACT),
+    "mul_scalar_gate": (
+        "elementwise_mul", lambda r: {"X": [_rand(r, 5, 6)],
+                                      "Y": [np.ones(1, "float32")]},
+        {"axis": -1}, ["Out"], EXACT),
+    "mul_trailing": (
+        "elementwise_mul", lambda r: {"X": [_rand(r, 2, 3, 4)],
+                                      "Y": [_rand(r, 4)]},
+        {"axis": -1}, ["Out"], EXACT),
+    # the divisor's sign, as jnp.mod gives it (torch.fmod would not)
+    "mod_signs": (
+        "elementwise_mod", lambda r: {
+            "X": [_rand(r, 4, 5) * 7],
+            "Y": [np.where(r.rand(4, 5) < 0.5, -1.0, 1.0).astype("float32")
+                  * (1.5 + r.rand(4, 5).astype("float32"))]},
+        {"axis": -1}, ["Out"], EXACT),
+    "mod_counter": (
+        "elementwise_mod", lambda r: {"X": [np.array([7.0], "float32")],
+                                      "Y": [np.array([2.0], "float32")]},
+        {}, ["Out"], EXACT),
+    "equal_bool": (
+        "equal", lambda r: {"X": [r.randint(0, 3, (4, 5)).astype("float32")],
+                            "Y": [r.randint(0, 3, (5,)).astype("float32")]},
+        {"axis": -1}, ["Out"], EXACT),
+    "increment": ("increment", lambda r: {"X": [_rand(r, 1)]},
+                  {"step": 1.0}, ["Out"], EXACT),
+    "increment_step": ("increment", lambda r: {"X": [_rand(r, 3, 2)]},
+                       {"step": -2.5}, ["Out"], EXACT),
+    "assign": ("assign", lambda r: {"X": [_rand(r, 3, 4)]}, {}, ["Out"],
+               EXACT),
+    # dropout at is_test draws nothing: exact for both implementations
+    "dropout_test_downgrade": (
+        "dropout", lambda r: {"X": [_rand(r, 4, 6)]},
+        {"dropout_prob": 0.3, "is_test": True,
+         "dropout_implementation": "downgrade_in_infer"},
+        ["Out", "Mask"], EXACT),
+    "dropout_test_upscale": (
+        "dropout", lambda r: {"X": [_rand(r, 4, 6)]},
+        {"dropout_prob": 0.3, "is_test": True,
+         "dropout_implementation": "upscale_in_train"},
+        ["Out", "Mask"], EXACT),
+    "dropout_rate_0": (
+        "dropout", lambda r: {"X": [_rand(r, 4, 6)]},
+        {"dropout_prob": 0.0, "is_test": False,
+         "dropout_implementation": "upscale_in_train"},
+        ["Out", "Mask"], EXACT),
     "mul_flatten2": (
         "mul", lambda r: {"X": [_rand(r, 2, 5, 6)], "Y": [_rand(r, 6, 7)]},
         {"x_num_col_dims": 2, "y_num_col_dims": 1}, ["Out"], MATMUL),

@@ -198,12 +198,21 @@ def test_port_trains_from_its_own_startup():
 
 
 def test_minimize_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="accumulat"):
-        ptt.reset_default_programs()
-        main, startup = ptt.Program(), ptt.Program()
-        with ptt.program_guard(main, startup):
-            _, loss, _ = ttr.build_lm_net(tiny_cfg(ttr), T, fused_head=True)
-            ptt.optimizer.Adam(1e-3).minimize(loss, accumulate_steps=2)
+    """Clip and regularization stay refused (ROADMAP A.5).  Gradient
+    accumulation and dropout, refused until they were ported, now build
+    what the JAX package builds: accumulation its op list, and the fused
+    attention build with dropout its ValueError."""
+    op_types = []
+    for pkg, tr in ((pt, jtr), (ptt, ttr)):
+        pkg.reset_default_programs()
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup):
+            _, loss, _ = tr.build_lm_net(tiny_cfg(tr), T, fused_head=True)
+            pkg.optimizer.Adam(1e-3).minimize(loss, accumulate_steps=2)
+        op_types.append([op.type for op in main.global_block().ops])
+    assert op_types[0] == op_types[1]
+    assert {"increment", "elementwise_mod", "equal", "assign",
+            "elementwise_sub", "elementwise_mul"} <= set(op_types[1])
     for kw, prog_attr, match in [({"regularization": object()}, None,
                                   "regulariz"),
                                  ({}, object(), "clip")]:
@@ -216,11 +225,12 @@ def test_minimize_refuses_what_is_not_ported():
             with pytest.raises(NotImplementedError, match=match):
                 ptt.optimizer.Adam(1e-3, **kw).minimize(loss)
         assert "autodiff" not in [op.type for op in main.global_block().ops]
-    with pytest.raises(NotImplementedError, match="dropout"):
-        cfg = tiny_cfg(ttr)
+    for tr, pkg in ((jtr, pt), (ttr, ptt)):
+        cfg = tiny_cfg(tr)
         cfg.dropout = 0.1
-        with ptt.program_guard(ptt.Program(), ptt.Program()):
-            ttr.build_lm_net(cfg, T, fused_head=True)
+        with pytest.raises(ValueError, match="attention-prob dropout"):
+            with pkg.program_guard(pkg.Program(), pkg.Program()):
+                tr.build_lm_net(cfg, T, fused_head=True)
 
 
 def _small_program():

@@ -138,9 +138,23 @@ def test_lm_program_spec_refuses_a_fused_build(fused_head):
 
 
 def test_unfused_build_refuses_dropout():
+    """Dropout is ported: the unfused build no longer refuses it and puts
+    the JAX build's dropout ops where JAX puts them (the embedding, and a
+    layer's attention probabilities, FFN hidden layer and both sublayer
+    outputs), none at is_test; the refusal left is the fused attention
+    build's, JAX's ValueError."""
     ptt.reset_default_programs()
     cfg = tiny_cfg(ttr)
     cfg.dropout = 0.1
-    with pytest.raises(NotImplementedError, match="A.5"):
+    for is_test, n_drop in ((False, 1 + 4 * cfg.n_layer), (True, 0)):
+        main = ptt.Program()
+        with ptt.program_guard(main, ptt.Program()):
+            ttr.build_lm_net(cfg, T, is_test=is_test, fused_attention=False)
+        drops = [op for op in main.global_block().ops
+                 if op.type == "dropout"]
+        assert len(drops) == n_drop
+        assert all(op.attrs["dropout_implementation"] == "upscale_in_train"
+                   and op.attrs["dropout_prob"] == 0.1 for op in drops)
+    with pytest.raises(ValueError, match="attention-prob dropout"):
         with ptt.program_guard(ptt.Program(), ptt.Program()):
-            ttr.build_lm_net(cfg, T, is_test=False, fused_attention=False)
+            ttr.build_lm_net(cfg, T, is_test=False, fused_attention=True)
