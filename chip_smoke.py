@@ -199,6 +199,23 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    layer norms, 1 LM-head forward and 2 LM-head backwards (two 4096-token
    chunks) a micro-step and no other kernel.  The micro-step p50, the
    data wait p50 and the peak memory are logged beside nvidia-smi's line.
+5f. Verify (slice 17): from phase 4 on, FLAGS_verify_program is error, so
+   the Executor verifies every program it runs (each key once), under the
+   flags it runs with, before any op runs; the phase logs each
+   verification's finding counts and host time, verifies the Predictor's
+   program at its request's shapes, and fails on any error finding.  A
+   shape fault planted in bench.py's AMP row (the first FFN weight
+   swapped for a [D, D] matrix) must raise ProgramVerificationError with
+   no launch counter moved and torch.cuda.memory_allocated() unchanged.
+   On the AMP row (batch 32): ByGlobalNorm(1e30) with L2Decay(0.0) must
+   be bit-equal to the row without them over 3 steps (losses and every
+   persistable); ByGlobalNorm at half of step 1's global norm with
+   L2Decay(1e-4) must give grads whose global norm, less the decay term
+   and taken in f64 from the fetched grads, is the clip norm at rtol
+   1e-5, and a finite loss over 10 steps.  The step p50 with and without
+   clip and decay, and the run p50 with verify_program off and warn, four
+   windows each in turns (a b b a a b b a), and the gate's host time a
+   run on a kept verdict, are logged beside nvidia-smi's line.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -2260,13 +2277,15 @@ def phase_decode(torch):
     return counts, oracle_counts, remake
 
 
-def build_train(cfg, fuse_block=False, amp=False, T=TRAIN_T):
+def build_train(cfg, fuse_block=False, amp=False, T=TRAIN_T, clip=None,
+                regularization=None):
     """The flagship training program: (main, startup, avg_cost, param
     grads).  With fuse_block, FLAGS_fuse_block is on while it is built and
     transpiler.maybe_fuse runs before minimize, as bench.py's _bench_lm_cfg
     does; every layer must fuse.  With amp, FLAGS_amp_bf16 is on while it
     is built, as bench.py sets it before every row (the port's program is
-    the same: AMP applies when it runs)."""
+    the same: AMP applies when it runs).  `clip` is set on the program
+    (clip.set_gradient_clip) and `regularization` given to Adam."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import transformer as tr
     ptt.reset_default_programs()
@@ -2279,8 +2298,11 @@ def build_train(cfg, fuse_block=False, amp=False, T=TRAIN_T):
             _, avg_cost, _ = tr.build_lm_net(cfg, T, fused_attention=True,
                                              fused_head=True)
             fused = ptt.transpiler.maybe_fuse(main)
-            _, pg = ptt.optimizer.Adam(learning_rate=TRAIN_LR).minimize(
-                avg_cost)
+            if clip is not None:
+                ptt.clip.set_gradient_clip(clip, program=main)
+            _, pg = ptt.optimizer.Adam(
+                learning_rate=TRAIN_LR,
+                regularization=regularization).minimize(avg_cost)
     finally:
         ptt.flags.set_flag("fuse_block", old)
     want = cfg.n_layer if fuse_block else 0
@@ -2330,7 +2352,10 @@ def _phase_train(torch, fuse_block, amp):
     ln_rows, ln_dtypes = nn_ops._layer_norm_rows, []
 
     def ln_record(x2d, *args):
-        ln_dtypes.append(str(x2d.dtype)[6:])
+        # the verifier's meta evaluation (before the step runs) is not a
+        # layer norm of the step
+        if x2d.device.type != "meta":
+            ln_dtypes.append(str(x2d.dtype)[6:])
         return ln_rows(x2d, *args)
 
     counters = {n: wrapper(n) for n in KERNELS}
@@ -2848,10 +2873,287 @@ def phase_train_loops(torch):
             "trainer": by_kernel(tb["counts"])}
 
 
+# phase 5f: verification records, the clip and decay checks
+VERIFY_LOG = []          # one dict per verification the port made
+VERIFY_PHASE = ["setup"]  # the phase the smoke is in, for the records
+CLIP_STEPS = 3           # the identity clip held bit for bit
+CLIP_FINITE_STEPS = 10   # the biting clip: the loss stays finite
+CLIP_RTOL = 1e-5         # the clipped grads' global norm against clip_norm
+CLIP_DECAY = 1e-4        # L2Decay beside the biting clip
+VERIFY_TIMED_RUNS = 12   # runs a timing window (the first one dropped)
+VERIFY_ROUNDS = 4        # timing windows of each variant, in turns
+GATE_CALLS = 2000        # calls of the gate timed on a kept verdict
+
+
+def record_verifications():
+    """Wrap paddle_tpu_torch.analysis.verify_program, which the
+    Executor's gate calls under FLAGS_verify_program=error, so that every
+    verification of the run is logged with its phase, program, fed
+    shapes, flags, finding counts and host time."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import analysis
+    real = analysis.verify_program
+
+    def recorded(program=None, *args, **kw):
+        t0 = time.perf_counter()
+        res = real(program, *args, **kw)
+        VERIFY_LOG.append(dict(
+            phase=VERIFY_PHASE[0], uid=program._uid,
+            ops=len(program.global_block().ops),
+            feeds={n: list(v) for n, v in
+                   sorted((kw.get("feed_shapes") or {}).items())},
+            amp=bool(ptt.flags.get_flag("amp_bf16")),
+            fuse_block=any(op.type == "fused_transformer_block"
+                           for op in program.global_block().ops),
+            counts=res.counts(), errors=len(res.errors),
+            ms=(time.perf_counter() - t0) * 1e3))
+        return res
+    analysis.verify_program = recorded
+
+
+def in_turns(windows, rounds=VERIFY_ROUNDS):
+    """Each named window (a zero-arg callable returning a number) run
+    `rounds` times, in turns a b b a a b ...; the numbers by name."""
+    names = list(windows)
+    out = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            out[n].append(windows[n]())
+    return out
+
+
+def run_p50(torch, exe, main, feed, fetch, runs=VERIFY_TIMED_RUNS):
+    """The p50 of `runs` Executor.run calls (ms, host clock, each
+    synchronized by its fetch's readback), the first one dropped."""
+    import numpy as np
+    ms = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[fetch])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[1:]))
+
+
+def phase_verify(torch, pred, pred_feed):
+    """The verifier on the card (slice 17).  (a) Every program the smoke
+    ran so far went through the Executor's gate under
+    FLAGS_verify_program=error (main() sets it): each verification's
+    finding counts and host time, and none may have an error.  The
+    Predictor's program (executor-free) is verified here with its
+    request's shapes.  (b) A planted shape fault (the first FFN weight
+    swapped for a [D, D] matrix) in bench.py's AMP row must raise
+    ProgramVerificationError with no kernel launch and no change of
+    torch.cuda.memory_allocated().  (c) On the AMP row (the fused
+    flagship under FLAGS_amp_bf16, batch 32): ByGlobalNorm with a clip
+    norm no grad reaches and L2Decay(0.0) must be bit-equal to the row
+    without them over CLIP_STEPS steps; with clip_norm half of step 1's
+    global norm and L2Decay(CLIP_DECAY) the grads the updates see, less
+    the decay term, must have global norm clip_norm (in f64 from the
+    fetched grads) at CLIP_RTOL, and the loss stay finite over
+    CLIP_FINITE_STEPS steps; the step p50 with and without clip and decay
+    in turns.  (d) The AMP row's run p50 with FLAGS_verify_program off
+    and warn, in turns, and the gate's host time a call on a kept
+    verdict in each mode.  Returns the numbers."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.models import transformer as tr
+
+    smi = nvidia_smi_line()
+    # (a) the gate's verifications so far, and the Predictor's program
+    t0 = time.perf_counter()
+    res = analysis.verify_program(
+        pred.program, feed=pred.feed_names, fetch_list=pred.fetch_names,
+        feed_shapes={n: tuple(np.shape(v)) for n, v in pred_feed.items()})
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    VERIFY_LOG[-1].update(phase="serve (Predictor)")
+    if res.errors:
+        raise RuntimeError(f"the Predictor's program fails verification:\n"
+                           f"{res.report()}")
+    for r in VERIFY_LOG:
+        log(f"[verify] {r['phase']}: program {r['uid']} ({r['ops']} ops"
+            f"{', fuse_block' if r['fuse_block'] else ''}"
+            f"{', amp_bf16' if r['amp'] else ''}) fed {r['feeds']}: "
+            f"findings {r['counts']}, {r['ms']:.1f} ms")
+    bad = [r for r in VERIFY_LOG if r["errors"]]
+    if bad:
+        raise RuntimeError(f"programs with error findings: {bad}")
+    total = sum(r["ms"] for r in VERIFY_LOG)
+    log(f"[verify] {len(VERIFY_LOG)} verifications of "
+        f"{len({r['uid'] for r in VERIFY_LOG})} programs, none with an "
+        f"error; host time {total:.1f} ms in all, the largest "
+        f"{max(r['ms'] for r in VERIFY_LOG):.1f} ms; {smi}")
+    n_before = len(VERIFY_LOG)
+
+    cfg = tr.TransformerConfig(**FLAGSHIP)
+    batch = tr.make_fake_lm_batch(cfg, TRAIN_BATCH, TRAIN_T, seed=SEED + 40)
+    counters = launch_counters()
+    with amp_bf16():
+        # (b) a planted shape fault: nothing launches, nothing allocates
+        main, startup, avg_cost, pg = build_train(cfg, amp=True)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        state = snapshot(exe.scope, names)
+        block = main.global_block()
+        w1 = next(op for op in block.ops if op.type == "mul")
+        D = cfg.d_model
+        block.create_parameter("planted_w", [D, D])
+        good_w, w1.inputs["Y"] = w1.inputs["Y"], ["planted_w"]
+        zero_counters(counters)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        try:
+            exe.run(main, feed=batch, fetch_list=[avg_cost])
+        except analysis.ProgramVerificationError as e:
+            fault = e.result.by_code("shape_mismatch")
+        else:
+            raise RuntimeError("the planted shape fault ran")
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        moved = {f"{n}.{a}": c for (n, a), c in
+                 read_counters(counters).items() if c}
+        log(f"[verify] planted fault ({w1.outputs['Out'][0]} = "
+            f"{w1.inputs['X'][0]} x planted_w [{D}, {D}]): "
+            f"ProgramVerificationError with {[str(f) for f in fault]}; "
+            f"launches {moved or 'none'}; memory_allocated {mem0} -> "
+            f"{mem1} bytes")
+        if not fault or moved or mem1 != mem0:
+            raise RuntimeError(f"the planted fault: findings {fault}, "
+                               f"launches {moved}, memory {mem0} -> {mem1}")
+        w1.inputs["Y"] = good_w
+
+        # (c) the clip and the decay on the AMP row
+        def fresh(program_state=state):
+            scope = ptt.Scope()
+            for n, t in program_state.items():
+                scope.set_var(n, t.clone())
+            return ptt.Executor(ptt.CUDAPlace(0), scope=scope)
+
+        def steps(program, loss, n, fetch=()):
+            """n steps from the saved state; step 1 also fetches
+            `fetch`.  Returns the executor and each step's fetches."""
+            exe = fresh()
+            out = [exe.run(program, feed=batch,
+                           fetch_list=[loss] + list(fetch if i == 0
+                                                    else ()),
+                           return_numpy=False) for i in range(n)]
+            return exe, out
+
+        plain = build_train(cfg, amp=True)
+        ident = build_train(
+            cfg, amp=True, clip=ptt.clip.GradientClipByGlobalNorm(1e30),
+            regularization=ptt.regularizer.L2Decay(0.0))
+        for prog in (plain, ident):
+            if sorted(v.name for v in prog[0].list_vars()
+                      if v.persistable) != names:
+                raise RuntimeError("the clip program's state differs")
+        ea, la = steps(plain[0], plain[2], CLIP_STEPS)
+        eb, lb = steps(ident[0], ident[2], CLIP_STEPS)
+        differ = bits_differ(snapshot(ea.scope, names),
+                             snapshot(eb.scope, names))
+        same_loss = all(torch.equal(a[0], b[0]) for a, b in zip(la, lb))
+        log(f"[verify] AMP row with ByGlobalNorm(1e30) and L2Decay(0.0) "
+            f"against the row without, {CLIP_STEPS} steps: losses "
+            f"bit-equal {same_loss}; {len(names) - len(differ)} of "
+            f"{len(names)} persistables bit-equal")
+        if differ or not same_loss:
+            raise RuntimeError(f"the identity clip changed {differ[:6]} "
+                               f"(losses equal: {same_loss})")
+        grads = [g.name for _, g in plain[3]]
+        _, (out,) = steps(plain[0], plain[2], 1, grads)
+        gnorm1 = math.sqrt(sum(float((g.double() ** 2).sum())
+                               for g in out[1:]))
+        clip_norm = gnorm1 / 2
+        bite = build_train(
+            cfg, amp=True,
+            clip=ptt.clip.GradientClipByGlobalNorm(clip_norm),
+            regularization=ptt.regularizer.L2Decay(CLIP_DECAY))
+        decays = [g + ".l2decay" for g in grads]
+        eb, outs = steps(bite[0], bite[2], CLIP_FINITE_STEPS,
+                         grads + decays + ["global_norm.factor"])
+        first = outs[0]
+        n = len(grads)
+        if len(first) != 2 + 2 * n:
+            raise RuntimeError(f"step 1 fetched {len(first)} values")
+        clipped = math.sqrt(sum(
+            float(((g.double() - d.double()) ** 2).sum())
+            for g, d in zip(first[1:1 + n], first[1 + n:1 + 2 * n])))
+        factor = float(first[-1])
+        losses = [float(o[0]) for o in outs]
+        rel = abs(clipped / clip_norm - 1)
+        log(f"[verify] step 1's global norm {gnorm1:.6g} (f64 from the "
+            f"{n} fetched grads); ByGlobalNorm({clip_norm:.6g}) with "
+            f"L2Decay({CLIP_DECAY}): factor {factor:.6g}, the grads the "
+            f"updates see less the decay have global norm {clipped:.7g} "
+            f"(rel err {rel:.3g}, tol {CLIP_RTOL}); losses over "
+            f"{CLIP_FINITE_STEPS} steps {[round(x, 4) for x in losses]}")
+        if not rel <= CLIP_RTOL or not np.isfinite(losses).all() \
+                or not factor < 1:
+            raise RuntimeError(f"clipped norm {clipped} against "
+                               f"{clip_norm}, factor {factor}, losses "
+                               f"{losses}")
+        del ea, eb, out, outs, first
+        # step p50 with and without the clip and the decay, in turns
+        ep, eq = fresh(), fresh()
+        p50 = in_turns({
+            "plain": lambda: run_p50(torch, ep, plain[0], batch, plain[2]),
+            "clip_decay": lambda: run_p50(torch, eq, bite[0], batch,
+                                          bite[2])})
+        log(f"[verify] AMP row step p50 (ms, runs 2-{VERIFY_TIMED_RUNS} of "
+            f"a window, windows in turns a b b a ...): without clip and "
+            f"decay {[round(x, 3) for x in p50['plain']]}, with "
+            f"ByGlobalNorm and L2Decay "
+            f"{[round(x, 3) for x in p50['clip_decay']]}; {smi}")
+        del ep, eq
+
+        # (d) the run p50 with the gate off and in warn mode, in turns,
+        # and the gate's own host time a run on a kept verdict
+        def window(mode):
+            ptt.flags.set_flag("verify_program", mode)
+            try:
+                return run_p50(torch, fresh(), plain[0], batch, plain[2])
+            finally:
+                ptt.flags.set_flag("verify_program", "error")
+        modes = in_turns({m: functools.partial(window, m)
+                          for m in ("off", "warn")})
+        gate_us = {}
+        for mode in ("off", "warn"):
+            ptt.flags.set_flag("verify_program", mode)
+            try:
+                exe = fresh()
+                exe.run(plain[0], feed=batch, fetch_list=[plain[2]])
+                t0 = time.perf_counter()
+                for _ in range(GATE_CALLS):
+                    exe._verify_before_run(plain[0], batch, [plain[2].name],
+                                           exe.scope, False)
+                gate_us[mode] = (time.perf_counter() - t0) / GATE_CALLS * 1e6
+            finally:
+                ptt.flags.set_flag("verify_program", "error")
+        log(f"[verify] AMP row run p50 (ms, windows in turns) with "
+            f"verify_program off {[round(x, 3) for x in modes['off']]}, "
+            f"warn {[round(x, 3) for x in modes['warn']]} (the verdict is "
+            f"kept per key: one quick_lints a window, in its dropped first "
+            f"run); the gate a run on a kept verdict: off "
+            f"{gate_us['off']:.2f} us, warn {gate_us['warn']:.2f} us "
+            f"(host clock over {GATE_CALLS} calls); {smi}")
+    mine = VERIFY_LOG[n_before:]
+    log(f"[verify] this phase's programs: {len(mine)} verifications, "
+        f"{sum(r['errors'] for r in mine)} with an error (the planted "
+        f"fault), {[round(r['ms'], 1) for r in mine]} ms")
+    if sum(bool(r["errors"]) for r in mine) != 1:
+        raise RuntimeError(f"phase 5f's verifications: {mine}")
+    return dict(verify_ms=total, predictor_verify_ms=pred_ms,
+                clip_rel_err=rel, step_p50=p50, run_p50=modes,
+                gate_us=gate_us)
+
+
 @contextlib.contextmanager
 def replayed_relu_masks(masks):
     """Within the block every relu op computes x * mask, taking the masks
-    in the order the ops run; yields the list of masks not yet taken."""
+    in the order the ops run; yields the list of masks not yet taken.  The
+    verifier's meta evaluation takes the plain relu and no mask."""
     import dataclasses
     from paddle_tpu_torch.framework import registry
     orig = registry.get_op_def("relu")
@@ -2859,6 +3161,8 @@ def replayed_relu_masks(masks):
 
     def lower(ctx, ins, attrs):
         x = registry.single_input(ins)
+        if x.device.type == "meta":
+            return orig.lower(ctx, ins, attrs)
         return {"Out": [x * left.pop(0).to(x.device, x.dtype)]}
 
     registry._REGISTRY["relu"] = dataclasses.replace(orig, lower=lower)
@@ -2989,7 +3293,8 @@ def block_relu(record=None, masks=None):
     forward and its backward recompute), the MLP's relu appends its f32
     pre-activation (fused_block._mlp_pre, the block's own u plan) to
     `record` (as numpy), or, given `masks`, computes pre * mask, taking
-    the masks in call order; yields the masks not yet taken."""
+    the masks in call order; yields the masks not yet taken.  The
+    verifier's meta evaluation takes the plain relu: no record, no mask."""
     import torch
     from paddle_tpu_torch.kernels import fused_block as fb
     orig = fb._mlp_hidden
@@ -2997,6 +3302,8 @@ def block_relu(record=None, masks=None):
 
     def hidden(f, w1, b1):
         pre = fb._mlp_pre(f, w1, b1)
+        if pre.device.type == "meta":
+            return torch.relu(pre)
         if record is not None:
             record.append(pre.detach().cpu().numpy())
         if masks is None:
@@ -3162,7 +3469,7 @@ def ln_launch_kinds(names):
             for kind, key in kinds.items()}
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5   # the tracer once lost one call's records 3 times running
 
 
 def _device_launches(torch, events, part=""):
@@ -3206,8 +3513,12 @@ def profiled(torch, fn, cpu=False, lost=None):
         why = lost(events)
         if why is None:
             return events, wall_us
+        kept = sorted(f"{_short_kernel_name(e.key)} x{e.count}"
+                      for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0)
         log(f"[profile] trace {attempt} of {PROFILE_TRIES} lost kernel "
-            f"records: {why}")
+            f"records: {why}; it holds {kept[:8]}")
     raise RuntimeError(f"torch.profiler lost kernel records in "
                        f"{PROFILE_TRIES} traces: {why}")
 
@@ -4342,13 +4653,29 @@ def main():
 
     phase_build(torch)
     errs = phase_compare(torch)
+    # every program the smoke runs is verified by the Executor's gate in
+    # error mode before it runs (phase 5f reads the records)
+    import paddle_tpu_torch as ptt
+    ptt.flags.set_flag("verify_program", "error")
+    record_verifications()
+    VERIFY_PHASE[0] = "serve"
     serve_counts, pred, toks = phase_serve(torch)
+    VERIFY_PHASE[0] = "decode"
     decode_counts, oracle_counts, decode_remake = phase_decode(torch)
+    VERIFY_PHASE[0] = "train"
     counts, train = phase_train(torch)
+    VERIFY_PHASE[0] = "train fuse_block"
     fcounts, ftrain = phase_train(torch, fuse_block=True)
+    VERIFY_PHASE[0] = "train amp"
     acounts, atrain = phase_train(torch, amp=True)
+    VERIFY_PHASE[0] = "train fuse_block amp"
     facounts, fatrain = phase_train(torch, fuse_block=True, amp=True)
+    VERIFY_PHASE[0] = "training loops"
     loop_counts = phase_train_loops(torch)
+    VERIFY_PHASE[0] = "verify"
+    phase_verify(torch, pred, {"tokens": toks})
+    n_verified = len(VERIFY_LOG)
+    VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
     times.update(phase_timings_fused(torch))
     amp_times = phase_timings_amp(torch)
@@ -4555,6 +4882,10 @@ def main():
                               max_abs_err=errs[n]["serve"],
                               **times[n]["serve"])
         kernels.append(k)
+    later = VERIFY_LOG[n_verified:]
+    log(f"[verify] phase 6 made {len(later)} more verifications, "
+        f"{sum(r['errors'] for r in later)} with an error, "
+        f"{sum(r['ms'] for r in later):.1f} ms of host time")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 
 The same Fluid-style system — a Program/Block/Operator IR built by
 ``layers.*``, one ``lower`` function per registered op, a single
-``autodiff`` op for gradients and ``optimizer.Adam``, ``Executor.run``,
-``io`` and the ``Predictor`` — with each op lowered to torch and each
+``autodiff`` op for gradients, ``optimizer.Adam`` with ``clip`` and
+``regularizer``, ``Executor.run`` behind the ``analysis`` verifier, ``io``
+and the ``Predictor`` — with each op lowered to torch and each
 Pallas TPU kernel on the ported path replaced by a CUDA kernel written by
 hand for Hopper (``kernels/``).  The JAX package ``paddle_tpu`` stays the
 reference; this package imports nothing of it and no JAX.
@@ -24,12 +25,15 @@ from .framework.executor import Executor, Scope, global_scope
 from .framework.layer_helper import ParamAttr
 from .framework import initializer
 from . import layers
+from . import clip
+from . import regularizer
 from . import optimizer
 from . import io
 from . import inference
 from . import models
 from . import transpiler
 from . import reader
+from . import analysis
 from .data_feeder import DataFeeder
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
                       EndEpochEvent, EndStepEvent, Trainer)
@@ -38,7 +42,8 @@ __all__ = ["core", "flags", "CPUPlace", "CUDAPlace", "default_place",
            "Program", "Block", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program",
            "reset_default_programs", "unique_name", "Executor", "Scope",
-           "global_scope", "ParamAttr", "initializer", "layers",
-           "optimizer", "io", "inference", "models", "transpiler", "reader",
-           "DataFeeder", "BeginEpochEvent", "BeginStepEvent",
-           "CheckpointConfig", "EndEpochEvent", "EndStepEvent", "Trainer"]
+           "global_scope", "ParamAttr", "initializer", "layers", "clip",
+           "regularizer", "optimizer", "io", "inference", "models",
+           "transpiler", "reader", "analysis", "DataFeeder",
+           "BeginEpochEvent", "BeginStepEvent", "CheckpointConfig",
+           "EndEpochEvent", "EndStepEvent", "Trainer"]

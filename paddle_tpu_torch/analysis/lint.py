@@ -1,0 +1,127 @@
+"""Static-analysis gate CLI: build and verify the bundled models.
+
+    python -m paddle_tpu_torch.analysis.lint [--models a,b,...] [-v] [--list]
+
+Counterpart of paddle_tpu/analysis/lint.py.  Builds each model (small
+configs, program construction only: nothing runs), attaches an optimizer,
+and runs the full verifier (shape inference + dataflow + hazard lints)
+over the main AND startup programs with the model's natural fetch set.
+Exit codes: 0 clean, 1 error-severity findings (or a build crash), 2 bad
+usage.
+
+The port builds one of the JAX package's bundled models so far,
+``transformer_lm``; the others come with their models.  Its optimizer is
+Adam, the one the port has (the JAX CLI attaches SGD).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Callable, Dict, Tuple
+
+from .passes import verify_program
+
+
+def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
+    """name -> zero-arg builder running inside a fresh program_guard;
+    returns (feed vars, fetch vars)."""
+    from .. import optimizer
+    from ..models import transformer
+
+    def lm():
+        cfg = transformer.TransformerConfig(
+            src_vocab_size=64, tgt_vocab_size=64, max_length=16,
+            n_layer=2, n_head=2, d_model=16, d_inner=32, dropout=0.0)
+        # flash-attention contract: no attention-prob dropout
+        feeds, cost, logits = transformer.build_lm_net(cfg, seq_len=16)
+        optimizer.Adam(learning_rate=0.01).minimize(cost)
+        return feeds, [cost, logits]
+
+    return {"transformer_lm": lm}
+
+
+def lint_model(name: str, build, verbose: bool = False) -> Tuple[int, int]:
+    """Build one model in fresh programs and verify; returns
+    (#errors, #warnings).  Build crashes count as one error."""
+    from ..framework.program import Program, program_guard
+    main, startup = Program(), Program()
+    try:
+        with program_guard(main, startup):
+            feeds, fetches = build()
+    except Exception as e:
+        print(f"[lint] {name}: BUILD FAILED: {e!r}")
+        return 1, 0
+    res = verify_program(main, feed=[v.name for v in feeds],
+                         fetch_list=fetches)
+    sres = verify_program(startup)
+    errs = len(res.errors) + len(sres.errors)
+    warns = len(res.warnings) + len(sres.warnings)
+    status = "FAIL" if errs else "ok"
+    print(f"[lint] {name}: {status} ({len(main.global_block().ops)} ops, "
+          f"{errs} errors, {warns} warnings)")
+    if verbose or errs:
+        for scope_name, r in (("main", res), ("startup", sres)):
+            for f in r.sorted():
+                if f.severity == "error" or verbose:
+                    print(f"  {scope_name}: {f}")
+        if verbose and res.unknown_shape_ops:
+            uniq = sorted(set(res.unknown_shape_ops))
+            print(f"  unknown-shape ops: {uniq}")
+    return errs, warns
+
+
+def _self_test() -> int:
+    """--self-test: the gate must CATCH a deliberately broken program
+    (exit 1) — validates the exit-code contract end to end."""
+    from ..framework.program import Program, program_guard
+    from .. import layers
+    main = Program()
+    with program_guard(main, Program()):
+        x = layers.data("x", [4], dtype="float32")
+        y = layers.scale(x, scale=2.0)
+        # sever the dataflow: rewire the op to a var nothing produces
+        main.global_block().ops[-1].inputs["X"] = ["missing_input"]
+    res = verify_program(main, feed=["x"], fetch_list=[y])
+    if res.by_code("undefined_read"):
+        print("[lint] self-test: broken program caught (exit 1)")
+        return 1
+    print("[lint] self-test: verifier MISSED the broken program")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch.analysis.lint",
+        description="Build and statically verify the bundled models.")
+    ap.add_argument("--models", default="",
+                    help="comma list of model names (default: all)")
+    ap.add_argument("--list", action="store_true",
+                    help="print the model names and exit")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    ap.add_argument("--self-test", action="store_true",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.self_test:
+        return _self_test()
+    builders = model_builders()
+    if args.list:
+        print("\n".join(builders))
+        return 0
+    names = ([n.strip() for n in args.models.split(",") if n.strip()]
+             or list(builders))
+    unknown = [n for n in names if n not in builders]
+    if unknown:
+        print(f"[lint] unknown model(s): {unknown}; see --list")
+        return 2
+    total_e = total_w = 0
+    for n in names:
+        e, w = lint_model(n, builders[n], verbose=args.verbose)
+        total_e += e
+        total_w += w
+    print(f"[lint] {len(names)} models: {total_e} errors, "
+          f"{total_w} warnings")
+    return 1 if total_e else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

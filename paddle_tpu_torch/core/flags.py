@@ -1,11 +1,11 @@
 """Process-wide config plane (counterpart of paddle_tpu/core/flags.py).
 
 Only the flags the ported slices read are declared, with the reference's
-defaults: the executor's NaN/Inf scans, the trainer's and its guard's,
-the serving plane's, and those of the observability and resilience
-modules that serving imports (metrics, tracectx, journal, flight,
-memscope, perfscope, goodput, chaos).  Each help string says what
-the flag does in the port.  Like the reference, each flag is overridable
+defaults: the executor's NaN/Inf scans and its verification gate, the
+trainer's and its guard's, the serving plane's, and those of the
+observability and resilience modules that serving imports (metrics,
+tracectx, journal, flight, memscope, perfscope, goodput, chaos).  Each
+help string says what the flag does in the port.  Like the reference, each flag is overridable
 via a ``PTPU_<NAME>`` environment variable at import and mutable at
 runtime via set_flag/get_flag.
 """
@@ -74,6 +74,17 @@ define_flag("fuse_block", False,
             "the op runs the hand-written block kernel "
             "(kernels/fused_block.py) on the card and its plain torch "
             "version on the CPU.")
+define_flag("verify_program", "warn",
+            "Static program verification before the Executor first runs "
+            "a (program, feed, fetch) key (paddle_tpu_torch/analysis): "
+            "'off' = no verification, outputs unchanged; 'warn' "
+            "(default) = run the O(ops) dataflow and hazard lints once per "
+            "key and emit ONE RuntimeWarning per (program, fetch list) "
+            "with error-severity findings; 'error' = also run shape "
+            "inference (the lowerings on meta tensors) and REJECT the "
+            "program with a ProgramVerificationError before any op runs "
+            "or any kernel launches.  The verdict is kept per key, so a "
+            "key is verified once.")
 
 # --- the trainer (trainer.py) -----------------------------------------------
 define_flag("prefetch_depth", 0,

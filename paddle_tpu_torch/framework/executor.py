@@ -26,10 +26,21 @@ steps over feeds uploaded once, with one readback at the end.  Under
 ``FLAGS_check_nan_inf_per_op`` every op's outputs (the ``autodiff`` op's
 are the grads), naming the first op that made one.
 
+Before a program runs, ``run`` and ``run_steps`` verify it
+(paddle_tpu_torch/analysis) under ``FLAGS_verify_program``, as the JAX
+Executor does before it compiles (JAX :1488-1530): ``error`` rejects a
+program with a ProgramVerificationError before any op runs, any kernel
+launches or any feed is uploaded; ``warn`` (the default) runs the O(ops)
+lints and warns once per (program, fetch list); ``off`` skips it.  There
+is no compile cache to hang the verdict on, so the Executor keeps it per
+key (program uid and version, feed names and shapes, fetch names,
+``donate_feeds``): a key is verified once, not every step.
+
 There is no compiled-program cache, mesh or pipeline yet.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -146,6 +157,18 @@ def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops
     return env
 
 
+def feed_shape(v) -> tuple:
+    """A feed's shape, read from its ``.shape`` where it has one (a device
+    tensor is not copied to the host to find it)."""
+    return tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+
+
+def fetch_names(fetch_list) -> list:
+    """The names of a fetch list of Variables or names."""
+    return [f.name if isinstance(f, Variable) else str(f)
+            for f in (fetch_list or [])]
+
+
 def check_slabs(feed: Dict[str, Any], seq, steps: int):
     """run_steps' feed contract: every per-step feed is fed, with a
     leading dim of `steps`, read from its ``.shape`` (a device tensor is
@@ -153,8 +176,7 @@ def check_slabs(feed: Dict[str, Any], seq, steps: int):
     missing = set(seq) - set(feed)
     check_arg(not missing, f"per_step_feeds {sorted(missing)} not in feed")
     for name in seq:
-        v = feed[name]
-        shape = v.shape if hasattr(v, "shape") else np.shape(v)
+        shape = feed_shape(feed[name])
         n0 = shape[0] if len(shape) else None
         check_arg(n0 == steps, f"per-step feed {name!r} leading dim {n0} "
                                f"!= steps {steps}")
@@ -173,6 +195,10 @@ class Executor:
         self.place = place or default_place()
         self.scope = scope or global_scope()
         self._run_counter = 0
+        # the verification memo: key -> its AnalysisResult
+        self._verified: Dict[tuple, Any] = {}
+        # (program uid, fetch names) already warned about in warn mode
+        self._verify_warned: set = set()
 
     def _seed(self, program: Program) -> int:
         """The program's seed; an unseeded program folds the run counter
@@ -195,10 +221,10 @@ class Executor:
         keeps no reference to the feeds after the call."""
         program = program or default_main_program()
         scope = scope or self.scope
+        fetched = fetch_names(fetch_list)
+        self._verify_before_run(program, feed, fetched, scope, donate_feeds)
         device = self.place.torch_device()
         block = program.global_block()
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
         ops = [op for op in block.ops if op.type not in _STRUCTURAL_OPS]
         persist = sorted({v.name for v in program.list_vars()
                           if v.persistable})
@@ -217,13 +243,13 @@ class Executor:
         for n in persist:
             if n in written:
                 scope.set_var(n, env[n])
-        missing = [n for n in fetch_names if n not in env]
+        missing = [n for n in fetched if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} are neither fed, "
                            f"persistable nor produced by the program")
-        fetches = [env[n].detach() for n in fetch_names]
+        fetches = [env[n].detach() for n in fetched]
         if flags.get_flag("check_nan_inf"):
-            for n, t in zip(fetch_names, fetches):
+            for n, t in zip(fetched, fetches):
                 if t.is_floating_point() and not bool(
                         torch.isfinite(t).all()):
                     raise EnforceNotMet(f"NaN/Inf detected in fetch {n!r}")
@@ -258,6 +284,9 @@ class Executor:
         seq = frozenset(per_step_feeds)
         feed = feed or {}
         check_slabs(feed, seq, steps)
+        # the key each step's run() takes: the slabs' shapes less [steps]
+        self._verify_before_run(program, feed, fetch_names(fetch_list),
+                                scope or self.scope, False, seq_names=seq)
         device = self.place.torch_device()
         block = program.global_block()
         dev = {k: as_tensor(v, block.var(k) if block.has_var(k) else None,
@@ -271,6 +300,51 @@ class Executor:
         if return_numpy:
             return [to_numpy(t) for t in stacked]
         return stacked
+
+    def _verify_before_run(self, program, feed, fetched, scope,
+                           donate_feeds, seq_names=()):
+        """Static verification under FLAGS_verify_program, once per key,
+        before anything of the run happens (JAX executor.py:1488-1530).
+        'error' runs the whole verifier (shape inference on meta tensors
+        included) and raises on error findings; 'warn' runs the O(ops)
+        lints and warns once per (program, fetch list); 'off' returns."""
+        mode = str(flags.get_flag("verify_program"))
+        if mode not in ("warn", "error"):
+            return
+        # run_steps' per-step slabs carry a leading [steps] dim that no op
+        # sees: each step's run() gets a slice of it
+        feed_shapes = {n: (feed_shape(v)[1:] if n in seq_names
+                           else feed_shape(v))
+                       for n, v in (feed or {}).items()}
+        key = (mode, program._uid, program._version,
+               tuple(sorted(feed_shapes.items())), tuple(fetched),
+               bool(donate_feeds))
+        result = self._verified.get(key)
+        if result is None:
+            from .. import analysis
+            check = (analysis.verify_program if mode == "error"
+                     else analysis.quick_lints)
+            kw = dict(feed_shapes=feed_shapes) if mode == "error" else {}
+            result = self._verified[key] = check(
+                program, feed=set(feed_shapes), fetch_list=fetched,
+                scope=scope, donate_feeds=donate_feeds, **kw)
+        errs = result.errors
+        if not errs:
+            return
+        if mode == "error":
+            from .. import analysis
+            raise analysis.ProgramVerificationError(
+                f"program v{program._version} failed verification "
+                f"(verify_program=error); nothing ran.  Findings:\n"
+                + result.report(), result)
+        wkey = (program._uid, tuple(fetched))
+        if wkey not in self._verify_warned:
+            self._verify_warned.add(wkey)
+            warnings.warn(
+                f"program verification found {len(errs)} error(s) "
+                f"(verify_program=warn; the run proceeds):\n"
+                + result.report(max_findings=10),
+                RuntimeWarning, stacklevel=3)
 
     def close(self):
         """The reference's API: its executor drops its compiled programs

@@ -7,10 +7,12 @@ appends ops, and applies activations / bias.
 Output shapes and dtypes are inferred by running the op's own lowering on
 ``meta`` tensors — one source of truth instead of separate InferShape
 functions, as the JAX package does with ``jax.eval_shape``.  Meta tensors
-take every op's plain branch (no kernel launches).  Dynamic (batch) dims
-are -1 in the IR; they are replaced by the prime sentinel 97 for the
-evaluation and restored after it, also where a reshape folded the sentinel
-into a product.
+take every op's plain branch (no kernel launches, no allocation).  Dynamic
+(batch) dims are -1 in the IR; they are replaced by the prime sentinel 97
+for the evaluation and restored after it, also where a reshape folded the
+sentinel into a product.  ``meta_tensor``, ``meta_shape`` and
+``meta_lower`` are that machinery; the verifier's shape inference
+(analysis/shape_inference.py) runs the same.
 
 The evaluation runs with FLAGS_amp_bf16 off, so the AMP policy stays a
 lowering-time policy: a program built under the flag declares the f32
@@ -38,13 +40,47 @@ _DYN_SUBST = 97  # prime sentinel substituted for -1 dims during meta eval
 _META = torch.device("meta")
 
 
+def meta_tensor(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor of a var's (shape, dtype), -1 dims as the
+    sentinel."""
+    shape = tuple(_DYN_SUBST if s == -1 else int(s) for s in (shape or ()))
+    return torch.empty(shape, dtype=to_torch_dtype(dtype), device=_META)
+
+
+def meta_shape(t: torch.Tensor, had_dyn: bool) -> tuple:
+    """A meta result's shape with -1 restored where the sentinel survived
+    (possibly folded into a product by reshape/flatten: it is prime)."""
+    shape = list(t.shape)
+    if had_dyn:
+        shape = [-1 if s != 0 and s % _DYN_SUBST == 0 else s for s in shape]
+    return tuple(shape)
+
+
+def meta_lower(opdef, ins: Dict[str, Sequence[torch.Tensor]], attrs):
+    """One evaluation of an op's lowering on meta tensors, with no
+    autograd: the plain branch of every wrapper, nothing launched or
+    allocated, and ``ctx.rng()`` None (nothing is drawn).  FLAGS_amp_bf16
+    is off meanwhile: AMP is a lowering-time policy, and the program
+    declares the f32 dtypes it declares without the flag."""
+    amp = flags.get_flag("amp_bf16")
+    flags.set_flag("amp_bf16", False)
+    try:
+        with torch.no_grad():
+            return opdef.lower(LowerContext(0, _META), ins, attrs)
+    finally:
+        flags.set_flag("amp_bf16", amp)
+
+
 class ParamAttr:
-    """Parameter attribute bundle (ref python/paddle/fluid/param_attr.py)."""
+    """Parameter attribute bundle (ref python/paddle/fluid/param_attr.py).
+    ``regularizer`` (regularizer.py) rides on the Parameter, and
+    ``Optimizer.minimize`` applies it in place of the optimizer's own."""
 
     def __init__(self, name=None, initializer: Optional[Initializer] = None,
-                 trainable: bool = True):
+                 regularizer=None, trainable: bool = True):
         self.name = name
         self.initializer = initializer
+        self.regularizer = regularizer
         self.trainable = trainable
 
     @staticmethod
@@ -92,7 +128,8 @@ class LayerHelper:
             ConstantInitializer(0.0) if is_bias else XavierInitializer())
         shape = [int(s) for s in shape]
         p = self.main_program.global_block().create_parameter(
-            name, shape, dtype=dtype, trainable=attr.trainable)
+            name, shape, dtype=dtype, trainable=attr.trainable,
+            regularizer=attr.regularizer)
         # startup-program twin + init op
         sb = self.startup_program.global_block()
         if not sb.has_var(name):
@@ -113,36 +150,17 @@ class LayerHelper:
         return op
 
     def _infer_shapes(self, type, inputs, outputs, attrs):
-        opdef = get_op_def(type)
-
-        def meta(v: Variable):
-            shape = tuple(_DYN_SUBST if s == -1 else int(s)
-                          for s in (v.shape or ()))
-            return torch.empty(shape, dtype=to_torch_dtype(v.dtype),
-                               device=_META)
-
-        ins = {k: [meta(v) for v in vs] for k, vs in inputs.items()}
-        amp = flags.get_flag("amp_bf16")
-        flags.set_flag("amp_bf16", False)
+        ins = {k: [meta_tensor(v.shape, v.dtype) for v in vs]
+               for k, vs in inputs.items()}
         try:
-            ctx = LowerContext(0, _META)
-            outs = opdef.lower(ctx, ins, attrs)
+            outs = meta_lower(get_op_def(type), ins, attrs)
         except Exception:  # noqa: BLE001 — best-effort build-time metadata
             return
-        finally:
-            flags.set_flag("amp_bf16", amp)
-
         had_dyn = any(-1 in (v.shape or ())
                       for vs in inputs.values() for v in vs)
         for slot, vars_ in outputs.items():
             for v, t in zip(vars_, outs.get(slot, [])):
-                shape = list(t.shape)
-                if had_dyn:
-                    # restore -1 where the sentinel survived (possibly folded
-                    # into a product by reshape/flatten — sentinel is prime)
-                    shape = [-1 if s != 0 and s % _DYN_SUBST == 0 else s
-                             for s in shape]
-                v.shape = tuple(shape)
+                v.shape = meta_shape(t, had_dyn)
                 v.dtype = convert_dtype(t.dtype)
 
     # -- activation/bias sugar ---------------------------------------------

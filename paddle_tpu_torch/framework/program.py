@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
+import os
+import sys
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -27,6 +30,30 @@ from . import unique_name
 _OWN_KEYS = ("version", "random_seed", "blocks")
 
 GRAD_SUFFIX = "@GRAD"  # ref framework: core.grad_var_suffix()
+
+# the package directory: frames under it are framework internals, the first
+# frame outside it is the user's layer call site
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _user_callsite() -> Optional[str]:
+    """``file:line`` of the first stack frame outside the package: the
+    layer call that appended the current op.  The verifier
+    (paddle_tpu_torch/analysis) reports it with every finding, as the
+    reference's ``op_callstack`` attr did.  None when every frame is
+    internal."""
+    try:
+        f = sys._getframe(2)
+    except ValueError:          # shallow stack
+        return None
+    depth = 0
+    while f is not None and depth < 32:
+        fn = f.f_code.co_filename
+        if not fn.startswith(_PKG_DIR) and "importlib" not in fn:
+            return f"{fn}:{f.f_lineno}"
+        f = f.f_back
+        depth += 1
+    return None
 
 
 def grad_var_name(name: str) -> str:
@@ -74,12 +101,15 @@ class Parameter(Variable):
     """A trainable persistable Variable."""
 
     def __init__(self, block, name, shape, dtype="float32", trainable=True,
-                 **kw):
+                 regularizer=None, **kw):
         check_arg(shape is not None and all(int(s) > 0 for s in shape),
                   f"Parameter {name!r} needs a fully-static shape, got {shape}")
         super().__init__(block, name, shape=shape, dtype=dtype,
                          persistable=True, **kw)
         self.trainable = trainable
+        # ParamAttr.regularizer: minimize applies it in place of the
+        # optimizer's own (not serialized, as in the JAX package)
+        self.regularizer = regularizer
         # a PartitionSpec-style tuple written by the JAX package's
         # transpilers; carried through to_dict/from_dict unchanged
         self.sharding = None
@@ -98,6 +128,9 @@ class Operator:
         self.inputs = {k: list(v) for k, v in (inputs or {}).items()}
         self.outputs = {k: list(v) for k, v in (outputs or {}).items()}
         self.attrs = dict(attrs or {})
+        # user-code origin for verifier findings; not serialized, so
+        # to_dict stays the JAX package's format
+        self.callsite = _user_callsite()
         get_op_def(type)  # validates the op exists
 
     def input_names(self) -> List[str]:
@@ -157,11 +190,13 @@ class Block:
         name = name or unique_name.generate("tmp")
         v = Variable(self, name, **kw)
         self.vars[name] = v
+        self.program._bump()
         return v
 
     def create_parameter(self, name, shape, dtype="float32", **kw) -> Parameter:
         p = Parameter(self, name, shape, dtype=dtype, **kw)
         self.vars[name] = p
+        self.program._bump()
         return p
 
     def var(self, name: str) -> Variable:
@@ -188,6 +223,7 @@ class Block:
             self.ops.append(op)
         else:
             self.ops.insert(index, op)
+        self.program._bump()
         return op
 
     def to_dict(self):
@@ -199,10 +235,16 @@ class Block:
 class Program:
     """A whole serializable program."""
 
+    _uid_counter = itertools.count()
+
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
         self._current_block_idx = 0
         self.random_seed: Optional[int] = None
+        # bumped by every mutation through the Block API; with the
+        # process-unique uid it keys the Executor's verification memo
+        self._version = 0
+        self._uid = next(Program._uid_counter)
         # top-level dict keys written by other tools (see _OWN_KEYS)
         self._extra: Dict[str, Any] = {}
 
@@ -212,6 +254,9 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def _bump(self):
+        self._version += 1
 
     # -- introspection -----------------------------------------------------
     def list_vars(self):

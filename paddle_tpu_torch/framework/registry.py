@@ -28,6 +28,14 @@ class OpDef:
 
 
 _REGISTRY: Dict[str, OpDef] = {}
+# compile-time shape/dtype inference rules (the reference's per-op
+# InferShape), registered alongside the OpDef via register_shape_infer and
+# consumed by paddle_tpu_torch/analysis.  A map of its own, because rules
+# may register before or after their op (analysis imports lazily; ops
+# register on first get_op_def).  Ops without a rule fall back to a meta
+# evaluation of ``lower``; ops where neither applies degrade to "unknown
+# shape", never a crash.
+_INFER_RULES: Dict[str, Callable] = {}
 
 
 def register_op(type: str):
@@ -48,6 +56,36 @@ def get_op_def(type: str) -> OpDef:
             raise EnforceNotMet(f"Operator {type!r} is not registered. "
                                 f"Known: {sorted(_REGISTRY)[:20]}...")
     return _REGISTRY[type]
+
+
+def register_shape_infer(type: str, allow_override: bool = False):
+    """Decorator: register a compile-time shape/dtype inference rule
+    alongside the op's OpDef (the reference's InferShape slot).
+
+        rule(op, ins, attrs) -> {slot: [(shape, dtype)]} | None
+
+    ``ins`` maps input slots to [(shape, dtype)], shape a tuple (-1 = a
+    dynamic dim) or None (unknown), dtype a canonical name or None.  A rule
+    raises analysis.InferError on a provable mismatch and returns None to
+    defer to the meta evaluation (analysis/shape_inference.py).
+    """
+    def deco(fn: Callable):
+        if type in _INFER_RULES and not allow_override:
+            raise EnforceNotMet(f"shape-infer rule for {type!r} "
+                                f"registered twice")
+        _INFER_RULES[type] = fn
+        return fn
+    return deco
+
+
+def get_shape_infer(type: str) -> Optional[Callable]:
+    """The registered infer rule for an op type, or None."""
+    return _INFER_RULES.get(type)
+
+
+def unregister_shape_infer(type: str):
+    """Test hook: drop a rule registered by a test (analysis.reset())."""
+    _INFER_RULES.pop(type, None)
 
 
 _MASK63 = (1 << 63) - 1

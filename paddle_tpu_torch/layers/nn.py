@@ -1,12 +1,12 @@
 """NN layer functions — the user-facing model-building API.
 
 Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
-calls: data :21, fc :34, embedding :63, layer_norm :223, dropout :271,
-softmax :284,
-softmax_with_cross_entropy :310, mean :331, reshape :359, transpose :367,
-split :375, unsqueeze :413, matmul :462, scale :548, elementwise_add,
-greater_than :794, fused_mha :877, fused_attention_qkv :948 and
-fused_lm_head_loss :968.  Each function creates
+calls: data :21, fc :34 (over several inputs too), embedding :63,
+layer_norm :223, dropout :271, softmax :284, softmax_with_cross_entropy
+:310, mean :331, reshape :359, transpose :367, split :375, unsqueeze
+:413, matmul :462, scale :548, elementwise_add, greater_than :794,
+fused_mha :877, fused_attention_qkv :948 and fused_lm_head_loss :968.
+Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
 as the JAX package, so both builds serialize alike.
@@ -43,20 +43,28 @@ def data(name: str, shape: Sequence[int], dtype="float32",
 
 def fc(input: Union[Variable, List[Variable]], size: int, num_flatten_dims=1,
        param_attr=None, bias_attr=None, act=None, name=None) -> Variable:
-    """Fully-connected: out = act(sum_i(X_i W_i) + b)."""
+    """Fully-connected: out = act(sum_i(X_i W_i) + b).  Several inputs
+    take a weight each (``param_attr`` may be a list, one per input), and
+    their products add through one ``sum`` op."""
     helper = LayerHelper("fc", name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
-    check_arg(len(inputs) == 1,
-              "fc over several inputs needs the 'sum' op, which is not "
-              "ported yet (ROADMAP queue A.5)")
-    x = inputs[0]
-    in_features = math.prod(int(d) for d in x.shape[num_flatten_dims:])
-    w = helper.create_parameter(param_attr, shape=[in_features, size],
-                                dtype=x.dtype)
-    pre_bias = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("mul", {"X": [x], "Y": [w]}, {"Out": [pre_bias]},
-                     {"x_num_col_dims": num_flatten_dims,
-                      "y_num_col_dims": 1})
+    mul_results = []
+    for i, x in enumerate(inputs):
+        in_features = math.prod(int(d) for d in x.shape[num_flatten_dims:])
+        w = helper.create_parameter(
+            param_attr if not isinstance(param_attr, (list, tuple))
+            else param_attr[i],
+            shape=[in_features, size], dtype=x.dtype)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op("mul", {"X": [x], "Y": [w]}, {"Out": [out]},
+                         {"x_num_col_dims": num_flatten_dims,
+                          "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        helper.append_op("sum", {"X": mul_results}, {"Out": [pre_bias]}, {})
     bias = helper.create_parameter(bias_attr, shape=[size],
                                    dtype=pre_bias.dtype, is_bias=True)
     pre_act = helper.append_bias_op(pre_bias, bias,

@@ -1,11 +1,12 @@
 """Elementwise binary ops with the reference's axis-broadcast semantics.
 
 Counterpart of paddle_tpu/ops/elementwise.py: the ``_binary`` family
-(:33-60) for elementwise_add, _sub, _mul and _mod, and the comparisons
-equal and greater_than (``_compare``, :63-77; bool out, no gradient).
-``elementwise_mod`` is ``torch.remainder``, which like ``jnp.mod`` takes
-the divisor's sign (``torch.fmod`` takes the dividend's); gradient
-accumulation wraps its f32 counter with it.  Reference broadcast rule:
+(:33-60) for elementwise_add, _sub, _mul, _div, _max and _mod, and the
+comparisons equal and greater_than (``_compare``, :63-77; bool out, no
+gradient).  ``elementwise_mod`` is ``torch.remainder``, which like
+``jnp.mod`` takes the divisor's sign (``torch.fmod`` takes the
+dividend's); gradient accumulation wraps its f32 counter with it.  The
+global-norm clip divides by a max with _div and _max.  Reference broadcast rule:
 Y's dims align with X starting at `axis` (axis == -1 -> trailing
 alignment), then NumPy-style broadcast.  ``fc``'s bias add relies on it
 with ``axis=num_flatten_dims``.
@@ -51,6 +52,8 @@ def _binary(name, fn):
 _binary("elementwise_add", torch.add)
 _binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
+_binary("elementwise_div", torch.div)
+_binary("elementwise_max", torch.maximum)
 _binary("elementwise_mod", torch.remainder)
 
 

@@ -3,7 +3,10 @@
 Counterpart of paddle_tpu/ops/math_ops.py: the AMP helpers :28-77
 (amp_inputs, amp_result, amp_matmul), mul :91 (fc's flattening
 matmul), matmul :105 (the unfused attention's batched products), scale
-:142, mean :158 and increment :197 (gradient accumulation's counter).  A plain matrix product outside any
+:142, sum :152 (fc over several inputs, the regularizers), mean :158,
+clip :168 and clip_by_norm :174 (gradient clipping), increment :197
+(gradient accumulation's counter) and squared_l2_norm :209 (the global
+norm).  A plain matrix product outside any
 kernel goes to torch.matmul, as the JAX package leaves it to XLA; f32
 products run in full f32 (TF32 stays off unless the caller enables it).
 Under FLAGS_amp_bf16 the operands are cast to bf16 and a 2-byte product
@@ -17,6 +20,7 @@ The JAX package's FLAGS_quantize_dtype branch of amp_matmul is not ported
 from __future__ import annotations
 
 import math
+from functools import reduce
 
 import torch
 
@@ -110,9 +114,36 @@ def _scale(ctx, ins, attrs):
     return {"Out": [(x + bias) * scale]}
 
 
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    """N-ary elementwise add (ref sum_op.cc), left to right as JAX's
+    ``reduce(jnp.add)``."""
+    return {"Out": [reduce(torch.add, ins["X"])]}
+
+
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(single_input(ins))]}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(single_input(ins), attrs.get("min"),
+                                attrs.get("max"))]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """x scaled to L2 norm max_norm where its norm exceeds it."""
+    x = single_input(ins)
+    max_norm = float(attrs["max_norm"])
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [torch.where(norm > max_norm, x * (max_norm / norm), x)]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(torch.square(single_input(ins))).reshape(())]}
 
 
 @register_op("increment")

@@ -18,20 +18,21 @@ micro-batch grads and clears the accumulators.  The ops, slots, attrs
 and var names are the JAX package's, so an accumulating program and its
 persistables bind by name across the two packages.
 
-Not ported yet, and refused rather than ignored: a gradient clip set on
-the program and regularization (ROADMAP queue A.5).
+``minimize`` applies, in the JAX package's order (:169-215): the
+accumulation, then the gradient clip set on the program
+(clip.set_gradient_clip; with accumulation it clips the accumulated
+mean), then each parameter's regularizer or else the optimizer's
+(regularizer.py), then the update.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+from .clip import append_gradient_clip_ops
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.program import (Parameter, Program, Variable,
                                 default_startup_program)
-
-# the attribute the JAX package's clip.set_gradient_clip sets on a program
-_CLIP_ATTR = "__gradient_clip__"
 
 
 class Optimizer:
@@ -177,27 +178,20 @@ class Optimizer:
                  accumulate_steps: int = 1
                  ) -> Tuple[None, List[Tuple[Parameter, Variable]]]:
         program = loss.block.program
-        if getattr(program, _CLIP_ATTR, None) is not None:
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (ROADMAP queue A.5)")
-        if self.regularization is not None:
-            raise NotImplementedError(
-                "regularization is not ported yet (ROADMAP queue A.5)")
         param_grads = append_backward(loss, parameter_list, no_grad_set)
-        for param, _ in param_grads:
-            if getattr(param, "regularizer", None) is not None:
-                raise NotImplementedError(
-                    f"parameter {param.name!r} has a regularizer; "
-                    f"regularization is not ported yet (ROADMAP queue A.5)")
         block = program.global_block()
         gate = None
         acc_names: List[str] = []
         if accumulate_steps and int(accumulate_steps) > 1:
             param_grads, gate, acc_names = self._append_grad_accumulation(
                 block, param_grads, int(accumulate_steps))
+        append_gradient_clip_ops(program, param_grads)
         lr = self._create_lr_var(program)
         self._create_accumulators(block, [p for p, _ in param_grads])
         for param, grad in param_grads:
+            reg = param.regularizer or self.regularization
+            if reg is not None:
+                reg.append_regularization_op(param, grad.name, block)
             if gate is None:
                 self._append_optimize_op(block, param, grad.name, lr.name)
             else:

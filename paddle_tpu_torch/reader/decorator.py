@@ -37,6 +37,9 @@ _buffered_seq = itertools.count()
 # epoch (registry series are never reclaimed).  Pass name= for stable
 # attribution.
 _MAX_ANON_BUFFERED_LABELS = 64
+# the name prefix of this module's producer threads, which tells them
+# from other libraries' (the JAX package's are "Thread-N (producer)")
+THREAD_PREFIX = "ptt-reader-"
 
 __all__ = ["map_readers", "shuffle", "chain", "compose", "buffered",
            "firstn", "batch", "cache", "PipeReader", "DeviceBatch",
@@ -189,7 +192,8 @@ def device_prefetch(reader, size: int = 2, feeder=None, device=None,
             else:
                 put(_End)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, daemon=True,
+                             name=f"{THREAD_PREFIX}device_prefetch")
         t.start()
         try:
             while True:
@@ -289,7 +293,8 @@ def buffered(reader, size: int, name: str = None):
             else:
                 q.put(_End)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, daemon=True,
+                             name=f"{THREAD_PREFIX}buffered")
         t.start()
         while True:
             e = q.get()

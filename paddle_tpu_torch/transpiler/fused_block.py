@@ -13,8 +13,10 @@ models/transformer.py's encoder_layer(fused=True) emits —
 persistable and shape checks and the same replacement op, so transpiled
 programs serialize alike.  Gated by FLAGS_fuse_block via ``maybe_fuse``;
 any mismatch leaves the ops unfused.  Run it before ``minimize``, as
-bench.py does.  The JAX transpiler's post-condition hook (``analysis.
-maybe_check_transpiled``) waits for the analysis plane (ROADMAP A.9).
+bench.py does.  A rewrite that fused anything re-verifies the program as
+the JAX transpiler does (``analysis.maybe_check_transpiled``): a fusion
+that severed dataflow raises a ProgramVerificationError naming
+FuseBlockTranspiler, unless FLAGS_verify_program is off.
 """
 from __future__ import annotations
 
@@ -58,6 +60,9 @@ class FuseBlockTranspiler:
                 i += 1
         if fused:
             block.ops = new_ops
+            program._bump()
+            from .. import analysis
+            analysis.maybe_check_transpiled(program, "FuseBlockTranspiler")
         return fused
 
     def _try_match(self, block, ops, i, consumers):

@@ -97,6 +97,34 @@ def test_serving_plane_imports_no_jax():
     assert report == {"engine": "DecodeEngine", "leaked": []}
 
 
+_ANALYSIS_CHILD = """
+import json, sys
+import paddle_tpu_torch.analysis as analysis
+from paddle_tpu_torch.analysis import lint
+rc = lint.main([])
+selftest = lint.main(["--self-test"])
+print(json.dumps({
+    "rc": rc, "self_test": selftest, "schema": analysis.SCHEMA,
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")),
+}))
+"""
+
+
+def test_analysis_plane_and_lint_cli_run_without_jax():
+    """The verifier's shape inference runs the port's lowerings on meta
+    tensors: the lint CLI verifies its models with no JAX loaded."""
+    res = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert "[lint] transformer_lm: ok" in res.stdout
+    report = json.loads(lines[-1])
+    assert report == {"rc": 0, "self_test": 1,
+                      "schema": "paddle_tpu.analysis.v1", "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")

@@ -29,7 +29,8 @@ def _run_both(op, ins, attrs):
     jins = {k: [jnp.asarray(a.astype(np.int32) if a.dtype == np.int64
                             else a) for a in v] for k, v in ins.items()}
     jouts = jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), jins, attrs)
-    tins = {k: [torch.from_numpy(np.ascontiguousarray(a)) for a in v]
+    # np.array keeps a 0-d input 0-d (ascontiguousarray makes it 1-d)
+    tins = {k: [torch.from_numpy(np.array(a, order="C")) for a in v]
             for k, v in ins.items()}
     touts = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), tins, attrs)
     return jouts, touts
@@ -261,6 +262,41 @@ CASES = {
                        {"axis": [0, 2, 1, 3]}, ["Out"], EXACT),
     "transpose_2d": ("transpose", lambda r: {"X": [_rand(r, 3, 4)]},
                      {"axis": [1, 0]}, ["Out"], EXACT),
+    # gradient clipping, regularization and fc over several inputs
+    "sum_three_left_to_right": (
+        "sum", lambda r: {"X": [_rand(r, 4, 5), _rand(r, 4, 5) * 1e4,
+                                _rand(r, 4, 5) * 1e-4]},
+        {}, ["Out"], dict(rtol=0, atol=0)),
+    "sum_scalars": ("sum", lambda r: {"X": [np.array(r.rand(), "float32"),
+                                            np.array(r.rand(), "float32")]},
+                    {}, ["Out"], EXACT),
+    "clip": ("clip", lambda r: {"X": [_rand(r, 6, 7)]},
+             {"min": -0.5, "max": 0.8}, ["Out"], dict(rtol=0, atol=0)),
+    "clip_by_norm_bites": ("clip_by_norm", lambda r: {"X": [_rand(r, 6, 7)]},
+                           {"max_norm": 1.5}, ["Out"], EXACT),
+    "clip_by_norm_passes": (
+        "clip_by_norm", lambda r: {"X": [_rand(r, 6, 7) * 1e-2]},
+        {"max_norm": 1.5}, ["Out"], dict(rtol=0, atol=0)),
+    "squared_l2_norm": ("squared_l2_norm",
+                        lambda r: {"X": [_rand(r, 33, 17)]}, {}, ["Out"],
+                        EXACT),
+    "sqrt": ("sqrt", lambda r: {"X": [np.abs(_rand(r, 5, 6))]}, {}, ["Out"],
+             EXACT),
+    "sign": ("sign", lambda r: {"X": [np.concatenate(
+        [_rand(r, 5, 6), np.zeros((1, 6), "float32")])]}, {}, ["Out"],
+        dict(rtol=0, atol=0)),
+    "div_broadcast": ("elementwise_div",
+                      lambda r: {"X": [_rand(r, 2, 3, 4)],
+                                 "Y": [np.abs(_rand(r, 3)) + 0.5]},
+                      {"axis": 1}, ["Out"], EXACT),
+    "div_scalars": ("elementwise_div",
+                    lambda r: {"X": [np.array(0.7, "float32")],
+                               "Y": [np.array(r.rand() + 1, "float32")]},
+                    {"axis": -1}, ["Out"], EXACT),
+    "max_broadcast": ("elementwise_max",
+                      lambda r: {"X": [_rand(r, 2, 3, 4)],
+                                 "Y": [_rand(r, 4)]},
+                      {"axis": -1}, ["Out"], dict(rtol=0, atol=0)),
     # N % 256 == 0: the JAX lowering takes its Pallas head
     "fused_lm_head_loss_pallas": (
         "fused_lm_head_loss",

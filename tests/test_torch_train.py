@@ -198,33 +198,34 @@ def test_port_trains_from_its_own_startup():
 
 
 def test_minimize_refuses_what_is_not_ported():
-    """Clip and regularization stay refused (ROADMAP A.5).  Gradient
-    accumulation and dropout, refused until they were ported, now build
-    what the JAX package builds: accumulation its op list, and the fused
-    attention build with dropout its ValueError."""
-    op_types = []
-    for pkg, tr in ((pt, jtr), (ptt, ttr)):
+    """minimize refuses nothing now: gradient accumulation, a clip set on
+    the program and regularization, each refused until it was ported,
+    build what the JAX package builds (the same op list; their numerics
+    are tests/test_torch_grad_accumulation.py's and test_torch_clip.py's).
+    What both packages refuse stays refused: the fused attention build
+    with attention-prob dropout raises its ValueError."""
+    def op_types(pkg, tr, clip=None, reg=None, k=1):
         pkg.reset_default_programs()
         main, startup = pkg.Program(), pkg.Program()
         with pkg.program_guard(main, startup):
             _, loss, _ = tr.build_lm_net(tiny_cfg(tr), T, fused_head=True)
-            pkg.optimizer.Adam(1e-3).minimize(loss, accumulate_steps=2)
-        op_types.append([op.type for op in main.global_block().ops])
-    assert op_types[0] == op_types[1]
-    assert {"increment", "elementwise_mod", "equal", "assign",
-            "elementwise_sub", "elementwise_mul"} <= set(op_types[1])
-    for kw, prog_attr, match in [({"regularization": object()}, None,
-                                  "regulariz"),
-                                 ({}, object(), "clip")]:
-        ptt.reset_default_programs()
-        main, startup = ptt.Program(), ptt.Program()
-        if prog_attr is not None:
-            setattr(main, "__gradient_clip__", (prog_attr, None))
-        with ptt.program_guard(main, startup):
-            _, loss, _ = ttr.build_lm_net(tiny_cfg(ttr), T, fused_head=True)
-            with pytest.raises(NotImplementedError, match=match):
-                ptt.optimizer.Adam(1e-3, **kw).minimize(loss)
-        assert "autodiff" not in [op.type for op in main.global_block().ops]
+            if clip is not None:
+                pkg.clip.set_gradient_clip(clip(pkg))
+            pkg.optimizer.Adam(
+                1e-3, regularization=reg and reg(pkg)).minimize(
+                loss, accumulate_steps=k)
+        return [op.type for op in main.global_block().ops]
+
+    for kw, extra in [
+            ({"k": 2}, {"increment", "elementwise_mod", "equal", "assign",
+                        "elementwise_sub", "elementwise_mul"}),
+            ({"reg": lambda pkg: pkg.regularizer.L2Decay(1e-4)}, {"sum"}),
+            ({"clip": lambda pkg: pkg.clip.GradientClipByGlobalNorm(1.0)},
+             {"squared_l2_norm", "sqrt", "elementwise_max",
+              "elementwise_div"})]:
+        theirs, mine = op_types(pt, jtr, **kw), op_types(ptt, ttr, **kw)
+        assert mine == theirs
+        assert extra <= set(mine)
     for tr, pkg in ((jtr, pt), (ttr, ptt)):
         cfg = tiny_cfg(tr)
         cfg.dropout = 0.1

@@ -243,12 +243,21 @@ def test_reader_errors_propagate():
     assert list(c()) == [1, 2] == list(c())
 
 
-def _prefetch_threads():
-    return [t for t in threading.enumerate()
-            if t.is_alive() and "producer" in t.name]
+def _port_threads():
+    """The port's reader threads alive now.  Only those count: other test
+    files of the same worker (the JAX package's readers, whose threads
+    are "Thread-N (producer)") may leave threads of their own."""
+    return {t for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith(reader.THREAD_PREFIX)}
 
 
-def test_device_prefetch_stages_feeds_and_ends_its_thread():
+@pytest.fixture
+def thread_snapshot():
+    before = _port_threads()
+    return lambda: _port_threads() - before
+
+
+def test_device_prefetch_stages_feeds_and_ends_its_thread(thread_snapshot):
     def raw():
         for i in range(5):
             yield {"a": np.full((2, 4), i, "float32")}
@@ -271,23 +280,26 @@ def test_device_prefetch_stages_feeds_and_ends_its_thread():
     # a consumer that stops early ends the producer, which is joined
     it = reader.device_prefetch(raw, size=1, device="cpu")()
     next(it)
+    assert [t.name for t in thread_snapshot()] == [
+        reader.THREAD_PREFIX + "device_prefetch"]
     it.close()
-    assert not _prefetch_threads()
+    assert not thread_snapshot()
     assert ("device_prefetch",) in obs_metrics.REGISTRY.get(
         "reader_buffer_depth")._series
 
 
-def test_trainer_prefetch_thread_ends_when_the_reader_raises():
+def test_trainer_prefetch_thread_ends_when_the_reader_raises(
+        thread_snapshot):
     t = _small_trainer()
     steps = []
     with pytest.raises(IOError, match="disk gone"):
         t.train(1, lambda e: steps.append(e), _small_reader(bad_at=3),
                 ["x", "y"], prefetch_depth=2)
-    assert not _prefetch_threads()
+    assert not thread_snapshot()
     assert sum(isinstance(e, ptt.EndStepEvent) for e in steps) == 3
 
 
-def test_sigterm_stops_at_the_step_boundary():
+def test_sigterm_stops_at_the_step_boundary(thread_snapshot):
     """The handler train() installs takes the signal; the step it
     arrived in finishes, and train() returns at its boundary."""
     t = _small_trainer()
@@ -307,7 +319,7 @@ def test_sigterm_stops_at_the_step_boundary():
         "BeginEpochEvent", "BeginStepEvent", "EndStepEvent",
         "BeginStepEvent", "EndStepEvent"]
     assert signal.getsignal(signal.SIGTERM) is before
-    assert not _prefetch_threads()
+    assert not thread_snapshot()
 
 
 def test_numeric_guard_verdicts():
