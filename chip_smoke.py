@@ -216,6 +216,31 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    clip and decay, and the run p50 with verify_program off and warn, four
    windows each in turns (a b b a a b b a), and the gate's host time a
    run on a kept verdict, are logged beside nvidia-smi's line.
+5g. ResNet-50 (slice 18), bench.py's bench_resnet50 and
+   bench_resnet50_infer: (a) models.resnet.build_train_net at 3x224x224,
+   class_dim 1000, Momentum(0.1, 0.9), batch 8, 3 steps on one batch on
+   the card; before each, the card's state goes to a CPUPlace executor
+   that takes the same step, and a control with cudnn.allow_tf32 on
+   takes it on the card; card vs CPU within RESNET_BOUNDS (the loss,
+   every velocity, every param's and running stat's change), the control
+   outside one of them on every step; the card's own step under a 1e-6
+   change of the input is logged beside them.  The trained program's
+   Predictor (probabilities and logits, batch 16) on the card against
+   the CPU Predictor at RESNET_PRED_RTOL.  (b) no scope tensor carries
+   autograd state; the peak after step 10 of (c) equals step 3's within
+   RESNET_PEAK_SLACK.  (c) batch 64, 10 steps on one batch, f32 and
+   under AMP: step p50, img/s, first step, peak memory; the AMP losses
+   within RESNET_AMP_LOSS_RTOL of the f32 ones over the first
+   RESNET_AMP_TRACK steps, and falling over 10 steps at RESNET_FALL_LR;
+   one AMP step traced by kernel class (cuDNN convolutions, the GEMMs,
+   reductions, elementwise), with the batch_norm and momentum lowerings'
+   kernels attributed through record_function ranges; no kernel of this
+   repo.  (d) the is_test build saved and served by the Predictor at
+   batch 16, f32 and AMP: request p50 and img/s.  Every new path
+   ("resnet_train", "resnet_train_amp", "resnet_train_amp_fall",
+   "resnet_serve", "resnet_serve_amp") launches none of this repo's
+   kernels, by the counters, and appears in the JSON line's
+   launches_by_path.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -269,7 +294,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "serve"; launches on its training path, and on every path under
    "launches_by_path", the decode engine's under "decode" and its oracle's
    under "decode_oracle", phase 5e's run_steps call's under
-   "train_run_steps" and its Trainer's under "trainer"; the bf16 kernels' launches are the AMP step's;
+   "train_run_steps" and its Trainer's under "trainer", phase 5g's under
+   "resnet_*", all 0; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -3395,6 +3421,466 @@ def train_match_fused(torch, amp=False):
     check_replayed(tag, pg, loss, grads, r_loss, r_grads, loss_tol, grad_tol)
 
 
+# phase 5g: ResNet-50 as bench.py's bench_resnet50 (:338-367) trains it and
+# bench_resnet50_infer (:370-404) serves it
+RESNET_DEPTH = 50
+RESNET_IMG = (3, 224, 224)
+RESNET_CLASSES = 1000
+RESNET_LR, RESNET_MU = 0.1, 0.9     # bench_resnet50's Momentum(0.1, 0.9)
+RESNET_CHECK_BATCH = 8     # the card-vs-CPU steps (the CPU side is the cost)
+RESNET_CHECK_STEPS = 3
+RESNET_BATCH = 64          # bench_resnet50's batch
+RESNET_STEPS = 10
+RESNET_SERVE_BATCH = 16    # bench_resnet50_infer's batch
+RESNET_SERVE_TIMED = 30    # timed requests (bench.py: 30 a window)
+# card vs CPU, one f32 Momentum step from the same state, by kind: the
+# loss's relative error; for every velocity and every param's change
+# (after less before) ||card - CPU|| / ||CPU||, the largest over the
+# tensors; the same for every running stat's change.  Card and CPU
+# (other convolution algorithms, f32 sums in other orders) agree on the
+# forward (loss 1e-6, running stats 5e-5) and part on the gradients by
+# up to 3.5e-2 (H100 80GB HBM3, 700 W): batch norm's
+# backward leaves a residue of near-cancelling sums that amplifies f32
+# rounding of the activations (a 1e-6 relative change of the input moves
+# the card's own step by RESNET_PERTURB's logged amount).  TF32
+# convolutions (cudnn.allow_tf32, PyTorch's default) move the gradients
+# by 0.35-0.84, the running stats by 1.7e-2-3.2e-2 and the loss by
+# 1.3e-5-1.5e-3: the control run must exceed a bound on every step.
+RESNET_LOSS_RTOL = 3e-5
+RESNET_GRAD_RTOL = 0.1
+RESNET_STAT_RTOL = 1e-3
+RESNET_PERTURB = 1e-6      # relative change of the input for the log
+RESNET_PRED_RTOL = 1e-4    # the Predictor's outputs, of their max
+# bench's row under AMP against f32: the loss's relative difference over
+# the first RESNET_AMP_TRACK steps (readings up to 6e-3, H100 80GB HBM3,
+# 700 W).  Later steps are not compared: at lr 0.1 the loss rises after
+# step 2 and two f32 runs of the row part there (the card's f32 step is
+# not bit-reproducible; 9.34 against 11.93 at step 9 in two runs)
+RESNET_AMP_LOSS_RTOL = 5e-2
+RESNET_AMP_TRACK = 3
+# at bench's lr the loss on one batch falls at step 2 and then rises past
+# the first (7.59 -> 4.91 -> 9.5 over 10 steps, f32 and AMP alike: lr 0.1
+# with momentum 0.9 overshoots on one repeated batch), so the AMP loss is
+# also held to fall over 10 steps at the lr of the JAX package's
+# test_resnet_trains_under_amp_bf16 (tests/test_models.py:278)
+RESNET_FALL_LR = 0.05
+RESNET_PEAK_SLACK = 0.01   # peak after step 10 vs step 3, of the latter
+
+
+def build_resnet(is_test=False, lr=RESNET_LR):
+    """bench.py's ResNet-50 program, (main, startup, loss, acc,
+    prediction): the training one with Momentum(lr, 0.9), or (is_test)
+    bench_resnet50_infer's build."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        _, loss, acc, pred = resnet.build_train_net(
+            class_dim=RESNET_CLASSES, img_shape=RESNET_IMG,
+            depth=RESNET_DEPTH, is_test=is_test)
+        if not is_test:
+            ptt.optimizer.Momentum(learning_rate=lr,
+                                   momentum=RESNET_MU).minimize(loss)
+    return main, startup, loss, acc, pred
+
+
+def resnet_feed(batch, seed, device=None):
+    """bench.py's feed: uniform images, labels in [0, class_dim), as
+    numpy or as tensors on `device`."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    feed = {"img": rng.rand(batch, *RESNET_IMG).astype("float32"),
+            "label": rng.randint(0, RESNET_CLASSES,
+                                 (batch, 1)).astype("int64")}
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def resnet_kinds(main):
+    """The persistables the steps are compared on, by kind."""
+    params = main.all_parameters()
+    return {"velocity": sorted(v.name for v in main.list_vars()
+                               if v.name.endswith(".velocity")),
+            "param": sorted(p.name for p in params if p.trainable),
+            "running_stat": sorted(p.name for p in params
+                                   if not p.trainable)}
+
+
+def host_state(scope, names):
+    return {n: scope.find_var(n).detach().float().cpu() for n in names}
+
+
+def step_errors(kinds, before, want, got, want_loss, got_loss):
+    """One step's errors: the loss's relative error and, by kind, the
+    largest ||got - want|| / ||want|| over the tensors (velocities as they
+    are, params and running stats as their change), with its tensor."""
+    out = {"loss": (abs(got_loss - want_loss) / abs(want_loss), "loss")}
+    for kind, names in kinds.items():
+        worst = (-1.0, "")
+        for n in names:
+            base = 0 if kind == "velocity" else before[n].double()
+            w, g = want[n].double() - base, got[n].double() - base
+            err = float((g - w).norm() / w.norm().clamp_min(1e-30))
+            worst = max(worst, (err, n))
+        out[kind] = worst
+    return out
+
+
+RESNET_BOUNDS = {"loss": RESNET_LOSS_RTOL, "velocity": RESNET_GRAD_RTOL,
+                 "param": RESNET_GRAD_RTOL, "running_stat": RESNET_STAT_RTOL}
+
+
+def fmt_errors(errs):
+    return {k: (f"{e:.3g}", n) for k, (e, n) in errs.items()}
+
+
+def no_autograd_state(scope, names, tag):
+    bad = [n for n in names if scope.find_var(n).requires_grad
+           or scope.find_var(n).grad_fn is not None]
+    if bad:
+        raise RuntimeError(f"{tag}: scope tensors with autograd state: "
+                           f"{bad[:5]}")
+
+
+@contextlib.contextmanager
+def cudnn_tf32(torch):
+    """cuDNN's TF32 on for the block (PyTorch's default; main() turns it
+    off)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def resnet_card_vs_cpu(torch):
+    """(a) ResNet-50 at bench.py's shapes, batch RESNET_CHECK_BATCH, f32:
+    RESNET_CHECK_STEPS Momentum steps on one batch on the card; before
+    each, the card's state goes to a CPUPlace executor, which takes the
+    same step (the plain torch ops), and a control with cudnn.allow_tf32
+    on takes it on the card from the same state.  Each step is held to
+    RESNET_BOUNDS and the control must exceed one of them on every step.
+    A free-running CPU trajectory is not held: batch norm amplifies
+    rounding (tests/test_torch_resnet.py), so two correct f32 runs part
+    over steps.  Then (b) no scope tensor
+    carries autograd state, and the Predictor of the trained program on
+    the card against the CPU Predictor at batch RESNET_SERVE_BATCH."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    main, startup, loss, _, pred = build_resnet()
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    kinds = resnet_kinds(main)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    feed = resnet_feed(RESNET_CHECK_BATCH, SEED)
+    n_train = len(kinds["param"])
+    log(f"[resnet check] ResNet-{RESNET_DEPTH} {RESNET_IMG} class_dim "
+        f"{RESNET_CLASSES}, batch {RESNET_CHECK_BATCH}, Momentum("
+        f"{RESNET_LR}, {RESNET_MU}): {len(main.global_block().ops)} ops, "
+        f"{n_train} trainable params, {len(kinds['running_stat'])} running "
+        f"stats, {sum(math.prod(p.shape) for p in main.all_parameters() if p.trainable)} "
+        f"weights")
+
+    def card_step(state, feed=feed):
+        ptt.io.params_from_numpy(card.scope, {n: t.numpy() for n, t in
+                                              state.items()},
+                                 ptt.CUDAPlace(0))
+        out, = card.run(main, feed=feed, fetch_list=[loss])
+        return float(out.reshape(())), host_state(card.scope, names)
+
+    passed, failed_ctl, cpu_s = True, True, []
+    for step in range(RESNET_CHECK_STEPS):
+        before = host_state(card.scope, names)
+        ptt.io.params_from_numpy(cpu.scope, {n: t.numpy() for n, t in
+                                             before.items()},
+                                 ptt.CPUPlace())
+        t0 = time.perf_counter()
+        out, = cpu.run(main, feed=feed, fetch_list=[loss])
+        cpu_s.append(time.perf_counter() - t0)
+        want_loss, want = float(out.reshape(())), host_state(cpu.scope,
+                                                             names)
+        with cudnn_tf32(torch):
+            ctl_loss, ctl = card_step(before)
+        if step == 0:    # the card's own sensitivity, for the log
+            rng = np.random.RandomState(SEED)
+            img = feed["img"] * (1 + RESNET_PERTURB * rng.randn(
+                *feed["img"].shape)).astype("float32")
+            shaken_loss, shaken = card_step(before, dict(feed, img=img))
+        got_loss, got = card_step(before)
+        if step == 0:
+            log(f"[resnet check] the card's own step 0 with the input "
+                f"changed by {RESNET_PERTURB:g} (relative, seeded): "
+                f"{fmt_errors(step_errors(kinds, before, got, shaken, got_loss, shaken_loss))}")
+        errs = step_errors(kinds, before, want, got, want_loss, got_loss)
+        ctl_errs = step_errors(kinds, before, want, ctl, want_loss, ctl_loss)
+        log(f"[resnet check] step {step}: loss card {got_loss:.7f} CPU "
+            f"{want_loss:.7f} (TF32 control {ctl_loss:.7f}); card vs CPU "
+            f"{fmt_errors(errs)}; TF32 control {fmt_errors(ctl_errs)}")
+        passed &= all(errs[k][0] <= b for k, b in RESNET_BOUNDS.items())
+        failed_ctl &= any(ctl_errs[k][0] > b
+                          for k, b in RESNET_BOUNDS.items())
+        if not math.isfinite(got_loss):
+            raise RuntimeError(f"ResNet step {step}: loss {got_loss}")
+    log(f"[resnet check] bounds {RESNET_BOUNDS}; card within them on "
+        f"every step: {passed}; the TF32 control outside a bound on every "
+        f"step: {failed_ctl}; CPU step "
+        f"{[round(x, 2) for x in cpu_s]} s")
+    if not passed:
+        raise RuntimeError("the card's ResNet steps are off the CPU's")
+    if not failed_ctl:
+        raise RuntimeError("the TF32 control passed a bound of the ResNet "
+                           "step check: the check cannot tell f32 from "
+                           "TF32")
+    no_autograd_state(card.scope, names, "resnet check (card)")
+    no_autograd_state(cpu.scope, names, "resnet check (CPU)")
+    # the softmax of the trained network saturates (loss 22 at step 3):
+    # its logits (the softmax's input) are served and held beside it
+    logits, = [op.inputs["X"][0] for op in main.global_block().ops
+               if op.type == "softmax"]
+    img = resnet_feed(RESNET_SERVE_BATCH, SEED + 2)["img"]
+    with tempfile.TemporaryDirectory() as td:
+        ptt.io.save_inference_model(td, ["img"], [pred, logits], card,
+                                    main_program=main)
+        on_card = create_predictor(AnalysisConfig(td))
+        on_cpu = create_predictor(AnalysisConfig(td, use_gpu=False))
+    got, want = on_card.run({"img": img}), on_cpu.run({"img": img})
+    errs = [float(abs(g - w).max() / abs(w).max()) for g, w in zip(got,
+                                                                  want)]
+    log(f"[resnet check] Predictor of the trained program (is_test, "
+        f"batch {RESNET_SERVE_BATCH}) card vs CPU: probabilities "
+        f"{errs[0]:.3g} and logits {errs[1]:.3g} of their max (tolerance "
+        f"{RESNET_PRED_RTOL:g}); max p {float(want[0].max()):.3f}; top-1 "
+        f"agree {int((got[0].argmax(1) == want[0].argmax(1)).sum())}/"
+        f"{len(got[0])}")
+    if got[0].shape != (RESNET_SERVE_BATCH, RESNET_CLASSES) or not (
+            max(errs) <= RESNET_PRED_RTOL):
+        raise RuntimeError(f"ResNet Predictor {got[0].shape}, {errs}")
+
+
+@contextlib.contextmanager
+def op_ranges(torch, types):
+    """Each lowering of the op types in `types` inside a record_function
+    range RANGE_PREFIX + type, for attributed_ms (meta evaluations pass
+    through)."""
+    from paddle_tpu_torch.framework.registry import get_op_def
+    defs = {t: get_op_def(t) for t in types}
+    old = {t: d.lower for t, d in defs.items()}
+    for t, d in defs.items():
+        def lower(ctx, ins, attrs, _t=t, _f=old[t]):
+            with torch.profiler.record_function(RANGE_PREFIX + _t):
+                return _f(ctx, ins, attrs)
+        d.lower = lower
+    try:
+        yield
+    finally:
+        for t, d in defs.items():
+            d.lower = old[t]
+
+
+def attributed_ms(raw, label):
+    """Device ms of the kernels launched under the CPU range `label` (any
+    depth below it) in one profiled call's events."""
+    total = 0.0
+    for e in raw:
+        if not e.kernels:
+            continue
+        p = e
+        while p is not None and p.name != label:
+            p = p.cpu_parent
+        if p is not None:
+            total += sum(k.duration for k in e.kernels)
+    return total / 1e3
+
+
+def _resnet_kernel_class(name):
+    """Kernel classes of the conv plane's trace (cuDNN and torch)."""
+    if "(this repo)" in _kernel_class(name):
+        return _kernel_class(name)
+    low = name.lower()
+    if any(k in low for k in ("dgrad", "wgrad", "bprop")):
+        return "cuDNN conv backward"
+    if any(k in low for k in ("fprop", "convolve", "conv2d", "implicit_gemm")):
+        return "cuDNN conv forward"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "cuDNN layout transposes"
+    if "pool" in low:
+        return "pooling"
+    if any(k in low for k in ("gemm", "cutlass", "nvjet")):
+        return "GEMM kernels (the fc, and cuDNN's 1x1 convolutions)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if "reduce" in low:
+        return "reductions (batch norm's statistics and their backward)"
+    return "elementwise and other (batch norm, relu, adds, casts, Momentum)"
+
+
+def resnet_train(torch, amp, lr=RESNET_LR):
+    """(c) bench_resnet50's row: batch RESNET_BATCH, RESNET_STEPS steps on
+    one batch already on the card, f32 or under FLAGS_amp_bf16, at `lr`;
+    returns the counts of this repo's kernels over the steps and the
+    numbers.  (b) the peak after step RESNET_STEPS against step 3's."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = f"[resnet train{' amp' if amp else ''} lr {lr}]"
+    with amp_bf16(amp):
+        main, startup, loss, _, _ = build_resnet(lr=lr)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        feed = resnet_feed(RESNET_BATCH, SEED + 1, device=DEVICE)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters = launch_counters()
+        zero_counters(counters)
+        losses, step_ms, peaks = [], [], {}
+        for step in range(1, RESNET_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(())))
+            if step in (3, RESNET_STEPS):
+                peaks[step] = torch.cuda.max_memory_allocated()
+        counts = {n: v for (n, attr), v in read_counters(counters).items()
+                  if attr == "launches"}
+    no_autograd_state(exe.scope, names, tag)
+    p50 = float(np.median(step_ms[1:]))
+    grew = peaks[RESNET_STEPS] - peaks[3]
+    log(f"{tag} batch {RESNET_BATCH}: losses "
+        f"{[round(x, 4) for x in losses]}; step p50 {p50:.2f} ms (steps "
+        f"2-{RESNET_STEPS}; host clock around a synchronized run with its "
+        f"loss readback), {RESNET_BATCH / p50 * 1e3:.1f} img/s; first "
+        f"step {step_ms[0]:.2f} ms; peak device memory "
+        f"{peaks[RESNET_STEPS] / 2**20:.1f} MiB ({(peaks[RESNET_STEPS] - base) / 2**20:.1f} "
+        f"above the {base / 2**20:.1f} MiB held before), after step 3 "
+        f"{peaks[3] / 2**20:.1f} MiB (grew {grew / 2**20:.1f} MiB, slack "
+        f"{RESNET_PEAK_SLACK:.0%}); this repo's kernels launched "
+        f"{sum(counts.values())} times; {nvidia_smi_line()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} non-finite loss {losses}")
+    if grew > RESNET_PEAK_SLACK * peaks[3]:
+        raise RuntimeError(f"{tag} peak memory grew {grew} bytes from step "
+                           f"3 to step {RESNET_STEPS}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(exe=exe, main=main, feed=feed, loss=loss, p50=p50,
+                        peak=peaks[RESNET_STEPS], losses=losses)
+
+
+def resnet_serve(torch, amp):
+    """(d) bench_resnet50_infer's row: the is_test build, its startup run
+    on the card, save_inference_model, the card Predictor, batch
+    RESNET_SERVE_BATCH of images already on the card; the p50 of
+    RESNET_SERVE_TIMED requests, each returning its probabilities as
+    numpy."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    tag = f"[resnet serve{' amp' if amp else ''}]"
+    with amp_bf16(amp):
+        main, startup, _, _, pred = build_resnet(is_test=True)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        with tempfile.TemporaryDirectory() as td:
+            ptt.io.save_inference_model(td, ["img"], [pred], exe,
+                                        main_program=main)
+            p = create_predictor(AnalysisConfig(td))
+        feed = {"img": resnet_feed(RESNET_SERVE_BATCH, SEED + 3,
+                                   device=DEVICE)["img"]}
+        p.prepare(feed)
+        counters = launch_counters()
+        zero_counters(counters)
+        ms = []
+        for _ in range(RESNET_SERVE_TIMED):
+            t0 = time.perf_counter()
+            out, = p.run(feed)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {n: v for (n, attr), v in read_counters(counters).items()
+                  if attr == "launches"}
+    p50 = float(np.median(ms))
+    log(f"{tag} batch {RESNET_SERVE_BATCH}: request p50 {p50:.3f} ms "
+        f"(min {min(ms):.3f}, max {max(ms):.3f}; host clock around "
+        f"Predictor.run returning the [{RESNET_SERVE_BATCH}, "
+        f"{RESNET_CLASSES}] probabilities as numpy), "
+        f"{RESNET_SERVE_BATCH / p50 * 1e3:.1f} img/s; {nvidia_smi_line()}")
+    if out.shape != (RESNET_SERVE_BATCH, RESNET_CLASSES) or not (
+            np.isfinite(out).all() and abs(out.sum(1) - 1).max() < 1e-2):
+        raise RuntimeError(f"{tag} output {out.shape}, sums "
+                           f"{out.sum(1)[:4]}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(predictor=p, feed=feed, p50=p50)
+
+
+def phase_resnet(torch):
+    """Phase 5g: train and serve ResNet-50 (bench.py's two rows): the
+    card-vs-CPU check (a, b), the training row in f32 and under AMP (c),
+    one traced AMP step, the serving row in f32 and under AMP (d).
+    Returns the launch counts of this repo's kernels on each path (all
+    zero: no kernel of this repo lies on the conv plane)."""
+    resnet_card_vs_cpu(torch)
+    by_path = {}
+    by_path["resnet_train"], f32 = resnet_train(torch, amp=False)
+    del f32["exe"]
+    by_path["resnet_train_amp"], amp = resnet_train(torch, amp=True)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(amp["losses"],
+                                                 f32["losses"])]
+    log(f"[resnet] AMP loss against f32, step for step: "
+        f"{[f'{g:.2g}' for g in gaps]} (bound {RESNET_AMP_LOSS_RTOL:g} on "
+        f"the first {RESNET_AMP_TRACK})")
+    if max(gaps[:RESNET_AMP_TRACK]) > RESNET_AMP_LOSS_RTOL:
+        raise RuntimeError(f"the AMP losses left the f32 ones: {gaps}")
+    by_path["resnet_train_amp_fall"], fall = resnet_train(
+        torch, amp=True, lr=RESNET_FALL_LR)
+    del fall["exe"]
+    if not fall["losses"][-1] < fall["losses"][0]:
+        raise RuntimeError(f"the AMP loss did not fall at lr "
+                           f"{RESNET_FALL_LR}: {fall['losses']}")
+    raw = []
+    with amp_bf16(), op_ranges(torch, ("batch_norm", "momentum")):
+        names = trace_run(
+            torch, f"AMP ResNet-{RESNET_DEPTH} training step at batch "
+                   f"{RESNET_BATCH}",
+            lambda: amp["exe"].run(amp["main"], feed=amp["feed"],
+                                   fetch_list=[amp["loss"]],
+                                   return_numpy=False),
+            classify=_resnet_kernel_class, raw=raw)
+    for t, note in (("batch_norm", " (the forward; its backward runs in "
+                                   "autograd, under the classes above)"),
+                    ("momentum", "")):
+        log(f"[trace]   kernels launched inside the {t} lowerings{note}: "
+            f"{attributed_ms(raw, RANGE_PREFIX + t):.3f} ms")
+    ours = [c for c in names if "(this repo)" in c]
+    if ours or not names.get("cuDNN conv forward") \
+            or not names.get("cuDNN conv backward"):
+        raise RuntimeError(f"the AMP ResNet step's kernel classes "
+                           f"{sorted(names)}: expected cuDNN convolutions "
+                           f"and none of this repo's")
+    del amp["exe"]
+    log(f"[resnet] train p50 f32 {f32['p50']:.2f} ms "
+        f"({RESNET_BATCH / f32['p50'] * 1e3:.1f} img/s), AMP "
+        f"{amp['p50']:.2f} ms ({RESNET_BATCH / amp['p50'] * 1e3:.1f} img/s)")
+    by_path["resnet_serve"], _ = resnet_serve(torch, amp=False)
+    by_path["resnet_serve_amp"], _ = resnet_serve(torch, amp=True)
+    recs = [r for r in VERIFY_LOG if r["phase"] == "resnet"]
+    log(f"[resnet] the gate verified {len(recs)} programs in error mode "
+        f"({[(r['ops'], r['amp'], round(r['ms'], 1)) for r in recs]}: "
+        f"ops, amp, host ms), {sum(r['errors'] for r in recs)} with an "
+        f"error")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"resnet verifications {recs}")
+    return by_path
+
+
+
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
@@ -3470,6 +3956,7 @@ def ln_launch_kinds(names):
 
 
 PROFILE_TRIES = 5   # the tracer once lost one call's records 3 times running
+RANGE_PREFIX = "smoke_range:"   # record_function labels of op_ranges
 
 
 def _device_launches(torch, events, part=""):
@@ -3480,7 +3967,7 @@ def _device_launches(torch, events, part=""):
                and e.self_device_time_total > 0 and part in e.key)
 
 
-def profiled(torch, fn, cpu=False, lost=None):
+def profiled(torch, fn, cpu=False, lost=None, raw=None):
     """fn's events from torch.profiler, and the wall time of its call in
     microseconds.  fn runs twice: the first call is the schedule's warm-up
     cycle, whose events are dropped, so that the kernels launched while
@@ -3490,7 +3977,9 @@ def profiled(torch, fn, cpu=False, lost=None):
     kernel records (a whole call's, or one kernel's): lost(events) says
     what a record lacks (None when it is whole; by default, a record
     without device time is not), and such a record is traced again, up to
-    PROFILE_TRIES in all, before the call fails."""
+    PROFILE_TRIES in all, before the call fails.  With `raw` (a list),
+    the recorded call's FunctionEvents are put into it (their CPU
+    parents and kernels, for attributed_ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     lost = lost or (lambda ev: None if _device_launches(torch, ev) else
@@ -3509,9 +3998,11 @@ def profiled(torch, fn, cpu=False, lost=None):
             wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
         events = [e for e in prof.key_averages()
-                  if not e.key.startswith("ProfilerStep")]
+                  if not e.key.startswith(("ProfilerStep", RANGE_PREFIX))]
         why = lost(events)
         if why is None:
+            if raw is not None:
+                raw[:] = prof.events()
             return events, wall_us
         kept = sorted(f"{_short_kernel_name(e.key)} x{e.count}"
                       for e in events
@@ -3523,30 +4014,32 @@ def profiled(torch, fn, cpu=False, lost=None):
                        f"{PROFILE_TRIES} traces: {why}")
 
 
-def trace_run(torch, label, fn, expect=None):
+def trace_run(torch, label, fn, expect=None, classify=None, raw=None):
     """Device-time breakdown of one call of fn from a torch.profiler
-    trace: kernel time by class and the device's busy share of the call's
-    wall time.  expect maps a class to the launches it must show.  Returns
-    {class: {kernel name: launches}}."""
+    trace: kernel time by class (`classify`, by default _kernel_class)
+    and the device's busy share of the call's wall time.  expect maps a
+    class to the launches it must show.  Returns {class: {kernel name:
+    launches}}; `raw` as profiled's."""
+    classify = classify or _kernel_class
     def lost(events):
         by_class = {}
         for e in events:
             if e.device_type == torch.autograd.DeviceType.CUDA \
                     and e.self_device_time_total > 0:
-                c = _kernel_class(e.key)
+                c = classify(e.key)
                 by_class[c] = by_class.get(c, 0) + e.count
         if not by_class:
             return "no kernel with device time"
         short = {c: (by_class.get(c, 0), n) for c, n in (expect or {}).items()
                  if by_class.get(c, 0) < n}
         return f"(launches, expected) {short}" if short else None
-    events, wall_us = profiled(torch, fn, cpu=True, lost=lost)
+    events, wall_us = profiled(torch, fn, cpu=True, lost=lost, raw=raw)
     by_class, launches, names, other = {}, {}, {}, {}
     for e in events:
         # kernels only: a CPU op's self device time repeats its kernels'
         us = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            c = _kernel_class(e.key)
+            c = classify(e.key)
             by_class[c] = by_class.get(c, 0.0) + us
             launches[c] = launches.get(c, 0) + e.count
             names.setdefault(c, {})[_short_kernel_name(e.key)] = e.count
@@ -4674,6 +5167,8 @@ def main():
     loop_counts = phase_train_loops(torch)
     VERIFY_PHASE[0] = "verify"
     phase_verify(torch, pred, {"tokens": toks})
+    VERIFY_PHASE[0] = "resnet"
+    resnet_counts = phase_resnet(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -4865,7 +5360,8 @@ def main():
     by_path = {"serve": serve_counts, "decode": decode_counts,
                "decode_oracle": oracle_counts, "train": counts,
                "train_fuse_block": fcounts, "train_amp": acounts,
-               "train_fuse_block_amp": facounts, **loop_counts}
+               "train_fuse_block_amp": facounts, **loop_counts,
+               **resnet_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

@@ -2,7 +2,8 @@
 
 The same Fluid-style system — a Program/Block/Operator IR built by
 ``layers.*``, one ``lower`` function per registered op, a single
-``autodiff`` op for gradients, ``optimizer.Adam`` with ``clip`` and
+``autodiff`` op for gradients, ``optimizer.SGD``, ``Momentum`` and
+``Adam`` with ``clip`` and
 ``regularizer``, ``Executor.run`` behind the ``analysis`` verifier, ``io``
 and the ``Predictor`` — with each op lowered to torch and each
 Pallas TPU kernel on the ported path replaced by a CUDA kernel written by
@@ -25,6 +26,7 @@ from .framework.executor import Executor, Scope, global_scope
 from .framework.layer_helper import ParamAttr
 from .framework import initializer
 from . import layers
+from . import nets
 from . import clip
 from . import regularizer
 from . import optimizer
@@ -42,7 +44,7 @@ __all__ = ["core", "flags", "CPUPlace", "CUDAPlace", "default_place",
            "Program", "Block", "Variable", "Parameter", "program_guard",
            "default_main_program", "default_startup_program",
            "reset_default_programs", "unique_name", "Executor", "Scope",
-           "global_scope", "ParamAttr", "initializer", "layers", "clip",
+           "global_scope", "ParamAttr", "initializer", "layers", "nets", "clip",
            "regularizer", "optimizer", "io", "inference", "models",
            "transpiler", "reader", "analysis", "DataFeeder",
            "BeginEpochEvent", "BeginStepEvent", "CheckpointConfig",

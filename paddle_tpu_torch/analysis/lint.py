@@ -9,9 +9,10 @@ over the main AND startup programs with the model's natural fetch set.
 Exit codes: 0 clean, 1 error-severity findings (or a build crash), 2 bad
 usage.
 
-The port builds one of the JAX package's bundled models so far,
-``transformer_lm``; the others come with their models.  Its optimizer is
-Adam, the one the port has (the JAX CLI attaches SGD).
+The port builds four of the JAX package's bundled models so far,
+``lenet``, ``vgg``, ``resnet`` and ``transformer_lm``, at the JAX CLI's
+shapes and with its optimizer, SGD(0.01) (JAX lint.py:26-29, :91-98);
+the others come with their models.
 """
 from __future__ import annotations
 
@@ -22,11 +23,23 @@ from typing import Callable, Dict, Tuple
 from .passes import verify_program
 
 
+def _optimize(loss):
+    from .. import optimizer
+    optimizer.SGD(learning_rate=0.01).minimize(loss)
+
+
+def _simple(builder):
+    def build():
+        feeds, loss, *rest = builder()
+        _optimize(loss)
+        return feeds, [loss] + [r for r in rest if r is not None]
+    return build
+
+
 def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
     """name -> zero-arg builder running inside a fresh program_guard;
     returns (feed vars, fetch vars)."""
-    from .. import optimizer
-    from ..models import transformer
+    from ..models import lenet, resnet, transformer, vgg
 
     def lm():
         cfg = transformer.TransformerConfig(
@@ -34,10 +47,16 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
             n_layer=2, n_head=2, d_model=16, d_inner=32, dropout=0.0)
         # flash-attention contract: no attention-prob dropout
         feeds, cost, logits = transformer.build_lm_net(cfg, seq_len=16)
-        optimizer.Adam(learning_rate=0.01).minimize(cost)
+        _optimize(cost)
         return feeds, [cost, logits]
 
-    return {"transformer_lm": lm}
+    return {
+        "lenet": _simple(lenet.build_train_net),
+        "vgg": _simple(vgg.build_train_net),
+        "resnet": _simple(lambda: resnet.build_train_net(
+            class_dim=10, img_shape=(3, 32, 32), depth=18)),
+        "transformer_lm": lm,
+    }
 
 
 def lint_model(name: str, build, verbose: bool = False) -> Tuple[int, int]:

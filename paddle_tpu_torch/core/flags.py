@@ -66,7 +66,15 @@ define_flag("amp_bf16", False,
             "lowering time (ops/math_ops.py amp_inputs, amp_result, "
             "amp_matmul).  The kernels accumulate in f32; the cuBLAS "
             "products do when torch.backends.cuda.matmul."
-            "allow_bf16_reduced_precision_reduction is off.")
+            "allow_bf16_reduced_precision_reduction is off.  The "
+            "convolutions (ops/nn_ops.py conv2d) take the same casts: "
+            "both operands bf16, the output stays bf16, cuDNN "
+            "accumulates in f32.  Without the flag an f32 convolution is "
+            "full f32 only when torch.backends.cudnn.allow_tf32 is off: "
+            "PyTorch turns it ON by default (unlike torch.backends.cuda."
+            "matmul.allow_tf32), and cuDNN then rounds the operands to "
+            "TF32; chip_smoke.py turns both off.  The package sets "
+            "neither cudnn.deterministic nor cudnn.benchmark.")
 define_flag("fuse_block", False,
             "Fuse whole transformer blocks (LN -> attention -> residual "
             "-> LN -> MLP -> residual) into single fused_transformer_"

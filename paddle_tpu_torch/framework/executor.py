@@ -17,7 +17,10 @@ leaf tensors that require grad, the ops before ``autodiff`` run under
 gives), and the ops after it (the optimizer updates) run under
 ``torch.no_grad()``.  Inference tensors cannot be saved for backward, so a
 training run first copies any persistable that an inference-mode run
-(the startup program, say) left in the scope.
+(the startup program, say) left in the scope.  A persistable the run
+wrote is stored into the scope only if it carries no autograd state (no
+``requires_grad``, no ``grad_fn``); otherwise ``run`` raises
+EnforceNotMet: such a tensor would keep the step's graph alive.
 
 ``run_steps`` (JAX :1405-1486) runs N training steps: the JAX package
 scans its compiled step on the device; here it is a host loop of eager
@@ -127,6 +130,21 @@ def _check_op_outputs_finite(op, outs):
                 raise EnforceNotMet(
                     f"NaN/Inf produced by op {op.type!r} in output "
                     f"{slot}:{name!r} (FLAGS_check_nan_inf_per_op)")
+
+
+def _check_detached(name, t, ops):
+    """A persistable the run wrote must not carry autograd state into the
+    scope: a tensor with a grad_fn would keep the whole step's saved
+    activations alive and chain the next step onto them (a forward op's
+    state output, such as batch_norm's MeanOut, detaches itself, as JAX
+    stop_gradients it)."""
+    if isinstance(t, torch.Tensor) and (t.requires_grad
+                                        or t.grad_fn is not None):
+        writers = [op.type for op in ops if name in op.output_names()]
+        raise EnforceNotMet(
+            f"persistable {name!r} (written by {writers}) requires grad or "
+            f"carries a grad_fn: an op wrote autograd state into the scope; "
+            f"its lowering must detach the state it writes")
 
 
 def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops
@@ -240,9 +258,11 @@ class Executor:
                 env = self._load_env(scope, block, persist, feed, device)
                 env = run_ops_in_env(ctx, env, ops)
         written = {n for op in ops for n in op.output_names()}
-        for n in persist:
-            if n in written:
-                scope.set_var(n, env[n])
+        stored = [n for n in persist if n in written]
+        for n in stored:        # all checked before the scope takes any
+            _check_detached(n, env[n], ops)
+        for n in stored:
+            scope.set_var(n, env[n])
         missing = [n for n in fetched if n not in env]
         if missing:
             raise KeyError(f"fetch targets {missing} are neither fed, "

@@ -1,11 +1,14 @@
 """NN layer functions — the user-facing model-building API.
 
 Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
-calls: data :21, fc :34 (over several inputs too), embedding :63,
-layer_norm :223, dropout :271, softmax :284, softmax_with_cross_entropy
-:310, mean :331, reshape :359, transpose :367, split :375, unsqueeze
-:413, matmul :462, scale :548, elementwise_add, greater_than :794,
-fused_mha :877, fused_attention_qkv :948 and fused_lm_head_loss :968.
+and the image classifiers (models/resnet.py, lenet.py, vgg.py) call:
+data :21, fc :34 (over several inputs too), embedding :63, conv2d :114,
+pool2d :163, batch_norm :187, layer_norm :223, dropout :271, softmax
+:284, cross_entropy :300, softmax_with_cross_entropy :310, mean :331,
+reshape :359, transpose :367, split :375, unsqueeze :413, matmul :462,
+topk :480, accuracy :489, scale :548, elementwise_add :557 (with its
+``act``), greater_than :794, fused_mha :877, fused_attention_qkv :948 and
+fused_lm_head_loss :968.
 Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
@@ -22,11 +25,12 @@ from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
-__all__ = ["data", "fc", "embedding", "layer_norm", "dropout", "softmax",
+__all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "dropout", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "reshape", "transpose",
-           "split", "unsqueeze", "matmul", "scale", "elementwise_add",
-           "greater_than", "fused_mha", "fused_attention_qkv",
-           "fused_lm_head_loss"]
+           "split", "unsqueeze", "matmul", "topk", "accuracy", "scale",
+           "elementwise_add", "greater_than", "fused_mha",
+           "fused_attention_qkv", "fused_lm_head_loss"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -91,6 +95,89 @@ def embedding(input: Variable, size, is_sparse=False, padding_idx=None,
     return out
 
 
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [int(v), int(v)]
+
+
+def conv2d(input: Variable, num_filters: int, filter_size, stride=1,
+           padding=0, dilation=1, groups=1, param_attr=None, bias_attr=None,
+           act=None, name=None) -> Variable:
+    """NCHW input, OIHW filter drawn from N(0, 2 / fan_in); the bias (none
+    with ``bias_attr=False``) is an elementwise_add over dims from 1."""
+    helper = LayerHelper("conv2d", name=name)
+    c_in = int(input.shape[1])
+    fs = filter_size if isinstance(filter_size, (list, tuple)) else (
+        filter_size, filter_size)
+    w_shape = [num_filters, c_in // groups, fs[0], fs[1]]
+    fan_in = (c_in // groups) * fs[0] * fs[1]
+    w = helper.create_parameter(
+        param_attr, shape=w_shape, dtype=input.dtype,
+        default_initializer=NormalInitializer(0.0, math.sqrt(2.0 / fan_in)))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d", {"Input": [input], "Filter": [w]},
+                     {"Output": [out]},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation), "groups": groups})
+    bias = helper.create_parameter(bias_attr, shape=[num_filters],
+                                   dtype=input.dtype, is_bias=True)
+    pre_act = helper.append_bias_op(out, bias, dim_start=1)
+    return helper.append_activation(pre_act, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None) -> Variable:
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", {"X": [input]}, {"Out": [out]},
+                     {"ksize": _pair(pool_size),
+                      "pooling_type": "avg" if pool_type == "avg" else "max",
+                      "strides": _pair(pool_stride),
+                      "paddings": _pair(pool_padding),
+                      "global_pooling": global_pooling,
+                      "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False, name=None) -> Variable:
+    """Scale (1) and bias (0) are trainable params; the moving mean (0)
+    and variance (1) are params with ``trainable=False``, which the op
+    writes back in place (MeanOut / VarianceOut); SavedMean and
+    SavedVariance are stop-gradient temporaries."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = int(input.shape[1 if data_layout == "NCHW" else -1])
+    scale = helper.create_parameter(
+        param_attr, shape=[c], dtype="float32",
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype="float32",
+                                   is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False,
+                  initializer=ConstantInitializer(0.0)),
+        shape=[c], dtype="float32")
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False,
+                  initializer=ConstantInitializer(1.0)),
+        shape=[c], dtype="float32")
+    saved_mean = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "batch_norm",
+        {"X": [input], "Scale": [scale], "Bias": [bias],
+         "Mean": [mean], "Variance": [variance]},
+        {"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+         "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout, "use_global_stats": use_global_stats})
+    return helper.append_activation(out, act)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None) -> Variable:
@@ -134,6 +221,16 @@ def softmax(input, axis=-1, name=None):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("softmax", {"X": [input]}, {"Out": [out]},
                      {"axis": axis})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     {"X": [input], "Label": [label]}, {"Y": [out]},
+                     {"soft_label": soft_label,
+                      "ignore_index": ignore_index})
     return out
 
 
@@ -204,6 +301,29 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    vals = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("top_k", {"X": [input]},
+                     {"Out": [vals], "Indices": [ids]}, {"k": int(k)})
+    return vals, ids
+
+
+def accuracy(input, label, k=1, name=None):
+    """top_k, then the accuracy op (ref layers/metric_op.py)."""
+    vals, ids = topk(input, k)
+    helper = LayerHelper("accuracy", name=name)
+    acc = helper.create_variable_for_type_inference("float32", True)
+    correct = helper.create_variable_for_type_inference("int32", True)
+    total = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("accuracy",
+                     {"Out": [vals], "Indices": [ids], "Label": [label]},
+                     {"Accuracy": [acc], "Correct": [correct],
+                      "Total": [total]}, {})
+    return acc
+
+
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
     helper = LayerHelper("scale", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -213,12 +333,12 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, name=None):
+def elementwise_add(x, y, axis=-1, act=None, name=None):
     helper = LayerHelper("elementwise_add", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("elementwise_add", {"X": [x], "Y": [y]},
                      {"Out": [out]}, {"axis": axis})
-    return out
+    return helper.append_activation(out, act)
 
 
 def greater_than(x, y, cond=None, name=None):

@@ -1,4 +1,5 @@
-"""Loss ops (counterpart of paddle_tpu/ops/loss_ops.py:
+"""Loss ops (counterpart of paddle_tpu/ops/loss_ops.py: cross_entropy
+:26, the classifiers' loss on probabilities, and
 softmax_with_cross_entropy :42).  Integer labels carry a trailing dim of
 1, as in the reference."""
 from __future__ import annotations
@@ -12,6 +13,26 @@ def _squeeze_label(label):
     if label.ndim >= 2 and label.shape[-1] == 1:
         return label.squeeze(-1)
     return label
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """X is a probability distribution (post-softmax): -log(p + 1e-20)
+    of the label's entry, or -sum(label * log(p + 1e-20)) for soft
+    labels; rows whose label is ignore_index lose 0."""
+    x = single_input(ins)
+    label = single_input(ins, "Label")
+    ignore_index = int(attrs.get("ignore_index", -100))
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * torch.log(x + 1e-20), dim=-1,
+                          keepdim=True)
+    else:
+        lab = _squeeze_label(label).long()[..., None]
+        picked = torch.gather(x, -1, lab.clamp(0, x.shape[-1] - 1))
+        loss = -torch.log(picked + 1e-20)
+        loss = torch.where(lab == ignore_index, torch.zeros_like(loss),
+                           loss)
+    return {"Y": [loss]}
 
 
 @register_op("softmax_with_cross_entropy")

@@ -1,6 +1,18 @@
-"""NN ops (counterpart of paddle_tpu/ops/nn_ops.py: layer_norm :261,
-softmax :349, dropout :362 and lookup_table :384)."""
+"""NN ops (counterpart of paddle_tpu/ops/nn_ops.py: the conv plane,
+conv2d :51, depthwise_conv2d :81, pool2d :180 (``_pool_nd`` :139) and
+batch_norm :220, with ``_pair`` :36 and ``_conv_padding`` :42; layer_norm
+:261, softmax :349, dropout :362 and lookup_table :384).
+
+The JAX package leaves the conv plane to XLA (``conv_general_dilated``,
+``reduce_window``, jnp arithmetic); here the convolution is
+``F.conv2d`` (cuDNN on the card) and pooling torch's, each where it
+computes JAX's function, and batch norm spells the JAX formula.  Layout
+is NCHW with OIHW filters, as in the JAX package; only batch_norm reads
+``data_layout``.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -8,6 +20,163 @@ import torch.nn.functional as F
 from ..framework.registry import register_op, single_input
 from ..kernels.layer_norm import layer_norm_train as _layer_norm_rows
 from .creation import op_generator
+from .math_ops import amp_inputs, amp_result
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _conv_padding(padding, ksize, strides, dilations, spatial):
+    """Per spatial dim (lo, hi): the reference's symmetric int padding,
+    or the SAME / VALID strings resolved as XLA resolves them (SAME: out
+    = ceil(in / stride), the odd pad on the high side)."""
+    if not isinstance(padding, str):
+        return [(p, p) for p in _pair(padding, len(spatial))]
+    if padding.upper() == "VALID":
+        return [(0, 0)] * len(spatial)
+    pads = []
+    for n, k, s, d in zip(spatial, ksize, strides, dilations):
+        out = -(-int(n) // s)
+        total = max((out - 1) * s + (int(k) - 1) * d + 1 - int(n), 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _torch_pad(pads):
+    """[(lo, hi)] per spatial dim as F.pad's list (last dim first)."""
+    return [p for lo_hi in reversed(pads) for p in lo_hi]
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW x OIHW -> NCHW (ref operators/conv_op.cc) through F.conv2d;
+    asymmetric padding (SAME at some strides) is an explicit F.pad first.
+    Under FLAGS_amp_bf16 the JAX lowering's casts: both operands bf16,
+    the output stays bf16 (amp_result); cuDNN accumulates in f32.  The
+    optional fused Bias is added after, in the output's dtype."""
+    x = single_input(ins, "Input")
+    w = single_input(ins, "Filter")
+    strides = _pair(attrs.get("strides", 1))
+    dilations = _pair(attrs.get("dilations", 1))
+    groups = int(attrs.get("groups", 1))
+    pads = _conv_padding(attrs.get("paddings", 0), w.shape[2:], strides,
+                         dilations, x.shape[2:])
+    orig_dtype = x.dtype
+    xc, wc = amp_inputs(x, w)
+    if any(lo != hi for lo, hi in pads):
+        xc = F.pad(xc, _torch_pad(pads))
+        pads = [(0, 0)] * len(pads)
+    out = F.conv2d(xc, wc, None, strides, [lo for lo, _ in pads],
+                   dilations, groups)
+    if ins.get("Bias"):
+        bias, = amp_inputs(ins["Bias"][0])
+        out = out + bias.reshape(1, -1, 1, 1)
+    return {"Output": [amp_result(out, orig_dtype)]}
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    x = single_input(ins, "Input")
+    return _conv2d(ctx, ins, dict(attrs, groups=x.shape[1]))
+
+
+def _pool2d_nchw(x, attrs):
+    """2-D pooling with JAX's windows (ref pool_op.cc; JAX ``_pool_nd``
+    at nd 2): max | avg, global_pooling, ceil_mode (the high side
+    padded by (s - rem) % s, every window kept), exclusive avg (divide by
+    the in-bounds count, only where some padding is non-zero; otherwise
+    by prod(ksize)).  Torch's own padding computes that function where
+    the padding is symmetric and at most half the window; ceil_mode's
+    extra padding or a wider one is an explicit F.pad (-inf for max, 0
+    for avg) with the count taken from a padded plane of ones."""
+    ptype = attrs.get("pooling_type", "max")
+    if attrs.get("global_pooling", False):
+        ksize = tuple(int(s) for s in x.shape[2:])
+        pads = [(0, 0)] * 2
+        strides = (1, 1)
+    else:
+        ksize = _pair(attrs["ksize"])
+        strides = _pair(attrs.get("strides", 1))
+        pads = [(p, p) for p in _pair(attrs.get("paddings", 0))]
+    if attrs.get("ceil_mode", False):
+        pads = [(lo, hi + (s - (int(n) + lo + hi - k) % s) % s)
+                for (lo, hi), n, k, s in zip(pads, x.shape[2:], ksize,
+                                             strides)]
+    padded = any(p != (0, 0) for p in pads)
+    native = all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads,
+                                                                 ksize))
+    if ptype == "max":
+        if native:
+            return F.max_pool2d(x, ksize, strides, [lo for lo, _ in pads])
+        return F.max_pool2d(F.pad(x, _torch_pad(pads), value=-math.inf),
+                            ksize, strides)
+    exclusive = bool(attrs.get("exclusive", True)) and padded
+    if native:
+        return F.avg_pool2d(x, ksize, strides, [lo for lo, _ in pads],
+                            count_include_pad=not exclusive)
+    summed = F.avg_pool2d(F.pad(x, _torch_pad(pads)), ksize, strides,
+                          divisor_override=1)
+    if not exclusive:
+        return (summed / float(math.prod(ksize))).to(x.dtype)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    counts = F.avg_pool2d(F.pad(ones, _torch_pad(pads)), ksize, strides,
+                          divisor_override=1)
+    return (summed / counts).to(x.dtype)
+
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """ref pool_op.cc: max|avg, global_pooling, exclusive avg, NCHW."""
+    return {"Out": [_pool2d_nchw(single_input(ins), attrs)]}
+
+
+@register_op("batch_norm")
+def _batch_norm(ctx, ins, attrs):
+    """ref batch_norm_op.cc, in the JAX lowering's formula (not
+    F.batch_norm's): batch variance E[x^2] - mean^2 in f32; running
+    stats momentum * running + (1 - momentum) * batch with the biased
+    batch variance, detached (JAX's stop_gradient: a state output must
+    not carry the step's graph into the scope); SavedVariance
+    1/sqrt(var + eps); is_test and use_global_stats normalise by the
+    running stats and write them back unchanged; Y in f32, cast back to
+    X's dtype.  MeanOut / VarianceOut write the Mean / Variance names."""
+    x = single_input(ins)
+    scale = single_input(ins, "Scale")
+    bias = single_input(ins, "Bias")
+    mean = single_input(ins, "Mean")
+    var = single_input(ins, "Variance")
+    eps = float(attrs.get("epsilon", 1e-5))
+    momentum = float(attrs.get("momentum", 0.9))
+    c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.ndim - 1
+    red_axes = tuple(i for i in range(x.ndim) if i != c_axis)
+    bshape = tuple(x.shape[c_axis] if i == c_axis else 1
+                   for i in range(x.ndim))
+    xf = x.float()
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        use_mean, use_var = mean, var
+        saved_mean, saved_var = mean, var
+        mean_out, var_out = mean, var
+    else:
+        bmean = torch.mean(xf, dim=red_axes)
+        bvar = torch.mean(torch.square(xf), dim=red_axes) - torch.square(
+            bmean)
+        use_mean, use_var = bmean, bvar
+        saved_mean = bmean
+        saved_var = 1.0 / torch.sqrt(bvar + eps)
+        mean_out = (momentum * mean + (1 - momentum) * bmean).detach().to(
+            mean.dtype)
+        var_out = (momentum * var + (1 - momentum) * bvar).detach().to(
+            var.dtype)
+    inv = torch.rsqrt(use_var.float() + eps)
+    y = (xf - use_mean.reshape(bshape)) * inv.reshape(bshape)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    return {"Y": [y.to(x.dtype)],
+            "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [saved_mean], "SavedVariance": [saved_var]}
 
 
 @register_op("layer_norm")

@@ -1,6 +1,6 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py).
 
-Only ``adam`` (:61) is ported.  Each op reads Param/Grad/LearningRate and
+``sgd`` (:25), ``momentum`` (:31) and ``adam`` (:61) are ported.  Each op reads Param/Grad/LearningRate and
 its accumulators and writes ParamOut and the accumulator outs to the SAME
 var names; the Executor rebinds the names.  Plain torch, as the JAX
 package leaves the op to XLA.
@@ -14,6 +14,28 @@ from ..framework.registry import register_op
 
 def _p(ins, slot):
     return ins[slot][0]
+
+
+@register_op("sgd")
+def _sgd(ctx, ins, attrs):
+    param, grad, lr = _p(ins, "Param"), _p(ins, "Grad"), _p(ins,
+                                                            "LearningRate")
+    return {"ParamOut": [param - lr.reshape(()) * grad]}
+
+
+@register_op("momentum")
+def _momentum(ctx, ins, attrs):
+    """v = mu * v + g; p -= lr * v, or with use_nesterov
+    p -= (g + mu * v) * lr."""
+    param, grad = _p(ins, "Param"), _p(ins, "Grad")
+    vel, lr = _p(ins, "Velocity"), _p(ins, "LearningRate").reshape(())
+    mu = float(attrs["mu"])
+    v = mu * vel + grad
+    if attrs.get("use_nesterov", False):
+        p = param - (grad + mu * v) * lr
+    else:
+        p = param - lr * v
+    return {"ParamOut": [p], "VelocityOut": [v]}
 
 
 @register_op("adam")

@@ -1,7 +1,7 @@
 """Optimizers: program rewriters that append update ops.
 
-Counterpart of paddle_tpu/optimizer.py:27-311 (``Optimizer`` and
-``Adam``).  ``minimize`` appends the ``autodiff`` op
+Counterpart of paddle_tpu/optimizer.py:27-311 (``Optimizer``, ``SGD``
+:218, ``Momentum`` :229 and ``Adam``).  ``minimize`` appends the ``autodiff`` op
 (framework/backward.py), a learning-rate var and the accumulators
 (persistable vars initialised by ``fill_constant`` in the startup
 program), then one update op per trainable parameter.  Var names come out
@@ -207,6 +207,43 @@ class Optimizer:
                 block.append_op("elementwise_mul", {"X": [acc], "Y": [inv]},
                                 {"Out": [acc]})
         return None, param_grads
+
+
+class SGD(Optimizer):
+    def _append_optimize_op(self, block, param, grad_name, lr_name):
+        block.append_op("sgd",
+                        {"Param": [param.name], "Grad": [grad_name],
+                         "LearningRate": [lr_name]},
+                        {"ParamOut": [param.name]}, {})
+
+
+SGDOptimizer = SGD
+
+
+class Momentum(Optimizer):
+    """One ``velocity`` accumulator a parameter (``<name>.<param>.
+    velocity``, zeros); ``use_nesterov`` takes the Nesterov step."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, params):
+        for p in params:
+            self._add_accumulator("velocity", p, block)
+
+    def _append_optimize_op(self, block, param, grad_name, lr_name):
+        vel = self._accumulators["velocity"][param.name]
+        block.append_op("momentum",
+                        {"Param": [param.name], "Grad": [grad_name],
+                         "Velocity": [vel], "LearningRate": [lr_name]},
+                        {"ParamOut": [param.name], "VelocityOut": [vel]},
+                        {"mu": self._momentum,
+                         "use_nesterov": self._use_nesterov})
+
+
+MomentumOptimizer = Momentum
 
 
 class Adam(Optimizer):

@@ -619,10 +619,12 @@ def test_mul_rule_agrees_with_jax(nc):
 def test_lint_cli_exit_codes(capsys):
     assert lint_cli.main([]) == 0
     out = capsys.readouterr().out
-    assert "[lint] transformer_lm: ok" in out
+    for model in ("lenet", "vgg", "resnet", "transformer_lm"):
+        assert f"[lint] {model}: ok" in out
     assert "0 errors" in out.splitlines()[-1]
     assert lint_cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["transformer_lm"]
+    assert capsys.readouterr().out.split() == ["lenet", "vgg", "resnet",
+                                               "transformer_lm"]
     assert lint_cli.main(["--models", "nope"]) == 2
     assert lint_cli.main(["--self-test"]) == 1
 
@@ -634,4 +636,4 @@ def test_lint_cli_runs_as_a_module_without_warning():
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "1 models: 0 errors" in res.stdout
+    assert "4 models: 0 errors" in res.stdout

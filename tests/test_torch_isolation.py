@@ -100,7 +100,10 @@ def test_serving_plane_imports_no_jax():
 _ANALYSIS_CHILD = """
 import json, sys
 import paddle_tpu_torch.analysis as analysis
+from paddle_tpu_torch import nets
 from paddle_tpu_torch.analysis import lint
+from paddle_tpu_torch.models import lenet, resnet, vgg
+from paddle_tpu_torch.ops import metric_ops, reduce_ops
 rc = lint.main([])
 selftest = lint.main(["--self-test"])
 print(json.dumps({
@@ -113,13 +116,15 @@ print(json.dumps({
 
 def test_analysis_plane_and_lint_cli_run_without_jax():
     """The verifier's shape inference runs the port's lowerings on meta
-    tensors: the lint CLI verifies its models with no JAX loaded."""
+    tensors: the lint CLI verifies its models (the image classifiers and
+    the conv plane's ops and nets among them) with no JAX loaded."""
     res = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert "[lint] transformer_lm: ok" in res.stdout
+    for model in ("lenet", "vgg", "resnet", "transformer_lm"):
+        assert f"[lint] {model}: ok" in res.stdout
     report = json.loads(lines[-1])
     assert report == {"rc": 0, "self_test": 1,
                       "schema": "paddle_tpu.analysis.v1", "leaked": []}

@@ -4,7 +4,12 @@ same op, on the same seeded numpy inputs and attrs.
 The JAX side runs on the CPU with its Pallas kernels in interpret mode (a
 LowerContext without a place picks interpret off-TPU), as its own tests do.
 Tolerance: 1e-5 for elementwise math; 1e-4 relative for ops with matrix
-products (another summation order).
+products (another summation order); CONV (rtol 1e-4, atol 1e-5) for
+convolutions and batch norm (sums over a window or a channel's N*H*W
+entries, in another order); exact for max pooling, top_k and accuracy
+(no arithmetic, or integer counts).  The gradient cases of the conv
+plane (``test_conv_plane_grad_matches_jax``) hold torch autograd
+against jax.vjp of the JAX lowering under one seeded cotangent at CONV.
 """
 import zlib
 
@@ -23,6 +28,8 @@ from paddle_tpu_torch.kernels.layer_norm import layer_norm
 
 EXACT = dict(rtol=1e-5, atol=1e-5)
 MATMUL = dict(rtol=1e-4, atol=1e-5)
+CONV = dict(rtol=1e-4, atol=1e-5)
+SAME = dict(rtol=0, atol=0)
 
 
 def _run_both(op, ins, attrs):
@@ -53,6 +60,11 @@ def _compare(jouts, touts, slots, tol):
 
 def _rand(rng, *shape):
     return rng.randn(*shape).astype("float32")
+
+
+def _softmax_rows(x):
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True)).astype("float32")
 
 
 # (op, input builder, attrs, compared slots, tolerance)
@@ -309,6 +321,142 @@ CASES = {
         lambda r: {"X": [_rand(r, 200, 16)], "W": [_rand(r, 16, 77) * 0.2],
                    "Label": [r.randint(-1, 77, 200)]},
         {"chunk_size": 64}, ["Loss"], MATMUL),
+    # the conv plane (ops/nn_ops.py)
+    "conv2d_stride_pad": (
+        "conv2d", lambda r: {"Input": [_rand(r, 2, 3, 9, 9)],
+                             "Filter": [_rand(r, 4, 3, 3, 3)]},
+        {"strides": [2, 2], "paddings": [1, 1]}, ["Output"], CONV),
+    "conv2d_dilation_groups": (
+        "conv2d", lambda r: {"Input": [_rand(r, 2, 4, 11, 10)],
+                             "Filter": [_rand(r, 6, 2, 3, 2)]},
+        {"strides": [1, 2], "paddings": [2, 1], "dilations": [2, 1],
+         "groups": 2}, ["Output"], CONV),
+    "conv2d_same_stride2_odd_pad": (
+        "conv2d", lambda r: {"Input": [_rand(r, 2, 3, 10, 9)],
+                             "Filter": [_rand(r, 5, 3, 4, 3)]},
+        {"strides": [2, 2], "paddings": "SAME"}, ["Output"], CONV),
+    "conv2d_same_dilated": (
+        "conv2d", lambda r: {"Input": [_rand(r, 1, 2, 8, 8)],
+                             "Filter": [_rand(r, 3, 2, 3, 3)]},
+        {"paddings": "same", "dilations": [2, 2]}, ["Output"], CONV),
+    "conv2d_valid_bias": (
+        "conv2d", lambda r: {"Input": [_rand(r, 2, 3, 7, 8)],
+                             "Filter": [_rand(r, 4, 3, 3, 3)],
+                             "Bias": [_rand(r, 4)]},
+        {"paddings": "VALID"}, ["Output"], CONV),
+    "conv2d_1x1_int_attrs": (
+        "conv2d", lambda r: {"Input": [_rand(r, 3, 8, 5, 5)],
+                             "Filter": [_rand(r, 16, 8, 1, 1)]},
+        {"strides": 1, "paddings": 0, "dilations": 1}, ["Output"], CONV),
+    "depthwise_conv2d": (
+        "depthwise_conv2d", lambda r: {"Input": [_rand(r, 2, 4, 8, 8)],
+                                       "Filter": [_rand(r, 4, 1, 3, 3)]},
+        {"strides": [1, 1], "paddings": [1, 1]}, ["Output"], CONV),
+    "depthwise_conv2d_multiplier": (
+        "depthwise_conv2d", lambda r: {"Input": [_rand(r, 2, 3, 9, 9)],
+                                       "Filter": [_rand(r, 6, 1, 3, 3)]},
+        {"strides": [2, 2], "paddings": "SAME"}, ["Output"], CONV),
+    **{f"pool2d_{t}_p{p}_{'ceil' if c else 'floor'}_"
+       f"{'excl' if e else 'incl'}": (
+           "pool2d", lambda r, h=h: {"X": [_rand(r, 2, 3, h, h + 1)]},
+           {"pooling_type": t, "ksize": [3, 3], "strides": [2, 2],
+            "paddings": [p, p], "ceil_mode": c, "exclusive": e},
+           ["Out"], SAME if t == "max" else EXACT)
+       for t in ("max", "avg") for p in (0, 1) for c in (False, True)
+       for e in (True, False) for h in (8,)},
+    # windows wider than torch's native padding (pad > k / 2), a window
+    # that starts in the high padding under ceil_mode, and a 2 x 2 grid
+    "pool2d_max_wide_pad": (
+        "pool2d", lambda r: {"X": [_rand(r, 2, 2, 7, 7)]},
+        {"pooling_type": "max", "ksize": [2, 2], "strides": [1, 1],
+         "paddings": [2, 2]}, ["Out"], SAME),
+    "pool2d_avg_wide_pad_excl": (
+        "pool2d", lambda r: {"X": [_rand(r, 2, 2, 7, 7)]},
+        {"pooling_type": "avg", "ksize": [2, 2], "strides": [1, 1],
+         "paddings": [2, 2], "exclusive": True}, ["Out"], EXACT),
+    "pool2d_avg_ceil_window_in_pad": (
+        "pool2d", lambda r: {"X": [_rand(r, 1, 2, 5, 5)]},
+        {"pooling_type": "avg", "ksize": [2, 2], "strides": [3, 3],
+         "paddings": [1, 1], "ceil_mode": True, "exclusive": False},
+        ["Out"], EXACT),
+    "pool2d_max_2x2": (
+        "pool2d", lambda r: {"X": [_rand(r, 2, 3, 8, 6)]},
+        {"pooling_type": "max", "ksize": [2, 2], "strides": [2, 2]},
+        ["Out"], SAME),
+    **{f"pool2d_global_{t}": (
+        "pool2d", lambda r: {"X": [_rand(r, 2, 5, 7, 6)]},
+        {"pooling_type": t, "ksize": [1, 1], "global_pooling": True,
+         "ceil_mode": True, "paddings": [1, 1]}, ["Out"], EXACT)
+       for t in ("max", "avg")},
+    **{f"batch_norm_{mode}_{layout}": (
+        "batch_norm", lambda r, layout=layout: {
+            "X": [_rand(r, *((4, 3, 5, 6) if layout == "NCHW"
+                             else (4, 5, 6, 3))) * 2 + 0.5],
+            "Scale": [_rand(r, 3)], "Bias": [_rand(r, 3)],
+            "Mean": [_rand(r, 3) * 0.1],
+            "Variance": [np.abs(_rand(r, 3)) + 0.5]},
+        {"momentum": 0.9, "epsilon": 1e-5, "data_layout": layout,
+         "is_test": mode == "test",
+         "use_global_stats": mode == "global_stats"},
+        ["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+        CONV)
+       for mode in ("train", "test", "global_stats")
+       for layout in ("NCHW", "NHWC")},
+    "batch_norm_fc_rows": (
+        "batch_norm", lambda r: {
+            "X": [_rand(r, 16, 7)], "Scale": [_rand(r, 7)],
+            "Bias": [_rand(r, 7)], "Mean": [np.zeros(7, "float32")],
+            "Variance": [np.ones(7, "float32")]},
+        {"momentum": 0.5, "epsilon": 1e-3},
+        ["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+        CONV),
+    "cross_entropy_hard": (
+        "cross_entropy",
+        lambda r: {"X": [_softmax_rows(_rand(r, 6, 9))],
+                   "Label": [np.array([[0], [3], [8], [5], [4], [1]])]},
+        {}, ["Y"], EXACT),
+    "cross_entropy_ignore_index": (
+        "cross_entropy",
+        lambda r: {"X": [_softmax_rows(_rand(r, 6, 9))],
+                   "Label": [np.array([[0], [3], [-100], [7], [-100], [1]])]},
+        {"ignore_index": -100}, ["Y"], EXACT),
+    "cross_entropy_ignore_in_range": (
+        "cross_entropy",
+        lambda r: {"X": [_softmax_rows(_rand(r, 5, 4))],
+                   "Label": [np.array([[0], [2], [3], [2], [1]])]},
+        {"ignore_index": 2}, ["Y"], EXACT),
+    "cross_entropy_soft": (
+        "cross_entropy",
+        lambda r: {"X": [_softmax_rows(_rand(r, 6, 9))],
+                   "Label": [_softmax_rows(_rand(r, 6, 9))]},
+        {"soft_label": True}, ["Y"], EXACT),
+    "top_k_ties": (
+        "top_k", lambda r: {"X": [r.randint(0, 4, (5, 12)).astype(
+            "float32")]},
+        {"k": 5}, ["Out", "Indices"], SAME),
+    "top_k_1": ("top_k", lambda r: {"X": [_rand(r, 2, 3, 10)]}, {"k": 1},
+                ["Out", "Indices"], SAME),
+    "accuracy_top1": (
+        "accuracy", lambda r: {"Out": [_rand(r, 8, 1)],
+                               "Indices": [r.randint(0, 4, (8, 1))],
+                               "Label": [r.randint(0, 4, (8, 1))]},
+        {}, ["Accuracy", "Correct", "Total"], SAME),
+    "accuracy_top3": (
+        "accuracy", lambda r: {"Out": [_rand(r, 10, 3)],
+                               "Indices": [r.randint(0, 6, (10, 3))],
+                               "Label": [r.randint(0, 6, (10, 1))]},
+        {}, ["Accuracy", "Correct", "Total"], SAME),
+    "sgd": ("sgd", lambda r: {"Param": [_rand(r, 3, 4)],
+                              "Grad": [_rand(r, 3, 4)],
+                              "LearningRate": [np.array([0.01], "float32")]},
+            {}, ["ParamOut"], EXACT),
+    **{f"momentum{'_nesterov' if n else ''}": (
+        "momentum", lambda r: {"Param": [_rand(r, 3, 4)],
+                               "Grad": [_rand(r, 3, 4)],
+                               "Velocity": [_rand(r, 3, 4) * 0.1],
+                               "LearningRate": [np.array([0.1], "float32")]},
+        {"mu": 0.9, "use_nesterov": n}, ["ParamOut", "VelocityOut"], EXACT)
+       for n in (False, True)},
 }
 
 
@@ -401,3 +549,57 @@ def test_random_init_ops_distribution(op, attrs, check):
     assert check(a) and check(jout)
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
+
+
+# (op, attrs, differentiated input slots, output slot) for the conv
+# plane's gradients; the inputs are the CASES entry of the same name
+GRAD_CASES = {
+    "conv2d_stride_pad": ("Input", "Filter"),
+    "conv2d_dilation_groups": ("Input", "Filter"),
+    "conv2d_same_stride2_odd_pad": ("Input", "Filter"),
+    "conv2d_valid_bias": ("Input", "Filter", "Bias"),
+    "depthwise_conv2d": ("Input", "Filter"),
+    "pool2d_max_p1_floor_excl": ("X",),
+    "pool2d_max_wide_pad": ("X",),
+    "pool2d_avg_p1_floor_excl": ("X",),
+    "pool2d_avg_p1_ceil_incl": ("X",),
+    "pool2d_avg_ceil_window_in_pad": ("X",),
+    "pool2d_global_avg": ("X",),
+    "batch_norm_train_NCHW": ("X", "Scale", "Bias"),
+    "batch_norm_train_NHWC": ("X", "Scale", "Bias"),
+    "batch_norm_global_stats_NCHW": ("X", "Scale", "Bias"),
+}
+_MAIN_OUT = {"conv2d": "Output", "depthwise_conv2d": "Output",
+             "pool2d": "Out", "batch_norm": "Y"}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_conv_plane_grad_matches_jax(name):
+    """torch autograd through the port's lowering against jax.vjp of the
+    JAX lowering, for one seeded cotangent of the main output, at CONV."""
+    op, build, attrs, _, _ = CASES[name]
+    wrt = GRAD_CASES[name]
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
+    ins = build(rng)
+    out_slot = _MAIN_OUT[op]
+
+    def jax_fn(*diff):
+        jins = {k: [jnp.asarray(a) for a in v] for k, v in ins.items()}
+        for slot, a in zip(wrt, diff):
+            jins[slot] = [a]
+        return jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), jins,
+                                attrs)[out_slot][0]
+
+    out, vjp = jax.vjp(jax_fn, *[jnp.asarray(ins[s][0]) for s in wrt])
+    ct = rng.randn(*out.shape).astype("float32")
+    jgrads = vjp(jnp.asarray(ct))
+
+    tins = {k: [torch.from_numpy(np.array(a, order="C")) for a in v]
+            for k, v in ins.items()}
+    leaves = [tins[s][0].requires_grad_(True) for s in wrt]
+    tout = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), tins,
+                              attrs)[out_slot][0]
+    tgrads = torch.autograd.grad(tout, leaves, torch.from_numpy(ct))
+    for slot, t, j in zip(wrt, tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=slot,
+                                   **CONV)
