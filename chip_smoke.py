@@ -75,7 +75,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    Both give the same bits twice and refuse a planted fault (the flash
    skipping a key tile, the block without b1).  The layer norm on bf16
    rows (LN_BF16_CASES: the training shape, N 4095 and N 1, D 264, 520,
-   2048 and 8192, rows of mean 64) on the path its operands choose
+   768 (BERT-base's rows and its MLM head's), 2048 and 8192, rows of
+   mean 64) on the path its operands choose
    (layer_norm.bf16_path: v16 for all of these), checked by the path
    counters, and again forced onto the scalar path on the same inputs: y
    within LN_BF16_TOL, mean and rstd within LN_TOL, two calls of each
@@ -241,6 +242,33 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "resnet_serve", "resnet_serve_amp") launches none of this repo's
    kernels, by the counters, and appears in the JSON line's
    launches_by_path.
+5h. Transformer-base NMT (slice 19), bench.py's bench_nmt: models.
+   transformer.build_train_net at V 8000, L 6, H 8, d 512, d_inner 2048,
+   dropout 0, label smoothing 0.1, S 64, Adam(1e-4), batch 256; and BERT-
+   base pretraining (models.bert.build_pretrain_net, BertConfig() at its
+   defaults: V 30522, hidden 768, 12 layers, 12 heads, 3072, dropout 0.1)
+   at seq 128, batch 32, 20 predictions a sequence, Adam(1e-4).  (a) For
+   each, one f32 step at batch 8 with ragged masks (src_mask, tgt_mask or
+   input_mask zeros, zero mask_weight rows; BERT's dropout 0) from the
+   card's startup state, on the card, on a CPUPlace executor and on the
+   card with TF32 matmuls: the loss's relative error and every @GRAD's
+   ||card - CPU|| / ||CPU|| within XFMR_LOSS_RTOL and XFMR_GRAD_RTOL, the
+   control outside one of them.  (b) Each training row on the card, f32
+   and under AMP: XFMR_WARMUP + XFMR_RUNS runs on one batch with the
+   counters zeroed just before and read just after (the layer norms the
+   program's layer_norm ops and their input dtypes give, every bf16 one
+   on the v16 path, no other kernel of this repo), the AMP loss falling
+   over the first XFMR_RUNS runs; the first run, the run p50, peak
+   memory, and time_run_steps as bench.py's _time_steps times the row,
+   with tokens/s (NMT: src + tgt) and BERT's sequences/s.  (c) bench_nmt's
+   is_test build saved and served by the Predictor at batch 8 with ragged
+   masks: the card's logits against the CPU Predictor's at XFMR_PRED_RTOL
+   of max |logit|, the request p50 and its layer-norm launches.  (d) the
+   layer norm at D 768, N 4096 timed f32 and on bf16 rows beside its
+   plain version, F.layer_norm and its byte bound.  The AMP step of each
+   model is traced at the end of the smoke (kernel classes, idle share,
+   the layer norms by kernel).  Paths "nmt_train", "nmt_train_amp",
+   "bert_train", "bert_train_amp" and "nmt_serve" in launches_by_path.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -295,7 +323,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "launches_by_path", the decode engine's under "decode" and its oracle's
    under "decode_oracle", phase 5e's run_steps call's under
    "train_run_steps" and its Trainer's under "trainer", phase 5g's under
-   "resnet_*", all 0; the bf16 kernels' launches are the AMP step's;
+   "resnet_*", all 0, phase 5h's under "nmt_*" and "bert_*", layer norms
+   only; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -1009,6 +1038,8 @@ def phase_compare(torch):
             (TRAIN_BATCH * TRAIN_T, 512, torch.float32, "train"),
             (8 * SERVE_T, 512, torch.float32, "serve"),
             (4095, 512, torch.float32, "ragged"),
+            (4096, 768, torch.float32, "ragged"),   # BERT-base's rows
+            (640, 768, torch.float32, "ragged"),    # its MLM head's
             (333, 2048, torch.float32, "ragged"),
             (7, 8192, torch.float32, "ragged")]:
         x = rnd(n, d, dtype=dtype) * 2 + 0.5
@@ -1265,6 +1296,8 @@ LN_BF16_CASES = [
     (1, 512, 0.5, "ragged"),
     (1000, 264, 0.5, "ragged"),
     (777, 520, 0.5, "ragged"),
+    (4096, 768, 0.5, "ragged"),     # BERT-base's rows and its MLM head's
+    (640, 768, 0.5, "ragged"),
     (333, 2048, 0.5, "ragged"),
     (7, 8192, 0.5, "ragged"),
     (4096, 512, 64.0, "ragged"),
@@ -3880,6 +3913,472 @@ def phase_resnet(torch):
     return by_path
 
 
+# phase 5h: Transformer-base NMT as bench.py's bench_nmt (:448-478) trains
+# it, and BERT-base pretraining at Google's run_pretraining.py defaults
+# (BertConfig() widths, seq 128, batch 32, 20 predictions a sequence)
+NMT_CFG = dict(src_vocab_size=8000, tgt_vocab_size=8000, n_layer=6,
+               n_head=8, d_model=512, d_inner=2048, dropout=0.0)
+NMT_T = 64                  # bench_nmt's S, source and target
+NMT_BATCH = 256             # bench_nmt's batch
+BERT_CFG = {}                # BertConfig() at its defaults: BERT-base
+BERT_T = 128
+BERT_BATCH = 32
+BERT_PREDS = 20
+XFMR_LR = 1e-4              # bench_nmt's Adam(1e-4), and BERT's
+XFMR_WARMUP = 3             # bench_nmt's warm-up runs
+XFMR_RUNS = 10              # synchronized runs after them (the run p50);
+                            # the AMP loss must fall over the first 10 runs
+XFMR_TIMED_STEPS = 10       # time_run_steps: steps a call, timed calls
+XFMR_TIMED_CALLS = 2
+XFMR_CHECK_BATCH = 8        # the card-vs-CPU step (the CPU side is the cost)
+NMT_SERVE_BATCH = 8         # the is_test build through the Predictor
+NMT_SERVE_TIMED = 30
+# card vs CPU, one f32 Adam step from the same state at batch 8 with
+# ragged masks, the CPU step taking the card's relu branches: the loss's
+# relative error, and ||card - CPU|| / ||CPU|| of every @GRAD, the
+# largest over the params (tests/test_torch_train.py's 1e-5 and 1e-4).
+# The f32 card read 0 and 2.0e-6-4.3e-6, a TF32 control 1.4e-6-1.7e-5
+# and 1.4e-3-2.2e-3 against the CPU taking its branches (H100 80GB
+# HBM3, 700 W); without the replay one to nine relu flips put the card's
+# worst @GRAD at 2.2e-4-2.0e-3
+XFMR_LOSS_RTOL = 1e-5
+XFMR_GRAD_RTOL = 1e-4
+XFMR_PRED_RTOL = 1e-4       # the Predictor's logits, of max |logit|
+
+
+def xfmr_build(model, is_test=False, check=False):
+    """(main, startup, loss, grad names, extra fetches) of `model` ("nmt"
+    or "bert") at the card shapes: bench_nmt's program with Adam(1e-4),
+    or BERT-base's pretraining program with Adam(1e-4) (BERT's dropout 0
+    with `check`); `is_test` builds without the optimizer."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import bert, transformer
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        if model == "nmt":
+            cfg = transformer.TransformerConfig(**NMT_CFG)
+            _, loss, logits = transformer.build_train_net(
+                cfg, src_len=NMT_T, tgt_len=NMT_T, is_test=is_test)
+            extra = [logits]
+        else:
+            cfg = bert.BertConfig(**BERT_CFG,
+                                  **({"dropout": 0.0} if check else {}))
+            _, loss, extra = bert.build_pretrain_net(cfg, BERT_T,
+                                                     is_test=is_test)
+            extra = list(extra)
+        grads = []
+        if not is_test:
+            _, pg = ptt.optimizer.Adam(learning_rate=XFMR_LR).minimize(loss)
+            grads = [g.name for _, g in pg]
+    return main, startup, loss, grads, extra
+
+
+def xfmr_feed(model, batch, seed, ragged=False, device=None):
+    """make_fake_batch's feed of `model` at `batch`; with `ragged`, every
+    other sequence padded past a seeded length (src_mask and tgt_mask, or
+    input_mask, 0 there) and BERT's last 5 predictions of every other
+    sequence weighted 0.  As numpy, or as tensors on `device`."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import bert, transformer
+    rng = np.random.RandomState(seed)
+    if model == "nmt":
+        cfg = transformer.TransformerConfig(**NMT_CFG)
+        feed = transformer.make_fake_batch(cfg, batch, NMT_T, NMT_T,
+                                           seed=seed)
+        masks = ("src_mask", "tgt_mask")
+    else:
+        feed = bert.make_fake_batch(bert.BertConfig(**BERT_CFG), batch,
+                                    BERT_T, max_preds=BERT_PREDS, seed=seed)
+        masks = ("input_mask",)
+        w = feed["mask_weight"].reshape(batch, BERT_PREDS)
+        if ragged:
+            w[::2, -5:] = 0
+    if ragged:
+        for k in masks:
+            T = feed[k].shape[1]
+            for i in range(0, batch, 2):
+                feed[k][i, rng.randint(T // 4, T):] = 0
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def grad_rel_errs(want, got):
+    """||got - want|| / ||want|| of each named tensor, in f64."""
+    return {n: float((got[n].double() - want[n].double()).norm()
+                     / want[n].double().norm().clamp_min(1e-30))
+            for n in want}
+
+
+def xfmr_card_vs_cpu(torch, model):
+    """One f32 Adam step of `model` at batch XFMR_CHECK_BATCH with ragged
+    masks (dropout 0), from the card's startup state, on the card, on a
+    CPUPlace executor (the plain versions), and on the card with TF32
+    matmuls (the control).  A pre-activation within rounding of 0 may
+    take the other relu branch on one device, which moves its unit's
+    column of the FFN's gradients (train_match): so the CPU step runs
+    again taking the card's relu branches (replayed_relu_masks), and
+    again taking the control's.  The loss's relative error and every
+    @GRAD's ||card - CPU|| / ||CPU|| against the replay of the card's
+    branches are held to XFMR_LOSS_RTOL and XFMR_GRAD_RTOL; the control,
+    against the replay of its own, must exceed one of them.  The
+    card's gather backward (BERT's MLM positions) adds with atomics: its
+    sums over repeated rows are not ordered, which these norms absorb."""
+    import paddle_tpu_torch as ptt
+    tag = f"[{model} check]"
+    main, startup, loss, grads, _ = xfmr_build(model, check=True)
+    relus = [op.inputs["X"][0] for op in main.global_block().ops
+             if op.type == "relu"]
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(card.scope, names).items()}
+    feed = xfmr_feed(model, XFMR_CHECK_BATCH, SEED + 7, ragged=True)
+    zeros = {k: int((v == 0).sum()) for k, v in feed.items()
+             if k.endswith(("mask", "weight"))}
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+
+    def step(exe, place, masks=None):
+        """(loss, {@GRAD: host f32}, relu inputs' signs) of one step from
+        `state`, each relu taking `masks`' branches where given."""
+        ptt.io.params_from_numpy(exe.scope, state, place)
+        replay = (replayed_relu_masks(masks) if masks is not None
+                  else contextlib.nullcontext([]))
+        with replay as left:
+            out = exe.run(main, feed=feed, fetch_list=[loss] + grads + relus,
+                          return_numpy=False)
+        if left:
+            raise RuntimeError(f"{tag} {len(left)} relu masks not taken")
+        n = 1 + len(grads)
+        return (float(out[0].float().cpu().reshape(())),
+                {g: t.detach().float().cpu() for g, t in zip(grads,
+                                                             out[1:n])},
+                [(t > 0).cpu() for t in out[n:]])
+
+    t0 = time.perf_counter()
+    want_loss, want, cpu_signs = step(cpu, ptt.CPUPlace())
+    cpu_s = time.perf_counter() - t0
+    got_loss, got, card_signs = step(card, ptt.CUDAPlace(0))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl_loss, ctl, ctl_signs = step(card, ptt.CUDAPlace(0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    flips = {k: sum(int((a != b).sum()) for a, b in zip(signs, cpu_signs))
+             for k, signs in (("card", card_signs), ("control", ctl_signs))}
+    res = {}
+    for name, l, g, signs in (("card", got_loss, got, card_signs),
+                              ("TF32 control", ctl_loss, ctl, ctl_signs)):
+        r_loss, r, _ = step(cpu, ptt.CPUPlace(),
+                            masks=[m.float() for m in signs])
+        errs = grad_rel_errs(r, g)
+        worst = max(errs, key=errs.get)
+        raw = grad_rel_errs(want, g)
+        res[name] = (abs(l - r_loss) / abs(r_loss), errs[worst], worst,
+                     max(raw.values()))
+    log(f"{tag} batch {XFMR_CHECK_BATCH}, {len(grads)} @GRADs, zeros in "
+        f"{zeros}: loss CPU {want_loss:.7f} card {got_loss:.7f} TF32 "
+        f"control {ctl_loss:.7f}; relu branches taken apart from the CPU's "
+        f"{flips} (of {sum(int(m.numel()) for m in cpu_signs)} units); "
+        f"against the CPU step taking their branches: card loss "
+        f"{res['card'][0]:.3g}, worst @GRAD {res['card'][1]:.3g} "
+        f"({res['card'][2]}); TF32 control loss {res['TF32 control'][0]:.3g},"
+        f" worst @GRAD {res['TF32 control'][1]:.3g} "
+        f"({res['TF32 control'][2]}); bounds {XFMR_LOSS_RTOL:g} / "
+        f"{XFMR_GRAD_RTOL:g}; without the replay the worst @GRAD is card "
+        f"{res['card'][3]:.3g}, control {res['TF32 control'][3]:.3g}; CPU "
+        f"step {cpu_s:.1f} s")
+    if not (res["card"][0] <= XFMR_LOSS_RTOL
+            and res["card"][1] <= XFMR_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the card's step is off the CPU's: "
+                           f"{res['card']}")
+    if not (res["TF32 control"][0] > XFMR_LOSS_RTOL
+            or res["TF32 control"][1] > XFMR_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the TF32 control passed the bounds: "
+                           f"the check cannot tell f32 from TF32")
+    return dict(loss=res["card"][0], grad=res["card"][1],
+                ctl_loss=res["TF32 control"][0],
+                ctl_grad=res["TF32 control"][1], flips=flips)
+
+
+def record_ln_dtypes(torch):
+    """A context that records the input dtype of every layer norm on
+    real rows (the verifier's meta evaluation passes through) into the
+    list it yields."""
+    from paddle_tpu_torch.ops import nn_ops
+    rows, seen = nn_ops._layer_norm_rows, []
+
+    def rec(x2d, *args):
+        if x2d.device.type != "meta":
+            seen.append(str(x2d.dtype)[6:])
+        return rows(x2d, *args)
+
+    @contextlib.contextmanager
+    def ctx():
+        nn_ops._layer_norm_rows = rec
+        try:
+            yield seen
+        finally:
+            nn_ops._layer_norm_rows = rows
+    return ctx()
+
+
+def ln_per_run(torch, main, run):
+    """The layer norms one call of run() makes, by input dtype, checked
+    against the program's layer_norm ops (each normalises the trailing
+    axis with scale and bias, so each is a launch of the row kernel)."""
+    with record_ln_dtypes(torch) as seen:
+        run()
+    n_ops = sum(op.type == "layer_norm" for op in main.global_block().ops)
+    if len(seen) != n_ops:
+        raise RuntimeError(f"{len(seen)} layer norms ran, the program has "
+                           f"{n_ops} layer_norm ops")
+    return {"float32": seen.count("float32"),
+            "bfloat16": seen.count("bfloat16")}
+
+
+def check_ln_counts(tag, counts, per_run, runs):
+    """The counters of one path: layer_norm launches = the layer norms a
+    run makes x runs, bf16 ones all on the v16 path, and no other kernel
+    of this repo."""
+    want = {k: 0 for k in counts}
+    want[("layer_norm", "launches")] = sum(per_run.values()) * runs
+    want[("layer_norm", "launches_v16")] = per_run["bfloat16"] * runs
+    if counts != want:
+        bad = {k: (counts[k], want[k]) for k in want if counts[k] != want[k]}
+        raise RuntimeError(f"{tag} launches (got, expected): {bad}")
+    return {n: c for (n, attr), c in counts.items() if attr == "launches"}
+
+
+def xfmr_train(torch, model, amp):
+    """The training row of `model` at its card shapes, f32 or under
+    FLAGS_amp_bf16: the batch on the card, XFMR_WARMUP runs and
+    XFMR_RUNS synchronized runs, the counters zeroed just before the
+    first and read just after the last (the layer norms their dtypes
+    give, no other kernel of this repo); the first run's time, the run
+    p50 and peak memory; then time_run_steps as bench.py's _time_steps
+    times the row."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = f"[{model} train{' amp' if amp else ''}]"
+    B = NMT_BATCH if model == "nmt" else BERT_BATCH
+    with amp_bf16(amp):
+        main, startup, loss, grads, _ = xfmr_build(model)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        feed = xfmr_feed(model, B, SEED + 1, device=DEVICE)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters = launch_counters()
+        zero_counters(counters)
+        losses, ms = [], []
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(())))
+
+        per_run = ln_per_run(torch, main, run)
+        for _ in range(XFMR_WARMUP + XFMR_RUNS - 1):
+            run()
+        runs = XFMR_WARMUP + XFMR_RUNS
+        counts = check_ln_counts(tag, read_counters(counters), per_run, runs)
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = time_run_steps(torch, exe, main, feed, loss,
+                                 steps=XFMR_TIMED_STEPS,
+                                 calls=XFMR_TIMED_CALLS)
+    no_autograd_state(exe.scope, names, tag)
+    p50 = float(np.median(ms[XFMR_WARMUP:]))
+    # bench_nmt's src + tgt count, or BERT's sequence tokens
+    toks = B * 2 * NMT_T if model == "nmt" else B * BERT_T
+    rate = (f"{toks / step_ms * 1e3:.0f} tokens/s (src + tgt)"
+            if model == "nmt" else
+            f"{B / step_ms * 1e3:.1f} sequences/s, "
+            f"{toks / step_ms * 1e3:.0f} tokens/s")
+    ops = [op.type for op in main.global_block().ops]
+    log(f"{tag} batch {B}, {len(ops)} ops ({ops.count('adam')} adam), "
+        f"{sum(math.prod(p.shape) for p in main.all_parameters() if p.trainable)} "
+        f"weights: losses {[round(x, 4) for x in losses]}; run_steps "
+        f"{step_ms:.2f} ms a step (time_run_steps: {XFMR_TIMED_STEPS} "
+        f"steps a call, best of {XFMR_TIMED_CALLS} after one), {rate}; run "
+        f"p50 {p50:.2f} ms (runs {XFMR_WARMUP + 1}-{runs}, synchronized, "
+        f"with the loss readback); first run {ms[0]:.2f} ms; peak device "
+        f"memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} above "
+        f"the {base / 2**20:.1f} MiB held before); layer norms a run by "
+        f"input dtype {per_run}; {nvidia_smi_line()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} non-finite loss {losses}")
+    if amp and not losses[XFMR_RUNS - 1] < losses[0]:
+        raise RuntimeError(f"{tag} the AMP loss did not fall over "
+                           f"{XFMR_RUNS} runs: {losses}")
+    return counts, dict(exe=exe, main=main, feed=feed, loss=loss, p50=p50,
+                        step_ms=step_ms, first_ms=ms[0], peak=peak,
+                        per_run=per_run, losses=losses)
+
+
+def nmt_serve(torch):
+    """bench_nmt's program at is_test (no dropout, hard-label loss),
+    saved for inference with its logits as the fetch and served by the
+    Predictor at batch NMT_SERVE_BATCH with ragged masks: the card's
+    logits against the CPU Predictor's on the same dir, then the request
+    p50 with the counters zeroed just before and read just after."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    tag = "[nmt serve]"
+    main, startup, _, _, (logits,) = xfmr_build("nmt", is_test=True)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    names = ["src_ids", "tgt_ids", "src_mask", "tgt_mask"]
+    feed = xfmr_feed("nmt", NMT_SERVE_BATCH, SEED + 3, ragged=True)
+    feed = {k: feed[k] for k in names}
+    with tempfile.TemporaryDirectory() as td:
+        ptt.io.save_inference_model(td, names, [logits], exe,
+                                    main_program=main)
+        on_card = create_predictor(AnalysisConfig(td))
+        on_cpu = create_predictor(AnalysisConfig(td, use_gpu=False))
+    got, = on_card.run(feed)
+    want, = on_cpu.run(feed)
+    err = float(abs(got - want).max() / abs(want).max())
+    log(f"{tag} Predictor logits {got.shape} card vs CPU: {err:.3g} of max "
+        f"|logit| {float(abs(want).max()):.3f} (tolerance "
+        f"{XFMR_PRED_RTOL:g})")
+    if got.shape != (NMT_SERVE_BATCH, NMT_T, NMT_CFG["tgt_vocab_size"]) \
+            or not err <= XFMR_PRED_RTOL:
+        raise RuntimeError(f"{tag} {got.shape}, {err}")
+    dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in feed.items()}
+    on_card.prepare(dev)
+    per_run = ln_per_run(torch, on_card.program,
+                         lambda: on_card.run(dev))
+    counters = launch_counters()
+    zero_counters(counters)
+    ms = []
+    for _ in range(NMT_SERVE_TIMED):
+        t0 = time.perf_counter()
+        on_card.run(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = check_ln_counts(tag, read_counters(counters), per_run,
+                             NMT_SERVE_TIMED)
+    p50 = float(np.median(ms))
+    log(f"{tag} batch {NMT_SERVE_BATCH}: request p50 {p50:.3f} ms (min "
+        f"{min(ms):.3f}, max {max(ms):.3f}; host clock around "
+        f"Predictor.run returning the logits as numpy), "
+        f"{NMT_SERVE_BATCH * 2 * NMT_T / p50 * 1e3:.0f} tokens/s; layer "
+        f"norms a request {per_run}; {nvidia_smi_line()}")
+    return counts, dict(p50=p50, err=err)
+
+
+def ln_d768_times(torch):
+    """The layer norm at BERT-base's width (D 768, N 4096 = 32 x 128), f32
+    and on bf16 rows (v16 path), cold as phase_timings times it, beside
+    its plain version, F.layer_norm and its byte bound."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    N, D = BERT_BATCH * BERT_T, 768
+    gam = torch.randn(D, generator=g, device=dev)
+    bet = torch.randn(D, generator=g, device=dev)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rot = rotation(lambda: torch.randn(N, D, generator=g,
+                                           device=dev).to(dt), 8)
+        if dt == torch.bfloat16:
+            ms, host, took = timed_on_path(
+                ln.layer_norm, lambda p: ln.layer_norm(rot(), gam, bet, 1e-5,
+                                                       path=p),
+                None, paths=ln.BF16_PATHS)
+        else:
+            ms, host = time_ms(lambda: ln.layer_norm(rot(), gam, bet, 1e-5))
+            took = "f32"
+        plain, _ = time_ms(lambda: ln.layer_norm_plain(rot(), gam, bet,
+                                                       1e-5))
+        lib, _ = time_ms(lambda: F.layer_norm(rot(), (D,), gam.to(dt),
+                                              bet.to(dt), 1e-5))
+        del rot
+        size = 2 if dt == torch.bfloat16 else 4
+        nbytes = 2 * size * N * D + 2 * 4 * D + 2 * 4 * N
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        key = "bf16" if dt == torch.bfloat16 else "f32"
+        res[key] = dict(N=N, D=D, path=took, ms=ms, host_ms=host,
+                        plain_ms=plain, library_ms=lib, bound_ms=bound,
+                        bound_by="bytes")
+        log(f"[time] layer_norm N={N} D={D} {key} ({took} path): kernel "
+            f"{ms:.4f} ms ({100 * bound / ms:.1f} % of the bound), plain "
+            f"{plain:.4f} ms, F.layer_norm {lib:.4f} ms, bound {bound:.4f} "
+            f"ms ({nbytes / 1e6:.2f} MB); host enqueue {host:.4f} ms")
+    if res["bf16"]["path"] != "v16":
+        raise RuntimeError(f"D 768 bf16 rows took {res['bf16']['path']}")
+    return res
+
+
+def phase_nmt_bert(torch):
+    """Phase 5h: Transformer-base NMT (bench_nmt) and BERT-base trained on
+    the card: the card-vs-CPU step with its TF32 control, the training
+    rows f32 and under AMP, the NMT is_test build through the Predictor,
+    and the layer norm timed at D 768.  Returns the launches by path, the
+    AMP rows (traced at the end of the smoke, with the other traces) and
+    the D-768 times."""
+    checks = {m: xfmr_card_vs_cpu(torch, m) for m in ("nmt", "bert")}
+    by_path, amp_rows, rows = {}, {}, {}
+    for model in ("nmt", "bert"):
+        for amp in (False, True):
+            key = f"{model}_train{'_amp' if amp else ''}"
+            by_path[key], row = xfmr_train(torch, model, amp)
+            rows[key] = {k: row[k] for k in ("p50", "step_ms", "peak")}
+            if amp:
+                gaps = [abs(a - b) / abs(b) for a, b in zip(
+                    row["losses"], rows[f"{model}_train"]["losses"])]
+                log(f"[{model}] AMP loss against f32, run for run: "
+                    f"{[f'{x:.2g}' for x in gaps]}")
+                amp_rows[model] = row
+            else:
+                rows[key]["losses"] = row["losses"]
+                del row["exe"]
+        f32, amp = rows[f"{model}_train"], rows[f"{model}_train_amp"]
+        log(f"[{model}] run_steps a step f32 {f32['step_ms']:.2f} ms, AMP "
+            f"{amp['step_ms']:.2f} ms; peak f32 {f32['peak'] / 2**20:.1f} "
+            f"MiB, AMP {amp['peak'] / 2**20:.1f} MiB")
+    by_path["nmt_serve"], _ = nmt_serve(torch)
+    ln_times = ln_d768_times(torch)
+    recs = [r for r in VERIFY_LOG if r["phase"] == "nmt_bert"]
+    log(f"[nmt_bert] the gate verified {len(recs)} programs in error mode "
+        f"({[(r['ops'], r['amp'], round(r['ms'], 1)) for r in recs]}: ops, "
+        f"amp, host ms), {sum(r['errors'] for r in recs)} with an error; "
+        f"checks {checks}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"nmt_bert verifications {recs}")
+    return by_path, amp_rows, ln_times
+
+
+def trace_xfmr(torch, model, row):
+    """One AMP training step of `model` traced by kernel class: the layer
+    norms by kernel (f32 rows, bf16 scalar, bf16 v16) as the row's
+    dtypes give them, and no other kernel of this repo."""
+    B = NMT_BATCH if model == "nmt" else BERT_BATCH
+    with amp_bf16():
+        names = trace_run(
+            torch, f"AMP {model} training step at batch {B}",
+            lambda: row["exe"].run(row["main"], feed=row["feed"],
+                                   fetch_list=[row["loss"]],
+                                   return_numpy=False))
+    kinds = ln_launch_kinds(names)
+    want = {"f32": row["per_run"]["float32"], "bf16 scalar": 0,
+            "bf16 v16": row["per_run"]["bfloat16"]}
+    log(f"[trace]   AMP {model} step layer norms by kernel: {kinds}")
+    ours = sorted(c for c in names if "(this repo)" in c
+                  and c != _kernel_class("ln_fwd_kernel"))
+    if kinds != want or ours:
+        raise RuntimeError(f"AMP {model} step: layer norms {kinds} (want "
+                           f"{want}), other kernels of this repo {ours}")
+
 
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
@@ -5169,6 +5668,8 @@ def main():
     phase_verify(torch, pred, {"tokens": toks})
     VERIFY_PHASE[0] = "resnet"
     resnet_counts = phase_resnet(torch)
+    VERIFY_PHASE[0] = "nmt_bert"
+    xfmr_counts, xfmr_amp, ln_d768 = phase_nmt_bert(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -5243,6 +5744,11 @@ def main():
     if ln_kinds != {"f32": 0, "bf16 scalar": 0,
                     "bf16 v16": 2 * FLAGSHIP["n_layer"] + 1}:
         raise RuntimeError(f"AMP fuse_block step layer norms {ln_kinds}")
+    # the AMP NMT and BERT steps: their layer norms by kernel, as the
+    # rows' input dtypes give them, and no other kernel of this repo
+    for model, row in xfmr_amp.items():
+        trace_xfmr(torch, model, row)
+    del xfmr_amp
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -5361,7 +5867,7 @@ def main():
                "decode_oracle": oracle_counts, "train": counts,
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
-               **resnet_counts}
+               **resnet_counts, **xfmr_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else
@@ -5377,6 +5883,8 @@ def main():
             k["serve"] = dict(launches=serve_counts[n],
                               max_abs_err=errs[n]["serve"],
                               **times[n]["serve"])
+        if n == "layer_norm":   # BERT-base's width, f32 and bf16 rows
+            k["d768"] = ln_d768
         kernels.append(k)
     later = VERIFY_LOG[n_verified:]
     log(f"[verify] phase 6 made {len(later)} more verifications, "

@@ -9,10 +9,11 @@ over the main AND startup programs with the model's natural fetch set.
 Exit codes: 0 clean, 1 error-severity findings (or a build crash), 2 bad
 usage.
 
-The port builds four of the JAX package's bundled models so far,
-``lenet``, ``vgg``, ``resnet`` and ``transformer_lm``, at the JAX CLI's
-shapes and with its optimizer, SGD(0.01) (JAX lint.py:26-29, :91-98);
-the others come with their models.
+The port builds six of the JAX package's bundled models so far,
+``lenet``, ``vgg``, ``resnet``, ``transformer`` (the NMT build),
+``transformer_lm`` and ``bert``, at the JAX CLI's shapes and with its
+optimizer, SGD(0.01) (JAX lint.py:26-29, :45-71, :91-105); the others
+come with their models.
 """
 from __future__ import annotations
 
@@ -39,23 +40,40 @@ def _simple(builder):
 def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
     """name -> zero-arg builder running inside a fresh program_guard;
     returns (feed vars, fetch vars)."""
+    from ..models import bert as bert_model
     from ..models import lenet, resnet, transformer, vgg
 
+    def transformer_cfg(T=16, dropout=0.1):
+        return transformer.TransformerConfig(
+            src_vocab_size=64, tgt_vocab_size=64, max_length=T,
+            n_layer=2, n_head=2, d_model=16, d_inner=32,
+            dropout=dropout)
+
     def lm():
-        cfg = transformer.TransformerConfig(
-            src_vocab_size=64, tgt_vocab_size=64, max_length=16,
-            n_layer=2, n_head=2, d_model=16, d_inner=32, dropout=0.0)
         # flash-attention contract: no attention-prob dropout
-        feeds, cost, logits = transformer.build_lm_net(cfg, seq_len=16)
+        feeds, cost, logits = transformer.build_lm_net(
+            transformer_cfg(dropout=0.0), seq_len=16)
         _optimize(cost)
         return feeds, [cost, logits]
+
+    def bert():
+        cfg = bert_model.BertConfig(
+            vocab_size=64, hidden_size=16, num_layers=2, num_heads=2,
+            intermediate_size=32, max_position=32, dropout=0.1)
+        feeds, loss, (mlm, nsp) = bert_model.build_pretrain_net(
+            cfg, seq_len=16)
+        _optimize(loss)
+        return feeds, [loss, mlm, nsp]
 
     return {
         "lenet": _simple(lenet.build_train_net),
         "vgg": _simple(vgg.build_train_net),
         "resnet": _simple(lambda: resnet.build_train_net(
             class_dim=10, img_shape=(3, 32, 32), depth=18)),
+        "transformer": _simple(lambda: transformer.build_train_net(
+            transformer_cfg(), src_len=8, tgt_len=8)),
         "transformer_lm": lm,
+        "bert": bert,
     }
 
 

@@ -1,14 +1,17 @@
 """NN layer functions — the user-facing model-building API.
 
-Counterpart of paddle_tpu/layers/nn.py for the layers ``build_lm_net``
-and the image classifiers (models/resnet.py, lenet.py, vgg.py) call:
+Counterpart of paddle_tpu/layers/nn.py for the layers the transformer
+builds (models/transformer.py, bert.py) and the image classifiers
+(models/resnet.py, lenet.py, vgg.py) call:
 data :21, fc :34 (over several inputs too), embedding :63, conv2d :114,
 pool2d :163, batch_norm :187, layer_norm :223, dropout :271, softmax
 :284, cross_entropy :300, softmax_with_cross_entropy :310, mean :331,
-reshape :359, transpose :367, split :375, unsqueeze :413, matmul :462,
-topk :480, accuracy :489, scale :548, elementwise_add :557 (with its
-``act``), greater_than :794, fused_mha :877, fused_attention_qkv :948 and
-fused_lm_head_loss :968.
+reduce_sum and reduce_mean :352-353, reshape :359, transpose :367,
+split :375, unsqueeze :413, slice :436, gather :445, matmul :462, topk
+:480, accuracy :489, one_hot :524, scale :548, elementwise_add, _mul
+and _div :557-571 (with their ``act``), label_smooth :741 (composed of
+``scale`` ops, as JAX's is), greater_than :794, fused_mha :877,
+fused_attention_qkv :948 and fused_lm_head_loss :968.
 Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
@@ -27,9 +30,11 @@ from ..framework.program import Variable
 
 __all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "mean", "reshape", "transpose",
-           "split", "unsqueeze", "matmul", "topk", "accuracy", "scale",
-           "elementwise_add", "greater_than", "fused_mha",
+           "softmax_with_cross_entropy", "mean", "reduce_sum",
+           "reduce_mean", "reshape", "transpose", "split", "unsqueeze",
+           "slice", "gather", "matmul", "topk", "accuracy", "one_hot",
+           "scale", "elementwise_add", "elementwise_mul",
+           "elementwise_div", "label_smooth", "greater_than", "fused_mha",
            "fused_attention_qkv", "fused_lm_head_loss"]
 
 
@@ -254,6 +259,24 @@ def mean(x, name=None):
     return out
 
 
+def _reduce_layer(op_name):
+    def f(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_name, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        attrs = {"keep_dim": keep_dim,
+                 "reduce_all": dim is None,
+                 "dim": [0] if dim is None else (
+                     dim if isinstance(dim, (list, tuple)) else [dim])}
+        helper.append_op(op_name, {"X": [input]}, {"Out": [out]}, attrs)
+        return out
+    f.__name__ = op_name
+    return f
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+
+
 def reshape(x, shape, name=None):
     helper = LayerHelper("reshape", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -292,6 +315,23 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("slice", {"Input": [input]}, {"Out": [out]},
+                     {"axes": list(axes), "starts": list(starts),
+                      "ends": list(ends)})
+    return out
+
+
+def gather(input, index, axis=0):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", {"X": [input], "Index": [index]},
+                     {"Out": [out]}, {"axis": axis})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -324,6 +364,14 @@ def accuracy(input, label, k=1, name=None):
     return acc
 
 
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", {"X": [input]}, {"Out": [out]},
+                     {"depth": int(depth)})
+    return out
+
+
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
     helper = LayerHelper("scale", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -333,12 +381,31 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", {"X": [x], "Y": [y]},
-                     {"Out": [out]}, {"axis": axis})
-    return helper.append_activation(out, act)
+def elementwise_op_layer(op_name):
+    def f(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_name, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_name, {"X": [x], "Y": [y]}, {"Out": [out]},
+                         {"axis": axis})
+        return helper.append_activation(out, act)
+    f.__name__ = op_name
+    return f
+
+
+elementwise_add = elementwise_op_layer("elementwise_add")
+elementwise_mul = elementwise_op_layer("elementwise_mul")
+elementwise_div = elementwise_op_layer("elementwise_div")
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """(1 - eps) * label + eps * prior, composed of ``scale`` ops (and an
+    ``elementwise_add`` with a prior) as the JAX layer composes it; the
+    ``label_smooth`` op itself is ops/misc_ops.py's."""
+    smoothed = scale(label, 1.0 - epsilon)
+    k = int(label.shape[-1])
+    if prior_dist is not None:
+        return elementwise_add(smoothed, scale(prior_dist, epsilon))
+    return scale(smoothed, 1.0, bias=epsilon / k)
 
 
 def greater_than(x, y, cond=None, name=None):

@@ -1,28 +1,41 @@
-"""Decoder-only causal LM on the transformer encoder stack.
+"""Transformer-base NMT and the decoder-only causal LM on its stack.
 
-Counterpart of paddle_tpu/models/transformer.py for the flagship LM:
-TransformerConfig, position_encoding_table, prepare_embedding,
-encoder_layer, build_lm_net, lm_program_spec and make_fake_lm_batch.
-Both attention builds are ported: the fused one (``fused_attention=True``,
-attention through the projection-fused ``fused_mha`` op) and the unfused
-composition (one [D, 3E] projection, split, transpose, matmul, softmax,
-matmul, with the causal bias built in-graph), whose parameters
-``lm_program_spec`` maps to their roles for the serving engine
-(serving/kv_cache.py).  Either takes the ``fc`` logits head (serving) or
-the streamed ``fused_lm_head_loss`` (``fused_head=True``, training).
-Dropout (``TransformerConfig.dropout``, 0.1 by default; none at
-``is_test``) goes where the JAX build puts it: after the embedding, on
-the attention probabilities, on the FFN hidden layer and on each
-sublayer's output before its residual add, all ``upscale_in_train``.
-The fused attention path has no attention-prob dropout and raises the
-JAX build's ValueError at a nonzero rate.  Pipeline stages raise
-NotImplementedError naming their ROADMAP entry.
+Counterpart of paddle_tpu/models/transformer.py: TransformerConfig,
+position_encoding_table, prepare_embedding, the encoder and decoder
+layers and stacks with the padding bias (pad_bias), the encoder-decoder
+training build (build_train_net, bench.py's ``bench_nmt`` row, and its
+``is_test`` build) with make_fake_batch, and the flagship LM
+(build_lm_net, lm_program_spec, make_fake_lm_batch).
+
+The NMT build attends through the unfused composition (q/k/v
+projections, split heads, matmul, an additive bias, softmax, matmul):
+self-attention projects q, k and v in one [D, 3E] product, the
+decoder's cross-attention in three (k and v from the encoder's output).
+The biases are built in-graph from the [B, T] masks (1 = token, 0 =
+pad): -1e9 at pads, [B, 1, 1, T]; the decoder's self-attention adds the
+[1, 1, Tt, Tt] causal constant to its own.  The loss is the
+label-smoothed soft-label softmax cross-entropy (a hard-label one at
+``is_test`` or eps 0), weighted by tgt_mask and divided by the token
+count.
+
+The LM takes either attention build: the fused one
+(``fused_attention=True``, attention through the projection-fused
+``fused_mha`` op) and the unfused composition with the causal bias built
+in-graph, whose parameters ``lm_program_spec`` maps to their roles for
+the serving engine (serving/kv_cache.py).  Either takes the ``fc``
+logits head (serving) or the streamed ``fused_lm_head_loss``
+(``fused_head=True``, training).  Dropout (``TransformerConfig.dropout``,
+0.1 by default; none at ``is_test``) goes where the JAX build puts it:
+after the embedding, on the attention probabilities, on the FFN hidden
+layer and on each sublayer's output before its residual add, all
+``upscale_in_train``.  The fused attention path has no attention-prob
+dropout and raises the JAX build's ValueError at a nonzero rate.
+Pipeline stages raise NotImplementedError naming their ROADMAP entry.
 
 The position table is a parameter named per sequence length
-(``src_pos_enc_<T>``), so a saved model serves one T: requests are
-right-padded to it, causal attention keeps the pad out of earlier
-positions, and a client reads each prompt's logits at its last real
-position.
+(``src_pos_enc_<T>``, ``tgt_pos_enc_<T>``), so a saved model serves one
+T: requests are right-padded to it, and a client reads each prompt's
+logits at its last real position.
 """
 from __future__ import annotations
 
@@ -142,6 +155,28 @@ def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner,
     return pre_post_process(attn_out, ffn, "da", dropout_rate)
 
 
+def decoder_layer(x, enc_out, slf_attn_bias, dec_enc_attn_bias, n_head,
+                  d_key, d_value, d_model, d_inner, dropout_rate=0.0):
+    slf = multi_head_attention(
+        pre_post_process(None, x, "n"), None, None, slf_attn_bias,
+        d_key, d_value, d_model, n_head, dropout_rate)
+    slf_out = pre_post_process(x, slf, "da", dropout_rate)
+    cross = multi_head_attention(
+        pre_post_process(None, slf_out, "n"), enc_out, enc_out,
+        dec_enc_attn_bias, d_key, d_value, d_model, n_head, dropout_rate)
+    cross_out = pre_post_process(slf_out, cross, "da", dropout_rate)
+    ffn = positionwise_ffn(pre_post_process(None, cross_out, "n"),
+                           d_inner, d_model, dropout_rate)
+    return pre_post_process(cross_out, ffn, "da", dropout_rate)
+
+
+def pad_bias(mask, neg: float = -1e9):
+    """[B,T] {0,1} padding mask -> [B,1,1,T] additive attention bias
+    (0 where attendable, `neg` at pads)."""
+    b = layers.scale(mask, scale=-neg, bias=neg)
+    return layers.unsqueeze(b, [1, 2])
+
+
 def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate=0.0,
                       name="src"):
     """Token embedding * sqrt(d_model) + sinusoid position encoding."""
@@ -168,6 +203,28 @@ def prepare_embedding(ids, vocab_size, d_model, max_len, dropout_rate=0.0,
     return out
 
 
+def encoder(src_ids, src_attn_bias, n_layer, n_head, d_key, d_value,
+            d_model, d_inner, vocab_size, max_len, dropout_rate=0.0):
+    x = prepare_embedding(src_ids, vocab_size, d_model, max_len,
+                          dropout_rate, name="src")
+    for _ in range(n_layer):
+        x = encoder_layer(x, src_attn_bias, n_head, d_key, d_value,
+                          d_model, d_inner, dropout_rate)
+    return pre_post_process(None, x, "n")
+
+
+def decoder(tgt_ids, enc_out, slf_attn_bias, dec_enc_attn_bias, n_layer,
+            n_head, d_key, d_value, d_model, d_inner, vocab_size, max_len,
+            dropout_rate=0.0):
+    x = prepare_embedding(tgt_ids, vocab_size, d_model, max_len,
+                          dropout_rate, name="tgt")
+    for _ in range(n_layer):
+        x = decoder_layer(x, enc_out, slf_attn_bias, dec_enc_attn_bias,
+                          n_head, d_key, d_value, d_model, d_inner,
+                          dropout_rate)
+    return pre_post_process(None, x, "n")
+
+
 class TransformerConfig:
     """Transformer-base hyperparameters."""
 
@@ -185,6 +242,58 @@ class TransformerConfig:
         self.d_inner = d_inner
         self.dropout = dropout
         self.label_smooth_eps = label_smooth_eps
+
+
+def build_train_net(cfg: TransformerConfig, src_len: int, tgt_len: int,
+                    is_test: bool = False):
+    """Feeds: src_ids [B,Ts] int64, tgt_ids [B,Tt] int64, lbl_ids [B,Tt]
+    int64, src_mask [B,Ts] float32 (1=token, 0=pad), tgt_mask [B,Tt].
+    Attention biases are derived in-graph from the masks.  Returns
+    (feeds, avg_cost, logits)."""
+    dropout = 0.0 if is_test else cfg.dropout
+    src_ids = layers.data("src_ids", [src_len], dtype="int64")
+    tgt_ids = layers.data("tgt_ids", [tgt_len], dtype="int64")
+    lbl_ids = layers.data("lbl_ids", [tgt_len], dtype="int64")
+    src_mask = layers.data("src_mask", [src_len], dtype="float32")
+    tgt_mask = layers.data("tgt_mask", [tgt_len], dtype="float32")
+
+    neg_inf = -1e9
+    src_attn_bias = pad_bias(src_mask)
+    tgt_pad_bias = pad_bias(tgt_mask)
+    # causal bias [1,1,Tt,Tt]
+    causal = np.triu(np.full((tgt_len, tgt_len), neg_inf, dtype="float32"), 1)
+    causal_var = layers.assign(causal[None, None, :, :])
+    tgt_slf_bias = layers.elementwise_add(tgt_pad_bias, causal_var)
+
+    enc_out = encoder(src_ids, src_attn_bias, cfg.n_layer, cfg.n_head,
+                      cfg.d_key, cfg.d_value, cfg.d_model, cfg.d_inner,
+                      cfg.src_vocab_size, cfg.max_length, dropout)
+    dec_out = decoder(tgt_ids, enc_out, tgt_slf_bias, src_attn_bias,
+                      cfg.n_layer, cfg.n_head, cfg.d_key, cfg.d_value,
+                      cfg.d_model, cfg.d_inner, cfg.tgt_vocab_size,
+                      cfg.max_length, dropout)
+
+    logits = layers.fc(dec_out, size=cfg.tgt_vocab_size, num_flatten_dims=2,
+                       bias_attr=False)
+    logits2d = layers.reshape(logits, [-1, cfg.tgt_vocab_size])
+    label2d = layers.reshape(lbl_ids, [-1, 1])
+    if cfg.label_smooth_eps and not is_test:
+        soft = layers.label_smooth(
+            layers.one_hot(label2d, cfg.tgt_vocab_size),
+            epsilon=cfg.label_smooth_eps)
+        soft = layers.reshape(soft, [-1, cfg.tgt_vocab_size])
+        cost = layers.softmax_with_cross_entropy(logits2d, soft,
+                                                 soft_label=True)
+    else:
+        cost = layers.softmax_with_cross_entropy(logits2d, label2d)
+    weights2d = layers.reshape(tgt_mask, [-1, 1])
+    weighted = layers.elementwise_mul(cost, weights2d)
+    sum_cost = layers.reduce_sum(weighted)
+    token_count = layers.reduce_sum(weights2d)
+    avg_cost = layers.elementwise_div(sum_cost, token_count)
+
+    feeds = [src_ids, tgt_ids, lbl_ids, src_mask, tgt_mask]
+    return feeds, avg_cost, logits
 
 
 def build_lm_net(cfg: TransformerConfig, seq_len: int, is_test: bool = False,
@@ -317,3 +426,20 @@ def make_fake_lm_batch(cfg: TransformerConfig, batch_size: int,
     tokens = rng.randint(1, cfg.src_vocab_size,
                          (batch_size, seq_len)).astype("int64")
     return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+
+
+def make_fake_batch(cfg: TransformerConfig, batch_size: int, src_len: int,
+                    tgt_len: int, seed: int = 0):
+    """Synthetic WMT-like batch for tests/benchmarks (no padding)."""
+    rng = np.random.RandomState(seed)
+    feed = {
+        "src_ids": rng.randint(1, cfg.src_vocab_size,
+                               (batch_size, src_len)).astype("int64"),
+        "tgt_ids": rng.randint(1, cfg.tgt_vocab_size,
+                               (batch_size, tgt_len)).astype("int64"),
+        "lbl_ids": rng.randint(1, cfg.tgt_vocab_size,
+                               (batch_size, tgt_len)).astype("int64"),
+        "src_mask": np.ones((batch_size, src_len), dtype="float32"),
+        "tgt_mask": np.ones((batch_size, tgt_len), dtype="float32"),
+    }
+    return feed

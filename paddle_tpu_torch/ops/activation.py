@@ -1,9 +1,11 @@
 """Pointwise activations and unary math (counterpart of
-paddle_tpu/ops/activation.py: relu :28, sqrt :34 and sign :80; the
-global-norm clip and the L1 regularizer use the last two)."""
+paddle_tpu/ops/activation.py: relu :28, tanh :31, sqrt :34, gelu :74
+and sign :80; the global-norm clip and the L1 regularizer use sqrt and
+sign, BERT's heads gelu and tanh)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..framework.registry import register_op, single_input
 
@@ -11,10 +13,15 @@ from ..framework.registry import register_op, single_input
 def _unary(name, fn):
     @register_op(name)
     def _lower(ctx, ins, attrs, _fn=fn):
-        return {"Out": [_fn(single_input(ins))]}
+        return {"Out": [_fn(single_input(ins), attrs)]}
     return _lower
 
 
-_unary("relu", torch.relu)
-_unary("sqrt", torch.sqrt)
-_unary("sign", torch.sign)
+_unary("relu", lambda x, a: torch.relu(x))
+_unary("tanh", lambda x, a: torch.tanh(x))
+_unary("sqrt", lambda x, a: torch.sqrt(x))
+_unary("sign", lambda x, a: torch.sign(x))
+# erf by default, as jax.nn.gelu(approximate=False) computes it; the
+# ``approximate`` attr takes the tanh form
+_unary("gelu", lambda x, a: F.gelu(
+    x, approximate="tanh" if a.get("approximate", False) else "none"))

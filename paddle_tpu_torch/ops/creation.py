@@ -2,7 +2,7 @@
 
 Counterpart of paddle_tpu/ops/creation.py: fill_constant :47,
 uniform_random :108, gaussian_random :118, assign :138, assign_value
-:153 and cast :160.
+:153, cast :160 and one_hot :172.
 
 Random ops draw from the context's torch.Generator (ctx.rng()); a nonzero
 per-op ``seed`` attr seeds a generator of its own, as the reference does.
@@ -81,3 +81,19 @@ def _assign_value(ctx, ins, attrs):
 def _cast(ctx, ins, attrs):
     x = single_input(ins)
     return {"Out": [x.to(to_torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("one_hot")
+def _one_hot(ctx, ins, attrs):
+    """f32 rows with a 1 at each index (a trailing dim of 1 squeezed
+    first), as jax.nn.one_hot gives them: an index outside [0, depth)
+    gives a row of zeros.  A comparison against an arange, so the card
+    neither raises on such an index (F.one_hot does) nor reads the
+    indices back to the host to check them.  No gradient reaches the
+    indices (JAX registers the op stop_gradient)."""
+    x = single_input(ins)
+    depth = int(attrs["depth"])
+    if x.ndim and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    cols = torch.arange(depth, device=x.device)
+    return {"Out": [(x.long()[..., None] == cols).to(torch.float32)]}

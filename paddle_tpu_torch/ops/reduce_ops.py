@@ -1,10 +1,54 @@
-"""Reductions (counterpart of paddle_tpu/ops/reduce_ops.py: top_k
-:67)."""
+"""Reductions (counterpart of paddle_tpu/ops/reduce_ops.py: the
+``_reduce`` family :15-39 and top_k :67)."""
 from __future__ import annotations
 
 import torch
 
 from ..framework.registry import register_op, single_input
+
+
+def _axes(attrs, ndim):
+    """The reduced dims (JAX :15-21): every dim under ``reduce_all``,
+    else ``dim`` (an int or a list, negative dims counted from the
+    end)."""
+    if attrs.get("reduce_all", False):
+        return tuple(range(ndim))
+    dim = attrs.get("dim", [0])
+    if isinstance(dim, int):
+        dim = [dim]
+    return tuple(sorted({d % ndim for d in dim}))
+
+
+def _over(fn):
+    """A torch reduction of one dim applied over several, last dim first
+    (torch.prod takes one dim only); no dims (a 0-d x) reduces all."""
+    def reduce(x, dims, keepdim):
+        if not dims:
+            return fn(x)
+        for d in sorted(dims, reverse=True):
+            x = fn(x, dim=d, keepdim=keepdim)
+        return x
+    return reduce
+
+
+def _reduce(name, fn):
+    @register_op(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        """A full reduction gives a 0-d tensor, as jnp.sum(axis=None)
+        does (keep_dim keeps every dim as 1)."""
+        x = single_input(ins)
+        return {"Out": [_fn(x, _axes(attrs, x.ndim),
+                            bool(attrs.get("keep_dim", False)))]}
+    return _lower
+
+
+_reduce("reduce_sum", lambda x, d, k: torch.sum(x, dim=d, keepdim=k))
+_reduce("reduce_mean", lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
+_reduce("reduce_max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_reduce("reduce_min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_reduce("reduce_prod", _over(torch.prod))
+_reduce("reduce_all", _over(torch.all))
+_reduce("reduce_any", _over(torch.any))
 
 
 @register_op("top_k")

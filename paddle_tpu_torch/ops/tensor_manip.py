@@ -1,5 +1,6 @@
 """Shape manipulation ops (counterpart of paddle_tpu/ops/tensor_manip.py:
-reshape :20, transpose :38, split :56 and unsqueeze :108)."""
+reshape :20, transpose :38, split :56, unsqueeze :108, slice :170 and
+gather :198)."""
 from __future__ import annotations
 
 import numpy as np
@@ -46,3 +47,38 @@ def _unsqueeze(ctx, ins, attrs):
     for ax in sorted(attrs["axes"]):
         x = torch.unsqueeze(x, ax)
     return {"Out": [x]}
+
+
+@register_op("slice")
+def _slice(ctx, ins, attrs):
+    """ref slice_op.cc: static [start, end) per listed axis, a negative
+    bound counted from the end, both clamped to the axis; then the
+    ``decrease_axis`` dims squeezed."""
+    x = single_input(ins, "Input")
+    idx = [slice(None)] * x.ndim
+    for ax, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[ax]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[ax] = slice(s, e)
+    out = x[tuple(idx)]
+    for ax in sorted(attrs.get("decrease_axis", []), reverse=True):
+        out = torch.squeeze(out, ax)
+    return {"Out": [out]}
+
+
+@register_op("gather")
+def _gather(ctx, ins, attrs):
+    """The rows of X at Index ([N] or [N, 1]) along ``axis``.  Indices
+    must lie in [0, X.shape[axis]): where jnp.take fills the row of an
+    index outside it, the port raises (index_select's bounds check: an
+    IndexError on the CPU, a device-side assert on the card).  The
+    backward is index_select's scatter-add, atomic on the card, so its
+    sums over repeated indices may differ in their last bits run to
+    run."""
+    x = single_input(ins)
+    idx = single_input(ins, "Index")
+    if idx.ndim == 2 and idx.shape[-1] == 1:
+        idx = idx.squeeze(-1)
+    return {"Out": [torch.index_select(x, int(attrs.get("axis", 0)),
+                                       idx.long())]}

@@ -102,8 +102,8 @@ import json, sys
 import paddle_tpu_torch.analysis as analysis
 from paddle_tpu_torch import nets
 from paddle_tpu_torch.analysis import lint
-from paddle_tpu_torch.models import lenet, resnet, vgg
-from paddle_tpu_torch.ops import metric_ops, reduce_ops
+from paddle_tpu_torch.models import bert, lenet, resnet, transformer, vgg
+from paddle_tpu_torch.ops import metric_ops, misc_ops, reduce_ops
 rc = lint.main([])
 selftest = lint.main(["--self-test"])
 print(json.dumps({
@@ -117,13 +117,15 @@ print(json.dumps({
 def test_analysis_plane_and_lint_cli_run_without_jax():
     """The verifier's shape inference runs the port's lowerings on meta
     tensors: the lint CLI verifies its models (the image classifiers and
-    the conv plane's ops and nets among them) with no JAX loaded."""
+    the conv plane's ops and nets, the NMT and BERT builds and their ops
+    among them) with no JAX loaded."""
     res = subprocess.run([sys.executable, "-c", _ANALYSIS_CHILD],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    for model in ("lenet", "vgg", "resnet", "transformer_lm"):
+    for model in ("lenet", "vgg", "resnet", "transformer",
+                  "transformer_lm", "bert"):
         assert f"[lint] {model}: ok" in res.stdout
     report = json.loads(lines[-1])
     assert report == {"rc": 0, "self_test": 1,

@@ -457,6 +457,94 @@ CASES = {
                                "LearningRate": [np.array([0.1], "float32")]},
         {"mu": 0.9, "use_nesterov": n}, ["ParamOut", "VelocityOut"], EXACT)
        for n in (False, True)},
+    # the NMT and BERT builds' ops: the reductions (a full one is 0-d, as
+    # jnp.sum(axis=None) gives it), one_hot (a zero row outside [0,
+    # depth), as jax.nn.one_hot gives it), label_smooth, slice, gather,
+    # gelu and tanh
+    "reduce_sum_all": (
+        "reduce_sum", lambda r: {"X": [_rand(r, 3, 4, 5)]},
+        {"reduce_all": True, "dim": [0], "keep_dim": False}, ["Out"], EXACT),
+    "reduce_sum_all_keep": (
+        "reduce_sum", lambda r: {"X": [_rand(r, 3, 4)]},
+        {"reduce_all": True, "dim": [0], "keep_dim": True}, ["Out"], EXACT),
+    "reduce_sum_neg_dims_keep": (
+        "reduce_sum", lambda r: {"X": [_rand(r, 3, 4, 5)]},
+        {"dim": [-1, 0], "keep_dim": True}, ["Out"], EXACT),
+    "reduce_sum_int_dim": (
+        "reduce_sum", lambda r: {"X": [_rand(r, 3, 4, 5)]},
+        {"dim": 1}, ["Out"], EXACT),
+    "reduce_sum_0d": (
+        "reduce_sum", lambda r: {"X": [np.array(2.5, "float32")]},
+        {"reduce_all": True}, ["Out"], EXACT),
+    "reduce_mean_dim": (
+        "reduce_mean", lambda r: {"X": [_rand(r, 3, 4, 5)]},
+        {"dim": [1]}, ["Out"], EXACT),
+    "reduce_mean_all": (
+        "reduce_mean", lambda r: {"X": [_rand(r, 6, 7)]},
+        {"reduce_all": True}, ["Out"], EXACT),
+    "reduce_max_dim": (
+        "reduce_max", lambda r: {"X": [_rand(r, 3, 4, 5)]},
+        {"dim": [-2], "keep_dim": True}, ["Out"], SAME),
+    "reduce_min_all": (
+        "reduce_min", lambda r: {"X": [_rand(r, 3, 4, 5)]},
+        {"reduce_all": True}, ["Out"], SAME),
+    "reduce_prod_dims": (
+        "reduce_prod", lambda r: {
+            "X": [(0.5 + r.rand(3, 4, 5)).astype("float32")]},
+        {"dim": [0, 2]}, ["Out"], EXACT),
+    "reduce_all_dim": (
+        "reduce_all", lambda r: {"X": [r.rand(4, 3) < 0.8]},
+        {"dim": [1]}, ["Out"], SAME),
+    "reduce_any_all": (
+        "reduce_any", lambda r: {"X": [r.rand(4, 3) < 0.1]},
+        {"reduce_all": True}, ["Out"], SAME),
+    "one_hot_trailing_1": (
+        "one_hot", lambda r: {"X": [r.randint(0, 7, (6, 1))]},
+        {"depth": 7}, ["Out"], SAME),
+    "one_hot_2d": (
+        "one_hot", lambda r: {"X": [r.randint(0, 5, (2, 3))]},
+        {"depth": 5}, ["Out"], SAME),
+    "one_hot_out_of_range": (
+        "one_hot", lambda r: {"X": [np.array([-1, 5, 2, 7, 0], "int64")]},
+        {"depth": 5}, ["Out"], SAME),
+    "label_smooth_uniform": (
+        "label_smooth", lambda r: {
+            "X": [np.eye(6, dtype="float32")[r.randint(0, 6, 4)]]},
+        {"epsilon": 0.1}, ["Out"], EXACT),
+    "label_smooth_prior": (
+        "label_smooth", lambda r: {
+            "X": [np.eye(6, dtype="float32")[r.randint(0, 6, 4)]],
+            "PriorDist": [_softmax_rows(_rand(r, 1, 6))]},
+        {"epsilon": 0.2}, ["Out"], EXACT),
+    "slice_negative_and_clamped": (
+        "slice", lambda r: {"Input": [_rand(r, 4, 5, 6)]},
+        {"axes": [0, 2], "starts": [-3, 1], "ends": [100, -1]}, ["Out"],
+        SAME),
+    "slice_decrease_axis": (
+        "slice", lambda r: {"Input": [_rand(r, 4, 5, 6)]},
+        {"axes": [1], "starts": [0], "ends": [1], "decrease_axis": [1]},
+        ["Out"], SAME),
+    "slice_start_past_end": (
+        "slice", lambda r: {"Input": [_rand(r, 4, 5)]},
+        {"axes": [1], "starts": [4], "ends": [2]}, ["Out"], SAME),
+    "gather_rows": (
+        "gather", lambda r: {"X": [_rand(r, 7, 4)],
+                             "Index": [r.randint(0, 7, 9)]},
+        {}, ["Out"], SAME),
+    "gather_column_index": (
+        "gather", lambda r: {"X": [_rand(r, 7, 4)],
+                             "Index": [r.randint(0, 7, (5, 1))]},
+        {"axis": 0}, ["Out"], SAME),
+    "gather_axis1": (
+        "gather", lambda r: {"X": [_rand(r, 3, 6, 2)],
+                             "Index": [r.randint(0, 6, 4)]},
+        {"axis": 1}, ["Out"], SAME),
+    "gelu_erf": ("gelu", lambda r: {"X": [_rand(r, 4, 5) * 3]}, {},
+                 ["Out"], EXACT),
+    "gelu_tanh": ("gelu", lambda r: {"X": [_rand(r, 4, 5) * 3]},
+                  {"approximate": True}, ["Out"], EXACT),
+    "tanh": ("tanh", lambda r: {"X": [_rand(r, 4, 5) * 2]}, {}, ["Out"],
+             EXACT),
 }
 
 
@@ -603,3 +691,134 @@ def test_conv_plane_grad_matches_jax(name):
     for slot, t, j in zip(wrt, tgrads, jgrads):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=slot,
                                    **CONV)
+
+
+# the NMT and BERT ops' gradients: (differentiated input slots, output
+# slot); the inputs are the CASES entry of the same name
+XFMR_GRAD_CASES = {
+    "reduce_sum_all": ("X",),
+    "reduce_sum_neg_dims_keep": ("X",),
+    "reduce_mean_dim": ("X",),
+    "reduce_max_dim": ("X",),
+    "reduce_prod_dims": ("X",),
+    "label_smooth_uniform": ("X",),
+    "label_smooth_prior": ("X", "PriorDist"),
+    "slice_negative_and_clamped": ("Input",),
+    "slice_decrease_axis": ("Input",),
+    "gather_rows": ("X",),          # repeated indices: the rows add
+    "gather_axis1": ("X",),
+    "gelu_erf": ("X",),
+    "gelu_tanh": ("X",),
+    "tanh": ("X",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(XFMR_GRAD_CASES))
+def test_nmt_bert_op_grad_matches_jax(name):
+    """torch autograd through the port's lowering against jax.vjp of the
+    JAX lowering, for one seeded cotangent of Out, at EXACT (elementwise
+    math, and sums of at most 20 terms)."""
+    op, build, attrs, _, _ = CASES[name]
+    wrt = XFMR_GRAD_CASES[name]
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
+    ins = build(rng)
+
+    def jax_in(a):
+        return jnp.asarray(a.astype(np.int32) if a.dtype == np.int64 else a)
+
+    def jax_fn(*diff):
+        jins = {k: [jax_in(a) for a in v] for k, v in ins.items()}
+        for slot, a in zip(wrt, diff):
+            jins[slot] = [a]
+        return jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), jins,
+                                attrs)["Out"][0]
+
+    out, vjp = jax.vjp(jax_fn, *[jnp.asarray(ins[s][0]) for s in wrt])
+    ct = np.asarray(rng.randn(*out.shape), "float32")   # 0-d for a 0-d out
+    jgrads = vjp(jnp.asarray(ct))
+
+    tins = {k: [torch.from_numpy(np.array(a, order="C")) for a in v]
+            for k, v in ins.items()}
+    leaves = [tins[s][0].requires_grad_(True) for s in wrt]
+    tout = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), tins,
+                              attrs)["Out"][0]
+    assert tout.shape == out.shape
+    tgrads = torch.autograd.grad(tout, leaves, torch.from_numpy(ct))
+    for slot, t, j in zip(wrt, tgrads, jgrads):
+        assert t.shape == j.shape, slot
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=slot,
+                                   **EXACT)
+
+
+def _bf16_values(a):
+    return np.asarray(torch.from_numpy(a).to(torch.bfloat16).float())
+
+
+# (op, inputs, attrs, the input slots that enter as bf16) under
+# FLAGS_amp_bf16: the bf16 activations the NMT and BERT steps hand these
+# ops, and the f32 operands they meet (the -1e9 pad bias, tgt_mask's
+# weights, the one-hot labels)
+XFMR_AMP_CASES = {
+    "gelu": ("gelu", lambda r: {"X": [_rand(r, 4, 8) * 3]}, {}, ("X",)),
+    "tanh": ("tanh", lambda r: {"X": [_rand(r, 4, 8)]}, {}, ("X",)),
+    "reduce_sum_all": ("reduce_sum", lambda r: {"X": [_rand(r, 6, 1)]},
+                       {"reduce_all": True}, ("X",)),
+    "reduce_mean_dim": ("reduce_mean", lambda r: {"X": [_rand(r, 4, 8)]},
+                        {"dim": [1]}, ("X",)),
+    "slice": ("slice", lambda r: {"Input": [_rand(r, 2, 5, 8)]},
+              {"axes": [1], "starts": [0], "ends": [1]}, ("Input",)),
+    "gather": ("gather", lambda r: {"X": [_rand(r, 6, 8)],
+                                    "Index": [r.randint(0, 6, 4)]},
+               {}, ("X",)),
+    "one_hot": ("one_hot", lambda r: {"X": [r.randint(0, 9, (5, 1))]},
+                {"depth": 9}, ()),
+    "label_smooth": ("label_smooth", lambda r: {
+        "X": [np.eye(9, dtype="float32")[r.randint(0, 9, 5)]]},
+        {"epsilon": 0.1}, ()),
+    # bf16 scores + the f32 pad bias: JAX's elementwise AMP rule
+    "pad_bias_add": ("elementwise_add", lambda r: {
+        "X": [_rand(r, 2, 2, 4, 4)],
+        "Y": [np.where(r.rand(2, 1, 1, 4) < 0.3, -1e9, 0.0).astype(
+            "float32")]}, {"axis": -1}, ("X",)),
+    "cost_times_mask": ("elementwise_mul", lambda r: {
+        "X": [_rand(r, 6, 1)],
+        "Y": [(r.rand(6, 1) < 0.7).astype("float32")]}, {}, ("X",)),
+    "sum_over_count": ("elementwise_div", lambda r: {
+        "X": [np.array(7.25, "float32")], "Y": [np.array(5.0, "float32")]},
+        {}, ("X",)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(XFMR_AMP_CASES))
+def test_nmt_bert_ops_amp_dtypes_match_jax(name):
+    """Under FLAGS_amp_bf16 each op returns the dtype the JAX lowering
+    returns under the flag, on the same inputs (bf16 activations rounded
+    alike), with values within one bf16 step of max |JAX| (2^-7)."""
+    import paddle_tpu as pt
+    import paddle_tpu_torch as ptt
+    op, build, attrs, bf16 = XFMR_AMP_CASES[name]
+    ins = build(np.random.RandomState(zlib.crc32(name.encode())))
+    ins = {k: [_bf16_values(a) if k in bf16 else a for a in v]
+           for k, v in ins.items()}
+    jins = {k: [jnp.asarray(a.astype(np.int32) if a.dtype == np.int64
+                            else a).astype(jnp.bfloat16 if k in bf16
+                                           else None) for a in v]
+            for k, v in ins.items()}
+    tins = {k: [torch.from_numpy(np.array(a)).to(torch.bfloat16)
+                if k in bf16 else torch.from_numpy(np.array(a)) for a in v]
+            for k, v in ins.items()}
+    pt.core.flags.set_flag("amp_bf16", True)
+    ptt.flags.set_flag("amp_bf16", True)
+    try:
+        j = jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), jins,
+                             attrs)["Out"][0]
+        t = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), tins,
+                               attrs)["Out"][0]
+    finally:
+        pt.core.flags.set_flag("amp_bf16", False)
+        ptt.flags.set_flag("amp_bf16", False)
+    assert str(t.dtype).split(".")[-1] == str(j.dtype), (t.dtype, j.dtype)
+    j = np.asarray(jnp.asarray(j).astype(jnp.float32))
+    t = t.float().numpy()
+    assert t.shape == j.shape
+    assert np.abs(t - j).max() <= 2.0 ** -7 * max(np.abs(j).max(), 1e-30)
