@@ -269,6 +269,31 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    model is traced at the end of the smoke (kernel classes, idle share,
    the layer norms by kernel).  Paths "nmt_train", "nmt_train_amp",
    "bert_train", "bert_train_amp" and "nmt_serve" in launches_by_path.
+5i. DeepFM CTR (slice 20), bench.py's bench_deepfm: models.deepfm.
+   build_train_net(DeepFMConfig()) (F 39, two tables of 1,000,001 rows,
+   K 10, towers 400-400-400) with Adagrad(0.01) at batch 512.  (a) One
+   f32 step at batch 64 with an id planted in several fields and rows,
+   from the card's startup state, on the card, on a CPUPlace executor
+   taking the card's relu branches and on the card with TF32 matmuls:
+   the loss and every @GRAD within DEEPFM_LOSS_RTOL and
+   DEEPFM_GRAD_RTOL, the control outside one of them, and every table
+   row no id named (with its moment) bit-equal to its start on both.
+   (b) Every optimizer class (DEEPFM_OPTIMIZERS), the first tower at
+   ParamAttr.learning_rate 0.5: 3 steps card vs CPU at the same bounds.
+   (c) ModelAverage: apply after startup a no-op, after 5 steps the mean
+   of the post-step params, restore bit-equal.  (d) The training row f32
+   and under AMP, and the hash-bucketed sparse build under AMP on raw
+   ids over [0, 2^40) (5 % negated): DEEPFM_WARMUP + DEEPFM_RUNS runs with
+   the counters zeroed just before and read just after (no kernel of
+   this repo), the AMP loss falling; the first run, run p50, peak memory
+   and time_run_steps with examples/s.  (e) The sparse build's buckets on
+   the card against sparse.hash_bucket.  (f) The f32 row's program saved
+   with prob as the fetch and served by the Predictor at batch 512: card
+   vs CPU probabilities, metrics.Auc, the request p50.  The AMP step is
+   traced at the end of the smoke by kernel class (embedding gather and
+   backward, cuBLAS, the lookups' and Adagrad's kernels by their op
+   ranges).  Paths "deepfm_train", "deepfm_train_amp",
+   "deepfm_sparse_train_amp" and "deepfm_serve" in launches_by_path.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -324,7 +349,7 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    under "decode_oracle", phase 5e's run_steps call's under
    "train_run_steps" and its Trainer's under "trainer", phase 5g's under
    "resnet_*", all 0, phase 5h's under "nmt_*" and "bert_*", layer norms
-   only; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
+   only, phase 5i's under "deepfm_*", all 0; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -4380,6 +4405,560 @@ def trace_xfmr(torch, model, row):
                            f"{want}), other kernels of this repo {ours}")
 
 
+# phase 5i: DeepFM CTR as bench.py's bench_deepfm (:756-791) trains it
+# (DeepFMConfig(): 39 fields, two tables of 1,000,001 rows, K 10, towers
+# 400-400-400; batch 512, Adagrad(0.01)), and its hash-bucketed sparse
+# build
+DEEPFM_CFG = {}             # DeepFMConfig() at its defaults
+DEEPFM_BATCH = 512          # bench_deepfm's batch
+DEEPFM_LR = 0.01            # bench_deepfm's Adagrad(0.01)
+DEEPFM_WARMUP = 2           # bench_deepfm's warm-up runs
+DEEPFM_RUNS = 10            # synchronized runs after them (the run p50);
+                            # the AMP loss must fall over the first 10 runs
+DEEPFM_TIMED_STEPS = 10     # time_run_steps: steps a call, timed calls
+DEEPFM_TIMED_CALLS = 2
+DEEPFM_RAW_IDS = 2 ** 40    # the sparse build's raw ids: [0, 2^40), and
+DEEPFM_NEGATIVE = 0.05      # this share of them negated
+DEEPFM_CHECK_BATCH = 64     # the card-vs-CPU steps (the CPU side is the cost)
+DEEPFM_DUP_ID = 123457      # planted in fields 0, 5, 17 of rows 0-7
+DEEPFM_OPT_STEPS = 3        # each optimizer class, card vs CPU
+DEEPFM_TOWER_LR = 0.5       # the first tower's ParamAttr.learning_rate there
+DEEPFM_AVG_STEPS = 5        # Adagrad steps before ModelAverage.apply
+DEEPFM_SERVE_TIMED = 30     # timed Predictor requests at DEEPFM_BATCH
+# card vs CPU, one f32 step from the same state at batch 64 with planted
+# duplicate ids, the CPU step taking the card's relu branches: the loss's
+# relative error, and ||card - CPU|| / ||CPU|| of every @GRAD and of
+# every persistable's change after the optimizer classes' 3 steps
+# (tests/test_torch_train.py's 1e-5 and 1e-4)
+DEEPFM_LOSS_RTOL = 1e-5
+DEEPFM_GRAD_RTOL = 1e-4
+DEEPFM_PRED_ATOL = 1e-5     # the Predictor's probabilities, card vs CPU
+DEEPFM_AVG_RTOL = 1e-6      # ModelAverage's apply against the host mean
+# the optimizer classes held card vs CPU: (class, its arguments)
+DEEPFM_OPTIMIZERS = (
+    ("LarsMomentum", dict(learning_rate=0.1, momentum=0.9)),
+    ("AdamW", dict(learning_rate=0.01, weight_decay=0.01)),
+    ("Adamax", dict(learning_rate=0.01)),
+    ("Adagrad", dict(learning_rate=DEEPFM_LR)),
+    # its moment starts at (1 - decay) g^2, so a step is 4.5 lr / entry
+    ("DecayedAdagrad", dict(learning_rate=0.001)),
+    ("Adadelta", dict(learning_rate=1.0)),
+    ("RMSProp", dict(learning_rate=0.01, momentum=0.9)),
+    ("RMSProp", dict(learning_rate=0.01, centered=True)),
+    ("Ftrl", dict(learning_rate=0.05, l1=0.01, l2=0.01)),
+    ("Ftrl", dict(learning_rate=0.05, l2=0.01, lr_power=-0.7)),
+    ("Lamb", dict(learning_rate=0.01)),
+    ("ProximalGD", dict(learning_rate=0.05, l1=1e-3, l2=1e-3)),
+    ("ProximalAdagrad", dict(learning_rate=0.05, l1=1e-3, l2=1e-3)),
+)
+
+
+def deepfm_build(sparse=False, opt="Adagrad", kw=None, tower_lr=None,
+                 average=False):
+    """(main, startup, loss, grad names, prob, ModelAverage or None) of
+    bench_deepfm's program (the hash-bucketed build with `sparse`) with
+    opt(**kw).minimize (Adagrad(DEEPFM_LR) by default; none with opt
+    None); `tower_lr` sets the first tower's ParamAttr.learning_rate (its
+    optimize_attr, as the layer's ParamAttr sets it), `average` appends a
+    ModelAverage."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import deepfm
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        cfg = deepfm.DeepFMConfig(**DEEPFM_CFG)
+        build = (deepfm.build_sparse_train_net if sparse
+                 else deepfm.build_train_net)
+        _, loss, prob = build(cfg)
+        grads, ma = [], None
+        if opt:
+            if tower_lr is not None:
+                tower = [p for p in main.all_parameters()
+                         if p.name.startswith("fc_")][:2]
+                for p in tower:
+                    p.optimize_attr = {"learning_rate": tower_lr}
+            _, pg = getattr(ptt.optimizer, opt)(
+                **(kw or dict(learning_rate=DEEPFM_LR))).minimize(loss)
+            grads = [g.name for _, g in pg]
+            if average:
+                ma = ptt.optimizer.ModelAverage()
+    return main, startup, loss, grads, prob, ma
+
+
+def deepfm_feed(batch, seed, sparse=False, dup=False, device=None):
+    """make_fake_batch's feed at `batch`; with `sparse`, raw ids over
+    [0, DEEPFM_RAW_IDS), DEEPFM_NEGATIVE of them negated; with `dup`,
+    DEEPFM_DUP_ID in fields 0, 5 and 17 of rows 0-7.  As numpy, or as
+    tensors on `device`."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import deepfm
+    cfg = deepfm.DeepFMConfig(**DEEPFM_CFG)
+    feed = deepfm.make_fake_batch(cfg, batch, seed=seed)
+    if sparse:
+        rng = np.random.RandomState(seed)
+        ids = rng.randint(0, DEEPFM_RAW_IDS, feed["feat_ids"].shape,
+                          dtype=np.int64)
+        ids[rng.rand(*ids.shape) < DEEPFM_NEGATIVE] *= -1
+        feed["feat_ids"] = ids
+    if dup:
+        feed["feat_ids"][:8, [0, 5 % cfg.num_field,
+                              17 % cfg.num_field]] = DEEPFM_DUP_ID
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def deepfm_relus(main):
+    return [op.inputs["X"][0] for op in main.global_block().ops
+            if op.type == "relu"]
+
+
+def deepfm_card_vs_cpu(torch):
+    """(a) One f32 Adagrad step of bench_deepfm's program at full width,
+    batch DEEPFM_CHECK_BATCH with duplicate ids planted, from the card's
+    startup state, on the card, on a CPUPlace executor taking the card's
+    relu branches (replayed_relu_masks), and on the card with TF32
+    matmuls (the control, against the CPU taking its branches): the
+    loss's relative error and every @GRAD's ||card - CPU|| / ||CPU||
+    within DEEPFM_LOSS_RTOL and DEEPFM_GRAD_RTOL, the control outside one
+    of them.  The card's embedding backward sums a duplicate id's rows in
+    another order than the CPU's (f32 rounding, inside the bounds).
+    Every table row no id named, and its Adagrad moment, is bit-equal to
+    its start value after the step, on the card and on the CPU."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = "[deepfm check]"
+    main, startup, loss, grads, _, _ = deepfm_build()
+    relus = deepfm_relus(main)
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(card.scope, names).items()}
+    feed = deepfm_feed(DEEPFM_CHECK_BATCH, SEED + 11, dup=True)
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    tables = [n for n in names if n.startswith(("fm_w1", "fm_emb"))
+              or n.endswith((".fm_w1.moment", ".fm_emb.moment"))]
+    untouched = np.setdiff1d(np.arange(state["fm_w1"].shape[0]),
+                             feed["feat_ids"].ravel())
+
+    def step(exe, place, masks=None):
+        """(loss, {@GRAD: host f32}, relu signs, tables kept) of one step
+        from `state`, each relu taking `masks`' branches where given."""
+        ptt.io.params_from_numpy(exe.scope, state, place)
+        replay = (replayed_relu_masks(masks) if masks is not None
+                  else contextlib.nullcontext([]))
+        with replay as left:
+            out = exe.run(main, feed=feed, fetch_list=[loss] + grads + relus,
+                          return_numpy=False)
+        if left:
+            raise RuntimeError(f"{tag} {len(left)} relu masks not taken")
+        kept = all(np.array_equal(exe.scope.find_var(n).cpu().numpy()[
+            untouched], state[n][untouched]) for n in tables)
+        n = 1 + len(grads)
+        return (float(out[0].float().cpu().reshape(())),
+                {g: t.detach().float().cpu() for g, t in zip(grads,
+                                                             out[1:n])},
+                [(t > 0).cpu() for t in out[n:]], kept)
+
+    t0 = time.perf_counter()
+    want_loss, want, cpu_signs, cpu_kept = step(cpu, ptt.CPUPlace())
+    cpu_s = time.perf_counter() - t0
+    got_loss, got, card_signs, card_kept = step(card, ptt.CUDAPlace(0))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl_loss, ctl, ctl_signs, _ = step(card, ptt.CUDAPlace(0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    flips = {k: sum(int((a != b).sum()) for a, b in zip(signs, cpu_signs))
+             for k, signs in (("card", card_signs), ("control", ctl_signs))}
+    res = {}
+    for name, l, g, signs in (("card", got_loss, got, card_signs),
+                              ("TF32 control", ctl_loss, ctl, ctl_signs)):
+        r_loss, r, _, _ = step(cpu, ptt.CPUPlace(),
+                               masks=[m.float() for m in signs])
+        errs = grad_rel_errs(r, g)
+        worst = max(errs, key=errs.get)
+        res[name] = (abs(l - r_loss) / abs(r_loss), errs[worst], worst,
+                     max(grad_rel_errs(want, g).values()))
+    log(f"{tag} DeepFMConfig({DEEPFM_CFG}), batch {DEEPFM_CHECK_BATCH}, "
+        f"id {DEEPFM_DUP_ID} planted {int((feed['feat_ids'] == DEEPFM_DUP_ID).sum())} "
+        f"times, {len(grads)} @GRADs: loss CPU {want_loss:.7f} card "
+        f"{got_loss:.7f} TF32 control {ctl_loss:.7f}; relu branches taken "
+        f"apart from the CPU's {flips} (of "
+        f"{sum(int(m.numel()) for m in cpu_signs)} units); against the CPU "
+        f"step taking their branches: card loss {res['card'][0]:.3g}, "
+        f"worst @GRAD {res['card'][1]:.3g} ({res['card'][2]}); TF32 control"
+        f" loss {res['TF32 control'][0]:.3g}, worst @GRAD "
+        f"{res['TF32 control'][1]:.3g} ({res['TF32 control'][2]}); bounds "
+        f"{DEEPFM_LOSS_RTOL:g} / {DEEPFM_GRAD_RTOL:g}; without the replay "
+        f"the worst @GRAD is card {res['card'][3]:.3g}, control "
+        f"{res['TF32 control'][3]:.3g}; {len(untouched)} untouched rows of "
+        f"{tables} bit-equal after the step: card {card_kept}, CPU "
+        f"{cpu_kept}; CPU step {cpu_s:.1f} s")
+    if not (res["card"][0] <= DEEPFM_LOSS_RTOL
+            and res["card"][1] <= DEEPFM_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the card's step is off the CPU's: "
+                           f"{res['card']}")
+    if not (res["TF32 control"][0] > DEEPFM_LOSS_RTOL
+            or res["TF32 control"][1] > DEEPFM_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the TF32 control passed the bounds: "
+                           f"the check cannot tell f32 from TF32")
+    if not (card_kept and cpu_kept):
+        raise RuntimeError(f"{tag} an untouched table row moved")
+    return dict(loss=res["card"][0], grad=res["card"][1],
+                ctl_loss=res["TF32 control"][0],
+                ctl_grad=res["TF32 control"][1], flips=flips)
+
+
+def deepfm_optimizers(torch):
+    """(b) Each optimizer class of DEEPFM_OPTIMIZERS, the first tower at
+    ParamAttr.learning_rate DEEPFM_TOWER_LR: DEEPFM_OPT_STEPS f32 steps of
+    bench_deepfm's program at batch DEEPFM_CHECK_BATCH from the card's
+    startup state on the card and on the CPU, the CPU taking the card's
+    relu branches each step: each step's loss within DEEPFM_LOSS_RTOL,
+    and every persistable within DEEPFM_GRAD_RTOL after the steps (the
+    params and their change as ||card - CPU|| / ||CPU|| of the change,
+    the accumulators as values); every param moved (or, under FTRL's l1
+    step, is exactly 0)."""
+    import paddle_tpu_torch as ptt
+    tag = "[deepfm optimizers]"
+    feeds = [deepfm_feed(DEEPFM_CHECK_BATCH, SEED + 20 + i, dup=True)
+             for i in range(DEEPFM_OPT_STEPS)]
+    rows, cpu_s = [], 0.0
+    for opt, kw in DEEPFM_OPTIMIZERS:
+        main, startup, loss, _, _, _ = deepfm_build(
+            opt=opt, kw=kw, tower_lr=DEEPFM_TOWER_LR)
+        ops = [op.type for op in main.global_block().ops]
+        relus = deepfm_relus(main)
+        card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        card.run(startup)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        params = {p.name for p in main.all_parameters()}
+        start = host_state(card.scope, names)
+        cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+        ptt.io.params_from_numpy(cpu.scope, {n: t.numpy() for n, t in
+                                             start.items()}, ptt.CPUPlace())
+        losses = []
+        for feed in feeds:
+            out = card.run(main, feed=feed, fetch_list=[loss] + relus,
+                           return_numpy=False)
+            t0 = time.perf_counter()
+            with replayed_relu_masks([(t > 0).float().cpu()
+                                      for t in out[1:]]) as left:
+                want, = cpu.run(main, feed=feed, fetch_list=[loss])
+            cpu_s += time.perf_counter() - t0
+            if left:
+                raise RuntimeError(f"{tag} {len(left)} relu masks not taken")
+            losses.append((float(out[0].float().cpu().reshape(())),
+                           float(want.reshape(()))))
+        got, want = host_state(card.scope, names), host_state(cpu.scope,
+                                                              names)
+        errs = {}
+        for n in names:
+            base = start[n].double() if n in params else 0
+            w, g = want[n].double() - base, got[n].double() - base
+            errs[n] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        worst = max(errs, key=errs.get)
+        loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+        # FTRL's l1 step may hold a zero-initialised bias at exactly 0
+        moved = all(not torch.equal(got[n], start[n]) or not got[n].any()
+                    for n in params)
+        label = f"{opt}({', '.join(f'{k}={v}' for k, v in kw.items())})"
+        rows.append((label, loss_err, errs[worst], worst))
+        log(f"{tag} {label}: {ops.count('scale')} scale ops (the tower's "
+            f"lr), losses card/CPU {[(round(a, 5), round(b, 5)) for a, b in losses]}"
+            f" (worst {loss_err:.3g}); worst state {errs[worst]:.3g} "
+            f"({worst}); every param moved {moved}")
+        if not (loss_err <= DEEPFM_LOSS_RTOL
+                and errs[worst] <= DEEPFM_GRAD_RTOL and moved):
+            raise RuntimeError(f"{tag} {label} is off the CPU's steps")
+    log(f"{tag} {len(rows)} classes within the bounds {DEEPFM_LOSS_RTOL:g} "
+        f"/ {DEEPFM_GRAD_RTOL:g}; CPU steps {cpu_s:.1f} s in all")
+    return rows
+
+
+def deepfm_model_average(torch):
+    """(c) ModelAverage on bench_deepfm's program, Adagrad, on the card:
+    apply right after the startup run leaves every param bit-equal;
+    after DEEPFM_AVG_STEPS steps (the params read back after each) apply
+    gives their mean (the f32 sum in order over the steps, divided by the
+    count) within DEEPFM_AVG_RTOL, and restore gives back the trained
+    values bit for bit."""
+    import paddle_tpu_torch as ptt
+    tag = "[deepfm ModelAverage]"
+    main, startup, loss, _, _, ma = deepfm_build(average=True)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    params = [p.name for p in main.all_parameters()]
+    start = snapshot(exe.scope, params)
+    with ma.apply(exe):
+        noop = bits_differ(snapshot(exe.scope, params), start)
+    total = None
+    for i in range(DEEPFM_AVG_STEPS):
+        exe.run(main, feed=deepfm_feed(DEEPFM_CHECK_BATCH, SEED + 30 + i),
+                fetch_list=[loss])
+        now = snapshot(exe.scope, params)
+        total = now if total is None else {n: total[n] + now[n]
+                                           for n in params}
+    trained = snapshot(exe.scope, params)
+    with ma.apply(exe):
+        avg = snapshot(exe.scope, params)
+    restored = bits_differ(snapshot(exe.scope, params), trained)
+    errs = {n: float(((avg[n] - total[n] / DEEPFM_AVG_STEPS).abs()
+                      / (total[n] / DEEPFM_AVG_STEPS).abs().clamp_min(1.0)
+                      ).max()) for n in params}
+    worst = max(errs, key=errs.get)
+    log(f"{tag} apply after startup changed {noop or 'nothing'}; after "
+        f"{DEEPFM_AVG_STEPS} steps apply's worst error against the mean "
+        f"{errs[worst]:.3g} ({worst}; bound {DEEPFM_AVG_RTOL:g} of "
+        f"max(1, |mean|)); restore changed {restored or 'nothing'}")
+    if noop or restored or errs[worst] > DEEPFM_AVG_RTOL:
+        raise RuntimeError(f"{tag} apply/restore: {noop}, {restored}, "
+                           f"{errs[worst]}")
+    return errs[worst]
+
+
+def deepfm_train(torch, amp, sparse=False):
+    """(d) bench_deepfm's row (or its sparse build on raw ids, `sparse`)
+    at batch DEEPFM_BATCH, f32 or under FLAGS_amp_bf16: the batch on the
+    card, DEEPFM_WARMUP runs and DEEPFM_RUNS synchronized runs, the
+    counters zeroed just before the first and read just after the last
+    (no kernel of this repo runs); the first run's time, the run p50 and
+    peak memory; then time_run_steps as bench.py's _time_steps times the
+    row, and examples/s."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = (f"[deepfm{' sparse' if sparse else ''} train"
+           f"{' amp' if amp else ''}]")
+    with amp_bf16(amp):
+        main, startup, loss, grads, prob, _ = deepfm_build(sparse=sparse)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        host = deepfm_feed(DEEPFM_BATCH, SEED + 1, sparse=sparse)
+        feed = {k: torch.as_tensor(v, device=DEVICE)
+                for k, v in host.items()}
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters = launch_counters()
+        zero_counters(counters)
+        losses, ms = [], []
+        for _ in range(DEEPFM_WARMUP + DEEPFM_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(())))
+        counts = {n: v for (n, attr), v in read_counters(counters).items()
+                  if attr == "launches"}
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = time_run_steps(torch, exe, main, feed, loss,
+                                 steps=DEEPFM_TIMED_STEPS,
+                                 calls=DEEPFM_TIMED_CALLS)
+    no_autograd_state(exe.scope, names, tag)
+    p50 = float(np.median(ms[DEEPFM_WARMUP:]))
+    ops = [op.type for op in main.global_block().ops]
+    n_weights = sum(math.prod(p.shape) for p in main.all_parameters())
+    log(f"{tag} batch {DEEPFM_BATCH}, {len(ops)} ops "
+        f"({ops.count('adagrad')} adagrad), {n_weights} weights: losses "
+        f"{[round(x, 4) for x in losses]}; run_steps {step_ms:.2f} ms a "
+        f"step (time_run_steps: {DEEPFM_TIMED_STEPS} steps a call, best of "
+        f"{DEEPFM_TIMED_CALLS} after one), "
+        f"{DEEPFM_BATCH / step_ms * 1e3:.0f} examples/s; run p50 "
+        f"{p50:.2f} ms (runs {DEEPFM_WARMUP + 1}-"
+        f"{DEEPFM_WARMUP + DEEPFM_RUNS}, synchronized, with the loss "
+        f"readback), {DEEPFM_BATCH / p50 * 1e3:.0f} examples/s; first run "
+        f"{ms[0]:.2f} ms; peak device memory {peak / 2**20:.1f} MiB "
+        f"({(peak - base) / 2**20:.1f} above the {base / 2**20:.1f} MiB "
+        f"held before); this repo's kernels launched "
+        f"{sum(counts.values())} times; {nvidia_smi_line()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} non-finite loss {losses}")
+    if amp and not losses[DEEPFM_RUNS - 1] < losses[0]:
+        raise RuntimeError(f"{tag} the AMP loss did not fall over "
+                           f"{DEEPFM_RUNS} runs: {losses}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(exe=exe, main=main, feed=feed, host=host, loss=loss,
+                        prob=prob, p50=p50, step_ms=step_ms, first_ms=ms[0],
+                        peak=peak - base, losses=losses)
+
+
+def deepfm_buckets(torch):
+    """(e) The sparse build's lookups on the card take the row that the
+    host plane's sparse.hash_bucket gives each raw id (above 2^32 and
+    below 0 among them): fm_w1 holds its row index as its value (exact
+    in f32 below 2^24), and the first lookup's output is read back."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import sparse
+    main, startup, _, _, _, _ = deepfm_build(sparse=True, opt=None)
+    out = [op.outputs["Out"][0] for op in main.global_block().ops
+           if op.type == "sparse_embedding_lookup"][0]
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    rows = exe.scope.find_var("fm_w1").shape[0]
+    ptt.io.params_from_numpy(
+        exe.scope, {"fm_w1": np.arange(rows, dtype="float32").reshape(-1,
+                                                                      1)},
+        ptt.CUDAPlace(0))
+    feed = deepfm_feed(DEEPFM_BATCH, SEED + 1, sparse=True)
+    got, = exe.run(main, feed=feed, fetch_list=[out])
+    ids = feed["feat_ids"]
+    want = sparse.hash_bucket(ids, rows)
+    same = int((got.reshape(ids.shape).astype(np.int64) == want).sum())
+    log(f"[deepfm buckets] {ids.size} raw ids ({int((ids > 2**32).sum())} "
+        f"above 2^32, {int((ids < 0).sum())} below 0) into {rows} rows: "
+        f"{same} took the host's hash_bucket row, "
+        f"{len(np.unique(want))} rows touched")
+    if same != ids.size:
+        raise RuntimeError("the card's buckets are not the host plane's")
+
+
+def deepfm_serve(torch, row):
+    """(f) The f32 training row's program after its runs, saved for
+    inference with prob as the fetch (feeds feat_ids, feat_vals) and
+    served by the Predictor at batch DEEPFM_BATCH: the card's
+    probabilities against the CPU Predictor's on the same dir within
+    DEEPFM_PRED_ATOL, metrics.Auc of them against the batch's labels
+    (the batch it trained on), and the request p50 with the counters
+    zeroed just before and read just after."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import metrics
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    tag = "[deepfm serve]"
+    names = ["feat_ids", "feat_vals"]
+    feed = {k: row["host"][k] for k in names}
+    with tempfile.TemporaryDirectory() as td:
+        ptt.io.save_inference_model(td, names, [row["prob"]], row["exe"],
+                                    main_program=row["main"])
+        on_card = create_predictor(AnalysisConfig(td))
+        on_cpu = create_predictor(AnalysisConfig(td, use_gpu=False))
+    got, = on_card.run(feed)
+    want, = on_cpu.run(feed)
+    err = float(abs(got - want).max())
+    auc = metrics.Auc()
+    auc.update(got, row["host"]["label"])
+    dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in feed.items()}
+    on_card.prepare(dev)
+    counters = launch_counters()
+    zero_counters(counters)
+    ms = []
+    for _ in range(DEEPFM_SERVE_TIMED):
+        t0 = time.perf_counter()
+        on_card.run(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    p50 = float(np.median(ms))
+    log(f"{tag} batch {DEEPFM_BATCH}: probabilities {got.shape} card vs "
+        f"CPU {err:.3g} (tolerance {DEEPFM_PRED_ATOL:g}); Auc against the "
+        f"labels {auc.eval():.4f}; request p50 {p50:.3f} ms (min "
+        f"{min(ms):.3f}, max {max(ms):.3f}; host clock around "
+        f"Predictor.run returning the probabilities as numpy), "
+        f"{DEEPFM_BATCH / p50 * 1e3:.0f} examples/s; {nvidia_smi_line()}")
+    if got.shape != (DEEPFM_BATCH, 1) or not err <= DEEPFM_PRED_ATOL \
+            or not 0.5 < auc.eval() <= 1.0:
+        raise RuntimeError(f"{tag} {got.shape}, {err}, {auc.eval()}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(p50=p50, err=err, auc=auc.eval())
+
+
+def phase_deepfm(torch):
+    """Phase 5i: DeepFM CTR (bench_deepfm) trained and served on the card:
+    the card-vs-CPU Adagrad step with its TF32 control, every optimizer
+    class card vs CPU, ModelAverage, the training row f32 and under AMP,
+    the sparse build under AMP on raw ids with its buckets checked, and
+    the Predictor.  Returns the launches by path (all zero: no kernel of
+    this repo lies on the CTR path) and the AMP row (traced at the end of
+    the smoke)."""
+    check = deepfm_card_vs_cpu(torch)
+    deepfm_optimizers(torch)
+    deepfm_model_average(torch)
+    by_path, rows = {}, {}
+    by_path["deepfm_train"], f32 = deepfm_train(torch, amp=False)
+    by_path["deepfm_train_amp"], amp = deepfm_train(torch, amp=True)
+    by_path["deepfm_sparse_train_amp"], sp = deepfm_train(torch, amp=True,
+                                                          sparse=True)
+    del sp["exe"]
+    deepfm_buckets(torch)
+    by_path["deepfm_serve"], serve = deepfm_serve(torch, f32)
+    del f32["exe"]
+    for key, row in (("f32", f32), ("amp", amp), ("sparse amp", sp)):
+        rows[key] = (round(row["step_ms"], 3),
+                     round(DEEPFM_BATCH / row["step_ms"] * 1e3),
+                     round(row["p50"], 3), round(row["peak"] / 2**20, 1))
+    recs = [r for r in VERIFY_LOG if r["phase"] == "deepfm"]
+    log(f"[deepfm] (run_steps ms a step, examples/s, run p50 ms, peak MiB "
+        f"above what was held) {rows}; serve p50 {serve['p50']:.3f} ms, "
+        f"Auc {serve['auc']:.4f}; check {check}; the gate verified "
+        f"{len(recs)} programs in error mode, "
+        f"{sum(r['errors'] for r in recs)} with an error; "
+        f"{nvidia_smi_line()}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"deepfm verifications {recs}")
+    return by_path, amp
+
+
+def _deepfm_kernel_class(name):
+    """Kernel classes of the CTR step's trace (torch and cuBLAS)."""
+    if "(this repo)" in _kernel_class(name):
+        return _kernel_class(name)
+    low = name.lower()
+    if any(k in low for k in ("indexselect", "index_select", "gather")):
+        return "embedding gather (torch)"
+    if any(k in low for k in ("embedding", "grad_weight", "sum_and_scatter",
+                              "segment", "radix", "sort", "unique")):
+        return "embedding backward (torch)"
+    if any(k in low for k in ("gemm", "cutlass", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if "reduce" in low:
+        return "reductions"
+    return "other (elementwise: Adagrad, FM terms, loss, casts)"
+
+
+def deepfm_bytes(main):
+    """(MB of the tables' dense gradient a step, Adagrad's byte bound in
+    ms: each param, grad and moment read once, each param and moment
+    written once, at HBM_BYTES_PER_S) of a DeepFM training program."""
+    block = main.global_block()
+    tables = sum(math.prod(block.var(n).shape) for n in ("fm_w1", "fm_emb"))
+    weights = sum(math.prod(p.shape) for p in main.all_parameters())
+    return tables * 4 / 1e6, 5 * 4 * weights / HBM_BYTES_PER_S * 1e3
+
+
+def trace_deepfm(torch, row):
+    """One AMP training step of bench_deepfm traced by kernel class, the
+    lookups' and the Adagrad ops' kernels attributed through their
+    ranges (beside Adagrad's byte bound); no kernel of this repo."""
+    raw = []
+    with amp_bf16(), op_ranges(torch, ("lookup_table", "adagrad")):
+        names = trace_run(
+            torch, f"AMP DeepFM training step at batch {DEEPFM_BATCH}",
+            lambda: row["exe"].run(row["main"], feed=row["feed"],
+                                   fetch_list=[row["loss"]],
+                                   return_numpy=False),
+            classify=_deepfm_kernel_class, raw=raw)
+    for t in ("lookup_table", "adagrad"):
+        log(f"[trace]   kernels launched inside the {t} lowerings: "
+            f"{attributed_ms(raw, RANGE_PREFIX + t):.3f} ms")
+    mb, bound = deepfm_bytes(row["main"])
+    log(f"[trace]   the tables' dense gradient {mb:.1f} MB a step; "
+        f"Adagrad's byte bound {bound:.4f} ms")
+    ours = [c for c in names if "(this repo)" in c]
+    if ours or not names.get("matmul (cuBLAS)"):
+        raise RuntimeError(f"the AMP DeepFM step's kernel classes "
+                           f"{sorted(names)}: expected cuBLAS and none of "
+                           f"this repo's")
+
+
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
@@ -5670,6 +6249,8 @@ def main():
     resnet_counts = phase_resnet(torch)
     VERIFY_PHASE[0] = "nmt_bert"
     xfmr_counts, xfmr_amp, ln_d768 = phase_nmt_bert(torch)
+    VERIFY_PHASE[0] = "deepfm"
+    deepfm_counts, deepfm_amp = phase_deepfm(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -5749,6 +6330,8 @@ def main():
     for model, row in xfmr_amp.items():
         trace_xfmr(torch, model, row)
     del xfmr_amp
+    trace_deepfm(torch, deepfm_amp)
+    del deepfm_amp
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -5867,7 +6450,7 @@ def main():
                "decode_oracle": oracle_counts, "train": counts,
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
-               **resnet_counts, **xfmr_counts}
+               **resnet_counts, **xfmr_counts, **deepfm_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

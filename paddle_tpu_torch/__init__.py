@@ -2,10 +2,9 @@
 
 The same Fluid-style system — a Program/Block/Operator IR built by
 ``layers.*``, one ``lower`` function per registered op, a single
-``autodiff`` op for gradients, ``optimizer.SGD``, ``Momentum`` and
-``Adam`` with ``clip`` and
-``regularizer``, ``Executor.run`` behind the ``analysis`` verifier, ``io``
-and the ``Predictor`` — with each op lowered to torch and each
+``autodiff`` op for gradients, the ``optimizer`` family (SGD to Lamb,
+and ModelAverage) with ``clip`` and ``regularizer``, ``Executor.run``
+behind the ``analysis`` verifier, ``io`` and the ``Predictor`` — with each op lowered to torch and each
 Pallas TPU kernel on the ported path replaced by a CUDA kernel written by
 hand for Hopper (``kernels/``).  The JAX package ``paddle_tpu`` stays the
 reference; this package imports nothing of it and no JAX.
@@ -36,6 +35,8 @@ from . import models
 from . import transpiler
 from . import reader
 from . import analysis
+from . import metrics
+from . import sparse
 from .data_feeder import DataFeeder
 from .trainer import (BeginEpochEvent, BeginStepEvent, CheckpointConfig,
                       EndEpochEvent, EndStepEvent, Trainer)
@@ -46,6 +47,7 @@ __all__ = ["core", "flags", "CPUPlace", "CUDAPlace", "default_place",
            "reset_default_programs", "unique_name", "Executor", "Scope",
            "global_scope", "ParamAttr", "initializer", "layers", "nets", "clip",
            "regularizer", "optimizer", "io", "inference", "models",
-           "transpiler", "reader", "analysis", "DataFeeder",
+           "transpiler", "reader", "analysis", "metrics", "sparse",
+           "DataFeeder",
            "BeginEpochEvent", "BeginStepEvent", "CheckpointConfig",
            "EndEpochEvent", "EndStepEvent", "Trainer"]

@@ -1,15 +1,16 @@
 """Per-op compile-time shape/dtype inference rules.
 
 Counterpart of paddle_tpu/analysis/infer_rules.py, for the ops the port
-registers: ``mul``, ``matmul``, ``lookup_table``, ``autodiff`` and
-``fused_transformer_block``.  The rules register alongside the OpDef via
+registers: ``mul``, ``matmul``, ``lookup_table``, the sparse plane's
+``sparse_embedding_lookup`` and ``sparse_scatter_update`` (:141-187),
+``autodiff`` and ``fused_transformer_block``.  The rules register alongside the OpDef via
 framework/registry.py ``register_shape_infer``.  Only the op families
 whose mismatch diagnostics matter get explicit rules; everything else is
 covered by the meta evaluation in shape_inference.py (the op's own
 lowering on ``meta`` tensors, the layer_helper build-time trick), and
 ops where neither applies degrade to "unknown shape".  The JAX package's
-rules for the sparse, quantized, collective and pipeline ops come with
-those ops.
+rules for the quantized, collective and pipeline ops come with those
+ops.
 
 Rule contract: ``rule(op, ins, attrs) -> {slot: [(shape, dtype)]}``
 with shape a tuple (-1 = dynamic) or None, dtype a canonical string or
@@ -137,6 +138,53 @@ def _infer_lookup_table(op, ins, attrs):
         return {"Out": [(None, wd)]}
     base = ids[:-1] if (len(ids) >= 2 and ids[-1] == 1) else ids
     return {"Out": [(tuple(base) + (ws[1],), wd)]}
+
+
+# --- sparse plane (sparse/; ops/nn_ops.py) -------------------------------
+
+@register_shape_infer("sparse_embedding_lookup")
+def _infer_sparse_embedding_lookup(op, ins, attrs):
+    """lookup_table's contract plus hash bucketing: ids may exceed the
+    vocab when hash_bucket is on, so only type/rank are checkable."""
+    (ids, idt) = _first(ins, "Ids")
+    (ws, wd) = _first(ins, "W")
+    if idt is not None and not np.issubdtype(np.dtype(idt), np.integer):
+        raise InferError(
+            f"sparse_embedding_lookup ids {op.inputs['Ids'][0]!r} must "
+            f"be integer, got {idt}")
+    if ws is not None and len(ws) != 2:
+        raise InferError(
+            f"sparse_embedding_lookup table {op.inputs['W'][0]!r} must "
+            f"be 2-D [buckets, dim], got {_fmt(ws)}")
+    if ids is None or ws is None:
+        return {"Out": [(None, wd)]}
+    base = ids[:-1] if (len(ids) >= 2 and ids[-1] == 1) else ids
+    return {"Out": [(tuple(base) + (ws[1],), wd)]}
+
+
+@register_shape_infer("sparse_scatter_update")
+def _infer_sparse_scatter_update(op, ins, attrs):
+    """Out mirrors W; Grad's trailing dim must match the table's (a
+    transposed grad surfaces here, where an overwrite in place of an add
+    would only show as wrong numbers)."""
+    (ws, wd) = _first(ins, "W")
+    (ids, idt) = _first(ins, "Ids")
+    (gs, gd) = _first(ins, "Grad")
+    if idt is not None and not np.issubdtype(np.dtype(idt), np.integer):
+        raise InferError(
+            f"sparse_scatter_update ids {op.inputs['Ids'][0]!r} must "
+            f"be integer, got {idt}")
+    if ws is not None and len(ws) != 2:
+        raise InferError(
+            f"sparse_scatter_update table {op.inputs['W'][0]!r} must "
+            f"be 2-D [rows, dim], got {_fmt(ws)}")
+    if ws is not None and gs is not None and len(gs) >= 1:
+        # trailing dims must agree when both are concrete
+        if gs[-1] not in (-1, ws[1]) and ws[1] != -1:
+            raise InferError(
+                f"sparse_scatter_update grad {op.inputs['Grad'][0]!r} "
+                f"trailing dim {gs[-1]} != table dim {ws[1]}")
+    return {"Out": [(ws, wd)]}
 
 
 # --- structural / executor-interpreted ops -------------------------------

@@ -9,11 +9,12 @@ over the main AND startup programs with the model's natural fetch set.
 Exit codes: 0 clean, 1 error-severity findings (or a build crash), 2 bad
 usage.
 
-The port builds six of the JAX package's bundled models so far,
+The port builds eight of the JAX package's bundled models so far,
 ``lenet``, ``vgg``, ``resnet``, ``transformer`` (the NMT build),
-``transformer_lm`` and ``bert``, at the JAX CLI's shapes and with its
-optimizer, SGD(0.01) (JAX lint.py:26-29, :45-71, :91-105); the others
-come with their models.
+``transformer_lm``, ``bert``, ``deepfm`` and ``deepfm_sparse`` (the
+hash-bucketed build), at the JAX CLI's shapes and with its optimizer,
+SGD(0.01) (JAX lint.py:26-29, :45-87, :91-107); the others come with
+their models.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
     """name -> zero-arg builder running inside a fresh program_guard;
     returns (feed vars, fetch vars)."""
     from ..models import bert as bert_model
+    from ..models import deepfm as deepfm_model
     from ..models import lenet, resnet, transformer, vgg
 
     def transformer_cfg(T=16, dropout=0.1):
@@ -65,6 +67,21 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
         _optimize(loss)
         return feeds, [loss, mlm, nsp]
 
+    def deepfm():
+        cfg = deepfm_model.DeepFMConfig(
+            num_field=4, vocab_size=50, embed_dim=4, fc_sizes=(8, 8))
+        feeds, cost, prob = deepfm_model.build_train_net(cfg)
+        _optimize(cost)
+        return feeds, [cost, prob]
+
+    def deepfm_sparse():
+        # the hash-bucketed sparse_embedding_lookup build
+        cfg = deepfm_model.DeepFMConfig(
+            num_field=4, vocab_size=50, embed_dim=4, fc_sizes=(8, 8))
+        feeds, cost, prob = deepfm_model.build_sparse_train_net(cfg)
+        _optimize(cost)
+        return feeds, [cost, prob]
+
     return {
         "lenet": _simple(lenet.build_train_net),
         "vgg": _simple(vgg.build_train_net),
@@ -74,6 +91,8 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
             transformer_cfg(), src_len=8, tgt_len=8)),
         "transformer_lm": lm,
         "bert": bert,
+        "deepfm": deepfm,
+        "deepfm_sparse": deepfm_sparse,
     }
 
 

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from ..core import flags
+from ..core.enforce import EnforceNotMet
 from ..core.dtypes import convert_dtype, to_torch_dtype
 from .program import (Block, Parameter, Variable, default_main_program,
                       default_startup_program)
@@ -74,14 +75,25 @@ def meta_lower(opdef, ins: Dict[str, Sequence[torch.Tensor]], attrs):
 class ParamAttr:
     """Parameter attribute bundle (ref python/paddle/fluid/param_attr.py).
     ``regularizer`` (regularizer.py) rides on the Parameter, and
-    ``Optimizer.minimize`` applies it in place of the optimizer's own."""
+    ``Optimizer.minimize`` applies it in place of the optimizer's own;
+    ``learning_rate`` scales the optimizer's lr for this parameter (a
+    ``scale`` op of the lr var feeds its update op).  ``sharding`` (a
+    PartitionSpec-style tuple in the JAX package) needs the parallel
+    planes, which are not ported: any value but None raises."""
 
     def __init__(self, name=None, initializer: Optional[Initializer] = None,
-                 regularizer=None, trainable: bool = True):
+                 learning_rate: float = 1.0, regularizer=None,
+                 trainable: bool = True, sharding=None):
+        if sharding is not None:
+            raise EnforceNotMet(
+                f"ParamAttr(sharding={sharding!r}): sharded parameters "
+                f"are not ported yet (ROADMAP queue A.7)")
         self.name = name
         self.initializer = initializer
+        self.learning_rate = learning_rate
         self.regularizer = regularizer
         self.trainable = trainable
+        self.sharding = sharding
 
     @staticmethod
     def _to_attr(attr):
@@ -130,6 +142,7 @@ class LayerHelper:
         p = self.main_program.global_block().create_parameter(
             name, shape, dtype=dtype, trainable=attr.trainable,
             regularizer=attr.regularizer)
+        p.optimize_attr = {"learning_rate": attr.learning_rate}
         # startup-program twin + init op
         sb = self.startup_program.global_block()
         if not sb.has_var(name):

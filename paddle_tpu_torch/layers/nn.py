@@ -3,13 +3,16 @@
 Counterpart of paddle_tpu/layers/nn.py for the layers the transformer
 builds (models/transformer.py, bert.py) and the image classifiers
 (models/resnet.py, lenet.py, vgg.py) call:
-data :21, fc :34 (over several inputs too), embedding :63, conv2d :114,
-pool2d :163, batch_norm :187, layer_norm :223, dropout :271, softmax
-:284, cross_entropy :300, softmax_with_cross_entropy :310, mean :331,
-reduce_sum and reduce_mean :352-353, reshape :359, transpose :367,
-split :375, unsqueeze :413, slice :436, gather :445, matmul :462, topk
-:480, accuracy :489, one_hot :524, scale :548, elementwise_add, _mul
-and _div :557-571 (with their ``act``), label_smooth :741 (composed of
+data :21, fc :34 (over several inputs too), embedding :63,
+sparse_embedding :93 (the hash-bucketed table of the sparse plane),
+conv2d :114, pool2d :163, batch_norm :187, layer_norm :223, dropout
+:271, softmax :284, cross_entropy :300, softmax_with_cross_entropy :310,
+mean :331, reduce_sum and reduce_mean :352-353, reshape :359, transpose
+:367, split :375, squeeze :405, unsqueeze :413, slice :436, gather :445,
+matmul :462, topk :480, accuracy :489, one_hot :524, scale :548,
+elementwise_add, _sub, _mul and _div :557-571 (with their ``act``), the
+unary layers sigmoid and square (``_unary_layer`` :577),
+sigmoid_cross_entropy_with_logits :707, label_smooth :741 (composed of
 ``scale`` ops, as JAX's is), greater_than :794, fused_mha :877,
 fused_attention_qkv :948 and fused_lm_head_loss :968.
 Each function creates
@@ -28,13 +31,15 @@ from ..framework.initializer import ConstantInitializer, NormalInitializer
 from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
-__all__ = ["data", "fc", "embedding", "conv2d", "pool2d", "batch_norm",
-           "layer_norm", "dropout", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "mean", "reduce_sum",
-           "reduce_mean", "reshape", "transpose", "split", "unsqueeze",
-           "slice", "gather", "matmul", "topk", "accuracy", "one_hot",
-           "scale", "elementwise_add", "elementwise_mul",
-           "elementwise_div", "label_smooth", "greater_than", "fused_mha",
+__all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
+           "pool2d", "batch_norm", "layer_norm", "dropout", "softmax",
+           "cross_entropy", "softmax_with_cross_entropy", "mean",
+           "reduce_sum", "reduce_mean", "reshape", "transpose", "split",
+           "squeeze", "unsqueeze", "slice", "gather", "matmul", "topk",
+           "accuracy", "one_hot", "scale", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "sigmoid", "square", "sigmoid_cross_entropy_with_logits",
+           "label_smooth", "greater_than", "fused_mha",
            "fused_attention_qkv", "fused_lm_head_loss"]
 
 
@@ -97,6 +102,25 @@ def embedding(input: Variable, size, is_sparse=False, padding_idx=None,
     helper.append_op("lookup_table", {"W": [w], "Ids": [input]},
                      {"Out": [out]}, {"padding_idx": pad_attr,
                                       "is_sparse": bool(is_sparse)})
+    return out
+
+
+def sparse_embedding(input: Variable, size, hash_bucket=True,
+                     param_attr=None, dtype="float32",
+                     name=None) -> Variable:
+    """The sparse plane's table lookup: like :func:`embedding`, but with
+    ``hash_bucket`` (the CTR default) raw ids of any magnitude fold into
+    the ``size[0]`` buckets by the plane's avalanche hash, so the table
+    is sized by budget, not by the id space."""
+    helper = LayerHelper("sparse_embedding", name=name)
+    w = helper.create_parameter(
+        param_attr, shape=list(size), dtype=dtype,
+        default_initializer=NormalInitializer(0.0,
+                                              1.0 / math.sqrt(size[1])))
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("sparse_embedding_lookup",
+                     {"W": [w], "Ids": [input]}, {"Out": [out]},
+                     {"hash_bucket": bool(hash_bucket)})
     return out
 
 
@@ -307,6 +331,14 @@ def split(input, num_or_sections, dim=0, name=None):
     return outs
 
 
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("squeeze", {"X": [input]}, {"Out": [out]},
+                     {"axes": list(axes)})
+    return out
+
+
 def unsqueeze(input, axes, name=None):
     helper = LayerHelper("unsqueeze", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -393,8 +425,33 @@ def elementwise_op_layer(op_name):
 
 
 elementwise_add = elementwise_op_layer("elementwise_add")
+elementwise_sub = elementwise_op_layer("elementwise_sub")
 elementwise_mul = elementwise_op_layer("elementwise_mul")
 elementwise_div = elementwise_op_layer("elementwise_div")
+
+
+def _unary_layer(op_name):
+    def f(x, name=None, **attrs):
+        helper = LayerHelper(op_name, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_name, {"X": [x]}, {"Out": [out]}, attrs)
+        return out
+    f.__name__ = op_name
+    return f
+
+
+sigmoid = _unary_layer("sigmoid")
+square = _unary_layer("square")
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": [x], "Label": [label]}, {"Out": [out]},
+                     {"ignore_index": ignore_index, "normalize": normalize})
+    return out
 
 
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):

@@ -1,2 +1,2 @@
 """Models (counterpart of paddle_tpu/models)."""
-from . import bert, lenet, resnet, transformer, vgg  # noqa: F401
+from . import bert, deepfm, lenet, resnet, transformer, vgg  # noqa: F401

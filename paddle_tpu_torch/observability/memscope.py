@@ -1,7 +1,9 @@
 """Memscope: the KV-occupancy ledger and OOM forensics of the serving plane.
 
 Counterpart of paddle_tpu/observability/memscope.py, the parts the serving
-plane calls: ``enabled``, ``register_kv_engine``, ``kv_occupancy``,
+plane calls: ``enabled``, ``register_kv_engine``,
+``register_sparse_shard`` (sparse/table.py's ``EmbeddingShard``),
+``kv_occupancy``,
 ``note_kv`` and ``note_alloc_failure`` (the ``memory.alloc`` chaos site in
 ``DecodeEngine.decode_step``), with ``status_doc`` and ``reset``.  All of
 it is behind the ``memscope`` flag (default off: zero serving-path work).
@@ -58,6 +60,7 @@ _state: Dict[str, Any] = {}
 # construction, and tests reset between cases while module-scoped
 # fixtures live on.  The WeakSet drops dead engines automatically.
 _kv_engines: "weakref.WeakSet" = weakref.WeakSet()
+_sparse_shards: "weakref.WeakSet" = weakref.WeakSet()
 
 _CENSUS = ("the device-memory census is not ported yet (ROADMAP queue "
            "A.9: torch.cuda.memory_stats in place of jax.live_arrays)")
@@ -72,6 +75,16 @@ def register_kv_engine(engine) -> None:
     request path): the census, once ported, claims the engine's slabs."""
     try:
         _kv_engines.add(engine)
+    except TypeError:
+        pass
+
+
+def register_sparse_shard(shard) -> None:
+    """Called by sparse EmbeddingShard.__init__: the census, once
+    ported, files the host-side table bytes as the sparse_tables
+    plane."""
+    try:
+        _sparse_shards.add(shard)
     except TypeError:
         pass
 

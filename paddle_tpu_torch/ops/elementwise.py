@@ -2,8 +2,9 @@
 
 Counterpart of paddle_tpu/ops/elementwise.py: the ``_binary`` family
 (:33-60) for elementwise_add, _sub, _mul, _div, _max and _mod, and the
-comparisons equal and greater_than (``_compare``, :63-77; bool out, no
-gradient).  ``elementwise_mod`` is ``torch.remainder``, which like
+comparisons equal, greater_than and greater_equal (``_compare``,
+:63-77; bool out, no gradient; ModelAverage's apply program asks
+greater_equal whether anything was accumulated).  ``elementwise_mod`` is ``torch.remainder``, which like
 ``jnp.mod`` takes the divisor's sign (``torch.fmod`` takes the
 dividend's); gradient accumulation wraps its f32 counter with it.  The
 global-norm clip divides by a max with _div and _max.  Reference broadcast rule:
@@ -67,3 +68,4 @@ def _compare(name, fn):
 
 _compare("equal", torch.eq)
 _compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)

@@ -1,6 +1,6 @@
 """Loss ops (counterpart of paddle_tpu/ops/loss_ops.py: cross_entropy
-:26, the classifiers' loss on probabilities, and
-softmax_with_cross_entropy :42).  Integer labels carry a trailing dim of
+:26, the classifiers' loss on probabilities, softmax_with_cross_entropy
+:42 and sigmoid_cross_entropy_with_logits :60, the CTR models' loss).  Integer labels carry a trailing dim of
 1, as in the reference."""
 from __future__ import annotations
 
@@ -53,3 +53,23 @@ def _softmax_xent(ctx, ins, attrs):
                            -picked)
     return {"Loss": [loss.to(logits.dtype)],
             "Softmax": [softmax.to(logits.dtype)]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_xent(ctx, ins, attrs):
+    """The stable form max(x, 0) - x * label + log1p(exp(-|x|)); entries
+    whose label is ignore_index lose 0, and ``normalize`` divides by the
+    count of the others (at least 1)."""
+    x = single_input(ins)
+    label = single_input(ins, "Label")
+    ignore_index = int(attrs.get("ignore_index", -100))
+    # torch.maximum splits a tie's gradient as jnp.maximum does
+    loss = (torch.maximum(x, torch.zeros_like(x)) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignored = label == ignore_index
+    loss = torch.where(ignored, torch.zeros((), dtype=loss.dtype,
+                                            device=loss.device), loss)
+    if attrs.get("normalize", False):
+        norm = torch.clamp_min(torch.sum((~ignored).to(loss.dtype)), 1.0)
+        loss = loss / norm
+    return {"Out": [loss]}

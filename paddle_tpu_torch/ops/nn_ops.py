@@ -1,7 +1,9 @@
 """NN ops (counterpart of paddle_tpu/ops/nn_ops.py: the conv plane,
 conv2d :51, depthwise_conv2d :81, pool2d :180 (``_pool_nd`` :139) and
 batch_norm :220, with ``_pair`` :36 and ``_conv_padding`` :42; layer_norm
-:261, softmax :349, dropout :362 and lookup_table :384).
+:261, softmax :349, dropout :362, lookup_table :384, and the sparse
+plane's sparse_embedding_lookup :427 (with ``_hash_mix_u32`` :410) and
+sparse_scatter_update :450).
 
 The JAX package leaves the conv plane to XLA (``conv_general_dilated``,
 ``reduce_window``, jnp arithmetic); here the convolution is
@@ -259,3 +261,53 @@ def _lookup_table(ctx, ins, attrs):
                           torch.zeros((), dtype=out.dtype, device=out.device),
                           out)
     return {"Out": [out]}
+
+
+_U32 = 0xFFFFFFFF
+_HASH_MIX = 0x45D9F3B
+
+
+def _hash_mix_u32(x):
+    """The sparse plane's xor-shift/multiply avalanche on uint32 values
+    held in int64 (torch has few uint32 ops on CUDA): the low 32 bits of
+    every product are kept, as uint32 arithmetic wraps, and no product
+    overflows (0x45D9F3B * 2^32 < 2^63).  Bit-identical to
+    sparse/table.py's hash_bucket, so an id buckets to the same row
+    whether folded on the host or in the graph."""
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MIX) & _U32
+    x = x ^ (x >> 16)
+    x = (x * _HASH_MIX) & _U32
+    return x ^ (x >> 16)
+
+
+@register_op("sparse_embedding_lookup")
+def _sparse_embedding_lookup(ctx, ins, attrs):
+    """lookup_table plus ``hash_bucket``: raw ids of any magnitude fold
+    into [0, rows) by the avalanche hash of their low 32 bits (what the
+    JAX package's int32 feed and uint32 cast keep of an int64 id), then a
+    modulo by the table's rows.  The gradient is F.embedding's: a dense
+    [rows, dim] tensor, 0 on every row no id named, duplicate ids summed,
+    as JAX's autodiff of jnp.take gives it."""
+    w = single_input(ins, "W")
+    ids = single_input(ins, "Ids")
+    if ids.ndim >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    ids = ids.long()
+    if bool(attrs.get("hash_bucket", False)):
+        ids = _hash_mix_u32(ids & _U32) % w.shape[0]
+    return {"Out": [F.embedding(ids, w)]}
+
+
+@register_op("sparse_scatter_update")
+def _sparse_scatter_update(ctx, ins, attrs):
+    """Out = W with ``W[Ids] -= lr * Grad`` added once per occurrence:
+    ``index_add``, never an indexed assignment, which would keep only one
+    of a duplicate id's rows.  Ids [N] int, Grad [N, dim]; rows not named
+    pass through.  On CUDA index_add sums a duplicate id's rows in no
+    fixed order (atomics)."""
+    w = single_input(ins, "W")
+    ids = single_input(ins, "Ids").reshape(-1).long()
+    grad = single_input(ins, "Grad").reshape(ids.shape[0], w.shape[1])
+    lr = float(attrs.get("learning_rate", 1.0))
+    return {"Out": [w.index_add(0, ids, -lr * grad.to(w.dtype))]}

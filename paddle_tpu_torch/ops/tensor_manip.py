@@ -1,6 +1,6 @@
 """Shape manipulation ops (counterpart of paddle_tpu/ops/tensor_manip.py:
-reshape :20, transpose :38, split :56, unsqueeze :108, slice :170 and
-gather :198)."""
+reshape :20, transpose :38, split :56, squeeze :88, unsqueeze :108,
+slice :170 and gather :198)."""
 from __future__ import annotations
 
 import numpy as np
@@ -39,6 +39,21 @@ def _split(ctx, ins, attrs):
         raise ValueError(f"split: axis {axis} of size {x.shape[axis]} "
                          f"does not divide into {num} equal parts")
     return {"Out": list(torch.tensor_split(x, num, dim=axis))}
+
+
+@register_op("squeeze")
+def _squeeze(ctx, ins, attrs):
+    """Only the listed axes of size 1 go (a listed axis of another size
+    stays); with no axes, every axis of size 1 goes."""
+    x = single_input(ins)
+    axes = attrs.get("axes", [])
+    if axes:
+        for ax in sorted((a % x.ndim for a in axes), reverse=True):
+            if x.shape[ax] == 1:
+                x = torch.squeeze(x, ax)
+    else:
+        x = torch.squeeze(x)
+    return {"Out": [x]}
 
 
 @register_op("unsqueeze")

@@ -620,13 +620,14 @@ def test_lint_cli_exit_codes(capsys):
     assert lint_cli.main([]) == 0
     out = capsys.readouterr().out
     for model in ("lenet", "vgg", "resnet", "transformer",
-                  "transformer_lm", "bert"):
+                  "transformer_lm", "bert", "deepfm", "deepfm_sparse"):
         assert f"[lint] {model}: ok" in out
     assert "0 errors" in out.splitlines()[-1]
     assert lint_cli.main(["--list"]) == 0
     assert capsys.readouterr().out.split() == ["lenet", "vgg", "resnet",
                                                "transformer",
-                                               "transformer_lm", "bert"]
+                                               "transformer_lm", "bert",
+                                               "deepfm", "deepfm_sparse"]
     assert lint_cli.main(["--models", "nope"]) == 2
     assert lint_cli.main(["--self-test"]) == 1
 
@@ -638,4 +639,4 @@ def test_lint_cli_runs_as_a_module_without_warning():
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "6 models: 0 errors" in res.stdout
+    assert "8 models: 0 errors" in res.stdout

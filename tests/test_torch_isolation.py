@@ -132,6 +132,62 @@ def test_analysis_plane_and_lint_cli_run_without_jax():
                       "schema": "paddle_tpu.analysis.v1", "leaked": []}
 
 
+_CTR_CHILD = """
+import json, sys
+import numpy as np
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch import metrics, sparse
+from paddle_tpu_torch.analysis import lint
+from paddle_tpu_torch.models import deepfm
+from paddle_tpu_torch.sparse import selected_rows, table
+rc = lint.main(["--models", "deepfm,deepfm_sparse"])
+main, startup = ptt.Program(), ptt.Program()
+with ptt.program_guard(main, startup):
+    cfg = deepfm.DeepFMConfig(num_field=4, vocab_size=50, embed_dim=4,
+                              fc_sizes=(8, 8))
+    _, loss, prob = deepfm.build_sparse_train_net(cfg)
+    ptt.optimizer.Adagrad(learning_rate=0.05).minimize(loss)
+    ma = ptt.optimizer.ModelAverage()
+exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+exe.run(startup)
+batch = deepfm.make_fake_batch(cfg, 16, seed=1)
+out, p = exe.run(main, feed=batch, fetch_list=[loss, prob])
+with ma.apply(exe):
+    pass
+auc = metrics.Auc()
+auc.update(p, batch["label"])
+shard = table.EmbeddingShard(table.TableConfig("t", rows=8, dim=2,
+                                               optimizer="adagrad"))
+shard.apply(selected_rows.SelectedRows([1, 1, 3], np.ones((3, 2)), 8))
+print(json.dumps({
+    "rc": rc, "finite": bool(np.isfinite(out).all()),
+    "auc": 0.0 <= auc.eval() <= 1.0, "version": shard.version,
+    "buckets": sparse.hash_bucket(np.array([-3, 2**40], np.int64),
+                                  50).tolist(),
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")),
+}))
+"""
+
+
+def test_ctr_plane_runs_without_jax():
+    """DeepFM's sparse build with Adagrad and ModelAverage, the lint CLI's
+    DeepFM builders, sparse/ (selected_rows, table) and metrics.py run on
+    the CPU with no JAX loaded."""
+    res = subprocess.run([sys.executable, "-c", _CTR_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    for model in ("deepfm", "deepfm_sparse"):
+        assert f"[lint] {model}: ok" in res.stdout
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report == {"rc": 0, "finite": True, "auc": True, "version": 1,
+                      "buckets": [int(b) for b in
+                                  ptt.sparse.hash_bucket(np.array(
+                                      [-3, 2**40], np.int64), 50)],
+                      "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")

@@ -10,6 +10,14 @@ entries, in another order); exact for max pooling, top_k and accuracy
 (no arithmetic, or integer counts).  The gradient cases of the conv
 plane (``test_conv_plane_grad_matches_jax``) hold torch autograd
 against jax.vjp of the JAX lowering under one seeded cotangent at CONV.
+DeepFM's ops and the sparse plane's (``CTR_CASES``, with gradients in
+``test_ctr_op_grad_matches_jax`` and dtypes under FLAGS_amp_bf16 in
+``test_ctr_ops_amp_dtypes_match_jax``) and the optimizer update ops
+(``OPT_CASES``) join ``test_op_matches_jax``: elementwise math at EXACT,
+the whole-tensor norms of ``lars_momentum`` and ``lamb`` at MATMUL, the
+integer hash and the gathers SAME.  JAX hashes an id as its int32 feed
+keeps it (the low 32 bits, wrapped), so ids above 2^31, above 2^32 and
+below 0 go through both packages' int32 and int64 paths.
 """
 import zlib
 
@@ -548,6 +556,147 @@ CASES = {
 }
 
 
+# ids far outside the table, as raw CTR ids are: above 2^31, above 2^32
+# and below 0 (JAX's int32 feed keeps their low 32 bits)
+WIDE_IDS = np.array([[2**31 + 7, 2**32 + 3, -5, 2**40 + 11],
+                     [-2**35 - 1, 0, 12345678901, 2**31 - 1],
+                     [2**32, -1, 2**63 - 1, -2**63]], dtype=np.int64)
+
+CTR_CASES = {
+    "sigmoid": ("sigmoid", lambda r: {"X": [_rand(r, 4, 5) * 4]}, {},
+                ["Out"], EXACT),
+    "square": ("square", lambda r: {"X": [_rand(r, 4, 5) * 3]}, {},
+               ["Out"], EXACT),
+    "squeeze_axis": ("squeeze", lambda r: {"X": [_rand(r, 3, 1, 4, 1)]},
+                     {"axes": [1]}, ["Out"], SAME),
+    # a listed axis of size 4 stays; the negative one goes
+    "squeeze_neg_and_non1": ("squeeze",
+                             lambda r: {"X": [_rand(r, 3, 1, 4, 1)]},
+                             {"axes": [-1, 2]}, ["Out"], SAME),
+    "squeeze_all": ("squeeze", lambda r: {"X": [_rand(r, 1, 3, 1, 4)]},
+                    {"axes": []}, ["Out"], SAME),
+    "sigmoid_xent": ("sigmoid_cross_entropy_with_logits", lambda r: {
+        "X": [_rand(r, 6, 1) * 3],
+        "Label": [r.randint(0, 2, (6, 1)).astype("float32")]},
+        {}, ["Out"], EXACT),
+    "sigmoid_xent_soft": ("sigmoid_cross_entropy_with_logits", lambda r: {
+        "X": [_rand(r, 4, 3) * 5],
+        "Label": [r.rand(4, 3).astype("float32")]}, {}, ["Out"], EXACT),
+    "sigmoid_xent_ignore_normalize": (
+        "sigmoid_cross_entropy_with_logits", lambda r: {
+            "X": [_rand(r, 8, 1) * 3],
+            "Label": [np.where(r.rand(8, 1) < 0.3, -1.0,
+                               r.randint(0, 2, (8, 1))).astype("float32")]},
+        {"ignore_index": -1, "normalize": True}, ["Out"], EXACT),
+    "greater_equal_ties": (
+        "greater_equal", lambda r: {
+            "X": [r.randint(0, 3, (4, 5)).astype("float32")],
+            "Y": [r.randint(0, 3, (5,)).astype("float32")]},
+        {"axis": -1}, ["Out"], SAME),
+    "sparse_lookup_plain": (
+        "sparse_embedding_lookup", lambda r: {
+            "W": [_rand(r, 10, 8)], "Ids": [r.randint(0, 10, (3, 5))]},
+        {"hash_bucket": False}, ["Out"], SAME),
+    "sparse_lookup_hash_wide_ids": (
+        "sparse_embedding_lookup", lambda r: {
+            "W": [_rand(r, 37, 4)], "Ids": [WIDE_IDS]},
+        {"hash_bucket": True}, ["Out"], SAME),
+    "sparse_lookup_hash_trailing1": (
+        "sparse_embedding_lookup", lambda r: {
+            "W": [_rand(r, 1000, 3)],
+            "Ids": [r.randint(-2**62, 2**62, (6, 1), dtype=np.int64)]},
+        {"hash_bucket": True}, ["Out"], SAME),
+    # row 3 three times and row 0 twice: the adds accumulate
+    "sparse_scatter_duplicates": (
+        "sparse_scatter_update", lambda r: {
+            "W": [_rand(r, 10, 4)],
+            "Ids": [np.array([0, 3, 3, 7, 3, 0], np.int64)],
+            "Grad": [_rand(r, 6, 4)]},
+        {"learning_rate": 0.1}, ["Out"], EXACT),
+}
+
+
+def _opt_ins(r, *slots, shape=(4, 5), pos=(), pows=(), lr=True):
+    """An update op's inputs: Param, Grad, the learning rate [1], the
+    accumulators in `slots` (any sign), those in `pos` (positive, as
+    squared sums are) and the [1] pows in `pows`."""
+    ins = {"Param": [_rand(r, *shape)], "Grad": [_rand(r, *shape)]}
+    if lr:
+        ins["LearningRate"] = [np.array([0.05], "float32")]
+    for slot in slots:
+        ins[slot] = [_rand(r, *shape) * 0.1]
+    for slot in pos:
+        ins[slot] = [np.abs(_rand(r, *shape)) + 0.1]
+    for slot, v in pows:
+        ins[slot] = [np.array([v], "float32")]
+    return ins
+
+
+_ADAM_OUT = ["ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+             "Beta2PowOut"]
+_POWS = (("Beta1Pow", 0.9 ** 2), ("Beta2Pow", 0.999 ** 2))
+
+OPT_CASES = {
+    "lars_momentum": (
+        "lars_momentum", lambda r: _opt_ins(r, "Velocity"),
+        {"mu": 0.9, "lars_coeff": 1e-3, "lars_weight_decay": 5e-4},
+        ["ParamOut", "VelocityOut"], MATMUL),
+    # a zero gradient takes the plain lr branch
+    "lars_momentum_zero_grad": (
+        "lars_momentum", lambda r: dict(_opt_ins(r, "Velocity"),
+                                        Grad=[np.zeros((4, 5), "float32")]),
+        {"mu": 0.9}, ["ParamOut", "VelocityOut"], MATMUL),
+    "adamw": ("adamw", lambda r: _opt_ins(r, "Moment1", pos=("Moment2",),
+                                          pows=_POWS),
+              {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+               "coeff": 0.01}, _ADAM_OUT, EXACT),
+    "adamax": ("adamax", lambda r: _opt_ins(r, "Moment", pos=("InfNorm",),
+                                            pows=_POWS[:1]),
+               {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+               ["ParamOut", "MomentOut", "InfNormOut", "Beta1PowOut"],
+               EXACT),
+    "adagrad": ("adagrad", lambda r: _opt_ins(r, pos=("Moment",)),
+                {"epsilon": 1e-6}, ["ParamOut", "MomentOut"], EXACT),
+    "decayed_adagrad": ("decayed_adagrad",
+                        lambda r: _opt_ins(r, pos=("Moment",)),
+                        {"decay": 0.95, "epsilon": 1e-6},
+                        ["ParamOut", "MomentOut"], EXACT),
+    "adadelta": ("adadelta", lambda r: _opt_ins(
+        r, pos=("AvgSquaredGrad", "AvgSquaredUpdate"), lr=False),
+        {"rho": 0.95, "epsilon": 1e-6},
+        ["ParamOut", "AvgSquaredGradOut", "AvgSquaredUpdateOut"], EXACT),
+    "rmsprop": ("rmsprop", lambda r: _opt_ins(r, "Moment",
+                                              pos=("MeanSquare",)),
+                {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.9},
+                ["ParamOut", "MeanSquareOut", "MomentOut"], EXACT),
+    "rmsprop_centered": (
+        "rmsprop", lambda r: _opt_ins(r, "Moment", "MeanGrad",
+                                      pos=("MeanSquare",)),
+        {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5, "centered": True},
+        ["ParamOut", "MeanSquareOut", "MomentOut", "MeanGradOut"], EXACT),
+    "ftrl": ("ftrl", lambda r: _opt_ins(r, "LinearAccumulator",
+                                        pos=("SquaredAccumulator",)),
+             {"l1": 0.1, "l2": 0.01, "lr_power": -0.5},
+             ["ParamOut", "SquaredAccumOut", "LinearAccumOut"], EXACT),
+    "ftrl_lr_power": ("ftrl", lambda r: _opt_ins(
+        r, "LinearAccumulator", pos=("SquaredAccumulator",)),
+        {"l1": 0.05, "l2": 0.02, "lr_power": -0.7},
+        ["ParamOut", "SquaredAccumOut", "LinearAccumOut"], EXACT),
+    "proximal_gd": ("proximal_gd", lambda r: _opt_ins(r),
+                    {"l1": 0.5, "l2": 0.1}, ["ParamOut"], EXACT),
+    "proximal_adagrad": ("proximal_adagrad",
+                         lambda r: _opt_ins(r, pos=("Moment",)),
+                         {"l1": 0.1, "l2": 0.01},
+                         ["ParamOut", "MomentOut"], EXACT),
+    "lamb": ("lamb", lambda r: _opt_ins(r, "Moment1", pos=("Moment2",),
+                                        pows=_POWS),
+             {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
+              "weight_decay": 0.01}, _ADAM_OUT, MATMUL),
+}
+CASES.update(CTR_CASES)
+CASES.update(OPT_CASES)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_op_matches_jax(name):
     op, build, attrs, slots, tol = CASES[name]
@@ -718,8 +867,34 @@ def test_nmt_bert_op_grad_matches_jax(name):
     """torch autograd through the port's lowering against jax.vjp of the
     JAX lowering, for one seeded cotangent of Out, at EXACT (elementwise
     math, and sums of at most 20 terms)."""
+    _grad_matches_jax(name, XFMR_GRAD_CASES[name])
+
+
+# DeepFM's ops and the table lookups: (differentiated input slots); the
+# inputs are the CASES entry of the same name.  The lookups' W gradient
+# is dense, 0 on every row no id named, a repeated id's rows summed
+CTR_GRAD_CASES = {
+    "sigmoid": ("X",),
+    "square": ("X",),
+    "squeeze_neg_and_non1": ("X",),
+    "sigmoid_xent": ("X",),
+    "sigmoid_xent_soft": ("X", "Label"),
+    "sigmoid_xent_ignore_normalize": ("X",),
+    "sparse_lookup_plain": ("W",),
+    "sparse_lookup_hash_wide_ids": ("W",),
+    "sparse_lookup_hash_trailing1": ("W",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CTR_GRAD_CASES))
+def test_ctr_op_grad_matches_jax(name):
+    """As test_nmt_bert_op_grad_matches_jax, for DeepFM's ops and the
+    sparse lookup, at EXACT."""
+    _grad_matches_jax(name, CTR_GRAD_CASES[name])
+
+
+def _grad_matches_jax(name, wrt):
     op, build, attrs, _, _ = CASES[name]
-    wrt = XFMR_GRAD_CASES[name]
     rng = np.random.RandomState(zlib.crc32(name.encode()))
     ins = build(rng)
 
@@ -794,16 +969,51 @@ def test_nmt_bert_ops_amp_dtypes_match_jax(name):
     """Under FLAGS_amp_bf16 each op returns the dtype the JAX lowering
     returns under the flag, on the same inputs (bf16 activations rounded
     alike), with values within one bf16 step of max |JAX| (2^-7)."""
+    _amp_dtype_matches_jax(name, *XFMR_AMP_CASES[name])
+
+
+# DeepFM's ops under FLAGS_amp_bf16: the bf16 logit (the towers' bf16
+# output met the f32 FM terms) into the loss and the sigmoid, the f32
+# tables and their bf16 products
+CTR_AMP_CASES = {
+    "sigmoid": ("sigmoid", lambda r: {"X": [_rand(r, 6, 1) * 3]}, {},
+                ("X",)),
+    "square": ("square", lambda r: {"X": [_rand(r, 4, 8)]}, {}, ("X",)),
+    "squeeze": ("squeeze", lambda r: {"X": [_rand(r, 4, 6, 1)]},
+                {"axes": [2]}, ("X",)),
+    "sigmoid_xent": ("sigmoid_cross_entropy_with_logits", lambda r: {
+        "X": [_rand(r, 6, 1) * 3],
+        "Label": [r.randint(0, 2, (6, 1)).astype("float32")]}, {},
+        ("X",)),
+    "sparse_lookup": ("sparse_embedding_lookup", lambda r: {
+        "W": [_rand(r, 37, 4)], "Ids": [WIDE_IDS]}, {"hash_bucket": True},
+        ()),
+    "fm_terms_sub": ("elementwise_sub", lambda r: {
+        "X": [_rand(r, 4, 8)], "Y": [_rand(r, 4, 8)]}, {}, ("X",)),
+    "logit_add": ("elementwise_add", lambda r: {
+        "X": [_rand(r, 6, 1)], "Y": [_rand(r, 6, 1)]}, {}, ("Y",)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CTR_AMP_CASES))
+def test_ctr_ops_amp_dtypes_match_jax(name):
+    """As test_nmt_bert_ops_amp_dtypes_match_jax, for DeepFM's ops."""
+    _amp_dtype_matches_jax(name, *CTR_AMP_CASES[name])
+
+
+def _amp_dtype_matches_jax(name, op, build, attrs, bf16):
     import paddle_tpu as pt
     import paddle_tpu_torch as ptt
-    op, build, attrs, bf16 = XFMR_AMP_CASES[name]
     ins = build(np.random.RandomState(zlib.crc32(name.encode())))
     ins = {k: [_bf16_values(a) if k in bf16 else a for a in v]
            for k, v in ins.items()}
+    # int64 ids enter JAX as its int32 feed; only the bf16 slots are cast
+    # (astype(None) would make ids float)
     jins = {k: [jnp.asarray(a.astype(np.int32) if a.dtype == np.int64
-                            else a).astype(jnp.bfloat16 if k in bf16
-                                           else None) for a in v]
+                            else a) for a in v]
             for k, v in ins.items()}
+    jins = {k: [a.astype(jnp.bfloat16) for a in v] if k in bf16 else v
+            for k, v in jins.items()}
     tins = {k: [torch.from_numpy(np.array(a)).to(torch.bfloat16)
                 if k in bf16 else torch.from_numpy(np.array(a)) for a in v]
             for k, v in ins.items()}
@@ -822,3 +1032,51 @@ def test_nmt_bert_ops_amp_dtypes_match_jax(name):
     t = t.float().numpy()
     assert t.shape == j.shape
     assert np.abs(t - j).max() <= 2.0 ** -7 * max(np.abs(j).max(), 1e-30)
+
+
+def test_sparse_scatter_update_adds_where_an_overwrite_would_not():
+    """Duplicate ids: the port's rows equal JAX's scatter-add, and differ
+    from what an indexed assignment (the last write wins) gives."""
+    op, build, attrs, _, _ = CASES["sparse_scatter_duplicates"]
+    ins = build(np.random.RandomState(3))
+    jouts, touts = _run_both(op, ins, attrs)
+    got = touts["Out"][0].numpy()
+    np.testing.assert_allclose(got, np.asarray(jouts["Out"][0]), **EXACT)
+    w, ids, g = ins["W"][0], ins["Ids"][0], ins["Grad"][0]
+    over = w.copy()
+    over[ids] = w[ids] - attrs["learning_rate"] * g
+    assert not np.allclose(got[3], over[3]) and not np.allclose(got[0],
+                                                                over[0])
+    np.testing.assert_array_equal(got[[1, 2, 4, 5, 6, 8, 9]],
+                                  w[[1, 2, 4, 5, 6, 8, 9]])
+
+
+@pytest.mark.parametrize("num,window", [(3.0, 10.0), (10.0, 10.0),
+                                        (0.0, 10000.0)])
+def test_average_accumulates_matches_jax(num, window):
+    """ModelAverage's op inside its window (the exact sum), at the cap
+    (the sliding sum, the count held at the cap) and from 0; the count
+    keeps its [1] shape where JAX's lowering returns it 0-d."""
+    r = np.random.RandomState(int(num))
+    ins = {"param": [_rand(r, 4, 5)], "in_sum_1": [_rand(r, 4, 5)],
+           "in_num_accumulates": [np.array([num], "float32")]}
+    jouts, touts = _run_both("average_accumulates", ins,
+                             {"max_average_window": window})
+    np.testing.assert_allclose(touts["out_sum_1"][0].numpy(),
+                               np.asarray(jouts["out_sum_1"][0]), **EXACT)
+    count = touts["out_num_accumulates"][0]
+    assert tuple(count.shape) == (1,)
+    assert float(count) == float(np.asarray(
+        jouts["out_num_accumulates"][0])) == min(num + 1, window)
+
+
+def test_adagrad_leaves_zero_gradient_entries_bit_equal():
+    """A table row no id named has a gradient of exactly 0: Adagrad
+    leaves its parameter and moment bit-equal, in both packages."""
+    r = np.random.RandomState(9)
+    ins = _opt_ins(r, pos=("Moment",), shape=(6, 4))
+    ins["Grad"][0][[1, 4]] = 0.0
+    jouts, touts = _run_both("adagrad", ins, {"epsilon": 1e-6})
+    for slot, src in (("ParamOut", "Param"), ("MomentOut", "Moment")):
+        for out in (touts[slot][0].numpy(), np.asarray(jouts[slot][0])):
+            np.testing.assert_array_equal(out[[1, 4]], ins[src][0][[1, 4]])
