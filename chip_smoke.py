@@ -294,6 +294,30 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    backward, cuBLAS, the lookups' and Adagrad's kernels by their op
    ranges).  Paths "deepfm_train", "deepfm_train_amp",
    "deepfm_sparse_train_amp" and "deepfm_serve" in launches_by_path.
+5j. AlexNet, GoogLeNet, SE-ResNeXt-50 and the stacked LSTM (slice 21),
+   bench.py's bench_alexnet and bench_googlenet (_bench_conv_train:
+   3x224x224, class_dim 1000, batch 128, Momentum(0.01, 0.9); GoogLeNet
+   with its three heads), SE-ResNeXt-50 at bench_resnet50's batch 64 and
+   Momentum(0.1, 0.9), and bench_lstm (T 100, V 30000, emb 512, h 512, 2
+   layers, batch 64, Adam(1e-3), make_fake_batch); and BASELINE config 1,
+   LeNet through the Trainer.  (a) For each of the five programs (LeNet's
+   with SGD(0.1) at batch 64) one f32 step at a small check batch, dropout
+   0, from the card's startup state: on the card, on the card with TF32
+   convolutions and matmuls (the control), and on a CPUPlace executor
+   taking the card's relu branches and the control's: the loss and every
+   @GRAD within CNL_LOSS_RTOL and CNL_GRAD_RTOL, the control outside one.
+   (b) Each training row f32 and under AMP: CNL_WARMUP + CNL_RUNS runs
+   with the counters zeroed around them (no kernel of this repo), the run
+   p50, peak memory and time_run_steps with images or sequences a second;
+   the AMP losses within CNL_AMP_LOSS_RTOL of the f32 ones over the first
+   CNL_AMP_TRACK runs, the LSTM's AMP loss falling.  (c) LeNet
+   (models.lenet.build_train_net()) through Trainer(place=CUDAPlace(0)),
+   SGD(0.1), 3 epochs of 24 MNIST-shaped batches of 64 (mnist_like), the
+   loss falling; save_params, a second Trainer with param_path, and
+   test() of both equal.  One step of each row is traced at the end of
+   the smoke by kernel class with the device's idle share.  Paths
+   "<model>_train", "<model>_train_amp" and "lenet_trainer" in
+   launches_by_path.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -349,7 +373,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    under "decode_oracle", phase 5e's run_steps call's under
    "train_run_steps" and its Trainer's under "trainer", phase 5g's under
    "resnet_*", all 0, phase 5h's under "nmt_*" and "bert_*", layer norms
-   only, phase 5i's under "deepfm_*", all 0; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
+   only, phase 5i's under "deepfm_*", all 0, phase 5j's under
+   "alexnet_*", "googlenet_*", "se_resnext_*", "stacked_lstm_*" and
+   "lenet_trainer", all 0; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -4959,6 +4985,439 @@ def trace_deepfm(torch, row):
                            f"this repo's")
 
 
+# phase 5j: AlexNet and GoogLeNet as bench.py's _bench_conv_train trains
+# them (:492-508), SE-ResNeXt-50 at bench_resnet50's batch and Momentum,
+# the stacked LSTM as bench_lstm trains it (:525-545), and BASELINE
+# config 1: LeNet through the Trainer on MNIST-shaped batches
+CNL_IMG = (3, 224, 224)
+CNL_CLASSES = 1000
+# model -> (module, build kwargs, batch, optimizer class and arguments,
+# card-vs-CPU check batch, what a row of the batch is)
+CNL_MODELS = {
+    "alexnet": ("alexnet", dict(class_dim=CNL_CLASSES, img_shape=CNL_IMG),
+                128, ("Momentum", dict(learning_rate=0.01, momentum=0.9)),
+                8, "img"),
+    "googlenet": ("googlenet", dict(class_dim=CNL_CLASSES,
+                                    img_shape=CNL_IMG),
+                  128, ("Momentum", dict(learning_rate=0.01, momentum=0.9)),
+                  8, "img"),
+    "se_resnext": ("se_resnext", dict(class_dim=CNL_CLASSES,
+                                      img_shape=CNL_IMG, depth=50),
+                   64, ("Momentum", dict(learning_rate=0.1, momentum=0.9)),
+                   4, "img"),
+    "stacked_lstm": ("stacked_lstm", dict(dict_dim=30000, seq_len=100,
+                                          emb_dim=512, hidden_dim=512,
+                                          num_layers=2),
+                     64, ("Adam", dict(learning_rate=1e-3)), 8, "seq"),
+    "lenet": ("lenet", {}, 64, ("SGD", dict(learning_rate=0.1)), 64, "img"),
+}
+CNL_TRAIN = ("alexnet", "googlenet", "se_resnext", "stacked_lstm")
+CNL_WARMUP = 2              # bench.py's warm-up runs
+CNL_RUNS = 5                # synchronized runs after them (the run p50)
+CNL_TIMED_STEPS = 5         # time_run_steps: steps a call, timed calls
+CNL_TIMED_CALLS = 2
+CNL_AMP_TRACK = 3           # AMP losses held to f32 over the first steps
+CNL_AMP_LOSS_RTOL = 5e-2
+# card vs CPU, one f32 step from the card's startup state at the check
+# batch, dropout 0, the CPU taking the card's relu branches: the loss's
+# relative error and the largest ||card - CPU|| / ||CPU|| over the @GRADs.
+# cuDNN's f32 algorithms for the 5x5 convolutions part from the CPU's
+# direct sums by more than a GEMM does (AlexNet's 5x5 weight gradient
+# 1.85e-4 where its other @GRADs are within 1.3e-6; GoogLeNet, a 5x5 in
+# every inception, 7.25e-4 spread over the layers), and the LSTM's output
+# bias gradient is a near-cancelling sum at p = 0.5 (3.35e-4; its next
+# 3.5e-6), H100 80GB HBM3, 700 W; TF32 puts each 1.05e-2 to 6.2e-2 off
+CNL_LOSS_RTOL = 1e-5
+CNL_GRAD_RTOL = {"googlenet": 2e-3}
+CNL_GRAD_RTOL_DEFAULT = 1e-3
+# config 1: LeNet through the Trainer on MNIST-shaped synthetic batches
+TRAINER_MNIST_BATCHES = 24  # batches an epoch
+TRAINER_MNIST_EPOCHS = 3
+TRAINER_MNIST_RTOL = 1e-5   # the reloaded Trainer's test() against the first
+
+
+def cnl_build(model, check=False, opt=True):
+    """(main, startup, loss, grad names, relu inputs) of `model`'s training
+    program at CNL_MODELS' widths with its optimizer (none with `opt`
+    False); with `check`, every dropout rate 0."""
+    import importlib
+    import paddle_tpu_torch as ptt
+    mod_name, kw, _, (opt_cls, opt_kw), _, _ = CNL_MODELS[model]
+    mod = importlib.import_module("paddle_tpu_torch.models." + mod_name)
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        _, loss, _, _ = mod.build_train_net(**kw)
+        grads = []
+        if opt:
+            _, pg = getattr(ptt.optimizer, opt_cls)(**opt_kw).minimize(loss)
+            grads = [g.name for _, g in pg]
+    if check:
+        for op in main.global_block().ops:
+            if op.type == "dropout":
+                op.attrs["dropout_prob"] = 0.0
+    relus = [op.inputs["X"][0] for op in main.global_block().ops
+             if op.type == "relu"]
+    return main, startup, loss, grads, relus
+
+
+def mnist_like(batch, seed):
+    """MNIST-shaped batches that a LeNet can learn: 1x28x28 images in
+    [0, 1), each half a class's fixed template and half noise; labels
+    0-9."""
+    import numpy as np
+    templates = np.random.RandomState(SEED).rand(10, 1, 28, 28)
+    rng = np.random.RandomState(seed)
+    label = rng.randint(0, 10, (batch, 1)).astype("int64")
+    img = 0.5 * templates[label[:, 0]] + 0.5 * rng.rand(batch, 1, 28, 28)
+    return {"img": img.astype("float32"), "label": label}
+
+
+def cnl_feed(model, batch, seed, device=None):
+    """bench.py's feed of `model` at `batch`: uniform images with labels
+    in [0, class_dim) (_img_feed), make_fake_batch's ragged sequences for
+    the LSTM, mnist_like for LeNet; as numpy, or as tensors on
+    `device`."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import stacked_lstm
+    if model == "stacked_lstm":
+        kw = CNL_MODELS[model][1]
+        feed = stacked_lstm.make_fake_batch(batch, dict_dim=kw["dict_dim"],
+                                            seq_len=kw["seq_len"], seed=seed)
+    elif model == "lenet":
+        feed = mnist_like(batch, seed)
+    else:
+        rng = np.random.RandomState(seed)
+        feed = {"img": rng.rand(batch, *CNL_IMG).astype("float32"),
+                "label": rng.randint(0, CNL_CLASSES,
+                                     (batch, 1)).astype("int64")}
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+@contextlib.contextmanager
+def tf32_everywhere(torch):
+    """TF32 on for cuDNN and matmuls in the block (PyTorch's cuDNN default;
+    main() turns both off)."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def cnl_card_vs_cpu(torch, model):
+    """(a) One f32 step of `model`'s program at full width, batch its
+    check batch, dropout 0, from the card's startup state: on the card,
+    on the card with TF32 convolutions and matmuls (the control), and on
+    a CPUPlace executor twice, taking the card's relu branches and the
+    control's (replayed_relu_masks; a unit within rounding of 0 takes
+    either branch, and at these batches one flip moves a late layer's
+    gradient by percents).  The card's loss and every @GRAD within the
+    model's bounds of the CPU step on its branches; the control outside
+    one of them."""
+    import paddle_tpu_torch as ptt
+    tag = f"[{model} check]"
+    main, startup, loss, grads, relus = cnl_build(model, check=True)
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(card.scope, names).items()}
+    feed = cnl_feed(model, CNL_MODELS[model][4], SEED + 40)
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+
+    def step(exe, place, masks=None):
+        """(loss, {@GRAD: host f32}, relu signs) of one step from
+        `state`, the relus taking `masks`' branches where given."""
+        ptt.io.params_from_numpy(exe.scope, state, place)
+        replay = (replayed_relu_masks(masks) if masks is not None
+                  else contextlib.nullcontext([]))
+        with replay as left:
+            out = exe.run(main, feed=feed, fetch_list=[loss] + grads + relus,
+                          return_numpy=False)
+        if left:
+            raise RuntimeError(f"{tag} {len(left)} relu masks not taken")
+        n = 1 + len(grads)
+        return (float(out[0].float().cpu().reshape(())),
+                {g: t.detach().float().cpu() for g, t in zip(grads,
+                                                             out[1:n])},
+                [(t > 0).float().cpu() for t in out[n:]])
+
+    got_loss, got, card_signs = step(card, ptt.CUDAPlace(0))
+    with tf32_everywhere(torch):
+        ctl_loss, ctl, ctl_signs = step(card, ptt.CUDAPlace(0))
+    res, cpu_s = {}, []
+    for name, l, g, signs in (("card", got_loss, got, card_signs),
+                              ("TF32 control", ctl_loss, ctl, ctl_signs)):
+        t0 = time.perf_counter()
+        want_loss, want, cpu_signs = step(cpu, ptt.CPUPlace(), masks=signs)
+        cpu_s.append(time.perf_counter() - t0)
+        errs = grad_rel_errs(want, g)
+        worst = sorted(errs, key=errs.get, reverse=True)
+        res[name] = (abs(l - want_loss) / abs(want_loss), errs[worst[0]],
+                     worst[0], want_loss,
+                     [(n, f"{errs[n]:.3g}") for n in worst[1:4]])
+    flips = sum(int((a != b).sum()) for a, b in zip(card_signs, ctl_signs))
+    lb = CNL_LOSS_RTOL
+    gb = CNL_GRAD_RTOL.get(model, CNL_GRAD_RTOL_DEFAULT)
+    ops = main.global_block().ops
+    log(f"{tag} {CNL_MODELS[model][1] or 'LeNet'}, batch "
+        f"{CNL_MODELS[model][4]}, {len(ops)} ops, {len(grads)} @GRADs, "
+        f"{len(relus)} relu ops: loss card {got_loss:.7f} CPU "
+        f"{res['card'][3]:.7f} (rel {res['card'][0]:.3g}), TF32 control "
+        f"{ctl_loss:.7f} (rel {res['TF32 control'][0]:.3g}); worst @GRAD "
+        f"card {res['card'][1]:.3g} ({res['card'][2]}; next "
+        f"{res['card'][4]}), control "
+        f"{res['TF32 control'][1]:.3g} ({res['TF32 control'][2]}); bounds "
+        f"{lb:g} / {gb:g}; relu branches the control took apart from the "
+        f"card's: {flips}; CPU steps {[round(s, 1) for s in cpu_s]} s")
+    if not (res["card"][0] <= lb and res["card"][1] <= gb):
+        raise RuntimeError(f"{tag} the card's step is off the CPU's: "
+                           f"{res['card']}")
+    if not (res["TF32 control"][0] > lb or res["TF32 control"][1] > gb):
+        raise RuntimeError(f"{tag} the TF32 control passed the bounds: the "
+                           f"check cannot tell f32 from TF32")
+    return dict(loss=res["card"][0], grad=res["card"][1],
+                ctl_loss=res["TF32 control"][0],
+                ctl_grad=res["TF32 control"][1])
+
+
+def cnl_train(torch, model, amp):
+    """(b) bench.py's row of `model` (its batch, optimizer and feed, the
+    batch on the card), f32 or under FLAGS_amp_bf16: CNL_WARMUP runs and
+    CNL_RUNS synchronized runs with the counters zeroed just before the
+    first and read just after the last (no kernel of this repo runs);
+    the first run's time, the run p50, peak memory; then time_run_steps
+    as bench.py's _time_steps times the row, and images or sequences a
+    second."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = f"[{model} train{' amp' if amp else ''}]"
+    batch, unit = CNL_MODELS[model][2], CNL_MODELS[model][5]
+    with amp_bf16(amp):
+        main, startup, loss, _, _ = cnl_build(model)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        feed = cnl_feed(model, batch, SEED + 1, device=DEVICE)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters = launch_counters()
+        zero_counters(counters)
+        losses, ms = [], []
+        for _ in range(CNL_WARMUP + CNL_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(())))
+        counts = {n: v for (n, attr), v in read_counters(counters).items()
+                  if attr == "launches"}
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = time_run_steps(torch, exe, main, feed, loss,
+                                 steps=CNL_TIMED_STEPS,
+                                 calls=CNL_TIMED_CALLS)
+    no_autograd_state(exe.scope, names, tag)
+    p50 = float(np.median(ms[CNL_WARMUP:]))
+    ops = main.global_block().ops
+    n_weights = sum(math.prod(p.shape) for p in main.all_parameters())
+    log(f"{tag} batch {batch}, {len(ops)} ops, {n_weights} weights: losses "
+        f"{[round(x, 4) for x in losses]}; run_steps {step_ms:.2f} ms a step"
+        f" (time_run_steps: {CNL_TIMED_STEPS} steps a call, best of "
+        f"{CNL_TIMED_CALLS} after one), {batch / step_ms * 1e3:.1f} {unit}/s;"
+        f" run p50 {p50:.2f} ms (runs {CNL_WARMUP + 1}-"
+        f"{CNL_WARMUP + CNL_RUNS}, synchronized, with the loss readback), "
+        f"{batch / p50 * 1e3:.1f} {unit}/s; first run {ms[0]:.2f} ms; peak "
+        f"device memory {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} "
+        f"above the {base / 2**20:.1f} MiB held before); this repo's kernels"
+        f" launched {sum(counts.values())} times; {nvidia_smi_line()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} non-finite loss {losses}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(exe=exe, main=main, feed=feed, loss=loss, p50=p50,
+                        step_ms=step_ms, first_ms=ms[0], peak=peak - base,
+                        losses=losses, batch=batch, unit=unit)
+
+
+def lenet_trainer(torch):
+    """(c) BASELINE config 1: models.lenet.build_train_net() through the
+    port's Trainer on the card, SGD(0.1), TRAINER_MNIST_EPOCHS epochs of
+    TRAINER_MNIST_BATCHES MNIST-shaped batches of 64 (mnist_like; no
+    dataset is read), prefetch 2, the counters zeroed around train(): the
+    loss falls (the mean of the last 5 steps under that of the first 5),
+    every step's metrics are finite.  Then save_params, a second Trainer
+    with param_path, and test() of both on the same batches: the reloaded
+    Trainer's metrics equal the first's within TRAINER_MNIST_RTOL, and the
+    test accuracy beats chance."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import lenet
+    from paddle_tpu_torch.reader import decorator
+    tag = "[lenet trainer]"
+    batch = CNL_MODELS["lenet"][2]
+
+    def train_func():
+        _, avg_loss, acc, _ = lenet.build_train_net()
+        return [avg_loss, acc]
+
+    def opt_func():
+        return ptt.optimizer.SGD(learning_rate=0.1)
+
+    def samples(seed0, n):
+        def r():
+            for i in range(n):
+                b = mnist_like(batch, seed0 + i)
+                for j in range(batch):
+                    yield b["img"][j], b["label"][j]
+        return r
+
+    train_reader = decorator.batch(samples(SEED + 500,
+                                           TRAINER_MNIST_BATCHES), batch)
+    test_reader = decorator.batch(samples(SEED + 900, 4), batch)
+    steps, stamps = [], []
+
+    def handler(e):
+        if isinstance(e, ptt.EndStepEvent):
+            steps.append([float(np.asarray(m).mean()) for m in e.metrics])
+            stamps.append(time.perf_counter())
+
+    trainer = ptt.Trainer(train_func, opt_func, place=ptt.CUDAPlace(0))
+    counters = launch_counters()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    trainer.train(TRAINER_MNIST_EPOCHS, handler, train_reader,
+                  ["img", "label"], prefetch_depth=2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    first = trainer.test(test_reader, ["img", "label"])
+    with tempfile.TemporaryDirectory() as td:
+        trainer.save_params(td)
+        again = ptt.Trainer(train_func, opt_func, place=ptt.CUDAPlace(0),
+                            param_path=td)
+        second = again.test(test_reader, ["img", "label"])
+    losses = [s[0] for s in steps]
+    gaps = np.diff(stamps[TRAINER_MNIST_BATCHES:]) * 1e3
+    step_ms = float(np.median(gaps))
+    errs = [abs(float(a) - float(b)) / max(abs(float(a)), 1e-30)
+            for a, b in zip(first, second)]
+    log(f"{tag} {TRAINER_MNIST_EPOCHS} epochs x {TRAINER_MNIST_BATCHES} "
+        f"batches of {batch}: losses (every 12th step) "
+        f"{[round(x, 4) for x in losses[::12]]}, last {losses[-1]:.4f}; "
+        f"train() {train_s:.2f} s, step p50 {step_ms:.2f} ms after epoch 1 "
+        f"(host clock between EndStepEvents), {batch / step_ms * 1e3:.0f} "
+        f"img/s; test() loss/acc {[round(float(x), 4) for x in first]}, "
+        f"after save_params and a Trainer(param_path=...) "
+        f"{[round(float(x), 4) for x in second]} (rel {max(errs):.3g}, "
+        f"bound {TRAINER_MNIST_RTOL:g}); this repo's kernels launched "
+        f"{sum(counts.values())} times; {nvidia_smi_line()}")
+    if len(steps) != TRAINER_MNIST_EPOCHS * TRAINER_MNIST_BATCHES or not \
+            all(math.isfinite(x) for s in steps for x in s):
+        raise RuntimeError(f"{tag} steps {len(steps)}: {steps[-3:]}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise RuntimeError(f"{tag} the loss did not fall: {losses}")
+    if max(errs) > TRAINER_MNIST_RTOL or not float(first[1]) > 0.2:
+        raise RuntimeError(f"{tag} test() {first} and after reload "
+                           f"{second}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    trainer.stop()
+    again.stop()
+    return counts, dict(step_ms=step_ms, losses=losses, test=first)
+
+
+def phase_convnets_lstm(torch):
+    """Phase 5j: AlexNet, GoogLeNet, SE-ResNeXt-50 and the stacked LSTM at
+    bench.py's shapes, and LeNet through the Trainer (config 1): the
+    card-vs-CPU step of each (with LeNet's program) and its TF32 control,
+    each training row f32 and under AMP (the AMP losses held to the f32
+    ones over the first CNL_AMP_TRACK steps; the LSTM's AMP loss falls),
+    the Trainer.  Returns the launches by path (all zero: no kernel of
+    this repo lies on these paths) and the rows, traced at the end of the
+    smoke."""
+    checks = {m: cnl_card_vs_cpu(torch, m) for m in CNL_TRAIN + ("lenet",)}
+    by_path, rows = {}, {}
+    for model in CNL_TRAIN:
+        for amp in (False, True):
+            key = f"{model}_train{'_amp' if amp else ''}"
+            by_path[key], rows[key] = cnl_train(torch, model, amp)
+        f32, amp = rows[f"{model}_train"], rows[f"{model}_train_amp"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(amp["losses"],
+                                                     f32["losses"])]
+        log(f"[{model}] AMP loss against f32, run for run: "
+            f"{[f'{g:.2g}' for g in gaps]} (bound {CNL_AMP_LOSS_RTOL:g} "
+            f"on the first {CNL_AMP_TRACK})")
+        if max(gaps[:CNL_AMP_TRACK]) > CNL_AMP_LOSS_RTOL:
+            raise RuntimeError(f"{model}: the AMP losses left the f32 "
+                               f"ones: {gaps}")
+    lstm = rows["stacked_lstm_train_amp"]["losses"]
+    if not lstm[-1] < lstm[0]:
+        raise RuntimeError(f"the stacked LSTM's AMP loss did not fall: "
+                           f"{lstm}")
+    by_path["lenet_trainer"], trainer = lenet_trainer(torch)
+    summary = {k: (round(r["step_ms"], 2),
+                   round(r["batch"] / r["step_ms"] * 1e3, 1),
+                   round(r["p50"], 2), round(r["peak"] / 2**20, 1))
+               for k, r in rows.items()}
+    recs = [r for r in VERIFY_LOG if r["phase"] == "convnets_lstm"]
+    log(f"[convnets_lstm] (run_steps ms a step, images or sequences a "
+        f"second, run p50 ms, peak MiB above what was held) {summary}; "
+        f"LeNet Trainer step {trainer['step_ms']:.2f} ms; checks "
+        f"{ {m: (round(c['loss'], 9), round(c['grad'], 7), round(c['ctl_grad'], 5)) for m, c in checks.items()} }; "
+        f"the gate verified {len(recs)} programs in error mode, "
+        f"{sum(r['errors'] for r in recs)} with an error; "
+        f"{nvidia_smi_line()}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"convnets_lstm verifications {recs}")
+    return by_path, rows
+
+
+def _cnl_kernel_class(name):
+    """Phase 5j's trace classes: the conv plane's (_resnet_kernel_class),
+    with cuDNN's FFT and Winograd convolutions filed apart and the rest
+    under "other", whose largest kernels trace_run lists by name."""
+    c = _resnet_kernel_class(name)
+    if "(this repo)" in c:
+        return c
+    if any(k in name.lower() for k in ("fft", "winograd", "flip_filter")):
+        return "cuDNN FFT and Winograd convolutions"
+    if c.startswith("elementwise and other"):
+        return "other (elementwise: LRN, relu, the optimizers, casts)"
+    return c
+
+
+def trace_convnets_lstm(torch, rows):
+    """One step of each phase-5j training row traced by kernel class (the
+    device's busy and idle share of the step's wall time); no kernel of
+    this repo in any."""
+    for key, row in rows.items():
+        amp = key.endswith("_amp")
+        with amp_bf16(amp):
+            names = trace_run(
+                torch, f"{'AMP ' if amp else ''}{key.split('_train')[0]} "
+                       f"training step at batch {row['batch']}",
+                lambda: row["exe"].run(row["main"], feed=row["feed"],
+                                       fetch_list=[row["loss"]],
+                                       return_numpy=False),
+                classify=_cnl_kernel_class)
+        launches = sum(sum(v.values()) for v in names.values())
+        log(f"[trace]   {key}: {launches} kernel launches a step")
+        ours = [c for c in names if "(this repo)" in c]
+        if ours:
+            raise RuntimeError(f"{key}'s trace holds this repo's kernels: "
+                               f"{ours}")
+
+
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
@@ -6251,6 +6710,8 @@ def main():
     xfmr_counts, xfmr_amp, ln_d768 = phase_nmt_bert(torch)
     VERIFY_PHASE[0] = "deepfm"
     deepfm_counts, deepfm_amp = phase_deepfm(torch)
+    VERIFY_PHASE[0] = "convnets_lstm"
+    cnl_counts, cnl_rows = phase_convnets_lstm(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -6332,6 +6793,8 @@ def main():
     del xfmr_amp
     trace_deepfm(torch, deepfm_amp)
     del deepfm_amp
+    trace_convnets_lstm(torch, cnl_rows)
+    del cnl_rows
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -6450,7 +6913,8 @@ def main():
                "decode_oracle": oracle_counts, "train": counts,
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
-               **resnet_counts, **xfmr_counts, **deepfm_counts}
+               **resnet_counts, **xfmr_counts, **deepfm_counts,
+               **cnl_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

@@ -9,11 +9,12 @@ over the main AND startup programs with the model's natural fetch set.
 Exit codes: 0 clean, 1 error-severity findings (or a build crash), 2 bad
 usage.
 
-The port builds eight of the JAX package's bundled models so far,
-``lenet``, ``vgg``, ``resnet``, ``transformer`` (the NMT build),
-``transformer_lm``, ``bert``, ``deepfm`` and ``deepfm_sparse`` (the
-hash-bucketed build), at the JAX CLI's shapes and with its optimizer,
-SGD(0.01) (JAX lint.py:26-29, :45-87, :91-107); the others come with
+The port builds twelve of the JAX package's bundled models so far,
+``lenet``, ``alexnet``, ``vgg``, ``googlenet``, ``resnet``,
+``se_resnext``, ``transformer`` (the NMT build), ``transformer_lm``,
+``bert``, ``deepfm``, ``deepfm_sparse`` (the hash-bucketed build) and
+``stacked_lstm``, at the JAX CLI's shapes and with its optimizer,
+SGD(0.01) (JAX lint.py:26-29, :45-87, :90-109); the others come with
 their models.
 """
 from __future__ import annotations
@@ -43,7 +44,8 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
     returns (feed vars, fetch vars)."""
     from ..models import bert as bert_model
     from ..models import deepfm as deepfm_model
-    from ..models import lenet, resnet, transformer, vgg
+    from ..models import (alexnet, googlenet, lenet, resnet, se_resnext,
+                          stacked_lstm, transformer, vgg)
 
     def transformer_cfg(T=16, dropout=0.1):
         return transformer.TransformerConfig(
@@ -84,15 +86,23 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
 
     return {
         "lenet": _simple(lenet.build_train_net),
+        "alexnet": _simple(lambda: alexnet.build_train_net(
+            class_dim=10, img_shape=(3, 64, 64))),
         "vgg": _simple(vgg.build_train_net),
+        "googlenet": _simple(lambda: googlenet.build_train_net(
+            class_dim=10, img_shape=(3, 64, 64))),
         "resnet": _simple(lambda: resnet.build_train_net(
             class_dim=10, img_shape=(3, 32, 32), depth=18)),
+        "se_resnext": _simple(lambda: se_resnext.build_train_net(
+            class_dim=10, img_shape=(3, 32, 32), depth=50,
+            stage_blocks=(1, 1, 1, 1))),
         "transformer": _simple(lambda: transformer.build_train_net(
             transformer_cfg(), src_len=8, tgt_len=8)),
         "transformer_lm": lm,
         "bert": bert,
         "deepfm": deepfm,
         "deepfm_sparse": deepfm_sparse,
+        "stacked_lstm": _simple(stacked_lstm.build_train_net),
     }
 
 

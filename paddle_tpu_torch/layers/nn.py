@@ -1,17 +1,19 @@
 """NN layer functions — the user-facing model-building API.
 
 Counterpart of paddle_tpu/layers/nn.py for the layers the transformer
-builds (models/transformer.py, bert.py) and the image classifiers
-(models/resnet.py, lenet.py, vgg.py) call:
+builds (models/transformer.py, bert.py), the image classifiers
+(models/resnet.py, lenet.py, vgg.py, alexnet.py, googlenet.py,
+se_resnext.py) and the stacked LSTM (models/stacked_lstm.py) call:
 data :21, fc :34 (over several inputs too), embedding :63,
 sparse_embedding :93 (the hash-bucketed table of the sparse plane),
-conv2d :114, pool2d :163, batch_norm :187, layer_norm :223, dropout
-:271, softmax :284, cross_entropy :300, softmax_with_cross_entropy :310,
-mean :331, reduce_sum and reduce_mean :352-353, reshape :359, transpose
+conv2d :114, pool2d :163, adaptive_pool2d :178, batch_norm :187,
+layer_norm :223, dropout :271, softmax :284, cross_entropy :300,
+softmax_with_cross_entropy :310, mean :331, reduce_sum, reduce_mean and
+reduce_max :352-354, reshape :359, transpose
 :367, split :375, squeeze :405, unsqueeze :413, slice :436, gather :445,
 matmul :462, topk :480, accuracy :489, one_hot :524, scale :548,
 elementwise_add, _sub, _mul and _div :557-571 (with their ``act``), the
-unary layers sigmoid and square (``_unary_layer`` :577),
+unary layers relu, sigmoid and square (``_unary_layer`` :577), lrn :631,
 sigmoid_cross_entropy_with_logits :707, label_smooth :741 (composed of
 ``scale`` ops, as JAX's is), greater_than :794, fused_mha :877,
 fused_attention_qkv :948 and fused_lm_head_loss :968.
@@ -32,13 +34,15 @@ from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
 __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
-           "pool2d", "batch_norm", "layer_norm", "dropout", "softmax",
-           "cross_entropy", "softmax_with_cross_entropy", "mean",
-           "reduce_sum", "reduce_mean", "reshape", "transpose", "split",
+           "pool2d", "adaptive_pool2d", "batch_norm", "layer_norm",
+           "dropout", "softmax", "cross_entropy",
+           "softmax_with_cross_entropy", "mean", "reduce_sum",
+           "reduce_mean", "reduce_max", "reshape", "transpose", "split",
            "squeeze", "unsqueeze", "slice", "gather", "matmul", "topk",
            "accuracy", "one_hot", "scale", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
-           "sigmoid", "square", "sigmoid_cross_entropy_with_logits",
+           "relu", "sigmoid", "square", "lrn",
+           "sigmoid_cross_entropy_with_logits",
            "label_smooth", "greater_than", "fused_mha",
            "fused_attention_qkv", "fused_lm_head_loss"]
 
@@ -166,6 +170,17 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
                       "global_pooling": global_pooling,
                       "ceil_mode": ceil_mode, "exclusive": exclusive})
     return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    """A pool2d whose windows tile the map into pool_size cells: stride
+    h // oh, window h - (oh - 1) * stride (and likewise along w)."""
+    h, w = int(input.shape[2]), int(input.shape[3])
+    oh, ow = (pool_size if isinstance(pool_size, (list, tuple))
+              else (pool_size, pool_size))
+    stride = [h // oh, w // ow]
+    ksize = [h - (oh - 1) * stride[0], w - (ow - 1) * stride[1]]
+    return pool2d(input, ksize, pool_type, stride, 0, name=name)
 
 
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
@@ -299,6 +314,7 @@ def _reduce_layer(op_name):
 
 reduce_sum = _reduce_layer("reduce_sum")
 reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
 
 
 def reshape(x, shape, name=None):
@@ -440,8 +456,19 @@ def _unary_layer(op_name):
     return f
 
 
+relu = _unary_layer("relu")
 sigmoid = _unary_layer("sigmoid")
 square = _unary_layer("square")
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("lrn", {"X": [input]},
+                     {"Out": [out], "MidOut": [mid]},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
 
 
 def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,

@@ -1,16 +1,16 @@
 """Tensor layer functions (counterpart of paddle_tpu/layers/tensor.py:
-cast :40 and assign :63), with the JAX package's op types, slots and
+cast :40, concat :48, sums :56 and assign :63), with the JAX package's op types, slots and
 attrs, so both builds serialize alike."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..framework.layer_helper import LayerHelper
 from ..framework.program import Variable
 
-__all__ = ["cast", "assign"]
+__all__ = ["cast", "concat", "sums", "assign"]
 
 
 def cast(x: Variable, dtype) -> Variable:
@@ -18,6 +18,21 @@ def cast(x: Variable, dtype) -> Variable:
     out = helper.create_variable_for_type_inference(dtype)
     helper.append_op("cast", {"X": [x]}, {"Out": [out]},
                      {"out_dtype": str(dtype)})
+    return out
+
+
+def concat(input: Sequence[Variable], axis=0, name=None) -> Variable:
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", {"X": list(input)}, {"Out": [out]},
+                     {"axis": axis})
+    return out
+
+
+def sums(input: Sequence[Variable], out=None) -> Variable:
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", {"X": list(input)}, {"Out": [out]}, {})
     return out
 
 

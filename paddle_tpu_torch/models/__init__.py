@@ -1,2 +1,3 @@
 """Models (counterpart of paddle_tpu/models)."""
-from . import bert, deepfm, lenet, resnet, transformer, vgg  # noqa: F401
+from . import (alexnet, bert, deepfm, googlenet, lenet,  # noqa: F401
+               resnet, se_resnext, stacked_lstm, transformer, vgg)

@@ -1,7 +1,7 @@
 """NN ops (counterpart of paddle_tpu/ops/nn_ops.py: the conv plane,
 conv2d :51, depthwise_conv2d :81, pool2d :180 (``_pool_nd`` :139) and
 batch_norm :220, with ``_pair`` :36 and ``_conv_padding`` :42; layer_norm
-:261, softmax :349, dropout :362, lookup_table :384, and the sparse
+:261, lrn :331, softmax :349, dropout :362, lookup_table :384, and the sparse
 plane's sparse_embedding_lookup :427 (with ``_hash_mix_u32`` :410) and
 sparse_scatter_update :450).
 
@@ -213,6 +213,32 @@ def _layer_norm(ctx, ins, attrs):
     return {"Y": [y.to(x.dtype)],
             "Mean": [mean.reshape(x.shape[:axis])],
             "Variance": [var.reshape(x.shape[:axis])]}
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs):
+    """Local response norm across channels (ref lrn_op.cc), JAX's formula
+    (not F.local_response_norm's, which divides alpha by n and pads
+    otherwise): the squares' sum over a window of n channels, the
+    channels padded by (n // 2, n - 1 - n // 2); MidOut = k + alpha *
+    sum, Out = x / MidOut ** beta.  The window adds n shifted slices in
+    order in the input's dtype (bf16 under AMP, as XLA's reduce_window
+    sums), and k, alpha and beta are first rounded to that dtype, as jnp
+    rounds a Python scalar met by an array: bf16 results equal JAX's bit
+    for bit on the CPU."""
+    x = single_input(ins)
+    n = int(attrs.get("n", 5))
+    k, alpha, beta = (float(torch.tensor(float(attrs.get(a, d)),
+                                         dtype=x.dtype))
+                      for a, d in (("k", 2.0), ("alpha", 1e-4),
+                                   ("beta", 0.75)))
+    C = x.shape[1]
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, n // 2, n - 1 - n // 2))
+    window = sq[:, :C]
+    for i in range(1, n):
+        window = window + sq[:, i:i + C]
+    mid = k + alpha * window
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}
 
 
 @register_op("softmax")

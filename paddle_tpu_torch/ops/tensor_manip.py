@@ -1,5 +1,5 @@
 """Shape manipulation ops (counterpart of paddle_tpu/ops/tensor_manip.py:
-reshape :20, transpose :38, split :56, squeeze :88, unsqueeze :108,
+reshape :20, transpose :38, concat :51, split :56, squeeze :88, unsqueeze :108,
 slice :170 and gather :198)."""
 from __future__ import annotations
 
@@ -21,6 +21,13 @@ def _reshape(ctx, ins, attrs):
 @register_op("transpose")
 def _transpose(ctx, ins, attrs):
     return {"Out": [torch.permute(single_input(ins), list(attrs["axis"]))]}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    """The X list joined along ``axis``; mixed dtypes promote (torch.cat's
+    rule and jnp.concatenate's agree on float widths and int to float)."""
+    return {"Out": [torch.cat(list(ins["X"]), dim=int(attrs.get("axis", 0)))]}
 
 
 @register_op("split")

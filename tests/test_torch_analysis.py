@@ -619,15 +619,14 @@ def test_mul_rule_agrees_with_jax(nc):
 def test_lint_cli_exit_codes(capsys):
     assert lint_cli.main([]) == 0
     out = capsys.readouterr().out
-    for model in ("lenet", "vgg", "resnet", "transformer",
-                  "transformer_lm", "bert", "deepfm", "deepfm_sparse"):
+    models = ["lenet", "alexnet", "vgg", "googlenet", "resnet",
+              "se_resnext", "transformer", "transformer_lm", "bert",
+              "deepfm", "deepfm_sparse", "stacked_lstm"]
+    for model in models:
         assert f"[lint] {model}: ok" in out
     assert "0 errors" in out.splitlines()[-1]
     assert lint_cli.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == ["lenet", "vgg", "resnet",
-                                               "transformer",
-                                               "transformer_lm", "bert",
-                                               "deepfm", "deepfm_sparse"]
+    assert capsys.readouterr().out.split() == models
     assert lint_cli.main(["--models", "nope"]) == 2
     assert lint_cli.main(["--self-test"]) == 1
 
@@ -639,4 +638,4 @@ def test_lint_cli_runs_as_a_module_without_warning():
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "8 models: 0 errors" in res.stdout
+    assert "12 models: 0 errors" in res.stdout

@@ -188,6 +188,62 @@ def test_ctr_plane_runs_without_jax():
                       "leaked": []}
 
 
+_CONVNETS_LSTM_CHILD = """
+import json, sys
+import numpy as np
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch.analysis import lint
+from paddle_tpu_torch.layers import rnn
+from paddle_tpu_torch.models import alexnet, googlenet, se_resnext, stacked_lstm
+from paddle_tpu_torch.ops import rnn_ops
+rc = lint.main(["--models", "alexnet,googlenet,se_resnext,stacked_lstm"])
+losses = {}
+for name, build, feed, opt in (
+        ("stacked_lstm",
+         lambda: stacked_lstm.build_train_net(dict_dim=50, seq_len=8,
+                                              emb_dim=8, hidden_dim=8),
+         stacked_lstm.make_fake_batch(4, dict_dim=50, seq_len=8, seed=1),
+         lambda: ptt.optimizer.Adam(learning_rate=1e-2)),
+        ("alexnet",
+         lambda: alexnet.build_train_net(class_dim=10,
+                                         img_shape=(3, 64, 64)),
+         se_resnext.make_fake_batch(2, img_shape=(3, 64, 64), class_dim=10),
+         lambda: ptt.optimizer.Momentum(learning_rate=0.01, momentum=0.9))):
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        _, loss, _, _ = build()
+        opt().minimize(loss)
+    exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    exe.run(startup)
+    losses[name] = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                    for _ in range(3)]
+print(json.dumps({
+    "rc": rc,
+    "finite": all(np.isfinite(v).all() for v in losses.values()),
+    "lstm_fell": losses["stacked_lstm"][-1] < losses["stacked_lstm"][0],
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")),
+}))
+"""
+
+
+def test_convnets_and_lstm_run_without_jax():
+    """ops/rnn_ops.py, layers/rnn.py and the four builders (AlexNet,
+    GoogLeNet, SE-ResNeXt, the stacked LSTM): the lint CLI's four models,
+    and three steps of the stacked LSTM (Adam; its loss falls) and of
+    AlexNet (Momentum) on the CPU with no JAX loaded."""
+    res = subprocess.run([sys.executable, "-c", _CONVNETS_LSTM_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    for model in ("alexnet", "googlenet", "se_resnext", "stacked_lstm"):
+        assert f"[lint] {model}: ok" in res.stdout
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report == {"rc": 0, "finite": True, "lstm_fell": True,
+                      "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")

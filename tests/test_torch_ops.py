@@ -17,7 +17,13 @@ DeepFM's ops and the sparse plane's (``CTR_CASES``, with gradients in
 the whole-tensor norms of ``lars_momentum`` and ``lamb`` at MATMUL, the
 integer hash and the gathers SAME.  JAX hashes an id as its int32 feed
 keeps it (the low 32 bits, wrapped), so ids above 2^31, above 2^32 and
-below 0 go through both packages' int32 and int64 paths.
+below 0 go through both packages' int32 and int64 paths.  The conv
+builds' ``lrn`` and ``concat`` and the recurrent family (``lstm``,
+``gru``, ``lstm_unit``, ``gru_unit``; ``RNN_CONV_CASES``) join too, with
+gradients of several outputs at once in
+``test_rnn_conv_op_grad_matches_jax`` (readings up to 3.3e-7 of max |JAX|
+against MATMUL's 1e-4) and bf16 inputs beside f32 weights in
+``test_rnn_conv_ops_bf16_match_jax``.
 """
 import zlib
 
@@ -693,8 +699,95 @@ OPT_CASES = {
              {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
               "weight_decay": 0.01}, _ADAM_OUT, MATMUL),
 }
+
+
+def _mask(r, B, T):
+    """A [B, T] mask with ragged right pads and a hole mid-sequence."""
+    m = (np.arange(T)[None, :] < r.randint(T // 2, T + 1, (B, 1))).astype(
+        "float32")
+    m[0, 1] = 0.0
+    return m
+
+
+def _lstm_ins(r, B=3, T=6, H=4, mask=False, h0=False, c0=False):
+    ins = {"Input": [_rand(r, B, T, 4 * H)],
+           "Weight": [_rand(r, H, 4 * H) * 0.5]}
+    if mask:
+        ins["Mask"] = [_mask(r, B, T)]
+    if h0:
+        ins["H0"] = [_rand(r, B, H)]
+    if c0:
+        ins["C0"] = [_rand(r, B, H)]
+    return ins
+
+
+def _gru_ins(r, B=3, T=6, H=4, mask=False, h0=False):
+    ins = {"Input": [_rand(r, B, T, 3 * H)],
+           "Weight": [_rand(r, H, 3 * H) * 0.5]}
+    if mask:
+        ins["Mask"] = [_mask(r, B, T)]
+    if h0:
+        ins["H0"] = [_rand(r, B, H)]
+    return ins
+
+
+_LSTM_OUT = ["Hidden", "Cell", "LastH", "LastC"]
+_GRU_OUT = ["Hidden", "LastH"]
+
+# the conv builds' lrn and concat, and the recurrent family: MATMUL where
+# a step's recurrent product enters, EXACT for lrn's window sums and the
+# one-step units without one, SAME for concat (no arithmetic)
+RNN_CONV_CASES = {
+    "lrn_n5": ("lrn", lambda r: {"X": [_rand(r, 2, 7, 4, 4) * 3]},
+               {"n": 5, "k": 2.0, "alpha": 1e-2, "beta": 0.75},
+               ["Out", "MidOut"], EXACT),
+    "lrn_n3_k1": ("lrn", lambda r: {"X": [_rand(r, 2, 6, 3, 5) * 3]},
+                  {"n": 3, "k": 1.0, "alpha": 0.05, "beta": 0.5},
+                  ["Out", "MidOut"], EXACT),
+    "concat_axis0": ("concat", lambda r: {
+        "X": [_rand(r, 2, 3), _rand(r, 4, 3), _rand(r, 1, 3)]},
+        {"axis": 0}, ["Out"], SAME),
+    "concat_axis1": ("concat", lambda r: {
+        "X": [_rand(r, 2, c, 3, 3) for c in (1, 4, 2)]},
+        {"axis": 1}, ["Out"], SAME),
+    "concat_neg1": ("concat", lambda r: {
+        "X": [_rand(r, 2, 3, 5), _rand(r, 2, 3, 1)]},
+        {"axis": -1}, ["Out"], SAME),
+    # an int block promotes to the float one's dtype in both packages
+    "concat_mixed_int_float": ("concat", lambda r: {
+        "X": [_rand(r, 2, 3), r.randint(-5, 5, (2, 2))]},
+        {"axis": 1}, ["Out"], SAME),
+    "lstm_plain": ("lstm", lambda r: _lstm_ins(r), {}, _LSTM_OUT, MATMUL),
+    "lstm_mask": ("lstm", lambda r: _lstm_ins(r, mask=True), {},
+                  _LSTM_OUT, MATMUL),
+    "lstm_reverse_mask_h0_c0": (
+        "lstm", lambda r: _lstm_ins(r, mask=True, h0=True, c0=True),
+        {"is_reverse": True}, _LSTM_OUT, MATMUL),
+    "lstm_activations": (
+        "lstm", lambda r: _lstm_ins(r, h0=True),
+        {"gate_activation": "sigmoid", "cell_activation": "relu",
+         "candidate_activation": "identity"}, _LSTM_OUT, MATMUL),
+    "gru_plain": ("gru", lambda r: _gru_ins(r), {}, _GRU_OUT, MATMUL),
+    "gru_mask": ("gru", lambda r: _gru_ins(r, mask=True), {}, _GRU_OUT,
+                 MATMUL),
+    "gru_reverse_mask_h0": (
+        "gru", lambda r: _gru_ins(r, mask=True, h0=True),
+        {"is_reverse": True}, _GRU_OUT, MATMUL),
+    "gru_activations": (
+        "gru", lambda r: _gru_ins(r, h0=True),
+        {"gate_activation": "sigmoid", "activation": "relu"}, _GRU_OUT,
+        MATMUL),
+    "lstm_unit_forget_bias": ("lstm_unit", lambda r: {
+        "X": [_rand(r, 4, 16) * 2], "C_prev": [_rand(r, 4, 4)]},
+        {"forget_bias": 1.0}, ["C", "H"], EXACT),
+    "gru_unit": ("gru_unit", lambda r: {
+        "Input": [_rand(r, 4, 12)], "HiddenPrev": [_rand(r, 4, 4)],
+        "Weight": [_rand(r, 4, 12) * 0.5]},
+        {}, ["Hidden", "Gate", "ResetHiddenPrev"], MATMUL),
+}
 CASES.update(CTR_CASES)
 CASES.update(OPT_CASES)
+CASES.update(RNN_CONV_CASES)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -1080,3 +1173,150 @@ def test_adagrad_leaves_zero_gradient_entries_bit_equal():
     for slot, src in (("ParamOut", "Param"), ("MomentOut", "Moment")):
         for out in (touts[slot][0].numpy(), np.asarray(jouts[slot][0])):
             np.testing.assert_array_equal(out[[1, 4]], ins[src][0][[1, 4]])
+
+
+# the recurrent family's gradients: (differentiated input slots, output
+# slots, each given a seeded cotangent); the inputs are the CASES entry of
+# the same name
+RNN_GRAD_CASES = {
+    "lrn_n5": (("X",), ("Out",)),
+    "lrn_n3_k1": (("X",), ("Out",)),
+    "concat_axis1": (("X",), ("Out",)),
+    "lstm_plain": (("Input", "Weight"), ("Hidden", "LastC")),
+    "lstm_mask": (("Input", "Weight"), ("Hidden", "LastH", "LastC")),
+    "lstm_reverse_mask_h0_c0": (("Input", "Weight", "H0", "C0"),
+                                ("Hidden", "Cell", "LastC")),
+    "lstm_activations": (("Input", "Weight", "H0"), ("Hidden",)),
+    "gru_plain": (("Input", "Weight"), ("Hidden",)),
+    "gru_reverse_mask_h0": (("Input", "Weight", "H0"), ("Hidden", "LastH")),
+    "gru_activations": (("Input", "Weight", "H0"), ("Hidden",)),
+    "lstm_unit_forget_bias": (("X", "C_prev"), ("C", "H")),
+    "gru_unit": (("Input", "HiddenPrev", "Weight"),
+                 ("Hidden", "Gate", "ResetHiddenPrev")),
+}
+
+
+def _multi_grads(op, ins, attrs, wrt, outs, rng, bf16=()):
+    """jax.vjp of the JAX lowering and torch autograd through the port's,
+    for seeded cotangents of the `outs` slots: (JAX grads, port grads, JAX
+    outputs, port outputs), each a list.  `bf16` slots enter both as bf16
+    (their grads come back bf16)."""
+    def jax_in(k, a):
+        a = jnp.asarray(a.astype(np.int32) if a.dtype == np.int64 else a)
+        return a.astype(jnp.bfloat16) if k in bf16 else a
+
+    def jax_fn(*diff):
+        jins = {k: [jax_in(k, a) for a in v] for k, v in ins.items()}
+        i = 0
+        for slot in wrt:
+            n = len(ins[slot])
+            jins[slot] = list(diff[i:i + n])
+            i += n
+        res = jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), jins, attrs)
+        return tuple(res[s][0] for s in outs)
+
+    primals = [jax_in(s, a) for s in wrt for a in ins[s]]
+    jout, vjp = jax.vjp(jax_fn, *primals)
+    cts = [rng.randn(*o.shape).astype("float32") for o in jout]
+    jgrads = vjp(tuple(jnp.asarray(c).astype(o.dtype)
+                       for c, o in zip(cts, jout)))
+    tins = {k: [torch.from_numpy(np.array(a, order="C")) for a in v]
+            for k, v in ins.items()}
+    tins = {k: [t.to(torch.bfloat16) for t in v] if k in bf16 else v
+            for k, v in tins.items()}
+    leaves = [t.requires_grad_(True) for s in wrt for t in tins[s]]
+    res = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), tins, attrs)
+    tout = [res[s][0] for s in outs]
+    tgrads = torch.autograd.grad(
+        tout, leaves, [torch.from_numpy(c).to(o.dtype)
+                       for c, o in zip(cts, tout)])
+    return list(jgrads), list(tgrads), list(jout), tout
+
+
+@pytest.mark.parametrize("name", sorted(RNN_GRAD_CASES))
+def test_rnn_conv_op_grad_matches_jax(name):
+    """torch autograd through the port's lowering against jax.vjp of the
+    JAX lowering, for seeded cotangents of the listed outputs at once, at
+    the case's tolerance (MATMUL through a recurrence)."""
+    op, build, attrs, _, tol = CASES[name]
+    wrt, outs = RNN_GRAD_CASES[name]
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
+    jg, tg, _, _ = _multi_grads(op, build(rng), attrs, wrt, outs, rng)
+    assert len(jg) == len(tg)
+    for j, t in zip(jg, tg):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **tol)
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+# bf16 activations (the AMP plane's) into lrn, concat and the recurrences,
+# the LSTM and GRU weights f32 masters: (op, inputs, attrs, bf16 input
+# slots, differentiated slots, output slots, tolerance in bf16 steps of
+# max |JAX| for the outputs, and for the grads).  Readings: lrn's outputs
+# 0 steps (its grad 0.72), the recurrences' outputs up to 1.29 steps and
+# their grads up to 1.16 over six steps of the sequence
+RNN_BF16_CASES = {
+    "lrn_n5": ("lrn", lambda r: {"X": [_rand(r, 2, 7, 4, 4) * 3]},
+               {"n": 5, "k": 2.0, "alpha": 1e-2, "beta": 0.75}, ("X",),
+               ("X",), ("Out", "MidOut"), 0, 1),
+    "lrn_n3_k1": ("lrn", lambda r: {"X": [_rand(r, 2, 6, 3, 5) * 3]},
+                  {"n": 3, "k": 1.0, "alpha": 0.05, "beta": 0.5}, ("X",),
+                  ("X",), ("Out", "MidOut"), 0, 1),
+    "concat_bf16_f32": ("concat", lambda r: {
+        "X": [_rand(r, 2, 3), _rand(r, 2, 2)]}, {"axis": 1}, (),
+        (), ("Out",), 0, 0),
+    "lstm_mask": ("lstm", lambda r: _lstm_ins(r, mask=True), {}, ("Input",),
+                  ("Input", "Weight"), tuple(_LSTM_OUT), 2, 2),
+    "lstm_reverse_h0_c0": ("lstm", lambda r: _lstm_ins(r, mask=True, h0=True,
+                                                       c0=True),
+                           {"is_reverse": True},
+                           ("Input", "H0", "C0"), ("Input", "Weight"),
+                           tuple(_LSTM_OUT), 2, 2),
+    "gru_mask": ("gru", lambda r: _gru_ins(r, mask=True), {}, ("Input",),
+                 ("Input", "Weight"), tuple(_GRU_OUT), 2, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RNN_BF16_CASES))
+def test_rnn_conv_ops_bf16_match_jax(name):
+    """bf16 inputs (an f32 recurrent weight beside them): the port's
+    outputs and gradients take JAX's dtypes, and their values lie within
+    the case's count of bf16 steps (2^-7) of max |JAX| (lrn and concat
+    bit for bit).  The mask is f32 and is cast to the activations' dtype
+    in both packages (the AMP regression tests/test_ops_rnn.py guards in
+    the JAX package)."""
+    op, build, attrs, bf16, wrt, outs, out_steps, grad_steps = \
+        RNN_BF16_CASES[name]
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
+    ins = build(rng)
+    if op == "concat":          # one bf16 block, one f32 block
+        ins["X"][0] = np.asarray(torch.from_numpy(ins["X"][0]).to(
+            torch.bfloat16).float())
+        jx = [jnp.asarray(ins["X"][0]).astype(jnp.bfloat16),
+              jnp.asarray(ins["X"][1])]
+        tx = [torch.from_numpy(ins["X"][0]).to(torch.bfloat16),
+              torch.from_numpy(ins["X"][1])]
+        j = jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), {"X": jx},
+                             attrs)["Out"][0]
+        t = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), {"X": tx},
+                               attrs)["Out"][0]
+        assert str(j.dtype) == "float32" and t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        return
+    jg, tg, jout, tout = _multi_grads(op, ins, attrs, wrt, outs, rng, bf16)
+    step = 2.0 ** -7
+    for slot, j, t in zip(outs, jout, tout):
+        assert str(t.dtype).split(".")[-1] == str(j.dtype) == "bfloat16"
+        j, t = _f32(j), _f32(t)
+        assert np.abs(t - j).max() <= out_steps * step * np.abs(j).max(), \
+            slot
+    for slot, j, t in zip(wrt, jg, tg):
+        assert str(t.dtype).split(".")[-1] == str(j.dtype), slot
+        j, t = _f32(j), _f32(t)
+        assert np.abs(t - j).max() <= grad_steps * step * np.abs(j).max(), \
+            (slot, np.abs(t - j).max() / np.abs(j).max() / step)
