@@ -318,6 +318,35 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    the smoke by kernel class with the device's idle share.  Paths
    "<model>_train", "<model>_train_amp" and "lenet_trainer" in
    launches_by_path.
+5k. The GRU machine-translation model and its beam decode, and the five
+   book models (slice 22): models.machine_translation.build_train_net at
+   the reference fluid benchmark's widths (embedding and GRU 512, V
+   30000), source and target length 50, batch 32, Adam(1e-3), on
+   make_copy_task_batch.  (a) One f32 step at batch 4 from the card's
+   startup state on the card, on a CPUPlace executor and on the card with
+   TF32 matmuls: the loss and every @GRAD within MT_LOSS_RTOL and
+   MT_GRAD_RTOL, the control outside one.  (b) The training row f32 and
+   under AMP: MT_WARMUP + MT_RUNS runs with the counters zeroed around
+   them (no kernel of this repo), the loss falling, the AMP losses within
+   MT_AMP_LOSS_RTOL of the f32 ones over the first MT_AMP_TRACK runs; run
+   p50, peak memory, time_run_steps and tokens/s (source + target).
+   (c) build_decode_net (beam 3, max_len 250) built after the f32 row's
+   training, saved by save_inference_model and served by the Predictor at
+   batch 32: request p50, hypothesis tokens/s, no kernel of this repo;
+   every SentenceScores entry within MT_SCORE_RTOL of its hypothesis's
+   log-prob up to and including its first end_id, from a teacher-forced
+   forward of build_train_net (target length 250) on the CPU over the
+   card's own SentenceIds; the hypotheses equal to a CPU Predictor's
+   decode token for token are counted.  (d) Each book model (fit_a_line,
+   word2vec at dict 2048, recommender_system, rnn_encoder_decoder,
+   db_lstm at the builders' defaults) with Adam(1e-3) at batch 32: one
+   f32 step card vs CPU within BOOK_LOSS_RTOL and BOOK_GRAD_RTOL
+   (db_lstm's Viterbi path equal), then time_run_steps with examples/s.
+   The phase's seconds are logged, and the whole smoke's at its end.
+   One MT step (f32, AMP) and one decode request are traced at the end
+   of the smoke by kernel class with the device's idle share.  Paths
+   "mt_train", "mt_train_amp", "mt_decode" and "book_<model>" in
+   launches_by_path.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -5418,6 +5447,527 @@ def trace_convnets_lstm(torch, rows):
                                f"{ours}")
 
 
+# phase 5k: the GRU machine-translation model of the reference's fluid
+# benchmark (benchmark/fluid/models/machine_translation.py, BASELINE.md:65)
+# at its widths (embedding, encoder and decoder 512, dict 30000, beam 3,
+# max_length 250) on the JAX package's structure (a GRU encoder and
+# dot-product attention), at fluid_benchmark's default batch 32, source
+# and target length 50 (this slice's choice: the dense build needs one
+# length) on the synthetic copy task; and the five book models at the
+# JAX builders' default sizes, word2vec at dict_size 2048
+MT_CFG = dict(src_vocab=30000, tgt_vocab=30000, emb_dim=512,
+              hidden_dim=512)
+MT_T = 50
+MT_BATCH = 32
+MT_LR = 1e-3
+MT_BEAM = 3
+MT_MAX_LEN = 250
+MT_START, MT_END = 0, 1
+MT_WARMUP = 2               # warm-up runs
+MT_RUNS = 5                 # synchronized runs after them (the run p50)
+MT_TIMED_STEPS = 5          # time_run_steps: steps a call, timed calls
+MT_TIMED_CALLS = 2
+MT_AMP_TRACK = 3            # AMP losses held to f32 over the first runs
+MT_AMP_LOSS_RTOL = 5e-2
+MT_CHECK_BATCH = 4          # the card-vs-CPU step (the CPU side is the cost)
+MT_DECODE_RUNS = 3          # served decode requests after a warm-up one
+# card vs CPU, one f32 Adam step from the card's startup state: the loss's
+# relative error and the largest ||card - CPU|| / ||CPU|| over the @GRADs
+# (tests/test_torch_train.py's 1e-5 and 1e-4); a TF32 control must fail
+MT_LOSS_RTOL = 1e-5
+MT_GRAD_RTOL = 1e-4
+# the decode's rescoring: each hypothesis's SentenceScores against the sum
+# of its per-token log-probs up to and including its first end_id, from a
+# teacher-forced forward of build_train_net on the CPU
+MT_SCORE_RTOL = 1e-4
+MT_RESCORE_CHUNK = 32       # hypotheses a CPU forward (its logits' memory)
+BOOK_BATCH = 32
+BOOK_MODELS = {"fit_a_line": {}, "word2vec": {"dict_size": 2048},
+               "recommender_system": {}, "rnn_encoder_decoder": {},
+               "db_lstm": {}}
+BOOK_LR = 1e-3              # Adam
+BOOK_TIMED_STEPS = 5
+BOOK_TIMED_CALLS = 2
+BOOK_LOSS_RTOL = 1e-5
+BOOK_GRAD_RTOL = 1e-4
+
+
+def mt_build(tgt_len=MT_T, opt=True):
+    """(main, startup, loss, grad names) of the MT train program at
+    MT_CFG, source length MT_T and target length `tgt_len`, with
+    Adam(MT_LR) where `opt`."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import machine_translation as mt
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        _, loss = mt.build_train_net(src_len=MT_T, tgt_len=tgt_len,
+                                     **MT_CFG)
+        grads = []
+        if opt:
+            _, pg = ptt.optimizer.Adam(learning_rate=MT_LR).minimize(loss)
+            grads = [g.name for _, g in pg]
+    return main, startup, loss, grads
+
+
+def mt_feed(batch, seed, device=None):
+    import torch
+    from paddle_tpu_torch.models import machine_translation as mt
+    feed = mt.make_copy_task_batch(batch, MT_T, MT_CFG["tgt_vocab"],
+                                   seed=seed, start_id=MT_START,
+                                   end_id=MT_END)
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def mt_card_vs_cpu(torch):
+    """One f32 Adam step of the MT program at batch MT_CHECK_BATCH from
+    the card's startup state, on the card, on a CPUPlace executor (no
+    relu: nothing to replay) and on the card with TF32 matmuls (the
+    control): the loss and every @GRAD within MT_LOSS_RTOL and
+    MT_GRAD_RTOL of the CPU's, the control outside one of them."""
+    import paddle_tpu_torch as ptt
+    tag = "[mt check]"
+    main, startup, loss, grads = mt_build()
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(card.scope, names).items()}
+    feed = mt_feed(MT_CHECK_BATCH, SEED + 7)
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+
+    def step(exe, place):
+        ptt.io.params_from_numpy(exe.scope, state, place)
+        out = exe.run(main, feed=feed, fetch_list=[loss] + grads,
+                      return_numpy=False)
+        return (float(out[0].float().cpu().reshape(())),
+                {g: t.detach().float().cpu() for g, t in zip(grads,
+                                                             out[1:])})
+
+    t0 = time.perf_counter()
+    want_loss, want = step(cpu, ptt.CPUPlace())
+    cpu_s = time.perf_counter() - t0
+    got_loss, got = step(card, ptt.CUDAPlace(0))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl_loss, ctl = step(card, ptt.CUDAPlace(0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for name, l, g in (("card", got_loss, got), ("TF32 control", ctl_loss,
+                                                 ctl)):
+        errs = grad_rel_errs(want, g)
+        worst = sorted(errs, key=errs.get, reverse=True)
+        res[name] = (abs(l - want_loss) / abs(want_loss), errs[worst[0]],
+                     worst[0], [(n, f"{errs[n]:.3g}") for n in worst[1:4]])
+    log(f"{tag} batch {MT_CHECK_BATCH}, {len(grads)} @GRADs: loss CPU "
+        f"{want_loss:.7f} card {got_loss:.7f} (rel {res['card'][0]:.3g}) "
+        f"TF32 control {ctl_loss:.7f} (rel {res['TF32 control'][0]:.3g}); "
+        f"worst @GRAD card {res['card'][1]:.3g} ({res['card'][2]}; next "
+        f"{res['card'][3]}), control {res['TF32 control'][1]:.3g} "
+        f"({res['TF32 control'][2]}); bounds {MT_LOSS_RTOL:g} / "
+        f"{MT_GRAD_RTOL:g}; CPU step {cpu_s:.1f} s")
+    if not (res["card"][0] <= MT_LOSS_RTOL
+            and res["card"][1] <= MT_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the card's step is off the CPU's: "
+                           f"{res['card']}")
+    if not (res["TF32 control"][0] > MT_LOSS_RTOL
+            or res["TF32 control"][1] > MT_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the TF32 control passed the bounds: "
+                           f"the check cannot tell f32 from TF32")
+    return dict(loss=res["card"][0], grad=res["card"][1],
+                ctl_loss=res["TF32 control"][0],
+                ctl_grad=res["TF32 control"][1])
+
+
+def mt_train(torch, amp):
+    """The MT program at MT_BATCH, f32 or under FLAGS_amp_bf16, the batch
+    on the card: MT_WARMUP + MT_RUNS synchronized runs with the counters
+    zeroed just before the first and read just after the last (no kernel
+    of this repo lies on this path); the first run, the run p50, peak
+    memory; then time_run_steps, with tokens/s (source + target)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = f"[mt train{' amp' if amp else ''}]"
+    with amp_bf16(amp):
+        main, startup, loss, _ = mt_build()
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        feed = mt_feed(MT_BATCH, SEED + 1, device=DEVICE)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters = launch_counters()
+        zero_counters(counters)
+        losses, ms = [], []
+        for _ in range(MT_WARMUP + MT_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, = exe.run(main, feed=feed, fetch_list=[loss])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(())))
+        counts = {n: v for (n, attr), v in read_counters(counters).items()
+                  if attr == "launches"}
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = time_run_steps(torch, exe, main, feed, loss,
+                                 steps=MT_TIMED_STEPS, calls=MT_TIMED_CALLS)
+    no_autograd_state(exe.scope, names, tag)
+    p50 = float(np.median(ms[MT_WARMUP:]))
+    toks = MT_BATCH * 2 * MT_T
+    ops = main.global_block().ops
+    log(f"{tag} batch {MT_BATCH}, T {MT_T}, {len(ops)} ops and "
+        f"{len(main.blocks[1].ops)} in the decoder step's block, "
+        f"{sum(math.prod(p.shape) for p in main.all_parameters())} weights:"
+        f" losses {[round(x, 4) for x in losses]}; run_steps {step_ms:.2f} "
+        f"ms a step (time_run_steps: {MT_TIMED_STEPS} steps a call, best of "
+        f"{MT_TIMED_CALLS} after one), {toks / step_ms * 1e3:.0f} tokens/s "
+        f"(src + tgt); run p50 {p50:.2f} ms (runs {MT_WARMUP + 1}-"
+        f"{MT_WARMUP + MT_RUNS}, synchronized, with the loss readback); "
+        f"first run {ms[0]:.2f} ms; peak device memory {peak / 2**20:.1f} "
+        f"MiB ({(peak - base) / 2**20:.1f} above the {base / 2**20:.1f} MiB "
+        f"held before); this repo's kernels launched "
+        f"{sum(counts.values())} times; {nvidia_smi_line()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{tag} the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(exe=exe, main=main, feed=feed, loss=loss, p50=p50,
+                        step_ms=step_ms, first_ms=ms[0], peak=peak - base,
+                        losses=losses, batch=MT_BATCH, unit="seq")
+
+
+def mt_rescore(torch, state, src, ids):
+    """Each hypothesis's log-prob from a teacher-forced forward of
+    build_train_net (target length MT_MAX_LEN, the same parameter names)
+    on the CPU from `state`: src [B, Ts] repeated per beam, the decoder's
+    input start_id and the hypothesis shifted right, the labels the
+    hypothesis; the sum of -cost up to and including the first end_id
+    (all MT_MAX_LEN tokens where it has none).  [B, K] float64."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    B, K, T = ids.shape
+    main, _, _, _ = mt_build(tgt_len=T, opt=False)
+    sce, = [op for op in main.global_block().ops
+            if op.type == "softmax_with_cross_entropy"]
+    cost = sce.outputs["Loss"][0]
+    exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    ptt.io.params_from_numpy(exe.scope, state, ptt.CPUPlace())
+    hyp = ids.reshape(B * K, T).astype("int64")
+    srcs = np.repeat(src, K, axis=0)
+    tgt = np.concatenate([np.full((B * K, 1), MT_START, "int64"),
+                          hyp[:, :-1]], axis=1)
+    costs = []
+    for i in range(0, B * K, MT_RESCORE_CHUNK):
+        sl = slice(i, i + MT_RESCORE_CHUNK)
+        c, = exe.run(main, feed={"src": srcs[sl], "tgt": tgt[sl],
+                                 "lbl": hyp[sl]}, fetch_list=[cost])
+        costs.append(np.asarray(c, np.float64).reshape(-1, T))
+    costs = np.concatenate(costs)
+    ended = np.cumsum(hyp == MT_END, axis=1)
+    upto = (ended == 0) | ((ended == 1) & (hyp == MT_END))
+    return -(costs * upto).sum(axis=1).reshape(B, K), upto.sum(axis=1)
+
+
+def mt_decode(torch, row):
+    """The decode program (build_decode_net: beam MT_BEAM, max_len
+    MT_MAX_LEN) built after the f32 row's training, saved by
+    save_inference_model from its scope and served by the Predictor on
+    the card at batch MT_BATCH: a warm-up request, then MT_DECODE_RUNS
+    synchronized ones with the counters zeroed around them (no kernel of
+    this repo), the request p50, hypothesis tokens/s and peak memory.
+    Its check does not depend on tie order: every SentenceScores entry
+    within MT_SCORE_RTOL of mt_rescore's log-prob of its own
+    SentenceIds.  A CPU Predictor on the same directory decodes the same
+    batch, and the hypotheses equal to it token for token are counted
+    (information, not a check)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.models import machine_translation as mt
+    tag = "[mt decode]"
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        _, sent, scores = mt.build_decode_net(
+            MT_CFG["src_vocab"], MT_CFG["tgt_vocab"], MT_T,
+            beam_size=MT_BEAM, max_len=MT_MAX_LEN, start_id=MT_START,
+            end_id=MT_END, emb_dim=MT_CFG["emb_dim"],
+            hidden_dim=MT_CFG["hidden_dim"])
+    src = mt_feed(MT_BATCH, SEED + 31)["src"]
+    with tempfile.TemporaryDirectory() as d:
+        ptt.io.save_inference_model(d, ["src"], [sent, scores], row["exe"],
+                                    main_program=main)
+        pred = create_predictor(AnalysisConfig(d))
+        cpu_pred = create_predictor(AnalysisConfig(d, use_gpu=False))
+    n_ops = (len(pred.program.global_block().ops),
+             len(pred.program.blocks[1].ops))
+    pred.run({"src": src}, return_numpy=False)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters()
+    zero_counters(counters)
+    ms = []
+    for _ in range(MT_DECODE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, sc = pred.run({"src": src})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(ms))
+    names = sorted(v.name for v in row["main"].list_vars()
+                   if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(row["exe"].scope,
+                                                 names).items()}
+    t0 = time.perf_counter()
+    want, lengths = mt_rescore(torch, state, src, ids)
+    rescore_s = time.perf_counter() - t0
+    rel = np.abs(sc.astype(np.float64) - want) / np.abs(want)
+    t0 = time.perf_counter()
+    cpu_ids, cpu_sc = cpu_pred.run({"src": src})
+    cpu_s = time.perf_counter() - t0
+    same = int(np.all(cpu_ids == ids, axis=2).sum())
+    toks = MT_BATCH * MT_BEAM * MT_MAX_LEN
+    log(f"{tag} batch {MT_BATCH}, beam {MT_BEAM}, max_len {MT_MAX_LEN}, "
+        f"source length {MT_T}: {n_ops[0]} ops and {n_ops[1]} in the beam "
+        f"step's block; SentenceIds {ids.shape} {ids.dtype}, best scores "
+        f"{[round(float(x), 3) for x in sc[:3, 0]]}; hypotheses with an "
+        f"end_id {int((lengths < MT_MAX_LEN).sum())} of {ids.shape[0] * ids.shape[1]}; "
+        f"request p50 {p50:.1f} ms (requests {[round(x, 1) for x in ms]}, "
+        f"synchronized, with the readback), {toks / p50 * 1e3:.0f} "
+        f"hypothesis tokens/s ({MT_BATCH * MT_MAX_LEN / p50 * 1e3:.0f} a "
+        f"best hypothesis); peak device memory {peak / 2**20:.1f} MiB "
+        f"({(peak - base) / 2**20:.1f} above the {base / 2**20:.1f} MiB "
+        f"held before); rescored on the CPU teacher-forced in "
+        f"{rescore_s:.1f} s: worst rel {rel.max():.3g} (bound "
+        f"{MT_SCORE_RTOL:g}); a CPU Predictor's decode ({cpu_s:.1f} s) equals"
+        f" {same} of {MT_BATCH * MT_BEAM} hypotheses token for token, its "
+        f"scores within rel {float(np.max(np.abs(cpu_sc - sc) / np.abs(sc))):.3g}"
+        f"; this repo's kernels launched {sum(counts.values())} times; "
+        f"{nvidia_smi_line()}")
+    if ids.shape != (MT_BATCH, MT_BEAM, MT_MAX_LEN) or ids.dtype != np.int32:
+        raise RuntimeError(f"{tag} SentenceIds {ids.shape} {ids.dtype}")
+    if not np.isfinite(sc).all() or not rel.max() <= MT_SCORE_RTOL:
+        raise RuntimeError(f"{tag} the scores are off the rescoring: worst "
+                           f"rel {rel.max():.3g}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(pred=pred, src=src, p50=p50, peak=peak - base,
+                        rel=float(rel.max()), same=same)
+
+
+def book_feed(model, batch, seed, device=None):
+    """A seeded batch of the book model's feeds at BOOK_MODELS' sizes
+    (ids uniform over each table, fit_a_line's y a line of x plus noise,
+    the recommender's score in [1, 5])."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+
+    def ints(hi, *shape):
+        return rng.randint(0, hi, (batch,) + shape).astype("int64")
+
+    if model == "fit_a_line":
+        x = rng.randn(batch, 13).astype("float32")
+        feed = {"x": x, "y": (x[:, :1] * 2 + 1 + 0.1 * rng.randn(
+            batch, 1)).astype("float32")}
+    elif model == "word2vec":
+        V = BOOK_MODELS[model]["dict_size"]
+        feed = {f"word_{i}": ints(V, 1) for i in range(4)}
+        feed["next_word"] = ints(V, 1)
+    elif model == "recommender_system":
+        feed = {k: ints(n, 1) for k, n in (
+            ("user_id", 100), ("gender_id", 2), ("age_id", 7),
+            ("job_id", 21), ("movie_id", 200))}
+        feed.update(category_id=ints(10, 3), movie_title=ints(500, 8),
+                    score=rng.uniform(1, 5, (batch, 1)).astype("float32"))
+    elif model == "rnn_encoder_decoder":
+        feed = {k: ints(100, 8) for k in ("src_word", "tgt_word", "label")}
+    else:
+        feed = {f"{s}_data": ints(100, 8) for s in (
+            "word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2")}
+        feed.update(verb_data=ints(50, 8), mark_data=ints(2, 8),
+                    target=ints(10, 8))
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def book_build(model):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import book
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        _, loss, pred = getattr(book, model)(**BOOK_MODELS[model])
+        _, pg = ptt.optimizer.Adam(learning_rate=BOOK_LR).minimize(loss)
+    return main, startup, loss, [g.name for _, g in pg], pred
+
+
+def book_card_vs_cpu(torch, model):
+    """One f32 Adam step of the book model at BOOK_BATCH from the card's
+    startup state, on the card and on a CPUPlace executor: the loss and
+    every @GRAD within BOOK_LOSS_RTOL and BOOK_GRAD_RTOL (db_lstm's
+    Viterbi path equal too); then time_run_steps on the card, with
+    examples/s.  The counters are zeroed around the card's work (no
+    kernel of this repo)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = f"[book {model}]"
+    main, startup, loss, grads, pred = book_build(model)
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(card.scope, names).items()}
+    feed = book_feed(model, BOOK_BATCH, SEED + 50)
+    fetch = [loss] + grads + ([pred] if model == "db_lstm" else [])
+    counters = launch_counters()
+    zero_counters(counters)
+    out = {}
+    for side, exe, place in (("cpu", ptt.Executor(ptt.CPUPlace(),
+                                                  scope=ptt.Scope()),
+                              ptt.CPUPlace()),
+                             ("card", card, ptt.CUDAPlace(0))):
+        ptt.io.params_from_numpy(exe.scope, state, place)
+        res = exe.run(main, feed=feed, fetch_list=fetch, return_numpy=False)
+        out[side] = (float(res[0].float().cpu().reshape(())),
+                     {g: t.detach().float().cpu() for g, t in
+                      zip(grads, res[1:1 + len(grads)])},
+                     res[-1].cpu().numpy() if model == "db_lstm" else None)
+    dev_feed = {k: torch.as_tensor(v, device=DEVICE) for k, v in feed.items()}
+    step_ms = time_run_steps(torch, card, main, dev_feed, loss,
+                             steps=BOOK_TIMED_STEPS, calls=BOOK_TIMED_CALLS)
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    errs = grad_rel_errs(out["cpu"][1], out["card"][1])
+    worst = max(errs, key=errs.get)
+    path_same = (model != "db_lstm"
+                 or np.array_equal(out["card"][2], out["cpu"][2]))
+    log(f"{tag} batch {BOOK_BATCH}, {len(main.global_block().ops)} ops, "
+        f"{sum(math.prod(p.shape) for p in main.all_parameters())} weights:"
+        f" loss card {out['card'][0]:.7f} CPU {out['cpu'][0]:.7f} (rel "
+        f"{loss_rel:.3g}); worst @GRAD {errs[worst]:.3g} ({worst}) of "
+        f"{len(grads)}; bounds {BOOK_LOSS_RTOL:g} / {BOOK_GRAD_RTOL:g}"
+        f"{'; Viterbi path equal' if model == 'db_lstm' and path_same else ''}"
+        f"; run_steps {step_ms:.3f} ms a step ({BOOK_TIMED_STEPS} steps a "
+        f"call, best of {BOOK_TIMED_CALLS} after one), "
+        f"{BOOK_BATCH / step_ms * 1e3:.0f} examples/s; this repo's kernels "
+        f"launched {sum(counts.values())} times")
+    if not (loss_rel <= BOOK_LOSS_RTOL and errs[worst] <= BOOK_GRAD_RTOL
+            and path_same):
+        raise RuntimeError(f"{tag} the card's step is off the CPU's: loss "
+                           f"{loss_rel:.3g}, {worst} {errs[worst]:.3g}, "
+                           f"path equal {path_same}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(exe=card, main=main, feed=dev_feed, loss=loss,
+                        step_ms=step_ms, loss_rel=loss_rel,
+                        grad=errs[worst])
+
+
+def phase_seq2seq_book(torch):
+    """Phase 5k: the MT model's card-vs-CPU step and TF32 control, its
+    training row f32 and under AMP (the AMP losses within
+    MT_AMP_LOSS_RTOL of the f32 ones over the first MT_AMP_TRACK runs),
+    the decode built after the f32 row's training, saved and served by
+    the Predictor and rescored on the CPU; each book model's card-vs-CPU
+    step and run_steps.  Returns the launches by path (all zero: no
+    kernel of this repo lies on these paths) and the rows traced at the
+    end of the smoke."""
+    t0 = time.perf_counter()
+    check = mt_card_vs_cpu(torch)
+    by_path, rows = {}, {}
+    for amp in (False, True):
+        key = f"mt_train{'_amp' if amp else ''}"
+        by_path[key], rows[key] = mt_train(torch, amp)
+    f32, amp = rows["mt_train"], rows["mt_train_amp"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(amp["losses"],
+                                                 f32["losses"])]
+    log(f"[mt] AMP loss against f32, run for run: "
+        f"{[f'{g:.2g}' for g in gaps]} (bound {MT_AMP_LOSS_RTOL:g} on the "
+        f"first {MT_AMP_TRACK})")
+    if max(gaps[:MT_AMP_TRACK]) > MT_AMP_LOSS_RTOL:
+        raise RuntimeError(f"mt: the AMP losses left the f32 ones: {gaps}")
+    by_path["mt_decode"], decode = mt_decode(torch, f32)
+    books = {}
+    for model in BOOK_MODELS:
+        by_path[f"book_{model}"], books[model] = book_card_vs_cpu(torch,
+                                                                  model)
+    recs = [r for r in VERIFY_LOG if r["phase"] == "seq2seq_book"]
+    phase_s = time.perf_counter() - t0
+    log(f"[seq2seq_book] MT (run_steps ms a step, tokens/s, run p50 ms, "
+        f"peak MiB above what was held) "
+        f"{ {k: (round(r['step_ms'], 2), round(2 * MT_T * MT_BATCH / r['step_ms'] * 1e3), round(r['p50'], 2), round(r['peak'] / 2**20, 1)) for k, r in rows.items()} }; "
+        f"decode p50 {decode['p50']:.1f} ms; check loss {check['loss']:.3g} "
+        f"@GRAD {check['grad']:.3g} (TF32 control {check['ctl_grad']:.3g});"
+        f" book (run_steps ms, examples/s) "
+        f"{ {m: (round(b['step_ms'], 3), round(BOOK_BATCH / b['step_ms'] * 1e3)) for m, b in books.items()} }; "
+        f"the gate verified {len(recs)} programs in error mode, "
+        f"{sum(r['errors'] for r in recs)} with an error; phase "
+        f"{phase_s:.1f} s; {nvidia_smi_line()}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"seq2seq_book verifications {recs}")
+    rows["mt_decode"] = decode
+    return by_path, rows
+
+
+def _s2s_kernel_class(name):
+    """Phase 5k's trace classes: beam_search's stable sort (cub's radix
+    sort and its passes) apart from the GEMMs, the reductions (softmax,
+    logsumexp, the sums), the copies and the elementwise rest."""
+    if "(this repo)" in _kernel_class(name):
+        return _kernel_class(name)
+    low = name.lower()
+    if "radixsort" in low or "sort_postprocess" in low:
+        return "sort (beam_search's stable descending sort)"
+    if any(k in low for k in ("gemm", "cutlass", "nvjet")):
+        return "GEMMs (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(k in low for k in ("reduce", "softmax", "logsumexp")):
+        return "reductions (softmax, log_softmax, sums)"
+    return ("other (elementwise: the GRU gates, autograd's adds, Adam, "
+            "gathers, casts)")
+
+
+def trace_seq2seq(torch, rows):
+    """One MT training step (f32 and AMP) and one served decode request
+    traced by kernel class, with the device's idle share; no kernel of
+    this repo in any."""
+    for key in ("mt_train", "mt_train_amp", "mt_decode"):
+        row = rows[key]
+        amp = key.endswith("_amp")
+        if key == "mt_decode":
+            label = (f"MT decode request at batch {MT_BATCH}, beam "
+                     f"{MT_BEAM}, max_len {MT_MAX_LEN}")
+            fn = functools.partial(row["pred"].run, {"src": row["src"]},
+                                   return_numpy=False)
+        else:
+            label = (f"{'AMP ' if amp else ''}MT training step at batch "
+                     f"{MT_BATCH}")
+            fn = functools.partial(row["exe"].run, row["main"],
+                                   feed=row["feed"],
+                                   fetch_list=[row["loss"]],
+                                   return_numpy=False)
+        with amp_bf16(amp):
+            names = trace_run(torch, label, fn, classify=_s2s_kernel_class)
+        launches = sum(sum(v.values()) for v in names.values())
+        log(f"[trace]   {key}: {launches} kernel launches")
+        ours = [c for c in names if "(this repo)" in c]
+        if ours:
+            raise RuntimeError(f"{key}'s trace holds this repo's kernels: "
+                               f"{ours}")
+
+
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
@@ -6660,6 +7210,7 @@ def phase_timings_fused_amp(torch):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6712,6 +7263,8 @@ def main():
     deepfm_counts, deepfm_amp = phase_deepfm(torch)
     VERIFY_PHASE[0] = "convnets_lstm"
     cnl_counts, cnl_rows = phase_convnets_lstm(torch)
+    VERIFY_PHASE[0] = "seq2seq_book"
+    s2s_counts, s2s_rows = phase_seq2seq_book(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -6795,6 +7348,8 @@ def main():
     del deepfm_amp
     trace_convnets_lstm(torch, cnl_rows)
     del cnl_rows
+    trace_seq2seq(torch, s2s_rows)
+    del s2s_rows
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -6914,7 +7469,7 @@ def main():
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
                **resnet_counts, **xfmr_counts, **deepfm_counts,
-               **cnl_counts}
+               **cnl_counts, **s2s_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else
@@ -6937,6 +7492,7 @@ def main():
     log(f"[verify] phase 6 made {len(later)} more verifications, "
         f"{sum(r['errors'] for r in later)} with an error, "
         f"{sum(r['ms'] for r in later):.1f} ms of host time")
+    log(f"[smoke] the whole run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

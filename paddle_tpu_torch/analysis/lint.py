@@ -9,13 +9,14 @@ over the main AND startup programs with the model's natural fetch set.
 Exit codes: 0 clean, 1 error-severity findings (or a build crash), 2 bad
 usage.
 
-The port builds twelve of the JAX package's bundled models so far,
-``lenet``, ``alexnet``, ``vgg``, ``googlenet``, ``resnet``,
-``se_resnext``, ``transformer`` (the NMT build), ``transformer_lm``,
-``bert``, ``deepfm``, ``deepfm_sparse`` (the hash-bucketed build) and
-``stacked_lstm``, at the JAX CLI's shapes and with its optimizer,
-SGD(0.01) (JAX lint.py:26-29, :45-87, :90-109); the others come with
-their models.
+The port builds all nineteen of the JAX package's bundled models, at
+the JAX CLI's shapes and with its optimizer, SGD(0.01) (JAX
+lint.py:26-29, :45-87, :90-119): ``lenet``, ``alexnet``, ``vgg``,
+``googlenet``, ``resnet``, ``se_resnext``, ``transformer`` (the NMT
+build), ``transformer_lm``, ``bert``, ``deepfm``, ``deepfm_sparse`` (the
+hash-bucketed build), ``nmt`` (the GRU machine-translation model),
+``stacked_lstm``, the five ``book_*`` models and ``mt_beam_decode`` (the
+beam decode program, linted without an optimizer).
 """
 from __future__ import annotations
 
@@ -31,10 +32,11 @@ def _optimize(loss):
     optimizer.SGD(learning_rate=0.01).minimize(loss)
 
 
-def _simple(builder):
+def _simple(builder, train=True):
     def build():
         feeds, loss, *rest = builder()
-        _optimize(loss)
+        if train:
+            _optimize(loss)
         return feeds, [loss] + [r for r in rest if r is not None]
     return build
 
@@ -44,7 +46,8 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
     returns (feed vars, fetch vars)."""
     from ..models import bert as bert_model
     from ..models import deepfm as deepfm_model
-    from ..models import (alexnet, googlenet, lenet, resnet, se_resnext,
+    from ..models import (alexnet, book, googlenet, lenet,
+                          machine_translation, resnet, se_resnext,
                           stacked_lstm, transformer, vgg)
 
     def transformer_cfg(T=16, dropout=0.1):
@@ -76,6 +79,12 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
         _optimize(cost)
         return feeds, [cost, prob]
 
+    def nmt():
+        feeds, cost = machine_translation.build_train_net(
+            src_vocab=50, tgt_vocab=50, src_len=8, tgt_len=8)
+        _optimize(cost)
+        return feeds, [cost]
+
     def deepfm_sparse():
         # the hash-bucketed sparse_embedding_lookup build
         cfg = deepfm_model.DeepFMConfig(
@@ -102,7 +111,17 @@ def model_builders() -> Dict[str, Callable[[], Tuple[list, list]]]:
         "bert": bert,
         "deepfm": deepfm,
         "deepfm_sparse": deepfm_sparse,
+        "nmt": nmt,
         "stacked_lstm": _simple(stacked_lstm.build_train_net),
+        "book_fit_a_line": _simple(book.fit_a_line),
+        "book_word2vec": _simple(lambda: book.word2vec(dict_size=50)),
+        "book_recommender": _simple(book.recommender_system),
+        "book_rnn_enc_dec": _simple(book.rnn_encoder_decoder),
+        "book_db_lstm": _simple(book.db_lstm),
+        "mt_beam_decode": _simple(
+            lambda: machine_translation.build_decode_net(
+                src_vocab=50, tgt_vocab=50, src_len=8),
+            train=False),
     }
 
 

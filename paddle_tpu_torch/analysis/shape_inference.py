@@ -10,7 +10,10 @@ each op resolved by
      (framework/layer_helper.py ``meta_lower``, the build-time machinery:
      -1 dims ride through as a prime sentinel, FLAGS_amp_bf16 is off, no
      autograd), where the JAX package runs ``jax.eval_shape``, else
-  3. "unknown shape": unknown ops never crash the pass.
+  3. "unknown shape": unknown ops never crash the pass.  The ops of
+     ``UNEVALUABLE_OPS`` go there directly when no rule answers: their
+     lowering needs what only a run has (the program and the live env
+     of a control-flow op, the expanded forward of ``autodiff``).
 
 The meta evaluation takes every kernel wrapper's plain branch: nothing is
 launched and nothing is allocated, on the card or on the host.  The
@@ -44,6 +47,12 @@ from .findings import ERROR, WARN, AnalysisResult, Finding
 from .infer_rules import InferError
 
 PASS = "shape_inference"
+
+# JAX's list (paddle_tpu/analysis/shape_inference.py:50-54), less the ops
+# the port has not registered: without a rule these are "unknown shape"
+# even under strict mode
+UNEVALUABLE_OPS = frozenset({"static_rnn_scan", "autodiff",
+                             "fused_attention"})
 
 ShapeDtype = Tuple[Optional[tuple], Optional[str]]
 
@@ -127,7 +136,7 @@ class ShapeInferencePass:
             try:
                 if rule is not None:
                     outs = rule(op, ins_info, op.attrs)
-                if outs is None:
+                if outs is None and op.type not in UNEVALUABLE_OPS:
                     outs = _meta_eval(get_op_def(op.type), ins_info,
                                       op.attrs)
             except InferError as e:

@@ -149,7 +149,10 @@ def _check_detached(name, t, ops):
 
 def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops
                    ) -> Dict[str, Any]:
-    """Shared lowering loop: run `ops` against env, writing outputs back."""
+    """Shared lowering loop: run `ops` against env, writing outputs back.
+    Control-flow ops (ops/control_flow.py) recurse into it for their
+    sub-blocks; ``ctx.env`` is the innermost live env while an op lowers
+    and is restored after it."""
     per_op = flags.get_flag("check_nan_inf_per_op")
     for op in ops:
         if op.type in _STRUCTURAL_OPS:
@@ -165,7 +168,11 @@ def run_ops_in_env(ctx: LowerContext, env: Dict[str, Any], ops
                         f"materialised; feed it or run its producer")
                 vals.append(env[n])
             ins[slot] = vals
-        outs = opdef.lower(ctx, ins, op.attrs)
+        prev_env, ctx.env = ctx.env, env
+        try:
+            outs = opdef.lower(ctx, ins, op.attrs)
+        finally:
+            ctx.env = prev_env
         for slot, names in op.outputs.items():
             for n, v in zip(names, outs.get(slot, [])):
                 if n:
@@ -246,7 +253,7 @@ class Executor:
         ops = [op for op in block.ops if op.type not in _STRUCTURAL_OPS]
         persist = sorted({v.name for v in program.list_vars()
                           if v.persistable})
-        ctx = LowerContext(self._seed(program), device)
+        ctx = LowerContext(self._seed(program), device, program)
         ad_idx = [i for i, op in enumerate(ops) if op.type == "autodiff"]
         check_arg(len(ad_idx) <= 1,
                   "at most one autodiff op per program is supported")

@@ -255,6 +255,20 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
 
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block whose parent is `parent_idx` (the current block by
+        default); it becomes the current block, where layers append."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
+
     def _bump(self):
         self._version += 1
 
@@ -291,7 +305,15 @@ class Program:
               fetch_names: Sequence[str]) -> "Program":
         """Backward-slice the program to the ops needed to compute
         fetch_names from feed_names (+persistables).  This is the core of
-        save_inference_model."""
+        save_inference_model.
+
+        A kept control-flow op (one with a ``sub_block`` attr) needs, beyond
+        its own input slots, every outer var that its sub-block's ops read
+        and do not write themselves (a decoder step reading the encoder's
+        states, say); those count as its inputs, so their producers are
+        kept too.  The JAX package's prune walks only the global block's
+        slots and drops such a producer (ROADMAP queue C).  Sub-blocks are
+        kept whole, with the global vars their ops touch."""
         src = self.global_block()
         needed = set(fetch_names)
         keep: List[Operator] = []
@@ -299,13 +321,12 @@ class Program:
             if set(op.output_names()) & needed:
                 keep.append(op)
                 needed |= set(op.input_names())
+                needed |= self._sub_block_reads(op)
         keep.reverse()
 
         used = set(feed_names) | set(fetch_names)
         for op in keep:
             used |= set(op.input_names()) | set(op.output_names())
-        # control-flow ops pull in whole sub-blocks: keep those blocks (and
-        # the global vars their ops touch) intact
         for b in self.blocks[1:]:
             for op in b.ops:
                 used |= set(op.input_names()) | set(op.output_names())
@@ -321,6 +342,24 @@ class Program:
                           copy.deepcopy(op.outputs),
                           copy.deepcopy(op.attrs))
         return p
+
+    def _sub_block_reads(self, op: Operator) -> set:
+        """The outer vars that `op`'s sub-block (and the blocks nested in
+        it) read and do not write; empty for an op without a
+        ``sub_block`` attr."""
+        if "sub_block" not in op.attrs:
+            return set()
+        reads, written, inner_vars = set(), set(), set()
+        todo = [self.blocks[int(op.attrs["sub_block"])]]
+        while todo:
+            b = todo.pop()
+            inner_vars |= set(b.vars)
+            for inner in b.ops:
+                reads |= set(inner.input_names())
+                written |= set(inner.output_names())
+                if "sub_block" in inner.attrs:
+                    todo.append(self.blocks[int(inner.attrs["sub_block"])])
+        return reads - written - inner_vars
 
     # -- serialization (JSON, the JAX package's format) --------------------
     def to_dict(self):

@@ -110,11 +110,19 @@ class LowerContext:
     package's ``ctx.rng()`` key folding).  torch's Philox draws other
     numbers than JAX's threefry from the same seed; parity always starts
     from saved weights.
+
+    A control-flow op (ops/control_flow.py) reads two more fields: the
+    ``program`` being run, whose sub-block it runs (set by
+    ``Executor.run`` and the Predictor), and ``env``, the innermost live
+    name -> tensor map, which ``run_ops_in_env`` sets around each op.
+    Both are None where nothing set them (a meta evaluation).
     """
 
-    def __init__(self, seed: int, device: torch.device):
+    def __init__(self, seed: int, device: torch.device, program=None):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.program = program
+        self.env: Optional[Dict[str, Any]] = None
         self._counter = 0
         self.generator: Optional[torch.Generator] = (
             None if self.device.type == "meta"

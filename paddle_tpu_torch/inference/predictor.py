@@ -85,7 +85,7 @@ class Predictor:
             for n, v in feeds.items():
                 env[n] = as_tensor(v, block.var(n) if block.has_var(n)
                                    else None, self._device)
-            ctx = LowerContext(0, self._device)
+            ctx = LowerContext(0, self._device, self.program)
             env = run_ops_in_env(ctx, env, self._ops)
             outs = [env[n] for n in self.fetch_names]
         if return_numpy:

@@ -3,17 +3,21 @@
 Counterpart of paddle_tpu/layers/nn.py for the layers the transformer
 builds (models/transformer.py, bert.py), the image classifiers
 (models/resnet.py, lenet.py, vgg.py, alexnet.py, googlenet.py,
-se_resnext.py) and the stacked LSTM (models/stacked_lstm.py) call:
+se_resnext.py), the stacked LSTM (models/stacked_lstm.py), machine
+translation (models/machine_translation.py) and the book models
+(models/book.py) call:
 data :21, fc :34 (over several inputs too), embedding :63,
 sparse_embedding :93 (the hash-bucketed table of the sparse plane),
 conv2d :114, pool2d :163, adaptive_pool2d :178, batch_norm :187,
-layer_norm :223, dropout :271, softmax :284, cross_entropy :300,
-softmax_with_cross_entropy :310, mean :331, reduce_sum, reduce_mean and
+layer_norm :223, dropout :271, softmax :284, log_softmax :292,
+cross_entropy :300, softmax_with_cross_entropy :310, square_error_cost
+:323, mean :331, reduce_sum, reduce_mean and
 reduce_max :352-354, reshape :359, transpose
-:367, split :375, squeeze :405, unsqueeze :413, slice :436, gather :445,
+:367, split :375, squeeze :405, unsqueeze :413, expand :428, slice :436,
+gather :445,
 matmul :462, topk :480, accuracy :489, one_hot :524, scale :548,
 elementwise_add, _sub, _mul and _div :557-571 (with their ``act``), the
-unary layers relu, sigmoid and square (``_unary_layer`` :577), lrn :631,
+unary layers relu, sigmoid and square (``_unary_layer`` :577), lrn :631, cos_sim :697,
 sigmoid_cross_entropy_with_logits :707, label_smooth :741 (composed of
 ``scale`` ops, as JAX's is), greater_than :794, fused_mha :877,
 fused_attention_qkv :948 and fused_lm_head_loss :968.
@@ -35,13 +39,13 @@ from ..framework.program import Variable
 
 __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
            "pool2d", "adaptive_pool2d", "batch_norm", "layer_norm",
-           "dropout", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "mean", "reduce_sum",
+           "dropout", "softmax", "log_softmax", "cross_entropy",
+           "softmax_with_cross_entropy", "square_error_cost", "mean", "reduce_sum",
            "reduce_mean", "reduce_max", "reshape", "transpose", "split",
-           "squeeze", "unsqueeze", "slice", "gather", "matmul", "topk",
+           "squeeze", "unsqueeze", "expand", "slice", "gather", "matmul", "topk",
            "accuracy", "one_hot", "scale", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
-           "relu", "sigmoid", "square", "lrn",
+           "relu", "sigmoid", "square", "lrn", "cos_sim",
            "sigmoid_cross_entropy_with_logits",
            "label_smooth", "greater_than", "fused_mha",
            "fused_attention_qkv", "fused_lm_head_loss"]
@@ -268,6 +272,14 @@ def softmax(input, axis=-1, name=None):
     return out
 
 
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_softmax", {"X": [input]}, {"Out": [out]},
+                     {"axis": axis})
+    return out
+
+
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):
     helper = LayerHelper("cross_entropy")
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -289,6 +301,14 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
                      {"soft_label": soft_label,
                       "ignore_index": ignore_index})
     return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost",
+                     {"X": [input], "Label": [label]}, {"Out": [out]}, {})
+    return out
 
 
 def mean(x, name=None):
@@ -360,6 +380,14 @@ def unsqueeze(input, axes, name=None):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("unsqueeze", {"X": [input]}, {"Out": [out]},
                      {"axes": list(axes)})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", {"X": [x]}, {"Out": [out]},
+                     {"expand_times": list(expand_times)})
     return out
 
 
@@ -468,6 +496,16 @@ def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
     helper.append_op("lrn", {"X": [input]},
                      {"Out": [out], "MidOut": [mid]},
                      {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def cos_sim(x, y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xn = helper.create_variable_for_type_inference(x.dtype, True)
+    yn = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("cos_sim", {"X": [x], "Y": [y]},
+                     {"Out": [out], "XNorm": [xn], "YNorm": [yn]}, {})
     return out
 
 

@@ -1,6 +1,7 @@
 """Tensor layer functions (counterpart of paddle_tpu/layers/tensor.py:
-cast :40, concat :48, sums :56 and assign :63), with the JAX package's op types, slots and
-attrs, so both builds serialize alike."""
+fill_constant_batch_size_like :28, cast :40, concat :48, sums :56 and
+assign :63), with the JAX package's op types, slots and attrs, so both
+builds serialize alike."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -10,7 +11,20 @@ import numpy as np
 from ..framework.layer_helper import LayerHelper
 from ..framework.program import Variable
 
-__all__ = ["cast", "concat", "sums", "assign"]
+__all__ = ["fill_constant_batch_size_like", "cast", "concat", "sums",
+           "assign"]
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("fill_constant_batch_size_like", {"Input": [input]},
+                     {"Out": [out]},
+                     {"shape": list(shape), "dtype": str(dtype),
+                      "value": float(value), "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx})
+    return out
 
 
 def cast(x: Variable, dtype) -> Variable:

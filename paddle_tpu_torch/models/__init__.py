@@ -1,3 +1,4 @@
 """Models (counterpart of paddle_tpu/models)."""
-from . import (alexnet, bert, deepfm, googlenet, lenet,  # noqa: F401
-               resnet, se_resnext, stacked_lstm, transformer, vgg)
+from . import (alexnet, bert, book, deepfm, googlenet,  # noqa: F401
+               lenet, machine_translation, resnet, se_resnext,
+               stacked_lstm, transformer, vgg)

@@ -1,5 +1,6 @@
 """Composed network helpers (counterpart of paddle_tpu/nets.py:
-simple_img_conv_pool :9 and img_conv_group :23)."""
+simple_img_conv_pool :9, img_conv_group :23 and sequence_conv_pool
+:81)."""
 from __future__ import annotations
 
 from . import layers
@@ -40,3 +41,11 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
             if conv_batchnorm_drop_rate[i] > 0:
                 tmp = layers.dropout(tmp, conv_batchnorm_drop_rate[i])
     return layers.pool2d(tmp, pool_size, pool_type, pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
+                       pool_type="max", mask=None):
+    """A context convolution over time, then a pool over it."""
+    conv_out = layers.sequence_conv(input, num_filters=num_filters,
+                                    filter_size=filter_size, act=act)
+    return layers.sequence_pool(conv_out, pool_type, mask=mask)

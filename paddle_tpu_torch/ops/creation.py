@@ -1,7 +1,7 @@
 """Tensor creation / fill ops (the initializers' startup-program ops).
 
 Counterpart of paddle_tpu/ops/creation.py: fill_constant :47,
-uniform_random :108, gaussian_random :118, assign :138, assign_value
+fill_constant_batch_size_like :54, uniform_random :108, gaussian_random :118, assign :138, assign_value
 :153, cast :160 and one_hot :172.
 
 Random ops draw from the context's torch.Generator (ctx.rng()); a nonzero
@@ -37,6 +37,20 @@ def _fill_constant(ctx, ins, attrs):
                                device=ctx.device)]}
 
 
+@register_op("fill_constant_batch_size_like")
+def _fill_constant_batch_size_like(ctx, ins, attrs):
+    """``value`` in the declared ``dtype`` (int32 stays int32), at
+    ``shape`` with dim ``output_dim_idx`` taken from Input's dim
+    ``input_dim_idx`` (ref fill_constant_batch_size_like_op.cc)."""
+    x = single_input(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[int(attrs.get("output_dim_idx", 0))] = x.shape[
+        int(attrs.get("input_dim_idx", 0))]
+    dtype = to_torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(tuple(shape), attrs.get("value", 0.0),
+                               dtype=dtype, device=x.device)]}
+
+
 @register_op("uniform_random")
 def _uniform_random(ctx, ins, attrs):
     dtype = to_torch_dtype(attrs.get("dtype", "float32"))
@@ -62,7 +76,12 @@ def _assign(ctx, ins, attrs):
     """Out is X itself, as in the JAX package: no copy.  Gradient
     accumulation snapshots each updated var with it (``.preupdate``);
     that holds because every update op returns new tensors and nothing
-    writes a var in place.  An in-place update must make this a copy."""
+    writes a var in place.  An in-place update must make this a copy.
+    A StaticRNN step ends with ``assign new -> pre`` for each memory
+    (ops/control_flow.py): the alias only binds the memory's name to the
+    step's new value, each step starts from a fresh copy of the env, and
+    no op writes into a tensor, so no step's value is written through
+    the alias."""
     return {"Out": [single_input(ins)]}
 
 

@@ -1,7 +1,8 @@
 """Loss ops (counterpart of paddle_tpu/ops/loss_ops.py: cross_entropy
 :26, the classifiers' loss on probabilities, softmax_with_cross_entropy
-:42 and sigmoid_cross_entropy_with_logits :60, the CTR models' loss).  Integer labels carry a trailing dim of
-1, as in the reference."""
+:42, sigmoid_cross_entropy_with_logits :60, the CTR models' loss, and
+square_error_cost :74, the regression's).  Integer labels carry a
+trailing dim of 1, as in the reference."""
 from __future__ import annotations
 
 import torch
@@ -73,3 +74,9 @@ def _sigmoid_xent(ctx, ins, attrs):
         norm = torch.clamp_min(torch.sum((~ignored).to(loss.dtype)), 1.0)
         loss = loss / norm
     return {"Out": [loss]}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, ins, attrs):
+    x, label = ins["X"][0], ins["Label"][0]
+    return {"Out": [torch.square(x - label)]}

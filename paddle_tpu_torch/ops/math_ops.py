@@ -5,8 +5,8 @@ Counterpart of paddle_tpu/ops/math_ops.py: the AMP helpers :28-77
 matmul), matmul :105 (the unfused attention's batched products), scale
 :142, sum :152 (fc over several inputs, the regularizers), mean :158,
 clip :168 and clip_by_norm :174 (gradient clipping), increment :197
-(gradient accumulation's counter) and squared_l2_norm :209 (the global
-norm).  A plain matrix product outside any
+(gradient accumulation's counter), squared_l2_norm :209 (the global
+norm) and cos_sim :238 (the recommender's score).  A plain matrix product outside any
 kernel goes to torch.matmul, as the JAX package leaves it to XLA; f32
 products run in full f32 (TF32 stays off unless the caller enables it).
 Under FLAGS_amp_bf16 the operands are cast to bf16 and a 2-byte product
@@ -144,6 +144,17 @@ def _clip_by_norm(ctx, ins, attrs):
 @register_op("squared_l2_norm")
 def _squared_l2_norm(ctx, ins, attrs):
     return {"Out": [torch.sum(torch.square(single_input(ins))).reshape(())]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, ins, attrs):
+    """Row-wise cosine of X and Y over the last dim, with their norms
+    (XNorm, YNorm) and JAX's 1e-12 added to the norms' product."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn + 1e-12)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
 
 
 @register_op("increment")

@@ -1,8 +1,42 @@
 """Miscellaneous ops (counterpart of paddle_tpu/ops/misc_ops.py:
-label_smooth :435)."""
+sequence_conv :60 with ``_context_columns`` :32, and label_smooth
+:435)."""
 from __future__ import annotations
 
+import torch
+
 from ..framework.registry import register_op, single_input
+
+
+def _context_columns(x, ctx_len, ctx_start):
+    """[B, T, D] -> [B, T, ctx_len * D]: step t's row concatenates x at
+    steps t + ctx_start ... t + ctx_start + ctx_len - 1, zeros beyond the
+    ends (the reference's ContextProjection, sequence_conv_op.cc's
+    im2col)."""
+    B, T, D = x.shape
+    steps = torch.arange(T, device=x.device)
+    cols = []
+    for k in range(ctx_len):
+        off = ctx_start + k
+        shifted = torch.roll(x, -off, dims=1)
+        valid = ((steps + off >= 0) & (steps + off < T))[None, :, None]
+        cols.append(torch.where(valid, shifted, 0.0))
+    return torch.cat(cols, dim=-1)
+
+
+@register_op("sequence_conv")
+def _sequence_conv(ctx, ins, attrs):
+    """Context-window convolution over time (ref sequence_conv_op.cc): X
+    [B, T, D], Filter [ctx_len * D, M], zero-padded context; the product
+    in X's dtype, as the JAX lowering casts the filter to it."""
+    x = single_input(ins, "X")
+    w = single_input(ins, "Filter")
+    ctx_len = int(attrs.get("contextLength", attrs.get("context_length", 3)))
+    ctx_start = int(attrs.get("contextStart",
+                              attrs.get("context_start", -(ctx_len // 2))))
+    col = _context_columns(x, ctx_len, ctx_start)
+    out = torch.matmul(col, w.to(col.dtype))
+    return {"Out": [out.to(x.dtype)]}
 
 
 @register_op("label_smooth")

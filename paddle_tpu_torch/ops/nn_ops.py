@@ -1,7 +1,7 @@
 """NN ops (counterpart of paddle_tpu/ops/nn_ops.py: the conv plane,
 conv2d :51, depthwise_conv2d :81, pool2d :180 (``_pool_nd`` :139) and
 batch_norm :220, with ``_pair`` :36 and ``_conv_padding`` :42; layer_norm
-:261, lrn :331, softmax :349, dropout :362, lookup_table :384, and the sparse
+:261, lrn :331, softmax :349, log_softmax :356, dropout :362, lookup_table :384, and the sparse
 plane's sparse_embedding_lookup :427 (with ``_hash_mix_u32`` :410) and
 sparse_scatter_update :450).
 
@@ -245,6 +245,12 @@ def _lrn(ctx, ins, attrs):
 def _softmax(ctx, ins, attrs):
     x = single_input(ins)
     return {"Out": [torch.softmax(x, dim=int(attrs.get("axis", -1)))]}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    x = single_input(ins)
+    return {"Out": [torch.log_softmax(x, dim=int(attrs.get("axis", -1)))]}
 
 
 @register_op("dropout")

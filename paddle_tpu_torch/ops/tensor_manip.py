@@ -1,6 +1,6 @@
 """Shape manipulation ops (counterpart of paddle_tpu/ops/tensor_manip.py:
 reshape :20, transpose :38, concat :51, split :56, squeeze :88, unsqueeze :108,
-slice :170 and gather :198)."""
+expand :148, slice :170 and gather :198)."""
 from __future__ import annotations
 
 import numpy as np
@@ -69,6 +69,15 @@ def _unsqueeze(ctx, ins, attrs):
     for ax in sorted(attrs["axes"]):
         x = torch.unsqueeze(x, ax)
     return {"Out": [x]}
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    """ref expand_op.cc: each dim tiled by its ``expand_times`` entry
+    (np.tile's rule, as jnp.tile's)."""
+    x = single_input(ins)
+    return {"Out": [torch.tile(x, tuple(int(t) for t in
+                                        attrs["expand_times"]))]}
 
 
 @register_op("slice")

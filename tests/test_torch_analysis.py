@@ -18,7 +18,11 @@ package's (paddle_tpu/analysis), on the same programs.
 - FuseBlockTranspiler's post-condition names the transpiler on a planted
   miscompile (after :377); the ``mul`` and ``matmul`` rules agree with
   JAX's over a transpose and batch grid (after :564); the lint CLI's
-  exit codes (after :677).
+  exit codes (after :677), and each of the JAX CLI's 19 models built by
+  both CLIs with the same (errors, warnings) counts and the same
+  unknown-shape op list (``static_rnn_scan`` is one of
+  ``UNEVALUABLE_OPS``, and what reads its outputs falls back to the
+  declared shapes, as in JAX).
 """
 import os
 import subprocess
@@ -32,6 +36,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu import analysis as jan
 from paddle_tpu.analysis import infer_rules as jrules
+from paddle_tpu.analysis import lint as jlint_cli
 from paddle_tpu.analysis.findings import AnalysisResult as JaxResult
 from paddle_tpu.analysis.shape_inference import ShapeInferencePass as JaxSI
 from paddle_tpu.models import transformer as jtr
@@ -621,7 +626,9 @@ def test_lint_cli_exit_codes(capsys):
     out = capsys.readouterr().out
     models = ["lenet", "alexnet", "vgg", "googlenet", "resnet",
               "se_resnext", "transformer", "transformer_lm", "bert",
-              "deepfm", "deepfm_sparse", "stacked_lstm"]
+              "deepfm", "deepfm_sparse", "nmt", "stacked_lstm",
+              "book_fit_a_line", "book_word2vec", "book_recommender",
+              "book_rnn_enc_dec", "book_db_lstm", "mt_beam_decode"]
     for model in models:
         assert f"[lint] {model}: ok" in out
     assert "0 errors" in out.splitlines()[-1]
@@ -638,4 +645,33 @@ def test_lint_cli_runs_as_a_module_without_warning():
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "12 models: 0 errors" in res.stdout
+    assert "19 models: 0 errors" in res.stdout
+
+
+def _lint_view(pkg, an, builders, model):
+    """(errors, warnings, sorted unknown-shape op types) of `model` as a
+    lint CLI builds and verifies it, main and startup programs."""
+    pkg.reset_default_programs()
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        feeds, fetches = builders[model]()
+    res = an.verify_program(main, feed=[v.name for v in feeds],
+                            fetch_list=fetches)
+    sres = an.verify_program(startup)
+    return (len(res.errors) + len(sres.errors),
+            len(res.warnings) + len(sres.warnings),
+            sorted(set(res.unknown_shape_ops)))
+
+
+@pytest.mark.parametrize("model", list(jlint_cli.model_builders()))
+def test_lint_model_matches_the_jax_cli(model):
+    """Every model of the JAX CLI, built by the port's CLI: clean, with
+    JAX's unknown-shape ops (the decode: beam_search_decode, slice,
+    squeeze and static_rnn_scan; the MT train program static_rnn_scan;
+    every other model none)."""
+    theirs = _lint_view(pt, jan, jlint_cli.model_builders(), model)
+    mine = _lint_view(ptt, tan, lint_cli.model_builders(), model)
+    assert mine == theirs
+    assert mine[:2] == (0, 0)
+    if model in ("nmt", "mt_beam_decode"):
+        assert "static_rnn_scan" in mine[2]

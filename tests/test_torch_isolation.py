@@ -244,6 +244,88 @@ def test_convnets_and_lstm_run_without_jax():
                       "leaked": []}
 
 
+_SEQ2SEQ_BOOK_CHILD = """
+import json, sys, tempfile
+import numpy as np
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch import nets
+from paddle_tpu_torch.analysis import lint
+from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+from paddle_tpu_torch.layers import control_flow, sequence
+from paddle_tpu_torch.models import book, machine_translation as mt
+from paddle_tpu_torch.ops import beam_search_ops, control_flow as cf_ops
+from paddle_tpu_torch.ops import crf_ops, sequence_ops
+rc = lint.main(["--models", "nmt,mt_beam_decode,book_fit_a_line,"
+                "book_word2vec,book_recommender,book_rnn_enc_dec,"
+                "book_db_lstm"])
+main, startup = ptt.Program(), ptt.Program()
+with ptt.program_guard(main, startup):
+    _, loss = mt.build_train_net(20, 20, 5, 5, emb_dim=8, hidden_dim=8)
+    ptt.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+exe.run(startup)
+feed = mt.make_copy_task_batch(4, 5, 20, seed=1)
+losses = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+          for _ in range(5)]
+dec, dstart = ptt.Program(), ptt.Program()
+with ptt.program_guard(dec, dstart):
+    _, sent, scores = mt.build_decode_net(20, 20, 5, beam_size=3,
+                                          max_len=6, emb_dim=8,
+                                          hidden_dim=8)
+ids, sc = exe.run(dec, feed={"src": feed["src"]},
+                  fetch_list=[sent, scores])
+with tempfile.TemporaryDirectory() as d:
+    ptt.io.save_inference_model(d, ["src"], [sent, scores], exe,
+                                main_program=dec)
+    p_ids, p_sc = create_predictor(AnalysisConfig(d, use_gpu=False)).run(
+        {"src": feed["src"]})
+book_losses = {}
+for name in ("fit_a_line", "db_lstm"):
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        feeds, bloss, _ = getattr(book, name)()
+        ptt.optimizer.SGD(learning_rate=1e-2).minimize(bloss)
+    exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    exe.run(startup)
+    rng = np.random.RandomState(0)
+    bfeed = {v.name: (rng.randint(0, 2, (2,) + tuple(v.shape[1:]))
+                      if v.dtype == "int64" else
+                      rng.randn(2, *v.shape[1:]).astype("float32"))
+             for v in feeds}
+    book_losses[name] = float(exe.run(main, feed=bfeed,
+                                      fetch_list=[bloss])[0])
+print(json.dumps({
+    "rc": rc, "mt_fell": losses[-1] < losses[0],
+    "decode": [list(ids.shape), str(ids.dtype),
+               bool(np.array_equal(ids, p_ids)),
+               bool(np.array_equal(sc, p_sc))],
+    "book_finite": all(np.isfinite(v) for v in book_losses.values()),
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")),
+}))
+"""
+
+
+def test_seq2seq_and_book_run_without_jax():
+    """The sub-block plumbing, the control-flow, beam-search, CRF and
+    sequence ops, layers/control_flow.py and layers/sequence.py, and the
+    two new builders: the lint CLI's seven new models, five Adam steps
+    of a small MT model (its loss falls), its beam decode run and served
+    by the Predictor from a saved directory (the same ids and scores),
+    and a step of fit_a_line and db_lstm, on the CPU with no JAX
+    loaded."""
+    res = subprocess.run([sys.executable, "-c", _SEQ2SEQ_BOOK_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "[lint] 7 models: 0 errors, 0 warnings" in res.stdout
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report == {"rc": 0, "mt_fell": True,
+                      "decode": [[4, 3, 6], "int32", True, True],
+                      "book_finite": True, "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")

@@ -23,7 +23,14 @@ builds' ``lrn`` and ``concat`` and the recurrent family (``lstm``,
 gradients of several outputs at once in
 ``test_rnn_conv_op_grad_matches_jax`` (readings up to 3.3e-7 of max |JAX|
 against MATMUL's 1e-4) and bf16 inputs beside f32 weights in
-``test_rnn_conv_ops_bf16_match_jax``.
+``test_rnn_conv_ops_bf16_match_jax``.  The machine-translation and book
+ops (``SEQ_CASES``) join too: ``static_rnn_scan`` runs a one-step
+sub-block (both contexts given the program and the live env, as the
+Executor gives them), ``beam_search`` on planted ties (lax.top_k's order:
+the lower flat index first) and on finished beams, ``sequence_pool`` in
+every pooltype over a ragged mask, the CRF pair with and without a mask
+and on tied Viterbi scores; their gradients are in
+``test_seq_op_grad_matches_jax``.
 """
 import zlib
 
@@ -46,14 +53,44 @@ CONV = dict(rtol=1e-4, atol=1e-5)
 SAME = dict(rtol=0, atol=0)
 
 
+def _scan_program(pkg):
+    """A program whose block 1 is one tanh RNN step, h = tanh(x_t W + m),
+    ending as StaticRNN's steps end, with ``assign h -> m``."""
+    prog = pkg.Program()
+    sub = prog.create_block()
+    sub.append_op("mul", {"X": ["x_t"], "Y": ["W"]}, {"Out": ["a"]}, {})
+    sub.append_op("elementwise_add", {"X": ["a"], "Y": ["m"]},
+                  {"Out": ["s"]}, {"axis": -1})
+    sub.append_op("tanh", {"X": ["s"]}, {"Out": ["h"]}, {})
+    sub.append_op("assign", {"X": ["h"]}, {"Out": ["m"]}, {})
+    prog.rollback()
+    return prog
+
+
+def _contexts(op, jins, tins):
+    """The two lowering contexts; a static_rnn_scan's get the program of
+    its sub-block and the live env holding the step's weight W (its ``W``
+    slot, which the op itself does not read), as the Executor sets
+    them."""
+    jctx = JaxCtx(jax.random.PRNGKey(0))
+    tctx = TorchCtx(0, torch.device("cpu"))
+    if op == "static_rnn_scan":
+        import paddle_tpu as pt
+        import paddle_tpu_torch as ptt
+        jctx.program, jctx.env = _scan_program(pt), {"W": jins["W"][0]}
+        tctx.program, tctx.env = _scan_program(ptt), {"W": tins["W"][0]}
+    return jctx, tctx
+
+
 def _run_both(op, ins, attrs):
     jins = {k: [jnp.asarray(a.astype(np.int32) if a.dtype == np.int64
                             else a) for a in v] for k, v in ins.items()}
-    jouts = jax_op(op).lower(JaxCtx(jax.random.PRNGKey(0)), jins, attrs)
     # np.array keeps a 0-d input 0-d (ascontiguousarray makes it 1-d)
     tins = {k: [torch.from_numpy(np.array(a, order="C")) for a in v]
             for k, v in ins.items()}
-    touts = torch_op(op).lower(TorchCtx(0, torch.device("cpu")), tins, attrs)
+    jctx, tctx = _contexts(op, jins, tins)
+    jouts = jax_op(op).lower(jctx, jins, attrs)
+    touts = torch_op(op).lower(tctx, tins, attrs)
     return jouts, touts
 
 
@@ -785,9 +822,136 @@ RNN_CONV_CASES = {
         "Weight": [_rand(r, 4, 12) * 0.5]},
         {}, ["Hidden", "Gate", "ResetHiddenPrev"], MATMUL),
 }
+
+
+def _beam_ins(r, B=3, K=3, V=7, ties=False, finished=False, state=True):
+    """beam_search's inputs: cumulative scores, last tokens (end_id 1 in
+    some beams where `finished`), next-token log-probs (integer-valued,
+    so equal candidates abound, where `ties`), and a [B, K, 2] state."""
+    if ties:
+        lp = -r.randint(0, 3, (B, K, V)).astype("float32")
+        pre = -r.randint(0, 2, (B, K)).astype("float32")
+    else:
+        lp = np.log(_softmax_rows(_rand(r, B, K, V) * 2))
+        pre = np.sort(_rand(r, B, K), axis=1)[:, ::-1].copy()
+    ids = r.randint(2, V, (B, K)).astype("int64")
+    if finished:
+        ids[0, 0] = ids[1, 2] = ids[2, 1] = 1
+    ins = {"PreScores": [pre], "PreIds": [ids], "LogProbs": [lp]}
+    if state:
+        ins["State"] = [_rand(r, B, K, 2)]
+    return ins
+
+
+def _crf_ins(r, B=3, T=6, N=4, mask=True, tied=False, label3=False):
+    em = (r.randint(-2, 3, (B, T, N)).astype("float32") if tied
+          else _rand(r, B, T, N))
+    tr = (r.randint(-1, 2, (N + 2, N)).astype("float32") if tied
+          else _rand(r, N + 2, N) * 0.5)
+    lab = r.randint(0, N, (B, T, 1) if label3 else (B, T))
+    ins = {"Emission": [em], "Transition": [tr], "Label": [lab]}
+    if mask:
+        ins["Mask"] = [_mask(r, B, T)]
+    return ins
+
+
+def _pool_case(ptype, mask="mask"):
+    def build(r):
+        ins = {"X": [_rand(r, 4, 6, 3)]}
+        if mask == "mask":
+            ins["Mask"] = [_mask(r, 4, 6)]
+        elif mask == "length":
+            ins["Length"] = [np.array([6, 1, 3, 4], np.int64)]
+        return ins
+    return ("sequence_pool", build, {"pooltype": ptype}, ["Out"], EXACT)
+
+
+_BEAM_OUT = ["Scores", "Ids", "Parents", "StateOut"]
+_CRF_OUT = ["LogLikelihood", "Alpha", "EmissionExps", "TransitionExps"]
+
+# the machine-translation decode's ops and the book's: MATMUL where a
+# product or a recurrence enters, EXACT for elementwise math and the
+# pools, SAME for the integer bookkeeping (beam search's indices, the
+# backtrack, Viterbi paths, fills, tiles)
+SEQ_CASES = {
+    "static_rnn_scan": ("static_rnn_scan", lambda r: {
+        "Init": [_rand(r, 3, 4)], "X": [_rand(r, 5, 3, 2)],
+        "W": [_rand(r, 2, 4)]},
+        {"sub_block": 1, "carry_vars": ["m"], "x_inner_vars": ["x_t"],
+         "y_vars": ["h", "a"]}, ["Ys", "CarryOut"], MATMUL),
+    "beam_search": ("beam_search", lambda r: _beam_ins(r),
+                    {"beam_size": 3, "end_id": 1}, _BEAM_OUT, EXACT),
+    "beam_search_planted_ties": (
+        "beam_search", lambda r: _beam_ins(r, B=4, ties=True),
+        {"beam_size": 3, "end_id": 1}, _BEAM_OUT, SAME),
+    "beam_search_finished_beams": (
+        "beam_search", lambda r: _beam_ins(r, finished=True),
+        {"beam_size": 3, "end_id": 1}, _BEAM_OUT, EXACT),
+    "beam_search_no_state": (
+        "beam_search", lambda r: _beam_ins(r, K=2, V=5, state=False),
+        {"beam_size": 2, "end_id": 1}, _BEAM_OUT[:3], EXACT),
+    "beam_search_decode": ("beam_search_decode", lambda r: {
+        "Ids": [r.randint(0, 9, (5, 3, 4))],
+        "Parents": [r.randint(0, 4, (5, 3, 4))],
+        "Scores": [_rand(r, 3, 4)]}, {},
+        ["SentenceIds", "SentenceScores"], SAME),
+    "expand": ("expand", lambda r: {"X": [_rand(r, 2, 1, 3)]},
+               {"expand_times": [1, 4, 2]}, ["Out"], SAME),
+    "expand_int_rank_up": ("expand", lambda r: {
+        "X": [r.randint(0, 9, (2, 3))]}, {"expand_times": [2, 1, 3]},
+        ["Out"], SAME),
+    "fill_cbsl_int32": ("fill_constant_batch_size_like", lambda r: {
+        "Input": [_rand(r, 5, 3)]},
+        {"shape": [-1, 4], "dtype": "int32", "value": 7.0}, ["Out"], SAME),
+    "fill_cbsl_dims": ("fill_constant_batch_size_like", lambda r: {
+        "Input": [_rand(r, 2, 6, 3)]},
+        {"shape": [2, -1, 1], "dtype": "float32", "value": -1e9,
+         "input_dim_idx": 1, "output_dim_idx": 1}, ["Out"], SAME),
+    "log_softmax": ("log_softmax", lambda r: {"X": [_rand(r, 4, 7) * 3]},
+                    {"axis": -1}, ["Out"], EXACT),
+    "log_softmax_axis1": ("log_softmax",
+                          lambda r: {"X": [_rand(r, 2, 5, 3) * 3]},
+                          {"axis": 1}, ["Out"], EXACT),
+    "square_error_cost": ("square_error_cost", lambda r: {
+        "X": [_rand(r, 6, 1)], "Label": [_rand(r, 6, 1)]}, {}, ["Out"],
+        EXACT),
+    "cos_sim": ("cos_sim", lambda r: {"X": [_rand(r, 5, 8)],
+                                      "Y": [_rand(r, 5, 8)]}, {},
+                ["Out", "XNorm", "YNorm"], EXACT),
+    "cos_sim_broadcast_zero_row": ("cos_sim", lambda r: {
+        "X": [np.concatenate([_rand(r, 3, 6), np.zeros((1, 6), "float32")])],
+        "Y": [_rand(r, 1, 6)]}, {}, ["Out", "XNorm", "YNorm"], EXACT),
+    "sequence_conv": ("sequence_conv", lambda r: {
+        "X": [_rand(r, 3, 6, 4)], "Filter": [_rand(r, 12, 5)]},
+        {"contextLength": 3, "contextStart": -1, "contextStride": 1},
+        ["Out"], MATMUL),
+    "sequence_conv_len4_default_start": ("sequence_conv", lambda r: {
+        "X": [_rand(r, 2, 5, 3)], "Filter": [_rand(r, 12, 2)]},
+        {"contextLength": 4}, ["Out"], MATMUL),
+    "linear_chain_crf_mask": ("linear_chain_crf", lambda r: _crf_ins(r),
+                              {}, _CRF_OUT, MATMUL),
+    "linear_chain_crf_label3": (
+        "linear_chain_crf", lambda r: _crf_ins(r, mask=False, label3=True),
+        {}, _CRF_OUT, MATMUL),
+    "crf_decoding_mask": ("crf_decoding", lambda r: {
+        k: v for k, v in _crf_ins(r).items() if k != "Label"}, {},
+        ["ViterbiPath"], SAME),
+    "crf_decoding_tied": ("crf_decoding", lambda r: {
+        k: v for k, v in _crf_ins(r, B=4, T=7, mask=False,
+                                  tied=True).items() if k != "Label"},
+        {}, ["ViterbiPath"], SAME),
+    "crf_decoding_label": ("crf_decoding", lambda r: _crf_ins(r), {},
+                           ["ViterbiPath"], SAME),
+}
+for _p in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST", "FIRST"):
+    SEQ_CASES[f"sequence_pool_{_p.lower()}_mask"] = _pool_case(_p)
+SEQ_CASES["sequence_pool_last_length"] = _pool_case("LAST", "length")
+SEQ_CASES["sequence_pool_average_nomask"] = _pool_case("AVERAGE", None)
+
 CASES.update(CTR_CASES)
 CASES.update(OPT_CASES)
 CASES.update(RNN_CONV_CASES)
+CASES.update(SEQ_CASES)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -1320,3 +1484,66 @@ def test_rnn_conv_ops_bf16_match_jax(name):
         j, t = _f32(j), _f32(t)
         assert np.abs(t - j).max() <= grad_steps * step * np.abs(j).max(), \
             (slot, np.abs(t - j).max() / np.abs(j).max() / step)
+
+
+# the gradients of the book's and the decode's differentiable ops through
+# autograd against jax.vjp (the inputs are the CASES entry of the same
+# name): (differentiated slots, output slots)
+SEQ_GRAD_CASES = {
+    "static_rnn_scan": (("Init", "X", "W"), ("Ys", "CarryOut")),
+    "log_softmax_axis1": (("X",), ("Out",)),
+    "square_error_cost": (("X", "Label"), ("Out",)),
+    "cos_sim": (("X", "Y"), ("Out",)),
+    "sequence_conv": (("X", "Filter"), ("Out",)),
+    "linear_chain_crf_mask": (("Emission", "Transition"),
+                              ("LogLikelihood",)),
+    "linear_chain_crf_label3": (("Emission", "Transition"),
+                                ("LogLikelihood", "Alpha")),
+    "expand": (("X",), ("Out",)),
+    **{f"sequence_pool_{p.lower()}_mask": (("X",), ("Out",))
+       for p in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST", "FIRST")},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_GRAD_CASES))
+def test_seq_op_grad_matches_jax(name):
+    """torch autograd through the port's lowering (the scan's loop, the
+    CRF's recursion) against jax.vjp of the JAX lowering under seeded
+    cotangents of the listed outputs, at MATMUL."""
+    op, build, attrs, _, _ = CASES[name]
+    wrt, outs = SEQ_GRAD_CASES[name]
+    rng = np.random.RandomState(zlib.crc32(name.encode()))
+    ins = build(rng)
+    if op == "static_rnn_scan":
+        jg, tg = _scan_grads(ins, attrs, wrt, outs, rng)
+    else:
+        jg, tg, _, _ = _multi_grads(op, ins, attrs, wrt, outs, rng)
+    assert len(jg) == len(tg) == sum(len(ins[s]) for s in wrt)
+    for j, t in zip(jg, tg):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **MATMUL)
+        assert np.abs(np.asarray(j)).max() > 0
+
+
+def _scan_grads(ins, attrs, wrt, outs, rng):
+    """_multi_grads for static_rnn_scan: W reaches the step through the
+    live env, so both sides put the differentiated W there."""
+    def jax_fn(init, x, w):
+        jins = {"Init": [init], "X": [x], "W": [w]}
+        jctx, _ = _contexts("static_rnn_scan", jins, {"W": [None]})
+        res = jax_op("static_rnn_scan").lower(jctx, jins, attrs)
+        return tuple(res[s][0] for s in outs)
+
+    primals = [jnp.asarray(ins[s][0]) for s in wrt]
+    jout, vjp = jax.vjp(jax_fn, *primals)
+    cts = [rng.randn(*o.shape).astype("float32") for o in jout]
+    jgrads = vjp(tuple(jnp.asarray(c) for c in cts))
+    leaves = [torch.from_numpy(ins[s][0].copy()).requires_grad_(True)
+              for s in wrt]
+    tins = dict(zip(wrt, ([t] for t in leaves)))
+    _, tctx = _contexts("static_rnn_scan", {"W": [None]}, tins)
+    res = torch_op("static_rnn_scan").lower(tctx, tins, attrs)
+    tout = [res[s][0] for s in outs]
+    tgrads = torch.autograd.grad(tout, leaves,
+                                 [torch.from_numpy(c) for c in cts])
+    return list(jgrads), list(tgrads)
