@@ -343,6 +343,33 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    f32 step card vs CPU within BOOK_LOSS_RTOL and BOOK_GRAD_RTOL
    (db_lstm's Viterbi path equal), then time_run_steps with examples/s.
    The phase's seconds are logged, and the whole smoke's at its end.
+5l. In-graph lr schedules, While and Switch, and the rest of the conv
+   family (slice 23).  (a) bench_nmt with Adam's lr noam_decay(512,
+   4000): the card-vs-CPU step at batch 8 with its TF32 control (as
+   phase 5h's, the schedule's counter in the state); run_steps of
+   SCHED_NMT_STEPS steps f32 and under AMP, each step's lr within
+   SCHED_LR_RTOL of the closed form, the counter SCHED_NMT_STEPS after
+   it, the layer norms the only kernel of this repo; time_run_steps
+   beside phase 5h's constant-lr row.  (b) bench_resnet50 with
+   Momentum's lr piecewise_decay([2, 4], [0.1, 0.01, 0.001]): steps 1
+   and 2 (each side of the first boundary) at batch 8, card vs CPU
+   within RESNET_BOUNDS, a cuDNN TF32 control outside one; then
+   SCHED_RESNET_STEPS steps at batch 64, every lr against the closed
+   form.  (c) Each CONV_FAMILY op at the widths of the public model that
+   uses it (DCGAN's conv2d_transpose, C3D's conv3d and its pools,
+   conv3d_transpose, ResNet's stem pool with index, group_norm at G 32,
+   instance_norm at style-transfer widths): forward and backward ms f32
+   and under AMP; on the first CONV_CHECK_SAMPLES samples the card
+   against the CPU within CONV_RTOL (AMP: CONV_AMP_STEPS bf16 steps), the
+   Masks equal, each convolution's TF32 control outside CONV_RTOL.  (d)
+   JAX's While and Switch programs on the card, and a While of
+   WHILE_ITERS [WHILE_N, WHILE_N] matmuls against the body unrolled:
+   the same bits, WHILE_ITERS + 1 condition reads, host syncs and wall
+   time of each.  At the end of the smoke, with the other traces: the
+   schedule's two ops alone (launches, no host sync) and each conv-family
+   op's forward and backward by kernel class (cuDNN, pooling,
+   reductions, eager elementwise).  Paths "nmt_noam_train(_amp)",
+   "resnet_piecewise_train" and "conv_family" in launches_by_path.
    One MT step (f32, AMP) and one decode request are traced at the end
    of the smoke by kernel class with the device's idle share.  Paths
    "mt_train", "mt_train_amp", "mt_decode" and "book_<model>" in
@@ -404,7 +431,9 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "resnet_*", all 0, phase 5h's under "nmt_*" and "bert_*", layer norms
    only, phase 5i's under "deepfm_*", all 0, phase 5j's under
    "alexnet_*", "googlenet_*", "se_resnext_*", "stacked_lstm_*" and
-   "lenet_trainer", all 0; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
+   "lenet_trainer", all 0, phase 5k's under "mt_*" and "book_*", all 0,
+   phase 5l's under "nmt_noam_*" (layer norms only),
+   "resnet_piecewise_train" and "conv_family", all 0; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -3580,10 +3609,12 @@ RESNET_FALL_LR = 0.05
 RESNET_PEAK_SLACK = 0.01   # peak after step 10 vs step 3, of the latter
 
 
-def build_resnet(is_test=False, lr=RESNET_LR):
+def build_resnet(is_test=False, lr=RESNET_LR, schedule=None):
     """bench.py's ResNet-50 program, (main, startup, loss, acc,
     prediction): the training one with Momentum(lr, 0.9), or (is_test)
-    bench_resnet50_infer's build."""
+    bench_resnet50_infer's build.  With `schedule` (a function of the
+    layers module returning an lr var, phase 5l) Momentum's lr is that
+    var, returned in place of the accuracy."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import resnet
     ptt.reset_default_programs()
@@ -3594,6 +3625,8 @@ def build_resnet(is_test=False, lr=RESNET_LR):
             class_dim=RESNET_CLASSES, img_shape=RESNET_IMG,
             depth=RESNET_DEPTH, is_test=is_test)
         if not is_test:
+            if schedule is not None:
+                lr = acc = schedule(ptt.layers)
             ptt.optimizer.Momentum(learning_rate=lr,
                                    momentum=RESNET_MU).minimize(loss)
     return main, startup, loss, acc, pred
@@ -4024,13 +4057,16 @@ NMT_SERVE_TIMED = 30
 XFMR_LOSS_RTOL = 1e-5
 XFMR_GRAD_RTOL = 1e-4
 XFMR_PRED_RTOL = 1e-4       # the Predictor's logits, of max |logit|
+XFMR_ROWS = {}              # phase 5h's training rows, for phase 5l
 
 
-def xfmr_build(model, is_test=False, check=False):
+def xfmr_build(model, is_test=False, check=False, schedule=None):
     """(main, startup, loss, grad names, extra fetches) of `model` ("nmt"
     or "bert") at the card shapes: bench_nmt's program with Adam(1e-4),
     or BERT-base's pretraining program with Adam(1e-4) (BERT's dropout 0
-    with `check`); `is_test` builds without the optimizer."""
+    with `check`); `is_test` builds without the optimizer.  With
+    `schedule` (a function of the layers module returning an lr var,
+    phase 5l), Adam's lr is that var, the last of the extra fetches."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import bert, transformer
     ptt.reset_default_programs()
@@ -4050,7 +4086,11 @@ def xfmr_build(model, is_test=False, check=False):
             extra = list(extra)
         grads = []
         if not is_test:
-            _, pg = ptt.optimizer.Adam(learning_rate=XFMR_LR).minimize(loss)
+            lr = XFMR_LR
+            if schedule is not None:
+                lr = schedule(ptt.layers)
+                extra.append(lr)
+            _, pg = ptt.optimizer.Adam(learning_rate=lr).minimize(loss)
             grads = [g.name for _, g in pg]
     return main, startup, loss, grads, extra
 
@@ -4093,7 +4133,7 @@ def grad_rel_errs(want, got):
             for n in want}
 
 
-def xfmr_card_vs_cpu(torch, model):
+def xfmr_card_vs_cpu(torch, model, schedule=None):
     """One f32 Adam step of `model` at batch XFMR_CHECK_BATCH with ragged
     masks (dropout 0), from the card's startup state, on the card, on a
     CPUPlace executor (the plain versions), and on the card with TF32
@@ -4108,8 +4148,9 @@ def xfmr_card_vs_cpu(torch, model):
     card's gather backward (BERT's MLM positions) adds with atomics: its
     sums over repeated rows are not ordered, which these norms absorb."""
     import paddle_tpu_torch as ptt
-    tag = f"[{model} check]"
-    main, startup, loss, grads, _ = xfmr_build(model, check=True)
+    tag = f"[{model} check{' ' + schedule.__name__ if schedule else ''}]"
+    main, startup, loss, grads, _ = xfmr_build(model, check=True,
+                                               schedule=schedule)
     relus = [op.inputs["X"][0] for op in main.global_block().ops
              if op.type == "relu"]
     card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
@@ -4413,6 +4454,7 @@ def phase_nmt_bert(torch):
             key = f"{model}_train{'_amp' if amp else ''}"
             by_path[key], row = xfmr_train(torch, model, amp)
             rows[key] = {k: row[k] for k in ("p50", "step_ms", "peak")}
+            XFMR_ROWS[key] = rows[key]
             if amp:
                 gaps = [abs(a - b) / abs(b) for a, b in zip(
                     row["losses"], rows[f"{model}_train"]["losses"])]
@@ -5968,6 +6010,589 @@ def trace_seq2seq(torch, rows):
                                f"{ours}")
 
 
+# phase 5l: in-graph learning-rate schedules on the two north-star rows,
+# the rest of the conv family at the widths of the public models that
+# use each op, and While / Switch on the card (slice 23)
+SCHED_NOAM = (512, 4000)     # noam_decay(d_model, warmup): the paper's
+SCHED_NMT_STEPS = 4          # run_steps steps whose lrs are checked
+SCHED_RESNET = ([2, 4], [0.1, 0.01, 0.001])   # piecewise_decay's
+SCHED_RESNET_STEPS = 5       # steps at batch 64: the lrs cross both
+SCHED_CHECK_STEPS = 2        # card vs CPU at batch 8: each side of step 2
+SCHED_LR_RTOL = 1e-6
+# the conv family: (op, input shape, extra inputs' shapes, attrs); the
+# pools take conv3d's output; Scale and Bias beside the norms
+CONV_FAMILY = {
+    # DCGAN's generator (Radford et al. 2015, 64x64): 512 -> 256 at 8x8,
+    # 128 -> 3 at 32x32, k4 s2 p1
+    "conv2d_transpose_dcgan_512": ("conv2d_transpose", (64, 512, 8, 8),
+                                   {"Filter": (512, 256, 4, 4)},
+                                   {"strides": 2, "paddings": 1}),
+    "conv2d_transpose_dcgan_128": ("conv2d_transpose", (64, 128, 32, 32),
+                                   {"Filter": (128, 3, 4, 4)},
+                                   {"strides": 2, "paddings": 1}),
+    # C3D's first layer (Tran et al. 2015: 16 frames of 112x112, 64
+    # 3x3x3 filters), and its pool, k2 s2
+    "conv3d_c3d": ("conv3d", (8, 3, 16, 112, 112),
+                   {"Filter": (64, 3, 3, 3, 3)}, {"paddings": 1}),
+    "pool3d_c3d": ("pool3d", "conv3d_c3d", {},
+                   {"ksize": 2, "strides": 2, "pooling_type": "max"}),
+    "max_pool3d_with_index_c3d": ("max_pool3d_with_index", "conv3d_c3d",
+                                  {}, {"ksize": 2, "strides": 2}),
+    "conv3d_transpose": ("conv3d_transpose", (8, 64, 8, 28, 28),
+                         {"Filter": (64, 32, 2, 2, 2)}, {"strides": 2}),
+    # ResNet's stem pool
+    "max_pool2d_with_index_stem": ("max_pool2d_with_index",
+                                   (64, 64, 112, 112), {},
+                                   {"ksize": 3, "strides": 2,
+                                    "paddings": 1}),
+    # the group-norm paper's ResNet-50 setting (Wu & He 2018, G 32)
+    "group_norm_resnet50": ("group_norm", (32, 256, 56, 56),
+                            {"Scale": (256,), "Bias": (256,)},
+                            {"groups": 32}),
+    # style-transfer widths (Ulyanov et al. 2016)
+    "instance_norm_style": ("instance_norm", (16, 64, 128, 128),
+                            {"Scale": (64,), "Bias": (64,)}, {}),
+}
+CONV_CHECK_SAMPLES = 2       # the CPU oracle's samples of each input
+# card vs CPU on those samples, f32 with TF32 off: max |card - CPU| over
+# max |CPU| of the output and of each gradient; a TF32 control of each
+# convolution must exceed it.  Under AMP, CONV_AMP_STEPS bf16 steps
+# (2^-7) of max |CPU|, the CPU under the flag on the same inputs.
+CONV_RTOL = 1e-4
+CONV_AMP_STEPS = 4
+CONV_TIMED = 5               # timed calls of a forward or a backward
+WHILE_N = 4096               # the While's [N, N] matmul body
+WHILE_ITERS = 32
+
+
+def count_syncs(torch, fn):
+    """(fn's result, the host syncs it made): the synchronizing CUDA
+    calls torch's sync debug mode reports."""
+    import warnings
+    old = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def noam(layers):
+    return layers.noam_decay(*SCHED_NOAM)
+
+
+def piecewise(layers):
+    return layers.piecewise_decay(*SCHED_RESNET)
+
+
+def noam_lr(step):
+    d, w = SCHED_NOAM
+    return d ** -0.5 * min(step ** -0.5, step * w ** -1.5)
+
+
+def piecewise_lr(step):
+    bounds, values = SCHED_RESNET
+    return values[sum(step >= b for b in bounds)]
+
+
+def check_lrs(tag, got, want):
+    import numpy as np
+    got = np.asarray(got, np.float64).ravel()
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if got.shape != (len(want),) or not err <= SCHED_LR_RTOL:
+        raise RuntimeError(f"{tag} lrs {list(got)} against the closed form "
+                           f"{list(want)}: {err:.3g}")
+    return err
+
+
+def schedule_cost(torch):
+    """The launches and host syncs the schedule adds to a step: one run
+    of a program holding only noam_decay's two ops (the counter's
+    increment and lr_schedule) on the card, traced and under the sync
+    debug mode (at the end of the smoke, with the other traces); the
+    schedule must make no sync."""
+    import paddle_tpu_torch as ptt
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        lr = noam(ptt.layers)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+
+    def run():
+        return exe.run(main, fetch_list=[lr], return_numpy=False)
+    run()
+    _, syncs = count_syncs(torch, run)
+    events, wall_us = profiled(torch, run)
+    launches = _device_launches(torch, events)
+    kernels = sorted(_short_kernel_name(e.key)[:40] for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0)
+    log(f"[trace] the schedule alone (noam_decay{SCHED_NOAM}): "
+        f"{len(main.global_block().ops)} ops, {launches} kernel launches "
+        f"({kernels}), {syncs} host syncs, {wall_us / 1e3:.3f} ms a run "
+        f"(synchronized)")
+    if syncs:
+        raise RuntimeError(f"the schedule made {syncs} host syncs")
+    return launches, syncs
+
+
+def sched_nmt_train(torch, amp):
+    """bench_nmt's row with Adam's lr noam_decay(512, 4000): run_steps of
+    SCHED_NMT_STEPS steps from the startup state, the counters zeroed
+    around it (the layer norms its dtypes give, nothing else of this
+    repo), each step's fetched lr against the closed form at steps
+    1..n, the counter n after it; then time_run_steps as phase 5h times
+    its constant-lr row, beside that row's number; the host syncs of one
+    run."""
+    import paddle_tpu_torch as ptt
+    tag = f"[nmt noam train{' amp' if amp else ''}]"
+    n = SCHED_NMT_STEPS
+    with amp_bf16(amp):
+        main, startup, loss, _, extra = xfmr_build("nmt", schedule=noam)
+        lr = extra[-1]
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        feed = xfmr_feed("nmt", NMT_BATCH, SEED + 1, device=DEVICE)
+        counters = launch_counters()
+        zero_counters(counters)
+        with record_ln_dtypes(torch) as seen:
+            losses, lrs = exe.run_steps(main, feed=feed,
+                                        fetch_list=[loss, lr], steps=n)
+        n_ln = sum(op.type == "layer_norm" for op in main.global_block().ops)
+        if len(seen) != n * n_ln:
+            raise RuntimeError(f"{tag} {len(seen)} layer norms in {n} "
+                               f"steps of {n_ln}")
+        per_run = {"float32": seen.count("float32") // n,
+                   "bfloat16": seen.count("bfloat16") // n}
+        counts = check_ln_counts(tag, read_counters(counters), per_run, n)
+        counter = int(exe.scope.find_var("@lr_global_step@").item())
+        err = check_lrs(tag, lrs, [noam_lr(s) for s in range(1, n + 1)])
+        if counter != n:
+            raise RuntimeError(f"{tag} the counter reads {counter} after "
+                               f"{n} steps")
+        _, syncs = count_syncs(torch, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], return_numpy=False))
+        step_ms = time_run_steps(torch, exe, main, feed, loss,
+                                 steps=XFMR_TIMED_STEPS,
+                                 calls=XFMR_TIMED_CALLS)
+    const = XFMR_ROWS.get(f"nmt_train{'_amp' if amp else ''}", {})
+    log(f"{tag} batch {NMT_BATCH}: lrs {[f'{float(x):.6g}' for x in lrs.ravel()]}"
+        f" (closed form within {err:.2g}, bound {SCHED_LR_RTOL:g}), counter "
+        f"{counter}; losses {[round(float(x), 4) for x in losses]}; "
+        f"run_steps {step_ms:.2f} ms a step against phase 5h's constant-lr "
+        f"row's {const.get('step_ms', float('nan')):.2f} in this process "
+        f"({XFMR_TIMED_STEPS} steps a call, best of {XFMR_TIMED_CALLS}); "
+        f"{syncs} host syncs in one run (fetch left on the card); layer "
+        f"norms a step {per_run}; {nvidia_smi_line()}")
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise RuntimeError(f"{tag} non-finite loss {losses}")
+    return counts, dict(step_ms=step_ms, const_ms=const.get("step_ms"),
+                        syncs=syncs, lrs=[float(x) for x in lrs.ravel()])
+
+
+def sched_resnet(torch):
+    """bench_resnet50's row with Momentum's lr piecewise_decay([2, 4],
+    [0.1, 0.01, 0.001]): (a) SCHED_CHECK_STEPS f32 steps at batch
+    RESNET_CHECK_BATCH from the card's state (the counter among it), on
+    the card, on a CPUPlace executor and on the card with cuDNN's TF32
+    (the control), each step held to RESNET_BOUNDS (the params' change
+    carries the lr) and the control outside one; (b) SCHED_RESNET_STEPS
+    steps at batch RESNET_BATCH from a fresh startup, the counters zeroed
+    around them (no kernel of this repo), each step's lr against the
+    closed form (both boundaries crossed), the step p50."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = "[resnet piecewise]"
+    main, startup, loss, lr, _ = build_resnet(schedule=piecewise)
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    kinds = resnet_kinds(main)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    feed = resnet_feed(RESNET_CHECK_BATCH, SEED + 11)
+    rows = []
+    for step in range(SCHED_CHECK_STEPS):
+        before = host_state(card.scope, names)
+        ptt.io.params_from_numpy(cpu.scope, {n: t.numpy() for n, t in
+                                             before.items()},
+                                 ptt.CPUPlace())
+        t0 = time.perf_counter()
+        out, want_lr = cpu.run(main, feed=feed, fetch_list=[loss, lr])
+        cpu_s = time.perf_counter() - t0
+        want_loss, want = float(out.reshape(())), host_state(cpu.scope,
+                                                             names)
+        res = {}
+        for ctl in (True, False):      # the card's own step last
+            ptt.io.params_from_numpy(card.scope, {n: t.numpy() for n, t in
+                                                  before.items()},
+                                     ptt.CUDAPlace(0))
+            with (cudnn_tf32(torch) if ctl else contextlib.nullcontext()):
+                out, got_lr = card.run(main, feed=feed,
+                                       fetch_list=[loss, lr])
+            res[ctl] = step_errors(kinds, before, want,
+                                   host_state(card.scope, names),
+                                   want_loss, float(out.reshape(())))
+        check_lrs(tag, [float(got_lr[0]), float(want_lr[0])],
+                  [piecewise_lr(step + 1)] * 2)
+        rows.append((step + 1, float(got_lr[0]), res[False][ "param"][0],
+                     res[True]["param"][0]))
+        log(f"{tag} check step {step + 1} (lr {float(got_lr[0]):g}), batch "
+            f"{RESNET_CHECK_BATCH}: card vs CPU {fmt_errors(res[False])}; "
+            f"TF32 control {fmt_errors(res[True])}; CPU step {cpu_s:.1f} s")
+        if not all(res[False][k][0] <= b for k, b in RESNET_BOUNDS.items()):
+            raise RuntimeError(f"{tag} step {step + 1} off the CPU's")
+        if not any(res[True][k][0] > b for k, b in RESNET_BOUNDS.items()):
+            raise RuntimeError(f"{tag} the TF32 control passed the bounds "
+                               f"at step {step + 1}")
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    feed = resnet_feed(RESNET_BATCH, SEED + 1, device=DEVICE)
+    counters = launch_counters()
+    zero_counters(counters)
+    lrs, losses, ms = [], [], []
+    for _ in range(SCHED_RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, got = exe.run(main, feed=feed, fetch_list=[loss, lr])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(())))
+        lrs.append(float(got[0]))
+    counts = {k: v for (k, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    err = check_lrs(tag, lrs, [piecewise_lr(s) for s in
+                               range(1, SCHED_RESNET_STEPS + 1)])
+    p50 = float(np.median(ms[1:]))
+    log(f"{tag} batch {RESNET_BATCH}: lrs {lrs} (closed form within "
+        f"{err:.2g}); losses {[round(x, 4) for x in losses]}; step p50 "
+        f"{p50:.2f} ms (steps 2-{SCHED_RESNET_STEPS}, synchronized, loss "
+        f"and lr read back), {RESNET_BATCH / p50 * 1e3:.1f} img/s; "
+        f"{nvidia_smi_line()}")
+    if any(counts.values()) or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{tag} launches {counts}, losses {losses}")
+    return counts, dict(p50=p50, lrs=lrs, checks=rows)
+
+
+def _conv_inputs(torch, name, made):
+    """A family case's inputs on the card (seeded), as {slot: [tensor]};
+    the pools take conv3d's output from `made`."""
+    op, shape, extra, _ = CONV_FAMILY[name]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + len(made))
+    if isinstance(shape, str):
+        x = made[shape]
+    else:
+        x = torch.randn(shape, generator=g, device=DEVICE)
+    ins = {"Input" if "conv" in op else "X": [x]}
+    for slot, s in extra.items():
+        t = torch.randn(s, generator=g, device=DEVICE)
+        if slot == "Filter":
+            t = t * (2.0 / math.prod(s[1:])) ** 0.5
+        ins[slot] = [t]
+    return ins
+
+
+def _conv_run(torch, op, ins, attrs, device, amp, bf16_input):
+    """One forward and backward of `op` on `device`: (outputs, grads of
+    every float input) as host f32 tensors; the cotangent is seeded and
+    made on the host, so both devices take the same one."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    ins = {k: [t.detach().to(device) for t in v] for k, v in ins.items()}
+    x_slot = "Input" if "Input" in ins else "X"
+    if bf16_input:
+        ins[x_slot] = [ins[x_slot][0].to(torch.bfloat16)]
+    leaves = [t.requires_grad_(True) for v in ins.values() for t in v]
+    with amp_bf16(amp):
+        res = get_op_def(op).lower(LowerContext(SEED, device), ins, attrs)
+    out_slot = "Output" if "Output" in res else ("Y" if "Y" in res
+                                                 else "Out")
+    out = res[out_slot][0]
+    gen = torch.Generator().manual_seed(SEED)
+    ct = torch.randn(tuple(out.shape), generator=gen).to(device, out.dtype)
+    grads = torch.autograd.grad(out, leaves, ct)
+    outs = {out_slot: out.detach().float().cpu()}
+    if "Mask" in res:
+        outs["Mask"] = res["Mask"][0].cpu()
+    return outs, [g.float().cpu() for g in grads]
+
+
+def _conv_errs(got, want):
+    """max |got - want| / max |want| of each output and gradient; the
+    Mask's mismatched entries."""
+    errs = {}
+    for k, w in want[0].items():
+        if k == "Mask":
+            errs[k] = int((got[0][k] != w).sum())
+        else:
+            errs[k] = rel_err(got[0][k], w)
+    for i, (g, w) in enumerate(zip(got[1], want[1])):
+        errs[f"grad{i}"] = rel_err(g, w)
+    return errs
+
+
+def _conv_kernel_class(name):
+    """The conv family's trace classes: cuDNN's convolutions (and their
+    transposes), pooling, reductions, the eager elementwise rest."""
+    c = _resnet_kernel_class(name)
+    if c.startswith("reductions"):
+        return "reductions (amax, the norms' statistics)"
+    return "elementwise (eager torch)" if c.startswith("elementwise") else c
+
+
+def conv_family(torch):
+    """Each CONV_FAMILY case at full width: forward and backward timed
+    (CONV_TIMED calls each, the backward retaining the graph) in f32 and
+    under AMP (the convolutions cast to bf16 by the flag, the pools and
+    norms fed a bf16 activation, as they are after a bf16 convolution);
+    on the first CONV_CHECK_SAMPLES samples of the same inputs the card
+    against the CPU (the CPU under the flag too for AMP): the output and
+    every input's gradient within CONV_RTOL (f32) or CONV_AMP_STEPS bf16
+    steps (AMP), the index pools' Mask equal, and for each convolution a
+    run with cuDNN's TF32 on outside CONV_RTOL.  The counters are zeroed
+    around it: no kernel of this repo.  Returns the counts and the
+    cases' full-width inputs for the traces at the end of the smoke."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    counters = launch_counters()
+    zero_counters(counters)
+    made, rows, keep = {}, {}, {}
+    for name, (op, _, _, attrs) in CONV_FAMILY.items():
+        ins = _conv_inputs(torch, name, made)
+        is_conv = "conv" in op
+        row = {}
+        for amp in (False, True):
+            bf16_in = amp and not is_conv
+            tag = f"[conv family] {name}{' amp' if amp else ''}"
+            full = {k: [t.to(torch.bfloat16) if bf16_in and
+                        k in ("Input", "X") else t for t in v]
+                    for k, v in ins.items()}
+            leaves = [t.detach().requires_grad_(True)
+                      for v in full.values() for t in v]
+            it = iter(leaves)
+            full = {k: [next(it) for _ in v] for k, v in full.items()}
+            ctx = LowerContext(SEED, torch.device(DEVICE))
+            with amp_bf16(amp):
+                res = get_op_def(op).lower(ctx, full, attrs)
+                out_slot = ("Output" if "Output" in res else
+                            "Y" if "Y" in res else "Out")
+                out = res[out_slot][0]
+                fwd_ms, _ = time_ms(lambda: get_op_def(op).lower(
+                    ctx, full, attrs), iters=CONV_TIMED, warmup=1)
+            ct = torch.randn_like(out)
+            bwd_ms, _ = time_ms(lambda: torch.autograd.grad(
+                out, leaves, ct, retain_graph=True), iters=CONV_TIMED,
+                warmup=1)
+            if name == "conv3d_c3d" and not amp:
+                made[name] = out.detach()
+            keep[(name, amp)] = (op, full, attrs, leaves)
+            del res, out, ct
+            part = {k: [t[:CONV_CHECK_SAMPLES] if k in ("Input", "X")
+                        else t for t in v] for k, v in ins.items()}
+            t0 = time.perf_counter()
+            want = _conv_run(torch, op, part, attrs, torch.device("cpu"),
+                             amp, bf16_in)
+            cpu_s = time.perf_counter() - t0
+            got = _conv_run(torch, op, part, attrs, torch.device(DEVICE),
+                            amp, bf16_in)
+            errs = _conv_errs(got, want)
+            bound = CONV_AMP_STEPS * 2.0 ** -7 if amp else CONV_RTOL
+            ctl = None
+            if is_conv and not amp:
+                with cudnn_tf32(torch):
+                    ctl = _conv_errs(_conv_run(
+                        torch, op, part, attrs, torch.device(DEVICE), amp,
+                        bf16_in), want)
+            log(f"{tag}: forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms "
+                f"at {tuple(ins['Input' if 'Input' in ins else 'X'][0].shape)}"
+                f"; card vs CPU on {CONV_CHECK_SAMPLES} samples "
+                f"{ {k: (v if k == 'Mask' else f'{v:.3g}') for k, v in errs.items()} }"
+                f" (bound {bound:.3g}, Mask equal)"
+                + (f"; TF32 control {max(ctl.values()):.3g}" if ctl else "")
+                + f"; CPU {cpu_s:.2f} s")
+            if any(v > (0 if k == "Mask" else bound)
+                   for k, v in errs.items()):
+                raise RuntimeError(f"{tag} card off the CPU: {errs}")
+            if ctl is not None and not max(ctl.values()) > CONV_RTOL:
+                raise RuntimeError(f"{tag} the TF32 control passed "
+                                   f"CONV_RTOL: {ctl}")
+            row["amp" if amp else "f32"] = dict(fwd_ms=fwd_ms,
+                                                bwd_ms=bwd_ms, **errs)
+        rows[name] = row
+    counts = {k: v for (k, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    if any(counts.values()):
+        raise RuntimeError(f"[conv family] launched this repo's kernels: "
+                           f"{counts}")
+    return counts, rows, keep
+
+
+def while_switch(torch):
+    """JAX's two control-flow programs (tests/test_control_flow.py: the
+    While summing 0..4, a Switch on each side of its threshold) on the
+    card, then a While of WHILE_ITERS iterations whose body is a
+    [WHILE_N, WHILE_N] f32 matmul, a round trip through bf16 (two casts)
+    and an increment, against the same body unrolled WHILE_ITERS times
+    in one block: the same bits, the host syncs of each (torch's sync
+    debug mode) and the wall time of a synchronized run."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import control_flow as cf
+    L = ptt.layers
+
+    def program(build):
+        ptt.reset_default_programs()
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup):
+            fetch = build()
+        return main, fetch
+
+    def while_sum():
+        i = L.fill_constant([1], "float32", 0.0)
+        n = L.fill_constant([1], "float32", 5.0)
+        acc = L.fill_constant([1], "float32", 0.0)
+        cond = L.less_than(i, n)
+        with L.While(cond).block():
+            L.assign(L.elementwise_add(acc, i), acc)
+            L.assign(L.increment(i, value=1.0, in_place=False), i)
+            L.less_than(i, n, cond=cond)
+        return [acc, i]
+
+    def switch(step):
+        s = L.fill_constant([1], "float32", step)
+        lr = L.fill_constant([1], "float32", 0.0)
+        with L.Switch() as sw:
+            with sw.case(L.less_than(s, L.fill_constant([1], "float32",
+                                                        5.0))):
+                L.assign(L.fill_constant([1], "float32", 0.1), lr)
+            with sw.default():
+                L.assign(L.fill_constant([1], "float32", 0.01), lr)
+        return [lr]
+
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    main, fetch = program(while_sum)
+    acc, i = exe.run(main, fetch_list=fetch)
+    lrs = []
+    for step in (7.0, 2.0):
+        main, fetch = program(lambda: switch(step))
+        lrs.append(float(exe.run(main, fetch_list=fetch)[0][0]))
+    if (float(acc[0]), float(i[0])) != (10.0, 5.0) or lrs != [
+            np.float32(0.01), np.float32(0.1)]:
+        raise RuntimeError(f"[while/switch] JAX's programs on the card: "
+                           f"acc {acc}, i {i}, Switch {lrs}")
+
+    def body(x, w):
+        y = L.matmul(x, w)
+        return L.cast(L.cast(y, "bfloat16"), "float32")
+
+    def looped():
+        x = L.data("x", [WHILE_N, WHILE_N], append_batch_size=False)
+        w = L.data("w", [WHILE_N, WHILE_N], append_batch_size=False)
+        k = L.fill_constant([1], "float32", 0.0)
+        n = L.fill_constant([1], "float32", float(WHILE_ITERS))
+        cond = L.less_than(k, n)
+        with L.While(cond).block():
+            L.assign(body(x, w), x)
+            L.increment(k, value=1.0)
+            L.less_than(k, n, cond=cond)
+        return [x]
+
+    def unrolled():
+        x = L.data("x", [WHILE_N, WHILE_N], append_batch_size=False)
+        w = L.data("w", [WHILE_N, WHILE_N], append_batch_size=False)
+        for _ in range(WHILE_ITERS):
+            x = body(x, w)
+        return [x]
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    feed = {"x": torch.randn(WHILE_N, WHILE_N, generator=g, device=DEVICE),
+            "w": torch.randn(WHILE_N, WHILE_N, generator=g, device=DEVICE)
+            / WHILE_N ** 0.5}
+    res = {}
+    for kind, build in (("while", looped), ("unrolled", unrolled)):
+        main, fetch = program(build)
+
+        def run():
+            out, = exe.run(main, feed=feed, fetch_list=fetch,
+                           return_numpy=False)
+            torch.cuda.synchronize()
+            return out
+        run()
+        reads = cf._read_cond.cond_reads
+        out, syncs = count_syncs(torch, run)
+        reads = cf._read_cond.cond_reads - reads
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[kind] = dict(out=out, syncs=syncs, reads=reads,
+                         ms=float(np.median(ms)))
+    same = bool(torch.equal(res["while"]["out"], res["unrolled"]["out"]))
+    log(f"[while/switch] JAX's While (acc 10, i 5) and Switch (step 7 -> "
+        f"0.01, step 2 -> 0.1) on the card; a While of {WHILE_ITERS} "
+        f"[{WHILE_N}, {WHILE_N}] matmuls: {res['while']['ms']:.2f} ms, "
+        f"{res['while']['syncs']} host syncs ({res['while']['reads']} "
+        f"condition reads) against the body unrolled "
+        f"{res['unrolled']['ms']:.2f} ms, {res['unrolled']['syncs']} host "
+        f"syncs (run p50 of 3, synchronized, the result left on the card); "
+        f"the same bits: {same}; {nvidia_smi_line()}")
+    if not same or res["while"]["reads"] != WHILE_ITERS + 1:
+        raise RuntimeError(f"[while/switch] the While's result or its "
+                           f"condition reads: {same}, {res['while']}")
+
+
+def phase_sched_conv(torch):
+    """Phase 5l: noam_decay on bench_nmt's row (card vs CPU with its TF32
+    control, run_steps f32 and AMP), piecewise_decay on bench_resnet50's,
+    what a schedule adds to a step, the conv family at its public
+    models' widths, and While / Switch on the card.  Returns the launch
+    counts by path and the conv family's inputs for the traces at the
+    end of the smoke."""
+    t0 = time.perf_counter()
+    check = xfmr_card_vs_cpu(torch, "nmt", schedule=noam)
+    by_path, rows = {}, {}
+    for amp in (False, True):
+        key = f"nmt_noam_train{'_amp' if amp else ''}"
+        by_path[key], rows[key] = sched_nmt_train(torch, amp)
+    by_path["resnet_piecewise_train"], rows["resnet"] = sched_resnet(torch)
+    by_path["conv_family"], conv_rows, keep = conv_family(torch)
+    while_switch(torch)
+    recs = [r for r in VERIFY_LOG if r["phase"] == "sched_conv"]
+    log(f"[sched_conv] NMT noam check loss "
+        f"{check['loss']:.3g} @GRAD {check['grad']:.3g} (TF32 control "
+        f"{check['ctl_grad']:.3g}); run_steps ms a step (noam, constant) "
+        f"{ {k: (round(r['step_ms'], 2), r['const_ms'] and round(r['const_ms'], 2)) for k, r in rows.items() if k != 'resnet'} }; "
+        f"conv family (fwd ms, bwd ms) "
+        f"{ {k: {m: (round(v['fwd_ms'], 3), round(v['bwd_ms'], 3)) for m, v in r.items()} for k, r in conv_rows.items()} }; "
+        f"the gate verified {len(recs)} programs in error mode, "
+        f"{sum(r['errors'] for r in recs)} with an error; phase "
+        f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"sched_conv verifications {recs}")
+    return by_path, keep
+
+
+def trace_sched_conv(torch, keep):
+    """One forward and backward of each conv-family case traced by
+    kernel class (f32 and AMP), with the device's idle share; no kernel
+    of this repo in any."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    for (name, amp), (op, full, attrs, leaves) in keep.items():
+        def fn():
+            with amp_bf16(amp):
+                res = get_op_def(op).lower(
+                    LowerContext(SEED, torch.device(DEVICE)), full, attrs)
+            out = res.get("Output", res.get("Y", res.get("Out")))[0]
+            torch.autograd.grad(out, leaves, torch.ones_like(out))
+        names = trace_run(torch, f"{name}{' AMP' if amp else ''} forward "
+                                 f"and backward", fn,
+                          classify=_conv_kernel_class)
+        if any("(this repo)" in c for c in names):
+            raise RuntimeError(f"{name}'s trace holds this repo's kernels")
+
+
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
@@ -7265,6 +7890,8 @@ def main():
     cnl_counts, cnl_rows = phase_convnets_lstm(torch)
     VERIFY_PHASE[0] = "seq2seq_book"
     s2s_counts, s2s_rows = phase_seq2seq_book(torch)
+    VERIFY_PHASE[0] = "sched_conv"
+    sc_counts, sc_keep = phase_sched_conv(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -7350,6 +7977,9 @@ def main():
     del cnl_rows
     trace_seq2seq(torch, s2s_rows)
     del s2s_rows
+    schedule_cost(torch)
+    trace_sched_conv(torch, sc_keep)
+    del sc_keep
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -7469,7 +8099,7 @@ def main():
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
                **resnet_counts, **xfmr_counts, **deepfm_counts,
-               **cnl_counts, **s2s_counts}
+               **cnl_counts, **s2s_counts, **sc_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

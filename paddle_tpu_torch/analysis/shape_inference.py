@@ -50,9 +50,11 @@ PASS = "shape_inference"
 
 # JAX's list (paddle_tpu/analysis/shape_inference.py:50-54), less the ops
 # the port has not registered: without a rule these are "unknown shape"
-# even under strict mode
-UNEVALUABLE_OPS = frozenset({"static_rnn_scan", "autodiff",
-                             "fused_attention"})
+# even under strict mode (the control-flow ops read ctx.env, which a meta
+# evaluation does not have)
+UNEVALUABLE_OPS = frozenset({"while", "conditional_block", "scan",
+                             "static_rnn_scan", "increment_loop_counter",
+                             "autodiff", "fused_attention"})
 
 ShapeDtype = Tuple[Optional[tuple], Optional[str]]
 

@@ -1,12 +1,23 @@
-"""Layers package (counterpart of paddle_tpu/layers/)."""
-from . import control_flow, nn, rnn, sequence, tensor  # noqa: F401
+"""Layers package (counterpart of paddle_tpu/layers/).  Importing it
+patches Variable's operators (math_op_patch), as the JAX package's
+layers/__init__.py does."""
+from . import (control_flow, learning_rate_scheduler, nn, rnn,  # noqa: F401
+               sequence, tensor)
 from .nn import *  # noqa: F401,F403
-from .sequence import (beam_search, beam_search_decode,  # noqa: F401
-                       crf_decoding, linear_chain_crf, sequence_conv,
-                       sequence_first_step, sequence_last_step,
-                       sequence_pool, sum)
+from .sequence import (adaptive_pool3d, autoincreased_step_counter,  # noqa: F401
+                       beam_search, beam_search_decode, conv3d,
+                       conv3d_transpose, crf_decoding, linear_chain_crf,
+                       pool3d, sequence_conv, sequence_first_step,
+                       sequence_last_step, sequence_pool, sum)
 from .rnn import (dynamic_gru, dynamic_lstm, gru_unit,  # noqa: F401
                   lstm_layer, lstm_unit)
-from .tensor import (assign, cast, concat,  # noqa: F401
-                     fill_constant_batch_size_like, sums)
-from .control_flow import StaticRNN  # noqa: F401
+from .tensor import (assign, cast, concat, create_tensor,  # noqa: F401
+                     fill_constant, fill_constant_batch_size_like, ones,
+                     sums, zeros)
+from .control_flow import StaticRNN, Switch, While  # noqa: F401
+from .learning_rate_scheduler import (  # noqa: F401
+    cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
+    natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)
+from .math_op_patch import monkey_patch_variable
+
+monkey_patch_variable()

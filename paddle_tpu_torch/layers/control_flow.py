@@ -1,12 +1,12 @@
 """Control-flow layers (counterpart of paddle_tpu/layers/control_flow.py:
-StaticRNN :115).
+While :22, Switch :58 with ``_conditional_block`` :100, StaticRNN :115).
 
-The block-builder API of the reference: a context manager appends the
-step's ops into a sub-block, and one ``static_rnn_scan`` op in the parent
-block runs it over time (ops/control_flow.py).  The ops, their order and
-their var names are the JAX package's, so both builds serialize alike.
-``While``, ``Switch`` and the ``while`` / ``conditional_block`` ops are
-not ported yet (ROADMAP queue A.5, item 7).
+The block-builder API of the reference: a context manager appends ops
+into a sub-block, and one op in the parent block runs it
+(ops/control_flow.py): ``while`` for a ``While``, a chain of
+``conditional_block`` ops for a ``Switch``, ``static_rnn_scan`` for a
+``StaticRNN``.  The ops, their order and their var names are the JAX
+package's, so both builds serialize alike.
 """
 from __future__ import annotations
 
@@ -16,6 +16,111 @@ from typing import List, Optional
 from ..framework import unique_name
 from ..framework.layer_helper import LayerHelper
 from ..framework.program import Variable
+from ..ops.control_flow import _block_written_vars
+
+
+@contextlib.contextmanager
+def _sub_block(program):
+    """A new sub-block of the current block, current inside the `with`;
+    yields (sub-block, parent block)."""
+    parent_idx = program._current_block_idx
+    sub = program.create_block()
+    try:
+        yield sub, program.blocks[parent_idx]
+    finally:
+        program._current_block_idx = parent_idx
+
+
+def _outer_writes(sub, parent) -> List[str]:
+    """The vars `sub` writes that exist outside it: the state the op
+    carries out of its sub-block."""
+    return [n for n in _block_written_vars(sub) if parent.has_var(n)]
+
+
+class While:
+    """A loop over a sub-block while `cond` holds.
+
+    i = layers.fill_constant([1], "int64", 0)
+    n = layers.fill_constant([1], "int64", 10)
+    cond = layers.less_than(i, n)
+    w = layers.While(cond)
+    with w.block():
+        ...                                # ops writing the loop state
+        layers.less_than(i, n, cond=cond)  # the condition, rewritten
+
+    The ``while`` op carries every var the block writes that exists
+    outside it, and the condition; each keeps its dtype and shape."""
+
+    def __init__(self, cond: Variable, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+        self.program = self.helper.main_program
+
+    @contextlib.contextmanager
+    def block(self):
+        with _sub_block(self.program) as (sub, parent):
+            yield
+        outs = _outer_writes(sub, parent)
+        if self.cond_var.name not in outs:
+            outs.append(self.cond_var.name)
+        parent.append_op("while", {"Cond": [self.cond_var.name]},
+                         {"Out": outs},
+                         {"sub_block": sub.idx,
+                          "condition": self.cond_var.name,
+                          "out_vars": outs})
+
+
+class Switch:
+    """A chain of conditional blocks, the first case that holds taken.
+
+    with layers.Switch() as switch:
+        with switch.case(cond1): ...assign...
+        with switch.default(): ...assign...
+
+    A case's condition is ANDed with the negation of every earlier case's
+    and ``default`` takes the negation of them all."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self.program = self.helper.main_program
+        self._case_conds: List[Variable] = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    @contextlib.contextmanager
+    def case(self, condition: Variable):
+        from . import nn
+        cond = condition
+        for prev in self._case_conds:
+            cond = nn.logical_and(cond, nn.logical_not(prev))
+        self._case_conds.append(condition)
+        with _conditional_block(self.program, cond):
+            yield
+
+    @contextlib.contextmanager
+    def default(self):
+        from . import nn
+        assert self._case_conds, "default() requires at least one case()"
+        cond = nn.logical_not(self._case_conds[0])
+        for prev in self._case_conds[1:]:
+            cond = nn.logical_and(cond, nn.logical_not(prev))
+        with _conditional_block(self.program, cond):
+            yield
+
+
+@contextlib.contextmanager
+def _conditional_block(program, cond: Variable):
+    """A ``conditional_block`` op over the ops built inside the `with`;
+    its out_vars are the vars they write that exist outside."""
+    with _sub_block(program) as (sub, parent):
+        yield
+    outs = _outer_writes(sub, parent)
+    parent.append_op("conditional_block", {"Cond": [cond.name]},
+                     {"Out": outs}, {"sub_block": sub.idx, "out_vars": outs})
 
 
 class StaticRNN:
@@ -47,12 +152,9 @@ class StaticRNN:
 
     @contextlib.contextmanager
     def step(self):
-        self._parent_idx = self.program._current_block_idx
-        self._sub = self.program.create_block()
-        try:
+        with _sub_block(self.program) as (self._sub, parent):
+            self._parent_idx = parent.idx
             yield
-        finally:
-            self.program._current_block_idx = self._parent_idx
         self._finalize()
 
     def step_input(self, x: Variable) -> Variable:

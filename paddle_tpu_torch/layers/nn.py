@@ -8,8 +8,8 @@ translation (models/machine_translation.py) and the book models
 (models/book.py) call:
 data :21, fc :34 (over several inputs too), embedding :63,
 sparse_embedding :93 (the hash-bucketed table of the sparse plane),
-conv2d :114, pool2d :163, adaptive_pool2d :178, batch_norm :187,
-layer_norm :223, dropout :271, softmax :284, log_softmax :292,
+conv2d :114, conv2d_transpose :138, pool2d :163, adaptive_pool2d :178,
+batch_norm :187, layer_norm :223, group_norm :248, dropout :271, softmax :284, log_softmax :292,
 cross_entropy :300, softmax_with_cross_entropy :310, square_error_cost
 :323, mean :331, reduce_sum, reduce_mean and
 reduce_max :352-354, reshape :359, transpose
@@ -19,7 +19,11 @@ matmul :462, topk :480, accuracy :489, one_hot :524, scale :548,
 elementwise_add, _sub, _mul and _div :557-571 (with their ``act``), the
 unary layers relu, sigmoid and square (``_unary_layer`` :577), lrn :631, cos_sim :697,
 sigmoid_cross_entropy_with_logits :707, label_smooth :741 (composed of
-``scale`` ops, as JAX's is), greater_than :794, fused_mha :877,
+``scale`` ops, as JAX's is), the comparison and logical layers
+(``_binary_compare_layer`` :782: less_than, less_equal, greater_than,
+greater_equal, equal, not_equal, logical_and, logical_or, logical_xor;
+a ``cond=`` var is written in place, as a ``While`` condition must be),
+logical_not :803, increment :810, fused_mha :877,
 fused_attention_qkv :948 and fused_lm_head_loss :968.
 Each function creates
 params via LayerHelper (initializers go to the startup program) and
@@ -38,7 +42,8 @@ from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
 __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
-           "pool2d", "adaptive_pool2d", "batch_norm", "layer_norm",
+           "conv2d_transpose", "pool2d", "adaptive_pool2d", "batch_norm",
+           "layer_norm", "group_norm",
            "dropout", "softmax", "log_softmax", "cross_entropy",
            "softmax_with_cross_entropy", "square_error_cost", "mean", "reduce_sum",
            "reduce_mean", "reduce_max", "reshape", "transpose", "split",
@@ -47,7 +52,10 @@ __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "relu", "sigmoid", "square", "lrn", "cos_sim",
            "sigmoid_cross_entropy_with_logits",
-           "label_smooth", "greater_than", "fused_mha",
+           "label_smooth", "less_than", "less_equal", "greater_than",
+           "greater_equal", "equal", "not_equal", "logical_and",
+           "logical_or", "logical_xor", "logical_not", "increment",
+           "fused_mha",
            "fused_attention_qkv", "fused_lm_head_loss"]
 
 
@@ -161,6 +169,29 @@ def conv2d(input: Variable, num_filters: int, filter_size, stride=1,
     return helper.append_activation(pre_act, act)
 
 
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, groups=1, param_attr=None, bias_attr=None,
+                     act=None, name=None) -> Variable:
+    """NCHW input, IOHW filter [C_in, num_filters // groups, kh, kw]
+    (Xavier, the helper's default); the bias as conv2d's."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    c_in = int(input.shape[1])
+    fs = filter_size if isinstance(filter_size, (list, tuple)) else (
+        filter_size, filter_size)
+    w = helper.create_parameter(
+        param_attr, shape=[c_in, num_filters // groups, fs[0], fs[1]],
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d_transpose", {"Input": [input], "Filter": [w]},
+                     {"Output": [out]},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation), "groups": groups})
+    bias = helper.create_parameter(bias_attr, shape=[num_filters],
+                                   dtype=input.dtype, is_bias=True)
+    pre_act = helper.append_bias_op(out, bias, dim_start=1)
+    return helper.append_activation(pre_act, act)
+
+
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
            pool_padding=0, global_pooling=False, ceil_mode=False,
            exclusive=True, name=None) -> Variable:
@@ -248,6 +279,32 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      {"Y": [out], "Mean": [mean], "Variance": [var]},
                      {"begin_norm_axis": begin_norm_axis,
                       "epsilon": epsilon})
+    return helper.append_activation(out, act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None) -> Variable:
+    """Scale (1) and bias (0) of [C], f32; Mean and Variance [N, groups]
+    are stop-gradient temporaries.  ``param_attr`` / ``bias_attr`` False
+    leave the op without Scale / Bias."""
+    helper = LayerHelper("group_norm", name=name)
+    c = int(input.shape[1])
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        s = helper.create_parameter(
+            param_attr, shape=[c], dtype="float32",
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, shape=[c], dtype="float32",
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mean = helper.create_variable_for_type_inference("float32", True)
+    var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("group_norm", inputs,
+                     {"Y": [out], "Mean": [mean], "Variance": [var]},
+                     {"groups": groups, "epsilon": epsilon})
     return helper.append_activation(out, act)
 
 
@@ -530,11 +587,44 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     return scale(smoothed, 1.0, bias=epsilon / k)
 
 
-def greater_than(x, y, cond=None, name=None):
-    helper = LayerHelper("greater_than", name=name)
-    out = cond or helper.create_variable_for_type_inference("bool")
-    helper.append_op("greater_than", {"X": [x], "Y": [y]}, {"Out": [out]},
-                     {})
+def _binary_compare_layer(op_name, out_dtype="bool"):
+    def f(x, y, cond=None, name=None):
+        helper = LayerHelper(op_name, name=name)
+        out = (cond if cond is not None
+               else helper.create_variable_for_type_inference(out_dtype))
+        helper.append_op(op_name, {"X": [x], "Y": [y]}, {"Out": [out]}, {})
+        return out
+    f.__name__ = op_name
+    return f
+
+
+less_than = _binary_compare_layer("less_than")
+less_equal = _binary_compare_layer("less_equal")
+greater_than = _binary_compare_layer("greater_than")
+greater_equal = _binary_compare_layer("greater_equal")
+equal = _binary_compare_layer("equal")
+not_equal = _binary_compare_layer("not_equal")
+logical_and = _binary_compare_layer("logical_and")
+logical_or = _binary_compare_layer("logical_or")
+logical_xor = _binary_compare_layer("logical_xor")
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = (out if out is not None
+           else helper.create_variable_for_type_inference("bool"))
+    helper.append_op("logical_not", {"X": [x]}, {"Out": [out]}, {})
+    return out
+
+
+def increment(x, value=1.0, in_place=True, name=None):
+    """x + value, written into x itself by default (an ``increment``
+    op)."""
+    helper = LayerHelper("increment", name=name)
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op("increment", {"X": [x]}, {"Out": [out]},
+                     {"step": float(value)})
     return out
 
 

@@ -2,7 +2,9 @@
 the part the machine-translation and book models call): sequence_conv
 :41, sequence_pool :76, sequence_first_step :86, sequence_last_step
 :90, linear_chain_crf :178, crf_decoding :200, beam_search :362,
-beam_search_decode :384 and sum :727.
+beam_search_decode :384, the vision extras conv3d :399,
+conv3d_transpose :419, pool3d :437 and adaptive_pool3d :448, sum :727
+and autoincreased_step_counter :739.
 
 The reference's sequence layers read LoD tensors; here, as in the JAX
 package, a sequence is a padded [B, T, ...] tensor with an optional
@@ -19,7 +21,9 @@ from ..framework.program import Variable
 
 __all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "linear_chain_crf", "crf_decoding",
-           "beam_search", "beam_search_decode", "sum"]
+           "beam_search", "beam_search_decode", "conv3d",
+           "conv3d_transpose", "pool3d", "adaptive_pool3d", "sum",
+           "autoincreased_step_counter"]
 
 
 def _simple(op_type, ins, attrs, dtype, out_slot="Out", name=None):
@@ -163,7 +167,96 @@ def beam_search_decode(ids, parents, scores, beam_size=None, end_id=1,
     return s_ids, s_scores
 
 
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           act=None, name=None):
+    """NCDHW input, OIDHW filter (Xavier, the helper's default); the
+    bias an elementwise_add over dims from 1."""
+    helper = LayerHelper("conv3d", name=name)
+    k = (filter_size if isinstance(filter_size, (list, tuple))
+         else (filter_size,) * 3)
+    cin = int(input.shape[1])
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, cin // groups, *k],
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d", {"Input": [input], "Filter": [w]},
+                     {"Output": [out]},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups})
+    bias = helper.create_parameter(bias_attr, shape=[num_filters],
+                                   dtype=input.dtype, is_bias=True)
+    out = helper.append_bias_op(out, bias, dim_start=1)
+    return helper.append_activation(out, act)
+
+
+def conv3d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """NCDHW input, IODHW filter [C_in, num_filters, kd, kh, kw]."""
+    helper = LayerHelper("conv3d_transpose", name=name)
+    k = (filter_size if isinstance(filter_size, (list, tuple))
+         else (filter_size,) * 3)
+    cin = int(input.shape[1])
+    w = helper.create_parameter(param_attr,
+                                shape=[cin, num_filters, *k],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d_transpose",
+                     {"Input": [input], "Filter": [w]}, {"Output": [out]},
+                     {"strides": stride, "paddings": padding})
+    bias = helper.create_parameter(bias_attr, shape=[num_filters],
+                                   dtype=input.dtype, is_bias=True)
+    out = helper.append_bias_op(out, bias, dim_start=1)
+    return helper.append_activation(out, act)
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=None,
+           pool_padding=0, global_pooling=False, exclusive=True,
+           name=None):
+    return _simple("pool3d", {"X": [input]},
+                   {"ksize": pool_size, "pooling_type": pool_type,
+                    "strides": pool_stride or pool_size,
+                    "paddings": pool_padding, "exclusive": exclusive,
+                    "global_pooling": global_pooling},
+                   input.dtype, name=name)
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", name=None):
+    """A pool3d whose windows tile the volume into pool_size cells, as
+    layers.adaptive_pool2d tiles a map."""
+    d, h, w = (int(input.shape[2]), int(input.shape[3]),
+               int(input.shape[4]))
+    od, oh, ow = (pool_size if isinstance(pool_size, (list, tuple))
+                  else (pool_size,) * 3)
+    stride = [d // od, h // oh, w // ow]
+    ksize = [d - (od - 1) * stride[0], h - (oh - 1) * stride[1],
+             w - (ow - 1) * stride[2]]
+    return pool3d(input, ksize, pool_type, stride, 0, name=name)
+
+
 def sum(x: Union[Variable, List[Variable]], name=None):  # noqa: A001
     """The elementwise sum of a list of vars (the ``sum`` op)."""
     xs = x if isinstance(x, (list, tuple)) else [x]
     return _simple("sum", {"X": list(xs)}, {}, xs[0].dtype, name=name)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter that an ``increment_loop_counter`` op
+    advances by `step` every run; its startup value is begin - step, so
+    the first run reads `begin`."""
+    helper = LayerHelper("autoincreased_step_counter")
+    name = counter_name or "@step_counter@"
+    block = helper.main_program.global_block()
+    if block.has_var(name):
+        return block.var(name)
+    ctr = block.create_var(name=name, shape=[1], dtype="int64",
+                           persistable=True, stop_gradient=True)
+    sb = helper.startup_program.global_block()
+    if not sb.has_var(name):
+        sb.create_var(name=name, shape=[1], dtype="int64", persistable=True)
+        sb.append_op("fill_constant", outputs={"Out": [name]},
+                     attrs={"shape": [1], "dtype": "int64",
+                            "value": int(begin) - int(step)})
+    block.append_op("increment_loop_counter", {"X": [name]},
+                    {"Out": [name]}, {"step": int(step)})
+    return ctr

@@ -1,12 +1,15 @@
 """Elementwise binary ops with the reference's axis-broadcast semantics.
 
 Counterpart of paddle_tpu/ops/elementwise.py: the ``_binary`` family
-(:33-60) for elementwise_add, _sub, _mul, _div, _max and _mod, and the
-comparisons equal, greater_than and greater_equal (``_compare``,
-:63-77; bool out, no gradient; ModelAverage's apply program asks
-greater_equal whether anything was accumulated).  ``elementwise_mod`` is ``torch.remainder``, which like
-``jnp.mod`` takes the divisor's sign (``torch.fmod`` takes the
-dividend's); gradient accumulation wraps its f32 counter with it.  The
+(:33-60) for elementwise_add, _sub, _mul, _div, _min, _max, _pow, _mod
+and _floordiv, the six comparisons (``_compare``, :63-77; bool out, no
+gradient; ModelAverage's apply program asks greater_equal whether
+anything was accumulated, a ``While`` loop less_than whether to go on)
+and the four logical ops (:81-100).  ``elementwise_mod`` is
+``torch.remainder`` and ``elementwise_floordiv`` ``torch.floor_divide``,
+which like ``jnp.mod`` and ``jnp.floor_divide`` round toward minus
+infinity (``torch.fmod`` takes the dividend's sign); gradient
+accumulation wraps its f32 counter with the mod.  The
 global-norm clip divides by a max with _div and _max.  Reference broadcast rule:
 Y's dims align with X starting at `axis` (axis == -1 -> trailing
 alignment), then NumPy-style broadcast.  ``fc``'s bias add relies on it
@@ -54,8 +57,11 @@ _binary("elementwise_add", torch.add)
 _binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
 _binary("elementwise_div", torch.div)
+_binary("elementwise_min", torch.minimum)
 _binary("elementwise_max", torch.maximum)
+_binary("elementwise_pow", torch.pow)
 _binary("elementwise_mod", torch.remainder)
+_binary("elementwise_floordiv", torch.floor_divide)
 
 
 def _compare(name, fn):
@@ -67,5 +73,22 @@ def _compare(name, fn):
 
 
 _compare("equal", torch.eq)
+_compare("not_equal", torch.ne)
+_compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
 _compare("greater_than", torch.gt)
 _compare("greater_equal", torch.ge)
+
+
+def _logical(name, fn, arity=2):
+    @register_op(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        args = [ins["X"][0]] + ([ins["Y"][0]] if arity == 2 else [])
+        return {"Out": [_fn(*args)]}
+    return _lower
+
+
+_logical("logical_and", torch.logical_and)
+_logical("logical_or", torch.logical_or)
+_logical("logical_xor", torch.logical_xor)
+_logical("logical_not", torch.logical_not, arity=1)

@@ -1,10 +1,12 @@
 """The fused transformer block op (counterpart of
-paddle_tpu/ops/fused_ops.py: fused_transformer_block :464)."""
+paddle_tpu/ops/fused_ops.py: fused_transformer_block :464) and
+depthwise_conv2d_transpose (:238)."""
 from __future__ import annotations
 
 from ..framework.registry import register_op, single_input
 from ..kernels.fused_block import transformer_block
 from .math_ops import amp_inputs, amp_result
+from .nn_ops import _conv2d_transpose
 
 # the op's parameter slots, in transformer_block's params order
 BLOCK_SLOTS = ("Ln1Scale", "Ln1Bias", "Wq", "Wk", "Wv", "Wo", "Ln2Scale",
@@ -41,3 +43,11 @@ def _fused_transformer_block(ctx, ins, attrs):
         eps1=float(attrs.get("eps1", 1e-5)),
         eps2=float(attrs.get("eps2", 1e-5)))
     return {"Out": [amp_result(out, orig)]}
+
+
+@register_op("depthwise_conv2d_transpose")
+def _depthwise_conv2d_transpose(ctx, ins, attrs):
+    """ref conv_transpose_op.cc's depthwise variant: conv2d_transpose
+    with groups = the input's channels."""
+    x = single_input(ins, "Input")
+    return _conv2d_transpose(ctx, ins, dict(attrs, groups=int(x.shape[1])))

@@ -1,11 +1,13 @@
 """Miscellaneous ops (counterpart of paddle_tpu/ops/misc_ops.py:
-sequence_conv :60 with ``_context_columns`` :32, and label_smooth
-:435)."""
+sequence_conv :60 with ``_context_columns`` :32, pool3d :308,
+conv3d_transpose :321 and label_smooth :435)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..framework.registry import register_op, single_input
+from .nn_ops import _pair, _pool_nd
 
 
 def _context_columns(x, ctx_len, ctx_start):
@@ -37,6 +39,33 @@ def _sequence_conv(ctx, ins, attrs):
     col = _context_columns(x, ctx_len, ctx_start)
     out = torch.matmul(col, w.to(col.dtype))
     return {"Out": [out.to(x.dtype)]}
+
+
+@register_op("pool3d")
+def _pool3d(ctx, ins, attrs):
+    """ref pool_op.cc 3-D: NCDHW max / avg on the shared ``_pool_nd``
+    (global_pooling, ceil_mode, exclusive avg); ksize 2 and strides =
+    ksize where the attrs leave them out."""
+    attrs = dict(attrs)
+    if "ksize" not in attrs and not attrs.get("global_pooling", False):
+        attrs["ksize"] = 2
+    if "strides" not in attrs:
+        attrs["strides"] = attrs.get("ksize", 2)
+    return {"Out": [_pool_nd(single_input(ins, "X"), attrs, 3)]}
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx, ins, attrs):
+    """ref conv_transpose_op.cc 3-D: IODHW filter [C_in, C_out, kd, kh,
+    kw], strides and paddings, no groups or dilations (JAX's lowering
+    takes none); F.conv_transpose3d computes JAX's gradient-of-conv
+    function.  JAX's lowering makes no AMP casts: the operands must
+    share a dtype, and Output takes Input's."""
+    x = single_input(ins, "Input")
+    w = single_input(ins, "Filter")
+    out = F.conv_transpose3d(x, w, None, _pair(attrs.get("strides", 1), 3),
+                             _pair(attrs.get("paddings", 0), 3))
+    return {"Output": [out.to(x.dtype)]}
 
 
 @register_op("label_smooth")

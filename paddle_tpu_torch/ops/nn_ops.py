@@ -1,16 +1,21 @@
 """NN ops (counterpart of paddle_tpu/ops/nn_ops.py: the conv plane,
-conv2d :51, depthwise_conv2d :81, pool2d :180 (``_pool_nd`` :139) and
-batch_norm :220, with ``_pair`` :36 and ``_conv_padding`` :42; layer_norm
-:261, lrn :331, softmax :349, log_softmax :356, dropout :362, lookup_table :384, and the sparse
-plane's sparse_embedding_lookup :427 (with ``_hash_mix_u32`` :410) and
+conv2d :51, depthwise_conv2d :81, conv3d :89, conv2d_transpose :108,
+pool2d :180 (``_pool_nd`` :139, which pool3d shares), pool2d_with_index
+:213 with its aliases max_pool2d_with_index :580 and
+max_pool3d_with_index :587 (``_max_pool_with_index`` :186), batch_norm
+:220, group_norm :292 and instance_norm :314, with ``_pair`` :36 and
+``_conv_padding`` :42; layer_norm :261, lrn :331, softmax :349,
+log_softmax :356, dropout :362, lookup_table :384, and the sparse plane's
+sparse_embedding_lookup :427 (with ``_hash_mix_u32`` :410) and
 sparse_scatter_update :450).
 
 The JAX package leaves the conv plane to XLA (``conv_general_dilated``,
-``reduce_window``, jnp arithmetic); here the convolution is
-``F.conv2d`` (cuDNN on the card) and pooling torch's, each where it
-computes JAX's function, and batch norm spells the JAX formula.  Layout
-is NCHW with OIHW filters, as in the JAX package; only batch_norm reads
-``data_layout``.
+``reduce_window``, jnp arithmetic); here the convolutions are
+``F.conv2d``, ``F.conv3d`` and ``F.conv_transpose2d`` (cuDNN on the
+card) and pooling torch's, each where it computes JAX's function, and
+the norms spell the JAX formulas.  Layout is NCHW / NCDHW with OIHW
+filters (IOHW for the transposes), as in the JAX package; only
+batch_norm reads ``data_layout``.
 """
 from __future__ import annotations
 
@@ -52,17 +57,12 @@ def _torch_pad(pads):
     return [p for lo_hi in reversed(pads) for p in lo_hi]
 
 
-@register_op("conv2d")
-def _conv2d(ctx, ins, attrs):
-    """NCHW x OIHW -> NCHW (ref operators/conv_op.cc) through F.conv2d;
-    asymmetric padding (SAME at some strides) is an explicit F.pad first.
-    Under FLAGS_amp_bf16 the JAX lowering's casts: both operands bf16,
-    the output stays bf16 (amp_result); cuDNN accumulates in f32.  The
-    optional fused Bias is added after, in the output's dtype."""
-    x = single_input(ins, "Input")
-    w = single_input(ins, "Filter")
-    strides = _pair(attrs.get("strides", 1))
-    dilations = _pair(attrs.get("dilations", 1))
+def _conv_nd(x, w, attrs, nd, conv):
+    """An N-d convolution (nd 2 or 3) with the JAX lowering's padding and
+    AMP casts (JAX :57-105): SAME's odd pad an explicit F.pad first,
+    both operands bf16 under FLAGS_amp_bf16 and the output kept bf16."""
+    strides = _pair(attrs.get("strides", 1), nd)
+    dilations = _pair(attrs.get("dilations", 1), nd)
     groups = int(attrs.get("groups", 1))
     pads = _conv_padding(attrs.get("paddings", 0), w.shape[2:], strides,
                          dilations, x.shape[2:])
@@ -70,9 +70,22 @@ def _conv2d(ctx, ins, attrs):
     xc, wc = amp_inputs(x, w)
     if any(lo != hi for lo, hi in pads):
         xc = F.pad(xc, _torch_pad(pads))
-        pads = [(0, 0)] * len(pads)
-    out = F.conv2d(xc, wc, None, strides, [lo for lo, _ in pads],
-                   dilations, groups)
+        pads = [(0, 0)] * nd
+    out = conv(xc, wc, None, strides, [lo for lo, _ in pads], dilations,
+               groups)
+    return out, orig_dtype
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW x OIHW -> NCHW (ref operators/conv_op.cc) through F.conv2d;
+    asymmetric padding (SAME at some strides) is an explicit F.pad first.
+    Under FLAGS_amp_bf16 the JAX lowering's casts: both operands bf16,
+    the output stays bf16 (amp_result); cuDNN accumulates in f32.  The
+    optional fused Bias is added after, in the output's dtype."""
+    out, orig_dtype = _conv_nd(single_input(ins, "Input"),
+                               single_input(ins, "Filter"), attrs, 2,
+                               F.conv2d)
     if ins.get("Bias"):
         bias, = amp_inputs(ins["Bias"][0])
         out = out + bias.reshape(1, -1, 1, 1)
@@ -85,24 +98,54 @@ def _depthwise_conv2d(ctx, ins, attrs):
     return _conv2d(ctx, ins, dict(attrs, groups=x.shape[1]))
 
 
-def _pool2d_nchw(x, attrs):
-    """2-D pooling with JAX's windows (ref pool_op.cc; JAX ``_pool_nd``
-    at nd 2): max | avg, global_pooling, ceil_mode (the high side
+@register_op("conv3d")
+def _conv3d(ctx, ins, attrs):
+    """NCDHW x OIDHW -> NCDHW through F.conv3d (ref conv_op.cc 3-D)."""
+    out, orig = _conv_nd(single_input(ins, "Input"),
+                         single_input(ins, "Filter"), attrs, 3, F.conv3d)
+    return {"Output": [amp_result(out, orig)]}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    """ref conv_transpose_op.cc, IOHW filter [C_in, C_out / groups, kh,
+    kw].  JAX computes the gradient of a convolution (the stride as
+    lhs_dilation, the flipped filter, the pad k_eff - 1 - p, which turns
+    negative where p > k_eff - 1 and crops); F.conv_transpose2d at
+    padding p and no output_padding is that function, with the filter in
+    the same layout: out = (H - 1) * s - 2p + d * (k - 1) + 1.  AMP casts
+    as conv2d's."""
+    x = single_input(ins, "Input")
+    w = single_input(ins, "Filter")
+    orig_dtype = x.dtype
+    xc, wc = amp_inputs(x, w)
+    out = F.conv_transpose2d(xc, wc, None, _pair(attrs.get("strides", 1)),
+                             _pair(attrs.get("paddings", 0)), 0,
+                             int(attrs.get("groups", 1)),
+                             _pair(attrs.get("dilations", 1)))
+    return {"Output": [amp_result(out, orig_dtype)]}
+
+
+def _pool_nd(x, attrs, nd):
+    """N-d pooling (nd 2 or 3) with JAX's windows (ref pool_op.cc; JAX
+    ``_pool_nd``): max | avg, global_pooling, ceil_mode (the high side
     padded by (s - rem) % s, every window kept), exclusive avg (divide by
     the in-bounds count, only where some padding is non-zero; otherwise
     by prod(ksize)).  Torch's own padding computes that function where
     the padding is symmetric and at most half the window; ceil_mode's
     extra padding or a wider one is an explicit F.pad (-inf for max, 0
-    for avg) with the count taken from a padded plane of ones."""
+    for avg) with the count taken from a padded volume of ones."""
+    max_pool = F.max_pool2d if nd == 2 else F.max_pool3d
+    avg_pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
     ptype = attrs.get("pooling_type", "max")
     if attrs.get("global_pooling", False):
         ksize = tuple(int(s) for s in x.shape[2:])
-        pads = [(0, 0)] * 2
-        strides = (1, 1)
+        pads = [(0, 0)] * nd
+        strides = (1,) * nd
     else:
-        ksize = _pair(attrs["ksize"])
-        strides = _pair(attrs.get("strides", 1))
-        pads = [(p, p) for p in _pair(attrs.get("paddings", 0))]
+        ksize = _pair(attrs["ksize"], nd)
+        strides = _pair(attrs.get("strides", 1), nd)
+        pads = [(p, p) for p in _pair(attrs.get("paddings", 0), nd)]
     if attrs.get("ceil_mode", False):
         pads = [(lo, hi + (s - (int(n) + lo + hi - k) % s) % s)
                 for (lo, hi), n, k, s in zip(pads, x.shape[2:], ksize,
@@ -112,28 +155,93 @@ def _pool2d_nchw(x, attrs):
                                                                  ksize))
     if ptype == "max":
         if native:
-            return F.max_pool2d(x, ksize, strides, [lo for lo, _ in pads])
-        return F.max_pool2d(F.pad(x, _torch_pad(pads), value=-math.inf),
-                            ksize, strides)
+            return max_pool(x, ksize, strides, [lo for lo, _ in pads])
+        return max_pool(F.pad(x, _torch_pad(pads), value=-math.inf),
+                        ksize, strides)
     exclusive = bool(attrs.get("exclusive", True)) and padded
+    dtype = x.dtype
+    if nd == 3 and dtype == torch.bfloat16:
+        # torch has no CPU avg_pool3d for bf16; its CUDA kernel sums bf16
+        # in f32 and rounds once, which this is too
+        x = x.float()
     if native:
-        return F.avg_pool2d(x, ksize, strides, [lo for lo, _ in pads],
-                            count_include_pad=not exclusive)
-    summed = F.avg_pool2d(F.pad(x, _torch_pad(pads)), ksize, strides,
-                          divisor_override=1)
+        return avg_pool(x, ksize, strides, [lo for lo, _ in pads],
+                        count_include_pad=not exclusive).to(dtype)
+    summed = avg_pool(F.pad(x, _torch_pad(pads)), ksize, strides,
+                      divisor_override=1)
     if not exclusive:
-        return (summed / float(math.prod(ksize))).to(x.dtype)
+        return (summed / float(math.prod(ksize))).to(dtype)
     ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                       device=x.device)
-    counts = F.avg_pool2d(F.pad(ones, _torch_pad(pads)), ksize, strides,
-                          divisor_override=1)
-    return (summed / counts).to(x.dtype)
+    counts = avg_pool(F.pad(ones, _torch_pad(pads)), ksize, strides,
+                      divisor_override=1)
+    return (summed / counts).to(dtype)
 
 
 @register_op("pool2d")
 def _pool2d(ctx, ins, attrs):
     """ref pool_op.cc: max|avg, global_pooling, exclusive avg, NCHW."""
-    return {"Out": [_pool2d_nchw(single_input(ins), attrs)]}
+    return {"Out": [_pool_nd(single_input(ins), attrs, 2)]}
+
+
+def _max_pool_with_index(x, attrs, nd):
+    """Max pooling that also returns each window's flat spatial argmax
+    (ref pool_with_index_op.cc), JAX's (value, index) reduce_window
+    spelt out: the windows of the input padded with -inf (index 0) are
+    unfolded, and the running select of JAX's reducer, which takes an
+    element only where it is strictly greater, keeps the first maximum
+    in the order XLA visits the window, ignores NaN, and leaves index 0
+    where nothing beats -inf.  XLA (the CPU backend, the JAX package's
+    oracle) visits a window in row-major order, except that the last
+    spatial dim with a window of 2 and a padding of 1 comes first
+    (tests/test_torch_ops.py plants ties for each case); torch's
+    ``return_indices`` order is not that contract.  Out in X's dtype
+    (the gradient flows to the picked element), Mask int32 (JAX's
+    index_dtype on its x32 plane)."""
+    ksize = _pair(attrs["ksize"], nd)
+    strides = _pair(attrs.get("strides", 1), nd)
+    pads = [(p, p) for p in _pair(attrs.get("paddings", 0), nd)]
+    spatial = tuple(int(n) for n in x.shape[2:])
+    flat = torch.arange(math.prod(spatial), dtype=torch.int32,
+                        device=x.device).reshape((1, 1) + spatial)
+    win = F.pad(x, _torch_pad(pads), value=-math.inf)
+    idx = F.pad(flat, _torch_pad(pads))
+    for i, (k, s) in enumerate(zip(ksize, strides)):
+        win = win.unfold(2 + i, k, s)
+        idx = idx.unfold(2 + i, k, s)
+    lead = [i for i in range(nd) if ksize[i] == 2 and pads[i][0] == 1]
+    order = [i for i in range(nd) if not lead or i != lead[-1]]
+    order = lead[-1:] + order
+    visit = list(range(2 + nd)) + [2 + nd + i for i in order]
+    win = win.permute(visit).flatten(-nd)       # [N, C, *out, K]
+    idx = idx.permute(visit).flatten(-nd)       # [1, 1, *out, K]
+    cand = torch.where(torch.isnan(win), -math.inf, win)
+    best = cand.amax(-1, keepdim=True)
+    hit = (cand == best) & (cand > -math.inf)
+    first = hit.to(torch.uint8).argmax(-1, keepdim=True)
+    found = hit.any(-1)
+    vals = torch.where(found, win.gather(-1, first).squeeze(-1),
+                       -math.inf)
+    mask = torch.where(found, idx.expand(win.shape).gather(-1, first)
+                       .squeeze(-1), 0)
+    return {"Out": [vals.to(x.dtype)], "Mask": [mask.to(torch.int32)]}
+
+
+@register_op("pool2d_with_index")
+def _pool2d_with_index(ctx, ins, attrs):
+    return _max_pool_with_index(single_input(ins), attrs, 2)
+
+
+@register_op("max_pool2d_with_index")
+def _max_pool2d_with_index(ctx, ins, attrs):
+    """The reference's registered name for pool2d_with_index."""
+    return _pool2d_with_index(ctx, ins, attrs)
+
+
+@register_op("max_pool3d_with_index")
+def _max_pool3d_with_index(ctx, ins, attrs):
+    """pool2d_with_index over NCDHW windows."""
+    return _max_pool_with_index(single_input(ins), attrs, 3)
 
 
 @register_op("batch_norm")
@@ -213,6 +321,51 @@ def _layer_norm(ctx, ins, attrs):
     return {"Y": [y.to(x.dtype)],
             "Mean": [mean.reshape(x.shape[:axis])],
             "Variance": [var.reshape(x.shape[:axis])]}
+
+
+@register_op("group_norm")
+def _group_norm(ctx, ins, attrs):
+    """ref group_norm_op.cc (NCHW and its N-d kin), JAX's formula, not
+    F.group_norm's: f32 statistics over each of `groups` channel groups,
+    the variance mean((x - mean)^2); Mean and Variance [N, groups]; Y
+    cast back to X's dtype."""
+    x = single_input(ins)
+    g = int(attrs["groups"])
+    eps = float(attrs.get("epsilon", 1e-5))
+    n, c = x.shape[0], x.shape[1]
+    rest = tuple(x.shape[2:])
+    xf = x.float().reshape((n, g, c // g) + rest)
+    dims = tuple(range(2, xf.ndim))
+    mean = torch.mean(xf, dim=dims, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=dims, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * len(rest)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": [y.to(x.dtype)],
+            "Mean": [mean.reshape(n, g)], "Variance": [var.reshape(n, g)]}
+
+
+@register_op("instance_norm")
+def _instance_norm(ctx, ins, attrs):
+    """ref instance_norm_op.cc, JAX's formula, not F.instance_norm's:
+    f32 statistics over each sample's channel, the biased variance
+    (jnp.var); Y cast back to X's dtype."""
+    x = single_input(ins)
+    eps = float(attrs.get("epsilon", 1e-5))
+    dims = tuple(range(2, x.ndim))
+    xf = x.float()
+    mean = torch.mean(xf, dim=dims, keepdim=True)
+    var = torch.var(xf, dim=dims, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    bshape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": [y.to(x.dtype)]}
 
 
 @register_op("lrn")

@@ -326,6 +326,74 @@ def test_seq2seq_and_book_run_without_jax():
                       "book_finite": True, "leaked": []}
 
 
+_CONTROL_FLOW_CONV_CHILD = """
+import json, sys
+import numpy as np
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch import layers
+from paddle_tpu_torch.layers import learning_rate_scheduler, math_op_patch
+from paddle_tpu_torch.ops import control_flow, elementwise, fused_ops
+from paddle_tpu_torch.ops import misc_ops, nn_ops
+main, startup = ptt.Program(), ptt.Program()
+with ptt.program_guard(main, startup):
+    img = layers.data("img", [3, 8, 8])
+    vol = layers.data("vol", [2, 4, 4, 4])
+    up = layers.conv2d_transpose(img, num_filters=4, filter_size=4,
+                                 stride=2, padding=1)
+    g = layers.group_norm(up, groups=2)
+    c3 = layers.pool3d(layers.conv3d(vol, num_filters=2, filter_size=3,
+                                     padding=1), pool_size=2)
+    t3 = layers.conv3d_transpose(c3, num_filters=2, filter_size=2, stride=2)
+    loss = layers.mean(g) + layers.mean(t3) * 0.5
+    lr = layers.noam_decay(16, 4)
+    i = layers.fill_constant([1], "float32", 0.0)
+    n = layers.fill_constant([1], "float32", 3.0)
+    acc = layers.fill_constant([1], "float32", 0.0)
+    cond = layers.less_than(i, n)
+    w = layers.While(cond)
+    with w.block():
+        layers.assign(acc + i, acc)
+        layers.increment(i, value=1.0)
+        layers.less_than(i, n, cond=cond)
+    scale = layers.fill_constant([1], "float32", 1.0)
+    with layers.Switch() as switch:
+        with switch.case(acc < n):
+            layers.assign(layers.fill_constant([1], "float32", 2.0), scale)
+        with switch.default():
+            layers.assign(layers.fill_constant([1], "float32", 0.5), scale)
+    ptt.optimizer.Adam(learning_rate=lr).minimize(loss * scale)
+exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+exe.run(startup)
+rng = np.random.RandomState(0)
+feed = {"img": rng.randn(2, 3, 8, 8).astype("float32"),
+        "vol": rng.randn(2, 2, 4, 4, 4).astype("float32")}
+out = [exe.run(main, feed=feed, fetch_list=[loss, lr, acc, scale])
+       for _ in range(3)]
+print(json.dumps({
+    "finite": all(bool(np.isfinite(o[0]).all()) for o in out),
+    "lrs": [round(float(o[1][0]), 7) for o in out],
+    "acc": float(out[-1][2][0]), "scale": float(out[-1][3][0]),
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")),
+}))
+"""
+
+
+def test_control_flow_schedules_and_conv_family_run_without_jax():
+    """While, Switch, the schedules, the Variable operators and the rest
+    of the conv family: three Adam steps under noam_decay of a program
+    holding all of them, on the CPU with no JAX loaded."""
+    res = subprocess.run([sys.executable, "-c", _CONTROL_FLOW_CONV_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    lrs = [round(16 ** -0.5 * min(s ** -0.5, s * 4 ** -1.5), 7)
+           for s in (1, 2, 3)]
+    assert report == {"finite": True, "lrs": lrs, "acc": 3.0, "scale": 0.5,
+                      "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")

@@ -30,7 +30,12 @@ Executor gives them), ``beam_search`` on planted ties (lax.top_k's order:
 the lower flat index first) and on finished beams, ``sequence_pool`` in
 every pooltype over a ragged mask, the CRF pair with and without a mask
 and on tied Viterbi scores; their gradients are in
-``test_seq_op_grad_matches_jax``.
+``test_seq_op_grad_matches_jax``.  The rest of the conv family
+(``CONV_EXTRA_CASES``: conv3d, the two transposes and the depthwise one,
+pool3d, the index pools on planted ties, group and instance norm), the
+comparison and logical ops under While and Switch, the binary ops of the
+Variable operators and the schedules' two ops join too; their gradients
+and AMP cases are in ``tests/test_torch_conv_extras.py``.
 """
 import zlib
 
@@ -948,8 +953,192 @@ for _p in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST", "FIRST"):
 SEQ_CASES["sequence_pool_last_length"] = _pool_case("LAST", "length")
 SEQ_CASES["sequence_pool_average_nomask"] = _pool_case("AVERAGE", None)
 
+
+
+def _ties(r, *shape):
+    """Small integers: every window of the index pools holds ties."""
+    return np.round(r.rand(*shape) * 3).astype("float32")
+
+
+# the rest of the conv family (slice 23): test_op_sweep.py's shapes
+# (:376-411, :833-888) first, then grouped, dilated, strided and padded
+# variants; CONV where the op sums, SAME for the index pools (no
+# arithmetic; the Mask holds JAX's tie order: the first maximum in window
+# order) and max pooling
+CONV_EXTRA_CASES = {
+    "conv3d_sweep": ("conv3d", lambda r: {
+        "Input": [_rand(r, 1, 2, 4, 4, 4)],
+        "Filter": [_rand(r, 3, 2, 2, 2, 2)]}, {}, ["Output"], CONV),
+    "conv3d_pad_stride_dilation": ("conv3d", lambda r: {
+        "Input": [_rand(r, 2, 2, 6, 7, 8)],
+        "Filter": [_rand(r, 4, 2, 3, 2, 3)]},
+        {"strides": [2, 1, 2], "paddings": [1, 0, 2],
+         "dilations": [1, 2, 1]}, ["Output"], CONV),
+    "conv3d_groups_same": ("conv3d", lambda r: {
+        "Input": [_rand(r, 2, 4, 5, 6, 7)],
+        "Filter": [_rand(r, 6, 2, 3, 3, 2)]},
+        {"strides": [2, 1, 2], "paddings": "SAME", "groups": 2},
+        ["Output"], CONV),
+    "conv2d_transpose_sweep": ("conv2d_transpose", lambda r: {
+        "Input": [_rand(r, 1, 2, 4, 4)],
+        "Filter": [_rand(r, 2, 3, 3, 3)]}, {}, ["Output"], CONV),
+    "conv2d_transpose_stride_pad": ("conv2d_transpose", lambda r: {
+        "Input": [_rand(r, 2, 4, 5, 6)],
+        "Filter": [_rand(r, 4, 3, 4, 4)]},
+        {"strides": [2, 2], "paddings": [1, 1]}, ["Output"], CONV),
+    # a padding past k_eff - 1: JAX's pad k_eff - 1 - p is negative
+    "conv2d_transpose_wide_pad_dilated": ("conv2d_transpose", lambda r: {
+        "Input": [_rand(r, 2, 4, 6, 7)],
+        "Filter": [_rand(r, 4, 3, 3, 3)]},
+        {"strides": [2, 1], "paddings": [3, 2], "dilations": [1, 2]},
+        ["Output"], CONV),
+    "conv2d_transpose_groups": ("conv2d_transpose", lambda r: {
+        "Input": [_rand(r, 2, 4, 5, 6)],
+        "Filter": [_rand(r, 4, 3, 3, 2)]},
+        {"strides": [2, 3], "paddings": [0, 1], "groups": 2},
+        ["Output"], CONV),
+    "depthwise_conv2d_transpose_sweep": ("depthwise_conv2d_transpose",
+                                         lambda r: {
+        "Input": [_rand(r, 1, 3, 5, 5)],
+        "Filter": [_rand(r, 3, 1, 2, 2)]},
+        {"strides": 2, "paddings": 0}, ["Output"], CONV),
+    "depthwise_conv2d_transpose_multiplier": ("depthwise_conv2d_transpose",
+                                              lambda r: {
+        "Input": [_rand(r, 2, 3, 5, 6)],
+        "Filter": [_rand(r, 3, 2, 3, 3)]},
+        {"strides": [2, 2], "paddings": [1, 1]}, ["Output"], CONV),
+    "conv3d_transpose_sweep": ("conv3d_transpose", lambda r: {
+        "Input": [_rand(r, 1, 2, 3, 3, 3)],
+        "Filter": [_rand(r, 2, 3, 2, 2, 2)]}, {}, ["Output"], CONV),
+    "conv3d_transpose_stride_pad": ("conv3d_transpose", lambda r: {
+        "Input": [_rand(r, 2, 3, 4, 5, 3)],
+        "Filter": [_rand(r, 3, 2, 3, 2, 3)]},
+        {"strides": [2, 1, 2], "paddings": [1, 0, 1]}, ["Output"], CONV),
+    "pool3d_sweep_avg": ("pool3d", lambda r: {"X": [_rand(r, 1, 2, 4, 4, 4)]},
+                         {"ksize": [2, 2, 2], "pooling_type": "avg"},
+                         ["Out"], CONV),
+    "pool3d_default_window_max": ("pool3d", lambda r: {
+        "X": [_rand(r, 2, 3, 5, 6, 4)]}, {"pooling_type": "max"},
+        ["Out"], SAME),
+    "pool3d_max_pad_ceil": ("pool3d", lambda r: {
+        "X": [_rand(r, 2, 2, 5, 7, 6)]},
+        {"pooling_type": "max", "ksize": 3, "strides": 2, "paddings": 1,
+         "ceil_mode": True}, ["Out"], SAME),
+    "pool3d_avg_pad_excl": ("pool3d", lambda r: {
+        "X": [_rand(r, 2, 2, 5, 7, 6)]},
+        {"pooling_type": "avg", "ksize": [3, 2, 3], "strides": [2, 1, 2],
+         "paddings": [1, 1, 0]}, ["Out"], CONV),
+    "pool3d_avg_incl_ceil": ("pool3d", lambda r: {
+        "X": [_rand(r, 1, 3, 5, 5, 5)]},
+        {"pooling_type": "avg", "ksize": 2, "strides": 2, "paddings": 1,
+         "exclusive": False, "ceil_mode": True}, ["Out"], CONV),
+    "pool3d_global_avg": ("pool3d", lambda r: {
+        "X": [_rand(r, 2, 3, 3, 4, 5)]},
+        {"pooling_type": "avg", "global_pooling": True}, ["Out"], CONV),
+    "pool2d_with_index_sweep": ("pool2d_with_index", lambda r: {
+        "X": [_rand(r, 1, 2, 4, 4)]}, {"ksize": [2, 2]}, ["Out", "Mask"],
+        SAME),
+    "pool2d_with_index_ties_pad": ("pool2d_with_index", lambda r: {
+        "X": [_ties(r, 2, 3, 7, 8)]},
+        {"ksize": 3, "strides": 2, "paddings": 1}, ["Out", "Mask"], SAME),
+    "pool2d_with_index_all_equal": ("pool2d_with_index", lambda r: {
+        "X": [np.full((1, 2, 5, 5), 2.0, "float32")]},
+        {"ksize": [3, 2], "strides": [1, 2], "paddings": [1, 0]},
+        ["Out", "Mask"], SAME),
+    "max_pool2d_with_index_sweep": ("max_pool2d_with_index", lambda r: {
+        "X": [_rand(r, 2, 3, 8, 8)]}, {"ksize": 2, "strides": 2},
+        ["Out", "Mask"], SAME),
+    "max_pool2d_with_index_ties_stem": ("max_pool2d_with_index", lambda r: {
+        "X": [_ties(r, 2, 4, 12, 12)]},
+        {"ksize": 3, "strides": 2, "paddings": 1}, ["Out", "Mask"], SAME),
+    "max_pool3d_with_index_sweep": ("max_pool3d_with_index", lambda r: {
+        "X": [_rand(r, 1, 2, 4, 4, 4)]}, {"ksize": 2, "strides": 2},
+        ["Out", "Mask"], SAME),
+    # XLA visits a window row-major, but for the last dim with a window
+    # of 2 and a padding of 1, which it visits first: ties planted for
+    # each order
+    "max_pool3d_with_index_ties_pad": ("max_pool3d_with_index", lambda r: {
+        "X": [_ties(r, 2, 2, 5, 6, 7)]},
+        {"ksize": [2, 3, 2], "strides": [2, 2, 1], "paddings": [0, 1, 1]},
+        ["Out", "Mask"], SAME),
+    "max_pool3d_with_index_ties_k2p1_middle": ("max_pool3d_with_index",
+                                               lambda r: {
+        "X": [_ties(r, 2, 2, 5, 6, 7)]},
+        {"ksize": [2, 2, 3], "strides": 1, "paddings": [1, 1, 1]},
+        ["Out", "Mask"], SAME),
+    "pool2d_with_index_ties_k2p1_last": ("pool2d_with_index", lambda r: {
+        "X": [_ties(r, 2, 3, 7, 8)]},
+        {"ksize": [3, 2], "strides": [2, 1], "paddings": [1, 1]},
+        ["Out", "Mask"], SAME),
+    "pool2d_with_index_ties_k2p1_both": ("pool2d_with_index", lambda r: {
+        "X": [_ties(r, 2, 3, 6, 7)]},
+        {"ksize": 2, "strides": 1, "paddings": 1}, ["Out", "Mask"], SAME),
+    "group_norm_sweep": ("group_norm", lambda r: {
+        "X": [_rand(r, 2, 4, 3, 3)], "Scale": [_rand(r, 4)],
+        "Bias": [_rand(r, 4)]}, {"groups": 2},
+        ["Y", "Mean", "Variance"], CONV),
+    "group_norm_no_affine_3d": ("group_norm", lambda r: {
+        "X": [_rand(r, 3, 6, 2, 3, 4) * 3 + 1]},
+        {"groups": 3, "epsilon": 1e-3}, ["Y", "Mean", "Variance"], CONV),
+    "group_norm_g1": ("group_norm", lambda r: {
+        "X": [_rand(r, 2, 5, 4, 4) * 2], "Scale": [_rand(r, 5)]},
+        {"groups": 1}, ["Y", "Mean", "Variance"], CONV),
+    "instance_norm_sweep": ("instance_norm", lambda r: {
+        "X": [_rand(r, 2, 3, 4, 4)]}, {}, ["Y"], CONV),
+    "instance_norm_affine": ("instance_norm", lambda r: {
+        "X": [_rand(r, 3, 4, 5, 6) * 4 - 1], "Scale": [_rand(r, 4)],
+        "Bias": [_rand(r, 4)]}, {"epsilon": 1e-3}, ["Y"], CONV),
+    # the comparison and logical ops of While and Switch (bool out)
+    "less_than_broadcast": ("less_than", lambda r: {
+        "X": [r.randint(0, 3, (4, 5)).astype("float32")],
+        "Y": [r.randint(0, 3, (5,)).astype("float32")]}, {"axis": -1},
+        ["Out"], SAME),
+    "less_equal_axis1": ("less_equal", lambda r: {
+        "X": [r.randint(0, 3, (2, 3, 4)).astype("float32")],
+        "Y": [r.randint(0, 3, (3,)).astype("float32")]}, {"axis": 1},
+        ["Out"], SAME),
+    "not_equal": ("not_equal", lambda r: {
+        "X": [r.randint(0, 3, (4, 5)).astype("float32")],
+        "Y": [r.randint(0, 3, (4, 5)).astype("float32")]}, {}, ["Out"],
+        SAME),
+    "logical_and": ("logical_and", lambda r: {
+        "X": [r.rand(4, 5) < 0.5], "Y": [r.rand(4, 5) < 0.5]}, {},
+        ["Out"], SAME),
+    "logical_or_broadcast": ("logical_or", lambda r: {
+        "X": [r.rand(4, 5) < 0.5], "Y": [r.rand(5) < 0.5]}, {}, ["Out"],
+        SAME),
+    "logical_xor": ("logical_xor", lambda r: {
+        "X": [r.rand(4, 5) < 0.5], "Y": [r.rand(4, 5) < 0.5]}, {},
+        ["Out"], SAME),
+    "logical_not": ("logical_not", lambda r: {"X": [r.rand(3, 4) < 0.5]},
+                    {}, ["Out"], SAME),
+    # the binary ops the Variable operators build
+    "pow": ("elementwise_pow", lambda r: {
+        "X": [np.abs(_rand(r, 4, 5)) + 0.1], "Y": [_rand(r, 4, 5)]}, {},
+        ["Out"], EXACT),
+    "min_broadcast": ("elementwise_min", lambda r: {
+        "X": [_rand(r, 2, 3, 4)], "Y": [_rand(r, 3, 1)]}, {"axis": 1},
+        ["Out"], EXACT),
+    "floordiv_signs": ("elementwise_floordiv", lambda r: {
+        "X": [_rand(r, 4, 5) * 7],
+        "Y": [np.where(r.rand(4, 5) < 0.5, -1.0, 1.0).astype("float32")
+              * (1.5 + r.rand(4, 5).astype("float32"))]}, {}, ["Out"],
+        EXACT),
+    "increment_loop_counter": ("increment_loop_counter", lambda r: {
+        "X": [np.array([41], "int64")]}, {"step": 1}, ["Out"], SAME),
+    "lr_schedule_noam": ("lr_schedule", lambda r: {
+        "Step": [np.array([3000], "int64")]},
+        {"kind": "noam", "d_model": 512, "warmup_steps": 4000}, ["Out"],
+        dict(rtol=1e-6, atol=0)),
+    "lr_schedule_piecewise": ("lr_schedule", lambda r: {
+        "Step": [np.array([4], "int64")]},
+        {"kind": "piecewise", "boundaries": [2, 4],
+         "values": [0.1, 0.01, 0.001]}, ["Out"], dict(rtol=1e-6, atol=0)),
+}
+
 CASES.update(CTR_CASES)
 CASES.update(OPT_CASES)
+CASES.update(CONV_EXTRA_CASES)
 CASES.update(RNN_CONV_CASES)
 CASES.update(SEQ_CASES)
 
