@@ -374,6 +374,50 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    of the smoke by kernel class with the device's idle share.  Paths
    "mt_train", "mt_train_amp", "mt_decode" and "book_<model>" in
    launches_by_path.
+5m. int8 and fp8: (1) the flagship's products (QUANT_LM_PRODUCTS,
+   N 16384) for int8, e4m3 and e5m2: the codes of the same inputs equal
+   on the card and the CPU; the library product's accumulators
+   (torch._int_mm, torch._scaled_mm with use_fast_accum=False, a bf16
+   torch.mm with f32 output) equal to the plain version on the card (f64
+   for int8) and to the CPU's on QUANT_CPU_ROWS rows (int8), or within
+   FP8_RTOL; e4m3's use_fast_accum=True error against f64 logged; the
+   low_precision_matmul forward and STE backward in f32 and under AMP,
+   card rows against the CPU's; the product, the quantize pass and the
+   bf16 and f32 products timed beside the product's bound.  (2)
+   quantized_conv2d's im2col lowering at ResNet-50's stem, a 3x3 and a
+   1x1 s2 downsample (batch 16), and grouped, dilated and depthwise
+   cases: the accumulators of QUANT_CHECK_SAMPLES samples against
+   F.conv2d of the same codes on the CPU (f64 for int8: equal), the
+   products a call, the time beside cuDNN's f32 and bf16 convolutions.
+   (3) bench_lm_int8: phase 5c's AMP program with quantize_dtype int8
+   and without it in one process: one step of each from the same state
+   (losses within LM_INT8_LOSS_RTOL), this repo's kernel launches equal on
+   both, one _int_mm a mul (12 a step), no host sync added (the syncs'
+   sites logged), peak memory, run_steps in turns (AMP, int8, int8, AMP)
+   with tokens/s; then one f32 int8 step at L LM_INT8_CHECK_LAYERS, batch
+   LM_INT8_CHECK_BATCH on the card and the CPU: the code flips and relu
+   flips counted, the CPU step again on the card's codes and relu
+   branches held as phase 5's match.  (4) bench_resnet50_infer_int8: the
+   is_test ResNet-50 pruned, training_transpile, freeze_program to int8
+   (53 quantized_conv2d, 1 quantized_matmul) on the executor path at
+   batch 16: p50 and bench.py's window with img/s, 54 _int_mm a batch, no
+   kernel of this repo; its logits on 2 samples card vs CPU, the code
+   flips counted and the CPU run on the card's codes within
+   QUANT_PRED_RTOL; the model saved and served by the Predictor, equal
+   to the executor bit for bit.  (5) QAT on bench_resnet50 (batch 64,
+   Momentum(0.1, 0.9), moving-average activations): QAT_STEPS steps,
+   every scale moving every step, the p50 beside phase 5g's f32 row; the
+   for_test clone frozen to e4m3 and served at batch 16 as (4), held at
+   QAT_FP8_PRED_RTOL.  (6) fused_multihead_attention at FMHA's widths,
+   forward and backward, f32 and AMP, card vs CPU within FMHA_RTOL, one
+   flash forward and backward a run.  The bench_lm_int8 step and the int8
+   ResNet-50 batch are traced at the end of the smoke by kernel class
+   (int8 GEMMs, bf16 / f32 GEMMs, copies and casts, reductions,
+   elementwise, this repo's kernels), with the device ms inside
+   quantize_array and the low-precision forwards.  Paths
+   "lm_int8_train", "resnet_int8_serve", "resnet_qat_train",
+   "fused_multihead_attention" and "fused_multihead_attention_amp" in
+   launches_by_path.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -433,7 +477,10 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "alexnet_*", "googlenet_*", "se_resnext_*", "stacked_lstm_*" and
    "lenet_trainer", all 0, phase 5k's under "mt_*" and "book_*", all 0,
    phase 5l's under "nmt_noam_*" (layer norms only),
-   "resnet_piecewise_train" and "conv_family", all 0; layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
+   "resnet_piecewise_train" and "conv_family", all 0, phase 5m's under
+   "lm_int8_train" (the AMP row's), "resnet_int8_serve" and
+   "resnet_qat_train" (0) and "fused_multihead_attention(_amp)";
+   layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
    is the v16 path's, with the scalar path's times and the AMP programs'
@@ -4011,11 +4058,14 @@ def phase_resnet(torch):
                            f"{sorted(names)}: expected cuDNN convolutions "
                            f"and none of this repo's")
     del amp["exe"]
+    QUANT_ROWS["resnet_train"] = f32["p50"]
     log(f"[resnet] train p50 f32 {f32['p50']:.2f} ms "
         f"({RESNET_BATCH / f32['p50'] * 1e3:.1f} img/s), AMP "
         f"{amp['p50']:.2f} ms ({RESNET_BATCH / amp['p50'] * 1e3:.1f} img/s)")
-    by_path["resnet_serve"], _ = resnet_serve(torch, amp=False)
-    by_path["resnet_serve_amp"], _ = resnet_serve(torch, amp=True)
+    for amp in (False, True):
+        key = f"resnet_serve{'_amp' if amp else ''}"
+        by_path[key], row = resnet_serve(torch, amp=amp)
+        QUANT_ROWS[key] = row["p50"]
     recs = [r for r in VERIFY_LOG if r["phase"] == "resnet"]
     log(f"[resnet] the gate verified {len(recs)} programs in error mode "
         f"({[(r['ops'], r['amp'], round(r['ms'], 1)) for r in recs]}: "
@@ -6068,16 +6118,8 @@ WHILE_ITERS = 32
 def count_syncs(torch, fn):
     """(fn's result, the host syncs it made): the synchronizing CUDA
     calls torch's sync debug mode reports."""
-    import warnings
-    old = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode(1)
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(old)
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    out, sites = sync_sites(torch, fn)
+    return out, len(sites)
 
 
 def noam(layers):
@@ -6591,6 +6633,977 @@ def trace_sched_conv(torch, keep):
                           classify=_conv_kernel_class)
         if any("(this repo)" in c for c in names):
             raise RuntimeError(f"{name}'s trace holds this repo's kernels")
+
+
+# phase 5m: int8 and fp8: FLAGS_quantize_dtype's products at
+# the flagship's shapes and bench_lm_int8 (bench.py:250), freeze_program's
+# quantized_conv2d / quantized_matmul at ResNet-50's and
+# bench_resnet50_infer_int8 (:407), QAT on bench_resnet50 and its e4m3
+# freeze, and fused_multihead_attention
+QUANT_DTYPES = ("int8", "e4m3", "e5m2")
+# (rows, K, columns) of the flagship's products at batch 32 x T 512: the
+# attention projections (fused_mha's, which stay bf16 in bench_lm_int8,
+# and fused_multihead_attention's), W1 and W2
+QUANT_LM_PRODUCTS = ((16384, 512, 512), (16384, 512, 2048),
+                     (16384, 2048, 512))
+# the unfused attention's q.k^T at the flagship's training shape (B, H,
+# T, d): both operands batched, one 2-D product a (batch, head)
+QUANT_ATTN = (32, 8, 512, 64)
+QUANT_CPU_ROWS = 512       # the CPU side's rows of each product
+QUANT_X_MAX = 8.0          # planted in row 0 (x is clipped to +-7 first),
+                           # so the CPU rows see the card's abs-max scale
+# ResNet-50's stem (7x7 s2), a 3x3 and a 1x1 s2 downsample at batch 16,
+# and small grouped, dilated and depthwise cases: (batch, C, H, W, O, k,
+# stride, pad, dilation, groups)
+QUANT_CONVS = {"stem": (16, 3, 224, 224, 64, 7, 2, 3, 1, 1),
+               "3x3": (16, 64, 56, 56, 64, 3, 1, 1, 1, 1),
+               "1x1_s2": (16, 256, 56, 56, 512, 1, 2, 0, 1, 1),
+               "grouped": (2, 32, 14, 14, 64, 3, 1, 1, 1, 4),
+               "dilated": (2, 16, 14, 14, 16, 3, 1, 2, 2, 1),
+               "depthwise": (2, 32, 14, 14, 32, 3, 1, 1, 1, 32)}
+QUANT_CHECK_SAMPLES = 2    # the CPU oracle's samples of a convolution or model
+# fp8 accumulators on the card against the CPU's f32 sums (and the f64
+# plain version on the card), of max |CPU|: cuBLASLt's e4m3 product with
+# use_fast_accum=False does not accumulate in full f32 on Hopper's fp8
+# tensor cores (products 1.8e-4-4.1e-4 in phase 5m, H100 80GB HBM3, 700 W); e5m2
+# runs as a bf16 product with f32 accumulation (1e-7)
+FP8_RTOL = {"e4m3": 2e-3, "e5m2": 1e-6}
+QUANT_GRAD_RTOL = {False: 1e-4, True: 2e-2}   # STE backward, f32 / AMP
+LM_INT8_RUNS = 2           # counted runs of each row
+LM_INT8_TIMED_STEPS = 10   # time_run_steps: steps a call, timed calls
+LM_INT8_TIMED_CALLS = 2
+LM_INT8_CHECK_BATCH = 8    # the int8 card-vs-CPU step (the CPU side is the cost)
+LM_INT8_CHECK_LAYERS = 2
+LM_INT8_LOSS_RTOL = 5e-3   # the int8 row's first loss against the AMP row's
+QUANT_PRED_RTOL = 1e-4     # int8 model outputs, card vs CPU on the card's codes
+QAT_FP8_PRED_RTOL = 1e-2   # e4m3 outputs, card vs CPU on the card's codes
+QAT_STEPS = 5
+FMHA = dict(B=8, T=512, D=512, H=8)
+FMHA_RTOL = {False: 1e-4, True: 2e-2}   # outputs and @GRADs, of their max
+QUANT_TIMED = 20           # timed calls of a product, a pass or a convolution
+QUANT_ROWS = {}            # phase 5g's rows, for 5m's comparisons
+
+
+@contextlib.contextmanager
+def quantize_flag(qd):
+    """FLAGS_quantize_dtype set to `qd` in the port for the block."""
+    import paddle_tpu_torch as ptt
+    old = ptt.flags.get_flag("quantize_dtype")
+    ptt.flags.set_flag("quantize_dtype", qd)
+    try:
+        yield
+    finally:
+        ptt.flags.set_flag("quantize_dtype", old)
+
+
+@contextlib.contextmanager
+def quant_codes(record=None, replay=None):
+    """quantize_ops.quantize_array recording its codes (on the host, in
+    call order) into `record`, or returning the codes of `replay` in call
+    order; yields the codes not yet replayed.  Meta evaluations pass
+    through."""
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    orig = qo.quantize_array
+    left = list(replay or ())
+
+    def qa(x, scale, qd):
+        if x.device.type == "meta":
+            return orig(x, scale, qd)
+        if replay is not None:
+            return left.pop(0).to(x.device)
+        out = orig(x, scale, qd)
+        record.append(out.cpu())
+        return out
+
+    qo.quantize_array = qa
+    try:
+        yield left
+    finally:
+        qo.quantize_array = orig
+
+
+def code_flips(a, b):
+    """(codes that differ, codes) between two recordings of the same
+    calls."""
+    import torch
+    if len(a) != len(b):
+        raise RuntimeError(f"{len(a)} against {len(b)} quantize calls")
+    n = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise RuntimeError(f"codes {x.shape} {x.dtype} against "
+                               f"{y.shape} {y.dtype}")
+        if x.is_floating_point():
+            x, y = x.view(torch.uint8), y.view(torch.uint8)
+        n += int((x != y).sum())
+    return n, sum(x.numel() for x in a)
+
+
+def sync_sites(torch, fn):
+    """(fn's result, the host syncs it made as torch's sync debug mode
+    reports them), each sync as the innermost frames of the port or this
+    script that made it."""
+    import traceback
+    import warnings
+    sites = []
+    show = warnings.showwarning
+
+    def record(message, *args, **kw):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "paddle_tpu_torch" in f.filename
+                      or f.filename.endswith("chip_smoke.py")]
+            sites.append(" <- ".join(
+                f"{f.filename.split('/')[-1]}:{f.lineno} {f.name}"
+                for f in reversed(frames[-3:])))
+
+    old = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+            warnings.showwarning = show
+    return out, sites
+
+
+def lp_launches():
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    return dict(qo.lp_product.launches)
+
+
+def lp_moved(before):
+    now = lp_launches()
+    return {k: now[k] - before.get(k, 0) for k in now
+            if now[k] != before.get(k, 0)}
+
+
+def lp_peak(qd):
+    """The card's dense peak for a product of `qd` operands (int8 and fp8
+    1979 T/s; e5m2's bf16 lowering 989)."""
+    return 989e12 if qd == "e5m2" else 1979e12
+
+
+def quant_products(torch):
+    """(1) The flagship's products for int8, e4m3 and e5m2: the codes of
+    the same inputs on both devices, the library product's accumulators
+    against the plain version on the card (f64 for int8) and the CPU's on
+    QUANT_CPU_ROWS rows; e4m3's use_fast_accum=True error against f64
+    logged (a finding, not a path); low_precision_matmul forward and STE
+    backward in f32 and under AMP, card rows against the CPU's; the
+    product, the quantize pass and the bf16 / f32 products timed."""
+    import numpy as np
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    rng = np.random.RandomState(SEED + 40)
+    R = QUANT_CPU_ROWS
+    rows = {}
+    for (N, K, M) in QUANT_LM_PRODUCTS:
+        x = np.clip(rng.randn(N, K), -7, 7).astype(np.float32)
+        x[0, 0] = QUANT_X_MAX
+        w = (rng.randn(K, M) * 0.05).astype(np.float32)
+        g = rng.randn(N, M).astype(np.float32)
+        xc, wc, gc = (torch.from_numpy(a) for a in (x, w, g))
+        xg, wg, gg = (t.to(DEVICE) for t in (xc, wc, gc))
+        for qd in QUANT_DTYPES:
+            tag = f"[quant {qd} {N}x{K}x{M}]"
+            codes = {}
+            for dev, (a, b) in (("card", (xg, wg)), ("cpu", (xc, wc))):
+                codes[dev] = (qo.quantize_array(a, a.abs().max(), qd),
+                              qo.quantize_array(b, b.abs().amax(0)[None],
+                                                qd))
+            flips, n = code_flips([c.cpu() for c in codes["card"]],
+                                  list(codes["cpu"]))
+            xq, wq = codes["card"]
+            before = lp_launches()
+            acc = qo.lp_product(xq, wq, qd)
+            moved = lp_moved(before)
+            plain = qo.lp_product_plain(xq, wq, qd)
+            cpu = qo.lp_product_plain(codes["cpu"][0][:R], codes["cpu"][1],
+                                      qd)
+            if qd == "int8":
+                ok = (torch.equal(acc, plain)
+                      and torch.equal(acc[:R].cpu(), cpu))
+                errs = dict(plain=0.0 if ok else rel_err(acc, plain),
+                            cpu=0.0 if ok else rel_err(acc[:R].cpu(), cpu))
+            else:
+                errs = dict(plain=rel_err(acc.double(), plain.double()),
+                            cpu=rel_err(acc[:R].cpu().double(),
+                                        cpu.double()))
+                ok = max(errs.values()) <= FP8_RTOL[qd]
+            fast = None
+            if qd == "e4m3":
+                one = torch.ones((), device=DEVICE)
+                f = torch._scaled_mm(xq, wq.t().contiguous().t(),
+                                     scale_a=one, scale_b=one,
+                                     out_dtype=torch.float32,
+                                     use_fast_accum=True)
+                fast = rel_err(f.double(), plain.double())
+            # forward and STE backward through low_precision_matmul
+            ste = {}
+            for amp in (False, True):
+                with amp_bf16(amp):
+                    a, b = (xg.clone().requires_grad_(),
+                            wg.clone().requires_grad_())
+                    out = qo.low_precision_matmul(a, b, qd, torch.float32)
+                    ga, gb = torch.autograd.grad(out, (a, b),
+                                                 gg.to(out.dtype))
+                    c = xc[:R].clone().requires_grad_()
+                    out_c = qo.low_precision_matmul(c, wc, qd,
+                                                    torch.float32)
+                    gc_, = torch.autograd.grad(out_c, c,
+                                               gc[:R].to(out_c.dtype))
+                xa = xg.to(torch.bfloat16) if amp else xg
+                gb_plain = xa.double().t() @ gg.to(out.dtype).double()
+                out, out_c = out.detach(), out_c.detach()
+                e_out = (0.0 if torch.equal(out[:R].cpu(), out_c)
+                         else rel_err(out[:R].cpu(), out_c))
+                ste[amp] = dict(out=e_out, gx=rel_err(ga[:R].cpu(), gc_),
+                                gw=rel_err(gb.double(), gb_plain))
+                bound = 0.0 if qd == "int8" else FP8_RTOL[qd]
+                if amp and qd != "int8":
+                    bound += 2 ** -7     # one bf16 step of the max
+                if ste[amp]["out"] > bound or max(
+                        ste[amp]["gx"], ste[amp]["gw"]) > \
+                        QUANT_GRAD_RTOL[amp]:
+                    raise RuntimeError(f"{tag} low_precision_matmul "
+                                       f"{'AMP' if amp else 'f32'}: "
+                                       f"{ste[amp]}")
+            ms = dict(product=time_ms(lambda: qo.lp_product(xq, wq, qd),
+                                      iters=QUANT_TIMED)[0],
+                      quantize=time_ms(
+                          lambda: qo.quantize_array(xg, xg.abs().max(), qd),
+                          iters=QUANT_TIMED)[0],
+                      bf16=time_ms(lambda: torch.matmul(
+                          xg.to(torch.bfloat16), wg.to(torch.bfloat16)),
+                          iters=QUANT_TIMED)[0],
+                      f32=time_ms(lambda: torch.matmul(xg, wg),
+                                  iters=QUANT_TIMED)[0])
+            bound_ms = 2 * N * K * M / lp_peak(qd) * 1e3
+            log(f"{tag} codes card vs CPU: {flips} of {n} differ; library "
+                f"product {moved} against the plain version on the card "
+                f"(f64 for int8) {errs['plain']:.3g} and the CPU's {R} rows "
+                f"{errs['cpu']:.3g} of max (bound "
+                f"{0 if qd == 'int8' else FP8_RTOL[qd]:g})"
+                + (f"; use_fast_accum=True {fast:.3g} against f64 (a "
+                   f"finding: not a path)" if fast is not None else "")
+                + f"; low_precision_matmul card rows vs CPU (out, gx; gw vs "
+                  f"f64 on the card) f32 "
+                  f"{ {k: round(v, 9) for k, v in ste[False].items()} }, AMP "
+                  f"{ {k: round(v, 9) for k, v in ste[True].items()} }; ms: "
+                  f"product {ms['product']:.4f} (bound {bound_ms:.4f}), "
+                  f"quantize x {ms['quantize']:.4f}, bf16 matmul "
+                  f"{ms['bf16']:.4f}, f32 {ms['f32']:.4f}")
+            if flips or not ok or moved != {
+                    {"int8": "int_mm", "e4m3": "scaled_mm",
+                     "e5m2": "bf16_mm"}[qd]: 1}:
+                raise RuntimeError(f"{tag} flips {flips}, errors {errs}, "
+                                   f"launches {moved}")
+            rows[(qd, (N, K, M))] = dict(errs, fast=fast, ste=ste, **ms)
+    rows.update(quant_batched(torch))
+    return rows
+
+
+def quant_batched(torch):
+    """(1) A product of two batched operands (QUANT_ATTN's q.k^T, as the
+    unfused attention runs it under the flag): one library product a
+    (batch, head), the accumulators against the plain version on the card
+    and on the CPU for the first pair, and its time beside one bf16
+    batched matmul."""
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    B, H, T, d = QUANT_ATTN
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 44)
+    q = torch.randn(B, H, T, d, generator=gen, device=DEVICE)
+    k = torch.randn(B, H, d, T, generator=gen, device=DEVICE)
+    rows = {}
+    for qd in ("int8", "e4m3"):
+        xq = qo.quantize_array(q, q.abs().max(), qd)
+        yq = qo.quantize_array(k, k.abs().amax(dim=(0, 1, 2), keepdim=True),
+                               qd)
+        before = lp_launches()
+        acc = qo.lp_product(xq, yq, qd)
+        moved = lp_moved(before)
+        plain = qo.lp_product_plain(xq, yq, qd)
+        cpu = qo.lp_product_plain(xq[:1, :1].cpu(), yq[:1, :1].cpu(), qd)
+        if qd == "int8":
+            ok = torch.equal(acc, plain) and torch.equal(acc[:1, :1].cpu(),
+                                                         cpu)
+            err = 0.0 if ok else rel_err(acc, plain)
+        else:
+            err = max(rel_err(acc.double(), plain.double()),
+                      rel_err(acc[:1, :1].cpu().double(), cpu.double()))
+            ok = err <= FP8_RTOL[qd]
+        ms, clock = device_or_host_ms(
+            torch, lambda: qo.lp_product(xq, yq, qd), iters=5)
+        qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+        bf16 = time_ms(lambda: torch.matmul(qb, kb), iters=QUANT_TIMED)[0]
+        want = {{"int8": "int_mm", "e4m3": "scaled_mm"}[qd]: B * H}
+        log(f"[quant {qd} batched] q.k^T {(B, H, T, d)}: products a call "
+            f"{moved}; accumulators against the plain version (card, and "
+            f"the CPU's first pair) {err:.3g} of max; {ms:.3f} ms a call "
+            f"({clock}) against one bf16 batched matmul's {bf16:.4f}")
+        if not ok or moved != want:
+            raise RuntimeError(f"[quant {qd} batched] error {err}, "
+                               f"launches {moved}")
+        rows[(qd, "batched")] = dict(plain=err, ms=ms, bf16=bf16)
+    return rows
+
+
+
+def device_or_host_ms(torch, fn, iters=QUANT_TIMED):
+    """(ms a call, clock): time_ms's device time where the host can queue
+    the calls ahead of the device, else the host clock around
+    `iters` synchronized calls (a call whose host work outlasts its
+    kernels, as the depthwise case's 32 group products)."""
+    try:
+        return time_ms(fn, iters=iters)[0], "device"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters, "host clock"
+
+
+def quant_convs(torch):
+    """(2) quantized_conv2d's lowering at ResNet-50's shapes (int8 and
+    e4m3): the im2col product's accumulators on the first
+    QUANT_CHECK_SAMPLES samples against F.conv2d of the same codes on the
+    CPU (f64 for int8: equal; f32 for e4m3: FP8_RTOL), the products a
+    call, and its time beside cuDNN's f32 and bf16 convolutions."""
+    import numpy as np
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    rng = np.random.RandomState(SEED + 42)
+    rows = {}
+    for name, (B, C, H, W, O, k, s, p, d, g) in QUANT_CONVS.items():
+        x = torch.from_numpy(rng.randn(B, C, H, W).astype(np.float32))
+        w = torch.from_numpy(rng.randn(O, C // g, k, k).astype(np.float32))
+        xg, wg = x.to(DEVICE), w.to(DEVICE)
+        geo = ((s, s), (p, p), (d, d), g)
+        for qd in ("int8", "e4m3"):
+            xq = qo.quantize_array(xg, xg.abs().max(), qd)
+            wq = qo.quantize_array(
+                wg, qo.channel_scales(wg, 0).reshape(-1, 1, 1, 1), qd)
+            before = lp_launches()
+            acc = qo.lp_conv2d(xq, wq, qd, *geo)
+            moved = lp_moved(before)
+            S = QUANT_CHECK_SAMPLES
+            cpu = qo.lp_conv2d_plain(xq[:S].cpu(), wq.cpu(), qd, *geo)
+            got = acc[:S].cpu()
+            if qd == "int8":
+                err = 0.0 if torch.equal(got, cpu) else rel_err(got, cpu)
+                ok = err == 0.0
+            else:
+                err = rel_err(got.double(), cpu.double())
+                ok = err <= FP8_RTOL[qd]
+            ms, clock = device_or_host_ms(
+                torch, lambda: qo.lp_conv2d(xq, wq, qd, *geo))
+            ms_f32 = time_ms(lambda: F.conv2d(xg, wg, None, *geo),
+                             iters=QUANT_TIMED)[0]
+            xb, wb = xg.to(torch.bfloat16), wg.to(torch.bfloat16)
+            ms_bf16 = time_ms(lambda: F.conv2d(xb, wb, None, *geo),
+                              iters=QUANT_TIMED)[0]
+            flops = 2 * acc.numel() * (C // g) * k * k
+            log(f"[quant conv {name} {qd}] {tuple(x.shape)} -> "
+                f"{tuple(acc.shape)} k{k} s{s} p{p} d{d} g{g}: "
+                f"accumulators of {S} samples vs the CPU's F.conv2d "
+                f"{err:.3g} of max (bound "
+                f"{0 if qd == 'int8' else FP8_RTOL[qd]:g}); products a call "
+                f"{moved}; {ms:.4f} ms ({clock}; bound "
+                f"{flops / lp_peak(qd) * 1e3:.4f}; cuDNN f32 {ms_f32:.4f}, "
+                f"bf16 {ms_bf16:.4f})")
+            want = {"int8": "int_mm", "e4m3": "scaled_mm"}[qd]
+            if not ok or moved != {want: g}:
+                raise RuntimeError(f"[quant conv {name} {qd}] error {err}, "
+                                   f"launches {moved}")
+            rows[(name, qd)] = dict(err=err, ms=ms, cudnn_f32=ms_f32,
+                                    cudnn_bf16=ms_bf16)
+    return rows
+
+
+def lm_int8(torch):
+    """(3) bench_lm_int8: bench.py's AMP row (phase 5c's program) run with
+    FLAGS_quantize_dtype int8 and without it, in one process: one step of
+    each from the same state (the losses within LM_INT8_LOSS_RTOL), the
+    kernel launches of this repo per run on both (equal: no int8 product
+    inside any kernel) and the int8 products (one a mul: the FFN's two a
+    layer), the host syncs of one warm run of each (equal), peak memory,
+    and time_run_steps in turns (AMP, int8, int8, AMP) with tokens/s."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+    tag = "[lm int8]"
+    cfg = tr.TransformerConfig(**FLAGSHIP)
+    with amp_bf16():
+        main, startup, avg_cost, _ = build_train(cfg, amp=True, T=TRAIN_T)
+        muls = sum(op.type in ("mul", "matmul", "bmm")
+                   for op in main.global_block().ops)
+        exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        exe.run(startup)
+        batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+                 tr.make_fake_lm_batch(cfg, TRAIN_BATCH, TRAIN_T,
+                                       seed=SEED).items()}
+        names = [v.name for v in main.list_vars() if v.persistable
+                 and exe.scope.find_var(v.name) is not None]
+        state0 = snapshot(exe.scope, names)
+        first = {}
+        for qd in ("", "int8"):      # one step of each from the same state
+            for n, t in state0.items():
+                exe.scope.set_var(n, t.clone())
+            with quantize_flag(qd):
+                first[qd] = float(exe.run(main, feed=batch,
+                                          fetch_list=[avg_cost])[0][0])
+        del state0
+        counters = launch_counters()
+        rows = {}
+        for qd in ("", "int8"):
+            with quantize_flag(qd):
+                exe.run(main, feed=batch, fetch_list=[avg_cost])
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counters(counters)
+                before = lp_launches()
+                losses = [float(exe.run(main, feed=batch,
+                                        fetch_list=[avg_cost])[0][0])
+                          for _ in range(LM_INT8_RUNS)]
+                rows[qd] = dict(counts=read_counters(counters),
+                                lp=lp_moved(before), losses=losses,
+                                peak=torch.cuda.max_memory_allocated() - held,
+                                ms=[])
+        for qd in ("", "int8"):      # both rows warm: no first-use syncs
+            with quantize_flag(qd):
+                rows[qd]["syncs"] = sync_sites(torch, lambda: exe.run(
+                    main, feed=batch, fetch_list=[avg_cost],
+                    return_numpy=False))[1]
+        for qd in ("", "int8", "int8", ""):
+            with quantize_flag(qd):
+                rows[qd]["ms"].append(time_run_steps(
+                    torch, exe, main, batch, avg_cost,
+                    steps=LM_INT8_TIMED_STEPS, calls=LM_INT8_TIMED_CALLS))
+    amp_row, row = rows[""], rows["int8"]
+    n_tok = TRAIN_BATCH * TRAIN_T
+    ms, ams = min(row["ms"]), min(amp_row["ms"])
+    log(f"{tag} bench_lm_int8 (batch {TRAIN_BATCH} x {TRAIN_T}, AMP, "
+        f"Adam({TRAIN_LR:g}), {muls} mul/matmul/bmm ops): run_steps "
+        f"{[round(m, 2) for m in row['ms']]} ms a step against the AMP "
+        f"row's {[round(m, 2) for m in amp_row['ms']]} in turns "
+        f"(AMP, int8, int8, AMP): {n_tok / ms * 1e3:.0f} against "
+        f"{n_tok / ams * 1e3:.0f} tokens/s ({ms / ams:.3f}x); peak device "
+        f"memory of a run above what was held {row['peak'] / 2**20:.1f} "
+        f"MiB against {amp_row['peak'] / 2**20:.1f}; first step's loss "
+        f"from one state "
+        f"{first['int8']:.6f} against {first['']:.6f} (bound "
+        f"{LM_INT8_LOSS_RTOL:g}); host syncs a run {len(row['syncs'])} "
+        f"against {len(amp_row['syncs'])}; int8 products over "
+        f"{LM_INT8_RUNS} runs "
+        f"{row['lp']} (AMP row {amp_row['lp']}); {nvidia_smi_line()}")
+    kernels = {k: v for k, v in row["counts"].items() if v}
+    log(f"{tag} this repo's kernels over {LM_INT8_RUNS} runs, by counter: "
+        f"{kernels}")
+    if row["counts"] != amp_row["counts"]:
+        raise RuntimeError(f"{tag} kernel launches {row['counts']} against "
+                           f"the AMP row's {amp_row['counts']}")
+    if row["lp"] != {"int_mm": muls * LM_INT8_RUNS} or amp_row["lp"]:
+        raise RuntimeError(f"{tag} int8 products {row['lp']}, AMP row "
+                           f"{amp_row['lp']}: expected {muls} a run")
+    for qd, r in (("int8", row), ("AMP", amp_row)):
+        for site in r["syncs"]:
+            log(f"{tag} {qd} row host sync at {site}")
+    if len(row["syncs"]) > len(amp_row["syncs"]):
+        raise RuntimeError(f"{tag} the int8 row adds host syncs: "
+                           f"{row['syncs']} against {amp_row['syncs']}")
+    if not all(math.isfinite(x) for x in row["losses"]) or abs(
+            first["int8"] - first[""]) > LM_INT8_LOSS_RTOL * abs(first[""]):
+        raise RuntimeError(f"{tag} losses {first}, {row['losses']}")
+    counts = {n: v for (n, attr), v in row["counts"].items()
+              if attr == "launches"}
+    return counts, dict(exe=exe, main=main, feed=batch, loss=avg_cost,
+                        ms=ms, amp_ms=ams)
+
+
+def lm_int8_card_vs_cpu(torch):
+    """(3) One f32 step of the flagship at L LM_INT8_CHECK_LAYERS, batch
+    LM_INT8_CHECK_BATCH, under FLAGS_quantize_dtype int8, from the same
+    weights on the card and on the CPU: the loss, the codes that differ
+    (quantization flips) and the relu flips; then the CPU step again
+    taking the card's codes and relu branches, held as phase 5's match."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer as tr
+    tag = "[lm int8 check]"
+    cfg = tr.TransformerConfig(**dict(FLAGSHIP,
+                                      n_layer=LM_INT8_CHECK_LAYERS))
+    main, startup, avg_cost, pg = build_train(cfg, T=TRAIN_T)
+    init = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    init.run(startup)
+    state = {v.name: init.scope.find_var(v.name).numpy()
+             for v in main.list_vars() if v.persistable}
+    relus = [op.inputs["X"][0] for op in main.global_block().ops
+             if op.type == "relu"]
+    batch = tr.make_fake_lm_batch(cfg, LM_INT8_CHECK_BATCH, TRAIN_T,
+                                  seed=SEED + 41)
+    fetch = [avg_cost] + [gv for _, gv in pg] + relus
+    n_g = len(pg)
+
+    def step(place):
+        scope = ptt.Scope()
+        ptt.io.params_from_numpy(scope, state, place)
+        out = ptt.Executor(place, scope=scope).run(main, feed=batch,
+                                                   fetch_list=fetch)
+        return out[0][0], out[1:1 + n_g], out[1 + n_g:]
+
+    with quantize_flag("int8"):
+        card_codes, cpu_codes = [], []
+        with quant_codes(record=card_codes):
+            loss, grads, pres = step(ptt.CUDAPlace(0))
+        with quant_codes(record=cpu_codes):
+            cpu_loss, cpu_grads, cpu_pres = step(ptt.CPUPlace())
+        flips, n = code_flips(card_codes, cpu_codes)
+        relu_flips = sum(int(((a > 0) != (c > 0)).sum())
+                         for a, c in zip(pres, cpu_pres))
+        worst = max(float(np.abs(a - c).max()) / max(float(np.abs(c).max()),
+                                                     1e-30)
+                    for a, c in zip(grads, cpu_grads))
+        le = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        log(f"{tag} L{cfg.n_layer} batch {LM_INT8_CHECK_BATCH} x {TRAIN_T} "
+            f"f32 int8 step, card vs CPU: loss {loss:.6f} vs "
+            f"{cpu_loss:.6f} (rel err {le:.3g}); {flips} of {n} int8 codes "
+            f"differ over {len(card_codes)} quantize calls, {relu_flips} "
+            f"relu pre-activations on the other branch; worst @GRAD max "
+            f"|card - CPU| {worst:.3g} of max |CPU|")
+        masks = [torch.from_numpy((a > 0).astype(np.float32)) for a in pres]
+        with replayed_relu_masks(masks) as left_relu, \
+                quant_codes(replay=card_codes) as left_codes:
+            r_loss, r_grads, _ = step(ptt.CPUPlace())
+    if left_relu or left_codes:
+        raise RuntimeError(f"{tag} {len(left_relu)} relu masks and "
+                           f"{len(left_codes)} codes not replayed")
+    check_replayed(tag + " (the card's codes too)", pg, loss, grads, r_loss,
+                   r_grads)
+    return dict(flips=flips, codes=n, relu_flips=relu_flips, loss=le,
+                grad=worst)
+
+
+def resnet_cpu_scope(scope, names):
+    """A CPU scope holding copies of the named scope tensors."""
+    import paddle_tpu_torch as ptt
+    out = ptt.Scope()
+    for n in names:
+        out.set_var(n, scope.find_var(n).detach().cpu())
+    return out
+
+
+def model_card_vs_cpu(torch, tag, prog, scope, feed, fetch, rtol):
+    """A frozen program's `fetch` (its logits) on QUANT_CHECK_SAMPLES
+    samples, card vs CPU: the codes that differ (a flip in an early layer
+    moves every later layer's activations, so flips cascade), the error;
+    then the CPU run again taking the card's codes, held at rtol of max
+    |CPU|."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    names = [v.name for v in prog.list_vars() if v.persistable
+             and scope.find_var(v.name) is not None]
+    cpu_exe = ptt.Executor(ptt.CPUPlace(),
+                           scope=resnet_cpu_scope(scope, names))
+    card_exe = ptt.Executor(ptt.CUDAPlace(0), scope=scope)
+    small = {"img": feed["img"][:QUANT_CHECK_SAMPLES].cpu().numpy()}
+    card_codes, cpu_codes = [], []
+    with quant_codes(record=card_codes):
+        got, = card_exe.run(prog, feed=small, fetch_list=[fetch])
+    with quant_codes(record=cpu_codes):
+        want, = cpu_exe.run(prog, feed=small, fetch_list=[fetch])
+    flips, n = code_flips(card_codes, cpu_codes)
+    with quant_codes(replay=card_codes) as left:
+        replayed, = cpu_exe.run(prog, feed=small, fetch_list=[fetch])
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    r_err = float(np.abs(got - replayed).max()) / scale
+    log(f"{tag} {QUANT_CHECK_SAMPLES} samples, card vs CPU: {flips} of {n} "
+        f"codes differ over {len(card_codes)} quantize calls; outputs "
+        f"{err:.3g} of max, {r_err:.3g} with the card's codes (bound "
+        f"{rtol:g}); max |logit| {scale:.4g}")
+    if left or not r_err <= rtol or not np.isfinite(got).all():
+        raise RuntimeError(f"{tag} card vs CPU {r_err} ({len(left)} codes "
+                           f"left)")
+    return dict(flips=flips, codes=n, err=err, replayed=r_err)
+
+
+def frozen_serve(torch, tag, prog, exe, feed, fetch, per_run):
+    """A frozen program on the executor path at batch RESNET_SERVE_BATCH:
+    p50 of RESNET_SERVE_TIMED synchronized runs (the output read back) and
+    bench.py's number (the best of 3 windows of RESNET_SERVE_TIMED
+    unsynchronized runs, each window synchronized at its end), the
+    library products a run and no kernel of this repo."""
+    import numpy as np
+    exe.run(prog, feed=feed, fetch_list=[fetch])
+    counters = launch_counters()
+    zero_counters(counters)
+    before = lp_launches()
+    ms = []
+    for _ in range(RESNET_SERVE_TIMED):
+        t0 = time.perf_counter()
+        out, = exe.run(prog, feed=feed, fetch_list=[fetch])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    moved = lp_moved(before)
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RESNET_SERVE_TIMED):
+            exe.run(prog, feed=feed, fetch_list=[fetch], return_numpy=False)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3
+                   / RESNET_SERVE_TIMED)
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    p50 = float(np.median(ms))
+    log(f"{tag} batch {RESNET_SERVE_BATCH} on the executor path: p50 "
+        f"{p50:.3f} ms a batch (synchronized, output read back), "
+        f"{RESNET_SERVE_BATCH / p50 * 1e3:.1f} img/s; bench.py's window "
+        f"{best:.3f} ms, {RESNET_SERVE_BATCH / best * 1e3:.1f} img/s; "
+        f"products over {RESNET_SERVE_TIMED} runs {moved}; "
+        f"{nvidia_smi_line()}")
+    want = {k: v * RESNET_SERVE_TIMED for k, v in per_run.items()}
+    if moved != want or any(counts.values()):
+        raise RuntimeError(f"{tag} products {moved} (expected {want}), "
+                           f"this repo's kernels {counts}")
+    if out.shape != (RESNET_SERVE_BATCH, RESNET_CLASSES) or not (
+            np.isfinite(out).all() and abs(out.sum(1) - 1).max() < 1e-2):
+        raise RuntimeError(f"{tag} output {out.shape}")
+    return counts, dict(p50=p50, window=best, out=out)
+
+
+def logits_of(prog):
+    """The input of the program's last softmax: the logits (the
+    probabilities of a random-weight ResNet-50 saturate to 0 and 1, which
+    would hide any difference)."""
+    return [op for op in prog.global_block().ops
+            if op.type == "softmax"][-1].inputs["X"][0]
+
+
+def frozen_kinds(prog):
+    ops = [op.type for op in prog.global_block().ops]
+    return {t: ops.count(t) for t in ("quantized_conv2d", "quantized_matmul",
+                                      "conv2d", "mul") if ops.count(t)}
+
+
+def resnet_int8_serve(torch):
+    """(4) bench_resnet50_infer_int8: the is_test ResNet-50 pruned to its
+    prediction, training_transpile (abs_max activations, channel-wise
+    weights), freeze_program to int8, on the executor path at batch
+    RESNET_SERVE_BATCH; card vs CPU on QUANT_CHECK_SAMPLES samples; the
+    frozen model saved and served by the Predictor, equal to the
+    executor's output bit for bit."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    tag = "[resnet int8 serve]"
+    main, startup, _, _, pred = build_resnet(is_test=True)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    prog = main.prune(["img"], [pred.name])
+    qt = ptt.transpiler.QuantizeTranspiler()
+    qt.training_transpile(prog, startup)
+    t0 = time.perf_counter()
+    qt.freeze_program(prog, scope=exe.scope, quantize_dtype="int8")
+    freeze_s = time.perf_counter() - t0
+    kinds = frozen_kinds(prog)
+    log(f"{tag} frozen in {freeze_s:.2f} s: {kinds}")
+    if kinds != {"quantized_conv2d": 53, "quantized_matmul": 1}:
+        raise RuntimeError(f"{tag} frozen ops {kinds}")
+    feed = {"img": resnet_feed(RESNET_SERVE_BATCH, SEED + 3,
+                               device=DEVICE)["img"]}
+    counts, row = frozen_serve(torch, tag, prog, exe, feed, pred.name,
+                               {"int_mm": 54})
+    logits = logits_of(prog)
+    row["check"] = model_card_vs_cpu(torch, tag, prog, exe.scope, feed,
+                                     logits, QUANT_PRED_RTOL)
+    with tempfile.TemporaryDirectory() as td:
+        ptt.io.save_inference_model(td, ["img"], [pred, logits], exe,
+                                    main_program=prog)
+        p = create_predictor(AnalysisConfig(td))
+    served = p.run(feed)
+    direct = exe.run(prog, feed=feed, fetch_list=[pred.name, logits])
+    differ = [int((a != b).sum()) for a, b in zip(served, direct)]
+    log(f"{tag} the saved model through the Predictor against the "
+        f"executor: {differ} of {served[0].size} probabilities and logits "
+        f"differ")
+    if any(differ):
+        raise RuntimeError(f"{tag} the Predictor's outputs differ")
+    row.update(exe=exe, prog=prog, feed=feed, fetch=pred.name)
+    return counts, row
+
+
+def build_resnet_qat():
+    """bench_resnet50's program with training_transpile
+    (moving_average_abs_max activations) before Momentum's minimize, and
+    its for_test clone taken between the two: (main, startup, loss, pred,
+    infer, transpiler)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    qt = ptt.transpiler.QuantizeTranspiler(
+        activation_quantize_type="moving_average_abs_max")
+    with ptt.program_guard(main, startup):
+        _, loss, _, pred = resnet.build_train_net(
+            class_dim=RESNET_CLASSES, img_shape=RESNET_IMG,
+            depth=RESNET_DEPTH)
+        qt.training_transpile(main, startup)
+        infer = main.clone(for_test=True)
+        ptt.optimizer.Momentum(learning_rate=RESNET_LR,
+                               momentum=RESNET_MU).minimize(loss)
+    return main, startup, loss, pred, infer, qt
+
+
+def resnet_qat(torch):
+    """(5) QAT on bench_resnet50 (batch RESNET_BATCH, Momentum(0.1, 0.9)):
+    QAT_STEPS steps on one batch, every moving-average scale advancing
+    each step, the step p50 beside phase 5g's f32 row; then the for_test
+    clone pruned and frozen to e4m3, served at batch RESNET_SERVE_BATCH
+    and held to the CPU on QUANT_CHECK_SAMPLES samples."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = "[resnet qat]"
+    main, startup, loss, pred, infer, qt = build_resnet_qat()
+    fakes = sum(op.type.startswith("fake_") for op in main.global_block().ops)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    feed = resnet_feed(RESNET_BATCH, SEED + 1, device=DEVICE)
+    scales = sorted(v.name for v in main.list_vars()
+                    if v.persistable and v.name.endswith(".quant_in_scale"))
+    counters = launch_counters()
+    zero_counters(counters)
+    prev = {n: float(exe.scope.find_var(n)) for n in scales}
+    losses, step_ms, still = [], [], []
+    for step in range(1, QAT_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(())))
+        now = {n: float(exe.scope.find_var(n)) for n in scales}
+        still.append(sum(now[n] == prev[n] for n in scales))
+        prev = now
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    p50 = float(np.median(step_ms[1:]))
+    f32 = QUANT_ROWS.get("resnet_train")
+    log(f"{tag} {fakes} fake-quantize ops, {len(scales)} moving-average "
+        f"scales; batch {RESNET_BATCH}: losses "
+        f"{[round(x, 4) for x in losses]}; scales unmoved a step {still}; "
+        f"step p50 {p50:.2f} ms ({RESNET_BATCH / p50 * 1e3:.1f} img/s; "
+        f"phase 5g's f32 row {f32 and round(f32, 2)} ms); first step "
+        f"{step_ms[0]:.2f} ms; {nvidia_smi_line()}")
+    if any(still) or not all(math.isfinite(x) for x in losses) \
+            or any(counts.values()):
+        raise RuntimeError(f"{tag} scales unmoved {still}, losses {losses}, "
+                           f"this repo's kernels {counts}")
+    prog = infer.prune(["img"], [pred.name])
+    qt.freeze_program(prog, scope=exe.scope, quantize_dtype="e4m3")
+    kinds = frozen_kinds(prog)
+    if kinds != {"quantized_conv2d": 53, "quantized_matmul": 1}:
+        raise RuntimeError(f"{tag} frozen ops {kinds}")
+    sfeed = {"img": feed["img"][:RESNET_SERVE_BATCH]}
+    _, row = frozen_serve(torch, "[resnet qat e4m3 serve]", prog, exe,
+                          sfeed, pred.name, {"scaled_mm": 54})
+    row["check"] = model_card_vs_cpu(torch, "[resnet qat e4m3 serve]", prog,
+                                     exe.scope, sfeed, logits_of(prog),
+                                     QAT_FP8_PRED_RTOL)
+    row.update(p50_train=p50, losses=losses)
+    return counts, row
+
+
+def fmha_program(amp):
+    """q, k, v [B, T, D] -> fused_multihead_attention (causal) -> mean of
+    its square, with SGD(0) for the @GRADs: (main, startup, loss, out,
+    param grads)."""
+    import paddle_tpu_torch as ptt
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with amp_bf16(amp), ptt.program_guard(main, startup):
+        q, k, v = (ptt.layers.data(n, [FMHA["T"], FMHA["D"]],
+                                   dtype="float32") for n in "qkv")
+        out = ptt.layers.fused_multihead_attention(q, k, v, FMHA["H"],
+                                                   causal=True)
+        loss = ptt.layers.mean(ptt.layers.square(out))
+        _, pg = ptt.optimizer.SGD(learning_rate=0.0).minimize(loss)
+    return main, startup, loss, out, pg
+
+
+def fmha_check(torch):
+    """(6) fused_multihead_attention at d FMHA["D"], H FMHA["H"], T
+    FMHA["T"], batch FMHA["B"]: forward and backward, f32 and under AMP,
+    card vs CPU from the same weights (the output and every @GRAD within
+    FMHA_RTOL of its max), the flash launches a run, and the run's ms."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(SEED + 43)
+    feed = {n: rng.randn(FMHA["B"], FMHA["T"], FMHA["D"]).astype(np.float32)
+            for n in "qkv"}
+    by_path = {}
+    for amp in (False, True):
+        tag = f"[fmha{' amp' if amp else ''}]"
+        main, startup, loss, out, pg = fmha_program(amp)
+        init = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+        init.run(startup)
+        state = {v.name: init.scope.find_var(v.name).numpy()
+                 for v in main.list_vars() if v.persistable}
+        fetch = [out] + [g for _, g in pg]
+        res = {}
+        with amp_bf16(amp):
+            for place in (ptt.CPUPlace(), ptt.CUDAPlace(0)):
+                scope = ptt.Scope()
+                ptt.io.params_from_numpy(scope, state, place)
+                exe = ptt.Executor(place, scope=scope)
+                if isinstance(place, ptt.CUDAPlace):
+                    exe.run(main, feed=feed, fetch_list=fetch)
+                    counters = launch_counters()
+                    zero_counters(counters)
+                res[type(place).__name__] = exe.run(main, feed=feed,
+                                                    fetch_list=fetch)
+            counts = {n: v for (n, attr), v in
+                      read_counters(counters).items() if attr == "launches"}
+            ms = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[loss],
+                        return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        errs = [float(np.abs(a - c).max()) / max(float(np.abs(c).max()),
+                                                 1e-30)
+                for a, c in zip(res["CUDAPlace"], res["CPUPlace"])]
+        want = ({"flash_attention_bf16": 1, "flash_attention_bwd_bf16": 1}
+                if amp else {"flash_attention": 1, "flash_attention_bwd": 1})
+        moved = {n: c for n, c in counts.items() if c}
+        log(f"{tag} B{FMHA['B']} T{FMHA['T']} D{FMHA['D']} H{FMHA['H']} "
+            f"causal, forward and backward: card vs CPU output "
+            f"{errs[0]:.3g}, worst of {len(pg)} @GRADs {max(errs[1:]):.3g} "
+            f"of max (bound {FMHA_RTOL[amp]:g}); this repo's kernels a run "
+            f"{moved}; run p50 {float(np.median(ms)):.3f} ms")
+        if max(errs) > FMHA_RTOL[amp] or moved != want:
+            raise RuntimeError(f"{tag} errors {errs}, launches {moved}")
+        by_path[f"fused_multihead_attention{'_amp' if amp else ''}"] = counts
+    return by_path
+
+
+def phase_quant(torch):
+    """Phase 5m: int8 and fp8 on the card.  Returns the launch
+    counts of this repo's kernels by path and what the traces at the end
+    of the smoke run."""
+    t0 = time.perf_counter()
+    products = quant_products(torch)
+    convs = quant_convs(torch)
+    by_path, keep = {}, {}
+    by_path["lm_int8_train"], keep["lm"] = lm_int8(torch)
+    check = lm_int8_card_vs_cpu(torch)
+    by_path["resnet_int8_serve"], keep["resnet"] = resnet_int8_serve(torch)
+    by_path["resnet_qat_train"], qat = resnet_qat(torch)
+    by_path.update(fmha_check(torch))
+    recs = [r for r in VERIFY_LOG if r["phase"] == "quant"]
+    serve = keep["resnet"]
+    log(f"[quant] products: worst int8 error {max(r['plain'] for (q, _), r in products.items() if q == 'int8'):.3g}, "
+        f"e4m3 {max(r['plain'] for (q, _), r in products.items() if q == 'e4m3'):.3g}; "
+        f"convolutions (ms int8, e4m3) "
+        f"{ {n: (round(convs[(n, 'int8')]['ms'], 4), round(convs[(n, 'e4m3')]['ms'], 4)) for n in QUANT_CONVS} }; "
+        f"bench_lm_int8 {keep['lm']['ms']:.2f} ms a step against AMP "
+        f"{keep['lm']['amp_ms']:.2f}; int8 step check: {check}; ResNet-50 "
+        f"int8 serve p50 {serve['p50']:.3f} ms (f32 "
+        f"{QUANT_ROWS.get('resnet_serve') and round(QUANT_ROWS['resnet_serve'], 3)}, "
+        f"AMP {QUANT_ROWS.get('resnet_serve_amp') and round(QUANT_ROWS['resnet_serve_amp'], 3)}); "
+        f"QAT step p50 {qat['p50_train']:.2f} ms, e4m3 serve "
+        f"{qat['p50']:.3f} ms; the gate verified {len(recs)} programs in "
+        f"error mode, {sum(r['errors'] for r in recs)} with an error; phase "
+        f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"quant verifications {recs}")
+    return by_path, keep
+
+
+@contextlib.contextmanager
+def quant_ranges(torch):
+    """quantize_array and low_precision_matmul's forward inside
+    record_function ranges, for attributed_ms."""
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    old = {n: getattr(qo, n) for n in ("quantize_array", "_lp_forward")}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(RANGE_PREFIX + name):
+                return fn(*a, **kw)
+        return call
+
+    for n, fn in old.items():
+        setattr(qo, n, ranged(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in old.items():
+            setattr(qo, n, fn)
+
+
+def _quant_kernel_class(name):
+    """Kernel classes of the quantize plane's traces."""
+    c = _kernel_class(name)
+    if "(this repo)" in c:
+        return c
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "imma")):
+        if any(k in low for k in ("s8", "i8", "imma", "int8")):
+            return "int8 GEMMs"
+        if any(k in low for k in ("e4m3", "fp8", "f8")):
+            return "fp8 GEMMs"
+        return "bf16 / f32 GEMMs"
+    if "copy" in low or "memset" in low or "pad" in low:
+        return "copies and casts (im2col, operand padding, dtype casts)"
+    if "reduce" in low:
+        return "reductions (abs-max scales, batch norm)"
+    return "elementwise and other (quantize, dequantize, casts)"
+
+
+def trace_quant(torch, keep):
+    """One bench_lm_int8 step and one int8 ResNet-50 batch traced by
+    kernel class with the device's idle share; the quantize passes' and
+    the low-precision forwards' device ms by their ranges.  The int8 step
+    launches the bf16 kernels of the AMP row and no f32 flash or LM head."""
+    lm = keep["lm"]
+    n_head_bwd = -(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK) * head_bwd_kernels()
+    raw = []
+    with amp_bf16(), quantize_flag("int8"), quant_ranges(torch):
+        trace_run(torch, f"bench_lm_int8 step at batch {TRAIN_BATCH}",
+                  lambda: lm["exe"].run(lm["main"], feed=lm["feed"],
+                                        fetch_list=[lm["loss"]],
+                                        return_numpy=False),
+                  expect={"flash forward bf16 (this repo)": FLAGSHIP["n_layer"],
+                          "flash backward bf16 (this repo)":
+                              2 * FLAGSHIP["n_layer"],
+                          "lm_head_fwd bf16 (this repo)": 2,
+                          "lm_head_bwd bf16 (this repo)": n_head_bwd,
+                          "lm_head_fwd (this repo)": 0,
+                          "lm_head_bwd (this repo)": 0},
+                  classify=_quant_kernel_class, raw=raw)
+    for n in ("_lp_forward", "quantize_array"):
+        log(f"[trace]   kernels launched inside {n}: "
+            f"{attributed_ms(raw, RANGE_PREFIX + n):.3f} ms")
+    rs = keep["resnet"]
+    raw = []
+    with quant_ranges(torch):
+        trace_run(torch, f"int8 ResNet-{RESNET_DEPTH} batch "
+                         f"{RESNET_SERVE_BATCH}",
+                  lambda: rs["exe"].run(rs["prog"], feed=rs["feed"],
+                                        fetch_list=[rs["fetch"]],
+                                        return_numpy=False),
+                  classify=_quant_kernel_class, raw=raw)
+    log(f"[trace]   kernels launched inside quantize_array: "
+        f"{attributed_ms(raw, RANGE_PREFIX + 'quantize_array'):.3f} ms")
 
 
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
@@ -7892,6 +8905,8 @@ def main():
     s2s_counts, s2s_rows = phase_seq2seq_book(torch)
     VERIFY_PHASE[0] = "sched_conv"
     sc_counts, sc_keep = phase_sched_conv(torch)
+    VERIFY_PHASE[0] = "quant"
+    q_counts, q_keep = phase_quant(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -7980,6 +8995,8 @@ def main():
     schedule_cost(torch)
     trace_sched_conv(torch, sc_keep)
     del sc_keep
+    trace_quant(torch, q_keep)
+    del q_keep
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
     heads = head_breakdown(torch, {"wgmma": n_head_bwd,
@@ -8099,7 +9116,7 @@ def main():
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
                **resnet_counts, **xfmr_counts, **deepfm_counts,
-               **cnl_counts, **s2s_counts, **sc_counts}
+               **cnl_counts, **s2s_counts, **sc_counts, **q_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

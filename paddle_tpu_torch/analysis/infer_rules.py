@@ -3,14 +3,15 @@
 Counterpart of paddle_tpu/analysis/infer_rules.py, for the ops the port
 registers: ``mul``, ``matmul``, ``lookup_table``, the sparse plane's
 ``sparse_embedding_lookup`` and ``sparse_scatter_update`` (:141-187),
-``autodiff`` and ``fused_transformer_block``.  The rules register alongside the OpDef via
+``autodiff``, ``fused_transformer_block`` and the frozen programs'
+``quantized_matmul`` and ``quantized_conv2d`` (:234-262).  The rules
+register alongside the OpDef via
 framework/registry.py ``register_shape_infer``.  Only the op families
 whose mismatch diagnostics matter get explicit rules; everything else is
 covered by the meta evaluation in shape_inference.py (the op's own
 lowering on ``meta`` tensors, the layer_helper build-time trick), and
 ops where neither applies degrade to "unknown shape".  The JAX package's
-rules for the quantized, collective and pipeline ops come with those
-ops.
+rules for the collective and pipeline ops come with those ops.
 
 Rule contract: ``rule(op, ins, attrs) -> {slot: [(shape, dtype)]}``
 with shape a tuple (-1 = dynamic) or None, dtype a canonical string or
@@ -214,3 +215,36 @@ def _infer_fused_block(op, ins, attrs):
             f"fused_transformer_block width mismatch: X {_fmt(xs)} "
             f"model dim {xs[-1]} vs W1 {_fmt(w1s)}")
     return {"Out": [(xs, xd)]}
+
+
+# --- the frozen programs' quantized ops -----------------------------------
+
+@register_shape_infer("quantized_matmul")
+def _infer_quantized_matmul(op, ins, attrs):
+    (xs, xd) = _first(ins, "X")
+    (ws, _) = _first(ins, "W")
+    nc = int(attrs.get("x_num_col_dims", 1))
+    if xs is None or ws is None:
+        return {"Out": [(None, "float32")]}
+    k = _prod_known(xs[nc:])
+    if k is not None and len(ws) == 2 and _dims_conflict(k, ws[0]):
+        raise InferError(
+            f"quantized_matmul contraction mismatch: X {_fmt(xs)} "
+            f"flattens to [.., {k}], W {op.inputs['W'][0]!r} is "
+            f"{_fmt(ws)}")
+    return {"Out": [(tuple(xs[:nc]) + (ws[1],), "float32")]}
+
+
+@register_shape_infer("quantized_conv2d")
+def _infer_quantized_conv2d(op, ins, attrs):
+    (xs, _) = _first(ins, "Input")
+    (fs, _) = _first(ins, "Filter")
+    if xs is not None and fs is not None and len(xs) == 4 \
+            and len(fs) == 4:
+        groups = int(attrs.get("groups", 1) or 1)
+        if _dims_conflict(xs[1], fs[1] * groups):
+            raise InferError(
+                f"quantized_conv2d channel mismatch: Input {_fmt(xs)} "
+                f"C={xs[1]} vs Filter {_fmt(fs)} "
+                f"(expects C={fs[1] * groups})")
+    return {"Output": [(None, "float32")]}

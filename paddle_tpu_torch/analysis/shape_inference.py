@@ -8,8 +8,8 @@ each op resolved by
      register_shape_infer, the reference's InferShape), else
   2. one evaluation of the op's own lowering on ``meta`` tensors
      (framework/layer_helper.py ``meta_lower``, the build-time machinery:
-     -1 dims ride through as a prime sentinel, FLAGS_amp_bf16 is off, no
-     autograd), where the JAX package runs ``jax.eval_shape``, else
+     -1 dims ride through as a prime sentinel, FLAGS_amp_bf16 and
+     FLAGS_quantize_dtype are off, no autograd), where the JAX package runs ``jax.eval_shape``, else
   3. "unknown shape": unknown ops never crash the pass.  The ops of
      ``UNEVALUABLE_OPS`` go there directly when no rule answers: their
      lowering needs what only a run has (the program and the live env
@@ -22,7 +22,10 @@ launched and nothing is allocated, on the card or on the host.  The
 Evaluating with the AMP flag off is a divergence by design from the JAX
 package, whose eval_shape runs its AMP lowerings: AMP is lowering-time
 only in the port and its programs declare f32, so with the flag on every
-bf16 activation would read as a ``dtype_mismatch``.
+bf16 activation would read as a ``dtype_mismatch``.  FLAGS_quantize_dtype
+is off there too, also by design (JAX's eval_shape runs its low-precision
+matmuls): a product's output shape and dtype do not depend on the flag,
+and its abs-max scales and casts have nothing to infer on meta tensors.
 
 Findings:
   * ``shape_mismatch`` (error): an infer rule proves the op's inputs

@@ -4,6 +4,8 @@ Counterpart of paddle_tpu/core/dtypes.py.  The canonical names are the ones
 the Program IR serializes, so a program saved by either package reads the
 same here.  torch computes 64-bit integers natively, so ``int64`` stays
 ``int64`` (there is no 32-bit lowering plane as under JAX's default x32).
+The two fp8 types are canonical names too, so a frozen fp8 program reads the
+same in both packages.
 """
 from __future__ import annotations
 
@@ -21,7 +23,13 @@ _DTYPE_MAP = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
     "float64": torch.float64,
+    # fp8 storage types of the quantized-execution plane (JAX
+    # core/dtypes.py:29); a numpy array of them comes from ml_dtypes, which
+    # the port never imports: io.py moves their bytes as uint8
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
 }
+FP8_NAMES = ("float8_e4m3fn", "float8_e5m2")
 _FROM_TORCH = {v: k for k, v in _DTYPE_MAP.items()}
 
 
@@ -34,7 +42,9 @@ def convert_dtype(dtype) -> str:
         return _FROM_TORCH[dtype]
     if isinstance(dtype, str) and dtype in _DTYPE_MAP:
         return dtype
-    if getattr(dtype, "name", None) == "bfloat16" or dtype == "bfloat16":
+    if getattr(dtype, "name", None) in ("bfloat16",) + FP8_NAMES:
+        return dtype.name           # ml_dtypes' types, by name
+    if dtype == "bfloat16":
         return "bfloat16"
     name = np.dtype(dtype).name
     if name not in _DTYPE_MAP:

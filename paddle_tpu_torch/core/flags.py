@@ -75,6 +75,18 @@ define_flag("amp_bf16", False,
             "matmul.allow_tf32), and cuDNN then rounds the operands to "
             "TF32; chip_smoke.py turns both off.  The package sets "
             "neither cudnn.deterministic nor cudnn.benchmark.")
+define_flag("quantize_dtype", "",
+            "Real low-precision matmul execution (ops/quantize_ops.py): "
+            "'' = off; 'int8' = dynamic-scale int8 x int8 -> int32 "
+            "products; 'e4m3'/'e5m2' = fp8 products with f32 "
+            "accumulation.  Applies to the mul/matmul/bmm op family at "
+            "lowering time (math_ops.amp_matmul), with straight-through "
+            "gradients through the AMP-policy product: the training-side "
+            "twin of QuantizeTranspiler.freeze_program, which emits "
+            "quantized programs whatever this flag says.  An unknown "
+            "spelling raises EnforceNotMet at the first product.  The "
+            "meta evaluation of shape inference runs with it off, as "
+            "with amp_bf16.")
 define_flag("fuse_block", False,
             "Fuse whole transformer blocks (LN -> attention -> residual "
             "-> LN -> MLP -> residual) into single fused_transformer_"

@@ -98,8 +98,8 @@ def as_tensor(value, var: Optional[Variable], device: torch.device
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A fetched tensor as a host numpy array (bf16, which numpy lacks,
-    widens to f32).
+    """A fetched tensor as a host numpy array (bf16 and fp8, which numpy
+    lacks, widen to f32).
 
     A CUDA tensor is copied into a fresh pinned host tensor on its
     stream (a DMA at the link's rate, where a pageable copy stages
@@ -108,7 +108,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     a caller still holds, and the caching host allocator reuses the
     block once the array is gone."""
     t = t.detach()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
         t = t.float()
     if t.device.type != "cuda":
         return t.cpu().numpy()

@@ -61,15 +61,19 @@ def meta_lower(opdef, ins: Dict[str, Sequence[torch.Tensor]], attrs):
     """One evaluation of an op's lowering on meta tensors, with no
     autograd: the plain branch of every wrapper, nothing launched or
     allocated, and ``ctx.rng()`` None (nothing is drawn).  FLAGS_amp_bf16
-    is off meanwhile: AMP is a lowering-time policy, and the program
-    declares the f32 dtypes it declares without the flag."""
+    and FLAGS_quantize_dtype are off meanwhile: both are lowering-time
+    policies, and the program declares the f32 dtypes it declares without
+    them."""
     amp = flags.get_flag("amp_bf16")
+    qd = flags.get_flag("quantize_dtype")
     flags.set_flag("amp_bf16", False)
+    flags.set_flag("quantize_dtype", "")
     try:
         with torch.no_grad():
             return opdef.lower(LowerContext(0, _META), ins, attrs)
     finally:
         flags.set_flag("amp_bf16", amp)
+        flags.set_flag("quantize_dtype", qd)
 
 
 class ParamAttr:

@@ -23,8 +23,8 @@ sigmoid_cross_entropy_with_logits :707, label_smooth :741 (composed of
 (``_binary_compare_layer`` :782: less_than, less_equal, greater_than,
 greater_equal, equal, not_equal, logical_and, logical_or, logical_xor;
 a ``cond=`` var is written in place, as a ``While`` condition must be),
-logical_not :803, increment :810, fused_mha :877,
-fused_attention_qkv :948 and fused_lm_head_loss :968.
+logical_not :803, increment :810, fused_multihead_attention :820,
+fused_mha :877, fused_attention_qkv :948 and fused_lm_head_loss :968.
 Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
@@ -56,7 +56,8 @@ __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
            "greater_equal", "equal", "not_equal", "logical_and",
            "logical_or", "logical_xor", "logical_not", "increment",
            "fused_mha",
-           "fused_attention_qkv", "fused_lm_head_loss"]
+           "fused_attention_qkv", "fused_multihead_attention",
+           "fused_lm_head_loss"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -681,6 +682,36 @@ def fused_attention_qkv(q, k, v, n_head, causal=False, name=None):
     out = helper.create_variable_for_type_inference(q.dtype)
     helper.append_op("fused_attention", {"Q": [q], "K": [k], "V": [v]},
                      {"Out": [out]}, {"n_head": n_head, "causal": causal})
+    return out
+
+
+def fused_multihead_attention(queries, keys, values, n_head, causal=False,
+                              param_attr=None, name=None):
+    """Projected multi-head attention (JAX layers/nn.py:820-857):
+    queries/keys/values [B, T, D] -> [B, T, D] through three ``matmul``
+    projections, ONE ``fused_attention`` op (the flash kernel on the card)
+    and the output ``matmul``, under JAX's parameter names.  The
+    projections are plain matmul ops, so FLAGS_quantize_dtype reaches
+    them."""
+    helper = LayerHelper("fused_attention", name=name)
+    d_model = int(queries.shape[-1])
+    projs = []
+    for x, sfx in zip((queries, keys, values), ("q", "k", "v")):
+        w = helper.create_parameter(_suffixed_param_attr(param_attr, sfx),
+                                    shape=[d_model, d_model],
+                                    dtype=queries.dtype)
+        out = helper.create_variable_for_type_inference(queries.dtype)
+        helper.append_op("matmul", {"X": [x], "Y": [w]}, {"Out": [out]}, {})
+        projs.append(out)
+    att = helper.create_variable_for_type_inference(queries.dtype)
+    helper.append_op("fused_attention",
+                     {"Q": [projs[0]], "K": [projs[1]], "V": [projs[2]]},
+                     {"Out": [att]}, {"n_head": n_head, "causal": causal})
+    wo = helper.create_parameter(_suffixed_param_attr(param_attr, "o"),
+                                 shape=[d_model, d_model],
+                                 dtype=queries.dtype)
+    out = helper.create_variable_for_type_inference(queries.dtype)
+    helper.append_op("matmul", {"X": [att], "Y": [wo]}, {"Out": [out]}, {})
     return out
 
 

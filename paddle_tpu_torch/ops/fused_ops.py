@@ -1,12 +1,16 @@
 """The fused transformer block op (counterpart of
-paddle_tpu/ops/fused_ops.py: fused_transformer_block :464) and
-depthwise_conv2d_transpose (:238)."""
+paddle_tpu/ops/fused_ops.py: fused_transformer_block :464),
+depthwise_conv2d_transpose (:238) and fake_quantize_range_abs_max
+(:246)."""
 from __future__ import annotations
+
+import torch
 
 from ..framework.registry import register_op, single_input
 from ..kernels.fused_block import transformer_block
 from .math_ops import amp_inputs, amp_result
 from .nn_ops import _conv2d_transpose
+from .quantize_ops import _clip, _div, _ste_round
 
 # the op's parameter slots, in transformer_block's params order
 BLOCK_SLOTS = ("Ln1Scale", "Ln1Bias", "Wq", "Wk", "Wv", "Wo", "Ln2Scale",
@@ -51,3 +55,40 @@ def _depthwise_conv2d_transpose(ctx, ins, attrs):
     with groups = the input's channels."""
     x = single_input(ins, "Input")
     return _conv2d_transpose(ctx, ins, dict(attrs, groups=int(x.shape[1])))
+
+
+@register_op("fake_quantize_range_abs_max")
+def _fake_quantize_range_abs_max(ctx, ins, attrs):
+    """ref fake_quantize_op.cc range_abs_max: quantize against the max of
+    |x|-maxes over the last `window_size` steps.  Stateful form: Iter ([1]
+    step counter) and InScales (the circular history) fed, both updated and
+    written back as OutIter / OutScales (detached: they are state); the fed
+    buffer's length is the window.  Stateless form (no Iter / InScales): the
+    running max of InScale and |x|'s max, which never decays (JAX's
+    documented approximation)."""
+    x = single_input(ins, "X")
+    qmax = float(2 ** (int(attrs.get("bit_length", 8)) - 1) - 1)
+    window = int(attrs.get("window_size", 10000))
+    cur = torch.abs(x).max()
+    outs = {}
+    if ins.get("Iter") and ins.get("InScales"):
+        it = ins["Iter"][0].reshape(()).to(torch.int32)
+        hist = ins["InScales"][0].reshape(-1)[:window]
+        window = hist.shape[0]
+        slots = torch.arange(window, device=hist.device)
+        hist = torch.where(slots == torch.remainder(it, window),
+                           cur.to(hist.dtype), hist)
+        seen = torch.clamp(it + 1, max=window)
+        scale = torch.where(slots < seen, hist,
+                            torch.zeros((), dtype=hist.dtype,
+                                        device=hist.device)).max()
+        outs["OutScales"] = [hist.detach()]
+        outs["OutIter"] = [(it + 1).reshape(1)]
+    else:
+        in_scale = (ins["InScale"][0].reshape(()) if ins.get("InScale")
+                    else cur)
+        scale = torch.maximum(cur, in_scale)
+    q = _clip(_ste_round(x / _clip(scale, 1e-8) * qmax), -qmax, qmax)
+    outs.update({"Out": [_div(q * scale, qmax)],
+                 "OutScale": [scale.reshape(1)]})
+    return outs

@@ -14,8 +14,10 @@ returns its 2-byte result directly.  It accumulates in f32 only when the
 caller turns off torch.backends.cuda.matmul.
 allow_bf16_reduced_precision_reduction (on by PyTorch's default, it lets
 cuBLAS add split-K partial sums in bf16), as chip_smoke.py does.
-The JAX package's FLAGS_quantize_dtype branch of amp_matmul is not ported
-(ROADMAP A.6).
+Under FLAGS_quantize_dtype (JAX :71-75) a product of floating operands
+leaves the bf16 plane: int8 or fp8 operands with dynamic scales and a
+straight-through backward (quantize_ops.low_precision_matmul), for mul,
+matmul and bmm (:130) alike.
 """
 from __future__ import annotations
 
@@ -51,8 +53,13 @@ def amp_matmul(x, y, orig_dtype=None):
     """torch.matmul with the AMP dtype policy: when the (amp-cast) operands
     are 2-byte, the product's 2-byte result directly (bf16 for an f32
     origin); f32 operands keep f32 accumulation and amp_result decides the
-    output plane."""
+    output plane.  Under FLAGS_quantize_dtype, floating operands take the
+    low-precision product instead."""
     orig = x.dtype if orig_dtype is None else orig_dtype
+    qd = flags.get_flag("quantize_dtype")
+    if qd and x.is_floating_point() and y.is_floating_point():
+        from .quantize_ops import low_precision_matmul
+        return low_precision_matmul(x, y, str(qd), orig)
     x, y = amp_inputs(x, y)
     if x.dtype.itemsize == 2:
         out = torch.matmul(x, y)            # 2-byte in -> 2-byte out
@@ -102,6 +109,11 @@ def _matmul(ctx, ins, attrs):
     if alpha != 1.0:
         out = out * alpha
     return {"Out": [out]}
+
+
+@register_op("bmm")
+def _bmm(ctx, ins, attrs):
+    return {"Out": [amp_matmul(ins["X"][0], ins["Y"][0])]}
 
 
 @register_op("scale")

@@ -1146,3 +1146,112 @@ def test_trainer_accumulates_to_the_boundary_on_the_card(cuda):
                                       T=128)
     assert res["counts"][("layer_norm", "launches")] == 4 * 5
     assert 0.8 < res["keep"] < 1.0
+
+
+# --- int8 and fp8: the library products and the frozen programs -------------
+
+@pytest.mark.parametrize("qd", ["int8", "e4m3", "e5m2"])
+@pytest.mark.parametrize("xs,ys", [((16384, 512), (512, 2048)),
+                                   ((5, 13), (13, 3)),
+                                   ((2, 3, 9, 20), (2, 3, 20, 7))])
+def test_low_precision_products_match_plain_on_the_card(cuda, qd, xs, ys):
+    """torch._int_mm / _scaled_mm / the bf16 product through the padding
+    and the batch loop against the plain version on the card (f64 for
+    int8: equal) and on the CPU, and the codes of the same inputs equal
+    on both devices."""
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    x, y = _randn(cuda, *xs, seed=60), _randn(cuda, *ys, seed=61)
+    xq = qo.quantize_array(x, x.abs().max(), qd)
+    yq = qo.quantize_array(y, y.abs().amax(0, keepdim=True), qd)
+    xc = qo.quantize_array(x.cpu(), x.abs().max().cpu(), qd)
+    raw = (lambda t: t.view(torch.uint8)) if qd != "int8" else (lambda t: t)
+    assert torch.equal(raw(xq).cpu(), raw(xc))
+    route = {"int8": "int_mm", "e4m3": "scaled_mm", "e5m2": "bf16_mm"}[qd]
+    before = qo.lp_product.launches[route]
+    acc = qo.lp_product(xq, yq, qd)
+    n = int(np.prod(xs[:-2])) if len(ys) > 2 else 1
+    assert qo.lp_product.launches[route] - before == n
+    plain = qo.lp_product_plain(xq, yq, qd)
+    cpu = qo.lp_product_plain(xq.cpu(), yq.cpu(), qd)
+    if qd == "int8":
+        assert acc.dtype == torch.int32
+        assert torch.equal(acc, plain) and torch.equal(acc.cpu(), cpu)
+    else:
+        tol = chip_smoke.FP8_RTOL[qd]
+        assert _rel_err(acc.double(), plain.double()) <= tol
+        assert _rel_err(acc.cpu().double(), cpu.double()) <= tol
+
+
+@pytest.mark.parametrize("qd", ["int8", "e4m3"])
+@pytest.mark.parametrize("case", ["stem", "1x1_s2", "grouped", "dilated",
+                                  "depthwise"])
+def test_quantized_conv2d_lowering_matches_plain_on_the_card(cuda, qd, case):
+    """The im2col lowering at chip_smoke's QUANT_CONVS shapes (the stem
+    and the downsample at batch 2) against F.conv2d of the same codes in
+    f64 on the card."""
+    from paddle_tpu_torch.ops import quantize_ops as qo
+    _, C, H, W, O, k, s, p, d, g = chip_smoke.QUANT_CONVS[case]
+    x = _randn(cuda, 2, C, H, W, seed=62)
+    w = _randn(cuda, O, C // g, k, k, seed=63)
+    xq = qo.quantize_array(x, x.abs().max(), qd)
+    wq = qo.quantize_array(w, qo.channel_scales(w, 0).reshape(-1, 1, 1, 1),
+                           qd)
+    geo = ((s, s), (p, p), (d, d), g)
+    acc = qo.lp_conv2d(xq, wq, qd, *geo)
+    plain = qo.lp_conv2d_plain(xq, wq, qd, *geo)
+    assert acc.shape == plain.shape
+    if qd == "int8":
+        assert torch.equal(acc, plain)
+    else:
+        assert _rel_err(acc.double(), plain.double()) <= \
+            chip_smoke.FP8_RTOL[qd]
+
+
+@pytest.mark.parametrize("qd", ["int8", "e4m3"])
+def test_frozen_program_on_the_card_matches_the_cpu(cuda, qd, tmp_path):
+    """A small conv + fc QAT net trained on the card, frozen to `qd`,
+    saved and served by the card's and the CPU's Predictors: the card's
+    codes replayed on the CPU give its outputs within the smoke's bound,
+    and the Predictor equals the executor bit for bit."""
+    from paddle_tpu_torch.transpiler import QuantizeTranspiler
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = 6
+    qt = QuantizeTranspiler(activation_quantize_type="moving_average_abs_max")
+    with ptt.program_guard(main, startup):
+        img = ptt.layers.data("img", [3, 16, 16], dtype="float32")
+        y = ptt.layers.data("y", [1], dtype="float32")
+        c = ptt.layers.conv2d(img, 8, 3, padding=1, act="relu")
+        c = ptt.layers.conv2d(c, 8, 3, stride=2, padding=1, groups=2)
+        pred = ptt.layers.fc(ptt.layers.reshape(c, [-1, 512]), size=1)
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, y))
+        qt.training_transpile(main, startup)
+        test = main.clone(for_test=True)
+        ptt.optimizer.SGD(0.01).minimize(loss)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.randn(8, 3, 16, 16).astype(np.float32),
+            "y": rng.randn(8, 1).astype(np.float32)}
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss])
+    frozen = qt.freeze_program(test.prune(["img"], [pred.name]),
+                               scope=exe.scope, quantize_dtype=qd)
+    ptt.io.save_inference_model(str(tmp_path), ["img"], [pred], exe,
+                                main_program=frozen)
+    direct, = exe.run(frozen, feed={"img": feed["img"]},
+                      fetch_list=[pred.name])
+    served, = create_predictor(AnalysisConfig(str(tmp_path))).run(
+        {"img": feed["img"]})
+    np.testing.assert_array_equal(served, direct)
+    codes = []
+    with chip_smoke.quant_codes(record=codes):
+        create_predictor(AnalysisConfig(str(tmp_path))).run(
+            {"img": feed["img"]})
+    cpu = create_predictor(AnalysisConfig(str(tmp_path), use_gpu=False))
+    with chip_smoke.quant_codes(replay=codes) as left:
+        replayed, = cpu.run({"img": feed["img"]})
+    assert not left
+    tol = (chip_smoke.QUANT_PRED_RTOL if qd == "int8"
+           else chip_smoke.QAT_FP8_PRED_RTOL)
+    assert np.abs(served - replayed).max() <= tol * np.abs(replayed).max()

@@ -394,6 +394,83 @@ def test_control_flow_schedules_and_conv_family_run_without_jax():
                       "leaked": []}
 
 
+def test_no_file_of_the_port_imports_ml_dtypes():
+    """The card's machine has no ml_dtypes: fp8 arrays are recognised by
+    their dtype's name and moved as bytes (io.py)."""
+    pattern = re.compile(r"^\s*(import|from)\s+ml_dtypes(\.|\s|$)", re.M)
+    for path in _port_files():
+        with open(path) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+_QUANTIZE_CHILD = """
+import json, sys, tempfile
+import numpy as np
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+from paddle_tpu_torch.transpiler import InferenceTranspiler, QuantizeTranspiler
+main, startup = ptt.Program(), ptt.Program()
+main.random_seed = startup.random_seed = 2
+qt = QuantizeTranspiler(activation_quantize_type="moving_average_abs_max")
+with ptt.program_guard(main, startup):
+    img = ptt.layers.data("img", [3, 8, 8], dtype="float32")
+    y = ptt.layers.data("y", [1], dtype="float32")
+    c = ptt.layers.conv2d(img, 4, 3, padding=1, act="relu")
+    q = ptt.layers.data("q", [6, 8], dtype="float32")
+    a = ptt.layers.fused_multihead_attention(q, q, q, 2)
+    h = ptt.layers.fc(ptt.layers.reshape(c, [-1, 256]), size=8, act="relu")
+    pred = ptt.layers.fc(h, size=1)
+    loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, y)) \\
+        + ptt.layers.mean(a)
+    qt.training_transpile(main, startup)
+    test = main.clone(for_test=True)
+    ptt.optimizer.SGD(0.01).minimize(loss)
+exe = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+exe.run(startup)
+rng = np.random.RandomState(0)
+feed = {"img": rng.randn(4, 3, 8, 8).astype("float32"),
+        "y": rng.randn(4, 1).astype("float32"),
+        "q": rng.randn(4, 6, 8).astype("float32")}
+ptt.flags.set_flag("quantize_dtype", "int8")
+losses = [float(exe.run(main, feed=feed, fetch_list=[loss])[0].reshape(-1)[0])
+          for _ in range(3)]
+ptt.flags.set_flag("quantize_dtype", "")
+out = {}
+for qd in ("int8", "e4m3", "e5m2"):
+    frozen = qt.freeze_program(test.clone().prune(["img"], [pred.name]),
+                               scope=exe.scope, quantize_dtype=qd)
+    InferenceTranspiler().transpile(frozen, scope=exe.scope)
+    d = tempfile.mkdtemp()
+    ptt.io.save_inference_model(d, ["img"], [pred], exe, main_program=frozen)
+    got, = create_predictor(AnalysisConfig(d, use_gpu=False)).run(
+        {"img": feed["img"]})
+    out[qd] = [list(got.shape), bool(np.isfinite(got).all())]
+print(json.dumps({
+    "finite": all(np.isfinite(losses)), "frozen": out,
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
+                                            "ml_dtypes")),
+}))
+"""
+
+
+def test_quantize_plane_runs_without_jax():
+    """QAT under quantize_dtype int8 (a conv, fused_multihead_attention,
+    two fc), then freeze_program to int8, e4m3 and e5m2, the conv + BN
+    fold, save_inference_model and the Predictor: on the CPU with no JAX
+    and no ml_dtypes loaded."""
+    res = subprocess.run([sys.executable, "-c", _QUANTIZE_CHILD],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report == {"finite": True,
+                      "frozen": {qd: [[4, 1], True]
+                                 for qd in ("int8", "e4m3", "e5m2")},
+                      "leaked": []}
+
+
 def test_entry_points_refuse_the_cpu_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the defaults are valid")
