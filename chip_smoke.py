@@ -418,6 +418,25 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "lm_int8_train", "resnet_int8_serve", "resnet_qat_train",
    "fused_multihead_attention" and "fused_multihead_attention_amp" in
    launches_by_path.
+5n. The dense op plane (slice 25): (a) bench_deepfm's program (phase
+   5i's configuration: 39 fields, two tables of 1,000,001 rows, K 10,
+   towers 400-400-400, batch 512, Adagrad(0.01)) with layers.auc(prob,
+   label) appended trains DENSE_AUC_STEPS steps through Executor.run,
+   fetching the AUC and the probabilities; the card's StatPos/StatNeg
+   must equal metrics.Auc fed the same fetched probabilities and labels
+   bit for bit, and the AUC its eval within DENSE_AUC_ATOL; run_steps is
+   timed with and without the auc op, f32 and under AMP, in turns, with
+   the host syncs of the fewer of two runs without the op and of the
+   most of three with it (the op must add none), and at the end of the
+   smoke one step of each is traced for the kernel launches and the
+   device busy time the op adds.  (b) Every op the plane added
+   (_dense_sweep_cases) runs through the Executor on the card and on the
+   CPU at DENSE_N x DENSE_D f32 operands or the like, with the gradient
+   of each differentiable op through append_backward: movement, index and
+   integer ops bit for bit (ties planted for arg_max, arg_min, argsort
+   and maxout, repeated ids for the overwriting scatter), the rest within
+   DENSE_RTOL of max |CPU|; the random ops by their moments on the card
+   (_dense_random_cases).  Any miss fails the phase.
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -465,7 +484,13 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    bf16 LM-head forward's two launches and the backward's, one by one, on
    both paths with their TFLOP/s, and the smoke fails unless the forward
    makes HEAD_FWD_KERNELS on each path (the wgmma kernels on the wgmma
-   path) and the backward's wgmma path head_bwd_kernels() a chunk.
+   path) and the backward's wgmma path head_bwd_kernels() a chunk.  The
+   traces of short calls (a few launches each: the schedule, the conv
+   family's cases, the bench_deepfm steps with and without the auc op,
+   and the LM-head, flash-backward, block and SDPA breakdowns) run in a
+   fresh process of their own (short_traces) with the same checks, and
+   each recorded cycle holds PROFILE_PAD_S of idle host time at both
+   ends.
 7. A JSON line with every kernel's numbers at the training step's shapes
    (layer norm and flash forward also at the serving shape, under
    "serve"; launches on its training path, and on every path under
@@ -479,7 +504,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    phase 5l's under "nmt_noam_*" (layer norms only),
    "resnet_piecewise_train" and "conv_family", all 0, phase 5m's under
    "lm_int8_train" (the AMP row's), "resnet_int8_serve" and
-   "resnet_qat_train" (0) and "fused_multihead_attention(_amp)";
+   "resnet_qat_train" (0) and "fused_multihead_attention(_amp)",
+   phase 5n's under "dense_plane", all 0;
    layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
@@ -500,6 +526,7 @@ import functools
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -6151,11 +6178,12 @@ def check_lrs(tag, got, want):
 
 
 def schedule_cost(torch):
-    """The launches and host syncs the schedule adds to a step: one run
-    of a program holding only noam_decay's two ops (the counter's
-    increment and lr_schedule) on the card, traced and under the sync
-    debug mode (at the end of the smoke, with the other traces); the
-    schedule must make no sync."""
+    """The launches and host syncs the schedule adds to a step: runs of
+    a program holding only noam_decay's two ops (the counter's increment
+    and lr_schedule) on the card, traced and under the sync debug mode
+    (with the other short traces, in a fresh process); after two warm
+    runs (in a fresh process the second run of the program made one
+    sync), the next two must make none."""
     import paddle_tpu_torch as ptt
     ptt.reset_default_programs()
     main, startup = ptt.Program(), ptt.Program()
@@ -6166,8 +6194,9 @@ def schedule_cost(torch):
 
     def run():
         return exe.run(main, fetch_list=[lr], return_numpy=False)
-    run()
-    _, syncs = count_syncs(torch, run)
+    warm = [sync_sites(torch, run)[1] for _ in range(2)]
+    sites = [sync_sites(torch, run)[1] for _ in range(2)]
+    syncs = sum(len(s) for s in sites)
     events, wall_us = profiled(torch, run)
     launches = _device_launches(torch, events)
     kernels = sorted(_short_kernel_name(e.key)[:40] for e in events
@@ -6175,10 +6204,10 @@ def schedule_cost(torch):
                      and e.self_device_time_total > 0)
     log(f"[trace] the schedule alone (noam_decay{SCHED_NOAM}): "
         f"{len(main.global_block().ops)} ops, {launches} kernel launches "
-        f"({kernels}), {syncs} host syncs, {wall_us / 1e3:.3f} ms a run "
-        f"(synchronized)")
+        f"({kernels}), {syncs} host syncs in two runs (the warm runs' "
+        f"{warm}), {wall_us / 1e3:.3f} ms a run (synchronized)")
     if syncs:
-        raise RuntimeError(f"the schedule made {syncs} host syncs")
+        raise RuntimeError(f"the schedule made {syncs} host syncs: {sites}")
     return launches, syncs
 
 
@@ -6393,12 +6422,11 @@ def conv_family(torch):
     every input's gradient within CONV_RTOL (f32) or CONV_AMP_STEPS bf16
     steps (AMP), the index pools' Mask equal, and for each convolution a
     run with cuDNN's TF32 on outside CONV_RTOL.  The counters are zeroed
-    around it: no kernel of this repo.  Returns the counts and the
-    cases' full-width inputs for the traces at the end of the smoke."""
+    around it: no kernel of this repo.  Returns the counts and the rows."""
     from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
     counters = launch_counters()
     zero_counters(counters)
-    made, rows, keep = {}, {}, {}
+    made, rows = {}, {}
     for name, (op, _, _, attrs) in CONV_FAMILY.items():
         ins = _conv_inputs(torch, name, made)
         is_conv = "conv" in op
@@ -6406,13 +6434,7 @@ def conv_family(torch):
         for amp in (False, True):
             bf16_in = amp and not is_conv
             tag = f"[conv family] {name}{' amp' if amp else ''}"
-            full = {k: [t.to(torch.bfloat16) if bf16_in and
-                        k in ("Input", "X") else t for t in v]
-                    for k, v in ins.items()}
-            leaves = [t.detach().requires_grad_(True)
-                      for v in full.values() for t in v]
-            it = iter(leaves)
-            full = {k: [next(it) for _ in v] for k, v in full.items()}
+            full, leaves = _conv_case(torch, name, ins, amp)
             ctx = LowerContext(SEED, torch.device(DEVICE))
             with amp_bf16(amp):
                 res = get_op_def(op).lower(ctx, full, attrs)
@@ -6427,7 +6449,6 @@ def conv_family(torch):
                 warmup=1)
             if name == "conv3d_c3d" and not amp:
                 made[name] = out.detach()
-            keep[(name, amp)] = (op, full, attrs, leaves)
             del res, out, ct
             part = {k: [t[:CONV_CHECK_SAMPLES] if k in ("Input", "X")
                         else t for t in v] for k, v in ins.items()}
@@ -6466,7 +6487,38 @@ def conv_family(torch):
     if any(counts.values()):
         raise RuntimeError(f"[conv family] launched this repo's kernels: "
                            f"{counts}")
-    return counts, rows, keep
+    return counts, rows
+
+
+def _conv_case(torch, name, ins, amp):
+    """A family case's full-width inputs as its lowering takes them (the
+    pools' and norms' X in bf16 under AMP, as after a bf16 convolution),
+    each a leaf: (inputs by slot, leaves)."""
+    bf16_in = amp and "conv" not in CONV_FAMILY[name][0]
+    full = {k: [t.to(torch.bfloat16) if bf16_in and k in ("Input", "X")
+                else t for t in v] for k, v in ins.items()}
+    leaves = [t.detach().requires_grad_(True)
+              for v in full.values() for t in v]
+    it = iter(leaves)
+    return {k: [next(it) for _ in v] for k, v in full.items()}, leaves
+
+
+def conv_family_cases(torch):
+    """Every conv-family case at full width, f32 and AMP, made as
+    conv_family makes them: {(name, amp): (op, inputs, attrs, leaves)}."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    made, cases = {}, {}
+    for name, (op, _, _, attrs) in CONV_FAMILY.items():
+        ins = _conv_inputs(torch, name, made)
+        for amp in (False, True):
+            full, leaves = _conv_case(torch, name, ins, amp)
+            cases[(name, amp)] = (op, full, attrs, leaves)
+        if name == "conv3d_c3d":
+            res = get_op_def(op).lower(
+                LowerContext(SEED, torch.device(DEVICE)),
+                cases[(name, False)][1], attrs)
+            made[name] = res["Output"][0].detach()
+    return cases
 
 
 def while_switch(torch):
@@ -6590,8 +6642,7 @@ def phase_sched_conv(torch):
     control, run_steps f32 and AMP), piecewise_decay on bench_resnet50's,
     what a schedule adds to a step, the conv family at its public
     models' widths, and While / Switch on the card.  Returns the launch
-    counts by path and the conv family's inputs for the traces at the
-    end of the smoke."""
+    counts by path."""
     t0 = time.perf_counter()
     check = xfmr_card_vs_cpu(torch, "nmt", schedule=noam)
     by_path, rows = {}, {}
@@ -6599,7 +6650,7 @@ def phase_sched_conv(torch):
         key = f"nmt_noam_train{'_amp' if amp else ''}"
         by_path[key], rows[key] = sched_nmt_train(torch, amp)
     by_path["resnet_piecewise_train"], rows["resnet"] = sched_resnet(torch)
-    by_path["conv_family"], conv_rows, keep = conv_family(torch)
+    by_path["conv_family"], conv_rows = conv_family(torch)
     while_switch(torch)
     recs = [r for r in VERIFY_LOG if r["phase"] == "sched_conv"]
     log(f"[sched_conv] NMT noam check loss "
@@ -6613,15 +6664,15 @@ def phase_sched_conv(torch):
         f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
     if not recs or any(r["errors"] for r in recs):
         raise RuntimeError(f"sched_conv verifications {recs}")
-    return by_path, keep
+    return by_path
 
 
-def trace_sched_conv(torch, keep):
-    """One forward and backward of each conv-family case traced by
-    kernel class (f32 and AMP), with the device's idle share; no kernel
-    of this repo in any."""
+def trace_sched_conv(torch, cases):
+    """One forward and backward of each conv-family case
+    (conv_family_cases) traced by kernel class (f32 and AMP), with the
+    device's idle share; no kernel of this repo in any."""
     from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
-    for (name, amp), (op, full, attrs, leaves) in keep.items():
+    for (name, amp), (op, full, attrs, leaves) in cases.items():
         def fn():
             with amp_bf16(amp):
                 res = get_op_def(op).lower(
@@ -7606,6 +7657,651 @@ def trace_quant(torch, keep):
         f"{attributed_ms(raw, RANGE_PREFIX + 'quantize_array'):.3f} ms")
 
 
+# phase 5n: the dense op plane.  (a) DeepFM as bench_deepfm trains it
+# (phase 5i's DEEPFM_CFG, batch and Adagrad) with layers.auc appended;
+# (b) every op the plane added, through the Executor on the card and on
+# the CPU, forward and (where it is differentiable) backward through
+# append_backward, at DENSE_N x DENSE_D f32 operands (2 MiB) or the
+# like
+DENSE_AUC_STEPS = 5
+DENSE_AUC_ATOL = 1e-6       # the in-graph AUC against the host Auc's
+DENSE_N, DENSE_D = 512, 1024
+DENSE_RTOL = 1e-5           # max |card - CPU| / max |CPU| where it computes
+DENSE_DRAWS = 1 << 20       # entries of each random op's draw
+
+
+def _dense_f(r, *shape, scale=1.0):
+    return (r.randn(*shape) * scale).astype("float32")
+
+
+def _dense_kinks(r, points, *shape, scale=1.0):
+    """Seeded normals with each of `points` planted in 1/8 of the entries
+    (the kinks and bounds of the op)."""
+    x = _dense_f(r, *shape, scale=scale)
+    flat = x.reshape(-1)
+    for i, p in enumerate(points):
+        flat[i::8 * len(points)] = p
+    return x
+
+
+def _dense_ties(r, *shape):
+    return r.randint(0, 4, shape).astype("float32")
+
+
+def _dense_unary(op, points=(0.0,), attrs=None, positive=False, scale=1.0):
+    import numpy as np
+
+    def build(r):
+        x = _dense_kinks(r, points, DENSE_N, DENSE_D, scale=scale)
+        return {"X": [np.abs(x) + 0.5 if positive else x]}
+    return (op, build, attrs or {}, {"Out": 1}, ("X",), "rel")
+
+
+def _dense_sweep_cases():
+    """name -> (op, inputs(rng), attrs, {out slot: count}, differentiated
+    slots, kind): "bits" holds outputs and gradients bit for bit, "fwd"
+    the outputs bit for bit and the gradients (sums) at DENSE_RTOL, "rel"
+    both at DENSE_RTOL."""
+    import numpy as np
+    N, D = DENSE_N, DENSE_D
+    f, kinks, ties = _dense_f, _dense_kinks, _dense_ties
+    img = (16, 8, 64, 64)
+    c = {
+        "abs": _dense_unary("abs"), "ceil": _dense_unary("ceil", (0.5,)),
+        "floor": _dense_unary("floor", (0.5,)),
+        "round": _dense_unary("round", (0.5, 1.5, 2.5), scale=3.0),
+        "cos": _dense_unary("cos"), "sin": _dense_unary("sin"),
+        "exp": _dense_unary("exp"), "erf": _dense_unary("erf"),
+        "log": _dense_unary("log", (), positive=True),
+        "rsqrt": _dense_unary("rsqrt", (), positive=True),
+        "reciprocal": _dense_unary("reciprocal", (), positive=True),
+        "logsigmoid": _dense_unary("logsigmoid"),
+        "tanh_shrink": _dense_unary("tanh_shrink"),
+        "softplus": _dense_unary("softplus"),
+        "softsign": _dense_unary("softsign"),
+        "brelu": _dense_unary("brelu", (-1.0, 1.0),
+                              {"t_min": -1.0, "t_max": 1.0}),
+        "leaky_relu": _dense_unary("leaky_relu", (0.0,), {"alpha": 0.1}),
+        "soft_relu": _dense_unary("soft_relu", (-1.0, 1.0),
+                                  {"threshold": 1.0}),
+        "elu": _dense_unary("elu"),
+        "relu6": _dense_unary("relu6", (0.0, 6.0), scale=4.0),
+        "pow": _dense_unary("pow", (0.0,), {"factor": 3.0}),
+        "stanh": _dense_unary("stanh"),
+        "hard_shrink": _dense_unary("hard_shrink", (0.5, -0.5)),
+        "softshrink": _dense_unary("softshrink", (0.5, -0.5)),
+        "hard_sigmoid": _dense_unary("hard_sigmoid", (-2.5, 2.5),
+                                     scale=3.0),
+        "swish": _dense_unary("swish"),
+        "hard_swish": _dense_unary("hard_swish", (-3.0, 3.0), scale=4.0),
+        "mish": _dense_unary("mish"),
+        "thresholded_relu": _dense_unary("thresholded_relu", (1.0,)),
+        "selu": _dense_unary("selu"),
+        "prelu": ("prelu", lambda r: {"X": [kinks(r, (0.0,), *img)],
+                                      "Alpha": [f(r, 8, scale=0.2)]},
+                  {"mode": "channel"}, {"Out": 1}, ("X", "Alpha"), "rel"),
+        "maxout": ("maxout", lambda r: {"X": [ties(r, *img)]},
+                   {"groups": 2}, {"Out": 1}, ("X",), "fwd"),
+        "reshape2": ("reshape2", lambda r: {"X": [f(r, N, D)]},
+                     {"shape": [0, 32, -1]}, {"Out": 1, "XShape": 1},
+                     ("X",), "bits"),
+        "transpose2": ("transpose2", lambda r: {"X": [f(r, 32, N, 32)]},
+                       {"axis": [2, 0, 1]}, {"Out": 1, "XShape": 1},
+                       ("X",), "bits"),
+        "squeeze2": ("squeeze2", lambda r: {"X": [f(r, N, 1, D)]},
+                     {"axes": [1]}, {"Out": 1, "XShape": 1}, ("X",),
+                     "bits"),
+        "unsqueeze2": ("unsqueeze2", lambda r: {"X": [f(r, N, D)]},
+                       {"axes": [0, 2]}, {"Out": 1, "XShape": 1}, ("X",),
+                       "bits"),
+        "stack": ("stack", lambda r: {"X": [f(r, N, D // 2),
+                                            f(r, N, D // 2)]},
+                  {"axis": 1}, {"Y": 1}, ("X",), "bits"),
+        "unstack": ("unstack", lambda r: {"X": [f(r, N, 4, D // 4)]},
+                    {"axis": 1}, {"Y": 4}, ("X",), "bits"),
+        "unbind": ("unbind", lambda r: {"X": [f(r, 2, N, D // 2)]},
+                   {"axis": 0}, {"Y": 2}, ("X",), "bits"),
+        "flatten": ("flatten", lambda r: {"X": [f(r, *img)]}, {"axis": 2},
+                    {"Out": 1}, ("X",), "bits"),
+        "flatten2": ("flatten2", lambda r: {"X": [f(r, *img)]}, {"axis": 1},
+                     {"Out": 1, "XShape": 1}, ("X",), "bits"),
+        "flatten_contiguous_range": ("flatten_contiguous_range", lambda r: {
+            "X": [f(r, *img)]}, {"start_axis": 1, "stop_axis": 2},
+            {"Out": 1}, ("X",), "bits"),
+        "expand_as": ("expand_as", lambda r: {"X": [f(r, 1, D)],
+                                              "Y": [f(r, N, D)]}, {},
+                      {"Out": 1}, ("X",), "fwd"),
+        "tile": ("tile", lambda r: {"X": [f(r, N // 4, D // 2)]},
+                 {"repeat_times": [4, 2]}, {"Out": 1}, ("X",), "fwd"),
+        "strided_slice": ("strided_slice", lambda r: {"Input": [f(r, N, D)]},
+                          {"axes": [0, 1], "starts": [N - 1, 3],
+                           "ends": [0, D], "strides": [-3, 2]}, {"Out": 1},
+                          ("Input",), "bits"),
+        "gather_nd": ("gather_nd", lambda r: {
+            "X": [f(r, N, D)], "Index": [r.randint(0, N, (N, 1))]}, {},
+            {"Out": 1}, ("X",), "fwd"),
+        # a repeated id keeps its last update, and only it gets a gradient
+        "scatter": ("scatter", lambda r: {
+            "X": [f(r, 4 * N, 256)], "Ids": [r.randint(0, N, (2 * N,))],
+            "Updates": [f(r, 2 * N, 256)]}, {"overwrite": True}, {"Out": 1},
+            ("X", "Updates"), "bits"),
+        "scatter_add": ("scatter", lambda r: {
+            "X": [f(r, 4 * N, 256)], "Ids": [r.randint(0, N, (2 * N,))],
+            "Updates": [f(r, 2 * N, 256)]}, {"overwrite": False},
+            {"Out": 1}, ("X", "Updates"), "rel"),
+        "scatter_nd_add": ("scatter_nd_add", lambda r: {
+            "X": [f(r, 4 * N, 256)], "Index": [r.randint(0, N, (2 * N, 1))],
+            "Updates": [f(r, 2 * N, 256)]}, {}, {"Out": 1},
+            ("X", "Updates"), "rel"),
+        "pad": ("pad", lambda r: {"X": [f(r, N, D)]},
+                {"paddings": [1, 2, 3, 0], "pad_value": 0.5}, {"Out": 1},
+                ("X",), "bits"),
+        "pad2d_reflect": ("pad2d", lambda r: {"X": [f(r, *img)]},
+                          {"paddings": [2, 1, 1, 3], "mode": "reflect"},
+                          {"Out": 1}, ("X",), "fwd"),
+        "pad2d_edge": ("pad2d", lambda r: {"X": [f(r, *img)]},
+                       {"paddings": [1, 2, 3, 0], "mode": "edge"},
+                       {"Out": 1}, ("X",), "fwd"),
+        "pad_constant_like": ("pad_constant_like", lambda r: {
+            "X": [f(r, N, D)], "Y": [f(r, N - 7, D - 5)]},
+            {"pad_value": 1.5}, {"Out": 1}, ("Y",), "bits"),
+        "crop": ("crop", lambda r: {"X": [f(r, *img)]},
+                 {"offsets": [0, 1, 3, 2], "shape": [-1, 6, 50, 60]},
+                 {"Out": 1}, ("X",), "bits"),
+        "reverse": ("reverse", lambda r: {"X": [f(r, N, D)]},
+                    {"axis": [0, 1]}, {"Out": 1}, ("X",), "bits"),
+        "flip": ("flip", lambda r: {"X": [f(r, *img)]}, {"axis": [2]},
+                 {"Out": 1}, ("X",), "bits"),
+        "roll": ("roll", lambda r: {"X": [f(r, N, D)]},
+                 {"shifts": [-3, 100], "axis": [0, 1]}, {"Out": 1}, ("X",),
+                 "bits"),
+        "multiplex": ("multiplex", lambda r: {
+            "Ids": [r.randint(0, 3, (N, 1))],
+            "X": [f(r, N, D), f(r, N, D), f(r, N, D)]}, {}, {"Out": 1},
+            ("X",), "bits"),
+        "where": ("where", lambda r: {
+            "Condition": [r.rand(N, D) < 0.5], "X": [f(r, N, D)],
+            "Y": [f(r, N, D)]}, {}, {"Out": 1}, ("X", "Y"), "bits"),
+        "where_index": ("where_index", lambda r: {
+            "Condition": [r.rand(N, D) < 0.3]}, {}, {"Out": 1}, (), "bits"),
+        "space_to_depth": ("space_to_depth", lambda r: {"X": [f(r, *img)]},
+                           {"blocksize": 2}, {"Out": 1}, ("X",), "bits"),
+        "pixel_shuffle": ("pixel_shuffle", lambda r: {"X": [f(r, *img)]},
+                          {"upscale_factor": 2}, {"Out": 1}, ("X",),
+                          "bits"),
+        "is_empty": ("is_empty", lambda r: {"X": [f(r, N, D)]}, {},
+                     {"Out": 1}, (), "bits"),
+        "shard_index": ("shard_index", lambda r: {
+            "X": [r.randint(0, 1 << 20, (N * D // 4, 1))]},
+            {"index_num": 1 << 20, "nshards": 3, "shard_id": 1,
+             "ignore_value": -1}, {"Out": 1}, (), "bits"),
+        # ties in most rows: the first index, a stable order
+        "arg_max": ("arg_max", lambda r: {"X": [ties(r, N, D)]},
+                    {"axis": 1}, {"Out": 1}, (), "bits"),
+        "arg_min": ("arg_min", lambda r: {"X": [ties(r, N, D)]},
+                    {"axis": 0}, {"Out": 1}, (), "bits"),
+        "argsort": ("argsort", lambda r: {"X": [ties(r, N, D)]},
+                    {"axis": 1, "descending": True},
+                    {"Out": 1, "Indices": 1}, ("X",), "bits"),
+        "dot": ("dot", lambda r: {"X": [f(r, N, D)], "Y": [f(r, N, D)]},
+                {}, {"Out": 1}, ("X", "Y"), "rel"),
+        "minus": ("minus", lambda r: {"X": [f(r, N, D)], "Y": [f(r, N, D)]},
+                  {}, {"Out": 1}, ("X", "Y"), "bits"),
+        "clip": _dense_unary("clip", (-0.5, 0.5), {"min": -0.5,
+                                                   "max": 0.5}),
+        "cumsum": ("cumsum", lambda r: {"X": [f(r, N, D)]},
+                   {"axis": 1, "exclusive": True, "reverse": True},
+                   {"Out": 1}, ("X",), "rel"),
+        "isfinite": ("isfinite", lambda r: {"X": [f(r, N, D)]}, {},
+                     {"Out": 1}, (), "bits"),
+        "squared_l2_distance": ("squared_l2_distance", lambda r: {
+            "X": [f(r, N, D)], "Y": [f(r, N, D)]}, {},
+            {"Out": 1, "sub_result": 1}, ("X", "Y"), "rel"),
+        "l1_norm": ("l1_norm", lambda r: {"X": [kinks(r, (0.0,), N, D)]},
+                    {}, {"Out": 1}, ("X",), "rel"),
+        "norm": ("norm", lambda r: {"X": [f(r, N, D)]}, {"axis": 1},
+                 {"Out": 1, "Norm": 1}, ("X",), "rel"),
+        "bilinear_tensor_product": ("bilinear_tensor_product", lambda r: {
+            "X": [f(r, N, 64)], "Y": [f(r, N, 64)],
+            "Weight": [f(r, 32, 64, 64, scale=0.1)],
+            "Bias": [f(r, 1, 32)]}, {}, {"Out": 1},
+            ("X", "Y", "Weight", "Bias"), "rel"),
+        "fill_zeros_like": ("fill_zeros_like", lambda r: {"X": [f(r, N, D)]},
+                            {}, {"Out": 1}, (), "bits"),
+        "fill_any_like": ("fill_any_like", lambda r: {"X": [f(r, N, D)]},
+                          {"value": 2.5}, {"Out": 1}, (), "bits"),
+        "shape": ("shape", lambda r: {"Input": [f(r, *img)]}, {},
+                  {"Out": 1}, (), "bits"),
+        "range": ("range", lambda r: {"Start": [np.full((1,), -1.5, "f4")],
+                                      "End": [np.full((1,), 9.0, "f4")],
+                                      "Step": [np.full((1,), 0.01, "f4")]},
+                  {"len": 1000}, {"Out": 1}, ("Start", "Step"), "rel"),
+        "eye": ("eye", lambda r: {}, {"num_rows": N, "num_columns": D},
+                {"Out": 1}, (), "bits"),
+        "linspace": ("linspace", lambda r: {}, {"start": 0.0, "stop": 511.0,
+                                                "num": D}, {"Out": 1}, (),
+                     "bits"),
+        "mse_loss": ("mse_loss", lambda r: {"X": [f(r, N, D)],
+                                            "Label": [f(r, N, D)]}, {},
+                     {"Out": 1}, ("X",), "rel"),
+        "smooth_l1_loss": ("smooth_l1_loss", lambda r: {
+            "X": [f(r, N, D)], "Y": [f(r, N, D)],
+            "InsideWeight": [np.abs(f(r, N, D))],
+            "OutsideWeight": [np.abs(f(r, N, D))]}, {"sigma": 2.0},
+            {"Out": 1, "Diff": 1}, ("X", "Y"), "rel"),
+        "huber_loss": ("huber_loss", lambda r: {"X": [f(r, N, D)],
+                                                "Y": [f(r, N, D)]},
+                       {"delta": 0.7}, {"Out": 1, "Residual": 1},
+                       ("X", "Y"), "rel"),
+        "log_loss": ("log_loss", lambda r: {
+            "Predicted": [r.rand(N * D, 1).astype("f4") * 0.8 + 0.1],
+            "Labels": [r.randint(0, 2, (N * D, 1)).astype("f4")]}, {},
+            {"Loss": 1}, ("Predicted",), "rel"),
+        "hinge_loss": ("hinge_loss", lambda r: {
+            "Logits": [kinks(r, (1.0, -1.0), N * D, 1)],
+            "Labels": [r.randint(0, 2, (N * D, 1)).astype("f4")]}, {},
+            {"Loss": 1}, ("Logits",), "rel"),
+        "modified_huber_loss": ("modified_huber_loss", lambda r: {
+            "X": [kinks(r, (-1.0, 1.0), N * D, 1, scale=2.0)],
+            "Y": [r.randint(0, 2, (N * D, 1)).astype("f4")]}, {},
+            {"Out": 1, "IntermediateVal": 1}, ("X",), "rel"),
+        "bpr_loss": ("bpr_loss", lambda r: {
+            "X": [f(r, N, D)], "Label": [r.randint(0, D, (N, 1))]}, {},
+            {"Y": 1}, ("X",), "rel"),
+        "margin_rank_loss": ("margin_rank_loss", lambda r: {
+            "X1": [f(r, N * D, 1)], "X2": [f(r, N * D, 1)],
+            "Label": [np.sign(f(r, N * D, 1))]}, {"margin": 0.1},
+            {"Out": 1, "Activated": 1}, ("X1", "X2"), "rel"),
+        "rank_loss": ("rank_loss", lambda r: {
+            "Left": [f(r, N * D, 1)], "Right": [f(r, N * D, 1)],
+            "Label": [r.randint(0, 2, (N * D, 1)).astype("f4")]}, {},
+            {"Out": 1}, ("Left", "Right"), "rel"),
+        "kldiv_loss": ("kldiv_loss", lambda r: {
+            "X": [np.log(r.rand(N, D).astype("f4") + 0.1)],
+            "Target": [r.rand(N, D).astype("f4")]},
+            {"reduction": "batchmean"}, {"Loss": 1}, ("X",), "rel"),
+        "npair_loss": ("npair_loss", lambda r: {
+            "Anchor": [f(r, N, 256, scale=0.1)],
+            "Positive": [f(r, N, 256, scale=0.1)],
+            "Labels": [r.randint(0, 64, (N,)).astype("f4")]}, {},
+            {"Out": 1}, ("Anchor", "Positive"), "rel"),
+        "auc": ("auc", lambda r: {
+            "Predict": [r.rand(N * D // 8, 2).astype("f4")],
+            "Label": [r.randint(0, 2, (N * D // 8, 1))],
+            "StatPos": [r.randint(0, 9, (4096,)).astype("f4")],
+            "StatNeg": [r.randint(0, 9, (4096,)).astype("f4")]}, {},
+            {"AUC": 1, "StatPosOut": 1, "StatNegOut": 1}, (), "bits"),
+        "mean_iou": ("mean_iou", lambda r: {
+            "Predictions": [r.randint(0, 21, (N * D,))],
+            "Labels": [r.randint(0, 21, (N * D,))]}, {"num_classes": 21},
+            {"OutMeanIou": 1, "OutWrong": 1, "OutCorrect": 1}, (), "rel"),
+        "precision_recall": ("precision_recall", lambda r: {
+            "Indices": [r.randint(0, 10, (N * D, 1))],
+            "Labels": [r.randint(0, 10, (N * D, 1))],
+            "StatesInfo": [np.zeros((10, 3), "f4")]}, {},
+            {"BatchMetrics": 1, "AccumMetrics": 1, "AccumStatesInfo": 1},
+            (), "rel"),
+        "edit_distance": ("edit_distance", lambda r: {
+            "Hyps": [r.randint(0, 6, (4 * D, 24))],
+            "Refs": [r.randint(0, 6, (4 * D, 20))]}, {"normalized": True},
+            {"Out": 1, "SequenceNum": 1}, (), "bits"),
+        "sequence_erase": ("sequence_erase", lambda r: {
+            "X": [r.randint(0, 9, (N, D))]}, {"tokens": [2, 5]}, {"Out": 1},
+            (), "bits"),
+        "interpolate_align": ("interpolate", lambda r: {"X": [f(r, *img)]},
+                              {"out_h": 96, "out_w": 80}, {"Out": 1},
+                              ("X",), "rel"),
+        "bilinear_interp_shrink": ("bilinear_interp", lambda r: {
+            "X": [f(r, *img)]}, {"out_h": 40, "out_w": 27,
+                                 "align_corners": False}, {"Out": 1},
+            ("X",), "rel"),
+        "nearest_interp": ("nearest_interp", lambda r: {"X": [f(r, *img)]},
+                           {"out_h": 40, "out_w": 100}, {"Out": 1}, ("X",),
+                           "fwd"),
+        "interpolate_bicubic": ("interpolate", lambda r: {
+            "X": [f(r, *img)]}, {"out_h": 80, "out_w": 48,
+                                 "interp_method": "bicubic",
+                                 "align_corners": False}, {"Out": 1},
+            ("X",), "rel"),
+        "lookup_table_v2": ("lookup_table_v2", lambda r: {
+            "W": [f(r, 4 * N, 256)], "Ids": [r.randint(0, 4 * N, (N, 4))]},
+            {"padding_idx": 7}, {"Out": 1}, ("W",), "fwd"),
+    }
+    return c
+
+
+# the random ops, held by their moments on the card: (op, inputs, attrs,
+# check(draw) -> None or what is wrong)
+def _dense_random_cases():
+    import numpy as np
+    n = DENSE_DRAWS
+    tstd = 0.8796256610342398      # a normal cut to [-2, 2]
+
+    def moments(lo, hi, mean, std):
+        def check(x):
+            m, s = float(x.mean()), float(x.std())
+            if not (x.min() >= lo and x.max() <= hi
+                    and abs(m - mean) < 0.01 and abs(s - std) < 0.01):
+                return f"min {x.min()} max {x.max()} mean {m} std {s}"
+        return check
+
+    p = np.array([0.1, 0.2, 0.0, 0.7], "float32")
+
+    def freq(x):
+        got = np.bincount(x.reshape(-1), minlength=4) / x.size
+        if np.abs(got - p).max() > 0.01:
+            return f"frequencies {got}"
+
+    inf = float("inf")
+    return {
+        "uniform_random_batch_size_like": (
+            {"Input": [np.zeros((n // 64, 3), "f4")]},
+            {"shape": [-1, 64], "min": -0.5, "max": 1.5},
+            moments(-0.5, 1.5, 0.5, 2 / 12 ** 0.5)),
+        "gaussian_random_batch_size_like": (
+            {"Input": [np.zeros((2, n // 64), "f4")]},
+            {"shape": [64, -1], "input_dim_idx": 1, "output_dim_idx": 1,
+             "mean": 1.0, "std": 2.0}, moments(-inf, inf, 1.0, 2.0)),
+        "truncated_gaussian_random": (
+            {}, {"shape": [n], "mean": 1.0, "std": 2.0},
+            moments(-3.0, 5.0, 1.0, 2 * tstd)),
+        "sampling_id": ({"X": [np.tile(p, (n // 16, 1))]}, {}, freq),
+    }
+
+
+def dense_program(torch, case, arrays, rng):
+    """(main, feed, parameter arrays, fetch vars, number of outputs among
+    them) of one sweep case: its differentiated inputs parameters (set
+    from the host arrays), the others fed; with any, the sum of each
+    float output times a seeded cotangent as the loss, and
+    append_backward's grads of the parameters after the outputs."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.backward import append_backward
+    from paddle_tpu_torch.framework.layer_helper import LayerHelper
+    op, _, attrs, outs, diff, _ = case
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    feed, params = {}, {}
+    with ptt.program_guard(main, startup):
+        block = main.global_block()
+        ins = {}
+        for slot, arrs in arrays.items():
+            ins[slot] = []
+            for i, a in enumerate(arrs):
+                name = f"{slot}_{i}"
+                if slot in diff:
+                    v = block.create_parameter(name, list(a.shape),
+                                               dtype=str(a.dtype))
+                    params[name] = a
+                else:
+                    v = block.create_var(name=name, shape=list(a.shape),
+                                         dtype=str(a.dtype), is_data=True,
+                                         stop_gradient=True)
+                    feed[name] = a
+                ins[slot].append(v)
+        helper = LayerHelper(op)
+        out_vars = {slot: [helper.create_variable_for_type_inference()
+                           for _ in range(n)] for slot, n in outs.items()}
+        helper.append_op(op, ins, out_vars, dict(attrs))
+        fetch = [v for vs in out_vars.values() for v in vs]
+        grads = []
+        if params:
+            terms = []
+            for v in fetch:
+                if not v.dtype.startswith("float"):
+                    continue
+                ct = block.create_var(name=f"ct_{v.name}",
+                                      shape=list(v.shape), dtype=v.dtype,
+                                      is_data=True, stop_gradient=True)
+                feed[ct.name] = np.asarray(rng.randn(*v.shape), v.dtype)
+                terms.append(ptt.layers.reduce_sum(
+                    ptt.layers.elementwise_mul(v, ct)))
+            loss = terms[0] if len(terms) == 1 else ptt.layers.sums(terms)
+            grads = [g for _, g in append_backward(
+                loss, parameter_list=list(params))]
+    return main, feed, params, fetch + grads, len(fetch)
+
+
+def dense_run(torch, place, main, feed, params, fetch):
+    """The program's fetches on `place` (host numpy)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    exe = ptt.Executor(place, scope=ptt.Scope())
+    ptt.io.params_from_numpy(exe.scope, params, place)
+    return [np.asarray(o) for o in exe.run(main, feed=feed,
+                                            fetch_list=fetch)]
+
+
+def dense_sweep(torch):
+    """(b) Every op of the dense plane through the Executor on the card
+    and on the CPU: outputs, and gradients through append_backward, bit
+    for bit where the case's kind says so, else within DENSE_RTOL of
+    max |CPU|; the random ops by their moments on the card, and the same
+    draw from two runs under the program's seed.  Returns the misses (an
+    empty list when every case holds)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    cases = _dense_sweep_cases()
+    misses, rows = [], {}
+    t0 = time.perf_counter()
+    for name, case in cases.items():
+        rng = np.random.RandomState(SEED + len(rows))
+        arrays = case[1](rng)
+        main, feed, params, fetch, n_out = dense_program(torch, case,
+                                                         arrays, rng)
+        card = dense_run(torch, ptt.CUDAPlace(0), main, feed, params, fetch)
+        cpu = dense_run(torch, ptt.CPUPlace(), main, feed, params, fetch)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            what = "output" if i < n_out else "grad"
+            bits = case[5] == "bits" or (case[5] == "fwd" and i < n_out)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                misses.append(f"{name} {what} {i}: {a.shape} {a.dtype} "
+                              f"against the CPU's {b.shape} {b.dtype}")
+            elif bits and not np.array_equal(a, b, equal_nan=True):
+                misses.append(f"{name} {what} {i}: "
+                              f"{int((a != b).sum())} entries differ")
+            elif not bits:
+                err = float(np.abs(a.astype("f8") - b).max()
+                            / max(float(np.abs(b).max()), 1e-30))
+                worst = max(worst, err)
+                if not err <= DENSE_RTOL:
+                    misses.append(f"{name} {what} {i}: {err:.3g} of max "
+                                  f"|CPU| against {DENSE_RTOL}")
+        rows[name] = (case[5], len(fetch) - n_out, worst)
+    for name, (ins, attrs, check) in _dense_random_cases().items():
+        main, feed, params, fetch, _ = dense_program(
+            torch, (name, None, dict(attrs, dtype="float32"),
+                    {"Out": 1}, (), "random"), ins, None)
+        draws = [dense_run(torch, ptt.CUDAPlace(0), main, feed, params,
+                           fetch)[0] for _ in range(2)]
+        why = check(draws[0])
+        if why is None and not np.array_equal(draws[0], draws[1]):
+            why = "two runs under one seed drew different numbers"
+        if why is not None:
+            misses.append(f"{name}: {why}")
+        rows[name] = ("moments", 0, 0.0)
+    n_grads = sum(r[1] for r in rows.values())
+    log(f"[dense sweep] {len(rows)} cases ({len(cases)} held to the CPU, "
+        f"{len(rows) - len(cases)} random by their moments), "
+        f"{sum(1 for r in rows.values() if r[0] == 'bits')} bit for bit, "
+        f"{n_grads} gradients; worst relative errors "
+        f"{ {n: float(f'{r[2]:.3g}') for n, r in rows.items() if r[2]} }; "
+        f"{len(misses)} misses; {time.perf_counter() - t0:.1f} s")
+    return misses
+
+
+def dense_deepfm_build(auc):
+    """(main, startup, loss, prob, label, [AUC, stat_pos, stat_neg] or
+    None) of bench_deepfm's program, with layers.auc(prob, label) before
+    Adagrad's minimize when `auc`."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import deepfm
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        feeds, loss, prob = deepfm.build_train_net(
+            deepfm.DeepFMConfig(**DEEPFM_CFG))
+        extra = None
+        if auc:
+            a, stats = ptt.layers.auc(prob, feeds[2])
+            extra = [a] + stats
+        ptt.optimizer.Adagrad(learning_rate=DEEPFM_LR).minimize(loss)
+    return main, startup, loss, prob, feeds[2], extra
+
+
+def dense_deepfm_auc(torch):
+    """(a) bench_deepfm with layers.auc: DENSE_AUC_STEPS Executor.run
+    steps on the card fetching the AUC and the probabilities; the card's
+    StatPos/StatNeg bit-equal to metrics.Auc fed the same fetched
+    probabilities and labels, the AUC within DENSE_AUC_ATOL of its eval.
+    Then run_steps timed with and without the auc op, f32 and AMP, in
+    turns, with the host syncs of runs of each.  Returns the AUC steps
+    and the timing rows."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    host = ptt.metrics.Auc("auc")
+    main, startup, loss, prob, label, extra = dense_deepfm_build(True)
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    aucs = []
+    for step in range(DENSE_AUC_STEPS):
+        feed = deepfm_feed(DEEPFM_BATCH, SEED + 40 + step)
+        out = exe.run(main, feed=feed, fetch_list=[loss, prob] + extra)
+        host.update(out[1], feed["label"])
+        if not (np.array_equal(out[3], host.stat_pos)
+                and np.array_equal(out[4], host.stat_neg)):
+            raise RuntimeError(
+                f"[dense auc] step {step}: the card's StatPos/StatNeg are "
+                f"not the host Auc's: {int((out[3] != host.stat_pos).sum())}"
+                f" and {int((out[4] != host.stat_neg).sum())} buckets "
+                f"differ")
+        err = abs(float(out[2]) - host.eval())
+        if not err <= DENSE_AUC_ATOL:
+            raise RuntimeError(f"[dense auc] step {step}: AUC "
+                               f"{float(out[2])} against the host's "
+                               f"{host.eval()}")
+        aucs.append((float(out[0]), float(out[2]), err))
+    if host.stat_pos.sum() + host.stat_neg.sum() != (DENSE_AUC_STEPS
+                                                     * DEEPFM_BATCH):
+        raise RuntimeError("[dense auc] the histograms lost predictions")
+    rows, built = {}, {}
+    for amp, auc in DENSE_VARIANTS:
+        e, m, l, feed = dense_variant(amp, auc)
+        with amp_bf16(amp):
+            runs = [sync_sites(torch, lambda: e.run(
+                m, feed=feed, fetch_list=[l], return_numpy=False))[1]
+                for _ in range(3 if auc else 2)]
+            # without the op, the fewer of two runs (a run's own syncs, not
+            # a one-off's); with it, the most of three, so that a sync the
+            # op makes on some runs only still counts
+            sites = (max if auc else min)(runs, key=len)
+        built[(amp, auc)] = (e, m, l, feed)
+        rows[(amp, auc)] = {"syncs": len(sites), "sites": sites, "ms": []}
+    for order in (DENSE_VARIANTS, DENSE_VARIANTS[::-1]):     # in turns
+        for amp, auc in order:
+            e, m, l, feed = built[(amp, auc)]
+            with amp_bf16(amp):
+                rows[(amp, auc)]["ms"].append(time_run_steps(
+                    torch, e, m, feed, l, steps=DEEPFM_TIMED_STEPS,
+                    calls=DEEPFM_TIMED_CALLS))
+    for (amp, auc), r in rows.items():
+        r["ms"] = min(r["ms"])
+    return aucs, rows
+
+
+# (amp, auc): bench_deepfm f32 and AMP, without and with the auc op
+DENSE_VARIANTS = [(amp, auc) for amp in (False, True)
+                  for auc in (False, True)]
+
+
+def dense_variant(amp, auc):
+    """bench_deepfm's program, with the auc op or without, f32 or under
+    AMP, on an Executor of its own after one warm run: (executor,
+    program, loss, feed)."""
+    import paddle_tpu_torch as ptt
+    with amp_bf16(amp):
+        m, s, l, _, _, _ = dense_deepfm_build(auc)
+        e = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+        e.run(s)
+        feed = deepfm_feed(DEEPFM_BATCH, SEED + 50, device=DEVICE)
+        e.run(m, feed=feed, fetch_list=[l])
+    return e, m, l, feed
+
+
+def phase_dense(torch):
+    """Phase 5n: the dense op plane on the card, (a) DeepFM's in-graph AUC
+    and (b) the sweep of every op the plane added.  Returns the launch
+    counts of this repo's kernels by path (all 0: no TPU kernel lies on
+    this plane)."""
+    t0 = time.perf_counter()
+    counters = launch_counters()
+    zero_counters(counters)
+    aucs, rows = dense_deepfm_auc(torch)
+    misses = dense_sweep(torch)
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    recs = [r for r in VERIFY_LOG if r["phase"] == "dense"]
+    added = {amp: (rows[(amp, True)]["ms"] - rows[(amp, False)]["ms"],
+                   rows[(amp, True)]["syncs"] - rows[(amp, False)]["syncs"])
+             for amp in (False, True)}
+    log(f"[dense auc] bench_deepfm + auc, {DENSE_AUC_STEPS} steps (loss, "
+        f"AUC, |AUC - host|) {[tuple(round(v, 7) for v in a) for a in aucs]}"
+        f"; run_steps ms a step (f32 without / with auc, AMP without / "
+        f"with): {rows[(False, False)]['ms']:.4f} / "
+        f"{rows[(False, True)]['ms']:.4f}, {rows[(True, False)]['ms']:.4f}"
+        f" / {rows[(True, True)]['ms']:.4f}; the auc op adds "
+        f"{added[False][0]:.4f} ms (f32) and {added[True][0]:.4f} ms "
+        f"(AMP) a step and {added[False][1]} and {added[True][1]} host "
+        f"syncs a run (expected 0; a run's syncs with the op, f32 "
+        f"{rows[(False, True)]['syncs']}, AMP {rows[(True, True)]['syncs']}:"
+        f" {rows[(False, True)]['sites']}); the gate verified {len(recs)} programs "
+        f"in error mode, {sum(r['errors'] for r in recs)} with an error; "
+        f"this repo's kernels launched {sum(counts.values())} times; phase "
+        f"{time.perf_counter() - t0:.1f} s; {nvidia_smi_line()}")
+    if misses:
+        raise RuntimeError("[dense sweep] the card parts from the CPU:\n  "
+                           + "\n  ".join(misses))
+    if added[False][1] > 0 or added[True][1] > 0:
+        raise RuntimeError(
+            f"[dense auc] the auc op adds host syncs: {added}; sites with "
+            f"it {[rows[(a, True)]['sites'] for a in (False, True)]}, "
+            f"without {[rows[(a, False)]['sites'] for a in (False, True)]}")
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"dense verifications {recs}")
+    if any(counts.values()):
+        raise RuntimeError(f"[dense] launched this repo's kernels: {counts}")
+    return {"dense_plane": counts}
+
+
+def trace_dense(torch):
+    """The kernel launches and the device busy time the auc op adds to one
+    bench_deepfm step, f32 and AMP: each program's step traced, with and
+    without the op."""
+    n = {}
+    for amp, auc in DENSE_VARIANTS:
+        e, m, l, feed = dense_variant(amp, auc)
+        with amp_bf16(amp):
+            events, wall = profiled(torch, lambda: e.run(
+                m, feed=feed, fetch_list=[l], return_numpy=False))
+        busy_ms = sum(ev.self_device_time_total for ev in events
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and ev.self_device_time_total > 0) / 1e3
+        n[(amp, auc)] = (_device_launches(torch, events), wall / 1e3,
+                         busy_ms)
+    log(f"[trace] bench_deepfm step kernel launches (f32 without / with "
+        f"auc, AMP without / with): {n[(False, False)][0]} / "
+        f"{n[(False, True)][0]}, {n[(True, False)][0]} / "
+        f"{n[(True, True)][0]}: the auc op adds "
+        f"{n[(False, True)][0] - n[(False, False)][0]} (f32) and "
+        f"{n[(True, True)][0] - n[(True, False)][0]} (AMP) launches and "
+        f"{n[(False, True)][2] - n[(False, False)][2]:.4f} ms (f32) and "
+        f"{n[(True, True)][2] - n[(True, False)][2]:.4f} ms (AMP) of device "
+        f"busy time; device busy ms { {k: round(v[2], 4) for k, v in n.items()} }"
+        f", traced walls (ms) { {k: round(v[1], 3) for k, v in n.items()} }")
+
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
 # the launches of one block forward (fused_block.cu's chain): the weights'
@@ -7682,6 +8378,12 @@ def ln_launch_kinds(names):
 
 PROFILE_TRIES = 5   # the tracer once lost one call's records 3 times running
 RANGE_PREFIX = "smoke_range:"   # record_function labels of op_ranges
+# idle host time at each end of the recorded cycle: on the H100 a
+# 20,000-launch call's trace kept 19333-19996 of its records unpadded and
+# all of them with 0.2 s of padding (tools/tracer_probe.py), and single
+# traces put a kernel 1.3 ms before or 8.6 ms after its launch call on the
+# host's clock, where the tracer keeps only the records inside the cycle
+PROFILE_PAD_S = 0.1
 
 
 def _device_launches(torch, events, part=""):
@@ -7695,16 +8397,17 @@ def _device_launches(torch, events, part=""):
 def profiled(torch, fn, cpu=False, lost=None, raw=None):
     """fn's events from torch.profiler, and the wall time of its call in
     microseconds.  fn runs twice: the first call is the schedule's warm-up
-    cycle, whose events are dropped, so that the kernels launched while
-    the tracer starts up are not lost from the recorded call.  The
-    schedule's step annotation, which spans the call on the device's
-    timeline too, is left out.  The tracer now and then loses a call's
-    kernel records (a whole call's, or one kernel's): lost(events) says
-    what a record lacks (None when it is whole; by default, a record
-    without device time is not), and such a record is traced again, up to
-    PROFILE_TRIES in all, before the call fails.  With `raw` (a list),
-    the recorded call's FunctionEvents are put into it (their CPU
-    parents and kernels, for attributed_ms)."""
+    cycle, whose events are dropped, so that the kernels launched while the
+    tracer starts up are not lost from the recorded call.  The schedule's
+    step annotation, which spans the call on the device's timeline too, is
+    left out.  The recorded cycle holds PROFILE_PAD_S of idle host time
+    before and after the call, outside its wall time.  The tracer now and
+    then loses a call's kernel records (a whole call's, or one kernel's):
+    lost(events) says what a record lacks (None when it is whole; by
+    default, a record without device time is not), and such a record is
+    traced again, up to PROFILE_TRIES in all, before the call fails.  With
+    `raw` (a list), the recorded call's FunctionEvents are put into it
+    (their CPU parents and kernels, for attributed_ms)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     lost = lost or (lambda ev: None if _device_launches(torch, ev) else
@@ -7717,10 +8420,12 @@ def profiled(torch, fn, cpu=False, lost=None, raw=None):
             fn()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PROFILE_PAD_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_PAD_S)
             prof.step()
         events = [e for e in prof.key_averages()
                   if not e.key.startswith(("ProfilerStep", RANGE_PREFIX))]
@@ -8847,6 +9552,78 @@ def phase_timings_fused_amp(torch):
     return res
 
 
+def torch_settings(torch):
+    """TF32 off for matmul and cuDNN, and the AMP path's cuBLAS bf16
+    products adding their split-K sums in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+# the time the short traces' process may take (its own start included)
+SHORT_TRACES_TIMEOUT_S = 300
+
+
+def short_traces(torch):
+    """The traces of the short calls, each of a few launches, made by
+    short_traces_main in a process of its own, and their results: on the
+    H100 the tracer of a process that has run and traced the smoke's
+    phases lost every kernel record of a short call (1-9 launches) on
+    first tries, and several times running, from some point late in the
+    smoke on, while a fresh process's lost none.  The process runs the
+    same checks; a failure there fails the smoke."""
+    log("[trace] the short calls' traces, in a process of their own")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "short_traces.json")
+        sys.stdout.flush()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--short-traces", out], cwd=here,
+            timeout=SHORT_TRACES_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"the short traces' process exited "
+                               f"{proc.returncode}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def short_traces_main(out):
+    """`chip_smoke.py --short-traces OUT`, run by short_traces: the
+    schedule's launches, each conv-family case's forward and backward,
+    the launches the auc op adds to a bench_deepfm step, and the
+    breakdowns of the bf16 LM head, the bf16 flash backward, the block
+    (f32, and bf16 on each GEMM path) and SDPA (f32 and bf16), each
+    traced and checked as in the smoke's own process; the breakdowns
+    are written to OUT as JSON for the smoke's checks."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.kernels import _build
+    torch_settings(torch)
+    _build.load()
+    ptt.flags.set_flag("verify_program", "error")
+    schedule_cost(torch)
+    trace_sched_conv(torch, conv_family_cases(torch))
+    trace_dense(torch)
+    n_head_bwd = -(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK) * head_bwd_kernels()
+    n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
+                   * HEAD_BWD_SYNC_KERNELS)
+    res = {"heads": head_breakdown(torch, {"wgmma": n_head_bwd,
+                                           "sync": n_head_sync}),
+           "flash_bwd": flash_bwd_breakdown(torch),
+           "block": block_breakdown(torch, chain=BLOCK_CHAIN_LAUNCHES),
+           "block_bf16": {gpath: block_breakdown(
+               torch, bf16=True, chain=BLOCK_BF16_CHAIN_LAUNCHES,
+               gemm_path=gpath) for gpath in ("wgmma", "sync")},
+           "sdpa": sdpa_kernels(torch),
+           "sdpa_bf16": sdpa_kernels(torch, torch.bfloat16)}
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -8859,10 +9636,7 @@ def main():
         print(f"chip_smoke: the paddle_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 3
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the AMP path's cuBLAS bf16 products: f32 split-K sums
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch_settings(torch)
     log("[setup] TF32 off for matmul and cuDNN: every f32 product is "
         "full f32; bf16 products add their split-K sums in f32")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -8904,9 +9678,11 @@ def main():
     VERIFY_PHASE[0] = "seq2seq_book"
     s2s_counts, s2s_rows = phase_seq2seq_book(torch)
     VERIFY_PHASE[0] = "sched_conv"
-    sc_counts, sc_keep = phase_sched_conv(torch)
+    sc_counts = phase_sched_conv(torch)
     VERIFY_PHASE[0] = "quant"
     q_counts, q_keep = phase_quant(torch)
+    VERIFY_PHASE[0] = "dense"
+    dense_counts = phase_dense(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -8992,15 +9768,12 @@ def main():
     del cnl_rows
     trace_seq2seq(torch, s2s_rows)
     del s2s_rows
-    schedule_cost(torch)
-    trace_sched_conv(torch, sc_keep)
-    del sc_keep
     trace_quant(torch, q_keep)
     del q_keep
+    short = short_traces(torch)
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
-    heads = head_breakdown(torch, {"wgmma": n_head_bwd,
-                                   "sync": n_head_sync})
+    heads = short["heads"]
     for d, path, n in (("bwd", "wgmma", n_head_bwd),
                        ("bwd", "sync", n_head_sync),
                        ("fwd", "wgmma", HEAD_FWD_KERNELS),
@@ -9018,7 +9791,7 @@ def main():
         amp_times[name].update(by_kernel=heads[d]["wgmma"],
                                sync_by_kernel=heads[d]["sync"],
                                launches_per_call=n)
-    by_path = flash_bwd_breakdown(torch)
+    by_path = short["flash_bwd"]
     for path, rows in by_path.items():
         if sum(r["launches"] for r in rows.values()) != 2:
             raise RuntimeError(f"one bf16 flash backward on the {path} path "
@@ -9030,7 +9803,7 @@ def main():
         {key: by_path[path] for key, path in (("by_kernel", "wgmma"),
                                               ("sync_by_kernel", "sync"))
          if path in by_path})
-    by_kernel = block_breakdown(torch, chain=BLOCK_CHAIN_LAUNCHES)
+    by_kernel = short["block"]
     n_chain = sum(r["launches"] for r in by_kernel.values())
     if n_chain != BLOCK_CHAIN_LAUNCHES:
         raise RuntimeError(f"one block forward made {n_chain} launches, "
@@ -9043,9 +9816,7 @@ def main():
     # the wgmma kernel at this shape
     blocks, chains = {}, {}
     for gpath in ("wgmma", "sync"):
-        by_kernel = block_breakdown(torch, bf16=True,
-                                    chain=BLOCK_BF16_CHAIN_LAUNCHES,
-                                    gemm_path=gpath)
+        by_kernel = short["block_bf16"][gpath]
         n_chain = sum(r["launches"] for r in by_kernel.values())
         if n_chain != BLOCK_BF16_CHAIN_LAUNCHES:
             raise RuntimeError(f"one bf16 block forward made {n_chain} "
@@ -9072,12 +9843,12 @@ def main():
         by_kernel=blocks["wgmma"], sync_by_kernel=blocks["sync"],
         launches_per_call=chains["wgmma"],
         sync_launches_per_call=chains["sync"])
-    sdpa = sdpa_kernels(torch)
+    sdpa = short["sdpa"]
     for n in ("flash_attention_hdt", "flash_attention"):
         times[n]["train"]["library_kernels"] = sorted(sdpa["fwd"])
     for n in ("flash_attention_hdt_bwd", "flash_attention_bwd"):
         times[n]["train"]["library_kernels"] = sorted(sdpa["bwd"])
-    sdpa = sdpa_kernels(torch, torch.bfloat16)
+    sdpa = short["sdpa_bf16"]
     amp_times["flash_attention_hdt_bf16"]["library_kernels"] = sorted(
         sdpa["fwd"])
     amp_times["flash_attention_hdt_bwd_bf16"]["library_kernels"] = sorted(
@@ -9116,7 +9887,8 @@ def main():
                "train_fuse_block": fcounts, "train_amp": acounts,
                "train_fuse_block_amp": facounts, **loop_counts,
                **resnet_counts, **xfmr_counts, **deepfm_counts,
-               **cnl_counts, **s2s_counts, **sc_counts, **q_counts}
+               **cnl_counts, **s2s_counts, **sc_counts, **q_counts,
+               **dense_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else
@@ -9148,4 +9920,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--short-traces"]:
+        sys.exit(short_traces_main(sys.argv[2]))
     sys.exit(main())

@@ -123,6 +123,12 @@ class LayerHelper:
     def block(self) -> Block:
         return self.main_program.current_block()
 
+    def name(self, suffix: str = "") -> str:
+        """The layer's ``name``, else a fresh unique name of its type (a
+        new one each call), with ``.suffix``."""
+        base = self.layer_name or unique_name.generate(self.layer_type)
+        return f"{base}.{suffix}" if suffix else base
+
     # -- vars/params -------------------------------------------------------
     def create_variable_for_type_inference(self, dtype="float32",
                                            stop_gradient=False) -> Variable:

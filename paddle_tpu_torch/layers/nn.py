@@ -1,31 +1,30 @@
 """NN layer functions — the user-facing model-building API.
 
-Counterpart of paddle_tpu/layers/nn.py for the layers the transformer
-builds (models/transformer.py, bert.py), the image classifiers
-(models/resnet.py, lenet.py, vgg.py, alexnet.py, googlenet.py,
-se_resnext.py), the stacked LSTM (models/stacked_lstm.py), machine
-translation (models/machine_translation.py) and the book models
-(models/book.py) call:
-data :21, fc :34 (over several inputs too), embedding :63,
-sparse_embedding :93 (the hash-bucketed table of the sparse plane),
-conv2d :114, conv2d_transpose :138, pool2d :163, adaptive_pool2d :178,
-batch_norm :187, layer_norm :223, group_norm :248, dropout :271, softmax :284, log_softmax :292,
+Counterpart of paddle_tpu/layers/nn.py (all of its public layers but
+sequence_mask, moe and pipeline_boundary): data :21, fc :34 (over
+several inputs too), embedding :63, sparse_embedding :93 (the
+hash-bucketed table of the sparse plane), conv2d :114, conv2d_transpose
+:138, pool2d :163, adaptive_pool2d :178, batch_norm :187, layer_norm
+:223, group_norm :248, dropout :271, softmax :284, log_softmax :292,
 cross_entropy :300, softmax_with_cross_entropy :310, square_error_cost
-:323, mean :331, reduce_sum, reduce_mean and
-reduce_max :352-354, reshape :359, transpose
-:367, split :375, squeeze :405, unsqueeze :413, expand :428, slice :436,
-gather :445,
-matmul :462, topk :480, accuracy :489, one_hot :524, scale :548,
-elementwise_add, _sub, _mul and _div :557-571 (with their ``act``), the
-unary layers relu, sigmoid and square (``_unary_layer`` :577), lrn :631, cos_sim :697,
-sigmoid_cross_entropy_with_logits :707, label_smooth :741 (composed of
-``scale`` ops, as JAX's is), the comparison and logical layers
-(``_binary_compare_layer`` :782: less_than, less_equal, greater_than,
-greater_equal, equal, not_equal, logical_and, logical_or, logical_xor;
-a ``cond=`` var is written in place, as a ``While`` condition must be),
-logical_not :803, increment :810, fused_multihead_attention :820,
-fused_mha :877, fused_attention_qkv :948 and fused_lm_head_loss :968.
-Each function creates
+:323, mean :331, the reductions :352-356, reshape :359, transpose :367,
+split :375, stack :389, unstack :396, squeeze :405, unsqueeze :413,
+flatten :421, expand :428, slice :436, gather :445, scatter :453,
+matmul :462, mul :471, topk :480, accuracy :489, auc :503 (its
+histograms persistable, written back by the op), one_hot :524, clip
+:532, clip_by_norm :540, scale :548, the elementwise layers :557-574
+(with their ``act``), the unary layers (``_unary_layer`` :577 over
+:587-596's list), pow :599, prelu :606, maxout :623, lrn :631, pad
+:641, pad2d :650, image_resize :659 with resize_bilinear and
+resize_nearest, l2_normalize :688, cos_sim :697,
+sigmoid_cross_entropy_with_logits :707, smooth_l1 :717, huber_loss
+:731, label_smooth :741 (composed of ``scale`` ops, as JAX's is),
+uniform_random_batch_size_like :750, gaussian_random :764,
+uniform_random :773, the comparison and logical layers
+(``_binary_compare_layer`` :782; a ``cond=`` var is written in place,
+as a ``While`` condition must be), logical_not :803, increment :810,
+fused_multihead_attention :820, fused_mha :877, fused_attention_qkv
+:948, where :960 and fused_lm_head_loss :968.  Each function creates
 params via LayerHelper (initializers go to the startup program) and
 appends ops to the main program, with the same names, attrs and op order
 as the JAX package, so both builds serialize alike.
@@ -45,19 +44,24 @@ __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
            "conv2d_transpose", "pool2d", "adaptive_pool2d", "batch_norm",
            "layer_norm", "group_norm",
            "dropout", "softmax", "log_softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "square_error_cost", "mean", "reduce_sum",
-           "reduce_mean", "reduce_max", "reshape", "transpose", "split",
-           "squeeze", "unsqueeze", "expand", "slice", "gather", "matmul", "topk",
-           "accuracy", "one_hot", "scale", "elementwise_add",
+           "softmax_with_cross_entropy", "square_error_cost", "mean",
+           "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod", "reshape", "transpose", "split", "stack",
+           "unstack", "squeeze", "unsqueeze", "flatten", "expand", "slice",
+           "gather", "scatter", "matmul", "mul", "topk", "accuracy", "auc",
+           "one_hot", "clip", "clip_by_norm", "scale", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
-           "relu", "sigmoid", "square", "lrn", "cos_sim",
-           "sigmoid_cross_entropy_with_logits",
-           "label_smooth", "less_than", "less_equal", "greater_than",
+           "elementwise_max", "elementwise_min", "elementwise_pow",
+           "pow", "prelu", "maxout", "lrn", "pad", "pad2d",
+           "image_resize", "resize_bilinear", "resize_nearest",
+           "l2_normalize", "cos_sim", "sigmoid_cross_entropy_with_logits",
+           "smooth_l1", "huber_loss", "label_smooth",
+           "uniform_random_batch_size_like", "gaussian_random",
+           "uniform_random", "less_than", "less_equal", "greater_than",
            "greater_equal", "equal", "not_equal", "logical_and",
            "logical_or", "logical_xor", "logical_not", "increment",
-           "fused_mha",
-           "fused_attention_qkv", "fused_multihead_attention",
-           "fused_lm_head_loss"]
+           "fused_mha", "fused_attention_qkv", "fused_multihead_attention",
+           "where", "fused_lm_head_loss"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -393,6 +397,8 @@ def _reduce_layer(op_name):
 reduce_sum = _reduce_layer("reduce_sum")
 reduce_mean = _reduce_layer("reduce_mean")
 reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
 
 
 def reshape(x, shape, name=None):
@@ -425,6 +431,22 @@ def split(input, num_or_sections, dim=0, name=None):
     return outs
 
 
+def stack(x: Sequence[Variable], axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", {"X": list(x)}, {"Y": [out]}, {"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    n = num if num is not None else int(x.shape[axis])
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(n)]
+    helper.append_op("unstack", {"X": [x]}, {"Y": outs}, {"axis": axis})
+    return outs
+
+
 def squeeze(input, axes, name=None):
     helper = LayerHelper("squeeze", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -438,6 +460,13 @@ def unsqueeze(input, axes, name=None):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("unsqueeze", {"X": [input]}, {"Out": [out]},
                      {"axes": list(axes)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("flatten", {"X": [x]}, {"Out": [out]}, {"axis": axis})
     return out
 
 
@@ -466,12 +495,30 @@ def gather(input, index, axis=0):
     return out
 
 
+def scatter(input, index, updates, overwrite=True):
+    helper = LayerHelper("scatter")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter",
+                     {"X": [input], "Ids": [index], "Updates": [updates]},
+                     {"Out": [out]}, {"overwrite": overwrite})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("matmul", {"X": [x], "Y": [y]}, {"Out": [out]},
                      {"transpose_X": transpose_x, "transpose_Y": transpose_y,
                       "alpha": alpha})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"x_num_col_dims": x_num_col_dims,
+                      "y_num_col_dims": y_num_col_dims})
     return out
 
 
@@ -498,11 +545,47 @@ def accuracy(input, label, k=1, name=None):
     return acc
 
 
+def auc(input, label, num_thresholds=4095, name=None):
+    """ref layers/metric_op.py auc: the streaming AUC, its histograms
+    persistable [num_thresholds + 1] f32 vars that the op reads and
+    writes back.  Returns (AUC, [stat_pos, stat_neg])."""
+    helper = LayerHelper("auc", name=name)
+    stats = [helper.create_parameter(
+        ParamAttr(name=helper.name(stat), trainable=False,
+                  initializer=ConstantInitializer(0.0)),
+        shape=[num_thresholds + 1], dtype="float32")
+        for stat in ("stat_pos", "stat_neg")]
+    auc_out = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("auc",
+                     {"Predict": [input], "Label": [label],
+                      "StatPos": [stats[0]], "StatNeg": [stats[1]]},
+                     {"AUC": [auc_out], "StatPosOut": [stats[0]],
+                      "StatNegOut": [stats[1]]},
+                     {"num_thresholds": num_thresholds})
+    return auc_out, stats
+
+
 def one_hot(input, depth):
     helper = LayerHelper("one_hot")
     out = helper.create_variable_for_type_inference("float32")
     helper.append_op("one_hot", {"X": [input]}, {"Out": [out]},
                      {"depth": int(depth)})
+    return out
+
+
+def clip(x, min, max, name=None):  # noqa: A002 - the reference's names
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", {"X": [x]}, {"Out": [out]},
+                     {"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", {"X": [x]}, {"Out": [out]},
+                     {"max_norm": float(max_norm)})
     return out
 
 
@@ -530,6 +613,9 @@ elementwise_add = elementwise_op_layer("elementwise_add")
 elementwise_sub = elementwise_op_layer("elementwise_sub")
 elementwise_mul = elementwise_op_layer("elementwise_mul")
 elementwise_div = elementwise_op_layer("elementwise_div")
+elementwise_max = elementwise_op_layer("elementwise_max")
+elementwise_min = elementwise_op_layer("elementwise_min")
+elementwise_pow = elementwise_op_layer("elementwise_pow")
 
 
 def _unary_layer(op_name):
@@ -542,9 +628,53 @@ def _unary_layer(op_name):
     return f
 
 
-relu = _unary_layer("relu")
-sigmoid = _unary_layer("sigmoid")
-square = _unary_layer("square")
+# the activations and unary math as layers (the reference generates
+# layers/ops.py from its OpProtos; JAX's list, layers/nn.py:587-596)
+UNARY_LAYERS = ("relu", "sigmoid", "logsigmoid", "tanh", "tanh_shrink",
+                "exp", "sqrt", "rsqrt", "abs", "ceil", "floor", "cos", "sin",
+                "round", "reciprocal", "log", "square", "softplus",
+                "softsign", "elu", "relu6", "stanh", "hard_shrink",
+                "softshrink", "hard_sigmoid", "swish", "hard_swish", "mish",
+                "thresholded_relu", "erf", "selu", "sign", "gelu",
+                "leaky_relu", "brelu", "soft_relu")
+for _name in UNARY_LAYERS:
+    globals()[_name] = _unary_layer(_name)
+del _name
+__all__ += list(UNARY_LAYERS)
+
+
+def pow(x, factor=1.0, name=None):  # noqa: A001 - the reference's name
+    helper = LayerHelper("pow", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pow", {"X": [x]}, {"Out": [out]}, {"factor": factor})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """x where x > 0, else alpha * x, with one alpha (``all``), one a
+    channel or one an element of a sample, initialized to 0.25."""
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [int(x.shape[1])]
+    else:
+        alpha_shape = [math.prod(int(d) for d in x.shape[1:])]
+    alpha = helper.create_parameter(
+        param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", {"X": [x], "Alpha": [alpha]}, {"Out": [out]},
+                     {"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("maxout", {"X": [x]}, {"Out": [out]},
+                     {"groups": groups})
+    return out
 
 
 def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
@@ -554,6 +684,56 @@ def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
     helper.append_op("lrn", {"X": [input]},
                      {"Out": [out], "MidOut": [mid]},
                      {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("pad", {"X": [x]}, {"Out": [out]},
+                     {"paddings": list(paddings),
+                      "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings, mode="constant", pad_value=0.0, name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pad2d", {"X": [input]}, {"Out": [out]},
+                     {"paddings": list(paddings), "mode": mode,
+                      "pad_value": float(pad_value)})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 align_corners=True, name=None):
+    """An ``interpolate`` op: bilinear or nearest, to ``out_shape`` (h,
+    w) or by ``scale``."""
+    helper = LayerHelper("interpolate", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    method = "bilinear" if resample.upper() == "BILINEAR" else "nearest"
+    attrs = {"interp_method": method, "align_corners": align_corners}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = scale
+    helper.append_op("interpolate", {"X": [input]}, {"Out": [out]}, attrs)
+    return out
+
+
+resize_bilinear = image_resize
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, "NEAREST", name=name)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("norm", {"X": [x]}, {"Out": [out], "Norm": [norm]},
+                     {"axis": axis, "epsilon": epsilon})
     return out
 
 
@@ -577,6 +757,30 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
     return out
 
 
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0):
+    helper = LayerHelper("smooth_l1_loss")
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op("smooth_l1_loss", inputs,
+                     {"Out": [loss], "Diff": [diff]}, {"sigma": sigma})
+    return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("huber_loss", {"X": [input], "Y": [label]},
+                     {"Out": [out], "Residual": [residual]},
+                     {"delta": float(delta)})
+    return out
+
+
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     """(1 - eps) * label + eps * prior, composed of ``scale`` ops (and an
     ``elementwise_add`` with a prior) as the JAX layer composes it; the
@@ -586,6 +790,38 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     if prior_dist is not None:
         return elementwise_add(smoothed, scale(prior_dist, epsilon))
     return scale(smoothed, 1.0, bias=epsilon / k)
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32", min=-1.0,
+                                   max=1.0, input_dim_idx=0,
+                                   output_dim_idx=0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("uniform_random_batch_size_like", {"Input": [input]},
+                     {"Out": [out]},
+                     {"shape": list(shape), "dtype": str(dtype),
+                      "min": float(min), "max": float(max), "seed": seed,
+                      "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("gaussian_random", {}, {"Out": [out]},
+                     {"shape": list(shape), "dtype": str(dtype),
+                      "mean": mean, "std": std, "seed": seed})
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("uniform_random", {}, {"Out": [out]},
+                     {"shape": list(shape), "dtype": str(dtype),
+                      "min": float(min), "max": float(max), "seed": seed})
+    return out
 
 
 def _binary_compare_layer(op_name, out_dtype="bool"):
@@ -730,3 +966,11 @@ def fused_lm_head_loss(x, vocab_size, label, param_attr=None,
                      {"Loss": [loss]}, {"chunk_size": chunk_size,
                                         "unroll": unroll})
     return loss
+
+
+def where(condition, x, y):
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where", {"Condition": [condition], "X": [x],
+                               "Y": [y]}, {"Out": [out]}, {})
+    return out

@@ -1,10 +1,18 @@
-"""Sequence-family layers (counterpart of paddle_tpu/layers/sequence.py,
-the part the machine-translation and book models call): sequence_conv
-:41, sequence_pool :76, sequence_first_step :86, sequence_last_step
-:90, linear_chain_crf :178, crf_decoding :200, beam_search :362,
-beam_search_decode :384, the vision extras conv3d :399,
-conv3d_transpose :419, pool3d :437 and adaptive_pool3d :448, sum :727
-and autoincreased_step_counter :739.
+"""Sequence-family and remaining layer wrappers (counterpart of
+paddle_tpu/layers/sequence.py, the part the machine-translation and
+book models call and the dense plane's wrappers): sequence_conv :41,
+sequence_pool :76, sequence_first_step :86, sequence_last_step :90,
+linear_chain_crf :178, crf_decoding :200, edit_distance :287 (with
+``ignored_tokens`` as sequence_erase ops), sampling_id :354,
+beam_search :362, beam_search_decode :384, the vision extras conv3d
+:399, conv3d_transpose :419, pool3d :437 and adaptive_pool3d :448,
+space_to_depth :554, crop :559, pad_constant_like :565,
+image_resize_short :570, bpr_loss :589, rank_loss :594,
+margin_rank_loss :600, log_loss :611, dice_loss :618 (composed of
+element and reduce ops, as JAX's is), mean_iou :642, multiplex :657,
+bilinear_tensor_product :675, shape :723, sum :727,
+gaussian_random_batch_size_like :732 and autoincreased_step_counter
+:739.
 
 The reference's sequence layers read LoD tensors; here, as in the JAX
 package, a sequence is a padded [B, T, ...] tensor with an optional
@@ -23,7 +31,12 @@ __all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "linear_chain_crf", "crf_decoding",
            "beam_search", "beam_search_decode", "conv3d",
            "conv3d_transpose", "pool3d", "adaptive_pool3d", "sum",
-           "autoincreased_step_counter"]
+           "autoincreased_step_counter", "edit_distance", "sampling_id",
+           "space_to_depth", "crop", "pad_constant_like",
+           "image_resize_short", "bpr_loss", "rank_loss",
+           "margin_rank_loss", "log_loss", "dice_loss", "mean_iou",
+           "multiplex", "bilinear_tensor_product", "shape",
+           "gaussian_random_batch_size_like"]
 
 
 def _simple(op_type, ins, attrs, dtype, out_slot="Out", name=None):
@@ -260,3 +273,160 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     block.append_op("increment_loop_counter", {"X": [name]},
                     {"Out": [name]}, {"step": int(step)})
     return ctr
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  name=None):
+    """(the Levenshtein distance of each row of ``input`` to ``label``'s,
+    the number of rows); ``ignored_tokens`` are erased (set to the pad
+    0) from both first."""
+    helper = LayerHelper("edit_distance", name=name)
+    if ignored_tokens:
+        erased = []
+        for v in (input, label):
+            out = helper.create_variable_for_type_inference(v.dtype)
+            helper.append_op("sequence_erase", {"X": [v]}, {"Out": [out]},
+                             {"tokens": list(ignored_tokens)})
+            erased.append(out)
+        input, label = erased
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("edit_distance",
+                     {"Hyps": [input], "Refs": [label]},
+                     {"Out": [out], "SequenceNum": [seq_num]},
+                     {"normalized": normalized})
+    return out, seq_num
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64", name=None):  # noqa: A002
+    return _simple("sampling_id", {"X": [x]},
+                   {"min": min, "max": max, "seed": seed, "dtype": dtype},
+                   dtype, name=name)
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _simple("space_to_depth", {"X": [x]},
+                   {"blocksize": blocksize}, x.dtype, name=name)
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    return _simple("crop", {"X": [x]},
+                   {"shape": list(shape or []),
+                    "offsets": list(offsets or [])}, x.dtype, name=name)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _simple("pad_constant_like", {"X": [x], "Y": [y]},
+                   {"pad_value": pad_value}, y.dtype, name=name)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """ref layers/nn.py image_resize_short: resized so that the short side
+    is out_short_len (the shape computed at build time)."""
+    from .nn import image_resize
+    h, w = int(input.shape[2]), int(input.shape[3])
+    scale = out_short_len / min(h, w)
+    return image_resize(input, out_shape=[int(round(h * scale)),
+                                          int(round(w * scale))],
+                        resample=resample)
+
+
+def bpr_loss(input, label, name=None):
+    return _simple("bpr_loss", {"X": [input], "Label": [label]}, {},
+                   input.dtype, out_slot="Y", name=name)
+
+
+def rank_loss(label, left, right, name=None):
+    return _simple("rank_loss",
+                   {"Label": [label], "Left": [left], "Right": [right]},
+                   {}, left.dtype, name=name)
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype, True)
+    helper.append_op("margin_rank_loss",
+                     {"Label": [label], "X1": [left], "X2": [right]},
+                     {"Out": [out], "Activated": [act]},
+                     {"margin": margin})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _simple("log_loss",
+                   {"Predicted": [input], "Labels": [label]},
+                   {"epsilon": epsilon}, input.dtype, out_slot="Loss",
+                   name=name)
+
+
+def dice_loss(input, label, epsilon=1e-5, name=None):
+    """ref layers/nn.py dice_loss: 1 - (2 |input * label| + eps) /
+    (|input| + |label| + eps) over the non-batch dims, averaged over the
+    batch, composed of element and reduce ops."""
+    helper = LayerHelper("dice_loss", name=name)
+    red_dims = list(range(1, len(input.shape)))
+
+    def app(op, ins, attrs=None):
+        o = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(op, ins, {"Out": [o]}, attrs or {})
+        return o
+
+    labf = app("cast", {"X": [label]}, {"out_dtype": "float32"})
+    inter = app("elementwise_mul", {"X": [input], "Y": [labf]})
+    inter = app("reduce_sum", {"X": [inter]}, {"dim": red_dims})
+    s_in = app("reduce_sum", {"X": [input]}, {"dim": red_dims})
+    s_lb = app("reduce_sum", {"X": [labf]}, {"dim": red_dims})
+    union = app("elementwise_add", {"X": [s_in], "Y": [s_lb]})
+    num = app("scale", {"X": [inter]}, {"scale": 2.0, "bias": epsilon})
+    den = app("scale", {"X": [union]}, {"scale": 1.0, "bias": epsilon})
+    dice = app("elementwise_div", {"X": [num], "Y": [den]})
+    loss = app("scale", {"X": [dice]}, {"scale": -1.0, "bias": 1.0})
+    return app("reduce_mean", {"X": [loss]}, {"dim": [0]})
+
+
+def mean_iou(input, label, num_classes, name=None):
+    """(mean IoU, per-class wrong counts, per-class correct counts)."""
+    helper = LayerHelper("mean_iou", name=name)
+    miou = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("int64", True)
+    correct = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("mean_iou",
+                     {"Predictions": [input], "Labels": [label]},
+                     {"OutMeanIou": [miou], "OutWrong": [wrong],
+                      "OutCorrect": [correct]},
+                     {"num_classes": num_classes})
+    return miou, wrong, correct
+
+
+def multiplex(inputs: List[Variable], index, name=None):
+    return _simple("multiplex", {"X": list(inputs), "Ids": [index]}, {},
+                   inputs[0].dtype, name=name)
+
+
+def bilinear_tensor_product(x, y, size, param_attr=None, bias_attr=None,
+                            act=None, name=None):
+    """out[:, o] = x W[o] y^T + b[o], with W [size, dx, dy] and b [size]
+    parameters."""
+    helper = LayerHelper("bilinear_tensor_product", name=name)
+    dx, dy = int(x.shape[-1]), int(y.shape[-1])
+    w = helper.create_parameter(param_attr, shape=[size, dx, dy],
+                                dtype=x.dtype)
+    b = helper.create_parameter(bias_attr, shape=[size], dtype=x.dtype,
+                                is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("bilinear_tensor_product",
+                     {"X": [x], "Y": [y], "Weight": [w], "Bias": [b]},
+                     {"Out": [out]}, {})
+    return helper.append_activation(out, act)
+
+
+def shape(input, name=None):
+    return _simple("shape", {"Input": [input]}, {}, "int32", name=name)
+
+
+def gaussian_random_batch_size_like(input, shape, mean=0.0, std=1.0,
+                                    dtype="float32", name=None):
+    return _simple("gaussian_random_batch_size_like", {"Input": [input]},
+                   {"shape": list(shape), "mean": mean, "std": std,
+                    "dtype": dtype}, dtype, name=name)

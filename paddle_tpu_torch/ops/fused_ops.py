@@ -8,9 +8,10 @@ import torch
 
 from ..framework.registry import register_op, single_input
 from ..kernels.fused_block import transformer_block
+from ._grad_rules import clip, div
 from .math_ops import amp_inputs, amp_result
 from .nn_ops import _conv2d_transpose
-from .quantize_ops import _clip, _div, _ste_round
+from .quantize_ops import _ste_round
 
 # the op's parameter slots, in transformer_block's params order
 BLOCK_SLOTS = ("Ln1Scale", "Ln1Bias", "Wq", "Wk", "Wv", "Wo", "Ln2Scale",
@@ -88,7 +89,7 @@ def _fake_quantize_range_abs_max(ctx, ins, attrs):
         in_scale = (ins["InScale"][0].reshape(()) if ins.get("InScale")
                     else cur)
         scale = torch.maximum(cur, in_scale)
-    q = _clip(_ste_round(x / _clip(scale, 1e-8) * qmax), -qmax, qmax)
-    outs.update({"Out": [_div(q * scale, qmax)],
+    q = clip(_ste_round(x / clip(scale, 1e-8) * qmax), -qmax, qmax)
+    outs.update({"Out": [div(q * scale, qmax)],
                  "OutScale": [scale.reshape(1)]})
     return outs

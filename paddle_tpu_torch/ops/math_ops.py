@@ -4,9 +4,13 @@ Counterpart of paddle_tpu/ops/math_ops.py: the AMP helpers :28-77
 (amp_inputs, amp_result, amp_matmul), mul :91 (fc's flattening
 matmul), matmul :105 (the unfused attention's batched products), scale
 :142, sum :152 (fc over several inputs, the regularizers), mean :158,
-clip :168 and clip_by_norm :174 (gradient clipping), increment :197
-(gradient accumulation's counter), squared_l2_norm :209 (the global
-norm) and cos_sim :238 (the recommender's score).  A plain matrix product outside any
+clip :168 (JAX's 0.5 gradient at a bound) and clip_by_norm :174
+(gradient clipping), increment :197 (gradient accumulation's counter),
+squared_l2_norm :209 (the global norm), cos_sim :238 (the recommender's
+score), and the dense plane's dot :136, minus :163, cumsum :182 (with
+``exclusive`` as ``out - x``, JAX's form, not a shifted sum), isfinite
+:203, squared_l2_distance :215, l1_norm :223, norm :228 and
+bilinear_tensor_product :247.  A plain matrix product outside any
 kernel goes to torch.matmul, as the JAX package leaves it to XLA; f32
 products run in full f32 (TF32 stays off unless the caller enables it).
 Under FLAGS_amp_bf16 the operands are cast to bf16 and a 2-byte product
@@ -28,6 +32,8 @@ import torch
 
 from ..core import flags
 from ..framework.registry import register_op, single_input
+from . import _grad_rules
+from ._grad_rules import clip
 
 
 def amp_inputs(*xs):
@@ -140,8 +146,10 @@ def _mean(ctx, ins, attrs):
 
 @register_op("clip")
 def _clip(ctx, ins, attrs):
-    return {"Out": [torch.clamp(single_input(ins), attrs.get("min"),
-                                attrs.get("max"))]}
+    """jnp.clip: the gradient at an element on a bound is 0.5, not
+    torch.clamp's 1 (_grad_rules.clip)."""
+    return {"Out": [clip(single_input(ins), attrs.get("min"),
+                         attrs.get("max"))]}
 
 
 @register_op("clip_by_norm")
@@ -172,3 +180,73 @@ def _cos_sim(ctx, ins, attrs):
 @register_op("increment")
 def _increment(ctx, ins, attrs):
     return {"Out": [single_input(ins) + attrs.get("step", 1.0)]}
+
+
+@register_op("dot")
+def _dot(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.sum(x * y, dim=-1, keepdim=True)]}
+
+
+@register_op("minus")
+def _minus(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] - ins["Y"][0]]}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    x = single_input(ins)
+    axis = int(attrs.get("axis", -1))
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, [axis]), dim=axis),
+                         [axis])
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - x
+    return {"Out": [out]}
+
+
+@register_op("isfinite")
+def _isfinite(ctx, ins, attrs):
+    """One 0-d bool: every entry finite."""
+    return {"Out": [torch.all(torch.isfinite(single_input(ins)))]}
+
+
+@register_op("squared_l2_distance")
+def _squared_l2_distance(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    sub = x - y
+    return {"Out": [torch.sum(torch.square(sub),
+                              dim=tuple(range(1, sub.ndim)))],
+            "sub_result": [sub]}
+
+
+@register_op("l1_norm")
+def _l1_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(_grad_rules.abs(single_input(ins)))
+                    .reshape(())]}
+
+
+@register_op("norm")
+def _norm(ctx, ins, attrs):
+    """x over sqrt(sum(x^2, axis) + epsilon) (ref operators/norm_op.cc)."""
+    x = single_input(ins)
+    axis = int(attrs.get("axis", 1))
+    eps = float(attrs.get("epsilon", 1e-10))
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True)
+                      + eps)
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, ins, attrs):
+    """out[b, o] = x[b] W[o] y[b]^T (+ Bias[o]), JAX's einsum
+    "bi,oij,bj->bo"."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    if ins.get("Bias"):
+        out = out + ins["Bias"][0]
+    return {"Out": [out]}

@@ -5,9 +5,19 @@ pool2d :180 (``_pool_nd`` :139, which pool3d shares), pool2d_with_index
 max_pool3d_with_index :587 (``_max_pool_with_index`` :186), batch_norm
 :220, group_norm :292 and instance_norm :314, with ``_pair`` :36 and
 ``_conv_padding`` :42; layer_norm :261, lrn :331, softmax :349,
-log_softmax :356, dropout :362, lookup_table :384, and the sparse plane's
-sparse_embedding_lookup :427 (with ``_hash_mix_u32`` :410) and
-sparse_scatter_update :450).
+log_softmax :356, dropout :362, lookup_table :384 with its alias
+lookup_table_v2 :404, the sparse plane's sparse_embedding_lookup :427
+(with ``_hash_mix_u32`` :410) and sparse_scatter_update :450, and the
+resizes interpolate :462, bilinear_interp :497 and nearest_interp :502).
+
+The resizes compute what JAX's compute.  With ``align_corners`` (the
+default) a bilinear resize gathers the four corners at jnp.linspace's
+coordinates (:477-492).  Otherwise JAX calls jax.image.resize, whose
+``linear`` filters when it shrinks (F.interpolate's bilinear does not:
+its ``antialias=True`` is the match) and whose ``nearest`` samples
+floor((i + 0.5) * in / out) (F.interpolate's ``nearest-exact``, not its
+``nearest``): the port builds jax.image.resize's weight matrices
+(``compute_weight_mat``) and sample indices itself, on the device.
 
 The JAX package leaves the conv plane to XLA (``conv_general_dilated``,
 ``reduce_window``, jnp arithmetic); here the convolutions are
@@ -26,7 +36,8 @@ import torch.nn.functional as F
 
 from ..framework.registry import register_op, single_input
 from ..kernels.layer_norm import layer_norm_train as _layer_norm_rows
-from .creation import op_generator
+from ._grad_rules import div
+from .creation import jax_linspace, op_generator
 from .math_ops import amp_inputs, amp_result
 
 
@@ -448,6 +459,11 @@ def _lookup_table(ctx, ins, attrs):
     return {"Out": [out]}
 
 
+@register_op("lookup_table_v2")
+def _lookup_table_v2(ctx, ins, attrs):
+    return _lookup_table(ctx, ins, attrs)
+
+
 _U32 = 0xFFFFFFFF
 _HASH_MIX = 0x45D9F3B
 
@@ -496,3 +512,104 @@ def _sparse_scatter_update(ctx, ins, attrs):
     grad = single_input(ins, "Grad").reshape(ids.shape[0], w.shape[1])
     lr = float(attrs.get("learning_rate", 1.0))
     return {"Out": [w.index_add(0, ids, -lr * grad.to(w.dtype))]}
+
+
+def _triangle(x):
+    return torch.clamp_min(1 - torch.abs(x), 0)
+
+
+def _keys_cubic(x):
+    """The Keys cubic kernel (a = -0.5) of jax.image.resize."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _resize_weights(m, n, kernel, device):
+    """jax.image.resize's [m, n] weight matrix for resizing a dim of m to
+    n with antialiasing (jax/_src/image/scale.py compute_weight_mat), in
+    f32: each output's kernel weights over the inputs, widened by in /
+    out when shrinking, normalized to sum 1, zero where the sample lies
+    outside the input."""
+    inv_scale = 1.0 / (n / m)
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    dist = torch.abs(sample[None, :] - torch.arange(
+        m, dtype=torch.float32, device=device)[:, None])
+    w = kernel(div(dist, max(inv_scale, 1.0)))
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(
+        torch.finfo(torch.float32).eps), w / torch.where(
+            total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _nearest_rows(m, n, device):
+    """jax.image.resize's nearest samples: floor((i + 0.5) * m / n) in
+    f32."""
+    pos = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * m
+    return torch.floor(div(pos, n)).long()
+
+
+def _jax_resize(x, out_h, out_w, method):
+    """jax.image.resize of NCHW x to [N, C, out_h, out_w]: dims whose
+    size does not change are left alone."""
+    h, w = x.shape[2], x.shape[3]
+    if method == "nearest":
+        if out_h != h:
+            x = torch.index_select(x, 2, _nearest_rows(h, out_h, x.device))
+        if out_w != w:
+            x = torch.index_select(x, 3, _nearest_rows(w, out_w, x.device))
+        return x
+    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
+    if out_h != h:
+        x = torch.einsum("nchw,hH->ncHw", x, _resize_weights(
+            h, out_h, kernel, x.device).to(x.dtype))
+    if out_w != w:
+        x = torch.einsum("nchw,wW->nchW", x, _resize_weights(
+            w, out_w, kernel, x.device).to(x.dtype))
+    return x
+
+
+@register_op("interpolate")
+def _interpolate(ctx, ins, attrs):
+    """Bilinear or nearest resize of NCHW (ref interpolate_op.cc) to
+    (out_h, out_w), or by ``scale``."""
+    x = single_input(ins)
+    method = attrs.get("interp_method", "bilinear")
+    out_h = int(attrs.get("out_h", 0))
+    out_w = int(attrs.get("out_w", 0))
+    scale = attrs.get("scale", 0)
+    if (not out_h or not out_w) and scale:
+        out_h = int(x.shape[2] * scale)
+        out_w = int(x.shape[3] * scale)
+    jmethod = {"bilinear": "linear", "nearest": "nearest",
+               "trilinear": "linear", "bicubic": "cubic"}[method]
+    if bool(attrs.get("align_corners", True)) and jmethod == "linear":
+        h, w = x.shape[2], x.shape[3]
+        ys = jax_linspace(0, h - 1, out_h, device=x.device)
+        xs = jax_linspace(0, w - 1, out_w, device=x.device)
+        y0, x0 = torch.floor(ys).long(), torch.floor(xs).long()
+        y1 = torch.clamp_max(y0 + 1, h - 1)
+        x1 = torch.clamp_max(x0 + 1, w - 1)
+        wy = (ys - y0)[None, None, :, None]
+        wx = (xs - x0)[None, None, None, :]
+
+        def g(yy, xx):
+            return torch.index_select(torch.index_select(x, 2, yy), 3, xx)
+
+        out = ((1 - wy) * (1 - wx) * g(y0, x0) + (1 - wy) * wx * g(y0, x1)
+               + wy * (1 - wx) * g(y1, x0) + wy * wx * g(y1, x1))
+        return {"Out": [out.to(x.dtype)]}
+    return {"Out": [_jax_resize(x, out_h, out_w, jmethod).to(x.dtype)]}
+
+
+@register_op("bilinear_interp")
+def _bilinear_interp(ctx, ins, attrs):
+    return _interpolate(ctx, ins, dict(attrs, interp_method="bilinear"))
+
+
+@register_op("nearest_interp")
+def _nearest_interp(ctx, ins, attrs):
+    return _interpolate(ctx, ins, dict(attrs, interp_method="nearest"))

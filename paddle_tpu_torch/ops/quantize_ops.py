@@ -5,11 +5,12 @@ ops (:37-100): quantize-dequantize in one op with a straight-through
 rounding, so training stays in floating point.  Their float order is
 JAX's, so the int8 codes are its codes bit for bit, and so are their
 gradients: the clip is ``min(max(x, -qmax), qmax)`` with lax.min and
-lax.max's gradient at a tie (half to each side, ``_Clip``), which the
-abs-max element always meets (``x / s * qmax == qmax``), and the scale
-``max(|x|)`` is not detached, so that element also receives
+lax.max's gradient at a tie (half to each side, ``_grad_rules.clip``),
+which the abs-max element always meets (``x / s * qmax == qmax``), and
+the scale ``max(|x|)`` is not detached, so that element also receives
 ``sum(g * (q / qmax - x / s))``.  A division by a constant is a true
-division on every device (``_div``), so the card's values are the CPU's.
+division on every device (``_grad_rules.div``), so the card's values
+are the CPU's.
 
 The second half runs the products on int8 and fp8 operands (:104-288):
 
@@ -60,38 +61,7 @@ import torch.nn.functional as F
 from ..core import flags
 from ..core.enforce import EnforceNotMet
 from ..framework.registry import register_op, single_input
-
-
-class _Clip(torch.autograd.Function):
-    """clip(x, lo, hi) as JAX's ``min(max(x, lo), hi)`` differentiates
-    it: 1 inside, 0 outside, and 0.5 at a bound (lax.max and lax.min give
-    half the cotangent to each side of a tie; torch.clamp gives 1)."""
-
-    @staticmethod
-    def forward(ctx, x, lo, hi):
-        ctx.save_for_backward(x)
-        ctx.bounds = (lo, hi)
-        return torch.clamp(x, lo, hi)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, = ctx.saved_tensors
-        lo, hi = ctx.bounds
-        inside = ((x > lo) & (x < hi)).to(g.dtype)
-        tie = ((x == lo) | (x == hi)).to(g.dtype)
-        return g * (inside + 0.5 * tie), None, None
-
-
-def _clip(x, lo, hi=math.inf):
-    return _Clip.apply(x, lo, hi)
-
-
-def _div(a, c):
-    """a / c for a Python number c, as a true division on every device:
-    CUDA turns a division by a host scalar into a multiplication by its
-    reciprocal, which can differ from the CPU's (and JAX's) quotient in
-    the last bit."""
-    return a / a.new_full((), c)
+from ._grad_rules import clip, div
 
 
 def _ste_round(x):
@@ -115,9 +85,9 @@ def _qmax(attrs):
 def _fake_quantize_abs_max(ctx, ins, attrs):
     x = single_input(ins)
     qmax = _qmax(attrs)
-    scale = _clip(torch.abs(x).max().float(), 1e-8)
-    q = _ste_round(_clip(_promoted(x, scale) / scale * qmax, -qmax, qmax))
-    return {"Out": [_div(q * scale, qmax).to(x.dtype)], "OutScale": [scale]}
+    scale = clip(torch.abs(x).max().float(), 1e-8)
+    q = _ste_round(clip(_promoted(x, scale) / scale * qmax, -qmax, qmax))
+    return {"Out": [div(q * scale, qmax).to(x.dtype)], "OutScale": [scale]}
 
 
 @register_op("fake_quantize_moving_average_abs_max")
@@ -134,9 +104,9 @@ def _fake_quantize_ma(ctx, ins, attrs):
     else:
         cur = torch.abs(x).max().float()
         scale = rate * in_scale + (1 - rate) * cur
-    scale = _clip(scale, 1e-8)
-    q = _ste_round(_clip(_promoted(x, scale) / scale * qmax, -qmax, qmax))
-    return {"Out": [_div(q * scale, qmax).to(x.dtype)],
+    scale = clip(scale, 1e-8)
+    q = _ste_round(clip(_promoted(x, scale) / scale * qmax, -qmax, qmax))
+    return {"Out": [div(q * scale, qmax).to(x.dtype)],
             "OutScale": [scale.detach()]}
 
 
@@ -149,12 +119,12 @@ def _fake_cw_quant(ctx, ins, attrs):
     axis = int(attrs.get("quant_axis", 0))
     qmax = _qmax(attrs)
     axes = tuple(a for a in range(x.ndim) if a != axis)
-    scale = _clip(torch.amax(torch.abs(x), dim=axes).float(), 1e-8)
+    scale = clip(torch.amax(torch.abs(x), dim=axes).float(), 1e-8)
     shape = [1] * x.ndim
     shape[axis] = -1
     s = scale.reshape(shape)
-    q = _ste_round(_clip(_promoted(x, s) / s * qmax, -qmax, qmax))
-    return {"Out": [_div(q * s, qmax).to(x.dtype)], "OutScale": [scale]}
+    q = _ste_round(clip(_promoted(x, s) / s * qmax, -qmax, qmax))
+    return {"Out": [div(q * s, qmax).to(x.dtype)], "OutScale": [scale]}
 
 
 @register_op("fake_dequantize_max_abs")
@@ -162,7 +132,7 @@ def _fake_dequantize(ctx, ins, attrs):
     x = single_input(ins)
     scale = ins["Scale"][0]
     max_range = float(attrs.get("max_range", 127.0))
-    return {"Out": [_div(_promoted(x, scale) * scale,
+    return {"Out": [div(_promoted(x, scale) * scale,
                          max_range).to(x.dtype)]}
 
 
@@ -211,7 +181,7 @@ def channel_scales(w, axis: int):
 
 def _dequant_spec(scale, quantize_dtype):
     _, qmax = qspec(quantize_dtype)
-    return _div(torch.clamp(scale.float(), min=1e-8), qmax)
+    return div(torch.clamp(scale.float(), min=1e-8), qmax)
 
 
 def _acc_dtype(quantize_dtype):

@@ -1,5 +1,7 @@
 """Reductions (counterpart of paddle_tpu/ops/reduce_ops.py: the
-``_reduce`` family :15-39 and top_k :67)."""
+``_reduce`` family :15-39, arg_max :42, arg_min :49, argsort :56 and
+top_k :67).  The index outputs are int64 (the port's integer width;
+JAX's 32-bit plane gives int32)."""
 from __future__ import annotations
 
 import torch
@@ -49,6 +51,32 @@ _reduce("reduce_min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
 _reduce("reduce_prod", _over(torch.prod))
 _reduce("reduce_all", _over(torch.all))
 _reduce("reduce_any", _over(torch.any))
+
+
+@register_op("arg_max")
+def _arg_max(ctx, ins, attrs):
+    """The first index of the max along ``axis``, as jnp.argmax."""
+    return {"Out": [torch.argmax(single_input(ins),
+                                 dim=int(attrs.get("axis", -1)))]}
+
+
+@register_op("arg_min")
+def _arg_min(ctx, ins, attrs):
+    return {"Out": [torch.argmin(single_input(ins),
+                                 dim=int(attrs.get("axis", -1)))]}
+
+
+@register_op("argsort")
+def _argsort(ctx, ins, attrs):
+    """A stable sort of x, or of -x when ``descending`` (JAX's key: equal
+    entries keep their order either way).  Out is x gathered by the
+    indices, so it carries a gradient back to x."""
+    x = single_input(ins)
+    axis = int(attrs.get("axis", -1))
+    key = -x if attrs.get("descending", False) else x
+    idx = torch.sort(key, dim=axis, stable=True).indices
+    return {"Out": [torch.take_along_dim(x, idx, dim=axis)],
+            "Indices": [idx]}
 
 
 @register_op("top_k")

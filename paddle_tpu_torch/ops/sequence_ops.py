@@ -1,5 +1,7 @@
 """Sequence ops over dense padded batches (counterpart of
-paddle_tpu/ops/sequence_ops.py: ``_mask`` :24 and sequence_pool :50).
+paddle_tpu/ops/sequence_ops.py: ``_mask`` :24, sequence_pool :50 and
+sequence_erase :166, which layers.edit_distance's ``ignored_tokens``
+appends).
 
 The reference's LoD-ragged batches are dense [B, T, ...] tensors with an
 optional [B, T] 0/1 Mask or a [B] Length, as in the JAX package; padding
@@ -57,3 +59,15 @@ def _sequence_pool(ctx, ins, attrs):
     else:
         raise ValueError(f"unknown pooltype {ptype}")
     return {"Out": [out]}
+
+
+@register_op("sequence_erase")
+def _sequence_erase(ctx, ins, attrs):
+    """The listed tokens replaced by the pad 0 (the dense analogue of the
+    reference's erase, JAX's jnp.isin)."""
+    x = single_input(ins)
+    tokens = torch.as_tensor(list(attrs["tokens"]), dtype=x.dtype,
+                             device=x.device)
+    hit = torch.any(x[..., None] == tokens, dim=-1)
+    return {"Out": [torch.where(hit, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device), x)]}

@@ -1136,6 +1136,441 @@ CONV_EXTRA_CASES = {
          "values": [0.1, 0.01, 0.001]}, ["Out"], dict(rtol=1e-6, atol=0)),
 }
 
+
+# the dense op plane (slice 25): test_op_sweep.py's shapes (:54-330,
+# :481-579) first, then the kinks, ties and modes where the port could
+# part from JAX planted.  Pointwise math, reductions and losses at EXACT
+# (MATMUL where a product sums), movement, index and integer ops SAME
+def _planted(r, shape, points, scale=1.0):
+    """Seeded normals with `points` planted at the first entries."""
+    x = (r.randn(*shape) * scale).astype("float32")
+    flat = x.reshape(-1)
+    flat[:len(points)] = points
+    return x
+
+
+def _unary_case(op, points=(0.0,), attrs=None, positive=False, scale=0.8,
+                shape=(2, 6), tol=EXACT):
+    def build(r):
+        x = _planted(r, shape, points, scale)
+        return {"X": [np.abs(x) + 0.5 if positive else x]}
+    return (op, build, attrs or {}, ["Out"], tol)
+
+
+def _tied_rows(r, rows, cols):
+    """Rows of small integers, so that most rows hold ties."""
+    return r.randint(0, 3, (rows, cols)).astype("float32")
+
+
+DENSE_CASES = {
+    # activation.py's unary functors, each kink planted
+    "act_abs": _unary_case("abs"),
+    "act_ceil": _unary_case("ceil", (0.5, -0.5, 1.0, -2.0)),
+    "act_floor": _unary_case("floor", (0.5, -0.5, 1.0, -2.0)),
+    "act_round_half_even": _unary_case("round", (0.5, 1.5, 2.5, -0.5,
+                                                 -1.5), scale=3.0),
+    "act_cos": _unary_case("cos"),
+    "act_sin": _unary_case("sin"),
+    "act_exp": _unary_case("exp"),
+    "act_erf": _unary_case("erf"),
+    "act_log": _unary_case("log", (), positive=True),
+    "act_rsqrt": _unary_case("rsqrt", (), positive=True),
+    "act_reciprocal": _unary_case("reciprocal", (), positive=True),
+    "act_logsigmoid": _unary_case("logsigmoid", (0.0, 30.0, -30.0)),
+    "act_tanh_shrink": _unary_case("tanh_shrink"),
+    "act_softplus": _unary_case("softplus", (0.0, 30.0, -30.0)),
+    "act_softsign": _unary_case("softsign"),
+    "act_brelu": _unary_case("brelu", (-1.0, 1.0, 0.0),
+                             {"t_min": -1.0, "t_max": 1.0}),
+    "act_brelu_default": _unary_case("brelu", (0.0, 24.0), scale=10.0),
+    "act_leaky_relu": _unary_case("leaky_relu", (0.0,), {"alpha": 0.1}),
+    "act_soft_relu": _unary_case("soft_relu", (-1.0, 1.0, 0.0),
+                                 {"threshold": 1.0}),
+    "act_soft_relu_default": _unary_case("soft_relu", (40.0, -40.0),
+                                         scale=20.0),
+    "act_elu": _unary_case("elu", (0.0,), {"alpha": 0.7}),
+    "act_relu6": _unary_case("relu6", (0.0, 6.0), scale=4.0),
+    "act_relu6_threshold": _unary_case("relu6", (0.0, 2.0),
+                                       {"threshold": 2.0}, scale=2.0),
+    "act_pow2": _unary_case("pow", (0.0,), {"factor": 2.0}),
+    "act_pow_frac": _unary_case("pow", (), {"factor": 1.5}, positive=True),
+    "act_stanh": _unary_case("stanh", (0.0,), {"scale_a": 0.5,
+                                               "scale_b": 2.0}),
+    "act_hard_shrink": _unary_case("hard_shrink", (0.5, -0.5, 0.0),
+                                   {"threshold": 0.5}),
+    "act_softshrink": _unary_case("softshrink", (0.3, -0.3, 0.0),
+                                  {"lambda": 0.3}),
+    "act_hard_sigmoid": _unary_case("hard_sigmoid", (-2.5, 2.5, 0.0),
+                                    scale=3.0),
+    "act_swish": _unary_case("swish", (0.0,), {"beta": 1.5}),
+    "act_hard_swish": _unary_case("hard_swish", (-3.0, 3.0, 0.0),
+                                  scale=4.0),
+    "act_mish": _unary_case("mish"),
+    "act_thresholded_relu": _unary_case("thresholded_relu", (0.3, -0.3),
+                                        {"threshold": 0.3}),
+    "act_selu": _unary_case("selu"),
+    "prelu_all": ("prelu", lambda r: {
+        "X": [_planted(r, (2, 6), (0.0,))],
+        "Alpha": [np.array([0.1], "float32")]}, {"mode": "all"}, ["Out"],
+        EXACT),
+    "prelu_channel": ("prelu", lambda r: {
+        "X": [_planted(r, (2, 3, 4, 4), (0.0,))],
+        "Alpha": [_rand(r, 3) * 0.2]}, {"mode": "channel"}, ["Out"], EXACT),
+    "prelu_element": ("prelu", lambda r: {
+        "X": [_rand(r, 2, 3, 4)], "Alpha": [_rand(r, 12) * 0.2]},
+        {"mode": "element"}, ["Out"], EXACT),
+    "maxout_sweep": ("maxout", lambda r: {"X": [_rand(r, 2, 8, 3, 3)]},
+                     {"groups": 2}, ["Out"], SAME),
+    "maxout_ties": ("maxout", lambda r: {
+        "X": [_tied_rows(r, 2 * 6, 9).reshape(2, 6, 3, 3)]},
+        {"groups": 3}, ["Out"], SAME),
+    # tensor_manip.py
+    "reshape2": ("reshape2", lambda r: {"X": [_rand(r, 2, 6)]},
+                 {"shape": [0, 3, -1]}, ["Out", "XShape"], SAME),
+    "transpose2": ("transpose2", lambda r: {"X": [_rand(r, 2, 3, 4)]},
+                   {"axis": [0, 2, 1]}, ["Out", "XShape"], SAME),
+    "squeeze2": ("squeeze2", lambda r: {"X": [_rand(r, 2, 1, 4)]},
+                 {"axes": [1]}, ["Out", "XShape"], SAME),
+    "unsqueeze2": ("unsqueeze2", lambda r: {"X": [_rand(r, 2, 4)]},
+                   {"axes": [1, 3]}, ["Out", "XShape"], SAME),
+    "stack_axis1": ("stack", lambda r: {"X": [_rand(r, 2, 3),
+                                              _rand(r, 2, 3),
+                                              _rand(r, 2, 3)]},
+                    {"axis": 1}, ["Y"], SAME),
+    "unstack_axis1": ("unstack", lambda r: {"X": [_rand(r, 2, 3, 4)]},
+                      {"axis": 1}, ["Y"], SAME),
+    "unbind": ("unbind", lambda r: {"X": [_rand(r, 2, 3)]}, {"axis": 0},
+               ["Y"], SAME),
+    "flatten": ("flatten", lambda r: {"X": [_rand(r, 2, 3, 4)]},
+                {"axis": 2}, ["Out"], SAME),
+    "flatten_axis0": ("flatten", lambda r: {"X": [_rand(r, 2, 3, 4)]},
+                      {"axis": 0}, ["Out"], SAME),
+    "flatten2": ("flatten2", lambda r: {"X": [_rand(r, 2, 3, 4)]},
+                 {"axis": 1}, ["Out", "XShape"], SAME),
+    "flatten_contiguous_range": ("flatten_contiguous_range", lambda r: {
+        "X": [_rand(r, 2, 3, 4, 5)]}, {"start_axis": 1, "stop_axis": -2},
+        ["Out"], SAME),
+    "expand_as": ("expand_as", lambda r: {"X": [_rand(r, 1, 3)],
+                                          "Y": [_rand(r, 4, 3)]}, {},
+                  ["Out"], SAME),
+    "expand_as_target_tensor": ("expand_as", lambda r: {
+        "X": [_rand(r, 2, 1, 3)], "target_tensor": [_rand(r, 2, 5, 3)]},
+        {}, ["Out"], SAME),
+    "tile": ("tile", lambda r: {"X": [_rand(r, 1, 3)]},
+             {"repeat_times": [2, 2]}, ["Out"], SAME),
+    "strided_slice": ("strided_slice", lambda r: {"Input": [_rand(r, 4, 6)]},
+                      {"axes": [1], "starts": [0], "ends": [6],
+                       "strides": [2]}, ["Out"], SAME),
+    "strided_slice_negative": ("strided_slice", lambda r: {
+        "Input": [_rand(r, 5, 7, 3)]},
+        {"axes": [0, 1], "starts": [4, -2], "ends": [0, 1],
+         "strides": [-2, -1]}, ["Out"], SAME),
+    "gather_nd": ("gather_nd", lambda r: {
+        "X": [_rand(r, 3, 4)], "Index": [r.randint(0, 3, (2, 2))]}, {},
+        ["Out"], SAME),
+    "gather_nd_partial": ("gather_nd", lambda r: {
+        "X": [_rand(r, 3, 4, 5)],
+        "Index": [np.array([[[0], [2]], [[1], [1]]], "int64")]}, {},
+        ["Out"], SAME),
+    "scatter_overwrite": ("scatter", lambda r: {
+        "X": [_rand(r, 5, 3)], "Ids": [np.array([3, 1], "int64")],
+        "Updates": [_rand(r, 2, 3)]}, {}, ["Out"], SAME),
+    # a repeated id keeps its last update, as XLA's in-order scatter
+    "scatter_overwrite_repeats": ("scatter", lambda r: {
+        "X": [_rand(r, 6, 3)],
+        "Ids": [np.array([[0], [0], [2], [5], [2], [0]], "int64")],
+        "Updates": [_rand(r, 6, 3)]}, {"overwrite": True}, ["Out"], SAME),
+    "scatter_add_repeats": ("scatter", lambda r: {
+        "X": [_rand(r, 5, 3)], "Ids": [np.array([1, 4, 1, 1], "int64")],
+        "Updates": [_rand(r, 4, 3)]}, {"overwrite": False}, ["Out"],
+        EXACT),
+    "scatter_nd_add": ("scatter_nd_add", lambda r: {
+        "X": [_rand(r, 5, 3)], "Index": [np.array([[1], [3], [1]], "int64")],
+        "Updates": [_rand(r, 3, 3)]}, {}, ["Out"], EXACT),
+    "scatter_nd_add_2d_index": ("scatter_nd_add", lambda r: {
+        "X": [_rand(r, 4, 5)],
+        "Index": [np.array([[[0, 1], [3, 4]], [[0, 1], [2, 2]]], "int64")],
+        "Updates": [_rand(r, 2, 2)]}, {}, ["Out"], EXACT),
+    "pad": ("pad", lambda r: {"X": [_rand(r, 2, 3)]},
+            {"paddings": [1, 1, 0, 2], "pad_value": 0.5}, ["Out"], SAME),
+    "pad2d_constant": ("pad2d", lambda r: {"X": [_rand(r, 1, 2, 3, 3)]},
+                       {"paddings": [1, 0, 2, 1], "pad_value": -1.0},
+                       ["Out"], SAME),
+    "pad2d_reflect": ("pad2d", lambda r: {"X": [_rand(r, 2, 2, 4, 5)]},
+                      {"paddings": [2, 1, 1, 3], "mode": "reflect"},
+                      ["Out"], SAME),
+    "pad2d_edge": ("pad2d", lambda r: {"X": [_rand(r, 2, 2, 4, 5)]},
+                   {"paddings": [1, 2, 3, 0], "mode": "edge"}, ["Out"],
+                   SAME),
+    "pad_constant_like": ("pad_constant_like", lambda r: {
+        "X": [_rand(r, 4, 5)], "Y": [_rand(r, 2, 3)]}, {"pad_value": 0.5},
+        ["Out"], SAME),
+    "crop": ("crop", lambda r: {"X": [_rand(r, 4, 5)]},
+             {"offsets": [1, 1], "shape": [2, 3]}, ["Out"], SAME),
+    "crop_keep_batch": ("crop", lambda r: {"X": [_rand(r, 4, 5, 6)]},
+                        {"offsets": [0, 2, 1], "shape": [-1, 2, 4]},
+                        ["Out"], SAME),
+    "reverse": ("reverse", lambda r: {"X": [_rand(r, 3, 4)]},
+                {"axis": [0]}, ["Out"], SAME),
+    "flip_two_axes": ("flip", lambda r: {"X": [_rand(r, 3, 4, 2)]},
+                      {"axis": [1, 2]}, ["Out"], SAME),
+    "roll": ("roll", lambda r: {"X": [_rand(r, 3, 4)]},
+             {"shifts": [1], "axis": [1]}, ["Out"], SAME),
+    "roll_two_axes": ("roll", lambda r: {"X": [_rand(r, 3, 4)]},
+                      {"shifts": [-1, 5], "axis": [0, 1]}, ["Out"], SAME),
+    "multiplex": ("multiplex", lambda r: {
+        "Ids": [r.randint(0, 3, (4, 1))],
+        "X": [_rand(r, 4, 3), _rand(r, 4, 3), _rand(r, 4, 3)]}, {},
+        ["Out"], SAME),
+    "where": ("where", lambda r: {
+        "Condition": [r.rand(2, 3) < 0.5], "X": [_rand(r, 2, 3)],
+        "Y": [_rand(r, 2, 3)]}, {}, ["Out"], SAME),
+    "where_index": ("where_index", lambda r: {
+        "Condition": [r.rand(3, 4) < 0.4]}, {}, ["Out"], SAME),
+    "where_index_1d_none": ("where_index", lambda r: {
+        "Condition": [np.zeros(4, bool)]}, {}, ["Out"], SAME),
+    "space_to_depth": ("space_to_depth", lambda r: {
+        "X": [_rand(r, 2, 3, 4, 6)]}, {"blocksize": 2}, ["Out"], SAME),
+    "pixel_shuffle": ("pixel_shuffle", lambda r: {
+        "X": [_rand(r, 1, 8, 3, 3)]}, {"upscale_factor": 2}, ["Out"], SAME),
+    "is_empty": ("is_empty", lambda r: {"X": [_rand(r, 2, 3)]}, {},
+                 ["Out"], SAME),
+    "is_empty_true": ("is_empty", lambda r: {
+        "X": [np.zeros((0, 3), "float32")]}, {}, ["Out"], SAME),
+    "shard_index": ("shard_index", lambda r: {
+        "X": [r.randint(0, 16, (6, 1))]},
+        {"index_num": 16, "nshards": 3, "shard_id": 1, "ignore_value": -1},
+        ["Out"], SAME),
+    # reduce_ops.py: the first index of a tie, a stable sort
+    "arg_max_ties": ("arg_max", lambda r: {"X": [_tied_rows(r, 6, 5)]},
+                     {"axis": 1}, ["Out"], SAME),
+    "arg_min_ties_axis0": ("arg_min", lambda r: {"X": [_tied_rows(r, 6, 5)]},
+                           {"axis": 0}, ["Out"], SAME),
+    "argsort": ("argsort", lambda r: {"X": [_rand(r, 3, 5)]}, {"axis": 1},
+                ["Out", "Indices"], SAME),
+    "argsort_ties": ("argsort", lambda r: {"X": [_tied_rows(r, 4, 7)]},
+                     {"axis": -1}, ["Out", "Indices"], SAME),
+    "argsort_ties_descending_axis0": ("argsort", lambda r: {
+        "X": [_tied_rows(r, 7, 3)]}, {"axis": 0, "descending": True},
+        ["Out", "Indices"], SAME),
+    # math_ops.py
+    "dot": ("dot", lambda r: {"X": [_rand(r, 3, 4)], "Y": [_rand(r, 3, 4)]},
+            {}, ["Out"], EXACT),
+    "minus": ("minus", lambda r: {"X": [_rand(r, 2, 6)],
+                                  "Y": [_rand(r, 2, 6)]}, {}, ["Out"],
+              EXACT),
+    "clip_bounds": ("clip", lambda r: {
+        "X": [_planted(r, (2, 6), (-0.5, 0.5, 0.0))]},
+        {"min": -0.5, "max": 0.5}, ["Out"], EXACT),
+    "cumsum": ("cumsum", lambda r: {"X": [_rand(r, 2, 5)]}, {"axis": 1},
+               ["Out"], EXACT),
+    "cumsum_exclusive_reverse": ("cumsum", lambda r: {
+        "X": [_rand(r, 3, 4, 5)]},
+        {"axis": 1, "exclusive": True, "reverse": True}, ["Out"], EXACT),
+    "cumsum_flatten_exclusive": ("cumsum", lambda r: {
+        "X": [_rand(r, 3, 4)]}, {"flatten": True, "exclusive": True},
+        ["Out"], EXACT),
+    "isfinite": ("isfinite", lambda r: {"X": [_rand(r, 2, 3)]}, {},
+                 ["Out"], SAME),
+    "isfinite_inf": ("isfinite", lambda r: {
+        "X": [_planted(r, (2, 3), (np.inf,))]}, {}, ["Out"], SAME),
+    "squared_l2_distance": ("squared_l2_distance", lambda r: {
+        "X": [_rand(r, 4, 6)], "Y": [_rand(r, 4, 6)]}, {},
+        ["Out", "sub_result"], EXACT),
+    "l1_norm": ("l1_norm", lambda r: {"X": [_rand(r, 2, 6)]}, {}, ["Out"],
+                EXACT),
+    "norm": ("norm", lambda r: {"X": [_rand(r, 2, 6)]}, {"axis": 1},
+             ["Out", "Norm"], EXACT),
+    "norm_axis0_eps": ("norm", lambda r: {"X": [_rand(r, 3, 4, 2)]},
+                       {"axis": 0, "epsilon": 1e-4}, ["Out", "Norm"],
+                       EXACT),
+    "bilinear_tensor_product": ("bilinear_tensor_product", lambda r: {
+        "X": [_rand(r, 2, 3)], "Y": [_rand(r, 2, 4)],
+        "Weight": [_rand(r, 5, 3, 4)]}, {}, ["Out"], MATMUL),
+    "bilinear_tensor_product_bias": ("bilinear_tensor_product", lambda r: {
+        "X": [_rand(r, 3, 3)], "Y": [_rand(r, 3, 4)],
+        "Weight": [_rand(r, 5, 3, 4)], "Bias": [_rand(r, 1, 5)]}, {},
+        ["Out"], MATMUL),
+    # creation.py (the random ops are held by their distribution below)
+    "fill_zeros_like": ("fill_zeros_like", lambda r: {"X": [_rand(r, 2, 3)]},
+                        {}, ["Out"], SAME),
+    "fill_any_like": ("fill_any_like", lambda r: {"X": [_rand(r, 2, 3)]},
+                      {"value": 3.0}, ["Out"], SAME),
+    "fill_any_like_dtype": ("fill_any_like", lambda r: {
+        "X": [_rand(r, 2, 3)]}, {"value": 7.0, "dtype": "int32"}, ["Out"],
+        SAME),
+    "shape": ("shape", lambda r: {"Input": [_rand(r, 2, 3, 4)]}, {},
+              ["Out"], SAME),
+    "range": ("range", lambda r: {"Start": [np.zeros((1,), "float32")],
+                                  "End": [np.full((1,), 5.0, "float32")],
+                                  "Step": [np.ones((1,), "float32")]},
+              {"len": 5}, ["Out"], SAME),
+    "range_fractional": ("range", lambda r: {
+        "Start": [np.full((1,), -1.5, "float32")],
+        "End": [np.full((1,), 2.0, "float32")],
+        "Step": [np.full((1,), 0.7, "float32")]}, {"len": 5}, ["Out"],
+        SAME),
+    "eye": ("eye", lambda r: {}, {"num_rows": 3, "dtype": "float32"},
+            ["Out"], SAME),
+    "eye_rect": ("eye", lambda r: {}, {"num_rows": 3, "num_columns": 5,
+                                       "dtype": "float32"}, ["Out"], SAME),
+    "linspace": ("linspace", lambda r: {}, {"start": 0.0, "stop": 1.0,
+                                            "num": 5, "dtype": "float32"},
+                 ["Out"], SAME),
+    "linspace_wide": ("linspace", lambda r: {}, {"start": 0.0, "stop": 223.0,
+                                                 "num": 57,
+                                                 "dtype": "float32"},
+                      ["Out"], SAME),
+    # XLA's CPU code may fuse the add into an FMA: EXACT, not SAME
+    "linspace_odd": ("linspace", lambda r: {}, {"start": -0.3, "stop": 7.1,
+                                                "num": 13,
+                                                "dtype": "float32"},
+                     ["Out"], EXACT),
+    "linspace_one": ("linspace", lambda r: {}, {"start": 2.0, "stop": 3.0,
+                                                "num": 1,
+                                                "dtype": "float32"},
+                     ["Out"], SAME),
+    # loss_ops.py
+    "mse_loss": ("mse_loss", lambda r: {"X": [_rand(r, 4, 3)],
+                                        "Label": [_rand(r, 4, 3)]}, {},
+                 ["Out"], EXACT),
+    "smooth_l1_loss": ("smooth_l1_loss", lambda r: {
+        "X": [_rand(r, 4, 3)], "Y": [_rand(r, 4, 3)]}, {},
+        ["Out", "Diff"], EXACT),
+    "smooth_l1_loss_weights_sigma": ("smooth_l1_loss", lambda r: {
+        "X": [_rand(r, 4, 2, 3)], "Y": [_rand(r, 4, 2, 3)],
+        "InsideWeight": [np.abs(_rand(r, 4, 2, 3))],
+        "OutsideWeight": [np.abs(_rand(r, 4, 2, 3))]}, {"sigma": 2.0},
+        ["Out", "Diff"], EXACT),
+    "huber_loss": ("huber_loss", lambda r: {
+        "X": [_rand(r, 4, 1)], "Y": [_rand(r, 4, 1)]}, {"delta": 1.0},
+        ["Out", "Residual"], EXACT),
+    "huber_loss_at_delta": ("huber_loss", lambda r: {
+        "X": [np.array([[0.0], [0.0], [1.0], [2.0]], "float32")],
+        "Y": [np.array([[0.5], [-0.5], [0.0], [2.5]], "float32")]},
+        {"delta": 0.5}, ["Out", "Residual"], EXACT),
+    "log_loss": ("log_loss", lambda r: {
+        "Predicted": [r.rand(4, 1).astype("float32") * 0.8 + 0.1],
+        "Labels": [r.randint(0, 2, (4, 1)).astype("float32")]}, {},
+        ["Loss"], EXACT),
+    "hinge_loss": ("hinge_loss", lambda r: {
+        "Logits": [_planted(r, (4, 1), (1.0, -1.0))],
+        "Labels": [np.array([[1], [0], [1], [0]], "float32")]}, {},
+        ["Loss"], EXACT),
+    "modified_huber_loss": ("modified_huber_loss", lambda r: {
+        "X": [_planted(r, (6, 1), (-1.0, 1.0, 3.0), 2.0)],
+        "Y": [np.array([[1], [1], [0], [1], [0], [1]], "float32")]}, {},
+        ["Out", "IntermediateVal"], EXACT),
+    "bpr_loss": ("bpr_loss", lambda r: {
+        "X": [np.abs(_rand(r, 3, 4)) + 0.1],
+        "Label": [r.randint(0, 4, (3, 1))]}, {}, ["Y"], EXACT),
+    "margin_rank_loss": ("margin_rank_loss", lambda r: {
+        "X1": [_rand(r, 4, 1)], "X2": [_rand(r, 4, 1)],
+        "Label": [np.sign(_rand(r, 4, 1))]}, {"margin": 0.1},
+        ["Out", "Activated"], EXACT),
+    "rank_loss": ("rank_loss", lambda r: {
+        "Left": [_rand(r, 4, 1)], "Right": [_rand(r, 4, 1)],
+        "Label": [r.randint(0, 2, (4, 1)).astype("float32")]}, {},
+        ["Out"], EXACT),
+    **{f"kldiv_loss_{red}": ("kldiv_loss", lambda r: {
+        "X": [np.log(r.rand(3, 4).astype("float32") + 0.1)],
+        "Target": [r.rand(3, 4).astype("float32")]}, {"reduction": red},
+        ["Loss"], EXACT) for red in ("mean", "sum", "batchmean", "none")},
+    # lax.abs's gradient is 1 at 0: the stable log1p(exp(-|x|)) term's
+    "sigmoid_xent_zero_logits": ("sigmoid_cross_entropy_with_logits",
+                                 lambda r: {
+        "X": [_planted(r, (3, 4), (0.0, 0.0, 0.0))],
+        "Label": [np.array([[1, 0, 0.3, 1], [0, 1, 1, 0], [1, 1, 0, 0]],
+                           "float32")]}, {}, ["Out"], EXACT),
+    "npair_loss": ("npair_loss", lambda r: {
+        "Anchor": [_rand(r, 3, 4)], "Positive": [_rand(r, 3, 4)],
+        "Labels": [np.array([0, 2, 0], "float32")]}, {}, ["Out"], MATMUL),
+    # metric_ops.py: auc on a state already holding counts
+    "auc": ("auc", lambda r: {
+        "Predict": [r.rand(6, 2).astype("float32")],
+        "Label": [r.randint(0, 2, (6, 1))],
+        "StatPos": [np.zeros((4096,), "float32")],
+        "StatNeg": [np.zeros((4096,), "float32")]}, {},
+        ["AUC", "StatPosOut", "StatNegOut"], SAME),
+    "auc_state_one_column": ("auc", lambda r: {
+        "Predict": [np.concatenate([r.rand(40, 1), [[0.0], [1.0]]]).astype(
+            "float32")],
+        "Label": [r.randint(0, 2, (42, 1)).astype("float32")],
+        "StatPos": [r.randint(0, 5, (101,)).astype("float32")],
+        "StatNeg": [r.randint(0, 5, (101,)).astype("float32")]},
+        {"num_thresholds": 100}, ["AUC", "StatPosOut", "StatNegOut"], SAME),
+    "auc_one_class": ("auc", lambda r: {
+        "Predict": [r.rand(5, 1).astype("float32")],
+        "Label": [np.ones((5, 1), "int64")],
+        "StatPos": [np.zeros((11,), "float32")],
+        "StatNeg": [np.zeros((11,), "float32")]}, {"num_thresholds": 10},
+        ["AUC", "StatPosOut", "StatNegOut"], SAME),
+    "mean_iou": ("mean_iou", lambda r: {
+        "Predictions": [r.randint(0, 3, (8,))],
+        "Labels": [r.randint(0, 3, (8,))]}, {"num_classes": 3},
+        ["OutMeanIou", "OutWrong", "OutCorrect"], EXACT),
+    "mean_iou_absent_class": ("mean_iou", lambda r: {
+        "Predictions": [r.randint(0, 3, (4, 5))],
+        "Labels": [r.randint(0, 3, (4, 5))]}, {"num_classes": 5},
+        ["OutMeanIou", "OutWrong", "OutCorrect"], EXACT),
+    "precision_recall": ("precision_recall", lambda r: {
+        "MaxProbs": [r.rand(4, 1).astype("float32")],
+        "Indices": [r.randint(0, 2, (4, 1))],
+        "Labels": [r.randint(0, 2, (4, 1))],
+        "StatesInfo": [np.zeros((2, 3), "float32")]}, {"class_number": 2},
+        ["BatchMetrics", "AccumMetrics", "AccumStatesInfo"], EXACT),
+    "precision_recall_state": ("precision_recall", lambda r: {
+        "Indices": [r.randint(0, 4, (9, 1))],
+        "Labels": [r.randint(0, 4, (9, 1))],
+        "StatesInfo": [r.randint(0, 6, (4, 3)).astype("float32")]}, {},
+        ["BatchMetrics", "AccumMetrics", "AccumStatesInfo"], EXACT),
+    "edit_distance": ("edit_distance", lambda r: {
+        "Hyps": [r.randint(0, 5, (2, 4))], "Refs": [r.randint(0, 5, (2, 4))]},
+        {}, ["Out", "SequenceNum"], SAME),
+    "edit_distance_ragged_normalized": ("edit_distance", lambda r: {
+        "Hyps": [r.randint(0, 3, (5, 7))], "Refs": [r.randint(0, 3, (5, 4))]},
+        {"normalized": True}, ["Out", "SequenceNum"], SAME),
+    "edit_distance_1d": ("edit_distance", lambda r: {
+        "Hyps": [np.array([1, 2, 3, 4, 5], "int64")],
+        "Refs": [np.array([2, 3, 5], "int64")]}, {}, ["Out"], SAME),
+    "sequence_erase": ("sequence_erase", lambda r: {
+        "X": [r.randint(0, 6, (3, 5))]}, {"tokens": [2, 5]}, ["Out"], SAME),
+    # nn_ops.py: the resizes in each of JAX's modes; shrinking bilinear
+    # without align_corners antialiases, as jax.image.resize does
+    "interpolate_sweep": ("interpolate", lambda r: {
+        "X": [_rand(r, 1, 2, 4, 4)]},
+        {"out_h": 8, "out_w": 8, "interp_method": "bilinear"}, ["Out"],
+        EXACT),
+    "bilinear_interp": ("bilinear_interp", lambda r: {
+        "X": [_rand(r, 2, 2, 5, 7)]}, {"out_h": 3, "out_w": 11}, ["Out"],
+        EXACT),
+    "bilinear_interp_scale": ("bilinear_interp", lambda r: {
+        "X": [_rand(r, 1, 3, 4, 6)]}, {"scale": 1.5}, ["Out"], EXACT),
+    "bilinear_no_align_up": ("bilinear_interp", lambda r: {
+        "X": [_rand(r, 2, 2, 4, 5)]},
+        {"out_h": 8, "out_w": 7, "align_corners": False}, ["Out"], EXACT),
+    "bilinear_no_align_shrink_8_4": ("bilinear_interp", lambda r: {
+        "X": [_rand(r, 2, 2, 8, 8)]},
+        {"out_h": 4, "out_w": 5, "align_corners": False}, ["Out"], EXACT),
+    "nearest_interp": ("nearest_interp", lambda r: {
+        "X": [_rand(r, 1, 2, 4, 4)]}, {"out_h": 8, "out_w": 8}, ["Out"],
+        SAME),
+    "nearest_interp_shrink_8_5": ("nearest_interp", lambda r: {
+        "X": [_rand(r, 2, 3, 8, 8)]}, {"out_h": 5, "out_w": 3}, ["Out"],
+        SAME),
+    "interpolate_bicubic": ("interpolate", lambda r: {
+        "X": [_rand(r, 1, 2, 5, 6)]},
+        {"out_h": 9, "out_w": 4, "interp_method": "bicubic",
+         "align_corners": False}, ["Out"], EXACT),
+    "lookup_table_v2": ("lookup_table_v2", lambda r: {
+        "W": [_rand(r, 10, 4)], "Ids": [r.randint(0, 10, (3, 2))]},
+        {"padding_idx": 3}, ["Out"], SAME),
+}
+
+for _name in DENSE_CASES:
+    assert _name not in CASES, _name
+CASES.update(DENSE_CASES)
+
 CASES.update(CTR_CASES)
 CASES.update(OPT_CASES)
 CASES.update(CONV_EXTRA_CASES)
@@ -1570,7 +2005,7 @@ def _multi_grads(op, ins, attrs, wrt, outs, rng, bf16=()):
 
     primals = [jax_in(s, a) for s in wrt for a in ins[s]]
     jout, vjp = jax.vjp(jax_fn, *primals)
-    cts = [rng.randn(*o.shape).astype("float32") for o in jout]
+    cts = [np.asarray(rng.randn(*o.shape), "float32") for o in jout]
     jgrads = vjp(tuple(jnp.asarray(c).astype(o.dtype)
                        for c, o in zip(cts, jout)))
     tins = {k: [torch.from_numpy(np.array(a, order="C")) for a in v]
@@ -1736,3 +2171,21 @@ def _scan_grads(ins, attrs, wrt, outs, rng):
     tgrads = torch.autograd.grad(tout, leaves,
                                  [torch.from_numpy(c) for c in cts])
     return list(jgrads), list(tgrads)
+
+
+def test_clip_gradient_at_bounds_is_jax_half():
+    """The ``clip`` op's gradient at an element sitting exactly on ``min``
+    or ``max`` is jnp.clip's 0.5 (lax.max and lax.min split a tie), not
+    torch.clamp's 1; inside 1, outside 0."""
+    x = np.array([-1.0, -0.5, 0.0, 0.5, 1.0, 0.25], "float32")
+    attrs = {"min": -0.5, "max": 0.5}
+    jgrad = jax.grad(lambda v: jnp.sum(jax_op("clip").lower(
+        JaxCtx(jax.random.PRNGKey(0)), {"X": [v]}, attrs)["Out"][0]))(
+            jnp.asarray(x))
+    t = torch.from_numpy(x.copy()).requires_grad_(True)
+    out = torch_op("clip").lower(TorchCtx(0, torch.device("cpu")),
+                                 {"X": [t]}, attrs)["Out"][0]
+    tgrad, = torch.autograd.grad(out.sum(), t)
+    np.testing.assert_array_equal(np.asarray(jgrad),
+                                  [0.0, 0.5, 1.0, 0.5, 0.0, 1.0])
+    np.testing.assert_array_equal(tgrad.numpy(), np.asarray(jgrad))
