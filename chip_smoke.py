@@ -437,6 +437,37 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    and maxout, repeated ids for the overwriting scatter), the rest within
    DENSE_RTOL of max |CPU|; the random ops by their moments on the card
    (_dense_random_cases).  Any miss fails the phase.
+5o. The sequence, LoD-array, CTC and sampling planes (slice 26): (a) a
+   CTC acoustic model built from the port's public layers in the shape of
+   DeepSpeech2 (ctc_build: 161 spectrogram bins a frame, fc 512 relu,
+   row_conv with 2 future frames, layers.lstm at hidden 512, 2 layers,
+   bidirectional (the cudnn_lstm op), fc 29 (28 characters and the blank
+   0), warpctc with input lengths in 150-200 and label lengths in 20-40,
+   mean; ctc_greedy_decoder and edit_distance ignoring the blank fetched)
+   at T 200, Adam(1e-4).  One f32 step at CTC_CHECK_BATCH from the card's
+   startup state on the card, on the card with TF32 matmuls (the control)
+   and on a CPUPlace executor taking the card's relu branches and the
+   control's: the loss and every @GRAD within CTC_LOSS_RTOL and
+   CTC_GRAD_RTOL, the control outside one; the greedy ids equal to the
+   CPU's save where the CPU's top-2 margin is within CTC_TIE_RTOL of max
+   |logit| (named in the log), the decoded ids and edit distances equal
+   on every other row.  Then batch 32, CTC_STEPS Executor.run steps on
+   one batch (the loss falls) and time_run_steps with utterances/s and
+   frames/s, the counters zeroed around them (no kernel of this repo).
+   (b) Every op the plane added (_sequence_sweep_cases) through the
+   Executor on the card and on the CPU at a few MB, with the gradient of
+   each differentiable op through append_backward: movement, index and
+   integer ops (the LoD arrays, unique, hash, ctc_align, chunk_eval,
+   sequence_enumerate, split_ids among them) bit for bit, the rest
+   within DENSE_RTOL of max |CPU| (the scatters with repeated ids among
+   them); clamped array indices (7 and -1 on a length-3 array), wrapped
+   and dropped scatter ids planted; nce on the card and on the CPU fed
+   the card's draw, the draw uniform within SEQ_NCE_SPREAD / N; random
+   crop the slice of X at offsets in range; the same draw twice under
+   one seed.  Any miss fails the phase.  At the end of the smoke one CTC
+   step is traced by kernel class with the device's idle share, the
+   forward launches inside cudnn_lstm's and warpctc's ranges and each op
+   alone, forward and backward, at the step's shapes (trace_ctc).
 6. Timings: each kernel's device time at its paths' shapes (CUDA events
    around calls queued behind a sleep kernel, so the host's launch cost
    is left out and printed apart), its bound, the plain version and one
@@ -505,7 +536,8 @@ Phases, each fatal on failure (an uncaught exception exits non-zero):
    "resnet_piecewise_train" and "conv_family", all 0, phase 5m's under
    "lm_int8_train" (the AMP row's), "resnet_int8_serve" and
    "resnet_qat_train" (0) and "fused_multihead_attention(_amp)",
-   phase 5n's under "dense_plane", all 0;
+   phase 5n's under "dense_plane", phase 5o's under "ctc_speech_train"
+   and "sequence_plane", all 0;
    layer_norm's D-768 times under "d768"; the bf16 kernels' launches are the AMP step's;
    lm_head_fwd_bf16, lm_head_bwd_bf16 and transformer_block_bf16 also
    carry their path and both paths' breakdowns; layer_norm's "bf16" entry
@@ -8073,6 +8105,31 @@ def dense_run(torch, place, main, feed, params, fetch):
                                             fetch_list=fetch)]
 
 
+def sweep_compare(name, kind, n_out, card, cpu, misses):
+    """A sweep case's card fetches against the CPU's, `n_out` outputs
+    then gradients, by its kind (_dense_sweep_cases): each miss appended
+    to `misses`; returns the worst relative error where one was taken."""
+    import numpy as np
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        what = "output" if i < n_out else "grad"
+        bits = kind == "bits" or (kind == "fwd" and i < n_out)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            misses.append(f"{name} {what} {i}: {a.shape} {a.dtype} "
+                          f"against the CPU's {b.shape} {b.dtype}")
+        elif bits and not np.array_equal(a, b, equal_nan=True):
+            misses.append(f"{name} {what} {i}: "
+                          f"{int((a != b).sum())} entries differ")
+        elif not bits:
+            err = float(np.abs(a.astype("f8") - b).max()
+                        / max(float(np.abs(b).max()), 1e-30))
+            worst = max(worst, err)
+            if not err <= DENSE_RTOL:
+                misses.append(f"{name} {what} {i}: {err:.3g} of max "
+                              f"|CPU| against {DENSE_RTOL}")
+    return worst
+
+
 def dense_sweep(torch):
     """(b) Every op of the dense plane through the Executor on the card
     and on the CPU: outputs, and gradients through append_backward, bit
@@ -8092,23 +8149,7 @@ def dense_sweep(torch):
                                                          arrays, rng)
         card = dense_run(torch, ptt.CUDAPlace(0), main, feed, params, fetch)
         cpu = dense_run(torch, ptt.CPUPlace(), main, feed, params, fetch)
-        worst = 0.0
-        for i, (a, b) in enumerate(zip(card, cpu)):
-            what = "output" if i < n_out else "grad"
-            bits = case[5] == "bits" or (case[5] == "fwd" and i < n_out)
-            if a.shape != b.shape or a.dtype != b.dtype:
-                misses.append(f"{name} {what} {i}: {a.shape} {a.dtype} "
-                              f"against the CPU's {b.shape} {b.dtype}")
-            elif bits and not np.array_equal(a, b, equal_nan=True):
-                misses.append(f"{name} {what} {i}: "
-                              f"{int((a != b).sum())} entries differ")
-            elif not bits:
-                err = float(np.abs(a.astype("f8") - b).max()
-                            / max(float(np.abs(b).max()), 1e-30))
-                worst = max(worst, err)
-                if not err <= DENSE_RTOL:
-                    misses.append(f"{name} {what} {i}: {err:.3g} of max "
-                                  f"|CPU| against {DENSE_RTOL}")
+        worst = sweep_compare(name, case[5], n_out, card, cpu, misses)
         rows[name] = (case[5], len(fetch) - n_out, worst)
     for name, (ins, attrs, check) in _dense_random_cases().items():
         main, feed, params, fetch, _ = dense_program(
@@ -8301,6 +8342,728 @@ def trace_dense(torch):
         f"{n[(True, True)][2] - n[(True, False)][2]:.4f} ms (AMP) of device "
         f"busy time; device busy ms { {k: round(v[2], 4) for k, v in n.items()} }"
         f", traced walls (ms) { {k: round(v[1], 3) for k, v in n.items()} }")
+
+
+# phase 5o: the sequence, LoD-array, CTC and sampling planes.  (a) A CTC
+# acoustic model in the shape of DeepSpeech2 (161 spectrogram bins a
+# frame, a row convolution with 2 future frames, a bidirectional
+# recurrence, 29 outputs: 28 characters and the blank 0) built from the
+# port's public layers, at hidden 512, 2 layers, T 200 and batch 32;
+# (b) every op the plane added, through the Executor on the card and on
+# the CPU at a few MB (DENSE_N x DENSE_D f32 operands or the like)
+CTC_T, CTC_FEAT, CTC_BATCH = 200, 161, 32
+CTC_HIDDEN, CTC_LAYERS = 512, 2
+CTC_CLASSES = 29             # 28 characters and the blank 0
+CTC_LABEL = 40               # label slots; lengths in CTC_LAB_LEN
+CTC_IN_LEN = (150, 200)      # input lengths, inclusive
+CTC_LAB_LEN = (20, 40)
+CTC_LR = 1e-4                # Adam
+CTC_STEPS = 3                # Executor.run steps on one batch: the loss falls
+CTC_CHECK_BATCH = 8          # the card-vs-CPU step (the CPU side is the cost)
+CTC_LOSS_RTOL = 1e-5
+CTC_GRAD_RTOL = 1e-4         # ||card - CPU|| / ||CPU|| of every @GRAD
+CTC_TIE_RTOL = 1e-5          # a greedy id may part only at a top-2 margin
+                             # below this x max |logit| (an argmax tie)
+CTC_TIMED_STEPS = 3          # time_run_steps: steps a call, timed calls
+CTC_TIMED_CALLS = 2
+SEQ_NCE_CLASSES = 64         # the sweep's nce draw: each class within
+SEQ_NCE_SPREAD = 0.25        # this share of 1 / N of its frequency
+
+
+def ctc_build():
+    """(main, startup, loss, @GRAD names, logits, greedy ids (arg_max),
+    decoded ids (ctc_align), edit distances, relu inputs) of the CTC
+    model: fc(512, relu) -> row_conv(2) -> layers.lstm(512, 2 layers,
+    bidirectional) -> fc(29) -> warpctc(blank 0, input and label
+    lengths) -> mean, Adam(CTC_LR); ctc_greedy_decoder and
+    edit_distance(ignored_tokens [0]) beside it."""
+    import paddle_tpu_torch as ptt
+    L = ptt.layers
+    ptt.reset_default_programs()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup):
+        x = L.data("x", [CTC_T, CTC_FEAT])
+        label = L.data("label", [CTC_LABEL], dtype="int64")
+        in_len = L.data("input_length", [1], dtype="int64")
+        lab_len = L.data("label_length", [1], dtype="int64")
+        h = L.fc(x, CTC_HIDDEN, num_flatten_dims=2, act="relu")
+        h = L.row_conv(h, 2)
+        h, _, _ = L.lstm(h, hidden_size=CTC_HIDDEN, num_layers=CTC_LAYERS,
+                         is_bidirec=True)
+        logits = L.fc(h, CTC_CLASSES, num_flatten_dims=2)
+        loss = L.mean(L.warpctc(logits, label, blank=0, input_length=in_len,
+                                label_length=lab_len))
+        decoded = L.ctc_greedy_decoder(logits, blank=0)
+        dist, _ = L.edit_distance(decoded, label, ignored_tokens=[0])
+        _, pg = ptt.optimizer.Adam(learning_rate=CTC_LR).minimize(loss)
+    block = main.global_block()
+    greedy = [op.outputs["Out"][0] for op in block.ops
+              if op.type == "arg_max"][0]
+    relus = [op.inputs["X"][0] for op in block.ops if op.type == "relu"]
+    return (main, startup, loss, [g.name for _, g in pg], logits,
+            block.var(greedy), decoded, dist, relus)
+
+
+def ctc_feed(batch, seed, device=None):
+    """A seeded batch: frames of 161 normal bins, input lengths in
+    CTC_IN_LEN, labels over 1-28 with lengths in CTC_LAB_LEN, 0 (the
+    blank) past them; numpy, or tensors on `device`."""
+    import numpy as np
+    import torch
+    r = np.random.RandomState(seed)
+    lab_len = r.randint(CTC_LAB_LEN[0], CTC_LAB_LEN[1] + 1, (batch, 1))
+    label = r.randint(1, CTC_CLASSES, (batch, CTC_LABEL))
+    label[np.arange(CTC_LABEL)[None, :] >= lab_len] = 0
+    feed = {"x": r.randn(batch, CTC_T, CTC_FEAT).astype("float32"),
+            "label": label.astype("int64"),
+            "input_length": r.randint(CTC_IN_LEN[0], CTC_IN_LEN[1] + 1,
+                                      (batch, 1)).astype("int64"),
+            "label_length": lab_len.astype("int64")}
+    if device is None:
+        return feed
+    return {k: torch.as_tensor(v, device=device) for k, v in feed.items()}
+
+
+def ctc_greedy_ties(card_ids, cpu_ids, cpu_logits):
+    """Where the card's greedy ids part from the CPU's: (row, step, top-2
+    margin / max |logit|) of each, and whether every one is an argmax tie
+    (margin within CTC_TIE_RTOL)."""
+    import numpy as np
+    where = np.argwhere(card_ids != cpu_ids)
+    top2 = np.sort(cpu_logits, axis=-1)[..., -2:]
+    scale = float(np.abs(cpu_logits).max())
+    parts = [(int(b), int(t), float((top2[b, t, 1] - top2[b, t, 0]) / scale))
+             for b, t in where]
+    return parts, all(m <= CTC_TIE_RTOL for _, _, m in parts)
+
+
+def ctc_card_vs_cpu(torch):
+    """(a) One f32 Adam step of the CTC model at CTC_CHECK_BATCH from the
+    card's startup state: on the card, on the card with TF32 matmuls (the
+    control), and on a CPUPlace executor twice, taking the card's relu
+    branches and the control's.  The card's loss and every @GRAD within
+    CTC_LOSS_RTOL and CTC_GRAD_RTOL of the CPU step on its branches, the
+    control outside one of them; the card's greedy ids equal to the
+    CPU's save at a named argmax tie, the decoded ids and the edit
+    distances equal on every row without one."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = "[ctc check]"
+    (main, startup, loss, grads, logits, greedy, decoded, dist,
+     relus) = ctc_build()
+    card = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    card.run(startup)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = {n: t.numpy() for n, t in host_state(card.scope, names).items()}
+    feed = ctc_feed(CTC_CHECK_BATCH, SEED + 60)
+    cpu = ptt.Executor(ptt.CPUPlace(), scope=ptt.Scope())
+    fetch = [loss] + grads + [logits, greedy, decoded, dist] + relus
+
+    def step(exe, place, masks=None):
+        ptt.io.params_from_numpy(exe.scope, state, place)
+        replay = (replayed_relu_masks(masks) if masks is not None
+                  else contextlib.nullcontext([]))
+        with replay as left:
+            out = exe.run(main, feed=feed, fetch_list=fetch,
+                          return_numpy=False)
+        if left:
+            raise RuntimeError(f"{tag} {len(left)} relu masks not taken")
+        n = 1 + len(grads)
+        return (float(out[0].float().cpu().reshape(())),
+                {g: t.detach().float().cpu() for g, t in zip(grads,
+                                                             out[1:n])},
+                [t.detach().cpu().numpy() for t in out[n:n + 4]],
+                [(t > 0).float().cpu() for t in out[n + 4:]])
+
+    got_loss, got, got_dec, card_signs = step(card, ptt.CUDAPlace(0))
+    with tf32_everywhere(torch):
+        ctl_loss, ctl, _, ctl_signs = step(card, ptt.CUDAPlace(0))
+    res, cpu_s, decs = {}, [], []
+    for name, l, g, signs in (("card", got_loss, got, card_signs),
+                              ("TF32 control", ctl_loss, ctl, ctl_signs)):
+        t0 = time.perf_counter()
+        want_loss, want, dec, _ = step(cpu, ptt.CPUPlace(), masks=signs)
+        cpu_s.append(time.perf_counter() - t0)
+        decs.append(dec)
+        errs = grad_rel_errs(want, g)
+        worst = sorted(errs, key=errs.get, reverse=True)
+        res[name] = (abs(l - want_loss) / abs(want_loss), errs[worst[0]],
+                     worst[0], want_loss,
+                     [(n, f"{errs[n]:.3g}") for n in worst[1:4]])
+    want_dec = decs[0]          # the CPU step on the card's relu branches
+    parts, ties_only = ctc_greedy_ties(got_dec[1], want_dec[1], want_dec[0])
+    tied_rows = {b for b, _, _ in parts}
+    rows_same = all(np.array_equal(got_dec[i][b], want_dec[i][b])
+                    for i in (2, 3) for b in range(CTC_CHECK_BATCH)
+                    if b not in tied_rows)
+    flips = sum(int((a != b).sum()) for a, b in zip(card_signs, ctl_signs))
+    log(f"{tag} batch {CTC_CHECK_BATCH}, T {CTC_T}, "
+        f"{len(main.global_block().ops)} ops, {len(grads)} @GRADs: loss "
+        f"card {got_loss:.7f} CPU {res['card'][3]:.7f} (rel "
+        f"{res['card'][0]:.3g}), TF32 control {ctl_loss:.7f} (rel "
+        f"{res['TF32 control'][0]:.3g}); worst @GRAD card "
+        f"{res['card'][1]:.3g} ({res['card'][2]}; next {res['card'][4]}), "
+        f"control {res['TF32 control'][1]:.3g} ({res['TF32 control'][2]});"
+        f" bounds {CTC_LOSS_RTOL:g} / {CTC_GRAD_RTOL:g}; greedy ids "
+        f"parting from the CPU's (row, step, top-2 margin of max |logit|) "
+        f"{parts}; decoded ids and edit distances equal on the other rows: "
+        f"{rows_same}; relu branches the control took apart from the "
+        f"card's: {flips}; CPU steps {[round(s, 1) for s in cpu_s]} s")
+    if not (res["card"][0] <= CTC_LOSS_RTOL
+            and res["card"][1] <= CTC_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the card's step is off the CPU's: "
+                           f"{res['card']}")
+    if not (res["TF32 control"][0] > CTC_LOSS_RTOL
+            or res["TF32 control"][1] > CTC_GRAD_RTOL):
+        raise RuntimeError(f"{tag} the TF32 control passed the bounds: the "
+                           f"check cannot tell f32 from TF32")
+    if not (ties_only and rows_same):
+        raise RuntimeError(f"{tag} the greedy decode parts from the CPU's "
+                           f"off a tie: {parts}, other rows equal "
+                           f"{rows_same}")
+    return dict(loss=res["card"][0], grad=res["card"][1],
+                ctl_loss=res["TF32 control"][0],
+                ctl_grad=res["TF32 control"][1], ties=parts)
+
+
+def ctc_train(torch):
+    """The CTC model at CTC_BATCH on the card: CTC_STEPS Executor.run
+    steps on one batch (every loss finite, the last below the first, the
+    greedy decode and edit distances fetched), then run_steps timed as
+    bench.py's _time_steps times a row.  The counters are zeroed around
+    the card's work.  Returns the counts and the row."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    tag = "[ctc train]"
+    (main, startup, loss, _, logits, _, decoded, dist, _) = ctc_build()
+    exe = ptt.Executor(ptt.CUDAPlace(0), scope=ptt.Scope())
+    exe.run(startup)
+    feed = ctc_feed(CTC_BATCH, SEED + 61, device=DEVICE)
+    counters = launch_counters()
+    zero_counters(counters)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(CTC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, decoded, dist])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0]))
+    peak = torch.cuda.max_memory_allocated() - base
+    step_ms = time_run_steps(torch, exe, main, feed, loss,
+                             steps=CTC_TIMED_STEPS, calls=CTC_TIMED_CALLS)
+    counts = {n: v for (n, attr), v in read_counters(counters).items()
+              if attr == "launches"}
+    frames = int(feed["input_length"].sum())
+    log(f"{tag} batch {CTC_BATCH}, T {CTC_T}, {CTC_FEAT} bins, hidden "
+        f"{CTC_HIDDEN} x {CTC_LAYERS} layers bidirectional, "
+        f"{CTC_CLASSES} classes, "
+        f"{sum(math.prod(p.shape) for p in main.all_parameters())} weights:"
+        f" losses {[round(v, 4) for v in losses]}; decoded shape "
+        f"{tuple(out[1].shape)}, mean edit distance "
+        f"{float(np.mean(out[2])):.4f}; run ms {[round(v, 1) for v in ms]};"
+        f" run_steps {step_ms:.2f} ms a step ({CTC_TIMED_STEPS} steps a "
+        f"call, best of {CTC_TIMED_CALLS} after one), "
+        f"{CTC_BATCH / step_ms * 1e3:.1f} utterances/s, "
+        f"{frames / step_ms * 1e3:.0f} frames/s; peak "
+        f"{peak / 2**20:.1f} MiB above what was held; this repo's kernels "
+        f"launched {sum(counts.values())} times; {nvidia_smi_line()}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise RuntimeError(f"{tag} the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise RuntimeError(f"{tag} launched this repo's kernels: {counts}")
+    return counts, dict(exe=exe, main=main, feed=feed, loss=loss,
+                        losses=losses, step_ms=step_ms, peak=peak)
+
+
+def _seq_ids(r, n, hi, *shape):
+    """Ids in [0, hi) with ids planted as the sweep's index rules need:
+    -1 (wraps once), hi (dropped) and a run of one id (repeats sum)."""
+    ids = r.randint(0, hi, shape).astype("int64")
+    flat = ids.reshape(-1)
+    flat[0:n] = flat[0]
+    flat[n::97] = -1
+    flat[n + 1::97] = hi
+    return ids
+
+
+def _seq_tags(r, *shape):
+    return r.randint(0, 7, shape).astype("int64")
+
+
+def _sequence_sweep_cases():
+    """name -> (op, inputs(rng), attrs, {out slot: count}, differentiated
+    slots, kind), as _dense_sweep_cases: "bits" holds outputs and
+    gradients bit for bit, "fwd" the outputs bit for bit and the gradients
+    at DENSE_RTOL, "rel" both at DENSE_RTOL of max |CPU| (the scatters
+    with repeated ids among them: atomics on the card)."""
+    import numpy as np
+    f, kinks = _dense_f, _dense_kinks
+    B, T, D = 64, 128, 64
+    img = (16, 8, 64, 64)
+
+    def seq(r):
+        return f(r, B, T, D)
+
+    def lengths(r, n=B, hi=T):
+        v = r.randint(0, hi + 1, n).astype("int64")
+        v[:2] = (0, hi)
+        return v
+
+    def mask(r):
+        return (np.arange(T)[None, :] < lengths(r)[:, None]).astype("f4")
+
+    def cudnn_w(r, d, h, layers):
+        n, din = 0, d
+        for _ in range(layers):
+            n += 2 * (din * 4 * h + h * 4 * h + 4 * h)
+            din = 2 * h
+        return f(r, n, scale=0.1)
+
+    perm = lambda r, n: r.permutation(n).astype("int64")  # noqa: E731
+    c = {
+        "sequence_mask": ("sequence_mask", lambda r: {
+            "X": [lengths(r, 4096, 300)]}, {"maxlen": 256}, {"Y": 1}, (),
+            "bits"),
+        "sequence_softmax": ("sequence_softmax", lambda r: {
+            "X": [seq(r)], "Mask": [mask(r)]}, {}, {"Out": 1}, ("X",),
+            "rel"),
+        "sequence_expand": ("sequence_expand", lambda r: {
+            "X": [f(r, B, 1024)], "Y": [f(r, B, 16, 8)]}, {}, {"Out": 1},
+            ("X",), "fwd"),
+        "sequence_expand_as": ("sequence_expand_as", lambda r: {
+            "X": [f(r, B, 1024)], "Y": [f(r, B, 16)]}, {}, {"Out": 1},
+            ("X",), "fwd"),
+        "sequence_reverse": ("sequence_reverse", lambda r: {
+            "X": [seq(r)], "Length": [lengths(r)]}, {}, {"Y": 1}, ("X",),
+            "bits"),
+        "sequence_concat": ("sequence_concat", lambda r: {
+            "X": [seq(r), f(r, B, 32, D)]}, {}, {"Out": 1}, ("X",), "bits"),
+        "sequence_slice": ("sequence_slice", lambda r: {"X": [seq(r)]},
+                           {"offset": 17, "length": 90}, {"Out": 1}, ("X",),
+                           "bits"),
+        "sequence_pad": ("sequence_pad", lambda r: {
+            "X": [seq(r)], "Length": [lengths(r)]},
+            {"padded_length": 160, "pad_value": 0.5},
+            {"Out": 1, "Length": 1}, ("X",), "bits"),
+        "sequence_unpad": ("sequence_unpad", lambda r: {
+            "X": [seq(r)], "Length": [lengths(r)]}, {}, {"Out": 1}, ("X",),
+            "bits"),
+        "sequence_enumerate": ("sequence_enumerate", lambda r: {
+            "X": [r.randint(0, 30000, (256, 512)).astype("int64")]},
+            {"win_size": 4, "pad_value": 1}, {"Out": 1}, (), "bits"),
+        "sequence_reshape": ("sequence_reshape", lambda r: {"X": [seq(r)]},
+                             {"new_dim": 128}, {"Out": 1}, ("X",), "bits"),
+        "sequence_scatter": ("sequence_scatter", lambda r: {
+            "X": [f(r, B, 1024)], "Ids": [_seq_ids(r, 40, 1024, B, 256)],
+            "Updates": [f(r, B, 256)]}, {}, {"Out": 1}, ("X", "Updates"),
+            "rel"),
+        "lod_reset": ("lod_reset", lambda r: {"X": [seq(r)]},
+                      {"target_lod": []}, {"Out": 1}, ("X",), "bits"),
+        "row_conv": ("row_conv", lambda r: {
+            "X": [seq(r)], "Filter": [f(r, 3, D, scale=0.3)]}, {},
+            {"Out": 1}, ("X", "Filter"), "rel"),
+        "add_position_encoding": ("add_position_encoding", lambda r: {
+            "X": [seq(r)]}, {"alpha": 0.5, "beta": 2.0}, {"Out": 1},
+            ("X",), "rel"),
+        # the LoD arrays
+        "lod_rank_table": ("lod_rank_table", lambda r: {
+            "X": [(np.arange(256)[None, :]
+                   < r.randint(0, 257, (4096, 1))).astype("f4")]}, {},
+            {"Out": 1, "Lengths": 1}, (), "bits"),
+        "max_sequence_len": ("max_sequence_len", lambda r: {
+            "RankTable": [lengths(r, 4096, 1000)]}, {}, {"Out": 1}, (),
+            "bits"),
+        "reorder_lod_tensor_by_rank": ("reorder_lod_tensor_by_rank",
+                                       lambda r: {
+            "X": [f(r, 4096, 256)], "RankTable": [perm(r, 4096)]}, {},
+            {"Out": 1}, ("X",), "bits"),
+        "tensor_array_to_tensor": ("tensor_array_to_tensor", lambda r: {
+            "X": [f(r, 512, 256) for _ in range(4)]}, {"axis": 1},
+            {"Out": 1, "OutIndex": 1}, ("X",), "bits"),
+        "split_lod_tensor": ("split_lod_tensor", lambda r: {
+            "X": [f(r, 512, 1024)], "Mask": [r.rand(512, 1) < 0.5]}, {},
+            {"OutTrue": 1, "OutFalse": 1}, ("X",), "bits"),
+        "merge_lod_tensor": ("merge_lod_tensor", lambda r: {
+            "InTrue": [f(r, 512, 1024)], "InFalse": [f(r, 512, 1024)],
+            "Mask": [r.rand(512, 1) < 0.5]}, {}, {"Out": 1},
+            ("InTrue", "InFalse"), "bits"),
+        "lod_array_length": ("lod_array_length", lambda r: {
+            "X": [f(r, 512, 256) for _ in range(3)]}, {}, {"Out": 1}, (),
+            "bits"),
+        "lod_tensor_to_array": ("lod_tensor_to_array", lambda r: {
+            "X": [f(r, 256, 8, 256)], "RankTable": [perm(r, 256)]}, {},
+            {"Out": 8}, ("X",), "bits"),
+        "array_to_lod_tensor": ("array_to_lod_tensor", lambda r: {
+            "X": [f(r, 256, 256) for _ in range(8)],
+            "RankTable": [perm(r, 256)]}, {}, {"Out": 1}, ("X",), "bits"),
+        "shrink_rnn_memory": ("shrink_rnn_memory", lambda r: {
+            "X": [f(r, 512, 1024)], "RankTable": [lengths(r, 512, 50)],
+            "I": [np.array([20], "int64")]}, {}, {"Out": 1}, ("X",),
+            "bits"),
+        "rnn_memory_helper": ("rnn_memory_helper", lambda r: {
+            "X": [f(r, 512, 1024)]}, {}, {"Out": 1}, ("X",), "bits"),
+        # lax's rule: 7 clamps to row 2 of 3, -1 wraps to row 2
+        **{f"write_to_array_{i}": ("write_to_array", lambda r, i=i: {
+            "X": [f(r, 512, 512)], "I": [np.array([i], "int64")],
+            "Array": [f(r, 3, 512, 512)]}, {}, {"Out": 1}, ("X", "Array"),
+            "bits") for i in (1, 7, -1)},
+        **{f"read_from_array_{i}": ("read_from_array", lambda r, i=i: {
+            "X": [f(r, 3, 512, 512)], "I": [np.array([i], "int64")]}, {},
+            {"Out": 1}, ("X",), "bits") for i in (9, -1)},
+        # the recurrent extras
+        "sequence_context": ("sequence_context", lambda r: {
+            "X": [seq(r)]}, {"context_length": 3}, {"Out": 1}, ("X",),
+            "fwd"),
+        "conv_shift": ("conv_shift", lambda r: {
+            "X": [f(r, 512, 1024)], "Y": [f(r, 512, 5)]}, {}, {"Out": 1},
+            ("X", "Y"), "rel"),
+        "lstmp": ("lstmp", lambda r: {
+            "Input": [f(r, 32, 64, 512)], "Weight": [f(r, 64, 512,
+                                                       scale=0.1)],
+            "ProjWeight": [f(r, 128, 64, scale=0.1)]}, {},
+            {"Projection": 1, "Cell": 1, "LastH": 1, "LastC": 1},
+            ("Input", "Weight", "ProjWeight"), "rel"),
+        "cudnn_lstm": ("cudnn_lstm", lambda r: {
+            "Input": [f(r, 16, 64, 128)], "W": [cudnn_w(r, 128, 128, 2)]},
+            {"hidden_size": 128, "num_layers": 2, "is_bidirec": True},
+            {"Out": 1, "LastH": 1, "LastC": 1}, ("Input", "W"), "rel"),
+        # CTC and chunks
+        "warpctc": ("warpctc", lambda r: {
+            "Logits": [f(r, 32, CTC_T, CTC_CLASSES, scale=2.0)],
+            "Label": [r.randint(1, CTC_CLASSES, (32, CTC_LABEL))],
+            "LogitsLength": [r.randint(CTC_IN_LEN[0], CTC_T + 1, 32)],
+            "LabelLength": [np.concatenate([[0], r.randint(
+                CTC_LAB_LEN[0], CTC_LABEL + 1, 31)])]}, {}, {"Loss": 1},
+            ("Logits",),
+            "rel"),
+        "ctc_align": ("ctc_align", lambda r: {
+            "Input": [r.randint(0, 4, (512, 1024)).astype("int64")]},
+            {"blank": 0}, {"Output": 1}, (), "bits"),
+        "chunk_eval": ("chunk_eval", lambda r: {
+            "Inference": [_seq_tags(r, 256, 512)],
+            "Label": [_seq_tags(r, 256, 512)]},
+            {"num_chunk_types": 3, "excluded_chunk_types": [1]},
+            {"Precision": 1, "Recall": 1, "F1-Score": 1,
+             "NumInferChunks": 1, "NumLabelChunks": 1,
+             "NumCorrectChunks": 1}, (), "bits"),
+        # sampling (nce apart, in sequence_sweep)
+        "hierarchical_sigmoid": ("hierarchical_sigmoid", lambda r: {
+            "X": [f(r, 4096, 64)], "W": [f(r, 999, 64, scale=0.2)],
+            "Label": [r.randint(0, 1000, (4096, 1))],
+            "Bias": [f(r, 999)]}, {"num_classes": 1000},
+            {"Out": 1, "PreOut": 1}, ("X", "W", "Bias"), "rel"),
+        "teacher_student_sigmoid_loss": (
+            "teacher_student_sigmoid_loss", lambda r: {
+                "X": [kinks(r, (0.0, 15.0, -15.0), 65536, 1, scale=8.0)],
+                "Label": [np.where(r.rand(65536, 1) < 0.5, r.rand(65536, 1),
+                                   r.randint(0, 2, (65536, 1))).astype(
+                                       "f4")]}, {}, {"Y": 1}, ("X",),
+            "rel"),
+        "positive_negative_pair": ("positive_negative_pair", lambda r: {
+            "Score": [np.round(r.rand(2048, 1) * 20).astype("f4")],
+            "Label": [r.randint(0, 3, (2048, 1)).astype("f4")],
+            "QueryID": [r.randint(0, 8, (2048, 1))]}, {},
+            {"PositivePair": 1, "NegativePair": 1, "NeutralPair": 1}, (),
+            "bits"),
+        # selected rows and ids
+        "unique": ("unique", lambda r: {
+            "X": [r.randint(0, 5000, 262144).astype("int64")]}, {},
+            {"Out": 1, "Index": 1, "Count": 1}, (), "bits"),
+        "unique_with_counts": ("unique_with_counts", lambda r: {
+            "X": [r.randint(0, 5000, 262144).astype("int64")]}, {},
+            {"Out": 1, "Index": 1, "Count": 1, "UniqueCount": 1}, (),
+            "bits"),
+        "hash": ("hash", lambda r: {
+            "X": [r.randint(-2**40, 2**40, (65536, 4))]},
+            {"num_hash": 4, "mod_by": 100003}, {"Out": 1}, (), "bits"),
+        "lookup_sparse_table": ("lookup_sparse_table", lambda r: {
+            "W": [f(r, 4096, 256)], "Ids": [r.randint(0, 4096, 8192)]}, {},
+            {"Out": 1}, ("W",), "fwd"),
+        "split_ids": ("split_ids", lambda r: {
+            "Ids": [r.randint(-1000, 100000, 262144)]}, {"num_shards": 4},
+            {"Out": 4}, (), "bits"),
+        "merge_ids": ("merge_ids", lambda r: {
+            "X": [f(r, 512, 1024), f(r, 512, 1024)]}, {}, {"Out": 1},
+            ("X",), "bits"),
+        "merge_selected_rows": ("merge_selected_rows", lambda r: {
+            "Ids": [r.randint(0, 1000, 8192)], "Values": [f(r, 8192, 128)]},
+            {}, {"OutIds": 1, "Out": 1}, ("Values",), "rel"),
+        "split_selected_rows": ("split_selected_rows", lambda r: {
+            "Ids": [r.randint(0, 1000, 8192)], "Values": [f(r, 8192, 128)]},
+            {"height_sections": [300, 300, 400]}, {"OutIds": 3, "Out": 3},
+            ("Values",), "bits"),
+        "get_tensor_from_selected_rows": ("get_tensor_from_selected_rows",
+                                          lambda r: {
+            "Ids": [_seq_ids(r, 40, 1000, 8192)],
+            "Values": [f(r, 8192, 128)]}, {"height": 1000}, {"Out": 1},
+            ("Values",), "rel"),
+        # vision
+        "affine_channel": ("affine_channel", lambda r: {
+            "X": [f(r, *img)], "Scale": [f(r, 8)], "Bias": [f(r, 8)]}, {},
+            {"Out": 1}, ("X", "Scale", "Bias"), "rel"),
+        "im2sequence": ("im2sequence", lambda r: {"X": [f(r, *img)]},
+                        {"kernels": [3, 3], "strides": [2, 2],
+                         "paddings": [1, 1, 0, 0]}, {"Out": 1}, ("X",),
+                        "bits"),
+        "grid_sampler": ("grid_sampler", lambda r: {
+            "X": [f(r, *img)],
+            "Grid": [kinks(r, (0.0, 1.0, -1.0), 16, 48, 48, 2, scale=0.8)]},
+            {}, {"Output": 1}, ("X", "Grid"), "rel"),
+        "pad3d": ("pad3d", lambda r: {"X": [f(r, 8, 4, 16, 32, 32)]},
+                  {"paddings": [1, 2, 0, 3, 2, 1], "value": 0.5},
+                  {"Out": 1}, ("X",), "bits"),
+        "shuffle_channel": ("shuffle_channel", lambda r: {
+            "X": [f(r, *img)]}, {"group": 4}, {"Out": 1}, ("X",), "bits"),
+        "similarity_focus": ("similarity_focus", lambda r: {
+            "X": [np.round(r.rand(*img) * 8).astype("f4")]},
+            {"axis": 1, "indexes": [0, 3, 5]}, {"Out": 1}, (), "bits"),
+        "spp": ("spp", lambda r: {"X": [f(r, *img)]},
+                {"pyramid_height": 3}, {"Out": 1}, ("X",), "fwd"),
+        "unpool": ("unpool", lambda r: {
+            "X": [f(r, 16, 8, 32, 32)],
+            "Indices": [_seq_ids(r, 40, 4096, 16, 8, 32, 32)]},
+            {"unpooled_height": 64, "unpooled_width": 64}, {"Out": 1},
+            ("X",), "rel"),
+        "scale_sub_region": ("scale_sub_region", lambda r: {
+            "X": [f(r, *img)],
+            "Indices": [np.sort(r.randint(1, 9, (16, 3, 2)), axis=2).reshape(
+                16, 6) * [1, 1, 8, 8, 8, 8]]}, {"value": 2.5}, {"Out": 1},
+            ("X",), "bits"),
+        # host ops
+        "fill": ("fill", lambda r: {}, {"shape": [64, 1024],
+                                        "dtype": "float32",
+                                        "value": f(np.random.RandomState(
+                                            SEED), 64 * 1024).tolist()},
+                 {"Out": 1}, (), "bits"),
+        "print": ("print", lambda r: {"X": [f(r, 4, 4)]},
+                  {"message": "[sequence sweep] print: "}, {"Out": 1}, (),
+                  "bits"),
+        "delete_var": ("delete_var", lambda r: {"X": [f(r, 4, 4)]}, {}, {},
+                       (), "bits"),
+    }
+    return c
+
+
+def seq_nce(torch, misses):
+    """nce on the card and on the CPU fed the card's draw (the port's
+    nce_negatives returns it): cost, logits and the gradients within
+    DENSE_RTOL, the samples equal; the card's negatives uniform over
+    SEQ_NCE_CLASSES (each class within SEQ_NCE_SPREAD / N of 1 / N) and
+    the same again under the program's seed."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import sampling_ops
+    n, k, batch = SEQ_NCE_CLASSES, 16, 4096
+    r = np.random.RandomState(SEED + 70)
+    arrays = {"Input": [_dense_f(r, batch, 64)],
+              "Weight": [_dense_f(r, n, 64, scale=0.2)],
+              "Bias": [_dense_f(r, n)],
+              "Label": [r.randint(0, n, (batch, 1))]}
+    case = ("nce", None, {"num_total_classes": n, "num_neg_samples": k},
+            {"Cost": 1, "SampleLogits": 1, "SampleLabels": 1},
+            ("Input", "Weight", "Bias"), "rel")
+    main, feed, params, fetch, n_out = dense_program(torch, case, arrays, r)
+    card = [dense_run(torch, ptt.CUDAPlace(0), main, feed, params, fetch)
+            for _ in range(2)]
+    neg = card[0][2][:, 1:]
+    real = sampling_ops.nce_negatives
+    sampling_ops.nce_negatives = lambda ctx, b, kk, nn, device: (
+        torch.from_numpy(neg.copy()).to(device))
+    try:
+        cpu = dense_run(torch, ptt.CPUPlace(), main, feed, params, fetch)
+    finally:
+        sampling_ops.nce_negatives = real
+    worst = sweep_compare("nce", "rel", n_out, card[0], cpu, misses)
+    freq = np.bincount(neg.reshape(-1), minlength=n) / neg.size
+    spread = float(np.abs(freq - 1 / n).max() * n)
+    if not (freq.shape == (n,) and spread <= SEQ_NCE_SPREAD):
+        misses.append(f"nce: the card's negatives are not uniform: "
+                      f"{spread:.3g} of 1 / N off")
+    if not np.array_equal(card[0][2], card[1][2]):
+        misses.append("nce: two runs under one seed drew different samples")
+    return worst, spread
+
+
+def seq_random_crop(torch, misses):
+    """random_crop on the card over an arange X: each run's crop is X's
+    slice at offsets within [0, size - crop], and the same crop again
+    under the program's seed."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    shape, crop = (8, 3, 64, 64), [48, 40]
+    x = np.arange(math.prod(shape), dtype="float32").reshape(shape)
+    case = ("random_crop", None, {"shape": crop}, {"Out": 1}, (), "bits")
+    main, feed, params, fetch, _ = dense_program(torch, case, {"X": [x]},
+                                                 None)
+    outs = [dense_run(torch, ptt.CUDAPlace(0), main, feed, params, fetch)[0]
+            for _ in range(2)]
+    idx = np.unravel_index(int(outs[0].reshape(-1)[0]), shape)
+    off = idx[2:]
+    want = x[:, :, off[0]:off[0] + crop[0], off[1]:off[1] + crop[1]]
+    if not (idx[:2] == (0, 0) and 0 <= off[0] <= shape[2] - crop[0]
+            and 0 <= off[1] <= shape[3] - crop[1]
+            and np.array_equal(outs[0], want)):
+        misses.append(f"random_crop: the crop is not X's slice at offsets "
+                      f"in range: {idx}")
+    if not np.array_equal(outs[0], outs[1]):
+        misses.append("random_crop: two runs under one seed cropped apart")
+    return tuple(int(o) for o in off)
+
+
+def sequence_sweep(torch):
+    """(b) Every op of the plane through the Executor on the card and on
+    the CPU, with the gradients of the differentiable ones through
+    append_backward, held as _sequence_sweep_cases says; nce and
+    random_crop as seq_nce and seq_random_crop hold them.  Returns the
+    misses (empty when every case holds)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    cases = _sequence_sweep_cases()
+    misses, rows = [], {}
+    t0 = time.perf_counter()
+    for name, case in cases.items():
+        rng = np.random.RandomState(SEED + 100 + len(rows))
+        arrays = case[1](rng)
+        main, feed, params, fetch, n_out = dense_program(torch, case,
+                                                         arrays, rng)
+        card = dense_run(torch, ptt.CUDAPlace(0), main, feed, params, fetch)
+        cpu = dense_run(torch, ptt.CPUPlace(), main, feed, params, fetch)
+        worst = sweep_compare(name, case[5], n_out, card, cpu, misses)
+        rows[name] = (case[5], len(fetch) - n_out, worst)
+    nce_err, spread = seq_nce(torch, misses)
+    rows["nce"] = ("rel", 3, nce_err)
+    off = seq_random_crop(torch, misses)
+    rows["random_crop"] = ("slice", 0, 0.0)
+    n_grads = sum(r[1] for r in rows.values())
+    log(f"[sequence sweep] {len(rows)} cases ({len(cases)} held to the CPU,"
+        f" nce on the card's draw, random_crop by its slice), "
+        f"{sum(1 for r in rows.values() if r[0] == 'bits')} bit for bit, "
+        f"{n_grads} gradients; worst relative errors "
+        f"{ {n: float(f'{r[2]:.3g}') for n, r in rows.items() if r[2]} }; "
+        f"nce's draw within {spread:.3g} / N of uniform; random_crop "
+        f"offsets {off}; {len(misses)} misses; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return misses
+
+
+def phase_sequence(torch):
+    """Phase 5o: the CTC model's card-vs-CPU step and TF32 control, its
+    training row, and the sweep of every op the plane added.  Returns the
+    launches of this repo's kernels by path (all 0: no TPU kernel lies
+    on this plane) and the training row, traced at the end of the
+    smoke."""
+    t0 = time.perf_counter()
+    check = ctc_card_vs_cpu(torch)
+    counts, row = ctc_train(torch)
+    counters = launch_counters()
+    zero_counters(counters)
+    misses = sequence_sweep(torch)
+    sweep = {n: v for (n, attr), v in read_counters(counters).items()
+             if attr == "launches"}
+    recs = [r for r in VERIFY_LOG if r["phase"] == "sequence"]
+    log(f"[sequence] CTC check loss {check['loss']:.3g} @GRAD "
+        f"{check['grad']:.3g} (TF32 control {check['ctl_loss']:.3g} / "
+        f"{check['ctl_grad']:.3g}), greedy ties {check['ties']}; CTC "
+        f"run_steps {row['step_ms']:.2f} ms a step, losses "
+        f"{[round(v, 4) for v in row['losses']]}; the gate verified "
+        f"{len(recs)} programs in error mode, "
+        f"{sum(r['errors'] for r in recs)} with an error; this repo's "
+        f"kernels launched {sum(counts.values()) + sum(sweep.values())} "
+        f"times; phase {time.perf_counter() - t0:.1f} s; "
+        f"{nvidia_smi_line()}")
+    if misses:
+        raise RuntimeError("[sequence sweep] the card parts from the CPU:"
+                           "\n  " + "\n  ".join(misses))
+    if not recs or any(r["errors"] for r in recs):
+        raise RuntimeError(f"sequence verifications {recs}")
+    if any(sweep.values()):
+        raise RuntimeError(f"[sequence] launched this repo's kernels: "
+                           f"{sweep}")
+    return {"ctc_speech_train": counts, "sequence_plane": sweep}, row
+
+
+def attributed_launches(raw, label):
+    """Kernel launches under the CPU range `label` (any depth below it)
+    in one profiled call's events."""
+    n = 0
+    for e in raw:
+        p = e
+        while p is not None and p.name != label:
+            p = p.cpu_parent
+        if p is not None:
+            n += len(e.kernels)
+    return n
+
+
+def _ctc_op_launches(torch, op, ins, attrs, wrt):
+    """Kernel launches of one forward and backward of `op` on the card at
+    the CTC model's shapes (the op alone, autograd over `wrt`)."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    ctx = LowerContext(SEED, torch.device(DEVICE))
+    out_slot = {"cudnn_lstm": "Out", "warpctc": "Loss"}[op]
+
+    def call():
+        leaves = [ins[s][0].detach().requires_grad_(True) for s in wrt]
+        run = dict(ins, **{s: [t] for s, t in zip(wrt, leaves)})
+        out = get_op_def(op).lower(ctx, run, attrs)[out_slot][0]
+        torch.autograd.grad(out.sum(), leaves)
+    events, wall = profiled(torch, call)
+    return _device_launches(torch, events), wall / 1e3
+
+
+def trace_ctc(torch, row):
+    """One CTC training step traced by kernel class, with the device's
+    idle share (no kernel of this repo), and the launches a step takes in
+    cudnn_lstm and warpctc: each op's forward inside its range of the
+    traced step, and each op alone, forward and backward, at the step's
+    shapes."""
+    import numpy as np
+    raw = []
+    with op_ranges(torch, ("cudnn_lstm", "warpctc")):
+        names = trace_run(
+            torch, f"CTC training step at batch {CTC_BATCH}",
+            lambda: row["exe"].run(row["main"], feed=row["feed"],
+                                   fetch_list=[row["loss"]],
+                                   return_numpy=False), raw=raw)
+    launches = sum(sum(v.values()) for v in names.values())
+    fwd = {t: attributed_launches(raw, RANGE_PREFIX + t)
+           for t in ("cudnn_lstm", "warpctc")}
+    r = np.random.RandomState(SEED + 62)
+    n_w = 0
+    din = CTC_HIDDEN
+    for _ in range(CTC_LAYERS):
+        n_w += 2 * (din * 4 * CTC_HIDDEN + CTC_HIDDEN * 4 * CTC_HIDDEN
+                    + 4 * CTC_HIDDEN)
+        din = 2 * CTC_HIDDEN
+    dev = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
+    feed = row["feed"]
+    alone = {
+        "cudnn_lstm": _ctc_op_launches(
+            torch, "cudnn_lstm",
+            {"Input": [dev(_dense_f(r, CTC_BATCH, CTC_T, CTC_HIDDEN))],
+             "W": [dev(_dense_f(r, n_w, scale=0.05))]},
+            {"hidden_size": CTC_HIDDEN, "num_layers": CTC_LAYERS,
+             "is_bidirec": True}, ("Input", "W")),
+        "warpctc": _ctc_op_launches(
+            torch, "warpctc",
+            {"Logits": [dev(_dense_f(r, CTC_BATCH, CTC_T, CTC_CLASSES))],
+             "Label": [feed["label"]],
+             "LogitsLength": [feed["input_length"]],
+             "LabelLength": [feed["label_length"]]},
+            {"blank": 0}, ("Logits",))}
+    log(f"[trace]   CTC step: {launches} kernel launches; forward launches"
+        f" inside the op's range {fwd}; each op alone, forward and "
+        f"backward (launches, wall ms) "
+        f"{ {k: (v[0], round(v[1], 2)) for k, v in alone.items()} }")
+    ours = [c for c in names if "(this repo)" in c]
+    if ours:
+        raise RuntimeError(f"the CTC step's trace holds this repo's "
+                           f"kernels: {ours}")
+
 
 BLOCK_GEMMS = "transformer_block GEMMs (this repo)"
 BLOCK_GEMMS_BF16 = "transformer_block GEMMs bf16 (this repo)"
@@ -9683,6 +10446,8 @@ def main():
     q_counts, q_keep = phase_quant(torch)
     VERIFY_PHASE[0] = "dense"
     dense_counts = phase_dense(torch)
+    VERIFY_PHASE[0] = "sequence"
+    sequence_counts, ctc_row = phase_sequence(torch)
     n_verified = len(VERIFY_LOG)
     VERIFY_PHASE[0] = "timings"
     times = phase_timings(torch)
@@ -9770,6 +10535,8 @@ def main():
     del s2s_rows
     trace_quant(torch, q_keep)
     del q_keep
+    trace_ctc(torch, ctc_row)
+    del ctc_row
     short = short_traces(torch)
     n_head_sync = (-(-TRAIN_BATCH * TRAIN_T // HEAD_CHUNK)
                    * HEAD_BWD_SYNC_KERNELS)
@@ -9888,7 +10655,7 @@ def main():
                "train_fuse_block_amp": facounts, **loop_counts,
                **resnet_counts, **xfmr_counts, **deepfm_counts,
                **cnl_counts, **s2s_counts, **sc_counts, **q_counts,
-               **dense_counts}
+               **dense_counts, **sequence_counts}
     kernels = []
     for n, (_, source, replaces) in KERNELS.items():
         path = ("train_fuse_block" if n in FUSE_BLOCK_KERNELS else

@@ -61,7 +61,7 @@ __all__ = ["data", "fc", "embedding", "sparse_embedding", "conv2d",
            "greater_equal", "equal", "not_equal", "logical_and",
            "logical_or", "logical_xor", "logical_not", "increment",
            "fused_mha", "fused_attention_qkv", "fused_multihead_attention",
-           "where", "fused_lm_head_loss"]
+           "where", "fused_lm_head_loss", "sequence_mask"]
 
 
 def data(name: str, shape: Sequence[int], dtype="float32",
@@ -726,6 +726,16 @@ resize_bilinear = image_resize
 
 def resize_nearest(input, out_shape=None, scale=None, name=None):
     return image_resize(input, out_shape, scale, "NEAREST", name=name)
+
+
+def sequence_mask(x, maxlen, dtype="int64"):
+    """[B, maxlen] 1 where a step is below the row's length in x (a
+    static ``maxlen``)."""
+    helper = LayerHelper("sequence_mask")
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("sequence_mask", {"X": [x]}, {"Y": [out]},
+                     {"maxlen": int(maxlen), "out_dtype": str(dtype)})
+    return out
 
 
 def l2_normalize(x, axis, epsilon=1e-12, name=None):

@@ -1,18 +1,28 @@
 """Sequence-family and remaining layer wrappers (counterpart of
-paddle_tpu/layers/sequence.py, the part the machine-translation and
-book models call and the dense plane's wrappers): sequence_conv :41,
-sequence_pool :76, sequence_first_step :86, sequence_last_step :90,
-linear_chain_crf :178, crf_decoding :200, edit_distance :287 (with
-``ignored_tokens`` as sequence_erase ops), sampling_id :354,
+paddle_tpu/layers/sequence.py, all of it but detection's affine_grid
+:527, roi_pool :460, roi_align :475 and psroi_pool :489): sequence_conv
+:41, sequence_context :63, sequence_pool :76, sequence_first_step :86,
+sequence_last_step :90, sequence_softmax :94, sequence_concat :101,
+sequence_slice :106, sequence_expand :112, sequence_expand_as :117,
+sequence_pad :122, sequence_unpad :137, sequence_reshape :142,
+sequence_enumerate :147, sequence_scatter :153, sequence_reverse :159,
+lod_reset :167, linear_chain_crf :178, crf_decoding :200, chunk_eval
+:242, warpctc :263, ctc_greedy_decoder :275, edit_distance :287 (with
+``ignored_tokens`` as sequence_erase ops), nce :312, hsigmoid :335,
+sampling_id :354,
 beam_search :362, beam_search_decode :384, the vision extras conv3d
 :399, conv3d_transpose :419, pool3d :437 and adaptive_pool3d :448,
+im2sequence :502, grid_sampler :514, affine_channel :533,
 space_to_depth :554, crop :559, pad_constant_like :565,
-image_resize_short :570, bpr_loss :589, rank_loss :594,
-margin_rank_loss :600, log_loss :611, dice_loss :618 (composed of
+image_resize_short :570, random_crop :582, bpr_loss :589, rank_loss
+:594, margin_rank_loss :600, log_loss :611, dice_loss :618 (composed of
 element and reduce ops, as JAX's is), mean_iou :642, multiplex :657,
-bilinear_tensor_product :675, shape :723, sum :727,
-gaussian_random_batch_size_like :732 and autoincreased_step_counter
-:739.
+row_conv :662, bilinear_tensor_product :675, add_position_encoding
+:690, similarity_focus :695, hash :701, merge_selected_rows :707,
+get_tensor_from_selected_rows :717, shape :723, sum :727,
+gaussian_random_batch_size_like :732, autoincreased_step_counter :739,
+lstm :762 (the cudnn_lstm op), dynamic_lstmp :796 and scale_sub_region
+:818.
 
 The reference's sequence layers read LoD tensors; here, as in the JAX
 package, a sequence is a padded [B, T, ...] tensor with an optional
@@ -24,11 +34,22 @@ from __future__ import annotations
 import warnings
 from typing import List, Union
 
+from ..framework.initializer import ConstantInitializer
 from ..framework.layer_helper import LayerHelper, ParamAttr
 from ..framework.program import Variable
 
-__all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
-           "sequence_last_step", "linear_chain_crf", "crf_decoding",
+__all__ = ["sequence_conv", "sequence_context", "sequence_pool",
+           "sequence_first_step", "sequence_last_step", "sequence_softmax",
+           "sequence_concat", "sequence_slice", "sequence_expand",
+           "sequence_expand_as", "sequence_pad", "sequence_unpad",
+           "sequence_reshape", "sequence_enumerate", "sequence_scatter",
+           "sequence_reverse", "lod_reset", "chunk_eval", "warpctc",
+           "ctc_greedy_decoder", "nce", "hsigmoid", "im2sequence",
+           "grid_sampler", "affine_channel", "random_crop", "row_conv",
+           "add_position_encoding", "similarity_focus", "hash",
+           "merge_selected_rows", "get_tensor_from_selected_rows", "lstm",
+           "dynamic_lstmp", "scale_sub_region",
+           "linear_chain_crf", "crf_decoding",
            "beam_search", "beam_search_decode", "conv3d",
            "conv3d_transpose", "pool3d", "adaptive_pool3d", "sum",
            "autoincreased_step_counter", "edit_distance", "sampling_id",
@@ -68,6 +89,18 @@ def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
     return helper.append_activation(out, act)
 
 
+def sequence_context(input, context_length, context_start=None,
+                     name=None):
+    """The sliding-window concat over time: [B, T, D] -> [B, T,
+    context_length * D], zeros past the edges (v2's context_projection
+    without weights)."""
+    attrs = {"context_length": int(context_length)}
+    if context_start is not None:
+        attrs["context_start"] = int(context_start)
+    return _simple("sequence_context", {"X": [input]}, attrs,
+                   input.dtype, name=name)
+
+
 def sequence_pool(input, pool_type, mask=None, is_test=False, name=None):
     """SUM, AVERAGE, MAX, SQRT, LAST or FIRST over the time axis of [B,
     T, D], with an optional [B, T] mask."""
@@ -84,6 +117,88 @@ def sequence_first_step(input, mask=None):
 
 def sequence_last_step(input, mask=None):
     return sequence_pool(input, "LAST", mask=mask)
+
+
+def sequence_softmax(input, mask=None, name=None):
+    ins = {"X": [input]}
+    if mask is not None:
+        ins["Mask"] = [mask]
+    return _simple("sequence_softmax", ins, {}, input.dtype, name=name)
+
+
+def sequence_concat(input: List[Variable], name=None):
+    return _simple("sequence_concat", {"X": list(input)}, {},
+                   input[0].dtype, name=name)
+
+
+def sequence_slice(input, offset, length, name=None):
+    return _simple("sequence_slice", {"X": [input]},
+                   {"offset": int(offset), "length": int(length)},
+                   input.dtype, name=name)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    return _simple("sequence_expand", {"X": [x], "Y": [y]},
+                   {"ref_level": ref_level}, x.dtype, name=name)
+
+
+def sequence_expand_as(x, y, name=None):
+    return _simple("sequence_expand_as", {"X": [x], "Y": [y]}, {},
+                   x.dtype, name=name)
+
+
+def sequence_pad(x, pad_value=0.0, maxlen=None, length=None, name=None):
+    """(padded, length), as the reference returns them."""
+    ins = {"X": [x]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out_len = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("sequence_pad", ins,
+                     {"Out": [out], "Length": [out_len]},
+                     {"padded_length": int(maxlen or -1),
+                      "pad_value": pad_value})
+    return out, out_len
+
+
+def sequence_unpad(x, length, name=None):
+    return _simple("sequence_unpad", {"X": [x], "Length": [length]}, {},
+                   x.dtype, name=name)
+
+
+def sequence_reshape(input, new_dim, name=None):
+    return _simple("sequence_reshape", {"X": [input]},
+                   {"new_dim": int(new_dim)}, input.dtype, name=name)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None):
+    return _simple("sequence_enumerate", {"X": [input]},
+                   {"win_size": int(win_size), "pad_value": int(pad_value)},
+                   input.dtype, name=name)
+
+
+def sequence_scatter(input, index, updates, name=None):
+    return _simple("sequence_scatter",
+                   {"X": [input], "Ids": [index], "Updates": [updates]},
+                   {}, input.dtype, name=name)
+
+
+def sequence_reverse(x, length=None, name=None):
+    ins = {"X": [x]}
+    if length is not None:
+        ins["Length"] = [length]
+    return _simple("sequence_reverse", ins, {}, x.dtype, out_slot="Y",
+                   name=name)
+
+
+def lod_reset(x, y=None, target_lod=None, name=None):
+    ins = {"X": [x]}
+    if y is not None:
+        ins["Y"] = [y]
+    return _simple("lod_reset", ins,
+                   {"target_lod": list(target_lod or [])}, x.dtype,
+                   name=name)
 
 
 def linear_chain_crf(input, label, mask=None, param_attr=None, name=None):
@@ -139,6 +254,97 @@ def crf_decoding(input, param_attr, label=None, mask=None, name=None):
     if mask is not None:
         ins["Mask"] = [mask]
     helper.append_op("crf_decoding", ins, {"ViterbiPath": [out]}, {})
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, mask=None, name=None):
+    """(precision, recall, F1, inferred chunks, label chunks, correct
+    chunks), each declared float32 as JAX's layer declares them."""
+    helper = LayerHelper("chunk_eval", name=name)
+    outs, vars_ = {}, []
+    for n in ("Precision", "Recall", "F1-Score", "NumInferChunks",
+              "NumLabelChunks", "NumCorrectChunks"):
+        v = helper.create_variable_for_type_inference("float32", True)
+        outs[n] = [v]
+        vars_.append(v)
+    ins = {"Inference": [input], "Label": [label]}
+    if mask is not None:
+        ins["Mask"] = [mask]
+    helper.append_op("chunk_eval", ins, outs,
+                     {"chunk_scheme": chunk_scheme,
+                      "num_chunk_types": num_chunk_types,
+                      "excluded_chunk_types": excluded_chunk_types or []})
+    return tuple(vars_)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None, name=None):
+    """The CTC loss [B, 1] of logits [B, T, C] against labels [B, S]."""
+    ins = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        ins["LogitsLength"] = [input_length]
+    if label_length is not None:
+        ins["LabelLength"] = [label_length]
+    return _simple("warpctc", ins,
+                   {"blank": blank, "norm_by_times": norm_by_times},
+                   input.dtype, out_slot="Loss", name=name)
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """The greedy CTC decode: arg_max over the classes, then ctc_align's
+    collapse of repeats and blanks."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    am = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("arg_max", {"X": [input]}, {"Out": [am]},
+                     {"axis": -1})
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("ctc_align", {"Input": [am]}, {"Output": [out]},
+                     {"blank": blank})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None):
+    """Noise-contrastive estimation's cost [B, 1]; owns Weight [N, D] and
+    Bias [N]."""
+    helper = LayerHelper("nce", name=name)
+    d = int(input.shape[-1])
+    w = helper.create_parameter(param_attr,
+                                shape=[num_total_classes, d],
+                                dtype=input.dtype)
+    b = helper.create_parameter(bias_attr, shape=[num_total_classes],
+                                dtype=input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    s_logits = helper.create_variable_for_type_inference(input.dtype, True)
+    s_labels = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("nce",
+                     {"Input": [input], "Label": [label], "Weight": [w],
+                      "Bias": [b]},
+                     {"Cost": [cost], "SampleLogits": [s_logits],
+                      "SampleLabels": [s_labels]},
+                     {"num_total_classes": num_total_classes,
+                      "num_neg_samples": num_neg_samples})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """The hierarchical sigmoid's cost [B, 1]; owns W [num_classes - 1,
+    D] and its Bias."""
+    helper = LayerHelper("hsigmoid", name=name)
+    d = int(input.shape[-1])
+    w = helper.create_parameter(param_attr, shape=[num_classes - 1, d],
+                                dtype=input.dtype)
+    b = helper.create_parameter(bias_attr, shape=[num_classes - 1],
+                                dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("hierarchical_sigmoid",
+                     {"X": [input], "Label": [label], "W": [w],
+                      "Bias": [b]},
+                     {"Out": [out], "PreOut": [pre_out]},
+                     {"num_classes": num_classes})
     return out
 
 
@@ -304,6 +510,103 @@ def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64", name=None):  # noqa:
                    dtype, name=name)
 
 
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                per_example=False, name=None):
+    """Patches as rows: [N * oh * ow, C * kh * kw], or [N, oh * ow, C *
+    kh * kw] with ``per_example``."""
+    pads = (list(padding) if isinstance(padding, (list, tuple))
+            else [padding] * 4)
+    return _simple("im2sequence", {"X": [input]},
+                   {"kernels": filter_size, "strides": stride,
+                    "paddings": pads, "per_example": bool(per_example)},
+                   input.dtype, name=name)
+
+
+def grid_sampler(x, grid, name=None):
+    return _simple("grid_sampler", {"X": [x], "Grid": [grid]}, {},
+                   x.dtype, out_slot="Output", name=name)
+
+
+def affine_channel(x, scale=None, bias=None, param_attr=None,
+                   bias_attr=None, data_layout="NCHW", name=None):
+    """scale * x + bias per channel; owns the two parameters (ones and
+    zeros) where they are not passed."""
+    helper = LayerHelper("affine_channel", name=name)
+    c = int(x.shape[1 if data_layout == "NCHW" else -1])
+    if scale is None:
+        scale = helper.create_parameter(
+            param_attr, shape=[c], dtype=x.dtype,
+            default_initializer=ConstantInitializer(1.0))
+    if bias is None:
+        bias = helper.create_parameter(bias_attr, shape=[c],
+                                       dtype=x.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("affine_channel",
+                     {"X": [x], "Scale": [scale], "Bias": [bias]},
+                     {"Out": [out]}, {"data_layout": data_layout})
+    return out
+
+
+def random_crop(x, shape, seed=None, name=None):
+    return _simple("random_crop", {"X": [x]}, {"shape": list(shape)},
+                   x.dtype, name=name)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """The lookahead row convolution; owns Filter [future + 1, D]."""
+    helper = LayerHelper("row_conv", name=name)
+    d = int(input.shape[-1])
+    w = helper.create_parameter(param_attr,
+                                shape=[future_context_size + 1, d],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("row_conv", {"X": [input], "Filter": [w]},
+                     {"Out": [out]}, {})
+    return helper.append_activation(out, act)
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _simple("add_position_encoding", {"X": [input]},
+                   {"alpha": alpha, "beta": beta}, input.dtype, name=name)
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _simple("similarity_focus", {"X": [input]},
+                   {"axis": axis, "indexes": list(indexes)}, input.dtype,
+                   name=name)
+
+
+def hash(input, hash_size, num_hash=1, name=None):  # noqa: A001
+    return _simple("hash", {"X": [input]},
+                   {"mod_by": hash_size, "num_hash": num_hash}, "int64",
+                   name=name)
+
+
+def merge_selected_rows(ids, values, name=None):
+    """(unique ids, their summed rows) of an (Ids, Values) pair."""
+    helper = LayerHelper("merge_selected_rows", name=name)
+    out_ids = helper.create_variable_for_type_inference("int64")
+    out = helper.create_variable_for_type_inference(values.dtype)
+    helper.append_op("merge_selected_rows",
+                     {"Ids": [ids], "Values": [values]},
+                     {"OutIds": [out_ids], "Out": [out]}, {})
+    return out_ids, out
+
+
+def get_tensor_from_selected_rows(ids, values, height, name=None):
+    return _simple("get_tensor_from_selected_rows",
+                   {"Ids": [ids], "Values": [values]},
+                   {"height": height}, values.dtype, name=name)
+
+
+def scale_sub_region(x, indices, value=1.0, name=None):
+    """``value`` times each instance's CHW box of [B, C, H, W]; indices
+    [B, 6], 1-based and inclusive (C0, C1, H0, H1, W0, W1)."""
+    return _simple("scale_sub_region", {"X": [x], "Indices": [indices]},
+                   {"value": float(value)}, x.dtype, name=name)
+
+
 def space_to_depth(x, blocksize, name=None):
     return _simple("space_to_depth", {"X": [x]},
                    {"blocksize": blocksize}, x.dtype, name=name)
@@ -430,3 +733,58 @@ def gaussian_random_batch_size_like(input, shape, mean=0.0, std=1.0,
     return _simple("gaussian_random_batch_size_like", {"Input": [input]},
                    {"shape": list(shape), "mean": mean, "std": std,
                     "dtype": dtype}, dtype, name=name)
+
+
+def lstm(input, init_h=None, init_c=None, max_len=None, hidden_size=None,
+         num_layers=1, dropout_prob=0.0, is_bidirec=False,
+         param_attr=None, name=None):
+    """The cudnn_lstm op's multi-layer LSTM: (out, last_h, last_c), its
+    weights one flat parameter; init_h and init_c optional [num_layers *
+    ndir, B, H].  ``dropout_prob`` and ``max_len`` are accepted as JAX's
+    layer accepts them (no dropout between the layers)."""
+    if hidden_size is None:
+        raise ValueError("layers.lstm: hidden_size is required")
+    helper = LayerHelper("lstm", name=name)
+    ndir = 2 if is_bidirec else 1
+    n, din = 0, int(input.shape[-1])
+    for _ in range(num_layers):
+        n += ndir * (din * 4 * hidden_size + hidden_size * 4 * hidden_size
+                     + 4 * hidden_size)
+        din = hidden_size * ndir
+    w = helper.create_parameter(param_attr, shape=[n], dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    last_h = helper.create_variable_for_type_inference(input.dtype, True)
+    last_c = helper.create_variable_for_type_inference(input.dtype, True)
+    ins = {"Input": [input], "W": [w]}
+    if init_h is not None:
+        ins["InitH"] = [init_h]
+    if init_c is not None:
+        ins["InitC"] = [init_c]
+    helper.append_op("cudnn_lstm", ins,
+                     {"Out": [out], "LastH": [last_h], "LastC": [last_c]},
+                     {"hidden_size": hidden_size, "num_layers": num_layers,
+                      "is_bidirec": is_bidirec})
+    return out, last_h, last_c
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  name=None):
+    """The projected LSTM (the lstmp op) over input [B, T, size] already
+    projected: (projection, the per-step cells), as the reference
+    returns them."""
+    helper = LayerHelper("dynamic_lstmp", name=name)
+    hidden = size // 4
+    w = helper.create_parameter(param_attr,
+                                shape=[proj_size, 4 * hidden],
+                                dtype=input.dtype)
+    pw = helper.create_parameter(None, shape=[hidden, proj_size],
+                                 dtype=input.dtype)
+    proj = helper.create_variable_for_type_inference(input.dtype)
+    cell = helper.create_variable_for_type_inference(input.dtype)
+    last_h = helper.create_variable_for_type_inference(input.dtype, True)
+    last_c = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("lstmp",
+                     {"Input": [input], "Weight": [w], "ProjWeight": [pw]},
+                     {"Projection": [proj], "Cell": [cell],
+                      "LastH": [last_h], "LastC": [last_c]}, {})
+    return proj, cell

@@ -1,11 +1,13 @@
 """The fused transformer block op (counterpart of
 paddle_tpu/ops/fused_ops.py: fused_transformer_block :464),
-depthwise_conv2d_transpose (:238) and fake_quantize_range_abs_max
-(:246)."""
+depthwise_conv2d_transpose (:238), fake_quantize_range_abs_max (:246)
+and the tensor-array plumbing rnn_memory_helper (:297), write_to_array
+(:304) and read_from_array (:329)."""
 from __future__ import annotations
 
 import torch
 
+from ..core.enforce import EnforceNotMet
 from ..framework.registry import register_op, single_input
 from ..kernels.fused_block import transformer_block
 from ._grad_rules import clip, div
@@ -93,3 +95,48 @@ def _fake_quantize_range_abs_max(ctx, ins, attrs):
     outs.update({"Out": [div(q * scale, qmax)],
                  "OutScale": [scale.reshape(1)]})
     return outs
+
+
+@register_op("rnn_memory_helper")
+def _rnn_memory_helper(ctx, ins, attrs):
+    """ref rnn_memory_helper_op.cc: the identity that threads RNN state
+    across steps (its gradient the identity too)."""
+    return {"Out": [single_input(ins, "X")]}
+
+
+def _array_index(i, n):
+    """The row a tensor-array index names, as lax.dynamic_index_in_dim
+    and dynamic_update_index_in_dim take it: a negative index wraps once,
+    then the index is clamped into [0, n - 1] (on a length-3 array 5 and
+    -1 name row 2, -5 row 0).  A [1] int64 tensor: nothing syncs."""
+    i = i.reshape(1).long()
+    return torch.clamp(torch.where(i < 0, i + n, i), 0, n - 1)
+
+
+@register_op("write_to_array")
+def _write_to_array(ctx, ins, attrs):
+    """ref tensor_array_read_write_op.cc, dense: the array is an [N, ...]
+    tensor and X is written into row I (``_array_index``'s rule).
+    Consecutive writes thread the array: the previous write's Out is the
+    next one's Array input; the first write of a fresh array gives its
+    length in the ``array_len`` attr instead."""
+    x = single_input(ins, "X")
+    if ins.get("Array"):
+        arr = ins["Array"][0]
+    else:
+        if "array_len" not in attrs:
+            raise EnforceNotMet(
+                "write_to_array without an Array input needs the "
+                "array_len attr (the fresh array's length); chained "
+                "writes must thread the previous Out into Array")
+        arr = x.new_zeros((int(attrs["array_len"]),) + tuple(x.shape))
+    i = _array_index(single_input(ins, "I"), arr.shape[0])
+    return {"Out": [arr.index_copy(0, i, x.unsqueeze(0).to(arr.dtype))]}
+
+
+@register_op("read_from_array")
+def _read_from_array(ctx, ins, attrs):
+    """Row I of the [N, ...] array X (``_array_index``'s rule)."""
+    x = single_input(ins, "X")
+    i = _array_index(single_input(ins, "I"), x.shape[0])
+    return {"Out": [x.index_select(0, i).squeeze(0)]}

@@ -8,7 +8,9 @@ max_pool3d_with_index :587 (``_max_pool_with_index`` :186), batch_norm
 log_softmax :356, dropout :362, lookup_table :384 with its alias
 lookup_table_v2 :404, the sparse plane's sparse_embedding_lookup :427
 (with ``_hash_mix_u32`` :410) and sparse_scatter_update :450, and the
-resizes interpolate :462, bilinear_interp :497 and nearest_interp :502).
+resizes interpolate :462, bilinear_interp :497 and nearest_interp :502;
+the vision extras affine_channel :507, im2sequence :516, grid_sampler
+:540 and pad3d :571).
 
 The resizes compute what JAX's compute.  With ``align_corners`` (the
 default) a bilinear resize gathers the four corners at jnp.linspace's
@@ -613,3 +615,81 @@ def _bilinear_interp(ctx, ins, attrs):
 @register_op("nearest_interp")
 def _nearest_interp(ctx, ins, attrs):
     return _interpolate(ctx, ins, dict(attrs, interp_method="nearest"))
+
+
+@register_op("affine_channel")
+def _affine_channel(ctx, ins, attrs):
+    """X * Scale + Bias per channel of axis 1 (JAX's lowering reads no
+    ``data_layout``)."""
+    x = single_input(ins)
+    shape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    return {"Out": [x * ins["Scale"][0].reshape(shape)
+                    + ins["Bias"][0].reshape(shape)]}
+
+
+@register_op("im2sequence")
+def _im2sequence(ctx, ins, attrs):
+    """Sliding-window patches as rows (ref im2sequence_op.cc): X [N, C,
+    H, W] padded by ``paddings`` (top, left, bottom, right), each
+    window's C * kh * kw values C-major, then kh, then kw (the order of
+    conv_general_dilated_patches), as rows [N * oh * ow, C * kh * kw], or
+    [N, oh * ow, C * kh * kw] under ``per_example``.  Strided slices
+    stacked, so the values are copies, as the patches' one-hot
+    convolution gives them."""
+    x = single_input(ins)
+    kh, kw = _pair(attrs["kernels"])
+    sh, sw = _pair(attrs.get("strides", 1))
+    p = attrs.get("paddings", [0, 0, 0, 0])
+    x = F.pad(x, (p[1], p[3], p[0], p[2]))
+    n, c, h, w = x.shape
+    oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+    cols = torch.stack([x[:, :, i:i + sh * (oh - 1) + 1:sh,
+                          j:j + sw * (ow - 1) + 1:sw]
+                        for i in range(kh) for j in range(kw)], dim=2)
+    out = cols.reshape(n, c * kh * kw, oh * ow).transpose(1, 2)
+    if attrs.get("per_example"):
+        return {"Out": [out.reshape(n, oh * ow, c * kh * kw)]}
+    return {"Out": [out.reshape(n * oh * ow, c * kh * kw)]}
+
+
+@register_op("grid_sampler")
+def _grid_sampler(ctx, ins, attrs):
+    """Bilinear sampling of X [N, C, H, W] at Grid [N, Ho, Wo, 2] (x, y in
+    [-1, 1], the corners at -1 and 1; ref grid_sampler_op.cc) in JAX's
+    formula, not F.grid_sample's: the four corners of floor(g), each a
+    clipped gather zeroed where the corner lies outside, weighted and
+    summed in JAX's order, so the gradient with respect to Grid follows
+    JAX's float order too."""
+    x = single_input(ins)
+    grid = single_input(ins, "Grid")
+    n, _, h, w = x.shape
+    gx = (grid[..., 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[..., 1] + 1.0) * (h - 1) / 2.0
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    wx1, wy1 = gx - x0, gy - y0
+    wx0, wy0 = 1 - wx1, 1 - wy1
+    batch = torch.arange(n, device=x.device)[:, None, None]
+
+    def sample(yy, xx):
+        yi = torch.clamp(yy, 0, h - 1).long()
+        xi = torch.clamp(xx, 0, w - 1).long()
+        valid = ((yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1))
+        v = torch.movedim(x[batch, :, yi, xi], -1, 1)     # [N, C, Ho, Wo]
+        return v * valid[:, None].to(x.dtype)
+
+    out = (sample(y0, x0) * (wy0 * wx0)[:, None]
+           + sample(y0, x1) * (wy0 * wx1)[:, None]
+           + sample(y1, x0) * (wy1 * wx0)[:, None]
+           + sample(y1, x1) * (wy1 * wx1)[:, None])
+    return {"Output": [out.to(x.dtype)]}
+
+
+@register_op("pad3d")
+def _pad3d(ctx, ins, attrs):
+    """NCDHW constant padding by ``paddings`` [left, right, top, bottom,
+    front, back] with ``value`` (JAX's lowering pads constant whatever
+    the mode)."""
+    x = single_input(ins)
+    return {"Out": [F.pad(x, tuple(int(v) for v in attrs["paddings"]),
+                          value=float(attrs.get("value", 0.0)))]}

@@ -35,7 +35,12 @@ and on tied Viterbi scores; their gradients are in
 pool3d, the index pools on planted ties, group and instance norm), the
 comparison and logical ops under While and Switch, the binary ops of the
 Variable operators and the schedules' two ops join too; their gradients
-and AMP cases are in ``tests/test_torch_conv_extras.py``.
+and AMP cases are in ``tests/test_torch_conv_extras.py``.  The
+sequence, LoD-array, CTC, sampling, selected-rows and vision planes and
+the host ops (``SEQ_PLANE_CASES``, part of ``SEQ_CASES``) join too, with
+their indices wrapped, clamped and dropped, repeated ids, ties and kinks
+planted; their gradients, meta evaluations and random ops are in
+``tests/test_torch_sequence_ops.py``.
 """
 import zlib
 
@@ -952,6 +957,365 @@ for _p in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST", "FIRST"):
     SEQ_CASES[f"sequence_pool_{_p.lower()}_mask"] = _pool_case(_p)
 SEQ_CASES["sequence_pool_last_length"] = _pool_case("LAST", "length")
 SEQ_CASES["sequence_pool_average_nomask"] = _pool_case("AVERAGE", None)
+
+
+def _i64(r, *shape, lo=0, hi=10):
+    return r.randint(lo, hi, shape).astype("int64")
+
+
+def _lengths(*v):
+    return np.array(v, "int64")
+
+
+def _ctc_ins(r, B=4, T=9, C=5, S=3, logits_len=None, label_len=None,
+             label=None):
+    """warpctc's inputs: seeded logits, labels over 1 .. C-1 (blank 0)
+    with a repeated pair planted (no skip between them)."""
+    lab = _i64(r, B, S, lo=1, hi=C) if label is None else label
+    if label is None:
+        lab[0, 1] = lab[0, 0]
+    ins = {"Logits": [_rand(r, B, T, C) * 2], "Label": [lab]}
+    if logits_len is not None:
+        ins["LogitsLength"] = [_lengths(*logits_len)]
+    if label_len is not None:
+        ins["LabelLength"] = [_lengths(*label_len)]
+    return ins
+
+
+def _cudnn_w(r, D, H, L, ndir):
+    n, din = 0, D
+    for _ in range(L):
+        n += ndir * (din * 4 * H + H * 4 * H + 4 * H)
+        din = H * ndir
+    return _rand(r, n) * 0.4
+
+
+def _zero_rows(a, *rows):
+    a[list(rows)] = 0.0
+    return a
+
+
+_CHUNK_OUT = ["Precision", "Recall", "F1-Score", "NumInferChunks",
+              "NumLabelChunks", "NumCorrectChunks"]
+
+# the sequence, LoD-array, CTC, sampling and selected-rows planes and the
+# vision and host extras (JAX's tests/test_op_sweep.py SPECS shapes, and
+# planted cases: indices wrapped, clamped and dropped, repeated ids,
+# ties, a clip's bounds, 0 in a stable cross entropy, CTC's frozen rows
+# and empty labels, excluded chunk types).  SAME for copies, indices and
+# integers; EXACT for elementwise math and short sums; MATMUL where a
+# product or a recurrence enters.  add_position_encoding at EXACT's atol
+# 1e-5: XLA's pow, sin and cos on the CPU and torch's may part by ulps
+# of the angle, up to T (64 here)
+SEQ_PLANE_CASES = {
+    "sequence_mask": ("sequence_mask", lambda r: {
+        "X": [_i64(r, 3, lo=1, hi=5)]}, {"maxlen": 5}, ["Y"], SAME),
+    "sequence_mask_zero_and_past_maxlen_f32": (
+        "sequence_mask", lambda r: {"X": [np.array([[0], [7], [3]],
+                                                   "int64")]},
+        {"maxlen": 5, "out_dtype": "float32"}, ["Y"], SAME),
+    "sequence_softmax": ("sequence_softmax", lambda r: {
+        "X": [_rand(r, 3, 5)]}, {}, ["Out"], EXACT),
+    "sequence_softmax_mask": ("sequence_softmax", lambda r: {
+        "X": [_rand(r, 4, 6) * 3], "Mask": [_mask(r, 4, 6)]}, {}, ["Out"],
+        EXACT),
+    "sequence_softmax_length_3d": ("sequence_softmax", lambda r: {
+        "X": [_rand(r, 3, 5, 2)], "Length": [_lengths(5, 1, 3)]}, {},
+        ["Out"], EXACT),
+    "sequence_expand": ("sequence_expand", lambda r: {
+        "X": [_rand(r, 2, 3)], "Y": [_rand(r, 2, 4, 3)]}, {"ref_level": -1},
+        ["Out"], SAME),
+    "sequence_expand_as_3d": ("sequence_expand_as", lambda r: {
+        "X": [_rand(r, 2, 3, 2)], "Y": [_rand(r, 2, 5)]}, {}, ["Out"], SAME),
+    "sequence_reverse": ("sequence_reverse", lambda r: {
+        "X": [_rand(r, 2, 4, 3)]}, {}, ["Y"], SAME),
+    "sequence_reverse_length": ("sequence_reverse", lambda r: {
+        "X": [_rand(r, 4, 5, 2)], "Length": [_lengths(5, 0, 1, 3)]}, {},
+        ["Y"], SAME),
+    "sequence_concat": ("sequence_concat", lambda r: {
+        "X": [_rand(r, 2, 3, 4), _rand(r, 2, 2, 4)]}, {}, ["Out"], SAME),
+    "sequence_slice": ("sequence_slice", lambda r: {
+        "X": [_rand(r, 3, 5, 2)]}, {"offset": 1, "length": 2}, ["Out"],
+        SAME),
+    "sequence_slice_past_end": ("sequence_slice", lambda r: {
+        "X": [_rand(r, 3, 5, 2)]}, {"offset": 3, "length": 4}, ["Out"],
+        SAME),
+    "sequence_pad_longer": ("sequence_pad", lambda r: {
+        "X": [_rand(r, 2, 4, 3)], "Length": [_i64(r, 2, lo=1, hi=4)]},
+        {"padded_length": 6, "pad_value": 1.5}, ["Out", "Length"], SAME),
+    "sequence_pad_shorter_no_length": ("sequence_pad", lambda r: {
+        "X": [_rand(r, 2, 5, 3)]}, {"padded_length": 3},
+        ["Out", "Length"], SAME),
+    # the layer's default padded_length -1 drops the last step in both
+    "sequence_pad_default": ("sequence_pad", lambda r: {
+        "X": [_rand(r, 2, 4)]}, {"padded_length": -1, "pad_value": 0.0},
+        ["Out", "Length"], SAME),
+    "sequence_unpad": ("sequence_unpad", lambda r: {
+        "X": [_rand(r, 2, 5, 3)], "Length": [_i64(r, 2, lo=1, hi=5)]}, {},
+        ["Out"], SAME),
+    "sequence_enumerate": ("sequence_enumerate", lambda r: {
+        "X": [_i64(r, 2, 5, hi=9)]}, {"win_size": 3, "pad_value": 7},
+        ["Out"], SAME),
+    "sequence_reshape": ("sequence_reshape", lambda r: {
+        "X": [_rand(r, 2, 4, 6)]}, {"new_dim": 3}, ["Out"], SAME),
+    # ids -1 (wraps into the last step), 6 and -7 (dropped), a repeat
+    "sequence_scatter_planted_ids": ("sequence_scatter", lambda r: {
+        "X": [_rand(r, 3, 6)],
+        "Ids": [np.array([[1, 1, -1, 6], [0, 5, -7, 2], [3, 3, 3, -6]],
+                         "int64")],
+        "Updates": [_rand(r, 3, 4)]}, {}, ["Out"], EXACT),
+    "sequence_scatter_3d": ("sequence_scatter", lambda r: {
+        "X": [_rand(r, 2, 6, 3)], "Ids": [_i64(r, 2, 3, hi=6)],
+        "Updates": [_rand(r, 2, 3, 3)]}, {}, ["Out"], EXACT),
+    "lod_reset": ("lod_reset", lambda r: {"X": [_rand(r, 4, 3)]},
+                  {"target_lod": []}, ["Out"], SAME),
+    "row_conv": ("row_conv", lambda r: {
+        "X": [_rand(r, 2, 5, 3)], "Filter": [_rand(r, 3, 3) * 0.3]}, {},
+        ["Out"], EXACT),
+    "add_position_encoding": ("add_position_encoding", lambda r: {
+        "X": [_rand(r, 2, 5, 4)]}, {}, ["Out"], EXACT),
+    "add_position_encoding_t64_alpha_beta": (
+        "add_position_encoding", lambda r: {"X": [_rand(r, 2, 64, 16)]},
+        {"alpha": 0.5, "beta": 2.0}, ["Out"], EXACT),
+    # the LoD arrays
+    "lod_rank_table_mask_ties": ("lod_rank_table", lambda r: {
+        "X": [np.array([[1, 1, 0, 0], [1, 1, 1, 0], [1, 1, 0, 0],
+                        [1, 1, 1, 1]], "float32")]}, {},
+        ["Out", "Lengths"], SAME),
+    "lod_rank_table_lengths": ("lod_rank_table", lambda r: {
+        "X": [_lengths(2, 5, 2, 1, 5)]}, {}, ["Out", "Lengths"], SAME),
+    "max_sequence_len": ("max_sequence_len", lambda r: {
+        "X": [np.array([[1, 1, 0], [1, 1, 1]], "float32")]}, {}, ["Out"],
+        SAME),
+    "max_sequence_len_rank_table": ("max_sequence_len", lambda r: {
+        "RankTable": [_lengths(3, 7, 2)]}, {}, ["Out"], SAME),
+    "reorder_lod_tensor_by_rank": ("reorder_lod_tensor_by_rank", lambda r: {
+        "X": [_rand(r, 4, 3)], "RankTable": [_lengths(2, 0, 3, 1)]}, {},
+        ["Out"], SAME),
+    "tensor_array_to_tensor": ("tensor_array_to_tensor", lambda r: {
+        "X": [_rand(r, 2, 3), _rand(r, 2, 3)]}, {"axis": 0},
+        ["Out", "OutIndex"], SAME),
+    "tensor_array_to_tensor_axis1": ("tensor_array_to_tensor", lambda r: {
+        "X": [_rand(r, 2, 3), _rand(r, 2, 1), _rand(r, 2, 2)]},
+        {"axis": 1}, ["Out", "OutIndex"], SAME),
+    "tensor_array_to_tensor_stack": ("tensor_array_to_tensor", lambda r: {
+        "X": [_rand(r, 2, 3), _rand(r, 2, 3)]},
+        {"axis": 1, "use_stack": True}, ["Out", "OutIndex"], SAME),
+    "split_lod_tensor": ("split_lod_tensor", lambda r: {
+        "X": [_rand(r, 4, 3)], "Mask": [np.array([[True], [False],
+                                                  [True], [False]])]}, {},
+        ["OutTrue", "OutFalse"], SAME),
+    "merge_lod_tensor": ("merge_lod_tensor", lambda r: {
+        "InTrue": [_rand(r, 4, 3, 2)], "InFalse": [_rand(r, 4, 3, 2)],
+        "Mask": [_i64(r, 4, 1, hi=2).astype(bool)]}, {}, ["Out"], SAME),
+    "lod_array_length": ("lod_array_length", lambda r: {
+        "X": [_rand(r, 2, 3), _rand(r, 2, 3), _rand(r, 2, 3)]}, {},
+        ["Out"], SAME),
+    "lod_tensor_to_array": ("lod_tensor_to_array", lambda r: {
+        "X": [_rand(r, 3, 4, 2)], "RankTable": [_lengths(2, 0, 1)]}, {},
+        ["Out"], SAME),
+    "array_to_lod_tensor": ("array_to_lod_tensor", lambda r: {
+        "X": [_rand(r, 3, 2) for _ in range(4)],
+        "RankTable": [_lengths(2, 0, 1)]}, {}, ["Out"], SAME),
+    "shrink_rnn_memory": ("shrink_rnn_memory", lambda r: {
+        "X": [_rand(r, 3, 4, 2)], "RankTable": [_lengths(4, 3, 1)],
+        "I": [_lengths(2)]}, {}, ["Out"], SAME),
+    "rnn_memory_helper": ("rnn_memory_helper", lambda r: {
+        "X": [_rand(r, 2, 3)]}, {}, ["Out"], SAME),
+    "write_to_array_fresh": ("write_to_array", lambda r: {
+        "X": [_rand(r, 3, 4)], "I": [_lengths(1)]}, {"array_len": 4},
+        ["Out"], SAME),
+    # lax's rule on a length-3 array: 5 clamps to row 2, -1 wraps to row 2,
+    # -5 wraps to -2 and clamps to row 0
+    **{f"write_to_array_index_{i}": ("write_to_array", lambda r, i=i: {
+        "X": [_rand(r, 2, 4)], "I": [_lengths(i)],
+        "Array": [_rand(r, 3, 2, 4)]}, {}, ["Out"], SAME)
+       for i in (2, 5, -1, -5)},
+    **{f"read_from_array_index_{i}": ("read_from_array", lambda r, i=i: {
+        "X": [_rand(r, 3, 2)], "I": [_lengths(i)]}, {}, ["Out"], SAME)
+       for i in (1, 7, -1, -4)},
+    # the recurrent extras
+    "sequence_context_len3": ("sequence_context", lambda r: {
+        "X": [_rand(r, 2, 5, 3)]}, {"context_length": 3}, ["Out"], SAME),
+    "sequence_context_len4_default_start": ("sequence_context", lambda r: {
+        "X": [_rand(r, 2, 5, 2)]}, {"context_length": 4}, ["Out"], SAME),
+    "sequence_context_start0": ("sequence_context", lambda r: {
+        "X": [_rand(r, 2, 4, 2)]}, {"context_length": 2, "context_start": 0},
+        ["Out"], SAME),
+    "conv_shift": ("conv_shift", lambda r: {
+        "X": [_rand(r, 2, 6)], "Y": [_rand(r, 2, 3)]}, {}, ["Out"], EXACT),
+    "lstmp": ("lstmp", lambda r: {
+        "Input": [_rand(r, 2, 4, 8)], "Weight": [_rand(r, 3, 8) * 0.5],
+        "ProjWeight": [_rand(r, 2, 3) * 0.5]}, {},
+        ["Projection", "Cell", "LastH", "LastC"], MATMUL),
+    "lstmp_h0_c0": ("lstmp", lambda r: {
+        "Input": [_rand(r, 3, 5, 12)], "Weight": [_rand(r, 2, 12) * 0.5],
+        "ProjWeight": [_rand(r, 3, 2) * 0.5], "H0": [_rand(r, 3, 2)],
+        "C0": [_rand(r, 3, 3)]}, {},
+        ["Projection", "Cell", "LastH", "LastC"], MATMUL),
+    "cudnn_lstm": ("cudnn_lstm", lambda r: {
+        "Input": [_rand(r, 2, 4, 3)], "W": [_cudnn_w(r, 3, 5, 1, 1)]},
+        {"hidden_size": 5, "num_layers": 1}, ["Out", "LastH", "LastC"],
+        MATMUL),
+    "cudnn_lstm_2layer_bidirec_init": ("cudnn_lstm", lambda r: {
+        "Input": [_rand(r, 3, 5, 4)], "W": [_cudnn_w(r, 4, 3, 2, 2)],
+        "InitH": [_rand(r, 4, 3, 3)], "InitC": [_rand(r, 4, 3, 3)]},
+        {"hidden_size": 3, "num_layers": 2, "is_bidirec": True},
+        ["Out", "LastH", "LastC"], MATMUL),
+    # CTC and chunks
+    "warpctc": ("warpctc", lambda r: _ctc_ins(r), {}, ["Loss"], MATMUL),
+    # frozen rows (LogitsLength < T), an empty label, LabelLength < S
+    "warpctc_lengths_empty_label": ("warpctc", lambda r: _ctc_ins(
+        r, logits_len=(9, 4, 6, 7), label_len=(3, 0, 2, 1)),
+        {"norm_by_times": True}, ["Loss"], MATMUL),
+    # no LabelLength: the labels' lengths count entries >= 0, not blank
+    "warpctc_padded_labels_blank2": ("warpctc", lambda r: _ctc_ins(
+        r, label=np.array([[[1], [3], [-1]], [[0], [4], [4]], [[-1], [-1],
+                                                          [-1]],
+                           [[3], [1], [1]]], "int64")),
+        {"blank": 2}, ["Loss"], MATMUL),
+    "ctc_align_runs_blanks": ("ctc_align", lambda r: {
+        "Input": [np.array([[0, 1, 1, 0, 1, 2, 2, 0], [0, 0, 0, 0, 0, 0, 0,
+                                                        0],
+                            [3, 3, 3, 1, 0, 0, 1, 3]], "int64")]}, {},
+        ["Output"], SAME),
+    "ctc_align_blank2_pad": ("ctc_align", lambda r: {
+        "Input": [_i64(r, 3, 7, 1, hi=4)]},
+        {"blank": 2, "padding_value": -1}, ["Output"], SAME),
+    "chunk_eval": ("chunk_eval", lambda r: {
+        "Inference": [_i64(r, 2, 9, hi=5)], "Label": [_i64(r, 2, 9, hi=5)]},
+        {"num_chunk_types": 2}, _CHUNK_OUT, EXACT),
+    "chunk_eval_excluded_mask": ("chunk_eval", lambda r: {
+        "Inference": [_i64(r, 3, 8, 1, hi=7)],
+        "Label": [_i64(r, 3, 8, 1, hi=7)], "Mask": [_mask(r, 3, 8)]},
+        {"num_chunk_types": 3, "excluded_chunk_types": [1]}, _CHUNK_OUT,
+        EXACT),
+    "chunk_eval_planted": ("chunk_eval", lambda r: {
+        "Inference": [np.array([[0, 1, 1, 4, 2, 3, 1, 0]], "int64")],
+        "Label": [np.array([[0, 1, 1, 4, 2, 3, 4, 0]], "int64")]},
+        {"num_chunk_types": 2}, _CHUNK_OUT, EXACT),
+    # sampling: a zero row of X puts z = 0 in the cross entropy
+    "hierarchical_sigmoid": ("hierarchical_sigmoid", lambda r: {
+        "X": [_zero_rows(_rand(r, 3, 4), 1)], "W": [_rand(r, 7, 4)],
+        "Label": [_i64(r, 3, hi=8)]}, {"num_classes": 8},
+        ["Out", "PreOut"], MATMUL),
+    "hierarchical_sigmoid_6_bias": ("hierarchical_sigmoid", lambda r: {
+        "X": [_rand(r, 5, 4)], "W": [_rand(r, 5, 4)],
+        "Label": [np.array([[0], [5], [3], [4], [1]], "int64")],
+        "Bias": [_rand(r, 5)]}, {"num_classes": 6}, ["Out", "PreOut"],
+        MATMUL),
+    # hard labels at z = 0, soft ones at the clip's bounds and beyond
+    "teacher_student_planted": ("teacher_student_sigmoid_loss", lambda r: {
+        "X": [np.array([[0.0], [0.0], [15.0], [-15.0], [20.0], [-3.0],
+                        [0.7], [2.0]], "float32")],
+        "Label": [np.array([[0.0], [1.0], [0.3], [0.6], [0.9], [0.0],
+                            [1.0], [0.5]], "float32")]},
+        {"soft_max_up_bound": 15.0, "soft_max_lower_bound": -15.0}, ["Y"],
+        EXACT),
+    "teacher_student_sigmoid_loss": ("teacher_student_sigmoid_loss",
+                                     lambda r: {
+        "X": [_rand(r, 4, 1)], "Label": [r.rand(4, 1).astype("float32")]},
+        {}, ["Y"], EXACT),
+    "positive_negative_pair_ties": ("positive_negative_pair", lambda r: {
+        "Score": [np.round(r.rand(8, 1) * 3).astype("float32")],
+        "Label": [_i64(r, 8, 1, hi=3).astype("float32")],
+        "QueryID": [_i64(r, 8, 1, hi=2)]}, {},
+        ["PositivePair", "NegativePair", "NeutralPair"], SAME),
+    # selected rows and ids
+    "unique": ("unique", lambda r: {"X": [_i64(r, 6, hi=4)]}, {},
+               ["Out", "Index", "Count"], SAME),
+    "unique_float": ("unique", lambda r: {
+        "X": [np.array([1.5, -2.0, 1.5, 0.0, -2.0, 3.0], "float32")]}, {},
+        ["Out", "Index", "Count"], SAME),
+    "unique_with_counts": ("unique_with_counts", lambda r: {
+        "X": [_i64(r, 9, hi=4)]}, {},
+        ["Out", "Index", "Count", "UniqueCount"], SAME),
+    "hash": ("hash", lambda r: {"X": [_i64(r, 4, 2, hi=100)]},
+             {"num_hash": 2, "mod_by": 1000}, ["Out"], SAME),
+    "hash_wide_ids": ("hash", lambda r: {
+        "X": [np.array([[2**31 + 7, 5, 9], [-5, 2**32 + 3, 0],
+                        [123456789, -1, 2**40 + 11]], "int64")]},
+        {"num_hash": 3, "mod_by": 100003}, ["Out"], SAME),
+    "lookup_sparse_table": ("lookup_sparse_table", lambda r: {
+        "W": [_rand(r, 10, 4)], "Ids": [_i64(r, 5)]}, {}, ["Out"], SAME),
+    "split_ids_negative": ("split_ids", lambda r: {
+        "Ids": [np.array([5, -3, 0, 17, -8, 2], "int64")]},
+        {"num_shards": 3}, ["Out"], SAME),
+    "merge_ids": ("merge_ids", lambda r: {
+        "X": [_rand(r, 4, 2), _rand(r, 4, 2)]}, {}, ["Out"], SAME),
+    "merge_selected_rows_repeats": ("merge_selected_rows", lambda r: {
+        "Ids": [np.array([3, 1, 3, 3, 0, 1], "int64")],
+        "Values": [_rand(r, 6, 2)]}, {}, ["OutIds", "Out"], EXACT),
+    "split_selected_rows": ("split_selected_rows", lambda r: {
+        "Ids": [_i64(r, 6, hi=10)], "Values": [_rand(r, 6, 2)]},
+        {"height_sections": [4, 6]}, ["OutIds", "Out"], SAME),
+    # -1 (the shards' pad) and 6 (past height) add nothing; 2 repeats
+    "get_tensor_from_selected_rows_planted": (
+        "get_tensor_from_selected_rows", lambda r: {
+            "Ids": [np.array([2, -1, 6, 2, 0], "int64")],
+            "Values": [_rand(r, 5, 3)]}, {"height": 6}, ["Out"], EXACT),
+    # vision
+    "affine_channel": ("affine_channel", lambda r: {
+        "X": [_rand(r, 2, 3, 2, 2)], "Scale": [_rand(r, 3)],
+        "Bias": [_rand(r, 3)]}, {}, ["Out"], EXACT),
+    "im2sequence": ("im2sequence", lambda r: {"X": [_rand(r, 1, 1, 4, 4)]},
+                    {"kernels": [2, 2], "strides": [2, 2],
+                     "paddings": [0, 0, 0, 0]}, ["Out"], SAME),
+    "im2sequence_padded_per_example": ("im2sequence", lambda r: {
+        "X": [_rand(r, 2, 3, 5, 4)]},
+        {"kernels": [3, 2], "strides": [1, 2], "paddings": [1, 0, 1, 1],
+         "per_example": True}, ["Out"], SAME),
+    # coordinates past the edges and on the pixel grid (x = 0, +-1)
+    "grid_sampler": ("grid_sampler", lambda r: {
+        "X": [_rand(r, 1, 2, 4, 4)], "Grid": [_rand(r, 1, 3, 3, 2) * 0.4]},
+        {}, ["Output"], EXACT),
+    "grid_sampler_edges": ("grid_sampler", lambda r: {
+        "X": [_rand(r, 2, 3, 5, 4)],
+        "Grid": [np.concatenate([_rand(r, 2, 3, 4, 2) * 1.3, np.tile(
+            np.array([0.0, 1.0, -1.0, 1 / 3], "float32")[None, None, :,
+                                                          None],
+            (2, 1, 1, 2))], axis=1)]}, {}, ["Output"], EXACT),
+    "pad3d": ("pad3d", lambda r: {"X": [_rand(r, 1, 2, 3, 3, 3)]},
+              {"paddings": [1, 0, 2, 1, 0, 2], "value": 0.5}, ["Out"],
+              SAME),
+    "shuffle_channel": ("shuffle_channel", lambda r: {
+        "X": [_rand(r, 2, 6, 2, 3)]}, {"group": 3}, ["Out"], SAME),
+    "similarity_focus_ties": ("similarity_focus", lambda r: {
+        "X": [np.round(r.rand(2, 3, 3, 4) * 2).astype("float32")]},
+        {"axis": 1, "indexes": [0, 2]}, ["Out"], SAME),
+    "similarity_focus_axis2": ("similarity_focus", lambda r: {
+        "X": [_rand(r, 2, 3, 4, 5)]}, {"axis": 2, "indexes": [1]}, ["Out"],
+        SAME),
+    "spp_max": ("spp", lambda r: {"X": [_rand(r, 2, 2, 7, 5)]},
+                {"pyramid_height": 3}, ["Out"], SAME),
+    "spp_avg": ("spp", lambda r: {"X": [_rand(r, 1, 2, 4, 4)]},
+                {"pyramid_height": 2, "pooling_type": "avg"}, ["Out"],
+                EXACT),
+    # a repeated index sums, -1 wraps to the last cell, 16 is dropped
+    "unpool_planted": ("unpool", lambda r: {
+        "X": [_rand(r, 1, 2, 2, 2)],
+        "Indices": [np.array([[[[0, 3], [12, 15]], [[5, 5], [-1, 16]]]],
+                             "int64")]},
+        {"unpooled_height": 4, "unpooled_width": 4}, ["Out"], EXACT),
+    "scale_sub_region": ("scale_sub_region", lambda r: {
+        "X": [_rand(r, 2, 3, 4, 4)],
+        "Indices": [np.array([[1, 2, 2, 3, 1, 4], [3, 3, 1, 1, 2, 2]],
+                             "int64")]}, {"value": 2.5}, ["Out"], SAME),
+    # host ops
+    "fill": ("fill", lambda r: {}, {"shape": [2, 2], "dtype": "float32",
+                                    "value": [1.0, 2.0, 3.0, 4.0]},
+             ["Out"], SAME),
+    "fill_int32": ("fill", lambda r: {}, {"shape": [3], "dtype": "int32",
+                                          "value": [7, -1, 2]}, ["Out"],
+                   SAME),
+    "print": ("print", lambda r: {"X": [_rand(r, 2, 2)]},
+              {"message": "sweep: "}, ["Out"], SAME),
+    "delete_var": ("delete_var", lambda r: {"X": [_rand(r, 2, 2)]}, {}, [],
+                   SAME),
+}
+for _name in SEQ_PLANE_CASES:
+    assert _name not in SEQ_CASES, _name
+SEQ_CASES.update(SEQ_PLANE_CASES)
 
 
 
